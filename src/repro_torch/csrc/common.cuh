@@ -1,0 +1,30 @@
+// Shared helpers for the hand-written Hopper kernels of repro_torch.
+//
+// Every library built from csrc/ has a plain C interface (loaded with
+// ctypes by repro_torch/kernels/build.py): pointers and the CUDA stream
+// arrive as void*, sizes as int.  Each entry point launches on the caller's
+// stream, allocates nothing, and returns cudaGetLastError() so the Python
+// wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Human-readable text for an error code returned by an entry point.
+REPRO_EXPORT const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+__device__ __forceinline__ int32_t warp_sum_i32(int32_t v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum_f32(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}

@@ -1,0 +1,135 @@
+"""Build and load the hand-written CUDA kernels under ``repro_torch/csrc``.
+
+Each ``csrc/<name>.cu`` compiles, with ``nvcc`` for ``sm_90a``, into its own
+shared library with a plain C interface, loaded with ``ctypes``.  Builds
+happen on first use (never at import: the CPU-only test hosts have no
+``nvcc``), go to ``build/repro_torch/<hash>/`` at the repository root --
+keyed by a hash of the sources and flags -- and all missing libraries are
+compiled in parallel, one ``nvcc`` per source.  A missing ``nvcc`` or a
+failed compile raises; there is no fallback.
+
+Kernel wrappers bind their entry points with :func:`bind`, which sets
+``argtypes`` (``c_void_p`` for pointers and the stream, ``c_int`` for ints:
+without them ctypes would cut 64-bit pointers) and returns a callable that
+raises on a nonzero ``cudaError_t``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("quant_pack", "ulppack_matmul", "attention_decode")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def build_root() -> Path:
+    """``build/repro_torch`` at the repository root (listed in .gitignore)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the repro_torch "
+            "CUDA kernels are compiled on first use and need the CUDA "
+            "toolkit; CPU tensors use the plain PyTorch versions instead")
+    return path
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_dir() -> Path:
+    return build_root() / _source_hash()
+
+
+def build(names=SOURCES) -> dict[str, Path]:
+    """Compile every library of ``names`` not yet built, all in parallel.
+
+    Returns {name: path of the .so}.  ``nvcc``'s ``-Xptxas -v`` report
+    (registers, shared memory, spills per kernel) is kept beside each
+    library as ``<name>.log``."""
+    out_dir = lib_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {n: out_dir / f"lib{n}.so" for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
+    exe = nvcc()
+    procs = {}
+    for n in todo:
+        tmp = out_dir / f"lib{n}.{os.getpid()}.tmp.so"
+        cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        (out_dir / f"{n}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n"
+                          f"{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, paths[n])   # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (building all missing
+    libraries on first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            paths = build()
+            for n, p in paths.items():
+                if n not in _libs:
+                    _libs[n] = ctypes.CDLL(str(p))
+            lib = _libs[name]
+    return lib
+
+
+def bind(name: str, fn_name: str, n_ptrs: int, n_ints: int):
+    """Bind ``int fn(void* x n_ptrs, int x n_ints, int device, void*
+    stream)`` from library ``name``; the returned callable raises
+    RuntimeError when the entry point reports a CUDA error."""
+    lib = load(name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err_str = lib.repro_error_string
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+
+    def call(*args):
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{fn_name}: CUDA error {err} "
+                f"({err_str(err).decode(errors='replace')})")
+
+    return call

@@ -1,0 +1,110 @@
+"""Public kernel API: plan-dispatched packed ops + affine-corrected linear
+(counterpart of ``repro/kernels/ops.py``).
+
+Every entry point routes through a ``KernelPlan`` (kernels/plan.py): a
+caller passes a prebuilt per-layer plan or one is looked up from the
+memoized planners for the shape signature and the operand's device.  The
+'torch' and 'cuda' implementations are entries in the plan module's
+backend registry, registered by the kernel modules.
+
+``backend``:
+  'cuda'  -- the hand-written Hopper kernels (CUDA tensors only).
+  'torch' -- the plain PyTorch versions.
+  'auto'  -- 'cuda' for CUDA tensors, 'torch' for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core import packing, quant
+from repro_torch.core.packing import PackSpec
+from repro_torch.kernels import plan as plan_lib
+from repro_torch.kernels import quant_pack as _quant_pack  # noqa: F401
+from repro_torch.kernels import ulppack_matmul as _matmul  # noqa: F401
+from repro_torch.kernels.plan import KernelPlan
+
+
+def packed_matmul(a_packed, w_packed, spec: PackSpec, *,
+                  backend: str = "auto",
+                  plan: KernelPlan | None = None) -> torch.Tensor:
+    """[.., Kp] x [Kp, N] -> exact int32 dot of the underlying lattices."""
+    lead = a_packed.shape[:-1]
+    a2 = a_packed.reshape(-1, a_packed.shape[-1])
+    if plan is None:
+        plan = plan_lib.plan_packed_matmul(
+            a2.shape[0], a2.shape[1], w_packed.shape[-1], spec,
+            backend=backend, device=a2.device)
+    out = plan_lib.dispatch(plan, a2, w_packed)
+    return out.reshape(*lead, w_packed.shape[-1])
+
+
+def quantize_pack(x, scale, zero_point, spec: PackSpec, *,
+                  backend: str = "auto", plan: KernelPlan | None = None):
+    """Quantize + P1-pack activations along the last axis; also row sums."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if plan is None:
+        plan = plan_lib.plan_quantize_pack(x2.shape[0], x2.shape[1], spec,
+                                           backend=backend, device=x2.device)
+    packed, rs = plan_lib.dispatch(plan, x2, scale, zero_point)
+    return packed.reshape(*lead, packed.shape[-1]), rs.reshape(*lead, 1)
+
+
+def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
+                     spec: PackSpec, *, bias=None, backend: str = "auto",
+                     plan: KernelPlan | None = None,
+                     out_dtype=torch.float32):
+    """The deployed Sparq linear: runtime pack + packed matmul + dequant.
+
+    x:          [..., K] float activations
+    w_packed:   [Kp, N] offline-packed weight lanes (field-reversed)
+    w_col_sums: [N] int32 offline per-column lattice sums
+    Returns float [..., N]; equals ``ref.quantized_linear_ref`` to float
+    tolerance and its integer core exactly.
+    """
+    k = x.shape[-1]
+    if plan is None:
+        rows = math.prod(x.shape[:-1])
+        plan = plan_lib.plan_packed_matmul(
+            rows, -(-k // spec.n_pack), w_packed.shape[-1], spec,
+            backend=backend, device=x.device)
+    a_packed, a_sums = quantize_pack(x, a_scale, a_zp, spec,
+                                     backend=plan.backend)
+    acc = packed_matmul(a_packed, w_packed, spec, plan=plan)
+    f32 = torch.float32
+    a_zp_f = torch.as_tensor(a_zp).to(f32)
+    w_zp_f = torch.as_tensor(w_zp).to(f32)
+    corr = (acc.to(f32)
+            - w_zp_f * a_sums.to(f32)
+            - a_zp_f * w_col_sums.to(f32)
+            + k * a_zp_f * w_zp_f)
+    out = torch.as_tensor(a_scale).to(f32) * torch.as_tensor(w_scale).to(f32) \
+        * corr
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Offline weight preparation
+# ---------------------------------------------------------------------------
+
+def prepare_weights(w, w_scale, w_zp, spec: PackSpec):
+    """Offline weight path: quantize, pack (field-reversed), column sums."""
+    q_w = quant.quantize_affine(w, w_scale, w_zp, spec.w_bits)
+    col_sums = q_w.sum(dim=0, dtype=torch.int32)
+    return packing.pack_weights(q_w, spec, axis=0), col_sums
+
+
+def dense_store_weights(q_w: torch.Tensor, w_bits: int) -> torch.Tensor:
+    """[K, N] lattice (< 2^w_bits) -> [ceil(K/per), N] int32 bit-dense."""
+    return packing.pack_words(q_w, w_bits, axis=0)
+
+
+def dense_load_weights(words: torch.Tensor, w_bits: int, k: int
+                       ) -> torch.Tensor:
+    """Inverse of dense_store_weights -> [K, N] int32 lattice."""
+    return packing.unpack_words(words, w_bits, k, axis=0)

@@ -1,0 +1,224 @@
+"""Ahead-of-time kernel planning + backend registry (counterpart of
+``repro/kernels/plan.py``).
+
+A ``KernelPlan`` is a frozen, hashable description of how one op executes:
+its backend, ``PackSpec`` and launch geometry, built once per layer shape by
+a memoized planner.  Two backends exist for every op:
+
+  'torch' -- the plain PyTorch version (the counterpart of ``repro``'s
+             'xla'); it runs on any device and is the CPU path.
+  'cuda'  -- the hand-written Hopper kernel (csrc/, built for sm_90a).
+
+``'auto'`` resolves from the operand's device: 'cuda' for a CUDA tensor on
+a capability (9, 0) card, 'torch' for a CPU tensor.  A CUDA tensor never
+falls back to the plain version on its own; asking for 'torch' there is
+explicit (the on-card comparison runs do it).
+
+Launch geometry is sized for Hopper -- enough blocks to cover the card's
+SMs, a few KB of shared memory per block -- not for the TPU's VMEM
+budget.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from repro_torch.core.packing import PackSpec
+
+BACKENDS = ("torch", "cuda")
+
+#: Blocks per SM the matmul planner aims for when it picks a K split.
+_WAVES = 2
+
+#: Threads per block of the matmul kernel (kThreads in csrc/).
+MATMUL_THREADS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """Frozen per-layer execution plan.
+
+    Geometry fields are populated per op (``None`` where not applicable):
+      packed_matmul    : block_m (rows per block), splits / block_k (K
+                         split count and lanes per split)
+      quantize_pack    : threads
+      attention_decode : block_k (KV rows per online-softmax group of the
+                         plain version)
+    """
+
+    op: str
+    backend: str                      # 'torch' | 'cuda' (never 'auto')
+    spec: PackSpec | None = None
+    block_m: int | None = None
+    block_k: int | None = None
+    splits: int | None = None
+    threads: int | None = None
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unresolved backend {self.backend!r}")
+
+    def describe(self) -> dict:
+        """Flat report row: op, backend, layout and the set geometry."""
+        row = {"op": self.op, "backend": self.backend,
+               "spec": str(self.spec) if self.spec else None}
+        for f in ("block_m", "block_k", "splits", "threads"):
+            if getattr(self, f) is not None:
+                row[f] = getattr(self, f)
+        return row
+
+
+# ---------------------------------------------------------------------------
+# Backend registry
+# ---------------------------------------------------------------------------
+
+_BACKENDS: dict[tuple[str, str], object] = {}
+
+
+def register_backend(op: str, backend: str):
+    """Decorator: register ``fn(plan, *args)`` as the (op, backend) impl."""
+    def deco(fn):
+        _BACKENDS[(op, backend)] = fn
+        return fn
+    return deco
+
+
+def get_backend(op: str, backend: str):
+    try:
+        return _BACKENDS[(op, backend)]
+    except KeyError:
+        known = sorted(k for k in _BACKENDS if k[0] == op)
+        raise KeyError(
+            f"no backend {backend!r} registered for op {op!r}; "
+            f"registered: {known}") from None
+
+
+def dispatch(plan: KernelPlan, *args, **kwargs):
+    """Route a call through the registry according to its plan."""
+    return get_backend(plan.op, plan.backend)(plan, *args, **kwargs)
+
+
+def resolve_backend(backend: str = "auto", device="cpu") -> str:
+    """'auto' -> 'cuda' on a Hopper card, 'torch' on the CPU.
+
+    'cuda' on a CPU device and any CUDA card below capability (9, 0) raise:
+    the kernels are built for sm_90a only, and nothing falls back."""
+    if backend not in ("auto", *BACKENDS):
+        raise ValueError(f"unknown backend {backend!r}; expected 'auto', "
+                         f"'torch' or 'cuda'")
+    if backend == "torch":
+        return "torch"
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        if backend == "cuda":
+            raise ValueError(
+                f"the 'cuda' backend needs CUDA tensors, got device {dev}")
+        return "torch"
+    _check_hopper(dev.index if dev.index is not None
+                  else torch.cuda.current_device())
+    return "cuda"
+
+
+@functools.lru_cache(maxsize=None)
+def _check_hopper(index: int) -> None:
+    """Raise unless card ``index`` is Hopper; asked once per card, since
+    the packed ops plan on every call."""
+    cap = torch.cuda.get_device_capability(index)
+    if cap < (9, 0):
+        raise RuntimeError(
+            f"the repro_torch kernels are built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(index)} has capability {cap}")
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point (engine, init, packing, bridge) runs on.
+
+    Entry points default to "cuda"; without a usable CUDA device they raise
+    unless the caller asked for the CPU explicitly -- nothing moves to the
+    CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU")
+    return dev
+
+
+def _device_key(device) -> str:
+    return str(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_key: str) -> int:
+    dev = torch.device(device_key)
+    if dev.type != "cuda":
+        return 132                   # H100 SXM: plans made off-card
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# Planners (memoized: one plan per layer signature per process)
+# ---------------------------------------------------------------------------
+
+def plan_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
+                       backend: str = "auto", device="cpu") -> KernelPlan:
+    """Plan a packed-lane matmul [m, kp] x [kp, n] (kernel K2)."""
+    return _plan_packed_matmul(m, kp, n, spec,
+                               resolve_backend(backend, device),
+                               _device_key(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_packed_matmul(m, kp, n, spec, backend, device_key) -> KernelPlan:
+    spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
+    bm = 4 if m <= 4 else 8
+    cpt = 8 // spec.lane_bytes               # columns per thread (8-byte load)
+    bn = MATMUL_THREADS * cpt
+    blocks = -(-n // bn) * -(-m // bm)
+    # split K until the grid covers the card.  Any split is exact (each
+    # extracted run holds at most k_tile lanes); splits longer than k_tile
+    # are whole runs, so no split adds an extraction.
+    splits = max(1, min(kp, -(-_WAVES * _sm_count(device_key) // blocks)))
+    block_k = -(-kp // splits)
+    if block_k > spec.k_tile:
+        block_k = -(-block_k // spec.k_tile) * spec.k_tile
+    splits = -(-kp // block_k)
+    return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
+                      block_m=bm, block_k=block_k, splits=splits)
+
+
+def plan_quantize_pack(m: int, k: int, spec: PackSpec, *,
+                       backend: str = "auto", device="cpu") -> KernelPlan:
+    """Plan the fused runtime quantize+pack over [m, k] activations (K1)."""
+    return _plan_quantize_pack(m, k, spec, resolve_backend(backend, device))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_quantize_pack(m, k, spec, backend) -> KernelPlan:
+    kp = -(-k // spec.n_pack)
+    threads = min(256, max(32, -(-kp // 32) * 32))
+    return KernelPlan(op="quantize_pack", backend=backend, spec=spec,
+                      threads=threads)
+
+
+def plan_attention_decode(b: int, c: int, skv: int, h: int, kvh: int,
+                          hd: int, kv_bits: int, *, backend: str = "auto",
+                          device="cpu") -> KernelPlan:
+    """Plan the flash-decoding read over a contiguous cache (K3)."""
+    return _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits,
+                                  resolve_backend(backend, device))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, backend
+                           ) -> KernelPlan:
+    if h % kvh:
+        raise ValueError(f"num_heads {h} is not a multiple of kv heads {kvh}")
+    if hd > 256:
+        raise ValueError(f"head_dim {hd} > 256 is not supported by the "
+                         f"attention kernel (8 dims per lane at most)")
+    return KernelPlan(op="attention_decode", backend=backend,
+                      block_k=min(512, max(1, skv)))

@@ -1,0 +1,216 @@
+"""Self-attention over a contiguous, possibly sub-byte KV cache
+(counterpart of ``repro/models/attention.py``).
+
+Projections are quantizable Dense layers (the paper's technique applies to
+them).  The cache stores K/V at ``cfg.quant.kv_bits`` precision: bf16 (0 or
+16), int8 with per-(pos, kv-head) bf16 scales (8), or bit-dense int32 words
+along head_dim with the same scale planes (4 / 2).
+
+Writes happen in place: each layer's cache tensors are allocated once
+(:func:`init_kv_cache`) and updated with ``index_put_`` -- the counterpart
+of the reference's donated cache buffers.  Every read goes through the
+fused flash-decoding kernel (kernels/ulppack_attention.py), for decode
+steps, chunked-prefill windows and cache-free forwards alike.
+
+Ported here: the vector-indexed, non-windowed path.  Sliding-window rings,
+cross-attention, M-RoPE and the paged pool wait for later slices
+(ROADMAP.md Queue 1 items 10 and 13).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.kernels import ulppack_attention
+from repro_torch.models import common
+from repro_torch.models.common import dense_apply, dense_init
+
+
+def check_supported(cfg):
+    """Raise for attention flavours this slice does not serve."""
+    missing = []
+    if cfg.sliding_window:
+        missing.append("sliding-window ring caches")
+    if cfg.mrope:
+        missing.append("M-RoPE")
+    if cfg.is_encoder_decoder:
+        missing.append("cross-attention (encoder-decoder)")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} are still to be ported "
+            f"(ROADMAP.md Queue 1 item 13)")
+
+
+def attention_init(generator, cfg, *, dtype=torch.float32, device="cpu"):
+    hd = cfg.resolved_head_dim
+    kw = dict(dtype=dtype, quantized=True, qcfg=cfg.quant, device=device)
+    return {
+        "q": dense_init(generator, cfg.d_model, cfg.num_heads * hd,
+                        use_bias=cfg.qkv_bias, **kw),
+        "k": dense_init(generator, cfg.d_model, cfg.num_kv_heads * hd,
+                        use_bias=cfg.qkv_bias, **kw),
+        "v": dense_init(generator, cfg.d_model, cfg.num_kv_heads * hd,
+                        use_bias=cfg.qkv_bias, **kw),
+        "o": dense_init(generator, cfg.num_heads * hd, cfg.d_model,
+                        scale=1.0 / (cfg.num_heads * hd) ** 0.5, **kw),
+    }
+
+
+def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
+    """Contiguous KV cache [batch, max_len, KVH, ...] for ``kv_bits``:
+      0 / 16 -- ``dtype`` (bf16 in serving).
+      8      -- int8 values + per-(pos, kv-head) bf16 absmax scales.
+      4 / 2  -- int32 words (``packing.pack_words`` along head_dim,
+                ``32 // kv_bits`` values per word) + the same scales.
+    """
+    check_supported(cfg)
+    hd = cfg.resolved_head_dim
+    kvh = cfg.num_kv_heads
+    bits = cfg.quant.kv_bits
+    shape = (batch, max_len, kvh)
+
+    def zeros(last, dt):
+        return torch.zeros(shape + last, dtype=dt, device=device)
+
+    if bits == 8:
+        return {"k": zeros((hd,), torch.int8), "v": zeros((hd,), torch.int8),
+                "k_scale": zeros((), torch.bfloat16),
+                "v_scale": zeros((), torch.bfloat16)}
+    if bits in (4, 2):
+        hd_words = -(-hd // (32 // bits))
+        return {"k": zeros((hd_words,), torch.int32),
+                "v": zeros((hd_words,), torch.int32),
+                "k_scale": zeros((), torch.bfloat16),
+                "v_scale": zeros((), torch.bfloat16)}
+    if bits not in (0, 16):
+        raise ValueError(f"unsupported kv_bits {bits}; expected 0/16/8/4/2")
+    return {"k": zeros((hd,), dtype), "v": zeros((hd,), dtype)}
+
+
+def kv_quantize(x: torch.Tensor, bits: int = 8):
+    """[..., hd] float -> (stored lattice, bf16 per-row scales).
+
+    bits == 8: signed int8 absmax.  bits in (4, 2): midpoint-zero-point
+    unsigned lattice (scale targets ``qmax - zp`` steps) packed bit-dense
+    along head_dim into int32 words.  The 1e-8 floor keeps all-zero rows
+    NaN-free."""
+    x32 = x.to(torch.float32)
+    amax = x32.abs().amax(dim=-1)
+    if bits == 8:
+        scale = torch.clamp(amax / 127.0, min=1e-8)
+        q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+        return q.to(torch.int8), scale.to(torch.bfloat16)
+    zp = 1 << (bits - 1)
+    qmax = (1 << bits) - 1
+    scale = torch.clamp(amax / (qmax - zp), min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]) + zp, 0, qmax)
+    return (packing.pack_words(q.to(torch.int32), bits, axis=-1),
+            scale.to(torch.bfloat16))
+
+
+def ragged_write_indices(cache_index: torch.Tensor, cache_valid: torch.Tensor,
+                         sq: int, size: int):
+    """(row, token, slot) index tensors of a ragged window write: token j of
+    row b lands at slot ``cache_index[b] + j`` when ``j < cache_valid[b]``
+    and the slot lies inside the cache; every other token is dropped, as
+    the reference's ``mode='drop'`` scatter drops it.  Computed on the
+    indices' own device (the serving steps pass host tensors, so the
+    ``nonzero`` never waits on the card)."""
+    offs = torch.arange(sq, dtype=torch.int32, device=cache_index.device)
+    wpos = cache_index[:, None] + offs[None, :]
+    keep = (offs[None, :] < cache_valid[:, None]) & (wpos < size) & (wpos >= 0)
+    bi, ti = keep.nonzero(as_tuple=True)
+    return bi, ti, wpos[bi, ti].to(torch.int64)
+
+
+def ragged_window(cache_index, cache_valid, b: int, sq: int, size: int,
+                  device):
+    """Per-row write offsets [B], valid counts [B] and the ragged write
+    indices of a [B, sq] window, all on ``device``.  A scalar offset is
+    shared by every row; ``cache_valid=None`` means every token is valid.
+    The indices are worked out where ``cache_index`` lives, so host-side
+    offsets (the serving steps') cost the card no wait."""
+    idx = torch.as_tensor(cache_index, dtype=torch.int32)
+    if idx.dim() == 0:
+        idx = idx.expand(b)
+    vlen = (torch.full((b,), sq, dtype=torch.int32, device=idx.device)
+            if cache_valid is None
+            else torch.as_tensor(cache_valid, dtype=torch.int32,
+                                 device=idx.device))
+    write = ragged_write_indices(idx, vlen, sq, size)
+    return (idx.to(device), vlen.to(device),
+            tuple(t.to(device) for t in write))
+
+
+def cache_write_ragged(cache, k, v, write, kv_bits=0):
+    """In-place ragged write of [B, s, KVH, hd] float K/V through
+    ``write = (row, token, slot)`` (:func:`ragged_write_indices`),
+    quantizing -- and for sub-byte ``kv_bits`` word-packing -- first when
+    the cache is quantized."""
+    bi, ti, slots = write
+    kk, vv = k[bi, ti], v[bi, ti]
+    if "k_scale" in cache:
+        qk, sk = kv_quantize(kk, kv_bits)
+        qv, sv = kv_quantize(vv, kv_bits)
+        vals = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    else:
+        vals = {"k": kk, "v": vv}
+    for name, val in vals.items():
+        buf = cache[name]
+        buf.index_put_((bi, slots), val.to(buf.dtype))
+    return cache
+
+
+def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
+                    cache_index=None, cache_valid=None, write=None,
+                    backend="auto"):
+    """Attention forward; returns (out, cache).
+
+      * cache=None: causal self-attention over the window's own K/V.
+      * cache + cache_index ([B] per-row write offsets, or a scalar shared
+        by every row): the window's K/V is written into the cache in place
+        -- tokens past ``cache_valid[b]`` dropped -- and the query reads the
+        stored cache with ``valid_len = cache_index + cache_valid``.
+        ``write`` may carry the window's precomputed indices; the offsets
+        and counts must then be device tensors (:func:`ragged_window`).
+    """
+    check_supported(cfg)
+    b, sq, _ = x.shape
+    hd = cfg.resolved_head_dim
+    cd = common.dtype_of(cfg.compute_dtype)
+    qm = dict(qcfg=cfg.quant, quant_mode=quant_mode, compute_dtype=cd,
+              backend=backend)
+    q = dense_apply(p["q"], x, **qm).reshape(b, sq, cfg.num_heads, hd)
+    k = dense_apply(p["k"], x, **qm).reshape(b, sq, cfg.num_kv_heads, hd)
+    v = dense_apply(p["v"], x, **qm).reshape(b, sq, cfg.num_kv_heads, hd)
+    positions = torch.as_tensor(positions, dtype=torch.int32,
+                                device=x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :].expand(b, sq)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        full = torch.full((b,), sq, dtype=torch.int32, device=x.device)
+        out = ulppack_attention.fused_decode_attention(
+            q, {"k": k, "v": v}, full, positions, kv_bits=0, hd=hd,
+            backend=backend)
+    else:
+        if cache_index is None:
+            raise NotImplementedError(
+                "filling a cache without write offsets (the reference's "
+                "fake-quant prefill step) is still to be ported; pass "
+                "cache_index")
+        if write is None:
+            cache_index, cache_valid, write = ragged_window(
+                cache_index, cache_valid, b, sq, cache["k"].shape[1],
+                x.device)
+        kv_bits = cfg.quant.kv_bits
+        cache_write_ragged(cache, k, v, write, kv_bits)
+        valid_len = cache_index + cache_valid
+        out = ulppack_attention.fused_decode_attention(
+            q, cache, valid_len, positions, kv_bits=kv_bits, hd=hd,
+            backend=backend)
+    out = dense_apply(p["o"], out.reshape(b, sq, cfg.num_heads * hd), **qm)
+    return out, cache

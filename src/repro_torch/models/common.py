@@ -1,0 +1,168 @@
+"""Functional NN substrate: Dense (float / packed-integer), norms, embedding,
+RoPE (counterpart of ``repro/models/common.py``).
+
+Parameters are plain nested dicts of tensors; every layer is an (init,
+apply) pair, with the reference package's layouts, so trees carry across
+through repro_torch/bridge.py.  ``quant_mode``:
+  'none'   -- float path.
+  'packed' -- deployed Sparq path: runtime activation quantize+pack, packed
+              integer matmul, affine dequant.  Params must have been
+              converted with ``pack_dense_params``.
+The fake-quant training mode ('qat') waits for the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.packing import PackSpec
+from repro_torch.core.quant import QuantConfig
+from repro_torch.kernels import ops
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Dense
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
+               use_bias=False, dtype=torch.float32, quantized=False,
+               qcfg: QuantConfig | None = None, scale=None, device="cpu"):
+    std = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    kernel = torch.randn((d_in, d_out), generator=generator,
+                         dtype=torch.float32, device=device) * std
+    p = {"kernel": kernel.to(dtype)}
+    if use_bias:
+        p["bias"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    if quantized and qcfg is not None and qcfg.enabled:
+        p["w_step"] = quant.init_step_from_data(kernel, qcfg.w_bits, True)
+        p["a_step"] = torch.tensor(1.0 / math.sqrt(qcfg.qmax_a),
+                                   dtype=torch.float32, device=device)
+    return p
+
+
+def dense_layer_spec(k: int, n: int, qcfg: QuantConfig) -> PackSpec:
+    """The per-layer lane layout for a [k, n] Dense: the config's base spec
+    (the port has no layout tuning cache yet, so every layer uses it)."""
+    del k, n
+    return PackSpec.from_config(qcfg)
+
+
+def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
+                quant_mode: str = "none", compute_dtype=torch.bfloat16,
+                backend: str = "auto"):
+    """y = x @ kernel (+ bias), under the selected quantization mode."""
+    if quant_mode == "packed" and "w_packed" in p:
+        w = p["w_packed"]
+        spec = dense_layer_spec(int(x.shape[-1]), int(w.shape[-1]), qcfg)
+        return ops.quantized_linear(
+            x.to(torch.float32), w, p["col_sums"], p["a_scale"], p["a_zp"],
+            p["w_scale"], p["w_zp"], spec, bias=p.get("bias"),
+            backend=backend, out_dtype=compute_dtype)
+    if quant_mode not in ("none", "packed"):
+        raise NotImplementedError(
+            f"quant_mode {quant_mode!r}: fake-quant training is still to be "
+            f"ported (ROADMAP.md Queue 1 item 15)")
+    y = x.to(compute_dtype) @ p["kernel"].to(compute_dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(compute_dtype)
+    return y
+
+
+def pack_dense_params(p, qcfg: QuantConfig, *, spec: PackSpec | None = None):
+    """Offline conversion of float/QAT Dense params -> deployed packed params
+    (P1 lanes; the bit-dense store is still to be ported)."""
+    kernel = p["kernel"].to(torch.float32)
+    if spec is None:
+        spec = dense_layer_spec(int(kernel.shape[0]), int(kernel.shape[1]),
+                                qcfg)
+    dev = kernel.device
+    w_scale = p.get("w_step")
+    if w_scale is None:
+        w_scale, _ = quant.calibrate_absmax(kernel, qcfg.w_bits)
+    w_zp = torch.tensor(qcfg.w_zero_point, dtype=torch.int32, device=dev)
+    w_packed, col_sums = ops.prepare_weights(kernel, w_scale, w_zp, spec)
+    a_scale = p.get("a_step")
+    if a_scale is None:
+        a_scale = torch.tensor(1.0 / math.sqrt(qcfg.qmax_a),
+                               dtype=torch.float32)
+    a_zp = torch.tensor((qcfg.qmax_a + 1) // 2, dtype=torch.int32,
+                        device=dev)
+    out = {"w_packed": w_packed, "col_sums": col_sums,
+           "w_scale": torch.as_tensor(w_scale).to(dev, torch.float32),
+           "w_zp": w_zp,
+           "a_scale": torch.as_tensor(a_scale).to(dev, torch.float32),
+           "a_zp": a_zp,
+           "k_full": int(kernel.shape[0])}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Norms & embedding
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, eps=1e-5):
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(dt)
+
+
+def embedding_init(generator: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32, device="cpu"):
+    table = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
+                        device=device) * 0.02
+    return {"table": table.to(dtype)}
+
+
+def embedding_apply(p, tokens, compute_dtype=torch.bfloat16):
+    """Unsharded embedding lookup (the sharded-vocab path waits for the
+    multi-GPU slice)."""
+    return p["table"][tokens].to(compute_dtype)
+
+
+def embedding_attend(p, x):
+    """Tied LM head: x [.., d] @ table.T -> [.., vocab]."""
+    return x @ p["table"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    """1 / theta^(2i/hd) as f32.  Computed in f64 and rounded once: that is
+    the value the reference's compiled steps use (XLA folds the constant in
+    higher precision), so the rotated K/V -- and the 2-bit lattices built
+    from them downstream -- agree with the deployed reference."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float64, device=device) / half
+    return (1.0 / (theta ** exps)).to(torch.float32)
+
+
+def apply_rope(x, positions, theta=10000.0):
+    """x: [B, S, H, hd]; positions: [B, S] int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # [hd/2]
+    angles = positions[..., None].to(torch.float32) * freqs   # [B, S, hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,166 @@
+"""Decoder LM assembly for dense attention stacks (counterpart of
+``repro/models/lm.py``): block init/apply, parameter init, forward with the
+pad-vocab bias, contiguous decode caches and their byte count.
+
+Mamba / xLSTM / MoE blocks, encoders and modality frontends are still to
+be ported (ROADMAP.md Queue 1 item 13); configs that need them raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import plan as plan_lib
+from repro_torch.models import attention, common, mlp
+from repro_torch.models.common import dense_apply, dense_init
+
+
+def check_supported(cfg):
+    """Raise unless ``cfg`` is a decoder stack of dense attention blocks."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+    missing = []
+    if cfg.family == "cnn":
+        raise NotImplementedError(
+            f"{cfg.name}: the CNN path is ROADMAP.md Queue 1 item 9")
+    if kinds != {"attn"}:
+        missing.append(f"{sorted(kinds - {'attn'})} blocks")
+    if cfg.num_experts:
+        missing.append("MoE FFNs")
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} are still to be ported "
+            f"(ROADMAP.md Queue 1 item 13)")
+    attention.check_supported(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Block init / apply
+# ---------------------------------------------------------------------------
+
+def block_init(generator, cfg, i, *, dtype=torch.float32, device="cpu"):
+    del i  # every supported block is an attention block
+    p = {"norm1": common.rmsnorm_init(cfg.d_model, dtype, device),
+         "attn": attention.attention_init(generator, cfg, dtype=dtype,
+                                          device=device)}
+    if cfg.d_ff:
+        p["norm2"] = common.rmsnorm_init(cfg.d_model, dtype, device)
+        p["mlp"] = mlp.mlp_init(generator, cfg, dtype=dtype, device=device)
+    return p
+
+
+def block_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
+                cache_index=None, cache_valid=None, write=None,
+                backend="auto"):
+    """One residual block.  Returns (x, cache)."""
+    h = common.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    sub = cache.get("attn") if cache else None
+    out, _ = attention.attention_apply(
+        p["attn"], cfg, h, positions=positions, quant_mode=quant_mode,
+        cache=sub, cache_index=cache_index, cache_valid=cache_valid,
+        write=write, backend=backend)
+    x = x + out
+    if "mlp" in p:
+        h = common.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp.mlp_apply(p["mlp"], cfg, h, quant_mode=quant_mode,
+                              backend=backend)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+def init_params(cfg, generator: torch.Generator | None = None,
+                device="cuda"):
+    """Random float parameters (reference layout) drawn from ``generator``
+    on ``device``; their values do not equal the reference's JAX draws.
+    With no generator a fresh one seeded 0 on ``device`` is used."""
+    check_supported(cfg)
+    dev = plan_lib.resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dtype = common.dtype_of(cfg.param_dtype)
+    p = {"embed": common.embedding_init(generator, cfg.padded_vocab,
+                                        cfg.d_model, dtype, dev)}
+    p["layers"] = [block_init(generator, cfg, i, dtype=dtype, device=dev)
+                   for i in range(cfg.num_layers)]
+    p["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype, dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(
+            generator, cfg.d_model, cfg.padded_vocab, dtype=dtype,
+            quantized=cfg.quant.quantize_lm_head, qcfg=cfg.quant, device=dev)
+    return p
+
+
+def forward(params, cfg, batch, *, quant_mode="none", caches=None,
+            cache_index=None, cache_valid=None, write=None, backend="auto"):
+    """Full forward.  Returns (logits, aux_loss, caches).
+
+    ``cache_index`` [B] (or a scalar) gives per-slot cache write offsets;
+    ``cache_valid`` [B] the valid-prefix length of each row's window.  The
+    caches are updated in place.  ``write`` may carry the window's
+    precomputed indices (``attention.ragged_window``, with device-side
+    offsets and counts); otherwise they are computed once here.
+    """
+    check_supported(cfg)
+    cd = common.dtype_of(cfg.compute_dtype)
+    tokens = batch["tokens"]
+    x = common.embedding_apply(params["embed"], tokens, cd)
+    b, s = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None, :].expand(b, s)
+    if caches is not None and cache_index is not None and write is None:
+        # one set of write indices (and one host-to-device move) per step,
+        # shared by every layer
+        cache_index, cache_valid, write = attention.ragged_window(
+            cache_index, cache_valid, b, s, caches[0]["attn"]["k"].shape[1],
+            x.device)
+
+    for li, blk in enumerate(params["layers"]):
+        x, _ = block_apply(
+            blk, cfg, x, positions=positions, quant_mode=quant_mode,
+            cache=caches[li] if caches is not None else None,
+            cache_index=cache_index, cache_valid=cache_valid, write=write,
+            backend=backend)
+
+    x = common.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = common.embedding_attend(params["embed"], x)
+    else:
+        logits = dense_apply(
+            params["lm_head"], x,
+            qcfg=cfg.quant if cfg.quant.quantize_lm_head else None,
+            quant_mode=quant_mode, compute_dtype=cd, backend=backend)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
+    return logits, 0.0, caches
+
+
+def init_caches(cfg, batch_size, max_len, dtype=torch.bfloat16,
+                device="cpu"):
+    """Per-layer contiguous decode caches sized for ``max_len``."""
+    check_supported(cfg)
+    return [{"attn": attention.init_kv_cache(cfg, batch_size, max_len, dtype,
+                                             device)}
+            for _ in range(cfg.num_layers)]
+
+
+def cache_bytes(cfg, batch_size, max_len, dtype=torch.bfloat16) -> int:
+    """Device bytes of an ``init_caches`` tree, without allocating it."""
+    check_supported(cfg)
+    hd, kvh, bits = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.quant.kv_bits
+    rows = batch_size * max_len * kvh
+    if bits == 8:
+        per_layer = 2 * rows * hd + 2 * rows * 2
+    elif bits in (4, 2):
+        per_layer = 2 * rows * -(-hd // (32 // bits)) * 4 + 2 * rows * 2
+    else:
+        per_layer = 2 * rows * hd * torch.empty((), dtype=dtype).element_size()
+    return cfg.num_layers * per_layer

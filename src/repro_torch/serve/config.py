@@ -1,0 +1,110 @@
+"""EngineConfig and SamplingParams (counterpart of ``repro/serve/config.py``).
+
+The fields the slice serves mirror the reference's; the switches of what it
+does not serve yet -- the paged cache, speculative decoding, the bit-dense
+weight store and the autotuner -- raise ``NotImplementedError`` at
+construction when turned on, naming their ROADMAP item.  Their tuning
+fields (page size, draft precision) come back with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decoding control; temperature <= 0 means greedy."""
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+
+    def __post_init__(self):
+        if not math.isfinite(self.temperature):
+            raise ValueError(
+                f"sampling temperature must be finite, got "
+                f"{self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Frozen construction config for one :class:`ServingEngine`.
+
+    * ``max_batch`` -- concurrent batch slots [sequences]; with an
+      ``hbm_cache_budget`` the slot count is :meth:`slots_for`.
+    * ``max_len`` [tokens] -- per-slot cache extent; every request must
+      satisfy ``len(prompt) + max_new_tokens <= max_len``.
+    * ``packed`` -- serve through the packed integer kernels.
+    * ``prefill_chunk`` [tokens] -- chunked-prefill window width.
+    * ``max_queue`` -- backpressure cap on queued requests (None =
+      unbounded).
+    * ``hbm_cache_budget`` [bytes] -- KV-cache budget converted to slots.
+    """
+
+    max_batch: int = 4
+    max_len: int = 512
+    packed: bool = True
+    dense_store: bool = False
+    prefill_chunk: int = 16
+    max_queue: int | None = None
+    sampling: SamplingParams = SamplingParams()
+    hbm_cache_budget: int | None = None
+    autotune: bool = False
+    paged: bool = False
+    speculative_k: int = 0
+
+    def __post_init__(self):
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.max_len < 1:
+            raise ValueError(f"max_len must be >= 1, got {self.max_len}")
+        if self.prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError(
+                f"max_queue must be None (unbounded) or >= 1, got "
+                f"{self.max_queue}")
+        if self.hbm_cache_budget is not None and self.hbm_cache_budget < 1:
+            raise ValueError(
+                f"hbm_cache_budget must be None or a positive byte count, "
+                f"got {self.hbm_cache_budget}")
+        if not isinstance(self.sampling, SamplingParams):
+            raise TypeError(
+                f"sampling must be a SamplingParams, got "
+                f"{type(self.sampling).__name__}")
+        if self.speculative_k < 0:
+            raise ValueError(
+                f"speculative_k must be >= 0 (0 = off), got "
+                f"{self.speculative_k}")
+        unported = [(self.paged, "paged=True (the paged KV cache)", "10"),
+                     (self.speculative_k > 0,
+                      "speculative_k > 0 (speculative decoding)", "11"),
+                     (self.autotune, "autotune=True", "12"),
+                     (self.dense_store,
+                      "dense_store=True (the bit-dense weight store)", "8b")]
+        for on, what, item in unported:
+            if on:
+                raise NotImplementedError(
+                    f"{what} is still to be ported (ROADMAP.md Queue 1 "
+                    f"item {item})")
+
+    def slots_for(self, cache_bytes_per_slot: int) -> int:
+        """Admitted batch slots: with no budget ``max_batch`` stands; with
+        one, ``budget // bytes-per-slot`` concurrent sequences."""
+        if self.hbm_cache_budget is None:
+            return self.max_batch
+        slots = int(self.hbm_cache_budget // cache_bytes_per_slot)
+        if slots < 1:
+            raise ValueError(
+                f"hbm_cache_budget {self.hbm_cache_budget} < one slot's "
+                f"cache ({cache_bytes_per_slot} bytes at max_len "
+                f"{self.max_len})")
+        return slots

@@ -1,0 +1,110 @@
+"""Offline conversion of float/QAT params into deployed Sparq serving form
+(counterpart of ``repro/serve/prepare.py``).
+
+Every quantizable 2-D Dense ({kernel, w_step, a_step}) becomes its packed
+integer form ({w_packed, col_sums, scales, zero-points, k_full}) through
+``models.common.pack_dense_params``; embeddings and the float LM head stay
+as they are.  ``build_layer_plans`` fixes each packed layer's KernelPlan
+once, for the decode and the chunked-prefill row counts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import plan as plan_lib
+from repro_torch.models import common
+
+
+def _is_packable(node) -> bool:
+    return (isinstance(node, dict) and "kernel" in node and "w_step" in node
+            and isinstance(node["kernel"], torch.Tensor)
+            and node["kernel"].dim() == 2)
+
+
+def _is_packed(node) -> bool:
+    return isinstance(node, dict) and "w_packed" in node
+
+
+def _walk(node, fn):
+    if isinstance(node, dict):
+        return {k: fn(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [fn(v) for v in node]
+    if isinstance(node, tuple):
+        return tuple(fn(v) for v in node)
+    return node
+
+
+def prepare_serving_params(params, cfg, *, device="cuda"):
+    """Move ``params`` to ``device`` and pack every quantizable Dense leaf
+    (P1 lanes, the config's base layout).  Without quantization the tree
+    is only moved."""
+    dev = plan_lib.resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            return node.to(dev)
+        node = _walk(node, walk)
+        if cfg.quant.enabled and _is_packable(node):
+            return common.pack_dense_params(node, cfg.quant)
+        return node
+
+    return walk(params)
+
+
+def build_layer_plans(params, cfg, *, batch_rows: int = 1,
+                      prefill_rows: int | None = None,
+                      backend: str = "auto"):
+    """One KernelPlan per packed Dense leaf, keyed by its tree path, for
+    the decode row count (and under ``...@prefill`` the chunked-prefill
+    one).  The planners are memoized, so the serving steps dispatch through
+    these same objects."""
+    if not cfg.quant.enabled:
+        return {}
+    plans = {}
+
+    def walk(node, path):
+        if _is_packed(node):
+            w = node["w_packed"]
+            k = int(node.get("k_full", w.shape[0] * cfg.quant.n_pack))
+            spec = common.dense_layer_spec(k, int(w.shape[-1]), cfg.quant)
+            kp = -(-k // spec.n_pack)
+            if w.dtype != spec.lane_dtype or w.shape[0] != kp:
+                raise ValueError(
+                    f"{path}: packed bytes ({w.dtype}, kp={w.shape[0]}) do "
+                    f"not match the lane layout {spec} for k={k}")
+            for rows, key in ((batch_rows, path),
+                              (prefill_rows, f"{path}@prefill")):
+                if rows and (key == path or rows != batch_rows):
+                    plans[key] = plan_lib.plan_packed_matmul(
+                        rows, int(w.shape[0]), int(w.shape[-1]), spec,
+                        backend=backend, device=w.device)
+            return
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+
+    walk(params, "")
+    return plans
+
+
+def cache_bytes_per_slot(cfg, max_len: int) -> int:
+    """Device bytes one batch slot's decode caches occupy at ``max_len``
+    (slots = budget // cache_bytes_per_slot)."""
+    from repro_torch.models import lm
+    return lm.cache_bytes(cfg, 1, max_len)
+
+
+def serving_param_bytes(params) -> int:
+    """Device bytes of a serving param tree."""
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    if isinstance(params, dict):
+        return sum(serving_param_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(serving_param_bytes(v) for v in params)
+    return 0

@@ -1,0 +1,92 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Marked ``cuda``: every test skips (inside the ``hopper`` fixture,
+never at import) unless a CUDA device of capability (9, 0) or newer is
+present.  Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import packing  # noqa: E402
+from repro_torch.core.packing import PackSpec  # noqa: E402
+from repro_torch.kernels import plan as plan_lib  # noqa: E402
+from repro_torch.kernels import quant_pack, ulppack_attention  # noqa: E402
+from repro_torch.kernels import ulppack_matmul  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def hopper():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    if torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    return torch.device("cuda")
+
+
+def _gen(dev, seed=0):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("m,k", [(1, 7), (5, 37), (64, 2048)])
+@pytest.mark.parametrize("spec", ["W2A2/int16xP2s8", "W2A2/int32xP4s8",
+                                  "W4A4/int32xP2s16"])
+def test_quantize_pack_bit_equal(hopper, m, k, spec):
+    sp = PackSpec.parse(spec)
+    x = torch.randn((m, k), generator=_gen(hopper), device=hopper) * 2
+    scale = torch.tensor(0.4, device=hopper)
+    zp = torch.tensor(1 << (sp.a_bits - 1), dtype=torch.int32, device=hopper)
+    got = quant_pack.quantize_pack_cuda(x, scale, zp, sp)
+    want = quant_pack.quantize_pack_torch(x, scale, zp, sp)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,kp,n", [(1, 5, 3), (4, 1024, 2048), (7, 300, 130),
+                                    (64, 1024, 5632)])
+@pytest.mark.parametrize("spec", ["W2A2/int16xP2s8", "W2A2/int32xP2s16",
+                                  "W2A2/int32xP4s8"])
+def test_ulppack_matmul_bit_equal(hopper, m, kp, n, spec):
+    sp = PackSpec.parse(spec)
+    g = _gen(hopper, m + n)
+    qa = torch.randint(0, 4, (m, kp * sp.n_pack), generator=g, device=hopper)
+    qw = torch.randint(0, 4, (kp * sp.n_pack, n), generator=g, device=hopper)
+    a, w = packing.pack_activations(qa, sp), packing.pack_weights(qw, sp)
+    plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=hopper)
+    assert plan.backend == "cuda"
+    got = ulppack_matmul.ulppack_matmul_cuda(
+        a, w, sp, block_m=plan.block_m, block_k=plan.block_k,
+        splits=plan.splits)
+    assert torch.equal(got, ulppack_matmul.ulppack_matmul_torch(a, w, sp))
+
+
+@pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
+@pytest.mark.parametrize("c", [1, 16])
+def test_attention_decode_matches_plain(hopper, kv_bits, c):
+    """f32 queries: kernel and plain version differ only in summation
+    order, so they agree to 1e-4; the dead row is exactly zero."""
+    b, s, h, kvh, hd = 3, 200, 8, 4, 64
+    g = _gen(hopper, kv_bits)
+    k = torch.randn((b, s, kvh, hd), generator=g, device=hopper)
+    v = torch.randn((b, s, kvh, hd), generator=g, device=hopper)
+    if kv_bits in (8, 4, 2):
+        qk, sk = attention.kv_quantize(k, kv_bits)
+        qv, sv = attention.kv_quantize(v, kv_bits)
+        cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    else:
+        dt = torch.bfloat16 if kv_bits == 16 else torch.float32
+        cache = {"k": k.to(dt), "v": v.to(dt)}
+    q = torch.randn((b, c, h, hd), generator=g, device=hopper)
+    valid_len = torch.tensor([s, 37, 0], dtype=torch.int32, device=hopper)
+    qpos = (torch.clamp(valid_len, min=c)[:, None] - c
+            + torch.arange(c, device=hopper)[None, :]).to(torch.int32)
+    got = ulppack_attention.attention_decode_cuda(q, cache, valid_len, qpos,
+                                                  kv_bits=kv_bits, hd=hd)
+    want = ulppack_attention.attention_decode_torch(
+        q, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd, block_k=64)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[2].any()
