@@ -6,22 +6,25 @@ toolkit:
 
     python3 chip_smoke.py
 
-1. Builds every CUDA kernel of the serving path from ``src/repro_torch/csrc``
-   (one nvcc per source, in parallel) and prints the build time.
+1. Builds every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
+   source, in parallel) and prints the build time.
 2. Kernel phase: at the full-width shapes of W2A2 ``stablelm-1.6b``
-   serving, holds each kernel against its plain PyTorch version on the card
-   (quantize-pack and the packed matmul bit-equal; attention within 1e-4
-   with f32 queries and within 1e-4 + one bf16 ulp with the path's bf16
-   queries, with a dead row exactly zero) and times the kernel, the plain
+   serving, holds each LM kernel against its plain PyTorch version on the
+   card (quantize-pack and the packed matmul bit-equal; attention within
+   1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
+   bf16 queries, with a dead row exactly zero); then the packed conv (K5)
+   and the int16 conv (K6), bit-equal, at the paper's Fig. 4 shape and at
+   the full-width ``sparq-cnn`` layers.  It times the kernel, the plain
    version and one PyTorch call that computes the same function where
    there is one (CUDA-graph replay between CUDA events, median of repeats,
-   inputs rotated over copies larger than the 50 MB L2 where the serving
-   path reads them cold).
+   inputs rotated over copies larger than the 50 MB L2 where the path
+   reads them cold).
    ``bound_ms`` is the least time the card could take: the larger of the
    bytes moved over HBM bandwidth and the operations over the peak rate of
-   the card's fastest unit for them (int8 tensor cores for the 2-bit
-   lattice dot, bf16 tensor cores for attention's products).
-   ``design_bound_ms`` takes the CUDA-core f32 rate these kernels run at.
+   the card's fastest unit for them (int8 tensor cores for the lattice
+   dots, bf16 tensor cores for attention's products).
+   ``design_bound_ms`` takes the CUDA-core rate these kernels run at (f32
+   for K2/K3, the 32-bit integer multiply-add rate for K5/K6).
 3. Serve phase: full-width ``stablelm-1.6b`` W2A2 with random weights from a
    seed, through ``ServingEngine`` at kv_bits 16, 4 and 2, four greedy
    requests with staggered admission.  Fails unless every request finishes
@@ -29,6 +32,18 @@ toolkit:
    At kv_bits 4 it profiles four decode passes (device kernel time, top
    kernels) and runs one prefill chunk and 8 decode steps with
    ``backend="torch"`` on the same weights, printing the logit difference.
+4. Fig. 4 phase: the int16 conv and each packed case once through
+   ``ops.int_conv2d`` / ``ops.packed_conv2d`` (K6 and K5 launched, no
+   plain call), and a ``fig4`` line with each packed time, the int16 time
+   and their ratio beside the paper's.
+5. CNN phase: full-width ``sparq-cnn`` W2A2 (random weights from a seed),
+   weights prepared and plans built once, classifying 4 batches of 8
+   random 256x256x3 images through ``cnn.forward(quant_mode="packed")``
+   with the lanes store, then the dense store: ms per batch, images/s,
+   profiled device time and top kernels, peak memory.  Fails unless K5 ran
+   every packed layer with no plain-version call.  Then two images with
+   ``backend="torch"`` on the same weights: every layer's int32
+   accumulator bit-equal, and the logit difference.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
@@ -59,10 +74,15 @@ def card_peaks(name: str) -> dict:
     """Peak rates of the card, dense, from NVIDIA's data sheets: HBM bytes/s,
     f32 op/s on the CUDA cores, bf16 and int8 op/s on the tensor cores.
     H100 SXM: 3.35 TB/s, 67 T, 989 T, 1,979 T; the PCIe part: 2.0 TB/s,
-    51 T, 756 T, 1,513 T."""
+    51 T, 756 T, 1,513 T.  ``int32`` is the CUDA cores' 32-bit integer
+    multiply-add rate (two operations each), from the Hopper white paper's
+    64 INT32 units per SM at the boost clock: 132 SMs x 64 x 2 x 1.98 GHz
+    = 33.5 T op/s (SXM), 114 x 64 x 2 x 1.755 GHz = 25.6 T (PCIe)."""
     if "PCIe" in name:
-        return {"hbm": 2.0e12, "f32": 51e12, "bf16": 756e12, "int8": 1513e12}
-    return {"hbm": 3.35e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+        return {"hbm": 2.0e12, "f32": 51e12, "bf16": 756e12,
+                "int8": 1513e12, "int32": 25.6e12}
+    return {"hbm": 3.35e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12,
+            "int32": 33.5e12}
 
 
 def bound_ms(nbytes: float, ops: float, hbm: float, rate: float
@@ -289,6 +309,304 @@ def kernel_phase(torch, peaks, dev):
     return rows
 
 
+# The paper's Fig. 4 shape (benchmarks/fig4_conv2d.py): x [1, 256, 256, 32]
+# x w [7, 7, 32, 32], VALID; its packed cases and the paper's speedups over
+# the int16 conv (3.2x at W2A2, 1.7x at 3/4 bits).
+FIG4 = dict(n=1, hw=256, c=32, k=7, co=32)
+FIG4_SPECS = ("W3A3/int16xP2s8", "W2A2/int16xP2s8", "W1A1/int16xP2s8",
+              "W1A1/int8xP2s4")
+FIG4_PAPER = {"W2A2": 3.2, "W3A3": 1.7}
+CNN_BATCH, CNN_BATCHES = 8, 4
+
+
+def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
+    """K5 and K6 against their plain versions (bit-equal) and timed: the
+    Fig. 4 shape (K6 on int16 values in [-256, 256), K5 on each packed
+    case), and ``cnn_cfg``'s packed layers at the CNN phase's batch (SAME,
+    its layout, lanes and dense).  Returns (rows, the Fig. 4 operands by
+    case)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import ops, plan as plan_lib
+    from repro_torch.kernels import ulppack_conv2d as conv
+    from repro_torch.models.common import full_f32
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows, fig4 = [], {}
+
+    # ---- K6 int_conv2d: the paper's int16 baseline ----------------------
+    n, hw, c, k, co = (FIG4[f] for f in ("n", "hw", "c", "k", "co"))
+    fig4_label = f"fig4 x[{n},{hw},{hw},{c}] w[{k},{k},{c},{co}] VALID"
+    qx = torch.randint(-256, 256, (n, hw, hw, c), generator=gen, device=dev,
+                       dtype=torch.int16)
+    qw = torch.randint(-256, 256, (k, k, c, co), generator=gen, device=dev,
+                       dtype=torch.int16)
+    fig4["int16"] = (qx, qw)
+    plan = plan_lib.plan_int_conv2d(tuple(qx.shape), tuple(qw.shape),
+                                    padding="VALID", device=dev)
+    got = ops.int_conv2d(qx, qw, padding="VALID", plan=plan)
+    want = conv.int_conv2d_torch(qx, qw, padding="VALID")
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("int_conv2d (Fig. 4 int16) not bit-equal")
+    ho = hw - k + 1
+    macs = n * ho * ho * k * k * c * co
+    nbytes = 2 * (qx.numel() + qw.numel()) + 4 * got.numel()
+    xs = [qx] + [qx.clone() for _ in range(copies_for(2 * qx.numel()) - 1)]
+    # the card's floor: the 9-bit operands on the int8 tensor cores after a
+    # byte split of each (four int8 products per MAC, two ops each); the
+    # design bound: one IMAD per MAC on the CUDA cores
+    b, by = bound_ms(nbytes, 8 * macs, peaks["hbm"], peaks["int8"])
+    design = bound_ms(nbytes, 2 * macs, peaks["hbm"], peaks["int32"])
+    # library yardstick: F.conv2d in float64 on the same values (NCHW x
+    # OIHW).  Products are at most 2^16 and sums at most ~1e8, far below
+    # 2^53, so every partial sum is exact in any order; rounded to the
+    # nearest integer it must equal K6, and `library_exact` records whether
+    # cuDNN's algorithm gave the integers without that rounding.
+    x64 = qx.permute(0, 3, 1, 2).to(torch.float64).contiguous()
+    w64 = qw.permute(3, 2, 0, 1).to(torch.float64).contiguous()
+    lib_out = F.conv2d(x64, w64).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    if not torch.equal(lib_out.round().to(torch.int32), got):
+        raise AssertionError("f64 conv disagrees with int_conv2d (Fig. 4)")
+    lib_exact = torch.equal(lib_out, got.to(torch.float64))
+    del lib_out
+    x64s = [x64] + [x64.clone() for _ in range(copies_for(8 * x64.numel())
+                                               - 1)]
+    lib = time_ms(torch, [lambda xi=xi: F.conv2d(xi, w64) for xi in x64s])
+    del x64s, x64
+    rows.append({
+        "name": "int_conv2d", "shape": f"{fig4_label} int16",
+        "max_abs_err": 0, "design_bound_ms": design[0],
+        "ms": time_ms(torch, [lambda xi=xi: ops.int_conv2d(
+            xi, qw, padding="VALID", plan=plan) for xi in xs]),
+        "plain_ms": time_ms(torch, [lambda: conv.int_conv2d_torch(
+            qx, qw, padding="VALID")], 3),
+        "bound_ms": b, "bound_by": by, "library_ms": lib,
+        "library": "F.conv2d f64 on the int16 values",
+        "library_exact": lib_exact, "geometry": plan.describe()})
+
+    # ---- K5 ulppack_conv2d ------------------------------------------------
+    def packed_row(sp, qx, qw, padding, store, label, key=None):
+        xp = packing.pack_activations(qx, sp)
+        wp = (ops.dense_store_conv_weights(qw, sp.w_bits) if store == "dense"
+              else packing.pack_weights(qw, sp, axis=2))
+        k_full = qx.shape[-1] if store == "dense" else None
+        if key is not None:
+            fig4[key] = (xp, wp)
+        plan = plan_lib.plan_packed_conv2d(
+            tuple(xp.shape), tuple(wp.shape), sp, padding=padding,
+            weight_store=store, k_full=k_full, device=dev)
+        got = ops.packed_conv2d(xp, wp, sp, padding=padding, plan=plan)
+        want = conv.ulppack_conv2d_torch(xp, wp, sp, padding=padding,
+                                         weight_store=store, k_full=k_full)
+        # library yardstick: cuDNN's f32 conv on the unpacked lattices, TF32
+        # off -- exact (values < 2^bits, sums < 2^24); checked equal first
+        fh, fw = qw.shape[:2]
+        pads = conv.same_pads(fh, fw, padding)
+        xl = F.pad(qx.permute(0, 3, 1, 2).float(),
+                   (pads[2], pads[3], pads[0], pads[1]))
+        wl = qw.permute(3, 2, 0, 1).float().contiguous()
+        with full_f32():
+            lib_out = F.conv2d(xl, wl)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ulppack_conv2d {label} not bit-equal")
+        if not torch.equal(lib_out.permute(0, 2, 3, 1).to(torch.int32), got):
+            raise AssertionError(f"f32 conv on the lattices disagrees with "
+                                 f"ulppack_conv2d {label}")
+        nb, h, w_, _ = qx.shape
+        ho, wo = got.shape[1:3]
+        macs = nb * ho * wo * fh * fw * qx.shape[-1] * qw.shape[-1]
+        pmacs = nb * ho * wo * fh * fw * xp.shape[-1] * qw.shape[-1]
+        nbytes = (xp.numel() * sp.lane_bytes + wp.numel() * wp.element_size()
+                  + 4 * got.numel())
+        # the card's floor: the lattice MACs on the int8 tensor cores; the
+        # design bound: one IMAD per packed product on the CUDA cores
+        b, by = bound_ms(nbytes, 2 * macs, peaks["hbm"], peaks["int8"])
+        design = bound_ms(nbytes, 2 * pmacs, peaks["hbm"], peaks["int32"])
+        xps = [xp] + [xp.clone() for _ in range(
+            copies_for(xp.numel() * sp.lane_bytes) - 1)]
+        xls = [xl] + [xl.clone() for _ in range(copies_for(4 * xl.numel())
+                                                - 1)]
+        with full_f32():
+            lib = time_ms(torch, [lambda xi=xi: F.conv2d(xi, wl)
+                                  for xi in xls])
+        del xls
+        ms = time_ms(torch, [lambda xi=xi: ops.packed_conv2d(
+            xi, wp, sp, padding=padding, plan=plan) for xi in xps])
+        plain = time_ms(torch, [lambda: conv.ulppack_conv2d_torch(
+            xp, wp, sp, padding=padding, weight_store=store,
+            k_full=k_full)], 3)
+        rows.append({
+            "name": "ulppack_conv2d", "shape": f"{label} {sp} {store}",
+            "max_abs_err": 0, "design_bound_ms": design[0], "ms": ms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": lib, "library": "F.conv2d f32 lattices, TF32 off",
+            "geometry": plan.describe()})
+
+    for text in FIG4_SPECS:
+        sp = PackSpec.parse(text)
+        qx = torch.randint(0, sp.max_a + 1, (n, hw, hw, c), generator=gen,
+                           device=dev, dtype=torch.int32)
+        qw = torch.randint(0, sp.max_w + 1, (k, k, c, co), generator=gen,
+                           device=dev, dtype=torch.int32)
+        packed_row(sp, qx, qw, "VALID", "lanes", fig4_label, key=text)
+    sp = PackSpec.from_config(cnn_cfg.quant)
+    hw, k = cnn_cfg.cnn_input_hw, cnn_cfg.cnn_kernel
+    chans = cnn_cfg.cnn_channels
+    for cin, cout in sorted(set(zip((chans[0],) + chans[:-1], chans))):
+        qx = torch.randint(0, sp.max_a + 1, (CNN_BATCH, hw, hw, cin),
+                           generator=gen, device=dev, dtype=torch.int32)
+        qw = torch.randint(0, sp.max_w + 1, (k, k, cin, cout),
+                           generator=gen, device=dev, dtype=torch.int32)
+        for store in ("lanes", "dense"):
+            packed_row(sp, qx, qw, "SAME", store,
+                       f"layer {cin}->{cout} x[{CNN_BATCH},{hw},{hw},{cin}] "
+                       f"w[{k},{k},{cin},{cout}] SAME")
+    return rows, fig4
+
+
+def fig4_phase(torch, fig4, rows):
+    """The Fig. 4 comparison through the entry points: the int16 conv (K6)
+    and each packed case (K5) at the paper's shape, once each; returns the
+    launches.  Prints the kernel phase's times side by side: each packed
+    case's speedup over the int16 conv beside the paper's."""
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ulppack_conv2d as conv
+
+    conv.reset_counts()
+    out = [ops.int_conv2d(*fig4["int16"], padding="VALID")]
+    for text in FIG4_SPECS:
+        out.append(ops.packed_conv2d(*fig4[text], PackSpec.parse(text),
+                                     padding="VALID"))
+    torch.cuda.synchronize()
+    launches, plain = dict(conv.kernel_launches), dict(conv.plain_calls)
+    if launches != {"int_conv2d": 1, "ulppack_conv2d": len(FIG4_SPECS)} \
+            or any(plain.values()):
+        raise AssertionError(f"fig4 path: launches {launches}, plain {plain}")
+    ho = FIG4["hw"] - FIG4["k"] + 1
+    if not all(o.shape == (FIG4["n"], ho, ho, FIG4["co"]) for o in out):
+        raise AssertionError("fig4 path: wrong output shape")
+    t16 = next(r["ms"] for r in rows if r["name"] == "int_conv2d")
+    rep = {"int16_ms": t16, "packed": {}}
+    for text in FIG4_SPECS:
+        ms = next(r["ms"] for r in rows if r["name"] == "ulppack_conv2d"
+                  and r["shape"].startswith("fig4") and text in r["shape"])
+        bits = text.split("/")[0]
+        rep["packed"][text] = {"ms": ms, "speedup_vs_int16": t16 / ms,
+                               "paper_speedup": FIG4_PAPER.get(bits)}
+    print("fig4 " + json.dumps(rep))
+    return launches
+
+
+def cnn_phase(torch, dev, cfg):
+    """Full-width sparq-cnn W2A2 (channels 32/32/64, 7x7, 256x256x3, 10
+    classes) with random weights from a seed: weights prepared and layer
+    plans built once per store, then CNN_BATCHES batches of CNN_BATCH
+    random images through ``forward(quant_mode='packed')``.  Fails unless
+    K5 ran every packed layer with no plain-version call.  Returns the
+    params, the lanes-store tree and plans, and the K5 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ulppack_conv2d as conv
+    from repro_torch.models import cnn
+
+    hw = cfg.cnn_input_hw
+    shape = (CNN_BATCH, hw, hw, 3)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = cnn.init_params(cfg, gen, device=dev)
+    images = [torch.randn(shape, generator=gen, device=dev)
+              for _ in range(CNN_BATCHES)]
+    print(f"cnn: {cfg.name} W{cfg.quant.w_bits}A{cfg.quant.a_bits}, "
+          f"channels {cfg.cnn_channels}, {cfg.cnn_kernel}x{cfg.cnn_kernel}, "
+          f"input {shape}, {cfg.cnn_num_classes} classes, random weights "
+          f"(seed {SEED})")
+    launches, kept = 0, None
+    for store in ("lanes", "dense"):
+        packed = cnn.prepare_packed_params(params, cfg, weight_store=store,
+                                           x_shape=shape)
+        plans = cnn.layer_plans(packed, cfg, shape)
+        print(f"cnn plans ({store}): "
+              + json.dumps([p.describe() for p in plans]))
+        cnn.forward(packed, cfg, images[0], quant_mode="packed",
+                    plans=plans)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        conv.reset_counts()
+        times, logits = [], []
+        for x in images:
+            t0 = time.perf_counter()
+            logits.append(cnn.forward(packed, cfg, x, quant_mode="packed",
+                                      plans=plans))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        k5 = conv.kernel_launches["ulppack_conv2d"]
+        plain = sum(conv.plain_calls.values())
+        if k5 != CNN_BATCHES * len(cfg.cnn_channels) or plain:
+            raise AssertionError(f"cnn {store}: {k5} K5 launches, {plain} "
+                                 f"plain calls on the packed path")
+        for lg in logits:
+            if lg.shape != (CNN_BATCH, cfg.cnn_num_classes) \
+                    or not torch.isfinite(lg).all():
+                raise AssertionError(f"cnn {store}: bad logits")
+        launches += k5
+        rep = {"store": store, "batches": CNN_BATCHES, "batch": CNN_BATCH,
+               "ms_per_batch": times,
+               "median_ms_per_batch": statistics.median(times),
+               "images_per_s": CNN_BATCHES * CNN_BATCH * 1e3 / sum(times),
+               "median_images_per_s":
+                   CNN_BATCH * 1e3 / statistics.median(times),
+               "k5_launches": k5, "plain_calls": plain,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cnn.forward(packed, cfg, images[0], quant_mode="packed",
+                        plans=plans)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        rep["device_ms_per_batch"] = busy_ms
+        rep["idle_share"] = 1 - busy_ms / rep["median_ms_per_batch"]
+        rep["kernel_launches_per_batch"] = sum(e.count for e in kernels)
+        rep["top_kernels_ms"] = [[e.key[:60], e.self_device_time_total / 1e3,
+                                  e.count] for e in top]
+        print("cnn " + json.dumps(rep))
+        if store == "lanes":
+            kept = (packed, plans)
+    return kept, images[0][:2], launches
+
+
+def cnn_compare(torch, cfg, packed, plans, x):
+    """Kernel path against the plain path on the same weights and images:
+    every layer's int32 accumulator (and lattice and patch sums) bit-equal,
+    and the max logit difference of the whole forward."""
+    from repro_torch.models import cnn
+
+    q = cfg.quant
+    h = torch.relu(cnn.conv_apply(packed["stem"], x, q))
+    for i, (p, plan) in enumerate(zip(packed["layers"], plans)):
+        got = cnn.conv_integer_core(p, h, q, plan=plan)
+        want = cnn.conv_integer_core(p, h, q, backend="torch")
+        for key in ("xq", "acc", "psum"):
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"cnn layer {i}: {key} differs between "
+                                     f"the kernel and the plain path")
+        h = torch.relu(cnn.conv_epilogue(got))
+    a = cnn.forward(packed, cfg, x, quant_mode="packed", plans=plans)
+    b = cnn.forward(packed, cfg, x, quant_mode="packed", backend="torch")
+    rep = {"images": int(x.shape[0]), "layers_acc_bit_equal": True,
+           "max_logit_diff": float((a - b).abs().max()),
+           "argmax_agree": bool(torch.equal(a.argmax(-1), b.argmax(-1)))}
+    print("cnn kernel-vs-plain " + json.dumps(rep))
+    return rep
+
+
 def serve_phase(torch, np, dev, cfg):
     from repro_torch.launch import steps
     from repro_torch.models import lm
@@ -464,8 +782,12 @@ def main() -> int:
                  or "spill" in ln]
         print(f"ptxas {n}: " + " | ".join(usage[:6]))
 
+    from repro_torch import configs
     dev = torch.device("cuda")
+    cnn_cfg = configs.get_config("sparq-cnn")
     rows = kernel_phase(torch, peaks, dev)
+    conv_rows, fig4 = conv_kernel_phase(torch, peaks, dev, cnn_cfg)
+    rows += conv_rows
     for r in rows:
         print("kernel " + json.dumps(r))
 
@@ -473,7 +795,6 @@ def main() -> int:
             "attention_decode": ulppack_attention}
     for mod in mods.values():
         mod.reset_counts()
-    from repro_torch import configs
     ctx = serve_phase(torch, np, dev, configs.get_config("stablelm-1.6b"))
     launches = {k: m.kernel_launches for k, m in mods.items()}
     plain = {k: m.plain_calls for k, m in mods.items()}
@@ -484,6 +805,14 @@ def main() -> int:
             raise AssertionError(f"{k}: {launches[k]} kernel launches, "
                                  f"{plain[k]} plain calls on the serve path")
     compare_backends(torch, np, dev, *ctx)
+    del ctx
+    torch.cuda.empty_cache()
+
+    launches["int_conv2d"] = fig4_phase(torch, fig4, rows)["int_conv2d"]
+    del fig4
+    (packed, plans), x, launches["ulppack_conv2d"] = cnn_phase(
+        torch, dev, cnn_cfg)
+    cnn_compare(torch, cnn_cfg, packed, plans, x)
 
     meta = {
         "quantize_pack": ("src/repro_torch/csrc/quant_pack.cu",
@@ -495,6 +824,13 @@ def main() -> int:
         "attention_decode": ("src/repro_torch/csrc/attention_decode.cu",
                              "src/repro/kernels/ulppack_attention.py:395",
                              "B4 S512 H32 hd64 C1 kv4"),
+        # K5's main path is the CNN phase (both stores); its row is the
+        # largest packed layer there.  K6's path is the Fig. 4 phase.
+        "ulppack_conv2d": ("src/repro_torch/csrc/ulppack_conv2d.cu",
+                           "src/repro/kernels/ulppack_conv2d.py:148",
+                           "layer 32->64"),
+        "int_conv2d": ("src/repro_torch/csrc/int_conv2d.cu",
+                       "src/repro/kernels/ulppack_conv2d.py:148", "fig4"),
     }
     summary = []
     for k, (source, replaces, shape) in meta.items():

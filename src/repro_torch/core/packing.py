@@ -340,11 +340,11 @@ def tile_dots(a3: torch.Tensor, w3: torch.Tensor,
         t1 = min(t, t0 + step)
         prod = (a3[t0:t1, :, :, None].to(torch.int64)
                 * w3[t0:t1, None, :, :].to(torch.int64)).sum(dim=2)
-        out[t0:t1] = _wrap_i32(prod)
+        out[t0:t1] = wrap_i32(prod)
     return out
 
 
-def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
     """Low 32 bits of an int64 tensor as two's-complement int32."""
     x = x & 0xFFFFFFFF
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)

@@ -23,6 +23,7 @@ from repro_torch.core import packing, quant
 from repro_torch.core.packing import PackSpec
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.kernels import quant_pack as _quant_pack  # noqa: F401
+from repro_torch.kernels import ulppack_conv2d as _conv  # noqa: F401
 from repro_torch.kernels import ulppack_matmul as _matmul  # noqa: F401
 from repro_torch.kernels.plan import KernelPlan
 
@@ -39,6 +40,40 @@ def packed_matmul(a_packed, w_packed, spec: PackSpec, *,
             backend=backend, device=a2.device)
     out = plan_lib.dispatch(plan, a2, w_packed)
     return out.reshape(*lead, w_packed.shape[-1])
+
+
+def packed_conv2d(x_packed, w_packed, spec: PackSpec, *,
+                  padding: str = "SAME", backend: str = "auto",
+                  weight_store: str = "lanes", k_full: int | None = None,
+                  plan: KernelPlan | None = None) -> torch.Tensor:
+    """Packed conv2d [N,H,W,Cp] x [Fh,Fw,Cdim,Co] -> exact int32 NHWC.
+
+    The weight store and the launch geometry come from the plan.  With
+    ``weight_store='dense'`` the weight operand is bit-dense words; pass
+    ``k_full`` (= Cin) when it is not a multiple of n_pack (the planner's
+    default rounds up, which the zero-padded words make equivalent).  The
+    'torch' backend is the counterpart of ``repro``'s 'xla' one, except
+    that it extracts after each (tap, run of at most k_tile lanes), as the
+    kernel does, where 'xla' extracts once per channel run over all taps
+    (ROADMAP.md Queue 3).
+    """
+    if plan is None:
+        plan = plan_lib.plan_packed_conv2d(
+            tuple(x_packed.shape), tuple(w_packed.shape), spec,
+            padding=padding, backend=backend, weight_store=weight_store,
+            k_full=k_full, device=x_packed.device)
+    return plan_lib.dispatch(plan, x_packed, w_packed, padding)
+
+
+def int_conv2d(q_x, q_w, *, padding: str = "VALID", backend: str = "auto",
+               plan: KernelPlan | None = None) -> torch.Tensor:
+    """Unpacked integer conv2d (int8/int16) [N,H,W,C] x [Fh,Fw,C,Co] ->
+    int32 NHWC wrapped mod 2^32: the paper's int16 baseline."""
+    if plan is None:
+        plan = plan_lib.plan_int_conv2d(tuple(q_x.shape), tuple(q_w.shape),
+                                        padding=padding, backend=backend,
+                                        device=q_x.device)
+    return plan_lib.dispatch(plan, q_x, q_w, padding)
 
 
 def quantize_pack(x, scale, zero_point, spec: PackSpec, *,
@@ -108,3 +143,11 @@ def dense_load_weights(words: torch.Tensor, w_bits: int, k: int
                        ) -> torch.Tensor:
     """Inverse of dense_store_weights -> [K, N] int32 lattice."""
     return packing.unpack_words(words, w_bits, k, axis=0)
+
+
+def dense_store_conv_weights(q_w: torch.Tensor, w_bits: int) -> torch.Tensor:
+    """[Fh, Fw, Cin, Co] lattice -> [Fh, Fw, ceil(Cin/per), Co] int32 words.
+
+    Word-packs the input-channel axis independently per (fh, fw, co) tap,
+    the layout the conv kernel's 'dense' prologue expands."""
+    return packing.pack_words(q_w, w_bits, axis=2)

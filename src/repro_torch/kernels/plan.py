@@ -36,6 +36,22 @@ _WAVES = 2
 #: Threads per block of the matmul kernel (kThreads in csrc/).
 MATMUL_THREADS = 128
 
+#: The conv tile of csrc/conv2d_tile.cuh (PPT, GPR, CPT, FW_MAX and
+#: kMaxThreads there; a CPU test holds the two equal, and the C launcher
+#: refuses a plan whose threads or shared memory differ from its own):
+#: output pixels per thread, pixel groups per tile row, output columns per
+#: block, output channels per thread, the widest kernel its register window
+#: takes, threads per block at most, and the shared memory a block may use.
+CONV_PPT = 8
+CONV_GPR = 4
+CONV_TILE_W = CONV_PPT * CONV_GPR
+CONV_CPT = 4
+CONV_FW_MAX = 8
+CONV_MAX_THREADS = 256
+CONV_SMEM_MAX = 227 * 1024
+#: Shared memory the conv planner aims to stay under (two blocks per SM).
+_CONV_SMEM_TARGET = 100 * 1024
+
 
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
@@ -47,6 +63,11 @@ class KernelPlan:
       quantize_pack    : threads
       attention_decode : block_k (KV rows per online-softmax group of the
                          plain version)
+      packed_conv2d /  : block_h (output rows per block), block_co (output
+      int_conv2d         channels per block), block_c (channels or lanes
+                         staged per pass), threads, smem_bytes (per block);
+                         packed_conv2d also weight_store and k_full (Cin
+                         of a 'dense' store)
     """
 
     op: str
@@ -56,6 +77,12 @@ class KernelPlan:
     block_k: int | None = None
     splits: int | None = None
     threads: int | None = None
+    weight_store: str | None = None
+    k_full: int | None = None
+    block_h: int | None = None
+    block_co: int | None = None
+    block_c: int | None = None
+    smem_bytes: int | None = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -65,7 +92,8 @@ class KernelPlan:
         """Flat report row: op, backend, layout and the set geometry."""
         row = {"op": self.op, "backend": self.backend,
                "spec": str(self.spec) if self.spec else None}
-        for f in ("block_m", "block_k", "splits", "threads"):
+        for f in ("block_m", "block_k", "splits", "threads", "weight_store",
+                  "k_full", "block_h", "block_co", "block_c", "smem_bytes"):
             if getattr(self, f) is not None:
                 row[f] = getattr(self, f)
         return row
@@ -222,3 +250,105 @@ def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, backend
                          f"attention kernel (8 dims per lane at most)")
     return KernelPlan(op="attention_decode", backend=backend,
                       block_k=min(512, max(1, skv)))
+
+
+def _conv_out(h: int, w: int, fh: int, fw: int, padding: str):
+    if padding == "SAME":
+        return h, w
+    if padding == "VALID":
+        return h - fh + 1, w - fw + 1
+    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+
+
+def _conv_geometry(n, out_h, out_w, c, fh, fw, co, device_key) -> dict:
+    """Launch geometry of the conv tile (csrc/conv2d_tile.cuh) on Hopper.
+
+    ``block_co`` output channels (8, 16 or 32) x ``block_h`` rows x 32
+    columns per block, ``block_h * GPR * block_co / CPT`` threads (at most
+    256); rows are halved until the grid covers the card twice over;
+    ``block_c`` channels are staged per pass, halved until the halo tile
+    and the weight block fit ~100 KB of shared memory (two blocks per
+    SM)."""
+    if fw > CONV_FW_MAX:
+        raise ValueError(f"kernel width {fw} > {CONV_FW_MAX}: the conv "
+                         f"tile's register window takes {CONV_FW_MAX} taps")
+    bco = 8 if co <= 8 else 16 if co <= 16 else 32
+    threads_per_row = CONV_GPR * (bco // CONV_CPT)
+    bh = min(16, CONV_MAX_THREADS // threads_per_row)
+
+    def blocks(bh):
+        return (n * -(-out_h // bh) * -(-out_w // CONV_TILE_W)
+                * -(-co // bco))
+
+    def smem(bh, bc):
+        xs = bc * (bh + fh - 1) * (CONV_TILE_W + fw - 1)
+        return 4 * (-(-xs // 4) * 4 + fh * fw * bc * bco)
+
+    while bh > 1 and (bh >= 2 * max(1, out_h)
+                      or blocks(bh) < _WAVES * _sm_count(device_key)):
+        bh //= 2
+    bc = max(1, min(c, 8))
+    while bc > 1 and smem(bh, bc) > _CONV_SMEM_TARGET:
+        bc = -(-bc // 2)
+    while bh > 1 and smem(bh, bc) > CONV_SMEM_MAX:
+        bh //= 2
+    if smem(bh, bc) > CONV_SMEM_MAX:
+        raise ValueError(f"a {fh}x{fw} kernel does not fit the conv tile's "
+                         f"shared memory ({smem(bh, bc)} bytes)")
+    return dict(block_h=bh, block_co=bco, block_c=bc,
+                threads=bh * threads_per_row, smem_bytes=smem(bh, bc))
+
+
+def plan_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
+                       padding: str = "SAME", backend: str = "auto",
+                       weight_store: str = "lanes",
+                       k_full: int | None = None, device="cpu"
+                       ) -> KernelPlan:
+    """Plan a packed conv2d x [N, H, W, Cp] * w [Fh, Fw, Cdim, Co] (K5).
+
+    Records the layout, the weight store and ``k_full`` (Cin of a 'dense'
+    store, defaulting to ``cp * n_pack`` as in the reference) beside the
+    Hopper launch geometry; the TPU's VMEM budget and ``block_h``
+    candidates have no counterpart here."""
+    return _plan_packed_conv2d(tuple(x_shape), tuple(w_shape), spec, padding,
+                               resolve_backend(backend, device), weight_store,
+                               k_full, _device_key(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
+                        weight_store, k_full, device_key) -> KernelPlan:
+    spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
+    if weight_store not in ("lanes", "dense"):
+        raise ValueError(f"weight_store must be 'lanes' or 'dense', got "
+                         f"{weight_store!r}")
+    n, h, w, cp = x_shape
+    fh, fw, _, co = w_shape
+    if weight_store == "dense" and k_full is None:
+        k_full = cp * spec.n_pack
+    out_h, out_w = _conv_out(h, w, fh, fw, padding)
+    return KernelPlan(
+        op="packed_conv2d", backend=backend, spec=spec,
+        weight_store=weight_store, k_full=k_full,
+        **_conv_geometry(n, out_h, out_w, cp, fh, fw, co, device_key))
+
+
+def plan_int_conv2d(x_shape: tuple, w_shape: tuple, *,
+                    padding: str = "VALID", backend: str = "auto",
+                    device="cpu") -> KernelPlan:
+    """Plan an unpacked integer conv2d x [N, H, W, C] * w [Fh, Fw, C, Co]
+    (K6, the paper's int16 baseline): the same tile as K5."""
+    return _plan_int_conv2d(tuple(x_shape), tuple(w_shape), padding,
+                            resolve_backend(backend, device),
+                            _device_key(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_int_conv2d(x_shape, w_shape, padding, backend, device_key
+                     ) -> KernelPlan:
+    n, h, w, c = x_shape
+    fh, fw, _, co = w_shape
+    out_h, out_w = _conv_out(h, w, fh, fw, padding)
+    return KernelPlan(
+        op="int_conv2d", backend=backend,
+        **_conv_geometry(n, out_h, out_w, c, fh, fw, co, device_key))

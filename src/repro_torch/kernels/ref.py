@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import packing, quant
 from repro_torch.core.packing import PackSpec
@@ -18,6 +19,29 @@ def matmul_i32_ref(q_a: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
 def packed_matmul_ref(q_a: torch.Tensor, q_w: torch.Tensor, spec: PackSpec):
     """Native-ULPPACK path (pack + tile + extract); bit-exact target."""
     return packing.packed_matmul_reference(q_a, q_w, spec)
+
+
+def conv2d_i32_ref(q_x: torch.Tensor, q_w: torch.Tensor, padding="VALID"
+                   ) -> torch.Tensor:
+    """Exact integer conv2d oracle: q_x [N, H, W, C] x q_w [Fh, Fw, C, Co]
+    -> int32 NHWC, 'VALID' or 'SAME', wrapped mod 2^32 like XLA's s32.
+
+    Computed as a float64 convolution (exact while every partial sum stays
+    below 2^53, e.g. any int16 operands over fewer than 2^22 taps x
+    channels), then reduced mod 2^32 -- independent of the plain versions'
+    packed-lane contractions."""
+    fh, fw = q_w.shape[:2]
+    if padding == "SAME":
+        ph, pw = fh - 1, fw - 1
+        pads = (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2)
+    elif padding == "VALID":
+        pads = (0, 0, 0, 0)
+    else:
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    x = F.pad(q_x.to(torch.float64).permute(0, 3, 1, 2), pads)
+    y = F.conv2d(x, q_w.to(torch.float64).permute(3, 2, 0, 1))
+    return packing.wrap_i32(y.to(torch.int64)).permute(0, 2, 3, 1) \
+        .contiguous()
 
 
 def quantize_pack_ref(x: torch.Tensor, scale, zero_point, spec: PackSpec):

@@ -1,0 +1,280 @@
+"""sparq-cnn: the paper's conv2d benchmark network, packed inference
+(counterpart of ``repro/models/cnn.py``).
+
+Layouts are the reference's: images and activations NHWC, conv kernels
+HWIO.  Conv layers run in one of two modes:
+  'none'   -- the float conv (full float32, TF32 off).
+  'packed' -- the deployed Sparq path: quantize the activations onto the
+              PACT lattice, P1-pack them over channels, the packed conv
+              kernel (K5, kernels/ulppack_conv2d.py) and the affine dequant
+              ``a_scale * w_scale * (acc - w_zp * psum)``.
+The fake-quant training mode ('qat') waits for the training slice.
+
+Deployment is two-phase, as in the reference: ``prepare_packed_params``
+quantizes and packs each conv layer's weights once (P1 lanes or bit-dense
+words) and ``layer_plans`` builds the per-layer ``KernelPlan``s; the
+forward pass then only quantizes activations and dispatches through the
+plans.  Un-prepared params still work (weights are packed inline).
+
+Patch sums ``psum`` (the zero-point correction, an int32 conv of the
+activation lattice with ones in the reference) are computed exactly as the
+int32 channel sum followed by an fh x fw box sum over shifted slices
+(rows, then columns): CUDA PyTorch has no integer conv, and this stays in
+int32 on every device.  The float stem, the pooling and the head are
+library calls, as the reference leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import packing, quant
+from repro_torch.core.packing import PackSpec
+from repro_torch.core.quant import QuantConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels import plan as plan_lib
+from repro_torch.kernels.ulppack_conv2d import same_pads
+from repro_torch.models import common
+
+_NO_AUTOTUNE = ("autotune=True: the port has no tuning cache yet "
+                "(ROADMAP.md Queue 1 item 12)")
+
+
+def conv_init(generator: torch.Generator, fh: int, fw: int, cin: int,
+              cout: int, qcfg: QuantConfig, *, dtype=torch.float32,
+              device="cpu"):
+    w = torch.randn((fh, fw, cin, cout), generator=generator,
+                    dtype=torch.float32, device=device) \
+        / math.sqrt(fh * fw * cin)
+    p = {"kernel": w.to(dtype)}
+    if qcfg.enabled:
+        p["w_step"] = quant.init_step_from_data(w, qcfg.w_bits, True)
+        p["alpha"] = torch.tensor(4.0, dtype=torch.float32, device=device)
+    return p
+
+
+def init_params(cfg, generator: torch.Generator, *, device="cuda"):
+    """Random float params from ``generator`` (which must live on
+    ``device``): a 3x3 float stem to ``cnn_channels[0]``, the conv stack
+    and the f32 head.  The port never reproduces JAX's random stream; trees
+    from the reference cross through bridge.from_repro."""
+    dev = plan_lib.resolve_device(device)
+    chans = cfg.cnn_channels
+    k = cfg.cnn_kernel
+    stem = conv_init(generator, 3, 3, 3, chans[0], cfg.quant, device=dev)
+    layers, cin = [], chans[0]
+    for cout in chans:
+        layers.append(conv_init(generator, k, k, cin, cout, cfg.quant,
+                                device=dev))
+        cin = cout
+    head = common.dense_init(generator, cin, cfg.cnn_num_classes, device=dev)
+    return {"stem": stem, "layers": layers, "head": head}
+
+
+def conv_layer_spec(x_shape, w_shape, qcfg: QuantConfig, *,
+                    padding: str = "SAME", weight_store: str = "lanes",
+                    w_packed=None) -> PackSpec:
+    """The per-layer lane layout of a conv2d: the config's base spec (the
+    port has no layout tuning cache yet, so every layer uses it)."""
+    del x_shape, w_shape, padding, weight_store, w_packed
+    return PackSpec.from_config(qcfg)
+
+
+def conv_prepare(p, qcfg: QuantConfig, *, weight_store: str = "lanes",
+                 spec: PackSpec | None = None):
+    """Offline per-layer weight preparation (once, not per forward): the
+    float kernel quantized to the w_bits lattice and stored as P1 lanes
+    ('lanes' -> ``w_packed``) or bit-dense int32 words ('dense' ->
+    ``w_words``).  The float kernel is dropped."""
+    spec = spec if spec is not None else PackSpec.from_config(qcfg)
+    w = p["kernel"].to(torch.float32)
+    dev = w.device
+    w_scale = p["w_step"] if "w_step" in p \
+        else quant.calibrate_absmax(w, qcfg.w_bits)[0]
+    w_zp = qcfg.w_zero_point
+    q_w = quant.quantize_affine(w, w_scale, w_zp, qcfg.w_bits)
+    out = {"alpha": p["alpha"] if "alpha" in p
+           else torch.tensor(4.0, dtype=torch.float32, device=dev),
+           "w_scale": torch.as_tensor(w_scale).to(dev, torch.float32),
+           "w_zp": torch.tensor(w_zp, dtype=torch.int32, device=dev)}
+    if weight_store == "dense":
+        out["w_words"] = ops.dense_store_conv_weights(q_w, qcfg.w_bits)
+    elif weight_store == "lanes":
+        out["w_packed"] = packing.pack_weights(q_w, spec, axis=2)
+    else:
+        raise ValueError(f"weight_store must be 'lanes' or 'dense', got "
+                         f"{weight_store!r}")
+    return out
+
+
+def prepare_packed_params(params, cfg, *, weight_store: str = "lanes",
+                          x_shape=None, padding: str = "SAME",
+                          autotune: bool = False):
+    """Convert a float param tree for packed inference (weights packed
+    once, on the device they live on); the float stem and head are kept.
+    ``x_shape`` and ``padding`` are accepted as in the reference but unused:
+    without a tuning cache every layer takes the config's spec."""
+    del x_shape, padding
+    if autotune:
+        raise NotImplementedError(_NO_AUTOTUNE)
+    layers = [conv_prepare(p, cfg.quant, weight_store=weight_store)
+              for p in params["layers"]]
+    return {"stem": params["stem"], "layers": layers,
+            "head": params["head"]}
+
+
+def layer_plans(params, cfg, x_shape, *, padding: str = "SAME",
+                backend: str = "auto", autotune: bool = False):
+    """Per-conv-layer KernelPlans for an input [N, H, W, 3] shape, on the
+    device the layer's weights live on.  SAME padding keeps H, W constant
+    through the stack, so the plans differ only in channel counts.  Each
+    plan records the layout, the weight store and ``k_full``."""
+    if autotune:
+        raise NotImplementedError(_NO_AUTOTUNE)
+    n, h, w, _ = x_shape
+    chans = cfg.cnn_channels
+    plans = []
+    for i, p in enumerate(params["layers"]):
+        cin = chans[i - 1] if i > 0 else chans[0]
+        if "w_packed" in p:
+            leaf = p["w_packed"]
+            fh, fw, cp, cout = (int(d) for d in leaf.shape)
+            store, k_full = "lanes", None
+            spec = conv_layer_spec((n, h, w, cin), (fh, fw, cin, cout),
+                                   cfg.quant, padding=padding,
+                                   weight_store=store, w_packed=leaf)
+            if leaf.dtype != spec.lane_dtype \
+                    or cp != -(-cin // spec.n_pack):
+                raise ValueError(
+                    f"layers[{i}]: packed bytes ({leaf.dtype}, cp={cp}) do "
+                    f"not match the lane layout {spec} for cin={cin}")
+            w_shape = tuple(leaf.shape)
+        elif "w_words" in p:
+            leaf = p["w_words"]
+            fh, fw, _, cout = (int(d) for d in leaf.shape)
+            store, k_full = "dense", cin
+            spec = conv_layer_spec((n, h, w, cin), (fh, fw, cin, cout),
+                                   cfg.quant, padding=padding,
+                                   weight_store=store)
+            cp = -(-cin // spec.n_pack)
+            w_shape = tuple(leaf.shape)
+        else:
+            leaf = p["kernel"]
+            fh, fw, cin, cout = (int(d) for d in leaf.shape)
+            store, k_full = "lanes", None
+            spec = conv_layer_spec((n, h, w, cin), (fh, fw, cin, cout),
+                                   cfg.quant, padding=padding,
+                                   weight_store=store)
+            cp = -(-cin // spec.n_pack)
+            w_shape = (fh, fw, cp, cout)
+        plans.append(plan_lib.plan_packed_conv2d(
+            (n, h, w, cp), w_shape, spec, padding=padding, backend=backend,
+            weight_store=store, k_full=k_full, device=leaf.device))
+    return plans
+
+
+def patch_sums(xq: torch.Tensor, fh: int, fw: int, padding: str
+               ) -> torch.Tensor:
+    """Exact int32 fh x fw patch sums of a lattice [N, H, W, C] over all
+    channels -> [N, Ho, Wo, 1] (the reference's conv with ones)."""
+    top, bottom, left, right = same_pads(fh, fw, padding)
+    s = F.pad(xq.sum(dim=-1, dtype=torch.int32), (left, right, top, bottom))
+    ho, wo = s.shape[1] - fh + 1, s.shape[2] - fw + 1
+    rows = s[:, :ho]
+    for i in range(1, fh):
+        rows = rows + s[:, i:i + ho]
+    out = rows[:, :, :wo]
+    for j in range(1, fw):
+        out = out + rows[:, :, j:j + wo]
+    return out[..., None]
+
+
+def conv_integer_core(p, x, qcfg: QuantConfig, *, padding: str = "SAME",
+                      backend: str = "auto", plan=None) -> dict:
+    """The integer half of a packed conv layer on float input x [N,H,W,C]:
+    the activation lattice ``xq``, the packed conv's int32 ``acc`` and the
+    int32 patch sums ``psum``, with the scalars of the affine epilogue
+    (``a_scale``, ``w_scale``, ``w_zp``)."""
+    prepared = "w_packed" in p or "w_words" in p
+    store = "dense" if "w_words" in p else "lanes"
+    if plan is not None:
+        spec = plan.spec             # the layout the stored bytes use
+    else:
+        leaf = p.get("w_words", p.get("w_packed", p.get("kernel")))
+        spec = conv_layer_spec(tuple(x.shape), tuple(leaf.shape), qcfg,
+                               padding=padding, weight_store=store)
+    if prepared:
+        w_scale, w_zp = p["w_scale"], p["w_zp"]
+        wp = p["w_words"] if store == "dense" else p["w_packed"]
+    else:
+        # un-prepared params: pack inline
+        w = p["kernel"].to(torch.float32)
+        w_scale = p["w_step"] if "w_step" in p \
+            else quant.calibrate_absmax(w, qcfg.w_bits)[0]
+        w_zp = qcfg.w_zero_point
+        q_w = quant.quantize_affine(w, w_scale, w_zp, qcfg.w_bits)
+        wp = packing.pack_weights(q_w, spec, axis=2)
+    fh, fw = int(wp.shape[0]), int(wp.shape[1])
+    # activations: PACT range [0, alpha] -> the z = 0 lattice
+    alpha = p["alpha"] if "alpha" in p \
+        else torch.tensor(4.0, dtype=torch.float32, device=x.device)
+    a_scale = alpha / qcfg.qmax_a
+    xq = quant.quantize_affine(torch.minimum(torch.clamp(x, min=0.0), alpha),
+                               a_scale, 0, qcfg.a_bits)
+    xp = packing.pack_activations(xq, spec, axis=-1)
+    acc = ops.packed_conv2d(
+        xp, wp, spec, padding=padding, backend=backend, weight_store=store,
+        k_full=int(x.shape[-1]) if store == "dense" else None, plan=plan)
+    return {"xq": xq, "acc": acc, "psum": patch_sums(xq, fh, fw, padding),
+            "a_scale": a_scale, "w_scale": w_scale, "w_zp": w_zp}
+
+
+def conv_epilogue(c: dict) -> torch.Tensor:
+    """The affine dequant of ``conv_integer_core``'s result, in the
+    reference's order: ``a_scale * w_scale * (acc - w_zp * psum)``."""
+    f32 = torch.float32
+    return c["a_scale"] * c["w_scale"] \
+        * (c["acc"].to(f32) - c["w_zp"] * c["psum"].to(f32))
+
+
+def _conv_f32(x, w, padding):
+    """Float NHWC x HWIO conv in full float32."""
+    top, bottom, left, right = same_pads(w.shape[0], w.shape[1], padding)
+    xn = F.pad(x.to(torch.float32).permute(0, 3, 1, 2),
+               (left, right, top, bottom))
+    with common.full_f32():
+        y = F.conv2d(xn, w.to(torch.float32).permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_apply(p, x, qcfg: QuantConfig, *, quant_mode: str = "none",
+               padding: str = "SAME", backend: str = "auto", plan=None):
+    if quant_mode == "packed" and qcfg.enabled:
+        return conv_epilogue(conv_integer_core(
+            p, x, qcfg, padding=padding, backend=backend, plan=plan))
+    if quant_mode not in ("none", "packed"):
+        raise NotImplementedError(
+            f"quant_mode {quant_mode!r}: fake-quant training is still to be "
+            f"ported (ROADMAP.md Queue 1 item 15)")
+    return _conv_f32(x, p["kernel"], padding)
+
+
+def forward(params, cfg, x, *, quant_mode: str = "none",
+            backend: str = "auto", plans=None):
+    """x: [N, H, W, 3] float image -> f32 logits [N, classes].
+
+    ``plans`` (from ``layer_plans``) routes each conv through its prebuilt
+    KernelPlan; without it, plans come from the memoized planners."""
+    h = torch.relu(conv_apply(params["stem"], x, cfg.quant,
+                              quant_mode="none"))
+    for i, p in enumerate(params["layers"]):
+        plan = plans[i] if plans is not None else None
+        h = torch.relu(conv_apply(p, h, cfg.quant, quant_mode=quant_mode,
+                                  backend=backend, plan=plan))
+    pooled = h.mean(dim=(1, 2))
+    with common.full_f32():
+        return common.dense_apply(params["head"], pooled,
+                                  compute_dtype=torch.float32)

@@ -13,6 +13,7 @@ The fake-quant training mode ('qat') waits for the training slice.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -28,6 +29,25 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run float32 convolutions and matmuls in full float32 on the card.
+
+    cuDNN runs a float32 convolution in TF32 by default
+    (``torch.backends.cudnn.allow_tf32``), which keeps ~3 decimal digits;
+    the reference computes in float32.  Both TF32 switches are off inside
+    the block and restored after it."""
+    conv, mm = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 # ---------------------------------------------------------------------------

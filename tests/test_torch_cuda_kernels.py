@@ -13,8 +13,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.core.packing import PackSpec  # noqa: E402
 from repro_torch.kernels import plan as plan_lib  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quant_pack, ulppack_attention  # noqa: E402
-from repro_torch.kernels import ulppack_matmul  # noqa: E402
+from repro_torch.kernels import ulppack_conv2d, ulppack_matmul  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -90,3 +91,73 @@ def test_attention_decode_matches_plain(hopper, kv_bits, c):
         q, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd, block_k=64)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert not got[2].any()
+
+
+# (N, H, W, Cin, Fh, Fw, Co, padding)
+CONV_GEOMS = [(2, 40, 37, 32, 7, 7, 64, "SAME"),
+              (1, 23, 70, 13, 4, 4, 9, "VALID"),
+              (3, 9, 8, 6, 3, 2, 40, "SAME"),
+              (1, 256, 256, 32, 7, 7, 32, "VALID")]
+
+
+@pytest.mark.parametrize("geom", CONV_GEOMS, ids=lambda g: "x".join(
+    map(str, g)))
+@pytest.mark.parametrize("spec,store", [
+    ("W2A2/int16xP2s8", "lanes"), ("W2A2/int16xP2s8", "dense"),
+    ("W1A1/int8xP2s4", "lanes"), ("W2A2/int32xP4s8", "dense"),
+    ("W3A3/int16xP2s8", "lanes"), ("W3A3/int32xP4s8", "lanes"),
+    ("W4A4/int32xP2s16", "dense")])
+def test_ulppack_conv2d_bit_equal(hopper, spec, store, geom):
+    n, h, w, cin, fh, fw, co, padding = geom
+    sp = PackSpec.parse(spec)
+    g = _gen(hopper, cin + co)
+    qx = torch.randint(0, sp.max_a + 1, (n, h, w, cin), generator=g,
+                       device=hopper)
+    qw = torch.randint(0, sp.max_w + 1, (fh, fw, cin, co), generator=g,
+                       device=hopper)
+    xp = packing.pack_activations(qx, sp)
+    wp = (ops.dense_store_conv_weights(qw, sp.w_bits) if store == "dense"
+          else packing.pack_weights(qw, sp, axis=2))
+    k_full = cin if store == "dense" else None
+    plan = plan_lib.plan_packed_conv2d(tuple(xp.shape), tuple(wp.shape), sp,
+                                       padding=padding, weight_store=store,
+                                       k_full=k_full, device=hopper)
+    assert plan.backend == "cuda"
+    got = ops.packed_conv2d(xp, wp, sp, plan=plan, padding=padding)
+    want = ulppack_conv2d.ulppack_conv2d_torch(
+        xp, wp, sp, padding=padding, weight_store=store, k_full=k_full)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("geom", CONV_GEOMS, ids=lambda g: "x".join(
+    map(str, g)))
+@pytest.mark.parametrize("dtype,lo,hi", [
+    (torch.int8, -128, 128), (torch.int16, -256, 256),
+    (torch.int16, -32768, 32768)])
+def test_int_conv2d_bit_equal(hopper, dtype, lo, hi, geom):
+    n, h, w, cin, fh, fw, co, padding = geom
+    g = _gen(hopper, cin * co)
+    qx = torch.randint(lo, hi, (n, h, w, cin), generator=g, device=hopper,
+                       dtype=dtype)
+    qw = torch.randint(lo, hi, (fh, fw, cin, co), generator=g, device=hopper,
+                       dtype=dtype)
+    plan = plan_lib.plan_int_conv2d(tuple(qx.shape), tuple(qw.shape),
+                                    padding=padding, device=hopper)
+    assert plan.backend == "cuda"
+    got = ops.int_conv2d(qx, qw, padding=padding, plan=plan)
+    assert torch.equal(got, ulppack_conv2d.int_conv2d_torch(
+        qx, qw, padding=padding))
+
+
+@pytest.mark.parametrize("field", ["threads", "smem_bytes"])
+def test_conv_launcher_refuses_a_plan_that_disagrees_with_the_tile(hopper,
+                                                                   field):
+    import dataclasses
+
+    qx = torch.zeros((1, 9, 9, 4), dtype=torch.int16, device=hopper)
+    qw = torch.zeros((3, 3, 4, 8), dtype=torch.int16, device=hopper)
+    plan = plan_lib.plan_int_conv2d(tuple(qx.shape), tuple(qw.shape),
+                                    device=hopper)
+    bad = dataclasses.replace(plan, **{field: getattr(plan, field) + 4})
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops.int_conv2d(qx, qw, plan=bad)
