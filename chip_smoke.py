@@ -12,19 +12,23 @@ toolkit:
    serving, holds each LM kernel against its plain PyTorch version on the
    card (quantize-pack and the packed matmul bit-equal; attention within
    1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
-   bf16 queries, with a dead row exactly zero); then the packed conv (K5)
-   and the int16 conv (K6), bit-equal, at the paper's Fig. 4 shape and at
-   the full-width ``sparq-cnn`` layers.  It times the kernel, the plain
-   version and one PyTorch call that computes the same function where
-   there is one (CUDA-graph replay between CUDA events, median of repeats,
-   inputs rotated over copies larger than the 50 MB L2 where the path
-   reads them cold).
+   bf16 queries, with a dead row exactly zero; the paged attention (K4)
+   through a scrambled block table, also bit-equal to the contiguous
+   kernel (K3) on the same logical rows; the unpacked integer matmul (K7)
+   bit-equal at s8 and s16); then the packed conv (K5) and the int16 conv
+   (K6), bit-equal, at the paper's Fig. 4 shape and at the full-width
+   ``sparq-cnn`` layers.  It times the kernel, the plain version and one
+   PyTorch call that computes the same function where there is one
+   (CUDA-graph replay between CUDA events, median of repeats, inputs
+   rotated over copies larger than the 50 MB L2 where the path reads them
+   cold).
    ``bound_ms`` is the least time the card could take: the larger of the
    bytes moved over HBM bandwidth and the operations over the peak rate of
    the card's fastest unit for them (int8 tensor cores for the lattice
-   dots, bf16 tensor cores for attention's products).
+   dots and K7's s8 products -- s16 as four int8 products per MAC -- and
+   bf16 tensor cores for attention's products).
    ``design_bound_ms`` takes the CUDA-core rate these kernels run at (f32
-   for K2/K3, the 32-bit integer multiply-add rate for K5/K6).
+   for K2/K3/K4, the 32-bit integer multiply-add rate for K5/K6/K7).
 3. Serve phase: full-width ``stablelm-1.6b`` W2A2 with random weights from a
    seed, through ``ServingEngine`` at kv_bits 16, 4 and 2, four greedy
    requests with staggered admission.  Fails unless every request finishes
@@ -32,11 +36,28 @@ toolkit:
    At kv_bits 4 it profiles four decode passes (device kernel time, top
    kernels) and runs one prefill chunk and 8 decode steps with
    ``backend="torch"`` on the same weights, printing the logit difference.
-4. Fig. 4 phase: the int16 conv and each packed case once through
+4. Paged serve phase: the same model and weights through
+   ``ServingEngine(EngineConfig(paged=True, page_size=16))``.  Identity at
+   kv_bits 16, 4 and 2: shared-prefix prompts (a 72-token prompt, then a
+   64-token match plus 20 others, an unrelated prompt and an 80-token
+   prompt whose partial-tail match forces a copy-on-write), greedy tokens
+   equal to the unpaged engine's on the same requests.  Capacity at
+   kv_bits 4: a budget of 4 unpaged slots buys 128 pages; a 384-token
+   prefix warmed once, then 16 requests sharing it run at once (at least
+   8 live slots, twice the unpaged engine's), tokens equal to an unpaged
+   engine with 16 slots.  A ``paged`` line per run, a ``paged profile``
+   line of four kv_bits-4 decode passes.  Fails unless every paged read
+   launched K4, with no plain call and no K3 launch.
+5. Linear phase: ``benchmarks/serve_microbench.run_linear`` on the card at
+   m = 8, k = n = 4096: bf16 ``torch.matmul``, int8 through
+   ``ops.int_matmul`` (K7 launched, no plain call), and packed W1A1 / W2A2
+   / W3A3 on ``int16xP2s8`` through ``ops.quantized_linear`` (K1, K2 and
+   the epilogue); a ``linear`` line with each time and the weight bytes.
+6. Fig. 4 phase: the int16 conv and each packed case once through
    ``ops.int_conv2d`` / ``ops.packed_conv2d`` (K6 and K5 launched, no
    plain call), and a ``fig4`` line with each packed time, the int16 time
    and their ratio beside the paper's.
-5. CNN phase: full-width ``sparq-cnn`` W2A2 (random weights from a seed),
+7. CNN phase: full-width ``sparq-cnn`` W2A2 (random weights from a seed),
    weights prepared and plans built once, classifying 4 batches of 8
    random 256x256x3 images through ``cnn.forward(quant_mode="packed")``
    with the lanes store, then the dense store: ms per batch, images/s,
@@ -45,6 +66,9 @@ toolkit:
    ``backend="torch"`` on the same weights: every layer's int32
    accumulator bit-equal, and the logit difference.
 
+Each phase's kernels are counted from zero just before the phase drives
+its path and read just after; the ``{"kernels": [...]}`` line lists every
+kernel (K1-K7) with the launches of its path.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -243,6 +267,18 @@ def kernel_phase(torch, peaks, dev):
         cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
         caches = [cache] + [{kk: t.clone() for kk, t in cache.items()}
                             for _ in range(copies_for(cache_bytes) - 1)]
+        # K4: the same logical rows in a pool of 16-row pages behind a
+        # scrambled block table (a random permutation of the pages)
+        ps, n_pages = 16, s // 16
+        bt = torch.randperm(bsz * n_pages, generator=gen, device=dev) \
+            .reshape(bsz, n_pages).to(torch.int32)
+        pool = {}
+        for name, t in cache.items():
+            pool[name] = torch.empty((bsz * n_pages, ps, *t.shape[2:]),
+                                     dtype=t.dtype, device=dev)
+            pool[name][bt.long()] = t.reshape(bsz, n_pages, ps, *t.shape[2:])
+        pools = [pool] + [{kk: t.clone() for kk, t in pool.items()}
+                          for _ in range(copies_for(cache_bytes) - 1)]
         for c in (1, 16):
             q = torch.randn((bsz, c, h, hd), generator=gen,
                             device=dev).to(torch.bfloat16)
@@ -278,8 +314,9 @@ def kernel_phase(torch, peaks, dev):
                                                    attn_mask=mask)] * 10)
             # bytes: each live cache row once; operations: QK and PV over
             # the rows each query row really sees (causal within the window)
-            live = torch.minimum(valid_len, qpos.max(dim=1).values + 1)
-            live = int(live.clamp(min=0).sum())
+            live_rows = torch.minimum(valid_len, qpos.max(dim=1).values + 1
+                                      ).clamp(min=0)
+            live = int(live_rows.sum())
             seen = torch.minimum(valid_len[:, None], qpos + 1)
             seen = int(seen.clamp(min=0).sum())
             nbytes = 2 * live * kvh * row_bytes + 2 * q.numel() * 2
@@ -306,6 +343,134 @@ def kernel_phase(torch, peaks, dev):
                                                 kv_bits=kv_bits, hd=hd,
                                                 block_k=512)], 3),
                 "bound_ms": b, "bound_by": by, "library_ms": lib})
+
+            # ---- K4 attention_decode_paged: the same rows through the
+            # table; within ATTN_TOL of its plain version, bit-equal to K3
+            err = {}
+            for qq in (q.float(), q):
+                got = ulppack_attention.attention_decode_paged_cuda(
+                    qq, pool, valid_len, qpos, bt, kv_bits=kv_bits, hd=hd)
+                want = ulppack_attention.attention_decode_torch(
+                    qq, pool, valid_len, qpos, kv_bits=kv_bits, hd=hd,
+                    block_k=512, block_tables=bt).float()
+                k3 = ulppack_attention.attention_decode_cuda(
+                    qq, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd)
+                diff = (got.float() - want).abs()
+                rtol = ATTN_TOL if qq.dtype == torch.float32 \
+                    else ATTN_BF16_RTOL
+                if not (torch.isfinite(got).all() and
+                        (diff <= ATTN_TOL + rtol * want.abs()).all()):
+                    raise AssertionError(
+                        f"paged attention kv{kv_bits} C={c} {qq.dtype}: max "
+                        f"abs err {float(diff.max())} beyond {ATTN_TOL} + "
+                        f"{rtol}|want|")
+                if not torch.equal(got, k3):
+                    raise AssertionError(f"paged attention kv{kv_bits} C={c} "
+                                         f"{qq.dtype}: not bit-equal to K3")
+                if got[3].any():
+                    raise AssertionError("paged attention: dead row is not "
+                                         "zero")
+                err[qq.dtype] = float(diff.max())
+            live_pages = int((-(-live_rows // ps)).sum())
+            b4, by4 = bound_ms(nbytes + 4 * live_pages, ops, peaks["hbm"],
+                               peaks["bf16"])
+            design4 = bound_ms(nbytes + 4 * live_pages, ops, peaks["hbm"],
+                               peaks["f32"])
+            rows.append({
+                "name": "attention_decode_paged",
+                "shape": f"B{bsz} {n_pages}x{ps} pages H{h} hd{hd} C{c} "
+                         f"kv{kv_bits}",
+                "max_abs_err": err[torch.bfloat16],
+                "max_abs_err_f32_q": err[torch.float32],
+                "bit_equal_to_contiguous": True,
+                "design_bound_ms": design4[0],
+                "ms": time_ms(torch, [lambda pp=pp: ulppack_attention
+                                      .attention_decode_paged_cuda(
+                                          q, pp, valid_len, qpos, bt,
+                                          kv_bits=kv_bits, hd=hd)
+                                      for pp in pools]),
+                "plain_ms": time_ms(torch, [lambda: ulppack_attention
+                                            .attention_decode_torch(
+                                                q, pool, valid_len, qpos,
+                                                kv_bits=kv_bits, hd=hd,
+                                                block_k=512,
+                                                block_tables=bt)], 3),
+                "bound_ms": b4, "bound_by": by4, "library_ms": None,
+                "library": "none: no single PyTorch call reads a paged "
+                           "sub-byte cache"})
+        del pools, caches
+    return rows
+
+
+# K7's shapes: the run_linear decode shape, and M = 64 where torch._int_mm
+# (M > 16 only) can stand beside it; s16 at the same shape.
+INT_MATMUL_CASES = ((8, 4096, 4096, "int8"), (64, 4096, 4096, "int8"),
+                    (64, 4096, 4096, "int16"))
+
+
+def int_matmul_rows(torch, peaks, dev):
+    """K7 against its plain version (bit-equal, over the operands' full
+    range, so s16 sums wrap) and timed beside one PyTorch call that
+    computes the same function, checked equal first: ``torch._int_mm`` on
+    the int8 operands at M = 64, else ``torch.matmul`` in float64 (exact:
+    |sum| <= 2^30 * 4096 < 2^53), reduced mod 2^32."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops, plan as plan_lib, ulppack_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = []
+    for m, k, n, dt_name in INT_MATMUL_CASES:
+        dt = getattr(torch, dt_name)
+        info = torch.iinfo(dt)
+        a = torch.randint(info.min, info.max + 1, (m, k), generator=gen,
+                          device=dev, dtype=dt)
+        w = torch.randint(info.min, info.max + 1, (k, n), generator=gen,
+                          device=dev, dtype=dt)
+        plan = plan_lib.plan_int_matmul(m, k, n, device=dev)
+        got = ops.int_matmul(a, w, plan=plan)
+        want = ulppack_matmul.int_matmul_torch(a, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int_matmul ({m},{k},{n}) {dt_name} not "
+                                 f"bit-equal")
+        esize = a.element_size()
+        ws = [w] + [w.clone() for _ in range(copies_for(k * n * esize) - 1)]
+        if dt == torch.int8 and m > 16:
+            lib_name, lib_fn, lws = "torch._int_mm (int8)", torch._int_mm, ws
+            lib_a = a
+        else:
+            lib_name, lib_fn = "torch.matmul f64, mod 2^32", torch.matmul
+            lib_a = a.to(torch.float64)
+            lws = [wi.to(torch.float64)
+                   for wi in ws[:copies_for(8 * k * n)]]
+        lib_out = lib_fn(lib_a, lws[0])
+        if lib_out.dtype == torch.float64:
+            lib_out = packing.wrap_i32(lib_out.to(torch.int64))
+        if not torch.equal(lib_out, got):
+            raise AssertionError(f"{lib_name} disagrees with int_matmul "
+                                 f"({m},{k},{n}) {dt_name}")
+        lib = time_ms(torch, [lambda wi=wi: lib_fn(lib_a, wi) for wi in lws])
+        del lws, lib_out
+        nbytes = (m * k + k * n) * esize + 4 * m * n
+        # the card's floor: s8 MACs on the int8 tensor cores, s16 as four
+        # int8 products per MAC; the design bound: one IMAD per MAC on the
+        # CUDA cores
+        per_mac = 2 if dt == torch.int8 else 8
+        b, by = bound_ms(nbytes, per_mac * m * k * n, peaks["hbm"],
+                         peaks["int8"])
+        design = bound_ms(nbytes, 2 * m * k * n, peaks["hbm"],
+                          peaks["int32"])
+        rows.append({
+            "name": "int_matmul", "shape": f"({m},{k},{n}) {dt_name}",
+            "max_abs_err": 0, "design_bound_ms": design[0],
+            "ms": time_ms(torch, [lambda wi=wi: ops.int_matmul(a, wi,
+                                                               plan=plan)
+                                  for wi in ws]),
+            "plain_ms": time_ms(torch, [lambda: ulppack_matmul
+                                        .int_matmul_torch(a, w)], 3),
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "library": lib_name, "geometry": plan.describe()})
+        del ws
     return rows
 
 
@@ -669,14 +834,16 @@ def serve_phase(torch, np, dev, cfg):
     profile_decode(torch, c, params, ecfg, prompts, dev)
     # kernel path vs plain path on the same weights, kv_bits 4
     packed = prepare_serving_params(params, c, device=dev)
-    return c, packed, prompts, steps, lm
+    return (c, packed, prompts, steps, lm), params
 
 
-def profile_decode(torch, cfg, params, ecfg, prompts, dev):
+def profile_decode(torch, cfg, params, ecfg, prompts, dev, label="profile"):
     """Where a decode step's time goes: four pure-decode passes at kv_bits 4
     under torch.profiler -- device kernel time per step (summed over CUDA
-    kernels) against the profiled wall time, and the top kernels.  The
-    profiler slows the host, so the idle share here is an upper bound."""
+    kernels) against the profiled wall time, the top kernels, and the
+    attention kernel's share of the device time (K3, or K4 when ``ecfg``
+    is paged).  The profiler slows the host, so the idle share here is an
+    upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request, ServingEngine
@@ -704,12 +871,210 @@ def profile_decode(torch, cfg, params, ecfg, prompts, dev):
            "device_kernel_ms_per_step": busy_us / 1e3 / n,
            "idle_share_upper_bound": 1 - busy_us / 1e6 / wall,
            "kernel_launches_per_step": sum(e.count for e in kernels) / n,
+           "attention_kernel_share": sum(
+               e.self_device_time_total for e in kernels
+               if "attention_decode_kernel" in e.key) / max(1, busy_us),
            "top_kernels_ms_per_step": [
                [e.key[:60], e.self_device_time_total / 1e3 / n, e.count // n]
                for e in top]}
-    print("profile " + json.dumps(rep))
+    print(f"{label} " + json.dumps(rep))
     del eng
     torch.cuda.empty_cache()
+
+
+def paged_phase(torch, np, dev, cfg, params):
+    """The paged engine at full width on the serve phase's weights: token
+    identity against the unpaged engine at kv_bits 16, 4 and 2 on a
+    shared-prefix workload, the fixed-budget capacity run at kv_bits 4,
+    and a profile of four paged decode passes.  Fails unless every paged
+    read launched K4 (no plain call, no K3 launch).  Returns K4's launches
+    on the paged runs."""
+    from repro_torch.kernels import ulppack_attention as att
+    from repro_torch.serve.engine import EngineConfig, Request, \
+        ServingEngine
+    from repro_torch.serve.prepare import cache_bytes_per_slot
+
+    def run(c, ecfg, prompts, news, first=0):
+        """Serve ``prompts`` greedily, ``news[i]`` new tokens each; the
+        first ``first`` are submitted alone and stepped until their prompts
+        are done (registered in the prefix index when paged), then the
+        rest join."""
+        eng = ServingEngine(c, params, config=ecfg, device=dev)
+        reqs = [Request(i, p, max_new_tokens=new)
+                for i, (p, new) in enumerate(zip(prompts, news))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for r in reqs[:first]:
+            eng.submit(r)
+        while not all(r.output for r in reqs[:first]):
+            eng.step()
+        for r in reqs[first:]:
+            eng.submit(r)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        for r in reqs:
+            if not (r.done and len(r.output) == r.max_new_tokens
+                    and all(0 <= t < cfg.vocab_size for t in r.output)):
+                raise AssertionError(f"paged phase: request {r.uid} did not "
+                                     f"finish with {r.max_new_tokens} "
+                                     f"in-range tokens")
+        rep = {**eng.metrics.report(), **eng.capacity_report(),
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del eng                 # the next run's peak memory is its own
+        torch.cuda.empty_cache()
+        return rep, [r.output for r in reqs]
+
+    def paged_run(c, ecfg, prompts, news, first=0):
+        att.reset_counts()
+        out = run(c, ecfg, prompts, news, first)
+        torch.cuda.synchronize()
+        k4 = att.kernel_launches["attention_decode_paged"]
+        if not k4 or any(att.plain_calls.values()) \
+                or att.kernel_launches["attention_decode"]:
+            raise AssertionError(
+                f"paged path: launches {att.kernel_launches}, plain "
+                f"{att.plain_calls}: every paged read must launch K4")
+        return (*out, k4)
+
+    def report(name, c, rep, k4, ref):
+        line = {"run": name, "kv_bits": c.quant.kv_bits or 16,
+                "tokens_equal_unpaged": True,
+                **{k: rep[k] for k in (
+                    "prefill_tok_s", "decode_tok_s", "decode_step_ms",
+                    "steps", "slots", "num_pages", "pages_per_slot",
+                    "guaranteed_slots", "peak_live_slot_count",
+                    "prefix_hits", "prefix_hit_tokens", "cow_copies",
+                    "evicted_pages", "cache_bytes", "hbm_cache_budget",
+                    "max_memory_allocated")},
+                "k4_launches": k4,
+                **{f"unpaged_{k}": ref[k] for k in (
+                    "slots", "decode_step_ms", "cache_bytes",
+                    "max_memory_allocated")}}
+        print("paged " + json.dumps(line))
+
+    launches = 0
+    # identity: a prompt registers when it completes, so the 72-token
+    # prompt is served alone first; the others join while it decodes
+    rng = np.random.default_rng(SEED + 3)
+    base = rng.integers(0, cfg.vocab_size, 80).astype(np.int32)
+    prompts = [base[:72],
+               np.concatenate([base[:64], rng.integers(
+                   0, cfg.vocab_size, 20).astype(np.int32)]),
+               rng.integers(0, cfg.vocab_size, 28).astype(np.int32),
+               base[:80]]
+    common = dict(max_len=512, prefill_chunk=16)
+    for kv_bits in (16, 4, 2):
+        c = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+        cap, got, k4 = paged_run(c, EngineConfig(
+            max_batch=4, paged=True, page_size=16, **common), prompts,
+            [32] * 4, first=1)
+        ref, want = run(c, EngineConfig(max_batch=4, **common), prompts,
+                        [32] * 4, first=1)
+        if got != want:
+            raise AssertionError(f"paged kv{kv_bits}: tokens differ from the "
+                                 f"unpaged engine: {got} vs {want}")
+        if cap["prefix_hit_tokens"] < 64 or cap["cow_copies"] < 1:
+            raise AssertionError(f"paged kv{kv_bits}: prefix hits "
+                                 f"{cap['prefix_hit_tokens']}, COW "
+                                 f"{cap['cow_copies']}")
+        report("identity", c, cap, k4, ref)
+        launches += k4
+
+    # capacity: a budget of 4 unpaged kv_bits-4 slots buys 128 pages of 16
+    # rows; a 384-token prefix is warmed once, then 16 requests share it
+    c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
+    budget = 4 * cache_bytes_per_slot(c, 512)
+    prefix = rng.integers(0, cfg.vocab_size, 384).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, 16).astype(np.int32)]) for _ in range(16)]
+    cap, got, k4 = paged_run(c, EngineConfig(
+        max_batch=16, paged=True, page_size=16, hbm_cache_budget=budget,
+        **common), [prefix] + prompts, [1] + [32] * 16, first=1)
+    ref, want = run(c, EngineConfig(max_batch=16, **common), prompts,
+                    [32] * 16)
+    unpaged_slots = EngineConfig(hbm_cache_budget=budget, **common) \
+        .slots_for(cache_bytes_per_slot(c, 512))
+    if got[1:] != want:
+        raise AssertionError("paged capacity run: tokens differ from the "
+                             "unpaged engine")
+    if cap["peak_live_slot_count"] < 2 * unpaged_slots \
+            or cap["prefix_hits"] < 16:
+        raise AssertionError(f"paged capacity run: peak live "
+                             f"{cap['peak_live_slot_count']} (unpaged "
+                             f"{unpaged_slots}), prefix hits "
+                             f"{cap['prefix_hits']}")
+    report("capacity", c, cap, k4, ref)
+    launches += k4
+
+    serve_prompts = [np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, n).astype(np.int32) for n in (17, 33, 64, 100)]
+    profile_decode(torch, c, params, EngineConfig(
+        max_batch=4, paged=True, page_size=16, **common), serve_prompts, dev,
+        label="paged profile")
+    return launches
+
+
+def linear_phase(torch, dev):
+    """``benchmarks/serve_microbench.run_linear`` on the card at m = 8,
+    k = n = 4096 (its weights and scales): bf16 ``torch.matmul``, int8
+    through ``ops.int_matmul`` (K7) and packed W1A1 / W2A2 / W3A3 on
+    ``int16xP2s8`` through ``ops.quantized_linear`` (K1 + K2 + the affine
+    epilogue).  Each row is driven once with the counts at zero (K7
+    launched for the int8 row, K1 and K2 for each packed row, no plain
+    call), then timed by CUDA-graph replay.  Returns K7's launches."""
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import ops, quant_pack, ulppack_matmul
+
+    m, k, n = 8, 4096, 4096
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.05
+    f32, i32 = torch.float32, torch.int32
+    wb16 = w.to(torch.bfloat16)
+    w8 = torch.clamp(torch.round(w / 0.01), -127, 127).to(torch.int8)
+
+    def int8():
+        q = torch.clamp(torch.round(x / 0.05), -127, 127).to(torch.int8)
+        return ops.int_matmul(q, w8)
+
+    paths = [("bf16", lambda: torch.matmul(x.to(torch.bfloat16), wb16),
+              wb16.numel() * 2, {}),
+             ("int8-unpacked", int8, w8.numel(), {"int_matmul": 1})]
+    for wb in (1, 2, 3):
+        spec = PackSpec.parse(f"W{wb}A{wb}/int16xP2s8")
+        zp = torch.tensor(1 << (wb - 1), dtype=i32, device=dev)
+        wp, cs = ops.prepare_weights(w, torch.tensor(0.02, dtype=f32,
+                                                     device=dev), zp, spec)
+        a_scale = torch.tensor(0.07, dtype=f32, device=dev)
+        w_scale = torch.tensor(0.02, dtype=f32, device=dev)
+        paths.append((f"packed-W{wb}A{wb}", lambda wp=wp, cs=cs, zp=zp,
+                      spec=spec: ops.quantized_linear(
+                          x, wp, cs, a_scale, zp, w_scale, zp, spec),
+                      wp.numel() * wp.element_size(),
+                      {"quantize_pack": 1, "ulppack_matmul": 1}))
+    mods = (ulppack_matmul, quant_pack)
+    rows, launches = [], 0
+    for name, fn, wbytes, expect in paths:
+        for mod in mods:
+            mod.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {"ulppack_matmul": ulppack_matmul.kernel_launches[
+                   "ulppack_matmul"],
+               "int_matmul": ulppack_matmul.kernel_launches["int_matmul"],
+               "quantize_pack": quant_pack.kernel_launches}
+        plain = sum(ulppack_matmul.plain_calls.values()) \
+            + quant_pack.plain_calls
+        if {kk: v for kk, v in got.items() if v} != expect or plain \
+                or out.shape != (m, n) or not torch.isfinite(
+                    out.float()).all():
+            raise AssertionError(f"linear {name}: launches {got}, plain "
+                                 f"{plain}, output {tuple(out.shape)}")
+        launches += got["int_matmul"]
+        rows.append({"path": name, "ms": time_ms(torch, [fn] * 20),
+                     "weight_bytes": wbytes, "launches": expect})
+    print("linear " + json.dumps({"m": m, "k": k, "n": n, "rows": rows}))
+    return launches
 
 
 def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
@@ -785,28 +1150,41 @@ def main() -> int:
     from repro_torch import configs
     dev = torch.device("cuda")
     cnn_cfg = configs.get_config("sparq-cnn")
-    rows = kernel_phase(torch, peaks, dev)
+    rows = kernel_phase(torch, peaks, dev) + int_matmul_rows(torch, peaks,
+                                                              dev)
     conv_rows, fig4 = conv_kernel_phase(torch, peaks, dev, cnn_cfg)
     rows += conv_rows
     for r in rows:
         print("kernel " + json.dumps(r))
 
-    mods = {"quantize_pack": quant_pack, "ulppack_matmul": ulppack_matmul,
-            "attention_decode": ulppack_attention}
-    for mod in mods.values():
+    mods = (quant_pack, ulppack_matmul, ulppack_attention)
+    for mod in mods:
         mod.reset_counts()
-    ctx = serve_phase(torch, np, dev, configs.get_config("stablelm-1.6b"))
-    launches = {k: m.kernel_launches for k, m in mods.items()}
-    plain = {k: m.plain_calls for k, m in mods.items()}
+    lm_cfg = configs.get_config("stablelm-1.6b")
+    ctx, params = serve_phase(torch, np, dev, lm_cfg)
+    launches = {"quantize_pack": quant_pack.kernel_launches,
+                "ulppack_matmul":
+                    ulppack_matmul.kernel_launches["ulppack_matmul"],
+                "attention_decode":
+                    ulppack_attention.kernel_launches["attention_decode"]}
+    plain = {"quantize_pack": quant_pack.plain_calls,
+             "ulppack_matmul": ulppack_matmul.plain_calls["ulppack_matmul"],
+             "attention_decode":
+                 ulppack_attention.plain_calls["attention_decode"]}
     print(f"serve launches (kv_bits 16, 4, 2 runs and the profiled kv_bits 4 "
           f"passes): kernels {launches}, plain {plain}")
-    for k in mods:
+    for k in launches:
         if launches[k] == 0 or plain[k] != 0:
             raise AssertionError(f"{k}: {launches[k]} kernel launches, "
                                  f"{plain[k]} plain calls on the serve path")
     compare_backends(torch, np, dev, *ctx)
     del ctx
     torch.cuda.empty_cache()
+    launches["attention_decode_paged"] = paged_phase(torch, np, dev, lm_cfg,
+                                                     params)
+    del params
+    torch.cuda.empty_cache()
+    launches["int_matmul"] = linear_phase(torch, dev)
 
     launches["int_conv2d"] = fig4_phase(torch, fig4, rows)["int_conv2d"]
     del fig4
@@ -824,6 +1202,11 @@ def main() -> int:
         "attention_decode": ("src/repro_torch/csrc/attention_decode.cu",
                              "src/repro/kernels/ulppack_attention.py:395",
                              "B4 S512 H32 hd64 C1 kv4"),
+        # K4's path is the paged serve phase, K7's the linear phase
+        "attention_decode_paged": (
+            "src/repro_torch/csrc/attention_decode.cu",
+            "src/repro/kernels/ulppack_attention.py:367",
+            "B4 32x16 pages H32 hd64 C1 kv4"),
         # K5's main path is the CNN phase (both stores); its row is the
         # largest packed layer there.  K6's path is the Fig. 4 phase.
         "ulppack_conv2d": ("src/repro_torch/csrc/ulppack_conv2d.cu",
@@ -831,6 +1214,9 @@ def main() -> int:
                            "layer 32->64"),
         "int_conv2d": ("src/repro_torch/csrc/int_conv2d.cu",
                        "src/repro/kernels/ulppack_conv2d.py:148", "fig4"),
+        "int_matmul": ("src/repro_torch/csrc/int_matmul.cu",
+                       "src/repro/kernels/ulppack_matmul.py:145",
+                       "(8,4096,4096) int8"),
     }
     summary = []
     for k, (source, replaces, shape) in meta.items():

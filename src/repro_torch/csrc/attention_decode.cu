@@ -1,10 +1,12 @@
-// K3: flash-decoding attention over the stored (possibly sub-byte) KV cache.
+// K3 and K4: flash-decoding attention over the stored (possibly sub-byte) KV
+// cache, contiguous (K3) or paged (K4).
 //
-// Replaces the contiguous-cache branch of the Pallas kernel
+// Replaces the Pallas kernel
 // repro/kernels/ulppack_attention.py:_attention_decode_pallas
-// (`_decode_kernel`, pallas_call at :395), and also takes query windows
-// wider than one token (C >= 1), which the reference routes to its 'xla'
-// backend.  Per query row (b, c, h), with kv head h / (H / KVH):
+// (`_decode_kernel`): its contiguous-cache branch (K3, pallas_call at :395)
+// and its paged branch (K4, pallas_call at :367), and also takes query
+// windows wider than one token (C >= 1), which the reference routes to its
+// 'xla' backend.  Per query row (b, c, h), with kv head h / (H / KVH):
 //   s_p   = q . k_p                         float cache (kv_bits 0/16)
 //         = sk_p * (q . u_p)                int8 cache (symmetric)
 //         = sk_p * (q . u_p - zp * sum(q))  4/2-bit words, zp = 2^(bits-1)
@@ -26,6 +28,15 @@
 // the warps' carries merge through shared memory at the end.  The loop stops
 // at min(valid_len, qpos + 1), so the cost is O(live rows), not
 // O(allocated).
+//
+// K4 (PAGED) is the same kernel over a pool [P, page_size, KVH, ...]: the
+// logical length is S = NP * page_size, and position p of batch row b lives
+// at physical page clamp(bt[b * NP + p / page_size], 0, P - 1), row
+// p % page_size (the reference clips the scalar-prefetched table the same
+// way).  Warps, position order, the online-softmax merge and the l == 0
+// guard are K3's, so on the same logical data K4 gives K3's bits.  Pages hold
+// whole words (page_size is a multiple of 32 / bits), so a row never
+// straddles a page.
 
 #include <cuda_bf16.h>
 
@@ -51,7 +62,25 @@ __device__ __forceinline__ float load_val(const void* base, size_t row,
   return static_cast<float>((word >> (bits * (d % per))) & ((1u << bits) - 1u));
 }
 
-template <int KIND, int DPL>
+// Where the cache rows of a batch row live: contiguous [B, S, KVH, ...]
+// (bt == nullptr) or a page pool [P, page_size, KVH, ...] behind the block
+// table bt [B, NP].
+struct Layout {
+  const int32_t* bt;
+  int S, NP, page_size, P;
+};
+
+template <bool PAGED>
+__device__ __forceinline__ size_t cache_cell(const Layout& lay, int b, int p,
+                                             int KVH, int kvh) {
+  if (!PAGED) return (static_cast<size_t>(b) * lay.S + p) * KVH + kvh;
+  int pg = lay.bt[static_cast<size_t>(b) * lay.NP + p / lay.page_size];
+  pg = min(max(pg, 0), lay.P - 1);
+  return (static_cast<size_t>(pg) * lay.page_size + p % lay.page_size) * KVH +
+         kvh;
+}
+
+template <int KIND, int DPL, bool PAGED>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_decode_kernel(const float* __restrict__ qg,
                         const float* __restrict__ qsum,
@@ -60,8 +89,9 @@ attention_decode_kernel(const float* __restrict__ qg,
                         const __nv_bfloat16* __restrict__ vs,
                         const int32_t* __restrict__ valid_len,
                         const int32_t* __restrict__ qpos,
-                        float* __restrict__ out, int C, int H, int KVH, int S,
-                        int hd, int row_elems, int bits) {
+                        float* __restrict__ out, int C, int H, int KVH,
+                        Layout lay, int hd, int row_elems, int bits) {
+  const int S = lay.S;
   const int qrow = blockIdx.x;  // (b * C + c) * H + h
   const int h = qrow % H;
   const int bc = qrow / H;
@@ -84,7 +114,7 @@ attention_decode_kernel(const float* __restrict__ qg,
   for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
 
   for (int p = warp; p < end; p += kWarps) {
-    const size_t cell = (static_cast<size_t>(b) * S + p) * KVH + kvh;
+    const size_t cell = cache_cell<PAGED>(lay, b, p, KVH, kvh);
     const size_t row = cell * row_elems;
     float dot = 0.f;
 #pragma unroll
@@ -145,20 +175,20 @@ attention_decode_kernel(const float* __restrict__ qg,
   }
 }
 
-template <int KIND>
+template <int KIND, bool PAGED>
 cudaError_t launch_kind(const float* qg, const float* qsum, const void* k,
                         const void* v, const void* ks, const void* vs,
                         const int32_t* vl, const int32_t* qp, float* out,
-                        int rows, int C, int H, int KVH, int S, int hd,
-                        int row_elems, int bits, cudaStream_t s) {
+                        int rows, int C, int H, int KVH, const Layout& lay,
+                        int hd, int row_elems, int bits, cudaStream_t s) {
   const __nv_bfloat16* ksb = static_cast<const __nv_bfloat16*>(ks);
   const __nv_bfloat16* vsb = static_cast<const __nv_bfloat16*>(vs);
   const dim3 grid(rows), block(kWarps * 32);
   const int dpl = (hd + 31) / 32;
 #define REPRO_LAUNCH(D)                                                    \
-  attention_decode_kernel<KIND, D><<<grid, block, 0, s>>>(                 \
-      qg, qsum, k, v, ksb, vsb, vl, qp, out, C, H, KVH, S, hd, row_elems, \
-      bits)
+  attention_decode_kernel<KIND, D, PAGED><<<grid, block, 0, s>>>(          \
+      qg, qsum, k, v, ksb, vsb, vl, qp, out, C, H, KVH, lay, hd,          \
+      row_elems, bits)
   if (dpl <= 1) REPRO_LAUNCH(1);
   else if (dpl <= 2) REPRO_LAUNCH(2);
   else if (dpl <= 4) REPRO_LAUNCH(4);
@@ -168,16 +198,13 @@ cudaError_t launch_kind(const float* qg, const float* qsum, const void* k,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// kind: 0 f32 cache, 1 bf16 cache, 2 int8 + bf16 scales, 3 int32 words of
-// `bits`-wide fields + bf16 scales.  row_elems is the cache's last dim (hd,
-// or hd words).  ks / vs may be null for kinds 0 and 1.
-REPRO_EXPORT int attention_decode_launch(
-    const void* qg, const void* qsum, const void* k, const void* v,
-    const void* ks, const void* vs, const void* valid_len, const void* qpos,
-    void* out, int B, int C, int H, int KVH, int S, int hd, int row_elems,
-    int kind, int bits, int device, void* stream) {
+template <bool PAGED>
+int launch_layout(const void* qg, const void* qsum, const void* k,
+                  const void* v, const void* ks, const void* vs,
+                  const void* valid_len, const void* qpos, void* out, int B,
+                  int C, int H, int KVH, const Layout& lay, int hd,
+                  int row_elems, int kind, int bits, int device,
+                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (H % KVH != 0 || (kind == kWords && bits != 4 && bits != 2))
@@ -191,23 +218,57 @@ REPRO_EXPORT int attention_decode_launch(
   const int rows = B * C * H;
   switch (kind) {
     case kF32:
-      err = launch_kind<kF32>(q, qsm, k, v, ks, vs, vl, qp, o, rows, C, H,
-                              KVH, S, hd, row_elems, bits, s);
+      err = launch_kind<kF32, PAGED>(q, qsm, k, v, ks, vs, vl, qp, o, rows, C,
+                                     H, KVH, lay, hd, row_elems, bits, s);
       break;
     case kBF16:
-      err = launch_kind<kBF16>(q, qsm, k, v, ks, vs, vl, qp, o, rows, C, H,
-                               KVH, S, hd, row_elems, bits, s);
+      err = launch_kind<kBF16, PAGED>(q, qsm, k, v, ks, vs, vl, qp, o, rows,
+                                      C, H, KVH, lay, hd, row_elems, bits, s);
       break;
     case kInt8:
-      err = launch_kind<kInt8>(q, qsm, k, v, ks, vs, vl, qp, o, rows, C, H,
-                               KVH, S, hd, row_elems, bits, s);
+      err = launch_kind<kInt8, PAGED>(q, qsm, k, v, ks, vs, vl, qp, o, rows,
+                                      C, H, KVH, lay, hd, row_elems, bits, s);
       break;
     case kWords:
-      err = launch_kind<kWords>(q, qsm, k, v, ks, vs, vl, qp, o, rows, C, H,
-                                KVH, S, hd, row_elems, bits, s);
+      err = launch_kind<kWords, PAGED>(q, qsm, k, v, ks, vs, vl, qp, o, rows,
+                                       C, H, KVH, lay, hd, row_elems, bits,
+                                       s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// kind: 0 f32 cache, 1 bf16 cache, 2 int8 + bf16 scales, 3 int32 words of
+// `bits`-wide fields + bf16 scales.  row_elems is the cache's last dim (hd,
+// or hd words).  ks / vs may be null for kinds 0 and 1.
+REPRO_EXPORT int attention_decode_launch(
+    const void* qg, const void* qsum, const void* k, const void* v,
+    const void* ks, const void* vs, const void* valid_len, const void* qpos,
+    void* out, int B, int C, int H, int KVH, int S, int hd, int row_elems,
+    int kind, int bits, int device, void* stream) {
+  const Layout lay{nullptr, S, 0, 1, 0};
+  return launch_layout<false>(qg, qsum, k, v, ks, vs, valid_len, qpos, out,
+                              B, C, H, KVH, lay, hd, row_elems, kind, bits,
+                              device, stream);
+}
+
+// K4: as attention_decode_launch, over a pool [P, page_size, KVH, ...] read
+// through the block table bt [B, NP] int32 (logical length NP * page_size).
+REPRO_EXPORT int attention_decode_paged_launch(
+    const void* qg, const void* qsum, const void* k, const void* v,
+    const void* ks, const void* vs, const void* valid_len, const void* qpos,
+    const void* bt, void* out, int B, int C, int H, int KVH, int NP,
+    int page_size, int P, int hd, int row_elems, int kind, int bits,
+    int device, void* stream) {
+  if (page_size < 1 || P < 1 || NP < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout lay{static_cast<const int32_t*>(bt), NP * page_size, NP,
+                   page_size, P};
+  return launch_layout<true>(qg, qsum, k, v, ks, vs, valid_len, qpos, out, B,
+                             C, H, KVH, lay, hd, row_elems, kind, bits, device,
+                             stream);
 }

@@ -76,6 +76,20 @@ def int_conv2d(q_x, q_w, *, padding: str = "VALID", backend: str = "auto",
     return plan_lib.dispatch(plan, q_x, q_w, padding)
 
 
+def int_matmul(q_a, q_w, *, backend: str = "auto",
+               plan: KernelPlan | None = None) -> torch.Tensor:
+    """Unpacked integer matmul [.., K] x [K, N] (int8/int16) -> int32
+    wrapped mod 2^32: the W8A8 baseline (K7)."""
+    lead = q_a.shape[:-1]
+    a2 = q_a.reshape(-1, q_a.shape[-1])
+    if plan is None:
+        plan = plan_lib.plan_int_matmul(a2.shape[0], a2.shape[1],
+                                        q_w.shape[-1], backend=backend,
+                                        device=a2.device)
+    out = plan_lib.dispatch(plan, a2, q_w)
+    return out.reshape(*lead, q_w.shape[-1])
+
+
 def quantize_pack(x, scale, zero_point, spec: PackSpec, *,
                   backend: str = "auto", plan: KernelPlan | None = None):
     """Quantize + P1-pack activations along the last axis; also row sums."""

@@ -36,6 +36,9 @@ _WAVES = 2
 #: Threads per block of the matmul kernel (kThreads in csrc/).
 MATMUL_THREADS = 128
 
+#: K step of the integer matmul kernel (kBK in csrc/int_matmul.cu).
+INT_MATMUL_BK = 32
+
 #: The conv tile of csrc/conv2d_tile.cuh (PPT, GPR, CPT, FW_MAX and
 #: kMaxThreads there; a CPU test holds the two equal, and the C launcher
 #: refuses a plan whose threads or shared memory differ from its own):
@@ -60,9 +63,11 @@ class KernelPlan:
     Geometry fields are populated per op (``None`` where not applicable):
       packed_matmul    : block_m (rows per block), splits / block_k (K
                          split count and lanes per split)
+      int_matmul       : block_m (output rows per block: 16 or 64),
+                         splits / block_k (K split count and K per split)
       quantize_pack    : threads
       attention_decode : block_k (KV rows per online-softmax group of the
-                         plain version)
+                         plain version; whole pages when paged)
       packed_conv2d /  : block_h (output rows per block), block_co (output
       int_conv2d         channels per block), block_c (channels or lanes
                          staged per pass), threads, smem_bytes (per block);
@@ -232,22 +237,57 @@ def _plan_quantize_pack(m, k, spec, backend) -> KernelPlan:
                       threads=threads)
 
 
+def plan_int_matmul(m: int, k: int, n: int, *, backend: str = "auto",
+                    device="cpu") -> KernelPlan:
+    """Plan the unpacked integer matmul [m, k] x [k, n] (K7).
+
+    The Hopper tile replaces the reference's (128, 128, 512) VMEM blocks:
+    ``block_m`` 16 (16 x 32 output tiles) for m <= 16, else 64 (64 x 64);
+    K is split into ``splits`` runs of ``block_k`` (a multiple of the
+    kernel's 32-deep step) until about four blocks per SM are in flight.
+    Edge tiles are masked, so no shape is padded."""
+    return _plan_int_matmul(m, k, n, resolve_backend(backend, device),
+                            _device_key(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_int_matmul(m, k, n, backend, device_key) -> KernelPlan:
+    bm, bn = (16, 32) if m <= 16 else (64, 64)
+    blocks = -(-m // bm) * -(-n // bn)
+    steps = max(1, -(-k // INT_MATMUL_BK))
+    splits = max(1, min(steps, -(-4 * _sm_count(device_key) // blocks)))
+    per = -(-steps // splits)               # K steps per split
+    return KernelPlan(op="int_matmul", backend=backend, block_m=bm,
+                      block_k=per * INT_MATMUL_BK, splits=-(-steps // per))
+
+
 def plan_attention_decode(b: int, c: int, skv: int, h: int, kvh: int,
-                          hd: int, kv_bits: int, *, backend: str = "auto",
-                          device="cpu") -> KernelPlan:
-    """Plan the flash-decoding read over a contiguous cache (K3)."""
-    return _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits,
+                          hd: int, kv_bits: int, *,
+                          page_size: int | None = None,
+                          backend: str = "auto", device="cpu") -> KernelPlan:
+    """Plan the flash-decoding read (K3; K4 when ``page_size`` is set).
+
+    ``skv`` is the logical view length (slot extent, or pages x page_size
+    for a paged cache).  ``block_k`` is the plain version's group: at most
+    512 rows, and whole pages when paged (the reference's ``chunks``
+    pages per group is ``block_k // page_size``).  The kernels walk every
+    live row in one block per query row and take no tile from the plan."""
+    return _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
                                   resolve_backend(backend, device))
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, backend
-                           ) -> KernelPlan:
+def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
+                           backend) -> KernelPlan:
     if h % kvh:
         raise ValueError(f"num_heads {h} is not a multiple of kv heads {kvh}")
     if hd > 256:
         raise ValueError(f"head_dim {hd} > 256 is not supported by the "
                          f"attention kernel (8 dims per lane at most)")
+    if page_size:
+        pages = max(1, min(512 // page_size, -(-skv // page_size)))
+        return KernelPlan(op="attention_decode", backend=backend,
+                          block_k=pages * page_size)
     return KernelPlan(op="attention_decode", backend=backend,
                       block_k=min(512, max(1, skv)))
 

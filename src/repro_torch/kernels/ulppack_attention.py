@@ -1,12 +1,16 @@
-"""K3: flash-decoding attention over the stored (possibly sub-byte) KV cache.
+"""K3 and K4: flash-decoding attention over the stored (possibly sub-byte)
+KV cache, contiguous (K3) or paged (K4).
 
-Replaces the contiguous-cache branch of
-``repro/kernels/ulppack_attention.py:_attention_decode_pallas`` (Pallas
-kernel ``_decode_kernel``, pallas_call at :395).  The hand-written kernel is
-``csrc/attention_decode.cu``; unlike the Pallas kernel (one query token
-only) it takes query windows of any width C >= 1, so decode steps and
-chunked-prefill windows both run through it.  Its source note says what
-bounds it and how it is laid out.
+Replaces ``repro/kernels/ulppack_attention.py:_attention_decode_pallas``
+(Pallas kernel ``_decode_kernel``): its contiguous-cache branch (K3,
+pallas_call at :395) and its paged branch (K4, pallas_call at :367, which
+walks a pool [P, page_size, KVH, ...] through the scalar-prefetched block
+table ``bt[i, j]`` clipped to [0, P-1]).  The hand-written kernels are
+``csrc/attention_decode.cu`` (one kernel, templated on the cache layout;
+two launchers); unlike the Pallas kernel (one query token only) they take
+query windows of any width C >= 1, so decode steps and chunked-prefill
+windows both run through them.  The source note says what bounds them
+and how they are laid out.
 
 The computation, for q [B, C, H, hd] and a contiguous cache [B, S, KVH, ...]:
   * float caches (kv_bits 0/16) are read directly; int8 caches are
@@ -20,9 +24,16 @@ The computation, for q [B, C, H, hd] and a contiguous cache [B, S, KVH, ...]:
   * a row with nothing visible returns exact zeros (the ``l == 0`` guard);
   * the output has q's dtype.
 
-:func:`attention_decode_torch` is the plain PyTorch version (the math of
-the reference's ``_attention_decode_xla``, :158-223); ``kernel_launches`` /
-``plain_calls`` count each.
+A paged cache is read through ``block_tables`` [B, NP] int32: logical
+position p of row b lives at physical page ``bt[b, p // page_size]``
+(clipped to [0, P-1]), row ``p % page_size``; the logical length is
+``NP * page_size``.
+
+:func:`attention_decode_torch` is the plain PyTorch version of both (the
+math of the reference's ``_attention_decode_xla``, :158-223, which gathers
+each group's pages through the table); ``kernel_launches`` /
+``plain_calls`` count each kernel's launches and each plain version's
+calls, keyed by kernel name.
 """
 
 from __future__ import annotations
@@ -34,16 +45,19 @@ from repro_torch.kernels import plan as plan_lib
 
 NEG_INF = -1e30
 
-#: Launches of the CUDA kernel / calls of the plain version in this process.
-kernel_launches = 0
-plain_calls = 0
+NAMES = ("attention_decode", "attention_decode_paged")
 
-_launch = None
+#: Launches of each CUDA kernel / calls of each plain version in this
+#: process, keyed by kernel name (K3 contiguous, K4 paged).
+kernel_launches = dict.fromkeys(NAMES, 0)
+plain_calls = dict.fromkeys(NAMES, 0)
+
+_launch: dict = {}
 
 
 def reset_counts():
-    global kernel_launches, plain_calls
-    kernel_launches = plain_calls = 0
+    for k in NAMES:
+        kernel_launches[k] = plain_calls[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -104,17 +118,36 @@ def _combine(carry, s, ok, u_v, ssv, zp):
 # ---------------------------------------------------------------------------
 
 def attention_decode_torch(q, cache, valid_len, qpos, *, kv_bits: int,
-                           hd: int, block_k: int | None = None):
+                           hd: int, block_k: int | None = None,
+                           block_tables=None):
     """Group loop with an online-softmax carry; on the CPU, groups that
     start at or past ``max(valid_len)`` are skipped (O(live), like the
-    reference)."""
-    global plain_calls
-    plain_calls += 1
+    reference).  With ``block_tables`` the cache is a page pool and each
+    group gathers its rows through the table (clipped to [0, P-1]); a
+    group is then ``block_k // page_size`` whole pages."""
     b, c, h, _ = q.shape
     kvh = cache["k"].shape[2]
-    skv = cache["k"].shape[1]
-    zp = (1 << (kv_bits - 1)) if kv_bits in (4, 2) else 0
     quantized = "k_scale" in cache
+    if block_tables is None:
+        plain_calls["attention_decode"] += 1
+        skv = cache["k"].shape[1]
+        bk = max(1, block_k or skv)
+
+        def read(t0):
+            return {n: t[:, t0:t0 + bk] for n, t in cache.items()}
+    else:
+        plain_calls["attention_decode_paged"] += 1
+        ps = cache["k"].shape[1]
+        bt = block_tables.to(torch.int64).clamp(0, cache["k"].shape[0] - 1)
+        skv = bt.shape[1] * ps
+        pp = max(1, (block_k or skv) // ps)
+        bk = pp * ps
+
+        def read(t0):
+            pages = bt[:, t0 // ps:t0 // ps + pp]
+            return {n: t[pages].reshape(b, -1, *t.shape[2:])
+                    for n, t in cache.items()}
+    zp = (1 << (kv_bits - 1)) if kv_bits in (4, 2) else 0
     qg, qsum = _prep_q(q, kvh)
     groups = h // kvh
     dev = q.device
@@ -126,12 +159,11 @@ def attention_decode_torch(q, cache, valid_len, qpos, *, kv_bits: int,
     # masked tail, so there every group runs (same result, masked)
     live_max = (skv if valid_len.is_cuda or not valid_len.numel()
                 else int(valid_len.max()))
-    bk = max(1, block_k or skv)
     for t0 in range(0, min(skv, live_max), bk):
-        sl = slice(t0, t0 + bk)
-        gk, gv = cache["k"][:, sl], cache["v"][:, sl]
-        gsk = cache["k_scale"][:, sl] if quantized else None
-        gsv = cache["v_scale"][:, sl] if quantized else None
+        g = read(t0)
+        gk, gv = g["k"], g["v"]
+        gsk = g["k_scale"] if quantized else None
+        gsv = g["v_scale"] if quantized else None
         s = _group_scores(qg, qsum, gk, gsk, kv_bits, hd, zp)
         pos = t0 + torch.arange(gk.shape[1], dtype=torch.int32, device=dev)
         ok = ((pos[None, None, :] < valid_len[:, None, None])
@@ -163,57 +195,111 @@ def _cache_kind(cache, kv_bits: int) -> int:
     raise TypeError(f"cache dtype {k.dtype} does not match kv_bits {kv_bits}")
 
 
-def attention_decode_cuda(q, cache, valid_len, qpos, *, kv_bits: int,
-                          hd: int):
-    """Launch the CUDA kernel over a contiguous cache on the card."""
-    global kernel_launches, _launch
-    b, c, h, _ = q.shape
+def _launch_args(q, cache, valid_len, qpos, kv_bits, tensors):
+    """Checks shared by both launchers; returns the prepared operands
+    (pre-scaled q, Σq, scale planes or None, the cache kind, the output)."""
+    b, c, h, hd = q.shape
     k, v = cache["k"], cache["v"]
-    kvh, skv = k.shape[2], k.shape[1]
     kind = _cache_kind(cache, kv_bits)
-    tensors = [q, k, v, valid_len, qpos]
+    tensors = [q, k, v, valid_len, qpos, *tensors]
     if kind >= 2:
         tensors += [cache["k_scale"], cache["v_scale"]]
     if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("attention_decode_cuda needs every operand on the "
+        raise ValueError("the attention kernels need every operand on the "
                          "query's CUDA device")
     if any(not t.is_contiguous() for t in (k, v)):
         raise ValueError("the KV cache must be contiguous")
-    if k.shape[:3] != (b, skv, kvh) or v.shape != k.shape:
-        raise ValueError(f"cache shape {tuple(k.shape)} does not match "
-                         f"q {tuple(q.shape)}")
+    if v.shape != k.shape:
+        raise ValueError(f"cache shapes {tuple(k.shape)} / {tuple(v.shape)}")
     if valid_len.dtype != torch.int32 or qpos.dtype != torch.int32:
         raise TypeError("valid_len and qpos must be int32")
-    qg, qsum = _prep_q(q, kvh)
-    qg, qsum = qg.contiguous(), qsum.contiguous()
-    vl = valid_len.contiguous()
-    qp = qpos.contiguous()
+    if valid_len.shape != (b,) or qpos.shape != (b, c):
+        raise ValueError(f"valid_len {tuple(valid_len.shape)} / qpos "
+                         f"{tuple(qpos.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    qg, qsum = _prep_q(q, k.shape[2])
+    scales = ((cache["k_scale"].contiguous(), cache["v_scale"].contiguous())
+              if kind >= 2 else (None, None))
     out = torch.empty((b, c, h, hd), dtype=torch.float32, device=q.device)
-    ks = cache["k_scale"].contiguous() if kind >= 2 else None
-    vs = cache["v_scale"].contiguous() if kind >= 2 else None
+    return qg.contiguous(), qsum.contiguous(), scales, kind, out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def attention_decode_cuda(q, cache, valid_len, qpos, *, kv_bits: int,
+                          hd: int):
+    """Launch K3 over a contiguous cache [B, S, KVH, ...] on the card."""
+    b, c, h, _ = q.shape
+    k, v = cache["k"], cache["v"]
+    kvh, skv = k.shape[2], k.shape[1]
+    if k.shape[:3] != (b, skv, kvh):
+        raise ValueError(f"cache shape {tuple(k.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    qg, qsum, (ks, vs), kind, out = _launch_args(q, cache, valid_len, qpos,
+                                                 kv_bits, [])
     if b * c * h:
-        if _launch is None:
-            _launch = build.bind("attention_decode",
-                                 "attention_decode_launch", 9, 9)
-        _launch(qg.data_ptr(), qsum.data_ptr(), k.data_ptr(), v.data_ptr(),
-                ks.data_ptr() if ks is not None else None,
-                vs.data_ptr() if vs is not None else None,
-                vl.data_ptr(), qp.data_ptr(), out.data_ptr(),
-                b, c, h, kvh, skv, hd, k.shape[-1], kind, kv_bits,
-                q.device.index or 0,
-                torch.cuda.current_stream(q.device).cuda_stream)
-        kernel_launches += 1
+        fn = _launch.get("attention_decode")
+        if fn is None:
+            fn = _launch["attention_decode"] = build.bind(
+                "attention_decode", "attention_decode_launch", 9, 9)
+        fn(qg.data_ptr(), qsum.data_ptr(), k.data_ptr(), v.data_ptr(),
+           _ptr(ks), _ptr(vs), valid_len.contiguous().data_ptr(),
+           qpos.contiguous().data_ptr(), out.data_ptr(),
+           b, c, h, kvh, skv, hd, k.shape[-1], kind, kv_bits,
+           q.device.index or 0,
+           torch.cuda.current_stream(q.device).cuda_stream)
+        kernel_launches["attention_decode"] += 1
+    return out.to(q.dtype)
+
+
+def attention_decode_paged_cuda(q, cache, valid_len, qpos, block_tables, *,
+                                kv_bits: int, hd: int):
+    """Launch K4 over a page pool [P, page_size, KVH, ...] through
+    ``block_tables`` [B, NP] int32 on the card: the same kernel as K3 with
+    each position's cache row looked up through the table."""
+    b, c, h, _ = q.shape
+    k, v = cache["k"], cache["v"]
+    num_pages, ps, kvh = k.shape[:3]
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables must be int32 [B={b}, NP], got "
+                         f"{block_tables.dtype} {tuple(block_tables.shape)}")
+    qg, qsum, (ks, vs), kind, out = _launch_args(q, cache, valid_len, qpos,
+                                                 kv_bits, [block_tables])
+    bt = block_tables.contiguous()
+    n_pages = bt.shape[1]
+    if b * c * h:
+        fn = _launch.get("attention_decode_paged")
+        if fn is None:
+            fn = _launch["attention_decode_paged"] = build.bind(
+                "attention_decode", "attention_decode_paged_launch", 10, 11)
+        fn(qg.data_ptr(), qsum.data_ptr(), k.data_ptr(), v.data_ptr(),
+           _ptr(ks), _ptr(vs), valid_len.contiguous().data_ptr(),
+           qpos.contiguous().data_ptr(), bt.data_ptr(), out.data_ptr(),
+           b, c, h, kvh, n_pages, ps, num_pages, hd, k.shape[-1], kind,
+           kv_bits, q.device.index or 0,
+           torch.cuda.current_stream(q.device).cuda_stream)
+        kernel_launches["attention_decode_paged"] += 1
     return out.to(q.dtype)
 
 
 @plan_lib.register_backend("attention_decode", "torch")
-def _attention_decode_torch(plan, q, cache, valid_len, qpos, *, kv_bits, hd):
+def _attention_decode_torch(plan, q, cache, valid_len, qpos, *, kv_bits, hd,
+                            block_tables=None):
     return attention_decode_torch(q, cache, valid_len, qpos, kv_bits=kv_bits,
-                                  hd=hd, block_k=plan.block_k)
+                                  hd=hd, block_k=plan.block_k,
+                                  block_tables=block_tables)
 
 
 @plan_lib.register_backend("attention_decode", "cuda")
-def _attention_decode_cuda(plan, q, cache, valid_len, qpos, *, kv_bits, hd):
+def _attention_decode_cuda(plan, q, cache, valid_len, qpos, *, kv_bits, hd,
+                           block_tables=None):
+    if block_tables is not None:
+        return attention_decode_paged_cuda(q, cache, valid_len, qpos,
+                                           block_tables, kv_bits=kv_bits,
+                                           hd=hd)
     return attention_decode_cuda(q, cache, valid_len, qpos, kv_bits=kv_bits,
                                  hd=hd)
 
@@ -223,20 +309,29 @@ def _attention_decode_cuda(plan, q, cache, valid_len, qpos, *, kv_bits, hd):
 # ---------------------------------------------------------------------------
 
 def fused_decode_attention(q, cache, valid_len, qpos, *, kv_bits: int,
-                           hd: int, plan=None, backend: str = "auto"):
-    """Flash-decoding attention over the stored contiguous cache.
+                           hd: int, plan=None, block_tables=None,
+                           backend: str = "auto"):
+    """Flash-decoding attention over the stored cache.
 
     q [B, C, H, hd]; ``cache`` the stored layout (models/attention.
-    init_kv_cache); ``valid_len`` [B] live token rows per sequence;
-    ``qpos`` [B, C] absolute query positions.  Returns [B, C, H, hd] in
-    q.dtype."""
+    init_kv_cache, or init_paged_kv_cache with ``block_tables`` [B, NP]
+    int32); ``valid_len`` [B] live token rows per sequence (logical-view
+    prefix); ``qpos`` [B, C] absolute query positions.  Returns
+    [B, C, H, hd] in q.dtype."""
     b, c, h, _ = q.shape
+    dev = q.device
+    if block_tables is not None:
+        block_tables = torch.as_tensor(block_tables, dtype=torch.int32,
+                                       device=dev)
     if plan is None:
+        page_size = cache["k"].shape[1] if block_tables is not None else None
+        skv = (block_tables.shape[1] * cache["k"].shape[1]
+               if block_tables is not None else cache["k"].shape[1])
         plan = plan_lib.plan_attention_decode(
-            b, c, cache["k"].shape[1], h, cache["k"].shape[2], hd, kv_bits,
-            backend=backend, device=q.device)
+            b, c, skv, h, cache["k"].shape[2], hd, kv_bits,
+            page_size=page_size, backend=backend, device=dev)
     return plan_lib.dispatch(
         plan, q, cache, torch.as_tensor(valid_len, dtype=torch.int32,
-                                        device=q.device),
-        torch.as_tensor(qpos, dtype=torch.int32, device=q.device),
-        kv_bits=kv_bits, hd=hd)
+                                        device=dev),
+        torch.as_tensor(qpos, dtype=torch.int32, device=dev),
+        kv_bits=kv_bits, hd=hd, block_tables=block_tables)

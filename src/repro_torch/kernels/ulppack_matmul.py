@@ -1,4 +1,5 @@
-"""K2: ULPPACK packed-lane matmul -- the ``vmacsr`` analogue.
+"""K2: ULPPACK packed-lane matmul -- the ``vmacsr`` analogue -- and K7: the
+unpacked integer matmul.
 
 Replaces ``repro/kernels/ulppack_matmul.py:ulppack_matmul`` (Pallas kernel
 ``_kernel``, pallas_call at :99).  The hand-written kernel is
@@ -9,8 +10,15 @@ weight lanes w [Kp, N]: runs of at most ``k_tile`` lanes are contracted in
 packed space, then ``(t >> shift*(n_pack-1)) & field_mask`` is taken and
 summed wide.
 
-:func:`ulppack_matmul_torch` is the plain PyTorch version (the CPU path and
-the on-card comparison); ``kernel_launches`` / ``plain_calls`` count each.
+K7 replaces ``repro/kernels/ulppack_matmul.py:int_matmul`` (Pallas kernel
+``_int_kernel``, pallas_call at :145): s8/s16 x s8/s16 -> s32, wrapped mod
+2^32 like XLA's s32 dot.  The hand-written kernel is ``csrc/int_matmul.cu``
+(a shared-memory tiled CUDA-core kernel, edge tiles masked).
+
+:func:`ulppack_matmul_torch` and :func:`int_matmul_torch` are the plain
+PyTorch versions (the CPU path and the on-card comparison);
+``kernel_launches`` / ``plain_calls`` count each kernel's launches and each
+plain version's calls, keyed by kernel name.
 """
 
 from __future__ import annotations
@@ -22,16 +30,22 @@ from repro_torch.core.packing import PackSpec
 from repro_torch.kernels import build
 from repro_torch.kernels import plan as plan_lib
 
-#: Launches of the CUDA kernel / calls of the plain version in this process.
-kernel_launches = 0
-plain_calls = 0
+NAMES = ("ulppack_matmul", "int_matmul")
 
-_launch = None
+#: Launches of each CUDA kernel / calls of each plain version in this
+#: process, keyed by kernel name.
+kernel_launches = dict.fromkeys(NAMES, 0)
+plain_calls = dict.fromkeys(NAMES, 0)
+
+#: int64 bytes one chunk of the plain int_matmul may hold on the card.
+_PLAIN_BUDGET = 1 << 28
+
+_launch: dict = {}
 
 
 def reset_counts():
-    global kernel_launches, plain_calls
-    kernel_launches = plain_calls = 0
+    for k in NAMES:
+        kernel_launches[k] = plain_calls[k] = 0
 
 
 def _check(a_packed, w_packed, spec: PackSpec):
@@ -50,9 +64,8 @@ def _check(a_packed, w_packed, spec: PackSpec):
 def ulppack_matmul_torch(a_packed: torch.Tensor, w_packed: torch.Tensor,
                          spec: PackSpec) -> torch.Tensor:
     """Plain PyTorch version: [M, Kp] x [Kp, N] -> exact int32 [M, N]."""
-    global plain_calls
     _check(a_packed, w_packed, spec)
-    plain_calls += 1
+    plain_calls["ulppack_matmul"] += 1
     return packing.packed_lanes_matmul(a_packed, w_packed, spec)
 
 
@@ -60,7 +73,6 @@ def ulppack_matmul_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
                         spec: PackSpec, *, block_m: int, block_k: int,
                         splits: int) -> torch.Tensor:
     """Launch the CUDA kernel (CUDA tensors, one lane dtype)."""
-    global kernel_launches, _launch
     _check(a_packed, w_packed, spec)
     if not (a_packed.is_cuda and w_packed.device == a_packed.device):
         raise ValueError("ulppack_matmul_cuda needs both operands on one "
@@ -73,13 +85,72 @@ def ulppack_matmul_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
     out = alloc((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out
-    if _launch is None:
-        _launch = build.bind("ulppack_matmul", "ulppack_matmul_launch", 3, 10)
-    _launch(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, kp, n,
+    fn = _launch.get("ulppack_matmul")
+    if fn is None:
+        fn = _launch["ulppack_matmul"] = build.bind(
+            "ulppack_matmul", "ulppack_matmul_launch", 3, 10)
+    fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, kp, n,
             spec.lane_bytes, spec.k_tile, spec.band, spec.field_mask,
             block_k, splits, block_m, a.device.index or 0,
             torch.cuda.current_stream(a.device).cuda_stream)
-    kernel_launches += 1
+    kernel_launches["ulppack_matmul"] += 1
+    return out
+
+
+_INT_DTYPES = (torch.int8, torch.int16)
+
+
+def _check_int(q_a, q_w):
+    if q_a.dtype not in _INT_DTYPES or q_w.dtype not in _INT_DTYPES:
+        raise TypeError(f"int_matmul takes int8 / int16 operands, got "
+                        f"{q_a.dtype} x {q_w.dtype}")
+    if q_a.dim() != 2 or q_w.dim() != 2 or q_a.shape[1] != q_w.shape[0]:
+        raise ValueError(f"shapes {tuple(q_a.shape)} x {tuple(q_w.shape)} "
+                         f"do not contract")
+
+
+def int_matmul_torch(q_a: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: [M, K] x [K, N] int8/int16 -> int32 wrapped
+    mod 2^32.  On the CPU an int32 matmul (it wraps, like XLA's s32); CUDA
+    PyTorch has no integer matmul, so on the card int64 products are summed
+    exactly in chunks of K and the low 32 bits kept."""
+    _check_int(q_a, q_w)
+    plain_calls["int_matmul"] += 1
+    if not q_a.is_cuda:
+        return torch.mm(q_a.to(torch.int32), q_w.to(torch.int32))
+    m, k = q_a.shape
+    n = q_w.shape[1]
+    acc = torch.zeros((m, n), dtype=torch.int64, device=q_a.device)
+    step = max(1, _PLAIN_BUDGET // max(1, m * n * 8))
+    for k0 in range(0, k, step):
+        a = q_a[:, k0:k0 + step, None].to(torch.int64)
+        acc += (a * q_w[None, k0:k0 + step].to(torch.int64)).sum(dim=1)
+    return packing.wrap_i32(acc)
+
+
+def int_matmul_cuda(q_a: torch.Tensor, q_w: torch.Tensor, *, block_m: int,
+                    block_k: int, splits: int) -> torch.Tensor:
+    """Launch K7 (CUDA tensors, int8/int16 operands)."""
+    _check_int(q_a, q_w)
+    if not (q_a.is_cuda and q_w.device == q_a.device):
+        raise ValueError("int_matmul_cuda needs both operands on one CUDA "
+                         "device")
+    a = q_a.contiguous()
+    w = q_w.contiguous()
+    m, k = a.shape
+    n = w.shape[1]
+    alloc = torch.zeros if splits > 1 else torch.empty
+    out = alloc((m, n), dtype=torch.int32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    fn = _launch.get("int_matmul")
+    if fn is None:
+        fn = _launch["int_matmul"] = build.bind("int_matmul",
+                                                "int_matmul_launch", 3, 8)
+    fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+       a.element_size(), w.element_size(), block_m, block_k, splits,
+       a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
+    kernel_launches["int_matmul"] += 1
     return out
 
 
@@ -92,3 +163,14 @@ def _packed_matmul_torch(plan, a2, w):
 def _packed_matmul_cuda(plan, a2, w):
     return ulppack_matmul_cuda(a2, w, plan.spec, block_m=plan.block_m,
                                block_k=plan.block_k, splits=plan.splits)
+
+
+@plan_lib.register_backend("int_matmul", "torch")
+def _int_matmul_torch(plan, a2, w):
+    return int_matmul_torch(a2, w)
+
+
+@plan_lib.register_backend("int_matmul", "cuda")
+def _int_matmul_cuda(plan, a2, w):
+    return int_matmul_cuda(a2, w, block_m=plan.block_m,
+                           block_k=plan.block_k, splits=plan.splits)

@@ -1,4 +1,4 @@
-"""Self-attention over a contiguous, possibly sub-byte KV cache
+"""Self-attention over a contiguous or paged, possibly sub-byte KV cache
 (counterpart of ``repro/models/attention.py``).
 
 Projections are quantizable Dense layers (the paper's technique applies to
@@ -7,14 +7,17 @@ them).  The cache stores K/V at ``cfg.quant.kv_bits`` precision: bf16 (0 or
 along head_dim with the same scale planes (4 / 2).
 
 Writes happen in place: each layer's cache tensors are allocated once
-(:func:`init_kv_cache`) and updated with ``index_put_`` -- the counterpart
+(:func:`init_kv_cache`, or :func:`init_paged_kv_cache` for a page pool read
+through block tables) and updated with ``index_put_`` -- the counterpart
 of the reference's donated cache buffers.  Every read goes through the
-fused flash-decoding kernel (kernels/ulppack_attention.py), for decode
-steps, chunked-prefill windows and cache-free forwards alike.
+fused flash-decoding kernels (kernels/ulppack_attention.py: K3 over a
+contiguous cache, K4 over a paged one), for decode steps, chunked-prefill
+windows and cache-free forwards alike.
 
-Ported here: the vector-indexed, non-windowed path.  Sliding-window rings,
-cross-attention, M-RoPE and the paged pool wait for later slices
-(ROADMAP.md Queue 1 items 10 and 13).
+Ported here: the vector-indexed, non-windowed path, contiguous and paged.
+Sliding-window rings, cross-attention and M-RoPE wait for a later slice
+(ROADMAP.md Queue 1 item 13); the legacy gather read
+(``_paged_cache_read``) waits with ``_chunked_attention`` (item 8c).
 """
 
 from __future__ import annotations
@@ -57,18 +60,11 @@ def attention_init(generator, cfg, *, dtype=torch.float32, device="cpu"):
     }
 
 
-def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
-    """Contiguous KV cache [batch, max_len, KVH, ...] for ``kv_bits``:
-      0 / 16 -- ``dtype`` (bf16 in serving).
-      8      -- int8 values + per-(pos, kv-head) bf16 absmax scales.
-      4 / 2  -- int32 words (``packing.pack_words`` along head_dim,
-                ``32 // kv_bits`` values per word) + the same scales.
-    """
-    check_supported(cfg)
+def _cache_leaves(cfg, lead, dtype, device):
+    """Zeroed cache leaves with leading dims ``lead`` for ``kv_bits``."""
     hd = cfg.resolved_head_dim
-    kvh = cfg.num_kv_heads
     bits = cfg.quant.kv_bits
-    shape = (batch, max_len, kvh)
+    shape = tuple(lead) + (cfg.num_kv_heads,)
 
     def zeros(last, dt):
         return torch.zeros(shape + last, dtype=dt, device=device)
@@ -86,6 +82,34 @@ def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
     if bits not in (0, 16):
         raise ValueError(f"unsupported kv_bits {bits}; expected 0/16/8/4/2")
     return {"k": zeros((hd,), dtype), "v": zeros((hd,), dtype)}
+
+
+def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
+    """Contiguous KV cache [batch, max_len, KVH, ...] for ``kv_bits``:
+      0 / 16 -- ``dtype`` (bf16 in serving).
+      8      -- int8 values + per-(pos, kv-head) bf16 absmax scales.
+      4 / 2  -- int32 words (``packing.pack_words`` along head_dim,
+                ``32 // kv_bits`` values per word) + the same scales.
+    """
+    check_supported(cfg)
+    return _cache_leaves(cfg, (batch, max_len), dtype, device)
+
+
+def init_paged_kv_cache(cfg, num_pages, page_size, dtype=torch.bfloat16,
+                        device="cpu"):
+    """Paged KV pool: ``num_pages`` pages of ``page_size`` token rows.
+
+    The same per-row layouts as :func:`init_kv_cache` with the leading
+    ``[B, S]`` replaced by ``[P, page_size]``; one page-id space serves
+    every attention layer (serve/pages.py).  Sub-byte layouts need
+    ``page_size`` to be a multiple of the word-packing tail
+    (serve/pages.validate_page_size).  Sliding-window rings stay unpaged."""
+    if cfg.sliding_window:
+        raise ValueError(
+            "paged KV cache does not support sliding-window ring caches; "
+            "serve sliding-window archs unpaged")
+    check_supported(cfg)
+    return _cache_leaves(cfg, (num_pages, page_size), dtype, device)
 
 
 def kv_quantize(x: torch.Tensor, bits: int = 8):
@@ -124,13 +148,10 @@ def ragged_write_indices(cache_index: torch.Tensor, cache_valid: torch.Tensor,
     return bi, ti, wpos[bi, ti].to(torch.int64)
 
 
-def ragged_window(cache_index, cache_valid, b: int, sq: int, size: int,
-                  device):
-    """Per-row write offsets [B], valid counts [B] and the ragged write
-    indices of a [B, sq] window, all on ``device``.  A scalar offset is
-    shared by every row; ``cache_valid=None`` means every token is valid.
-    The indices are worked out where ``cache_index`` lives, so host-side
-    offsets (the serving steps') cost the card no wait."""
+def _offsets(cache_index, cache_valid, b: int, sq: int):
+    """Per-row write offsets [B] and valid counts [B] of a [B, sq] window,
+    where ``cache_index`` lives: a scalar offset is shared by every row,
+    and ``cache_valid=None`` means every token is valid."""
     idx = torch.as_tensor(cache_index, dtype=torch.int32)
     if idx.dim() == 0:
         idx = idx.expand(b)
@@ -138,18 +159,60 @@ def ragged_window(cache_index, cache_valid, b: int, sq: int, size: int,
             if cache_valid is None
             else torch.as_tensor(cache_valid, dtype=torch.int32,
                                  device=idx.device))
+    return idx, vlen
+
+
+def ragged_window(cache_index, cache_valid, b: int, sq: int, size: int,
+                  device):
+    """Per-row write offsets [B], valid counts [B] and the ragged write
+    indices of a [B, sq] window, all on ``device``.  The indices are worked
+    out where ``cache_index`` lives, so host-side offsets (the serving
+    steps') cost the card no wait."""
+    idx, vlen = _offsets(cache_index, cache_valid, b, sq)
     write = ragged_write_indices(idx, vlen, sq, size)
     return (idx.to(device), vlen.to(device),
             tuple(t.to(device) for t in write))
 
 
-def cache_write_ragged(cache, k, v, write, kv_bits=0):
-    """In-place ragged write of [B, s, KVH, hd] float K/V through
-    ``write = (row, token, slot)`` (:func:`ragged_write_indices`),
-    quantizing -- and for sub-byte ``kv_bits`` word-packing -- first when
-    the cache is quantized."""
-    bi, ti, slots = write
-    kk, vv = k[bi, ti], v[bi, ti]
+def paged_write_indices(cache_index: torch.Tensor, cache_valid: torch.Tensor,
+                        block_tables: torch.Tensor, sq: int, page_size: int,
+                        num_pages: int):
+    """(row, token, page, page-row) index tensors of a block-table write:
+    token j of row b is at logical position ``p = cache_index[b] + j`` and
+    lands at physical page ``block_tables[b, p // page_size]`` (the page
+    index clipped to the table, as the reference clips it), row
+    ``p % page_size``.  Tokens with ``j >= cache_valid[b]`` are dropped, as
+    the reference's ``mode='drop'`` scatter drops them, and so are table
+    entries outside the pool."""
+    bt = torch.as_tensor(block_tables, dtype=torch.int64,
+                         device=cache_index.device)
+    offs = torch.arange(sq, dtype=torch.int64, device=cache_index.device)
+    wpos = cache_index[:, None].to(torch.int64) + offs[None, :]
+    keep = offs[None, :] < cache_valid[:, None]
+    bi, ti = keep.nonzero(as_tuple=True)
+    pos = wpos[bi, ti]
+    pages = bt[bi, torch.clamp(pos // page_size, 0, bt.shape[1] - 1)]
+    inside = (pages >= 0) & (pages < num_pages)
+    return (bi[inside], ti[inside], pages[inside],
+            (pos % page_size)[inside])
+
+
+def paged_window(cache_index, cache_valid, block_tables, b: int, sq: int,
+                 page_size: int, num_pages: int, device):
+    """As :func:`ragged_window` for a paged pool: offsets [B], valid counts
+    [B], the block-table write indices (worked out where ``cache_index``
+    lives) and the block table, all on ``device``."""
+    idx, vlen = _offsets(cache_index, cache_valid, b, sq)
+    bt = torch.as_tensor(block_tables, dtype=torch.int32)
+    write = paged_write_indices(idx, vlen, bt, sq, page_size, num_pages)
+    return (idx.to(device), vlen.to(device),
+            tuple(t.to(device) for t in write), bt.to(device))
+
+
+def _store(cache, index, kk, vv, kv_bits):
+    """Quantize (and for sub-byte ``kv_bits`` word-pack) the token rows
+    ``kk`` / ``vv`` when the cache is quantized, then put them at
+    ``index`` in every leaf, in place."""
     if "k_scale" in cache:
         qk, sk = kv_quantize(kk, kv_bits)
         qv, sv = kv_quantize(vv, kv_bits)
@@ -158,13 +221,32 @@ def cache_write_ragged(cache, k, v, write, kv_bits=0):
         vals = {"k": kk, "v": vv}
     for name, val in vals.items():
         buf = cache[name]
-        buf.index_put_((bi, slots), val.to(buf.dtype))
+        buf.index_put_(index, val.to(buf.dtype))
     return cache
+
+
+def cache_write_ragged(cache, k, v, write, kv_bits=0):
+    """In-place ragged write of [B, s, KVH, hd] float K/V through
+    ``write = (row, token, slot)`` (:func:`ragged_write_indices`),
+    quantizing -- and for sub-byte ``kv_bits`` word-packing -- first when
+    the cache is quantized."""
+    bi, ti, slots = write
+    return _store(cache, (bi, slots), k[bi, ti], v[bi, ti], kv_bits)
+
+
+def cache_write_paged(cache, k, v, write, kv_bits=0):
+    """In-place block-table write of [B, s, KVH, hd] float K/V through
+    ``write = (row, token, page, page-row)`` (:func:`paged_write_indices`):
+    the counterpart of the reference's ``_cache_write_paged``, quantized
+    per token row, so the stored words and scale planes equal the unpaged
+    layout's at the same positions."""
+    bi, ti, pages, rows = write
+    return _store(cache, (pages, rows), k[bi, ti], v[bi, ti], kv_bits)
 
 
 def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                     cache_index=None, cache_valid=None, write=None,
-                    backend="auto"):
+                    block_tables=None, backend="auto"):
     """Attention forward; returns (out, cache).
 
       * cache=None: causal self-attention over the window's own K/V.
@@ -174,6 +256,13 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
         stored cache with ``valid_len = cache_index + cache_valid``.
         ``write`` may carry the window's precomputed indices; the offsets
         and counts must then be device tensors (:func:`ragged_window`).
+      * paged: ``block_tables`` [B, n_pages] int32 maps each row's logical
+        page j to a physical page of a pool (:func:`init_paged_kv_cache`).
+        Writes land through the table (:func:`paged_window` /
+        :func:`cache_write_paged`; ``write`` then carries its four index
+        tensors and ``block_tables`` must be the device table) and the
+        read walks the pool through the table (K4), so the gathered view
+        never materializes.
     """
     check_supported(cfg)
     b, sq, _ = x.shape
@@ -202,15 +291,22 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                 "filling a cache without write offsets (the reference's "
                 "fake-quant prefill step) is still to be ported; pass "
                 "cache_index")
-        if write is None:
-            cache_index, cache_valid, write = ragged_window(
-                cache_index, cache_valid, b, sq, cache["k"].shape[1],
-                x.device)
         kv_bits = cfg.quant.kv_bits
-        cache_write_ragged(cache, k, v, write, kv_bits)
+        if block_tables is None:
+            if write is None:
+                cache_index, cache_valid, write = ragged_window(
+                    cache_index, cache_valid, b, sq, cache["k"].shape[1],
+                    x.device)
+            cache_write_ragged(cache, k, v, write, kv_bits)
+        else:
+            if write is None:
+                cache_index, cache_valid, write, block_tables = paged_window(
+                    cache_index, cache_valid, block_tables, b, sq,
+                    cache["k"].shape[1], cache["k"].shape[0], x.device)
+            cache_write_paged(cache, k, v, write, kv_bits)
         valid_len = cache_index + cache_valid
         out = ulppack_attention.fused_decode_attention(
             q, cache, valid_len, positions, kv_bits=kv_bits, hd=hd,
-            backend=backend)
+            block_tables=block_tables, backend=backend)
     out = dense_apply(p["o"], out.reshape(b, sq, cfg.num_heads * hd), **qm)
     return out, cache

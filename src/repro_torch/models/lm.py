@@ -1,6 +1,6 @@
 """Decoder LM assembly for dense attention stacks (counterpart of
 ``repro/models/lm.py``): block init/apply, parameter init, forward with the
-pad-vocab bias, contiguous decode caches and their byte count.
+pad-vocab bias, contiguous or paged decode caches and their byte counts.
 
 Mamba / xLSTM / MoE blocks, encoders and modality frontends are still to
 be ported (ROADMAP.md Queue 1 item 13); configs that need them raise
@@ -53,14 +53,14 @@ def block_init(generator, cfg, i, *, dtype=torch.float32, device="cpu"):
 
 def block_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                 cache_index=None, cache_valid=None, write=None,
-                backend="auto"):
+                block_tables=None, backend="auto"):
     """One residual block.  Returns (x, cache)."""
     h = common.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     sub = cache.get("attn") if cache else None
     out, _ = attention.attention_apply(
         p["attn"], cfg, h, positions=positions, quant_mode=quant_mode,
         cache=sub, cache_index=cache_index, cache_valid=cache_valid,
-        write=write, backend=backend)
+        write=write, block_tables=block_tables, backend=backend)
     x = x + out
     if "mlp" in p:
         h = common.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
@@ -96,14 +96,18 @@ def init_params(cfg, generator: torch.Generator | None = None,
 
 
 def forward(params, cfg, batch, *, quant_mode="none", caches=None,
-            cache_index=None, cache_valid=None, write=None, backend="auto"):
+            cache_index=None, cache_valid=None, write=None, block_tables=None,
+            backend="auto"):
     """Full forward.  Returns (logits, aux_loss, caches).
 
     ``cache_index`` [B] (or a scalar) gives per-slot cache write offsets;
     ``cache_valid`` [B] the valid-prefix length of each row's window.  The
     caches are updated in place.  ``write`` may carry the window's
-    precomputed indices (``attention.ragged_window``, with device-side
-    offsets and counts); otherwise they are computed once here.
+    precomputed indices (``attention.ragged_window``, or with
+    ``block_tables`` ``attention.paged_window``, with device-side offsets,
+    counts and table); otherwise they are computed once here.  With
+    ``block_tables`` [B, n_pages] the caches are paged pools
+    (``init_caches(..., page_size=, num_pages=)``).
     """
     check_supported(cfg)
     cd = common.dtype_of(cfg.compute_dtype)
@@ -117,16 +121,22 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
     if caches is not None and cache_index is not None and write is None:
         # one set of write indices (and one host-to-device move) per step,
         # shared by every layer
-        cache_index, cache_valid, write = attention.ragged_window(
-            cache_index, cache_valid, b, s, caches[0]["attn"]["k"].shape[1],
-            x.device)
+        k0 = caches[0]["attn"]["k"]
+        if block_tables is None:
+            cache_index, cache_valid, write = attention.ragged_window(
+                cache_index, cache_valid, b, s, k0.shape[1], x.device)
+        else:
+            cache_index, cache_valid, write, block_tables = \
+                attention.paged_window(cache_index, cache_valid,
+                                       block_tables, b, s, k0.shape[1],
+                                       k0.shape[0], x.device)
 
     for li, blk in enumerate(params["layers"]):
         x, _ = block_apply(
             blk, cfg, x, positions=positions, quant_mode=quant_mode,
             cache=caches[li] if caches is not None else None,
             cache_index=cache_index, cache_valid=cache_valid, write=write,
-            backend=backend)
+            block_tables=block_tables, backend=backend)
 
     x = common.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -143,24 +153,45 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
     return logits, 0.0, caches
 
 
-def init_caches(cfg, batch_size, max_len, dtype=torch.bfloat16,
-                device="cpu"):
-    """Per-layer contiguous decode caches sized for ``max_len``."""
+def init_caches(cfg, batch_size, max_len, dtype=torch.bfloat16, *,
+                page_size=None, num_pages=None, device="cuda"):
+    """Per-layer decode caches on ``device``: contiguous, sized for
+    ``max_len``, or with ``page_size`` / ``num_pages`` paged pools
+    ([num_pages, page_size, KVH, ...], one page-id space across layers)."""
     check_supported(cfg)
+    dev = plan_lib.resolve_device(device)
+    if num_pages is not None and page_size is None:
+        raise ValueError("num_pages requires page_size")
+    if num_pages is not None:
+        return [{"attn": attention.init_paged_kv_cache(cfg, num_pages,
+                                                       page_size, dtype, dev)}
+                for _ in range(cfg.num_layers)]
     return [{"attn": attention.init_kv_cache(cfg, batch_size, max_len, dtype,
-                                             device)}
+                                             dev)}
             for _ in range(cfg.num_layers)]
+
+
+def _row_bytes(cfg, dtype) -> int:
+    """Bytes one cached token row (K and V, all kv heads, scale planes
+    included) takes in one layer."""
+    hd, kvh, bits = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.quant.kv_bits
+    if bits == 8:
+        return 2 * kvh * hd + 2 * kvh * 2
+    if bits in (4, 2):
+        return 2 * kvh * -(-hd // (32 // bits)) * 4 + 2 * kvh * 2
+    return 2 * kvh * hd * torch.empty((), dtype=dtype).element_size()
 
 
 def cache_bytes(cfg, batch_size, max_len, dtype=torch.bfloat16) -> int:
     """Device bytes of an ``init_caches`` tree, without allocating it."""
     check_supported(cfg)
-    hd, kvh, bits = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.quant.kv_bits
-    rows = batch_size * max_len * kvh
-    if bits == 8:
-        per_layer = 2 * rows * hd + 2 * rows * 2
-    elif bits in (4, 2):
-        per_layer = 2 * rows * -(-hd // (32 // bits)) * 4 + 2 * rows * 2
-    else:
-        per_layer = 2 * rows * hd * torch.empty((), dtype=dtype).element_size()
-    return cfg.num_layers * per_layer
+    return cfg.num_layers * batch_size * max_len * _row_bytes(cfg, dtype)
+
+
+def cache_page_bytes(cfg, page_size, dtype=torch.bfloat16) -> int:
+    """Device bytes one pool page (``page_size`` token rows) occupies,
+    summed over the attention layers, scale planes included: the paged
+    engine's capacity unit (budget // cache_page_bytes pages).  Computed
+    from shapes, like :func:`cache_bytes`."""
+    check_supported(cfg)
+    return cfg.num_layers * page_size * _row_bytes(cfg, dtype)

@@ -1,10 +1,11 @@
 """EngineConfig and SamplingParams (counterpart of ``repro/serve/config.py``).
 
-The fields the slice serves mirror the reference's; the switches of what it
-does not serve yet -- the paged cache, speculative decoding, the bit-dense
-weight store and the autotuner -- raise ``NotImplementedError`` at
-construction when turned on, naming their ROADMAP item.  Their tuning
-fields (page size, draft precision) come back with them.
+The fields the port serves mirror the reference's, the paged cache
+(``paged``, ``page_size``, ``prefix_sharing``) included; the switches of
+what it does not serve yet -- speculative decoding, the bit-dense weight
+store and the autotuner -- raise ``NotImplementedError`` at construction
+when turned on, naming their ROADMAP item.  Their tuning fields (draft
+precision) come back with them.
 """
 
 from __future__ import annotations
@@ -45,7 +46,12 @@ class EngineConfig:
     * ``prefill_chunk`` [tokens] -- chunked-prefill window width.
     * ``max_queue`` -- backpressure cap on queued requests (None =
       unbounded).
-    * ``hbm_cache_budget`` [bytes] -- KV-cache budget converted to slots.
+    * ``hbm_cache_budget`` [bytes] -- KV-cache budget converted to slots
+      (unpaged) or to pool pages (paged).
+    * ``paged`` -- a page pool behind per-slot block tables instead of
+      slot-contiguous caches; ``page_size`` [token rows] per page (a
+      multiple of the sub-byte word-packing tail); ``prefix_sharing`` --
+      share prompt-prefix pages through the radix index (copy-on-write).
     """
 
     max_batch: int = 4
@@ -58,6 +64,8 @@ class EngineConfig:
     hbm_cache_budget: int | None = None
     autotune: bool = False
     paged: bool = False
+    page_size: int = 16
+    prefix_sharing: bool = True
     speculative_k: int = 0
 
     def __post_init__(self):
@@ -80,16 +88,18 @@ class EngineConfig:
             raise TypeError(
                 f"sampling must be a SamplingParams, got "
                 f"{type(self.sampling).__name__}")
+        if self.page_size < 1:
+            raise ValueError(
+                f"page_size must be >= 1, got {self.page_size}")
         if self.speculative_k < 0:
             raise ValueError(
                 f"speculative_k must be >= 0 (0 = off), got "
                 f"{self.speculative_k}")
-        unported = [(self.paged, "paged=True (the paged KV cache)", "10"),
-                     (self.speculative_k > 0,
-                      "speculative_k > 0 (speculative decoding)", "11"),
-                     (self.autotune, "autotune=True", "12"),
-                     (self.dense_store,
-                      "dense_store=True (the bit-dense weight store)", "8b")]
+        unported = [(self.speculative_k > 0,
+                     "speculative_k > 0 (speculative decoding)", "11"),
+                    (self.autotune, "autotune=True", "12"),
+                    (self.dense_store,
+                     "dense_store=True (the bit-dense weight store)", "8b")]
         for on, what, item in unported:
             if on:
                 raise NotImplementedError(
@@ -108,3 +118,21 @@ class EngineConfig:
                 f"cache ({cache_bytes_per_slot} bytes at max_len "
                 f"{self.max_len})")
         return slots
+
+    def pages_for(self, page_bytes: int, pages_per_slot: int) -> int:
+        """Physical page count: the paged-pool capacity rule.
+
+        With no budget the pool is sized so ``max_batch`` worst-case
+        (no-sharing, full-extent) slots fit; with one, the budget buys
+        ``budget // bytes-per-page`` pages.  Either way the pool must hold
+        at least one worst-case slot or no request could ever admit.
+        """
+        if self.hbm_cache_budget is None:
+            return self.max_batch * pages_per_slot
+        pages = int(self.hbm_cache_budget // page_bytes)
+        if pages < pages_per_slot:
+            raise ValueError(
+                f"hbm_cache_budget {self.hbm_cache_budget} < one worst-case "
+                f"slot's pages ({pages_per_slot} pages x {page_bytes} bytes "
+                f"at max_len {self.max_len}, page_size {self.page_size})")
+        return pages

@@ -1,6 +1,5 @@
 """Continuous-batching serving engine: chunked prefill + ragged decode
-(counterpart of ``repro/serve/engine.py``, unpaged and without
-speculation).
+(counterpart of ``repro/serve/engine.py``, without speculation).
 
 Requests wait in a bounded queue (backpressure); an admission pass moves
 them into free batch slots; prompts stream through the chunked-prefill step
@@ -10,6 +9,14 @@ position.  Sampling (greedy / temperature / top-k) is per slot, from a numpy
 Generator keyed on (seed, uid), so it is identical to the reference
 engine's.  Both steps run the packed integer kernels on the card; the KV
 cache is updated in place.
+
+With ``EngineConfig(paged=True)`` the slot-contiguous KV cache becomes a
+refcounted page pool behind per-slot block tables (serve/pages.py):
+admission reserves pages instead of max_len slots, prompt prefixes are
+shared through a radix index with copy-on-write on divergence, and
+retirement frees pages -- the cache budget then bounds *physical* pages
+while ``max_batch`` bounds *logical* slots.  Every paged read goes through
+the paged flash-decoding kernel (K4).
 """
 
 from __future__ import annotations
@@ -24,8 +31,10 @@ import torch
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
+from repro_torch.serve import pages as pages_lib
 from repro_torch.serve.config import EngineConfig, SamplingParams
 from repro_torch.serve.prepare import (build_layer_plans, cache_bytes_per_slot,
+                                       cache_page_bytes,
                                        prepare_serving_params,
                                        serving_param_bytes)
 
@@ -141,14 +150,38 @@ class ServingEngine:
             raise NotImplementedError(
                 "mesh serving is still to be ported (ROADMAP.md Queue 1 "
                 "item 14)")
+        config = config if config is not None else EngineConfig()
+        if config.paged and cfg.sliding_window:
+            raise ValueError(
+                "paged KV cache and the sliding-window ring layout do not "
+                "compose; use paged=False for sliding-window configs")
         lm.check_supported(cfg)
         self.device = plan_lib.resolve_device(device)
-        config = config if config is not None else EngineConfig()
         self.config = config
         self.cfg = cfg
+        kv_bits = cfg.quant.kv_bits
+        self.paged = config.paged
+        self.page_size = config.page_size
         self.cache_bytes_per_slot = cache_bytes_per_slot(cfg, config.max_len)
         self.hbm_cache_budget = config.hbm_cache_budget
-        max_batch = config.slots_for(self.cache_bytes_per_slot)
+        if self.paged:
+            # the budget buys pool pages; logical slots are bounded only by
+            # max_batch, and each admission reserves the pages its request
+            # can write
+            pages_lib.validate_page_size(self.page_size, kv_bits)
+            self.page_bytes = cache_page_bytes(cfg, self.page_size)
+            self.pages_per_slot = -(-config.max_len // self.page_size)
+            self.num_pages = config.pages_for(self.page_bytes,
+                                              self.pages_per_slot)
+            # admission-time estimate: what one worst-case (no-sharing,
+            # full-extent) request would pin
+            self.cache_bytes_per_slot = self.pages_per_slot * self.page_bytes
+            max_batch = config.max_batch
+            # every supported stack is pure attention, so a shared prefix's
+            # pages reconstruct every layer's state exactly
+            self._share = config.prefix_sharing
+        else:
+            max_batch = config.slots_for(self.cache_bytes_per_slot)
         self.max_batch = max_batch
         self.max_len = config.max_len
         self.prefill_chunk = config.prefill_chunk
@@ -169,8 +202,22 @@ class ServingEngine:
         self._prefill = steps_lib.make_prefill_chunk_step(run_cfg,
                                                           backend=backend)
         self._queue: deque[Request] = deque()
-        self.caches = lm.init_caches(cfg, max_batch, self.max_len,
-                                     dtype=torch.bfloat16, device=self.device)
+        if self.paged:
+            self.caches = lm.init_caches(
+                cfg, max_batch, self.max_len, dtype=torch.bfloat16,
+                page_size=self.page_size, num_pages=self.num_pages,
+                device=self.device)
+            self.pool = pages_lib.PagePool(self.num_pages, self.page_size,
+                                           kv_bits)
+            self.block_tables = np.zeros((max_batch, self.pages_per_slot),
+                                         np.int32)
+            self._slot_extent = [0] * max_batch   # table entries in use
+            self._slot_spare: list = [[] for _ in range(max_batch)]
+            self.peak_live_slots = 0
+        else:
+            self.caches = lm.init_caches(cfg, max_batch, self.max_len,
+                                         dtype=torch.bfloat16,
+                                         device=self.device)
         self.slot_req: list = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int32)   # tokens in cache
         self.slot_fed = np.zeros(max_batch, np.int32)   # prompt consumed
@@ -198,16 +245,115 @@ class ServingEngine:
         self._queue.append(req)
         return True
 
+    # -- paged reservation / copy-on-write -----------------------------
+
+    def _reserve_pages(self, slot: int, req: Request) -> int | None:
+        """Reserve every page ``req`` can write, all-or-nothing.
+
+        Positions written span ``[0, W)`` with ``W = len(prompt) +
+        max_new_tokens - 1`` (the last sampled token is returned, never
+        cached).  A cached prefix match (capped at ``len(prompt) - 1``, so
+        the last prompt token's logits are always computed) contributes
+        shared pages -- retained, not copied; fresh pages cover the rest,
+        plus copy-on-write spares for the two divergence writes a request
+        can hit: its first write into a partially shared page, and its
+        first generated token landing in the prompt's registered tail
+        page.  Returns the shared token count, or None (nothing taken)
+        when the pool cannot cover it -- the request stays queued."""
+        ps = self.page_size
+        n_prompt = len(req.prompt)
+        written = n_prompt + req.max_new_tokens - 1
+        n_shared, shared = 0, []
+        if self._share:
+            n_shared, shared = self.pool.match_prefix(
+                req.prompt, max_tokens=n_prompt - 1)
+        first_partial = 1 if n_shared % ps else 0
+        fill_from = n_shared // ps + first_partial
+        fresh = -(-written // ps) - fill_from
+        tail_cow = 1 if (self._share and n_prompt % ps
+                         and written > n_prompt) else 0
+        for pg, _rows in shared:             # pin before alloc can evict
+            self.pool.retain(pg)
+        got = self.pool.alloc(fresh + first_partial + tail_cow)
+        if got is None:
+            for pg, _rows in shared:
+                self.pool.release(pg)
+            return None
+        table = self.block_tables[slot]
+        table[:] = 0
+        for i, (pg, _rows) in enumerate(shared):
+            table[i] = pg
+        table[fill_from:fill_from + fresh] = got[:fresh]
+        self._slot_extent[slot] = fill_from + fresh
+        self._slot_spare[slot] = got[fresh:]
+        if n_shared:
+            self.pool.prefix_hits += 1
+            self.pool.prefix_hit_tokens += n_shared
+        return n_shared
+
+    def _release_slot_pages(self, slot: int):
+        for p in self.block_tables[slot][:self._slot_extent[slot]]:
+            self.pool.release(int(p))
+        for p in self._slot_spare[slot]:
+            self.pool.release(int(p))
+        self.block_tables[slot][:] = 0
+        self._slot_extent[slot] = 0
+        self._slot_spare[slot] = []
+
+    def _ensure_writable(self, slot: int, lo: int, hi: int):
+        """Copy-on-write ahead of a pass writing positions ``[lo, hi)``:
+        any mapped page that is shared (ref > 1) or frozen by the prefix
+        index gets a private copy first (reserved spare, else a fresh
+        alloc under pressure), so writers never touch shared bytes."""
+        ps = self.page_size
+        table = self.block_tables[slot]
+        for pi in range(lo // ps, -(-hi // ps)):
+            pg = int(table[pi])
+            if not (self.pool.is_shared(pg) or self.pool.is_immutable(pg)):
+                continue
+            spare = self._slot_spare[slot]
+            if spare:
+                dst = spare.pop()
+            else:
+                got = self.pool.alloc(1)
+                if got is None:
+                    raise RuntimeError(
+                        f"page pool exhausted during copy-on-write for "
+                        f"slot {slot} (page {pg}); reservation math must "
+                        f"cover every divergence write")
+                dst = got[0]
+            pages_lib.copy_page(self.caches, pg, dst)
+            table[pi] = dst
+            self.pool.release(pg)
+            self.pool.cow_copies += 1
+
+    def _register_prompt(self, s: int, req: Request):
+        """Hash-cons the just-completed prompt's pages into the prefix
+        index (before the first generated token, which may retire the
+        slot at max_new_tokens=1): later requests with the same prefix
+        share these physical pages instead of prefilling them again."""
+        n_pages = -(-len(req.prompt) // self.page_size)
+        self.pool.register_prefix(
+            req.prompt, [int(p) for p in self.block_tables[s][:n_pages]])
+
     def _admit(self):
         now = time.perf_counter()
         for slot in range(self.max_batch):
             if self.slot_req[slot] is None and self._queue:
-                req = self._queue.popleft()
+                req = self._queue[0]
+                n_shared = 0
+                if self.paged:
+                    n_shared = self._reserve_pages(slot, req)
+                    if n_shared is None:
+                        # head-of-line blocks until pages free: FIFO, no
+                        # starvation of large requests by small ones
+                        break
+                self._queue.popleft()
                 # attention rows need no reset: validity is re-derived per
                 # call from the slot offsets, so stale rows stay masked
                 self.slot_req[slot] = req
-                self.slot_pos[slot] = 0
-                self.slot_fed[slot] = 0
+                self.slot_pos[slot] = n_shared
+                self.slot_fed[slot] = n_shared
                 sp = req.sampling or self.sampling
                 self._slot_rng[slot] = np.random.default_rng(
                     (sp.seed, req.uid & 0xFFFFFFFF))
@@ -231,6 +377,8 @@ class ServingEngine:
         self.metrics.steps += 1
         self.metrics.slot_steps_live += len(live)
         self.metrics.slot_steps_total += self.max_batch
+        if self.paged:
+            self.peak_live_slots = max(self.peak_live_slots, len(live))
         prefilling = any(
             self.slot_fed[s] < len(self.slot_req[s].prompt) for s in live)
         t0 = time.perf_counter()
@@ -264,8 +412,15 @@ class ServingEngine:
             else:              # decode-phase rider: one pending token
                 tokens[s, 0] = req.output[-1]
                 valid[s] = 1
+        step_args = ()
+        if self.paged:
+            for s in live:
+                lo = int(index[s])
+                self._ensure_writable(s, lo, lo + int(valid[s]))
+            step_args = (self.block_tables,)
         logits, self.caches = self._prefill(
-            self.params, self.caches, {"tokens": tokens}, index, valid)
+            self.params, self.caches, {"tokens": tokens}, index, valid,
+            *step_args)
         logits = logits.float().cpu().numpy()
         for s in live:
             req = self.slot_req[s]
@@ -273,6 +428,8 @@ class ServingEngine:
                 self.slot_fed[s] += take[s]
                 self.slot_pos[s] += take[s]
                 if self.slot_fed[s] == len(req.prompt):
+                    if self.paged and self._share:
+                        self._register_prompt(s, req)
                     self._emit_token(s, logits[s], decode_pass=False)
             else:
                 self.slot_pos[s] += 1
@@ -289,8 +446,14 @@ class ServingEngine:
                 else int(req.prompt[-1])
             index[s] = self.slot_pos[s]
             valid[s] = 1
+        step_args = ()
+        if self.paged:
+            for s in live:
+                self._ensure_writable(s, int(index[s]), int(index[s]) + 1)
+            step_args = (self.block_tables,)
         logits, self.caches = self._decode(
-            self.params, self.caches, {"tokens": tokens}, index, valid)
+            self.params, self.caches, {"tokens": tokens}, index, valid,
+            *step_args)
         logits = logits.float().cpu().numpy()
         for s in live:
             self.slot_pos[s] += 1
@@ -321,6 +484,10 @@ class ServingEngine:
             self._finished.append(req)
             self.metrics.retired += 1
             self.slot_req[s] = None
+            if self.paged:
+                # page-level retirement: drop this slot's references only;
+                # prefix-index pages keep their index ref and stay cached
+                self._release_slot_pages(s)
 
     # ------------------------------------------------------------------
     # Reporting / draining
@@ -337,17 +504,65 @@ class ServingEngine:
                 for path, plan in sorted(self.plans.items())]
 
     def capacity_report(self) -> dict:
-        """Cache-capacity accounting: bytes per slot, admitted slots, and
-        the packed parameter bytes on the device."""
-        return {
+        """Cache-capacity accounting: bytes per slot, admitted slots, the
+        cache and packed parameter bytes on the device; paged engines add
+        the pool's physical-vs-logical page counters (free / live / shared
+        pages, prefix-hit, COW and eviction counts)."""
+        rep = {
             "kv_bits": self.cfg.quant.kv_bits or 16,
             "cache_bytes_per_slot": self.cache_bytes_per_slot,
-            "cache_bytes": self.cache_bytes_per_slot * self.max_batch,
+            "cache_bytes": (self.num_pages * self.page_bytes if self.paged
+                            else self.cache_bytes_per_slot * self.max_batch),
             "hbm_cache_budget": self.hbm_cache_budget,
             "slots": self.max_batch,
             "param_bytes": serving_param_bytes(self.params),
-            "paged": False,
+            "paged": self.paged,
         }
+        if self.paged:
+            rep.update(
+                page_size=self.page_size,
+                page_bytes=self.page_bytes,
+                num_pages=self.num_pages,
+                pages_per_slot=self.pages_per_slot,
+                # what worst-case reservations alone would fit; sharing
+                # lifts live slots above this
+                guaranteed_slots=self.num_pages // self.pages_per_slot,
+                peak_live_slot_count=self.peak_live_slots,
+                prefix_sharing=self._share,
+                **self.pool.report())
+        return rep
+
+    # ------------------------------------------------------------------
+    # Paged-state serialization (drain / restore)
+    # ------------------------------------------------------------------
+
+    def export_paged_state(self):
+        """(caches, pool_meta): the device page pools (every layer's paged
+        KV leaves -- the bytes behind the warm prefix cache) and the pool's
+        JSON-able bookkeeping.  Drain retires live slots first, so what
+        survives is the prefix index and its pages."""
+        if not self.paged:
+            raise ValueError("export_paged_state on an unpaged engine")
+        return self.caches, self.pool.export_meta()
+
+    def import_paged_state(self, caches, pool_meta: dict):
+        """Adopt a drained engine's page pools and prefix index (the
+        inverse of :meth:`export_paged_state`).  The geometry must match
+        this engine's; the pools are copied into this engine's own cache
+        tensors, which keep their addresses."""
+        if not self.paged:
+            raise ValueError("import_paged_state on an unpaged engine")
+        if (pool_meta["num_pages"] != self.num_pages
+                or pool_meta["page_size"] != self.page_size):
+            raise ValueError(
+                f"paged-state geometry mismatch: checkpoint has "
+                f"{pool_meta['num_pages']} pages x {pool_meta['page_size']} "
+                f"rows, engine was built with {self.num_pages} x "
+                f"{self.page_size}")
+        for mine, theirs in zip(self.caches, caches):
+            for name, buf in mine["attn"].items():
+                buf.copy_(torch.as_tensor(theirs["attn"][name]).to(buf))
+        self.pool = pages_lib.PagePool.from_meta(pool_meta)
 
     def run_to_completion(self):
         """Drain queue + slots; returns every request retired since the

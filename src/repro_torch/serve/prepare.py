@@ -99,6 +99,14 @@ def cache_bytes_per_slot(cfg, max_len: int) -> int:
     return lm.cache_bytes(cfg, 1, max_len)
 
 
+def cache_page_bytes(cfg, page_size: int) -> int:
+    """Device bytes one KV page (``page_size`` token rows, all attention
+    layers, scale planes included) occupies: the paged engine's capacity
+    term (num_pages = budget // cache_page_bytes)."""
+    from repro_torch.models import lm
+    return lm.cache_page_bytes(cfg, page_size)
+
+
 def serving_param_bytes(params) -> int:
     """Device bytes of a serving param tree."""
     if isinstance(params, torch.Tensor):

@@ -161,3 +161,78 @@ def test_conv_launcher_refuses_a_plan_that_disagrees_with_the_tile(hopper,
     bad = dataclasses.replace(plan, **{field: getattr(plan, field) + 4})
     with pytest.raises(RuntimeError, match="CUDA error"):
         ops.int_conv2d(qx, qw, plan=bad)
+
+
+def _paged_case(dev, kv_bits, c, seed):
+    """A contiguous cache [B, S, KVH, ...] and the same logical rows laid out
+    in a pool through a scrambled block table (a random permutation of the
+    physical pages); table entries past the live length point anywhere."""
+    b, ps, n_pages, h, kvh, hd = 3, 16, 12, 8, 4, 64
+    s = n_pages * ps
+    g = _gen(dev, seed)
+    k = torch.randn((b, s, kvh, hd), generator=g, device=dev)
+    v = torch.randn((b, s, kvh, hd), generator=g, device=dev)
+    if kv_bits in (8, 4, 2):
+        qk, sk = attention.kv_quantize(k, kv_bits)
+        qv, sv = attention.kv_quantize(v, kv_bits)
+        cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    else:
+        dt = torch.bfloat16 if kv_bits == 16 else torch.float32
+        cache = {"k": k.to(dt), "v": v.to(dt)}
+    perm = torch.randperm(b * n_pages, generator=g, device=dev)
+    bt = perm.reshape(b, n_pages).to(torch.int32)
+    pool = {}
+    for name, t in cache.items():
+        p = torch.zeros((b * n_pages, ps, *t.shape[2:]), dtype=t.dtype,
+                        device=dev)
+        p[bt.long()] = t.reshape(b, n_pages, ps, *t.shape[2:])
+        pool[name] = p
+    valid_len = torch.tensor([s, 37, 0], dtype=torch.int32, device=dev)
+    bt[1, 3:] = -5 + 1000 * torch.arange(n_pages - 3, device=dev,
+                                         dtype=torch.int32)   # past live
+    q = torch.randn((b, c, h, hd), generator=g, device=dev)
+    qpos = (torch.clamp(valid_len, min=c)[:, None] - c
+            + torch.arange(c, device=dev)[None, :]).to(torch.int32)
+    return q, cache, pool, bt, valid_len, qpos, hd
+
+
+@pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
+@pytest.mark.parametrize("c", [1, 16])
+def test_paged_attention_matches_plain_and_contiguous(hopper, kv_bits, c):
+    """K4 against the paged plain version (1e-4, as K3) and against K3 on
+    the same logical rows laid out contiguously: bit-equal.  The dead row is
+    exactly zero."""
+    q, cache, pool, bt, vl, qpos, hd = _paged_case(hopper, kv_bits, c,
+                                                   kv_bits + c)
+    got = ulppack_attention.attention_decode_paged_cuda(
+        q, pool, vl, qpos, bt, kv_bits=kv_bits, hd=hd)
+    want = ulppack_attention.attention_decode_torch(
+        q, pool, vl, qpos, kv_bits=kv_bits, hd=hd, block_k=64,
+        block_tables=bt)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    k3 = ulppack_attention.attention_decode_cuda(q, cache, vl, qpos,
+                                                 kv_bits=kv_bits, hd=hd)
+    assert torch.equal(got, k3)
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 7, 3), (5, 600, 130), (130, 600, 70),
+                                   (8, 4096, 4096), (64, 4096, 4096)])
+@pytest.mark.parametrize("da,dw", [(torch.int8, torch.int8),
+                                   (torch.int16, torch.int16),
+                                   (torch.int8, torch.int16)])
+def test_int_matmul_bit_equal(hopper, m, k, n, da, dw):
+    """K7 against its plain version, bit-equal, over the full operand
+    ranges (int16 sums wrap mod 2^32)."""
+    g = _gen(hopper, m + k + n)
+
+    def draw(shape, dt):
+        info = torch.iinfo(dt)
+        return torch.randint(info.min, info.max + 1, shape, generator=g,
+                             device=hopper, dtype=dt)
+
+    a, w = draw((m, k), da), draw((k, n), dw)
+    plan = plan_lib.plan_int_matmul(m, k, n, device=hopper)
+    assert plan.backend == "cuda"
+    got = ops.int_matmul(a, w, plan=plan)
+    assert torch.equal(got, ulppack_matmul.int_matmul_torch(a, w))

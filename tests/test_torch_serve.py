@@ -105,7 +105,7 @@ def test_packed_forward_logits_match(kv_bits):
     index = np.array([0, 5, 0], np.int32)
     valid = np.array([CHUNK, 3, 0], np.int32)
     jcache = jlm.init_caches(jcfg, b, MAX_LEN)
-    tcache = tlm.init_caches(tcfg, b, MAX_LEN)
+    tcache = tlm.init_caches(tcfg, b, MAX_LEN, device="cpu")
     dec_tok = rng.integers(0, tcfg.vocab_size, (b, 1)).astype(np.int32)
     index2 = index + valid
     valid2 = np.array([1, 1, 0], np.int32)
@@ -139,7 +139,7 @@ def test_steps_update_caches_in_place():
     _, tcfg = _cfgs(4)
     tp = tlm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
     tpk = tprepare.prepare_serving_params(tp, tcfg, device="cpu")
-    caches = tlm.init_caches(tcfg, 2, MAX_LEN)
+    caches = tlm.init_caches(tcfg, 2, MAX_LEN, device="cpu")
     ptrs = [t.data_ptr() for c in caches for t in c["attn"].values()]
     pre = tsteps.make_prefill_chunk_step(tcfg)
     dec = tsteps.make_decode_step(tcfg)
@@ -288,8 +288,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         tengine.ServingEngine(tcfg, tp)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bridge.from_repro({"w": np.zeros(2, np.float32)})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tengine.EngineConfig(paged=True)
+    for paged in ({}, {"page_size": 16, "num_pages": 4}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tlm.init_caches(tcfg, 2, MAX_LEN, **paged)
+        assert tlm.init_caches(tcfg, 2, MAX_LEN, device="cpu", **paged)[0][
+            "attn"]["k"].device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tengine.EngineConfig(speculative_k=1)
     with pytest.raises(NotImplementedError, match="item 13"):
         tengine.ServingEngine(tconfigs.get_config("mixtral-8x7b",
                                                   reduced=True), tp,
