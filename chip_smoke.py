@@ -12,8 +12,10 @@ toolkit:
    serving, holds each LM kernel against its plain PyTorch version on the
    card (quantize-pack and the packed matmul bit-equal; attention within
    1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
-   bf16 queries, with a dead row exactly zero; the paged attention (K4)
-   through a scrambled block table, also bit-equal to the contiguous
+   bf16 queries, with a dead row exactly zero and a second launch
+   bit-equal to the first, at stablelm-1.6b's heads and at granite-3-8b's
+   grouping (32 query heads on 8 kv heads of 128); the paged attention
+   (K4) through a scrambled block table, also bit-equal to the contiguous
    kernel (K3) on the same logical rows; the unpacked integer matmul (K7)
    bit-equal at s8 and s16); then the packed conv (K5) and the int16 conv
    (K6), bit-equal, at the paper's Fig. 4 shape and at the full-width
@@ -158,9 +160,7 @@ def copies_for(nbytes: int) -> int:
 def kernel_phase(torch, peaks, dev):
     from repro_torch.core import packing
     from repro_torch.core.packing import PackSpec
-    from repro_torch.kernels import quant_pack, ulppack_attention, \
-        ulppack_matmul
-    from repro_torch.models import attention
+    from repro_torch.kernels import quant_pack, ulppack_matmul
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -247,158 +247,182 @@ def kernel_phase(torch, peaks, dev):
             "bound_ms": b, "bound_by": by, "library_ms": lib,
             "geometry": geo})
 
-    # ---- K3 attention_decode ---------------------------------------------
-    bsz, s, h, kvh, hd = 4, 512, 32, 32, 64
+    rows += attention_rows(torch, peaks, dev, gen)
+    return rows
+
+
+# K3/K4's shapes: stablelm-1.6b's heads (32 of 64, one kv head each) at
+# every kv_bits, and granite-3-8b's grouping (32 query heads on 8 kv heads
+# of 128) at kv_bits 16 and 4; batch 4, a 512-row cache, C 1 and 16.
+ATTN_CASES = ((32, 32, 64, (16, 8, 4, 2)), (32, 8, 128, (16, 4)))
+
+
+def attention_rows(torch, peaks, dev, gen):
+    """K3 and K4 against their plain versions (f32 and bf16 queries), K4
+    bit-equal to K3 through a scrambled block table, the dead row zero, a
+    second launch bit-equal to the first; timed beside the plain version
+    and, at kv_bits 16, SDPA on the same rows."""
+    rows = []
+    bsz, s = 4, 512
     valid_len = torch.tensor([512, 300, 77, 0], dtype=torch.int32,
                              device=dev)
-    for kv_bits in (16, 8, 4, 2):
-        kf = torch.randn((bsz, s, kvh, hd), generator=gen,
-                         device=dev).to(torch.bfloat16)
-        vf = torch.randn((bsz, s, kvh, hd), generator=gen,
-                         device=dev).to(torch.bfloat16)
-        if kv_bits == 16:
-            cache = {"k": kf, "v": vf}
-            row_bytes = hd * 2
-        else:
-            qk, sk = attention.kv_quantize(kf, kv_bits)
-            qv, sv = attention.kv_quantize(vf, kv_bits)
-            cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
-            row_bytes = qk.shape[-1] * qk.element_size() + 2
-        cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
-        caches = [cache] + [{kk: t.clone() for kk, t in cache.items()}
-                            for _ in range(copies_for(cache_bytes) - 1)]
-        # K4: the same logical rows in a pool of 16-row pages behind a
-        # scrambled block table (a random permutation of the pages)
-        ps, n_pages = 16, s // 16
-        bt = torch.randperm(bsz * n_pages, generator=gen, device=dev) \
-            .reshape(bsz, n_pages).to(torch.int32)
-        pool = {}
-        for name, t in cache.items():
-            pool[name] = torch.empty((bsz * n_pages, ps, *t.shape[2:]),
-                                     dtype=t.dtype, device=dev)
-            pool[name][bt.long()] = t.reshape(bsz, n_pages, ps, *t.shape[2:])
-        pools = [pool] + [{kk: t.clone() for kk, t in pool.items()}
-                          for _ in range(copies_for(cache_bytes) - 1)]
-        for c in (1, 16):
-            q = torch.randn((bsz, c, h, hd), generator=gen,
-                            device=dev).to(torch.bfloat16)
-            qpos = (torch.clamp(valid_len, min=c)[:, None] - c
-                    + torch.arange(c, device=dev)[None, :]).to(torch.int32)
-            err = {}
-            for qq in (q.float(), q):          # f32 queries, then the path's
-                got = ulppack_attention.attention_decode_cuda(
-                    qq, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd)
-                want = ulppack_attention.attention_decode_torch(
-                    qq, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd,
-                    block_k=512).float()
-                diff = (got.float() - want).abs()
-                rtol = ATTN_TOL if qq.dtype == torch.float32 \
-                    else ATTN_BF16_RTOL
-                if not (torch.isfinite(got).all() and
-                        (diff <= ATTN_TOL + rtol * want.abs()).all()):
-                    raise AssertionError(
-                        f"attention kv{kv_bits} C={c} {qq.dtype}: max abs err "
-                        f"{float(diff.max())} beyond {ATTN_TOL} + {rtol}|want|")
-                if got[3].any():
-                    raise AssertionError("attention: dead row is not zero")
-                err[qq.dtype] = float(diff.max())
-            lib = None
-            if kv_bits == 16:
-                qs = q.transpose(1, 2).contiguous()
-                ks, vs = (t.transpose(1, 2).contiguous() for t in (kf, vf))
-                pos = torch.arange(s, device=dev)
-                mask = ((pos[None, None, :] < valid_len[:, None, None])
-                        & (pos[None, None, :] <= qpos[:, :, None]))[:, None]
-                sdpa = torch.nn.functional.scaled_dot_product_attention
-                lib = time_ms(torch, [lambda: sdpa(qs, ks, vs,
-                                                   attn_mask=mask)] * 10)
-            # bytes: each live cache row once; operations: QK and PV over
-            # the rows each query row really sees (causal within the window)
-            live_rows = torch.minimum(valid_len, qpos.max(dim=1).values + 1
-                                      ).clamp(min=0)
-            live = int(live_rows.sum())
-            seen = torch.minimum(valid_len[:, None], qpos + 1)
-            seen = int(seen.clamp(min=0).sum())
-            nbytes = 2 * live * kvh * row_bytes + 2 * q.numel() * 2
-            # the card's floor: QK and PV on the bf16 tensor cores (the
-            # lattices, and q pre-scaled by hd^-0.5 = 1/8, are exact in
-            # bf16); the design bound: this kernel's CUDA-core f32 MACs
-            ops = 4 * h * hd * seen
-            b, by = bound_ms(nbytes, ops, peaks["hbm"], peaks["bf16"])
-            design = bound_ms(nbytes, ops, peaks["hbm"], peaks["f32"])
-            rows.append({
-                "name": "attention_decode",
-                "shape": f"B{bsz} S{s} H{h} hd{hd} C{c} kv{kv_bits}",
-                "max_abs_err": err[torch.bfloat16],
-                "max_abs_err_f32_q": err[torch.float32],
-                "design_bound_ms": design[0],
-                "ms": time_ms(torch, [lambda cc=cc: ulppack_attention
-                                      .attention_decode_cuda(
-                                          q, cc, valid_len, qpos,
-                                          kv_bits=kv_bits, hd=hd)
-                                      for cc in caches]),
-                "plain_ms": time_ms(torch, [lambda: ulppack_attention
-                                            .attention_decode_torch(
-                                                q, cache, valid_len, qpos,
-                                                kv_bits=kv_bits, hd=hd,
-                                                block_k=512)], 3),
-                "bound_ms": b, "bound_by": by, "library_ms": lib})
+    for h, kvh, hd, bits_list in ATTN_CASES:
+        for kv_bits in bits_list:
+            rows += attention_case(torch, peaks, dev, gen, bsz, s, h, kvh,
+                                   hd, kv_bits, valid_len)
+    return rows
 
-            # ---- K4 attention_decode_paged: the same rows through the
-            # table; within ATTN_TOL of its plain version, bit-equal to K3
-            err = {}
-            for qq in (q.float(), q):
-                got = ulppack_attention.attention_decode_paged_cuda(
-                    qq, pool, valid_len, qpos, bt, kv_bits=kv_bits, hd=hd)
-                want = ulppack_attention.attention_decode_torch(
-                    qq, pool, valid_len, qpos, kv_bits=kv_bits, hd=hd,
-                    block_k=512, block_tables=bt).float()
-                k3 = ulppack_attention.attention_decode_cuda(
-                    qq, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd)
-                diff = (got.float() - want).abs()
-                rtol = ATTN_TOL if qq.dtype == torch.float32 \
-                    else ATTN_BF16_RTOL
-                if not (torch.isfinite(got).all() and
-                        (diff <= ATTN_TOL + rtol * want.abs()).all()):
-                    raise AssertionError(
-                        f"paged attention kv{kv_bits} C={c} {qq.dtype}: max "
-                        f"abs err {float(diff.max())} beyond {ATTN_TOL} + "
-                        f"{rtol}|want|")
-                if not torch.equal(got, k3):
-                    raise AssertionError(f"paged attention kv{kv_bits} C={c} "
-                                         f"{qq.dtype}: not bit-equal to K3")
-                if got[3].any():
-                    raise AssertionError("paged attention: dead row is not "
-                                         "zero")
-                err[qq.dtype] = float(diff.max())
-            live_pages = int((-(-live_rows // ps)).sum())
-            b4, by4 = bound_ms(nbytes + 4 * live_pages, ops, peaks["hbm"],
-                               peaks["bf16"])
-            design4 = bound_ms(nbytes + 4 * live_pages, ops, peaks["hbm"],
-                               peaks["f32"])
-            rows.append({
-                "name": "attention_decode_paged",
-                "shape": f"B{bsz} {n_pages}x{ps} pages H{h} hd{hd} C{c} "
-                         f"kv{kv_bits}",
-                "max_abs_err": err[torch.bfloat16],
-                "max_abs_err_f32_q": err[torch.float32],
-                "bit_equal_to_contiguous": True,
-                "design_bound_ms": design4[0],
-                "ms": time_ms(torch, [lambda pp=pp: ulppack_attention
-                                      .attention_decode_paged_cuda(
-                                          q, pp, valid_len, qpos, bt,
-                                          kv_bits=kv_bits, hd=hd)
-                                      for pp in pools]),
-                "plain_ms": time_ms(torch, [lambda: ulppack_attention
-                                            .attention_decode_torch(
-                                                q, pool, valid_len, qpos,
-                                                kv_bits=kv_bits, hd=hd,
-                                                block_k=512,
-                                                block_tables=bt)], 3),
-                "bound_ms": b4, "bound_by": by4, "library_ms": None,
-                "library": "none: no single PyTorch call reads a paged "
-                           "sub-byte cache"})
-        del pools, caches
+
+def check_attention(torch, name, got, want, qq, again):
+    """Within ATTN_TOL (f32 q) or ATTN_TOL + one bf16 ulp (bf16 q) of the
+    plain version, finite, the dead row zero, a second launch bit-equal;
+    returns the max abs error."""
+    diff = (got.float() - want).abs()
+    rtol = ATTN_TOL if qq.dtype == torch.float32 else ATTN_BF16_RTOL
+    if not (torch.isfinite(got).all() and
+            (diff <= ATTN_TOL + rtol * want.abs()).all()):
+        raise AssertionError(f"{name} {qq.dtype}: max abs err "
+                             f"{float(diff.max())} beyond {ATTN_TOL} + "
+                             f"{rtol}|want|")
+    if got[3].any():
+        raise AssertionError(f"{name}: dead row is not zero")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} {qq.dtype}: two launches differ")
+    return float(diff.max())
+
+
+def attention_case(torch, peaks, dev, gen, bsz, s, h, kvh, hd, kv_bits,
+                   valid_len):
+    from repro_torch.kernels import plan as plan_lib
+    from repro_torch.kernels import ulppack_attention as ua
+    from repro_torch.models import attention
+
+    kf = torch.randn((bsz, s, kvh, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    vf = torch.randn((bsz, s, kvh, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    if kv_bits == 16:
+        cache = {"k": kf, "v": vf}
+        row_bytes = hd * 2
+    else:
+        qk, sk = attention.kv_quantize(kf, kv_bits)
+        qv, sv = attention.kv_quantize(vf, kv_bits)
+        cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+        row_bytes = qk.shape[-1] * qk.element_size() + 2
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    caches = [cache] + [{kk: t.clone() for kk, t in cache.items()}
+                        for _ in range(copies_for(cache_bytes) - 1)]
+    # K4: the same logical rows in a pool of 16-row pages behind a
+    # scrambled block table (a random permutation of the pages)
+    ps, n_pages = 16, s // 16
+    bt = torch.randperm(bsz * n_pages, generator=gen, device=dev) \
+        .reshape(bsz, n_pages).to(torch.int32)
+    pool = {}
+    for name, t in cache.items():
+        pool[name] = torch.empty((bsz * n_pages, ps, *t.shape[2:]),
+                                 dtype=t.dtype, device=dev)
+        pool[name][bt.long()] = t.reshape(bsz, n_pages, ps, *t.shape[2:])
+    pools = [pool] + [{kk: t.clone() for kk, t in pool.items()}
+                      for _ in range(copies_for(cache_bytes) - 1)]
+    heads = f"H{h}" if kvh == h else f"H{h} KVH{kvh}"
+    rows = []
+    for c in (1, 16):
+        q = torch.randn((bsz, c, h, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        qpos = (torch.clamp(valid_len, min=c)[:, None] - c
+                + torch.arange(c, device=dev)[None, :]).to(torch.int32)
+        plan = plan_lib.plan_attention_decode(
+            bsz, c, s, h, kvh, hd, kv_bits, cache_dtype=cache["k"].dtype,
+            device=dev)
+        geo = {f: getattr(plan, f) for f in (
+            "block_m", "splits", "split_rows", "tile_rows", "smem_bytes")}
+        err, err4 = {}, {}
+        for qq in (q.float(), q):          # f32 queries, then the path's
+            got = ua.attention_decode_cuda(qq, cache, valid_len, qpos,
+                                           kv_bits=kv_bits, hd=hd)
+            want = ua.attention_decode_torch(
+                qq, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd,
+                block_k=512).float()
+            err[qq.dtype] = check_attention(
+                torch, f"attention kv{kv_bits} {heads} C={c}", got, want,
+                qq, ua.attention_decode_cuda(qq, cache, valid_len, qpos,
+                                             kv_bits=kv_bits, hd=hd))
+            # K4 through the table: within tolerance of its plain version,
+            # bit-equal to K3
+            got4 = ua.attention_decode_paged_cuda(
+                qq, pool, valid_len, qpos, bt, kv_bits=kv_bits, hd=hd)
+            want4 = ua.attention_decode_torch(
+                qq, pool, valid_len, qpos, kv_bits=kv_bits, hd=hd,
+                block_k=512, block_tables=bt).float()
+            err4[qq.dtype] = check_attention(
+                torch, f"paged attention kv{kv_bits} {heads} C={c}", got4,
+                want4, qq, ua.attention_decode_paged_cuda(
+                    qq, pool, valid_len, qpos, bt, kv_bits=kv_bits, hd=hd))
+            if not torch.equal(got4, got):
+                raise AssertionError(f"paged attention kv{kv_bits} {heads} "
+                                     f"C={c} {qq.dtype}: not bit-equal to K3")
+        lib = None
+        if kv_bits == 16:
+            qs = q.transpose(1, 2).contiguous()
+            ks, vs = (t.transpose(1, 2).contiguous() for t in (kf, vf))
+            pos = torch.arange(s, device=dev)
+            mask = ((pos[None, None, :] < valid_len[:, None, None])
+                    & (pos[None, None, :] <= qpos[:, :, None]))[:, None]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = time_ms(torch, [lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                                               enable_gqa=kvh != h)] * 10)
+        # bytes: each live cache row once, q read and the output written
+        # (bf16); operations: QK and PV over the rows each query row really
+        # sees (causal within the window)
+        live_rows = torch.minimum(valid_len, qpos.max(dim=1).values + 1
+                                  ).clamp(min=0)
+        live = int(live_rows.sum())
+        seen = torch.minimum(valid_len[:, None], qpos + 1)
+        seen = int(seen.clamp(min=0).sum())
+        nbytes = 2 * live * kvh * row_bytes + 2 * q.numel() * 2
+        # the card's floor: QK and PV on the bf16 tensor cores (the
+        # lattices, and q pre-scaled by hd^-0.5, are exact in bf16 at
+        # hd 64); the design bound: this kernel's CUDA-core f32 MACs
+        ops = 4 * h * hd * seen
+        b, by = bound_ms(nbytes, ops, peaks["hbm"], peaks["bf16"])
+        design = bound_ms(nbytes, ops, peaks["hbm"], peaks["f32"])
+        rows.append({
+            "name": "attention_decode",
+            "shape": f"B{bsz} S{s} {heads} hd{hd} C{c} kv{kv_bits}",
+            "max_abs_err": err[torch.bfloat16],
+            "max_abs_err_f32_q": err[torch.float32],
+            "design_bound_ms": design[0], "geometry": geo,
+            "ms": time_ms(torch, [lambda cc=cc: ua.attention_decode_cuda(
+                q, cc, valid_len, qpos, kv_bits=kv_bits, hd=hd)
+                for cc in caches]),
+            "plain_ms": time_ms(torch, [lambda: ua.attention_decode_torch(
+                q, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd,
+                block_k=512)], 3),
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "library": "SDPA (bool mask, same rows)" if kv_bits == 16 else
+                       "none: no single PyTorch call reads a sub-byte cache"})
+        live_pages = int((-(-live_rows // ps)).sum())
+        b4, by4 = bound_ms(nbytes + 4 * live_pages, ops, peaks["hbm"],
+                           peaks["bf16"])
+        design4 = bound_ms(nbytes + 4 * live_pages, ops, peaks["hbm"],
+                           peaks["f32"])
+        rows.append({
+            "name": "attention_decode_paged",
+            "shape": f"B{bsz} {n_pages}x{ps} pages {heads} hd{hd} C{c} "
+                     f"kv{kv_bits}",
+            "max_abs_err": err4[torch.bfloat16],
+            "max_abs_err_f32_q": err4[torch.float32],
+            "bit_equal_to_contiguous": True,
+            "design_bound_ms": design4[0],
+            "ms": time_ms(torch, [lambda pp=pp: ua.attention_decode_paged_cuda(
+                q, pp, valid_len, qpos, bt, kv_bits=kv_bits, hd=hd)
+                for pp in pools]),
+            "plain_ms": time_ms(torch, [lambda: ua.attention_decode_torch(
+                q, pool, valid_len, qpos, kv_bits=kv_bits, hd=hd,
+                block_k=512, block_tables=bt)], 3),
+            "bound_ms": b4, "bound_by": by4, "library_ms": None,
+            "library": "none: no single PyTorch call reads a paged cache"})
+    del pools, caches
     return rows
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -55,6 +56,24 @@ CONV_SMEM_MAX = 227 * 1024
 #: Shared memory the conv planner aims to stay under (two blocks per SM).
 _CONV_SMEM_TARGET = 100 * 1024
 
+#: The attention kernel of csrc/attention_decode.cu (kThreads, kMaxSplits,
+#: kMaxQRows, kMaxTile and kSmemMax there; its launcher refuses a plan that
+#: breaks them or whose shared memory differs from its own layout): threads
+#: per block, splits per (b, kv head) at most (the portable cluster size),
+#: query rows per block at most, cache rows per staged tile at most, and
+#: the shared memory a block may use.
+ATTN_THREADS = 256
+ATTN_WARPS = ATTN_THREADS // 32
+ATTN_MAX_SPLITS = 8
+ATTN_MAX_QROWS = 64
+ATTN_MAX_TILE = 128
+ATTN_SMEM_MAX = 232448
+#: The shared memory of a Hopper SM and the attention blocks an SM holds
+#: at most (the kernel's registers allow three).  The planner splits the
+#: cache until every (b, kv head) pair's splits fill one wave of blocks.
+_SM_SMEM = 233472
+_ATTN_BLOCKS_PER_SM = 3
+
 
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
@@ -67,7 +86,12 @@ class KernelPlan:
                          splits / block_k (K split count and K per split)
       quantize_pack    : threads
       attention_decode : block_k (KV rows per online-softmax group of the
-                         plain version; whole pages when paged)
+                         plain version; whole pages when paged); the
+                         kernel's block_m (query rows per block), splits /
+                         split_rows (splits per (b, kv head) and logical
+                         rows per split; whole pages when paged),
+                         tile_rows (cache rows per staged tile), threads,
+                         smem_bytes (per block)
       packed_conv2d /  : block_h (output rows per block), block_co (output
       int_conv2d         channels per block), block_c (channels or lanes
                          staged per pass), threads, smem_bytes (per block);
@@ -88,6 +112,8 @@ class KernelPlan:
     block_co: int | None = None
     block_c: int | None = None
     smem_bytes: int | None = None
+    split_rows: int | None = None
+    tile_rows: int | None = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -98,7 +124,8 @@ class KernelPlan:
         row = {"op": self.op, "backend": self.backend,
                "spec": str(self.spec) if self.spec else None}
         for f in ("block_m", "block_k", "splits", "threads", "weight_store",
-                  "k_full", "block_h", "block_co", "block_c", "smem_bytes"):
+                  "k_full", "block_h", "block_co", "block_c", "smem_bytes",
+                  "split_rows", "tile_rows"):
             if getattr(self, f) is not None:
                 row[f] = getattr(self, f)
         return row
@@ -261,35 +288,161 @@ def _plan_int_matmul(m, k, n, backend, device_key) -> KernelPlan:
                       block_k=per * INT_MATMUL_BK, splits=-(-steps // per))
 
 
+def attention_row_bytes(hd: int, kv_bits: int, cache_dtype=None) -> int:
+    """Bytes of one stored cache row (one position, one kv head): int32
+    words at 4/2 bits, int8 at 8, else the float cache's dtype (bf16 at
+    kv_bits 16 and f32 at 0 unless ``cache_dtype`` says otherwise)."""
+    if kv_bits in (4, 2):
+        return 4 * -(-hd // (32 // kv_bits))
+    if kv_bits == 8:
+        return hd
+    if cache_dtype is None:
+        cache_dtype = torch.bfloat16 if kv_bits == 16 else torch.float32
+    return hd * cache_dtype.itemsize
+
+
+def attention_warp_path(qrows: int, hd: int) -> bool:
+    """Whether the kernel takes its warp path (``warp_variant`` in
+    csrc/attention_decode.cu): up to 4 query rows a block (decode, and
+    GQA groups of up to 4), each warp keeping its own carry for them in
+    registers.  Wider blocks take the tile path."""
+    return qrows <= 4
+
+
+def attention_smem_bytes(qrows: int, tile: int, hd: int, row_bytes: int,
+                         table_len: int, split_rows: int) -> int:
+    """Shared memory of one attention block: the layout of ``smem_layout``
+    in csrc/attention_decode.cu, region by region, each rounded up to 16
+    bytes.  Query rows are padded to a multiple of 4 and dims to a
+    multiple of 8, and f32 rows of q, K and V are strided by the padded
+    dims + 4: scaled q and the block's carry, the unpacked K and V tiles
+    and the scores [rows, tile] (tile path), the staging buffers of K and
+    V rows (one when a split is one tile, else two), the per-row scales
+    (tile path), seven per-query-row words, the merge weights
+    [ATTN_MAX_SPLITS + 1, rows], ``table_len`` words (paged: the split's
+    block-table entries and its rows' cells), and each warp's carry and,
+    at cluster rank 0, every split's carry (warp path)."""
+    def a16(n):
+        return -(-n // 16) * 16
+    q4 = -(-qrows // 4) * 4
+    hdp = -(-hd // 8) * 8
+    ld = hdp + 4
+    warp = attention_warp_path(qrows, hd)
+    tl = 0 if warp else tile
+    wq = q4 if warp else 0
+    parts = (4 * q4 * ld, 4 * q4 * hdp, 4 * tl * ld, 4 * tl * ld,
+             4 * q4 * tl,
+             2 * (2 if split_rows > tile else 1) * tile * a16(row_bytes),
+             4 * tl, 4 * tl,
+             28 * q4, 4 * (ATTN_MAX_SPLITS + 1) * q4, 4 * table_len,
+             4 * 2 * ATTN_WARPS * wq, 4 * ATTN_WARPS * wq * hdp,
+             4 * ATTN_MAX_SPLITS * wq * (hdp + 2))
+    return sum(a16(n) for n in parts)
+
+
 def plan_attention_decode(b: int, c: int, skv: int, h: int, kvh: int,
                           hd: int, kv_bits: int, *,
-                          page_size: int | None = None,
+                          page_size: int | None = None, cache_dtype=None,
                           backend: str = "auto", device="cpu") -> KernelPlan:
     """Plan the flash-decoding read (K3; K4 when ``page_size`` is set).
 
     ``skv`` is the logical view length (slot extent, or pages x page_size
-    for a paged cache).  ``block_k`` is the plain version's group: at most
-    512 rows, and whole pages when paged (the reference's ``chunks``
-    pages per group is ``block_k // page_size``).  The kernels walk every
-    live row in one block per query row and take no tile from the plan."""
+    for a paged cache); ``cache_dtype`` the float cache's dtype (kv_bits
+    0/16; defaults as :func:`attention_row_bytes`).  ``block_k`` is the
+    plain version's group: at most 512 rows, and whole pages when paged
+    (the reference's ``chunks`` pages per group is ``block_k //
+    page_size``).
+
+    The kernel's geometry: a block serves ``block_m`` query rows (every
+    one of a kv head's G x C rows, up to 64) over one split of
+    ``split_rows`` positions, staged ``tile_rows`` at a time: 32 to 128
+    rows so that three blocks fit an SM (warp path, up to 4 query rows;
+    32 where none does), or 64 to 128 for two (tile path; the largest
+    that fits where none does); a split that is one tile is staged in a
+    single buffer.  Splits
+    (at most 8: one thread-block cluster per (b, kv head, chunk)) grow
+    until the blocks fill one wave of the card, each a whole number of
+    tiles -- and of pages when paged, so K3 and K4 split the same rows
+    alike.  The launcher refuses a plan that disagrees with the kernel."""
     return _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
-                                  resolve_backend(backend, device))
+                                  cache_dtype,
+                                  resolve_backend(backend, device),
+                                  _device_key(device))
 
 
 @functools.lru_cache(maxsize=None)
 def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
-                           backend) -> KernelPlan:
+                           cache_dtype, backend, device_key) -> KernelPlan:
     if h % kvh:
         raise ValueError(f"num_heads {h} is not a multiple of kv heads {kvh}")
     if hd > 256:
         raise ValueError(f"head_dim {hd} > 256 is not supported by the "
-                         f"attention kernel (8 dims per lane at most)")
+                         f"attention kernel")
     if page_size:
         pages = max(1, min(512 // page_size, -(-skv // page_size)))
-        return KernelPlan(op="attention_decode", backend=backend,
-                          block_k=pages * page_size)
+        block_k = pages * page_size
+    else:
+        block_k = min(512, max(1, skv))
+    nq = c * (h // kvh)
+    qrows = max(1, min(nq, ATTN_MAX_QROWS))
+    row_bytes = attention_row_bytes(hd, kv_bits, cache_dtype)
+
+    def smem(tile, split_rows, table_len=0):
+        return attention_smem_bytes(qrows, tile, hd, row_bytes, table_len,
+                                    split_rows)
+
+    def geometry(tile, split_rows):
+        # splits of whole tiles (and pages) until one wave of the blocks
+        # the card holds at once -- shared memory (1 KB a block reserved)
+        # or the kernel's registers (at most three a SM) permitting
+        span = math.lcm(tile, page_size or 1)
+        rows = max(1, skv)
+        pairs = b * kvh * -(-nq // qrows)
+        per_sm = max(1, min(_ATTN_BLOCKS_PER_SM,
+                            _SM_SMEM // (smem(tile, split_rows) + 1024)))
+        splits = max(1, min(ATTN_MAX_SPLITS, -(-rows // span),
+                            -(-per_sm * _sm_count(device_key)
+                              // max(1, pairs))))
+        split_rows = -(-(-(-rows // splits)) // span) * span
+        return -(-rows // split_rows), split_rows
+
+    # the warp path takes 32-, 64- or 128-row tiles (4, 8 or 16 rows a
+    # warp) and aims for three blocks a SM; the tile path takes 64 rows at
+    # least where it can, aiming for two, and a smaller tile only where
+    # nothing larger fits at all.  First choice: the largest tile that is
+    # a whole split on its own, staged once; else the largest that fits,
+    # double-buffered.
+    warp = attention_warp_path(qrows, hd)
+    target = ATTN_SMEM_MAX // (3 if warp else 2)
+    tiles = (128, 64, 32) if warp else (128, 64, 32, 16, 8, 4)
+    soft = tiles if warp else tiles[:2]
+    choice = None
+    for tile in soft:
+        if smem(tile, tile) <= target:
+            splits, split_rows = geometry(tile, tile)
+            if split_rows == tile:
+                choice = tile, splits, split_rows
+                break
+    if choice is None:
+        # past the target: the warp path takes its smallest tile, the tile
+        # path the largest that fits
+        tile = next((t for t in soft if smem(t, 2 * t) <= target),
+                    tiles[-1] if warp else
+                    next((t for t in tiles
+                          if smem(t, 2 * t) <= ATTN_SMEM_MAX), tiles[-1]))
+        choice = tile, *geometry(tile, 2 * tile)
+    tile, splits, split_rows = choice
+    # paged: the split's table entries and one cell per row
+    table_len = split_rows // page_size + split_rows if page_size else 0
+    if smem(tile, split_rows, table_len) > ATTN_SMEM_MAX:
+        raise ValueError(f"attention at hd {hd} with {qrows} query rows per "
+                         f"block does not fit the kernel's shared memory "
+                         f"({smem(tile, split_rows, table_len)} bytes)")
     return KernelPlan(op="attention_decode", backend=backend,
-                      block_k=min(512, max(1, skv)))
+                      block_k=block_k, block_m=qrows, splits=splits,
+                      split_rows=split_rows, tile_rows=tile,
+                      threads=ATTN_THREADS,
+                      smem_bytes=smem(tile, split_rows, table_len))
 
 
 def _conv_out(h: int, w: int, fh: int, fw: int, padding: str):

@@ -7,15 +7,18 @@ pallas_call at :395) and its paged branch (K4, pallas_call at :367, which
 walks a pool [P, page_size, KVH, ...] through the scalar-prefetched block
 table ``bt[i, j]`` clipped to [0, P-1]).  The hand-written kernels are
 ``csrc/attention_decode.cu`` (one kernel, templated on the cache layout;
-two launchers); unlike the Pallas kernel (one query token only) they take
+two launchers; one launch per call, with the q scaling, Σq and the output
+cast inside); unlike the Pallas kernel (one query token only) they take
 query windows of any width C >= 1, so decode steps and chunked-prefill
-windows both run through them.  The source note says what bounds them
+windows both run through them.  Their geometry (query rows per block,
+splits, rows per split and per staged tile, shared memory) comes from
+``plan.plan_attention_decode``.  The source note says what bounds them
 and how they are laid out.
 
 The computation, for q [B, C, H, hd] and a contiguous cache [B, S, KVH, ...]:
   * float caches (kv_bits 0/16) are read directly; int8 caches are
     symmetric with per-(pos, kv-head) bf16 scales; 4/2-bit caches are
-    int32 words unpacked in registers with the midpoint zero-point folded
+    int32 words unpacked with the midpoint zero-point folded
     into the contraction: ``s = scale_k * (q.u - zp * sum(q))`` and values
     ``(p * scale_v) . u - zp * sum(p * scale_v)``;
   * q is pre-scaled by hd^-0.5 in f32 and Σq taken from the scaled q;
@@ -195,9 +198,14 @@ def _cache_kind(cache, kv_bits: int) -> int:
     raise TypeError(f"cache dtype {k.dtype} does not match kv_bits {kv_bits}")
 
 
+#: q's dtype -> the kernel's q / output type code (csrc/attention_decode.cu).
+_QTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def _launch_args(q, cache, valid_len, qpos, kv_bits, tensors):
-    """Checks shared by both launchers; returns the prepared operands
-    (pre-scaled q, Σq, scale planes or None, the cache kind, the output)."""
+    """Checks shared by both launchers; returns the scale planes (or None),
+    the cache kind, q's type code and the output (q's dtype).  q is read
+    as it is: the kernel scales it, sums it and casts its output itself."""
     b, c, h, hd = q.shape
     k, v = cache["k"], cache["v"]
     kind = _cache_kind(cache, kv_bits)
@@ -207,6 +215,8 @@ def _launch_args(q, cache, valid_len, qpos, kv_bits, tensors):
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("the attention kernels need every operand on the "
                          "query's CUDA device")
+    if q.dtype not in _QTYPES:
+        raise TypeError(f"q must be f32, bf16 or f16, got {q.dtype}")
     if any(not t.is_contiguous() for t in (k, v)):
         raise ValueError("the KV cache must be contiguous")
     if v.shape != k.shape:
@@ -217,48 +227,60 @@ def _launch_args(q, cache, valid_len, qpos, kv_bits, tensors):
         raise ValueError(f"valid_len {tuple(valid_len.shape)} / qpos "
                          f"{tuple(qpos.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    qg, qsum = _prep_q(q, k.shape[2])
     scales = ((cache["k_scale"].contiguous(), cache["v_scale"].contiguous())
               if kind >= 2 else (None, None))
-    out = torch.empty((b, c, h, hd), dtype=torch.float32, device=q.device)
-    return qg.contiguous(), qsum.contiguous(), scales, kind, out
+    out = torch.empty((b, c, h, hd), dtype=q.dtype, device=q.device)
+    return scales, kind, _QTYPES[q.dtype], out
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _geometry(plan):
+    """The kernel's launch geometry from a plan (the C launcher refuses a
+    geometry that breaks its constraints or its shared-memory layout)."""
+    return (plan.block_m, plan.split_rows, plan.splits, plan.tile_rows,
+            plan.threads, plan.smem_bytes)
+
+
 def attention_decode_cuda(q, cache, valid_len, qpos, *, kv_bits: int,
-                          hd: int):
-    """Launch K3 over a contiguous cache [B, S, KVH, ...] on the card."""
+                          hd: int, plan=None):
+    """Launch K3 over a contiguous cache [B, S, KVH, ...] on the card, with
+    the geometry of ``plan`` (``plan_attention_decode`` for these shapes
+    when None)."""
     b, c, h, _ = q.shape
     k, v = cache["k"], cache["v"]
     kvh, skv = k.shape[2], k.shape[1]
     if k.shape[:3] != (b, skv, kvh):
         raise ValueError(f"cache shape {tuple(k.shape)} does not match "
                          f"q {tuple(q.shape)}")
-    qg, qsum, (ks, vs), kind, out = _launch_args(q, cache, valid_len, qpos,
-                                                 kv_bits, [])
+    (ks, vs), kind, qtype, out = _launch_args(q, cache, valid_len, qpos,
+                                              kv_bits, [])
+    q = q.contiguous()
+    if plan is None:
+        plan = plan_lib.plan_attention_decode(
+            b, c, skv, h, kvh, hd, kv_bits, cache_dtype=k.dtype,
+            backend="cuda", device=q.device)
     if b * c * h:
         fn = _launch.get("attention_decode")
         if fn is None:
             fn = _launch["attention_decode"] = build.bind(
-                "attention_decode", "attention_decode_launch", 9, 9)
-        fn(qg.data_ptr(), qsum.data_ptr(), k.data_ptr(), v.data_ptr(),
-           _ptr(ks), _ptr(vs), valid_len.contiguous().data_ptr(),
-           qpos.contiguous().data_ptr(), out.data_ptr(),
-           b, c, h, kvh, skv, hd, k.shape[-1], kind, kv_bits,
-           q.device.index or 0,
+                "attention_decode", "attention_decode_launch", 8, 16)
+        fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
+           valid_len.contiguous().data_ptr(), qpos.contiguous().data_ptr(),
+           out.data_ptr(), b, c, h, kvh, skv, hd, k.shape[-1], kind,
+           kv_bits, qtype, *_geometry(plan), q.device.index or 0,
            torch.cuda.current_stream(q.device).cuda_stream)
         kernel_launches["attention_decode"] += 1
-    return out.to(q.dtype)
+    return out
 
 
 def attention_decode_paged_cuda(q, cache, valid_len, qpos, block_tables, *,
-                                kv_bits: int, hd: int):
+                                kv_bits: int, hd: int, plan=None):
     """Launch K4 over a page pool [P, page_size, KVH, ...] through
-    ``block_tables`` [B, NP] int32 on the card: the same kernel as K3 with
-    each position's cache row looked up through the table."""
+    ``block_tables`` [B, NP] int32 on the card: K3's kernel, staging each
+    split's rows through its table entries."""
     b, c, h, _ = q.shape
     k, v = cache["k"], cache["v"]
     num_pages, ps, kvh = k.shape[:3]
@@ -266,23 +288,28 @@ def attention_decode_paged_cuda(q, cache, valid_len, qpos, block_tables, *,
             or block_tables.shape[0] != b:
         raise ValueError(f"block_tables must be int32 [B={b}, NP], got "
                          f"{block_tables.dtype} {tuple(block_tables.shape)}")
-    qg, qsum, (ks, vs), kind, out = _launch_args(q, cache, valid_len, qpos,
-                                                 kv_bits, [block_tables])
+    (ks, vs), kind, qtype, out = _launch_args(q, cache, valid_len, qpos,
+                                              kv_bits, [block_tables])
+    q = q.contiguous()
     bt = block_tables.contiguous()
     n_pages = bt.shape[1]
+    if plan is None:
+        plan = plan_lib.plan_attention_decode(
+            b, c, n_pages * ps, h, kvh, hd, kv_bits, page_size=ps,
+            cache_dtype=k.dtype, backend="cuda", device=q.device)
     if b * c * h:
         fn = _launch.get("attention_decode_paged")
         if fn is None:
             fn = _launch["attention_decode_paged"] = build.bind(
-                "attention_decode", "attention_decode_paged_launch", 10, 11)
-        fn(qg.data_ptr(), qsum.data_ptr(), k.data_ptr(), v.data_ptr(),
-           _ptr(ks), _ptr(vs), valid_len.contiguous().data_ptr(),
-           qpos.contiguous().data_ptr(), bt.data_ptr(), out.data_ptr(),
-           b, c, h, kvh, n_pages, ps, num_pages, hd, k.shape[-1], kind,
-           kv_bits, q.device.index or 0,
+                "attention_decode", "attention_decode_paged_launch", 9, 18)
+        fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
+           valid_len.contiguous().data_ptr(), qpos.contiguous().data_ptr(),
+           bt.data_ptr(), out.data_ptr(), b, c, h, kvh, n_pages, ps,
+           num_pages, hd, k.shape[-1], kind, kv_bits, qtype,
+           *_geometry(plan), q.device.index or 0,
            torch.cuda.current_stream(q.device).cuda_stream)
         kernel_launches["attention_decode_paged"] += 1
-    return out.to(q.dtype)
+    return out
 
 
 @plan_lib.register_backend("attention_decode", "torch")
@@ -299,9 +326,9 @@ def _attention_decode_cuda(plan, q, cache, valid_len, qpos, *, kv_bits, hd,
     if block_tables is not None:
         return attention_decode_paged_cuda(q, cache, valid_len, qpos,
                                            block_tables, kv_bits=kv_bits,
-                                           hd=hd)
+                                           hd=hd, plan=plan)
     return attention_decode_cuda(q, cache, valid_len, qpos, kv_bits=kv_bits,
-                                 hd=hd)
+                                 hd=hd, plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +356,8 @@ def fused_decode_attention(q, cache, valid_len, qpos, *, kv_bits: int,
                if block_tables is not None else cache["k"].shape[1])
         plan = plan_lib.plan_attention_decode(
             b, c, skv, h, cache["k"].shape[2], hd, kv_bits,
-            page_size=page_size, backend=backend, device=dev)
+            page_size=page_size, cache_dtype=cache["k"].dtype,
+            backend=backend, device=dev)
     return plan_lib.dispatch(
         plan, q, cache, torch.as_tensor(valid_len, dtype=torch.int32,
                                         device=dev),

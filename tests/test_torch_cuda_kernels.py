@@ -65,15 +65,27 @@ def test_ulppack_matmul_bit_equal(hopper, m, kp, n, spec):
     assert torch.equal(got, ulppack_matmul.ulppack_matmul_torch(a, w, sp))
 
 
-@pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
-@pytest.mark.parametrize("c", [1, 16])
-def test_attention_decode_matches_plain(hopper, kv_bits, c):
-    """f32 queries: kernel and plain version differ only in summation
-    order, so they agree to 1e-4; the dead row is exactly zero."""
-    b, s, h, kvh, hd = 3, 200, 8, 4, 64
-    g = _gen(hopper, kv_bits)
-    k = torch.randn((b, s, kvh, hd), generator=g, device=hopper)
-    v = torch.randn((b, s, kvh, hd), generator=g, device=hopper)
+# (B, pages of 16 rows, H, KVH, hd, valid_len): the small case, granite-3-8b's
+# grouping (32 query heads on 8 kv heads of 128), and a long cache (several
+# splits) whose live lengths are multiples neither of the plan's rows per
+# split nor of a page.  Row 2 is dead.  The contiguous test cuts the small
+# cache to S = 200 rows, no whole number of tiles.
+ATTN_SHAPES = {"small": (3, 13, 8, 4, 64, (200, 37, 0)),
+               "gqa": (3, 32, 32, 8, 128, (512, 301, 0)),
+               "long": (3, 256, 8, 4, 64, (4001, 1234, 0))}
+PAGE = 16
+
+
+def _attn_case(dev, kv_bits, c, shape, seed):
+    """A contiguous cache [B, S, KVH, ...], the same logical rows laid out
+    in a pool through a scrambled block table (a random permutation of the
+    physical pages; entries past a row's live pages point anywhere), q, the
+    live lengths and the query positions."""
+    b, n_pages, h, kvh, hd, vl = ATTN_SHAPES[shape]
+    s = n_pages * PAGE
+    g = _gen(dev, seed)
+    k = torch.randn((b, s, kvh, hd), generator=g, device=dev)
+    v = torch.randn((b, s, kvh, hd), generator=g, device=dev)
     if kv_bits in (8, 4, 2):
         qk, sk = attention.kv_quantize(k, kv_bits)
         qv, sv = attention.kv_quantize(v, kv_bits)
@@ -81,16 +93,80 @@ def test_attention_decode_matches_plain(hopper, kv_bits, c):
     else:
         dt = torch.bfloat16 if kv_bits == 16 else torch.float32
         cache = {"k": k.to(dt), "v": v.to(dt)}
-    q = torch.randn((b, c, h, hd), generator=g, device=hopper)
-    valid_len = torch.tensor([s, 37, 0], dtype=torch.int32, device=hopper)
+    perm = torch.randperm(b * n_pages, generator=g, device=dev)
+    bt = perm.reshape(b, n_pages).to(torch.int32)
+    pool = {}
+    for name, t in cache.items():
+        p = torch.zeros((b * n_pages, PAGE, *t.shape[2:]), dtype=t.dtype,
+                        device=dev)
+        p[bt.long()] = t.reshape(b, n_pages, PAGE, *t.shape[2:])
+        pool[name] = p
+    valid_len = torch.tensor(vl, dtype=torch.int32, device=dev)
+    live = -(-vl[1] // PAGE)
+    bt[1, live:] = -5 + 1000 * torch.arange(n_pages - live, device=dev,
+                                            dtype=torch.int32)
+    q = torch.randn((b, c, h, hd), generator=g, device=dev)
     qpos = (torch.clamp(valid_len, min=c)[:, None] - c
-            + torch.arange(c, device=hopper)[None, :]).to(torch.int32)
+            + torch.arange(c, device=dev)[None, :]).to(torch.int32)
+    return q, cache, pool, bt, valid_len, qpos, hd
+
+
+@pytest.mark.parametrize("shape", list(ATTN_SHAPES))
+@pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
+@pytest.mark.parametrize("c", [1, 16])
+def test_attention_decode_matches_plain(hopper, kv_bits, c, shape):
+    """f32 queries: kernel and plain version differ only in summation
+    order, so they agree to 1e-4; the dead row is exactly zero."""
+    q, cache, _, _, valid_len, qpos, hd = _attn_case(hopper, kv_bits, c,
+                                                     shape, kv_bits)
+    if shape == "small":
+        cache = {n: t[:, :200].contiguous() for n, t in cache.items()}
     got = ulppack_attention.attention_decode_cuda(q, cache, valid_len, qpos,
                                                   kv_bits=kv_bits, hd=hd)
     want = ulppack_attention.attention_decode_torch(
         q, cache, valid_len, qpos, kv_bits=kv_bits, hd=hd, block_k=64)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert not got[2].any()
+
+
+@pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_attention_decode_launches_are_bit_equal(hopper, kv_bits, qdtype):
+    """Two launches on the same inputs give the same bits (the splits merge
+    in a fixed order, with no float atomics), contiguous and paged."""
+    q, cache, pool, bt, vl, qpos, hd = _attn_case(hopper, kv_bits, 16,
+                                                  "gqa", 7 + kv_bits)
+    q = q.to(qdtype)
+    runs = [ulppack_attention.attention_decode_cuda(
+        q, cache, vl, qpos, kv_bits=kv_bits, hd=hd) for _ in range(2)]
+    runs += [ulppack_attention.attention_decode_paged_cuda(
+        q, pool, vl, qpos, bt, kv_bits=kv_bits, hd=hd) for _ in range(2)]
+    assert runs[0].dtype == qdtype
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("field,delta", [("splits", 1), ("split_rows", 8),
+                                         ("tile_rows", 1), ("smem_bytes", 16),
+                                         ("threads", 32), ("block_m", 65)])
+def test_attention_launcher_refuses_a_plan_that_disagrees(hopper, paged,
+                                                          field, delta):
+    import dataclasses
+
+    q, cache, pool, bt, vl, qpos, hd = _attn_case(hopper, 4, 1, "small", 3)
+    b, c, h, _ = q.shape
+    kvh = cache["k"].shape[2]
+    plan = plan_lib.plan_attention_decode(
+        b, c, bt.shape[1] * PAGE, h, kvh, hd, 4,
+        page_size=PAGE if paged else None, device=hopper)
+    bad = dataclasses.replace(plan, **{field: getattr(plan, field) + delta})
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if paged:
+            ulppack_attention.attention_decode_paged_cuda(
+                q, pool, vl, qpos, bt, kv_bits=4, hd=hd, plan=bad)
+        else:
+            ulppack_attention.attention_decode_cuda(
+                q, cache, vl, qpos, kv_bits=4, hd=hd, plan=bad)
 
 
 # (N, H, W, Cin, Fh, Fw, Co, padding)
@@ -163,47 +239,16 @@ def test_conv_launcher_refuses_a_plan_that_disagrees_with_the_tile(hopper,
         ops.int_conv2d(qx, qw, plan=bad)
 
 
-def _paged_case(dev, kv_bits, c, seed):
-    """A contiguous cache [B, S, KVH, ...] and the same logical rows laid out
-    in a pool through a scrambled block table (a random permutation of the
-    physical pages); table entries past the live length point anywhere."""
-    b, ps, n_pages, h, kvh, hd = 3, 16, 12, 8, 4, 64
-    s = n_pages * ps
-    g = _gen(dev, seed)
-    k = torch.randn((b, s, kvh, hd), generator=g, device=dev)
-    v = torch.randn((b, s, kvh, hd), generator=g, device=dev)
-    if kv_bits in (8, 4, 2):
-        qk, sk = attention.kv_quantize(k, kv_bits)
-        qv, sv = attention.kv_quantize(v, kv_bits)
-        cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
-    else:
-        dt = torch.bfloat16 if kv_bits == 16 else torch.float32
-        cache = {"k": k.to(dt), "v": v.to(dt)}
-    perm = torch.randperm(b * n_pages, generator=g, device=dev)
-    bt = perm.reshape(b, n_pages).to(torch.int32)
-    pool = {}
-    for name, t in cache.items():
-        p = torch.zeros((b * n_pages, ps, *t.shape[2:]), dtype=t.dtype,
-                        device=dev)
-        p[bt.long()] = t.reshape(b, n_pages, ps, *t.shape[2:])
-        pool[name] = p
-    valid_len = torch.tensor([s, 37, 0], dtype=torch.int32, device=dev)
-    bt[1, 3:] = -5 + 1000 * torch.arange(n_pages - 3, device=dev,
-                                         dtype=torch.int32)   # past live
-    q = torch.randn((b, c, h, hd), generator=g, device=dev)
-    qpos = (torch.clamp(valid_len, min=c)[:, None] - c
-            + torch.arange(c, device=dev)[None, :]).to(torch.int32)
-    return q, cache, pool, bt, valid_len, qpos, hd
-
-
+@pytest.mark.parametrize("shape", list(ATTN_SHAPES))
 @pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
 @pytest.mark.parametrize("c", [1, 16])
-def test_paged_attention_matches_plain_and_contiguous(hopper, kv_bits, c):
+def test_paged_attention_matches_plain_and_contiguous(hopper, kv_bits, c,
+                                                      shape):
     """K4 against the paged plain version (1e-4, as K3) and against K3 on
     the same logical rows laid out contiguously: bit-equal.  The dead row is
     exactly zero."""
-    q, cache, pool, bt, vl, qpos, hd = _paged_case(hopper, kv_bits, c,
-                                                   kv_bits + c)
+    q, cache, pool, bt, vl, qpos, hd = _attn_case(hopper, kv_bits, c, shape,
+                                                  kv_bits + c)
     got = ulppack_attention.attention_decode_paged_cuda(
         q, pool, vl, qpos, bt, kv_bits=kv_bits, hd=hd)
     want = ulppack_attention.attention_decode_torch(
