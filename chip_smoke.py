@@ -437,7 +437,11 @@ def int_matmul_rows(torch, peaks, dev):
     range, so s16 sums wrap) and timed beside one PyTorch call that
     computes the same function, checked equal first: ``torch._int_mm`` on
     the int8 operands at M = 64, else ``torch.matmul`` in float64 (exact:
-    |sum| <= 2^30 * 4096 < 2^53), reduced mod 2^32."""
+    |sum| <= 2^30 * 4096 < 2^53), reduced mod 2^32.  ``vs_library`` is
+    K7's time over that call's; ``library_kernels`` and ``kernels_us``
+    name the CUDA kernels that call and a K7 call launch, with their
+    device times (one torch.profiler pass each; K7's after a warm-up on
+    another weight copy, so that its weight comes from HBM)."""
     from repro_torch.core import packing
     from repro_torch.kernels import ops, plan as plan_lib, ulppack_matmul
 
@@ -450,7 +454,8 @@ def int_matmul_rows(torch, peaks, dev):
                           device=dev, dtype=dt)
         w = torch.randint(info.min, info.max + 1, (k, n), generator=gen,
                           device=dev, dtype=dt)
-        plan = plan_lib.plan_int_matmul(m, k, n, device=dev)
+        plan = plan_lib.plan_int_matmul(m, k, n, a_bytes=a.element_size(),
+                                        w_bytes=w.element_size(), device=dev)
         got = ops.int_matmul(a, w, plan=plan)
         want = ulppack_matmul.int_matmul_torch(a, w)
         torch.cuda.synchronize()
@@ -474,28 +479,47 @@ def int_matmul_rows(torch, peaks, dev):
             raise AssertionError(f"{lib_name} disagrees with int_matmul "
                                  f"({m},{k},{n}) {dt_name}")
         lib = time_ms(torch, [lambda wi=wi: lib_fn(lib_a, wi) for wi in lws])
+        lib_kernels = device_kernel_us(torch, lambda: lib_fn(lib_a, lws[0]))
         del lws, lib_out
         nbytes = (m * k + k * n) * esize + 4 * m * n
-        # the card's floor: s8 MACs on the int8 tensor cores, s16 as four
-        # int8 products per MAC; the design bound: one IMAD per MAC on the
-        # CUDA cores
+        # the card's floor, which is also the design's: s8 MACs on the int8
+        # tensor cores (mma.sync), s16 as four int8 byte-plane products per
+        # MAC
         per_mac = 2 if dt == torch.int8 else 8
         b, by = bound_ms(nbytes, per_mac * m * k * n, peaks["hbm"],
                          peaks["int8"])
-        design = bound_ms(nbytes, 2 * m * k * n, peaks["hbm"],
-                          peaks["int32"])
+        ms = time_ms(torch, [lambda wi=wi: ops.int_matmul(a, wi, plan=plan)
+                             for wi in ws])
+        k7_kernels = device_kernel_us(
+            torch, lambda: ops.int_matmul(a, ws[0], plan=plan),
+            warm=lambda: ops.int_matmul(a, ws[-1], plan=plan))
         rows.append({
             "name": "int_matmul", "shape": f"({m},{k},{n}) {dt_name}",
-            "max_abs_err": 0, "design_bound_ms": design[0],
-            "ms": time_ms(torch, [lambda wi=wi: ops.int_matmul(a, wi,
-                                                               plan=plan)
-                                  for wi in ws]),
+            "max_abs_err": 0, "design_bound_ms": b, "ms": ms,
             "plain_ms": time_ms(torch, [lambda: ulppack_matmul
                                         .int_matmul_torch(a, w)], 3),
             "bound_ms": b, "bound_by": by, "library_ms": lib,
-            "library": lib_name, "geometry": plan.describe()})
+            "vs_library": ms / lib, "library": lib_name,
+            "library_kernels": lib_kernels, "kernels_us": k7_kernels,
+            "geometry": plan.describe()})
         del ws
     return rows
+
+
+def device_kernel_us(torch, fn, warm=None) -> dict:
+    """The device time of each CUDA kernel (and memset) that one call of
+    ``fn`` launches, µs by name, from one ``torch.profiler`` pass after a
+    warm-up call (of ``warm``, else ``fn``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    (warm or fn)()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 # The paper's Fig. 4 shape (benchmarks/fig4_conv2d.py): x [1, 256, 256, 32]

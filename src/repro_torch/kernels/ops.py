@@ -83,9 +83,10 @@ def int_matmul(q_a, q_w, *, backend: str = "auto",
     lead = q_a.shape[:-1]
     a2 = q_a.reshape(-1, q_a.shape[-1])
     if plan is None:
-        plan = plan_lib.plan_int_matmul(a2.shape[0], a2.shape[1],
-                                        q_w.shape[-1], backend=backend,
-                                        device=a2.device)
+        plan = plan_lib.plan_int_matmul(
+            a2.shape[0], a2.shape[1], q_w.shape[-1],
+            a_bytes=a2.element_size(), w_bytes=q_w.element_size(),
+            backend=backend, device=a2.device)
     out = plan_lib.dispatch(plan, a2, q_w)
     return out.reshape(*lead, q_w.shape[-1])
 

@@ -37,8 +37,25 @@ _WAVES = 2
 #: Threads per block of the matmul kernel (kThreads in csrc/).
 MATMUL_THREADS = 128
 
-#: K step of the integer matmul kernel (kBK in csrc/int_matmul.cu).
-INT_MATMUL_BK = 32
+#: The tile of the integer matmul kernel K7 (kBN, kBK, kMaxStages,
+#: kSmemMax, kThreads, kMaxBlockK and kPlaneRow in csrc/int_matmul.cu; a
+#: CPU test holds the two equal, and the C launcher refuses a plan that
+#: disagrees): output columns per block, K per stage, the cp.async ring's
+#: depth at most and the shared memory it may fill, threads per block, K
+#: per split at most (its s32 MMA sums stay in range), the bytes of a
+#: K-major byte-plane row in shared memory, and the rows of m per block the
+#: kernel is built for.
+INT_MATMUL_BN = 128
+INT_MATMUL_BK = 64
+INT_MATMUL_MAX_STAGES = 8
+INT_MATMUL_SMEM_MAX = 232448
+INT_MATMUL_THREADS = 256
+INT_MATMUL_MAX_BLOCK_K = 32768
+INT_MATMUL_PLANE_ROW = INT_MATMUL_BK + 16
+INT_MATMUL_BLOCK_MS = (8, 16, 32, 64)
+#: The fixed cost of a K7 block (its prologue and epilogue), in stages, for
+#: the planner's choice of the K split.
+_INT_MATMUL_BLOCK_COST = 3
 
 #: The conv tile of csrc/conv2d_tile.cuh (PPT, GPR, CPT, FW_MAX and
 #: kMaxThreads there; a CPU test holds the two equal, and the C launcher
@@ -82,8 +99,10 @@ class KernelPlan:
     Geometry fields are populated per op (``None`` where not applicable):
       packed_matmul    : block_m (rows per block), splits / block_k (K
                          split count and lanes per split)
-      int_matmul       : block_m (output rows per block: 16 or 64),
-                         splits / block_k (K split count and K per split)
+      int_matmul       : block_m / block_n (output rows / columns per
+                         block), step_k (K per stage), stages, threads,
+                         splits / block_k (K split count and K per split),
+                         smem_bytes (per block)
       quantize_pack    : threads
       attention_decode : block_k (KV rows per online-softmax group of the
                          plain version; whole pages when paged); the
@@ -114,6 +133,9 @@ class KernelPlan:
     smem_bytes: int | None = None
     split_rows: int | None = None
     tile_rows: int | None = None
+    block_n: int | None = None
+    step_k: int | None = None
+    stages: int | None = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -125,7 +147,8 @@ class KernelPlan:
                "spec": str(self.spec) if self.spec else None}
         for f in ("block_m", "block_k", "splits", "threads", "weight_store",
                   "k_full", "block_h", "block_co", "block_c", "smem_bytes",
-                  "split_rows", "tile_rows"):
+                  "split_rows", "tile_rows", "block_n", "step_k",
+                  "stages"):
             if getattr(self, f) is not None:
                 row[f] = getattr(self, f)
         return row
@@ -264,28 +287,68 @@ def _plan_quantize_pack(m, k, spec, backend) -> KernelPlan:
                       threads=threads)
 
 
-def plan_int_matmul(m: int, k: int, n: int, *, backend: str = "auto",
+def plan_int_matmul(m: int, k: int, n: int, *, a_bytes: int = 1,
+                    w_bytes: int = 1, backend: str = "auto",
                     device="cpu") -> KernelPlan:
-    """Plan the unpacked integer matmul [m, k] x [k, n] (K7).
+    """Plan the unpacked integer matmul [m, k] x [k, n] of ``a_bytes`` /
+    ``w_bytes`` operands (1: int8, 2: int16) (K7).
 
     The Hopper tile replaces the reference's (128, 128, 512) VMEM blocks:
-    ``block_m`` 16 (16 x 32 output tiles) for m <= 16, else 64 (64 x 64);
-    K is split into ``splits`` runs of ``block_k`` (a multiple of the
-    kernel's 32-deep step) until about four blocks per SM are in flight.
-    Edge tiles are masked, so no shape is padded."""
-    return _plan_int_matmul(m, k, n, resolve_backend(backend, device),
+    ``block_m`` rows of m (the smallest of 8/16/32/64 that holds m) by 128
+    columns a block, K staged 64 at a time through a ring as deep as the
+    shared memory allows; K is split into ``splits`` runs of ``block_k``
+    (a multiple of 64, at most 32768), chosen so that the busiest SM
+    streams the fewest stages: the blocks are spread over the SMs in whole
+    waves, and each block costs its stages plus a fixed
+    ``_INT_MATMUL_BLOCK_COST``.  Edge tiles are masked, so no shape is
+    padded."""
+    return _plan_int_matmul(m, k, n, a_bytes, w_bytes,
+                            resolve_backend(backend, device),
                             _device_key(device))
 
 
+def int_matmul_smem_layout(block_m: int, a_bytes: int,
+                           w_bytes: int) -> tuple[int, int]:
+    """(ring depth, shared memory) of one K7 block: the layout of
+    ``stages_for`` and ``smem_bytes`` in csrc/int_matmul.cu.  Ring slots,
+    each a raw W tile [64, 128] and block_m raw a rows of 64 elements (+16
+    bytes of padding), as many as fit beside two buffers of K-major byte
+    planes (one per byte of W; a's two only when a is int16, else the MMAs
+    read a from the ring), up to ``INT_MATMUL_MAX_STAGES``."""
+    bk, row = INT_MATMUL_BK, INT_MATMUL_PLANE_ROW
+    stage = bk * INT_MATMUL_BN * w_bytes + block_m * (bk * a_bytes + 16)
+    planes = w_bytes * INT_MATMUL_BN * row + (
+        2 * block_m * row if a_bytes == 2 else 0)
+    stages = min(INT_MATMUL_MAX_STAGES,
+                 (INT_MATMUL_SMEM_MAX - 2 * planes) // stage)
+    return stages, stages * stage + 2 * planes
+
+
 @functools.lru_cache(maxsize=None)
-def _plan_int_matmul(m, k, n, backend, device_key) -> KernelPlan:
-    bm, bn = (16, 32) if m <= 16 else (64, 64)
-    blocks = -(-m // bm) * -(-n // bn)
+def _plan_int_matmul(m, k, n, a_bytes, w_bytes, backend,
+                     device_key) -> KernelPlan:
+    if a_bytes not in (1, 2) or w_bytes not in (1, 2):
+        raise TypeError(f"int_matmul takes int8 / int16 operands (1 or 2 "
+                        f"bytes), got {a_bytes} x {w_bytes} bytes")
+    bm = next((b for b in INT_MATMUL_BLOCK_MS if b >= m),
+              INT_MATMUL_BLOCK_MS[-1])
+    tiles = -(-n // INT_MATMUL_BN) * -(-m // bm)
     steps = max(1, -(-k // INT_MATMUL_BK))
-    splits = max(1, min(steps, -(-4 * _sm_count(device_key) // blocks)))
-    per = -(-steps // splits)               # K steps per split
+    sms = _sm_count(device_key)
+    max_per = INT_MATMUL_MAX_BLOCK_K // INT_MATMUL_BK
+
+    def cost(per):        # the busiest SM's stages, each block's fixed cost
+        blocks = tiles * -(-steps // per)
+        return -(-blocks // sms) * (per + _INT_MATMUL_BLOCK_COST), -per
+
+    per = min({min(max_per, -(-steps // s))        # K steps per split
+               for s in range(1, min(steps, 4 * sms) + 1)}, key=cost)
+    stages, smem = int_matmul_smem_layout(bm, a_bytes, w_bytes)
     return KernelPlan(op="int_matmul", backend=backend, block_m=bm,
-                      block_k=per * INT_MATMUL_BK, splits=-(-steps // per))
+                      block_n=INT_MATMUL_BN, step_k=INT_MATMUL_BK,
+                      stages=stages, threads=INT_MATMUL_THREADS,
+                      block_k=per * INT_MATMUL_BK, splits=-(-steps // per),
+                      smem_bytes=smem)
 
 
 def attention_row_bytes(hd: int, kv_bits: int, cache_dtype=None) -> int:

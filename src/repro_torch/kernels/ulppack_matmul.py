@@ -13,7 +13,9 @@ summed wide.
 K7 replaces ``repro/kernels/ulppack_matmul.py:int_matmul`` (Pallas kernel
 ``_int_kernel``, pallas_call at :145): s8/s16 x s8/s16 -> s32, wrapped mod
 2^32 like XLA's s32 dot.  The hand-written kernel is ``csrc/int_matmul.cu``
-(a shared-memory tiled CUDA-core kernel, edge tiles masked).
+(int8 tensor cores, ``mma.sync`` over the tile of ``csrc/mma_s8.cuh``: the
+weight streamed through a ``cp.async`` ring and transposed to K-major in
+shared memory, int16 operands as two byte planes, edge tiles masked).
 
 :func:`ulppack_matmul_torch` and :func:`int_matmul_torch` are the plain
 PyTorch versions (the CPU path and the on-card comparison);
@@ -128,9 +130,10 @@ def int_matmul_torch(q_a: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
     return packing.wrap_i32(acc)
 
 
-def int_matmul_cuda(q_a: torch.Tensor, q_w: torch.Tensor, *, block_m: int,
-                    block_k: int, splits: int) -> torch.Tensor:
-    """Launch K7 (CUDA tensors, int8/int16 operands)."""
+def int_matmul_cuda(q_a: torch.Tensor, q_w: torch.Tensor, *,
+                    plan) -> torch.Tensor:
+    """Launch K7 (CUDA tensors, int8/int16 operands) with the geometry of
+    ``plan`` (``plan_int_matmul`` for these shapes and dtypes)."""
     _check_int(q_a, q_w)
     if not (q_a.is_cuda and q_w.device == q_a.device):
         raise ValueError("int_matmul_cuda needs both operands on one CUDA "
@@ -139,17 +142,19 @@ def int_matmul_cuda(q_a: torch.Tensor, q_w: torch.Tensor, *, block_m: int,
     w = q_w.contiguous()
     m, k = a.shape
     n = w.shape[1]
-    alloc = torch.zeros if splits > 1 else torch.empty
+    alloc = torch.zeros if plan.splits > 1 else torch.empty
     out = alloc((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out
     fn = _launch.get("int_matmul")
     if fn is None:
         fn = _launch["int_matmul"] = build.bind("int_matmul",
-                                                "int_matmul_launch", 3, 8)
+                                                "int_matmul_launch", 3, 13)
     fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-       a.element_size(), w.element_size(), block_m, block_k, splits,
-       a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
+       a.element_size(), w.element_size(), plan.block_m, plan.block_n,
+       plan.step_k, plan.block_k, plan.splits, plan.stages, plan.threads,
+       plan.smem_bytes, a.device.index or 0,
+       torch.cuda.current_stream(a.device).cuda_stream)
     kernel_launches["int_matmul"] += 1
     return out
 
@@ -172,5 +177,4 @@ def _int_matmul_torch(plan, a2, w):
 
 @plan_lib.register_backend("int_matmul", "cuda")
 def _int_matmul_cuda(plan, a2, w):
-    return int_matmul_cuda(a2, w, block_m=plan.block_m,
-                           block_k=plan.block_k, splits=plan.splits)
+    return int_matmul_cuda(a2, w, plan=plan)

@@ -261,14 +261,24 @@ def test_paged_attention_matches_plain_and_contiguous(hopper, kv_bits, c,
     assert not got[2].any()
 
 
+INT_MM_TYPES = [(torch.int8, torch.int8), (torch.int16, torch.int16),
+                (torch.int8, torch.int16), (torch.int16, torch.int8)]
+
+
+def _int_mm_plan(m, k, n, da, dw, dev):
+    return plan_lib.plan_int_matmul(m, k, n, a_bytes=da.itemsize,
+                                    w_bytes=dw.itemsize, device=dev)
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 7, 3), (5, 600, 130), (130, 600, 70),
-                                   (8, 4096, 4096), (64, 4096, 4096)])
-@pytest.mark.parametrize("da,dw", [(torch.int8, torch.int8),
-                                   (torch.int16, torch.int16),
-                                   (torch.int8, torch.int16)])
+                                   (8, 4096, 4096), (64, 4096, 4096),
+                                   (9, 1000, 70), (17, 333, 4097),
+                                   (1, 4096, 4097)])
+@pytest.mark.parametrize("da,dw", INT_MM_TYPES)
 def test_int_matmul_bit_equal(hopper, m, k, n, da, dw):
     """K7 against its plain version, bit-equal, over the full operand
-    ranges (int16 sums wrap mod 2^32)."""
+    ranges (int16 sums wrap mod 2^32), at M that fills no 8-row group and
+    N that is no multiple of the tile or of the copy size."""
     g = _gen(hopper, m + k + n)
 
     def draw(shape, dt):
@@ -277,7 +287,66 @@ def test_int_matmul_bit_equal(hopper, m, k, n, da, dw):
                              device=hopper, dtype=dt)
 
     a, w = draw((m, k), da), draw((k, n), dw)
-    plan = plan_lib.plan_int_matmul(m, k, n, device=hopper)
+    plan = _int_mm_plan(m, k, n, da, dw, hopper)
     assert plan.backend == "cuda"
     got = ops.int_matmul(a, w, plan=plan)
     assert torch.equal(got, ulppack_matmul.int_matmul_torch(a, w))
+
+
+@pytest.mark.parametrize("da,dw", INT_MM_TYPES)
+def test_int_matmul_long_k_at_extremes(hopper, da, dw):
+    """K = 40,000 with operands drawn from {min, max, -1} (-1 and max have
+    a low byte of 255, the worst byte-plane sums): bit-equal with the
+    planner's splits and with the longest split the kernel takes (32768),
+    the int16 sums wrapping; two launches bit-equal."""
+    import dataclasses
+
+    m, k, n = 9, 40000, 70
+    g = _gen(hopper, 7)
+
+    def draw(shape, dt):
+        info = torch.iinfo(dt)
+        vals = torch.tensor([info.min, info.max, -1], dtype=dt,
+                            device=hopper)
+        return vals[torch.randint(0, 3, shape, generator=g, device=hopper)]
+
+    a, w = draw((m, k), da), draw((k, n), dw)
+    want = ulppack_matmul.int_matmul_torch(a, w)
+    plan = _int_mm_plan(m, k, n, da, dw, hopper)
+    longest = dataclasses.replace(
+        plan, block_k=plan_lib.INT_MATMUL_MAX_BLOCK_K, splits=2)
+    runs = [ops.int_matmul(a, w, plan=p) for p in (plan, plan, longest)]
+    assert all(torch.equal(r, want) for r in runs)
+
+
+@pytest.mark.parametrize("change", [
+    dict(block_n=64), dict(step_k=32), dict(stages=3), dict(threads=128),
+    dict(block_m=24), dict(block_m=16), dict(smem_bytes=16),
+    dict(splits=1), dict(block_k=32832, splits=None), "int16 operands"])
+def test_int_matmul_launcher_refuses_a_plan_that_disagrees(hopper, change):
+    """A plan whose tile, shared memory, split count or split length
+    (above 32768) disagrees with the kernel's layout, or that was made for
+    other operand sizes, is refused by the launcher and raises.
+    (smem_bytes and splits move by the amount given, None sets splits to
+    1; the other fields are set.)"""
+    import dataclasses
+
+    m, k, n = 8, 600, 70
+    a = torch.ones((m, k), dtype=torch.int8, device=hopper)
+    w = torch.ones((k, n), dtype=torch.int8, device=hopper)
+    plan = _int_mm_plan(m, k, n, torch.int8, torch.int8, hopper)
+    if change == "int16 operands":
+        a = a.to(torch.int16)
+        good, bad = _int_mm_plan(m, k, n, a.dtype, w.dtype, hopper), plan
+    else:
+        def moved(f, v):
+            if f == "splits":
+                return 1 if v is None else plan.splits + v
+            return plan.smem_bytes + v if f == "smem_bytes" else v
+        good = plan
+        bad = dataclasses.replace(plan, **{f: moved(f, v)
+                                           for f, v in change.items()})
+    assert torch.equal(ops.int_matmul(a, w, plan=good),
+                       ulppack_matmul.int_matmul_torch(a, w))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops.int_matmul(a, w, plan=bad)

@@ -82,7 +82,7 @@ def test_mixed_operands_and_leading_dims():
 def test_plan_and_counts():
     """The planner picks the Hopper tile from M; the CPU path counts a
     plain call and no launch; wrong dtypes and shapes are refused."""
-    assert tplan.plan_int_matmul(8, 4096, 4096).block_m == 16
+    assert tplan.plan_int_matmul(8, 4096, 4096).block_m == 8
     assert tplan.plan_int_matmul(64, 4096, 4096).block_m == 64
     for m, k, n in [(8, 4096, 4096), (64, 4096, 4096), (1, 7, 3),
                     (130, 600, 70), (8, 0, 4)]:
@@ -104,3 +104,126 @@ def test_plan_and_counts():
         tmm.int_matmul_torch(a, torch.ones((4, 4), dtype=torch.int8))
     with pytest.raises(ValueError, match="CUDA"):
         tplan.plan_int_matmul(8, 8, 8, backend="cuda", device="cpu")
+
+
+PLAN_CASES = [(8, 4096, 4096, 1, 1), (64, 4096, 4096, 1, 1),
+              (64, 4096, 4096, 2, 2), (8, 4096, 4096, 1, 2),
+              (1, 7, 3, 1, 1), (9, 600, 70, 2, 1), (17, 40000, 4097, 2, 2),
+              (130, 600, 70, 1, 2), (8, 0, 4, 1, 1),
+              (6400, 100000, 12800, 1, 1), (2, 1 << 20, 8, 2, 2)]
+
+
+@pytest.mark.parametrize("m,k,n,ab,wb", PLAN_CASES,
+                         ids=lambda v: str(v))
+def test_plan_geometry(m, k, n, ab, wb):
+    """The splits cover K with no empty split, no split is longer than
+    32768 (its s32 MMA sums stay in range), the last wave of blocks is
+    less than one N x M tile grid short unless every split is one stage,
+    and the geometry is the kernel's own tile."""
+    p = tplan.plan_int_matmul(m, k, n, a_bytes=ab, w_bytes=wb)
+    bk = tplan.INT_MATMUL_BK
+    assert (p.block_n, p.step_k, p.threads) == (
+        tplan.INT_MATMUL_BN, bk, tplan.INT_MATMUL_THREADS)
+    assert p.block_m in tplan.INT_MATMUL_BLOCK_MS
+    assert p.block_m >= min(m, 64)
+    assert p.block_k % bk == 0
+    assert bk <= p.block_k <= tplan.INT_MATMUL_MAX_BLOCK_K
+    assert p.splits == max(1, -(-k // p.block_k)) <= 65535
+    assert (p.stages, p.smem_bytes) == tplan.int_matmul_smem_layout(
+        p.block_m, ab, wb)
+    # a deeper ring would not fit; at least 3 stages (one in flight)
+    assert 3 <= p.stages <= tplan.INT_MATMUL_MAX_STAGES
+    assert p.smem_bytes <= tplan.INT_MATMUL_SMEM_MAX
+    if p.stages < tplan.INT_MATMUL_MAX_STAGES:
+        assert p.smem_bytes + p.smem_bytes // p.stages \
+            > tplan.INT_MATMUL_SMEM_MAX
+    tiles = -(-n // p.block_n) * -(-m // p.block_m)
+    blocks = tiles * p.splits
+    steps = max(1, -(-k // bk))
+    assert p.splits == steps or -(-blocks // 132) * 132 - blocks < tiles
+    if (m, k, n) in ((8, 4096, 4096), (64, 4096, 4096)):
+        assert p.splits == 4        # the fastest split on an H100 (PERF.md)
+    with pytest.raises(TypeError, match="int8 / int16"):
+        tplan.plan_int_matmul(m, k, n, a_bytes=4)
+
+
+def test_int_matmul_constants_match_the_kernel_source():
+    """The planner's copy of K7's tile is the one in csrc/int_matmul.cu
+    (the launcher re-checks it, and the shared memory, on the card)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tplan.__file__).parent.parent / "csrc"
+           / "int_matmul.cu").read_text()
+    c = {k: int(v) for k, v in
+         re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (c["kBN"], c["kBK"], c["kMaxStages"], c["kSmemMax"],
+            c["kThreads"], c["kMaxBlockK"]) == (
+        tplan.INT_MATMUL_BN, tplan.INT_MATMUL_BK, tplan.INT_MATMUL_MAX_STAGES,
+        tplan.INT_MATMUL_SMEM_MAX, tplan.INT_MATMUL_THREADS,
+        tplan.INT_MATMUL_MAX_BLOCK_K)
+    assert "constexpr int kPlaneRow = kBK + 16;" in src
+    assert tplan.INT_MATMUL_PLANE_ROW == tplan.INT_MATMUL_BK + 16
+    cases = tuple(int(v) for v in
+                  re.findall(r"case (\d+): return launch_variant", src))
+    assert cases == tplan.INT_MATMUL_BLOCK_MS
+    # the largest split keeps the worst accumulator (lo x lo) in int32
+    assert 255 * 255 * tplan.INT_MATMUL_MAX_BLOCK_K < 2**31
+    assert 255 * 255 * (tplan.INT_MATMUL_MAX_BLOCK_K + 1024) >= 2**31
+
+
+def _byte_planes(x):
+    """K7's operand planes as (int64 values, weight shift): an int16 x is
+    hi = x >> 8 (s8, weight 2^8) and lo = x & 0xFF (u8); int8 is itself."""
+    v = x.to(torch.int64)
+    if x.dtype == torch.int8:
+        return [(v, 0)]
+    return [(v >> 8, 8), (v & 0xFF, 0)]
+
+
+def byte_plane_matmul(a, w, block_k):
+    """Step 3 of K7's design in plain torch: per K run of ``block_k``, one
+    s32 partial sum per (a plane, W plane) pair -- four for s16 x s16 --
+    each held to the int32 range the MMA accumulator has, then combined in
+    uint32 as sum << shift and added over the runs mod 2^32."""
+    total = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.int64)
+    for k0 in range(0, a.shape[1], block_k):
+        for ap, sa in _byte_planes(a[:, k0:k0 + block_k]):
+            for wp, sw in _byte_planes(w[k0:k0 + block_k]):
+                part = ap @ wp
+                assert -2**31 <= int(part.min()) and int(part.max()) < 2**31
+                total = (total + ((part & 0xFFFFFFFF) << (sa + sw))) \
+                    & 0xFFFFFFFF
+    return torch.where(total >= 2**31, total - 2**32, total).to(torch.int32)
+
+
+@pytest.mark.parametrize("dt_a,dt_w", [(np.int16, np.int16),
+                                       (np.int8, np.int16),
+                                       (np.int16, np.int8),
+                                       (np.int8, np.int8)],
+                         ids=["s16xs16", "s8xs16", "s16xs8", "s8xs8"])
+@pytest.mark.parametrize("k", [600, 40000])
+def test_byte_plane_algebra_equals_reference(dt_a, dt_w, k):
+    """The byte-plane split, four s32 partial sums per K run of at most
+    32768 and the uint32 combine equal ``repro``'s int_matmul ('xla') at
+    the operands' extremes (and -1, whose low byte is 255), where the s16
+    sums wrap; the runs are the planner's for this shape and the longest
+    the kernel takes."""
+    rng = np.random.default_rng(k)
+
+    def draw(shape, dt):
+        info = np.iinfo(dt)
+        return rng.choice(np.array([info.min, info.max, -1], dt), shape)
+
+    a, w = draw((3, k), dt_a), draw((k, 5), dt_w)
+    want = np.asarray(jops.int_matmul(jnp.asarray(a), jnp.asarray(w),
+                                      backend="xla"))
+    ta, tw = torch.from_numpy(a), torch.from_numpy(w)
+    plan = tplan.plan_int_matmul(3, k, 5, a_bytes=a.itemsize,
+                                 w_bytes=w.itemsize)
+    for block_k in (plan.block_k, tplan.INT_MATMUL_MAX_BLOCK_K):
+        got = byte_plane_matmul(ta, tw, block_k)
+        np.testing.assert_array_equal(got.numpy(), want)
+    if a.itemsize == w.itemsize == 2 and k > 2**15:
+        exact = a.astype(np.int64) @ w.astype(np.int64)
+        assert np.abs(exact).max() > 2**31             # the sums do wrap
