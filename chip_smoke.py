@@ -10,7 +10,11 @@ toolkit:
    source, in parallel) and prints the build time.
 2. Kernel phase: at the full-width shapes of W2A2 ``stablelm-1.6b``
    serving, holds each LM kernel against its plain PyTorch version on the
-   card (quantize-pack and the packed matmul bit-equal; attention within
+   card (quantize-pack and the packed matmul bit-equal -- K2 on the tensor
+   cores at the decode and prefill rows, a second launch and three calls
+   in a row bit-equal, and its fused affine epilogue bit-equal to the
+   eager one (``fused-epilogue`` line); the CUDA-core K2 at its earlier rows;
+   attention within
    1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
    bf16 queries, with a dead row exactly zero and a second launch
    bit-equal to the first, at stablelm-1.6b's heads and at granite-3-8b's
@@ -29,13 +33,17 @@ toolkit:
    the card's fastest unit for them (int8 tensor cores for the lattice
    dots and K7's s8 products -- s16 as four int8 products per MAC -- and
    bf16 tensor cores for attention's products).
-   ``design_bound_ms`` takes the CUDA-core rate these kernels run at (f32
-   for K2/K3/K4, the 32-bit integer multiply-add rate for K5/K6/K7).
+   ``design_bound_ms`` takes the rate of the unit each kernel runs on: the
+   int8 tensor cores for K7 and the tensor-core K2 (the MMAs it issues),
+   f32 CUDA cores for the CUDA-core K2 and K3/K4, the 32-bit integer
+   multiply-add rate for K5/K6.
 3. Serve phase: full-width ``stablelm-1.6b`` W2A2 with random weights from a
    seed, through ``ServingEngine`` at kv_bits 16, 4 and 2, four greedy
    requests with staggered admission.  Fails unless every request finishes
-   and every kernel was launched on that path with no plain-version call.
-   At kv_bits 4 it profiles four decode passes (device kernel time, top
+   and every kernel was launched on that path with no plain-version call,
+   every K2 launch the tensor-core kernel with the fused epilogue.  At
+   kv_bits 4 it profiles four decode passes and one 64-row prefill chunk
+   (device kernel time, launches, K2 / elementwise / fill time, top
    kernels) and runs one prefill chunk and 8 decode steps with
    ``backend="torch"`` on the same weights, printing the logit difference.
 4. Paged serve phase: the same model and weights through
@@ -49,12 +57,15 @@ toolkit:
    8 live slots, twice the unpaged engine's), tokens equal to an unpaged
    engine with 16 slots.  A ``paged`` line per run, a ``paged profile``
    line of four kv_bits-4 decode passes.  Fails unless every paged read
-   launched K4, with no plain call and no K3 launch.
+   launched K4, with no plain call and no K3 launch, and every K2 launch
+   was the tensor-core kernel with the fused epilogue.
 5. Linear phase: ``benchmarks/serve_microbench.run_linear`` on the card at
    m = 8, k = n = 4096: bf16 ``torch.matmul``, int8 through
-   ``ops.int_matmul`` (K7 launched, no plain call), and packed W1A1 / W2A2
-   / W3A3 on ``int16xP2s8`` through ``ops.quantized_linear`` (K1, K2 and
-   the epilogue); a ``linear`` line with each time and the weight bytes.
+   ``ops.int_matmul`` (K7 launched, no plain call), packed W1A1 / W2A2 /
+   W3A3 on ``int16xP2s8`` through ``ops.quantized_linear`` (K1 and the
+   tensor-core K2 with the epilogue fused in) and W2A2 on ``int32xP2s16``
+   (K1, the CUDA-core K2 and the eager epilogue: that kernel's path); a
+   ``linear`` line with each time and the weight bytes.
 6. Fig. 4 phase: the int16 conv and each packed case once through
    ``ops.int_conv2d`` / ``ops.packed_conv2d`` (K6 and K5 launched, no
    plain call), and a ``fig4`` line with each packed time, the int16 time
@@ -68,9 +79,14 @@ toolkit:
    ``backend="torch"`` on the same weights: every layer's int32
    accumulator bit-equal, and the logit difference.
 
+``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
+tensor-core K2's split sweep (``k2_sweep``), the data the planner's split
+model was fitted to.
+
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
-kernel (K1-K7) with the launches of its path.
+kernel (K1-K7, K2 as its tensor-core and its CUDA-core kernel) with the
+launches of its path.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -190,33 +206,57 @@ def kernel_phase(torch, peaks, dev):
                 x, scale, zp, spec)] * 5),
             "bound_ms": b, "bound_by": by, "library_ms": None})
 
-    # ---- K2 ulppack_matmul -----------------------------------------------
-    cases = [(spec, 4, 1024, 2048), (spec, 4, 1024, 5632),
-             (spec, 4, 2816, 2048), (spec, 64, 1024, 5632),
-             (PackSpec(2, 2, "int32", 2, 16), 4, 1024, 2048)]
-    for sp, m, kp, n in cases:
+    rows += packed_matmul_rows(torch, peaks, dev, gen)
+    rows += attention_rows(torch, peaks, dev, gen)
+    return rows
+
+
+# K2's shapes: full-width stablelm-1.6b's (Kp, N) pairs at the decode rows
+# (max_batch 4) and the chunked-prefill rows (4 x prefill_chunk 16), W2A2.
+# The tensor-core kernel (int16xP2s8) takes all six; the CUDA-core kernel
+# keeps its earlier rows, int32xP2s16 among them (its layout).
+K2_MMA_CASES = ((4, 1024, 2048), (4, 1024, 5632), (4, 2816, 2048),
+                (64, 1024, 5632), (64, 1024, 2048), (64, 2816, 2048))
+K2_CORE_CASES = (("W2A2/int16xP2s8", 4, 1024, 2048),
+                 ("W2A2/int16xP2s8", 4, 1024, 5632),
+                 ("W2A2/int16xP2s8", 4, 2816, 2048),
+                 ("W2A2/int16xP2s8", 64, 1024, 5632),
+                 ("W2A2/int32xP2s16", 4, 1024, 2048))
+
+
+def packed_matmul_rows(torch, peaks, dev, gen):
+    """K2 at its shapes: the tensor-core kernel (``ulppack_matmul_mma``;
+    bit-equal to the plain version, a second launch and three calls in a
+    row bit-equal, its CUDA kernels by name from one profiled call, and
+    the time with the affine epilogue fused in, bf16 out) and the
+    CUDA-core kernel (``ulppack_matmul``) with its own geometry, each
+    beside the plain version and one PyTorch call on the unpacked
+    lattices (checked equal first): ``torch._int_mm`` on int8 above 16
+    rows, else an f32 matmul, exact here (products <= 9, sums < 2^24, TF32
+    off).  ``design_bound_ms``: the MMAs the tensor-core kernel issues
+    (rows padded to block_m, columns to 128) at the int8 tensor-core rate;
+    the CUDA-core kernel's packed-lane MACs at the f32 rate."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import ops, ulppack_matmul as mm
+    from repro_torch.kernels import plan as plan_lib
+
+    cases = {("W2A2/int16xP2s8", *c): ["mma"] for c in K2_MMA_CASES}
+    for c in K2_CORE_CASES:
+        cases.setdefault(c, []).append("core")
+    rows = []
+    for (text, m, kp, n), kinds in cases.items():
+        sp = PackSpec.parse(text)
         k = kp * sp.n_pack
-        qa = torch.randint(0, 4, (m, k), generator=gen, device=dev,
-                           dtype=torch.int32)
-        qw = torch.randint(0, 4, (k, n), generator=gen, device=dev,
-                           dtype=torch.int32)
+        qa = torch.randint(0, sp.max_a + 1, (m, k), generator=gen,
+                           device=dev, dtype=torch.int32)
+        qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                           device=dev, dtype=torch.int32)
         a = packing.pack_activations(qa, sp)
         w = packing.pack_weights(qw, sp)
-        plan = ulppack_matmul.plan_lib.plan_packed_matmul(
-            m, kp, n, sp, backend="cuda", device=dev)
-        geo = dict(block_m=plan.block_m, block_k=plan.block_k,
-                   splits=plan.splits)
-        got = ulppack_matmul.ulppack_matmul_cuda(a, w, sp, **geo)
-        want = ulppack_matmul.ulppack_matmul_torch(a, w, sp)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"ulppack_matmul {sp} {(m, kp, n)} not "
-                                 f"bit-equal")
+        want = mm.ulppack_matmul_torch(a, w, sp)
         ws = [w] + [w.clone() for _ in range(copies_for(w.numel() *
                                                         sp.lane_bytes) - 1)]
-        # library yardstick on the unpacked lattices: torch._int_mm on int8
-        # (it takes M > 16 only), else an f32 matmul, exact here (products
-        # <= 9, sums < 2^24, TF32 off)
         if m > 16:
             lib_fn, lt = torch._int_mm, torch.int8
         else:
@@ -224,31 +264,189 @@ def kernel_phase(torch, peaks, dev):
         al = qa.to(lt)
         wls = [qw.to(lt) for _ in range(copies_for(qw.numel() *
                                                    al.element_size()))]
-        if not torch.equal(lib_fn(al, wls[0]).to(torch.int32), got):
+        if not torch.equal(lib_fn(al, wls[0]).to(torch.int32), want):
             raise AssertionError(f"{lib_fn.__name__} on the lattices "
                                  f"disagrees with the packed matmul")
         lib = time_ms(torch, [lambda wl=wl: lib_fn(al, wl) for wl in wls])
         del wls
+        plain = time_ms(torch, [lambda: mm.ulppack_matmul_torch(a, w, sp)],
+                        3)
         nbytes = (m * kp + kp * n) * sp.lane_bytes + m * n * 4
-        # the card's floor: the 2-bit lattice MACs on the int8 tensor
-        # cores; the design bound: this kernel's packed-lane MACs on the
-        # CUDA cores at the f32 rate
+        # the card's floor: the lattice MACs on the int8 tensor cores
         b, by = bound_ms(nbytes, 2 * m * k * n, peaks["hbm"], peaks["int8"])
-        design = bound_ms(nbytes, 2 * m * kp * n, peaks["hbm"], peaks["f32"])
-        rows.append({
-            "name": "ulppack_matmul", "shape": f"({m},{kp},{n}) {sp}",
-            "max_abs_err": 0, "design_bound_ms": design[0],
-            "library": f"torch.{lib_fn.__name__} ({lt})",
-            "ms": time_ms(torch, [lambda wi=wi: ulppack_matmul
-                                  .ulppack_matmul_cuda(a, wi, sp, **geo)
-                                  for wi in ws]),
-            "plain_ms": time_ms(torch, [lambda: ulppack_matmul
-                                        .ulppack_matmul_torch(a, w, sp)], 3),
-            "bound_ms": b, "bound_by": by, "library_ms": lib,
-            "geometry": geo})
+        base = {"shape": f"({m},{kp},{n}) {sp}", "max_abs_err": 0,
+                "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                "library_ms": lib, "library": f"torch.{lib_fn.__name__} "
+                                              f"({lt})"}
+        if "mma" in kinds:
+            plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=dev)
 
-    rows += attention_rows(torch, peaks, dev, gen)
+            def call(wi=w, plan=plan):
+                return mm.ulppack_matmul_mma_cuda(a, wi, sp, plan=plan)
+
+            runs = [call() for _ in range(4)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(r, want) for r in runs):
+                raise AssertionError(f"ulppack_matmul_mma {sp} {(m, kp, n)}: "
+                                     f"not bit-equal to the plain version, "
+                                     f"or launches differ")
+            # the serving path's call: the affine epilogue fused, bf16 out
+            one = torch.tensor(1.0, device=dev)
+            zero = torch.tensor(0, dtype=torch.int32, device=dev)
+            ep = mm.Affine(torch.zeros(m, dtype=torch.int32, device=dev),
+                           torch.zeros(n, dtype=torch.int32, device=dev),
+                           one, zero, one, zero, k, None, torch.bfloat16)
+            affine = time_ms(torch, [lambda wi=wi: mm.ulppack_matmul_mma_cuda(
+                a, wi, sp, plan=plan, epilogue=ep) for wi in ws])
+            mpad = plan.block_m * -(-m // plan.block_m)
+            npad = 128 * -(-n // 128)
+            design = bound_ms(nbytes, 2 * 2 * mpad * 64 * -(-kp // 64) * npad,
+                              peaks["hbm"], peaks["int8"])
+            rows.append({
+                "name": "ulppack_matmul_mma", **base,
+                "ms": time_ms(torch, [lambda wi=wi: call(wi) for wi in ws]),
+                "ms_affine_bf16": affine, "design_bound_ms": design[0],
+                "kernels_us": device_kernel_us(torch, call,
+                                               warm=lambda: call(ws[-1])),
+                "geometry": plan.describe()})
+        if "core" in kinds:
+            geo = plan_lib.packed_matmul_core_geometry(m, kp, n, sp, dev)
+            got = mm.ulppack_matmul_cuda(a, w, sp, **geo)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"ulppack_matmul {sp} {(m, kp, n)} not "
+                                     f"bit-equal")
+            design = bound_ms(nbytes, 2 * m * kp * n, peaks["hbm"],
+                              peaks["f32"])
+            rows.append({
+                "name": "ulppack_matmul", **base,
+                "ms": time_ms(torch, [lambda wi=wi: mm.ulppack_matmul_cuda(
+                    a, wi, sp, **geo) for wi in ws]),
+                "design_bound_ms": design[0], "geometry": geo})
+        del ws
+    fused_epilogue_check(torch, dev, gen, ops, mm)
+    k2_costs(torch, dev, gen)
     return rows
+
+
+def _mma_operands(torch, dev, gen, m, kp, n):
+    """W2A2 int16xP2s8 lanes a [m, kp], w [kp, n] from random lattices, the
+    plain version's result, and copies of w that rotate past the L2."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import ulppack_matmul as mm
+
+    sp = PackSpec(2, 2)
+    qa = torch.randint(0, 4, (m, 2 * kp), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qw = torch.randint(0, 4, (2 * kp, n), generator=gen, device=dev,
+                       dtype=torch.int32)
+    a, w = packing.pack_activations(qa, sp), packing.pack_weights(qw, sp)
+    ws = [w] + [w.clone() for _ in range(copies_for(2 * w.numel()) - 1)]
+    return sp, a, ws, mm.ulppack_matmul_torch(a, w, sp)
+
+
+def _mma_variant(plan, kp, block_m, per):
+    """``plan`` with block_m rows a block and ``per`` 64-lane stages a
+    split (the tile's shared memory for those rows)."""
+    import dataclasses
+
+    from repro_torch.kernels import plan as plan_lib
+
+    stages, smem = plan_lib.int_matmul_smem_layout(block_m, 2, 2)
+    steps = -(-kp // 64)
+    return dataclasses.replace(plan, block_m=block_m, stages=stages,
+                               smem_bytes=smem, block_k=64 * per,
+                               splits=-(-steps // per))
+
+
+def _mma_us(torch, a, ws, sp, plan, want):
+    """The tensor-core K2's µs a call at ``plan``, checked bit-equal."""
+    from repro_torch.kernels import ulppack_matmul as mm
+
+    if not torch.equal(mm.ulppack_matmul_mma_cuda(a, ws[0], sp, plan=plan),
+                       want):
+        raise AssertionError(f"ulppack_matmul_mma {plan.describe()}: not "
+                             f"bit-equal")
+    return 1e3 * time_ms(torch, [lambda wi=wi: mm.ulppack_matmul_mma_cuda(
+        a, wi, sp, plan=plan) for wi in ws])
+
+
+def k2_costs(torch, dev, gen):
+    """The tensor-core K2's fixed costs, µs a call by CUDA-graph replay: a
+    one-element PyTorch add (the launch floor), one block of 8 rows x 128
+    columns over 1, 2 and 16 stages of 64 lanes, and the same 2 and 16
+    stages as 2 and 16 splits of one stage (the split-K fix-up's cost);
+    prints a ``k2-costs`` line."""
+    from repro_torch.kernels import plan as plan_lib
+
+    t = torch.zeros(1, device=dev)
+    rep = {"launch_floor_us": 1e3 * time_ms(torch, [lambda: t.add_(1)] * 20)}
+    for kp, per in ((64, 1), (128, 1), (128, 2), (1024, 1), (1024, 16)):
+        sp, a, ws, want = _mma_operands(torch, dev, gen, 4, kp, 128)
+        plan = _mma_variant(plan_lib.plan_packed_matmul(
+            4, kp, 128, sp, device=dev), kp, 8, per)
+        rep[f"stages{kp // 64}_splits{plan.splits}_us"] = _mma_us(
+            torch, a, ws, sp, plan, want)
+    print("k2-costs " + json.dumps(rep))
+
+
+def k2_sweep(torch, dev):
+    """``python3 chip_smoke.py --k2-sweep``: the tensor-core K2 at each of
+    its main-path shapes over block_m (8 at 4 rows; 16, 32 and 64 at 64)
+    and 1-16 stages a split, µs a call by CUDA-graph replay, each checked
+    bit-equal, beside the planner's choice: the data its split model was
+    fitted to.  One ``k2-sweep`` line per shape and block_m."""
+    from repro_torch.kernels import plan as plan_lib
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for m, kp, n in K2_MMA_CASES:
+        sp, a, ws, want = _mma_operands(torch, dev, gen, m, kp, n)
+        plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=dev)
+        steps = -(-kp // 64)
+        for bm in ((8,) if m <= 8 else (16, 32, 64)):
+            us = {per: _mma_us(torch, a, ws, sp,
+                               _mma_variant(plan, kp, bm, per), want)
+                  for per in (1, 2, 3, 4, 6, 8, 11, 16) if per <= steps}
+            print("k2-sweep " + json.dumps({
+                "shape": [m, kp, n], "block_m": bm,
+                "us_by_stages_per_split": us,
+                "planned": [plan.block_m, plan.block_k // 64, plan.splits]}))
+
+
+def fused_epilogue_check(torch, dev, gen, ops, mm):
+    """``ops.quantized_linear`` at stablelm's q projection (4 rows, K 2048,
+    N 2048) with a bf16 bias, f32 and bf16 out: K1 + the tensor-core K2
+    with the fused epilogue (one launch each) bit-equal to the same
+    function on the plain backend, whose epilogue is eager PyTorch; prints
+    a ``fused-epilogue`` line (the ``linear`` line times the path)."""
+    from repro_torch.core.packing import PackSpec
+
+    sp = PackSpec(2, 2)
+    x = torch.randn((4, 2048), generator=gen, device=dev)
+    w = torch.randn((2048, 2048), generator=gen, device=dev) * 0.03
+    zp = torch.tensor(2, dtype=torch.int32, device=dev)
+    w_scale = torch.tensor(0.02, device=dev)
+    a_scale = torch.tensor(0.4, device=dev)
+    wp, cs = ops.prepare_weights(w, w_scale, zp, sp)
+    bias = torch.randn((2048,), generator=gen, device=dev).bfloat16()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        args = (x, wp, cs, a_scale, zp, w_scale, zp, sp)
+        mm.reset_counts()
+        got = ops.quantized_linear(*args, bias=bias, out_dtype=out_dtype)
+        launches = dict(mm.mma_launches)
+        want = ops.quantized_linear(*args, bias=bias, out_dtype=out_dtype,
+                                    backend="torch")
+        torch.cuda.synchronize()
+        if launches != {"s32": 0, "affine": 1} or not torch.equal(got, want):
+            raise AssertionError(f"fused epilogue ({out_dtype}): launches "
+                                 f"{launches}, bit-equal "
+                                 f"{torch.equal(got, want)}")
+    print("fused-epilogue " + json.dumps({
+        "shape": "x[4,2048] W2A2/int16xP2s8 N 2048, bf16 bias",
+        "out_dtypes": ["float32", "bfloat16"], "launches_per_call":
+        {"quantize_pack": 1, "ulppack_matmul_mma": 1},
+        "bit_equal_to_eager": True}))
 
 
 # K3/K4's shapes: stablelm-1.6b's heads (32 of 64, one kv head each) at
@@ -880,6 +1078,7 @@ def serve_phase(torch, np, dev, cfg):
 
     c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
     profile_decode(torch, c, params, ecfg, prompts, dev)
+    profile_prefill(torch, c, params, ecfg, prompts, dev)
     # kernel path vs plain path on the same weights, kv_bits 4
     packed = prepare_serving_params(params, c, device=dev)
     return (c, packed, prompts, steps, lm), params
@@ -922,12 +1121,80 @@ def profile_decode(torch, cfg, params, ecfg, prompts, dev, label="profile"):
            "attention_kernel_share": sum(
                e.self_device_time_total for e in kernels
                if "attention_decode_kernel" in e.key) / max(1, busy_us),
+           **kernel_groups(kernels, n, "_per_step"),
            "top_kernels_ms_per_step": [
                [e.key[:60], e.self_device_time_total / 1e3 / n, e.count // n]
                for e in top]}
     print(f"{label} " + json.dumps(rep))
     del eng
     torch.cuda.empty_cache()
+
+
+def kernel_groups(kernels, n, suffix):
+    """Device ms and launches per pass of K2 (either kernel), of PyTorch's
+    elementwise kernels and of its fills (zeros), from profiler rows."""
+    groups = {"k2": ("ulppack_matmul",), "elementwise": ("elementwise",),
+              "fill": ("fill", "Fill")}
+    out = {}
+    for g, keys in groups.items():
+        sel = [e for e in kernels if any(k in e.key for k in keys)]
+        out[f"{g}_ms{suffix}"] = sum(e.self_device_time_total
+                                     for e in sel) / 1e3 / n
+        out[f"{g}_launches{suffix}"] = sum(e.count for e in sel) / n
+    return out
+
+
+def profile_prefill(torch, cfg, params, ecfg, prompts, dev):
+    """Where a prefill chunk's time goes: the four serve prompts admitted
+    together, then one profiled engine step -- a chunked-prefill pass of
+    max_batch x prefill_chunk rows (64 here) -- device kernel time, the
+    host-clock wall time, launches, K2's share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    eng = ServingEngine(cfg, params, config=ecfg, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_new_tokens=4))
+    eng.step()                          # warm-up: the first chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    rep = {"kv_bits": cfg.quant.kv_bits,
+           "rows": ecfg.max_batch * ecfg.prefill_chunk,
+           "wall_ms": wall * 1e3, "device_kernel_ms": busy_us / 1e3,
+           "kernel_launches": sum(e.count for e in kernels),
+           **kernel_groups(kernels, 1, ""),
+           "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3,
+                               e.count] for e in top]}
+    rep["k2_share"] = rep["k2_ms"] / max(1e-9, rep["device_kernel_ms"])
+    print("prefill profile " + json.dumps(rep))
+    del eng
+    torch.cuda.empty_cache()
+
+
+def check_k2_path(where):
+    """Every K2 launch since the counts were reset was the tensor-core
+    kernel with the affine epilogue fused in: no plain call, no CUDA-core
+    launch, no s32 launch (whose output the eager epilogue would take)."""
+    from repro_torch.kernels import ulppack_matmul as mm
+
+    mma, core = dict(mm.mma_launches), mm.kernel_launches["ulppack_matmul"]
+    plain = mm.plain_calls["ulppack_matmul"]
+    if not mma["affine"] or mma["s32"] or core or plain:
+        raise AssertionError(f"{where}: K2 launches {mma} on the tensor "
+                             f"cores, {core} on the CUDA cores, {plain} "
+                             f"plain calls: every K2 call must be the "
+                             f"tensor-core kernel with the fused epilogue")
+    return mma["affine"]
 
 
 def paged_phase(torch, np, dev, cfg, params):
@@ -938,6 +1205,7 @@ def paged_phase(torch, np, dev, cfg, params):
     read launched K4 (no plain call, no K3 launch).  Returns K4's launches
     on the paged runs."""
     from repro_torch.kernels import ulppack_attention as att
+    from repro_torch.kernels import ulppack_matmul as mm
     from repro_torch.serve.engine import EngineConfig, Request, \
         ServingEngine
     from repro_torch.serve.prepare import cache_bytes_per_slot
@@ -974,6 +1242,7 @@ def paged_phase(torch, np, dev, cfg, params):
 
     def paged_run(c, ecfg, prompts, news, first=0):
         att.reset_counts()
+        mm.reset_counts()
         out = run(c, ecfg, prompts, news, first)
         torch.cuda.synchronize()
         k4 = att.kernel_launches["attention_decode_paged"]
@@ -982,6 +1251,7 @@ def paged_phase(torch, np, dev, cfg, params):
             raise AssertionError(
                 f"paged path: launches {att.kernel_launches}, plain "
                 f"{att.plain_calls}: every paged read must launch K4")
+        check_k2_path("paged path")
         return (*out, k4)
 
     def report(name, c, rep, k4, ref):
@@ -1065,11 +1335,13 @@ def paged_phase(torch, np, dev, cfg, params):
 def linear_phase(torch, dev):
     """``benchmarks/serve_microbench.run_linear`` on the card at m = 8,
     k = n = 4096 (its weights and scales): bf16 ``torch.matmul``, int8
-    through ``ops.int_matmul`` (K7) and packed W1A1 / W2A2 / W3A3 on
-    ``int16xP2s8`` through ``ops.quantized_linear`` (K1 + K2 + the affine
-    epilogue).  Each row is driven once with the counts at zero (K7
-    launched for the int8 row, K1 and K2 for each packed row, no plain
-    call), then timed by CUDA-graph replay.  Returns K7's launches."""
+    through ``ops.int_matmul`` (K7), packed W1A1 / W2A2 / W3A3 on
+    ``int16xP2s8`` through ``ops.quantized_linear`` (K1 + the tensor-core
+    K2 with the affine epilogue fused in), and W2A2 on ``int32xP2s16``
+    (K1 + the CUDA-core K2 + the eager epilogue).  Each row is driven once
+    with the counts at zero (K7 launched for the int8 row, K1 and the
+    layout's K2 for each packed row, no plain call), then timed by
+    CUDA-graph replay.  Returns K7's and the CUDA-core K2's launches."""
     from repro_torch.core.packing import PackSpec
     from repro_torch.kernels import ops, quant_pack, ulppack_matmul
 
@@ -1088,20 +1360,28 @@ def linear_phase(torch, dev):
     paths = [("bf16", lambda: torch.matmul(x.to(torch.bfloat16), wb16),
               wb16.numel() * 2, {}),
              ("int8-unpacked", int8, w8.numel(), {"int_matmul": 1})]
-    for wb in (1, 2, 3):
-        spec = PackSpec.parse(f"W{wb}A{wb}/int16xP2s8")
+    for text in ("W1A1/int16xP2s8", "W2A2/int16xP2s8", "W3A3/int16xP2s8",
+                 "W2A2/int32xP2s16"):
+        spec = PackSpec.parse(text)
+        wb = spec.w_bits
         zp = torch.tensor(1 << (wb - 1), dtype=i32, device=dev)
         wp, cs = ops.prepare_weights(w, torch.tensor(0.02, dtype=f32,
                                                      device=dev), zp, spec)
         a_scale = torch.tensor(0.07, dtype=f32, device=dev)
         w_scale = torch.tensor(0.02, dtype=f32, device=dev)
-        paths.append((f"packed-W{wb}A{wb}", lambda wp=wp, cs=cs, zp=zp,
-                      spec=spec: ops.quantized_linear(
-                          x, wp, cs, a_scale, zp, w_scale, zp, spec),
+        k2 = ("ulppack_matmul_mma" if spec.lane_dtype == torch.int16
+              else "ulppack_matmul")
+        paths.append((f"packed-W{wb}A{wb}" + (
+                          "" if k2 == "ulppack_matmul_mma"
+                          else f"-{spec.lane_name}xP{spec.n_pack}s"
+                               f"{spec.shift}"),
+                      lambda wp=wp, cs=cs, zp=zp, spec=spec:
+                      ops.quantized_linear(x, wp, cs, a_scale, zp, w_scale,
+                                           zp, spec),
                       wp.numel() * wp.element_size(),
-                      {"quantize_pack": 1, "ulppack_matmul": 1}))
+                      {"quantize_pack": 1, k2: 1}))
     mods = (ulppack_matmul, quant_pack)
-    rows, launches = [], 0
+    rows, launches = [], {"int_matmul": 0, "ulppack_matmul": 0}
     for name, fn, wbytes, expect in paths:
         for mod in mods:
             mod.reset_counts()
@@ -1109,20 +1389,22 @@ def linear_phase(torch, dev):
         torch.cuda.synchronize()
         got = {"ulppack_matmul": ulppack_matmul.kernel_launches[
                    "ulppack_matmul"],
+               "ulppack_matmul_mma": ulppack_matmul.mma_launches["affine"],
                "int_matmul": ulppack_matmul.kernel_launches["int_matmul"],
                "quantize_pack": quant_pack.kernel_launches}
         plain = sum(ulppack_matmul.plain_calls.values()) \
-            + quant_pack.plain_calls
+            + quant_pack.plain_calls + ulppack_matmul.mma_launches["s32"]
         if {kk: v for kk, v in got.items() if v} != expect or plain \
                 or out.shape != (m, n) or not torch.isfinite(
                     out.float()).all():
             raise AssertionError(f"linear {name}: launches {got}, plain "
                                  f"{plain}, output {tuple(out.shape)}")
-        launches += got["int_matmul"]
+        for kk in launches:
+            launches[kk] += got[kk]
         rows.append({"path": name, "ms": time_ms(torch, [fn] * 20),
                      "weight_bytes": wbytes, "launches": expect})
     print("linear " + json.dumps({"m": m, "k": k, "n": n, "rows": rows}))
-    return launches
+    return launches["int_matmul"], launches["ulppack_matmul"]
 
 
 def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
@@ -1189,6 +1471,10 @@ def main() -> int:
     paths = build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({len(paths)} libraries, nvcc in parallel)")
+    if "--k2-sweep" in sys.argv[1:]:
+        k2_sweep(torch, torch.device("cuda"))
+        print(smi)
+        return 0
     for n, p in paths.items():
         log = (p.parent / f"{n}.log").read_text().splitlines()
         usage = [ln.strip() for ln in log if "registers" in ln
@@ -1211,20 +1497,24 @@ def main() -> int:
     lm_cfg = configs.get_config("stablelm-1.6b")
     ctx, params = serve_phase(torch, np, dev, lm_cfg)
     launches = {"quantize_pack": quant_pack.kernel_launches,
-                "ulppack_matmul":
-                    ulppack_matmul.kernel_launches["ulppack_matmul"],
+                "ulppack_matmul_mma": sum(ulppack_matmul.mma_launches
+                                          .values()),
                 "attention_decode":
                     ulppack_attention.kernel_launches["attention_decode"]}
     plain = {"quantize_pack": quant_pack.plain_calls,
-             "ulppack_matmul": ulppack_matmul.plain_calls["ulppack_matmul"],
+             "ulppack_matmul_mma": ulppack_matmul.plain_calls[
+                 "ulppack_matmul"],
              "attention_decode":
                  ulppack_attention.plain_calls["attention_decode"]}
     print(f"serve launches (kv_bits 16, 4, 2 runs and the profiled kv_bits 4 "
-          f"passes): kernels {launches}, plain {plain}")
+          f"passes): kernels {launches}, plain {plain}, K2 by epilogue "
+          f"{ulppack_matmul.mma_launches}, CUDA-core K2 "
+          f"{ulppack_matmul.kernel_launches['ulppack_matmul']}")
     for k in launches:
         if launches[k] == 0 or plain[k] != 0:
             raise AssertionError(f"{k}: {launches[k]} kernel launches, "
                                  f"{plain[k]} plain calls on the serve path")
+    check_k2_path("serve path")
     compare_backends(torch, np, dev, *ctx)
     del ctx
     torch.cuda.empty_cache()
@@ -1232,7 +1522,8 @@ def main() -> int:
                                                      params)
     del params
     torch.cuda.empty_cache()
-    launches["int_matmul"] = linear_phase(torch, dev)
+    launches["int_matmul"], launches["ulppack_matmul"] = linear_phase(
+        torch, dev)
 
     launches["int_conv2d"] = fig4_phase(torch, fig4, rows)["int_conv2d"]
     del fig4
@@ -1244,9 +1535,13 @@ def main() -> int:
         "quantize_pack": ("src/repro_torch/csrc/quant_pack.cu",
                           "src/repro/kernels/quant_pack.py:86",
                           "x[4,2048]"),
+        "ulppack_matmul_mma": ("src/repro_torch/csrc/ulppack_matmul_mma.cu",
+                               "src/repro/kernels/ulppack_matmul.py:99",
+                               "(4,1024,2048) W2A2/int16xP2s8"),
+        # the CUDA-core K2's path is the linear phase's int32xP2s16 row
         "ulppack_matmul": ("src/repro_torch/csrc/ulppack_matmul.cu",
                            "src/repro/kernels/ulppack_matmul.py:99",
-                           "(4,1024,2048) W2A2/int16xP2s8"),
+                           "(4,1024,2048) W2A2/int32xP2s16"),
         "attention_decode": ("src/repro_torch/csrc/attention_decode.cu",
                              "src/repro/kernels/ulppack_attention.py:395",
                              "B4 S512 H32 hd64 C1 kv4"),

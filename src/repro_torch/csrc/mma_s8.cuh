@@ -1,6 +1,8 @@
-// The int8 tensor-core tile of the integer matmuls: cp.async staging,
-// the in-register 4x4 byte transposition and byte-plane split (prmt), the
-// ldmatrix fragment loads and mma.sync.m16n8k32 with s8 / u8 operands.
+// The int8 tensor-core tile of the integer matmuls (K7 in int_matmul.cu,
+// K2's int16xP2s8 route in ulppack_matmul_mma.cu): cp.async staging, the
+// in-register 4x4 byte transposition and byte-plane split (prmt), the
+// ldmatrix fragment loads, mma.sync.m16n8k32 with s8 / u8 operands, and
+// the K loop of one block that strings them together (mainloop below).
 //
 // Fragments of mma.sync.aligned.m16n8k32.row.col.s32.{s8,u8}.{s8,u8}.s32
 // (lane = 4 * g + t): A (16 x 32, row-major, K-contiguous) is four words,
@@ -12,6 +14,22 @@
 // bytes [4t, 4t+4) of matrix row g: over K-major rows of 16 bytes that is
 // exactly these fragments, so one x4 gives A, and one x4 the B fragments of
 // two 8-column groups.
+//
+// The tile computes out^T = W^T a^T for a [M, K] and W [K, N], row-major,
+// of 1 or 2 bytes an element (AB, WB).  W is the MMA's A operand: each of
+// the 8 warps owns 16 output columns n, a block kBN = 128; the block's BM
+// rows of m fill the N slot in groups of 8; K advances 32 bytes an MMA.
+// Raw W tiles (kBK rows of k x kBN columns) stream through a cp.async ring
+// as deep as shared memory allows (16-byte copies where the row size and
+// both bases allow, else 8 or 4, else plain loads; out-of-range chunks are
+// zeroed), each 16-byte chunk XOR-swizzled by its row so that the
+// transposing reads hit 32 banks.  One pass per tile transposes 4 x 4 byte
+// blocks with prmt into K-major plane rows of kBK bytes (padded to
+// kPlaneRow and swizzled by chunk: conflict-free stores and ldmatrix
+// reads); 2-byte operands are split there into a high and a low byte
+// plane (plane 0 = hi, plane 1 = lo), a's in a pass over its staged rows.
+// Which planes multiply, with which signedness, into which accumulator is
+// the caller's (an MMA functor); W is never transposed in device memory.
 #pragma once
 
 #include <stdint.h>
@@ -72,7 +90,9 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4],
 }
 
 // Four consecutive int16 values x (little-endian in words w0, w1) as byte
-// planes: lo = x & 0xFF (u8) and hi = x >> 8 (s8), value i in byte i.
+// planes, value i in byte i: lo = x & 0xFF and hi = x >> 8.  Only bytes
+// move; the MMA's template flags read a plane as s8 or u8 (K7's hi planes
+// are s8, the rest u8).
 __device__ __forceinline__ uint32_t plane_lo(uint32_t w0, uint32_t w1) {
   return __byte_perm(w0, w1, 0x6420);
 }
@@ -119,5 +139,295 @@ __device__ __forceinline__ void mma_m16n8k32(int32_t (&d)[4],
 }
 
 #undef MMA_S8_ASM
+
+
+// ---------------------------------------------------------------------------
+// The tile (K7's, and K2's int16xP2s8 route's)
+// ---------------------------------------------------------------------------
+
+constexpr int kBN = 128;          // output columns per block (8 warps x 16)
+constexpr int kBK = 64;           // K per stage
+constexpr int kMaxStages = 8;     // cp.async ring depth at most
+constexpr int kSmemMax = 232448;  // shared memory a block may use
+constexpr int kThreads = 256;
+constexpr int kPlaneRow = kBK + 16;  // bytes of a K-major plane row
+
+// Shared memory: `stages` ring slots of [raw W tile | raw a rows], then
+// two plane buffers of [W planes | a planes (2-byte a only)].  The ring is
+// as deep as the shared memory allows, up to kMaxStages: stages - 2 of them
+// are in flight while a block transposes one and multiplies another.
+__host__ __device__ constexpr int ring_a_row(int ab) {
+  return kBK * ab + 16;
+}
+__host__ __device__ constexpr int stage_bytes(int bm, int ab, int wb) {
+  return kBK * kBN * wb + bm * ring_a_row(ab);
+}
+__host__ __device__ constexpr int plane_bytes(int bm, int ab, int wb) {
+  return wb * kBN * kPlaneRow + (ab == 2 ? 2 * bm * kPlaneRow : 0);
+}
+__host__ __device__ constexpr int stages_for(int bm, int ab, int wb) {
+  const int fit =
+      (kSmemMax - 2 * plane_bytes(bm, ab, wb)) / stage_bytes(bm, ab, wb);
+  return fit < kMaxStages ? fit : kMaxStages;
+}
+__host__ __device__ constexpr int smem_bytes(int bm, int ab, int wb) {
+  return stages_for(bm, ab, wb) * stage_bytes(bm, ab, wb) +
+         2 * plane_bytes(bm, ab, wb);
+}
+
+// The 16-byte chunk position of chunk c of a staged row r.  Raw W rows
+// (SW = 1 or 2, W's bytes) are swizzled by k block (r / 4) so that a
+// warp's transposing reads (8 column blocks x 4 k blocks) fall in distinct
+// banks; a rows (SW = 0) are padded instead.
+template <int SW>
+__device__ __forceinline__ int chunk_pos(int r, int c) {
+  if constexpr (SW == 1) return c ^ (((r >> 2) & 3) << 1);
+  if constexpr (SW == 2) return c ^ (((r >> 2) & 1) << 2);
+  return c;
+}
+
+// Byte offset of (row R, byte kk) in a K-major W plane.
+__device__ __forceinline__ int plane_off(int R, int kk) {
+  return R * kPlaneRow + ((((kk >> 4) ^ (R >> 3)) & 3) << 4) + (kk & 15);
+}
+
+// Stage ROWS rows of ROW_BYTES bytes: row r from src + r * src_ld to
+// dst + r * dst_ld (chunks placed by chunk_pos<SW>).  Rows from
+// rows_valid on, and bytes from `lim` on, are zeroed.  V16: 16-byte
+// copies in a fixed count per thread; else `cb` bytes a copy (8 or 4, the
+// row size and base allowing) or, with cb 0, plain byte loads.
+template <bool V16, int ROWS, int ROW_BYTES, int SW>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_ld,
+                                           const unsigned char* src,
+                                           size_t src_ld, int rows_valid,
+                                           long long lim, int cb) {
+  if constexpr (V16) {
+    constexpr int CPR = ROW_BYTES / 16;
+    constexpr int TOTAL = ROWS * CPR;
+#pragma unroll
+    for (int i = 0; i < (TOTAL + kThreads - 1) / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (TOTAL % kThreads == 0 || e < TOTAL) {
+        const int r = e / CPR, c = e % CPR;
+        unsigned char* d = dst + r * dst_ld + (chunk_pos<SW>(r, c) << 4);
+        if (r < rows_valid && 16 * c < lim)
+          cp_async(d, src + r * src_ld + 16 * c, 16);
+        else
+          zero_smem(d, 16);
+      }
+    }
+  } else {
+    const int step = cb ? cb : 1;
+    const int per_row = ROW_BYTES / step;
+#pragma unroll 1
+    for (int e = threadIdx.x; e < ROWS * per_row; e += kThreads) {
+      const int r = e / per_row, x = (e - r * per_row) * step;
+      unsigned char* d =
+          dst + r * dst_ld + (chunk_pos<SW>(r, x >> 4) << 4) + (x & 15);
+      const bool ok = r < rows_valid && x < lim;
+      if (cb == 0)
+        *d = ok ? src[r * src_ld + x] : 0;
+      else if (ok)
+        cp_async(d, src + r * src_ld + x, cb);
+      else
+        zero_smem(d, cb);
+    }
+  }
+}
+
+// Issue the copies of stage k0 (W rows [k0, k0 + kBK) of the block's
+// columns, a's rows at the same k) into ring slot `slot`.  P carries the
+// operands: a, w (byte pointers), M, K, N and the copy sizes cb_a, cb_w.
+template <int AB, int WB, int BM, bool V16, class P>
+__device__ __forceinline__ void issue_stage(const P& p, unsigned char* slot,
+                                            int k0, int k_hi, int m0,
+                                            int n0) {
+  const size_t w_ld = static_cast<size_t>(p.N) * WB;
+  stage_rows<V16, kBK, kBN * WB, WB>(
+      slot, kBN * WB, p.w + k0 * w_ld + static_cast<size_t>(n0) * WB, w_ld,
+      k_hi - k0, static_cast<long long>(p.N - n0) * WB, p.cb_w);
+  const size_t a_ld = static_cast<size_t>(p.K) * AB;
+  stage_rows<V16, BM, kBK * AB, 0>(
+      slot + kBK * kBN * WB, ring_a_row(AB),
+      p.a + m0 * a_ld + static_cast<size_t>(k0) * AB, a_ld, p.M - m0,
+      (k_hi - k0) * AB, p.cb_a);
+}
+
+// Transpose the raw W tile of `slot` into K-major planes at `wp` (2-byte
+// W: plane 0 = hi, plane 1 = lo), and split 2-byte a rows into planes at
+// `ap`.  Thread item (nb, kb): columns [4nb, 4nb + 4) of k rows
+// [4kb, 4kb + 4); a warp takes 8 column blocks x 4 k blocks.
+template <int AB, int WB, int BM>
+__device__ __forceinline__ void prepare(const unsigned char* slot,
+                                        unsigned char* wp,
+                                        unsigned char* ap) {
+  constexpr int WROW = kBN * WB;
+#pragma unroll
+  for (int item = 0; item < (kBN / 4) * (kBK / 4) / kThreads; ++item) {
+    const int e = threadIdx.x + item * kThreads;
+    const int lane = e & 31, wi = e >> 5;
+    const int nb = ((wi & 3) << 3) | (lane & 7);
+    const int kb = ((wi >> 2) << 2) | (lane >> 3);
+    uint32_t r[WB][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = 4 * kb + i;
+      const int x = WB == 1 ? 4 * nb : 8 * nb;
+      const unsigned char* src =
+          slot + row * WROW + (chunk_pos<WB>(row, x >> 4) << 4) + (x & 15);
+      if constexpr (WB == 1) {
+        r[0][i] = *reinterpret_cast<const uint32_t*>(src);
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(src);
+        r[0][i] = plane_hi(v.x, v.y);
+        r[1][i] = plane_lo(v.x, v.y);
+      }
+    }
+#pragma unroll
+    for (int pl = 0; pl < WB; ++pl) {
+      uint32_t o[4];
+      transpose4x4(r[pl], o);
+      unsigned char* base = wp + pl * kBN * kPlaneRow;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(base + plane_off(4 * nb + j, 4 * kb)) =
+            o[j];
+    }
+  }
+  if constexpr (AB == 2) {
+    const unsigned char* as = slot + kBK * WROW;
+    constexpr int ITEMS = BM * (kBK / 4);
+#pragma unroll
+    for (int item = 0; item < (ITEMS + kThreads - 1) / kThreads; ++item) {
+      const int e = threadIdx.x + item * kThreads;
+      if (ITEMS % kThreads != 0 && e >= ITEMS) break;
+      const int m = e >> 4, g4 = e & 15;
+      const uint2 v = *reinterpret_cast<const uint2*>(
+          as + m * ring_a_row(2) + 8 * g4);
+      *reinterpret_cast<uint32_t*>(ap + m * kPlaneRow + 4 * g4) =
+          plane_hi(v.x, v.y);
+      *reinterpret_cast<uint32_t*>(ap + BM * kPlaneRow + m * kPlaneRow +
+                                   4 * g4) = plane_lo(v.x, v.y);
+    }
+  }
+}
+
+// The K loop of one block: W rows [k_lo, k_hi) of columns [n0, n0 + kBN)
+// and a's rows [m0, m0 + BM) stream through the ring (dynamic shared
+// memory `smem` of smem_bytes(BM, AB, WB)), and for every k32 step,
+// 8-row group j of m, W plane pw and a plane pa the block calls
+//   mma(j, pw, pa, A fragment of W plane pw, b0, b1)
+// with the B fragment (b0, b1) of a plane pa, group j.  The loops are
+// unrolled, so j, pw and pa are constants and a caller's branches on them
+// fold.  Output element d_i of group j of a thread (lane 4g + t of warp
+// `warp`) is out[m0 + 8j + 2t + (i & 1)][n0 + 16 warp + g + 8 (i >> 1)].
+// The ring and planes are not touched after the last MMA, so an epilogue
+// may follow without a barrier.
+template <int AB, int WB, int BM, bool V16, class P, class Mma>
+__device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
+                                         int m0, int n0, int k_lo,
+                                         int k_hi, Mma&& mma) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nsteps = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
+  constexpr int SB = stage_bytes(BM, AB, WB);
+  constexpr int PB = plane_bytes(BM, AB, WB);
+  constexpr int MG = BM / 8;  // 8-row groups of m
+  constexpr int kStages = stages_for(BM, AB, WB);
+  unsigned char* planes = smem + kStages * SB;
+
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps)
+      issue_stage<AB, WB, BM, V16>(p, smem + s * SB, k_lo + s * kBK, k_hi,
+                                   m0, n0);
+    cp_async_commit();
+  }
+
+  // this lane's ldmatrix rows: W rows of its warp's 16 columns (matrices
+  // rows 0-7 / 8-15 at k chunk 0 / 1), a rows of an m-group pair
+  const int wrow = 16 * warp + ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int wchunk = lane >> 4;
+  const int arow = ((lane >> 4) & 1) * 8 + (lane & 7);
+  const int achunk = (lane >> 3) & 1;
+
+  // Stage it is transposed into plane buffer it & 1 one step ahead of its
+  // MMAs, so one barrier a step separates the copies, the transposing
+  // pass and the MMAs.
+  if (nsteps > 0) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    prepare<AB, WB, BM>(smem, planes, planes + WB * kBN * kPlaneRow);
+  }
+  for (int it = 0; it < nsteps; ++it) {
+    // stage it + 1 has landed; the barrier publishes every thread's copies
+    // and stage it's planes, and ends the MMAs of step it - 1 (the last
+    // readers of ring slot it - 1 and plane buffer it + 1)
+    cp_async_wait<kStages - 3>();
+    __syncthreads();
+    {
+      const int s = it + kStages - 1;
+      if (s < nsteps)
+        issue_stage<AB, WB, BM, V16>(p, smem + (s % kStages) * SB,
+                                     k_lo + s * kBK, k_hi, m0, n0);
+      cp_async_commit();
+    }
+    unsigned char* slot = smem + (it % kStages) * SB;
+    unsigned char* wp = planes + (it & 1) * PB;
+    unsigned char* ap = AB == 2 ? wp + WB * kBN * kPlaneRow
+                                : slot + kBK * kBN * WB;
+    if (it + 1 < nsteps) {
+      unsigned char* wn = planes + ((it + 1) & 1) * PB;
+      prepare<AB, WB, BM>(smem + ((it + 1) % kStages) * SB, wn,
+                          wn + WB * kBN * kPlaneRow);
+    }
+
+    const uint32_t wp_s = smem_addr(wp), ap_s = smem_addr(ap);
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      uint32_t af[WB][4];
+#pragma unroll
+      for (int pw = 0; pw < WB; ++pw)
+        ldmatrix_x4(af[pw], wp_s + pw * kBN * kPlaneRow +
+                                plane_off(wrow, 32 * ks + 16 * wchunk));
+      if constexpr (MG == 1) {
+#pragma unroll
+        for (int pa = 0; pa < AB; ++pa) {
+          uint32_t bf[2];
+          ldmatrix_x2(bf, ap_s + pa * BM * kPlaneRow +
+                              (lane & 7) * kPlaneRow +
+                              (2 * ks + achunk) * 16);
+#pragma unroll
+          for (int pw = 0; pw < WB; ++pw)
+            mma(0, pw, pa, af[pw], bf[0], bf[1]);
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < MG / 2; ++jj) {
+#pragma unroll
+          for (int pa = 0; pa < AB; ++pa) {
+            uint32_t bf[4];
+            ldmatrix_x4(bf, ap_s + pa * BM * kPlaneRow +
+                                (16 * jj + arow) * kPlaneRow +
+                                (2 * ks + achunk) * 16);
+#pragma unroll
+            for (int pw = 0; pw < WB; ++pw) {
+              mma(2 * jj, pw, pa, af[pw], bf[0], bf[1]);
+              mma(2 * jj + 1, pw, pa, af[pw], bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The largest of 16, 8, 4 bytes that divides the row size and the base
+// address; 0 (plain loads) if none does.
+inline int copy_bytes(const void* base, long long row_bytes) {
+  const auto addr = reinterpret_cast<uintptr_t>(base);
+  for (int cb = 16; cb >= 4; cb >>= 1)
+    if (row_bytes % cb == 0 && addr % cb == 0) return cb;
+  return 0;
+}
 
 }  // namespace mma_s8

@@ -1,0 +1,344 @@
+// K2 on Hopper's int8 tensor cores: the packed-lane matmul of the
+// int16xP2s8 layout, with the affine epilogue of ops.quantized_linear.
+//
+// Replaces repro/kernels/ulppack_matmul.py:ulppack_matmul (Pallas kernel
+// `_kernel`, pallas_call at :99) for int16 lanes of two 8-bit fields, the
+// layout of every shipped W2A2 config; every other layout keeps the
+// CUDA-core kernel of ulppack_matmul.cu.  For activation lanes a [M, K]
+// (field j of lane k = lattice value 2k + j, at bit 8j) and field-reversed
+// weight lanes w [K, N] (lattice value 2k at bit 8, 2k + 1 at bit 0), each
+// byte of a lane is one lattice value, so the exact lattice dot is
+//   out[m, n] = sum_k lo(a[m,k]) * hi(w[k,n]) + hi(a[m,k]) * lo(w[k,n])
+// -- two u8 x u8 products per lane on the int8 tensor cores, with no
+// packed-space product, no k_tile runs and no shift-mask extraction.  It
+// equals ref.packed_matmul_ref / packing.packed_lanes_matmul bit for bit.
+//
+// Bound on Hopper: bytes, at decode (M = 4) and at prefill (M = 64) alike
+// once on the tensor cores: (64, 1024, 5632) is 0.74 G int8 MACs, 0.75 us
+// at the int8 rate, against 3.9 us for its 11.5 MB.  (On the CUDA cores
+// the same call is 369 M 32-bit multiply-adds, >= 22 us: the old kernel's
+// ceiling.)  So the design streams the weight lanes once with enough
+// bytes in flight, on K7's tile (mma_s8.cuh: W as the MMA's A operand,
+// 128 columns a block, rows of m in groups of 8, a cp.async ring of raw W
+// tiles transposed with prmt into K-major byte planes in shared memory):
+//
+// - Both operands are 2-byte and split into byte planes (plane 0 = hi,
+//   plane 1 = lo), W's in the transposing pass, a's in a pass over its
+//   staged rows.  A k32 step is two mma_m16n8k32<u8, u8> into one s32
+//   accumulator: W's hi plane x a's lo plane, W's lo x a's hi.  The fields
+//   are unsigned lattices, so both planes are read as u8.
+// - No accumulator may leave the int32 range (PTX does not promise that
+//   the MMA wraps): each lane adds at most 2 * 255^2, so a K split holds at
+//   most kMaxBlockK = 16384 lanes (32768 lattice values; 255^2 * 32768 <
+//   2^31).  The planner owns that limit and this launcher refuses more.
+// - One launch a call, with no zero fill and no atomics on the output.
+//   The grid is (N tiles, M tiles, K splits).  With one split a block
+//   applies the epilogue and stores.  Otherwise each block writes its s32
+//   tile to the workspace [splits, M, N] and draws a ticket for its output
+//   tile (one acq_rel atomic by one thread, between two barriers: a
+//   device-wide fence by every thread cost more); the block that draws the
+//   last one reads the partials
+//   through L2 (__ldcg), sums them in split order (exact integers, the same
+//   bits on every run), applies the epilogue, stores, and puts the ticket
+//   back to 0.  The wrapper owns the workspace and the tickets (zeroed
+//   once, at fixed addresses), so a call can be captured in a CUDA graph.
+// - Epilogue, chosen at launch: the s32 dot (ops.packed_matmul), or the
+//   affine map of ops.quantized_linear in its eager order and rounding,
+//     out = (a_scale * w_scale)
+//           * (((acc - w_zp * a_sum) - a_zp * col_sum) + (k * a_zp) * w_zp)
+//           [+ bias]
+//   one f32 operation at a time with the _rn intrinsics (nvcc would
+//   contract a * b + c into an FMA, which rounds once where PyTorch rounds
+//   twice), stored as f32, bf16 or f16 rounded to nearest even.  The four
+//   scalars are read from device memory, never from the host.
+// - Edge tiles are masked (M, N and K are not padded on the host; lanes
+//   past K are zero in the ring).
+// - Launch geometry is the planner's (_plan_packed_matmul in
+//   repro_torch/kernels/plan.py, which mirrors the tile's constants in
+//   mma_s8.cuh and kMaxBlockK below); the launcher refuses a plan that
+//   disagrees with this layout.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include "common.cuh"
+#include "mma_s8.cuh"
+
+namespace {
+
+using namespace mma_s8;
+
+constexpr int kMaxBlockK = 16384;  // lanes per split at most (int32 sums)
+
+// What the epilogue stores.
+enum OutKind { kS32 = 0, kF32 = 1, kBF16 = 2, kF16 = 3 };
+// The bias it adds (affine epilogue only).
+enum BiasKind { kNoBias = 0, kBiasF32 = 1, kBiasBF16 = 2 };
+
+struct Args {
+  const unsigned char* a;    // [M, K] int16 lanes
+  const unsigned char* w;    // [K, N] int16 lanes, field-reversed
+  void* out;                 // [M, N] of out_kind
+  int32_t* work;             // [splits, M, N] partial dots (splits > 1)
+  unsigned int* tickets;     // one per output tile, 0 between launches
+  const int32_t* a_sums;     // [M] lattice row sums      (affine only)
+  const int32_t* col_sums;   // [N] lattice column sums
+  const float* a_scale;      // 0-dim scalars
+  const int32_t* a_zp;
+  const float* w_scale;
+  const int32_t* w_zp;
+  const void* bias;          // [N] of bias_kind, or null
+  int M, K, N, k_full, block_k, splits;
+  int out_kind, bias_kind;
+  int cb_a, cb_w;            // copy bytes (16, 8, 4; 0: plain loads)
+};
+
+// The affine map of one output element (see the note above).
+struct Affine {
+  float s, azp, wzp, kzz;
+
+  __device__ explicit Affine(const Args& p) {
+    s = __fmul_rn(*p.a_scale, *p.w_scale);
+    azp = __int2float_rn(*p.a_zp);
+    wzp = __int2float_rn(*p.w_zp);
+    kzz = __fmul_rn(__fmul_rn(__int2float_rn(p.k_full), azp), wzp);
+  }
+
+  __device__ __forceinline__ float operator()(const Args& p, int m, int n,
+                                              int32_t acc) const {
+    float c = __fsub_rn(__int2float_rn(acc),
+                        __fmul_rn(wzp, __int2float_rn(p.a_sums[m])));
+    c = __fsub_rn(c, __fmul_rn(azp, __int2float_rn(p.col_sums[n])));
+    c = __fadd_rn(c, kzz);
+    float v = __fmul_rn(s, c);
+    if (p.bias_kind == kBiasF32)
+      v = __fadd_rn(v, static_cast<const float*>(p.bias)[n]);
+    else if (p.bias_kind == kBiasBF16)
+      v = __fadd_rn(v, __bfloat162float(
+                           static_cast<const __nv_bfloat16*>(p.bias)[n]));
+    return v;
+  }
+};
+
+template <int BM, bool V16>
+__global__ void __launch_bounds__(kThreads)
+ulppack_matmul_mma_kernel(Args p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
+  const int k_lo = blockIdx.z * p.block_k;
+  const int k_hi = min(p.K, k_lo + p.block_k);
+  constexpr int MG = BM / 8;  // 8-row groups of m
+
+  int32_t acc[MG][4];
+#pragma unroll
+  for (int j = 0; j < MG; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+
+  // the lattice dot: W's hi plane x a's lo plane + W's lo x a's hi, u8
+  mainloop<2, 2, BM, V16>(
+      p, smem, m0, n0, k_lo, k_hi,
+      [&](int j, int pw, int pa, const uint32_t(&a)[4], uint32_t b0,
+          uint32_t b1) {
+        if (pw != pa) mma_m16n8k32<false, false>(acc[j], a, b0, b1);
+      });
+
+  // d_i of group j is out[m0 + 8j + 2t + (i & 1)][n0 + 16 warp + g + 8 (i >> 1)]
+  const int g = lane >> 2, t = lane & 3;
+  const size_t mn = static_cast<size_t>(p.M) * p.N;
+  if (p.splits > 1) {
+    int32_t* part = p.work + blockIdx.z * mn;
+#pragma unroll
+    for (int j = 0; j < MG; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + 8 * j + 2 * t + (i & 1);
+        const int n = n0 + 16 * warp + g + 8 * (i >> 1);
+        if (m < p.M && n < p.N)
+          __stcg(part + static_cast<size_t>(m) * p.N + n, acc[j][i]);
+      }
+    // publish the partials and draw a ticket: the barrier orders every
+    // thread's stores before thread 0's release (cumulative), and the
+    // block that draws the last ticket acquires every split's partials
+    // (thread 0's acquire, then the barrier; the reads go to L2)
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned int* ticket = p.tickets + blockIdx.y * gridDim.x + blockIdx.x;
+      unsigned int drawn;
+      asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                   : "=r"(drawn) : "l"(ticket) : "memory");
+      last = drawn == static_cast<unsigned int>(p.splits - 1);
+      if (last) *ticket = 0u;  // every split has drawn: ready for the next
+    }
+    __syncthreads();
+    if (!last) return;
+    // the splits in order, ZU splits' MG x 4 loads in flight at once
+    constexpr int ZU = MG >= 8 ? 1 : 8 / MG;
+    uint32_t sum[MG][4];
+#pragma unroll
+    for (int j = 0; j < MG; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[j][i] = 0u;
+#pragma unroll ZU
+    for (int z = 0; z < p.splits; ++z) {
+      const int32_t* src = p.work + z * mn;
+#pragma unroll
+      for (int j = 0; j < MG; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = m0 + 8 * j + 2 * t + (i & 1);
+          const int n = n0 + 16 * warp + g + 8 * (i >> 1);
+          if (m < p.M && n < p.N)
+            sum[j][i] += static_cast<uint32_t>(
+                __ldcg(src + static_cast<size_t>(m) * p.N + n));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < MG; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = static_cast<int32_t>(sum[j][i]);
+  }
+
+  if (p.out_kind == kS32) {
+#pragma unroll
+    for (int j = 0; j < MG; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + 8 * j + 2 * t + (i & 1);
+        const int n = n0 + 16 * warp + g + 8 * (i >> 1);
+        if (m < p.M && n < p.N)
+          static_cast<int32_t*>(p.out)[static_cast<size_t>(m) * p.N + n] =
+              acc[j][i];
+      }
+    return;
+  }
+  const Affine affine(p);
+#pragma unroll
+  for (int j = 0; j < MG; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + 8 * j + 2 * t + (i & 1);
+      const int n = n0 + 16 * warp + g + 8 * (i >> 1);
+      if (m < p.M && n < p.N) {
+        const float v = affine(p, m, n, acc[j][i]);
+        const size_t o = static_cast<size_t>(m) * p.N + n;
+        if (p.out_kind == kF32)
+          static_cast<float*>(p.out)[o] = v;
+        else if (p.out_kind == kBF16)
+          static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(v);
+        else
+          static_cast<__half*>(p.out)[o] = __float2half_rn(v);
+      }
+    }
+}
+
+template <int BM, bool V16>
+cudaError_t launch_variant(const Args& p, int device, cudaStream_t s) {
+  void (*kern)(Args) = ulppack_matmul_mma_kernel<BM, V16>;
+  constexpr int smem = smem_bytes(BM, 2, 2);
+  static bool raised[8] = {false};  // per device, this instantiation
+  if (smem > 48 * 1024 && !raised[device & 7]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    raised[device & 7] = true;
+  }
+  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + BM - 1) / BM, p.splits);
+  kern<<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool V16>
+cudaError_t launch_bm(const Args& p, int block_m, int device,
+                      cudaStream_t s) {
+  switch (block_m) {
+    case 8: return launch_variant<8, V16>(p, device, s);
+    case 16: return launch_variant<16, V16>(p, device, s);
+    case 32: return launch_variant<32, V16>(p, device, s);
+    case 64: return launch_variant<64, V16>(p, device, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// a [M, K] and w [K, N] int16 lanes (int16xP2s8), row-major.  out [M, N]:
+// int32 (out_kind 0) or, with the affine epilogue, f32 / bf16 / f16
+// (out_kind 1 / 2 / 3), which reads a_sums [M], col_sums [N], the 0-dim
+// a_scale (f32), a_zp (int32), w_scale (f32), w_zp (int32), k_full (the
+// lattice K) and bias [N] (bias_kind 1: f32, 2: bf16; 0: none).  With
+// splits > 1, `work` holds at least work_len int32 (splits * M * N needed)
+// and `tickets` at least tickets_len words (one per output tile), all 0.
+// The plan (block_m rows of m and block_n = 128 columns a block, step_k =
+// 64 lanes a stage, the ring depth `stages` of stages_for(), `threads` =
+// 256, K in `splits` runs of block_k lanes, a multiple of 64 and at most
+// 16384, with splits = ceil(K / block_k), and smem_bytes of dynamic shared
+// memory) must match this kernel's layout, or the launch is refused with
+// cudaErrorInvalidValue, as are missing operands of the chosen epilogue.
+REPRO_EXPORT int ulppack_matmul_mma_launch(
+    const void* a, const void* w, void* out, void* work, void* tickets,
+    const void* a_sums, const void* col_sums, const void* a_scale,
+    const void* a_zp, const void* w_scale, const void* w_zp,
+    const void* bias, int M, int K, int N, int k_full, int out_kind,
+    int bias_kind, int work_len, int tickets_len, int block_m, int block_n,
+    int step_k, int block_k, int splits, int stages, int threads, int smem,
+    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool bm_ok = block_m == 8 || block_m == 16 || block_m == 32 ||
+                     block_m == 64;
+  if (M < 1 || N < 1 || K < 0 || !bm_ok || block_n != kBN ||
+      step_k != kBK || stages != stages_for(block_m, 2, 2) ||
+      threads != kThreads ||
+      block_k < kBK || block_k > kMaxBlockK || block_k % kBK != 0 ||
+      splits != (K > 0 ? (K + block_k - 1) / block_k : 1) ||
+      splits > 65535 || (M + block_m - 1) / block_m > 65535 ||
+      smem != smem_bytes(block_m, 2, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = static_cast<long long>((N + kBN - 1) / kBN) *
+                          ((M + block_m - 1) / block_m);
+  if (splits > 1 &&
+      (work == nullptr || tickets == nullptr || tickets_len < tiles ||
+       work_len < static_cast<long long>(splits) * M * N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (out_kind < kS32 || out_kind > kF16 || bias_kind < kNoBias ||
+      bias_kind > kBiasBF16 ||
+      (out_kind != kS32 &&
+       (a_sums == nullptr || col_sums == nullptr || a_scale == nullptr ||
+        a_zp == nullptr || w_scale == nullptr || w_zp == nullptr ||
+        (bias_kind != kNoBias && bias == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args p;
+  p.a = static_cast<const unsigned char*>(a);
+  p.w = static_cast<const unsigned char*>(w);
+  p.out = out;
+  p.work = static_cast<int32_t*>(work);
+  p.tickets = static_cast<unsigned int*>(tickets);
+  p.a_sums = static_cast<const int32_t*>(a_sums);
+  p.col_sums = static_cast<const int32_t*>(col_sums);
+  p.a_scale = static_cast<const float*>(a_scale);
+  p.a_zp = static_cast<const int32_t*>(a_zp);
+  p.w_scale = static_cast<const float*>(w_scale);
+  p.w_zp = static_cast<const int32_t*>(w_zp);
+  p.bias = bias;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.k_full = k_full;
+  p.block_k = block_k;
+  p.splits = splits;
+  p.out_kind = out_kind;
+  p.bias_kind = out_kind == kS32 ? kNoBias : bias_kind;
+  p.cb_a = copy_bytes(a, static_cast<long long>(K) * 2);
+  p.cb_w = copy_bytes(w, static_cast<long long>(N) * 2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte copies of both operands in a fixed count per thread, or the
+  // ladder of copy sizes (as K7)
+  if (p.cb_a == 16 && p.cb_w == 16)
+    err = launch_bm<true>(p, block_m, device, s);
+  else
+    err = launch_bm<false>(p, block_m, device, s);
+  return static_cast<int>(err);
+}

@@ -114,6 +114,12 @@ def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
     w_col_sums: [N] int32 offline per-column lattice sums
     Returns float [..., N]; equals ``ref.quantized_linear_ref`` to float
     tolerance and its integer core exactly.
+
+    On the 'cuda' backend with an ``int16xP2s8`` layout this is two
+    launches: K1, then the tensor-core K2 with the affine correction fused
+    into its epilogue (``ulppack_matmul.Affine``), which returns
+    ``out_dtype`` bit-equal to the eager correction below -- the plain
+    version, which every other backend and layout runs.
     """
     k = x.shape[-1]
     if plan is None:
@@ -123,6 +129,14 @@ def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
             backend=backend, device=x.device)
     a_packed, a_sums = quantize_pack(x, a_scale, a_zp, spec,
                                      backend=plan.backend)
+    if plan.backend == "cuda" and plan_lib.packed_matmul_on_tensor_cores(
+            spec):
+        out = _matmul.ulppack_matmul_mma_cuda(
+            a_packed.reshape(-1, a_packed.shape[-1]), w_packed, spec,
+            plan=plan, epilogue=_matmul.Affine(
+                a_sums, w_col_sums, a_scale, a_zp, w_scale, w_zp, k, bias,
+                out_dtype))
+        return out.reshape(*x.shape[:-1], w_packed.shape[-1])
     acc = packed_matmul(a_packed, w_packed, spec, plan=plan)
     f32 = torch.float32
     a_zp_f = torch.as_tensor(a_zp).to(f32)

@@ -34,17 +34,18 @@ BACKENDS = ("torch", "cuda")
 #: Blocks per SM the matmul planner aims for when it picks a K split.
 _WAVES = 2
 
-#: Threads per block of the matmul kernel (kThreads in csrc/).
+#: Threads per block of the CUDA-core packed matmul kernel (kThreads in
+#: csrc/ulppack_matmul.cu).
 MATMUL_THREADS = 128
 
-#: The tile of the integer matmul kernel K7 (kBN, kBK, kMaxStages,
-#: kSmemMax, kThreads, kMaxBlockK and kPlaneRow in csrc/int_matmul.cu; a
-#: CPU test holds the two equal, and the C launcher refuses a plan that
-#: disagrees): output columns per block, K per stage, the cp.async ring's
-#: depth at most and the shared memory it may fill, threads per block, K
-#: per split at most (its s32 MMA sums stay in range), the bytes of a
-#: K-major byte-plane row in shared memory, and the rows of m per block the
-#: kernel is built for.
+#: The int8 tensor-core tile of K7 and of K2's int16xP2s8 route (kBN,
+#: kBK, kMaxStages, kSmemMax, kThreads and kPlaneRow in csrc/mma_s8.cuh,
+#: kMaxBlockK in csrc/int_matmul.cu; a CPU test holds them equal, and the C
+#: launchers refuse a plan that disagrees): output columns per block, K per
+#: stage, the cp.async ring's depth at most and the shared memory it may
+#: fill, threads per block, K7's K per split at most (its s32 MMA sums stay
+#: in range), the bytes of a K-major byte-plane row in shared memory, and
+#: the rows of m per block the kernels are built for.
 INT_MATMUL_BN = 128
 INT_MATMUL_BK = 64
 INT_MATMUL_MAX_STAGES = 8
@@ -56,6 +57,21 @@ INT_MATMUL_BLOCK_MS = (8, 16, 32, 64)
 #: The fixed cost of a K7 block (its prologue and epilogue), in stages, for
 #: the planner's choice of the K split.
 _INT_MATMUL_BLOCK_COST = 3
+#: K2 on the tile (csrc/ulppack_matmul_mma.cu): int16 lanes per split at
+#: most (kMaxBlockK there: each lane adds two u8 x u8 products to one s32
+#: sum, 255^2 * 2 * 16384 < 2^31).  Its split model, in units of one
+#: 8-row block's stage (~0.7 us alone on an H100): a stage's cost by
+#: block_m, a block's fixed cost (its first copies' latency, epilogue),
+#: and the split-K fix-up's -- 2 plus, per split, the block_m x 128
+#: partials that the last block reads back (bm / 32) -- fitted to the
+#: split sweep of ``chip_smoke.py --k2-sweep`` (PERF.md).
+ULPPACK_MMA_MAX_BLOCK_K = 16384
+_ULPPACK_MMA_STAGE_COST = {8: 1.0, 16: 1.2, 32: 1.4, 64: 1.8}
+_ULPPACK_MMA_BLOCK_COST = 3
+
+
+def _ulppack_mma_split_cost(splits: int, bm: int) -> float:
+    return 2 + splits * bm / 32 if splits > 1 else 0
 
 #: The conv tile of csrc/conv2d_tile.cuh (PPT, GPR, CPT, FW_MAX and
 #: kMaxThreads there; a CPU test holds the two equal, and the C launcher
@@ -98,7 +114,9 @@ class KernelPlan:
 
     Geometry fields are populated per op (``None`` where not applicable):
       packed_matmul    : block_m (rows per block), splits / block_k (K
-                         split count and lanes per split)
+                         split count and lanes per split); on the tensor
+                         cores (int16xP2s8) also int_matmul's block_n,
+                         step_k, stages, threads and smem_bytes
       int_matmul       : block_m / block_n (output rows / columns per
                          block), step_k (K per stage), stages, threads,
                          splits / block_k (K split count and K per split),
@@ -246,31 +264,75 @@ def _sm_count(device_key: str) -> int:
 # Planners (memoized: one plan per layer signature per process)
 # ---------------------------------------------------------------------------
 
+def packed_matmul_on_tensor_cores(spec: PackSpec) -> bool:
+    """Whether K2 runs on the int8 tensor cores for this layout: int16
+    lanes of two 8-bit fields (``int16xP2s8``), where each byte of a lane
+    is one lattice value.  Every other layout (``int16xP4s4``,
+    ``int8xP2s4``, the int32 lanes) takes the CUDA-core kernel, the
+    faithful ``vmacsr``."""
+    return (spec.lane_dtype == torch.int16 and spec.n_pack == 2
+            and spec.shift == 8)
+
+
 def plan_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
                        backend: str = "auto", device="cpu") -> KernelPlan:
-    """Plan a packed-lane matmul [m, kp] x [kp, n] (kernel K2)."""
+    """Plan a packed-lane matmul [m, kp] x [kp, n] (kernel K2).
+
+    The layout picks the kernel (:func:`packed_matmul_on_tensor_cores`):
+    ``int16xP2s8`` runs on the int8 tensor cores over K7's tile, and the
+    plan carries that tile's whole geometry (block_m of 8/16/32/64 rows,
+    128 columns, 64 lanes a stage, the ring, 256 threads, the shared
+    memory; K in splits of at most 16384 lanes; rows and splits from a
+    wave cost model fitted on an H100, ``_tile_split``); every other
+    layout takes the CUDA-core kernel with
+    :func:`packed_matmul_core_geometry`."""
     return _plan_packed_matmul(m, kp, n, spec,
                                resolve_backend(backend, device),
                                _device_key(device))
 
 
-@functools.lru_cache(maxsize=None)
-def _plan_packed_matmul(m, kp, n, spec, backend, device_key) -> KernelPlan:
+def packed_matmul_core_geometry(m: int, kp: int, n: int, spec: PackSpec,
+                                device="cpu") -> dict:
+    """block_m, block_k and splits of the CUDA-core K2 kernel
+    (csrc/ulppack_matmul.cu), which takes any feasible layout: 4 or 8 rows
+    a block, 8 bytes of lanes a thread, and K split until the grid covers
+    the card twice.  Any split is exact (each extracted run holds at most
+    k_tile lanes); splits longer than k_tile are whole runs, so no split
+    adds an extraction."""
     spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
     bm = 4 if m <= 4 else 8
     cpt = 8 // spec.lane_bytes               # columns per thread (8-byte load)
     bn = MATMUL_THREADS * cpt
     blocks = -(-n // bn) * -(-m // bm)
-    # split K until the grid covers the card.  Any split is exact (each
-    # extracted run holds at most k_tile lanes); splits longer than k_tile
-    # are whole runs, so no split adds an extraction.
-    splits = max(1, min(kp, -(-_WAVES * _sm_count(device_key) // blocks)))
+    splits = max(1, min(kp, -(-_WAVES * _sm_count(_device_key(device))
+                              // blocks)))
     block_k = -(-kp // splits)
     if block_k > spec.k_tile:
         block_k = -(-block_k // spec.k_tile) * spec.k_tile
-    splits = -(-kp // block_k)
+    return dict(block_m=bm, block_k=block_k, splits=-(-kp // block_k))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_packed_matmul(m, kp, n, spec, backend, device_key) -> KernelPlan:
+    spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
+    if not packed_matmul_on_tensor_cores(spec):
+        return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
+                          **packed_matmul_core_geometry(m, kp, n, spec,
+                                                        device_key))
+    # rows: the smallest block that holds m, or 16/32-row blocks below it
+    # (more blocks, each stage's MMAs and plane split shorter)
+    block_ms = {_block_m_for(m)} | {b for b in (16, 32) if b < m}
+    bm, per, splits = _tile_split(m, kp, n, block_ms, _ULPPACK_MMA_STAGE_COST,
+                                  _ULPPACK_MMA_BLOCK_COST,
+                                  _ulppack_mma_split_cost,
+                                  ULPPACK_MMA_MAX_BLOCK_K, device_key)
+    stages, smem = int_matmul_smem_layout(bm, 2, 2)
     return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
-                      block_m=bm, block_k=block_k, splits=splits)
+                      block_m=bm, block_n=INT_MATMUL_BN,
+                      step_k=INT_MATMUL_BK, stages=stages,
+                      threads=INT_MATMUL_THREADS,
+                      block_k=per * INT_MATMUL_BK, splits=splits,
+                      smem_bytes=smem)
 
 
 def plan_quantize_pack(m: int, k: int, spec: PackSpec, *,
@@ -309,12 +371,13 @@ def plan_int_matmul(m: int, k: int, n: int, *, a_bytes: int = 1,
 
 def int_matmul_smem_layout(block_m: int, a_bytes: int,
                            w_bytes: int) -> tuple[int, int]:
-    """(ring depth, shared memory) of one K7 block: the layout of
-    ``stages_for`` and ``smem_bytes`` in csrc/int_matmul.cu.  Ring slots,
-    each a raw W tile [64, 128] and block_m raw a rows of 64 elements (+16
-    bytes of padding), as many as fit beside two buffers of K-major byte
-    planes (one per byte of W; a's two only when a is int16, else the MMAs
-    read a from the ring), up to ``INT_MATMUL_MAX_STAGES``."""
+    """(ring depth, shared memory) of one block of the int8 tile (K7, and
+    the tensor-core K2 with 2-byte operands): the layout of ``stages_for``
+    and ``smem_bytes`` in csrc/mma_s8.cuh.  Ring slots, each a raw W tile
+    [64, 128] and block_m raw a rows of 64 elements (+16 bytes of
+    padding), as many as fit beside two buffers of K-major byte planes
+    (one per byte of W; a's two only when a is 2-byte, else the MMAs read
+    a from the ring), up to ``INT_MATMUL_MAX_STAGES``."""
     bk, row = INT_MATMUL_BK, INT_MATMUL_PLANE_ROW
     stage = bk * INT_MATMUL_BN * w_bytes + block_m * (bk * a_bytes + 16)
     planes = w_bytes * INT_MATMUL_BN * row + (
@@ -324,30 +387,51 @@ def int_matmul_smem_layout(block_m: int, a_bytes: int,
     return stages, stages * stage + 2 * planes
 
 
+def _tile_split(m, k, n, block_ms, stage_cost, block_cost, split_cost,
+                max_block_k, device_key):
+    """(block_m, K steps per split, splits) on the int8 tile: block_m one
+    of ``block_ms``; K split into runs of whole 64-deep stages, at most
+    ``max_block_k``; chosen so that the busiest SM spends the least time:
+    the blocks are spread over the SMs in whole waves, each block costs
+    its stages (``stage_cost[block_m]`` each) plus ``block_cost``, and the
+    call ``split_cost(splits, block_m)`` more (in stages)."""
+    steps = max(1, -(-k // INT_MATMUL_BK))
+    sms = _sm_count(device_key)
+    max_per = max_block_k // INT_MATMUL_BK
+
+    def cost(choice):
+        bm, per = choice
+        splits = -(-steps // per)
+        blocks = -(-n // INT_MATMUL_BN) * -(-m // bm) * splits
+        return (-(-blocks // sms) * (per * stage_cost[bm] + block_cost)
+                + split_cost(splits, bm), -per, bm)
+
+    bm, per = min({(bm, min(max_per, -(-steps // s))) for bm in block_ms
+                   for s in range(1, min(steps, 4 * sms) + 1)}, key=cost)
+    return bm, per, -(-steps // per)
+
+
+def _block_m_for(m):
+    """The smallest of the tile's row counts that holds m."""
+    return next((b for b in INT_MATMUL_BLOCK_MS if b >= m),
+                INT_MATMUL_BLOCK_MS[-1])
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_int_matmul(m, k, n, a_bytes, w_bytes, backend,
                      device_key) -> KernelPlan:
     if a_bytes not in (1, 2) or w_bytes not in (1, 2):
         raise TypeError(f"int_matmul takes int8 / int16 operands (1 or 2 "
                         f"bytes), got {a_bytes} x {w_bytes} bytes")
-    bm = next((b for b in INT_MATMUL_BLOCK_MS if b >= m),
-              INT_MATMUL_BLOCK_MS[-1])
-    tiles = -(-n // INT_MATMUL_BN) * -(-m // bm)
-    steps = max(1, -(-k // INT_MATMUL_BK))
-    sms = _sm_count(device_key)
-    max_per = INT_MATMUL_MAX_BLOCK_K // INT_MATMUL_BK
-
-    def cost(per):        # the busiest SM's stages, each block's fixed cost
-        blocks = tiles * -(-steps // per)
-        return -(-blocks // sms) * (per + _INT_MATMUL_BLOCK_COST), -per
-
-    per = min({min(max_per, -(-steps // s))        # K steps per split
-               for s in range(1, min(steps, 4 * sms) + 1)}, key=cost)
+    bm = _block_m_for(m)
+    bm, per, splits = _tile_split(m, k, n, (bm,), {bm: 1},
+                                  _INT_MATMUL_BLOCK_COST, lambda s, b: 0,
+                                  INT_MATMUL_MAX_BLOCK_K, device_key)
     stages, smem = int_matmul_smem_layout(bm, a_bytes, w_bytes)
     return KernelPlan(op="int_matmul", backend=backend, block_m=bm,
                       block_n=INT_MATMUL_BN, step_k=INT_MATMUL_BK,
                       stages=stages, threads=INT_MATMUL_THREADS,
-                      block_k=per * INT_MATMUL_BK, splits=-(-steps // per),
+                      block_k=per * INT_MATMUL_BK, splits=splits,
                       smem_bytes=smem)
 
 

@@ -1,14 +1,22 @@
 """K2: ULPPACK packed-lane matmul -- the ``vmacsr`` analogue -- and K7: the
 unpacked integer matmul.
 
-Replaces ``repro/kernels/ulppack_matmul.py:ulppack_matmul`` (Pallas kernel
-``_kernel``, pallas_call at :99).  The hand-written kernel is
-``csrc/ulppack_matmul.cu`` (CUDA cores, 32-bit integer registers; its
-source note says what bounds it and why).  It computes the exact int32 dot
-of the lattices behind packed activation lanes a [M, Kp] and field-reversed
-weight lanes w [Kp, N]: runs of at most ``k_tile`` lanes are contracted in
-packed space, then ``(t >> shift*(n_pack-1)) & field_mask`` is taken and
-summed wide.
+K2 replaces ``repro/kernels/ulppack_matmul.py:ulppack_matmul`` (Pallas
+kernel ``_kernel``, pallas_call at :99): the exact int32 dot of the
+lattices behind packed activation lanes a [M, Kp] and field-reversed
+weight lanes w [Kp, N].  The layout picks one of two hand-written kernels
+(``plan.packed_matmul_on_tensor_cores``):
+
+- ``int16xP2s8``, the layout of every shipped W2A2 config:
+  ``csrc/ulppack_matmul_mma.cu`` on the int8 tensor cores, over K7's tile.
+  Each byte of a lane is one lattice value, so the dot is two u8 x u8
+  byte-plane products per lane; one launch a call (a split-K fix-up in
+  place of a zero fill and atomics), with the affine epilogue of
+  ``ops.quantized_linear`` fused in on request (:class:`Affine`).
+- every other layout: ``csrc/ulppack_matmul.cu`` (CUDA cores, 32-bit
+  integer registers), the faithful kernel: runs of at most ``k_tile``
+  lanes contracted in packed space, then ``(t >> shift*(n_pack-1)) &
+  field_mask`` taken and summed wide.
 
 K7 replaces ``repro/kernels/ulppack_matmul.py:int_matmul`` (Pallas kernel
 ``_int_kernel``, pallas_call at :145): s8/s16 x s8/s16 -> s32, wrapped mod
@@ -19,11 +27,14 @@ shared memory, int16 operands as two byte planes, edge tiles masked).
 
 :func:`ulppack_matmul_torch` and :func:`int_matmul_torch` are the plain
 PyTorch versions (the CPU path and the on-card comparison);
-``kernel_launches`` / ``plain_calls`` count each kernel's launches and each
-plain version's calls, keyed by kernel name.
+``kernel_launches`` / ``plain_calls`` count the CUDA-core K2's and K7's
+launches and each plain version's calls, keyed by kernel name, and
+``mma_launches`` the tensor-core K2's, keyed by epilogue.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +42,7 @@ from repro_torch.core import packing
 from repro_torch.core.packing import PackSpec
 from repro_torch.kernels import build
 from repro_torch.kernels import plan as plan_lib
+from repro_torch.kernels.quant_pack import _as_device_scalar
 
 NAMES = ("ulppack_matmul", "int_matmul")
 
@@ -38,6 +50,8 @@ NAMES = ("ulppack_matmul", "int_matmul")
 #: process, keyed by kernel name.
 kernel_launches = dict.fromkeys(NAMES, 0)
 plain_calls = dict.fromkeys(NAMES, 0)
+#: Launches of the tensor-core K2 in this process, keyed by epilogue.
+mma_launches = {"s32": 0, "affine": 0}
 
 #: int64 bytes one chunk of the plain int_matmul may hold on the card.
 _PLAIN_BUDGET = 1 << 28
@@ -48,6 +62,8 @@ _launch: dict = {}
 def reset_counts():
     for k in NAMES:
         kernel_launches[k] = plain_calls[k] = 0
+    for k in mma_launches:
+        mma_launches[k] = 0
 
 
 def _check(a_packed, w_packed, spec: PackSpec):
@@ -96,6 +112,130 @@ def ulppack_matmul_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
             block_k, splits, block_m, a.device.index or 0,
             torch.cuda.current_stream(a.device).cuda_stream)
     kernel_launches["ulppack_matmul"] += 1
+    return out
+
+
+class Affine(NamedTuple):
+    """The affine map of ``ops.quantized_linear``, fused into the
+    tensor-core K2's epilogue:
+
+        out = (a_scale * w_scale) * (((acc - w_zp * a_sums) - a_zp *
+              col_sums) + (k * a_zp) * w_zp) [+ bias], as ``out_dtype``
+
+    in f32, one rounding an operation, bit-equal to the eager version."""
+
+    a_sums: torch.Tensor          # [M] or [M, 1] int32 lattice row sums
+    col_sums: torch.Tensor        # [N] int32 lattice column sums
+    a_scale: object               # scalars: 0-dim tensors or numbers
+    a_zp: object
+    w_scale: object
+    w_zp: object
+    k: int                        # the lattice K (unpadded)
+    bias: torch.Tensor | None = None
+    out_dtype: torch.dtype = torch.float32
+
+
+_OUT_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
+_BIAS_KINDS = {torch.float32: 1, torch.bfloat16: 2}
+
+#: The tensor-core K2's split-K workspace and tickets, per (device, stream):
+#: allocated on first use, grown when a call needs more, the tickets
+#: zeroed only then (every launch leaves them at 0).
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, stream: int, work_len: int,
+               tiles: int):
+    key = (device.index, stream)
+    work, tickets = _workspaces.get(key, (None, None))
+    if work is None or work.numel() < work_len:
+        work = torch.empty(max(work_len, 1), dtype=torch.int32,
+                           device=device)
+    if tickets is None or tickets.numel() < tiles:
+        tickets = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _workspaces[key] = work, tickets
+    return work, tickets
+
+
+def _affine_operands(ep: Affine, m: int, n: int, dev: torch.device):
+    """The fused epilogue's launch arguments: (out kind, bias kind, the
+    tensors a_sums, col_sums, a_scale, a_zp, w_scale, w_zp and the bias,
+    all on ``dev``), checked against what the kernel reads."""
+    if ep.out_dtype not in _OUT_KINDS:
+        raise TypeError(f"the fused epilogue stores f32, bf16 or f16, not "
+                        f"{ep.out_dtype}")
+    a_sums, col_sums = ep.a_sums.reshape(-1), ep.col_sums.reshape(-1)
+    if a_sums.numel() != m or col_sums.numel() != n \
+            or a_sums.dtype != torch.int32 or col_sums.dtype != torch.int32:
+        raise ValueError(f"a_sums / col_sums must be int32 with {m} / {n} "
+                         f"values")
+    tensors = [a_sums.contiguous(), col_sums.contiguous(),
+               _as_device_scalar(ep.a_scale, torch.float32, dev),
+               _as_device_scalar(ep.a_zp, torch.int32, dev),
+               _as_device_scalar(ep.w_scale, torch.float32, dev),
+               _as_device_scalar(ep.w_zp, torch.int32, dev)]
+    bias_kind = 0
+    if ep.bias is not None:
+        bias = ep.bias.reshape(-1)
+        if bias.numel() != n:
+            raise ValueError(f"bias must have {n} values")
+        if bias.dtype == torch.float16:        # exact in f32, as in eager
+            bias = bias.float()
+        if bias.dtype not in _BIAS_KINDS:
+            raise TypeError(f"bias must be f32, bf16 or f16, not "
+                            f"{bias.dtype}")
+        bias_kind = _BIAS_KINDS[bias.dtype]
+        tensors.append(bias.contiguous())
+    if any(t.device != dev for t in tensors):
+        raise ValueError("the epilogue's tensors must be on the operands' "
+                         "device")
+    return _OUT_KINDS[ep.out_dtype], bias_kind, tensors
+
+
+def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
+                            spec: PackSpec, *, plan,
+                            epilogue: Affine | None = None) -> torch.Tensor:
+    """Launch the tensor-core K2 (CUDA tensors, ``int16xP2s8`` lanes) with
+    the geometry of ``plan`` (``plan_packed_matmul`` for these shapes):
+    the exact int32 dot [M, N], or with ``epilogue`` the affine map of
+    ``ops.quantized_linear`` as ``epilogue.out_dtype`` (f32, bf16 or f16).
+    One launch; no fall-back."""
+    _check(a_packed, w_packed, spec)
+    if not plan_lib.packed_matmul_on_tensor_cores(spec):
+        raise ValueError(f"{spec}: the tensor-core K2 takes int16xP2s8 "
+                         f"lanes only")
+    if not (a_packed.is_cuda and w_packed.device == a_packed.device):
+        raise ValueError("ulppack_matmul_mma_cuda needs both operands on one "
+                         "CUDA device")
+    a = a_packed.contiguous()
+    w = w_packed.contiguous()
+    m, kp = a.shape
+    n = w.shape[1]
+    dev = a.device
+    if epilogue is None:
+        out_kind, bias_kind, tensors = 0, 0, []
+        out_dtype, k_full = torch.int32, 0
+    else:
+        out_kind, bias_kind, tensors = _affine_operands(epilogue, m, n, dev)
+        out_dtype, k_full = epilogue.out_dtype, epilogue.k
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tiles = -(-n // plan.block_n) * -(-m // plan.block_m)
+    work_len = plan.splits * m * n if plan.splits > 1 else 0
+    work, tickets = _workspace(dev, stream, work_len, tiles)
+    ptrs = [t.data_ptr() for t in tensors] + [0] * (7 - len(tensors))
+    fn = _launch.get("ulppack_matmul_mma")
+    if fn is None:
+        fn = _launch["ulppack_matmul_mma"] = build.bind(
+            "ulppack_matmul_mma", "ulppack_matmul_mma_launch", 12, 16)
+    fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(),
+       tickets.data_ptr(), *ptrs, m, kp, n, k_full, out_kind, bias_kind,
+       work.numel(), tickets.numel(), plan.block_m, plan.block_n,
+       plan.step_k, plan.block_k, plan.splits, plan.stages, plan.threads,
+       plan.smem_bytes, dev.index or 0, stream)
+    mma_launches["s32" if epilogue is None else "affine"] += 1
     return out
 
 
@@ -166,6 +306,8 @@ def _packed_matmul_torch(plan, a2, w):
 
 @plan_lib.register_backend("packed_matmul", "cuda")
 def _packed_matmul_cuda(plan, a2, w):
+    if plan_lib.packed_matmul_on_tensor_cores(plan.spec):
+        return ulppack_matmul_mma_cuda(a2, w, plan.spec, plan=plan)
     return ulppack_matmul_cuda(a2, w, plan.spec, block_m=plan.block_m,
                                block_k=plan.block_k, splits=plan.splits)
 

@@ -52,17 +52,169 @@ def test_quantize_pack_bit_equal(hopper, m, k, spec):
 @pytest.mark.parametrize("spec", ["W2A2/int16xP2s8", "W2A2/int32xP2s16",
                                   "W2A2/int32xP4s8"])
 def test_ulppack_matmul_bit_equal(hopper, m, kp, n, spec):
+    """The CUDA-core K2 with its own geometry, at every layout (int16xP2s8
+    too, though the planner sends that layout to the tensor cores)."""
     sp = PackSpec.parse(spec)
     g = _gen(hopper, m + n)
     qa = torch.randint(0, 4, (m, kp * sp.n_pack), generator=g, device=hopper)
     qw = torch.randint(0, 4, (kp * sp.n_pack, n), generator=g, device=hopper)
     a, w = packing.pack_activations(qa, sp), packing.pack_weights(qw, sp)
-    plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=hopper)
-    assert plan.backend == "cuda"
+    assert plan_lib.plan_packed_matmul(m, kp, n, sp,
+                                       device=hopper).backend == "cuda"
     got = ulppack_matmul.ulppack_matmul_cuda(
-        a, w, sp, block_m=plan.block_m, block_k=plan.block_k,
-        splits=plan.splits)
+        a, w, sp, **plan_lib.packed_matmul_core_geometry(m, kp, n, sp,
+                                                         hopper))
     assert torch.equal(got, ulppack_matmul.ulppack_matmul_torch(a, w, sp))
+
+
+def _mma_case(dev, bits, m, kp, n, seed):
+    sp = PackSpec.parse(f"W{bits}A{bits}/int16xP2s8")
+    g = _gen(dev, seed)
+    qa = torch.randint(0, sp.max_a + 1, (m, 2 * kp), generator=g,
+                       device=dev)
+    qw = torch.randint(0, sp.max_w + 1, (2 * kp, n), generator=g,
+                       device=dev)
+    a, w = packing.pack_activations(qa, sp), packing.pack_weights(qw, sp)
+    return sp, a, w, plan_lib.plan_packed_matmul(m, kp, n, sp, device=dev)
+
+
+@pytest.mark.parametrize("kp,n", [(100, 200), (1024, 2048), (333, 130),
+                                  (2816, 72)])
+@pytest.mark.parametrize("m", [1, 4, 9, 17, 64, 65])
+@pytest.mark.parametrize("bits", [1, 2, 3])
+def test_ulppack_matmul_mma_bit_equal(hopper, bits, m, kp, n):
+    """The tensor-core K2 against the plain K2, bit-equal, with the
+    planner's splits, with one split and with one stage a split; M that
+    fills no 8-row group, N and Kp that are no multiple of the tile."""
+    import dataclasses
+
+    sp, a, w, plan = _mma_case(hopper, bits, m, kp, n, m + kp + n)
+    assert plan.backend == "cuda" and plan.block_n == 128
+    want = ulppack_matmul.ulppack_matmul_torch(a, w, sp)
+    one = dataclasses.replace(plan, block_k=-(-kp // 64) * 64, splits=1)
+    many = dataclasses.replace(plan, block_k=64, splits=-(-kp // 64))
+    for p in (plan, one, many):
+        got = ulppack_matmul.ulppack_matmul_mma_cuda(a, w, sp, plan=p)
+        assert torch.equal(got, want), p.describe()
+    assert torch.equal(ops.packed_matmul(a, w, sp, plan=plan), want)
+
+
+def test_ulppack_matmul_mma_repeats_and_graph_replay(hopper):
+    """Split-K tickets go back to 0: two launches, three calls in a row
+    and the calls replayed from a CUDA graph all give the same bits."""
+    sp, a, w, plan = _mma_case(hopper, 2, 4, 1024, 2048, 5)
+    assert plan.splits > 1
+    want = ulppack_matmul.ulppack_matmul_torch(a, w, sp)
+
+    def call():
+        return ulppack_matmul.ulppack_matmul_mma_cuda(a, w, sp, plan=plan)
+
+    runs = [call() for _ in range(3)]
+    assert all(torch.equal(r, want) for r in runs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call() for _ in range(3)]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+
+
+def test_ulppack_matmul_mma_long_k_at_extremes(hopper):
+    """Kp = 40,000 lanes of 0xFFFF (both bytes 255, the worst byte-plane
+    sums) and random lanes: the longest split (16384 lanes) keeps the s32
+    sums in range, and the total wraps mod 2^32 like an int64 sum of the
+    byte products, with the planner's splits and the longest."""
+    import dataclasses
+
+    sp = PackSpec.parse("W2A2/int16xP2s8")
+    m, kp, n = 9, 40000, 70
+    g = _gen(hopper, 11)
+    for fill in (True, False):
+        if fill:
+            a = torch.full((m, kp), -1, dtype=torch.int16, device=hopper)
+            w = torch.full((kp, n), -1, dtype=torch.int16, device=hopper)
+        else:
+            a = torch.randint(-2**15, 2**15, (m, kp), generator=g,
+                              device=hopper, dtype=torch.int16)
+            w = torch.randint(-2**15, 2**15, (kp, n), generator=g,
+                              device=hopper, dtype=torch.int16)
+        a64, w64 = a.to(torch.int64), w.to(torch.int64)
+        lo_a, hi_a = (a64 & 0xFF).double(), ((a64 >> 8) & 0xFF).double()
+        lo_w, hi_w = (w64 & 0xFF).double(), ((w64 >> 8) & 0xFF).double()
+        exact = (lo_a @ hi_w + hi_a @ lo_w).to(torch.int64)   # < 2^53
+        want = packing.wrap_i32(exact)
+        plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=hopper)
+        longest = dataclasses.replace(
+            plan, block_k=plan_lib.ULPPACK_MMA_MAX_BLOCK_K, splits=3)
+        for p in (plan, longest):
+            got = ulppack_matmul.ulppack_matmul_mma_cuda(a, w, sp, plan=p)
+            assert torch.equal(got, want), p.describe()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [4, 64])
+def test_quantized_linear_fused_epilogue_bit_equal(hopper, out_dtype, bias,
+                                                   m):
+    """ops.quantized_linear on the card: K1 + the tensor-core K2 with the
+    affine epilogue fused in, bit-equal to K1 + K2 + the eager epilogue
+    (the same function with the plain backend)."""
+    sp = PackSpec(2, 2)
+    k, n = 2048, 5632 if m == 64 else 200
+    g = _gen(hopper, m + n)
+    w = torch.randn((k, n), generator=g, device=hopper) * 0.05
+    zp = torch.tensor(2, dtype=torch.int32, device=hopper)
+    w_scale = torch.tensor(0.021, device=hopper)
+    a_scale = torch.tensor(0.37, device=hopper)
+    wp, cs = ops.prepare_weights(w, w_scale, zp, sp)
+    b = None if bias is None else (
+        torch.randn((n,), generator=g, device=hopper).to(bias))
+    x = torch.randn((2, m // 2, k), generator=g, device=hopper)
+    args = (x, wp, cs, a_scale, zp, w_scale, zp, sp)
+    ulppack_matmul.reset_counts()
+    got = ops.quantized_linear(*args, bias=b, out_dtype=out_dtype)
+    assert ulppack_matmul.mma_launches == {"s32": 0, "affine": 1}
+    assert ulppack_matmul.kernel_launches["ulppack_matmul"] == 0
+    want = ops.quantized_linear(*args, bias=b, out_dtype=out_dtype,
+                                backend="torch")
+    assert got.dtype == out_dtype and got.shape == (2, m // 2, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("change", [
+    dict(block_n=64), dict(step_k=32), dict(stages=3), dict(threads=128),
+    dict(block_m=24), dict(block_m=16), dict(smem_bytes=16),
+    dict(splits=1), dict(block_k=16448, splits=None)])
+def test_ulppack_matmul_mma_launcher_refuses_a_plan_that_disagrees(hopper,
+                                                                   change):
+    """A plan whose tile, shared memory, split count or split length
+    (above 16384 lanes) disagrees with the kernel's layout is refused by
+    the launcher and raises.  (smem_bytes and splits move by the amount
+    given, None sets splits to 1; the other fields are set.)"""
+    import dataclasses
+
+    sp, a, w, plan = _mma_case(hopper, 2, 8, 600, 70, 3)
+
+    def moved(f, v):
+        if f == "splits":
+            return 1 if v is None else plan.splits + v
+        return plan.smem_bytes + v if f == "smem_bytes" else v
+
+    bad = dataclasses.replace(plan, **{f: moved(f, v)
+                                       for f, v in change.items()})
+    assert torch.equal(
+        ulppack_matmul.ulppack_matmul_mma_cuda(a, w, sp, plan=plan),
+        ulppack_matmul.ulppack_matmul_torch(a, w, sp))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ulppack_matmul.ulppack_matmul_mma_cuda(a, w, sp, plan=bad)
 
 
 # (B, pages of 16 rows, H, KVH, hd, valid_len): the small case, granite-3-8b's

@@ -148,13 +148,15 @@ def test_plan_geometry(m, k, n, ab, wb):
 
 
 def test_int_matmul_constants_match_the_kernel_source():
-    """The planner's copy of K7's tile is the one in csrc/int_matmul.cu
+    """The planner's copy of K7's tile is the one in csrc/mma_s8.cuh (the
+    tile K7 shares with K2's tensor-core route) and csrc/int_matmul.cu
     (the launcher re-checks it, and the shared memory, on the card)."""
     import re
     from pathlib import Path
 
-    src = (Path(tplan.__file__).parent.parent / "csrc"
-           / "int_matmul.cu").read_text()
+    csrc = Path(tplan.__file__).parent.parent / "csrc"
+    src = (csrc / "mma_s8.cuh").read_text() \
+        + (csrc / "int_matmul.cu").read_text()
     c = {k: int(v) for k, v in
          re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert (c["kBN"], c["kBK"], c["kMaxStages"], c["kSmemMax"],
