@@ -23,8 +23,13 @@ toolkit:
    kernel (K3) on the same logical rows; the unpacked integer matmul (K7)
    bit-equal at s8 and s16); then the packed conv (K5) and the int16 conv
    (K6), bit-equal, at the paper's Fig. 4 shape and at the full-width
-   ``sparq-cnn`` layers.  It times the kernel, the plain version and one
-   PyTorch call that computes the same function where there is one
+   ``sparq-cnn`` layers (K5 at int16xP2s8 on the tensor cores, a second
+   launch bit-equal, its fused epilogue bit-equal to ``cnn.conv_epilogue``
+   and timed, the CUDA-core tile timed on the same operands; the
+   int8xP2s4 case on the CUDA-core tile).  It times the kernel, the plain
+   version and one PyTorch call that computes the same function where
+   there is one (K5: ``F.conv2d`` on the f32 lattices with TF32 off, and
+   with TF32 allowed where that is exact)
    (CUDA-graph replay between CUDA events, median of repeats, inputs
    rotated over copies larger than the 50 MB L2 where the path reads them
    cold).
@@ -34,9 +39,9 @@ toolkit:
    dots and K7's s8 products -- s16 as four int8 products per MAC -- and
    bf16 tensor cores for attention's products).
    ``design_bound_ms`` takes the rate of the unit each kernel runs on: the
-   int8 tensor cores for K7 and the tensor-core K2 (the MMAs it issues),
-   f32 CUDA cores for the CUDA-core K2 and K3/K4, the 32-bit integer
-   multiply-add rate for K5/K6.
+   int8 tensor cores for K7 and the tensor-core K2 and K5 (the MMAs they
+   issue), f32 CUDA cores for the CUDA-core K2 and K3/K4, the 32-bit
+   integer multiply-add rate for the CUDA-core K5 and K6.
 3. Serve phase: full-width ``stablelm-1.6b`` W2A2 with random weights from a
    seed, through ``ServingEngine`` at kv_bits 16, 4 and 2, four greedy
    requests with staggered admission.  Fails unless every request finishes
@@ -67,17 +72,21 @@ toolkit:
    (K1, the CUDA-core K2 and the eager epilogue: that kernel's path); a
    ``linear`` line with each time and the weight bytes.
 6. Fig. 4 phase: the int16 conv and each packed case once through
-   ``ops.int_conv2d`` / ``ops.packed_conv2d`` (K6 and K5 launched, no
-   plain call), and a ``fig4`` line with each packed time, the int16 time
-   and their ratio beside the paper's.
+   ``ops.int_conv2d`` / ``ops.packed_conv2d`` (K6, the tensor-core K5 at
+   int16xP2s8 and the CUDA-core K5 at int8xP2s4 launched, no plain call),
+   and a ``fig4`` line with each packed time, the int16 time and their
+   ratio beside the paper's, and the CUDA-core K5's ratio at int16xP2s8.
 7. CNN phase: full-width ``sparq-cnn`` W2A2 (random weights from a seed),
    weights prepared and plans built once, classifying 4 batches of 8
    random 256x256x3 images through ``cnn.forward(quant_mode="packed")``
    with the lanes store, then the dense store: ms per batch, images/s,
-   profiled device time and top kernels, peak memory.  Fails unless K5 ran
-   every packed layer with no plain-version call.  Then two images with
-   ``backend="torch"`` on the same weights: every layer's int32
-   accumulator bit-equal, and the logit difference.
+   profiled device time, launches, K5's share and top kernels, peak
+   memory.  Fails unless the tensor-core K5 with the fused epilogue ran
+   every packed layer, with no CUDA-core K5 launch and no plain-version
+   call.  Then two images with ``backend="torch"`` on the same weights:
+   every layer's int32 accumulator bit-equal, every layer's fused output
+   bit-equal to ``conv_epilogue`` on the plain path (``cnn
+   fused-epilogue``), and the logit difference.
 
 ``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
 tensor-core K2's split sweep (``k2_sweep``), the data the planner's split
@@ -85,8 +94,8 @@ model was fitted to.
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
-kernel (K1-K7, K2 as its tensor-core and its CUDA-core kernel) with the
-launches of its path.
+kernel (K1-K7, K2 and K5 each as its tensor-core and its CUDA-core kernel)
+with the launches of its path.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -94,6 +103,7 @@ script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -730,18 +740,37 @@ FIG4_PAPER = {"W2A2": 3.2, "W3A3": 1.7}
 CNN_BATCH, CNN_BATCHES = 8, 4
 
 
+@contextlib.contextmanager
+def tf32():
+    """cuDNN convolutions in TF32 (PyTorch's default), restored after."""
+    import torch
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
 def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
     """K5 and K6 against their plain versions (bit-equal) and timed: the
     Fig. 4 shape (K6 on int16 values in [-256, 256), K5 on each packed
     case), and ``cnn_cfg``'s packed layers at the CNN phase's batch (SAME,
-    its layout, lanes and dense).  Returns (rows, the Fig. 4 operands by
-    case)."""
+    its layout, lanes and dense).  ``int16xP2s8`` rows run the tensor-core
+    K5 (``ulppack_conv2d_mma``: a second launch bit-equal, its fused
+    epilogue bit-equal to ``cnn.conv_epilogue`` and timed, the CUDA-core
+    tile's time on the same operands beside it); the other layouts the
+    CUDA-core K5.  Library yardsticks: ``F.conv2d`` on the f32 lattices
+    with TF32 off, and with TF32 allowed where that is exact.  Returns
+    (rows, the Fig. 4 operands by case)."""
     import torch.nn.functional as F
 
     from repro_torch.core import packing
     from repro_torch.core.packing import PackSpec
     from repro_torch.kernels import ops, plan as plan_lib
     from repro_torch.kernels import ulppack_conv2d as conv
+    from repro_torch.models import cnn
     from repro_torch.models.common import full_f32
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -805,16 +834,20 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         wp = (ops.dense_store_conv_weights(qw, sp.w_bits) if store == "dense"
               else packing.pack_weights(qw, sp, axis=2))
         k_full = qx.shape[-1] if store == "dense" else None
+        kw = dict(padding=padding, weight_store=store, k_full=k_full)
         if key is not None:
             fig4[key] = (xp, wp)
         plan = plan_lib.plan_packed_conv2d(
             tuple(xp.shape), tuple(wp.shape), sp, padding=padding,
             weight_store=store, k_full=k_full, device=dev)
+        mma = plan_lib.packed_conv2d_on_tensor_cores(sp)
         got = ops.packed_conv2d(xp, wp, sp, padding=padding, plan=plan)
-        want = conv.ulppack_conv2d_torch(xp, wp, sp, padding=padding,
-                                         weight_store=store, k_full=k_full)
-        # library yardstick: cuDNN's f32 conv on the unpacked lattices, TF32
-        # off -- exact (values < 2^bits, sums < 2^24); checked equal first
+        again = ops.packed_conv2d(xp, wp, sp, padding=padding, plan=plan)
+        want = conv.ulppack_conv2d_torch(xp, wp, sp, **kw)
+        # library yardsticks: cuDNN's f32 conv on the unpacked lattices, TF32
+        # off -- exact (values < 2^bits, sums < 2^24); checked equal first --
+        # and, recorded only where it is exact, with TF32 allowed (lattice
+        # values <= 7 and their products fit TF32's 11-bit significand)
         fh, fw = qw.shape[:2]
         pads = conv.same_pads(fh, fw, padding)
         xl = F.pad(qx.permute(0, 3, 1, 2).float(),
@@ -823,21 +856,24 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         with full_f32():
             lib_out = F.conv2d(xl, wl)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"ulppack_conv2d {label} not bit-equal")
+        if not (torch.equal(got, want) and torch.equal(again, want)):
+            raise AssertionError(f"ulppack_conv2d {label} {sp} {store} not "
+                                 f"bit-equal")
         if not torch.equal(lib_out.permute(0, 2, 3, 1).to(torch.int32), got):
             raise AssertionError(f"f32 conv on the lattices disagrees with "
                                  f"ulppack_conv2d {label}")
+        del lib_out
+        with tf32():
+            tf32_exact = torch.equal(
+                F.conv2d(xl, wl).permute(0, 2, 3, 1), got.float())
         nb, h, w_, _ = qx.shape
         ho, wo = got.shape[1:3]
-        macs = nb * ho * wo * fh * fw * qx.shape[-1] * qw.shape[-1]
-        pmacs = nb * ho * wo * fh * fw * xp.shape[-1] * qw.shape[-1]
+        co = qw.shape[-1]
+        macs = nb * ho * wo * fh * fw * qx.shape[-1] * co
         nbytes = (xp.numel() * sp.lane_bytes + wp.numel() * wp.element_size()
                   + 4 * got.numel())
-        # the card's floor: the lattice MACs on the int8 tensor cores; the
-        # design bound: one IMAD per packed product on the CUDA cores
+        # the card's floor: the lattice MACs on the int8 tensor cores
         b, by = bound_ms(nbytes, 2 * macs, peaks["hbm"], peaks["int8"])
-        design = bound_ms(nbytes, 2 * pmacs, peaks["hbm"], peaks["int32"])
         xps = [xp] + [xp.clone() for _ in range(
             copies_for(xp.numel() * sp.lane_bytes) - 1)]
         xls = [xl] + [xl.clone() for _ in range(copies_for(4 * xl.numel())
@@ -845,18 +881,68 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         with full_f32():
             lib = time_ms(torch, [lambda xi=xi: F.conv2d(xi, wl)
                                   for xi in xls])
+        lib_tf32 = None
+        if tf32_exact:
+            with tf32():
+                lib_tf32 = time_ms(torch, [lambda xi=xi: F.conv2d(xi, wl)
+                                           for xi in xls])
         del xls
         ms = time_ms(torch, [lambda xi=xi: ops.packed_conv2d(
             xi, wp, sp, padding=padding, plan=plan) for xi in xps])
         plain = time_ms(torch, [lambda: conv.ulppack_conv2d_torch(
-            xp, wp, sp, padding=padding, weight_store=store,
-            k_full=k_full)], 3)
-        rows.append({
-            "name": "ulppack_conv2d", "shape": f"{label} {sp} {store}",
-            "max_abs_err": 0, "design_bound_ms": design[0], "ms": ms,
-            "plain_ms": plain, "bound_ms": b, "bound_by": by,
-            "library_ms": lib, "library": "F.conv2d f32 lattices, TF32 off",
-            "geometry": plan.describe()})
+            xp, wp, sp, **kw)], 3)
+        row = {"name": "ulppack_conv2d_mma" if mma else "ulppack_conv2d",
+               "shape": f"{label} {sp} {store}", "max_abs_err": 0, "ms": ms,
+               "plain_ms": plain, "bound_ms": b, "bound_by": by,
+               "library_ms": lib, "library": "F.conv2d f32 lattices, TF32 off",
+               "library_tf32_ms": lib_tf32, "library_tf32_exact": tf32_exact,
+               "geometry": plan.describe()}
+        if not mma:
+            # the design bound: one IMAD per packed product on the CUDA cores
+            pmacs = nb * ho * wo * fh * fw * xp.shape[-1] * co
+            row["design_bound_ms"] = bound_ms(nbytes, 2 * pmacs, peaks["hbm"],
+                                              peaks["int32"])[0]
+            rows.append(row)
+            return
+        # the tensor-core kernel: the MMAs it issues at the int8 rate (with
+        # the fused epilogue's ones column), the fused epilogue bit-equal to
+        # cnn.conv_epilogue on the plain accumulator and patch sums, and the
+        # CUDA-core tile's time on the same operands
+        tiles = nb * -(-ho // plan.block_h) * -(-wo // plan.block_w)
+        steps = tiles * 32 * fh * fw * plan.block_c // 32
+        groups = -(-co // plan.block_co) * plan.block_co // 8
+        row["design_bound_ms"] = bound_ms(
+            nbytes, 2 * 4096 * steps * groups, peaks["hbm"],
+            peaks["int8"])[0]
+        ep = conv.ConvAffine(torch.tensor(4 / 3, device=dev),
+                             torch.tensor(0.0213, device=dev),
+                             torch.tensor(2, dtype=torch.int32, device=dev))
+        fused = conv.ulppack_conv2d_mma_cuda(xp, wp, sp, plan=plan,
+                                             epilogue=ep, **kw)
+        eager = cnn.conv_epilogue({
+            "acc": want, "psum": cnn.patch_sums(qx, fh, fw, padding),
+            "a_scale": ep.a_scale, "w_scale": ep.w_scale, "w_zp": ep.w_zp})
+        core = plan_lib.packed_conv2d_core_geometry(
+            tuple(xp.shape), tuple(wp.shape), padding=padding, device=dev)
+        cores = conv.ulppack_conv2d_cuda(xp, wp, sp, **core, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(fused, eager):
+            raise AssertionError(f"fused conv epilogue {label} {store} not "
+                                 f"bit-equal to cnn.conv_epilogue")
+        if not torch.equal(cores, want):
+            raise AssertionError(f"CUDA-core K5 {label} {store} not "
+                                 f"bit-equal")
+        del fused, eager, cores
+        row["ms_affine"] = time_ms(torch, [
+            lambda xi=xi: conv.ulppack_conv2d_mma_cuda(
+                xi, wp, sp, plan=plan, epilogue=ep, **kw) for xi in xps])
+        row["cores_ms"] = time_ms(torch, [
+            lambda xi=xi: conv.ulppack_conv2d_cuda(xi, wp, sp, **core, **kw)
+            for xi in xps])
+        row["cores_geometry"] = core
+        row["share_of_bound"] = b / ms
+        row["vs_library"] = ms / min(t for t in (lib, lib_tf32) if t)
+        rows.append(row)
 
     for text in FIG4_SPECS:
         sp = PackSpec.parse(text)
@@ -882,11 +968,14 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
 
 def fig4_phase(torch, fig4, rows):
     """The Fig. 4 comparison through the entry points: the int16 conv (K6)
-    and each packed case (K5) at the paper's shape, once each; returns the
-    launches.  Prints the kernel phase's times side by side: each packed
-    case's speedup over the int16 conv beside the paper's."""
+    and each packed case (K5: the tensor-core kernel at int16xP2s8, the
+    CUDA-core tile at int8xP2s4) at the paper's shape, once each; returns
+    the launches.  Prints the kernel phase's times side by side: each
+    packed case's speedup over the int16 conv beside the paper's, and at
+    int16xP2s8 also the CUDA-core K5's on the same operands (K6 runs on the
+    CUDA cores, so the tensor-core ratio is not like for like)."""
     from repro_torch.core.packing import PackSpec
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, plan as plan_lib
     from repro_torch.kernels import ulppack_conv2d as conv
 
     conv.reset_counts()
@@ -896,20 +985,29 @@ def fig4_phase(torch, fig4, rows):
                                      padding="VALID"))
     torch.cuda.synchronize()
     launches, plain = dict(conv.kernel_launches), dict(conv.plain_calls)
-    if launches != {"int_conv2d": 1, "ulppack_conv2d": len(FIG4_SPECS)} \
-            or any(plain.values()):
+    mma = sum(plan_lib.packed_conv2d_on_tensor_cores(PackSpec.parse(t))
+              for t in FIG4_SPECS)
+    if launches != {"int_conv2d": 1, "ulppack_conv2d": len(FIG4_SPECS) - mma,
+                    "ulppack_conv2d_mma": mma} or any(plain.values()):
         raise AssertionError(f"fig4 path: launches {launches}, plain {plain}")
     ho = FIG4["hw"] - FIG4["k"] + 1
     if not all(o.shape == (FIG4["n"], ho, ho, FIG4["co"]) for o in out):
         raise AssertionError("fig4 path: wrong output shape")
     t16 = next(r["ms"] for r in rows if r["name"] == "int_conv2d")
-    rep = {"int16_ms": t16, "packed": {}}
+    rep = {"int16_ms": t16,
+           "int16_route": "K6 on the CUDA cores (csrc/int_conv2d.cu)",
+           "packed": {}}
     for text in FIG4_SPECS:
-        ms = next(r["ms"] for r in rows if r["name"] == "ulppack_conv2d"
-                  and r["shape"].startswith("fig4") and text in r["shape"])
+        r = next(r for r in rows if r["name"].startswith("ulppack_conv2d")
+                 and r["shape"].startswith("fig4") and text in r["shape"])
         bits = text.split("/")[0]
-        rep["packed"][text] = {"ms": ms, "speedup_vs_int16": t16 / ms,
-                               "paper_speedup": FIG4_PAPER.get(bits)}
+        case = {"route": r["name"], "ms": r["ms"],
+                "speedup_vs_int16": t16 / r["ms"],
+                "paper_speedup": FIG4_PAPER.get(bits)}
+        if "cores_ms" in r:
+            case["cores_ms"] = r["cores_ms"]
+            case["cores_speedup_vs_int16"] = t16 / r["cores_ms"]
+        rep["packed"][text] = case
     print("fig4 " + json.dumps(rep))
     return launches
 
@@ -919,8 +1017,9 @@ def cnn_phase(torch, dev, cfg):
     classes) with random weights from a seed: weights prepared and layer
     plans built once per store, then CNN_BATCHES batches of CNN_BATCH
     random images through ``forward(quant_mode='packed')``.  Fails unless
-    K5 ran every packed layer with no plain-version call.  Returns the
-    params, the lanes-store tree and plans, and the K5 launches."""
+    the tensor-core K5 with the fused epilogue ran every packed layer, with
+    no CUDA-core K5 launch and no plain-version call.  Returns the
+    lanes-store tree and plans, two images, and the K5 launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ulppack_conv2d as conv
@@ -955,11 +1054,16 @@ def cnn_phase(torch, dev, cfg):
                                       plans=plans))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        k5 = conv.kernel_launches["ulppack_conv2d"]
+        k5 = conv.kernel_launches["ulppack_conv2d_mma"]
+        fused = conv.mma_launches["affine"]
+        cores = conv.kernel_launches["ulppack_conv2d"]
         plain = sum(conv.plain_calls.values())
-        if k5 != CNN_BATCHES * len(cfg.cnn_channels) or plain:
-            raise AssertionError(f"cnn {store}: {k5} K5 launches, {plain} "
-                                 f"plain calls on the packed path")
+        if k5 != CNN_BATCHES * len(cfg.cnn_channels) or fused != k5 \
+                or cores or plain:
+            raise AssertionError(
+                f"cnn {store}: {k5} tensor-core K5 launches ({fused} fused), "
+                f"{cores} CUDA-core K5 launches, {plain} plain calls on the "
+                f"packed path")
         for lg in logits:
             if lg.shape != (CNN_BATCH, cfg.cnn_num_classes) \
                     or not torch.isfinite(lg).all():
@@ -971,7 +1075,8 @@ def cnn_phase(torch, dev, cfg):
                "images_per_s": CNN_BATCHES * CNN_BATCH * 1e3 / sum(times),
                "median_images_per_s":
                    CNN_BATCH * 1e3 / statistics.median(times),
-               "k5_launches": k5, "plain_calls": plain,
+               "k5_launches": k5, "k5_fused_launches": fused,
+               "plain_calls": plain,
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -985,6 +1090,9 @@ def cnn_phase(torch, dev, cfg):
         rep["device_ms_per_batch"] = busy_ms
         rep["idle_share"] = 1 - busy_ms / rep["median_ms_per_batch"]
         rep["kernel_launches_per_batch"] = sum(e.count for e in kernels)
+        rep.update(kernel_groups(kernels, 1, "_per_batch", CNN_GROUPS))
+        rep["k5_share"] = rep["k5_ms_per_batch"] / busy_ms if busy_ms \
+            else None
         rep["top_kernels_ms"] = [[e.key[:60], e.self_device_time_total / 1e3,
                                   e.count] for e in top]
         print("cnn " + json.dumps(rep))
@@ -995,12 +1103,17 @@ def cnn_phase(torch, dev, cfg):
 
 def cnn_compare(torch, cfg, packed, plans, x):
     """Kernel path against the plain path on the same weights and images:
-    every layer's int32 accumulator (and lattice and patch sums) bit-equal,
-    and the max logit difference of the whole forward."""
+    every layer's int32 accumulator (the tensor-core K5's s32 output; and
+    lattice and patch sums) bit-equal, every layer's fused-epilogue output
+    (``conv_apply`` on the layer's plan: one K5 launch) bit-equal to
+    ``conv_epilogue`` on the plain path (``cnn fused-epilogue`` line), and
+    the max logit difference of the whole forward."""
+    from repro_torch.kernels import ulppack_conv2d as conv
     from repro_torch.models import cnn
 
     q = cfg.quant
     h = torch.relu(cnn.conv_apply(packed["stem"], x, q))
+    fused_rows = []
     for i, (p, plan) in enumerate(zip(packed["layers"], plans)):
         got = cnn.conv_integer_core(p, h, q, plan=plan)
         want = cnn.conv_integer_core(p, h, q, backend="torch")
@@ -1008,7 +1121,20 @@ def cnn_compare(torch, cfg, packed, plans, x):
             if not torch.equal(got[key], want[key]):
                 raise AssertionError(f"cnn layer {i}: {key} differs between "
                                      f"the kernel and the plain path")
-        h = torch.relu(cnn.conv_epilogue(got))
+        conv.reset_counts()
+        fused = cnn.conv_apply(p, h, q, quant_mode="packed", plan=plan)
+        launches = dict(conv.mma_launches)
+        eager = cnn.conv_epilogue(want)
+        torch.cuda.synchronize()
+        if launches != {"s32": 0, "affine": 1} \
+                or not torch.equal(fused, eager):
+            raise AssertionError(f"cnn layer {i}: fused epilogue (launches "
+                                 f"{launches}) not bit-equal to "
+                                 f"conv_epilogue on the plain path")
+        fused_rows.append({"layer": i, "shape": list(fused.shape),
+                           "bit_equal": True, "launches": launches})
+        h = torch.relu(fused)
+    print("cnn fused-epilogue " + json.dumps(fused_rows))
     a = cnn.forward(packed, cfg, x, quant_mode="packed", plans=plans)
     b = cnn.forward(packed, cfg, x, quant_mode="packed", backend="torch")
     rep = {"images": int(x.shape[0]), "layers_acc_bit_equal": True,
@@ -1130,11 +1256,16 @@ def profile_decode(torch, cfg, params, ecfg, prompts, dev, label="profile"):
     torch.cuda.empty_cache()
 
 
-def kernel_groups(kernels, n, suffix):
-    """Device ms and launches per pass of K2 (either kernel), of PyTorch's
-    elementwise kernels and of its fills (zeros), from profiler rows."""
-    groups = {"k2": ("ulppack_matmul",), "elementwise": ("elementwise",),
-              "fill": ("fill", "Fill")}
+LM_GROUPS = {"k2": ("ulppack_matmul",), "elementwise": ("elementwise",),
+             "fill": ("fill", "Fill")}
+CNN_GROUPS = {"k5": ("ulppack_conv2d_mma",), "elementwise": ("elementwise",),
+              "reduce": ("reduce_kernel",)}
+
+
+def kernel_groups(kernels, n, suffix, groups=LM_GROUPS):
+    """Device ms and launches per pass of each group of profiler rows whose
+    kernel names contain one of the group's keys: by default K2 (either
+    kernel), PyTorch's elementwise kernels and its fills (zeros)."""
     out = {}
     for g, keys in groups.items():
         sel = [e for e in kernels if any(k in e.key for k in keys)]
@@ -1525,9 +1656,11 @@ def main() -> int:
     launches["int_matmul"], launches["ulppack_matmul"] = linear_phase(
         torch, dev)
 
-    launches["int_conv2d"] = fig4_phase(torch, fig4, rows)["int_conv2d"]
+    fig4_launches = fig4_phase(torch, fig4, rows)
+    launches["int_conv2d"] = fig4_launches["int_conv2d"]
+    launches["ulppack_conv2d"] = fig4_launches["ulppack_conv2d"]
     del fig4
-    (packed, plans), x, launches["ulppack_conv2d"] = cnn_phase(
+    (packed, plans), x, launches["ulppack_conv2d_mma"] = cnn_phase(
         torch, dev, cnn_cfg)
     cnn_compare(torch, cnn_cfg, packed, plans, x)
 
@@ -1550,11 +1683,16 @@ def main() -> int:
             "src/repro_torch/csrc/attention_decode.cu",
             "src/repro/kernels/ulppack_attention.py:367",
             "B4 32x16 pages H32 hd64 C1 kv4"),
-        # K5's main path is the CNN phase (both stores); its row is the
-        # largest packed layer there.  K6's path is the Fig. 4 phase.
+        # K5's main path is the CNN phase (both stores), on the tensor
+        # cores; its row is the largest packed layer there.  The CUDA-core
+        # K5's path is the Fig. 4 phase's int8xP2s4 case, K6's the Fig. 4
+        # phase.
+        "ulppack_conv2d_mma": ("src/repro_torch/csrc/ulppack_conv2d_mma.cu",
+                               "src/repro/kernels/ulppack_conv2d.py:148",
+                               "layer 32->64"),
         "ulppack_conv2d": ("src/repro_torch/csrc/ulppack_conv2d.cu",
                            "src/repro/kernels/ulppack_conv2d.py:148",
-                           "layer 32->64"),
+                           "fig4"),
         "int_conv2d": ("src/repro_torch/csrc/int_conv2d.cu",
                        "src/repro/kernels/ulppack_conv2d.py:148", "fig4"),
         "int_matmul": ("src/repro_torch/csrc/int_matmul.cu",

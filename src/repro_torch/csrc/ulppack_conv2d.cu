@@ -10,10 +10,13 @@
 // lattice conv.  The tile, the padding and the extraction grouping are
 // described in conv2d_tile.cuh.
 //
-// Why CUDA cores: Hopper's integer tensor-core MMA takes 8-bit operands
-// only, and the packed lanes of every W2A2-feasible layout are 16 or 32 bits
-// wide, so the faithful kernel multiplies packed lanes in 32-bit integer
-// registers (one IMAD per packed product, n_pack lattice MACs each).
+// Why CUDA cores: this is the kernel of every layout but int16xP2s8
+// (int8xP2s4, int16xP4s4, the int32 lanes), whose fields are not whole
+// bytes, so their lanes have no reading as int8 tensor-core operands; it
+// multiplies packed lanes in 32-bit integer registers (one IMAD per packed
+// product, n_pack lattice MACs each).  int16xP2s8 lanes are lattice bytes,
+// and the planner sends them to the tensor-core K5 (ulppack_conv2d_mma.cu);
+// this kernel still takes them when its geometry is given.
 //
 // Bound on Hopper: at the model's and the paper's shapes the work is
 // ~50-200 packed products per byte moved, so the kernel is bound by the

@@ -88,6 +88,19 @@ CONV_MAX_THREADS = 256
 CONV_SMEM_MAX = 227 * 1024
 #: Shared memory the conv planner aims to stay under (two blocks per SM).
 _CONV_SMEM_TARGET = 100 * 1024
+#: K5 on the int8 tensor cores (csrc/ulppack_conv2d_mma.cu: kConvThreads,
+#: kTilePixels, kStages and kConvSmemMax there, and the block_co / block_w
+#: cases of its launcher; a CPU test holds them equal, and the launcher
+#: refuses a plan that disagrees): threads per block, output pixels per
+#: pixel tile (8 warps x 4 row fragments of 16), the halo ring's slots, the
+#: shared memory a block may use, output channels per block, and output
+#: columns per tile.
+CONV_MMA_THREADS = 256
+CONV_MMA_TILE_PIXELS = 512
+CONV_MMA_STAGES = 2
+CONV_MMA_SMEM_MAX = 232448
+CONV_MMA_BLOCK_COS = (8, 16, 32, 64)
+CONV_MMA_BLOCK_WS = (16, 32)
 
 #: The attention kernel of csrc/attention_decode.cu (kThreads, kMaxSplits,
 #: kMaxQRows, kMaxTile and kSmemMax there; its launcher refuses a plan that
@@ -133,7 +146,11 @@ class KernelPlan:
       int_conv2d         channels per block), block_c (channels or lanes
                          staged per pass), threads, smem_bytes (per block);
                          packed_conv2d also weight_store and k_full (Cin
-                         of a 'dense' store)
+                         of a 'dense' store); on the tensor cores
+                         (int16xP2s8) block_h x block_w output pixels a
+                         tile, block_c staged bytes a pixel, stages (halo
+                         ring slots) and blocks (persistent blocks along
+                         the pixel tiles)
     """
 
     op: str
@@ -154,6 +171,8 @@ class KernelPlan:
     block_n: int | None = None
     step_k: int | None = None
     stages: int | None = None
+    block_w: int | None = None
+    blocks: int | None = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -166,7 +185,7 @@ class KernelPlan:
         for f in ("block_m", "block_k", "splits", "threads", "weight_store",
                   "k_full", "block_h", "block_co", "block_c", "smem_bytes",
                   "split_rows", "tile_rows", "block_n", "step_k",
-                  "stages"):
+                  "stages", "block_w", "blocks"):
             if getattr(self, f) is not None:
                 row[f] = getattr(self, f)
         return row
@@ -639,6 +658,77 @@ def _conv_geometry(n, out_h, out_w, c, fh, fw, co, device_key) -> dict:
                 threads=bh * threads_per_row, smem_bytes=smem(bh, bc))
 
 
+def packed_conv2d_on_tensor_cores(spec: PackSpec) -> bool:
+    """Whether K5 runs on the int8 tensor cores for this layout: K2's
+    predicate (:func:`packed_matmul_on_tensor_cores`), int16 lanes of two
+    byte fields, where the activation lanes read as bytes are the u8
+    lattice in channel order.  ``int8xP2s4``, ``int16xP4s4`` and the int32
+    lanes keep the CUDA-core tile."""
+    return packed_matmul_on_tensor_cores(spec)
+
+
+def conv_mma_block_c(cp: int) -> int:
+    """Staged bytes a pixel of the tensor-core K5 for ``cp`` int16 lanes
+    (2 cp lattice bytes): 32, 64, else a multiple of 128 (``cpad_for`` in
+    csrc/ulppack_conv2d_mma.cu), so that a tap is whole k32 steps and the
+    kernel's swizzle stays inside a pixel."""
+    xrow = 2 * cp
+    return 32 if xrow <= 32 else 64 if xrow <= 64 else -(-xrow // 128) * 128
+
+
+def conv_mma_smem_bytes(fh: int, fw: int, block_h: int, block_w: int,
+                        block_co: int, block_c: int) -> int:
+    """Shared memory of one tensor-core K5 block: the weight block,
+    ``block_co`` rows of fh * fw * block_c bytes + 16 (an odd number of
+    16-byte units, for conflict-free ldmatrix), then the halo ring,
+    ``CONV_MMA_STAGES`` slots of (block_h + fh - 1) x (block_w + fw - 1)
+    pixels of ``block_c`` bytes."""
+    krow = fh * fw * block_c + 16
+    halo = (block_h + fh - 1) * (block_w + fw - 1) * block_c
+    return block_co * krow + CONV_MMA_STAGES * halo
+
+
+def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
+                       device_key) -> dict:
+    """Launch geometry of the tensor-core K5 (csrc/ulppack_conv2d_mma.cu).
+
+    Pixel tiles of 512 output pixels, 16 x 32 (32 x 16 on images at most
+    16 columns wide); ``block_co`` the smallest of 8/16/32/64 output
+    channels that holds Co (64 beyond), halved while the resident weight
+    block and the halo ring overflow the shared memory; one block an SM,
+    persistent, each walking an equal share of the tiles in whole waves.
+    Refuses a conv whose s32 sums could leave the int32 range
+    (fh * fw * 2 cp * max_w * max_a >= 2^31: PTX does not promise that the
+    MMA wraps) or whose weight block does not fit at 8 channels."""
+    most = fh * fw * 2 * cp * spec.max_w * spec.max_a
+    if most >= 2**31:
+        raise ValueError(
+            f"a {fh}x{fw} conv over {2 * cp} channels of {spec} can sum to "
+            f"{most}, past the int32 range of the tensor-core K5's sums")
+    bc = conv_mma_block_c(cp)
+    bw = CONV_MMA_BLOCK_WS[0] if out_w <= CONV_MMA_BLOCK_WS[0] \
+        else CONV_MMA_BLOCK_WS[1]
+    bh = CONV_MMA_TILE_PIXELS // bw
+    bco = next((b for b in CONV_MMA_BLOCK_COS if b >= co),
+               CONV_MMA_BLOCK_COS[-1])
+
+    def smem(bco):
+        return conv_mma_smem_bytes(fh, fw, bh, bw, bco, bc)
+
+    while bco > CONV_MMA_BLOCK_COS[0] and smem(bco) > CONV_MMA_SMEM_MAX:
+        bco //= 2
+    if smem(bco) > CONV_MMA_SMEM_MAX:
+        raise ValueError(f"a {fh}x{fw} kernel over {bc} staged bytes does "
+                         f"not fit the tensor-core K5's shared memory "
+                         f"({smem(bco)} bytes)")
+    tiles = n * -(-out_h // bh) * -(-out_w // bw)
+    per_wave = max(1, _sm_count(device_key) // -(-max(co, 1) // bco))
+    waves = max(1, -(-tiles // per_wave))
+    return dict(block_h=bh, block_w=bw, block_co=bco, block_c=bc,
+                stages=CONV_MMA_STAGES, threads=CONV_MMA_THREADS,
+                blocks=max(1, -(-tiles // waves)), smem_bytes=smem(bco))
+
+
 def plan_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
                        padding: str = "SAME", backend: str = "auto",
                        weight_store: str = "lanes",
@@ -649,10 +739,27 @@ def plan_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
     Records the layout, the weight store and ``k_full`` (Cin of a 'dense'
     store, defaulting to ``cp * n_pack`` as in the reference) beside the
     Hopper launch geometry; the TPU's VMEM budget and ``block_h``
-    candidates have no counterpart here."""
+    candidates have no counterpart here.  The layout picks the kernel
+    (:func:`packed_conv2d_on_tensor_cores`): ``int16xP2s8`` runs the
+    implicit-GEMM conv on the int8 tensor cores with
+    ``_conv_mma_geometry``; every other layout the CUDA-core tile with
+    :func:`packed_conv2d_core_geometry`."""
     return _plan_packed_conv2d(tuple(x_shape), tuple(w_shape), spec, padding,
                                resolve_backend(backend, device), weight_store,
                                k_full, _device_key(device))
+
+
+def packed_conv2d_core_geometry(x_shape: tuple, w_shape: tuple, *,
+                                padding: str = "SAME", device="cpu") -> dict:
+    """block_h, block_co, block_c, threads and smem_bytes of the CUDA-core
+    conv tile (csrc/conv2d_tile.cuh) for these shapes, which takes any
+    feasible layout (int16xP2s8 too, though the planner sends that layout
+    to the tensor cores)."""
+    n, h, w, cp = x_shape
+    fh, fw, _, co = w_shape
+    out_h, out_w = _conv_out(h, w, fh, fw, padding)
+    return _conv_geometry(n, out_h, out_w, cp, fh, fw, co,
+                          _device_key(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -667,10 +774,14 @@ def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
     if weight_store == "dense" and k_full is None:
         k_full = cp * spec.n_pack
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
-    return KernelPlan(
-        op="packed_conv2d", backend=backend, spec=spec,
-        weight_store=weight_store, k_full=k_full,
-        **_conv_geometry(n, out_h, out_w, cp, fh, fw, co, device_key))
+    if packed_conv2d_on_tensor_cores(spec):
+        geometry = _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
+                                      device_key)
+    else:
+        geometry = _conv_geometry(n, out_h, out_w, cp, fh, fw, co,
+                                  device_key)
+    return KernelPlan(op="packed_conv2d", backend=backend, spec=spec,
+                      weight_store=weight_store, k_full=k_full, **geometry)
 
 
 def plan_int_conv2d(x_shape: tuple, w_shape: tuple, *,

@@ -3,9 +3,19 @@
 
 Replaces ``repro/kernels/ulppack_conv2d.py``: ``ulppack_conv2d`` (Pallas
 ``_kernel``) and ``int_conv2d`` (``_int_kernel``), both launched by
-``_tiled_conv_call`` (pallas_call at :148).  The hand-written kernels are
-``csrc/ulppack_conv2d.cu`` and ``csrc/int_conv2d.cu`` over the shared tile
-of ``csrc/conv2d_tile.cuh`` (CUDA cores; what bounds them is noted there).
+``_tiled_conv_call`` (pallas_call at :148).  The layout picks K5's kernel
+(``plan.packed_conv2d_on_tensor_cores``):
+
+- ``int16xP2s8``, the layout of sparq-cnn and of three Fig. 4 rows:
+  ``csrc/ulppack_conv2d_mma.cu`` on the int8 tensor cores.  Each byte of a
+  lane is one lattice value, so the conv is an implicit GEMM of u8 x u8
+  ``mma.sync`` products with the weight block resident in shared memory;
+  one launch a call, with the CNN's affine dequant fused in on request
+  (:class:`ConvAffine`).
+- every other layout: ``csrc/ulppack_conv2d.cu`` over the CUDA-core tile of
+  ``csrc/conv2d_tile.cuh`` (32-bit integer registers, the faithful
+  ``vmacsr``), which K6 (``csrc/int_conv2d.cu``) shares.  Their fields are
+  not whole bytes, so their lanes have no int8 tensor-core reading.
 
 Layouts are the reference's: input NHWC (K5: channels packed into Cp
 lanes), weights HWIO (K5: field-reversed lanes [Fh, Fw, Cp, Co], or with
@@ -19,11 +29,15 @@ bit-equal (a zero lane contributes zero).
 PyTorch versions (the CPU path and the on-card comparison).  CUDA PyTorch
 has no integer matmul or conv, so they contract shifted windows with
 ``packing.tile_dots`` (int64 products on CUDA, low 32 bits kept), a
-chunk of output rows at a time.  ``kernel_launches`` / ``plain_calls``
-count each kernel's launches and each plain version's calls.
+chunk of output rows at a time.  ``kernel_launches`` counts each CUDA
+kernel's launches (the tensor-core K5 as ``ulppack_conv2d_mma``, the
+CUDA-core K5 as ``ulppack_conv2d``), ``mma_launches`` the tensor-core K5's
+by epilogue, and ``plain_calls`` each plain version's calls.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,13 +46,16 @@ from repro_torch.core import packing
 from repro_torch.core.packing import PackSpec
 from repro_torch.kernels import build
 from repro_torch.kernels import plan as plan_lib
+from repro_torch.kernels.quant_pack import _as_device_scalar
 
 NAMES = ("ulppack_conv2d", "int_conv2d")
 
 #: Launches of each CUDA kernel / calls of each plain version in this
 #: process, keyed by kernel name.
-kernel_launches = dict.fromkeys(NAMES, 0)
+kernel_launches = dict.fromkeys(NAMES + ("ulppack_conv2d_mma",), 0)
 plain_calls = dict.fromkeys(NAMES, 0)
+#: Launches of the tensor-core K5 in this process, keyed by epilogue.
+mma_launches = {"s32": 0, "affine": 0}
 
 #: int64 bytes one contraction of the plain versions may hold on the card.
 _PLAIN_BUDGET = 1 << 28
@@ -47,8 +64,9 @@ _launch: dict = {}
 
 
 def reset_counts():
-    for k in NAMES:
-        kernel_launches[k] = plain_calls[k] = 0
+    for counts in (kernel_launches, plain_calls, mma_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def expand_dense_taps(words: torch.Tensor, spec: PackSpec, cin: int
@@ -198,9 +216,9 @@ def _check_int(q_x, q_w):
                         f"{q_x.dtype} x {q_w.dtype}")
 
 
-def _bound(name: str, n_ints: int):
+def _bound(name: str, n_ptrs: int, n_ints: int):
     if name not in _launch:
-        _launch[name] = build.bind(name, f"{name}_launch", 3, n_ints)
+        _launch[name] = build.bind(name, f"{name}_launch", n_ptrs, n_ints)
     return _launch[name]
 
 
@@ -226,7 +244,7 @@ def ulppack_conv2d_cuda(x_packed: torch.Tensor, w: torch.Tensor,
     out = torch.empty((n, out_h, out_w, co), dtype=torch.int32,
                       device=x.device)
     dense = weight_store == "dense"
-    _bound("ulppack_conv2d", 25)(
+    _bound("ulppack_conv2d", 3, 25)(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, cp,
         spec.lane_bytes, fh, fw, wc, co, out_h, out_w, top, left,
         spec.k_tile, spec.band, spec.field_mask, int(dense), spec.w_bits,
@@ -234,6 +252,63 @@ def ulppack_conv2d_cuda(x_packed: torch.Tensor, w: torch.Tensor,
         smem_bytes, x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernel_launches["ulppack_conv2d"] += 1
+    return out
+
+
+class ConvAffine(NamedTuple):
+    """The affine dequant of ``cnn.conv_epilogue``, fused into the
+    tensor-core K5's epilogue:
+
+        out = (a_scale * w_scale) * (acc - w_zp * psum)    in f32,
+
+    one rounding an operation, ``psum`` the activation lattice's patch sums
+    (taken in the kernel from an MMA against ones); bit-equal to the eager
+    version."""
+
+    a_scale: object               # scalars: 0-dim tensors or numbers
+    w_scale: object
+    w_zp: object
+
+
+def ulppack_conv2d_mma_cuda(x_packed: torch.Tensor, w: torch.Tensor,
+                            spec: PackSpec, *, plan, padding: str = "VALID",
+                            weight_store: str = "lanes",
+                            k_full: int | None = None,
+                            epilogue: ConvAffine | None = None
+                            ) -> torch.Tensor:
+    """Launch the tensor-core K5 (CUDA tensors, ``int16xP2s8`` lanes) with
+    the geometry of ``plan`` (``plan_packed_conv2d`` for these shapes): the
+    exact int32 conv [N, Ho, Wo, Co], or with ``epilogue`` the f32 affine
+    dequant of ``cnn.conv_epilogue``.  One launch; no fall-back."""
+    k_full = _check_packed(x_packed, w, spec, weight_store, k_full)
+    if not plan_lib.packed_conv2d_on_tensor_cores(spec):
+        raise ValueError(f"{spec}: the tensor-core K5 takes int16xP2s8 "
+                         f"lanes only")
+    x, w = _cuda_operands(x_packed, w, "ulppack_conv2d_mma_cuda")
+    n, h, wd, cp = x.shape
+    fh, fw, wc, co = w.shape
+    top, bottom, left, right = same_pads(fh, fw, padding)
+    out_h, out_w = h + top + bottom - fh + 1, wd + left + right - fw + 1
+    dev = x.device
+    if epilogue is None:
+        scalars, out_dtype = [], torch.int32
+    else:
+        scalars = [_as_device_scalar(epilogue.a_scale, torch.float32, dev),
+                   _as_device_scalar(epilogue.w_scale, torch.float32, dev),
+                   _as_device_scalar(epilogue.w_zp, torch.int32, dev)]
+        out_dtype = torch.float32
+    out = torch.empty((n, out_h, out_w, co), dtype=out_dtype, device=dev)
+    ptrs = [t.data_ptr() for t in scalars] or [0, 0, 0]
+    _bound("ulppack_conv2d_mma", 6, 25)(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), *ptrs, n, h, wd, cp, fh,
+        fw, wc, co, out_h, out_w, top, left, int(weight_store == "dense"),
+        spec.w_bits, k_full or 0, spec.max_w * spec.max_a,
+        int(epilogue is not None), plan.block_h, plan.block_w,
+        plan.block_co, plan.block_c, plan.stages, plan.threads, plan.blocks,
+        plan.smem_bytes, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernel_launches["ulppack_conv2d_mma"] += 1
+    mma_launches["s32" if epilogue is None else "affine"] += 1
     return out
 
 
@@ -250,7 +325,7 @@ def int_conv2d_cuda(q_x: torch.Tensor, q_w: torch.Tensor, *, block_h: int,
     out_h, out_w = h + top + bottom - fh + 1, wd + left + right - fw + 1
     out = torch.empty((n, out_h, out_w, co), dtype=torch.int32,
                       device=x.device)
-    _bound("int_conv2d", 18)(
+    _bound("int_conv2d", 3, 18)(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c,
         x.element_size(), fh, fw, co, w.element_size(), out_h, out_w, top,
         left, block_h, block_co, block_c, threads, smem_bytes,
@@ -277,6 +352,11 @@ def _packed_conv2d_torch(plan, x_packed, w, padding):
 
 @plan_lib.register_backend("packed_conv2d", "cuda")
 def _packed_conv2d_cuda(plan, x_packed, w, padding):
+    if plan_lib.packed_conv2d_on_tensor_cores(plan.spec):
+        return ulppack_conv2d_mma_cuda(x_packed, w, plan.spec, plan=plan,
+                                       padding=padding,
+                                       weight_store=plan.weight_store,
+                                       k_full=plan.k_full)
     return ulppack_conv2d_cuda(x_packed, w, plan.spec, **_geometry(plan),
                                padding=padding,
                                weight_store=plan.weight_store,

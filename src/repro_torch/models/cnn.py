@@ -7,7 +7,9 @@ HWIO.  Conv layers run in one of two modes:
   'packed' -- the deployed Sparq path: quantize the activations onto the
               PACT lattice, P1-pack them over channels, the packed conv
               kernel (K5, kernels/ulppack_conv2d.py) and the affine dequant
-              ``a_scale * w_scale * (acc - w_zp * psum)``.
+              ``a_scale * w_scale * (acc - w_zp * psum)``.  On a 'cuda'
+              plan for ``int16xP2s8`` the dequant, with its patch sums, is
+              fused into the tensor-core K5 (one launch a layer).
 The fake-quant training mode ('qat') waits for the training slice.
 
 Deployment is two-phase, as in the reference: ``prepare_packed_params``
@@ -20,8 +22,9 @@ Patch sums ``psum`` (the zero-point correction, an int32 conv of the
 activation lattice with ones in the reference) are computed exactly as the
 int32 channel sum followed by an fh x fw box sum over shifted slices
 (rows, then columns): CUDA PyTorch has no integer conv, and this stays in
-int32 on every device.  The float stem, the pooling and the head are
-library calls, as the reference leaves them to XLA.
+int32 on every device.  The fused route takes them from the kernel's MMAs
+instead (an extra column of ones), bit-equal.  The float stem, the pooling
+and the head are library calls, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from repro_torch.core.packing import PackSpec
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import plan as plan_lib
+from repro_torch.kernels import ulppack_conv2d as _conv
 from repro_torch.kernels.ulppack_conv2d import same_pads
 from repro_torch.models import common
 
@@ -192,12 +196,12 @@ def patch_sums(xq: torch.Tensor, fh: int, fw: int, padding: str
     return out[..., None]
 
 
-def conv_integer_core(p, x, qcfg: QuantConfig, *, padding: str = "SAME",
-                      backend: str = "auto", plan=None) -> dict:
-    """The integer half of a packed conv layer on float input x [N,H,W,C]:
-    the activation lattice ``xq``, the packed conv's int32 ``acc`` and the
-    int32 patch sums ``psum``, with the scalars of the affine epilogue
-    (``a_scale``, ``w_scale``, ``w_zp``)."""
+def _packed_operands(p, x, qcfg: QuantConfig, padding: str, backend: str,
+                     plan) -> dict:
+    """What a packed conv layer feeds its kernel on float input x: the
+    activation lattice ``xq`` and its lanes ``xp``, the weight operand
+    ``wp`` and its store, ``k_full``, the layer's plan (``plan``, else the
+    memoized planner's for ``backend``) and the epilogue's scalars."""
     prepared = "w_packed" in p or "w_words" in p
     store = "dense" if "w_words" in p else "lanes"
     if plan is not None:
@@ -217,7 +221,6 @@ def conv_integer_core(p, x, qcfg: QuantConfig, *, padding: str = "SAME",
         w_zp = qcfg.w_zero_point
         q_w = quant.quantize_affine(w, w_scale, w_zp, qcfg.w_bits)
         wp = packing.pack_weights(q_w, spec, axis=2)
-    fh, fw = int(wp.shape[0]), int(wp.shape[1])
     # activations: PACT range [0, alpha] -> the z = 0 lattice
     alpha = p["alpha"] if "alpha" in p \
         else torch.tensor(4.0, dtype=torch.float32, device=x.device)
@@ -225,11 +228,37 @@ def conv_integer_core(p, x, qcfg: QuantConfig, *, padding: str = "SAME",
     xq = quant.quantize_affine(torch.minimum(torch.clamp(x, min=0.0), alpha),
                                a_scale, 0, qcfg.a_bits)
     xp = packing.pack_activations(xq, spec, axis=-1)
-    acc = ops.packed_conv2d(
-        xp, wp, spec, padding=padding, backend=backend, weight_store=store,
-        k_full=int(x.shape[-1]) if store == "dense" else None, plan=plan)
-    return {"xq": xq, "acc": acc, "psum": patch_sums(xq, fh, fw, padding),
-            "a_scale": a_scale, "w_scale": w_scale, "w_zp": w_zp}
+    k_full = int(x.shape[-1]) if store == "dense" else None
+    if plan is None:
+        plan = plan_lib.plan_packed_conv2d(
+            tuple(xp.shape), tuple(wp.shape), spec, padding=padding,
+            backend=backend, weight_store=store, k_full=k_full,
+            device=xp.device)
+    return {"xq": xq, "xp": xp, "wp": wp, "store": store, "k_full": k_full,
+            "plan": plan, "a_scale": a_scale, "w_scale": w_scale,
+            "w_zp": w_zp}
+
+
+def conv_integer_core(p, x, qcfg: QuantConfig, *, padding: str = "SAME",
+                      backend: str = "auto", plan=None) -> dict:
+    """The integer half of a packed conv layer on float input x [N,H,W,C]:
+    the activation lattice ``xq``, the packed conv's int32 ``acc`` and the
+    int32 patch sums ``psum``, with the scalars of the affine epilogue
+    (``a_scale``, ``w_scale``, ``w_zp``)."""
+    return _integer_core(_packed_operands(p, x, qcfg, padding, backend,
+                                          plan), padding)
+
+
+def _integer_core(o: dict, padding: str) -> dict:
+    wp = o["wp"]
+    acc = ops.packed_conv2d(o["xp"], wp, o["plan"].spec, padding=padding,
+                            weight_store=o["store"], k_full=o["k_full"],
+                            plan=o["plan"])
+    fh, fw = int(wp.shape[0]), int(wp.shape[1])
+    return {"xq": o["xq"], "acc": acc,
+            "psum": patch_sums(o["xq"], fh, fw, padding),
+            "a_scale": o["a_scale"], "w_scale": o["w_scale"],
+            "w_zp": o["w_zp"]}
 
 
 def conv_epilogue(c: dict) -> torch.Tensor:
@@ -252,9 +281,21 @@ def _conv_f32(x, w, padding):
 
 def conv_apply(p, x, qcfg: QuantConfig, *, quant_mode: str = "none",
                padding: str = "SAME", backend: str = "auto", plan=None):
+    """One conv layer on float NHWC x.  'packed' on a 'cuda' plan for a
+    layout on the tensor cores is one K5 launch with the affine dequant
+    fused in (bit-equal to ``conv_epilogue(conv_integer_core(...))``, the
+    route of every other backend and layout)."""
     if quant_mode == "packed" and qcfg.enabled:
-        return conv_epilogue(conv_integer_core(
-            p, x, qcfg, padding=padding, backend=backend, plan=plan))
+        o = _packed_operands(p, x, qcfg, padding, backend, plan)
+        plan = o["plan"]
+        if plan.backend == "cuda" \
+                and plan_lib.packed_conv2d_on_tensor_cores(plan.spec):
+            return _conv.ulppack_conv2d_mma_cuda(
+                o["xp"], o["wp"], plan.spec, plan=plan, padding=padding,
+                weight_store=o["store"], k_full=o["k_full"],
+                epilogue=_conv.ConvAffine(o["a_scale"], o["w_scale"],
+                                          o["w_zp"]))
+        return conv_epilogue(_integer_core(o, padding))
     if quant_mode not in ("none", "packed"):
         raise NotImplementedError(
             f"quant_mode {quant_mode!r}: fake-quant training is still to be "

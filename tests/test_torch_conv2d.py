@@ -188,7 +188,9 @@ def test_entry_points_route_through_plans():
     got = ops.int_conv2d(q_x.to(torch.int16), q_w.to(torch.int8))
     assert torch.equal(got, tref.conv2d_i32_ref(q_x, q_w))
     assert tconv.plain_calls == {"ulppack_conv2d": 2, "int_conv2d": 1}
-    assert tconv.kernel_launches == {"ulppack_conv2d": 0, "int_conv2d": 0}
+    assert tconv.kernel_launches == {"ulppack_conv2d": 0, "int_conv2d": 0,
+                                     "ulppack_conv2d_mma": 0}
+    assert tconv.mma_launches == {"s32": 0, "affine": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.packed_conv2d(xp, tpack.pack_weights(q_w, ts, axis=2), ts,
                           backend="cuda")
@@ -204,6 +206,11 @@ def test_entry_points_route_through_plans():
 ])
 def test_conv_plan_records_store_and_fits_hopper(x_shape, w_shape, padding,
                                                  store, k_full):
+    """The plan records the store and k_full; int16xP2s8 plans the
+    tensor-core K5 (tests/test_torch_ulppack_conv_mma.py checks its
+    geometry), and the CUDA-core tile's geometry for the same shapes still
+    fits Hopper; the tile refuses kernels wider than its register
+    window."""
     ts = tpack.PackSpec(2, 2)
     plan = plan_lib.plan_packed_conv2d(x_shape, w_shape, ts, padding=padding,
                                        weight_store=store, k_full=k_full)
@@ -214,15 +221,22 @@ def test_conv_plan_records_store_and_fits_hopper(x_shape, w_shape, padding,
     want_k = (k_full or x_shape[-1] * ts.n_pack) if store == "dense" \
         else None
     assert plan.k_full == want_k
-    assert plan.block_co in (8, 16, 32)
-    assert plan.threads == (plan.block_h * plan_lib.CONV_GPR
-                            * plan.block_co // plan_lib.CONV_CPT) <= 256
-    assert plan.smem_bytes <= plan_lib.CONV_SMEM_MAX
+    assert plan.threads == plan_lib.CONV_MMA_THREADS
+    assert plan.smem_bytes <= plan_lib.CONV_MMA_SMEM_MAX
     assert plan.describe()["weight_store"] == store
+    core = plan_lib.packed_conv2d_core_geometry(x_shape, w_shape,
+                                                padding=padding)
+    assert core["block_co"] in (8, 16, 32)
+    assert core["threads"] == (core["block_h"] * plan_lib.CONV_GPR
+                               * core["block_co"] // plan_lib.CONV_CPT) <= 256
+    assert core["smem_bytes"] <= plan_lib.CONV_SMEM_MAX
     iplan = plan_lib.plan_int_conv2d(x_shape, w_shape, padding=padding)
     assert iplan.op == "int_conv2d" and iplan.threads <= 256
     with pytest.raises(ValueError, match="register window"):
-        plan_lib.plan_packed_conv2d((1, 9, 9, 4), (9, 9, 4, 8), ts)
+        plan_lib.plan_packed_conv2d((1, 9, 9, 4), (9, 9, 4, 8),
+                                    tpack.PackSpec(2, 2, "int32", 2, 16))
+    with pytest.raises(ValueError, match="register window"):
+        plan_lib.packed_conv2d_core_geometry((1, 9, 9, 4), (9, 9, 4, 8))
 
 
 def test_conv_tile_constants_match_the_kernel_source():

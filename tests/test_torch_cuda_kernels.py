@@ -357,6 +357,155 @@ def test_ulppack_conv2d_bit_equal(hopper, spec, store, geom):
     assert torch.equal(got, want)
 
 
+# (N, H, W, Cin, Fh, Fw, Co, padding, store): the CPU emulation's grid
+# (tests/test_torch_ulppack_conv_mma.py), then full-width sparq-cnn's
+# layers at batch 1, both stores.
+CONV_MMA_GEOMS = [
+    (1, 9, 10, 3, 3, 3, 8, "SAME", "lanes"),
+    (2, 7, 19, 8, 3, 3, 32, "VALID", "dense"),
+    (1, 11, 37, 17, 5, 4, 64, "SAME", "dense"),
+    (2, 6, 5, 32, 7, 7, 8, "SAME", "lanes"),
+    (1, 13, 12, 40, 3, 3, 9, "VALID", "lanes"),
+    (1, 5, 70, 80, 2, 3, 16, "SAME", "lanes"),
+    (1, 256, 256, 32, 7, 7, 32, "SAME", "lanes"),
+    (1, 256, 256, 32, 7, 7, 32, "SAME", "dense"),
+    (1, 256, 256, 32, 7, 7, 64, "SAME", "lanes"),
+    (1, 256, 256, 32, 7, 7, 64, "SAME", "dense"),
+]
+
+
+def _conv_mma_case(dev, bits, geom, seed):
+    n, h, w, cin, fh, fw, co, padding, store = geom
+    sp = PackSpec.parse(f"W{bits}A{bits}/int16xP2s8")
+    g = _gen(dev, seed)
+    qx = torch.randint(0, sp.max_a + 1, (n, h, w, cin), generator=g,
+                       device=dev)
+    qw = torch.randint(0, sp.max_w + 1, (fh, fw, cin, co), generator=g,
+                       device=dev)
+    xp = packing.pack_activations(qx, sp)
+    wp = (ops.dense_store_conv_weights(qw, sp.w_bits) if store == "dense"
+          else packing.pack_weights(qw, sp, axis=2))
+    k_full = cin if store == "dense" else None
+    plan = plan_lib.plan_packed_conv2d(tuple(xp.shape), tuple(wp.shape), sp,
+                                       padding=padding, weight_store=store,
+                                       k_full=k_full, device=dev)
+    kw = dict(padding=padding, weight_store=store, k_full=k_full)
+    return sp, xp, wp, plan, kw
+
+
+@pytest.mark.parametrize("geom", CONV_MMA_GEOMS, ids=lambda g: "-".join(
+    map(str, g)))
+@pytest.mark.parametrize("bits", [1, 2, 3])
+def test_ulppack_conv2d_mma_bit_equal(hopper, bits, geom):
+    """The tensor-core K5 against the plain K5, bit-equal, through the
+    planner's route (ops.packed_conv2d) and the wrapper; one launch each,
+    no CUDA-core K5 launch."""
+    sp, xp, wp, plan, kw = _conv_mma_case(hopper, bits, geom, bits + geom[3])
+    assert plan.backend == "cuda" and plan.block_w is not None
+    want = ulppack_conv2d.ulppack_conv2d_torch(xp, wp, sp, **kw)
+    ulppack_conv2d.reset_counts()
+    got = ops.packed_conv2d(xp, wp, sp, plan=plan, padding=kw["padding"])
+    assert torch.equal(got, want)
+    got = ulppack_conv2d.ulppack_conv2d_mma_cuda(xp, wp, sp, plan=plan, **kw)
+    assert torch.equal(got, want)
+    assert ulppack_conv2d.kernel_launches["ulppack_conv2d_mma"] == 2
+    assert ulppack_conv2d.kernel_launches["ulppack_conv2d"] == 0
+    assert ulppack_conv2d.mma_launches == {"s32": 2, "affine": 0}
+
+
+def test_ulppack_conv2d_mma_repeats_and_graph_replay(hopper):
+    """Two launches, three calls in a row and the calls replayed from a
+    CUDA graph give the same bits (sparq-cnn's 32->64 layer, 2 images)."""
+    geom = (2, 256, 256, 32, 7, 7, 64, "SAME", "lanes")
+    sp, xp, wp, plan, kw = _conv_mma_case(hopper, 2, geom, 9)
+    want = ulppack_conv2d.ulppack_conv2d_torch(xp, wp, sp, **kw)
+
+    def call():
+        return ulppack_conv2d.ulppack_conv2d_mma_cuda(xp, wp, sp, plan=plan,
+                                                      **kw)
+
+    runs = [call() for _ in range(3)]
+    assert all(torch.equal(r, want) for r in runs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call() for _ in range(3)]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("store", ["lanes", "dense"])
+@pytest.mark.parametrize("shape", [(2, 19, 37, 8, 3, 16),
+                                   (1, 64, 70, 32, 7, 64)])
+def test_ulppack_conv2d_mma_fused_epilogue_bit_equal(hopper, store, shape):
+    """cnn.conv_apply on the card: one tensor-core K5 launch with the
+    affine dequant fused in, bit-equal to the plain K5 + the eager patch
+    sums and epilogue (cnn.conv_epilogue on the 'torch' backend)."""
+    from repro_torch import configs
+    from repro_torch.models import cnn
+
+    n, h, w, cin, k, co = shape
+    qcfg = configs.get_config("sparq-cnn").quant
+    g = _gen(hopper, h + co)
+    p = cnn.conv_prepare(cnn.conv_init(g, k, k, cin, co, qcfg,
+                                       device=hopper), qcfg,
+                         weight_store=store)
+    x = torch.randn((n, h, w, cin), generator=g, device=hopper) * 2
+    ulppack_conv2d.reset_counts()
+    got = cnn.conv_apply(p, x, qcfg, quant_mode="packed")
+    assert ulppack_conv2d.mma_launches == {"s32": 0, "affine": 1}
+    assert sum(ulppack_conv2d.plain_calls.values()) == 0
+    want = cnn.conv_epilogue(cnn.conv_integer_core(p, x, qcfg,
+                                                   backend="torch"))
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("change", [
+    dict(block_w=64), dict(block_h=8), dict(block_co=24), dict(block_c=64),
+    dict(stages=3), dict(threads=128), dict(blocks=0), dict(blocks=1000),
+    dict(smem_bytes=16)])
+def test_ulppack_conv2d_mma_launcher_refuses_a_plan_that_disagrees(hopper,
+                                                                   change):
+    """A plan whose tile, channel block, staged bytes, ring, threads, block
+    count or shared memory disagrees with the kernel's layout is refused by
+    the launcher and raises (smem_bytes moves by the amount given; the
+    other fields are set)."""
+    import dataclasses
+
+    geom = (1, 40, 37, 32, 7, 7, 64, "SAME", "lanes")
+    sp, xp, wp, plan, kw = _conv_mma_case(hopper, 2, geom, 3)
+    bad = dataclasses.replace(plan, **{
+        f: plan.smem_bytes + v if f == "smem_bytes" else v
+        for f, v in change.items()})
+    assert torch.equal(
+        ulppack_conv2d.ulppack_conv2d_mma_cuda(xp, wp, sp, plan=plan, **kw),
+        ulppack_conv2d.ulppack_conv2d_torch(xp, wp, sp, **kw))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ulppack_conv2d.ulppack_conv2d_mma_cuda(xp, wp, sp, plan=bad, **kw)
+
+
+@pytest.mark.parametrize("geom", CONV_MMA_GEOMS[:4] + CONV_MMA_GEOMS[-2:],
+                         ids=lambda g: "-".join(map(str, g)))
+def test_ulppack_conv2d_core_tile_at_int16xP2s8(hopper, geom):
+    """The CUDA-core K5 with its own geometry forced on int16xP2s8 (the
+    layout the planner sends to the tensor cores) stays bit-equal."""
+    sp, xp, wp, plan, kw = _conv_mma_case(hopper, 2, geom, 5)
+    core = plan_lib.packed_conv2d_core_geometry(
+        tuple(xp.shape), tuple(wp.shape), padding=kw["padding"],
+        device=hopper)
+    got = ulppack_conv2d.ulppack_conv2d_cuda(xp, wp, sp, **core, **kw)
+    assert torch.equal(got, ulppack_conv2d.ulppack_conv2d_torch(xp, wp, sp,
+                                                                **kw))
+
+
 @pytest.mark.parametrize("geom", CONV_GEOMS, ids=lambda g: "x".join(
     map(str, g)))
 @pytest.mark.parametrize("dtype,lo,hi", [
