@@ -10,10 +10,15 @@ toolkit:
    source, in parallel) and prints the build time.
 2. Kernel phase: at the full-width shapes of W2A2 ``stablelm-1.6b``
    serving, holds each LM kernel against its plain PyTorch version on the
-   card (quantize-pack and the packed matmul bit-equal -- K2 on the tensor
-   cores at the decode and prefill rows, a second launch and three calls
-   in a row bit-equal, and its fused affine epilogue bit-equal to the
-   eager one (``fused-epilogue`` line); the CUDA-core K2 at its earlier rows;
+   card (quantize-pack bit-equal on f32, bf16 and f16 activations, and the
+   packed matmul bit-equal -- K2 on the tensor cores at the decode and
+   prefill rows, a second launch and three calls in a row bit-equal; the
+   serving path's call, K1 folded into the tensor-core K2 on bf16
+   activations (``quantized_linear_mma``, route ``fused-quant``), bit-equal
+   to the cast + K1 + K2-affine route it replaced and to the plain version
+   and timed beside that route; ``ops.quantized_linear`` one fused launch,
+   bit-equal to the eager epilogue and to K1 + K2 (``fused-epilogue``
+   line); the CUDA-core K2 at its earlier rows;
    attention within
    1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
    bf16 queries, with a dead row exactly zero and a second launch
@@ -46,7 +51,8 @@ toolkit:
    seed, through ``ServingEngine`` at kv_bits 16, 4 and 2, four greedy
    requests with staggered admission.  Fails unless every request finishes
    and every kernel was launched on that path with no plain-version call,
-   every K2 launch the tensor-core kernel with the fused epilogue.  At
+   every packed linear one launch of the tensor-core K2 with K1 folded in
+   and the epilogue fused (no standalone K1 launch).  At
    kv_bits 4 it profiles four decode passes and one 64-row prefill chunk
    (device kernel time, launches, K2 / elementwise / fill time, top
    kernels) and runs one prefill chunk and 8 decode steps with
@@ -62,15 +68,16 @@ toolkit:
    8 live slots, twice the unpaged engine's), tokens equal to an unpaged
    engine with 16 slots.  A ``paged`` line per run, a ``paged profile``
    line of four kv_bits-4 decode passes.  Fails unless every paged read
-   launched K4, with no plain call and no K3 launch, and every K2 launch
-   was the tensor-core kernel with the fused epilogue.
+   launched K4, with no plain call and no K3 launch, and every packed
+   linear was one fused launch (no standalone K1).
 5. Linear phase: ``benchmarks/serve_microbench.run_linear`` on the card at
    m = 8, k = n = 4096: bf16 ``torch.matmul``, int8 through
    ``ops.int_matmul`` (K7 launched, no plain call), packed W1A1 / W2A2 /
-   W3A3 on ``int16xP2s8`` through ``ops.quantized_linear`` (K1 and the
-   tensor-core K2 with the epilogue fused in) and W2A2 on ``int32xP2s16``
-   (K1, the CUDA-core K2 and the eager epilogue: that kernel's path); a
-   ``linear`` line with each time and the weight bytes.
+   W3A3 on ``int16xP2s8`` through ``ops.quantized_linear`` (one launch of
+   the tensor-core K2 with K1 folded in), W2A2 on ``int32xP2s16`` (K1, the
+   CUDA-core K2 and the eager epilogue: that kernel's path) and the W2A2
+   lattice dot on ``int16xP2s8`` (K1 and the tensor-core K2's lanes route:
+   their path); a ``linear`` line with each time and the weight bytes.
 6. Fig. 4 phase: the int16 conv and each packed case once through
    ``ops.int_conv2d`` / ``ops.packed_conv2d`` (K6, the tensor-core K5 at
    int16xP2s8 and the CUDA-core K5 at int8xP2s4 launched, no plain call),
@@ -89,13 +96,14 @@ toolkit:
    fused-epilogue``), and the logit difference.
 
 ``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
-tensor-core K2's split sweep (``k2_sweep``), the data the planner's split
-model was fitted to.
+tensor-core K2's split sweep (``k2_sweep``, its lanes and its fused
+route), the data the planner's split model was fitted to.
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
-kernel (K1-K7, K2 and K5 each as its tensor-core and its CUDA-core kernel)
-with the launches of its path.
+kernel (K1-K7, K2 and K5 each as its tensor-core and its CUDA-core kernel,
+and K1 folded into the tensor-core K2 as ``quantized_linear_mma``) with the
+launches of its path.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -198,11 +206,14 @@ def kernel_phase(torch, peaks, dev):
     zp = torch.tensor(2, dtype=torch.int32, device=dev)
     for m, k in ((4, 2048), (64, 2048), (4, 5632)):
         x = torch.randn((m, k), generator=gen, device=dev) * 1.5
-        lk, rk = quant_pack.quantize_pack_cuda(x, scale, zp, spec)
-        lt, rt = quant_pack.quantize_pack_torch(x, scale, zp, spec)
-        torch.cuda.synchronize()
-        if not (torch.equal(lk, lt) and torch.equal(rk, rt)):
-            raise AssertionError(f"quantize_pack [{m}, {k}] not bit-equal")
+        # read in its own dtype: f32, and the serving path's bf16 and f16
+        for xd in (x, x.bfloat16(), x.half()):
+            lk, rk = quant_pack.quantize_pack_cuda(xd, scale, zp, spec)
+            lt, rt = quant_pack.quantize_pack_torch(xd, scale, zp, spec)
+            torch.cuda.synchronize()
+            if not (torch.equal(lk, lt) and torch.equal(rk, rt)):
+                raise AssertionError(f"quantize_pack [{m}, {k}] {xd.dtype} "
+                                     f"not bit-equal")
         kp = -(-k // spec.n_pack)
         nbytes = m * k * 4 + m * kp * spec.lane_bytes + m * 4 + 8
         # elementwise (divide, round, clip, shift): CUDA-core f32 work
@@ -319,6 +330,8 @@ def packed_matmul_rows(torch, peaks, dev, gen):
                 "kernels_us": device_kernel_us(torch, call,
                                                warm=lambda: call(ws[-1])),
                 "geometry": plan.describe()})
+            rows.append(fused_quant_row(torch, peaks, dev, gen, sp, m, k, n,
+                                        qw, ws, design[0]))
         if "core" in kinds:
             geo = plan_lib.packed_matmul_core_geometry(m, kp, n, sp, dev)
             got = mm.ulppack_matmul_cuda(a, w, sp, **geo)
@@ -337,6 +350,71 @@ def packed_matmul_rows(torch, peaks, dev, gen):
     fused_epilogue_check(torch, dev, gen, ops, mm)
     k2_costs(torch, dev, gen)
     return rows
+
+
+def fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws, design):
+    """The serving path's call at one K2 shape: ``ops.quantized_linear``
+    on bf16 activations with bf16 out, one launch of the tensor-core K2
+    with K1 folded in (``quantized_linear_mma``), checked bit-equal to the
+    route it replaces -- x cast to f32, K1, the tensor-core K2 with the
+    affine epilogue -- and to the plain version, and timed beside that
+    route (``two_launch_ms``: the cast, K1 and K2, three launches), at
+    the serving path's activation scale (stablelm's a_step, 1/sqrt(3));
+    ``ms_scale_0_4`` is the fused call at scale 0.4, where bf16
+    activations land on exact half-steps (x = 1, 3, ... give x / 0.4 =
+    2.5, 7.5, ...) that the kernel's filter leaves to its exact redo.
+    ``bound_ms``: W's lanes, x and the output over HBM, or the lattice
+    MACs at the int8 tensor-core rate; no single PyTorch call quantizes
+    and multiplies."""
+    from repro_torch.kernels import ops, quant_pack, ulppack_matmul as mm
+    from repro_torch.kernels import plan as plan_lib
+
+    x = (torch.randn((m, k), generator=gen, device=dev) * 1.5).bfloat16()
+    cs = qw.sum(dim=0, dtype=torch.int32)
+    a_scale = torch.tensor(3 ** -0.5, device=dev)
+    zp = torch.tensor(2, dtype=torch.int32, device=dev)
+    w_scale = torch.tensor(0.02, device=dev)
+    bf16 = torch.bfloat16
+    plan = plan_lib.plan_quantized_linear(m, k, n, sp, bf16, device=dev)
+    lanes = plan_lib.plan_packed_matmul(m, -(-k // 2), n, sp, device=dev)
+
+    def fused(wi, a_scale=a_scale):
+        return mm.quantized_linear_mma_cuda(x, wi, cs, a_scale, zp, w_scale,
+                                            zp, sp, plan=plan, out_dtype=bf16)
+
+    def two_launch(wi):
+        a, rs = quant_pack.quantize_pack_cuda(x.float(), a_scale, zp, sp)
+        return mm.ulppack_matmul_mma_cuda(a, wi, sp, plan=lanes, epilogue=(
+            mm.Affine(rs, cs, a_scale, zp, w_scale, zp, k, None, bf16)))
+
+    want = ops.quantized_linear(x, ws[0], cs, a_scale, zp, w_scale, zp, sp,
+                                backend="torch", out_dtype=bf16)
+    runs = [fused(ws[0]) for _ in range(2)] + [two_launch(ws[0])]
+    s04 = torch.tensor(0.4, device=dev)
+    want04 = ops.quantized_linear(x, ws[0], cs, s04, zp, w_scale, zp, sp,
+                                  backend="torch", out_dtype=bf16)
+    torch.cuda.synchronize()
+    if not all(torch.equal(r, want) for r in runs) \
+            or not torch.equal(fused(ws[0], s04), want04):
+        raise AssertionError(f"quantized_linear_mma {(m, k, n)}: not "
+                             f"bit-equal to K1 + K2 and the plain version")
+    nbytes = ws[0].numel() * 2 + m * k * 2 + m * n * 2 + n * 4
+    b, by = bound_ms(nbytes, 2 * m * k * n, peaks["hbm"], peaks["int8"])
+    return {"name": "quantized_linear_mma", "route": "fused-quant",
+            "shape": f"({m},{k // 2},{n}) {sp} bf16 x", "max_abs_err": 0,
+            "ms": time_ms(torch, [lambda wi=wi: fused(wi) for wi in ws]),
+            "two_launch_ms": time_ms(torch, [lambda wi=wi: two_launch(wi)
+                                             for wi in ws]),
+            "ms_scale_0_4": time_ms(torch, [lambda wi=wi: fused(wi, s04)
+                                            for wi in ws]),
+            "plain_ms": time_ms(torch, [lambda: ops.quantized_linear(
+                x, ws[0], cs, a_scale, zp, w_scale, zp, sp, backend="torch",
+                out_dtype=bf16)], 3),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "design_bound_ms": design,
+            "kernels_us": device_kernel_us(torch, lambda: fused(ws[0]),
+                                           warm=lambda: fused(ws[-1])),
+            "geometry": plan.describe()}
 
 
 def _mma_operands(torch, dev, gen, m, kp, n):
@@ -358,12 +436,14 @@ def _mma_operands(torch, dev, gen, m, kp, n):
 
 def _mma_variant(plan, kp, block_m, per):
     """``plan`` with block_m rows a block and ``per`` 64-lane stages a
-    split (the tile's shared memory for those rows)."""
+    split (the tile's shared memory for those rows: lanes, or the fused
+    route's float rows of ``plan.x_bytes``)."""
     import dataclasses
 
     from repro_torch.kernels import plan as plan_lib
 
-    stages, smem = plan_lib.int_matmul_smem_layout(block_m, 2, 2)
+    ab = 2 * plan.x_bytes if plan.x_bytes else 2
+    stages, smem = plan_lib.int_matmul_smem_layout(block_m, ab, 2)
     steps = -(-kp // 64)
     return dataclasses.replace(plan, block_m=block_m, stages=stages,
                                smem_bytes=smem, block_k=64 * per,
@@ -406,31 +486,64 @@ def k2_sweep(torch, dev):
     its main-path shapes over block_m (8 at 4 rows; 16, 32 and 64 at 64)
     and 1-16 stages a split, µs a call by CUDA-graph replay, each checked
     bit-equal, beside the planner's choice: the data its split model was
-    fitted to.  One ``k2-sweep`` line per shape and block_m."""
+    fitted to.  One ``k2-sweep`` line per shape and block_m for the lanes
+    route, one ``k2-sweep-fused`` line for the fused quantize on bf16
+    activations (the serving path's route, which shares the split
+    model)."""
+    from repro_torch.kernels import ops, ulppack_matmul as mm
     from repro_torch.kernels import plan as plan_lib
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bf16 = torch.bfloat16
     for m, kp, n in K2_MMA_CASES:
         sp, a, ws, want = _mma_operands(torch, dev, gen, m, kp, n)
         plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=dev)
         steps = -(-kp // 64)
+        x = (torch.randn((m, 2 * kp), generator=gen, device=dev)).to(bf16)
+        cs = torch.zeros(n, dtype=torch.int32, device=dev)
+        one = torch.tensor(3 ** -0.5, device=dev)   # the serving a_step
+        zp = torch.tensor(2, dtype=torch.int32, device=dev)
+        qplan = plan_lib.plan_quantized_linear(m, 2 * kp, n, sp, bf16,
+                                               device=dev)
+        qwant = ops.quantized_linear(x, ws[0], cs, one, zp, one, zp, sp,
+                                     backend="torch", out_dtype=bf16)
+
+        def fused_us(p):
+            def call(wi):
+                return mm.quantized_linear_mma_cuda(
+                    x, wi, cs, one, zp, one, zp, sp, plan=p, out_dtype=bf16)
+            if not torch.equal(call(ws[0]), qwant):
+                raise AssertionError(f"quantized_linear_mma {p.describe()}: "
+                                     f"not bit-equal")
+            return 1e3 * time_ms(torch, [lambda wi=wi: call(wi)
+                                         for wi in ws])
+
         for bm in ((8,) if m <= 8 else (16, 32, 64)):
-            us = {per: _mma_us(torch, a, ws, sp,
-                               _mma_variant(plan, kp, bm, per), want)
-                  for per in (1, 2, 3, 4, 6, 8, 11, 16) if per <= steps}
-            print("k2-sweep " + json.dumps({
-                "shape": [m, kp, n], "block_m": bm,
-                "us_by_stages_per_split": us,
-                "planned": [plan.block_m, plan.block_k // 64, plan.splits]}))
+            pers = [per for per in (1, 2, 3, 4, 6, 8, 11, 16) if per <= steps]
+            for label, p, us_of in (
+                    ("k2-sweep", plan, lambda v: _mma_us(torch, a, ws, sp, v,
+                                                         want)),
+                    ("k2-sweep-fused", qplan, fused_us)):
+                us = {per: us_of(_mma_variant(p, kp, bm, per))
+                      for per in pers}
+                print(f"{label} " + json.dumps({
+                    "shape": [m, kp, n], "block_m": bm,
+                    "us_by_stages_per_split": us,
+                    "planned": [p.block_m, p.block_k // 64, p.splits]}))
 
 
 def fused_epilogue_check(torch, dev, gen, ops, mm):
     """``ops.quantized_linear`` at stablelm's q projection (4 rows, K 2048,
-    N 2048) with a bf16 bias, f32 and bf16 out: K1 + the tensor-core K2
-    with the fused epilogue (one launch each) bit-equal to the same
-    function on the plain backend, whose epilogue is eager PyTorch; prints
-    a ``fused-epilogue`` line (the ``linear`` line times the path)."""
+    N 2048) with a bf16 bias, on f32 and the serving path's bf16
+    activations, f32 and bf16 out: one launch of the tensor-core K2 with
+    K1 folded in and the affine epilogue fused (no K1 launch), bit-equal
+    to the route it replaced -- K1 on x.float(), then the tensor-core K2
+    on the lanes with the fused epilogue -- and to the same function on
+    the plain backend, whose epilogue is eager PyTorch; prints a
+    ``fused-epilogue`` line (the ``linear`` line times the path)."""
     from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import plan as plan_lib
+    from repro_torch.kernels import quant_pack
 
     sp = PackSpec(2, 2)
     x = torch.randn((4, 2048), generator=gen, device=dev)
@@ -440,23 +553,36 @@ def fused_epilogue_check(torch, dev, gen, ops, mm):
     a_scale = torch.tensor(0.4, device=dev)
     wp, cs = ops.prepare_weights(w, w_scale, zp, sp)
     bias = torch.randn((2048,), generator=gen, device=dev).bfloat16()
-    for out_dtype in (torch.float32, torch.bfloat16):
-        args = (x, wp, cs, a_scale, zp, w_scale, zp, sp)
-        mm.reset_counts()
-        got = ops.quantized_linear(*args, bias=bias, out_dtype=out_dtype)
-        launches = dict(mm.mma_launches)
-        want = ops.quantized_linear(*args, bias=bias, out_dtype=out_dtype,
-                                    backend="torch")
-        torch.cuda.synchronize()
-        if launches != {"s32": 0, "affine": 1} or not torch.equal(got, want):
-            raise AssertionError(f"fused epilogue ({out_dtype}): launches "
-                                 f"{launches}, bit-equal "
-                                 f"{torch.equal(got, want)}")
+    lanes = plan_lib.plan_packed_matmul(4, 1024, 2048, sp, device=dev)
+    for xd in (x, x.bfloat16()):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            args = (xd, wp, cs, a_scale, zp, w_scale, zp, sp)
+            mm.reset_counts()
+            quant_pack.reset_counts()
+            got = ops.quantized_linear(*args, bias=bias, out_dtype=out_dtype)
+            launches = dict(mm.mma_launches)
+            k1 = quant_pack.kernel_launches
+            want = ops.quantized_linear(*args, bias=bias, out_dtype=out_dtype,
+                                        backend="torch")
+            a, rs = quant_pack.quantize_pack_cuda(xd.float(), a_scale, zp, sp)
+            two = mm.ulppack_matmul_mma_cuda(a, wp, sp, plan=lanes, epilogue=(
+                mm.Affine(rs, cs, a_scale, zp, w_scale, zp, 2048, bias,
+                          out_dtype)))
+            torch.cuda.synchronize()
+            if launches != {"s32": 0, "affine": 0, "quant_affine": 1} or k1 \
+                    or not torch.equal(got, want) \
+                    or not torch.equal(got, two):
+                raise AssertionError(
+                    f"fused epilogue (x {xd.dtype}, out {out_dtype}): "
+                    f"launches {launches}, K1 {k1}, bit-equal to the plain "
+                    f"route {torch.equal(got, want)}, to K1 + K2 "
+                    f"{torch.equal(got, two)}")
     print("fused-epilogue " + json.dumps({
         "shape": "x[4,2048] W2A2/int16xP2s8 N 2048, bf16 bias",
+        "x_dtypes": ["float32", "bfloat16"],
         "out_dtypes": ["float32", "bfloat16"], "launches_per_call":
-        {"quantize_pack": 1, "ulppack_matmul_mma": 1},
-        "bit_equal_to_eager": True}))
+        {"quantized_linear_mma": 1, "quantize_pack": 0},
+        "bit_equal_to_eager": True, "bit_equal_to_k1_k2": True}))
 
 
 # K3/K4's shapes: stablelm-1.6b's heads (32 of 64, one kv head each) at
@@ -1256,8 +1382,8 @@ def profile_decode(torch, cfg, params, ecfg, prompts, dev, label="profile"):
     torch.cuda.empty_cache()
 
 
-LM_GROUPS = {"k2": ("ulppack_matmul",), "elementwise": ("elementwise",),
-             "fill": ("fill", "Fill")}
+LM_GROUPS = {"k2": ("ulppack_matmul",), "k1": ("quant_pack",),
+             "elementwise": ("elementwise",), "fill": ("fill", "Fill")}
 CNN_GROUPS = {"k5": ("ulppack_conv2d_mma",), "elementwise": ("elementwise",),
               "reduce": ("reduce_kernel",)}
 
@@ -1265,7 +1391,8 @@ CNN_GROUPS = {"k5": ("ulppack_conv2d_mma",), "elementwise": ("elementwise",),
 def kernel_groups(kernels, n, suffix, groups=LM_GROUPS):
     """Device ms and launches per pass of each group of profiler rows whose
     kernel names contain one of the group's keys: by default K2 (either
-    kernel), PyTorch's elementwise kernels and its fills (zeros)."""
+    kernel, K1 folded in or not), the standalone K1, PyTorch's elementwise
+    kernels and its fills (zeros)."""
     out = {}
     for g, keys in groups.items():
         sel = [e for e in kernels if any(k in e.key for k in keys)]
@@ -1313,19 +1440,22 @@ def profile_prefill(torch, cfg, params, ecfg, prompts, dev):
 
 
 def check_k2_path(where):
-    """Every K2 launch since the counts were reset was the tensor-core
-    kernel with the affine epilogue fused in: no plain call, no CUDA-core
-    launch, no s32 launch (whose output the eager epilogue would take)."""
-    from repro_torch.kernels import ulppack_matmul as mm
+    """Every packed linear since the counts were reset was one launch of
+    the tensor-core K2 with K1 folded in and the affine epilogue fused:
+    no standalone K1 launch, no plain call, no lanes-route launch (s32 or
+    affine), no CUDA-core launch.  Returns the fused launches."""
+    from repro_torch.kernels import quant_pack, ulppack_matmul as mm
 
     mma, core = dict(mm.mma_launches), mm.kernel_launches["ulppack_matmul"]
-    plain = mm.plain_calls["ulppack_matmul"]
-    if not mma["affine"] or mma["s32"] or core or plain:
+    plain = mm.plain_calls["ulppack_matmul"] + quant_pack.plain_calls
+    k1 = quant_pack.kernel_launches
+    if not mma["quant_affine"] or mma["affine"] or mma["s32"] or core \
+            or plain or k1:
         raise AssertionError(f"{where}: K2 launches {mma} on the tensor "
-                             f"cores, {core} on the CUDA cores, {plain} "
-                             f"plain calls: every K2 call must be the "
-                             f"tensor-core kernel with the fused epilogue")
-    return mma["affine"]
+                             f"cores, {core} on the CUDA cores, {k1} K1 "
+                             f"launches, {plain} plain calls: every packed "
+                             f"linear must be one fused launch")
+    return mma["quant_affine"]
 
 
 def paged_phase(torch, np, dev, cfg, params):
@@ -1335,6 +1465,7 @@ def paged_phase(torch, np, dev, cfg, params):
     and a profile of four paged decode passes.  Fails unless every paged
     read launched K4 (no plain call, no K3 launch).  Returns K4's launches
     on the paged runs."""
+    from repro_torch.kernels import quant_pack
     from repro_torch.kernels import ulppack_attention as att
     from repro_torch.kernels import ulppack_matmul as mm
     from repro_torch.serve.engine import EngineConfig, Request, \
@@ -1374,6 +1505,7 @@ def paged_phase(torch, np, dev, cfg, params):
     def paged_run(c, ecfg, prompts, news, first=0):
         att.reset_counts()
         mm.reset_counts()
+        quant_pack.reset_counts()
         out = run(c, ecfg, prompts, news, first)
         torch.cuda.synchronize()
         k4 = att.kernel_launches["attention_decode_paged"]
@@ -1467,12 +1599,15 @@ def linear_phase(torch, dev):
     """``benchmarks/serve_microbench.run_linear`` on the card at m = 8,
     k = n = 4096 (its weights and scales): bf16 ``torch.matmul``, int8
     through ``ops.int_matmul`` (K7), packed W1A1 / W2A2 / W3A3 on
-    ``int16xP2s8`` through ``ops.quantized_linear`` (K1 + the tensor-core
-    K2 with the affine epilogue fused in), and W2A2 on ``int32xP2s16``
-    (K1 + the CUDA-core K2 + the eager epilogue).  Each row is driven once
-    with the counts at zero (K7 launched for the int8 row, K1 and the
-    layout's K2 for each packed row, no plain call), then timed by
-    CUDA-graph replay.  Returns K7's and the CUDA-core K2's launches."""
+    ``int16xP2s8`` through ``ops.quantized_linear`` (one launch of the
+    tensor-core K2 with K1 folded in and the affine epilogue fused), W2A2
+    on ``int32xP2s16`` (K1, the CUDA-core K2 and the eager epilogue: that
+    kernel's path) and the exact W2A2 lattice dot on ``int16xP2s8``
+    through ``ops.quantize_pack`` + ``ops.packed_matmul`` (K1 and the
+    lanes route of the tensor-core K2: their path).  Each row is driven
+    once with the counts at zero (the expected launches, no plain call),
+    then timed by CUDA-graph replay.  Returns the launches of K7, the
+    CUDA-core K2, K1 and the lanes route of the tensor-core K2."""
     from repro_torch.core.packing import PackSpec
     from repro_torch.kernels import ops, quant_pack, ulppack_matmul
 
@@ -1491,40 +1626,49 @@ def linear_phase(torch, dev):
     paths = [("bf16", lambda: torch.matmul(x.to(torch.bfloat16), wb16),
               wb16.numel() * 2, {}),
              ("int8-unpacked", int8, w8.numel(), {"int_matmul": 1})]
+    a_scale = torch.tensor(0.07, dtype=f32, device=dev)
+    w_scale = torch.tensor(0.02, dtype=f32, device=dev)
     for text in ("W1A1/int16xP2s8", "W2A2/int16xP2s8", "W3A3/int16xP2s8",
                  "W2A2/int32xP2s16"):
         spec = PackSpec.parse(text)
         wb = spec.w_bits
         zp = torch.tensor(1 << (wb - 1), dtype=i32, device=dev)
-        wp, cs = ops.prepare_weights(w, torch.tensor(0.02, dtype=f32,
-                                                     device=dev), zp, spec)
-        a_scale = torch.tensor(0.07, dtype=f32, device=dev)
-        w_scale = torch.tensor(0.02, dtype=f32, device=dev)
-        k2 = ("ulppack_matmul_mma" if spec.lane_dtype == torch.int16
-              else "ulppack_matmul")
+        wp, cs = ops.prepare_weights(w, w_scale, zp, spec)
+        fused = spec.lane_dtype == torch.int16
         paths.append((f"packed-W{wb}A{wb}" + (
-                          "" if k2 == "ulppack_matmul_mma"
-                          else f"-{spec.lane_name}xP{spec.n_pack}s"
-                               f"{spec.shift}"),
+                          "" if fused else f"-{spec.lane_name}xP"
+                                           f"{spec.n_pack}s{spec.shift}"),
                       lambda wp=wp, cs=cs, zp=zp, spec=spec:
                       ops.quantized_linear(x, wp, cs, a_scale, zp, w_scale,
                                            zp, spec),
                       wp.numel() * wp.element_size(),
-                      {"quantize_pack": 1, k2: 1}))
+                      {"quantized_linear_mma": 1} if fused else
+                      {"quantize_pack": 1, "ulppack_matmul": 1}))
+        if text == "W2A2/int16xP2s8":
+            paths.append(("packed-W2A2-lattice-dot",
+                          lambda wp=wp, zp=zp, spec=spec: ops.packed_matmul(
+                              ops.quantize_pack(x, a_scale, zp, spec)[0], wp,
+                              spec),
+                          wp.numel() * wp.element_size(),
+                          {"quantize_pack": 1, "ulppack_matmul_mma": 1}))
     mods = (ulppack_matmul, quant_pack)
-    rows, launches = [], {"int_matmul": 0, "ulppack_matmul": 0}
+    rows = []
+    launches = dict.fromkeys(("int_matmul", "ulppack_matmul", "quantize_pack",
+                              "ulppack_matmul_mma"), 0)
     for name, fn, wbytes, expect in paths:
         for mod in mods:
             mod.reset_counts()
         out = fn()
         torch.cuda.synchronize()
+        mma = ulppack_matmul.mma_launches
         got = {"ulppack_matmul": ulppack_matmul.kernel_launches[
                    "ulppack_matmul"],
-               "ulppack_matmul_mma": ulppack_matmul.mma_launches["affine"],
+               "ulppack_matmul_mma": mma["s32"] + mma["affine"],
+               "quantized_linear_mma": mma["quant_affine"],
                "int_matmul": ulppack_matmul.kernel_launches["int_matmul"],
                "quantize_pack": quant_pack.kernel_launches}
         plain = sum(ulppack_matmul.plain_calls.values()) \
-            + quant_pack.plain_calls + ulppack_matmul.mma_launches["s32"]
+            + quant_pack.plain_calls
         if {kk: v for kk, v in got.items() if v} != expect or plain \
                 or out.shape != (m, n) or not torch.isfinite(
                     out.float()).all():
@@ -1535,7 +1679,7 @@ def linear_phase(torch, dev):
         rows.append({"path": name, "ms": time_ms(torch, [fn] * 20),
                      "weight_bytes": wbytes, "launches": expect})
     print("linear " + json.dumps({"m": m, "k": k, "n": n, "rows": rows}))
-    return launches["int_matmul"], launches["ulppack_matmul"]
+    return launches
 
 
 def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
@@ -1627,19 +1771,18 @@ def main() -> int:
         mod.reset_counts()
     lm_cfg = configs.get_config("stablelm-1.6b")
     ctx, params = serve_phase(torch, np, dev, lm_cfg)
-    launches = {"quantize_pack": quant_pack.kernel_launches,
-                "ulppack_matmul_mma": sum(ulppack_matmul.mma_launches
-                                          .values()),
+    launches = {"quantized_linear_mma":
+                    ulppack_matmul.mma_launches["quant_affine"],
                 "attention_decode":
                     ulppack_attention.kernel_launches["attention_decode"]}
-    plain = {"quantize_pack": quant_pack.plain_calls,
-             "ulppack_matmul_mma": ulppack_matmul.plain_calls[
-                 "ulppack_matmul"],
+    plain = {"quantized_linear_mma": ulppack_matmul.plain_calls[
+                 "ulppack_matmul"] + quant_pack.plain_calls,
              "attention_decode":
                  ulppack_attention.plain_calls["attention_decode"]}
     print(f"serve launches (kv_bits 16, 4, 2 runs and the profiled kv_bits 4 "
-          f"passes): kernels {launches}, plain {plain}, K2 by epilogue "
-          f"{ulppack_matmul.mma_launches}, CUDA-core K2 "
+          f"passes): kernels {launches}, plain {plain}, K2 by route "
+          f"{ulppack_matmul.mma_launches}, standalone K1 "
+          f"{quant_pack.kernel_launches}, CUDA-core K2 "
           f"{ulppack_matmul.kernel_launches['ulppack_matmul']}")
     for k in launches:
         if launches[k] == 0 or plain[k] != 0:
@@ -1653,8 +1796,7 @@ def main() -> int:
                                                      params)
     del params
     torch.cuda.empty_cache()
-    launches["int_matmul"], launches["ulppack_matmul"] = linear_phase(
-        torch, dev)
+    launches.update(linear_phase(torch, dev))
 
     fig4_launches = fig4_phase(torch, fig4, rows)
     launches["int_conv2d"] = fig4_launches["int_conv2d"]
@@ -1665,9 +1807,17 @@ def main() -> int:
     cnn_compare(torch, cnn_cfg, packed, plans, x)
 
     meta = {
+        # K1 on the serving path is folded into the tensor-core K2
+        # (quantized_linear_mma, the serve phase); the standalone K1's
+        # path, like the lanes route's of the tensor-core K2, is the
+        # linear phase (its int32xP2s16 and lattice-dot rows)
         "quantize_pack": ("src/repro_torch/csrc/quant_pack.cu",
                           "src/repro/kernels/quant_pack.py:86",
                           "x[4,2048]"),
+        "quantized_linear_mma": (
+            "src/repro_torch/csrc/ulppack_matmul_mma.cu",
+            "src/repro/kernels/quant_pack.py:86",
+            "(4,1024,2048) W2A2/int16xP2s8 bf16 x"),
         "ulppack_matmul_mma": ("src/repro_torch/csrc/ulppack_matmul_mma.cu",
                                "src/repro/kernels/ulppack_matmul.py:99",
                                "(4,1024,2048) W2A2/int16xP2s8"),

@@ -90,8 +90,8 @@ int_matmul_kernel(Args p) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[j][pw][pa][i] = 0;
 
-  mainloop<AB, WB, BM, V16>(
-      p, smem, m0, n0, k_lo, k_hi,
+  mainloop<WB, BM, V16>(
+      p, smem, m0, n0, k_lo, k_hi, RawA<AB>(),
       [&](int j, int pw, int pa, const uint32_t(&a)[4], uint32_t b0,
           uint32_t b1) {
         mma_planes<AB, WB>(acc[j][pw][pa], a, b0, b1, pw, pa);

@@ -28,11 +28,18 @@
 // kPlaneRow and swizzled by chunk: conflict-free stores and ldmatrix
 // reads); 2-byte operands are split there into a high and a low byte
 // plane (plane 0 = hi, plane 1 = lo), a's in a pass over its staged rows.
-// Which planes multiply, with which signedness, into which accumulator is
-// the caller's (an MMA functor); W is never transposed in device memory.
+// What a block stages of a and how it turns a stage into what the MMAs
+// read is the a side's (RawA: a's own int8 / int16 rows; QuantA: float
+// activations quantized in that pass, K1 folded into K2).  Which planes
+// multiply, with which signedness, into which accumulator is the caller's
+// (an MMA functor); W is never transposed in device memory.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mma_s8 {
 
@@ -153,9 +160,12 @@ constexpr int kThreads = 256;
 constexpr int kPlaneRow = kBK + 16;  // bytes of a K-major plane row
 
 // Shared memory: `stages` ring slots of [raw W tile | raw a rows], then
-// two plane buffers of [W planes | a planes (2-byte a only)].  The ring is
-// as deep as the shared memory allows, up to kMaxStages: stages - 2 of them
-// are in flight while a block transposes one and multiplies another.
+// two plane buffers of [W planes | a planes (unless a is int8)].  `ab` is
+// the bytes of a staged per K step: 1 or 2 for int8 / int16 a, 2 x the
+// element size for float activations (two lattice values a lane).  The
+// ring is as deep as the shared memory allows, up to kMaxStages: stages - 2
+// of them are in flight while a block transposes one and multiplies
+// another.
 __host__ __device__ constexpr int ring_a_row(int ab) {
   return kBK * ab + 16;
 }
@@ -163,7 +173,7 @@ __host__ __device__ constexpr int stage_bytes(int bm, int ab, int wb) {
   return kBK * kBN * wb + bm * ring_a_row(ab);
 }
 __host__ __device__ constexpr int plane_bytes(int bm, int ab, int wb) {
-  return wb * kBN * kPlaneRow + (ab == 2 ? 2 * bm * kPlaneRow : 0);
+  return wb * kBN * kPlaneRow + (ab >= 2 ? 2 * bm * kPlaneRow : 0);
 }
 __host__ __device__ constexpr int stages_for(int bm, int ab, int wb) {
   const int fit =
@@ -235,32 +245,292 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_ld,
   }
 }
 
+// The a side of the tile: a's rows staged raw, AB bytes an element (int8
+// or int16, row-major [M, K]; P carries a, M, K and the copy size cb_a).
+// int8 rows are what the MMAs read (the ring row is a plane row); int16
+// rows are split into a hi and a lo plane.
+template <int AB>
+struct RawA {
+  static constexpr int kBytes = AB;   // staged bytes a K step
+  static constexpr int kPlanes = AB;  // planes the MMAs read
+  static constexpr bool kQuant = false;
+
+  RawA() = default;
+  template <class P>
+  __device__ RawA(const P&, int) {}
+
+  template <bool V16, int BM, class P>
+  __device__ __forceinline__ void stage(const P& p, unsigned char* dst,
+                                        int k0, int k_hi, int m0) const {
+    const size_t a_ld = static_cast<size_t>(p.K) * AB;
+    stage_rows<V16, BM, kBK * AB, 0>(
+        dst, ring_a_row(AB), p.a + m0 * a_ld + static_cast<size_t>(k0) * AB,
+        a_ld, p.M - m0, (k_hi - k0) * AB, p.cb_a);
+  }
+
+  template <int BM>
+  __device__ __forceinline__ void split(const unsigned char* as,
+                                        unsigned char* ap, int) const {
+    if constexpr (AB == 2) {
+      constexpr int ITEMS = BM * (kBK / 4);
+#pragma unroll
+      for (int item = 0; item < (ITEMS + kThreads - 1) / kThreads; ++item) {
+        const int e = threadIdx.x + item * kThreads;
+        if (ITEMS % kThreads != 0 && e >= ITEMS) break;
+        const int m = e >> 4, g4 = e & 15;
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            as + m * ring_a_row(2) + 8 * g4);
+        *reinterpret_cast<uint32_t*>(ap + m * kPlaneRow + 4 * g4) =
+            plane_hi(v.x, v.y);
+        *reinterpret_cast<uint32_t*>(ap + BM * kPlaneRow + m * kPlaneRow +
+                                     4 * g4) = plane_lo(v.x, v.y);
+      }
+    }
+  }
+};
+
+// Eight consecutive activations of type T (f32, bf16 or f16) in shared
+// memory as f32 (exact: bf16 and f16 widen without rounding).
+template <class T>
+__device__ __forceinline__ void load8_f32(const unsigned char* src,
+                                          float (&v)[8]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    const float4 b = *reinterpret_cast<const float4*>(src + 16);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+      } else {
+        v[2 * i] = __half2float(__ushort_as_half(
+            static_cast<unsigned short>(w[i] & 0xFFFFu)));
+        v[2 * i + 1] = __half2float(__ushort_as_half(
+            static_cast<unsigned short>(w[i] >> 16)));
+      }
+    }
+  }
+}
+
+// The a side of K2's fused quantize (K1 folded into the tensor-core K2):
+// float activations x [M, k_full] of T (f32, bf16 or f16), row-major, read
+// in their own type.  A stage stages 2 kBK values a row as they are (K is
+// in int16xP2s8 lanes, two lattice values each), and `split` quantizes them
+// to K1's lattice (csrc/quant_pack.cu), clip(rint(x / scale) + zp, 0,
+// qmax), straight into the byte planes the MMAs read -- plane 0 = hi =
+// lattice value 2k + 1, plane 1 = lo = 2k, the planes an int16xP2s8 lane
+// would have split into -- and adds each thread's values to its rows'
+// sums.  Values past k_full are staged as zeros, which would quantize to
+// zp: they are forced to 0, as K1 does; rows past M are not quantized
+// (their planes are zero; the epilogue masks them).  P carries a (x's
+// bytes), M, k_full, a_scale, a_zp, qmax and cb_a.
+//
+// rint(x / scale) is computed exactly without a divide on the common
+// path.  With inv = 1 / scale correctly rounded (a normal number), t = x *
+// inv lies within 3 * 2^-24 |x / scale| (+ 2^-149) of the correctly
+// rounded quotient q = x / scale, so wherever t is farther than |t| * 2^-21
+// from every half-integer, q is on the same side of the same half-integer
+// and rint(q) == rint(t).  rint(t) itself is 1.5 * 2^23 + t, which rounds
+// t to an integer half to even for |t| < 2^22; its bits less those of
+// 1.5 * 2^23 are that integer, clamped with the zero point in integers (zp
+// held to +-2^22: beyond, every |t| < 2^20 clamps the same way).  The
+// values the filter does not decide -- exact half-steps, values within its
+// margin of one (a fraction 2^-20 |t| of spread values), |t| >= 2^20,
+// non-finite values, and every value when 1 / scale is not normal -- are
+// redone after the straight-line pass in K1's own arithmetic with the IEEE
+// divide (__fdiv_rn), so the lattice is K1's bit for bit
+// (tests/test_torch_quant_fused.py holds an emulation of this filter
+// against the divide on adversarial values).
+template <class T>
+struct QuantA {
+  static constexpr int kBytes = 2 * static_cast<int>(sizeof(T));
+  static constexpr int kPlanes = 2;
+  static constexpr bool kQuant = true;
+  // items (row m, 4 lanes) of a thread at most: 64 rows x 16
+  static constexpr int kMaxItems = 64 * (kBK / 4) / kThreads;
+
+  float scale, inv, zp, qmaxf;  // K1's operands, as floats
+  int zpi, qmax;                 // the zero point held to +-2^22, 2^a - 1
+  bool fast;                     // inv is normal: the filter holds
+  int k_full, rows;              // rows of x in this block
+  int32_t sums[kMaxItems];       // this thread's row sums, by item
+
+  template <class P>
+  __device__ QuantA(const P& p, int m0) {
+    scale = *p.a_scale;
+    inv = __fdiv_rn(1.0f, scale);
+    zp = __int2float_rn(*p.a_zp);
+    zpi = min(max(*p.a_zp, -(1 << 22)), 1 << 22);
+    qmax = p.qmax;
+    qmaxf = __int2float_rn(p.qmax);
+    fast = isfinite(inv) && fabsf(inv) >= 0x1p-126f;
+    k_full = p.k_full;
+    rows = p.M - m0;
+#pragma unroll
+    for (int i = 0; i < kMaxItems; ++i) sums[i] = 0;
+  }
+
+  template <bool V16, int BM, class P>
+  __device__ __forceinline__ void stage(const P& p, unsigned char* dst,
+                                        int k0, int k_hi, int m0) const {
+    constexpr int XB = sizeof(T);
+    const size_t ld = static_cast<size_t>(p.k_full) * XB;
+    const int hi = min(2 * k_hi, p.k_full);
+    stage_rows<V16, BM, 2 * kBK * XB, 0>(
+        dst, ring_a_row(kBytes),
+        p.a + m0 * ld + static_cast<size_t>(2 * k0) * XB, ld, p.M - m0,
+        static_cast<long long>(hi - 2 * k0) * XB, p.cb_a);
+  }
+
+  // K1's arithmetic for one value: clip(rint(x / scale) + zp, 0, qmax).
+  __device__ __forceinline__ int32_t k1_quantize(float x) const {
+    return static_cast<int32_t>(
+        fminf(fmaxf(__fadd_rn(rintf(__fdiv_rn(x, scale)), zp), 0.0f), qmaxf));
+  }
+
+  // The filter's lattice value for x; sets `undecided` where the filter
+  // does not decide it: where t lies within |t| * 2^-21 of a half-integer
+  // (fma(|t|, 2^-21, |t - rint(t)|) >= 0.5, with the sum rounded once, so
+  // that a sum below 0.5 means the exact sum is too), which also takes in
+  // every |t| >= 2^20, and where t is not finite (the sum is NaN).
+  __device__ __forceinline__ int32_t filtered(float x, bool& undecided) const {
+    const float t = __fmul_rn(x, inv);
+    const float y = __fadd_rn(t, 0x1.8p23f);  // 1.5 * 2^23 + rint(t)
+    const float d = __fsub_rn(t, __fsub_rn(y, 0x1.8p23f));
+    undecided = !(__fmaf_rn(fabsf(t), 0x1p-21f, fabsf(d)) < 0.5f);
+    const int32_t n = static_cast<int32_t>(
+        __float_as_uint(y) - 0x4B400000u + static_cast<uint32_t>(zpi));
+    return min(max(n, 0), qmax);
+  }
+
+  // Item (m, g4)'s eight lattice values as its lo (even) and hi (odd)
+  // plane words, those past k_full forced to 0; returns their sum.
+  __device__ __forceinline__ int32_t pack(const int32_t (&q)[8], int base,
+                                          uint32_t& lo, uint32_t& hi) const {
+    int32_t s = 0;
+    lo = hi = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t qi = base + j < k_full ? static_cast<uint32_t>(q[j]) : 0u;
+      s += static_cast<int32_t>(qi);
+      if (j & 1)
+        hi |= qi << (8 * (j >> 1));
+      else
+        lo |= qi << (8 * (j >> 1));
+    }
+    return s;
+  }
+
+  // Thread item (m, g4): lanes [k0 + 4 g4, k0 + 4 g4 + 4) of row m, the
+  // items of RawA<2>'s split.  The filtered pass is straight-line, so a
+  // thread's items interleave; the values it did not decide are redone
+  // after it with K1's arithmetic (rare, and kept out of the pass, whose
+  // schedule a divide's branches would serialize).
+  template <int BM>
+  __device__ __forceinline__ void split(const unsigned char* as,
+                                        unsigned char* ap, int k0) {
+    constexpr int ITEMS = BM * (kBK / 4);
+    constexpr int NI = (ITEMS + kThreads - 1) / kThreads;
+    bool redo = !fast;  // some value the filter did not decide
+#pragma unroll
+    for (int item = 0; item < NI; ++item) {
+      const int e = threadIdx.x + item * kThreads;
+      if (ITEMS % kThreads != 0 && e >= ITEMS) break;
+      const int m = e >> 4, g4 = e & 15;
+      uint32_t lo = 0u, hi = 0u;
+      if (m < rows) {  // rows past M: zero planes, no sums
+        float v[8];
+        int32_t q[8];
+        load8_f32<T>(as + m * ring_a_row(kBytes) + 8 * sizeof(T) * g4, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          bool u;
+          q[j] = filtered(v[j], u);
+          redo |= u;
+        }
+        sums[item] += pack(q, 2 * (k0 + 4 * g4), lo, hi);
+      }
+      *reinterpret_cast<uint32_t*>(ap + m * kPlaneRow + 4 * g4) = hi;
+      *reinterpret_cast<uint32_t*>(ap + BM * kPlaneRow + m * kPlaneRow +
+                                   4 * g4) = lo;
+    }
+    if (redo) {  // this thread's undecided values, in K1's arithmetic
+#pragma unroll
+      for (int item = 0; item < NI; ++item) {
+        const int e = threadIdx.x + item * kThreads;
+        if (ITEMS % kThreads != 0 && e >= ITEMS) break;
+        const int m = e >> 4, g4 = e & 15;
+        if (m >= rows) continue;
+        float v[8];
+        int32_t q[8];
+        bool u[8], any = !fast;
+        load8_f32<T>(as + m * ring_a_row(kBytes) + 8 * sizeof(T) * g4, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          q[j] = filtered(v[j], u[j]);
+          any |= u[j];
+        }
+        if (!any) continue;
+        const int base = 2 * (k0 + 4 * g4);
+        uint32_t lo, hi;
+        sums[item] -= pack(q, base, lo, hi);  // the pass's values, then K1's
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (u[j] || !fast) q[j] = k1_quantize(v[j]);
+        sums[item] += pack(q, base, lo, hi);
+        *reinterpret_cast<uint32_t*>(ap + m * kPlaneRow + 4 * g4) = hi;
+        *reinterpret_cast<uint32_t*>(ap + BM * kPlaneRow + m * kPlaneRow +
+                                     4 * g4) = lo;
+      }
+    }
+  }
+
+  // Each row's sum over the block's K range, reduced over the 16 threads
+  // that share the row (one half-warp); `put(m, sum)` is called by the
+  // thread of g4 = 0 of each row m < BM.
+  template <int BM, class Put>
+  __device__ __forceinline__ void row_sums(Put&& put) const {
+    constexpr int ITEMS = BM * (kBK / 4);
+#pragma unroll
+    for (int item = 0; item < (ITEMS + kThreads - 1) / kThreads; ++item) {
+      int32_t v = sums[item];
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      const int e = threadIdx.x + item * kThreads;
+      if (e < ITEMS && (e & 15) == 0) put(e >> 4, v);
+    }
+  }
+};
+
 // Issue the copies of stage k0 (W rows [k0, k0 + kBK) of the block's
-// columns, a's rows at the same k) into ring slot `slot`.  P carries the
-// operands: a, w (byte pointers), M, K, N and the copy sizes cb_a, cb_w.
-template <int AB, int WB, int BM, bool V16, class P>
-__device__ __forceinline__ void issue_stage(const P& p, unsigned char* slot,
-                                            int k0, int k_hi, int m0,
-                                            int n0) {
+// columns, a's rows at the same k, as the a side stages them) into ring
+// slot `slot`.  P carries w (a byte pointer), N and the copy size cb_w.
+template <int WB, int BM, bool V16, class P, class AS>
+__device__ __forceinline__ void issue_stage(const P& p, const AS& as,
+                                            unsigned char* slot, int k0,
+                                            int k_hi, int m0, int n0) {
   const size_t w_ld = static_cast<size_t>(p.N) * WB;
   stage_rows<V16, kBK, kBN * WB, WB>(
       slot, kBN * WB, p.w + k0 * w_ld + static_cast<size_t>(n0) * WB, w_ld,
       k_hi - k0, static_cast<long long>(p.N - n0) * WB, p.cb_w);
-  const size_t a_ld = static_cast<size_t>(p.K) * AB;
-  stage_rows<V16, BM, kBK * AB, 0>(
-      slot + kBK * kBN * WB, ring_a_row(AB),
-      p.a + m0 * a_ld + static_cast<size_t>(k0) * AB, a_ld, p.M - m0,
-      (k_hi - k0) * AB, p.cb_a);
+  as.template stage<V16, BM>(p, slot + kBK * kBN * WB, k0, k_hi, m0);
 }
 
 // Transpose the raw W tile of `slot` into K-major planes at `wp` (2-byte
-// W: plane 0 = hi, plane 1 = lo), and split 2-byte a rows into planes at
-// `ap`.  Thread item (nb, kb): columns [4nb, 4nb + 4) of k rows
-// [4kb, 4kb + 4); a warp takes 8 column blocks x 4 k blocks.
-template <int AB, int WB, int BM>
+// W: plane 0 = hi, plane 1 = lo), and turn a's staged rows of stage k0
+// into planes at `ap` (the a side's split).  Thread item (nb, kb): columns
+// [4nb, 4nb + 4) of k rows [4kb, 4kb + 4); a warp takes 8 column blocks x
+// 4 k blocks.
+template <int WB, int BM, class AS>
 __device__ __forceinline__ void prepare(const unsigned char* slot,
                                         unsigned char* wp,
-                                        unsigned char* ap) {
+                                        unsigned char* ap, AS& as, int k0) {
   constexpr int WROW = kBN * WB;
 #pragma unroll
   for (int item = 0; item < (kBN / 4) * (kBK / 4) / kThreads; ++item) {
@@ -294,27 +564,13 @@ __device__ __forceinline__ void prepare(const unsigned char* slot,
             o[j];
     }
   }
-  if constexpr (AB == 2) {
-    const unsigned char* as = slot + kBK * WROW;
-    constexpr int ITEMS = BM * (kBK / 4);
-#pragma unroll
-    for (int item = 0; item < (ITEMS + kThreads - 1) / kThreads; ++item) {
-      const int e = threadIdx.x + item * kThreads;
-      if (ITEMS % kThreads != 0 && e >= ITEMS) break;
-      const int m = e >> 4, g4 = e & 15;
-      const uint2 v = *reinterpret_cast<const uint2*>(
-          as + m * ring_a_row(2) + 8 * g4);
-      *reinterpret_cast<uint32_t*>(ap + m * kPlaneRow + 4 * g4) =
-          plane_hi(v.x, v.y);
-      *reinterpret_cast<uint32_t*>(ap + BM * kPlaneRow + m * kPlaneRow +
-                                   4 * g4) = plane_lo(v.x, v.y);
-    }
-  }
+  as.template split<BM>(slot + kBK * WROW, ap, k0);
 }
 
 // The K loop of one block: W rows [k_lo, k_hi) of columns [n0, n0 + kBN)
-// and a's rows [m0, m0 + BM) stream through the ring (dynamic shared
-// memory `smem` of smem_bytes(BM, AB, WB)), and for every k32 step,
+// and a's rows [m0, m0 + BM), as the a side `as` stages them, stream
+// through the ring (dynamic shared memory `smem` of smem_bytes(BM,
+// AS::kBytes, WB)), and for every k32 step,
 // 8-row group j of m, W plane pw and a plane pa the block calls
 //   mma(j, pw, pa, A fragment of W plane pw, b0, b1)
 // with the B fragment (b0, b1) of a plane pa, group j.  The loops are
@@ -323,10 +579,12 @@ __device__ __forceinline__ void prepare(const unsigned char* slot,
 // `warp`) is out[m0 + 8j + 2t + (i & 1)][n0 + 16 warp + g + 8 (i >> 1)].
 // The ring and planes are not touched after the last MMA, so an epilogue
 // may follow without a barrier.
-template <int AB, int WB, int BM, bool V16, class P, class Mma>
+template <int WB, int BM, bool V16, class P, class AS, class Mma>
 __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
                                          int m0, int n0, int k_lo,
-                                         int k_hi, Mma&& mma) {
+                                         int k_hi, AS&& as, Mma&& mma) {
+  constexpr int AB = std::decay_t<AS>::kBytes;
+  constexpr int AP = std::decay_t<AS>::kPlanes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nsteps = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
   constexpr int SB = stage_bytes(BM, AB, WB);
@@ -338,8 +596,8 @@ __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
 #pragma unroll 1
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nsteps)
-      issue_stage<AB, WB, BM, V16>(p, smem + s * SB, k_lo + s * kBK, k_hi,
-                                   m0, n0);
+      issue_stage<WB, BM, V16>(p, as, smem + s * SB, k_lo + s * kBK, k_hi,
+                               m0, n0);
     cp_async_commit();
   }
 
@@ -356,7 +614,7 @@ __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
   if (nsteps > 0) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
-    prepare<AB, WB, BM>(smem, planes, planes + WB * kBN * kPlaneRow);
+    prepare<WB, BM>(smem, planes, planes + WB * kBN * kPlaneRow, as, k_lo);
   }
   for (int it = 0; it < nsteps; ++it) {
     // stage it + 1 has landed; the barrier publishes every thread's copies
@@ -367,18 +625,18 @@ __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
     {
       const int s = it + kStages - 1;
       if (s < nsteps)
-        issue_stage<AB, WB, BM, V16>(p, smem + (s % kStages) * SB,
-                                     k_lo + s * kBK, k_hi, m0, n0);
+        issue_stage<WB, BM, V16>(p, as, smem + (s % kStages) * SB,
+                                 k_lo + s * kBK, k_hi, m0, n0);
       cp_async_commit();
     }
     unsigned char* slot = smem + (it % kStages) * SB;
     unsigned char* wp = planes + (it & 1) * PB;
-    unsigned char* ap = AB == 2 ? wp + WB * kBN * kPlaneRow
+    unsigned char* ap = AP == 2 ? wp + WB * kBN * kPlaneRow
                                 : slot + kBK * kBN * WB;
     if (it + 1 < nsteps) {
       unsigned char* wn = planes + ((it + 1) & 1) * PB;
-      prepare<AB, WB, BM>(smem + ((it + 1) % kStages) * SB, wn,
-                          wn + WB * kBN * kPlaneRow);
+      prepare<WB, BM>(smem + ((it + 1) % kStages) * SB, wn,
+                      wn + WB * kBN * kPlaneRow, as, k_lo + (it + 1) * kBK);
     }
 
     const uint32_t wp_s = smem_addr(wp), ap_s = smem_addr(ap);
@@ -391,7 +649,7 @@ __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
                                 plane_off(wrow, 32 * ks + 16 * wchunk));
       if constexpr (MG == 1) {
 #pragma unroll
-        for (int pa = 0; pa < AB; ++pa) {
+        for (int pa = 0; pa < AP; ++pa) {
           uint32_t bf[2];
           ldmatrix_x2(bf, ap_s + pa * BM * kPlaneRow +
                               (lane & 7) * kPlaneRow +
@@ -404,7 +662,7 @@ __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
 #pragma unroll
         for (int jj = 0; jj < MG / 2; ++jj) {
 #pragma unroll
-          for (int pa = 0; pa < AB; ++pa) {
+          for (int pa = 0; pa < AP; ++pa) {
             uint32_t bf[4];
             ldmatrix_x4(bf, ap_s + pa * BM * kPlaneRow +
                                 (16 * jj + arow) * kPlaneRow +

@@ -53,10 +53,26 @@
 //   scalars are read from device memory, never from the host.
 // - Edge tiles are masked (M, N and K are not padded on the host; lanes
 //   past K are zero in the ring).
-// - Launch geometry is the planner's (_plan_packed_matmul in
-//   repro_torch/kernels/plan.py, which mirrors the tile's constants in
-//   mma_s8.cuh and kMaxBlockK below); the launcher refuses a plan that
-//   disagrees with this layout.
+// - K1 folded in (a_kind 1-3, the serving path's route): the block stages
+//   the float activations x [M, k_full] (f32, bf16 or f16, read in their
+//   own type; 2 x 64 values a row a stage) in place of lanes, and its
+//   plane pass quantizes them to K1's lattice (clip(rint(x / scale) + zp);
+//   values past k_full forced to 0) straight into the hi and lo planes
+//   that an int16xP2s8 lane splits into, so the MMAs and their functor are
+//   unchanged.  The quotient's rounding is decided by a multiply by 1 /
+//   scale wherever that is provably exact, by K1's IEEE divide elsewhere
+//   (QuantA in mma_s8.cuh).  The pass also adds up the lattice row sums:
+//   with one split the block reduces them (half-warp shuffles, then
+//   shared memory) for the epilogue; with several each block writes its
+//   rows' partial sums for its own (split, N tile) beside the partial
+//   dots, and the fix-up block sums its tile's in split order.  One launch
+//   reads x once per N tile (each N tile re-quantizes its rows), and the
+//   output equals K1 on x.float() followed by the lanes route with the
+//   affine epilogue, bit for bit.
+// - Launch geometry is the planner's (_plan_packed_matmul, and
+//   _plan_quantized_linear for x, in repro_torch/kernels/plan.py, which
+//   mirror the tile's constants in mma_s8.cuh and kMaxBlockK below); the
+//   launcher refuses a plan that disagrees with this layout.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -75,13 +91,17 @@ enum OutKind { kS32 = 0, kF32 = 1, kBF16 = 2, kF16 = 3 };
 // The bias it adds (affine epilogue only).
 enum BiasKind { kNoBias = 0, kBiasF32 = 1, kBiasBF16 = 2 };
 
+// What a holds: int16 lanes, or float activations for the fused quantize.
+enum AKind { kLanes = 0, kXF32 = 1, kXBF16 = 2, kXF16 = 3 };
+
 struct Args {
-  const unsigned char* a;    // [M, K] int16 lanes
+  const unsigned char* a;    // [M, K] int16 lanes, or x [M, k_full]
   const unsigned char* w;    // [K, N] int16 lanes, field-reversed
   void* out;                 // [M, N] of out_kind
-  int32_t* work;             // [splits, M, N] partial dots (splits > 1)
+  int32_t* work;             // [splits, M, N] partial dots (splits > 1),
+                             // then [splits, N tiles, M] row sums (x)
   unsigned int* tickets;     // one per output tile, 0 between launches
-  const int32_t* a_sums;     // [M] lattice row sums      (affine only)
+  const int32_t* a_sums;     // [M] lattice row sums (affine, lanes only)
   const int32_t* col_sums;   // [N] lattice column sums
   const float* a_scale;      // 0-dim scalars
   const int32_t* a_zp;
@@ -89,6 +109,7 @@ struct Args {
   const int32_t* w_zp;
   const void* bias;          // [N] of bias_kind, or null
   int M, K, N, k_full, block_k, splits;
+  int qmax;                  // 2^a_bits - 1 (x only)
   int out_kind, bias_kind;
   int cb_a, cb_w;            // copy bytes (16, 8, 4; 0: plain loads)
 };
@@ -104,10 +125,10 @@ struct Affine {
     kzz = __fmul_rn(__fmul_rn(__int2float_rn(p.k_full), azp), wzp);
   }
 
-  __device__ __forceinline__ float operator()(const Args& p, int m, int n,
-                                              int32_t acc) const {
+  __device__ __forceinline__ float operator()(const Args& p, int32_t a_sum,
+                                              int n, int32_t acc) const {
     float c = __fsub_rn(__int2float_rn(acc),
-                        __fmul_rn(wzp, __int2float_rn(p.a_sums[m])));
+                        __fmul_rn(wzp, __int2float_rn(a_sum)));
     c = __fsub_rn(c, __fmul_rn(azp, __int2float_rn(p.col_sums[n])));
     c = __fadd_rn(c, kzz);
     float v = __fmul_rn(s, c);
@@ -120,11 +141,14 @@ struct Affine {
   }
 };
 
-template <int BM, bool V16>
+// AS: RawA<2> (int16 lanes) or QuantA<T> (float activations, K1 fused).
+template <class AS, int BM, bool V16>
 __global__ void __launch_bounds__(kThreads)
 ulppack_matmul_mma_kernel(Args p) {
+  constexpr bool kQuant = AS::kQuant;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
+  __shared__ int32_t row_sum[kQuant ? BM : 1];  // the block's rows' sums
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
   const int k_lo = blockIdx.z * p.block_k;
@@ -138,8 +162,9 @@ ulppack_matmul_mma_kernel(Args p) {
     for (int i = 0; i < 4; ++i) acc[j][i] = 0;
 
   // the lattice dot: W's hi plane x a's lo plane + W's lo x a's hi, u8
-  mainloop<2, 2, BM, V16>(
-      p, smem, m0, n0, k_lo, k_hi,
+  AS as(p, m0);
+  mainloop<2, BM, V16>(
+      p, smem, m0, n0, k_lo, k_hi, as,
       [&](int j, int pw, int pa, const uint32_t(&a)[4], uint32_t b0,
           uint32_t b1) {
         if (pw != pa) mma_m16n8k32<false, false>(acc[j], a, b0, b1);
@@ -148,6 +173,9 @@ ulppack_matmul_mma_kernel(Args p) {
   // d_i of group j is out[m0 + 8j + 2t + (i & 1)][n0 + 16 warp + g + 8 (i >> 1)]
   const int g = lane >> 2, t = lane & 3;
   const size_t mn = static_cast<size_t>(p.M) * p.N;
+  // x's row sums of this split and N tile: [splits, N tiles, M] after the
+  // partial dots
+  int32_t* const sums = p.work + p.splits * mn;
   if (p.splits > 1) {
     int32_t* part = p.work + blockIdx.z * mn;
 #pragma unroll
@@ -159,6 +187,14 @@ ulppack_matmul_mma_kernel(Args p) {
         if (m < p.M && n < p.N)
           __stcg(part + static_cast<size_t>(m) * p.N + n, acc[j][i]);
       }
+    if constexpr (kQuant) {
+      int32_t* mine =
+          sums + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) *
+                     p.M;
+      as.template row_sums<BM>([&](int mi, int32_t v) {
+        if (m0 + mi < p.M) __stcg(mine + m0 + mi, v);
+      });
+    }
     // publish the partials and draw a ticket: the barrier orders every
     // thread's stores before thread 0's release (cumulative), and the
     // block that draws the last ticket acquires every split's partials
@@ -199,9 +235,25 @@ ulppack_matmul_mma_kernel(Args p) {
     for (int j = 0; j < MG; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] = static_cast<int32_t>(sum[j][i]);
+    if constexpr (kQuant) {
+      // this tile's row sums, split by split in order, 8 loads in flight
+      const int mi = threadIdx.x;
+      if (mi < BM && m0 + mi < p.M) {
+        uint32_t v = 0u;
+#pragma unroll 8
+        for (int z = 0; z < p.splits; ++z)
+          v += static_cast<uint32_t>(__ldcg(
+              sums + (static_cast<size_t>(z) * gridDim.x + blockIdx.x) * p.M +
+              m0 + mi));
+        row_sum[mi] = static_cast<int32_t>(v);
+      }
+    }
+  } else if constexpr (kQuant) {
+    as.template row_sums<BM>([&](int mi, int32_t v) { row_sum[mi] = v; });
   }
+  if constexpr (kQuant) __syncthreads();
 
-  if (p.out_kind == kS32) {
+  if (!kQuant && p.out_kind == kS32) {
 #pragma unroll
     for (int j = 0; j < MG; ++j)
 #pragma unroll
@@ -222,7 +274,12 @@ ulppack_matmul_mma_kernel(Args p) {
       const int m = m0 + 8 * j + 2 * t + (i & 1);
       const int n = n0 + 16 * warp + g + 8 * (i >> 1);
       if (m < p.M && n < p.N) {
-        const float v = affine(p, m, n, acc[j][i]);
+        int32_t a_sum;
+        if constexpr (kQuant)
+          a_sum = row_sum[m - m0];
+        else
+          a_sum = p.a_sums[m];
+        const float v = affine(p, a_sum, n, acc[j][i]);
         const size_t o = static_cast<size_t>(m) * p.N + n;
         if (p.out_kind == kF32)
           static_cast<float*>(p.out)[o] = v;
@@ -234,10 +291,10 @@ ulppack_matmul_mma_kernel(Args p) {
     }
 }
 
-template <int BM, bool V16>
+template <class AS, int BM, bool V16>
 cudaError_t launch_variant(const Args& p, int device, cudaStream_t s) {
-  void (*kern)(Args) = ulppack_matmul_mma_kernel<BM, V16>;
-  constexpr int smem = smem_bytes(BM, 2, 2);
+  void (*kern)(Args) = ulppack_matmul_mma_kernel<AS, BM, V16>;
+  constexpr int smem = smem_bytes(BM, AS::kBytes, 2);
   static bool raised[8] = {false};  // per device, this instantiation
   if (smem > 48 * 1024 && !raised[device & 7]) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -250,16 +307,33 @@ cudaError_t launch_variant(const Args& p, int device, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <bool V16>
+template <class AS, bool V16>
 cudaError_t launch_bm(const Args& p, int block_m, int device,
                       cudaStream_t s) {
   switch (block_m) {
-    case 8: return launch_variant<8, V16>(p, device, s);
-    case 16: return launch_variant<16, V16>(p, device, s);
-    case 32: return launch_variant<32, V16>(p, device, s);
-    case 64: return launch_variant<64, V16>(p, device, s);
+    case 8: return launch_variant<AS, 8, V16>(p, device, s);
+    case 16: return launch_variant<AS, 16, V16>(p, device, s);
+    case 32: return launch_variant<AS, 32, V16>(p, device, s);
+    case 64: return launch_variant<AS, 64, V16>(p, device, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool V16>
+cudaError_t launch_a(const Args& p, int a_kind, int block_m, int device,
+                     cudaStream_t s) {
+  switch (a_kind) {
+    case kXF32: return launch_bm<QuantA<float>, V16>(p, block_m, device, s);
+    case kXBF16:
+      return launch_bm<QuantA<__nv_bfloat16>, V16>(p, block_m, device, s);
+    case kXF16: return launch_bm<QuantA<__half>, V16>(p, block_m, device, s);
+    default: return launch_bm<RawA<2>, V16>(p, block_m, device, s);
+  }
+}
+
+// Bytes of x's elements by a_kind (0: lanes).
+int x_bytes(int a_kind) {
+  return a_kind == kXF32 ? 4 : (a_kind == kXBF16 || a_kind == kXF16) ? 2 : 0;
 }
 
 }  // namespace
@@ -269,46 +343,59 @@ cudaError_t launch_bm(const Args& p, int block_m, int device,
 // (out_kind 1 / 2 / 3), which reads a_sums [M], col_sums [N], the 0-dim
 // a_scale (f32), a_zp (int32), w_scale (f32), w_zp (int32), k_full (the
 // lattice K) and bias [N] (bias_kind 1: f32, 2: bf16; 0: none).  With
-// splits > 1, `work` holds at least work_len int32 (splits * M * N needed)
-// and `tickets` at least tickets_len words (one per output tile), all 0.
-// The plan (block_m rows of m and block_n = 128 columns a block, step_k =
-// 64 lanes a stage, the ring depth `stages` of stages_for(), `threads` =
-// 256, K in `splits` runs of block_k lanes, a multiple of 64 and at most
-// 16384, with splits = ceil(K / block_k), and smem_bytes of dynamic shared
-// memory) must match this kernel's layout, or the launch is refused with
+// a_kind 1 / 2 / 3, `a` is instead x [M, k_full] of f32 / bf16 / f16, K =
+// ceil(k_full / 2) lanes, quantized in the kernel with a_scale, a_zp and
+// qmax (K1 fused: the epilogue must be affine, and a_sums is not read).
+// With splits > 1, `work` holds at least work_len int32 (splits * M * N
+// needed, and splits * ceil(N / 128) * M more with x) and `tickets` at
+// least tickets_len words (one per output tile), all 0.  The plan (block_m
+// rows of m and block_n = 128 columns a block, step_k = 64 lanes a stage,
+// the ring depth `stages` of stages_for() for a's staged bytes -- 2 a lane
+// for lanes, 2 x the element size for x --, `threads` = 256, K in `splits`
+// runs of block_k lanes, a multiple of 64 and at most 16384, with splits =
+// ceil(K / block_k), and smem_bytes of dynamic shared memory) must match
+// this kernel's layout, or the launch is refused with
 // cudaErrorInvalidValue, as are missing operands of the chosen epilogue.
 REPRO_EXPORT int ulppack_matmul_mma_launch(
     const void* a, const void* w, void* out, void* work, void* tickets,
     const void* a_sums, const void* col_sums, const void* a_scale,
     const void* a_zp, const void* w_scale, const void* w_zp,
-    const void* bias, int M, int K, int N, int k_full, int out_kind,
-    int bias_kind, int work_len, int tickets_len, int block_m, int block_n,
-    int step_k, int block_k, int splits, int stages, int threads, int smem,
-    int device, void* stream) {
+    const void* bias, int M, int K, int N, int k_full, int a_kind, int qmax,
+    int out_kind, int bias_kind, int work_len, int tickets_len, int block_m,
+    int block_n, int step_k, int block_k, int splits, int stages,
+    int threads, int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int xb = x_bytes(a_kind);
+  const int ab = xb ? 2 * xb : 2;  // a's staged bytes a lane
   const bool bm_ok = block_m == 8 || block_m == 16 || block_m == 32 ||
                      block_m == 64;
   if (M < 1 || N < 1 || K < 0 || !bm_ok || block_n != kBN ||
-      step_k != kBK || stages != stages_for(block_m, 2, 2) ||
+      step_k != kBK || stages != stages_for(block_m, ab, 2) ||
       threads != kThreads ||
       block_k < kBK || block_k > kMaxBlockK || block_k % kBK != 0 ||
       splits != (K > 0 ? (K + block_k - 1) / block_k : 1) ||
       splits > 65535 || (M + block_m - 1) / block_m > 65535 ||
-      smem != smem_bytes(block_m, 2, 2))
+      smem != smem_bytes(block_m, ab, 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = static_cast<long long>((N + kBN - 1) / kBN) *
-                          ((M + block_m - 1) / block_m);
-  if (splits > 1 &&
-      (work == nullptr || tickets == nullptr || tickets_len < tiles ||
-       work_len < static_cast<long long>(splits) * M * N))
+  if (a_kind < kLanes || a_kind > kXF16 ||
+      (a_kind != kLanes &&
+       (out_kind == kS32 || k_full < 1 || K != (k_full + 1) / 2 ||
+        qmax < 1 || qmax > 255)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_tiles = (N + kBN - 1) / kBN;
+  const long long tiles = n_tiles * ((M + block_m - 1) / block_m);
+  const long long need =
+      static_cast<long long>(splits) * M * (N + (xb ? n_tiles : 0));
+  if (splits > 1 && (work == nullptr || tickets == nullptr ||
+                     tickets_len < tiles || work_len < need))
     return static_cast<int>(cudaErrorInvalidValue);
   if (out_kind < kS32 || out_kind > kF16 || bias_kind < kNoBias ||
       bias_kind > kBiasBF16 ||
       (out_kind != kS32 &&
-       (a_sums == nullptr || col_sums == nullptr || a_scale == nullptr ||
-        a_zp == nullptr || w_scale == nullptr || w_zp == nullptr ||
-        (bias_kind != kNoBias && bias == nullptr))))
+       ((xb == 0 && a_sums == nullptr) || col_sums == nullptr ||
+        a_scale == nullptr || a_zp == nullptr || w_scale == nullptr ||
+        w_zp == nullptr || (bias_kind != kNoBias && bias == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   Args p;
   p.a = static_cast<const unsigned char*>(a);
@@ -329,16 +416,18 @@ REPRO_EXPORT int ulppack_matmul_mma_launch(
   p.k_full = k_full;
   p.block_k = block_k;
   p.splits = splits;
+  p.qmax = qmax;
   p.out_kind = out_kind;
   p.bias_kind = out_kind == kS32 ? kNoBias : bias_kind;
-  p.cb_a = copy_bytes(a, static_cast<long long>(K) * 2);
+  p.cb_a = xb ? copy_bytes(a, static_cast<long long>(k_full) * xb)
+              : copy_bytes(a, static_cast<long long>(K) * 2);
   p.cb_w = copy_bytes(w, static_cast<long long>(N) * 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies of both operands in a fixed count per thread, or the
   // ladder of copy sizes (as K7)
   if (p.cb_a == 16 && p.cb_w == 16)
-    err = launch_bm<true>(p, block_m, device, s);
+    err = launch_a<true>(p, a_kind, block_m, device, s);
   else
-    err = launch_bm<false>(p, block_m, device, s);
+    err = launch_a<false>(p, a_kind, block_m, device, s);
   return static_cast<int>(err);
 }

@@ -109,34 +109,37 @@ def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
                      out_dtype=torch.float32):
     """The deployed Sparq linear: runtime pack + packed matmul + dequant.
 
-    x:          [..., K] float activations
+    x:          [..., K] float activations (f32, bf16 or f16: the lattice is
+                quantized from their f32 values, exactly as from
+                ``x.float()``)
     w_packed:   [Kp, N] offline-packed weight lanes (field-reversed)
     w_col_sums: [N] int32 offline per-column lattice sums
+    plan:       from ``plan_quantized_linear`` (looked up when omitted)
     Returns float [..., N]; equals ``ref.quantized_linear_ref`` to float
     tolerance and its integer core exactly.
 
-    On the 'cuda' backend with an ``int16xP2s8`` layout this is two
-    launches: K1, then the tensor-core K2 with the affine correction fused
-    into its epilogue (``ulppack_matmul.Affine``), which returns
-    ``out_dtype`` bit-equal to the eager correction below -- the plain
-    version, which every other backend and layout runs.
+    On the 'cuda' backend with an ``int16xP2s8`` layout the plan is the
+    fused route's: one launch of the tensor-core K2, which reads x in its
+    own dtype, quantizes it as it stages it (K1 folded in) and applies the
+    affine correction in its epilogue (``ulppack_matmul.Affine``),
+    returning ``out_dtype`` bit-equal to the plain version below.  Every
+    other backend and layout runs K1, the packed matmul and the eager
+    correction.
     """
     k = x.shape[-1]
+    lead = x.shape[:-1]
+    n = w_packed.shape[-1]
     if plan is None:
-        rows = math.prod(x.shape[:-1])
-        plan = plan_lib.plan_packed_matmul(
-            rows, -(-k // spec.n_pack), w_packed.shape[-1], spec,
-            backend=backend, device=x.device)
+        plan = plan_lib.plan_quantized_linear(
+            math.prod(lead), k, n, spec, x.dtype, backend=backend,
+            device=x.device)
+    if plan.op == "quantized_linear":
+        out = plan_lib.dispatch(plan, x.reshape(-1, k), w_packed, w_col_sums,
+                                a_scale, a_zp, w_scale, w_zp, bias=bias,
+                                out_dtype=out_dtype)
+        return out.reshape(*lead, n)
     a_packed, a_sums = quantize_pack(x, a_scale, a_zp, spec,
                                      backend=plan.backend)
-    if plan.backend == "cuda" and plan_lib.packed_matmul_on_tensor_cores(
-            spec):
-        out = _matmul.ulppack_matmul_mma_cuda(
-            a_packed.reshape(-1, a_packed.shape[-1]), w_packed, spec,
-            plan=plan, epilogue=_matmul.Affine(
-                a_sums, w_col_sums, a_scale, a_zp, w_scale, w_zp, k, bias,
-                out_dtype))
-        return out.reshape(*x.shape[:-1], w_packed.shape[-1])
     acc = packed_matmul(a_packed, w_packed, spec, plan=plan)
     f32 = torch.float32
     a_zp_f = torch.as_tensor(a_zp).to(f32)

@@ -68,6 +68,10 @@ _INT_MATMUL_BLOCK_COST = 3
 ULPPACK_MMA_MAX_BLOCK_K = 16384
 _ULPPACK_MMA_STAGE_COST = {8: 1.0, 16: 1.2, 32: 1.4, 64: 1.8}
 _ULPPACK_MMA_BLOCK_COST = 3
+#: The fused quantize's stage costs (K1 folded into the tile): a stage also
+#: quantizes block_m rows of 128 values, which a 64-row block feels most;
+#: fitted to the ``k2-sweep-fused`` lines of the same sweep (PERF.md).
+_QUANT_MMA_STAGE_COST = {**_ULPPACK_MMA_STAGE_COST, 64: 2.6}
 
 
 def _ulppack_mma_split_cost(splits: int, bm: int) -> float:
@@ -130,6 +134,10 @@ class KernelPlan:
                          split count and lanes per split); on the tensor
                          cores (int16xP2s8) also int_matmul's block_n,
                          step_k, stages, threads and smem_bytes
+      quantized_linear : the tensor-core K2 with K1 folded in (int16xP2s8
+                         on the card): packed_matmul's tensor-core fields
+                         for float activation rows, k_full (the lattice
+                         K) and x_bytes (the activations' element size)
       int_matmul       : block_m / block_n (output rows / columns per
                          block), step_k (K per stage), stages, threads,
                          splits / block_k (K split count and K per split),
@@ -173,6 +181,7 @@ class KernelPlan:
     stages: int | None = None
     block_w: int | None = None
     blocks: int | None = None
+    x_bytes: int | None = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -185,7 +194,7 @@ class KernelPlan:
         for f in ("block_m", "block_k", "splits", "threads", "weight_store",
                   "k_full", "block_h", "block_co", "block_c", "smem_bytes",
                   "split_rows", "tile_rows", "block_n", "step_k",
-                  "stages", "block_w", "blocks"):
+                  "stages", "block_w", "blocks", "x_bytes"):
             if getattr(self, f) is not None:
                 row[f] = getattr(self, f)
         return row
@@ -338,20 +347,71 @@ def _plan_packed_matmul(m, kp, n, spec, backend, device_key) -> KernelPlan:
         return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
                           **packed_matmul_core_geometry(m, kp, n, spec,
                                                         device_key))
+    return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
+                      **_mma_geometry(m, kp, n, _ULPPACK_MMA_STAGE_COST, 2,
+                                      device_key))
+
+
+def _mma_geometry(m, kp, n, stage_cost, a_bytes, device_key) -> dict:
+    """The tensor-core K2's geometry: rows, the K split by the wave model
+    with ``stage_cost``, and the ring and shared memory for a's staged
+    bytes a lane (2 for lanes, 2 x the element size for float x)."""
     # rows: the smallest block that holds m, or 16/32-row blocks below it
     # (more blocks, each stage's MMAs and plane split shorter)
     block_ms = {_block_m_for(m)} | {b for b in (16, 32) if b < m}
-    bm, per, splits = _tile_split(m, kp, n, block_ms, _ULPPACK_MMA_STAGE_COST,
+    bm, per, splits = _tile_split(m, kp, n, block_ms, stage_cost,
                                   _ULPPACK_MMA_BLOCK_COST,
                                   _ulppack_mma_split_cost,
                                   ULPPACK_MMA_MAX_BLOCK_K, device_key)
-    stages, smem = int_matmul_smem_layout(bm, 2, 2)
-    return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
-                      block_m=bm, block_n=INT_MATMUL_BN,
-                      step_k=INT_MATMUL_BK, stages=stages,
-                      threads=INT_MATMUL_THREADS,
-                      block_k=per * INT_MATMUL_BK, splits=splits,
-                      smem_bytes=smem)
+    stages, smem = int_matmul_smem_layout(bm, a_bytes, 2)
+    return dict(block_m=bm, block_n=INT_MATMUL_BN, step_k=INT_MATMUL_BK,
+                stages=stages, threads=INT_MATMUL_THREADS,
+                block_k=per * INT_MATMUL_BK, splits=splits, smem_bytes=smem)
+
+
+#: The activation dtypes the fused quantize reads (QuantA, csrc/mma_s8.cuh).
+QUANT_X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def plan_quantized_linear(m: int, k: int, n: int, spec: PackSpec,
+                          x_dtype=torch.float32, *, backend: str = "auto",
+                          device="cpu") -> KernelPlan:
+    """Plan ``ops.quantized_linear`` over x [m, k] of ``x_dtype`` against
+    weight lanes [ceil(k / n_pack), n].
+
+    On the 'cuda' backend with ``int16xP2s8`` lanes: the fused route, op
+    'quantized_linear' -- one launch of the tensor-core K2 that stages x
+    and quantizes it into its byte planes (K1 folded in) -- with the
+    tile's geometry for float rows of ``x_dtype`` (a stage holds 128
+    values a row, so the ring is shallower than for lanes: bf16 at 64 rows
+    fits 5 stages, f32 3), rows and splits by :func:`plan_packed_matmul`'s
+    wave model with the quantize's stage costs (splits of at most 16384
+    lanes), ``k_full`` = k and ``x_bytes``.  Every other backend and
+    layout: the packed matmul's plan (K1, K2 and the eager epilogue run
+    apart)."""
+    backend = resolve_backend(backend, device)
+    if backend == "cuda" and packed_matmul_on_tensor_cores(spec):
+        return _plan_quantized_linear(m, k, n, spec, _x_bytes(x_dtype),
+                                      _device_key(device))
+    return _plan_packed_matmul(m, -(-k // spec.n_pack), n, spec, backend,
+                               _device_key(device))
+
+
+def _x_bytes(x_dtype) -> int:
+    if x_dtype not in QUANT_X_DTYPES:
+        raise TypeError(f"the fused quantize reads float32, bfloat16 or "
+                        f"float16 activations, not {x_dtype}")
+    return x_dtype.itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_quantized_linear(m, k, n, spec, x_bytes, device_key) -> KernelPlan:
+    spec.validate()
+    return KernelPlan(op="quantized_linear", backend="cuda", spec=spec,
+                      k_full=k, x_bytes=x_bytes,
+                      **_mma_geometry(m, -(-k // spec.n_pack), n,
+                                      _QUANT_MMA_STAGE_COST, 2 * x_bytes,
+                                      device_key))
 
 
 def plan_quantize_pack(m: int, k: int, spec: PackSpec, *,
@@ -393,14 +453,16 @@ def int_matmul_smem_layout(block_m: int, a_bytes: int,
     """(ring depth, shared memory) of one block of the int8 tile (K7, and
     the tensor-core K2 with 2-byte operands): the layout of ``stages_for``
     and ``smem_bytes`` in csrc/mma_s8.cuh.  Ring slots, each a raw W tile
-    [64, 128] and block_m raw a rows of 64 elements (+16 bytes of
-    padding), as many as fit beside two buffers of K-major byte planes
-    (one per byte of W; a's two only when a is 2-byte, else the MMAs read
-    a from the ring), up to ``INT_MATMUL_MAX_STAGES``."""
+    [64, 128] and block_m raw a rows of 64 K steps of ``a_bytes`` (+16
+    bytes of padding), as many as fit beside two buffers of K-major byte
+    planes (one per byte of W; a's two unless a is int8, whose rows the
+    MMAs read from the ring), up to ``INT_MATMUL_MAX_STAGES``.  The fused
+    quantize stages two float values a lane: ``a_bytes`` = 2 x their
+    element size."""
     bk, row = INT_MATMUL_BK, INT_MATMUL_PLANE_ROW
     stage = bk * INT_MATMUL_BN * w_bytes + block_m * (bk * a_bytes + 16)
     planes = w_bytes * INT_MATMUL_BN * row + (
-        2 * block_m * row if a_bytes == 2 else 0)
+        2 * block_m * row if a_bytes >= 2 else 0)
     stages = min(INT_MATMUL_MAX_STAGES,
                  (INT_MATMUL_SMEM_MAX - 2 * planes) // stage)
     return stages, stages * stage + 2 * planes

@@ -12,7 +12,10 @@ weight lanes w [Kp, N].  The layout picks one of two hand-written kernels
   Each byte of a lane is one lattice value, so the dot is two u8 x u8
   byte-plane products per lane; one launch a call (a split-K fix-up in
   place of a zero fill and atomics), with the affine epilogue of
-  ``ops.quantized_linear`` fused in on request (:class:`Affine`).
+  ``ops.quantized_linear`` fused in on request (:class:`Affine`).  The
+  same kernel also takes the float activations themselves and quantizes
+  them as it stages them (K1 folded in, :func:`quantized_linear_mma_cuda`):
+  ``ops.quantized_linear`` on the card is then one launch.
 - every other layout: ``csrc/ulppack_matmul.cu`` (CUDA cores, 32-bit
   integer registers), the faithful kernel: runs of at most ``k_tile``
   lanes contracted in packed space, then ``(t >> shift*(n_pack-1)) &
@@ -29,7 +32,9 @@ shared memory, int16 operands as two byte planes, edge tiles masked).
 PyTorch versions (the CPU path and the on-card comparison);
 ``kernel_launches`` / ``plain_calls`` count the CUDA-core K2's and K7's
 launches and each plain version's calls, keyed by kernel name, and
-``mma_launches`` the tensor-core K2's, keyed by epilogue.
+``mma_launches`` the tensor-core K2's, keyed by route: lanes in with the
+s32 dot or the affine epilogue out, or activations in with the quantize
+and the affine epilogue fused ("quant_affine").
 """
 
 from __future__ import annotations
@@ -50,8 +55,8 @@ NAMES = ("ulppack_matmul", "int_matmul")
 #: process, keyed by kernel name.
 kernel_launches = dict.fromkeys(NAMES, 0)
 plain_calls = dict.fromkeys(NAMES, 0)
-#: Launches of the tensor-core K2 in this process, keyed by epilogue.
-mma_launches = {"s32": 0, "affine": 0}
+#: Launches of the tensor-core K2 in this process, keyed by route.
+mma_launches = {"s32": 0, "affine": 0, "quant_affine": 0}
 
 #: int64 bytes one chunk of the plain int_matmul may hold on the card.
 _PLAIN_BUDGET = 1 << 28
@@ -124,7 +129,8 @@ class Affine(NamedTuple):
 
     in f32, one rounding an operation, bit-equal to the eager version."""
 
-    a_sums: torch.Tensor          # [M] or [M, 1] int32 lattice row sums
+    a_sums: torch.Tensor | None   # [M] or [M, 1] int32 lattice row sums
+    #                               (None: the fused quantize sums them)
     col_sums: torch.Tensor        # [N] int32 lattice column sums
     a_scale: object               # scalars: 0-dim tensors or numbers
     a_zp: object
@@ -137,6 +143,8 @@ class Affine(NamedTuple):
 
 _OUT_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 _BIAS_KINDS = {torch.float32: 1, torch.bfloat16: 2}
+#: The activation dtypes the fused quantize reads (the launcher's a_kind).
+_X_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 
 #: The tensor-core K2's split-K workspace and tickets, per (device, stream):
 #: allocated on first use, grown when a call needs more, the tickets
@@ -159,17 +167,22 @@ def _workspace(device: torch.device, stream: int, work_len: int,
 
 def _affine_operands(ep: Affine, m: int, n: int, dev: torch.device):
     """The fused epilogue's launch arguments: (out kind, bias kind, the
-    tensors a_sums, col_sums, a_scale, a_zp, w_scale, w_zp and the bias,
-    all on ``dev``), checked against what the kernel reads."""
+    tensors a_sums (None when the kernel sums the rows itself), col_sums,
+    a_scale, a_zp, w_scale, w_zp and the bias, all on ``dev``), checked
+    against what the kernel reads."""
     if ep.out_dtype not in _OUT_KINDS:
         raise TypeError(f"the fused epilogue stores f32, bf16 or f16, not "
                         f"{ep.out_dtype}")
-    a_sums, col_sums = ep.a_sums.reshape(-1), ep.col_sums.reshape(-1)
-    if a_sums.numel() != m or col_sums.numel() != n \
-            or a_sums.dtype != torch.int32 or col_sums.dtype != torch.int32:
-        raise ValueError(f"a_sums / col_sums must be int32 with {m} / {n} "
-                         f"values")
-    tensors = [a_sums.contiguous(), col_sums.contiguous(),
+    a_sums = None
+    if ep.a_sums is not None:
+        a_sums = ep.a_sums.reshape(-1)
+        if a_sums.numel() != m or a_sums.dtype != torch.int32:
+            raise ValueError(f"a_sums must be int32 with {m} values")
+        a_sums = a_sums.contiguous()
+    col_sums = ep.col_sums.reshape(-1)
+    if col_sums.numel() != n or col_sums.dtype != torch.int32:
+        raise ValueError(f"col_sums must be int32 with {n} values")
+    tensors = [a_sums, col_sums.contiguous(),
                _as_device_scalar(ep.a_scale, torch.float32, dev),
                _as_device_scalar(ep.a_zp, torch.int32, dev),
                _as_device_scalar(ep.w_scale, torch.float32, dev),
@@ -186,10 +199,40 @@ def _affine_operands(ep: Affine, m: int, n: int, dev: torch.device):
                             f"{bias.dtype}")
         bias_kind = _BIAS_KINDS[bias.dtype]
         tensors.append(bias.contiguous())
-    if any(t.device != dev for t in tensors):
+    if any(t is not None and t.device != dev for t in tensors):
         raise ValueError("the epilogue's tensors must be on the operands' "
                          "device")
     return _OUT_KINDS[ep.out_dtype], bias_kind, tensors
+
+
+def _launch_mma(a, w, m, kp, n, plan, dev, *, a_kind=0, k_full=0, qmax=0,
+                out_dtype=torch.int32, out_kind=0, bias_kind=0, tensors=()):
+    """One launch of csrc/ulppack_matmul_mma.cu on contiguous operands: a
+    (lanes, or x with ``a_kind`` 1-3), w [kp, n] lanes, the epilogue's
+    ``tensors`` (see :func:`_affine_operands`), the split-K workspace and
+    tickets of this device and stream."""
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_tiles = -(-n // plan.block_n)
+    tiles = n_tiles * -(-m // plan.block_m)
+    # the partial dots, and with x each (split, N tile)'s row sums
+    work_len = (plan.splits * m * (n + (n_tiles if a_kind else 0))
+                if plan.splits > 1 else 0)
+    work, tickets = _workspace(dev, stream, work_len, tiles)
+    ptrs = [0 if t is None else t.data_ptr() for t in tensors]
+    ptrs += [0] * (7 - len(ptrs))
+    fn = _launch.get("ulppack_matmul_mma")
+    if fn is None:
+        fn = _launch["ulppack_matmul_mma"] = build.bind(
+            "ulppack_matmul_mma", "ulppack_matmul_mma_launch", 12, 18)
+    fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(),
+       tickets.data_ptr(), *ptrs, m, kp, n, k_full, a_kind, qmax, out_kind,
+       bias_kind, work.numel(), tickets.numel(), plan.block_m, plan.block_n,
+       plan.step_k, plan.block_k, plan.splits, plan.stages, plan.threads,
+       plan.smem_bytes, dev.index or 0, stream)
+    return out
 
 
 def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
@@ -204,6 +247,8 @@ def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
     if not plan_lib.packed_matmul_on_tensor_cores(spec):
         raise ValueError(f"{spec}: the tensor-core K2 takes int16xP2s8 "
                          f"lanes only")
+    if epilogue is not None and epilogue.a_sums is None:
+        raise ValueError("the lanes route needs the activations' row sums")
     if not (a_packed.is_cuda and w_packed.device == a_packed.device):
         raise ValueError("ulppack_matmul_mma_cuda needs both operands on one "
                          "CUDA device")
@@ -211,31 +256,64 @@ def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
     w = w_packed.contiguous()
     m, kp = a.shape
     n = w.shape[1]
-    dev = a.device
     if epilogue is None:
-        out_kind, bias_kind, tensors = 0, 0, []
-        out_dtype, k_full = torch.int32, 0
+        out = _launch_mma(a, w, m, kp, n, plan, a.device)
     else:
-        out_kind, bias_kind, tensors = _affine_operands(epilogue, m, n, dev)
-        out_dtype, k_full = epilogue.out_dtype, epilogue.k
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    if m == 0 or n == 0:
-        return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    tiles = -(-n // plan.block_n) * -(-m // plan.block_m)
-    work_len = plan.splits * m * n if plan.splits > 1 else 0
-    work, tickets = _workspace(dev, stream, work_len, tiles)
-    ptrs = [t.data_ptr() for t in tensors] + [0] * (7 - len(tensors))
-    fn = _launch.get("ulppack_matmul_mma")
-    if fn is None:
-        fn = _launch["ulppack_matmul_mma"] = build.bind(
-            "ulppack_matmul_mma", "ulppack_matmul_mma_launch", 12, 16)
-    fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(),
-       tickets.data_ptr(), *ptrs, m, kp, n, k_full, out_kind, bias_kind,
-       work.numel(), tickets.numel(), plan.block_m, plan.block_n,
-       plan.step_k, plan.block_k, plan.splits, plan.stages, plan.threads,
-       plan.smem_bytes, dev.index or 0, stream)
+        out_kind, bias_kind, tensors = _affine_operands(epilogue, m, n,
+                                                        a.device)
+        out = _launch_mma(a, w, m, kp, n, plan, a.device, k_full=epilogue.k,
+                          out_dtype=epilogue.out_dtype, out_kind=out_kind,
+                          bias_kind=bias_kind, tensors=tensors)
     mma_launches["s32" if epilogue is None else "affine"] += 1
+    return out
+
+
+def quantized_linear_mma_cuda(x: torch.Tensor, w_packed: torch.Tensor,
+                              col_sums, a_scale, a_zp, w_scale, w_zp,
+                              spec: PackSpec, *, plan, bias=None,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """``ops.quantized_linear`` in one launch of the tensor-core K2 with K1
+    folded into its staging: x [M, K] f32, bf16 or f16 on the card, read
+    in its own dtype and quantized per stage into the byte planes the MMAs
+    read, its lattice row sums added up on the way, then the affine
+    epilogue (:class:`Affine`).  ``w_packed`` [ceil(K / 2), N]
+    ``int16xP2s8`` lanes; ``plan`` from ``plan_quantized_linear`` for these
+    shapes and x's dtype.  Bit-equal to K1 on ``x.float()`` followed by
+    :func:`ulppack_matmul_mma_cuda` with the epilogue, and to the plain
+    version (``ops.quantized_linear`` on the 'torch' backend).  One launch;
+    no fall-back."""
+    if not spec.feasible:
+        raise ValueError(f"{spec} outside the overflow-free region")
+    if not plan_lib.packed_matmul_on_tensor_cores(spec):
+        raise ValueError(f"{spec}: the fused quantize takes int16xP2s8 "
+                         f"lanes only")
+    if x.dtype not in _X_KINDS or x.dim() != 2:
+        raise TypeError(f"x must be float32, bfloat16 or float16 [M, K], got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    k = x.shape[1]
+    if w_packed.dtype != spec.lane_dtype or w_packed.dim() != 2 \
+            or w_packed.shape[0] != -(-k // spec.n_pack):
+        raise ValueError(f"w_packed must be {spec.lane_name} lanes "
+                         f"[{-(-k // spec.n_pack)}, N], got {w_packed.dtype} "
+                         f"{tuple(w_packed.shape)}")
+    if not (x.is_cuda and w_packed.device == x.device):
+        raise ValueError("quantized_linear_mma_cuda needs x and w_packed on "
+                         "one CUDA device")
+    if plan.op != "quantized_linear" or plan.k_full != k \
+            or plan.x_bytes != x.element_size():
+        raise ValueError(f"plan {plan.describe()} is not the fused route's "
+                         f"for K = {k} and {x.dtype}")
+    x = x.contiguous()
+    w = w_packed.contiguous()
+    m, n = x.shape[0], w.shape[1]
+    out_kind, bias_kind, tensors = _affine_operands(
+        Affine(None, col_sums, a_scale, a_zp, w_scale, w_zp, k, bias,
+               out_dtype), m, n, x.device)
+    out = _launch_mma(x, w, m, w.shape[0], n, plan, x.device,
+                      a_kind=_X_KINDS[x.dtype], k_full=k, qmax=spec.max_a,
+                      out_dtype=out_dtype, out_kind=out_kind,
+                      bias_kind=bias_kind, tensors=tensors)
+    mma_launches["quant_affine"] += 1
     return out
 
 
@@ -310,6 +388,14 @@ def _packed_matmul_cuda(plan, a2, w):
         return ulppack_matmul_mma_cuda(a2, w, plan.spec, plan=plan)
     return ulppack_matmul_cuda(a2, w, plan.spec, block_m=plan.block_m,
                                block_k=plan.block_k, splits=plan.splits)
+
+
+@plan_lib.register_backend("quantized_linear", "cuda")
+def _quantized_linear_cuda(plan, x2, w, col_sums, a_scale, a_zp, w_scale,
+                           w_zp, *, bias, out_dtype):
+    return quantized_linear_mma_cuda(x2, w, col_sums, a_scale, a_zp,
+                                     w_scale, w_zp, plan.spec, plan=plan,
+                                     bias=bias, out_dtype=out_dtype)
 
 
 @plan_lib.register_backend("int_matmul", "torch")

@@ -85,7 +85,7 @@ def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
         w = p["w_packed"]
         spec = dense_layer_spec(int(x.shape[-1]), int(w.shape[-1]), qcfg)
         return ops.quantized_linear(
-            x.to(torch.float32), w, p["col_sums"], p["a_scale"], p["a_zp"],
+            x, w, p["col_sums"], p["a_scale"], p["a_zp"],
             p["w_scale"], p["w_zp"], spec, bias=p.get("bias"),
             backend=backend, out_dtype=compute_dtype)
     if quant_mode not in ("none", "packed"):

@@ -63,6 +63,7 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
     if not cfg.quant.enabled:
         return {}
     plans = {}
+    x_dtype = getattr(torch, cfg.compute_dtype)   # the activations' dtype
 
     def walk(node, path):
         if _is_packed(node):
@@ -77,8 +78,8 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
             for rows, key in ((batch_rows, path),
                               (prefill_rows, f"{path}@prefill")):
                 if rows and (key == path or rows != batch_rows):
-                    plans[key] = plan_lib.plan_packed_matmul(
-                        rows, int(w.shape[0]), int(w.shape[-1]), spec,
+                    plans[key] = plan_lib.plan_quantized_linear(
+                        rows, k, int(w.shape[-1]), spec, x_dtype,
                         backend=backend, device=w.device)
             return
         if isinstance(node, dict):

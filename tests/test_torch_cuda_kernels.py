@@ -164,9 +164,11 @@ def test_ulppack_matmul_mma_long_k_at_extremes(hopper):
 @pytest.mark.parametrize("m", [4, 64])
 def test_quantized_linear_fused_epilogue_bit_equal(hopper, out_dtype, bias,
                                                    m):
-    """ops.quantized_linear on the card: K1 + the tensor-core K2 with the
-    affine epilogue fused in, bit-equal to K1 + K2 + the eager epilogue
-    (the same function with the plain backend)."""
+    """ops.quantized_linear on the card: one launch of the tensor-core K2
+    with K1 folded into its staging and the affine epilogue fused in,
+    bit-equal to K1 + K2 + the eager epilogue (the same function with the
+    plain backend).  tests/test_torch_quant_fused.py holds the fused route
+    against the two-launch route at every dtype."""
     sp = PackSpec(2, 2)
     k, n = 2048, 5632 if m == 64 else 200
     g = _gen(hopper, m + n)
@@ -180,9 +182,12 @@ def test_quantized_linear_fused_epilogue_bit_equal(hopper, out_dtype, bias,
     x = torch.randn((2, m // 2, k), generator=g, device=hopper)
     args = (x, wp, cs, a_scale, zp, w_scale, zp, sp)
     ulppack_matmul.reset_counts()
+    quant_pack.reset_counts()
     got = ops.quantized_linear(*args, bias=b, out_dtype=out_dtype)
-    assert ulppack_matmul.mma_launches == {"s32": 0, "affine": 1}
+    assert ulppack_matmul.mma_launches == {"s32": 0, "affine": 0,
+                                           "quant_affine": 1}
     assert ulppack_matmul.kernel_launches["ulppack_matmul"] == 0
+    assert quant_pack.kernel_launches == 0
     want = ops.quantized_linear(*args, bias=b, out_dtype=out_dtype,
                                 backend="torch")
     assert got.dtype == out_dtype and got.shape == (2, m // 2, n)

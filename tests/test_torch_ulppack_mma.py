@@ -28,6 +28,7 @@ from repro_torch.core import packing as tpack  # noqa: E402
 from repro_torch.core.packing import PackSpec  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
+from repro_torch.kernels import quant_pack as tqp  # noqa: E402
 from repro_torch.kernels import ulppack_matmul as tmm  # noqa: E402
 
 torch.set_num_threads(2)
@@ -147,8 +148,11 @@ def test_constants_match_the_kernel_source():
     cases = tuple(int(v) for v in
                   re.findall(r"case (\d+): return launch_variant", src))
     assert cases == tplan.INT_MATMUL_BLOCK_MS
-    assert "smem_bytes(block_m, 2, 2)" in src
-    assert "mainloop<2, 2, BM, V16>" in src
+    # lanes are staged at 2 bytes a lane (x at 2 x its element size), and
+    # W's lanes are 2-byte
+    assert "const int ab = xb ? 2 * xb : 2;" in src
+    assert "smem_bytes(block_m, ab, 2)" in src
+    assert "mainloop<2, BM, V16>" in src
 
 
 # ---------------------------------------------------------------------------
@@ -300,33 +304,40 @@ def test_epilogue_emulation_within_tolerance_of_repro(base_layouts, rows):
 @pytest.mark.parametrize("lead", [(6,), (2, 3)])
 def test_quantized_linear_takes_the_fused_route_on_cuda_plans(monkeypatch,
                                                               lead):
-    """With a 'cuda' plan on int16xP2s8, ops.quantized_linear runs K1 and
-    then one tensor-core K2 call with the affine epilogue (here a stand-in
-    that emulates the kernel on the CPU), and returns its output in the
+    """With a 'cuda' plan on int16xP2s8 (the fused route's),
+    ops.quantized_linear makes one call of the tensor-core K2 with K1
+    folded in (here a stand-in that emulates it on the CPU: the plain K1
+    on x.float(), the byte-plane dot, the epilogue), hands it x in its
+    own dtype with no K1 call of its own, and returns its output in the
     input's leading shape: the eager correction does not run."""
     k, n = 50, 24
     x, wp, cs, a_scale, a_zp, w_scale, w_zp, bias = _linear_case(
         6, k, n, torch.bfloat16, 5)
-    x = x.reshape(*lead, k)
+    x = x.to(torch.bfloat16).reshape(*lead, k)
+    want = ops.quantized_linear(x, wp, cs, a_scale, a_zp, w_scale, w_zp,
+                                SPEC, bias=bias, out_dtype=torch.bfloat16)
     calls = []
 
-    def stand_in(a2, w, spec, *, plan, epilogue=None):
-        calls.append((tuple(a2.shape), plan, epilogue))
-        return affine_emulation(mma_emulation(a2, w, plan.block_k), epilogue)
+    def stand_in(x2, w, col_sums, a_scale, a_zp, w_scale, w_zp, spec, *,
+                 plan, bias, out_dtype):
+        calls.append((x2.dtype, tuple(x2.shape), plan))
+        a, a_sums = tqp.quantize_pack_torch(x2.float(), a_scale, a_zp, spec)
+        return affine_emulation(mma_emulation(a, w, plan.block_k), tmm.Affine(
+            a_sums, col_sums, a_scale, a_zp, w_scale, w_zp, plan.k_full, bias,
+            out_dtype))
 
-    quantize_pack = ops.quantize_pack
-    monkeypatch.setattr(tmm, "ulppack_matmul_mma_cuda", stand_in)
-    monkeypatch.setattr(ops, "quantize_pack", lambda x, s, z, spec, **kw:
-                        quantize_pack(x, s, z, spec, backend="torch"))
-    plan = dataclasses.replace(tplan.plan_packed_matmul(6, 25, n, SPEC),
-                               backend="cuda")
+    def no_k1(*args, **kwargs):
+        raise AssertionError("K1 called on the fused route")
+
+    monkeypatch.setattr(tmm, "quantized_linear_mma_cuda", stand_in)
+    monkeypatch.setattr(ops, "quantize_pack", no_k1)
+    plan = tplan._plan_quantized_linear(6, k, n, SPEC, 2, "cpu")
+    assert (plan.op, plan.backend, plan.k_full) == ("quantized_linear",
+                                                    "cuda", k)
     got = ops.quantized_linear(x, wp, cs, a_scale, a_zp, w_scale, w_zp,
                                SPEC, bias=bias, plan=plan,
                                out_dtype=torch.bfloat16)
-    want = ops.quantized_linear(x, wp, cs, a_scale, a_zp, w_scale, w_zp,
-                                SPEC, bias=bias, out_dtype=torch.bfloat16)
-    assert len(calls) == 1 and calls[0][0] == (6, 25)
-    assert calls[0][1] is plan and calls[0][2].k == k
+    assert calls == [(torch.bfloat16, (6, k), plan)]
     assert got.shape == (*lead, n) and torch.equal(got, want)
 
 
@@ -358,6 +369,6 @@ def test_cpu_path_counts_plain_calls_only():
         4, 64, 24, None, 2)
     tmm.reset_counts()
     ops.quantized_linear(x, wp, cs, a_scale, a_zp, w_scale, w_zp, SPEC)
-    assert tmm.mma_launches == {"s32": 0, "affine": 0}
+    assert tmm.mma_launches == {"s32": 0, "affine": 0, "quant_affine": 0}
     assert tmm.kernel_launches["ulppack_matmul"] == 0
     assert tmm.plain_calls["ulppack_matmul"] == 1
