@@ -27,14 +27,19 @@ toolkit:
    (K4) through a scrambled block table, also bit-equal to the contiguous
    kernel (K3) on the same logical rows; the unpacked integer matmul (K7)
    bit-equal at s8 and s16); then the packed conv (K5) and the int16 conv
-   (K6), bit-equal, at the paper's Fig. 4 shape and at the full-width
+   (K6), bit-equal, at the paper's Fig. 4 shape (K6 on the tensor cores at
+   int16 values in [-256, 256) and at the full int16 range, where the sums
+   wrap, a second launch bit-equal, the CUDA-core K6 bit-equal and timed
+   on the same operands; the CUDA-core K6 at 64 channels, which the
+   tensor-core K6 does not hold) and at the full-width
    ``sparq-cnn`` layers (K5 at int16xP2s8 on the tensor cores, a second
    launch bit-equal, its fused epilogue bit-equal to ``cnn.conv_epilogue``
    and timed, the CUDA-core tile timed on the same operands; the
    int8xP2s4 case on the CUDA-core tile).  It times the kernel, the plain
    version and one PyTorch call that computes the same function where
    there is one (K5: ``F.conv2d`` on the f32 lattices with TF32 off, and
-   with TF32 allowed where that is exact)
+   with TF32 allowed where that is exact; K6: ``F.conv2d`` in f64, also
+   held equal once rounded and wrapped)
    (CUDA-graph replay between CUDA events, median of repeats, inputs
    rotated over copies larger than the 50 MB L2 where the path reads them
    cold).
@@ -44,8 +49,8 @@ toolkit:
    dots and K7's s8 products -- s16 as four int8 products per MAC -- and
    bf16 tensor cores for attention's products).
    ``design_bound_ms`` takes the rate of the unit each kernel runs on: the
-   int8 tensor cores for K7 and the tensor-core K2 and K5 (the MMAs they
-   issue), f32 CUDA cores for the CUDA-core K2 and K3/K4, the 32-bit
+   int8 tensor cores for K7 and the tensor-core K2, K5 and K6 (the MMAs
+   they issue), f32 CUDA cores for the CUDA-core K2 and K3/K4, the 32-bit
    integer multiply-add rate for the CUDA-core K5 and K6.
 3. Serve phase: full-width ``stablelm-1.6b`` W2A2 with random weights from a
    seed, through ``ServingEngine`` at kv_bits 16, 4 and 2, four greedy
@@ -78,11 +83,13 @@ toolkit:
    CUDA-core K2 and the eager epilogue: that kernel's path) and the W2A2
    lattice dot on ``int16xP2s8`` (K1 and the tensor-core K2's lanes route:
    their path); a ``linear`` line with each time and the weight bytes.
-6. Fig. 4 phase: the int16 conv and each packed case once through
-   ``ops.int_conv2d`` / ``ops.packed_conv2d`` (K6, the tensor-core K5 at
+6. Fig. 4 phase: the int16 conv, the int16 conv at 64 channels and each
+   packed case once through ``ops.int_conv2d`` / ``ops.packed_conv2d``
+   (the tensor-core K6, the CUDA-core K6, the tensor-core K5 at
    int16xP2s8 and the CUDA-core K5 at int8xP2s4 launched, no plain call),
    and a ``fig4`` line with each packed time, the int16 time and their
-   ratio beside the paper's, and the CUDA-core K5's ratio at int16xP2s8.
+   ratio on the same unit beside the paper's, and at int16xP2s8 the
+   CUDA-core K5's ratio over the CUDA-core K6.
 7. CNN phase: full-width ``sparq-cnn`` W2A2 (random weights from a seed),
    weights prepared and plans built once, classifying 4 batches of 8
    random 256x256x3 images through ``cnn.forward(quant_mode="packed")``
@@ -101,9 +108,9 @@ route), the data the planner's split model was fitted to.
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
-kernel (K1-K7, K2 and K5 each as its tensor-core and its CUDA-core kernel,
-and K1 folded into the tensor-core K2 as ``quantized_linear_mma``) with the
-launches of its path.
+kernel (K1-K7, K2, K5 and K6 each as its tensor-core and its CUDA-core
+kernel, and K1 folded into the tensor-core K2 as ``quantized_linear_mma``)
+with the launches of its path.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -905,54 +912,109 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
     # ---- K6 int_conv2d: the paper's int16 baseline ----------------------
     n, hw, c, k, co = (FIG4[f] for f in ("n", "hw", "c", "k", "co"))
     fig4_label = f"fig4 x[{n},{hw},{hw},{c}] w[{k},{k},{c},{co}] VALID"
-    qx = torch.randint(-256, 256, (n, hw, hw, c), generator=gen, device=dev,
-                       dtype=torch.int16)
-    qw = torch.randint(-256, 256, (k, k, c, co), generator=gen, device=dev,
-                       dtype=torch.int16)
-    fig4["int16"] = (qx, qw)
-    plan = plan_lib.plan_int_conv2d(tuple(qx.shape), tuple(qw.shape),
-                                    padding="VALID", device=dev)
-    got = ops.int_conv2d(qx, qw, padding="VALID", plan=plan)
-    want = conv.int_conv2d_torch(qx, qw, padding="VALID")
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("int_conv2d (Fig. 4 int16) not bit-equal")
-    ho = hw - k + 1
-    macs = n * ho * ho * k * k * c * co
-    nbytes = 2 * (qx.numel() + qw.numel()) + 4 * got.numel()
-    xs = [qx] + [qx.clone() for _ in range(copies_for(2 * qx.numel()) - 1)]
-    # the card's floor: the 9-bit operands on the int8 tensor cores after a
-    # byte split of each (four int8 products per MAC, two ops each); the
-    # design bound: one IMAD per MAC on the CUDA cores
-    b, by = bound_ms(nbytes, 8 * macs, peaks["hbm"], peaks["int8"])
-    design = bound_ms(nbytes, 2 * macs, peaks["hbm"], peaks["int32"])
-    # library yardstick: F.conv2d in float64 on the same values (NCHW x
-    # OIHW).  Products are at most 2^16 and sums at most ~1e8, far below
-    # 2^53, so every partial sum is exact in any order; rounded to the
-    # nearest integer it must equal K6, and `library_exact` records whether
-    # cuDNN's algorithm gave the integers without that rounding.
-    x64 = qx.permute(0, 3, 1, 2).to(torch.float64).contiguous()
-    w64 = qw.permute(3, 2, 0, 1).to(torch.float64).contiguous()
-    lib_out = F.conv2d(x64, w64).permute(0, 2, 3, 1)
-    torch.cuda.synchronize()
-    if not torch.equal(lib_out.round().to(torch.int32), got):
-        raise AssertionError("f64 conv disagrees with int_conv2d (Fig. 4)")
-    lib_exact = torch.equal(lib_out, got.to(torch.float64))
-    del lib_out
-    x64s = [x64] + [x64.clone() for _ in range(copies_for(8 * x64.numel())
+
+    def int_row(label, lo, hi, c, route, key=None):
+        """K6 on int16 values in [lo, hi) at the Fig. 4 shape with ``c``
+        channels, through the planner's route: bit-equal to the plain
+        version and, rounded (and wrapped mod 2^32), to F.conv2d in
+        float64; on the tensor cores also a second launch bit-equal and
+        the CUDA-core K6 bit-equal and timed on the same operands."""
+        qx = torch.randint(lo, hi, (n, hw, hw, c), generator=gen, device=dev,
+                           dtype=torch.int16)
+        qw = torch.randint(lo, hi, (k, k, c, co), generator=gen, device=dev,
+                           dtype=torch.int16)
+        if key is not None:
+            fig4[key] = (qx, qw)
+        plan = plan_lib.plan_int_conv2d(tuple(qx.shape), tuple(qw.shape),
+                                        x_bytes=2, w_bytes=2,
+                                        padding="VALID", device=dev)
+        if plan.route != route:
+            raise AssertionError(f"int_conv2d {label}: route {plan.route}, "
+                                 f"expected {route}")
+        mma = route == "tensor_cores"
+        got = ops.int_conv2d(qx, qw, padding="VALID", plan=plan)
+        again = ops.int_conv2d(qx, qw, padding="VALID", plan=plan)
+        want = conv.int_conv2d_torch(qx, qw, padding="VALID")
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(again, want)):
+            raise AssertionError(f"int_conv2d {label} not bit-equal")
+        ho = hw - k + 1
+        macs = n * ho * ho * k * k * c * co
+        nbytes = 2 * (qx.numel() + qw.numel()) + 4 * got.numel()
+        xs = [qx] + [qx.clone() for _ in range(copies_for(2 * qx.numel())
                                                - 1)]
-    lib = time_ms(torch, [lambda xi=xi: F.conv2d(xi, w64) for xi in x64s])
-    del x64s, x64
-    rows.append({
-        "name": "int_conv2d", "shape": f"{fig4_label} int16",
-        "max_abs_err": 0, "design_bound_ms": design[0],
-        "ms": time_ms(torch, [lambda xi=xi: ops.int_conv2d(
-            xi, qw, padding="VALID", plan=plan) for xi in xs]),
-        "plain_ms": time_ms(torch, [lambda: conv.int_conv2d_torch(
-            qx, qw, padding="VALID")], 3),
-        "bound_ms": b, "bound_by": by, "library_ms": lib,
-        "library": "F.conv2d f64 on the int16 values",
-        "library_exact": lib_exact, "geometry": plan.describe()})
+        # the card's floor: the 16-bit operands on the int8 tensor cores
+        # after a byte split of each (four int8 products per MAC, two ops
+        # each)
+        b, by = bound_ms(nbytes, 8 * macs, peaks["hbm"], peaks["int8"])
+        # library yardstick: F.conv2d in float64 on the same values (NCHW x
+        # OIHW).  Products are at most 2^30 and sums below 2^42, far below
+        # 2^53, so every partial sum is exact in any order; rounded (and
+        # wrapped mod 2^32) it must equal K6, and `library_exact` records
+        # whether cuDNN's algorithm gave the integers without that
+        # rounding.
+        x64 = qx.permute(0, 3, 1, 2).to(torch.float64).contiguous()
+        w64 = qw.permute(3, 2, 0, 1).to(torch.float64).contiguous()
+        lib_out = F.conv2d(x64, w64).permute(0, 2, 3, 1)
+        wrapped = packing.wrap_i32(lib_out.round().to(torch.int64))
+        torch.cuda.synchronize()
+        if not torch.equal(wrapped, got):
+            raise AssertionError(f"f64 conv disagrees with int_conv2d "
+                                 f"{label}")
+        lib_exact = torch.equal(lib_out, got.to(torch.float64))
+        del lib_out, wrapped
+        x64s = [x64] + [x64.clone() for _ in range(
+            copies_for(8 * x64.numel()) - 1)]
+        lib = time_ms(torch, [lambda xi=xi: F.conv2d(xi, w64) for xi in x64s])
+        del x64s, x64
+        ms = time_ms(torch, [lambda xi=xi: ops.int_conv2d(
+            xi, qw, padding="VALID", plan=plan) for xi in xs])
+        row = {"name": "int_conv2d_mma" if mma else "int_conv2d",
+               "shape": f"{label} int16 [{lo},{hi})", "max_abs_err": 0,
+               "ms": ms,
+               "plain_ms": time_ms(torch, [lambda: conv.int_conv2d_torch(
+                   qx, qw, padding="VALID")], 3),
+               "bound_ms": b, "bound_by": by, "share_of_bound": b / ms,
+               "library_ms": lib,
+               "library": "F.conv2d f64 on the int16 values",
+               "library_exact": lib_exact, "geometry": plan.describe()}
+        # the design bound: one IMAD per MAC on the CUDA cores, or the MMAs
+        # the tensor-core K6 issues (four a step, 16 x 8 x 32 each) at the
+        # int8 rate
+        cores_design = bound_ms(nbytes, 2 * macs, peaks["hbm"],
+                                peaks["int32"])[0]
+        if not mma:
+            row["design_bound_ms"] = cores_design
+            rows.append(row)
+            return
+        tiles = n * -(-ho // plan.block_h) * -(-ho // plan.block_w)
+        steps = tiles * 32 * k * k * (plan.block_c // 2) // 32
+        groups = -(-co // plan.block_co) * plan.block_co // 8
+        row["design_bound_ms"] = bound_ms(
+            nbytes, 2 * 4096 * 4 * steps * groups, peaks["hbm"],
+            peaks["int8"])[0]
+        core = plan_lib.int_conv2d_core_geometry(
+            tuple(qx.shape), tuple(qw.shape), padding="VALID", device=dev)
+        cores = conv.int_conv2d_cuda(qx, qw, **core, padding="VALID")
+        torch.cuda.synchronize()
+        if not torch.equal(cores, want):
+            raise AssertionError(f"CUDA-core K6 {label} not bit-equal")
+        del cores
+        row["cores_ms"] = time_ms(torch, [
+            lambda xi=xi: conv.int_conv2d_cuda(xi, qw, **core,
+                                               padding="VALID")
+            for xi in xs])
+        row["cores_design_bound_ms"] = cores_design
+        row["cores_geometry"] = core
+        rows.append(row)
+
+    # the Fig. 4 int16 conv on the tensor cores, the same at the full int16
+    # range (the sums wrap), and at 64 channels, past the tensor-core K6's
+    # shared memory, on the CUDA-core tile
+    int_row(fig4_label, -256, 256, c, "tensor_cores", key="int16")
+    int_row(fig4_label, -32768, 32768, c, "tensor_cores")
+    int_row(f"fig4-c64 x[{n},{hw},{hw},{2 * c}] w[{k},{k},{2 * c},{co}] "
+            f"VALID", -256, 256, 2 * c, "cuda_cores", key="int16-c64")
 
     # ---- K5 ulppack_conv2d ------------------------------------------------
     def packed_row(sp, qx, qw, padding, store, label, key=None):
@@ -1093,19 +1155,23 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
 
 
 def fig4_phase(torch, fig4, rows):
-    """The Fig. 4 comparison through the entry points: the int16 conv (K6)
-    and each packed case (K5: the tensor-core kernel at int16xP2s8, the
-    CUDA-core tile at int8xP2s4) at the paper's shape, once each; returns
-    the launches.  Prints the kernel phase's times side by side: each
-    packed case's speedup over the int16 conv beside the paper's, and at
-    int16xP2s8 also the CUDA-core K5's on the same operands (K6 runs on the
-    CUDA cores, so the tensor-core ratio is not like for like)."""
+    """The Fig. 4 comparison through the entry points: the int16 conv (K6
+    on the tensor cores), the int16 conv at 64 channels (K6 on the CUDA
+    cores: the tensor-core K6's shared memory does not hold it) and each
+    packed case (K5: the tensor-core kernel at int16xP2s8, the CUDA-core
+    tile at int8xP2s4) at the paper's shape, once each; returns the
+    launches.  Prints the kernel phase's times side by side: each packed
+    case's speedup over the int16 conv on the same unit (tensor cores
+    against tensor cores, CUDA cores against CUDA cores) beside the
+    paper's, and at int16xP2s8 also the CUDA-core K5's over the CUDA-core
+    K6 on the same operands."""
     from repro_torch.core.packing import PackSpec
     from repro_torch.kernels import ops, plan as plan_lib
     from repro_torch.kernels import ulppack_conv2d as conv
 
     conv.reset_counts()
-    out = [ops.int_conv2d(*fig4["int16"], padding="VALID")]
+    out = [ops.int_conv2d(*fig4["int16"], padding="VALID"),
+           ops.int_conv2d(*fig4["int16-c64"], padding="VALID")]
     for text in FIG4_SPECS:
         out.append(ops.packed_conv2d(*fig4[text], PackSpec.parse(text),
                                      padding="VALID"))
@@ -1113,26 +1179,35 @@ def fig4_phase(torch, fig4, rows):
     launches, plain = dict(conv.kernel_launches), dict(conv.plain_calls)
     mma = sum(plan_lib.packed_conv2d_on_tensor_cores(PackSpec.parse(t))
               for t in FIG4_SPECS)
-    if launches != {"int_conv2d": 1, "ulppack_conv2d": len(FIG4_SPECS) - mma,
+    if launches != {"int_conv2d": 1, "int_conv2d_mma": 1,
+                    "ulppack_conv2d": len(FIG4_SPECS) - mma,
                     "ulppack_conv2d_mma": mma} or any(plain.values()):
         raise AssertionError(f"fig4 path: launches {launches}, plain {plain}")
     ho = FIG4["hw"] - FIG4["k"] + 1
     if not all(o.shape == (FIG4["n"], ho, ho, FIG4["co"]) for o in out):
         raise AssertionError("fig4 path: wrong output shape")
-    t16 = next(r["ms"] for r in rows if r["name"] == "int_conv2d")
+    k6 = next(r for r in rows if r["name"] == "int_conv2d_mma"
+              and r["shape"].startswith("fig4 x"))
+    t16, t16_cores = k6["ms"], k6["cores_ms"]
     rep = {"int16_ms": t16,
-           "int16_route": "K6 on the CUDA cores (csrc/int_conv2d.cu)",
+           "int16_route": "K6 on the int8 tensor cores "
+                          "(csrc/int_conv2d_mma.cu)",
+           "int16_share_of_bound": k6["share_of_bound"],
+           "int16_cores_ms": t16_cores,
+           "int16_cores_route": "K6 on the CUDA cores (csrc/int_conv2d.cu)",
            "packed": {}}
     for text in FIG4_SPECS:
         r = next(r for r in rows if r["name"].startswith("ulppack_conv2d")
                  and r["shape"].startswith("fig4") and text in r["shape"])
         bits = text.split("/")[0]
+        on_mma = r["name"] == "ulppack_conv2d_mma"
         case = {"route": r["name"], "ms": r["ms"],
-                "speedup_vs_int16": t16 / r["ms"],
+                "speedup_vs_int16": (t16 if on_mma else t16_cores) / r["ms"],
+                "vs": "int_conv2d_mma" if on_mma else "int_conv2d",
                 "paper_speedup": FIG4_PAPER.get(bits)}
         if "cores_ms" in r:
             case["cores_ms"] = r["cores_ms"]
-            case["cores_speedup_vs_int16"] = t16 / r["cores_ms"]
+            case["cores_speedup_vs_int16"] = t16_cores / r["cores_ms"]
         rep["packed"][text] = case
     print("fig4 " + json.dumps(rep))
     return launches
@@ -1799,8 +1874,8 @@ def main() -> int:
     launches.update(linear_phase(torch, dev))
 
     fig4_launches = fig4_phase(torch, fig4, rows)
-    launches["int_conv2d"] = fig4_launches["int_conv2d"]
-    launches["ulppack_conv2d"] = fig4_launches["ulppack_conv2d"]
+    for k in ("int_conv2d", "int_conv2d_mma", "ulppack_conv2d"):
+        launches[k] = fig4_launches[k]
     del fig4
     (packed, plans), x, launches["ulppack_conv2d_mma"] = cnn_phase(
         torch, dev, cnn_cfg)
@@ -1835,16 +1910,21 @@ def main() -> int:
             "B4 32x16 pages H32 hd64 C1 kv4"),
         # K5's main path is the CNN phase (both stores), on the tensor
         # cores; its row is the largest packed layer there.  The CUDA-core
-        # K5's path is the Fig. 4 phase's int8xP2s4 case, K6's the Fig. 4
-        # phase.
+        # K5's path is the Fig. 4 phase's int8xP2s4 case; K6's the Fig. 4
+        # phase: the tensor-core K6 at the Fig. 4 shape, the CUDA-core K6
+        # at 64 channels.
         "ulppack_conv2d_mma": ("src/repro_torch/csrc/ulppack_conv2d_mma.cu",
                                "src/repro/kernels/ulppack_conv2d.py:148",
                                "layer 32->64"),
         "ulppack_conv2d": ("src/repro_torch/csrc/ulppack_conv2d.cu",
                            "src/repro/kernels/ulppack_conv2d.py:148",
                            "fig4"),
+        "int_conv2d_mma": ("src/repro_torch/csrc/int_conv2d_mma.cu",
+                           "src/repro/kernels/ulppack_conv2d.py:148",
+                           "fig4 x"),
         "int_conv2d": ("src/repro_torch/csrc/int_conv2d.cu",
-                       "src/repro/kernels/ulppack_conv2d.py:148", "fig4"),
+                       "src/repro/kernels/ulppack_conv2d.py:148",
+                       "fig4-c64"),
         "int_matmul": ("src/repro_torch/csrc/int_matmul.cu",
                        "src/repro/kernels/ulppack_matmul.py:145",
                        "(8,4096,4096) int8"),

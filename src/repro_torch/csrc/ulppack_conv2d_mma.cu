@@ -30,9 +30,10 @@
 //   bytes in the same pass), each row padded by 16 bytes to an odd number
 //   of 16-byte units so that ldmatrix reads of 8 channel rows are free of
 //   bank conflicts.  49 x 32 x 64 = 100 KB at 32->64.
-// - Persistent blocks: each block walks pixel tiles of block_h x block_w
-//   = 512 output pixels of one image (8 warps x 4 row fragments of 16
-//   pixels), blockIdx.x, + gridDim.x, ...; a two-slot cp.async ring keeps
+// - Persistent blocks (the tile of conv_mma.cuh, shared with K6): each
+//   block walks pixel tiles of block_h x block_w = 512 output pixels of
+//   one image (8 warps x 4 row fragments of 16 pixels), blockIdx.x,
+//   + gridDim.x, ...; a two-slot cp.async ring keeps
 //   the next tile's halo [block_h + FH - 1][block_w + FW - 1][cpad] in
 //   flight while the current one is multiplied (one barrier a tile).
 //   Pixels outside the image are staged as zero, so padding is never
@@ -60,22 +61,26 @@
 //   refuses a plan that disagrees with this layout.
 
 #include "common.cuh"
+#include "conv_mma.cuh"
 #include "mma_s8.cuh"
 
 namespace {
 
+using conv_mma::cpad_for;
+using conv_mma::kConvSmemMax;
+using conv_mma::kConvThreads;
+using conv_mma::kStages;
+using conv_mma::kTilePixels;
+using conv_mma::kWarpFrags;
+using conv_mma::stage_halo;
+using conv_mma::swizzle;
+using conv_mma::tile_origin;
 using mma_s8::cp_async;
 using mma_s8::ldmatrix_x2;
 using mma_s8::ldmatrix_x4;
 using mma_s8::mma_m16n8k32;
 using mma_s8::smem_addr;
 using mma_s8::zero_smem;
-
-constexpr int kConvThreads = 256;    // 8 warps
-constexpr int kWarpFrags = 4;        // 16-pixel row fragments per warp
-constexpr int kTilePixels = 512;     // 8 warps x 4 fragments x 16 pixels
-constexpr int kStages = 2;           // halo ring slots
-constexpr int kConvSmemMax = 232448; // shared memory a block may use
 
 struct Args {
   const unsigned char* x;   // [N, H, W, xrow] lattice bytes (int16 lanes)
@@ -96,71 +101,6 @@ struct Args {
   int cb;                   // x copy bytes (16, 8, 4; 0: 2-byte loads)
   int wvec;                 // weights read 16 bytes at a time
 };
-
-// The staged bytes of a pixel holding xrow lattice bytes: 32, 64, else a
-// multiple of 128 (so that the swizzle below stays inside a pixel).
-__host__ __device__ constexpr int cpad_for(int xrow) {
-  return xrow <= 32 ? 32 : xrow <= 64 ? 64 : (xrow + 127) / 128 * 128;
-}
-
-// The 16-byte unit of pixel `pix` that holds logical unit u is
-// u ^ swizzle(pix, nu) (nu = cpad / 16 units a pixel): the units of 8
-// consecutive pixels then fall on distinct 16-byte bank groups.
-__device__ __forceinline__ int swizzle(int pix, int nu) {
-  return nu == 2 ? (pix >> 2) & 1 : nu == 4 ? (pix >> 1) & 3 : pix & 7;
-}
-
-// The image and the first halo row / column of pixel tile `tile`.
-__device__ __forceinline__ void tile_origin(const Args& p, int tile, int& n,
-                                            int& oh0, int& ow0) {
-  const int per_img = p.tiles_h * p.tiles_w;
-  n = tile / per_img;
-  const int r = tile - n * per_img;
-  oh0 = (r / p.tiles_w) * p.th;
-  ow0 = (r % p.tiles_w) * p.tw;
-}
-
-// Issue the copies of tile `tile`'s halo into ring slot `buf`; pixels
-// outside the image and bytes past xrow are zeroed.
-__device__ void stage_halo(const Args& p, unsigned char* buf, int tile) {
-  int n, oh0, ow0;
-  tile_origin(p, tile, n, oh0, ow0);
-  const int gh0 = oh0 - p.pad_top, gw0 = ow0 - p.pad_left;
-  const int hw = p.tw + p.FW - 1;
-  const int nu = p.cpad >> 4;
-  const int units = (p.th + p.FH - 1) * hw * nu;
-  const unsigned char* img =
-      p.x + static_cast<size_t>(n) * p.H * p.W * p.xrow;
-  for (int e = threadIdx.x; e < units; e += kConvThreads) {
-    const int pix = e / nu, u = e - pix * nu;
-    const int r = pix / hw, c = pix - r * hw;
-    const int gh = gh0 + r, gw = gw0 + c;
-    unsigned char* d = buf + pix * p.cpad + ((u ^ swizzle(pix, nu)) << 4);
-    const int lim = p.xrow - 16 * u;  // bytes of this unit held in x
-    const bool in = gh >= 0 && gh < p.H && gw >= 0 && gw < p.W && lim > 0;
-    const unsigned char* s =
-        in ? img + (static_cast<size_t>(gh) * p.W + gw) * p.xrow + 16 * u
-           : nullptr;
-    if (p.cb == 16) {
-      if (in)
-        cp_async(d, s, 16);
-      else
-        zero_smem(d, 16);
-    } else {
-      const int step = p.cb ? p.cb : 2;
-      for (int o = 0; o < 16; o += step) {
-        const bool ok = in && o < lim;
-        if (p.cb == 0)
-          *reinterpret_cast<uint16_t*>(d + o) =
-              ok ? *reinterpret_cast<const uint16_t*>(s + o) : 0;
-        else if (ok)
-          cp_async(d + o, s + o, p.cb);
-        else
-          zero_smem(d + o, p.cb);
-      }
-    }
-  }
-}
 
 // Stage the block's weights [BN][krow] as u8 lattice values: row co holds
 // channel c of tap t at byte t * cpad + c.  Channels past cin, taps' pad
@@ -284,7 +224,7 @@ ulppack_conv2d_mma_kernel(Args p) {
   const int frow = p.tw >> 4;      // fragments a tile row
 
   int tile = blockIdx.x;
-  if (tile < p.tiles) stage_halo(p, halo, tile);
+  if (tile < p.tiles) stage_halo<1>(p, halo, tile);
   mma_s8::cp_async_commit();
   stage_weights<BN>(p, ws, co0);
 
@@ -311,7 +251,7 @@ ulppack_conv2d_mma_kernel(Args p) {
     __syncthreads();
     const int next = tile + gridDim.x;
     if (next < p.tiles)
-      stage_halo(p, halo + ((it + 1) & 1) * p.halo_bytes, next);
+      stage_halo<1>(p, halo + ((it + 1) & 1) * p.halo_bytes, next);
     mma_s8::cp_async_commit();
 
     const uint32_t hs = smem_addr(halo + (it & 1) * p.halo_bytes);

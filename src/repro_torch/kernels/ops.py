@@ -71,6 +71,8 @@ def int_conv2d(q_x, q_w, *, padding: str = "VALID", backend: str = "auto",
     int32 NHWC wrapped mod 2^32: the paper's int16 baseline."""
     if plan is None:
         plan = plan_lib.plan_int_conv2d(tuple(q_x.shape), tuple(q_w.shape),
+                                        x_bytes=q_x.element_size(),
+                                        w_bytes=q_w.element_size(),
                                         padding=padding, backend=backend,
                                         device=q_x.device)
     return plan_lib.dispatch(plan, q_x, q_w, padding)

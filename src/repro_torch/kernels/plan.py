@@ -105,6 +105,16 @@ CONV_MMA_STAGES = 2
 CONV_MMA_SMEM_MAX = 232448
 CONV_MMA_BLOCK_COS = (8, 16, 32, 64)
 CONV_MMA_BLOCK_WS = (16, 32)
+#: K6 on the same tile (csrc/int_conv2d_mma.cu: the block_co cases of its
+#: launcher and its max_prod; a CPU test holds them equal, and the
+#: launcher refuses a plan that disagrees): output channels per block
+#: (three sets of s32 accumulators a warp at int16 x int16 leave the
+#: registers two 8-channel groups), and the largest |product| one
+#: accumulator takes a channel, by (x_bytes, w_bytes): s8 x s8, u8 x s8,
+#: and the two cross terms of int16 x int16 that share one accumulator.
+INT_CONV_MMA_BLOCK_COS = (8, 16)
+INT_CONV_MMA_MAX_PROD = {(1, 1): 128 * 128, (1, 2): 255 * 128,
+                         (2, 1): 255 * 128, (2, 2): 2 * 128 * 255}
 
 #: The attention kernel of csrc/attention_decode.cu (kThreads, kMaxSplits,
 #: kMaxQRows, kMaxTile and kSmemMax there; its launcher refuses a plan that
@@ -158,7 +168,10 @@ class KernelPlan:
                          (int16xP2s8) block_h x block_w output pixels a
                          tile, block_c staged bytes a pixel, stages (halo
                          ring slots) and blocks (persistent blocks along
-                         the pixel tiles)
+                         the pixel tiles); int_conv2d also x_bytes /
+                         w_bytes (the operands' element sizes), route
+                         ('tensor_cores' or 'cuda_cores') and, on the
+                         tensor cores, the same tile fields
     """
 
     op: str
@@ -182,6 +195,8 @@ class KernelPlan:
     block_w: int | None = None
     blocks: int | None = None
     x_bytes: int | None = None
+    w_bytes: int | None = None
+    route: str | None = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -194,7 +209,8 @@ class KernelPlan:
         for f in ("block_m", "block_k", "splits", "threads", "weight_store",
                   "k_full", "block_h", "block_co", "block_c", "smem_bytes",
                   "split_rows", "tile_rows", "block_n", "step_k",
-                  "stages", "block_w", "blocks", "x_bytes"):
+                  "stages", "block_w", "blocks", "x_bytes", "w_bytes",
+                  "route"):
             if getattr(self, f) is not None:
                 row[f] = getattr(self, f)
         return row
@@ -729,13 +745,18 @@ def packed_conv2d_on_tensor_cores(spec: PackSpec) -> bool:
     return packed_matmul_on_tensor_cores(spec)
 
 
+def _cpad_for(nbytes: int) -> int:
+    """``cpad_for`` in csrc/conv_mma.cuh: 32, 64, else a multiple of 128,
+    so that a tap is whole k32 steps and the kernels' swizzle stays inside
+    a pixel."""
+    return 32 if nbytes <= 32 else 64 if nbytes <= 64 \
+        else -(-nbytes // 128) * 128
+
+
 def conv_mma_block_c(cp: int) -> int:
     """Staged bytes a pixel of the tensor-core K5 for ``cp`` int16 lanes
-    (2 cp lattice bytes): 32, 64, else a multiple of 128 (``cpad_for`` in
-    csrc/ulppack_conv2d_mma.cu), so that a tap is whole k32 steps and the
-    kernel's swizzle stays inside a pixel."""
-    xrow = 2 * cp
-    return 32 if xrow <= 32 else 64 if xrow <= 64 else -(-xrow // 128) * 128
+    (2 cp lattice bytes)."""
+    return _cpad_for(2 * cp)
 
 
 def conv_mma_smem_bytes(fh: int, fw: int, block_h: int, block_w: int,
@@ -768,9 +789,7 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
             f"a {fh}x{fw} conv over {2 * cp} channels of {spec} can sum to "
             f"{most}, past the int32 range of the tensor-core K5's sums")
     bc = conv_mma_block_c(cp)
-    bw = CONV_MMA_BLOCK_WS[0] if out_w <= CONV_MMA_BLOCK_WS[0] \
-        else CONV_MMA_BLOCK_WS[1]
-    bh = CONV_MMA_TILE_PIXELS // bw
+    bh, bw = _conv_mma_tile(out_w)
     bco = next((b for b in CONV_MMA_BLOCK_COS if b >= co),
                CONV_MMA_BLOCK_COS[-1])
 
@@ -783,12 +802,29 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
         raise ValueError(f"a {fh}x{fw} kernel over {bc} staged bytes does "
                          f"not fit the tensor-core K5's shared memory "
                          f"({smem(bco)} bytes)")
+    return dict(block_h=bh, block_w=bw, block_co=bco, block_c=bc,
+                stages=CONV_MMA_STAGES, threads=CONV_MMA_THREADS,
+                blocks=_conv_mma_blocks(n, out_h, out_w, co, bh, bw, bco,
+                                        device_key),
+                smem_bytes=smem(bco))
+
+
+def _conv_mma_tile(out_w: int) -> tuple[int, int]:
+    """(block_h, block_w) of a 512-pixel tile of the tensor-core convs:
+    16 x 32, or 32 x 16 on images at most 16 columns wide."""
+    bw = CONV_MMA_BLOCK_WS[0] if out_w <= CONV_MMA_BLOCK_WS[0] \
+        else CONV_MMA_BLOCK_WS[1]
+    return CONV_MMA_TILE_PIXELS // bw, bw
+
+
+def _conv_mma_blocks(n, out_h, out_w, co, bh, bw, bco, device_key) -> int:
+    """Persistent blocks along the pixel tiles: one block an SM over the
+    channel blocks, each walking an equal share of the tiles in whole
+    waves."""
     tiles = n * -(-out_h // bh) * -(-out_w // bw)
     per_wave = max(1, _sm_count(device_key) // -(-max(co, 1) // bco))
     waves = max(1, -(-tiles // per_wave))
-    return dict(block_h=bh, block_w=bw, block_co=bco, block_c=bc,
-                stages=CONV_MMA_STAGES, threads=CONV_MMA_THREADS,
-                blocks=max(1, -(-tiles // waves)), smem_bytes=smem(bco))
+    return max(1, -(-tiles // waves))
 
 
 def plan_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
@@ -846,22 +882,108 @@ def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
                       weight_store=weight_store, k_full=k_full, **geometry)
 
 
-def plan_int_conv2d(x_shape: tuple, w_shape: tuple, *,
-                    padding: str = "VALID", backend: str = "auto",
-                    device="cpu") -> KernelPlan:
+def int_conv_mma_smem_bytes(fh: int, fw: int, block_h: int, block_w: int,
+                            block_co: int, c: int, x_bytes: int,
+                            w_bytes: int) -> int:
+    """Shared memory of one tensor-core K6 block: the weight block,
+    ``block_co`` rows of fh * fw taps of ``w_bytes`` planes of cpc =
+    ``_cpad_for(c)`` bytes + 16, then ``CONV_MMA_STAGES`` halo slots of
+    (block_h + fh - 1) x (block_w + fw - 1) pixels of ``x_bytes`` planes of
+    cpc bytes."""
+    cpc = _cpad_for(c)
+    krow = fh * fw * w_bytes * cpc + 16
+    halo = (block_h + fh - 1) * (block_w + fw - 1) * x_bytes * cpc
+    return block_co * krow + CONV_MMA_STAGES * halo
+
+
+def _int_conv_mma_geometry(n, out_h, out_w, c, fh, fw, co, x_bytes,
+                           w_bytes, device_key) -> dict | None:
+    """Launch geometry of the tensor-core K6 (csrc/int_conv2d_mma.cu), or
+    None where it does not fit.  K5's 512-pixel tiles and persistent
+    blocks; ``block_co`` 16 (8 for Co <= 8), halved while the resident
+    weight block and the halo ring overflow the shared memory; block_c =
+    x_bytes * cpc staged bytes a halo pixel.  One run holds every tap, so
+    its s32 sums must stay in range: fh * fw * c * ``INT_CONV_MMA_MAX_PROD``
+    < 2^31 (PTX does not promise that the MMA wraps), which every shape
+    whose weight block fits the shared memory meets."""
+    if fh * fw * c * INT_CONV_MMA_MAX_PROD[(x_bytes, w_bytes)] >= 2**31:
+        return None
+    bh, bw = _conv_mma_tile(out_w)
+    bco = INT_CONV_MMA_BLOCK_COS[0] if co <= INT_CONV_MMA_BLOCK_COS[0] \
+        else INT_CONV_MMA_BLOCK_COS[-1]
+
+    def smem(bco):
+        return int_conv_mma_smem_bytes(fh, fw, bh, bw, bco, c, x_bytes,
+                                       w_bytes)
+
+    while bco > INT_CONV_MMA_BLOCK_COS[0] and smem(bco) > CONV_MMA_SMEM_MAX:
+        bco //= 2
+    if smem(bco) > CONV_MMA_SMEM_MAX:
+        return None
+    return dict(route="tensor_cores", block_h=bh, block_w=bw, block_co=bco,
+                block_c=x_bytes * _cpad_for(c), stages=CONV_MMA_STAGES,
+                threads=CONV_MMA_THREADS,
+                blocks=_conv_mma_blocks(n, out_h, out_w, co, bh, bw, bco,
+                                        device_key),
+                smem_bytes=smem(bco))
+
+
+def int_conv2d_on_tensor_cores(x_shape: tuple, w_shape: tuple, *,
+                               x_bytes: int, w_bytes: int,
+                               padding: str = "VALID") -> bool:
+    """Whether K6 runs on the int8 tensor cores for these shapes and
+    operand widths: wherever one block holds the resident weight block (at
+    8 output channels) beside the two-slot halo ring -- at 7x7 every C up
+    to 32 with int16 activations, up to 64 with int8 ones -- and the s32
+    sums over all taps stay in range.  The rest keeps the CUDA-core tile
+    (:func:`int_conv2d_core_geometry`)."""
+    n, h, w, c = x_shape
+    fh, fw, _, co = w_shape
+    out_h, out_w = _conv_out(h, w, fh, fw, padding)
+    return _int_conv_mma_geometry(n, out_h, out_w, c, fh, fw, co, x_bytes,
+                                  w_bytes, "cpu") is not None
+
+
+def int_conv2d_core_geometry(x_shape: tuple, w_shape: tuple, *,
+                             padding: str = "VALID", device="cpu") -> dict:
+    """block_h, block_co, block_c, threads and smem_bytes of the CUDA-core
+    conv tile (csrc/conv2d_tile.cuh) for K6 at these shapes, which takes
+    any shape whose kernel fits its register window (those the planner
+    sends to the tensor cores too)."""
+    n, h, w, c = x_shape
+    fh, fw, _, co = w_shape
+    out_h, out_w = _conv_out(h, w, fh, fw, padding)
+    return _conv_geometry(n, out_h, out_w, c, fh, fw, co,
+                          _device_key(device))
+
+
+def plan_int_conv2d(x_shape: tuple, w_shape: tuple, *, x_bytes: int,
+                    w_bytes: int, padding: str = "VALID",
+                    backend: str = "auto", device="cpu") -> KernelPlan:
     """Plan an unpacked integer conv2d x [N, H, W, C] * w [Fh, Fw, C, Co]
-    (K6, the paper's int16 baseline): the same tile as K5."""
-    return _plan_int_conv2d(tuple(x_shape), tuple(w_shape), padding,
-                            resolve_backend(backend, device),
+    of ``x_bytes`` / ``w_bytes`` operands (1: int8, 2: int16) (K6, the
+    paper's int16 baseline).  The plan records its route
+    (:func:`int_conv2d_on_tensor_cores`): 'tensor_cores', the byte-plane
+    implicit GEMM with ``_int_conv_mma_geometry``, or 'cuda_cores', the
+    conv tile K5's other layouts use."""
+    return _plan_int_conv2d(tuple(x_shape), tuple(w_shape), padding, x_bytes,
+                            w_bytes, resolve_backend(backend, device),
                             _device_key(device))
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_int_conv2d(x_shape, w_shape, padding, backend, device_key
-                     ) -> KernelPlan:
+def _plan_int_conv2d(x_shape, w_shape, padding, x_bytes, w_bytes, backend,
+                     device_key) -> KernelPlan:
+    if x_bytes not in (1, 2) or w_bytes not in (1, 2):
+        raise TypeError(f"int_conv2d takes int8 or int16 operands (1 or 2 "
+                        f"bytes), got {x_bytes} x {w_bytes} bytes")
     n, h, w, c = x_shape
     fh, fw, _, co = w_shape
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
-    return KernelPlan(
-        op="int_conv2d", backend=backend,
-        **_conv_geometry(n, out_h, out_w, c, fh, fw, co, device_key))
+    geometry = _int_conv_mma_geometry(n, out_h, out_w, c, fh, fw, co,
+                                      x_bytes, w_bytes, device_key)
+    if geometry is None:
+        geometry = dict(_conv_geometry(n, out_h, out_w, c, fh, fw, co,
+                                       device_key), route="cuda_cores")
+    return KernelPlan(op="int_conv2d", backend=backend, x_bytes=x_bytes,
+                      w_bytes=w_bytes, **geometry)

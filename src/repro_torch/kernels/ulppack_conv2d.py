@@ -14,8 +14,18 @@ Replaces ``repro/kernels/ulppack_conv2d.py``: ``ulppack_conv2d`` (Pallas
   (:class:`ConvAffine`).
 - every other layout: ``csrc/ulppack_conv2d.cu`` over the CUDA-core tile of
   ``csrc/conv2d_tile.cuh`` (32-bit integer registers, the faithful
-  ``vmacsr``), which K6 (``csrc/int_conv2d.cu``) shares.  Their fields are
-  not whole bytes, so their lanes have no int8 tensor-core reading.
+  ``vmacsr``).  Their fields are not whole bytes, so their lanes have no
+  int8 tensor-core reading.
+
+The plan picks K6's kernel (``plan.int_conv2d_on_tensor_cores``, recorded
+as ``plan.route``):
+
+- wherever the weight block and the halo ring fit one block's shared
+  memory (the Fig. 4 shape and sparq-cnn's widths among them):
+  ``csrc/int_conv2d_mma.cu`` on the int8 tensor cores, K5's pixel tile
+  (``csrc/conv_mma.cuh``) with each int16 operand split into a signed high
+  and an unsigned low byte plane, four MMAs a step at int16 x int16;
+- the rest: ``csrc/int_conv2d.cu`` over the CUDA-core tile.
 
 Layouts are the reference's: input NHWC (K5: channels packed into Cp
 lanes), weights HWIO (K5: field-reversed lanes [Fh, Fw, Cp, Co], or with
@@ -30,9 +40,10 @@ PyTorch versions (the CPU path and the on-card comparison).  CUDA PyTorch
 has no integer matmul or conv, so they contract shifted windows with
 ``packing.tile_dots`` (int64 products on CUDA, low 32 bits kept), a
 chunk of output rows at a time.  ``kernel_launches`` counts each CUDA
-kernel's launches (the tensor-core K5 as ``ulppack_conv2d_mma``, the
-CUDA-core K5 as ``ulppack_conv2d``), ``mma_launches`` the tensor-core K5's
-by epilogue, and ``plain_calls`` each plain version's calls.
+kernel's launches (the tensor-core K5 / K6 as ``ulppack_conv2d_mma`` /
+``int_conv2d_mma``, the CUDA-core ones as ``ulppack_conv2d`` /
+``int_conv2d``), ``mma_launches`` the tensor-core K5's by epilogue, and
+``plain_calls`` each plain version's calls.
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ NAMES = ("ulppack_conv2d", "int_conv2d")
 
 #: Launches of each CUDA kernel / calls of each plain version in this
 #: process, keyed by kernel name.
-kernel_launches = dict.fromkeys(NAMES + ("ulppack_conv2d_mma",), 0)
+kernel_launches = dict.fromkeys(
+    NAMES + ("ulppack_conv2d_mma", "int_conv2d_mma"), 0)
 plain_calls = dict.fromkeys(NAMES, 0)
 #: Launches of the tensor-core K5 in this process, keyed by epilogue.
 mma_launches = {"s32": 0, "affine": 0}
@@ -316,7 +328,8 @@ def int_conv2d_cuda(q_x: torch.Tensor, q_w: torch.Tensor, *, block_h: int,
                     block_co: int, block_c: int, threads: int,
                     smem_bytes: int, padding: str = "VALID"
                     ) -> torch.Tensor:
-    """Launch K6 (CUDA tensors); geometry from ``plan_int_conv2d``."""
+    """Launch the CUDA-core K6 (CUDA tensors); geometry from a
+    'cuda_cores' ``plan_int_conv2d`` or ``int_conv2d_core_geometry``."""
     _check_int(q_x, q_w)
     x, w = _cuda_operands(q_x, q_w, "int_conv2d_cuda")
     n, h, wd, c = x.shape
@@ -332,6 +345,37 @@ def int_conv2d_cuda(q_x: torch.Tensor, q_w: torch.Tensor, *, block_h: int,
         x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernel_launches["int_conv2d"] += 1
+    return out
+
+
+def int_conv2d_mma_cuda(q_x: torch.Tensor, q_w: torch.Tensor, *, plan,
+                        padding: str = "VALID") -> torch.Tensor:
+    """Launch the tensor-core K6 (CUDA tensors) with the geometry of
+    ``plan`` (a 'tensor_cores' ``plan_int_conv2d`` for these shapes and
+    operand widths): int32 [N, Ho, Wo, Co] wrapped mod 2^32.  One launch;
+    no fall-back."""
+    _check_int(q_x, q_w)
+    if plan.route != "tensor_cores" or (plan.x_bytes, plan.w_bytes) != (
+            q_x.element_size(), q_w.element_size()):
+        raise ValueError(f"int_conv2d_mma_cuda needs a 'tensor_cores' plan "
+                         f"for {q_x.dtype} x {q_w.dtype}, got route "
+                         f"{plan.route!r} for {plan.x_bytes} x "
+                         f"{plan.w_bytes} bytes")
+    x, w = _cuda_operands(q_x, q_w, "int_conv2d_mma_cuda")
+    n, h, wd, c = x.shape
+    fh, fw, _, co = w.shape
+    top, bottom, left, right = same_pads(fh, fw, padding)
+    out_h, out_w = h + top + bottom - fh + 1, wd + left + right - fw + 1
+    out = torch.empty((n, out_h, out_w, co), dtype=torch.int32,
+                      device=x.device)
+    _bound("int_conv2d_mma", 3, 21)(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c,
+        x.element_size(), fh, fw, co, w.element_size(), out_h, out_w, top,
+        left, plan.block_h, plan.block_w, plan.block_co, plan.block_c,
+        plan.stages, plan.threads, plan.blocks, plan.smem_bytes,
+        x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernel_launches["int_conv2d_mma"] += 1
     return out
 
 
@@ -370,4 +414,6 @@ def _int_conv2d_torch(plan, q_x, q_w, padding):
 
 @plan_lib.register_backend("int_conv2d", "cuda")
 def _int_conv2d_cuda(plan, q_x, q_w, padding):
+    if plan.route == "tensor_cores":
+        return int_conv2d_mma_cuda(q_x, q_w, plan=plan, padding=padding)
     return int_conv2d_cuda(q_x, q_w, **_geometry(plan), padding=padding)

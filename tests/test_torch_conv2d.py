@@ -189,7 +189,8 @@ def test_entry_points_route_through_plans():
     assert torch.equal(got, tref.conv2d_i32_ref(q_x, q_w))
     assert tconv.plain_calls == {"ulppack_conv2d": 2, "int_conv2d": 1}
     assert tconv.kernel_launches == {"ulppack_conv2d": 0, "int_conv2d": 0,
-                                     "ulppack_conv2d_mma": 0}
+                                     "ulppack_conv2d_mma": 0,
+                                     "int_conv2d_mma": 0}
     assert tconv.mma_launches == {"s32": 0, "affine": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.packed_conv2d(xp, tpack.pack_weights(q_w, ts, axis=2), ts,
@@ -230,7 +231,8 @@ def test_conv_plan_records_store_and_fits_hopper(x_shape, w_shape, padding,
     assert core["threads"] == (core["block_h"] * plan_lib.CONV_GPR
                                * core["block_co"] // plan_lib.CONV_CPT) <= 256
     assert core["smem_bytes"] <= plan_lib.CONV_SMEM_MAX
-    iplan = plan_lib.plan_int_conv2d(x_shape, w_shape, padding=padding)
+    iplan = plan_lib.plan_int_conv2d(x_shape, w_shape, x_bytes=2, w_bytes=2,
+                                     padding=padding)
     assert iplan.op == "int_conv2d" and iplan.threads <= 256
     with pytest.raises(ValueError, match="register window"):
         plan_lib.plan_packed_conv2d((1, 9, 9, 4), (9, 9, 4, 8),

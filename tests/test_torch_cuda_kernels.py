@@ -511,24 +511,171 @@ def test_ulppack_conv2d_core_tile_at_int16xP2s8(hopper, geom):
                                                                 **kw))
 
 
+#: The value ranges of the integer conv: Fig. 4's [-256, 256) (within the
+#: type), the type's full range (the int16 sums wrap), and every value at
+#: the type's minimum.
+INT_RANGES = ("fig4", "full", "min")
+INT_DTYPES = [(torch.int8, torch.int8), (torch.int8, torch.int16),
+              (torch.int16, torch.int8), (torch.int16, torch.int16)]
+
+
+def _int_values(dev, g, shape, dtype, rng):
+    info = torch.iinfo(dtype)
+    if rng == "min":
+        return torch.full(shape, info.min, dtype=dtype, device=dev)
+    lo, hi = ((max(info.min, -256), min(info.max + 1, 256)) if rng == "fig4"
+              else (info.min, info.max + 1))
+    return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=dtype)
+
+
+def _int_conv_case(dev, geom, xdtype, wdtype, rng, seed):
+    n, h, w, cin, fh, fw, co, padding = geom
+    g = _gen(dev, seed)
+    qx = _int_values(dev, g, (n, h, w, cin), xdtype, rng)
+    qw = _int_values(dev, g, (fh, fw, cin, co), wdtype, rng)
+    plan = plan_lib.plan_int_conv2d(
+        tuple(qx.shape), tuple(qw.shape), x_bytes=qx.element_size(),
+        w_bytes=qw.element_size(), padding=padding, device=dev)
+    return qx, qw, plan
+
+
 @pytest.mark.parametrize("geom", CONV_GEOMS, ids=lambda g: "x".join(
     map(str, g)))
-@pytest.mark.parametrize("dtype,lo,hi", [
-    (torch.int8, -128, 128), (torch.int16, -256, 256),
-    (torch.int16, -32768, 32768)])
-def test_int_conv2d_bit_equal(hopper, dtype, lo, hi, geom):
-    n, h, w, cin, fh, fw, co, padding = geom
-    g = _gen(hopper, cin * co)
-    qx = torch.randint(lo, hi, (n, h, w, cin), generator=g, device=hopper,
-                       dtype=dtype)
-    qw = torch.randint(lo, hi, (fh, fw, cin, co), generator=g, device=hopper,
-                       dtype=dtype)
-    plan = plan_lib.plan_int_conv2d(tuple(qx.shape), tuple(qw.shape),
-                                    padding=padding, device=hopper)
-    assert plan.backend == "cuda"
+@pytest.mark.parametrize("rng", INT_RANGES)
+@pytest.mark.parametrize("xdtype,wdtype", INT_DTYPES,
+                         ids=lambda d: str(d).split(".")[-1])
+def test_int_conv2d_bit_equal(hopper, xdtype, wdtype, rng, geom):
+    """K6 through the planner's route (every CONV_GEOMS shape fits the
+    tensor cores) at the four operand types and three value ranges:
+    bit-equal to the plain version, one tensor-core launch, no CUDA-core
+    launch."""
+    padding = geom[-1]
+    qx, qw, plan = _int_conv_case(hopper, geom, xdtype, wdtype, rng,
+                                  geom[3] * geom[6])
+    assert (plan.backend, plan.route) == ("cuda", "tensor_cores")
+    ulppack_conv2d.reset_counts()
     got = ops.int_conv2d(qx, qw, padding=padding, plan=plan)
+    assert ulppack_conv2d.kernel_launches["int_conv2d_mma"] == 1
+    assert ulppack_conv2d.kernel_launches["int_conv2d"] == 0
     assert torch.equal(got, ulppack_conv2d.int_conv2d_torch(
         qx, qw, padding=padding))
+
+
+@pytest.mark.parametrize("geom", CONV_GEOMS, ids=lambda g: "x".join(
+    map(str, g)))
+@pytest.mark.parametrize("xdtype,wdtype", INT_DTYPES,
+                         ids=lambda d: str(d).split(".")[-1])
+def test_int_conv2d_core_tile_bit_equal(hopper, xdtype, wdtype, geom):
+    """The CUDA-core K6 with its own geometry forced (shapes the planner
+    sends to the tensor cores) stays bit-equal at the full ranges."""
+    qx, qw, _ = _int_conv_case(hopper, geom, xdtype, wdtype, "full", 5)
+    core = plan_lib.int_conv2d_core_geometry(
+        tuple(qx.shape), tuple(qw.shape), padding=geom[-1], device=hopper)
+    got = ulppack_conv2d.int_conv2d_cuda(qx, qw, **core, padding=geom[-1])
+    assert torch.equal(got, ulppack_conv2d.int_conv2d_torch(
+        qx, qw, padding=geom[-1]))
+
+
+#: (geometry, x dtype, w dtype, route): C 32 at 7x7 fits the tensor cores
+#: at every type; C 64 only with int8 activations; a 9x9 kernel (past the
+#: CUDA-core tile's register window) on the tensor cores.
+INT_ROUTES = [
+    ((1, 30, 40, 32, 7, 7, 64, "SAME"), torch.int16, torch.int16,
+     "tensor_cores"),
+    ((1, 30, 40, 64, 7, 7, 24, "SAME"), torch.int16, torch.int16,
+     "cuda_cores"),
+    ((1, 30, 40, 64, 7, 7, 24, "SAME"), torch.int16, torch.int8,
+     "cuda_cores"),
+    ((1, 30, 40, 64, 7, 7, 24, "VALID"), torch.int8, torch.int16,
+     "tensor_cores"),
+    ((1, 12, 21, 100, 3, 3, 8, "SAME"), torch.int8, torch.int8,
+     "tensor_cores"),
+    ((2, 19, 23, 5, 9, 9, 17, "SAME"), torch.int16, torch.int16,
+     "tensor_cores"),
+]
+
+
+@pytest.mark.parametrize("geom,xdtype,wdtype,route", INT_ROUTES,
+                         ids=lambda v: str(v).split(".")[-1])
+def test_int_conv2d_route_per_shape(hopper, geom, xdtype, wdtype, route):
+    """The planner's route per shape, recorded in the plan and taken by
+    ops.int_conv2d (one launch of that kernel); bit-equal either way."""
+    qx, qw, plan = _int_conv_case(hopper, geom, xdtype, wdtype, "full", 7)
+    assert plan.route == route
+    assert plan_lib.int_conv2d_on_tensor_cores(
+        tuple(qx.shape), tuple(qw.shape), x_bytes=qx.element_size(),
+        w_bytes=qw.element_size(), padding=geom[-1]) is (
+            route == "tensor_cores")
+    ulppack_conv2d.reset_counts()
+    got = ops.int_conv2d(qx, qw, padding=geom[-1])
+    name = "int_conv2d_mma" if route == "tensor_cores" else "int_conv2d"
+    assert ulppack_conv2d.kernel_launches[name] == 1
+    assert sum(ulppack_conv2d.kernel_launches.values()) == 1
+    assert sum(ulppack_conv2d.plain_calls.values()) == 0
+    assert torch.equal(got, ulppack_conv2d.int_conv2d_torch(
+        qx, qw, padding=geom[-1]))
+
+
+@pytest.mark.parametrize("xdtype,wdtype", INT_DTYPES,
+                         ids=lambda d: str(d).split(".")[-1])
+def test_int_conv2d_mma_repeats(hopper, xdtype, wdtype):
+    """Two launches of the tensor-core K6 and a CUDA-graph replay of one
+    are bit-equal to the plain version at the full ranges."""
+    geom = (1, 37, 45, 32, 7, 7, 24, "SAME")
+    qx, qw, plan = _int_conv_case(hopper, geom, xdtype, wdtype, "full", 11)
+    assert plan.route == "tensor_cores"
+    want = ulppack_conv2d.int_conv2d_torch(qx, qw, padding="SAME")
+
+    def call():
+        return ulppack_conv2d.int_conv2d_mma_cuda(qx, qw, plan=plan,
+                                                  padding="SAME")
+
+    assert torch.equal(call(), want) and torch.equal(call(), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("change", [
+    dict(block_w=64), dict(block_h=8), dict(block_co=32), dict(block_c=32),
+    dict(stages=3), dict(threads=128), dict(blocks=0), dict(blocks=1000),
+    dict(smem_bytes=16)])
+def test_int_conv2d_mma_launcher_refuses_a_plan_that_disagrees(hopper,
+                                                               change):
+    """A plan whose tile, channel block, staged bytes, ring, threads, block
+    count or shared memory disagrees with the tensor-core K6's
+    layout is refused by the launcher and raises (smem_bytes moves by the
+    amount given; the other fields are set); so is, in the wrapper, a plan
+    made for other operand widths or the other route."""
+    import dataclasses
+
+    geom = (1, 40, 37, 32, 7, 7, 24, "SAME")
+    qx, qw, plan = _int_conv_case(hopper, geom, torch.int16, torch.int16,
+                                  "fig4", 3)
+    bad = dataclasses.replace(plan, **{
+        f: plan.smem_bytes + v if f == "smem_bytes" else v
+        for f, v in change.items()})
+    assert torch.equal(
+        ulppack_conv2d.int_conv2d_mma_cuda(qx, qw, plan=plan, padding="SAME"),
+        ulppack_conv2d.int_conv2d_torch(qx, qw, padding="SAME"))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ulppack_conv2d.int_conv2d_mma_cuda(qx, qw, plan=bad, padding="SAME")
+    with pytest.raises(ValueError, match="tensor_cores"):
+        ulppack_conv2d.int_conv2d_mma_cuda(qx.to(torch.int8), qw, plan=plan,
+                                           padding="SAME")
+    with pytest.raises(ValueError, match="tensor_cores"):
+        ulppack_conv2d.int_conv2d_mma_cuda(
+            qx, qw, plan=dataclasses.replace(plan, route="cuda_cores"),
+            padding="SAME")
 
 
 @pytest.mark.parametrize("field", ["threads", "smem_bytes"])
@@ -539,7 +686,14 @@ def test_conv_launcher_refuses_a_plan_that_disagrees_with_the_tile(hopper,
     qx = torch.zeros((1, 9, 9, 4), dtype=torch.int16, device=hopper)
     qw = torch.zeros((3, 3, 4, 8), dtype=torch.int16, device=hopper)
     plan = plan_lib.plan_int_conv2d(tuple(qx.shape), tuple(qw.shape),
-                                    device=hopper)
+                                    x_bytes=2, w_bytes=2, device=hopper)
+    # the CUDA-core tile's route, with its geometry for these shapes
+    plan = dataclasses.replace(plan, route="cuda_cores", **(
+        plan_lib.int_conv2d_core_geometry(tuple(qx.shape), tuple(qw.shape),
+                                          device=hopper)))
+    assert torch.equal(ops.int_conv2d(qx, qw, plan=plan),
+                       torch.zeros((1, 7, 7, 8), dtype=torch.int32,
+                                   device=hopper))
     bad = dataclasses.replace(plan, **{field: getattr(plan, field) + 4})
     with pytest.raises(RuntimeError, match="CUDA error"):
         ops.int_conv2d(qx, qw, plan=bad)

@@ -161,9 +161,11 @@ def test_staged_bytes_per_pixel(cp, block_c):
 
 def test_constants_match_the_kernel_source():
     """The planner's copy of the tensor-core K5's geometry is the one in
-    csrc/ulppack_conv2d_mma.cu (the launcher re-checks every field)."""
-    src = (Path(tplan.__file__).parent.parent / "csrc"
-           / "ulppack_conv2d_mma.cu").read_text()
+    csrc/ulppack_conv2d_mma.cu and the tile it shares with K6,
+    csrc/conv_mma.cuh (the launcher re-checks every field)."""
+    csrc = Path(tplan.__file__).parent.parent / "csrc"
+    src = "".join((csrc / f).read_text()
+                  for f in ("conv_mma.cuh", "ulppack_conv2d_mma.cu"))
     c = {k: int(v) for k, v in
          re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert (c["kConvThreads"], c["kTilePixels"], c["kStages"],
@@ -462,5 +464,6 @@ def test_cpu_path_counts_plain_calls_only():
     cnn.conv_apply(p, x, qcfg, quant_mode="packed")
     assert tconv.mma_launches == {"s32": 0, "affine": 0}
     assert tconv.kernel_launches == {"ulppack_conv2d": 0, "int_conv2d": 0,
-                                     "ulppack_conv2d_mma": 0}
+                                     "ulppack_conv2d_mma": 0,
+                                     "int_conv2d_mma": 0}
     assert tconv.plain_calls["ulppack_conv2d"] == 1
