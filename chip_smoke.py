@@ -26,7 +26,12 @@ toolkit:
    grouping (32 query heads on 8 kv heads of 128); the paged attention
    (K4) through a scrambled block table, also bit-equal to the contiguous
    kernel (K3) on the same logical rows; the unpacked integer matmul (K7)
-   bit-equal at s8 and s16); then the packed conv (K5) and the int16 conv
+   bit-equal at s8 and s16; the KV-cache window write
+   (``csrc/cache_write.cu``) bit-equal to its plain twin at kv_bits
+   16/8/4/2, ragged and paged, with dead rows, decode riders, windows past
+   the end and dead slots' all-zero block tables, page 0 left untouched,
+   timed at the decode step's write beside ``index_put_`` on each leaf);
+   then the packed conv (K5) and the int16 conv
    (K6), bit-equal, at the paper's Fig. 4 shape (K6 on the tensor cores at
    int16 values in [-256, 256) and at the full int16 range, where the sums
    wrap, a second launch bit-equal, the CUDA-core K6 bit-equal and timed
@@ -54,14 +59,23 @@ toolkit:
    integer multiply-add rate for the CUDA-core K5 and K6.
 3. Serve phase: full-width ``stablelm-1.6b`` W2A2 with random weights from a
    seed, through ``ServingEngine`` at kv_bits 16, 4 and 2, four greedy
-   requests with staggered admission.  Fails unless every request finishes
+   requests with staggered admission; each engine replays the decode and
+   prefill-chunk CUDA graphs it captured when it was built, so every
+   kernel count below is the graphs' launches times their replays (plus
+   the warm-up's).  Fails unless every request finishes
    and every kernel was launched on that path with no plain-version call,
    every packed linear one launch of the tensor-core K2 with K1 folded in
    and the epilogue fused (no standalone K1 launch).  At
    kv_bits 4 it profiles four decode passes and one 64-row prefill chunk
    (device kernel time, launches, K2 / elementwise / fill time, top
-   kernels) and runs one prefill chunk and 8 decode steps with
-   ``backend="torch"`` on the same weights, printing the logit difference.
+   kernels, the graph's replay between CUDA events; the prefill chunk
+   also on the eager pair) and runs one prefill chunk and 8 decode steps
+   with ``backend="torch"`` on the same weights, printing the logit
+   difference.  Then the ``graphs`` lines: graphed against eager engines
+   at kv_bits 16, 4, 2 and paged at 4 with prefix sharing (tokens equal,
+   the first decode's logit difference, pointers fixed, capture time,
+   peak memory, 5 rounds of 8 decode passes of each in turn: wall ms a
+   step, device ms, idle share).
 4. Paged serve phase: the same model and weights through
    ``ServingEngine(EngineConfig(paged=True, page_size=16))``.  Identity at
    kv_bits 16, 4 and 2: shared-prefix prompts (a 72-token prompt, then a
@@ -109,8 +123,9 @@ route), the data the planner's split model was fitted to.
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
 kernel (K1-K7, K2, K5 and K6 each as its tensor-core and its CUDA-core
-kernel, and K1 folded into the tensor-core K2 as ``quantized_linear_mma``)
-with the launches of its path.
+kernel, K1 folded into the tensor-core K2 as ``quantized_linear_mma``, and
+the window write ``cache_write``, which has no TPU kernel of its own) with
+the launches of its path.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -236,7 +251,135 @@ def kernel_phase(torch, peaks, dev):
 
     rows += packed_matmul_rows(torch, peaks, dev, gen)
     rows += attention_rows(torch, peaks, dev, gen)
+    rows += cache_write_rows(torch, peaks, dev, gen)
     return rows
+
+
+def time_eager_ms(torch, fn, reps=20) -> float:
+    """Device time per call of ``fn`` run eagerly ``reps`` times between
+    CUDA events, for a call that cannot be captured (it waits on the
+    card: the plain cache write's ``nonzero``)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# The window write's cases at stablelm-1.6b's cache rows (B 4, a 16-token
+# chunk, S 512; paged: 32 pages of 16 a slot): (offsets, valid counts) with
+# a dead row, decode riders (valid 1), windows past the end of the cache
+# (ragged: dropped; paged: clipped to the table's last page), and, paged,
+# slot 3 dead with an all-zero block table.
+CACHE_WRITE_RAGGED = (([0, 0, 5, 0], [16, 3, 0, 1]),
+                      ([16, 510, 0, 3], [1, 16, 0, 16]),
+                      ([513, 100, 500, 0], [16, 0, 16, 0]))
+CACHE_WRITE_PAGED = (([0, 0, 5, 0], [16, 3, 1, 0]),
+                     ([16, 3, 6, 0], [1, 16, 16, 0]),
+                     ([509, 19, 22, 0], [6, 16, 1, 0]))
+
+
+def cache_write_rows(torch, peaks, dev, gen):
+    """The window write (csrc/cache_write.cu) bit-equal to its plain twin
+    (``nonzero`` + ``index_put_``) at kv_bits 16/8/4/2, ragged and paged,
+    over the cases above, page 0 and the unmapped pages left zero; then
+    timed at the decode step's write (B 4, one token a row, kv_bits 4)
+    beside the plain twin and ``index_put_`` on each leaf with the kept
+    rows precomputed."""
+    from repro_torch import configs
+    from repro_torch.kernels import cache_write as cw
+    from repro_torch.models import attention
+
+    cfg = configs.get_config("stablelm-1.6b")
+    bsz, s, ps, width = 4, 512, 16, 16
+    n_pages = s // ps
+    num_pages = bsz * n_pages + 2
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    bt = torch.zeros((bsz, n_pages), dtype=torch.int32, device=dev)
+    bt[:3] = (1 + torch.randperm(num_pages - 3, generator=gen, device=dev)[
+        :3 * n_pages]).reshape(3, n_pages).to(torch.int32)
+    checked = []
+    for kv_bits in (16, 8, 4, 2):
+        c = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+        for paged in (False, True):
+            make = ((lambda: attention.init_paged_kv_cache(
+                        c, num_pages, ps, device=dev)) if paged else
+                    (lambda: attention.init_kv_cache(c, bsz, s, device=dev)))
+            got, want = make(), make()
+            for idx, vlen in (CACHE_WRITE_PAGED if paged
+                              else CACHE_WRITE_RAGGED):
+                k, v = (torch.randn((bsz, width, kvh, hd), generator=gen,
+                                    device=dev).to(torch.bfloat16)
+                        for _ in range(2))
+                ti = torch.tensor(idx, dtype=torch.int32, device=dev)
+                tv = torch.tensor(vlen, dtype=torch.int32, device=dev)
+                dest = (attention.paged_dest_rows(ti, tv, bt, width, ps,
+                                                  num_pages) if paged
+                        else attention.ragged_dest_rows(ti, tv, width, s))
+                attention.cache_write(got, k, v, dest, kv_bits,
+                                      backend="cuda")
+                attention.cache_write(want, k, v, dest, kv_bits,
+                                      backend="torch")
+            torch.cuda.synchronize()
+            for name in want:
+                a, b = got[name], want[name]
+                if a.dtype == torch.bfloat16:
+                    a, b = a.view(torch.int16), b.view(torch.int16)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"cache_write kv{kv_bits} "
+                                         f"{'paged' if paged else 'ragged'} "
+                                         f"{name}: not bit-equal")
+            if paged and (got["k"][0].any() or got["k"][-2:].any()):
+                raise AssertionError(f"cache_write kv{kv_bits}: page 0 or "
+                                     f"an unmapped page was written")
+            checked.append(f"kv{kv_bits} {'paged' if paged else 'ragged'}")
+    print("cache_write bit-equal to its twin: " + ", ".join(checked))
+
+    # the decode step's write: four live rows, one token each, kv_bits 4
+    c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
+    cache = attention.init_kv_cache(c, bsz, s, device=dev)
+    idx = torch.tensor([100, 300, 77, 511], dtype=torch.int32, device=dev)
+    dest = attention.ragged_dest_rows(
+        idx, torch.ones(bsz, dtype=torch.int32, device=dev), 1, s)
+    k, v = (torch.randn((bsz, 1, kvh, hd), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    qk, sk = attention.kv_quantize(k, 4)
+    qv, sv = attention.kv_quantize(v, 4)
+    leaves = [(cache[n].flatten(0, 1), t.flatten(0, 1)) for n, t in
+              (("k", qk), ("v", qv), ("k_scale", sk), ("v_scale", sv))]
+    twin = [(d.clone(), t) for d, t in leaves]
+    cw.cache_write_cuda(dest, leaves)
+    cw.cache_write_torch(dest, twin)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+               for (a, _), (b, _) in zip(leaves, twin)):
+        raise AssertionError("cache_write at the decode write: not "
+                             "bit-equal")
+    keep = cw.kept(dest, leaves[0][0].shape[0]).nonzero(as_tuple=True)[0]
+    rows_kept = dest[keep]
+    kept_n = int(keep.numel())
+    # bytes: the destinations read, each kept row read once and written once
+    nbytes = dest.numel() * 8 + 2 * kept_n * sum(
+        d.shape[1] * d.element_size() for d, _ in leaves)
+    b, by = bound_ms(nbytes, 0, peaks["hbm"], peaks["f32"])
+    return [{
+        "name": "cache_write", "shape": f"B{bsz} C1 S{s} H{kvh} hd{hd} kv4",
+        "max_abs_err": 0,
+        "ms": time_ms(torch, [lambda: cw.cache_write_cuda(dest, leaves)] * 20),
+        "plain_ms": time_eager_ms(torch, lambda: cw.cache_write_torch(
+            dest, twin)),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": time_ms(torch, [lambda: [
+            d.index_put_((rows_kept,), t[keep]) for d, t in twin]] * 20),
+        "library": "index_put_ on each of the 4 leaves, kept rows "
+                   "precomputed"}]
 
 
 # K2's shapes: full-width stablelm-1.6b's (Kp, N) pairs at the decode rows
@@ -1396,7 +1539,9 @@ def serve_phase(torch, np, dev, cfg):
                "prefill_tok_s": m["prefill_tok_s"],
                "decode_tok_s": m["decode_tok_s"],
                "decode_step_ms": m["decode_step_ms"],
-               "steps": m["steps"], "packed_param_bytes": cap["param_bytes"],
+               "steps": m["steps"], "step_graphs": cap["step_graphs"],
+               "step_setup_s": cap["step_setup_s"],
+               "packed_param_bytes": cap["param_bytes"],
                "cache_bytes": cap["cache_bytes"],
                "max_memory_allocated": torch.cuda.max_memory_allocated()}
         print("serve " + json.dumps(rep))
@@ -1441,6 +1586,8 @@ def profile_decode(torch, cfg, params, ecfg, prompts, dev, label="profile"):
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     rep = {"kv_bits": cfg.quant.kv_bits, "decode_passes": n,
+           "graphed": eng._decode.graph is not None,
+           "replay_ms_per_step": replay_ms(torch, eng._decode),
            "wall_ms_per_step": wall * 1e3 / n,
            "device_kernel_ms_per_step": busy_us / 1e3 / n,
            "idle_share_upper_bound": 1 - busy_us / 1e6 / wall,
@@ -1455,6 +1602,24 @@ def profile_decode(torch, cfg, params, ecfg, prompts, dev, label="profile"):
     print(f"{label} " + json.dumps(rep))
     del eng
     torch.cuda.empty_cache()
+
+
+def replay_ms(torch, step, n=8):
+    """Device ms of one replay of a step's CUDA graph: ``n`` replays back
+    to back between CUDA events, after the step's last call (a replay
+    writes the same K/V rows again and reads them back, so it changes
+    nothing).  None for a step that runs eagerly."""
+    if step.graph is None:
+        return None
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 LM_GROUPS = {"k2": ("ulppack_matmul",), "k1": ("quant_pack",),
@@ -1481,37 +1646,54 @@ def profile_prefill(torch, cfg, params, ecfg, prompts, dev):
     """Where a prefill chunk's time goes: the four serve prompts admitted
     together, then one profiled engine step -- a chunked-prefill pass of
     max_batch x prefill_chunk rows (64 here) -- device kernel time, the
-    host-clock wall time, launches, K2's share and the top kernels."""
+    host-clock wall time, launches, K2's share and the top kernels, on the
+    graphed engine; then the same step on an engine with the eager pair
+    set on it (``eager``: wall, device kernel time, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch import steps
     from repro_torch.serve.engine import Request, ServingEngine
 
-    eng = ServingEngine(cfg, params, config=ecfg, device=dev)
-    for i, p in enumerate(prompts):
-        eng.submit(Request(i, p, max_new_tokens=4))
-    eng.step()                          # warm-up: the first chunk
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.step()
+    for mode in ("graphed", "eager"):
+        eng = ServingEngine(cfg, params, config=ecfg, device=dev)
+        if mode == "eager":
+            eng._decode = steps.make_decode_step(cfg)
+            eng._prefill = steps.make_prefill_chunk_step(cfg)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, max_new_tokens=4))
+        eng.step()                      # warm-up: the first chunk
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    rep = {"kv_bits": cfg.quant.kv_bits,
-           "rows": ecfg.max_batch * ecfg.prefill_chunk,
-           "wall_ms": wall * 1e3, "device_kernel_ms": busy_us / 1e3,
-           "kernel_launches": sum(e.count for e in kernels),
-           **kernel_groups(kernels, 1, ""),
-           "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3,
-                               e.count] for e in top]}
-    rep["k2_share"] = rep["k2_ms"] / max(1e-9, rep["device_kernel_ms"])
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        if mode == "eager":
+            rep["eager"] = {"wall_ms": wall * 1e3,
+                            "device_kernel_ms": busy_us / 1e3,
+                            "kernel_launches": sum(e.count
+                                                   for e in kernels)}
+        else:
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            rep = {"kv_bits": cfg.quant.kv_bits,
+                   "rows": ecfg.max_batch * ecfg.prefill_chunk,
+                   "graphed": eng._prefill.graph is not None,
+                   "replay_ms": replay_ms(torch, eng._prefill),
+                   "wall_ms": wall * 1e3, "device_kernel_ms": busy_us / 1e3,
+                   "kernel_launches": sum(e.count for e in kernels),
+                   **kernel_groups(kernels, 1, ""),
+                   "top_kernels_ms": [[e.key[:60],
+                                       e.self_device_time_total / 1e3,
+                                       e.count] for e in top[:8]]}
+            rep["k2_share"] = rep["k2_ms"] / max(1e-9,
+                                                 rep["device_kernel_ms"])
+        del eng
+        torch.cuda.empty_cache()
     print("prefill profile " + json.dumps(rep))
-    del eng
-    torch.cuda.empty_cache()
 
 
 def check_k2_path(where):
@@ -1757,6 +1939,186 @@ def linear_phase(torch, dev):
     return launches
 
 
+def step_ptrs(steps, pair, caches):
+    """The ``data_ptr()``s of a step pair's static buffers and outputs and
+    of the caches it writes."""
+    return steps._ptrs([[st.buffers, st.logits] for st in pair]) \
+        + steps._ptrs(caches)
+
+
+def graphs_phase(torch, np, dev, cfg, params):
+    """Graphed against op-by-op steps at full width, one ``graphs`` line a
+    case: unpaged at kv_bits 16, 4 and 2 (the serve phase's requests) and
+    paged at kv_bits 4 with prefix sharing (the paged phase's shared-prefix
+    requests).  Two engines a case, one replaying the CUDA graphs it
+    captured, one with the eager pair set on it (``make_decode_step`` /
+    ``make_prefill_chunk_step``): greedy tokens equal (gated), the first
+    decode step's max logit difference, the static buffers', outputs' and
+    caches' ``data_ptr()``s the same after the run, the capture times, and
+    each engine's peak memory above what was allocated before it was built
+    (the eager engine's measured after its graphs were dropped).  Then
+    four long requests on each, and 8 decode passes of each engine in
+    turn, 5 rounds: median wall ms a step (host clock, synchronised), then
+    4 passes of each under torch.profiler (device kernel ms a step, idle
+    share = 1 - device / wall), and the decode graph's replay timed alone
+    between CUDA events.  Returns the lines."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+    from repro_torch.serve.engine import EngineConfig, Request, \
+        ServingEngine
+
+    rng = np.random.default_rng(SEED)
+    serve_prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                     for n in (17, 33, 64, 100)]
+    rng = np.random.default_rng(SEED + 3)
+    base = rng.integers(0, cfg.vocab_size, 80).astype(np.int32)
+    shared = [base[:72], np.concatenate([base[:64], rng.integers(
+                  0, cfg.vocab_size, 20).astype(np.int32)]),
+              rng.integers(0, cfg.vocab_size, 28).astype(np.int32),
+              base[:80]]
+    long_prompts = [np.random.default_rng(SEED + 9).integers(
+        0, cfg.vocab_size, n).astype(np.int32) for n in (40, 23, 61, 9)]
+    common = dict(max_batch=4, max_len=512, prefill_chunk=16)
+    cases = [(16, False), (4, False), (2, False), (4, True)]
+    lines = []
+    for kv_bits, paged in cases:
+        c = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+        ecfg = EngineConfig(**common, **(dict(
+            paged=True, page_size=16, prefix_sharing=True) if paged else {}))
+        engines, first, mem, outs = {}, {}, {}, {}
+        for mode in ("graphed", "eager"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eng = engines[mode] = ServingEngine(c, params, config=ecfg,
+                                                device=dev)
+            graphed = (eng._decode, eng._prefill)
+            if mode == "eager":
+                eng._decode = steps.make_decode_step(c)
+                eng._prefill = steps.make_prefill_chunk_step(c)
+                del graphed
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            else:
+                ptrs = step_ptrs(steps, graphed, eng.caches)
+            inner = eng._decode
+
+            def spy(*a, _inner=inner, _mode=mode, **k):
+                out = _inner(*a, **k)
+                if _mode not in first:
+                    first[_mode] = out[0].float().clone()
+                return out
+
+            eng._decode = spy
+            reqs = [Request(i, p, max_new_tokens=32)
+                    for i, p in enumerate(shared if paged else serve_prompts)]
+            if paged:                 # the 72-token prompt registers first
+                eng.submit(reqs[0])
+                while not reqs[0].output:
+                    eng.step()
+                for r in reqs[1:]:
+                    eng.submit(r)
+            else:                     # later admissions ride along
+                for r in reqs[:2]:
+                    eng.submit(r)
+                for _ in range(3):
+                    eng.step()
+                for r in reqs[2:]:
+                    eng.submit(r)
+            eng.run_to_completion()
+            torch.cuda.synchronize()
+            eng._decode = inner
+            mem[mode] = torch.cuda.max_memory_allocated() - before
+            outs[mode] = [r.output for r in reqs]
+        g = engines["graphed"]
+        dec, pre = g._decode, g._prefill
+        ptrs_fixed = ptrs == step_ptrs(steps, (dec, pre), g.caches)
+        if outs["graphed"] != outs["eager"] or not ptrs_fixed:
+            raise AssertionError(
+                f"graphs kv{kv_bits} paged={paged}: tokens equal "
+                f"{outs['graphed'] == outs['eager']}, pointers fixed "
+                f"{ptrs_fixed}")
+        diff = (first["graphed"] - first["eager"]).abs()
+        line = {"kv_bits": kv_bits, "paged": paged,
+                "prefix_sharing": paged, "tokens_equal": True,
+                "requests": len(outs["graphed"]),
+                "first_decode_max_logit_diff": float(diff.max()),
+                "data_ptrs_fixed": True,
+                "decode_replays": dec.replays,
+                "prefill_replays": pre.replays,
+                "capture_s": {"decode": dec.capture_s,
+                              "prefill_chunk": pre.capture_s},
+                "engine_step_setup_s": g.step_setup_s,
+                "max_memory_allocated": mem}
+        if paged:
+            cap = g.capacity_report()
+            line["prefix_hit_tokens"] = cap["prefix_hit_tokens"]
+            line["cow_copies"] = cap["cow_copies"]
+        if float(diff.max()):
+            top = torch.topk(first["eager"], 2, dim=-1).values
+            line["first_decode_top2_margin"] = (top[:, 0] - top[:, 1]).tolist()
+
+        # eager and graphed decode passes in turn, in one call
+        for mode, eng in engines.items():
+            for i, p in enumerate(long_prompts):
+                eng.submit(Request(100 + i, p, max_new_tokens=80))
+            eng.step()                       # admits all four
+            while any(eng.slot_fed[s] < len(eng.slot_req[s].prompt)
+                      for s in range(eng.max_batch)
+                      if eng.slot_req[s] is not None):
+                eng.step()
+        walls = {m: [] for m in engines}
+        for r in range(5):
+            order = list(engines) if r % 2 == 0 else list(engines)[::-1]
+            for mode in order:
+                eng = engines[mode]
+                passes = eng.metrics.decode_passes
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    eng.step()
+                torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3 / 8)
+                if eng.metrics.decode_passes != passes + 8:
+                    raise AssertionError("graphs: a timed step was not a "
+                                         "decode pass")
+        alt = {"rounds": 5, "passes_per_round": 8}
+        for mode, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    eng.step()
+                torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3 / 4
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 4
+            wall = statistics.median(walls[mode])
+            alt[mode] = {
+                "wall_ms_per_step_median": wall,
+                "wall_ms_per_step": walls[mode],
+                "device_kernel_ms_per_step": dev_ms,
+                "kernel_launches_per_step": sum(e.count
+                                                for e in kernels) / 4,
+                "idle_share": 1 - dev_ms / wall,
+                "profiled_wall_ms_per_step": pwall}
+        alt["graphed"]["replay_ms_per_step"] = replay_ms(torch, dec)
+        alt["decode_tok_s_ratio"] = (alt["eager"]["wall_ms_per_step_median"]
+                                     / alt["graphed"][
+                                         "wall_ms_per_step_median"])
+        line["alternated"] = alt
+        print("graphs " + json.dumps(line))
+        lines.append(line)
+        del engines, eng, g, dec, pre, inner
+        torch.cuda.empty_cache()
+    return lines
+
+
 def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
     width = 16
     tokens = np.stack([p[:width] for p in prompts])
@@ -1804,8 +2166,8 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import numpy as np
 
-    from repro_torch.kernels import build, quant_pack, ulppack_attention, \
-        ulppack_matmul
+    from repro_torch.kernels import build, cache_write, quant_pack, \
+        ulppack_attention, ulppack_matmul
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1841,19 +2203,23 @@ def main() -> int:
     for r in rows:
         print("kernel " + json.dumps(r))
 
-    mods = (quant_pack, ulppack_matmul, ulppack_attention)
+    mods = (quant_pack, ulppack_matmul, ulppack_attention, cache_write)
     for mod in mods:
         mod.reset_counts()
     lm_cfg = configs.get_config("stablelm-1.6b")
     ctx, params = serve_phase(torch, np, dev, lm_cfg)
+    # the serve path replays CUDA graphs: each replay adds the launches its
+    # graph holds (launch/steps.StaticStep)
     launches = {"quantized_linear_mma":
                     ulppack_matmul.mma_launches["quant_affine"],
                 "attention_decode":
-                    ulppack_attention.kernel_launches["attention_decode"]}
+                    ulppack_attention.kernel_launches["attention_decode"],
+                "cache_write": cache_write.kernel_launches["cache_write"]}
     plain = {"quantized_linear_mma": ulppack_matmul.plain_calls[
                  "ulppack_matmul"] + quant_pack.plain_calls,
              "attention_decode":
-                 ulppack_attention.plain_calls["attention_decode"]}
+                 ulppack_attention.plain_calls["attention_decode"],
+             "cache_write": cache_write.plain_calls["cache_write"]}
     print(f"serve launches (kv_bits 16, 4, 2 runs and the profiled kv_bits 4 "
           f"passes): kernels {launches}, plain {plain}, K2 by route "
           f"{ulppack_matmul.mma_launches}, standalone K1 "
@@ -1867,6 +2233,7 @@ def main() -> int:
     compare_backends(torch, np, dev, *ctx)
     del ctx
     torch.cuda.empty_cache()
+    graphs_phase(torch, np, dev, lm_cfg, params)
     launches["attention_decode_paged"] = paged_phase(torch, np, dev, lm_cfg,
                                                      params)
     del params
@@ -1928,6 +2295,12 @@ def main() -> int:
         "int_matmul": ("src/repro_torch/csrc/int_matmul.cu",
                        "src/repro/kernels/ulppack_matmul.py:145",
                        "(8,4096,4096) int8"),
+        # no TPU kernel of its own: the reference's window write is XLA's
+        # drop-mode scatter; its path is the serve phase (every layer of
+        # every graphed decode pass and prefill chunk)
+        "cache_write": ("src/repro_torch/csrc/cache_write.cu",
+                        "src/repro/models/attention.py:533 (XLA scatter, "
+                        "no pallas_call)", "B4 C1"),
     }
     summary = []
     for k, (source, replaces, shape) in meta.items():

@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("quant_pack", "ulppack_matmul", "attention_decode",
            "ulppack_conv2d", "int_conv2d", "int_matmul",
-           "ulppack_matmul_mma", "ulppack_conv2d_mma", "int_conv2d_mma")
+           "ulppack_matmul_mma", "ulppack_conv2d_mma", "int_conv2d_mma",
+           "cache_write")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

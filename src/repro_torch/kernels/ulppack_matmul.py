@@ -39,6 +39,7 @@ and the affine epilogue fused ("quant_affine").
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -152,8 +153,60 @@ _X_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 _workspaces: dict = {}
 
 
+class Workspace:
+    """A split-K workspace and tickets owned by a set of CUDA graphs
+    (``launch/steps.graphed_serving_steps``).  Inside :func:`workspace_scope`
+    every tensor-core K2 launch uses it in place of the per-stream one.  It
+    grows while the graphs' bodies warm up, outside any capture, and is
+    then frozen: a capture that would need more raises, so no later capture
+    can free or move what an earlier graph replays.  The graphs replay in
+    turn on one stream, so they can share it, as eager launches in turn
+    share the per-stream one."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.work = self.tickets = None
+        self.frozen = False
+
+    def get(self, work_len: int, tiles: int):
+        grow_work = self.work is None or self.work.numel() < work_len
+        grow_tickets = self.tickets is None or self.tickets.numel() < tiles
+        if (grow_work or grow_tickets) and self.frozen:
+            raise RuntimeError(
+                f"the graphs' split-K workspace is frozen; a launch needs "
+                f"{work_len} partials and {tiles} tickets: warm every "
+                f"graph's body up before the first capture")
+        if grow_work:
+            self.work = torch.empty(max(work_len, 1), dtype=torch.int32,
+                                    device=self.device)
+        if grow_tickets:     # zeroed once: every launch leaves them at 0
+            self.tickets = torch.zeros(tiles, dtype=torch.int32,
+                                       device=self.device)
+        return self.work, self.tickets
+
+
+_scope: list = []
+
+
+@contextlib.contextmanager
+def workspace_scope(ws: Workspace):
+    """Launch the tensor-core K2 with ``ws`` as its split-K workspace for
+    the duration of the block."""
+    _scope.append(ws)
+    try:
+        yield ws
+    finally:
+        _scope.pop()
+
+
 def _workspace(device: torch.device, stream: int, work_len: int,
                tiles: int):
+    if _scope:
+        ws = _scope[-1]
+        if ws.device != device:
+            raise ValueError(f"the scoped workspace is on {ws.device}, the "
+                             f"launch on {device}")
+        return ws.get(work_len, tiles)
     key = (device.index, stream)
     work, tickets = _workspaces.get(key, (None, None))
     if work is None or work.numel() < work_len:

@@ -1,20 +1,30 @@
 """Serving step factories (counterpart of the serving half of
-``repro/launch/steps.py``): ``decode_step`` and ``prefill_chunk_step``.
+``repro/launch/steps.py``): ``decode_step`` and ``prefill_chunk_step``,
+run op by op (:func:`make_decode_step`, :func:`make_prefill_chunk_step`)
+or over static device buffers replayed as CUDA graphs
+(:func:`graphed_serving_steps`, the counterpart of the reference's
+``jitted_serving_steps``).
 
 Both run the deployed packed path (quant_mode 'packed' when the config
 quantizes).  Where the reference jits them with ``donate_argnums=(1,)``, the
 port writes K/V into the preallocated cache tensors in place: the returned
 caches are the same tensors that came in.  Host-side inputs (numpy token
 windows, slot offsets, valid counts, block tables) move to the card once
-per step, and the write indices -- ragged slots, or with a block table
-(physical page, row) per token -- are worked out on the host, so a step
-queues its kernels without waiting on the card.
+per step; the positions and the window's destination rows
+(``attention.window``) are worked out on the card, in fixed shapes, so a
+step never waits on the card and a graph can capture it.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
+from repro_torch.kernels import (cache_write, quant_pack, ulppack_attention,
+                                 ulppack_matmul)
+from repro_torch.kernels import plan as plan_lib
 from repro_torch.models import attention, lm
 
 
@@ -25,32 +35,46 @@ def quant_mode_for(cfg, kind: str) -> str:
             "decode": "packed"}[kind]
 
 
-def _window(params, caches, batch, index, valid, width, block_tables=None):
-    """Device tensors for one [B, width] window: tokens, positions, offsets,
-    valid counts, the write indices (worked out on the host) and the
-    block table (None for contiguous caches)."""
-    dev = params["embed"]["table"].device
-    tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64)
-    b = tokens.shape[0]
-    idx = torch.as_tensor(index, dtype=torch.int32).cpu()
-    idx = idx.expand(b) if idx.dim() == 0 else idx
-    pos = idx[:, None] + torch.arange(width, dtype=torch.int32)
-    vld = None if valid is None else torch.as_tensor(valid).cpu()
-    k0 = caches[0]["attn"]["k"]
-    if block_tables is None:
-        idx, vld, write = attention.ragged_window(idx, vld, b, width,
-                                                  k0.shape[1], dev)
-        bt = None
-    else:
-        idx, vld, write, bt = attention.paged_window(
-            idx, vld, torch.as_tensor(block_tables).cpu(), b, width,
-            k0.shape[1], k0.shape[0], dev)
-    return ({"tokens": tokens.to(dev), "positions": pos.to(dev)}, idx, vld,
-            write, bt)
+def _inputs(batch, index, valid, block_tables, dev):
+    """Device tensors of one window's inputs: tokens [B, w] int64, offsets
+    [B] int32 (a scalar ``index`` is shared by every row), valid counts [B]
+    int32 (None: the whole window) and the block table (or None)."""
+    tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64).to(dev)
+    b, w = tokens.shape
+    idx = torch.as_tensor(index, dtype=torch.int32)
+    idx = (idx.expand(b) if idx.dim() == 0 else idx).to(dev)
+    vld = (torch.full((b,), w, dtype=torch.int32) if valid is None
+           else torch.as_tensor(valid, dtype=torch.int32)).to(dev)
+    bt = (None if block_tables is None
+          else torch.as_tensor(block_tables, dtype=torch.int32).to(dev))
+    return tokens, idx, vld, bt
+
+
+def _forward(cfg, qmode, backend, params, caches, tokens, idx, vld, bt):
+    """The body of both steps on device tensors: positions and destination
+    rows on the device, then the forward; returns logits [B, w, vocab]."""
+    b, w = tokens.shape
+    pos = idx[:, None] + torch.arange(w, dtype=torch.int32,
+                                      device=tokens.device)
+    _, _, dest, _ = attention.window(idx, vld, bt, b, w,
+                                     caches[0]["attn"]["k"].shape,
+                                     tokens.device)
+    logits, _, _ = lm.forward(
+        params, cfg, {"tokens": tokens, "positions": pos}, quant_mode=qmode,
+        caches=caches, cache_index=idx, cache_valid=vld, dest=dest,
+        block_tables=bt, backend=backend)
+    return logits
+
+
+def _last_valid(logits, vld):
+    """Each row's logits at its last valid token (row 0 for a dead row)."""
+    last = torch.clamp(vld.to(torch.int64) - 1, 0, logits.shape[1] - 1)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return logits[rows, last]
 
 
 def make_decode_step(cfg, *, backend: str = "auto"):
-    """Single-token ragged decode step.
+    """Single-token ragged decode step, run op by op.
 
     ``index`` [B] (or a scalar) is each slot's position; ``valid`` [B] is 1
     for a live slot and 0 for a dead one (no cache write, output ignored);
@@ -60,19 +84,17 @@ def make_decode_step(cfg, *, backend: str = "auto"):
 
     def decode_step(params, caches, batch, index, valid=None,
                     block_tables=None):
-        dec, idx, vld, write, bt = _window(params, caches, batch, index,
-                                           valid, 1, block_tables)
-        logits, _, caches = lm.forward(
-            params, cfg, dec, quant_mode=qmode, caches=caches,
-            cache_index=idx, cache_valid=vld, write=write, block_tables=bt,
-            backend=backend)
+        dev = params["embed"]["table"].device
+        logits = _forward(cfg, qmode, backend, params, caches,
+                          *_inputs(batch, index, valid, block_tables, dev))
         return logits[:, -1], caches
 
     return decode_step
 
 
 def make_prefill_chunk_step(cfg, *, backend: str = "auto"):
-    """Chunked-prefill step over a [B, chunk] token window per slot.
+    """Chunked-prefill step over a [B, chunk] token window per slot, run op
+    by op.
 
     ``index`` [B] is each slot's write offset; ``valid`` [B] how many of
     the window's tokens are real (1 lets a decode-phase slot ride along
@@ -83,15 +105,220 @@ def make_prefill_chunk_step(cfg, *, backend: str = "auto"):
 
     def prefill_chunk_step(params, caches, batch, index, valid,
                            block_tables=None):
-        c = torch.as_tensor(batch["tokens"]).shape[1]
-        dec, idx, vld, write, bt = _window(params, caches, batch, index,
-                                           valid, c, block_tables)
-        logits, _, caches = lm.forward(
-            params, cfg, dec, quant_mode=qmode, caches=caches,
-            cache_index=idx, cache_valid=vld, write=write, block_tables=bt,
-            backend=backend)
-        last = torch.clamp(vld.to(torch.int64) - 1, 0, c - 1)
-        rows = torch.arange(logits.shape[0], device=logits.device)
-        return logits[rows, last], caches
+        dev = params["embed"]["table"].device
+        inputs = _inputs(batch, index, valid, block_tables, dev)
+        logits = _forward(cfg, qmode, backend, params, caches, *inputs)
+        return _last_valid(logits, inputs[2]), caches
 
     return prefill_chunk_step
+
+
+# ---------------------------------------------------------------------------
+# Static-buffer steps, captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: The launch and call counters of the kernel wrappers a step can reach.
+_COUNTED = (quant_pack, ulppack_matmul, ulppack_attention, cache_write)
+_COUNTERS = ("kernel_launches", "plain_calls", "mma_launches")
+
+
+def _counts() -> dict:
+    """A copy of every counter of the kernel wrappers."""
+    out = {}
+    for mod in _COUNTED:
+        for name in _COUNTERS:
+            val = getattr(mod, name, None)
+            if val is not None:
+                out[mod, name] = dict(val) if isinstance(val, dict) else val
+    return out
+
+
+def _count_delta(before: dict, after: dict) -> dict:
+    out = {}
+    for key, val in after.items():
+        was = before[key]
+        out[key] = ({k: v - was[k] for k, v in val.items()}
+                    if isinstance(val, dict) else val - was)
+    return out
+
+
+def _add_counts(delta: dict, sign: int = 1):
+    """Add ``sign`` x ``delta`` to the wrappers' counters, in place."""
+    for (mod, name), val in delta.items():
+        cur = getattr(mod, name)
+        if isinstance(cur, dict):
+            for k, v in val.items():
+                cur[k] += sign * v
+        else:
+            setattr(mod, name, cur + sign * val)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _ptrs(tree) -> list:
+    return [t.data_ptr() for t in _leaves(tree)]
+
+
+class StaticStep:
+    """One serving step (decode, or a prefill chunk of ``width`` tokens)
+    over static device buffers: tokens [B, width] int64, offsets and valid
+    counts [B] int32, and with ``block_table_width`` the block table [B,
+    block_table_width] int32.
+
+    A call copies its numpy inputs into the buffers (on the card through
+    pinned host staging, ``non_blocking``), runs the step and returns
+    (logits of each row's last valid token [B, vocab], caches).  Once
+    :meth:`capture` has run (CUDA), the step is a graph replay and the
+    logits are the graph's static output tensor, overwritten by the next
+    call: read them before calling again.  On the CPU the same body runs
+    eagerly on the buffers.  The step refuses ``params`` / ``caches``
+    other than the tensors it was built over (their ``data_ptr()``s)."""
+
+    def __init__(self, cfg, params, caches, *, kind: str, batch: int,
+                 width: int, block_table_width: int | None = None,
+                 backend="auto"):
+        self.kind = kind
+        self._body = (cfg, quant_mode_for(cfg, kind), backend)
+        self._params, self._caches = params, caches
+        self._param_ptrs, self._cache_ptrs = _ptrs(params), _ptrs(caches)
+        dev = self.device = params["embed"]["table"].device
+        self.width = width
+        self.buffers = {
+            "tokens": torch.zeros((batch, width), dtype=torch.int64,
+                                  device=dev),
+            "index": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "valid": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        if block_table_width is not None:
+            self.buffers["block_tables"] = torch.zeros(
+                (batch, block_table_width), dtype=torch.int32, device=dev)
+        self._staging = self.buffers
+        self._copied = None
+        if dev.type == "cuda":
+            self._staging = {k: torch.empty(v.shape, dtype=v.dtype,
+                                            pin_memory=True)
+                             for k, v in self.buffers.items()}
+            self._copied = torch.cuda.Event()
+        self.graph = None
+        self.logits = None
+        self.workspace = None         # K2's, owned with the graphs
+        self.launches: dict = {}      # counters a replay adds
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def run(self):
+        """The step's body on the static buffers (eager)."""
+        cfg, qmode, backend = self._body
+        b = self.buffers
+        logits = _forward(cfg, qmode, backend, self._params, self._caches,
+                          b["tokens"], b["index"], b["valid"],
+                          b.get("block_tables"))
+        return _last_valid(logits, b["valid"])
+
+    def capture(self):
+        """Capture :meth:`run` into a CUDA graph (its kernels must have run
+        once, outside any capture, on these buffers).  The buffers are left
+        with every row dead (valid 0), as warm-up ran them.  Counts the
+        launches the graph holds; each replay adds them to the wrappers'
+        counters.  Raises when the capture fails."""
+        for buf in self.buffers.values():
+            buf.zero_()
+        torch.cuda.synchronize(self.device)
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            logits = self.run()
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.launches = _count_delta(before, _counts())
+        _add_counts(self.launches, -1)     # captured, not run
+        self.graph, self.logits = graph, logits
+
+    def _check(self, params, caches):
+        if params is not self._params and _ptrs(params) != self._param_ptrs:
+            raise ValueError(f"{self.kind} step: params are not the tensors "
+                             f"the step was built over")
+        if _ptrs(caches) != self._cache_ptrs:
+            raise ValueError(f"{self.kind} step: caches are not the tensors "
+                             f"the step was built over")
+
+    def _stage(self, batch, index, valid, block_tables):
+        tokens = np.asarray(batch["tokens"])
+        want = tuple(self.buffers["tokens"].shape)
+        if tokens.shape != want:
+            raise ValueError(f"{self.kind} step: tokens {tokens.shape}, the "
+                             f"step's window is {want}")
+        if (block_tables is None) != ("block_tables" not in self.buffers):
+            raise ValueError(f"{self.kind} step: block_tables must be given "
+                             f"exactly when the caches are paged")
+        if self._copied is not None:
+            self._copied.synchronize()      # the last copies read staging
+        host = {k: v.numpy() for k, v in self._staging.items()}
+        host["tokens"][...] = tokens
+        host["index"][...] = index
+        host["valid"][...] = self.width if valid is None else valid
+        if block_tables is not None:
+            host["block_tables"][...] = block_tables
+        if self._copied is not None:
+            for k, buf in self.buffers.items():
+                buf.copy_(self._staging[k], non_blocking=True)
+            self._copied.record()
+
+    def __call__(self, params, caches, batch, index, valid=None,
+                 block_tables=None):
+        self._check(params, caches)
+        self._stage(batch, index, valid, block_tables)
+        if self.graph is None:
+            return self.run(), caches
+        self.graph.replay()
+        self.replays += 1
+        _add_counts(self.launches)
+        return self.logits, caches
+
+
+def graphed_serving_steps(cfg, params, caches, *, batch: int,
+                          prefill_chunk: int,
+                          block_table_width: int | None = None,
+                          backend: str = "auto"):
+    """``(decode_step, prefill_chunk_step)`` over static buffers for
+    ``batch`` slots, bound to ``params`` and ``caches`` (paged pools when
+    ``block_table_width`` is given), with the eager steps' call signature.
+
+    On a CUDA device with the kernels (backend 'auto' or 'cuda'), each body
+    is warmed up with every row dead -- no cache write, the attention
+    kernels return zeros -- so every lazy step (library builds, shared-
+    memory attributes, plans, the split-K workspace, which the pair owns)
+    happens outside capture; then both are captured as CUDA graphs, the
+    decode step first.  A failed capture raises.  On the CPU, or when the
+    caller asked for the plain versions (backend 'torch', which holds
+    host syncs), the same objects run their bodies eagerly."""
+    kw = dict(batch=batch, block_table_width=block_table_width,
+              backend=backend)
+    dec = StaticStep(cfg, params, caches, kind="decode", width=1, **kw)
+    pre = StaticStep(cfg, params, caches, kind="prefill_chunk",
+                     width=prefill_chunk, **kw)
+    dev = dec.device
+    if plan_lib.resolve_backend(backend, dev) != "cuda":
+        return dec, pre
+    ws = ulppack_matmul.Workspace(dev)
+    dec.workspace = pre.workspace = ws      # the graphs replay its pointers
+    with ulppack_matmul.workspace_scope(ws):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for step in (dec, pre, dec, pre):
+                step.run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        ws.frozen = True
+        dec.capture()
+        pre.capture()
+    return dec, pre

@@ -8,9 +8,11 @@ along head_dim with the same scale planes (4 / 2).
 
 Writes happen in place: each layer's cache tensors are allocated once
 (:func:`init_kv_cache`, or :func:`init_paged_kv_cache` for a page pool read
-through block tables) and updated with ``index_put_`` -- the counterpart
-of the reference's donated cache buffers.  Every read goes through the
-fused flash-decoding kernels (kernels/ulppack_attention.py: K3 over a
+through block tables) and written through fixed-shape destination rows
+(:func:`cache_write`, the predicated row scatter of
+kernels/cache_write.py) -- the counterpart of the reference's donated
+cache buffers, and capturable in a CUDA graph.  Every read goes through
+the fused flash-decoding kernels (kernels/ulppack_attention.py: K3 over a
 contiguous cache, K4 over a paged one), for decode steps, chunked-prefill
 windows and cache-free forwards alike.
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
+from repro_torch.kernels import cache_write as cache_write_lib
 from repro_torch.kernels import ulppack_attention
 from repro_torch.models import common
 from repro_torch.models.common import dense_apply, dense_init
@@ -133,119 +136,93 @@ def kv_quantize(x: torch.Tensor, bits: int = 8):
             scale.to(torch.bfloat16))
 
 
-def ragged_write_indices(cache_index: torch.Tensor, cache_valid: torch.Tensor,
-                         sq: int, size: int):
-    """(row, token, slot) index tensors of a ragged window write: token j of
-    row b lands at slot ``cache_index[b] + j`` when ``j < cache_valid[b]``
-    and the slot lies inside the cache; every other token is dropped, as
-    the reference's ``mode='drop'`` scatter drops it.  Computed on the
-    indices' own device (the serving steps pass host tensors, so the
-    ``nonzero`` never waits on the card)."""
-    offs = torch.arange(sq, dtype=torch.int32, device=cache_index.device)
-    wpos = cache_index[:, None] + offs[None, :]
+def ragged_dest_rows(cache_index: torch.Tensor, cache_valid: torch.Tensor,
+                     sq: int, size: int) -> torch.Tensor:
+    """[B * sq] int64 destination rows of a ragged window write into a
+    contiguous cache of ``size`` slots a row: token j of row b lands at flat
+    row ``b * size + cache_index[b] + j`` when ``j < cache_valid[b]`` and
+    the slot lies inside the cache; every other token gets -1 and is
+    dropped, as the reference's ``mode='drop'`` scatter drops it.  Fixed
+    shape, computed on the offsets' device (no host sync), so a CUDA graph
+    can capture it."""
+    dev = cache_index.device
+    offs = torch.arange(sq, dtype=torch.int64, device=dev)
+    wpos = cache_index[:, None].to(torch.int64) + offs[None, :]
     keep = (offs[None, :] < cache_valid[:, None]) & (wpos < size) & (wpos >= 0)
-    bi, ti = keep.nonzero(as_tuple=True)
-    return bi, ti, wpos[bi, ti].to(torch.int64)
+    rows = torch.arange(cache_index.shape[0], dtype=torch.int64,
+                        device=dev)[:, None] * size + wpos
+    return torch.where(keep, rows, -1).reshape(-1)
 
 
-def _offsets(cache_index, cache_valid, b: int, sq: int):
-    """Per-row write offsets [B] and valid counts [B] of a [B, sq] window,
-    where ``cache_index`` lives: a scalar offset is shared by every row,
-    and ``cache_valid=None`` means every token is valid."""
-    idx = torch.as_tensor(cache_index, dtype=torch.int32)
+def paged_dest_rows(cache_index: torch.Tensor, cache_valid: torch.Tensor,
+                    block_tables: torch.Tensor, sq: int, page_size: int,
+                    num_pages: int) -> torch.Tensor:
+    """[B * sq] int64 destination rows of a block-table write: token j of
+    row b is at logical position ``p = cache_index[b] + j`` and lands at
+    flat pool row ``page * page_size + p % page_size`` of physical page
+    ``page = block_tables[b, p // page_size]`` (the page index clipped to
+    the table, as the reference clips it).  Tokens with ``j >=
+    cache_valid[b]``, and table entries outside the pool, get -1 and are
+    dropped, as the reference's ``mode='drop'`` scatter drops them.  Fixed
+    shape, computed on the offsets' device."""
+    bt = block_tables.to(torch.int64)
+    offs = torch.arange(sq, dtype=torch.int64, device=cache_index.device)
+    pos = cache_index[:, None].to(torch.int64) + offs[None, :]
+    pages = torch.gather(bt, 1, torch.clamp(pos // page_size, 0,
+                                            bt.shape[1] - 1))
+    keep = (offs[None, :] < cache_valid[:, None]) & (pages >= 0) \
+        & (pages < num_pages)
+    return torch.where(keep, pages * page_size + pos % page_size,
+                       -1).reshape(-1)
+
+
+def window(cache_index, cache_valid, block_tables, b: int, sq: int,
+           cache_shape, device):
+    """Per-row write offsets [B] int32, valid counts [B] int32, the
+    destination rows [B * sq] int64 of a [B, sq] window and the block
+    table (int32, or None for a contiguous cache), all on ``device``.  A
+    scalar ``cache_index`` is shared by every row; ``cache_valid=None``
+    means every token is valid.  ``cache_shape`` is a cache leaf's shape
+    ([B, S, ...], or [P, page_size, ...] with a block table)."""
+    idx = torch.as_tensor(cache_index, dtype=torch.int32, device=device)
     if idx.dim() == 0:
         idx = idx.expand(b)
-    vlen = (torch.full((b,), sq, dtype=torch.int32, device=idx.device)
+    vlen = (torch.full((b,), sq, dtype=torch.int32, device=device)
             if cache_valid is None
             else torch.as_tensor(cache_valid, dtype=torch.int32,
-                                 device=idx.device))
-    return idx, vlen
+                                 device=device))
+    if block_tables is None:
+        return idx, vlen, ragged_dest_rows(idx, vlen, sq, cache_shape[1]), None
+    bt = torch.as_tensor(block_tables, dtype=torch.int32, device=device)
+    dest = paged_dest_rows(idx, vlen, bt, sq, cache_shape[1], cache_shape[0])
+    return idx, vlen, dest, bt
 
 
-def ragged_window(cache_index, cache_valid, b: int, sq: int, size: int,
-                  device):
-    """Per-row write offsets [B], valid counts [B] and the ragged write
-    indices of a [B, sq] window, all on ``device``.  The indices are worked
-    out where ``cache_index`` lives, so host-side offsets (the serving
-    steps') cost the card no wait."""
-    idx, vlen = _offsets(cache_index, cache_valid, b, sq)
-    write = ragged_write_indices(idx, vlen, sq, size)
-    return (idx.to(device), vlen.to(device),
-            tuple(t.to(device) for t in write))
-
-
-def paged_write_indices(cache_index: torch.Tensor, cache_valid: torch.Tensor,
-                        block_tables: torch.Tensor, sq: int, page_size: int,
-                        num_pages: int):
-    """(row, token, page, page-row) index tensors of a block-table write:
-    token j of row b is at logical position ``p = cache_index[b] + j`` and
-    lands at physical page ``block_tables[b, p // page_size]`` (the page
-    index clipped to the table, as the reference clips it), row
-    ``p % page_size``.  Tokens with ``j >= cache_valid[b]`` are dropped, as
-    the reference's ``mode='drop'`` scatter drops them, and so are table
-    entries outside the pool."""
-    bt = torch.as_tensor(block_tables, dtype=torch.int64,
-                         device=cache_index.device)
-    offs = torch.arange(sq, dtype=torch.int64, device=cache_index.device)
-    wpos = cache_index[:, None].to(torch.int64) + offs[None, :]
-    keep = offs[None, :] < cache_valid[:, None]
-    bi, ti = keep.nonzero(as_tuple=True)
-    pos = wpos[bi, ti]
-    pages = bt[bi, torch.clamp(pos // page_size, 0, bt.shape[1] - 1)]
-    inside = (pages >= 0) & (pages < num_pages)
-    return (bi[inside], ti[inside], pages[inside],
-            (pos % page_size)[inside])
-
-
-def paged_window(cache_index, cache_valid, block_tables, b: int, sq: int,
-                 page_size: int, num_pages: int, device):
-    """As :func:`ragged_window` for a paged pool: offsets [B], valid counts
-    [B], the block-table write indices (worked out where ``cache_index``
-    lives) and the block table, all on ``device``."""
-    idx, vlen = _offsets(cache_index, cache_valid, b, sq)
-    bt = torch.as_tensor(block_tables, dtype=torch.int32)
-    write = paged_write_indices(idx, vlen, bt, sq, page_size, num_pages)
-    return (idx.to(device), vlen.to(device),
-            tuple(t.to(device) for t in write), bt.to(device))
-
-
-def _store(cache, index, kk, vv, kv_bits):
-    """Quantize (and for sub-byte ``kv_bits`` word-pack) the token rows
-    ``kk`` / ``vv`` when the cache is quantized, then put them at
-    ``index`` in every leaf, in place."""
+def cache_write(cache, k, v, dest, kv_bits=0, *, backend="auto"):
+    """In-place window write of [B, s, KVH, hd] float K/V through ``dest``
+    (:func:`ragged_dest_rows` or :func:`paged_dest_rows`): the whole window
+    is quantized -- and for sub-byte ``kv_bits`` word-packed -- per token
+    row when the cache is quantized, then every kept token's row is put at
+    its destination in every leaf (``kernels/cache_write.py``: the kernel
+    on the card, ``nonzero`` + ``index_put_`` on the CPU).  Quantization is
+    per row, so the stored words and scale planes equal the reference's
+    (``_cache_write_ragged`` / ``_cache_write_paged``) and, paged, the
+    unpaged layout's at the same positions."""
     if "k_scale" in cache:
-        qk, sk = kv_quantize(kk, kv_bits)
-        qv, sv = kv_quantize(vv, kv_bits)
+        qk, sk = kv_quantize(k, kv_bits)
+        qv, sv = kv_quantize(v, kv_bits)
         vals = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
     else:
-        vals = {"k": kk, "v": vv}
-    for name, val in vals.items():
-        buf = cache[name]
-        buf.index_put_(index, val.to(buf.dtype))
+        vals = {"k": k, "v": v}
+    leaves = [(cache[name].flatten(0, 1),
+               val.to(cache[name].dtype).flatten(0, 1))
+              for name, val in vals.items()]
+    cache_write_lib.cache_write(dest, leaves, backend=backend)
     return cache
 
 
-def cache_write_ragged(cache, k, v, write, kv_bits=0):
-    """In-place ragged write of [B, s, KVH, hd] float K/V through
-    ``write = (row, token, slot)`` (:func:`ragged_write_indices`),
-    quantizing -- and for sub-byte ``kv_bits`` word-packing -- first when
-    the cache is quantized."""
-    bi, ti, slots = write
-    return _store(cache, (bi, slots), k[bi, ti], v[bi, ti], kv_bits)
-
-
-def cache_write_paged(cache, k, v, write, kv_bits=0):
-    """In-place block-table write of [B, s, KVH, hd] float K/V through
-    ``write = (row, token, page, page-row)`` (:func:`paged_write_indices`):
-    the counterpart of the reference's ``_cache_write_paged``, quantized
-    per token row, so the stored words and scale planes equal the unpaged
-    layout's at the same positions."""
-    bi, ti, pages, rows = write
-    return _store(cache, (pages, rows), k[bi, ti], v[bi, ti], kv_bits)
-
-
 def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
-                    cache_index=None, cache_valid=None, write=None,
+                    cache_index=None, cache_valid=None, dest=None,
                     block_tables=None, backend="auto"):
     """Attention forward; returns (out, cache).
 
@@ -254,13 +231,12 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
         by every row): the window's K/V is written into the cache in place
         -- tokens past ``cache_valid[b]`` dropped -- and the query reads the
         stored cache with ``valid_len = cache_index + cache_valid``.
-        ``write`` may carry the window's precomputed indices; the offsets
-        and counts must then be device tensors (:func:`ragged_window`).
+        ``dest`` may carry the window's precomputed destination rows; the
+        offsets, counts and table must then be device tensors
+        (:func:`window`).
       * paged: ``block_tables`` [B, n_pages] int32 maps each row's logical
         page j to a physical page of a pool (:func:`init_paged_kv_cache`).
-        Writes land through the table (:func:`paged_window` /
-        :func:`cache_write_paged`; ``write`` then carries its four index
-        tensors and ``block_tables`` must be the device table) and the
+        Writes land through the table (:func:`paged_dest_rows`) and the
         read walks the pool through the table (K4), so the gathered view
         never materializes.
     """
@@ -292,18 +268,11 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                 "fake-quant prefill step) is still to be ported; pass "
                 "cache_index")
         kv_bits = cfg.quant.kv_bits
-        if block_tables is None:
-            if write is None:
-                cache_index, cache_valid, write = ragged_window(
-                    cache_index, cache_valid, b, sq, cache["k"].shape[1],
-                    x.device)
-            cache_write_ragged(cache, k, v, write, kv_bits)
-        else:
-            if write is None:
-                cache_index, cache_valid, write, block_tables = paged_window(
-                    cache_index, cache_valid, block_tables, b, sq,
-                    cache["k"].shape[1], cache["k"].shape[0], x.device)
-            cache_write_paged(cache, k, v, write, kv_bits)
+        if dest is None:
+            cache_index, cache_valid, dest, block_tables = window(
+                cache_index, cache_valid, block_tables, b, sq,
+                cache["k"].shape, x.device)
+        cache_write(cache, k, v, dest, kv_bits, backend=backend)
         valid_len = cache_index + cache_valid
         out = ulppack_attention.fused_decode_attention(
             q, cache, valid_len, positions, kv_bits=kv_bits, hd=hd,

@@ -52,7 +52,7 @@ def block_init(generator, cfg, i, *, dtype=torch.float32, device="cpu"):
 
 
 def block_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
-                cache_index=None, cache_valid=None, write=None,
+                cache_index=None, cache_valid=None, dest=None,
                 block_tables=None, backend="auto"):
     """One residual block.  Returns (x, cache)."""
     h = common.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
@@ -60,7 +60,7 @@ def block_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
     out, _ = attention.attention_apply(
         p["attn"], cfg, h, positions=positions, quant_mode=quant_mode,
         cache=sub, cache_index=cache_index, cache_valid=cache_valid,
-        write=write, block_tables=block_tables, backend=backend)
+        dest=dest, block_tables=block_tables, backend=backend)
     x = x + out
     if "mlp" in p:
         h = common.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
@@ -96,15 +96,14 @@ def init_params(cfg, generator: torch.Generator | None = None,
 
 
 def forward(params, cfg, batch, *, quant_mode="none", caches=None,
-            cache_index=None, cache_valid=None, write=None, block_tables=None,
+            cache_index=None, cache_valid=None, dest=None, block_tables=None,
             backend="auto"):
     """Full forward.  Returns (logits, aux_loss, caches).
 
     ``cache_index`` [B] (or a scalar) gives per-slot cache write offsets;
     ``cache_valid`` [B] the valid-prefix length of each row's window.  The
-    caches are updated in place.  ``write`` may carry the window's
-    precomputed indices (``attention.ragged_window``, or with
-    ``block_tables`` ``attention.paged_window``, with device-side offsets,
+    caches are updated in place.  ``dest`` may carry the window's
+    destination rows (``attention.window``, with device-side offsets,
     counts and table); otherwise they are computed once here.  With
     ``block_tables`` [B, n_pages] the caches are paged pools
     (``init_caches(..., page_size=, num_pages=)``).
@@ -118,24 +117,17 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None, :].expand(b, s)
-    if caches is not None and cache_index is not None and write is None:
-        # one set of write indices (and one host-to-device move) per step,
-        # shared by every layer
-        k0 = caches[0]["attn"]["k"]
-        if block_tables is None:
-            cache_index, cache_valid, write = attention.ragged_window(
-                cache_index, cache_valid, b, s, k0.shape[1], x.device)
-        else:
-            cache_index, cache_valid, write, block_tables = \
-                attention.paged_window(cache_index, cache_valid,
-                                       block_tables, b, s, k0.shape[1],
-                                       k0.shape[0], x.device)
+    if caches is not None and cache_index is not None and dest is None:
+        # one set of destination rows per step, shared by every layer
+        cache_index, cache_valid, dest, block_tables = attention.window(
+            cache_index, cache_valid, block_tables, b, s,
+            caches[0]["attn"]["k"].shape, x.device)
 
     for li, blk in enumerate(params["layers"]):
         x, _ = block_apply(
             blk, cfg, x, positions=positions, quant_mode=quant_mode,
             cache=caches[li] if caches is not None else None,
-            cache_index=cache_index, cache_valid=cache_valid, write=write,
+            cache_index=cache_index, cache_valid=cache_valid, dest=dest,
             block_tables=block_tables, backend=backend)
 
     x = common.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)

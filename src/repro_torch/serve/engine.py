@@ -7,8 +7,10 @@ as [B, chunk] windows, with decode-phase slots riding along on their single
 pending token; live slots then decode lockstep-free, each at its own
 position.  Sampling (greedy / temperature / top-k) is per slot, from a numpy
 Generator keyed on (seed, uid), so it is identical to the reference
-engine's.  Both steps run the packed integer kernels on the card; the KV
-cache is updated in place.
+engine's.  Both steps run the packed integer kernels on the card, each
+replayed as a CUDA graph captured at construction over static buffers
+(``launch/steps.graphed_serving_steps``, the counterpart of the
+reference's ``jitted_serving_steps``); the KV cache is updated in place.
 
 With ``EngineConfig(paged=True)`` the slot-contiguous KV cache becomes a
 refcounted page pool behind per-slot block tables (serve/pages.py):
@@ -198,9 +200,6 @@ class ServingEngine:
         self.plans = build_layer_plans(
             self.params, run_cfg, batch_rows=max_batch,
             prefill_rows=max_batch * self.prefill_chunk, backend=backend)
-        self._decode = steps_lib.make_decode_step(run_cfg, backend=backend)
-        self._prefill = steps_lib.make_prefill_chunk_step(run_cfg,
-                                                          backend=backend)
         self._queue: deque[Request] = deque()
         if self.paged:
             self.caches = lm.init_caches(
@@ -218,6 +217,17 @@ class ServingEngine:
             self.caches = lm.init_caches(cfg, max_batch, self.max_len,
                                          dtype=torch.bfloat16,
                                          device=self.device)
+        # the steps over static buffers, bound to these params and caches
+        # (which stay at their addresses: copy-on-write, copy_page and
+        # import_paged_state write into them in place); on the card both
+        # are warmed up and captured as CUDA graphs here
+        t0 = time.perf_counter()
+        self._decode, self._prefill = steps_lib.graphed_serving_steps(
+            run_cfg, self.params, self.caches, batch=max_batch,
+            prefill_chunk=self.prefill_chunk,
+            block_table_width=self.pages_per_slot if self.paged else None,
+            backend=backend)
+        self.step_setup_s = time.perf_counter() - t0
         self.slot_req: list = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int32)   # tokens in cache
         self.slot_fed = np.zeros(max_batch, np.int32)   # prompt consumed
@@ -517,6 +527,10 @@ class ServingEngine:
             "slots": self.max_batch,
             "param_bytes": serving_param_bytes(self.params),
             "paged": self.paged,
+            # the steps' warm-up and CUDA-graph capture at __init__ (host
+            # clock; on the CPU only the static buffers are made)
+            "step_graphs": self._decode.graph is not None,
+            "step_setup_s": self.step_setup_s,
         }
         if self.paged:
             rep.update(

@@ -128,10 +128,10 @@ def test_ragged_writes_byte_equal(kv_bits):
             jc, jnp.asarray(k), jnp.asarray(v),
             jnp.asarray(idx[:, None] + offs[None, :]),
             jnp.asarray(offs[None, :] < vlen[:, None]), kv_bits)
-        write = tattention.ragged_write_indices(
+        dest = tattention.ragged_dest_rows(
             torch.from_numpy(idx), torch.from_numpy(vlen), sq, S)
-        tattention.cache_write_ragged(tc, torch.from_numpy(k),
-                                      torch.from_numpy(v), write, kv_bits)
+        tattention.cache_write(tc, torch.from_numpy(k), torch.from_numpy(v),
+                               dest, kv_bits)
     for name in jc:
         want = np.array(jc[name])
         got = tc[name]

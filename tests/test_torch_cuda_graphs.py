@@ -1,0 +1,272 @@
+"""The compiled serving steps on the card: ``csrc/cache_write.cu`` against
+its plain twin, and the decode / prefill-chunk steps captured as CUDA
+graphs (``launch/steps.graphed_serving_steps``) against the op-by-op
+steps.  Marked ``cuda``: every test skips (inside the ``hopper`` fixture,
+never at import) unless a CUDA device of capability (9, 0) or newer is
+present.  Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_graphs.py
+
+Everything is compared bit for bit: a replay runs the kernels the eager
+step launches, on the same inputs.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.core.quant import QuantConfig  # noqa: E402
+from repro_torch.kernels import cache_write, ulppack_attention  # noqa: E402
+from repro_torch.kernels import ulppack_matmul  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import attention, lm  # noqa: E402
+from repro_torch.serve import engine as engine_lib  # noqa: E402
+from repro_torch.serve import prepare  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+B, SQ, S, H, KVH = 3, 8, 24, 4, 2
+PS, NP = 8, 3
+P = B * NP + 3
+RAGGED = (([0, 0, 5], [8, 3, 0]), ([8, S - 2, 0], [1, 8, 1]),
+          ([S + 1, 3, 20], [8, 0, 8]))
+PAGED = (([0, 0, 0], [8, 3, 0]), ([8, 3, 0], [1, 8, 0]),
+         ([NP * PS - 3, 11, 0], [6, 8, 0]))
+CHUNK, MAX_LEN = 8, 32
+
+
+@pytest.fixture
+def hopper():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    if torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    return torch.device("cuda")
+
+
+def _cfg(kv_bits=4, **kw):
+    c = configs.get_config("stablelm-1.6b", reduced=True)
+    return c.replace(quant=QuantConfig(enabled=True, w_bits=2, a_bits=2,
+                                       kv_bits=kv_bits), **kw)
+
+
+def _same(a, b):
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4, 2])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cache_write_bit_equal(hopper, kv_bits, paged):
+    """Every window of the CPU test's cases, written by the kernel and by
+    its plain twin on the same device: the same bytes, one launch a
+    window, page 0 and the unmapped pages untouched."""
+    cfg = _cfg(kv_bits, num_heads=H, num_kv_heads=KVH)
+    make = ((lambda: attention.init_paged_kv_cache(cfg, P, PS,
+                                                   device=hopper))
+            if paged else (lambda: attention.init_kv_cache(cfg, B, S,
+                                                           device=hopper)))
+    got, want = make(), make()
+    rng = np.random.default_rng(kv_bits)
+    bt = np.zeros((B, NP), np.int32)
+    bt[:2] = (1 + rng.permutation(P - 3)[:2 * NP]).reshape(2, NP)
+    tbt = torch.from_numpy(bt).to(hopper)
+    hd = cfg.resolved_head_dim
+    cache_write.reset_counts()
+    for idx, vlen in (PAGED if paged else RAGGED):
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (B, SQ, KVH, hd)).astype(np.float32)).to(hopper)
+            for _ in range(2))
+        ti = torch.tensor(idx, dtype=torch.int32, device=hopper)
+        tv = torch.tensor(vlen, dtype=torch.int32, device=hopper)
+        dest = (attention.paged_dest_rows(ti, tv, tbt, SQ, PS, P) if paged
+                else attention.ragged_dest_rows(ti, tv, SQ, S))
+        attention.cache_write(got, k, v, dest, kv_bits, backend="cuda")
+        attention.cache_write(want, k, v, dest, kv_bits, backend="torch")
+    torch.cuda.synchronize()
+    assert cache_write.kernel_launches["cache_write"] == 3
+    for name in want:
+        assert _same(got[name], want[name]), name
+    if paged:
+        assert not got["k"][0].any() and not got["k"][P - 2:].any()
+
+
+@pytest.mark.parametrize("unit_rows", [1, 2, 3, 512])
+def test_cache_write_last_writer_and_units(hopper, unit_rows):
+    """Shared destinations (the later token wins), out-of-range rows and
+    rows of 2 to 1,024 bytes, against the twin."""
+    g = torch.Generator(device=hopper).manual_seed(unit_rows)
+    dest = torch.tensor([3, 1, 3, -1, 9, 1, 7, 0], dtype=torch.int64,
+                        device=hopper)
+    leaves = [(torch.zeros((8, unit_rows), dtype=dt, device=hopper),
+               torch.randint(-99, 99, (8, unit_rows), generator=g,
+                             device=hopper).to(dt))
+              for dt in (torch.int16, torch.int32, torch.int8,
+                         torch.bfloat16)]
+    twin = [(d.clone(), s) for d, s in leaves]
+    cache_write.cache_write_cuda(dest, leaves)
+    cache_write.cache_write_torch(dest, twin)
+    for (a, _), (b, _) in zip(leaves, twin):
+        assert _same(a, b)
+
+
+def _schedule(rng):
+    tok = lambda w: rng.integers(0, 512, (B, w)).astype(np.int32)  # noqa
+    out = [("prefill", tok(CHUNK), [0, 0, 0], [CHUNK, 5, 0]),
+           ("prefill", tok(CHUNK), [CHUNK, 5, 0], [1, CHUNK, 0])]
+    pos = np.array([CHUNK + 1, 5 + CHUNK, 0])
+    for _ in range(4):
+        out.append(("decode", tok(1), pos.copy(), [1, 1, 0]))
+        pos[:2] += 1
+    return out
+
+
+def _pair(cfg, dev, paged, batch=B, chunk=CHUNK, seed=0):
+    params = prepare.prepare_serving_params(
+        lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       device=dev), cfg, device=dev)
+    kw = dict(page_size=PS, num_pages=P) if paged else {}
+
+    def make():
+        return lm.init_caches(cfg, batch, MAX_LEN, device=dev, **kw)
+
+    eager_c, graph_c = make(), make()
+    pair = steps.graphed_serving_steps(
+        cfg, params, graph_c, batch=batch, prefill_chunk=chunk,
+        block_table_width=MAX_LEN // PS if paged else None)
+    return params, eager_c, graph_c, pair
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_graphed_steps_equal_eager(hopper, paged):
+    cfg = _cfg(4)
+    params, eager_c, graph_c, (dec, pre) = _pair(cfg, hopper, paged)
+    assert dec.graph is not None and pre.graph is not None
+    eager = {"decode": steps.make_decode_step(cfg),
+             "prefill": steps.make_prefill_chunk_step(cfg)}
+    graphed = {"decode": dec, "prefill": pre}
+    bt = None
+    if paged:
+        bt = np.zeros((B, MAX_LEN // PS), np.int32)
+        bt[:2] = 1 + np.random.default_rng(1).permutation(
+            P - 1)[:2 * bt.shape[1]].reshape(2, -1)
+    extra = () if bt is None else (bt,)
+    ptrs = {(s.kind, k): v.data_ptr() for s in (dec, pre)
+            for k, v in s.buffers.items()}
+    outs = {s.kind: s.logits.data_ptr() for s in (dec, pre)}
+    cache_ptrs = steps._ptrs(graph_c)
+    for kind, tok, idx, vld in _schedule(np.random.default_rng(5)):
+        args = ({"tokens": tok}, np.asarray(idx, np.int32),
+                np.asarray(vld, np.int32), *extra)
+        want, _ = eager[kind](params, eager_c, *args)
+        got, _ = graphed[kind](params, graph_c, *args)
+        assert torch.equal(got, want), kind
+    torch.cuda.synchronize()
+    for a, b in zip(eager_c, graph_c):
+        for name in a["attn"]:
+            assert _same(a["attn"][name], b["attn"][name]), name
+    assert {(s.kind, k): v.data_ptr() for s in (dec, pre)
+            for k, v in s.buffers.items()} == ptrs
+    assert {s.kind: s.logits.data_ptr() for s in (dec, pre)} == outs
+    assert steps._ptrs(graph_c) == cache_ptrs
+    assert (dec.replays, pre.replays) == (4, 2)
+    if paged:
+        assert not graph_c[0]["attn"]["k"][0].any()
+
+
+def test_replays_count_their_launches(hopper):
+    """Each replay adds the graph's launches: per decode pass one fused K2
+    a packed linear, one attention kernel and one cache write a layer."""
+    cfg = _cfg(4)
+    params, _, graph_c, (dec, _) = _pair(cfg, hopper, False)
+    for mod in (ulppack_matmul, ulppack_attention, cache_write):
+        mod.reset_counts()
+    one = np.ones(B, np.int32)
+    for i in range(3):
+        dec(params, graph_c, {"tokens": np.ones((B, 1), np.int32)},
+            np.full(B, i, np.int32), one)
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    assert ulppack_matmul.mma_launches["quant_affine"] == 3 * 7 * n
+    assert ulppack_attention.kernel_launches["attention_decode"] == 3 * n
+    assert cache_write.kernel_launches["cache_write"] == 3 * n
+    assert not any(ulppack_attention.plain_calls.values())
+    assert not cache_write.plain_calls["cache_write"]
+
+
+def test_later_capture_cannot_move_the_workspace(hopper):
+    """At stablelm-1.6b's widths (one layer) the decode K2 splits K, so
+    the pair's workspace is real; a second pair at more rows, captured
+    later, gets its own, and the first pair's pointers and replays stay
+    as they were."""
+    cfg = _cfg(4, num_layers=1, d_model=2048, num_heads=32, num_kv_heads=32,
+               d_ff=5632)
+    params, eager_c, graph_c, (dec, pre) = _pair(cfg, hopper, False,
+                                                batch=2, chunk=4)
+    ws = dec.workspace
+    assert ws is pre.workspace and ws.frozen and ws.work.numel() > 1
+    before = (ws.work.data_ptr(), ws.tickets.data_ptr())
+    _, _, _, (dec2, _) = _pair(cfg, hopper, False, batch=4, chunk=16, seed=1)
+    assert dec2.workspace is not ws
+    assert (ws.work.data_ptr(), ws.tickets.data_ptr()) == before
+    eager = steps.make_decode_step(cfg)
+    one = np.ones(2, np.int32)
+    for i in range(2):
+        args = ({"tokens": np.full((2, 1), 7 + i, np.int32)},
+                np.full(2, i, np.int32), one)
+        want, _ = eager(params, eager_c, *args)
+        got, _ = dec(params, graph_c, *args)
+        assert torch.equal(got, want)
+    with pytest.raises(RuntimeError, match="frozen"):
+        ws.get(ws.work.numel() + 1, 1)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_graphed_tokens_equal_eager(hopper, paged):
+    """The engine on graphs and the same engine on the op-by-op pair give
+    the same greedy tokens."""
+    cfg = _cfg(4)
+    params = lm.init_params(cfg, torch.Generator(device=hopper).manual_seed(2),
+                            device=hopper)
+    ecfg = engine_lib.EngineConfig(max_batch=3, max_len=48, prefill_chunk=8,
+                                   paged=paged, page_size=16)
+    outs = []
+    for graphed in (True, False):
+        eng = engine_lib.ServingEngine(cfg, params, config=ecfg,
+                                       device=hopper)
+        assert eng.capacity_report()["step_graphs"]
+        if not graphed:
+            eng._decode = steps.make_decode_step(cfg)
+            eng._prefill = steps.make_prefill_chunk_step(cfg)
+        rng = np.random.default_rng(7)
+        reqs = [engine_lib.Request(i, rng.integers(0, 512, n).astype(
+            np.int32), max_new_tokens=6) for i, n in enumerate((5, 11, 17))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_capture_failure_raises(hopper, monkeypatch):
+    """A launcher that fails during capture makes building the pair raise;
+    nothing falls back to the eager steps."""
+    cfg = _cfg(4)
+    real = cache_write.cache_write_cuda
+
+    def failing(dest, leaves):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("launch refused under capture")
+        return real(dest, leaves)
+
+    monkeypatch.setattr(cache_write, "cache_write_cuda", failing)
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        _pair(cfg, hopper, False)
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        engine_lib.ServingEngine(cfg, lm.init_params(cfg, device=hopper),
+                                 config=engine_lib.EngineConfig(
+                                     max_batch=2, max_len=32,
+                                     prefill_chunk=8), device=hopper)

@@ -169,11 +169,11 @@ def test_paged_writes_byte_equal(kv_bits):
             jc, jnp.asarray(k), jnp.asarray(v), jnp.asarray(pages),
             jnp.asarray(wpos % PS), jnp.asarray(offs[None, :] < vlen[:, None]),
             kv_bits)
-        write = tattention.paged_write_indices(
+        dest = tattention.paged_dest_rows(
             torch.from_numpy(idx), torch.from_numpy(vlen),
             torch.from_numpy(bt), sq, PS, P)
-        tattention.cache_write_paged(tc, torch.from_numpy(k),
-                                     torch.from_numpy(v), write, kv_bits)
+        tattention.cache_write(tc, torch.from_numpy(k), torch.from_numpy(v),
+                               dest, kv_bits)
     for name in jc:
         got = tc[name]
         if got.dtype == torch.bfloat16:
