@@ -18,7 +18,12 @@ toolkit:
    to the cast + K1 + K2-affine route it replaced and to the plain version
    and timed beside that route; ``ops.quantized_linear`` one fused launch,
    bit-equal to the eager epilogue and to K1 + K2 (``fused-epilogue``
-   line); the CUDA-core K2 at its earlier rows;
+   line); the same call over the bit-dense weight store
+   (``quantized_linear_mma_dense``, route ``fused-quant-dense``: the
+   words expanded in the tensor-core K2's staging) at the six K2 shapes
+   at W2A2 and at (4, 1024, 2048) W1A1, bit-equal to its plain version
+   and to the lanes route and timed beside it; the CUDA-core K2 at its
+   earlier rows;
    attention within
    1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
    bf16 queries, with a dead row exactly zero and a second launch
@@ -89,6 +94,25 @@ toolkit:
    line of four kv_bits-4 decode passes.  Fails unless every paged read
    launched K4, with no plain call and no K3 launch, and every packed
    linear was one fused launch (no standalone K1).
+   Then the ``dense`` line: the serve phase's requests at kv_bits 4 on a
+   graphed engine with ``dense_store=True`` and on one with lanes --
+   greedy tokens equal and the first decode's logits bit-equal (gated),
+   every packed linear one launch of the dense route, the packed param
+   bytes of both, device ms of a decode pass and of K2 in it, the two
+   engines profiled in turn.  Then the ``spec`` lines: speculative
+   decoding at kv_bits 4, k = 4, with a W2 draft in lanes, a W1 draft over
+   the dense store, and paged with a shared prefix (the first-token
+   stash), each against the plain graphed engine of the same config:
+   tokens gated (a divergence from plain decode fails unless the plain
+   top-2 margin there is at most 2 x the difference of the rows that chose
+   the tokens; ``verify_vs_decode_max_diff`` over the teacher-forced
+   verify rows), the draft's writes inside each slot's reserved extent,
+   the draft pool drained, pointers fixed, every step a graph replay of
+   the hand-written kernels; acceptance, cycles, decode tok/s against
+   plain (two alternated rounds), wall ms a cycle, the draft and verify
+   graphs' replay ms and device ms by kernel group, capture s, peak
+   memory, the draft's param bytes, launches a cycle; then a failed draft
+   capture must raise (reduced config).
 5. Linear phase: ``benchmarks/serve_microbench.run_linear`` on the card at
    m = 8, k = n = 4096: bf16 ``torch.matmul``, int8 through
    ``ops.int_matmul`` (K7 launched, no plain call), packed W1A1 / W2A2 /
@@ -125,7 +149,8 @@ its path and read just after; the ``{"kernels": [...]}`` line lists every
 kernel (K1-K7, K2, K5 and K6 each as its tensor-core and its CUDA-core
 kernel, K1 folded into the tensor-core K2 as ``quantized_linear_mma``, and
 the window write ``cache_write``, which has no TPU kernel of its own) with
-the launches of its path.
+the launches of its path (the dense route's: the ``dense`` line's
+engine).
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -250,6 +275,7 @@ def kernel_phase(torch, peaks, dev):
             "bound_ms": b, "bound_by": by, "library_ms": None})
 
     rows += packed_matmul_rows(torch, peaks, dev, gen)
+    rows += dense_rows(torch, peaks, dev, gen)
     rows += attention_rows(torch, peaks, dev, gen)
     rows += cache_write_rows(torch, peaks, dev, gen)
     return rows
@@ -450,7 +476,9 @@ def packed_matmul_rows(torch, peaks, dev, gen):
                 "library_ms": lib, "library": f"torch.{lib_fn.__name__} "
                                               f"({lt})"}
         if "mma" in kinds:
-            plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=dev)
+            plan = plan_lib.plan_packed_matmul(m, kp, n, sp,
+                                               weight_store="lanes",
+                                               device=dev)
 
             def call(wi=w, plan=plan):
                 return mm.ulppack_matmul_mma_cuda(a, wi, sp, plan=plan)
@@ -525,8 +553,10 @@ def fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws, design):
     zp = torch.tensor(2, dtype=torch.int32, device=dev)
     w_scale = torch.tensor(0.02, device=dev)
     bf16 = torch.bfloat16
-    plan = plan_lib.plan_quantized_linear(m, k, n, sp, bf16, device=dev)
-    lanes = plan_lib.plan_packed_matmul(m, -(-k // 2), n, sp, device=dev)
+    plan = plan_lib.plan_quantized_linear(m, k, n, sp, bf16,
+                                          weight_store="lanes", device=dev)
+    lanes = plan_lib.plan_packed_matmul(m, -(-k // 2), n, sp,
+                                        weight_store="lanes", device=dev)
 
     def fused(wi, a_scale=a_scale):
         return mm.quantized_linear_mma_cuda(x, wi, cs, a_scale, zp, w_scale,
@@ -625,7 +655,7 @@ def k2_costs(torch, dev, gen):
     for kp, per in ((64, 1), (128, 1), (128, 2), (1024, 1), (1024, 16)):
         sp, a, ws, want = _mma_operands(torch, dev, gen, 4, kp, 128)
         plan = _mma_variant(plan_lib.plan_packed_matmul(
-            4, kp, 128, sp, device=dev), kp, 8, per)
+            4, kp, 128, sp, weight_store="lanes", device=dev), kp, 8, per)
         rep[f"stages{kp // 64}_splits{plan.splits}_us"] = _mma_us(
             torch, a, ws, sp, plan, want)
     print("k2-costs " + json.dumps(rep))
@@ -647,13 +677,15 @@ def k2_sweep(torch, dev):
     bf16 = torch.bfloat16
     for m, kp, n in K2_MMA_CASES:
         sp, a, ws, want = _mma_operands(torch, dev, gen, m, kp, n)
-        plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=dev)
+        plan = plan_lib.plan_packed_matmul(m, kp, n, sp,
+                                           weight_store="lanes", device=dev)
         steps = -(-kp // 64)
         x = (torch.randn((m, 2 * kp), generator=gen, device=dev)).to(bf16)
         cs = torch.zeros(n, dtype=torch.int32, device=dev)
         one = torch.tensor(3 ** -0.5, device=dev)   # the serving a_step
         zp = torch.tensor(2, dtype=torch.int32, device=dev)
         qplan = plan_lib.plan_quantized_linear(m, 2 * kp, n, sp, bf16,
+                                               weight_store="lanes",
                                                device=dev)
         qwant = ops.quantized_linear(x, ws[0], cs, one, zp, one, zp, sp,
                                      backend="torch", out_dtype=bf16)
@@ -682,6 +714,108 @@ def k2_sweep(torch, dev):
                     "planned": [p.block_m, p.block_k // 64, p.splits]}))
 
 
+#: K2 over the bit-dense weight store: (rows, Kp, N, layout) of the kernel
+#: phase's dense rows -- stablelm's six K2 shapes at W2A2, and the decode
+#: shape at W1A1 (the W1 draft's).
+K2_DENSE_CASES = tuple((*c, "W2A2/int16xP2s8") for c in K2_MMA_CASES) + (
+    (4, 1024, 2048, "W1A1/int16xP2s8"),)
+
+
+def dense_rows(torch, peaks, dev, gen):
+    """K2 over the bit-dense weight store (``quantized_linear_mma_dense``,
+    route ``fused-quant-dense``): the serving path's call,
+    ``ops.quantized_linear`` on bf16 activations with bf16 out, over int32
+    words of w_bits values -- one launch of the tensor-core K2 that
+    expands the words in its staging (csrc/ulppack_matmul_mma_dense.cu) --
+    checked bit-equal to its plain version and to the lanes route's launch
+    on the same lattices (``quantized_linear_mma``), and timed beside it
+    (``lanes_ms``), each on weight copies rotated past the L2.
+    ``bound_ms``: the words, x and the output over HBM, or the lattice
+    MACs at the int8 tensor-core rate; ``library_ms``: the packed-matmul
+    row's PyTorch call on the unpacked lattices at this shape (an f32
+    ``torch.matmul`` up to 16 rows, ``torch._int_mm`` above)."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import ops, ulppack_matmul as mm
+    from repro_torch.kernels import plan as plan_lib
+
+    bf16 = torch.bfloat16
+    rows = []
+    for m, kp, n, text in K2_DENSE_CASES:
+        sp = PackSpec.parse(text)
+        k = 2 * kp
+        qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                           device=dev, dtype=torch.int32)
+        words = ops.dense_store_weights(qw, sp.w_bits)
+        lanes = packing.pack_weights(qw, sp)
+        cs = qw.sum(dim=0, dtype=torch.int32)
+        x = (torch.randn((m, k), generator=gen, device=dev) * 1.5).to(bf16)
+        a_scale = torch.tensor(3 ** -0.5, device=dev)
+        azp = torch.tensor((sp.max_a + 1) // 2, dtype=torch.int32,
+                           device=dev)
+        wzp = torch.tensor(1 << (sp.w_bits - 1), dtype=torch.int32,
+                           device=dev)
+        w_scale = torch.tensor(0.02, device=dev)
+        plans = {store: plan_lib.plan_quantized_linear(
+            m, k, n, sp, bf16, weight_store=store, device=dev)
+            for store in ("dense", "lanes")}
+
+        def fused(wi, store):
+            return mm.quantized_linear_mma_cuda(
+                x, wi, cs, a_scale, azp, w_scale, wzp, sp,
+                plan=plans[store], out_dtype=bf16)
+
+        def plain():
+            return ops.quantized_linear(
+                x, words, cs, a_scale, azp, w_scale, wzp, sp,
+                weight_store="dense", backend="torch", out_dtype=bf16)
+
+        want = plain()
+        runs = [fused(words, "dense") for _ in range(3)]
+        lanes_out = fused(lanes, "lanes")
+        torch.cuda.synchronize()
+        if not all(torch.equal(r, want) for r in runs) \
+                or not torch.equal(lanes_out, want):
+            raise AssertionError(f"quantized_linear_mma_dense {sp} "
+                                 f"{(m, kp, n)}: not bit-equal to the plain "
+                                 f"version and the lanes route")
+        wd = [words] + [words.clone() for _ in range(
+            copies_for(4 * words.numel()) - 1)]
+        wl = [lanes] + [lanes.clone() for _ in range(
+            copies_for(2 * lanes.numel()) - 1)]
+        if m > 16:
+            lib_fn, lt = torch._int_mm, torch.int8
+        else:
+            lib_fn, lt = torch.matmul, torch.float32
+        al = torch.randint(0, sp.max_a + 1, (m, k), generator=gen,
+                           device=dev, dtype=torch.int32).to(lt)
+        wls = [qw.to(lt) for _ in range(copies_for(qw.numel() *
+                                                   al.element_size()))]
+        lib = time_ms(torch, [lambda w=w: lib_fn(al, w) for w in wls])
+        del wls
+        nbytes = 4 * words.numel() + m * k * 2 + m * n * 2 + n * 4
+        b, by = bound_ms(nbytes, 2 * m * k * n, peaks["hbm"], peaks["int8"])
+        rows.append({
+            "name": "quantized_linear_mma_dense",
+            "route": "fused-quant-dense",
+            "shape": f"({m},{kp},{n}) {sp} bf16 x dense", "max_abs_err": 0,
+            "ms": time_ms(torch, [lambda w=w: fused(w, "dense")
+                                  for w in wd]),
+            "lanes_ms": time_ms(torch, [lambda w=w: fused(w, "lanes")
+                                        for w in wl]),
+            "plain_ms": time_ms(torch, [plain], 3),
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "library": f"torch.{lib_fn.__name__} ({lt})",
+            "weight_bytes": 4 * words.numel(),
+            "lanes_weight_bytes": 2 * lanes.numel(),
+            "kernels_us": device_kernel_us(
+                torch, lambda: fused(wd[0], "dense"),
+                warm=lambda: fused(wd[-1], "dense")),
+            "geometry": plans["dense"].describe()})
+        del wd, wl
+    return rows
+
+
 def fused_epilogue_check(torch, dev, gen, ops, mm):
     """``ops.quantized_linear`` at stablelm's q projection (4 rows, K 2048,
     N 2048) with a bf16 bias, on f32 and the serving path's bf16
@@ -703,7 +837,8 @@ def fused_epilogue_check(torch, dev, gen, ops, mm):
     a_scale = torch.tensor(0.4, device=dev)
     wp, cs = ops.prepare_weights(w, w_scale, zp, sp)
     bias = torch.randn((2048,), generator=gen, device=dev).bfloat16()
-    lanes = plan_lib.plan_packed_matmul(4, 1024, 2048, sp, device=dev)
+    lanes = plan_lib.plan_packed_matmul(4, 1024, 2048, sp,
+                                        weight_store="lanes", device=dev)
     for xd in (x, x.bfloat16()):
         for out_dtype in (torch.float32, torch.bfloat16):
             args = (xd, wp, cs, a_scale, zp, w_scale, zp, sp)
@@ -1504,9 +1639,7 @@ def serve_phase(torch, np, dev, cfg):
           f"{cfg.d_model}, random weights (seed {SEED}) in "
           f"{time.perf_counter() - t0:.1f} s")
     ecfg = EngineConfig(max_batch=4, max_len=512, prefill_chunk=16)
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (17, 33, 64, 100)]
+    prompts, _ = serve_prompts(np, cfg)
     for kv_bits in (16, 4, 2):
         c = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
         torch.cuda.reset_peak_memory_stats()
@@ -1844,11 +1977,9 @@ def paged_phase(torch, np, dev, cfg, params):
     report("capacity", c, cap, k4, ref)
     launches += k4
 
-    serve_prompts = [np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, n).astype(np.int32) for n in (17, 33, 64, 100)]
     profile_decode(torch, c, params, EngineConfig(
-        max_batch=4, paged=True, page_size=16, **common), serve_prompts, dev,
-        label="paged profile")
+        max_batch=4, paged=True, page_size=16, **common),
+        serve_prompts(np, cfg)[0], dev, label="paged profile")
     return launches
 
 
@@ -1968,15 +2099,7 @@ def graphs_phase(torch, np, dev, cfg, params):
     from repro_torch.serve.engine import EngineConfig, Request, \
         ServingEngine
 
-    rng = np.random.default_rng(SEED)
-    serve_prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-                     for n in (17, 33, 64, 100)]
-    rng = np.random.default_rng(SEED + 3)
-    base = rng.integers(0, cfg.vocab_size, 80).astype(np.int32)
-    shared = [base[:72], np.concatenate([base[:64], rng.integers(
-                  0, cfg.vocab_size, 20).astype(np.int32)]),
-              rng.integers(0, cfg.vocab_size, 28).astype(np.int32),
-              base[:80]]
+    plain_prompts, shared = serve_prompts(np, cfg)
     long_prompts = [np.random.default_rng(SEED + 9).integers(
         0, cfg.vocab_size, n).astype(np.int32) for n in (40, 23, 61, 9)]
     common = dict(max_batch=4, max_len=512, prefill_chunk=16)
@@ -2014,7 +2137,7 @@ def graphs_phase(torch, np, dev, cfg, params):
 
             eng._decode = spy
             reqs = [Request(i, p, max_new_tokens=32)
-                    for i, p in enumerate(shared if paged else serve_prompts)]
+                    for i, p in enumerate(shared if paged else plain_prompts)]
             if paged:                 # the 72-token prompt registers first
                 eng.submit(reqs[0])
                 while not reqs[0].output:
@@ -2117,6 +2240,486 @@ def graphs_phase(torch, np, dev, cfg, params):
         del engines, eng, g, dec, pre, inner
         torch.cuda.empty_cache()
     return lines
+
+
+def serve_prompts(np, cfg):
+    """The serve phase's four prompts (17-100 tokens) and the paged
+    phase's shared-prefix ones (a 72-token prompt, then a 64-token match
+    plus 20 others, an unrelated prompt, an 80-token partial-tail match)."""
+    rng = np.random.default_rng(SEED)
+    plain = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (17, 33, 64, 100)]
+    rng = np.random.default_rng(SEED + 3)
+    base = rng.integers(0, cfg.vocab_size, 80).astype(np.int32)
+    shared = [base[:72], np.concatenate([base[:64], rng.integers(
+                  0, cfg.vocab_size, 20).astype(np.int32)]),
+              rng.integers(0, cfg.vocab_size, 28).astype(np.int32),
+              base[:80]]
+    return plain, shared
+
+
+def serve_requests(eng, prompts, new, *, paged, uid0=0):
+    """Serve ``prompts`` greedily, ``new`` tokens each: paged, the first
+    alone until its prompt is done (registered in the prefix index), then
+    the rest; else two, three steps, then the rest riding along."""
+    from repro_torch.serve.engine import Request
+
+    reqs = [Request(uid0 + i, p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    if paged:
+        eng.submit(reqs[0])
+        while not reqs[0].output:
+            eng.step()
+        rest = reqs[1:]
+    else:
+        for r in reqs[:2]:
+            eng.submit(r)
+        for _ in range(3):
+            eng.step()
+        rest = reqs[2:]
+    for r in rest:
+        eng.submit(r)
+    eng.run_to_completion()
+    for r in reqs:
+        if not (r.done and len(r.output) == new):
+            raise AssertionError(f"request {r.uid} did not finish with "
+                                 f"{new} tokens")
+    return reqs
+
+
+SPEC_GROUPS = {"k2": ("ulppack_matmul",), "attention": ("attention_decode",),
+               "cache_write": ("cache_write",),
+               "elementwise": ("elementwise",), "reduce": ("reduce_kernel",),
+               "gemm": ("nvjet", "gemm", "Gemm"), "fill": ("fill", "Fill")}
+
+
+def profile_replay(torch, step, n=2):
+    """Device ms and launches a replay of ``step``'s CUDA graph by kernel
+    group (``SPEC_GROUPS``; ``other`` the rest), from torch.profiler over
+    ``n`` replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step.graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"device_ms": sum(e.self_device_time_total for e in kernels)
+           / 1e3 / n,
+           "launches": sum(e.count for e in kernels) / n,
+           **kernel_groups(kernels, n, "", SPEC_GROUPS)}
+    out["other_ms"] = out["device_ms"] - sum(
+        out[f"{g}_ms"] for g in SPEC_GROUPS)
+    return out
+
+
+def dense_phase(torch, np, dev, cfg, params):
+    """The bit-dense weight store at full width (``dense`` line):
+    stablelm-1.6b W2A2, kv 4, graphed, the serve phase's four requests of
+    32 tokens on an engine with the lanes store and on one with
+    ``dense_store=True``.  Gated: greedy tokens equal and the first decode
+    step's logits bit-equal (the dense route is integer-exact into an
+    unchanged epilogue), every packed linear of the dense engine one fused
+    launch over the words (no launch over lanes, no plain call).
+    Recorded: each engine's packed parameter bytes and linear weight
+    bytes; then four long requests on each and, 3 rounds in turn, 4
+    profiled decode passes of each (device ms a pass, K2's ms in it), and
+    each decode graph's replay between CUDA events.  Returns the dense
+    kernel's launches on the dense engine's run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import quant_pack, ulppack_matmul as mm
+    from repro_torch.serve.engine import EngineConfig, Request, \
+        ServingEngine
+    from repro_torch.serve.prepare import serving_param_bytes
+
+    c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
+    prompts, _ = serve_prompts(np, cfg)
+    engines, outs, first, line = {}, {}, {}, {"kv_bits": 4}
+    launches = 0
+    for store in ("lanes", "dense"):
+        eng = engines[store] = ServingEngine(c, params, config=EngineConfig(
+            max_batch=4, max_len=512, prefill_chunk=16,
+            dense_store=store == "dense"), device=dev)
+        inner = eng._decode
+
+        def spy(*a, _inner=inner, _store=store, **k):
+            out = _inner(*a, **k)
+            if _store not in first:
+                first[_store] = out[0].float().clone()
+            return out
+
+        eng._decode = spy
+        mm.reset_counts()
+        quant_pack.reset_counts()
+        outs[store] = [r.output for r in serve_requests(eng, prompts, 32,
+                                                        paged=False)]
+        torch.cuda.synchronize()
+        eng._decode = inner
+        if store == "dense":
+            launches = mm.dense_mma_launches["quant_affine"]
+            other = (sum(mm.mma_launches.values())
+                     + mm.dense_mma_launches["s32"]
+                     + mm.dense_mma_launches["affine"]
+                     + mm.kernel_launches["ulppack_matmul"]
+                     + mm.plain_calls["ulppack_matmul"]
+                     + quant_pack.kernel_launches + quant_pack.plain_calls)
+            if not launches or other:
+                raise AssertionError(
+                    f"dense path: K2 {mm.mma_launches} over lanes, "
+                    f"{mm.dense_mma_launches} over words, K1 "
+                    f"{quant_pack.kernel_launches}: every packed linear "
+                    f"must be one fused launch over the words")
+        else:
+            check_k2_path("dense phase, lanes")
+        cap = eng.capacity_report()
+        weights = [node["w_dense" if store == "dense" else "w_packed"]
+                   for node in packed_nodes(eng.params)]
+        line.setdefault("packed_param_bytes", {})[store] = cap["param_bytes"]
+        line.setdefault("linear_weight_bytes", {})[store] = \
+            serving_param_bytes(weights)
+        line.setdefault("decode_step_ms", {})[store] = \
+            eng.metrics.report()["decode_step_ms"]
+    diff = float((first["dense"] - first["lanes"]).abs().max())
+    if outs["dense"] != outs["lanes"] or diff != 0.0:
+        raise AssertionError(f"dense: tokens equal "
+                             f"{outs['dense'] == outs['lanes']}, first "
+                             f"decode logit difference {diff}")
+    line.update(tokens_equal=True, first_decode_max_logit_diff=diff,
+                dense_k2_launches=launches)
+    long_prompts = [np.random.default_rng(SEED + 9).integers(
+        0, cfg.vocab_size, n).astype(np.int32) for n in (40, 23, 61, 9)]
+    for eng in engines.values():
+        for i, p in enumerate(long_prompts):
+            eng.submit(Request(100 + i, p, max_new_tokens=80))
+        eng.step()
+        while any(eng.slot_fed[s] < len(eng.slot_req[s].prompt)
+                  for s in range(eng.max_batch)
+                  if eng.slot_req[s] is not None):
+            eng.step()
+    dev_ms = {store: [] for store in engines}
+    k2_ms = {store: [] for store in engines}
+    for r in range(3):
+        order = list(engines) if r % 2 == 0 else list(engines)[::-1]
+        for store in order:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    engines[store].step()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms[store].append(sum(e.self_device_time_total
+                                     for e in kernels) / 1e3 / 4)
+            k2_ms[store].append(kernel_groups(kernels, 4, "")["k2_ms"])
+    line["alternated"] = {
+        "rounds": 3, "passes_per_round": 4,
+        "device_ms_per_pass": dev_ms, "k2_ms_per_pass": k2_ms,
+        "device_ms_per_pass_median": {k: statistics.median(v)
+                                      for k, v in dev_ms.items()},
+        "k2_ms_per_pass_median": {k: statistics.median(v)
+                                  for k, v in k2_ms.items()},
+        "decode_replay_ms": {k: replay_ms(torch, e._decode)
+                             for k, e in engines.items()}}
+    print("dense " + json.dumps(line))
+    del engines, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def packed_nodes(tree):
+    """The packed Dense leaves (dicts with ``col_sums``) of a param tree."""
+    if isinstance(tree, dict):
+        if "col_sums" in tree:
+            yield tree
+            return
+        for v in tree.values():
+            yield from packed_nodes(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from packed_nodes(v)
+
+
+#: Speculative cases at full width, kv 4, k = 4: (name, EngineConfig
+#: fields, paged): a W2 draft in lanes (the target's bits: its steps
+#: kept), a W1 draft over the dense store (target dense too), and paged
+#: with a shared prefix and a W2 draft (the first-token stash path).
+SPEC_K = 4
+SPEC_CASES = (("w2-lanes", dict(draft_w_bits=2), False),
+              ("w1-dense", dict(draft_w_bits=1, dense_store=True), False),
+              ("w2-paged-shared", dict(draft_w_bits=2), True))
+
+
+def spec_phase(torch, np, dev, cfg, params):
+    """Speculative decoding at full width (``spec`` lines): stablelm-1.6b
+    W2A2, kv 4, k = 4, each of ``SPEC_CASES`` against the plain graphed
+    engine of the same config on the same requests (the serve phase's, or
+    paged the shared-prefix ones), 32 tokens each.
+
+    The token gate: the plain engine records the logits row behind every
+    token it emits; the speculative engine records the verify window's
+    rows (and its prefill rows).  Up to a request's first divergence from
+    plain decode every such row is teacher-forced on the plain engine's
+    tokens; ``verify_vs_decode_max_diff`` is the largest difference of a
+    verify row from the plain row at the same position.  A divergence
+    fails the phase unless the plain logits' top-2 margin there is at most
+    2 x the difference of the two rows that chose the tokens; each is
+    printed with its margin.  Also gated: every draft step's writes stay
+    inside the slot's reserved extent (dead rows at limit -1), the draft
+    pool drains (paged), pointers stay fixed, every step a graph replay
+    with the hand-written kernels and no plain call, and a failed capture
+    raises (on the reduced config).  Recorded: acceptance, cycles, drafted
+    tokens, decode tok/s against plain in two alternated rounds, wall ms a
+    cycle, the draft and verify graphs' replay ms and their device ms by
+    kernel group (torch.profiler), capture s, peak memory, the draft's
+    param bytes, launches a cycle.  Returns the launches of the fused K2
+    (over lanes and over words) and the attention kernels on the spec
+    engines' runs."""
+    from repro_torch.kernels import cache_write, quant_pack
+    from repro_torch.kernels import ulppack_attention as att
+    from repro_torch.kernels import ulppack_matmul as mm
+    from repro_torch.launch import steps
+    from repro_torch.serve import speculative
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
+    plain_prompts, shared = serve_prompts(np, cfg)
+    new = 32
+    totals = {"quantized_linear_mma": 0, "quantized_linear_mma_dense": 0,
+              "attention_decode": 0, "attention_decode_paged": 0}
+    for name, extra, paged in SPEC_CASES:
+        common = dict(max_batch=4, max_len=512, prefill_chunk=16,
+                      dense_store=extra.get("dense_store", False),
+                      **(dict(paged=True, page_size=16, prefix_sharing=True)
+                         if paged else {}))
+        prompts = shared if paged else plain_prompts
+        mem, rows, engines = {}, {}, {}
+        for mode in ("plain", "spec"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ecfg = EngineConfig(**common, **(dict(
+                speculative_k=SPEC_K, draft_w_bits=extra["draft_w_bits"])
+                if mode == "spec" else {}))
+            eng = engines[mode] = ServingEngine(c, params, config=ecfg,
+                                                device=dev)
+            mem[mode] = torch.cuda.max_memory_allocated() - before
+        plain, spec = engines["plain"], engines["spec"]
+        st = {"decode": spec._decode, "prefill_chunk": spec._prefill,
+              "verify": spec._verify, "draft_prefill": spec.spec.prefill_step,
+              "draft": spec.spec.draft_step}
+        if not all(s.graph is not None for s in st.values()):
+            raise AssertionError(f"spec {name}: a step is not a graph")
+        ptrs = steps._ptrs([[s.buffers, s.logits] for s in st.values()]) \
+            + steps._ptrs([spec.caches, spec.spec.caches])
+
+        # round 1: the plain engine, recording the row behind each token
+        rec = {"plain": {}, "spec": {}}
+
+        def record(eng, mode):
+            real = eng._emit_token
+
+            def emit(s, logits_row, *, decode_pass, _real=real):
+                req = eng.slot_req[s]
+                rec[mode][(req.uid, len(req.output))] = np.array(
+                    logits_row, np.float32)
+                return _real(s, logits_row, decode_pass=decode_pass)
+
+            eng._emit_token = emit
+            return real
+
+        real = record(plain, "plain")
+        outs = {"plain": [r.output for r in serve_requests(
+            plain, prompts, new, paged=paged)]}
+        plain._emit_token = real
+        # round 1: the speculative engine, recording its verify windows
+        # and checking every draft step's extent
+        real_emit = record(spec, "spec")
+        verify, draft = spec._verify, spec.spec.draft_step
+        extent_ok = [True]
+
+        def verify_spy(params_, caches, batch, index, valid, *bt):
+            out = verify(params_, caches, batch, index, valid, *bt)
+            lg = out[0].float().cpu().numpy()
+            for s in range(spec.max_batch):
+                req = spec.slot_req[s]
+                if req is not None:
+                    for j in range(int(valid[s])):
+                        rec["spec"][(req.uid, len(req.output) + j,
+                                     "verify")] = lg[s, j]
+            return out
+
+        def draft_spy(params_, caches, batch, index, limit, *bt):
+            for s in range(spec.max_batch):
+                req = spec.slot_req[s]
+                top = (-1 if req is None else
+                       len(req.prompt) + req.max_new_tokens - 2)
+                if (req is None and limit[s] != -1) or (
+                        req is not None and index[s] + limit[s] > top):
+                    extent_ok[0] = False
+            return draft(params_, caches, batch, index, limit, *bt)
+
+        spec._verify, spec.spec.draft_step = verify_spy, draft_spy
+        for mod in (mm, quant_pack, att, cache_write):
+            mod.reset_counts()
+        outs["spec"] = [r.output for r in serve_requests(
+            spec, prompts, new, paged=paged)]
+        torch.cuda.synchronize()
+        spec._verify, spec.spec.draft_step = verify, draft
+        spec._emit_token = real_emit
+        fused = mm.dense_mma_launches if extra.get("dense_store") \
+            else mm.mma_launches
+        attn = att.kernel_launches["attention_decode_paged" if paged
+                                   else "attention_decode"]
+        plain_calls = (mm.plain_calls["ulppack_matmul"]
+                       + quant_pack.plain_calls
+                       + sum(att.plain_calls.values())
+                       + cache_write.plain_calls["cache_write"])
+        if not fused["quant_affine"] or not attn or plain_calls \
+                or quant_pack.kernel_launches \
+                or not cache_write.kernel_launches["cache_write"]:
+            raise AssertionError(
+                f"spec {name}: K2 {fused}, attention {att.kernel_launches}, "
+                f"cache_write {cache_write.kernel_launches}, plain calls "
+                f"{plain_calls}: every step must replay the kernels")
+        totals["quantized_linear_mma_dense" if extra.get("dense_store")
+               else "quantized_linear_mma"] += fused["quant_affine"]
+        totals["attention_decode_paged" if paged
+               else "attention_decode"] += attn
+        m1 = {mode: e.metrics.report() for mode, e in engines.items()}
+        snap = {mode: (e.metrics.decode_tokens, e.metrics.decode_time_s)
+                for mode, e in engines.items()}
+
+        # the gate: teacher-forced rows up to each first divergence
+        divergences, vdiff = [], 0.0
+        for uid, (p_out, s_out) in enumerate(zip(outs["plain"],
+                                                 outs["spec"])):
+            at = next((i for i in range(new) if p_out[i] != s_out[i]), new)
+            for pos in range(min(at + 1, new)):
+                row = rec["spec"].get((uid, pos, "verify"))
+                if row is not None:
+                    vdiff = max(vdiff, float(np.abs(
+                        row - rec["plain"][(uid, pos)]).max()))
+            if at < new:
+                p_row = rec["plain"][(uid, at)]
+                s_row = rec["spec"].get((uid, at, "verify"),
+                                        rec["spec"].get((uid, at)))
+                diff = float(np.abs(s_row - p_row).max())
+                top2 = np.sort(p_row)[-2:]
+                margin = float(top2[1] - top2[0])
+                divergences.append({"request": uid, "at": at,
+                                    "plain": int(p_out[at]),
+                                    "spec": int(s_out[at]),
+                                    "top2_margin": margin,
+                                    "row_diff": diff})
+                print(f"spec {name}: request {uid} parts from plain decode "
+                      f"at token {at} (plain {p_out[at]}, speculative "
+                      f"{s_out[at]}), plain top-2 margin {margin:.4g}, "
+                      f"row difference {diff:.4g}")
+                if margin > 2 * diff:
+                    raise AssertionError(
+                        f"spec {name}: request {uid} diverges at {at} with "
+                        f"a top-2 margin {margin} above 2 x the row "
+                        f"difference {diff}")
+        drained = (not paged or spec.spec.pool.report()["free_pages"]
+                   == spec.spec.num_pages)
+        ptrs_fixed = ptrs == steps._ptrs(
+            [[s.buffers, s.logits] for s in st.values()]) \
+            + steps._ptrs([spec.caches, spec.spec.caches])
+        if not (extent_ok[0] and drained and ptrs_fixed):
+            raise AssertionError(f"spec {name}: draft extent kept "
+                                 f"{extent_ok[0]}, draft pool drained "
+                                 f"{drained}, pointers fixed {ptrs_fixed}")
+
+        # round 2, the other way round: decode tok/s of each
+        for mode in ("spec", "plain"):
+            serve_requests(engines[mode], prompts, new, paged=paged,
+                           uid0=100)
+        tok_s = {mode: [m1[mode]["decode_tok_s"],
+                        (e.metrics.decode_tokens - snap[mode][0])
+                        / (e.metrics.decode_time_s - snap[mode][1])]
+                 for mode, e in engines.items()}
+        prof = {k: profile_replay(torch, st[k]) for k in ("draft", "verify")}
+        rep = m1["spec"]
+        cap = spec.capacity_report()
+        line = {"case": name, "k": SPEC_K, "kv_bits": 4, "paged": paged,
+                "dense_store": common["dense_store"],
+                "draft_w_bits": extra["draft_w_bits"],
+                "requests": len(prompts), "new_tokens": new,
+                "tokens_equal": outs["spec"] == outs["plain"],
+                "divergences": divergences,
+                "verify_vs_decode_max_diff": vdiff,
+                "acceptance_rate": rep["acceptance_rate"],
+                "spec_cycles": rep["spec_cycles"],
+                "drafted_tokens": rep["drafted_tokens"],
+                "accepted_tokens": rep["accepted_tokens"],
+                "decode_tok_s": tok_s["spec"],
+                "plain_decode_tok_s": tok_s["plain"],
+                "cycle_ms": rep["decode_step_ms"],
+                "plain_decode_step_ms": m1["plain"]["decode_step_ms"],
+                "draft_graph_ms": replay_ms(torch, st["draft"]),
+                "verify_graph_ms": replay_ms(torch, st["verify"]),
+                "plain_decode_graph_ms": replay_ms(torch, plain._decode),
+                "draft_profile": prof["draft"],
+                "verify_profile": prof["verify"],
+                "launches_per_cycle": prof["draft"]["launches"]
+                + prof["verify"]["launches"],
+                "capture_s": {k: s.capture_s for k, s in st.items()},
+                "step_setup_s": cap["step_setup_s"],
+                "max_memory_allocated": mem,
+                "param_bytes": cap["param_bytes"],
+                "draft_param_bytes": cap["speculative"]["draft_param_bytes"],
+                "draft_extent_kept": True, "data_ptrs_fixed": True,
+                "k2_launches": fused["quant_affine"],
+                "attention_launches": attn}
+        if paged:
+            line.update(draft_pool_drained=True,
+                        draft_num_pages=cap["speculative"]["draft_num_pages"],
+                        prefix_hit_tokens=cap["prefix_hit_tokens"])
+        print("spec " + json.dumps(line))
+        del engines, plain, spec, st, rec, eng
+        torch.cuda.empty_cache()
+    spec_capture_failure(torch, dev)
+    return totals
+
+
+def spec_capture_failure(torch, dev):
+    """A speculative engine whose draft step fails during capture raises
+    at construction (on the reduced config): nothing falls back to eager
+    steps."""
+    from repro_torch import configs
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    cfg = configs.get_config("stablelm-1.6b", reduced=True).replace(
+        quant=QuantConfig(enabled=True, w_bits=2, a_bits=2, kv_bits=4))
+    params = lm.init_params(cfg, device=dev)
+    real = steps.StaticStep.run
+
+    def run(self):
+        if self.kind == "draft" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("launch refused under capture")
+        return real(self)
+
+    steps.StaticStep.run = run
+    try:
+        ServingEngine(cfg, params, config=EngineConfig(
+            max_batch=2, max_len=32, prefill_chunk=4, speculative_k=SPEC_K),
+            device=dev)
+    except RuntimeError as e:
+        print(f"spec capture failure: raised ({str(e)[:60]})")
+    else:
+        raise AssertionError("a failed draft capture did not raise")
+    finally:
+        steps.StaticStep.run = real
+    torch.cuda.synchronize()
 
 
 def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
@@ -2236,6 +2839,12 @@ def main() -> int:
     graphs_phase(torch, np, dev, lm_cfg, params)
     launches["attention_decode_paged"] = paged_phase(torch, np, dev, lm_cfg,
                                                      params)
+    # the dense store's path: the dense line's engine (every packed linear
+    # of its run one launch of the dense route); then speculative decoding
+    launches["quantized_linear_mma_dense"] = dense_phase(torch, np, dev,
+                                                         lm_cfg, params)
+    spec_launches = spec_phase(torch, np, dev, lm_cfg, params)
+    print(f"spec launches (the speculative engines' runs): {spec_launches}")
     del params
     torch.cuda.empty_cache()
     launches.update(linear_phase(torch, dev))
@@ -2263,6 +2872,12 @@ def main() -> int:
         "ulppack_matmul_mma": ("src/repro_torch/csrc/ulppack_matmul_mma.cu",
                                "src/repro/kernels/ulppack_matmul.py:99",
                                "(4,1024,2048) W2A2/int16xP2s8"),
+        # K2 over the bit-dense weight store (K1 folded in, as on lanes);
+        # its path is the dense line's engine
+        "quantized_linear_mma_dense": (
+            "src/repro_torch/csrc/ulppack_matmul_mma_dense.cu",
+            "src/repro/kernels/ulppack_matmul.py:99",
+            "(4,1024,2048) W2A2/int16xP2s8 bf16 x dense"),
         # the CUDA-core K2's path is the linear phase's int32xP2s16 row
         "ulppack_matmul": ("src/repro_torch/csrc/ulppack_matmul.cu",
                            "src/repro/kernels/ulppack_matmul.py:99",

@@ -30,9 +30,13 @@
 // plane (plane 0 = hi, plane 1 = lo), a's in a pass over its staged rows.
 // What a block stages of a and how it turns a stage into what the MMAs
 // read is the a side's (RawA: a's own int8 / int16 rows; QuantA: float
-// activations quantized in that pass, K1 folded into K2).  Which planes
-// multiply, with which signedness, into which accumulator is the caller's
-// (an MMA functor); W is never transposed in device memory.
+// activations quantized in that pass, K1 folded into K2).  Likewise what a
+// block stages of W and how it turns a stage into planes is the W side's
+// (RawW: W's own int8 / int16 rows, transposed as above; DenseW: K2's
+// bit-dense store, int32 words of w_bits-wide lattice values expanded into
+// the hi / lo planes an int16xP2s8 lane would have split into).  Which
+// planes multiply, with which signedness, into which accumulator is the
+// caller's (an MMA functor); W is never transposed in device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -162,37 +166,54 @@ constexpr int kPlaneRow = kBK + 16;  // bytes of a K-major plane row
 // Shared memory: `stages` ring slots of [raw W tile | raw a rows], then
 // two plane buffers of [W planes | a planes (unless a is int8)].  `ab` is
 // the bytes of a staged per K step: 1 or 2 for int8 / int16 a, 2 x the
-// element size for float activations (two lattice values a lane).  The
-// ring is as deep as the shared memory allows, up to kMaxStages: stages - 2
-// of them are in flight while a block transposes one and multiplies
-// another.
+// element size for float activations (two lattice values a lane).  The raw
+// W tile is `wt` bytes (kBK x kBN x WB for W's own rows, fewer for the
+// dense store's words) and W has `wp` planes.  The ring is as deep as the
+// shared memory allows, up to kMaxStages: stages - 2 of them are in flight
+// while a block transposes one and multiplies another.
 __host__ __device__ constexpr int ring_a_row(int ab) {
   return kBK * ab + 16;
 }
-__host__ __device__ constexpr int stage_bytes(int bm, int ab, int wb) {
-  return kBK * kBN * wb + bm * ring_a_row(ab);
+__host__ __device__ constexpr int stage_bytes_w(int bm, int ab, int wt) {
+  return wt + bm * ring_a_row(ab);
 }
-__host__ __device__ constexpr int plane_bytes(int bm, int ab, int wb) {
-  return wb * kBN * kPlaneRow + (ab >= 2 ? 2 * bm * kPlaneRow : 0);
+__host__ __device__ constexpr int plane_bytes(int bm, int ab, int wp) {
+  return wp * kBN * kPlaneRow + (ab >= 2 ? 2 * bm * kPlaneRow : 0);
 }
-__host__ __device__ constexpr int stages_for(int bm, int ab, int wb) {
+__host__ __device__ constexpr int stages_for_w(int bm, int ab, int wt,
+                                               int wp) {
   const int fit =
-      (kSmemMax - 2 * plane_bytes(bm, ab, wb)) / stage_bytes(bm, ab, wb);
+      (kSmemMax - 2 * plane_bytes(bm, ab, wp)) / stage_bytes_w(bm, ab, wt);
   return fit < kMaxStages ? fit : kMaxStages;
 }
+__host__ __device__ constexpr int smem_bytes_w(int bm, int ab, int wt,
+                                               int wp) {
+  return stages_for_w(bm, ab, wt, wp) * stage_bytes_w(bm, ab, wt) +
+         2 * plane_bytes(bm, ab, wp);
+}
+// W's own rows of WB bytes: a kBK x kBN tile, WB planes.
+__host__ __device__ constexpr int stage_bytes(int bm, int ab, int wb) {
+  return stage_bytes_w(bm, ab, kBK * kBN * wb);
+}
+__host__ __device__ constexpr int stages_for(int bm, int ab, int wb) {
+  return stages_for_w(bm, ab, kBK * kBN * wb, wb);
+}
 __host__ __device__ constexpr int smem_bytes(int bm, int ab, int wb) {
-  return stages_for(bm, ab, wb) * stage_bytes(bm, ab, wb) +
-         2 * plane_bytes(bm, ab, wb);
+  return smem_bytes_w(bm, ab, kBK * kBN * wb, wb);
 }
 
 // The 16-byte chunk position of chunk c of a staged row r.  Raw W rows
 // (SW = 1 or 2, W's bytes) are swizzled by k block (r / 4) so that a
 // warp's transposing reads (8 column blocks x 4 k blocks) fall in distinct
 // banks; a rows (SW = 0) are padded instead.
+// Rows of dense words (SW = 16 + RW, rows of 32 chunks) are swizzled by
+// row within groups of RW rows, so that a warp reading RW rows x 32 / RW
+// consecutive words hits 32 banks (DenseW below).
 template <int SW>
 __device__ __forceinline__ int chunk_pos(int r, int c) {
   if constexpr (SW == 1) return c ^ (((r >> 2) & 3) << 1);
   if constexpr (SW == 2) return c ^ (((r >> 2) & 1) << 2);
+  if constexpr (SW > 16) return c ^ ((r % (SW - 16)) * (8 / (SW - 16)));
   return c;
 }
 
@@ -508,69 +529,195 @@ struct QuantA {
   }
 };
 
-// Issue the copies of stage k0 (W rows [k0, k0 + kBK) of the block's
-// columns, a's rows at the same k, as the a side stages them) into ring
-// slot `slot`.  P carries w (a byte pointer), N and the copy size cb_w.
-template <int WB, int BM, bool V16, class P, class AS>
-__device__ __forceinline__ void issue_stage(const P& p, const AS& as,
-                                            unsigned char* slot, int k0,
-                                            int k_hi, int m0, int n0) {
-  const size_t w_ld = static_cast<size_t>(p.N) * WB;
-  stage_rows<V16, kBK, kBN * WB, WB>(
-      slot, kBN * WB, p.w + k0 * w_ld + static_cast<size_t>(n0) * WB, w_ld,
-      k_hi - k0, static_cast<long long>(p.N - n0) * WB, p.cb_w);
-  as.template stage<V16, BM>(p, slot + kBK * kBN * WB, k0, k_hi, m0);
-}
+// The W side of the tile: W's own rows [K, N] of WB bytes (int8 or int16,
+// row-major; P carries w (a byte pointer), N and the copy size cb_w).  A
+// stage is a raw kBK x kBN tile, swizzled for the transposing pass, which
+// turns it into WB K-major planes (2-byte W: plane 0 = hi, plane 1 = lo).
+template <int WB>
+struct RawW {
+  static constexpr int kTile = kBK * kBN * WB;  // raw bytes in a ring slot
+  static constexpr int kPlanes = WB;            // planes the MMAs read
+  static constexpr bool kDense = false;
 
-// Transpose the raw W tile of `slot` into K-major planes at `wp` (2-byte
-// W: plane 0 = hi, plane 1 = lo), and turn a's staged rows of stage k0
-// into planes at `ap` (the a side's split).  Thread item (nb, kb): columns
-// [4nb, 4nb + 4) of k rows [4kb, 4kb + 4); a warp takes 8 column blocks x
-// 4 k blocks.
-template <int WB, int BM, class AS>
-__device__ __forceinline__ void prepare(const unsigned char* slot,
-                                        unsigned char* wp,
-                                        unsigned char* ap, AS& as, int k0) {
-  constexpr int WROW = kBN * WB;
+  template <class P>
+  __device__ explicit RawW(const P&) {}
+
+  template <bool V16, class P>
+  __device__ __forceinline__ void stage(const P& p, unsigned char* dst,
+                                        int k0, int k_hi, int n0) const {
+    const size_t w_ld = static_cast<size_t>(p.N) * WB;
+    stage_rows<V16, kBK, kBN * WB, WB>(
+        dst, kBN * WB, p.w + k0 * w_ld + static_cast<size_t>(n0) * WB, w_ld,
+        k_hi - k0, static_cast<long long>(p.N - n0) * WB, p.cb_w);
+  }
+
+  // Thread item (nb, kb): columns [4nb, 4nb + 4) of k rows [4kb, 4kb + 4);
+  // a warp takes 8 column blocks x 4 k blocks.
+  __device__ __forceinline__ void expand(const unsigned char* slot,
+                                         unsigned char* wp, int) const {
+    constexpr int WROW = kBN * WB;
 #pragma unroll
-  for (int item = 0; item < (kBN / 4) * (kBK / 4) / kThreads; ++item) {
-    const int e = threadIdx.x + item * kThreads;
-    const int lane = e & 31, wi = e >> 5;
-    const int nb = ((wi & 3) << 3) | (lane & 7);
-    const int kb = ((wi >> 2) << 2) | (lane >> 3);
-    uint32_t r[WB][4];
+    for (int item = 0; item < (kBN / 4) * (kBK / 4) / kThreads; ++item) {
+      const int e = threadIdx.x + item * kThreads;
+      const int lane = e & 31, wi = e >> 5;
+      const int nb = ((wi & 3) << 3) | (lane & 7);
+      const int kb = ((wi >> 2) << 2) | (lane >> 3);
+      uint32_t r[WB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = 4 * kb + i;
-      const int x = WB == 1 ? 4 * nb : 8 * nb;
-      const unsigned char* src =
-          slot + row * WROW + (chunk_pos<WB>(row, x >> 4) << 4) + (x & 15);
-      if constexpr (WB == 1) {
-        r[0][i] = *reinterpret_cast<const uint32_t*>(src);
-      } else {
-        const uint2 v = *reinterpret_cast<const uint2*>(src);
-        r[0][i] = plane_hi(v.x, v.y);
-        r[1][i] = plane_lo(v.x, v.y);
+      for (int i = 0; i < 4; ++i) {
+        const int row = 4 * kb + i;
+        const int x = WB == 1 ? 4 * nb : 8 * nb;
+        const unsigned char* src =
+            slot + row * WROW + (chunk_pos<WB>(row, x >> 4) << 4) + (x & 15);
+        if constexpr (WB == 1) {
+          r[0][i] = *reinterpret_cast<const uint32_t*>(src);
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(src);
+          r[0][i] = plane_hi(v.x, v.y);
+          r[1][i] = plane_lo(v.x, v.y);
+        }
+      }
+#pragma unroll
+      for (int pl = 0; pl < WB; ++pl) {
+        uint32_t o[4];
+        transpose4x4(r[pl], o);
+        unsigned char* base = wp + pl * kBN * kPlaneRow;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint32_t*>(base + plane_off(4 * nb + j, 4 * kb)) =
+              o[j];
       }
     }
+  }
+};
+
+// The W side of K2's bit-dense store (ops.dense_store_weights): int32 words
+// [ceil(k_full / kPer), N], row-major, kPer = 32 / BITS lattice values a
+// word in ascending fields (value j of word r at bit BITS * j: value
+// r * kPer + j of the column).  K is counted in int16xP2s8 lanes of two
+// values, so a stage's kBK lanes are kRows = 2 kBK / kPer whole word rows
+// (BITS 1, 2, 4; 3 does not divide a stage and is refused by the planner)
+// and a split of whole stages starts on a word.  The ring carries the raw
+// word rows (kBN x 4 bytes each, a quarter to an eighth of the lanes'
+// bytes), and `expand` writes each value as the lattice byte the lanes
+// route puts there after its hi / lo split: a field-reversed lane holds
+// value 2k at bit 8 and 2k + 1 at bit 0, so plane 0 (hi) gets the even
+// values and plane 1 (lo) the odd ones, at lane 2k / 2 of the plane row.
+// Values past k_full are 0 (a word's tail is masked; word rows past the
+// store are staged as zeros).  P carries w, N, k_full and cb_w.
+//
+// Thread items: a warp takes RW word rows x CW = 32 / RW columns, where
+// RW = 16 / kL rows (kL = kPer / 2 lanes a word) fill one 16-byte plane
+// chunk: the raw rows are swizzled by row within the group (chunk_pos<16 +
+// RW>) so the warp's 4-byte reads hit 32 banks, and each half- (or
+// quarter-) warp's 8- (16-) byte plane stores cover 8 consecutive columns,
+// the 32 banks of one chunk each.
+template <int BITS>
+struct DenseW {
+  static_assert(BITS == 1 || BITS == 2 || BITS == 4,
+                "a stage must be whole words");
+  static constexpr int kPer = 32 / BITS;        // values a word
+  static constexpr int kL = kPer / 2;           // lanes a word
+  static constexpr int kRows = kBK / kL;        // word rows a stage
+  static constexpr int kTile = kRows * kBN * 4;
+  static constexpr int kPlanes = 2;
+  static constexpr bool kDense = true;
+  static constexpr int RW = 16 / kL;            // word rows a warp
+  static constexpr int CW = 32 / RW;            // columns a warp
+  static constexpr uint32_t kMask = (1u << BITS) - 1u;
+
+  int k_full;
+
+  template <class P>
+  __device__ explicit DenseW(const P& p) : k_full(p.k_full) {}
+
+  template <bool V16, class P>
+  __device__ __forceinline__ void stage(const P& p, unsigned char* dst,
+                                        int k0, int k_hi, int n0) const {
+    const size_t w_ld = static_cast<size_t>(p.N) * 4;
+    const int r0 = k0 / kL;
+    stage_rows<V16, kRows, kBN * 4, 16 + RW>(
+        dst, kBN * 4, p.w + r0 * w_ld + static_cast<size_t>(n0) * 4, w_ld,
+        (k_hi + kL - 1) / kL - r0, static_cast<long long>(p.N - n0) * 4,
+        p.cb_w);
+  }
+
+  // Value pairs (2i, 2i + 1) of word w as the hi (even) and lo (odd)
+  // plane bytes i = 0 .. kL - 1, kL / 4 words each.
+  static __device__ __forceinline__ void split_word(uint32_t w,
+                                                    uint32_t (&hi)[kL / 4],
+                                                    uint32_t (&lo)[kL / 4]) {
 #pragma unroll
-    for (int pl = 0; pl < WB; ++pl) {
-      uint32_t o[4];
-      transpose4x4(r[pl], o);
-      unsigned char* base = wp + pl * kBN * kPlaneRow;
+    for (int j = 0; j < kL / 4; ++j) hi[j] = lo[j] = 0u;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(base + plane_off(4 * nb + j, 4 * kb)) =
-            o[j];
+    for (int i = 0; i < kL; ++i) {
+      hi[i >> 2] |= ((w >> (2 * BITS * i)) & kMask) << (8 * (i & 3));
+      lo[i >> 2] |= ((w >> (2 * BITS * i + BITS)) & kMask) << (8 * (i & 3));
     }
   }
-  as.template split<BM>(slot + kBK * WROW, ap, k0);
+
+  __device__ __forceinline__ void expand(const unsigned char* slot,
+                                         unsigned char* wp, int k0) const {
+    constexpr int ITEMS = kRows * kBN;
+    constexpr int COL_GROUPS = kBN / CW;
+#pragma unroll
+    for (int item = 0; item < ITEMS / kThreads; ++item) {
+      const int e = threadIdx.x + item * kThreads;
+      const int lane = e & 31, g = e >> 5;
+      const int r = (g / COL_GROUPS) * RW + lane % RW;
+      const int n = (g % COL_GROUPS) * CW + lane / RW;
+      uint32_t w = *reinterpret_cast<const uint32_t*>(
+          slot + r * (kBN * 4) + (chunk_pos<16 + RW>(r, n >> 2) << 4) +
+          4 * (n & 3));
+      const int nv = k_full - (2 * k0 + r * kPer);  // values left in K
+      if (nv < kPer) w = nv > 0 ? w & ((1u << (BITS * nv)) - 1u) : 0u;
+      uint32_t hi[kL / 4], lo[kL / 4];
+      split_word(w, hi, lo);
+      unsigned char* d0 = wp + plane_off(n, r * kL);
+      unsigned char* d1 = d0 + kBN * kPlaneRow;
+      if constexpr (kL == 16) {
+        *reinterpret_cast<uint4*>(d0) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(d1) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      } else if constexpr (kL == 8) {
+        *reinterpret_cast<uint2*>(d0) = make_uint2(hi[0], hi[1]);
+        *reinterpret_cast<uint2*>(d1) = make_uint2(lo[0], lo[1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(d0) = hi[0];
+        *reinterpret_cast<uint32_t*>(d1) = lo[0];
+      }
+    }
+  }
+};
+
+// Issue the copies of stage k0 (W's stage k0 of the block's columns, as
+// the W side stages it; a's rows at the same k, as the a side stages them)
+// into ring slot `slot`.
+template <int BM, bool V16, class P, class WS, class AS>
+__device__ __forceinline__ void issue_stage(const P& p, const WS& ws,
+                                            const AS& as, unsigned char* slot,
+                                            int k0, int k_hi, int m0,
+                                            int n0) {
+  ws.template stage<V16>(p, slot, k0, k_hi, n0);
+  as.template stage<V16, BM>(p, slot + WS::kTile, k0, k_hi, m0);
 }
 
-// The K loop of one block: W rows [k_lo, k_hi) of columns [n0, n0 + kBN)
-// and a's rows [m0, m0 + BM), as the a side `as` stages them, stream
-// through the ring (dynamic shared memory `smem` of smem_bytes(BM,
-// AS::kBytes, WB)), and for every k32 step,
+// Turn the raw W tile of `slot` into K-major planes at `wp` (the W side's
+// expand) and a's staged rows of stage k0 into planes at `ap` (the a
+// side's split).
+template <int BM, class WS, class AS>
+__device__ __forceinline__ void prepare(const unsigned char* slot,
+                                        unsigned char* wp,
+                                        unsigned char* ap, const WS& ws,
+                                        AS& as, int k0) {
+  ws.expand(slot, wp, k0);
+  as.template split<BM>(slot + WS::kTile, ap, k0);
+}
+
+// The K loop of one block: W's K range [k_lo, k_hi) of columns [n0, n0 +
+// kBN), as the W side `ws` stages it, and a's rows [m0, m0 + BM), as the a
+// side `as` stages them, stream through the ring (dynamic shared memory
+// `smem` of smem_bytes_w(BM, AS::kBytes, WS::kTile, WS::kPlanes)), and for
+// every k32 step,
 // 8-row group j of m, W plane pw and a plane pa the block calls
 //   mma(j, pw, pa, A fragment of W plane pw, b0, b1)
 // with the B fragment (b0, b1) of a plane pa, group j.  The loops are
@@ -579,25 +726,28 @@ __device__ __forceinline__ void prepare(const unsigned char* slot,
 // `warp`) is out[m0 + 8j + 2t + (i & 1)][n0 + 16 warp + g + 8 (i >> 1)].
 // The ring and planes are not touched after the last MMA, so an epilogue
 // may follow without a barrier.
-template <int WB, int BM, bool V16, class P, class AS, class Mma>
-__device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
-                                         int m0, int n0, int k_lo,
-                                         int k_hi, AS&& as, Mma&& mma) {
+template <class WS, int BM, bool V16, class P, class AS, class Mma>
+__device__ __forceinline__ void mainloop_w(const P& p, unsigned char* smem,
+                                           int m0, int n0, int k_lo,
+                                           int k_hi, const WS& ws, AS&& as,
+                                           Mma&& mma) {
   constexpr int AB = std::decay_t<AS>::kBytes;
   constexpr int AP = std::decay_t<AS>::kPlanes;
+  constexpr int WB = WS::kPlanes;  // W planes
+  constexpr int WT = WS::kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nsteps = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
-  constexpr int SB = stage_bytes(BM, AB, WB);
+  constexpr int SB = stage_bytes_w(BM, AB, WT);
   constexpr int PB = plane_bytes(BM, AB, WB);
   constexpr int MG = BM / 8;  // 8-row groups of m
-  constexpr int kStages = stages_for(BM, AB, WB);
+  constexpr int kStages = stages_for_w(BM, AB, WT, WB);
   unsigned char* planes = smem + kStages * SB;
 
 #pragma unroll 1
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nsteps)
-      issue_stage<WB, BM, V16>(p, as, smem + s * SB, k_lo + s * kBK, k_hi,
-                               m0, n0);
+      issue_stage<BM, V16>(p, ws, as, smem + s * SB, k_lo + s * kBK, k_hi,
+                           m0, n0);
     cp_async_commit();
   }
 
@@ -614,7 +764,7 @@ __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
   if (nsteps > 0) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
-    prepare<WB, BM>(smem, planes, planes + WB * kBN * kPlaneRow, as, k_lo);
+    prepare<BM>(smem, planes, planes + WB * kBN * kPlaneRow, ws, as, k_lo);
   }
   for (int it = 0; it < nsteps; ++it) {
     // stage it + 1 has landed; the barrier publishes every thread's copies
@@ -625,18 +775,17 @@ __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
     {
       const int s = it + kStages - 1;
       if (s < nsteps)
-        issue_stage<WB, BM, V16>(p, as, smem + (s % kStages) * SB,
-                                 k_lo + s * kBK, k_hi, m0, n0);
+        issue_stage<BM, V16>(p, ws, as, smem + (s % kStages) * SB,
+                             k_lo + s * kBK, k_hi, m0, n0);
       cp_async_commit();
     }
     unsigned char* slot = smem + (it % kStages) * SB;
     unsigned char* wp = planes + (it & 1) * PB;
-    unsigned char* ap = AP == 2 ? wp + WB * kBN * kPlaneRow
-                                : slot + kBK * kBN * WB;
+    unsigned char* ap = AP == 2 ? wp + WB * kBN * kPlaneRow : slot + WT;
     if (it + 1 < nsteps) {
       unsigned char* wn = planes + ((it + 1) & 1) * PB;
-      prepare<WB, BM>(smem + ((it + 1) % kStages) * SB, wn,
-                      wn + WB * kBN * kPlaneRow, as, k_lo + (it + 1) * kBK);
+      prepare<BM>(smem + ((it + 1) % kStages) * SB, wn,
+                  wn + WB * kBN * kPlaneRow, ws, as, k_lo + (it + 1) * kBK);
     }
 
     const uint32_t wp_s = smem_addr(wp), ap_s = smem_addr(ap);
@@ -677,6 +826,15 @@ __device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
       }
     }
   }
+}
+
+// The K loop over W's own rows of WB bytes (RawW<WB>).
+template <int WB, int BM, bool V16, class P, class AS, class Mma>
+__device__ __forceinline__ void mainloop(const P& p, unsigned char* smem,
+                                         int m0, int n0, int k_lo,
+                                         int k_hi, AS&& as, Mma&& mma) {
+  mainloop_w<RawW<WB>, BM, V16>(p, smem, m0, n0, k_lo, k_hi, RawW<WB>(p),
+                                static_cast<AS&&>(as), static_cast<Mma&&>(mma));
 }
 
 // The largest of 16, 8, 4 bytes that divides the row size and the base

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels under ``repro_torch/csrc``.
 
 Each ``csrc/<name>.cu`` compiles, with ``nvcc`` for ``sm_90a``, into its own
-shared library with a plain C interface, loaded with ``ctypes``.  Builds
+shared library (``VARIANTS`` compile one source more than once, with
+defines) with a plain C interface, loaded with ``ctypes``.  Builds
 happen on first use (never at import: the CPU-only test hosts have no
 ``nvcc``), go to ``build/repro_torch/<hash>/`` at the repository root --
 keyed by a hash of the sources and flags -- and all missing libraries are
@@ -25,10 +26,16 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: Libraries compiled from a shared source with their own defines: the
+#: tensor-core K2 over the dense weight store, one library per w_bits, so
+#: that the three compile in parallel.
+VARIANTS = {f"ulppack_matmul_mma_w{b}": ("ulppack_matmul_mma_dense",
+                                         (f"-DDENSE_W_BITS={b}",))
+            for b in (1, 2, 4)}
 SOURCES = ("quant_pack", "ulppack_matmul", "attention_decode",
            "ulppack_conv2d", "int_conv2d", "int_matmul",
            "ulppack_matmul_mma", "ulppack_conv2d_mma", "int_conv2d_mma",
-           "cache_write")
+           "cache_write", *VARIANTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -81,8 +88,9 @@ def build(names=SOURCES) -> dict[str, Path]:
     procs = {}
     for n in todo:
         tmp = out_dir / f"lib{n}.{os.getpid()}.tmp.so"
-        cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
+        src, defines = VARIANTS.get(n, (n, ()))
+        cmd = [exe, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{src}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))

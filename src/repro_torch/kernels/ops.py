@@ -29,15 +29,21 @@ from repro_torch.kernels.plan import KernelPlan
 
 
 def packed_matmul(a_packed, w_packed, spec: PackSpec, *,
-                  backend: str = "auto",
+                  backend: str = "auto", weight_store: str = "lanes",
+                  k_full: int | None = None,
                   plan: KernelPlan | None = None) -> torch.Tensor:
-    """[.., Kp] x [Kp, N] -> exact int32 dot of the underlying lattices."""
+    """[.., Kp] x [Kp, N] -> exact int32 dot of the underlying lattices.
+
+    With ``weight_store='dense'`` (or a dense plan) ``w_packed`` is
+    bit-dense int32 words [ceil(k_full / per), N] and ``k_full`` the
+    unpacked K (default Kp x n_pack)."""
     lead = a_packed.shape[:-1]
     a2 = a_packed.reshape(-1, a_packed.shape[-1])
     if plan is None:
         plan = plan_lib.plan_packed_matmul(
             a2.shape[0], a2.shape[1], w_packed.shape[-1], spec,
-            backend=backend, device=a2.device)
+            weight_store=weight_store, k_full=k_full, backend=backend,
+            device=a2.device)
     out = plan_lib.dispatch(plan, a2, w_packed)
     return out.reshape(*lead, w_packed.shape[-1])
 
@@ -107,6 +113,7 @@ def quantize_pack(x, scale, zero_point, spec: PackSpec, *,
 
 def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
                      spec: PackSpec, *, bias=None, backend: str = "auto",
+                     weight_store: str = "lanes",
                      plan: KernelPlan | None = None,
                      out_dtype=torch.float32):
     """The deployed Sparq linear: runtime pack + packed matmul + dequant.
@@ -114,9 +121,12 @@ def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
     x:          [..., K] float activations (f32, bf16 or f16: the lattice is
                 quantized from their f32 values, exactly as from
                 ``x.float()``)
-    w_packed:   [Kp, N] offline-packed weight lanes (field-reversed)
+    w_packed:   [Kp, N] offline-packed weight lanes (field-reversed), or
+                [ceil(K / per), N] bit-dense int32 words under
+                ``weight_store='dense'`` (per = 32 // w_bits)
     w_col_sums: [N] int32 offline per-column lattice sums
-    plan:       from ``plan_quantized_linear`` (looked up when omitted)
+    plan:       from ``plan_quantized_linear`` (looked up when omitted; its
+                weight store then is ``weight_store``)
     Returns float [..., N]; equals ``ref.quantized_linear_ref`` to float
     tolerance and its integer core exactly.
 
@@ -124,17 +134,18 @@ def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
     fused route's: one launch of the tensor-core K2, which reads x in its
     own dtype, quantizes it as it stages it (K1 folded in) and applies the
     affine correction in its epilogue (``ulppack_matmul.Affine``),
-    returning ``out_dtype`` bit-equal to the plain version below.  Every
-    other backend and layout runs K1, the packed matmul and the eager
-    correction.
+    returning ``out_dtype`` bit-equal to the plain version below; over the
+    dense store it expands the words in its staging.  Every other backend
+    and layout runs K1, the packed matmul (dense words expanded to lanes,
+    as the reference's ``_dense_to_lanes``) and the eager correction.
     """
     k = x.shape[-1]
     lead = x.shape[:-1]
     n = w_packed.shape[-1]
     if plan is None:
         plan = plan_lib.plan_quantized_linear(
-            math.prod(lead), k, n, spec, x.dtype, backend=backend,
-            device=x.device)
+            math.prod(lead), k, n, spec, x.dtype, weight_store=weight_store,
+            backend=backend, device=x.device)
     if plan.op == "quantized_linear":
         out = plan_lib.dispatch(plan, x.reshape(-1, k), w_packed, w_col_sums,
                                 a_scale, a_zp, w_scale, w_zp, bias=bias,
@@ -161,10 +172,16 @@ def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
 # Offline weight preparation
 # ---------------------------------------------------------------------------
 
-def prepare_weights(w, w_scale, w_zp, spec: PackSpec):
-    """Offline weight path: quantize, pack (field-reversed), column sums."""
+def prepare_weights(w, w_scale, w_zp, spec: PackSpec, *,
+                    weight_store: str = "lanes"):
+    """Offline weight path: quantize, pack (field-reversed), column sums.
+
+    ``weight_store='dense'`` stores the lattice bit-dense (int32 words,
+    w_bits a value in device memory) instead of as P1 lanes."""
     q_w = quant.quantize_affine(w, w_scale, w_zp, spec.w_bits)
     col_sums = q_w.sum(dim=0, dtype=torch.int32)
+    if weight_store == "dense":
+        return dense_store_weights(q_w, spec.w_bits), col_sums
     return packing.pack_weights(q_w, spec, axis=0), col_sums
 
 

@@ -141,13 +141,16 @@ class KernelPlan:
 
     Geometry fields are populated per op (``None`` where not applicable):
       packed_matmul    : block_m (rows per block), splits / block_k (K
-                         split count and lanes per split); on the tensor
-                         cores (int16xP2s8) also int_matmul's block_n,
-                         step_k, stages, threads and smem_bytes
+                         split count and lanes per split), weight_store
+                         ('lanes' or 'dense') and k_full (the dense
+                         store's lattice K); on the tensor cores
+                         (int16xP2s8) also int_matmul's block_n, step_k,
+                         stages, threads and smem_bytes
       quantized_linear : the tensor-core K2 with K1 folded in (int16xP2s8
                          on the card): packed_matmul's tensor-core fields
                          for float activation rows, k_full (the lattice
-                         K) and x_bytes (the activations' element size)
+                         K), x_bytes (the activations' element size) and
+                         weight_store
       int_matmul       : block_m / block_n (output rows / columns per
                          block), step_k (K per stage), stages, threads,
                          splits / block_k (K split count and K per split),
@@ -318,21 +321,71 @@ def packed_matmul_on_tensor_cores(spec: PackSpec) -> bool:
             and spec.shift == 8)
 
 
-def plan_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
-                       backend: str = "auto", device="cpu") -> KernelPlan:
-    """Plan a packed-lane matmul [m, kp] x [kp, n] (kernel K2).
+WEIGHT_STORES = ("lanes", "dense")
+#: The weight bit widths the tensor-core K2 expands from the bit-dense
+#: store (``DenseW`` in csrc/mma_s8.cuh): a 128-value stage must be whole
+#: words of 32 // w_bits values, which w_bits 3 (10 a word) is not.
+DENSE_MMA_W_BITS = (1, 2, 4)
 
-    The layout picks the kernel (:func:`packed_matmul_on_tensor_cores`):
-    ``int16xP2s8`` runs on the int8 tensor cores over K7's tile, and the
-    plan carries that tile's whole geometry (block_m of 8/16/32/64 rows,
-    128 columns, 64 lanes a stage, the ring, 256 threads, the shared
-    memory; K in splits of at most 16384 lanes; rows and splits from a
-    wave cost model fitted on an H100, ``_tile_split``); every other
-    layout takes the CUDA-core kernel with
-    :func:`packed_matmul_core_geometry`."""
+
+def _check_store(weight_store: str, spec: PackSpec, k_full, kp: int):
+    """The lattice K of a plan: ``k_full`` (the dense store's unpacked K;
+    ``kp * n_pack`` when omitted) or None for lanes."""
+    if weight_store not in WEIGHT_STORES:
+        raise ValueError(f"weight_store must be 'lanes' or 'dense', got "
+                         f"{weight_store!r}")
+    if weight_store == "lanes":
+        return None
+    k = kp * spec.n_pack if k_full is None else int(k_full)
+    if not (kp - 1) * spec.n_pack < k <= kp * spec.n_pack:
+        raise ValueError(f"k_full {k} does not fill {kp} lanes of "
+                         f"{spec.n_pack}")
+    return k
+
+
+def dense_words(k: int, w_bits: int) -> int:
+    """Rows of bit-dense int32 words that hold ``k`` lattice values."""
+    return -(-k // (32 // w_bits))
+
+
+def dense_w_tile_bytes(w_bits: int) -> int:
+    """Bytes of one raw W tile of the dense store in the tensor-core K2's
+    ring: the words of a stage's 2 x 64 lattice values (``2 * kBK // per``
+    rows) x 128 columns of 4 bytes."""
+    return 2 * INT_MATMUL_BK // (32 // w_bits) * INT_MATMUL_BN * 4
+
+
+def _check_dense_mma(spec: PackSpec):
+    if spec.w_bits not in DENSE_MMA_W_BITS:
+        raise NotImplementedError(
+            f"the tensor-core K2 expands bit-dense words of w_bits "
+            f"{DENSE_MMA_W_BITS} (a 128-value stage in whole words); "
+            f"w_bits {spec.w_bits} is still to be ported (ROADMAP.md "
+            f"Queue 2, K2)")
+
+
+def plan_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
+                       weight_store: str, k_full: int | None = None,
+                       backend: str = "auto", device="cpu") -> KernelPlan:
+    """Plan a packed-lane matmul [m, kp] x W -> [m, n] (kernel K2).
+
+    ``weight_store`` (required: it decides the W staging) is 'lanes' (W is
+    [kp, n] lanes) or 'dense' (W is [ceil(k_full / per), n] bit-dense
+    int32 words, per = 32 // w_bits, ``k_full`` the lattice K, default kp
+    x n_pack); the plan records both.  The layout picks the kernel
+    (:func:`packed_matmul_on_tensor_cores`): ``int16xP2s8`` runs on the
+    int8 tensor cores over K7's tile, and the plan carries that tile's
+    whole geometry (block_m of 8/16/32/64 rows, 128 columns, 64 lanes a
+    stage, the ring, 256 threads, the shared memory -- whose ring slots
+    hold the dense store's words in place of lanes; K in splits of at
+    most 16384 lanes, whole words; rows and splits from a wave cost model
+    fitted on an H100, ``_tile_split``); every other layout takes the
+    CUDA-core kernel with :func:`packed_matmul_core_geometry` (the dense
+    words expanded to lanes ahead of it)."""
     return _plan_packed_matmul(m, kp, n, spec,
                                resolve_backend(backend, device),
-                               _device_key(device))
+                               _device_key(device), weight_store,
+                               _check_store(weight_store, spec, k_full, kp))
 
 
 def packed_matmul_core_geometry(m: int, kp: int, n: int, spec: PackSpec,
@@ -357,21 +410,36 @@ def packed_matmul_core_geometry(m: int, kp: int, n: int, spec: PackSpec,
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_packed_matmul(m, kp, n, spec, backend, device_key) -> KernelPlan:
+def _plan_packed_matmul(m, kp, n, spec, backend, device_key, weight_store,
+                        k_full) -> KernelPlan:
     spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
+    store = dict(weight_store=weight_store, k_full=k_full)
     if not packed_matmul_on_tensor_cores(spec):
         return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
+                          **store,
                           **packed_matmul_core_geometry(m, kp, n, spec,
                                                         device_key))
+    if weight_store == "dense" and backend == "cuda":
+        _check_dense_mma(spec)
     return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
+                      **store,
                       **_mma_geometry(m, kp, n, _ULPPACK_MMA_STAGE_COST, 2,
-                                      device_key))
+                                      device_key, _w_tile(spec, weight_store)))
 
 
-def _mma_geometry(m, kp, n, stage_cost, a_bytes, device_key) -> dict:
+def _w_tile(spec: PackSpec, weight_store: str) -> int | None:
+    """The raw W tile bytes of a ring slot for the dense store (None:
+    int16 lanes, kBK x kBN x 2)."""
+    return dense_w_tile_bytes(spec.w_bits) if weight_store == "dense" \
+        else None
+
+
+def _mma_geometry(m, kp, n, stage_cost, a_bytes, device_key,
+                  w_tile=None) -> dict:
     """The tensor-core K2's geometry: rows, the K split by the wave model
     with ``stage_cost``, and the ring and shared memory for a's staged
-    bytes a lane (2 for lanes, 2 x the element size for float x)."""
+    bytes a lane (2 for lanes, 2 x the element size for float x) and W's
+    raw tile (``w_tile`` bytes of dense words, or int16 lanes)."""
     # rows: the smallest block that holds m, or 16/32-row blocks below it
     # (more blocks, each stage's MMAs and plane split shorter)
     block_ms = {_block_m_for(m)} | {b for b in (16, 32) if b < m}
@@ -379,7 +447,7 @@ def _mma_geometry(m, kp, n, stage_cost, a_bytes, device_key) -> dict:
                                   _ULPPACK_MMA_BLOCK_COST,
                                   _ulppack_mma_split_cost,
                                   ULPPACK_MMA_MAX_BLOCK_K, device_key)
-    stages, smem = int_matmul_smem_layout(bm, a_bytes, 2)
+    stages, smem = int_matmul_smem_layout(bm, a_bytes, 2, w_tile=w_tile)
     return dict(block_m=bm, block_n=INT_MATMUL_BN, step_k=INT_MATMUL_BK,
                 stages=stages, threads=INT_MATMUL_THREADS,
                 block_k=per * INT_MATMUL_BK, splits=splits, smem_bytes=smem)
@@ -390,27 +458,33 @@ QUANT_X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def plan_quantized_linear(m: int, k: int, n: int, spec: PackSpec,
-                          x_dtype=torch.float32, *, backend: str = "auto",
+                          x_dtype=torch.float32, *, weight_store: str,
+                          backend: str = "auto",
                           device="cpu") -> KernelPlan:
     """Plan ``ops.quantized_linear`` over x [m, k] of ``x_dtype`` against
-    weight lanes [ceil(k / n_pack), n].
+    weight lanes [ceil(k / n_pack), n] (``weight_store='lanes'``) or
+    bit-dense words [ceil(k / per), n] ('dense'); ``weight_store`` is
+    required: it decides the W staging.
 
-    On the 'cuda' backend with ``int16xP2s8`` lanes: the fused route, op
-    'quantized_linear' -- one launch of the tensor-core K2 that stages x
-    and quantizes it into its byte planes (K1 folded in) -- with the
+    On the 'cuda' backend with an ``int16xP2s8`` layout: the fused route,
+    op 'quantized_linear' -- one launch of the tensor-core K2 that stages
+    x and quantizes it into its byte planes (K1 folded in), and stages W
+    as lanes or as words that it expands into the same planes -- with the
     tile's geometry for float rows of ``x_dtype`` (a stage holds 128
     values a row, so the ring is shallower than for lanes: bf16 at 64 rows
     fits 5 stages, f32 3), rows and splits by :func:`plan_packed_matmul`'s
     wave model with the quantize's stage costs (splits of at most 16384
-    lanes), ``k_full`` = k and ``x_bytes``.  Every other backend and
-    layout: the packed matmul's plan (K1, K2 and the eager epilogue run
-    apart)."""
+    lanes), ``k_full`` = k, ``x_bytes`` and the weight store.  Every other
+    backend and layout: the packed matmul's plan (K1, K2 and the eager
+    epilogue run apart)."""
     backend = resolve_backend(backend, device)
+    kp = -(-k // spec.n_pack)
+    k_full = _check_store(weight_store, spec, k, kp)
     if backend == "cuda" and packed_matmul_on_tensor_cores(spec):
         return _plan_quantized_linear(m, k, n, spec, _x_bytes(x_dtype),
-                                      _device_key(device))
-    return _plan_packed_matmul(m, -(-k // spec.n_pack), n, spec, backend,
-                               _device_key(device))
+                                      _device_key(device), weight_store)
+    return _plan_packed_matmul(m, kp, n, spec, backend, _device_key(device),
+                               weight_store, k_full)
 
 
 def _x_bytes(x_dtype) -> int:
@@ -421,13 +495,17 @@ def _x_bytes(x_dtype) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_quantized_linear(m, k, n, spec, x_bytes, device_key) -> KernelPlan:
+def _plan_quantized_linear(m, k, n, spec, x_bytes, device_key,
+                           weight_store) -> KernelPlan:
     spec.validate()
+    _check_store(weight_store, spec, k, -(-k // spec.n_pack))
+    if weight_store == "dense":
+        _check_dense_mma(spec)
     return KernelPlan(op="quantized_linear", backend="cuda", spec=spec,
-                      k_full=k, x_bytes=x_bytes,
+                      k_full=k, x_bytes=x_bytes, weight_store=weight_store,
                       **_mma_geometry(m, -(-k // spec.n_pack), n,
                                       _QUANT_MMA_STAGE_COST, 2 * x_bytes,
-                                      device_key))
+                                      device_key, _w_tile(spec, weight_store)))
 
 
 def plan_quantize_pack(m: int, k: int, spec: PackSpec, *,
@@ -464,19 +542,23 @@ def plan_int_matmul(m: int, k: int, n: int, *, a_bytes: int = 1,
                             _device_key(device))
 
 
-def int_matmul_smem_layout(block_m: int, a_bytes: int,
-                           w_bytes: int) -> tuple[int, int]:
+def int_matmul_smem_layout(block_m: int, a_bytes: int, w_bytes: int, *,
+                           w_tile: int | None = None) -> tuple[int, int]:
     """(ring depth, shared memory) of one block of the int8 tile (K7, and
     the tensor-core K2 with 2-byte operands): the layout of ``stages_for``
     and ``smem_bytes`` in csrc/mma_s8.cuh.  Ring slots, each a raw W tile
-    [64, 128] and block_m raw a rows of 64 K steps of ``a_bytes`` (+16
-    bytes of padding), as many as fit beside two buffers of K-major byte
-    planes (one per byte of W; a's two unless a is int8, whose rows the
+    ([64, 128] of ``w_bytes``, or ``w_tile`` bytes of the dense store's
+    words, :func:`dense_w_tile_bytes`) and block_m raw a rows of 64 K
+    steps of ``a_bytes`` (+16 bytes of padding), as many as fit beside two
+    buffers of K-major byte planes (one per byte of W -- two for the dense
+    store's hi and lo values --; a's two unless a is int8, whose rows the
     MMAs read from the ring), up to ``INT_MATMUL_MAX_STAGES``.  The fused
     quantize stages two float values a lane: ``a_bytes`` = 2 x their
     element size."""
     bk, row = INT_MATMUL_BK, INT_MATMUL_PLANE_ROW
-    stage = bk * INT_MATMUL_BN * w_bytes + block_m * (bk * a_bytes + 16)
+    if w_tile is None:
+        w_tile = bk * INT_MATMUL_BN * w_bytes
+    stage = w_tile + block_m * (bk * a_bytes + 16)
     planes = w_bytes * INT_MATMUL_BN * row + (
         2 * block_m * row if a_bytes >= 2 else 0)
     stages = min(INT_MATMUL_MAX_STAGES,

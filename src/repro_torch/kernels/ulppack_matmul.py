@@ -15,11 +15,18 @@ weight lanes w [Kp, N].  The layout picks one of two hand-written kernels
   ``ops.quantized_linear`` fused in on request (:class:`Affine`).  The
   same kernel also takes the float activations themselves and quantizes
   them as it stages them (K1 folded in, :func:`quantized_linear_mma_cuda`):
-  ``ops.quantized_linear`` on the card is then one launch.
+  ``ops.quantized_linear`` on the card is then one launch.  With the
+  bit-dense weight store (``weight_store='dense'`` plans: int32 words of
+  w_bits 1, 2 or 4) it stages the words and expands them into the same
+  byte planes (``csrc/ulppack_matmul_mma_dense.cu``, one library per
+  w_bits).
 - every other layout: ``csrc/ulppack_matmul.cu`` (CUDA cores, 32-bit
   integer registers), the faithful kernel: runs of at most ``k_tile``
   lanes contracted in packed space, then ``(t >> shift*(n_pack-1)) &
-  field_mask`` taken and summed wide.
+  field_mask`` taken and summed wide.  A dense store is expanded to lanes
+  ahead of it by :func:`dense_to_lanes` (on the card, in PyTorch), as the
+  reference expands it ahead of its Pallas kernel; no shipped config or
+  draft uses these layouts.
 
 K7 replaces ``repro/kernels/ulppack_matmul.py:int_matmul`` (Pallas kernel
 ``_int_kernel``, pallas_call at :145): s8/s16 x s8/s16 -> s32, wrapped mod
@@ -32,9 +39,11 @@ shared memory, int16 operands as two byte planes, edge tiles masked).
 PyTorch versions (the CPU path and the on-card comparison);
 ``kernel_launches`` / ``plain_calls`` count the CUDA-core K2's and K7's
 launches and each plain version's calls, keyed by kernel name, and
-``mma_launches`` the tensor-core K2's, keyed by route: lanes in with the
-s32 dot or the affine epilogue out, or activations in with the quantize
-and the affine epilogue fused ("quant_affine").
+``mma_launches`` the tensor-core K2's over weight lanes, keyed by route:
+lanes in with the s32 dot or the affine epilogue out, or activations in
+with the quantize and the affine epilogue fused ("quant_affine"), and
+``dense_mma_launches`` its launches over the dense store, by the same
+routes.
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ kernel_launches = dict.fromkeys(NAMES, 0)
 plain_calls = dict.fromkeys(NAMES, 0)
 #: Launches of the tensor-core K2 in this process, keyed by route.
 mma_launches = {"s32": 0, "affine": 0, "quant_affine": 0}
+#: ... and over the bit-dense weight store, by the same routes.
+dense_mma_launches = dict(mma_launches)
 
 #: int64 bytes one chunk of the plain int_matmul may hold on the card.
 _PLAIN_BUDGET = 1 << 28
@@ -69,7 +80,7 @@ def reset_counts():
     for k in NAMES:
         kernel_launches[k] = plain_calls[k] = 0
     for k in mma_launches:
-        mma_launches[k] = 0
+        mma_launches[k] = dense_mma_launches[k] = 0
 
 
 def _check(a_packed, w_packed, spec: PackSpec):
@@ -83,6 +94,25 @@ def _check(a_packed, w_packed, spec: PackSpec):
             or a_packed.shape[1] != w_packed.shape[0]:
         raise ValueError(f"shapes {tuple(a_packed.shape)} x "
                          f"{tuple(w_packed.shape)} do not contract")
+
+
+def dense_to_lanes(words: torch.Tensor, spec: PackSpec,
+                   k_full: int) -> torch.Tensor:
+    """The plain expansion of bit-dense weight words [ceil(k_full / per),
+    N] (per = 32 // w_bits) to field-reversed lanes [ceil(k_full /
+    n_pack), N]: the reference's ``_dense_to_lanes``."""
+    _check_words(words, spec, k_full)
+    q_w = packing.unpack_words(words, spec.w_bits, k_full, axis=0)
+    return packing.pack_weights(q_w, spec, axis=0)
+
+
+def _check_words(words, spec: PackSpec, k_full: int):
+    rows = plan_lib.dense_words(k_full, spec.w_bits)
+    if words.dtype != torch.int32 or words.dim() != 2 \
+            or words.shape[0] != rows:
+        raise ValueError(f"the dense store of K = {k_full} at w_bits "
+                         f"{spec.w_bits} is int32 words [{rows}, N], got "
+                         f"{words.dtype} {tuple(words.shape)}")
 
 
 def ulppack_matmul_torch(a_packed: torch.Tensor, w_packed: torch.Tensor,
@@ -261,9 +291,11 @@ def _affine_operands(ep: Affine, m: int, n: int, dev: torch.device):
 def _launch_mma(a, w, m, kp, n, plan, dev, *, a_kind=0, k_full=0, qmax=0,
                 out_dtype=torch.int32, out_kind=0, bias_kind=0, tensors=()):
     """One launch of csrc/ulppack_matmul_mma.cu on contiguous operands: a
-    (lanes, or x with ``a_kind`` 1-3), w [kp, n] lanes, the epilogue's
-    ``tensors`` (see :func:`_affine_operands`), the split-K workspace and
-    tickets of this device and stream."""
+    (lanes, or x with ``a_kind`` 1-3), w [kp, n] lanes -- or, with a
+    'dense' plan, the words of csrc/ulppack_matmul_mma_dense.cu's library
+    for the plan's w_bits --, the epilogue's ``tensors`` (see
+    :func:`_affine_operands`), the split-K workspace and tickets of this
+    device and stream."""
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
@@ -276,27 +308,52 @@ def _launch_mma(a, w, m, kp, n, plan, dev, *, a_kind=0, k_full=0, qmax=0,
     work, tickets = _workspace(dev, stream, work_len, tiles)
     ptrs = [0 if t is None else t.data_ptr() for t in tensors]
     ptrs += [0] * (7 - len(ptrs))
-    fn = _launch.get("ulppack_matmul_mma")
+    dense = () if plan.weight_store != "dense" else (plan.spec.w_bits,)
+    lib = f"ulppack_matmul_mma_w{dense[0]}" if dense else "ulppack_matmul_mma"
+    fn = _launch.get(lib)
     if fn is None:
-        fn = _launch["ulppack_matmul_mma"] = build.bind(
-            "ulppack_matmul_mma", "ulppack_matmul_mma_launch", 12, 18)
+        fn = _launch[lib] = build.bind(
+            lib, "ulppack_matmul_mma_dense_launch" if dense
+            else "ulppack_matmul_mma_launch", 12, 18 + len(dense))
     fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(),
        tickets.data_ptr(), *ptrs, m, kp, n, k_full, a_kind, qmax, out_kind,
        bias_kind, work.numel(), tickets.numel(), plan.block_m, plan.block_n,
        plan.step_k, plan.block_k, plan.splits, plan.stages, plan.threads,
-       plan.smem_bytes, dev.index or 0, stream)
+       plan.smem_bytes, *dense, dev.index or 0, stream)
     return out
+
+
+def _count(plan, route: str):
+    """Count one tensor-core K2 launch of ``route`` on ``plan``'s weight
+    store."""
+    (dense_mma_launches if plan.weight_store == "dense"
+     else mma_launches)[route] += 1
 
 
 def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
                             spec: PackSpec, *, plan,
                             epilogue: Affine | None = None) -> torch.Tensor:
     """Launch the tensor-core K2 (CUDA tensors, ``int16xP2s8`` lanes) with
-    the geometry of ``plan`` (``plan_packed_matmul`` for these shapes):
-    the exact int32 dot [M, N], or with ``epilogue`` the affine map of
-    ``ops.quantized_linear`` as ``epilogue.out_dtype`` (f32, bf16 or f16).
-    One launch; no fall-back."""
-    _check(a_packed, w_packed, spec)
+    the geometry of ``plan`` (``plan_packed_matmul`` for these shapes and
+    weight store): the exact int32 dot [M, N], or with ``epilogue`` the
+    affine map of ``ops.quantized_linear`` as ``epilogue.out_dtype`` (f32,
+    bf16 or f16).  With a 'dense' plan ``w_packed`` is the bit-dense words
+    [ceil(plan.k_full / per), N], expanded in the kernel's staging.  One
+    launch; no fall-back."""
+    dense = plan.weight_store == "dense"
+    if dense:
+        _check_words(w_packed, spec, plan.k_full)
+        kp = -(-plan.k_full // spec.n_pack)
+        if a_packed.dtype != spec.lane_dtype or a_packed.dim() != 2 \
+                or a_packed.shape[1] != kp:
+            raise ValueError(f"a must be {spec.lane_name} lanes [M, {kp}], "
+                             f"got {a_packed.dtype} "
+                             f"{tuple(a_packed.shape)}")
+    else:
+        _check(a_packed, w_packed, spec)
+    if plan.op != "packed_matmul" or plan.spec != spec:
+        raise ValueError(f"plan {plan.describe()} is not a packed matmul's "
+                         f"for {spec}")
     if not plan_lib.packed_matmul_on_tensor_cores(spec):
         raise ValueError(f"{spec}: the tensor-core K2 takes int16xP2s8 "
                          f"lanes only")
@@ -309,15 +366,19 @@ def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
     w = w_packed.contiguous()
     m, kp = a.shape
     n = w.shape[1]
+    k_full = plan.k_full if dense else 0
     if epilogue is None:
-        out = _launch_mma(a, w, m, kp, n, plan, a.device)
+        out = _launch_mma(a, w, m, kp, n, plan, a.device, k_full=k_full)
     else:
+        if dense and epilogue.k != k_full:
+            raise ValueError(f"the epilogue's K {epilogue.k} is not the "
+                             f"plan's {k_full}")
         out_kind, bias_kind, tensors = _affine_operands(epilogue, m, n,
                                                         a.device)
         out = _launch_mma(a, w, m, kp, n, plan, a.device, k_full=epilogue.k,
                           out_dtype=epilogue.out_dtype, out_kind=out_kind,
                           bias_kind=bias_kind, tensors=tensors)
-    mma_launches["s32" if epilogue is None else "affine"] += 1
+    _count(plan, "s32" if epilogue is None else "affine")
     return out
 
 
@@ -330,9 +391,11 @@ def quantized_linear_mma_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     in its own dtype and quantized per stage into the byte planes the MMAs
     read, its lattice row sums added up on the way, then the affine
     epilogue (:class:`Affine`).  ``w_packed`` [ceil(K / 2), N]
-    ``int16xP2s8`` lanes; ``plan`` from ``plan_quantized_linear`` for these
-    shapes and x's dtype.  Bit-equal to K1 on ``x.float()`` followed by
-    :func:`ulppack_matmul_mma_cuda` with the epilogue, and to the plain
+    ``int16xP2s8`` lanes, or with a 'dense' plan the bit-dense words
+    [ceil(K / per), N]; ``plan`` from ``plan_quantized_linear`` for these
+    shapes, x's dtype and the weight store.  Bit-equal to K1 on
+    ``x.float()`` followed by :func:`ulppack_matmul_mma_cuda` with the
+    epilogue, and to the plain
     version (``ops.quantized_linear`` on the 'torch' backend).  One launch;
     no fall-back."""
     if not spec.feasible:
@@ -344,7 +407,9 @@ def quantized_linear_mma_cuda(x: torch.Tensor, w_packed: torch.Tensor,
         raise TypeError(f"x must be float32, bfloat16 or float16 [M, K], got "
                         f"{x.dtype} {tuple(x.shape)}")
     k = x.shape[1]
-    if w_packed.dtype != spec.lane_dtype or w_packed.dim() != 2 \
+    if plan.weight_store == "dense":
+        _check_words(w_packed, spec, k)
+    elif w_packed.dtype != spec.lane_dtype or w_packed.dim() != 2 \
             or w_packed.shape[0] != -(-k // spec.n_pack):
         raise ValueError(f"w_packed must be {spec.lane_name} lanes "
                          f"[{-(-k // spec.n_pack)}, N], got {w_packed.dtype} "
@@ -353,7 +418,7 @@ def quantized_linear_mma_cuda(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError("quantized_linear_mma_cuda needs x and w_packed on "
                          "one CUDA device")
     if plan.op != "quantized_linear" or plan.k_full != k \
-            or plan.x_bytes != x.element_size():
+            or plan.x_bytes != x.element_size() or plan.spec != spec:
         raise ValueError(f"plan {plan.describe()} is not the fused route's "
                          f"for K = {k} and {x.dtype}")
     x = x.contiguous()
@@ -362,11 +427,11 @@ def quantized_linear_mma_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     out_kind, bias_kind, tensors = _affine_operands(
         Affine(None, col_sums, a_scale, a_zp, w_scale, w_zp, k, bias,
                out_dtype), m, n, x.device)
-    out = _launch_mma(x, w, m, w.shape[0], n, plan, x.device,
+    out = _launch_mma(x, w, m, -(-k // spec.n_pack), n, plan, x.device,
                       a_kind=_X_KINDS[x.dtype], k_full=k, qmax=spec.max_a,
                       out_dtype=out_dtype, out_kind=out_kind,
                       bias_kind=bias_kind, tensors=tensors)
-    mma_launches["quant_affine"] += 1
+    _count(plan, "quant_affine")
     return out
 
 
@@ -432,6 +497,8 @@ def int_matmul_cuda(q_a: torch.Tensor, q_w: torch.Tensor, *,
 
 @plan_lib.register_backend("packed_matmul", "torch")
 def _packed_matmul_torch(plan, a2, w):
+    if plan.weight_store == "dense":
+        w = dense_to_lanes(w, plan.spec, plan.k_full)
     return ulppack_matmul_torch(a2, w, plan.spec)
 
 
@@ -439,6 +506,10 @@ def _packed_matmul_torch(plan, a2, w):
 def _packed_matmul_cuda(plan, a2, w):
     if plan_lib.packed_matmul_on_tensor_cores(plan.spec):
         return ulppack_matmul_mma_cuda(a2, w, plan.spec, plan=plan)
+    if plan.weight_store == "dense":
+        # the CUDA-core kernel reads lanes: the words are expanded ahead of
+        # it, as the reference expands them ahead of its Pallas kernel
+        w = dense_to_lanes(w, plan.spec, plan.k_full)
     return ulppack_matmul_cuda(a2, w, plan.spec, block_m=plan.block_m,
                                block_k=plan.block_k, splits=plan.splits)
 

@@ -1,9 +1,11 @@
 """Serving step factories (counterpart of the serving half of
 ``repro/launch/steps.py``): ``decode_step`` and ``prefill_chunk_step``,
-run op by op (:func:`make_decode_step`, :func:`make_prefill_chunk_step`)
-or over static device buffers replayed as CUDA graphs
-(:func:`graphed_serving_steps`, the counterpart of the reference's
-``jitted_serving_steps``).
+and speculative decoding's ``draft_step`` and ``verify_chunk_step``, run
+op by op (:func:`make_decode_step`, :func:`make_prefill_chunk_step`,
+:func:`make_draft_step`, :func:`make_verify_chunk_step`) or over static
+device buffers replayed as CUDA graphs (:func:`graphed_serving_steps` and
+:func:`graphed_speculative_steps`, the counterparts of the reference's
+``jitted_serving_steps`` and ``jitted_speculative_steps``).
 
 Both run the deployed packed path (quant_mode 'packed' when the config
 quantizes).  Where the reference jits them with ``donate_argnums=(1,)``, the
@@ -66,6 +68,26 @@ def _forward(cfg, qmode, backend, params, caches, tokens, idx, vld, bt):
     return logits
 
 
+def _draft(cfg, qmode, backend, params, caches, tokens, idx, lim, bt, k):
+    """The draft step's body on device tensors: k + 1 single-token forwards
+    from each row's last token ``tokens[:, 0]`` at positions ``idx + i``;
+    forward ``i`` writes its K/V row iff ``i < lim + 1`` (``lim`` -1 gates
+    every write off), and forwards 0 .. k-1 feed their argmax to the next.
+    The k-th forward runs for its cache write alone: when every draft is
+    accepted the next cycle needs the last draft's K/V.  Returns the
+    drafts [B, k] int32 (rows past ``lim`` are garbage the host ignores)."""
+    tok = tokens[:, :1]
+    drafted = []
+    for i in range(k + 1):
+        logits = _forward(cfg, qmode, backend, params, caches, tok, idx + i,
+                          (lim + 1 > i).to(torch.int32), bt)
+        if i < k:
+            # the pad-vocab bias already keeps the argmax in the real vocab
+            tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            drafted.append(tok)
+    return torch.cat(drafted, dim=1).to(torch.int32)
+
+
 def _last_valid(logits, vld):
     """Each row's logits at its last valid token (row 0 for a dead row)."""
     last = torch.clamp(vld.to(torch.int64) - 1, 0, logits.shape[1] - 1)
@@ -113,13 +135,56 @@ def make_prefill_chunk_step(cfg, *, backend: str = "auto"):
     return prefill_chunk_step
 
 
+def make_verify_chunk_step(cfg, *, backend: str = "auto"):
+    """Speculative verify step, run op by op: a prefill-chunk window that
+    returns every position's logits [B, w, vocab] (row j scores the token
+    at ``index + j + 1``), with the prefill chunk's cache semantics
+    (writes at ``index`` gated by the valid prefix ``valid``).  Positions
+    past the accepted prefix keep stale K/V, masked until a later pass
+    overwrites them: rollback is not advancing the slot position."""
+    qmode = quant_mode_for(cfg, "prefill_chunk")
+
+    def verify_chunk_step(params, caches, batch, index, valid,
+                          block_tables=None):
+        dev = params["embed"]["table"].device
+        return _forward(cfg, qmode, backend, params, caches,
+                        *_inputs(batch, index, valid, block_tables,
+                                 dev)), caches
+
+    return verify_chunk_step
+
+
+def make_draft_step(cfg, k: int, *, backend: str = "auto"):
+    """Draft ``k`` greedy tokens a slot in one step, run op by op.
+
+    ``cfg`` is the DRAFT config (serve/speculative.draft_model_config).
+    ``batch["tokens"][:, 0]`` is each slot's last committed token,
+    ``index`` [B] its position, ``limit`` [B] its cap (``min(k, remaining
+    - 1)``, -1 for a dead slot): forward ``i`` writes its K/V row iff
+    ``i < limit + 1``, so the draft never writes past the slot's reserved
+    extent, and a dead slot writes nothing.  Drafting is greedy (a delta
+    proposal), so the step needs no random numbers.  Returns (drafts
+    [B, k] int32, caches)."""
+    qmode = quant_mode_for(cfg, "decode")
+
+    def draft_step(params, caches, batch, index, limit, block_tables=None):
+        dev = params["embed"]["table"].device
+        tokens, idx, lim, bt = _inputs(batch, index, limit, block_tables,
+                                       dev)
+        return _draft(cfg, qmode, backend, params, caches, tokens, idx, lim,
+                      bt, k), caches
+
+    return draft_step
+
+
 # ---------------------------------------------------------------------------
 # Static-buffer steps, captured as CUDA graphs
 # ---------------------------------------------------------------------------
 
 #: The launch and call counters of the kernel wrappers a step can reach.
 _COUNTED = (quant_pack, ulppack_matmul, ulppack_attention, cache_write)
-_COUNTERS = ("kernel_launches", "plain_calls", "mma_launches")
+_COUNTERS = ("kernel_launches", "plain_calls", "mma_launches",
+             "dense_mma_launches")
 
 
 def _counts() -> dict:
@@ -168,26 +233,44 @@ def _ptrs(tree) -> list:
     return [t.data_ptr() for t in _leaves(tree)]
 
 
+#: The steps a StaticStep runs: what its window's fifth input is (valid
+#: counts, or the draft's caps) and the value that makes a row dead.
+_KINDS = {"decode": ("valid", 0), "prefill_chunk": ("valid", 0),
+          "verify": ("valid", 0), "draft": ("limit", -1)}
+
+
 class StaticStep:
-    """One serving step (decode, or a prefill chunk of ``width`` tokens)
-    over static device buffers: tokens [B, width] int64, offsets and valid
-    counts [B] int32, and with ``block_table_width`` the block table [B,
-    block_table_width] int32.
+    """One serving step over static device buffers: tokens [B, width]
+    int64, offsets [B] int32, valid counts [B] int32 (the draft step: caps
+    ``limit``), and with ``block_table_width`` the block table [B,
+    block_table_width] int32.  ``kind`` is 'decode' (width 1) or
+    'prefill_chunk' (returns the logits of each row's last valid token
+    [B, vocab]), 'verify' (returns the whole window's logits [B, width,
+    vocab]) or 'draft' (width 1, ``k`` drafts: returns them [B, k] int32).
 
     A call copies its numpy inputs into the buffers (on the card through
     pinned host staging, ``non_blocking``), runs the step and returns
-    (logits of each row's last valid token [B, vocab], caches).  Once
-    :meth:`capture` has run (CUDA), the step is a graph replay and the
-    logits are the graph's static output tensor, overwritten by the next
-    call: read them before calling again.  On the CPU the same body runs
-    eagerly on the buffers.  The step refuses ``params`` / ``caches``
-    other than the tensors it was built over (their ``data_ptr()``s)."""
+    (output, caches).  Once :meth:`capture` has run (CUDA), the step is a
+    graph replay and the output is the graph's static tensor, overwritten
+    by the next call: read it before calling again.  On the CPU the same
+    body runs eagerly on the buffers.  The step refuses ``params`` /
+    ``caches`` other than the tensors it was built over (their
+    ``data_ptr()``s)."""
 
     def __init__(self, cfg, params, caches, *, kind: str, batch: int,
                  width: int, block_table_width: int | None = None,
-                 backend="auto"):
+                 backend="auto", k: int = 0):
+        if kind not in _KINDS:
+            raise ValueError(f"unknown step kind {kind!r}")
+        if kind == "draft" and (width != 1 or k < 1):
+            raise ValueError("the draft step takes one token a row and "
+                             "k >= 1 drafts")
         self.kind = kind
-        self._body = (cfg, quant_mode_for(cfg, kind), backend)
+        self.k = k
+        self._fifth, self._dead = _KINDS[kind]
+        self._body = (cfg, quant_mode_for(
+            cfg, "decode" if kind == "draft" else
+            "prefill_chunk" if kind == "verify" else kind), backend)
         self._params, self._caches = params, caches
         self._param_ptrs, self._cache_ptrs = _ptrs(params), _ptrs(caches)
         dev = self.device = params["embed"]["table"].device
@@ -196,7 +279,8 @@ class StaticStep:
             "tokens": torch.zeros((batch, width), dtype=torch.int64,
                                   device=dev),
             "index": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "valid": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+            self._fifth: torch.full((batch,), self._dead, dtype=torch.int32,
+                                    device=dev)}
         if block_table_width is not None:
             self.buffers["block_tables"] = torch.zeros(
                 (batch, block_table_width), dtype=torch.int32, device=dev)
@@ -218,19 +302,24 @@ class StaticStep:
         """The step's body on the static buffers (eager)."""
         cfg, qmode, backend = self._body
         b = self.buffers
-        logits = _forward(cfg, qmode, backend, self._params, self._caches,
-                          b["tokens"], b["index"], b["valid"],
-                          b.get("block_tables"))
-        return _last_valid(logits, b["valid"])
+        args = (cfg, qmode, backend, self._params, self._caches,
+                b["tokens"], b["index"], b[self._fifth],
+                b.get("block_tables"))
+        if self.kind == "draft":
+            return _draft(*args, self.k)
+        logits = _forward(*args)
+        return logits if self.kind == "verify" \
+            else _last_valid(logits, b["valid"])
 
     def capture(self):
         """Capture :meth:`run` into a CUDA graph (its kernels must have run
         once, outside any capture, on these buffers).  The buffers are left
-        with every row dead (valid 0), as warm-up ran them.  Counts the
-        launches the graph holds; each replay adds them to the wrappers'
-        counters.  Raises when the capture fails."""
-        for buf in self.buffers.values():
-            buf.zero_()
+        with every row dead (valid 0, or the draft's cap -1: no cache
+        write), as warm-up ran them.  Counts the launches the graph holds;
+        each replay adds them to the wrappers' counters.  Raises when the
+        capture fails."""
+        for name, buf in self.buffers.items():
+            buf.fill_(self._dead if name == self._fifth else 0)
         torch.cuda.synchronize(self.device)
         before = _counts()
         graph = torch.cuda.CUDAGraph()
@@ -265,7 +354,9 @@ class StaticStep:
         host = {k: v.numpy() for k, v in self._staging.items()}
         host["tokens"][...] = tokens
         host["index"][...] = index
-        host["valid"][...] = self.width if valid is None else valid
+        if valid is None and self.kind == "draft":
+            raise ValueError("draft step: limit must be given")
+        host[self._fifth][...] = self.width if valid is None else valid
         if block_tables is not None:
             host["block_tables"][...] = block_tables
         if self._copied is not None:
@@ -275,6 +366,7 @@ class StaticStep:
 
     def __call__(self, params, caches, batch, index, valid=None,
                  block_tables=None):
+        """``valid``: the valid counts, or for the draft step the caps."""
         self._check(params, caches)
         self._stage(batch, index, valid, block_tables)
         if self.graph is None:
@@ -283,6 +375,30 @@ class StaticStep:
         self.replays += 1
         _add_counts(self.launches)
         return self.logits, caches
+
+
+def _graph(steps, backend):
+    """Warm every step's body up with one split-K workspace, freeze it and
+    capture each step as a CUDA graph, in order (on a CUDA device with the
+    kernels; otherwise the steps stay eager).  The workspace is shared:
+    the graphs replay in turn on one stream, as eager launches in turn
+    share the per-stream one."""
+    dev = steps[0].device
+    if plan_lib.resolve_backend(backend, dev) != "cuda":
+        return
+    ws = ulppack_matmul.Workspace(dev)
+    for step in steps:
+        step.workspace = ws                 # the graphs replay its pointers
+    with ulppack_matmul.workspace_scope(ws):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for step in (*steps, *steps):
+                step.run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        ws.frozen = True
+        for step in steps:
+            step.capture()
 
 
 def graphed_serving_steps(cfg, params, caches, *, batch: int,
@@ -306,19 +422,42 @@ def graphed_serving_steps(cfg, params, caches, *, batch: int,
     dec = StaticStep(cfg, params, caches, kind="decode", width=1, **kw)
     pre = StaticStep(cfg, params, caches, kind="prefill_chunk",
                      width=prefill_chunk, **kw)
-    dev = dec.device
-    if plan_lib.resolve_backend(backend, dev) != "cuda":
-        return dec, pre
-    ws = ulppack_matmul.Workspace(dev)
-    dec.workspace = pre.workspace = ws      # the graphs replay its pointers
-    with ulppack_matmul.workspace_scope(ws):
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for step in (dec, pre, dec, pre):
-                step.run()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        ws.frozen = True
-        dec.capture()
-        pre.capture()
+    _graph((dec, pre), backend)
     return dec, pre
+
+
+def graphed_speculative_steps(cfg, params, caches, draft_cfg, draft_params,
+                              draft_caches, *, k: int, batch: int,
+                              prefill_chunk: int,
+                              block_table_width: int | None = None,
+                              draft_block_table_width: int | None = None,
+                              backend: str = "auto") -> dict:
+    """Every step of a speculative engine over static buffers: the
+    target's ``decode`` and ``prefill_chunk`` (as
+    :func:`graphed_serving_steps`) and ``verify`` (a [batch, k + 1]
+    window, all its logits), over ``params`` / ``caches``; the draft's
+    ``draft_prefill`` (the ordinary prefill-chunk step) and ``draft`` (k
+    drafts in one step, :func:`make_draft_step`), over ``draft_params`` /
+    ``draft_caches`` of ``draft_cfg`` -- the counterpart of the reference's
+    ``jitted_speculative_steps`` plus its serving steps.  On the card all
+    five bodies warm up with one split-K workspace, frozen before the
+    first capture, and are captured as CUDA graphs; a failed capture
+    raises.  On the CPU, or on the 'torch' backend, they run eagerly."""
+    kw = dict(batch=batch, backend=backend)
+    tkw = dict(kw, block_table_width=block_table_width)
+    dkw = dict(kw, block_table_width=draft_block_table_width)
+    steps = {
+        "decode": StaticStep(cfg, params, caches, kind="decode", width=1,
+                             **tkw),
+        "prefill_chunk": StaticStep(cfg, params, caches,
+                                    kind="prefill_chunk",
+                                    width=prefill_chunk, **tkw),
+        "verify": StaticStep(cfg, params, caches, kind="verify",
+                             width=k + 1, **tkw),
+        "draft_prefill": StaticStep(draft_cfg, draft_params, draft_caches,
+                                    kind="prefill_chunk",
+                                    width=prefill_chunk, **dkw),
+        "draft": StaticStep(draft_cfg, draft_params, draft_caches,
+                            kind="draft", width=1, k=k, **dkw)}
+    _graph(tuple(steps.values()), backend)
+    return steps

@@ -81,13 +81,15 @@ def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
                 quant_mode: str = "none", compute_dtype=torch.bfloat16,
                 backend: str = "auto"):
     """y = x @ kernel (+ bias), under the selected quantization mode."""
-    if quant_mode == "packed" and "w_packed" in p:
-        w = p["w_packed"]
+    if quant_mode == "packed" and ("w_packed" in p or "w_dense" in p):
+        dense = "w_dense" in p
+        w = p["w_dense"] if dense else p["w_packed"]
         spec = dense_layer_spec(int(x.shape[-1]), int(w.shape[-1]), qcfg)
         return ops.quantized_linear(
             x, w, p["col_sums"], p["a_scale"], p["a_zp"],
             p["w_scale"], p["w_zp"], spec, bias=p.get("bias"),
-            backend=backend, out_dtype=compute_dtype)
+            backend=backend, weight_store="dense" if dense else "lanes",
+            out_dtype=compute_dtype)
     if quant_mode not in ("none", "packed"):
         raise NotImplementedError(
             f"quant_mode {quant_mode!r}: fake-quant training is still to be "
@@ -98,9 +100,15 @@ def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
     return y
 
 
-def pack_dense_params(p, qcfg: QuantConfig, *, spec: PackSpec | None = None):
-    """Offline conversion of float/QAT Dense params -> deployed packed params
-    (P1 lanes; the bit-dense store is still to be ported)."""
+def pack_dense_params(p, qcfg: QuantConfig, *, dense_store: bool = False,
+                      spec: PackSpec | None = None):
+    """Offline conversion of float/QAT Dense params -> deployed packed params.
+
+    P1 lanes under ``w_packed``, or with ``dense_store=True`` the lattice
+    bit-dense under ``w_dense`` (int32 words [ceil(K / per), N], per = 32
+    // w_bits: w_bits a value in device memory), which the packed matmul
+    expands at use -- on the card inside the tensor-core K2's staging.
+    ``col_sums`` and the exact ``k_full`` come out in both cases."""
     kernel = p["kernel"].to(torch.float32)
     if spec is None:
         spec = dense_layer_spec(int(kernel.shape[0]), int(kernel.shape[1]),
@@ -110,14 +118,17 @@ def pack_dense_params(p, qcfg: QuantConfig, *, spec: PackSpec | None = None):
     if w_scale is None:
         w_scale, _ = quant.calibrate_absmax(kernel, qcfg.w_bits)
     w_zp = torch.tensor(qcfg.w_zero_point, dtype=torch.int32, device=dev)
-    w_packed, col_sums = ops.prepare_weights(kernel, w_scale, w_zp, spec)
+    w_packed, col_sums = ops.prepare_weights(
+        kernel, w_scale, w_zp, spec,
+        weight_store="dense" if dense_store else "lanes")
     a_scale = p.get("a_step")
     if a_scale is None:
         a_scale = torch.tensor(1.0 / math.sqrt(qcfg.qmax_a),
                                dtype=torch.float32)
     a_zp = torch.tensor((qcfg.qmax_a + 1) // 2, dtype=torch.int32,
                         device=dev)
-    out = {"w_packed": w_packed, "col_sums": col_sums,
+    out = {"w_dense" if dense_store else "w_packed": w_packed,
+           "col_sums": col_sums,
            "w_scale": torch.as_tensor(w_scale).to(dev, torch.float32),
            "w_zp": w_zp,
            "a_scale": torch.as_tensor(a_scale).to(dev, torch.float32),

@@ -1,11 +1,11 @@
 """EngineConfig and SamplingParams (counterpart of ``repro/serve/config.py``).
 
-The fields the port serves mirror the reference's, the paged cache
-(``paged``, ``page_size``, ``prefix_sharing``) included; the switches of
-what it does not serve yet -- speculative decoding, the bit-dense weight
-store and the autotuner -- raise ``NotImplementedError`` at construction
-when turned on, naming their ROADMAP item.  Their tuning fields (draft
-precision) come back with them.
+The fields mirror the reference's: the paged cache (``paged``,
+``page_size``, ``prefix_sharing``), the bit-dense weight store
+(``dense_store``) and speculative decoding (``speculative_k``,
+``draft_w_bits``, ``draft_kv_bits``) included.  The one switch the port
+does not serve yet, the autotuner, raises ``NotImplementedError`` at
+construction when turned on, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,6 +52,15 @@ class EngineConfig:
       slot-contiguous caches; ``page_size`` [token rows] per page (a
       multiple of the sub-byte word-packing tail); ``prefix_sharing`` --
       share prompt-prefix pages through the radix index (copy-on-write).
+    * ``dense_store`` -- keep the packed weights bit-dense (int32 words,
+      w_bits a value) instead of as lanes; requires ``packed``.
+    * ``speculative_k`` [tokens] -- > 0 turns every pure-decode pass into
+      a speculative cycle: a copy of the model re-packed at
+      ``draft_w_bits`` (weights and activations) drafts up to k tokens a
+      slot, and the target scores them in one [B, k+1] window
+      (serve/speculative.py).  ``draft_kv_bits`` overrides the draft's KV
+      precision (None: the target's).  Both only matter on a packed
+      engine; the stack must be pure attention (checked at engine init).
     """
 
     max_batch: int = 4
@@ -67,6 +76,8 @@ class EngineConfig:
     page_size: int = 16
     prefix_sharing: bool = True
     speculative_k: int = 0
+    draft_w_bits: int = 2
+    draft_kv_bits: int | None = None
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -88,6 +99,10 @@ class EngineConfig:
             raise TypeError(
                 f"sampling must be a SamplingParams, got "
                 f"{type(self.sampling).__name__}")
+        if self.dense_store and not self.packed:
+            raise ValueError(
+                "dense_store selects the bit-dense packed weight layout; "
+                "it requires packed=True")
         if self.page_size < 1:
             raise ValueError(
                 f"page_size must be >= 1, got {self.page_size}")
@@ -95,16 +110,19 @@ class EngineConfig:
             raise ValueError(
                 f"speculative_k must be >= 0 (0 = off), got "
                 f"{self.speculative_k}")
-        unported = [(self.speculative_k > 0,
-                     "speculative_k > 0 (speculative decoding)", "11"),
-                    (self.autotune, "autotune=True", "12"),
-                    (self.dense_store,
-                     "dense_store=True (the bit-dense weight store)", "8b")]
-        for on, what, item in unported:
-            if on:
-                raise NotImplementedError(
-                    f"{what} is still to be ported (ROADMAP.md Queue 1 "
-                    f"item {item})")
+        if self.speculative_k:
+            if self.draft_w_bits not in (1, 2, 3, 4):
+                raise ValueError(
+                    f"draft_w_bits must be a packable sub-byte width in "
+                    f"{{1, 2, 3, 4}}, got {self.draft_w_bits}")
+            if self.draft_kv_bits not in (None, 0, 2, 4, 8, 16):
+                raise ValueError(
+                    f"draft_kv_bits must be None (inherit target) or one "
+                    f"of 0/16/8/4/2, got {self.draft_kv_bits}")
+        if self.autotune:
+            raise NotImplementedError(
+                "autotune=True is still to be ported (ROADMAP.md Queue 1 "
+                "item 12)")
 
     def slots_for(self, cache_bytes_per_slot: int) -> int:
         """Admitted batch slots: with no budget ``max_batch`` stands; with

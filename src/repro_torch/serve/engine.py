@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine: chunked prefill + ragged decode
-(counterpart of ``repro/serve/engine.py``, without speculation).
+"""Continuous-batching serving engine: chunked prefill + ragged decode,
+and speculative decoding (counterpart of ``repro/serve/engine.py``).
 
 Requests wait in a bounded queue (backpressure); an admission pass moves
 them into free batch slots; prompts stream through the chunked-prefill step
@@ -19,6 +19,15 @@ shared through a radix index with copy-on-write on divergence, and
 retirement frees pages -- the cache budget then bounds *physical* pages
 while ``max_batch`` bounds *logical* slots.  Every paged read goes through
 the paged flash-decoding kernel (K4).
+
+With ``EngineConfig(speculative_k=k)`` a :class:`~repro_torch.serve.
+speculative.DraftModel` re-packs the same checkpoint at ``draft_w_bits``
+with its own caches (paged: its own pool), and every pure-decode pass
+becomes a speculative cycle: one draft step proposes up to k tokens a
+slot, one [B, k+1] verify window of the target scores them, and the
+rejection rule commits 1 .. k+1 tokens a slot (``_speculative_pass``).
+All five steps (target decode, prefill and verify; draft prefill and
+draft) are CUDA graphs on the card, sharing one split-K workspace.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from repro_torch.kernels import plan as plan_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.serve import pages as pages_lib
+from repro_torch.serve import speculative as speculative_lib
 from repro_torch.serve.config import EngineConfig, SamplingParams
 from repro_torch.serve.prepare import (build_layer_plans, cache_bytes_per_slot,
                                        cache_page_bytes,
@@ -66,6 +76,15 @@ class Metrics:
     ``prefill_tokens`` counts prompt tokens consumed by chunked prefill;
     ``decode_tokens`` only tokens sampled in pure decode passes, so
     decode_tok_s divides tokens by the wall time of the same passes.
+
+    Speculative decoding adds ``drafted_tokens`` (draft proposals
+    considered: each slot's ``limit``, not k x cycles), ``accepted_tokens``
+    (those the rejection rule kept), ``verify_tokens`` (window rows
+    scored) and ``spec_cycles`` (draft + verify pairs);
+    ``acceptance_rate`` = accepted / drafted.  A cycle's committed tokens
+    count as ``decode_tokens`` and the cycle as a decode pass, so
+    ``decode_tok_s`` compares with a plain engine's and ``decode_step_ms``
+    is the wall time of a cycle.
     """
     prefill_tokens: int = 0
     generated_tokens: int = 0
@@ -80,6 +99,10 @@ class Metrics:
     slot_steps_live: int = 0
     slot_steps_total: int = 0
     admission_wait_s: float = 0.0
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
+    verify_tokens: int = 0
+    spec_cycles: int = 0
     ttft_s: list = dataclasses.field(default_factory=list)
     tpot_s: list = dataclasses.field(default_factory=list)
 
@@ -110,32 +133,15 @@ class Metrics:
             "occupancy": div(self.slot_steps_live, self.slot_steps_total),
             "mean_admission_wait_s": div(self.admission_wait_s,
                                          self.admitted),
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "verify_tokens": self.verify_tokens,
+            "spec_cycles": self.spec_cycles,
+            "acceptance_rate": div(self.accepted_tokens,
+                                   self.drafted_tokens),
             "ttft_s": self._dist(self.ttft_s),
             "tpot_s": self._dist(self.tpot_s),
         }
-
-
-def _probs_for(logits_row, sp: SamplingParams) -> np.ndarray:
-    """Temperature / top-k transform of one logits row, in float64 on the
-    host (the reference engine's transform, so draws match it)."""
-    scaled = np.asarray(logits_row, np.float64) / max(sp.temperature, 1e-6)
-    if sp.top_k > 0:
-        kk = min(sp.top_k, scaled.size)
-        kth = np.partition(scaled, -kk)[-kk]
-        scaled = np.where(scaled < kth, -np.inf, scaled)
-    scaled = scaled - scaled.max()
-    probs = np.exp(scaled)
-    probs /= probs.sum()
-    return probs
-
-
-def sample_token(logits_row, sp: SamplingParams, rng) -> int:
-    """Sample one token (greedy / temperature / top-k) with the slot's
-    numpy Generator."""
-    if sp.greedy:
-        return int(np.argmax(np.asarray(logits_row, np.float64)))
-    probs = _probs_for(logits_row, sp)
-    return int(rng.choice(len(probs), p=probs))
 
 
 class ServingEngine:
@@ -157,6 +163,8 @@ class ServingEngine:
             raise ValueError(
                 "paged KV cache and the sliding-window ring layout do not "
                 "compose; use paged=False for sliding-window configs")
+        if config.speculative_k:
+            self._validate_speculative(cfg)
         lm.check_supported(cfg)
         self.device = plan_lib.resolve_device(device)
         self.config = config
@@ -191,8 +199,9 @@ class ServingEngine:
         self.sampling = config.sampling
         run_cfg = cfg if config.packed else cfg.replace(
             quant=cfg.quant.replace(enabled=False))
-        self.params = prepare_serving_params(params, run_cfg,
-                                             device=self.device)
+        self.params = prepare_serving_params(
+            params, run_cfg, dense_store=config.dense_store,
+            device=self.device)
         # one execution plan per layer, fixed before serving, for both row
         # counts the steps use (decode batch, prefill batch x chunk); the
         # planners are memoized, so the steps' packed ops dispatch through
@@ -217,16 +226,39 @@ class ServingEngine:
             self.caches = lm.init_caches(cfg, max_batch, self.max_len,
                                          dtype=torch.bfloat16,
                                          device=self.device)
+        # speculative decoding: the draft model (the same checkpoint
+        # re-packed at draft_w_bits, its own caches and, paged, its own
+        # pool); pure-decode passes become draft + verify cycles
+        self.spec = None
+        self._verify = None
+        if config.speculative_k:
+            self.spec = speculative_lib.DraftModel(
+                cfg, params, config, max_batch=max_batch,
+                max_len=self.max_len, device=self.device,
+                target_params=self.params, backend=backend)
         # the steps over static buffers, bound to these params and caches
         # (which stay at their addresses: copy-on-write, copy_page and
-        # import_paged_state write into them in place); on the card both
+        # import_paged_state write into them in place); on the card they
         # are warmed up and captured as CUDA graphs here
         t0 = time.perf_counter()
-        self._decode, self._prefill = steps_lib.graphed_serving_steps(
-            run_cfg, self.params, self.caches, batch=max_batch,
-            prefill_chunk=self.prefill_chunk,
-            block_table_width=self.pages_per_slot if self.paged else None,
-            backend=backend)
+        bt_width = self.pages_per_slot if self.paged else None
+        if self.spec is None:
+            self._decode, self._prefill = steps_lib.graphed_serving_steps(
+                run_cfg, self.params, self.caches, batch=max_batch,
+                prefill_chunk=self.prefill_chunk,
+                block_table_width=bt_width, backend=backend)
+        else:
+            st = steps_lib.graphed_speculative_steps(
+                run_cfg, self.params, self.caches, self.spec.run_cfg,
+                self.spec.params, self.spec.caches, k=config.speculative_k,
+                batch=max_batch, prefill_chunk=self.prefill_chunk,
+                block_table_width=bt_width,
+                draft_block_table_width=self.spec.pages_per_slot,
+                backend=backend)
+            self._decode, self._prefill = st["decode"], st["prefill_chunk"]
+            self._verify = st["verify"]
+            self.spec.prefill_step = st["draft_prefill"]
+            self.spec.draft_step = st["draft"]
         self.step_setup_s = time.perf_counter() - t0
         self.slot_req: list = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int32)   # tokens in cache
@@ -234,6 +266,26 @@ class ServingEngine:
         self._slot_rng: list = [None] * max_batch
         self._finished: list = []
         self.metrics = Metrics()
+
+    @staticmethod
+    def _validate_speculative(cfg):
+        """Speculation needs a pure-attention decoder whose chunked writes
+        equal sequential writes: the verify window's rollback does not
+        hold for ring caches, recurrent state, or position schemes the
+        draft step does not model."""
+        problems = []
+        if cfg.is_encoder_decoder:
+            problems.append("encoder-decoder stacks")
+        if cfg.sliding_window:
+            problems.append("sliding-window (ring) KV caches")
+        if cfg.mrope:
+            problems.append("M-RoPE position ids")
+        if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+            problems.append("non-attention (recurrent) layers")
+        if problems:
+            raise ValueError(
+                f"speculative_k > 0 requires a pure-attention decoder "
+                f"stack; this config has: {', '.join(problems)}")
 
     # ------------------------------------------------------------------
     # Submission / admission
@@ -364,6 +416,10 @@ class ServingEngine:
                 self.slot_req[slot] = req
                 self.slot_pos[slot] = n_shared
                 self.slot_fed[slot] = n_shared
+                if self.spec is not None:
+                    # the draft replays the FULL prompt (no prefix skip:
+                    # its cache has no rows for skipped positions)
+                    self.spec.begin_slot(slot, req)
                 sp = req.sampling or self.sampling
                 self._slot_rng[slot] = np.random.default_rng(
                     (sp.seed, req.uid & 0xFFFFFFFF))
@@ -391,13 +447,23 @@ class ServingEngine:
             self.peak_live_slots = max(self.peak_live_slots, len(live))
         prefilling = any(
             self.slot_fed[s] < len(self.slot_req[s].prompt) for s in live)
+        if self.spec is not None:
+            # the draft may still be replaying a prefix-skipped prompt
+            # after the target finished: keep the pass a prefill pass
+            # (speculation runs on pure-decode passes only)
+            prefilling = prefilling or any(
+                not self.spec.prompt_done(s, self.slot_req[s])
+                for s in live)
         t0 = time.perf_counter()
         if prefilling:
             n_prompt = self._prefill_pass(live)
             self.metrics.prefill_time_s += time.perf_counter() - t0
             self.metrics.prefill_tokens += n_prompt
         else:
-            self._decode_pass(live)
+            if self.spec is not None:
+                self._speculative_pass(live)
+            else:
+                self._decode_pass(live)
             self.metrics.decode_time_s += time.perf_counter() - t0
             self.metrics.decode_passes += 1
         return True
@@ -419,19 +485,26 @@ class ServingEngine:
                 tokens[s, :t] = req.prompt[fed:fed + t]
                 valid[s] = take[s] = t
                 n_prompt += t
-            else:              # decode-phase rider: one pending token
+            elif req.output:   # decode-phase rider: one pending token
                 tokens[s, 0] = req.output[-1]
                 valid[s] = 1
+            # else: the target's prompt is done but its first token is
+            # stashed until the draft finishes its full-prompt replay --
+            # a dead slot (valid 0) in this target pass
         step_args = ()
         if self.paged:
             for s in live:
                 lo = int(index[s])
                 self._ensure_writable(s, lo, lo + int(valid[s]))
             step_args = (self.block_tables,)
-        logits, self.caches = self._prefill(
-            self.params, self.caches, {"tokens": tokens}, index, valid,
-            *step_args)
-        logits = logits.float().cpu().numpy()
+        logits = None
+        if int(valid.sum()):   # all-stash-waiting passes skip the launch
+            logits, self.caches = self._prefill(
+                self.params, self.caches, {"tokens": tokens}, index, valid,
+                *step_args)
+            logits = logits.float().cpu().numpy()
+        if self.spec is not None:
+            self._draft_prefill(live)
         for s in live:
             req = self.slot_req[s]
             if s in take:
@@ -440,11 +513,55 @@ class ServingEngine:
                 if self.slot_fed[s] == len(req.prompt):
                     if self.paged and self._share:
                         self._register_prompt(s, req)
-                    self._emit_token(s, logits[s], decode_pass=False)
-            else:
+                    if self.spec is None or self.spec.prompt_done(s, req):
+                        self._emit_token(s, logits[s], decode_pass=False)
+                    else:
+                        # prefix sharing let the target finish before the
+                        # draft's full replay: park the first-token logits
+                        self.spec.stash(s, logits[s])
+            elif req.output:
                 self.slot_pos[s] += 1
                 self._emit_token(s, logits[s], decode_pass=False)
+            elif self.spec is not None and self.spec.has_stash(s) \
+                    and self.spec.prompt_done(s, req):
+                # the draft just caught up: emit the parked first token
+                self._emit_token(s, self.spec.pop_stash(s),
+                                 decode_pass=False)
         return n_prompt
+
+    def _draft_prefill(self, live):
+        """Feed the draft cache its own prefill window: prompt chunks for
+        slots still replaying (from the draft's position ``fed``: the
+        draft never prefix-skips), and the pending token of decode riders,
+        so that the draft's and the target's caches stay aligned through
+        mixed passes."""
+        spec = self.spec
+        c = self.prefill_chunk
+        tokens = np.zeros((self.max_batch, c), np.int32)
+        index = np.zeros(self.max_batch, np.int32)
+        valid = np.zeros(self.max_batch, np.int32)
+        fed_take = {}
+        for s in live:
+            req = self.slot_req[s]
+            fed = int(spec.fed[s])
+            rem = len(req.prompt) - fed
+            if rem > 0:
+                t = min(c, rem)
+                tokens[s, :t] = req.prompt[fed:fed + t]
+                index[s] = fed
+                valid[s] = fed_take[s] = t
+            elif req.output:
+                tokens[s, 0] = req.output[-1]
+                index[s] = self.slot_pos[s]
+                valid[s] = 1
+        if not int(valid.sum()):
+            return
+        step_args = (spec.block_tables,) if spec.paged else ()
+        _, spec.caches = spec.prefill_step(
+            spec.params, spec.caches, {"tokens": tokens}, index, valid,
+            *step_args)
+        for s, t in fed_take.items():
+            spec.fed[s] += t
 
     def _decode_pass(self, live):
         tokens = np.zeros((self.max_batch, 1), np.int32)
@@ -469,13 +586,79 @@ class ServingEngine:
             self.slot_pos[s] += 1
             self._emit_token(s, logits[s], decode_pass=True)
 
+    def _speculative_pass(self, live):
+        """One speculative cycle: the draft step proposes up to ``k``
+        greedy tokens a slot, one [B, k+1] verify window of the target
+        scores the chain, and the rejection rule
+        (speculative.accept_tokens) commits the longest target-faithful
+        prefix a slot -- 1 .. k+1 tokens for two graph replays."""
+        k = self.config.speculative_k
+        spec = self.spec
+        tokens = np.zeros((self.max_batch, 1), np.int32)
+        index = np.zeros(self.max_batch, np.int32)
+        # dead slots draft at limit -1: limit + 1 = 0 gates off every cache
+        # write (a dead row's all-zero block table would alias page 0)
+        limit = np.full(self.max_batch, -1, np.int32)
+        for s in live:
+            req = self.slot_req[s]
+            tokens[s, 0] = req.output[-1] if req.output \
+                else int(req.prompt[-1])
+            index[s] = self.slot_pos[s]
+            # a cycle commits at most limit + 1 tokens, so limit =
+            # min(k, remaining - 1) never drafts past the request's budget
+            # and every cache write stays inside the reserved extent
+            limit[s] = min(k, req.max_new_tokens - len(req.output) - 1)
+        d_args = (spec.block_tables,) if spec.paged else ()
+        drafted, spec.caches = spec.draft_step(
+            spec.params, spec.caches, {"tokens": tokens}, index, limit,
+            *d_args)
+        drafted = drafted.cpu().numpy()                    # [B, k]
+        win = np.zeros((self.max_batch, k + 1), np.int32)  # [t0, d_0 ..]
+        win[:, 0] = tokens[:, 0]
+        win[:, 1:] = drafted
+        valid = np.maximum(limit + 1, 0).astype(np.int32)
+        v_args = ()
+        if self.paged:
+            for s in live:
+                lo = int(index[s])
+                self._ensure_writable(s, lo, lo + int(valid[s]))
+            v_args = (self.block_tables,)
+        logits, self.caches = self._verify(
+            self.params, self.caches, {"tokens": win}, index, valid,
+            *v_args)
+        logits = logits.float().cpu().numpy()              # [B, k+1, V]
+        self.metrics.spec_cycles += 1
+        for s in live:
+            req = self.slot_req[s]
+            lim = int(limit[s])
+            committed = speculative_lib.accept_tokens(
+                logits[s, :lim + 1], drafted[s, :lim],
+                req.sampling or self.sampling, self._slot_rng[s])
+            self.metrics.drafted_tokens += lim
+            self.metrics.accepted_tokens += len(committed) - 1
+            self.metrics.verify_tokens += lim + 1
+            for tok in committed:
+                self.slot_pos[s] += 1
+                self._commit_token(s, int(tok), decode_pass=True)
+                if self.slot_req[s] is None:   # retired mid-window
+                    break
+
     def _emit_token(self, s: int, logits_row: np.ndarray, *,
                     decode_pass: bool):
-        """Sample one token for slot ``s``, stamp TTFT/TPOT, and retire the
-        request when it reaches max_new_tokens."""
+        """Sample one token from a logits row and commit it: the plain
+        emission path.  It samples through speculative.sample_token, the
+        primitive of the speculative bonus / resample too, so both draw
+        from the same per-slot distributions and generator streams."""
         req = self.slot_req[s]
-        tok = sample_token(logits_row, req.sampling or self.sampling,
-                           self._slot_rng[s])
+        tok = speculative_lib.sample_token(
+            logits_row, req.sampling or self.sampling, self._slot_rng[s])
+        self._commit_token(s, tok, decode_pass=decode_pass)
+
+    def _commit_token(self, s: int, tok: int, *, decode_pass: bool):
+        """Append one chosen token to slot ``s``'s request: metrics,
+        TTFT/TPOT stamps, and retirement (slot, pages and the draft's
+        pages released) when the request reaches max_new_tokens."""
+        req = self.slot_req[s]
         req.output.append(int(tok))
         self.metrics.generated_tokens += 1
         if decode_pass:
@@ -498,6 +681,8 @@ class ServingEngine:
                 # page-level retirement: drop this slot's references only;
                 # prefix-index pages keep their index ref and stay cached
                 self._release_slot_pages(s)
+            if self.spec is not None:
+                self.spec.release_slot(s)
 
     # ------------------------------------------------------------------
     # Reporting / draining
@@ -515,9 +700,12 @@ class ServingEngine:
 
     def capacity_report(self) -> dict:
         """Cache-capacity accounting: bytes per slot, admitted slots, the
-        cache and packed parameter bytes on the device; paged engines add
-        the pool's physical-vs-logical page counters (free / live / shared
-        pages, prefix-hit, COW and eviction counts)."""
+        cache and packed parameter bytes on the device (the dense store's
+        words when ``dense_store``); paged engines add the pool's
+        physical-vs-logical page counters (free / live / shared pages,
+        prefix-hit, COW and eviction counts); speculative engines a
+        ``speculative`` section (the draft's precision, param bytes and
+        pool)."""
         rep = {
             "kv_bits": self.cfg.quant.kv_bits or 16,
             "cache_bytes_per_slot": self.cache_bytes_per_slot,
@@ -527,6 +715,7 @@ class ServingEngine:
             "slots": self.max_batch,
             "param_bytes": serving_param_bytes(self.params),
             "paged": self.paged,
+            "dense_store": self.config.dense_store,
             # the steps' warm-up and CUDA-graph capture at __init__ (host
             # clock; on the CPU only the static buffers are made)
             "step_graphs": self._decode.graph is not None,
@@ -544,6 +733,8 @@ class ServingEngine:
                 peak_live_slot_count=self.peak_live_slots,
                 prefix_sharing=self._share,
                 **self.pool.report())
+        if self.spec is not None:
+            rep["speculative"] = self.spec.describe()
         return rep
 
     # ------------------------------------------------------------------

@@ -3,9 +3,11 @@
 
 Every quantizable 2-D Dense ({kernel, w_step, a_step}) becomes its packed
 integer form ({w_packed, col_sums, scales, zero-points, k_full}) through
-``models.common.pack_dense_params``; embeddings and the float LM head stay
-as they are.  ``build_layer_plans`` fixes each packed layer's KernelPlan
-once, for the decode and the chunked-prefill row counts.
+``models.common.pack_dense_params``; with ``dense_store=True`` the weight
+is stored bit-dense instead (``w_dense``: int32 words, w_bits a value).
+Embeddings and the float LM head stay as they are.  ``build_layer_plans``
+fixes each packed layer's KernelPlan once, for the decode and the
+chunked-prefill row counts.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ def _is_packable(node) -> bool:
 
 
 def _is_packed(node) -> bool:
-    return isinstance(node, dict) and "w_packed" in node
+    return isinstance(node, dict) and ("w_packed" in node
+                                       or "w_dense" in node)
 
 
 def _walk(node, fn):
@@ -36,10 +39,15 @@ def _walk(node, fn):
     return node
 
 
-def prepare_serving_params(params, cfg, *, device="cuda"):
+def prepare_serving_params(params, cfg, *, dense_store: bool = False,
+                           recalibrate: bool = False, device="cuda"):
     """Move ``params`` to ``device`` and pack every quantizable Dense leaf
-    (P1 lanes, the config's base layout).  Without quantization the tree
-    is only moved."""
+    (P1 lanes in the config's base layout, or bit-dense words with
+    ``dense_store=True``).  ``recalibrate=True`` drops each leaf's learned
+    ``w_step`` / ``a_step`` before packing, so the scales are derived anew
+    (absmax / the qmax default) for ``cfg.quant``'s bit widths: the
+    speculative draft's repack of the same checkpoint at a lower
+    precision.  Without quantization the tree is only moved."""
     dev = plan_lib.resolve_device(device)
 
     def walk(node):
@@ -47,7 +55,11 @@ def prepare_serving_params(params, cfg, *, device="cuda"):
             return node.to(dev)
         node = _walk(node, walk)
         if cfg.quant.enabled and _is_packable(node):
-            return common.pack_dense_params(node, cfg.quant)
+            if recalibrate:
+                node = {k: v for k, v in node.items()
+                        if k not in ("w_step", "a_step")}
+            return common.pack_dense_params(node, cfg.quant,
+                                            dense_store=dense_store)
         return node
 
     return walk(params)
@@ -67,11 +79,20 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
 
     def walk(node, path):
         if _is_packed(node):
-            w = node["w_packed"]
-            k = int(node.get("k_full", w.shape[0] * cfg.quant.n_pack))
+            dense = "w_dense" in node
+            w = node["w_dense"] if dense else node["w_packed"]
+            per = 32 // cfg.quant.w_bits if dense else cfg.quant.n_pack
+            k = int(node.get("k_full", w.shape[0] * per))
             spec = common.dense_layer_spec(k, int(w.shape[-1]), cfg.quant)
-            kp = -(-k // spec.n_pack)
-            if w.dtype != spec.lane_dtype or w.shape[0] != kp:
+            if dense:
+                rows_w = plan_lib.dense_words(k, spec.w_bits)
+                if w.dtype != torch.int32 or w.shape[0] != rows_w:
+                    raise ValueError(
+                        f"{path}: dense words ({w.dtype}, {w.shape[0]} "
+                        f"rows) do not hold k={k} at w_bits {spec.w_bits} "
+                        f"(int32, {rows_w} rows)")
+            elif w.dtype != spec.lane_dtype \
+                    or w.shape[0] != -(-k // spec.n_pack):
                 raise ValueError(
                     f"{path}: packed bytes ({w.dtype}, kp={w.shape[0]}) do "
                     f"not match the lane layout {spec} for k={k}")
@@ -80,6 +101,7 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
                 if rows and (key == path or rows != batch_rows):
                     plans[key] = plan_lib.plan_quantized_linear(
                         rows, k, int(w.shape[-1]), spec, x_dtype,
+                        weight_store="dense" if dense else "lanes",
                         backend=backend, device=w.device)
             return
         if isinstance(node, dict):

@@ -59,7 +59,7 @@ def test_ulppack_matmul_bit_equal(hopper, m, kp, n, spec):
     qa = torch.randint(0, 4, (m, kp * sp.n_pack), generator=g, device=hopper)
     qw = torch.randint(0, 4, (kp * sp.n_pack, n), generator=g, device=hopper)
     a, w = packing.pack_activations(qa, sp), packing.pack_weights(qw, sp)
-    assert plan_lib.plan_packed_matmul(m, kp, n, sp,
+    assert plan_lib.plan_packed_matmul(m, kp, n, sp, weight_store="lanes",
                                        device=hopper).backend == "cuda"
     got = ulppack_matmul.ulppack_matmul_cuda(
         a, w, sp, **plan_lib.packed_matmul_core_geometry(m, kp, n, sp,
@@ -75,7 +75,9 @@ def _mma_case(dev, bits, m, kp, n, seed):
     qw = torch.randint(0, sp.max_w + 1, (2 * kp, n), generator=g,
                        device=dev)
     a, w = packing.pack_activations(qa, sp), packing.pack_weights(qw, sp)
-    return sp, a, w, plan_lib.plan_packed_matmul(m, kp, n, sp, device=dev)
+    return sp, a, w, plan_lib.plan_packed_matmul(m, kp, n, sp,
+                                                 weight_store="lanes",
+                                                 device=dev)
 
 
 @pytest.mark.parametrize("kp,n", [(100, 200), (1024, 2048), (333, 130),
@@ -151,7 +153,8 @@ def test_ulppack_matmul_mma_long_k_at_extremes(hopper):
         lo_w, hi_w = (w64 & 0xFF).double(), ((w64 >> 8) & 0xFF).double()
         exact = (lo_a @ hi_w + hi_a @ lo_w).to(torch.int64)   # < 2^53
         want = packing.wrap_i32(exact)
-        plan = plan_lib.plan_packed_matmul(m, kp, n, sp, device=hopper)
+        plan = plan_lib.plan_packed_matmul(m, kp, n, sp,
+                                           weight_store="lanes", device=hopper)
         longest = dataclasses.replace(
             plan, block_k=plan_lib.ULPPACK_MMA_MAX_BLOCK_K, splits=3)
         for p in (plan, longest):

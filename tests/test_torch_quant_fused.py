@@ -60,7 +60,7 @@ def fused_plan(m, k, n, x_dtype, spec=SPEC):
     """The fused route's plan as the planner makes it for the card (its
     geometry does not depend on the card but its SM count, 132 off it)."""
     return tplan._plan_quantized_linear(m, k, n, spec, x_dtype.itemsize,
-                                        "cpu")
+                                        "cpu", "lanes")
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +120,10 @@ def test_planner_routes_by_backend_and_layout(text):
     hands back the packed matmul's plan (K1, K2 and the eager epilogue
     apart); the fused planner refuses a dtype the kernel does not read."""
     sp = PackSpec.parse(text)
-    p = tplan.plan_quantized_linear(4, 2048, 2048, sp, torch.bfloat16)
-    assert p is tplan.plan_packed_matmul(4, -(-2048 // sp.n_pack), 2048, sp)
+    p = tplan.plan_quantized_linear(4, 2048, 2048, sp, torch.bfloat16,
+                                    weight_store="lanes")
+    assert p is tplan.plan_packed_matmul(4, -(-2048 // sp.n_pack), 2048, sp,
+                                         weight_store="lanes")
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         tplan._x_bytes(torch.float64)
 
@@ -133,7 +135,8 @@ def test_fused_constants_match_the_kernel_source():
     a_kind codes and K1's x_kind codes match the wrappers', and both
     quantize with an IEEE divide (no reciprocal) and rint."""
     tile = (CSRC / "mma_s8.cuh").read_text()
-    src = (CSRC / "ulppack_matmul_mma.cu").read_text()
+    src = (CSRC / "ulppack_matmul_mma.cu").read_text() \
+        + (CSRC / "ulppack_matmul_mma.cuh").read_text()
     k1 = (CSRC / "quant_pack.cu").read_text()
     assert ("static constexpr int kBytes = 2 * static_cast<int>(sizeof(T));"
             in tile)
@@ -145,8 +148,8 @@ def test_fused_constants_match_the_kernel_source():
                      "kXF16": tmm._X_KINDS[torch.float16]}
     for name, t in (("kXF32", "float"), ("kXBF16", "__nv_bfloat16"),
                     ("kXF16", "__half")):
-        assert re.search(rf"case {name}:\s*return launch_bm<QuantA<{t}>",
-                         src)
+        assert re.search(
+            rf"case {name}:\s*return launch_bm<WS, QuantA<{t}>", src)
     for t, code in (("float", 0), ("__nv_bfloat16", 1), ("__half", 2)):
         assert re.search(rf"case {code}:\s*err = launch_x<{t}>", k1)
     assert tqp.X_KINDS == {torch.float32: 0, torch.bfloat16: 1,
@@ -455,7 +458,8 @@ def test_routing_by_layout_on_cuda_plans(monkeypatch, text):
         plan = fused_plan(m, k, n, torch.bfloat16)
     else:
         plan = dataclasses.replace(tplan.plan_packed_matmul(
-            m, -(-k // sp.n_pack), n, sp), backend="cuda")
+            m, -(-k // sp.n_pack), n, sp,
+                weight_store="lanes"), backend="cuda")
     got = ops.quantized_linear(*args, plan=plan, out_dtype=torch.bfloat16)
     if tplan.packed_matmul_on_tensor_cores(sp):
         assert calls == [("fused", torch.bfloat16)]
@@ -508,7 +512,7 @@ def test_fused_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="row sums"):
         tmm.ulppack_matmul_mma_cuda(
             torch.zeros((4, 8), dtype=torch.int16), wp, SPEC,
-            plan=tplan.plan_packed_matmul(4, 8, 8, SPEC),
+            plan=tplan.plan_packed_matmul(4, 8, 8, SPEC, weight_store="lanes"),
             epilogue=tmm.Affine(None, cs, 0.25, 2, w_scale, w_zp, 16))
 
 
@@ -550,7 +554,8 @@ def two_launch(x, wp, cs, a_scale, a_zp, w_scale, w_zp, bias, out_dtype):
     tensor-core K2 on the lanes with the affine epilogue."""
     a, a_sums = tqp.quantize_pack_cuda(x.float(), a_scale, a_zp, SPEC)
     plan = tplan.plan_packed_matmul(a.shape[0], a.shape[1], wp.shape[1],
-                                    SPEC, device=x.device)
+                                    SPEC,
+                                        weight_store="lanes", device=x.device)
     return tmm.ulppack_matmul_mma_cuda(a, wp, SPEC, plan=plan, epilogue=(
         tmm.Affine(a_sums, cs, a_scale, a_zp, w_scale, w_zp, x.shape[1],
                    bias, out_dtype)))
@@ -569,6 +574,7 @@ def test_fused_bit_equal_on_the_card(hopper, m, kp, n, x_dtype, out_dtype,
     the plain route."""
     args, b = card_case(hopper, m, 2 * kp, n, x_dtype, bias, m + kp + n)
     plan = tplan.plan_quantized_linear(m, 2 * kp, n, SPEC, x_dtype,
+                                       weight_store="lanes",
                                        device=hopper)
     assert plan.op == "quantized_linear" and plan.backend == "cuda"
     tmm.reset_counts()
@@ -592,6 +598,7 @@ def test_fused_odd_k_ragged_m_and_splits(hopper, m, k, n, x_dtype):
     split a stage: bit-equal to the two-launch and the plain route."""
     args, _ = card_case(hopper, m, k, n, x_dtype, torch.float32, k)
     plan = tplan.plan_quantized_linear(m, k, n, SPEC, x_dtype,
+                                       weight_store="lanes",
                                        device=hopper)
     kp = -(-k // 2)
     want = ops.quantized_linear(*args, SPEC, backend="torch")
@@ -613,6 +620,7 @@ def test_fused_repeats_and_graph_replay(hopper):
     args, b = card_case(hopper, 4, 2048, 2048, torch.bfloat16,
                         torch.bfloat16, 7)
     plan = tplan.plan_quantized_linear(4, 2048, 2048, SPEC, torch.bfloat16,
+                                       weight_store="lanes",
                                        device=hopper)
     assert plan.splits > 1
     want = ops.quantized_linear(*args, SPEC, bias=b, backend="torch",
@@ -649,6 +657,7 @@ def test_fused_launcher_refuses_a_plan_that_disagrees(hopper, change):
     (CUDA error); one made for another element size by the wrapper."""
     args, _ = card_case(hopper, 8, 1200, 70, torch.bfloat16, None, 3)
     plan = tplan.plan_quantized_linear(8, 1200, 70, SPEC, torch.bfloat16,
+                                       weight_store="lanes",
                                        device=hopper)
     assert torch.equal(tmm.quantized_linear_mma_cuda(*args, SPEC, plan=plan),
                        ops.quantized_linear(*args, SPEC, backend="torch"))

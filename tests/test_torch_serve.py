@@ -293,8 +293,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
             tlm.init_caches(tcfg, 2, MAX_LEN, **paged)
         assert tlm.init_caches(tcfg, 2, MAX_LEN, device="cpu", **paged)[0][
             "attn"]["k"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tengine.EngineConfig(speculative_k=1)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tengine.EngineConfig(autotune=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         tengine.ServingEngine(tconfigs.get_config("mixtral-8x7b",
                                                   reduced=True), tp,

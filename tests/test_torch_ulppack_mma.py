@@ -83,7 +83,7 @@ def test_tensor_core_geometry_on_the_main_path(m, kp, n):
     ring and shared memory, K in whole stages split so that the blocks
     fill one wave of the card's 132 SMs, each split at most 16384
     lanes."""
-    p = tplan.plan_packed_matmul(m, kp, n, SPEC)
+    p = tplan.plan_packed_matmul(m, kp, n, SPEC, weight_store="lanes")
     assert p.op == "packed_matmul" and p.backend == "torch"
     assert (p.block_m, p.splits) == MAIN_PATH_GEOMETRY[(m, kp, n)]
     assert (p.block_n, p.step_k, p.threads) == (
@@ -108,7 +108,7 @@ def test_route_by_layout(text, tensor_cores):
     other layout keeps the CUDA-core kernel and its geometry."""
     sp = PackSpec.parse(text)
     assert tplan.packed_matmul_on_tensor_cores(sp) is tensor_cores
-    p = tplan.plan_packed_matmul(4, 1024, 2048, sp)
+    p = tplan.plan_packed_matmul(4, 1024, 2048, sp, weight_store="lanes")
     if tensor_cores:
         assert p.block_n == 128 and p.stages is not None
     else:
@@ -123,7 +123,7 @@ def test_split_cap(m, kp, n):
     """No split holds more than 16384 lanes (32,768 lattice values), so
     no s32 MMA sum leaves range even at fields of 255; the splits cover
     Kp with none empty."""
-    p = tplan.plan_packed_matmul(m, kp, n, SPEC)
+    p = tplan.plan_packed_matmul(m, kp, n, SPEC, weight_store="lanes")
     assert p.block_k <= tplan.ULPPACK_MMA_MAX_BLOCK_K
     assert 2 * p.block_k <= 32768 and 255 * 255 * 32768 < 2**31
     assert 2 * 255 * 255 * 2 * tplan.ULPPACK_MMA_MAX_BLOCK_K >= 2**31
@@ -136,7 +136,8 @@ def test_constants_match_the_kernel_source():
     cap, the block_m cases, the 2-byte operands)."""
     csrc = Path(tplan.__file__).parent.parent / "csrc"
     tile = (csrc / "mma_s8.cuh").read_text()
-    src = (csrc / "ulppack_matmul_mma.cu").read_text()
+    src = (csrc / "ulppack_matmul_mma.cu").read_text() \
+        + (csrc / "ulppack_matmul_mma.cuh").read_text()
     c = {k: int(v) for k, v in
          re.findall(r"constexpr int (\w+) = (\d+);", tile + src)}
     assert (c["kBN"], c["kBK"], c["kMaxStages"], c["kSmemMax"],
@@ -149,10 +150,13 @@ def test_constants_match_the_kernel_source():
                   re.findall(r"case (\d+): return launch_variant", src))
     assert cases == tplan.INT_MATMUL_BLOCK_MS
     # lanes are staged at 2 bytes a lane (x at 2 x its element size), and
-    # W's lanes are 2-byte
+    # W's lanes are 2-byte (the W side RawW<2>: a [64, 128] int16 tile, two
+    # planes); the ring and shared memory follow the W side's tile
     assert "const int ab = xb ? 2 * xb : 2;" in src
-    assert "smem_bytes(block_m, ab, 2)" in src
-    assert "mainloop<2, BM, V16>" in src
+    assert "smem_bytes_w(block_m, ab, WS::kTile, WS::kPlanes)" in src
+    assert "mainloop_w<WS, BM, V16>" in src
+    assert "launch_mma<RawW<2>>" in src
+    assert "static constexpr int kTile = kBK * kBN * WB;" in tile
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +205,7 @@ def test_byte_plane_dot_equals_reference(bits, m):
     np.testing.assert_array_equal(
         tpack.packed_lanes_matmul(a, w, ts).numpy(), want)
     np.testing.assert_array_equal(want, qa @ qw)
-    p = tplan.plan_packed_matmul(m, kp, n, ts)
+    p = tplan.plan_packed_matmul(m, kp, n, ts, weight_store="lanes")
     for block_k in (p.block_k, 64, tplan.ULPPACK_MMA_MAX_BLOCK_K):
         np.testing.assert_array_equal(mma_emulation(a, w, block_k).numpy(),
                                       want)
@@ -271,7 +275,7 @@ def test_epilogue_emulation_bit_equal_to_quantized_linear(out_dtype,
                                 SPEC, bias=bias, out_dtype=out_dtype)
     a, a_sums = ops.quantize_pack(x, a_scale, a_zp, SPEC)
     acc = mma_emulation(a, wp, tplan.plan_packed_matmul(
-        m, a.shape[1], n, SPEC).block_k)
+        m, a.shape[1], n, SPEC, weight_store="lanes").block_k)
     got = affine_emulation(acc, tmm.Affine(a_sums, cs, a_scale, a_zp,
                                            w_scale, w_zp, k, bias,
                                            out_dtype))
@@ -331,7 +335,7 @@ def test_quantized_linear_takes_the_fused_route_on_cuda_plans(monkeypatch,
 
     monkeypatch.setattr(tmm, "quantized_linear_mma_cuda", stand_in)
     monkeypatch.setattr(ops, "quantize_pack", no_k1)
-    plan = tplan._plan_quantized_linear(6, k, n, SPEC, 2, "cpu")
+    plan = tplan._plan_quantized_linear(6, k, n, SPEC, 2, "cpu", "lanes")
     assert (plan.op, plan.backend, plan.k_full) == ("quantized_linear",
                                                     "cuda", k)
     got = ops.quantized_linear(x, wp, cs, a_scale, a_zp, w_scale, w_zp,
@@ -349,7 +353,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     sp32 = PackSpec(2, 2, "int32", 2, 16)
     a = torch.zeros((4, 8), dtype=torch.int16)
     w = torch.zeros((8, 16), dtype=torch.int16)
-    plan = tplan.plan_packed_matmul(4, 8, 16, SPEC)
+    plan = tplan.plan_packed_matmul(4, 8, 16, SPEC, weight_store="lanes")
     with pytest.raises(ValueError, match="CUDA device"):
         tmm.ulppack_matmul_mma_cuda(a, w, SPEC, plan=plan)
     with pytest.raises(ValueError, match="CUDA device"):
