@@ -140,6 +140,37 @@ toolkit:
    bit-equal to ``conv_epilogue`` on the plain path (``cnn
    fused-epilogue``), and the logit difference.
 
+8. Training phase: full-width ``stablelm-1.6b`` W2A2 with its config's
+   remat='block' and two microbatches, batch 4 x 128 from
+   ``SyntheticLMStream(seed=0)``, a cosine schedule with a 2-step warm-up,
+   8 eager train steps from seed-0 params (``launch/steps.
+   make_train_step``: fake-quant forward and backward, AdamW with f32
+   moments): a ``train`` line (per step loss, ce, grad_norm, lr, ms; the
+   median step, tokens/s, peak memory, the model-FLOP share 6 x params x
+   tokens / step s over the bf16 dense peak; gated: every loss and
+   gradient norm finite), then a ``train profile`` line of one more step
+   (device ms and launches by kernel name and by the port's profiler
+   ranges: fake quant, attention, optimizer).  The ``train-serve`` line:
+   the 24-layer trained params through a sync save and the checkpoint
+   reader (byte-equal, gated), packed and served graphed on the serve
+   phase's four requests at kv_bits 4 (tokens equal to those served from
+   the in-memory params, every packed linear one fused K2 launch and every
+   read K3: gated), the packed first-decode logits against the QAT
+   forward's (reported).  Two ``train-ckpt`` lines: the ``Trainer`` at
+   full width cut to 2 layers (depth only: the full state is ~26 GB on
+   disk), f32 and 8-bit moments: a checkpoint written, a crash and a
+   resume against a straight run under ``torch.use_deterministic_
+   algorithms(True)`` (the restored state byte-equal to the saved one and
+   the resumed params equal to the straight run's: gated), save / restore
+   s and bytes.  The ``cnn-qat`` line: full-width ``sparq-cnn`` W2A2
+   QAT-trained on the synthetic template task at 256x256x3, batch 8, 300
+   steps (``repro_torch.examples.train_cnn_qat``): float, QAT and
+   packed-integer accuracy on 64 held-out images and ms a train step;
+   gated: the packed evaluation runs the fused tensor-core K5 on every
+   layer, then ``cnn fused-epilogue`` and ``cnn kernel-vs-plain`` again on
+   the trained params.  The trained LM's engine and the trained CNN's
+   packed evaluation add to K2's, K3's and K5's launches.
+
 ``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
 tensor-core K2's split sweep (``k2_sweep``, its lanes and its fused
 route), the data the planner's split model was fitted to.
@@ -161,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2756,6 +2788,458 @@ def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# Training: the train, train profile, train-serve, train-ckpt and cnn-qat
+# lines
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 8
+TRAIN_KW = dict(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+TRAIN_GROUPS = {"gemm": ("nvjet", "gemm", "Gemm"),
+                "elementwise": ("elementwise",),
+                "reduce": ("reduce_kernel",), "softmax": ("softmax",),
+                "fill": ("fill", "Fill")}
+# profiler ranges of the port (core/quant.py, models/attention.py,
+# launch/steps.py) and the backward nodes of the attention's products
+TRAIN_RANGES = {"fake_quant": ("fake_quant",),
+                "attention": ("attention", "BmmBackward0",
+                              "SoftmaxBackward0"),
+                "optimizer": ("optimizer",)}
+CKPT_LAYERS, CKPT_STEPS = 2, 4
+CNN_QAT_STEPS, CNN_QAT_TEST = 300, 64
+
+
+def scratch_dir(name: str) -> Path:
+    """An empty directory under the checkout's git-ignored build/."""
+    d = Path(__file__).resolve().parent / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def dir_bytes(d: Path) -> int:
+    return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+
+
+def same_bits(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def trees_equal(torch, a, b) -> bool:
+    from repro_torch import tree as tree_lib
+
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    return len(la) == len(lb) and all(same_bits(torch, x, y)
+                                      for x, y in zip(la, lb))
+
+
+def train_stream(cfg):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+
+    return SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+
+
+def train_phase(torch, dev, cfg, peaks, smi):
+    """TRAIN_STEPS eager train steps of ``cfg`` at full width from seed-0
+    params (the config's remat and microbatches, f32 moments): per step
+    loss, ce, grad_norm, lr and host-clock ms; the median step, tokens/s,
+    peak memory and the model-FLOP share 6 * params * tokens / step s over
+    the bf16 dense peak.  Fails unless every loss and gradient norm is
+    finite.  Returns (state, the step function, the stream)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    n_params = sum(p.numel() for p in tree_lib.leaves(params))
+    state = steps.make_train_state(params, cfg=cfg)
+    del params
+    step_fn = steps.make_train_step(cfg, **TRAIN_KW)
+    data = train_stream(cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rows, ms = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch_at(i)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        rows.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    bad = [i for i, r in enumerate(rows)
+           if not (math.isfinite(r["loss"]) and math.isfinite(r["ce"])
+                   and math.isfinite(r["grad_norm"]))]
+    if bad:
+        raise AssertionError(f"train: non-finite loss or grad_norm at "
+                             f"steps {bad}: {rows}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(ms)
+    rep = {"card": smi, "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "w_bits": cfg.quant.w_bits,
+           "a_bits": cfg.quant.a_bits, "remat": cfg.parallel.remat,
+           "microbatches": cfg.parallel.microbatches,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "schedule": "cosine", **TRAIN_KW, "params": n_params,
+           "setup_s": setup_s,
+           "per_step": [dict(r, step=i, ms=t)
+                        for i, (r, t) in enumerate(zip(rows, ms))],
+           "median_step_ms": med, "tokens_per_s": tokens * 1e3 / med,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "model_flop_share": 6 * n_params * tokens / (med / 1e3)
+           / peaks["bf16"],
+           "peak_for_share": f"bf16 dense {peaks['bf16'] / 1e12:.0f} "
+                             f"TFLOP/s (data sheet)",
+           "finite": True}
+    print("train " + json.dumps(rep))
+    return state, step_fn, data
+
+
+def train_profile(torch, state, step_fn, data):
+    """One more train step under torch.profiler: device ms and launches of
+    the step's kernels, by kernel name (GEMMs, elementwise, reductions,
+    softmax, fills) and by the port's profiler ranges (``_range_ms``: the
+    kernels launched inside the fake quant's forward and backward, the
+    attention's forward plus its products' backward nodes, the optimizer;
+    ranges overlap the name groups; ``_gpu_span_ms``: the device time
+    each range spans, gaps included).  The profiler slows the host, so
+    its idle share is an upper bound.  Returns the state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = data.batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the ranges also come back as device rows spanning their kernels
+    spans = {e.key: e.self_device_time_total / 1e3 for e in rows
+             if e.device_type == cuda and e.key in TRAIN_RANGES}
+    kernels = [e for e in rows
+               if e.device_type == cuda and e.key not in TRAIN_RANGES]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    rep = {"device_ms": busy, "wall_ms_profiled": wall * 1e3,
+           "idle_share_profiled": 1 - busy / (wall * 1e3),
+           "launches": sum(e.count for e in kernels),
+           **kernel_groups(kernels, 1, "", TRAIN_GROUPS)}
+    rep["other_ms"] = busy - sum(rep[f"{g}_ms"] for g in TRAIN_GROUPS)
+    cpu = [e for e in rows
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    for name, keys in TRAIN_RANGES.items():
+        sel = [e for e in cpu if e.key in keys]
+        rep[f"{name}_range_ms"] = sum(e.device_time_total
+                                      for e in sel) / 1e3
+        rep[f"{name}_range_calls"] = sum(e.count for e in sel)
+        rep[f"{name}_gpu_span_ms"] = spans.get(name)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    rep["top_kernels_ms"] = [[e.key[:60], e.self_device_time_total / 1e3,
+                              e.count] for e in top]
+    print("train profile " + json.dumps(rep))
+    return state
+
+
+def train_serve_phase(torch, np, dev, cfg, trained, smi):
+    """The 24-layer trained params through a sync save and the reader
+    (``train/checkpoint.py``), then packed by serve/prepare.py (inside
+    ServingEngine) and served graphed on the serve phase's four requests
+    at kv_bits 4.  Fails unless the restored params are byte-equal to the
+    saved ones, the tokens equal those served from the in-memory trained
+    params, and every packed linear ran the fused tensor-core K2 and every
+    read K3 (no plain call).  Reports the packed first-decode logits
+    against the QAT forward's (not gated).  Returns the K2 and K3
+    launches of the checkpoint's engine run."""
+    from repro_torch.kernels import quant_pack, ulppack_attention, \
+        ulppack_matmul
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+    from repro_torch.serve.prepare import prepare_serving_params
+    from repro_torch.train import checkpoint
+
+    d = scratch_dir("train_serve")
+    t0 = time.perf_counter()
+    checkpoint.save(d, trained, step=TRAIN_STEPS)
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(d)
+    t0 = time.perf_counter()
+    restored, _ = checkpoint.restore(d, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if not trees_equal(torch, restored, trained):
+        raise AssertionError("train-serve: restored params differ from the "
+                             "saved ones")
+    c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
+    prompts, _ = serve_prompts(np, cfg)
+    ecfg = EngineConfig(max_batch=4, max_len=512, prefill_chunk=16)
+    outs, launches = {}, {}
+    for src, p in (("memory", trained), ("checkpoint", restored)):
+        for mod in (quant_pack, ulppack_matmul, ulppack_attention):
+            mod.reset_counts()
+        eng = ServingEngine(c, p, config=ecfg, device=dev)
+        reqs = serve_requests(eng, prompts, 32, paged=False)
+        torch.cuda.synchronize()
+        outs[src] = [list(r.output) for r in reqs]
+        launches = check_served_on_kernels(eng, f"train-serve ({src})")
+        del eng
+        torch.cuda.empty_cache()
+    if outs["memory"] != outs["checkpoint"]:
+        raise AssertionError("train-serve: tokens from the checkpoint differ "
+                             "from those of the in-memory params")
+    # the packed path's first decode against the QAT forward (reported)
+    width = 16
+    tokens = np.stack([p[:width] for p in prompts])
+    b = tokens.shape[0]
+    packed = prepare_serving_params(restored, c, device=dev)
+    caches = lm.init_caches(c, b, 512, device=dev)
+    with torch.no_grad():
+        l0, _ = steps.make_prefill_chunk_step(c)(
+            packed, caches, {"tokens": tokens}, np.zeros(b, np.int32),
+            np.full(b, width, np.int32))
+        nxt = l0.argmax(-1)
+        l1, _ = steps.make_decode_step(c)(
+            packed, caches, {"tokens": nxt[:, None].cpu().numpy()},
+            np.full(b, width, np.int32), np.ones(b, np.int32))
+        full = torch.cat([torch.as_tensor(tokens, device=dev).long(),
+                          nxt[:, None]], dim=1)
+        q, _, _ = lm.forward(restored, c, {"tokens": full},
+                             quant_mode="qat")
+    q0, q1 = q[:, width - 1].float(), q[:, width].float()
+    rep = {"card": smi, "params_saved_bytes": nbytes, "save_s": save_s,
+           "restore_s": restore_s, "restored_byte_equal": True,
+           "kv_bits": 4, "requests": len(prompts), "new_tokens": 32,
+           "graphed": True, "tokens_equal": True, **launches,
+           "prefill_logit_diff_vs_qat": float((l0.float() - q0).abs().max()),
+           "first_decode_logit_diff_vs_qat":
+               float((l1.float() - q1).abs().max()),
+           "first_decode_greedy_agree_vs_qat":
+               int((l1.argmax(-1) == q1.argmax(-1)).sum()),
+           "prefill_greedy_agree_vs_qat":
+               int((l0.argmax(-1) == q0.argmax(-1)).sum())}
+    print("train-serve " + json.dumps(rep))
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def check_served_on_kernels(eng, where) -> dict:
+    """Since the counts were reset, ``eng`` served through its CUDA graphs,
+    every packed linear one launch of the fused tensor-core K2
+    (``check_k2_path``) and every attention read one launch of K3, with
+    no plain call.  Returns the K2 and K3 launches."""
+    from repro_torch.kernels import ulppack_attention as att
+
+    graphed = eng._decode.graph is not None
+    k2 = check_k2_path(where)
+    k3 = att.kernel_launches["attention_decode"]
+    plain = att.plain_calls["attention_decode"]
+    if not graphed or not k3 or plain:
+        raise AssertionError(f"{where}: graphed {graphed}, {k3} K3 "
+                             f"launches, {plain} plain calls")
+    return {"quantized_linear_mma": k2, "attention_decode": k3}
+
+
+def check_k5_path(n_layer_calls: int, where) -> int:
+    """Since the counts were reset, each of ``n_layer_calls`` packed conv
+    layers was one fused launch of the tensor-core K5, with no CUDA-core
+    K5 launch and no plain call.  Returns K5's launches."""
+    from repro_torch.kernels import ulppack_conv2d as conv
+
+    k5 = conv.kernel_launches["ulppack_conv2d_mma"]
+    fused = conv.mma_launches["affine"]
+    cores = conv.kernel_launches["ulppack_conv2d"]
+    plain = sum(conv.plain_calls.values())
+    if k5 != n_layer_calls or fused != k5 or cores or plain:
+        raise AssertionError(f"{where}: {k5} tensor-core K5 launches "
+                             f"({fused} fused, {n_layer_calls} expected), "
+                             f"{cores} CUDA-core, {plain} plain calls")
+    return k5
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch.use_deterministic_algorithms(True) inside the block (the
+    embedding's index backward otherwise accumulates with atomics, in no
+    fixed order); cuBLAS asks for CUBLAS_WORKSPACE_CONFIG with it."""
+    import os
+
+    old = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    finally:
+        torch.use_deterministic_algorithms(old)
+
+
+def train_ckpt_phase(torch, dev, cfg, smi):
+    """The ``Trainer`` at full width cut to CKPT_LAYERS layers (a depth
+    cut only: the full state is ~26 GB on disk), once with f32 moments
+    and once with 8-bit ones: a straight run of CKPT_STEPS steps; a run of
+    half as many that checkpoints and stops (the crash); the checkpoint
+    read back (byte-equal to the state the run returned); a resumed run to
+    CKPT_STEPS.  Fails unless the resumed state equals the straight one,
+    bit for bit.  Reports save / restore s and bytes, and whether one
+    step run twice from one state is bit-equal without the determinism
+    setting (whether the setting is needed)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import checkpoint, loop
+
+    c0 = cfg.replace(num_layers=CKPT_LAYERS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=SEED)
+    saves, restores = [], []
+    orig_save, orig_restore = checkpoint.save, checkpoint.restore
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_save(*a, **k)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    def timed_restore(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_restore(*a, **k)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        return out
+
+    # is the determinism setting needed?  one step twice from one state,
+    # without it: equal bit for bit or not
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    state = steps.make_train_state(lm.init_params(
+        c0, torch.Generator(device=dev).manual_seed(SEED), device=dev),
+        cfg=c0)
+    step_fn = steps.make_train_step(c0, **TRAIN_KW)
+    batch = train_stream(c0).batch_at(0)
+    repeat_equal = trees_equal(torch, step_fn(state, batch)[0],
+                               step_fn(state, batch)[0])
+    del state
+    reps = []
+    checkpoint.save, checkpoint.restore = timed_save, timed_restore
+    try:
+        for eightbit in (False, True):
+            c = c0.replace(parallel=dataclasses.replace(
+                c0.parallel, eightbit_moments=eightbit))
+            root = scratch_dir("train_ckpt")
+            saves.clear()
+            restores.clear()
+
+            def trainer(name, total):
+                lc = loop.TrainLoopConfig(
+                    total_steps=total, checkpoint_every=10 ** 6,
+                    checkpoint_dir=str(root / name), log_every=10 ** 6,
+                    async_checkpoint=False)
+                return loop.Trainer(c, lc, data_cfg, seed=SEED, device=dev,
+                                    train_step_kwargs=dict(TRAIN_KW))
+
+            with deterministic(torch) as ws:
+                t0 = time.perf_counter()
+                straight, _ = trainer("straight", CKPT_STEPS).run()
+                mid, _ = trainer("crash", CKPT_STEPS // 2).run()
+                nbytes = dir_bytes(root / "crash")
+                back, _ = checkpoint.restore(root / "crash", device=dev)
+                read_equal = trees_equal(torch, back, mid)
+                del back, mid
+                resumed, at = trainer("crash", CKPT_STEPS).run()
+                wall = time.perf_counter() - t0
+            equal = trees_equal(torch, resumed, straight)
+            rep = {"card": smi, "cut": f"depth only: {CKPT_LAYERS} of "
+                                       f"{cfg.num_layers} layers (the full "
+                                       f"state is ~26 GB on disk)",
+                   "layers": CKPT_LAYERS, "d_model": cfg.d_model,
+                   "vocab": cfg.vocab_size, "eightbit_moments": eightbit,
+                   "steps": CKPT_STEPS, "crash_at": CKPT_STEPS // 2,
+                   "resumed_to": at, "state_bytes_on_disk": nbytes,
+                   "save_s": list(saves), "restore_s": list(restores),
+                   "restored_byte_equal": read_equal,
+                   "resumed_equals_straight": equal,
+                   "deterministic": "torch.use_deterministic_algorithms"
+                                    f"(True), CUBLAS_WORKSPACE_CONFIG={ws}",
+                   "repeat_step_bit_equal_without_it": repeat_equal,
+                   "wall_s": wall}
+            print("train-ckpt " + json.dumps(rep))
+            reps.append(rep)
+            del straight, resumed
+            torch.cuda.empty_cache()
+            shutil.rmtree(root, ignore_errors=True)
+            if not (read_equal and equal):
+                raise AssertionError(f"train-ckpt (8-bit moments "
+                                     f"{eightbit}): restored equal "
+                                     f"{read_equal}, resumed equals the "
+                                     f"straight run {equal}")
+    finally:
+        checkpoint.save, checkpoint.restore = orig_save, orig_restore
+    return reps
+
+
+def cnn_qat_phase(torch, dev, cfg, smi):
+    """Full-width sparq-cnn W2A2 QAT-trained on the synthetic template task
+    of examples/train_cnn_qat.py at 256x256x3 (repro_torch.examples.
+    train_cnn_qat: a fresh batch of CNN_BATCH each step, AdamW at 1e-2, no
+    weight decay) for CNN_QAT_STEPS steps; float, QAT and packed-integer
+    accuracy on CNN_QAT_TEST held-out images.  Fails unless the packed
+    evaluation ran every packed layer as one fused tensor-core K5 launch
+    (no CUDA-core K5, no plain call); then ``cnn_compare`` on the trained
+    params (every layer bit-equal to the plain path).  Returns K5's
+    launches."""
+    from repro_torch.examples import train_cnn_qat as example
+    from repro_torch.kernels import ulppack_conv2d as conv
+
+    conv.reset_counts()
+    t0 = time.perf_counter()
+    rep = example.run(cfg, steps=CNN_QAT_STEPS, batch=CNN_BATCH,
+                      n_test=CNN_QAT_TEST, seed=SEED, device=dev,
+                      log_every=0)
+    wall = time.perf_counter() - t0
+    k5 = check_k5_path(-(-CNN_QAT_TEST // CNN_BATCH) * len(cfg.cnn_channels),
+                       "cnn-qat packed evaluation")
+    losses = rep["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("cnn-qat: non-finite loss")
+    # where the QAT forward's activations live: the share of each conv
+    # layer's ReLU outputs above zero on held-out images, and of its
+    # inputs on the lattice's zero (below half a step of alpha / qmax)
+    from repro_torch.models import cnn
+    xs = rep["test"][0][:CNN_BATCH]
+    params, q = rep["params"], cfg.quant
+    live = []
+    with torch.no_grad():
+        h = torch.relu(cnn.conv_apply(params["stem"], xs, q))
+        for p in params["layers"]:
+            zero = float((h < 0.5 * p["alpha"] / q.qmax_a).float().mean())
+            h = torch.relu(cnn.conv_apply(p, h, q, quant_mode="qat"))
+            live.append({"alpha": float(p["alpha"]),
+                         "input_on_zero_share": zero,
+                         "output_above_zero_share":
+                             float((h > 0).float().mean())})
+    line = {"card": smi, "model": cfg.name, "w_bits": cfg.quant.w_bits,
+            "a_bits": cfg.quant.a_bits, "input": [cfg.cnn_input_hw] * 2 + [3],
+            "steps": CNN_QAT_STEPS, "batch": CNN_BATCH,
+            "held_out": CNN_QAT_TEST, "acc_float": rep["acc_float"],
+            "acc_qat": rep["acc_qat"], "acc_packed": rep["acc_packed"],
+            "loss_first10_mean": statistics.mean(losses[:10]),
+            "loss_last10_mean": statistics.mean(losses[-10:]),
+            "median_step_ms": rep["median_step_ms"], "wall_s": wall,
+            "qat_activations": live, "k5_launches": k5}
+    print("cnn-qat " + json.dumps(line))
+    cnn_compare(torch, cfg, rep["packed"], rep["plans"], rep["test"][0][:2])
+    return k5
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2856,6 +3340,26 @@ def main() -> int:
     (packed, plans), x, launches["ulppack_conv2d_mma"] = cnn_phase(
         torch, dev, cnn_cfg)
     cnn_compare(torch, cnn_cfg, packed, plans, x)
+    del packed, plans, x
+    torch.cuda.empty_cache()
+
+    # training: full-width LM train steps and their profile; the trained
+    # params saved, read back, packed and served; the Trainer's
+    # checkpoint / resume at 2 layers; the CNN QAT-trained and deployed.
+    # The trained LM's engine and the trained CNN's packed evaluation add
+    # to K2's, K3's and K5's launches.
+    state, step_fn, data = train_phase(torch, dev, lm_cfg, peaks, smi)
+    state = train_profile(torch, state, step_fn, data)
+    trained = state["params"]
+    del state, step_fn
+    torch.cuda.empty_cache()
+    for k, n in train_serve_phase(torch, np, dev, lm_cfg, trained,
+                                  smi).items():
+        launches[k] += n
+    del trained
+    torch.cuda.empty_cache()
+    train_ckpt_phase(torch, dev, lm_cfg, smi)
+    launches["ulppack_conv2d_mma"] += cnn_qat_phase(torch, dev, cnn_cfg, smi)
 
     meta = {
         # K1 on the serving path is folded into the tensor-core K2

@@ -1,5 +1,11 @@
-"""Serving step factories (counterpart of the serving half of
-``repro/launch/steps.py``): ``decode_step`` and ``prefill_chunk_step``,
+"""Step factories (counterpart of ``repro/launch/steps.py``).
+
+Training: :func:`make_train_step` (fake-quant forward and backward with
+microbatch accumulation, global-norm clip, AdamW) over a state from
+:func:`make_train_state`, and the fake-quant prefill
+:func:`make_prefill_step`; they run eagerly (op by op).
+
+Serving: ``decode_step`` and ``prefill_chunk_step``,
 and speculative decoding's ``draft_step`` and ``verify_chunk_step``, run
 op by op (:func:`make_decode_step`, :func:`make_prefill_chunk_step`,
 :func:`make_draft_step`, :func:`make_verify_chunk_step`) or over static
@@ -24,10 +30,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.kernels import (cache_write, quant_pack, ulppack_attention,
                                  ulppack_matmul)
 from repro_torch.kernels import plan as plan_lib
-from repro_torch.models import attention, lm
+from repro_torch.models import attention, common, lm
+from repro_torch.optim import adamw, schedules
 
 
 def quant_mode_for(cfg, kind: str) -> str:
@@ -36,6 +44,127 @@ def quant_mode_for(cfg, kind: str) -> str:
     return {"train": "qat", "prefill": "qat", "prefill_chunk": "packed",
             "decode": "packed"}[kind]
 
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+def _split_micro(batch: dict, n: int) -> list:
+    """``n`` microbatches along the batch axis (axis 1 of ``positions3``
+    [3, B, S], axis 0 of everything else)."""
+    parts = {k: torch.chunk(v, n, dim=1 if k == "positions3" else 0)
+             for k, v in batch.items()}
+    return [{k: parts[k][i] for k in batch} for i in range(n)]
+
+
+def make_train_step(cfg, *, adamw_cfg: adamw.AdamWConfig | None = None,
+                    schedule: str = "cosine", peak_lr: float = 3e-4,
+                    warmup_steps: int = 100, total_steps: int = 10_000,
+                    clip_norm: float = 1.0):
+    """``train_step(state, batch) -> (state, metrics)``, run eagerly.
+
+    The forward is ``lm.forward`` in the train quant mode ('qat' when the
+    config quantizes), each block recomputed in the backward unless
+    ``cfg.parallel.remat == 'none'``; the loss ``lm.loss_fn``.  With
+    ``cfg.parallel.microbatches`` n > 1 the batch is split in n, the
+    gradients summed in f32 and divided by n, as are loss and ce.  Then
+    the global-norm clip, the AdamW update at the schedule's lr for
+    ``state['step']``, and ``apply_updates`` (each param back to its
+    dtype), in an ``optimizer`` profiler range.  The state is not
+    modified; a new one is returned.  Metrics: ``loss``, ``ce``,
+    ``grad_norm``, ``lr``, 0-d f32 tensors."""
+    adamw_cfg = adamw_cfg or adamw.AdamWConfig(
+        eightbit_moments=cfg.parallel.eightbit_moments)
+    sched = schedules.get_schedule(schedule)
+    qmode = quant_mode_for(cfg, "train")
+    remat = cfg.parallel.remat != "none"
+    n_micro = max(1, cfg.parallel.microbatches)
+
+    def grads_of(params, mb):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_lib.leaves(params)]
+        logits, aux, _ = lm.forward(tree_lib.unflatten(params, leaves), cfg,
+                                    mb, quant_mode=qmode, remat=remat)
+        loss, ce = lm.loss_fn(logits, mb["labels"], aux)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+        return loss.detach(), ce.detach(), grads
+
+    def train_step(state, batch):
+        params, step = state["params"], state["step"]
+        dev = step.device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        lr = sched(step, peak_lr=peak_lr, warmup_steps=warmup_steps,
+                   total_steps=total_steps)
+        if n_micro == 1:
+            loss, ce, grads = grads_of(params, batch)
+        else:
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for p in tree_lib.leaves(params)]
+            loss = ce = 0.0
+            for mb in _split_micro(batch, n_micro):
+                lossi, cei, gs = grads_of(params, mb)
+                for acc, g in zip(grads, gs):
+                    acc.add_(g)
+                del gs
+                loss, ce = loss + lossi, ce + cei
+            grads = [g / n_micro for g in grads]
+            loss, ce = loss / n_micro, ce / n_micro
+        with torch.no_grad(), \
+                torch.profiler.record_function("optimizer"):
+            grads, gnorm = adamw.clip_by_global_norm(
+                tree_lib.unflatten(params, grads), clip_norm)
+            updates, opt_state = adamw.update(
+                grads, state["opt_state"], params, lr, adamw_cfg)
+            del grads
+            params = adamw.apply_updates(params, updates)
+        new_state = dict(state)
+        new_state.update(params=params, opt_state=opt_state, step=step + 1)
+        return new_state, {"loss": loss, "ce": ce, "grad_norm": gnorm,
+                           "lr": lr}
+
+    return train_step
+
+
+def make_train_state(params, adamw_cfg: adamw.AdamWConfig | None = None,
+                     cfg=None) -> dict:
+    """``{"params", "opt_state", "step"}`` (step an int32 0-d tensor on the
+    params' device); 8-bit moments when ``adamw_cfg`` -- or, without one,
+    ``cfg.parallel`` -- asks for them."""
+    if adamw_cfg is None:
+        adamw_cfg = adamw.AdamWConfig(
+            eightbit_moments=cfg.parallel.eightbit_moments if cfg is not None
+            else False)
+    dev = tree_lib.leaves(params)[0].device
+    return {"params": params, "opt_state": adamw.init(params, adamw_cfg),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def make_prefill_step(cfg, max_len: int):
+    """``prefill_step(params, batch) -> (last logits [B, vocab], caches)``:
+    fresh caches of ``max_len`` rows in the compute dtype on the params'
+    device, filled with the prompt's K/V (rows 0 .. S-1) by the fake-quant
+    forward ('qat' when the config quantizes), under no_grad."""
+    qmode = quant_mode_for(cfg, "prefill")
+
+    def prefill_step(params, batch):
+        dev = params["embed"]["table"].device
+        tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.int64)
+        caches = lm.init_caches(cfg, tokens.shape[0], max_len,
+                                dtype=common.dtype_of(cfg.compute_dtype),
+                                device=dev)
+        with torch.no_grad():
+            logits, _, caches = lm.forward(params, cfg, {"tokens": tokens},
+                                           quant_mode=qmode, caches=caches)
+        return logits[:, -1], caches
+
+    return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# Serve
+# ---------------------------------------------------------------------------
 
 def _inputs(batch, index, valid, block_tables, dev):
     """Device tensors of one window's inputs: tokens [B, w] int64, offsets

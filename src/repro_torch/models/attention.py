@@ -11,20 +11,27 @@ Writes happen in place: each layer's cache tensors are allocated once
 through block tables) and written through fixed-shape destination rows
 (:func:`cache_write`, the predicated row scatter of
 kernels/cache_write.py) -- the counterpart of the reference's donated
-cache buffers, and capturable in a CUDA graph.  Every read goes through
-the fused flash-decoding kernels (kernels/ulppack_attention.py: K3 over a
-contiguous cache, K4 over a paged one), for decode steps, chunked-prefill
-windows and cache-free forwards alike.
+cache buffers, and capturable in a CUDA graph.  Every serving read goes
+through the fused flash-decoding kernels (kernels/ulppack_attention.py: K3
+over a contiguous cache, K4 over a paged one), for decode steps,
+chunked-prefill windows and cache-free forwards alike.
+
+Training forwards (``quant_mode='qat'``, or any forward autograd records)
+and the fake-quant prefill that fills a fresh cache without write offsets
+take :func:`chunked_attention` instead: the reference's q-chunked exact
+softmax in plain differentiable ops (f32 accumulation, per-chunk
+recomputation in the backward), since K3 has no gradient.
 
 Ported here: the vector-indexed, non-windowed path, contiguous and paged.
 Sliding-window rings, cross-attention and M-RoPE wait for a later slice
 (ROADMAP.md Queue 1 item 13); the legacy gather read
-(``_paged_cache_read``) waits with ``_chunked_attention`` (item 8c).
+(``_paged_cache_read``, ``_cache_read``) waits for item 8c.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core import packing
 from repro_torch.kernels import cache_write as cache_write_lib
@@ -221,12 +228,76 @@ def cache_write(cache, k, v, dest, kv_bits=0, *, backend="auto"):
     return cache
 
 
+NEG_INF = -1e30
+Q_CHUNK = 512     # the reference's q-chunk when its tuning cache misses
+
+
+def chunked_attention(q, k, v, mask_fn, q_positions, chunk: int = Q_CHUNK):
+    """Exact softmax attention, q-chunked to bound the score buffer (the
+    reference's ``_chunked_attention`` over raw K/V).
+
+    q: [B, Sq, H, hd]; k, v: [B, Sk, KVH, hd]; ``mask_fn(qpos [B, C])`` ->
+    [B, C, Sk] boolean validity.  The scores and the value product take
+    the operands in q's dtype (the reference's ``opd``) and accumulate in
+    f32: bf16 operands are widened first, which is exact.  Where ``Sq >
+    chunk`` each full chunk runs under ``torch.utils.checkpoint``, so the
+    backward recomputes its [C, Sk] scores instead of storing them.  The
+    forward runs in an ``attention`` profiler range.  Returns [B, Sq, H,
+    hd] in q's dtype."""
+    b, sq, h, hd = q.shape
+    scale = hd ** -0.5
+    opd = q.dtype
+    kvh = k.shape[2]
+    groups = h // kvh
+    k32 = k.to(opd).to(torch.float32)
+    v32 = v.to(opd).to(torch.float32)
+
+    def one_chunk(qc, qpos):
+        c = qc.shape[1]
+        qg = (qc.to(torch.float32) * scale).to(opd)
+        qg = qg.reshape(b, c, kvh, groups, hd).to(torch.float32)
+        scores = torch.einsum("bckgd,bskd->bckgs", qg, k32)
+        valid = mask_fn(qpos)[:, :, None, None, :]
+        scores = torch.where(valid, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bckgs,bskd->bckgd",
+                           probs.to(opd).to(torch.float32), v32)
+        return out.reshape(b, c, h, hd)
+
+    with torch.profiler.record_function("attention"):
+        if sq <= chunk:
+            return one_chunk(q, q_positions).to(q.dtype)
+        outs = []
+        for s0 in range(0, sq, chunk):
+            qc, qpos = q[:, s0:s0 + chunk], q_positions[:, s0:s0 + chunk]
+            if qc.shape[1] == chunk:
+                outs.append(torch_checkpoint.checkpoint(
+                    one_chunk, qc, qpos, use_reentrant=False))
+            else:                   # the tail, as the reference runs it
+                outs.append(one_chunk(qc, qpos))
+        return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _causal(positions, sk):
+    """The training mask: key position <= query position."""
+    def mask_fn(qpos):
+        return positions[:, None, :sk] <= qpos[:, :, None]
+    return mask_fn
+
+
 def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                     cache_index=None, cache_valid=None, dest=None,
                     block_tables=None, backend="auto"):
     """Attention forward; returns (out, cache).
 
-      * cache=None: causal self-attention over the window's own K/V.
+      * cache=None: causal self-attention over the window's own K/V --
+        through K3 when serving, through :func:`chunked_attention` in a
+        training forward (``quant_mode='qat'``, or autograd recording).
+      * cache without cache_index: the prefill of a fresh contiguous
+        cache -- the window's K/V fill rows 0 .. s-1 (:func:`cache_write`)
+        and the query attends over the raw window
+        (:func:`chunked_attention`), as the reference's fake-quant prefill
+        step does.
       * cache + cache_index ([B] per-row write offsets, or a scalar shared
         by every row): the window's K/V is written into the cache in place
         -- tokens past ``cache_valid[b]`` dropped -- and the query reads the
@@ -256,17 +327,24 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is None:
+    train = quant_mode == "qat" or (torch.is_grad_enabled()
+                                     and q.requires_grad)
+    if cache is not None and cache_index is None:
+        # the fake-quant prefill: the window fills rows 0 .. sq-1 of a
+        # fresh cache, and the query attends over the raw window
+        _, _, rows, _ = window(0, None, None, b, sq, cache["k"].shape,
+                               x.device)
+        cache_write(cache, k.detach(), v.detach(), rows, cfg.quant.kv_bits,
+                    backend=backend)
+        out = chunked_attention(q, k, v, _causal(positions, sq), positions)
+    elif cache is None and train:
+        out = chunked_attention(q, k, v, _causal(positions, sq), positions)
+    elif cache is None:
         full = torch.full((b,), sq, dtype=torch.int32, device=x.device)
         out = ulppack_attention.fused_decode_attention(
             q, {"k": k, "v": v}, full, positions, kv_bits=0, hd=hd,
             backend=backend)
     else:
-        if cache_index is None:
-            raise NotImplementedError(
-                "filling a cache without write offsets (the reference's "
-                "fake-quant prefill step) is still to be ported; pass "
-                "cache_index")
         kv_bits = cfg.quant.kv_bits
         if dest is None:
             cache_index, cache_valid, dest, block_tables = window(

@@ -2,15 +2,17 @@
 (counterpart of ``repro/models/cnn.py``).
 
 Layouts are the reference's: images and activations NHWC, conv kernels
-HWIO.  Conv layers run in one of two modes:
+HWIO.  Conv layers run in one of three modes:
   'none'   -- the float conv (full float32, TF32 off).
+  'qat'    -- training: LSQ fake-quant weights, PACT-clipped activations
+              fake-quantized at ``alpha / qmax`` (core/quant.py's
+              straight-through gradients), then the float conv.
   'packed' -- the deployed Sparq path: quantize the activations onto the
               PACT lattice, P1-pack them over channels, the packed conv
               kernel (K5, kernels/ulppack_conv2d.py) and the affine dequant
               ``a_scale * w_scale * (acc - w_zp * psum)``.  On a 'cuda'
               plan for ``int16xP2s8`` the dequant, with its patch sums, is
               fused into the tensor-core K5 (one launch a layer).
-The fake-quant training mode ('qat') waits for the training slice.
 
 Deployment is two-phase, as in the reference: ``prepare_packed_params``
 quantizes and packs each conv layer's weights once (P1 lanes or bit-dense
@@ -296,11 +298,19 @@ def conv_apply(p, x, qcfg: QuantConfig, *, quant_mode: str = "none",
                 epilogue=_conv.ConvAffine(o["a_scale"], o["w_scale"],
                                           o["w_zp"]))
         return conv_epilogue(_integer_core(o, padding))
-    if quant_mode not in ("none", "packed"):
-        raise NotImplementedError(
-            f"quant_mode {quant_mode!r}: fake-quant training is still to be "
-            f"ported (ROADMAP.md Queue 1 item 15)")
-    return _conv_f32(x, p["kernel"], padding)
+    if quant_mode not in ("none", "qat", "packed"):
+        raise ValueError(f"unknown quant_mode {quant_mode!r}")
+    w, xx = p["kernel"].to(torch.float32), x.to(torch.float32)
+    if quant_mode == "qat" and qcfg.enabled:
+        w = quant.lsq_fake_quant(w, p["w_step"], qcfg.w_bits, True)
+        alpha = p["alpha"]
+        xc = quant.pact_clip(xx, alpha, qcfg.a_bits)
+        # the scale alpha / qmax gets no gradient (fake_quant's rule):
+        # alpha learns through the clip alone
+        xx = quant.fake_quant(xc, alpha / qcfg.qmax_a,
+                              torch.zeros((), dtype=torch.float32,
+                                          device=x.device), qcfg.a_bits)
+    return _conv_f32(xx, w, padding)
 
 
 def forward(params, cfg, x, *, quant_mode: str = "none",

@@ -5,10 +5,11 @@ Parameters are plain nested dicts of tensors; every layer is an (init,
 apply) pair, with the reference package's layouts, so trees carry across
 through repro_torch/bridge.py.  ``quant_mode``:
   'none'   -- float path.
+  'qat'    -- LSQ fake-quant on weights and activations (training; the
+              straight-through gradients of core/quant.py).
   'packed' -- deployed Sparq path: runtime activation quantize+pack, packed
               integer matmul, affine dequant.  Params must have been
               converted with ``pack_dense_params``.
-The fake-quant training mode ('qat') waits for the training slice.
 """
 
 from __future__ import annotations
@@ -90,11 +91,21 @@ def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
             p["w_scale"], p["w_zp"], spec, bias=p.get("bias"),
             backend=backend, weight_store="dense" if dense else "lanes",
             out_dtype=compute_dtype)
-    if quant_mode not in ("none", "packed"):
-        raise NotImplementedError(
-            f"quant_mode {quant_mode!r}: fake-quant training is still to be "
-            f"ported (ROADMAP.md Queue 1 item 15)")
-    y = x.to(compute_dtype) @ p["kernel"].to(compute_dtype)
+    if quant_mode not in ("none", "qat", "packed"):
+        raise ValueError(f"unknown quant_mode {quant_mode!r}")
+    if quant_mode == "qat" and qcfg is not None and qcfg.enabled \
+            and "w_step" in p:
+        # weights fake-quantized in f32 (few, precision-sensitive);
+        # activations in the compute dtype, where the lattice is exact
+        kernel = quant.lsq_fake_quant(
+            p["kernel"].to(torch.float32), p["w_step"], qcfg.w_bits,
+            True).to(compute_dtype)
+        x = quant.lsq_fake_quant(
+            x.to(compute_dtype), p["a_step"].to(compute_dtype),
+            qcfg.a_bits, True)
+    else:
+        kernel = p["kernel"].to(compute_dtype)
+    y = x.to(compute_dtype) @ kernel
     if "bias" in p:
         y = y + p["bias"].to(compute_dtype)
     return y

@@ -1,6 +1,8 @@
 """Decoder LM assembly for dense attention stacks (counterpart of
 ``repro/models/lm.py``): block init/apply, parameter init, forward with the
-pad-vocab bias, contiguous or paged decode caches and their byte counts.
+pad-vocab bias (optionally recomputing each block in the backward,
+``remat=True``), the training loss, contiguous or paged decode caches and
+their byte counts.
 
 Mamba / xLSTM / MoE blocks, encoders and modality frontends are still to
 be ported (ROADMAP.md Queue 1 item 13); configs that need them raise
@@ -10,6 +12,8 @@ be ported (ROADMAP.md Queue 1 item 13); configs that need them raise
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.models import attention, common, mlp
@@ -97,8 +101,15 @@ def init_params(cfg, generator: torch.Generator | None = None,
 
 def forward(params, cfg, batch, *, quant_mode="none", caches=None,
             cache_index=None, cache_valid=None, dest=None, block_tables=None,
-            backend="auto"):
+            backend="auto", remat=False):
     """Full forward.  Returns (logits, aux_loss, caches).
+
+    ``remat=True`` runs each block under ``torch.utils.checkpoint``
+    (non-reentrant), the counterpart of the reference's per-block
+    ``jax.checkpoint``: the backward recomputes the block -- its
+    fake-quant lattices included -- instead of storing its activations.
+    ``caches`` without ``cache_index`` is the prefill of fresh caches:
+    every layer writes rows 0 .. S-1 and attends over the raw window.
 
     ``cache_index`` [B] (or a scalar) gives per-slot cache write offsets;
     ``cache_valid`` [B] the valid-prefix length of each row's window.  The
@@ -123,12 +134,19 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
             cache_index, cache_valid, block_tables, b, s,
             caches[0]["attn"]["k"].shape, x.device)
 
-    for li, blk in enumerate(params["layers"]):
-        x, _ = block_apply(
+    def run_block(blk, x, cache):
+        return block_apply(
             blk, cfg, x, positions=positions, quant_mode=quant_mode,
-            cache=caches[li] if caches is not None else None,
-            cache_index=cache_index, cache_valid=cache_valid, dest=dest,
-            block_tables=block_tables, backend=backend)
+            cache=cache, cache_index=cache_index, cache_valid=cache_valid,
+            dest=dest, block_tables=block_tables, backend=backend)[0]
+
+    for li, blk in enumerate(params["layers"]):
+        cache = caches[li] if caches is not None else None
+        if remat:
+            x = torch_checkpoint.checkpoint(run_block, blk, x, cache,
+                                            use_reentrant=False)
+        else:
+            x = run_block(blk, x, cache)
 
     x = common.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -187,3 +205,20 @@ def cache_page_bytes(cfg, page_size, dtype=torch.bfloat16) -> int:
     from shapes, like :func:`cache_bytes`."""
     check_supported(cfg)
     return cfg.num_layers * page_size * _row_bytes(cfg, dtype)
+
+
+def loss_fn(logits, labels, aux=0.0, aux_weight=0.01):
+    """Masked cross-entropy (labels < 0 are padding) plus the weighted aux
+    term; returns (loss, ce), f32."""
+    logits = logits.to(torch.float32)
+    labels = torch.as_tensor(labels, device=logits.device).to(torch.int64)
+    mask = labels >= 0
+    logp = F.log_softmax(logits, dim=-1)
+    # -logp[label]: nll_loss picks the same values as a gather, and its
+    # backward writes each row once (deterministic on the card)
+    nll = F.nll_loss(logp.reshape(-1, logp.shape[-1]),
+                     torch.clamp(labels, min=0).reshape(-1),
+                     reduction="none").reshape(labels.shape)
+    denom = torch.clamp(mask.sum(), min=1)
+    ce = torch.where(mask, nll, 0.0).sum() / denom
+    return ce + aux_weight * aux, ce

@@ -244,6 +244,6 @@ def test_unported_options_raise(setup):
         cnn.prepare_packed_params(tp, tcfg, autotune=True)
     with pytest.raises(NotImplementedError, match="item 12"):
         cnn.layer_plans(tp, tcfg, (1, 8, 8, 3), autotune=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="quant_mode"):
         cnn.conv_apply(tp["layers"][0], torch.zeros(1, 8, 8, 8), tcfg.quant,
-                       quant_mode="qat")
+                       quant_mode="int8")
