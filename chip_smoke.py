@@ -171,6 +171,27 @@ toolkit:
    the trained params.  The trained LM's engine and the trained CNN's
    packed evaluation add to K2's, K3's and K5's launches.
 
+9. Autotune phase (``kernels/autotune.py``), after every other phase:
+   from its start the script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at
+   ``build/autotune/cache.json``, so every earlier phase plans from an
+   empty cache.  An ``autotune`` line a tuned signature: the fused K2 at
+   stablelm's six K2 shapes, K3 at B4 S512 H32 hd64 C1 for kv 16, 4 and 2
+   and C16 at kv 4, K4 at the paged phase's pages adopting K3's entry
+   (both plans tuned, one geometry, K4 bit-equal to K3 at it), K5 at
+   sparq-cnn's 32->32 and 32->64 layers, the layout sweep at stablelm's
+   three W2A2 (k, n) and sparq-cnn's 32->64 conv: key, candidates,
+   ``heuristic_us``, ``wall_us``, both geometries; gated: every candidate
+   bit-equal to the plain version (K3: within ATTN_TOL, and the winner's
+   largest difference too).  The ``autotune cli`` line: ``python -m
+   repro_torch.launch.serve`` at full width with ``--autotune --metrics``
+   on an empty cache, then without ``--autotune`` (gated: both exit 0,
+   the second tunes nothing, leaves the file as it was, and plans every
+   K2 ``source: tuned``).  The ``autotune serve`` line: graphed kv 4
+   engines on the tuned cache and on an empty one serve the serve phase's
+   requests (tokens gated under the ``spec`` lines' rule), the first
+   decode's logit difference and the device ms of a decode pass and a
+   64-row prefill chunk of each, alternated over 5 rounds.
+
 ``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
 tensor-core K2's split sweep (``k2_sweep``, its lanes and its fused
 route), the data the planner's split model was fitted to.
@@ -192,6 +213,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -200,7 +222,6 @@ import time
 from pathlib import Path
 
 SEED = 0
-L2_BYTES = 50 * 2**20
 # Attention against its plain version: with f32 queries the two differ only
 # in summation order (ATTN_TOL absolute and relative); with bf16 queries
 # both round that f32 result to bf16, which adds at most one bf16 ulp
@@ -238,36 +259,19 @@ def time_ms(torch, calls, reps=5) -> float:
     once into a CUDA graph, which is replayed ``reps`` times between CUDA
     events; the median replay time over ``len(calls)``.  Replaying a graph
     leaves no host gaps between launches, so what is timed is the device
-    work of each call, not Python's launch overhead."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):          # warm-up off the default stream
-        for c in calls[:2]:
-            c()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for c in calls:
-            c()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / len(calls))
-    del graph
-    return statistics.median(times)
+    work of each call, not Python's launch overhead.  This is
+    ``autotune.measure_us``, the tuner's own method."""
+    from repro_torch.kernels import autotune
+
+    return autotune.measure_us(calls, device="cuda", repeats=reps) / 1e3
 
 
 def copies_for(nbytes: int) -> int:
-    """Buffer copies to rotate so a pass reads twice the L2's size."""
-    return max(1, min(32, math.ceil(2 * L2_BYTES / max(1, nbytes))))
+    """Buffer copies to rotate so a pass reads twice the L2's size
+    (``autotune.copies_for``)."""
+    from repro_torch.kernels import autotune
+
+    return autotune.copies_for(nbytes)
 
 
 def kernel_phase(torch, peaks, dev):
@@ -648,18 +652,15 @@ def _mma_operands(torch, dev, gen, m, kp, n):
 
 def _mma_variant(plan, kp, block_m, per):
     """``plan`` with block_m rows a block and ``per`` 64-lane stages a
-    split (the tile's shared memory for those rows: lanes, or the fused
-    route's float rows of ``plan.x_bytes``)."""
+    split: ``plan_lib.mma_geometry``, the tile's shared memory for those
+    rows (lanes, or the fused route's float rows of ``plan.x_bytes``)."""
     import dataclasses
 
     from repro_torch.kernels import plan as plan_lib
 
     ab = 2 * plan.x_bytes if plan.x_bytes else 2
-    stages, smem = plan_lib.int_matmul_smem_layout(block_m, ab, 2)
-    steps = -(-kp // 64)
-    return dataclasses.replace(plan, block_m=block_m, stages=stages,
-                               smem_bytes=smem, block_k=64 * per,
-                               splits=-(-steps // per))
+    return dataclasses.replace(plan, **plan_lib.mma_geometry(kp, block_m,
+                                                             per, ab))
 
 
 def _mma_us(torch, a, ws, sp, plan, want):
@@ -695,13 +696,16 @@ def k2_costs(torch, dev, gen):
 
 def k2_sweep(torch, dev):
     """``python3 chip_smoke.py --k2-sweep``: the tensor-core K2 at each of
-    its main-path shapes over block_m (8 at 4 rows; 16, 32 and 64 at 64)
-    and 1-16 stages a split, µs a call by CUDA-graph replay, each checked
+    its main-path shapes over the planner's candidate grid
+    (``plan.packed_matmul_candidates``: block_m up to the first that holds
+    m x stages a split), µs a call by CUDA-graph replay, each checked
     bit-equal, beside the planner's choice: the data its split model was
     fitted to.  One ``k2-sweep`` line per shape and block_m for the lanes
     route, one ``k2-sweep-fused`` line for the fused quantize on bf16
     activations (the serving path's route, which shares the split
     model)."""
+    import dataclasses
+
     from repro_torch.kernels import ops, ulppack_matmul as mm
     from repro_torch.kernels import plan as plan_lib
 
@@ -711,7 +715,6 @@ def k2_sweep(torch, dev):
         sp, a, ws, want = _mma_operands(torch, dev, gen, m, kp, n)
         plan = plan_lib.plan_packed_matmul(m, kp, n, sp,
                                            weight_store="lanes", device=dev)
-        steps = -(-kp // 64)
         x = (torch.randn((m, 2 * kp), generator=gen, device=dev)).to(bf16)
         cs = torch.zeros(n, dtype=torch.int32, device=dev)
         one = torch.tensor(3 ** -0.5, device=dev)   # the serving a_step
@@ -732,14 +735,17 @@ def k2_sweep(torch, dev):
             return 1e3 * time_ms(torch, [lambda wi=wi: call(wi)
                                          for wi in ws])
 
-        for bm in ((8,) if m <= 8 else (16, 32, 64)):
-            pers = [per for per in (1, 2, 3, 4, 6, 8, 11, 16) if per <= steps]
-            for label, p, us_of in (
-                    ("k2-sweep", plan, lambda v: _mma_us(torch, a, ws, sp, v,
-                                                         want)),
-                    ("k2-sweep-fused", qplan, fused_us)):
-                us = {per: us_of(_mma_variant(p, kp, bm, per))
-                      for per in pers}
+        for label, p, us_of, x_dtype in (
+                ("k2-sweep", plan, lambda v: _mma_us(torch, a, ws, sp, v,
+                                                     want), None),
+                ("k2-sweep-fused", qplan, fused_us, bf16)):
+            # the planner's candidate grid: block_m x stages a split
+            cands = plan_lib.packed_matmul_candidates(
+                m, kp, n, sp, weight_store="lanes", x_dtype=x_dtype,
+                device=dev)
+            for bm in sorted({c["block_m"] for c in cands}):
+                us = {c["block_k"] // 64: us_of(dataclasses.replace(p, **c))
+                      for c in cands if c["block_m"] == bm}
                 print(f"{label} " + json.dumps({
                     "shape": [m, kp, n], "block_m": bm,
                     "us_by_stages_per_split": us,
@@ -3240,6 +3246,323 @@ def cnn_qat_phase(torch, dev, cfg, smi):
     return k5
 
 
+#: The autotune phase's signatures: K3 at B4 S512 (stablelm's heads) for
+#: (query rows, kv_bits), K4 reading each at the paged phase's 16-row
+#: pages; the layout sweep at stablelm's three W2A2 (k, n) at 8 rows
+#: (``prepare_serving_params``' tune_rows).
+AUTOTUNE_ATTN = ((1, 16), (1, 4), (1, 2), (16, 4))
+AUTOTUNE_SKV = 512
+AUTOTUNE_LAYOUTS = ((2048, 2048), (2048, 5632), (5632, 2048))
+AUTOTUNE_CLI = ("--arch", "stablelm-1.6b", "--max-batch", "4", "--max-len",
+                "512", "--kv-bits", "4", "--requests", "4")
+
+
+def _tune_line(kernel, key, entry, heuristic, fields, **extra):
+    """Print one ``autotune`` line: the key, the candidate count, the
+    heuristic's and the winner's µs and geometry, and whether every
+    candidate agreed with the plain version (gated)."""
+    agree = entry.get("bit_equal", entry.get("within_tol"))
+    line = {"kernel": kernel, "key": key,
+            "candidates": entry["candidates"],
+            "heuristic_us": entry.get("heuristic_us", entry.get("base_us")),
+            "wall_us": entry["wall_us"],
+            "winner": {f: entry[f] for f in fields if f in entry},
+            "heuristic": heuristic,
+            "bit_equal" if "bit_equal" in entry else "within_tol": agree,
+            **extra}
+    h, w = line["heuristic_us"], line["wall_us"]
+    line["heuristic_over_tuned"] = h / w if h and w else None
+    print("autotune " + json.dumps(line))
+    if not agree:
+        raise AssertionError(f"autotune {key}: a candidate disagreed with "
+                             f"the plain version")
+    return line
+
+
+def autotune_phase(torch, dev, lm_cfg, cnn_cfg):
+    """The autotuner at the main path's signatures (kernels/autotune.py),
+    into the cache at $REPRO_TORCH_AUTOTUNE_CACHE: the fused K2 at
+    stablelm's six K2 shapes; K3 at ``AUTOTUNE_ATTN``, and K4 at the
+    paged phase's shape adopting K3's entry (gated: both plans tuned, one
+    geometry, K4 bit-equal to K3 at it); K5 at sparq-cnn's distinct layers
+    (32->32, 32->64; batch 8, int16xP2s8 lanes); the layout sweep at
+    ``AUTOTUNE_LAYOUTS`` and at sparq-cnn's widest layer.  An
+    ``autotune`` line each (every candidate bit-equal, or for K3 within
+    ATTN_TOL of the plain version: gated).  Returns the cache, saved."""
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import plan as plan_lib
+    from repro_torch.kernels import ulppack_attention as ua
+    from repro_torch.models import attention
+
+    cache = autotune.active_cache()
+    sp = PackSpec.parse("W2A2/int16xP2s8")
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    for m, kp, n in K2_MMA_CASES:
+        k = 2 * kp
+        entry = autotune.tune_quantized_linear(m, k, n, sp, bf16, device=dev)
+        heur = plan_lib.plan_quantized_linear(m, k, n, sp, bf16,
+                                              weight_store="lanes",
+                                              device=dev,
+                                              use_tuning_cache=False)
+        tuned = plan_lib.plan_quantized_linear(m, k, n, sp, bf16,
+                                               weight_store="lanes",
+                                               device=dev)
+        fields = ("block_m", "block_k", "splits", "stages")
+        if tuned.source != "tuned" or any(getattr(tuned, f) != entry[f]
+                                          for f in fields):
+            raise AssertionError(f"quantized_linear {(m, k, n)}: the planner "
+                                 f"did not adopt the tuned entry")
+        _tune_line("quantized_linear_mma", autotune.quantized_linear_key(
+            m, k, n, sp, 2, backend="cuda"), entry,
+            {f: getattr(heur, f) for f in fields}, fields)
+    h, kvh, hd, s = lm_cfg.num_heads, lm_cfg.num_kv_heads, \
+        lm_cfg.resolved_head_dim, AUTOTUNE_SKV
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    fields = ("tile_rows", "split_rows", "splits")
+    for c, kv in AUTOTUNE_ATTN:
+        entry = autotune.tune_attention_decode(4, c, s, h, kvh, hd,
+                                               kv_bits=kv, device=dev)
+        dt = bf16 if kv == 16 else None
+        plans = {ps: plan_lib.plan_attention_decode(
+            4, c, s, h, kvh, hd, kv, page_size=ps, cache_dtype=dt,
+            device=dev) for ps in (None, 16)}
+        heur = plan_lib.plan_attention_decode(
+            4, c, s, h, kvh, hd, kv, cache_dtype=dt, device=dev,
+            use_tuning_cache=False)
+        key = autotune.attention_decode_key(4, c, s, h, kvh, hd, kv,
+                                            backend="cuda")
+        _tune_line("attention_decode", key, entry,
+                   {f: getattr(heur, f) for f in fields}, fields,
+                   max_err=entry["max_err"])
+        if entry["max_err"] > ATTN_TOL:
+            raise AssertionError(f"{key}: the winner is {entry['max_err']} "
+                                 f"from the plain version, past {ATTN_TOL}")
+        geo = {ps: [getattr(p, f) for f in fields] for ps, p in plans.items()}
+        if {p.source for p in plans.values()} != {"tuned"} \
+                or geo[None] != geo[16] \
+                or geo[None] != [entry[f] for f in fields]:
+            raise AssertionError(f"K4 at {key}: plans {geo}, sources "
+                                 f"{[p.source for p in plans.values()]}: "
+                                 f"K3 and K4 must adopt K3's entry")
+        # K4 through a scrambled table at the adopted plan, bit-equal to
+        # K3 at its own, on the same logical rows
+        kf, vf = (torch.randn((4, s, kvh, hd), generator=gen, device=dev)
+                  .to(bf16) for _ in range(2))
+        if kv == 16:
+            kvc = {"k": kf, "v": vf}
+        else:
+            (qk, sk), (qv, sv) = (attention.kv_quantize(t, kv)
+                                  for t in (kf, vf))
+            kvc = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+        npg = s // 16
+        bt = torch.randperm(4 * npg, generator=gen, device=dev) \
+            .reshape(4, npg).to(torch.int32)
+        pool = {}
+        for name, t in kvc.items():
+            pool[name] = torch.empty((4 * npg, 16, *t.shape[2:]),
+                                     dtype=t.dtype, device=dev)
+            pool[name][bt.long()] = t.reshape(4, npg, 16, *t.shape[2:])
+        q = torch.randn((4, c, h, hd), generator=gen, device=dev).to(bf16)
+        vl = torch.tensor([s, 300 * s // 512, 77 * s // 512, 1],
+                          dtype=torch.int32, device=dev)
+        qpos = (torch.clamp(vl, min=c)[:, None] - c + torch.arange(
+            c, device=dev)[None, :]).to(torch.int32)
+        got3 = ua.attention_decode_cuda(q, kvc, vl, qpos, kv_bits=kv, hd=hd,
+                                        plan=plans[None])
+        got4 = ua.attention_decode_paged_cuda(q, pool, vl, qpos, bt,
+                                              kv_bits=kv, hd=hd,
+                                              plan=plans[16])
+        torch.cuda.synchronize()
+        if not torch.equal(got3, got4):
+            raise AssertionError(f"K4 at {key}: not bit-equal to K3 at the "
+                                 f"tuned geometry")
+        print("autotune " + json.dumps({
+            "kernel": "attention_decode_paged", "reads": key,
+            "page_size": 16, "geometry": geo[16], "source": "tuned",
+            "bit_equal_to_k3": True}))
+    hw, fk, chans = cnn_cfg.cnn_input_hw, cnn_cfg.cnn_kernel, \
+        cnn_cfg.cnn_channels
+    layers = sorted({(chans[max(i - 1, 0)], co)
+                     for i, co in enumerate(chans)})
+    for cin, cout in layers:             # K5 at each distinct layer
+        xs, ws = (CNN_BATCH, hw, hw, cin // 2), (fk, fk, cin // 2, cout)
+        entry = autotune.tune_packed_conv2d(xs, ws, sp, device=dev)
+        heur = plan_lib.plan_packed_conv2d(xs, ws, sp, device=dev,
+                                           use_tuning_cache=False)
+        fields = ("block_co", "block_w", "block_h")
+        _tune_line("ulppack_conv2d_mma", autotune.conv2d_key(
+            xs, ws, sp, padding="SAME", backend="cuda"), entry,
+            {f: getattr(heur, f) for f in fields}, fields)
+    for k, n in AUTOTUNE_LAYOUTS:
+        entry = autotune.tune_matmul_layout(8, k, n, sp, x_dtype=bf16,
+                                            device=dev)
+        _tune_line("layout_matmul", autotune.matmul_layout_key(
+            k, n, 2, 2, backend="cuda"), entry, {"spec": str(sp)},
+            ("spec",))
+    cin, cout = layers[-1]               # the layout sweep at the widest
+    xs, ws = (CNN_BATCH, hw, hw, cin), (fk, fk, cin, cout)
+    entry = autotune.tune_conv2d_layout(xs, ws, sp, device=dev)
+    _tune_line("layout_conv2d", autotune.conv2d_layout_key(
+        xs, ws, 2, 2, padding="SAME", backend="cuda"), entry,
+        {"spec": str(sp)}, ("spec",))
+    path = cache.save()
+    print(f"autotune: {len(cache.entries)} entries in "
+          f"{time.perf_counter() - t0:.1f} s, saved to {path}")
+    return cache
+
+
+def _serve_cli(torch, args, cache_path):
+    """Run ``python -m repro_torch.launch.serve`` with ``args`` on this
+    card (its own process, the tuning cache at ``cache_path``); returns
+    (exit code, the --metrics report or None, the output's tail)."""
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), **{
+        "REPRO_TORCH_AUTOTUNE_CACHE": str(cache_path)})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        env=env, capture_output=True, text=True, timeout=480)
+    out = proc.stdout
+    rep = None
+    if proc.returncode == 0 and "\n{" in out:
+        rep = json.loads(out[out.index("\n{") + 1:])
+    return proc.returncode, rep, (out + proc.stderr)[-2000:]
+
+
+def autotune_cli(torch):
+    """The ``autotune cli`` line: the serving CLI at full-width stablelm
+    with ``--autotune --metrics`` against an empty cache, then the same
+    command without ``--autotune``.  Gated: both exit 0; the first tunes;
+    the second tunes nothing, leaves the cache file as it was, and every
+    K2 plan of its plan report is ``source: tuned``.  Reports each run's
+    engine build s (the tune time is their difference), step_setup_s and
+    decode tok/s."""
+    path = scratch_dir("autotune_cli")
+    path.mkdir(parents=True)
+    path = path / "cache.json"
+    runs = {}
+    for label, extra in (("autotune", ("--autotune",)), ("cached", ())):
+        before = path.read_bytes() if path.exists() else None
+        rc, rep, tail = _serve_cli(torch, [*AUTOTUNE_CLI, *extra,
+                                           "--metrics"], path)
+        if rc != 0 or rep is None:
+            raise AssertionError(f"autotune cli {label}: exit {rc}\n{tail}")
+        runs[label] = (rep, before)
+    first, second = runs["autotune"][0], runs["cached"][0]
+    k2 = [p for p in second["plans"]
+          if p["op"] in ("quantized_linear", "packed_matmul")]
+    untouched = runs["cached"][1] == path.read_bytes()
+    line = {
+        "args": list(AUTOTUNE_CLI),
+        "tuned": [first["autotune"]["tuned"], second["autotune"]["tuned"]],
+        "entries": second["autotune"]["entries"],
+        "engine_init_s": [first["engine_init_s"], second["engine_init_s"]],
+        "tune_s": first["engine_init_s"] - second["engine_init_s"],
+        "step_setup_s": [first["capacity"]["step_setup_s"],
+                         second["capacity"]["step_setup_s"]],
+        "decode_tok_s": [first["decode_tok_s"], second["decode_tok_s"]],
+        "k2_plans": len(k2),
+        "k2_plans_tuned": sum(p["source"] == "tuned" for p in k2),
+        "cache_untouched_by_second_run": untouched}
+    print("autotune cli " + json.dumps(line))
+    if not (first["autotune"]["tuned"] > 0 and second["autotune"]["tuned"]
+            == 0 and untouched and k2 and line["k2_plans_tuned"] == len(k2)):
+        raise AssertionError(f"autotune cli: {line}")
+    shutil.rmtree(path.parent, ignore_errors=True)
+    return line
+
+
+def autotune_serve(torch, np, dev, cfg, tuned):
+    """The ``autotune serve`` line: graphed kv 4 engines (the serve phase's
+    config and requests, 32 greedy tokens each) built under the tuned
+    cache and under an empty one.  Tokens gated under the ``spec`` lines'
+    rule (a tuned K3 split changes the softmax's rounding): equal, or a
+    divergence where the heuristic engine's top-2 margin is at most 2 x
+    the difference of the rows that chose.  Reports the first decode's
+    logit difference, each engine's K2 plans by source and layout, and
+    device ms of a decode pass and a 64-row prefill chunk (the graphs'
+    replays), the two engines alternated over 5 rounds."""
+    from repro_torch.kernels import autotune
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
+    ecfg = EngineConfig(max_batch=4, max_len=512, prefill_chunk=16)
+    prompts, _ = serve_prompts(np, cfg)
+    engines, rec, first, outs, plans = {}, {}, {}, {}, {}
+    for mode, cache in (("tuned", tuned),
+                        ("heuristic", autotune.TuningCache(device="cuda"))):
+        autotune.set_active_cache(cache)
+        eng = engines[mode] = ServingEngine(c, params, config=ecfg,
+                                            device=dev)
+        rows = rec[mode] = {}
+        real_emit, real_decode = eng._emit_token, eng._decode
+
+        def emit(s, logits_row, *, decode_pass, _e=eng, _r=rows,
+                 _real=real_emit):
+            req = _e.slot_req[s]
+            _r[(req.uid, len(req.output))] = np.array(logits_row,
+                                                      np.float32)
+            return _real(s, logits_row, decode_pass=decode_pass)
+
+        def decode(*a, _mode=mode, _real=real_decode, **k):
+            out = _real(*a, **k)
+            if _mode not in first:
+                first[_mode] = out[0].float().clone()
+            return out
+
+        eng._emit_token, eng._decode = emit, decode
+        outs[mode] = [r.output for r in serve_requests(eng, prompts, 32,
+                                                       paged=False)]
+        eng._emit_token, eng._decode = real_emit, real_decode
+        plans[mode] = {}
+        for p in eng.plan_report():
+            kk = (p["source"], p["spec"], p["op"])
+            plans[mode][" ".join(kk)] = plans[mode].get(" ".join(kk), 0) + 1
+    autotune.reset_active_cache()
+    divergences = []
+    for uid, (h_out, t_out) in enumerate(zip(outs["heuristic"],
+                                             outs["tuned"])):
+        at = next((i for i in range(32) if h_out[i] != t_out[i]), None)
+        if at is None:
+            continue
+        h_row, t_row = rec["heuristic"][(uid, at)], rec["tuned"][(uid, at)]
+        top2 = np.sort(h_row)[-2:]
+        margin, diff = float(top2[1] - top2[0]), float(
+            np.abs(t_row - h_row).max())
+        divergences.append({"request": uid, "at": at, "top2_margin": margin,
+                            "row_diff": diff})
+        if margin > 2 * diff:
+            raise AssertionError(f"autotune serve: request {uid} diverges at "
+                                 f"{at} with a top-2 margin {margin} above "
+                                 f"2 x the row difference {diff}")
+    ms = {mode: {"decode": [], "prefill_chunk": []} for mode in engines}
+    for _ in range(5):
+        for mode, eng in engines.items():
+            ms[mode]["decode"].append(replay_ms(torch, eng._decode))
+            ms[mode]["prefill_chunk"].append(replay_ms(torch, eng._prefill))
+    line = {
+        "tokens_equal": outs["tuned"] == outs["heuristic"],
+        "divergences": divergences,
+        "first_decode_max_logit_diff": float(
+            (first["tuned"] - first["heuristic"]).abs().max()),
+        "plans": plans,
+        "device_ms_decode_pass": {m: v["decode"] for m, v in ms.items()},
+        "device_ms_prefill_chunk_64_rows": {m: v["prefill_chunk"]
+                                            for m, v in ms.items()},
+        "median_ms": {m: {kk: None if None in v else statistics.median(v)
+                          for kk, v in d.items()} for m, d in ms.items()}}
+    print("autotune serve " + json.dumps(line))
+    del engines, params
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3252,6 +3575,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     import numpy as np
+
+    # every phase before the autotune phase plans from an empty tuning
+    # cache (the heuristics); that phase tunes into this scratch file
+    tune_dir = scratch_dir("autotune")
+    tune_dir.mkdir(parents=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tune_dir / "cache.json")
 
     from repro_torch.kernels import build, cache_write, quant_pack, \
         ulppack_attention, ulppack_matmul
@@ -3360,6 +3689,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_ckpt_phase(torch, dev, lm_cfg, smi)
     launches["ulppack_conv2d_mma"] += cnn_qat_phase(torch, dev, cnn_cfg, smi)
+    torch.cuda.empty_cache()
+
+    # the autotuner, after every other phase so that none of their plans
+    # change: the tuned signatures, the serving CLI with --autotune and
+    # from the saved cache, and engines on the tuned and the empty cache
+    from repro_torch.kernels import autotune
+    tuned = autotune_phase(torch, dev, lm_cfg, cnn_cfg)
+    autotune.reset_active_cache()
+    autotune_cli(torch)
+    autotune_serve(torch, np, dev, lm_cfg, tuned)
+    autotune.reset_active_cache()
+    shutil.rmtree(tune_dir, ignore_errors=True)
 
     meta = {
         # K1 on the serving path is folded into the tensor-core K2

@@ -16,7 +16,14 @@ explicit (the on-card comparison runs do it).
 
 Launch geometry is sized for Hopper -- enough blocks to cover the card's
 SMs, a few KB of shared memory per block -- not for the TPU's VMEM
-budget.
+budget.  This module is its one owner: the heuristics, the candidate grids
+the autotuner measures (``packed_matmul_candidates``,
+``attention_decode_candidates``, ``packed_conv2d_candidates``) and the
+checks a tuned entry must pass before a planner adopts it.  The planners of
+K2, K3/K4 and K5 consult the active tuning cache (kernels/autotune.py)
+first; an entry that breaks a constraint the C launcher enforces is
+ignored with a warning, so a stale cache never reaches a launcher that
+would refuse it.
 """
 
 from __future__ import annotations
@@ -24,12 +31,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 
 import torch
 
 from repro_torch.core.packing import PackSpec
 
 BACKENDS = ("torch", "cuda")
+#: Where a plan's geometry came from: the planner's heuristic, or an entry
+#: of the active tuning cache (kernels/autotune.py).
+PLAN_SOURCES = ("heuristic", "tuned")
 
 #: Blocks per SM the matmul planner aims for when it picks a K split.
 _WAVES = 2
@@ -200,15 +211,20 @@ class KernelPlan:
     x_bytes: int | None = None
     w_bytes: int | None = None
     route: str | None = None
+    source: str = "heuristic"         # 'heuristic' | 'tuned'
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unresolved backend {self.backend!r}")
+        if self.source not in PLAN_SOURCES:
+            raise ValueError(f"unknown plan source {self.source!r}")
 
     def describe(self) -> dict:
-        """Flat report row: op, backend, layout and the set geometry."""
+        """Flat report row: op, backend, layout, source and the set
+        geometry."""
         row = {"op": self.op, "backend": self.backend,
-               "spec": str(self.spec) if self.spec else None}
+               "spec": str(self.spec) if self.spec else None,
+               "source": self.source}
         for f in ("block_m", "block_k", "splits", "threads", "weight_store",
                   "k_full", "block_h", "block_co", "block_c", "smem_bytes",
                   "split_rows", "tile_rows", "block_n", "step_k",
@@ -311,6 +327,46 @@ def _sm_count(device_key: str) -> int:
 # Planners (memoized: one plan per layer signature per process)
 # ---------------------------------------------------------------------------
 
+def _tuned_plan(key: str, heuristic: KernelPlan, adopt) -> KernelPlan:
+    """The plan for ``key`` under the active tuning cache: the heuristic's
+    plan with the geometry ``adopt(entry)`` derives from the cache's entry
+    (``source='tuned'``), or the heuristic's on a miss.  ``adopt`` raises
+    KeyError, TypeError or ValueError where the entry is malformed or
+    breaks a constraint the launcher enforces; the entry is then ignored
+    with a warning."""
+    from repro_torch.kernels import autotune   # deferred: it imports plan
+
+    entry = autotune.lookup(key)
+    if entry is None:
+        return heuristic
+    try:
+        if not isinstance(entry, dict):
+            raise TypeError(f"entry is a {type(entry).__name__}, not a dict")
+        geometry = adopt(entry)
+    except (KeyError, TypeError, ValueError) as e:
+        warnings.warn(f"ignoring autotune entry {key}: {e}", stacklevel=4)
+        return heuristic
+    return dataclasses.replace(heuristic, **geometry, source="tuned")
+
+
+def _int(entry: dict, name: str) -> int:
+    """An entry's integer field (KeyError when missing, TypeError when not
+    an int: 2.0 or "2" is malformed, not a geometry)."""
+    v = entry[name]
+    if isinstance(v, bool) or not isinstance(v, int):
+        raise TypeError(f"{name} must be an int, got {v!r}")
+    return v
+
+
+def _geometric_counts(top: int) -> list[int]:
+    """1 .. ``top`` in steps of about sqrt(2), ``top`` included: the split
+    counts the tuners try."""
+    out, s = [], 1
+    while s < top:
+        out.append(s)
+        s = max(s + 1, round(s * 1.42))
+    return out + [top]
+
 def packed_matmul_on_tensor_cores(spec: PackSpec) -> bool:
     """Whether K2 runs on the int8 tensor cores for this layout: int16
     lanes of two 8-bit fields (``int16xP2s8``), where each byte of a lane
@@ -366,7 +422,8 @@ def _check_dense_mma(spec: PackSpec):
 
 def plan_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
                        weight_store: str, k_full: int | None = None,
-                       backend: str = "auto", device="cpu") -> KernelPlan:
+                       backend: str = "auto", device="cpu",
+                       use_tuning_cache: bool = True) -> KernelPlan:
     """Plan a packed-lane matmul [m, kp] x W -> [m, n] (kernel K2).
 
     ``weight_store`` (required: it decides the W staging) is 'lanes' (W is
@@ -381,50 +438,89 @@ def plan_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
     most 16384 lanes, whole words; rows and splits from a wave cost model
     fitted on an H100, ``_tile_split``); every other layout takes the
     CUDA-core kernel with :func:`packed_matmul_core_geometry` (the dense
-    words expanded to lanes ahead of it)."""
+    words expanded to lanes ahead of it).
+
+    With ``use_tuning_cache`` the active tuning cache's entry for this
+    signature (``autotune.matmul_key``) is adopted first, when its
+    geometry passes the launcher's constraints (``source='tuned'``)."""
     return _plan_packed_matmul(m, kp, n, spec,
                                resolve_backend(backend, device),
                                _device_key(device), weight_store,
-                               _check_store(weight_store, spec, k_full, kp))
+                               _check_store(weight_store, spec, k_full, kp),
+                               use_tuning_cache)
 
 
 def packed_matmul_core_geometry(m: int, kp: int, n: int, spec: PackSpec,
-                                device="cpu") -> dict:
+                                device="cpu", splits: int | None = None
+                                ) -> dict:
     """block_m, block_k and splits of the CUDA-core K2 kernel
     (csrc/ulppack_matmul.cu), which takes any feasible layout: 4 or 8 rows
     a block, 8 bytes of lanes a thread, and K split until the grid covers
-    the card twice.  Any split is exact (each extracted run holds at most
-    k_tile lanes); splits longer than k_tile are whole runs, so no split
-    adds an extraction."""
+    the card twice (or into ``splits`` runs, as the tuner asks).  Any split
+    is exact (each extracted run holds at most k_tile lanes); splits longer
+    than k_tile are whole runs, so no split adds an extraction."""
     spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
     bm = 4 if m <= 4 else 8
-    cpt = 8 // spec.lane_bytes               # columns per thread (8-byte load)
-    bn = MATMUL_THREADS * cpt
-    blocks = -(-n // bn) * -(-m // bm)
-    splits = max(1, min(kp, -(-_WAVES * _sm_count(_device_key(device))
-                              // blocks)))
-    block_k = -(-kp // splits)
+    if splits is None:
+        cpt = 8 // spec.lane_bytes           # columns per thread (8-byte load)
+        bn = MATMUL_THREADS * cpt
+        blocks = -(-n // bn) * -(-m // bm)
+        splits = max(1, min(kp, -(-_WAVES * _sm_count(_device_key(device))
+                                  // blocks)))
+    block_k = -(-kp // max(1, min(kp, splits)))
     if block_k > spec.k_tile:
         block_k = -(-block_k // spec.k_tile) * spec.k_tile
     return dict(block_m=bm, block_k=block_k, splits=-(-kp // block_k))
 
 
+def _adopt_core_matmul(entry: dict, m: int, kp: int, spec: PackSpec
+                       ) -> dict:
+    """The CUDA-core K2's geometry from a tuned entry: 4 or 8 rows a block
+    (the kernel's two variants) and K in ``splits`` runs of ``block_k``
+    lanes, whole k_tile runs when longer than one."""
+    bm, block_k, splits = (_int(entry, f) for f in
+                           ("block_m", "block_k", "splits"))
+    if bm not in (4, 8):
+        raise ValueError(f"block_m {bm} is not one of the kernel's 4 / 8")
+    if not 1 <= block_k <= max(1, kp) or splits != -(-kp // block_k):
+        raise ValueError(f"{splits} splits of {block_k} lanes do not cover "
+                         f"Kp {kp}")
+    if block_k > spec.k_tile and block_k % spec.k_tile:
+        raise ValueError(f"block_k {block_k} is not whole runs of "
+                         f"{spec.k_tile} lanes")
+    return dict(block_m=bm, block_k=block_k, splits=splits)
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_packed_matmul(m, kp, n, spec, backend, device_key, weight_store,
-                        k_full) -> KernelPlan:
+                        k_full, use_tuning_cache=False) -> KernelPlan:
     spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
     store = dict(weight_store=weight_store, k_full=k_full)
     if not packed_matmul_on_tensor_cores(spec):
-        return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
+        plan = KernelPlan(op="packed_matmul", backend=backend, spec=spec,
                           **store,
                           **packed_matmul_core_geometry(m, kp, n, spec,
                                                         device_key))
-    if weight_store == "dense" and backend == "cuda":
-        _check_dense_mma(spec)
-    return KernelPlan(op="packed_matmul", backend=backend, spec=spec,
-                      **store,
-                      **_mma_geometry(m, kp, n, _ULPPACK_MMA_STAGE_COST, 2,
-                                      device_key, _w_tile(spec, weight_store)))
+
+        def adopt(e):
+            return _adopt_core_matmul(e, m, kp, spec)
+    else:
+        if weight_store == "dense" and backend == "cuda":
+            _check_dense_mma(spec)
+        w_tile = _w_tile(spec, weight_store)
+        plan = KernelPlan(op="packed_matmul", backend=backend, spec=spec,
+                          **store,
+                          **_mma_geometry(m, kp, n, _ULPPACK_MMA_STAGE_COST,
+                                          2, device_key, w_tile))
+
+        def adopt(e):
+            return _adopt_mma(e, kp, 2, w_tile)
+    if not use_tuning_cache:
+        return plan
+    from repro_torch.kernels import autotune
+    return _tuned_plan(autotune.matmul_key(m, kp, n, spec, backend=backend,
+                                           weight_store=weight_store),
+                       plan, adopt)
 
 
 def _w_tile(spec: PackSpec, weight_store: str) -> int | None:
@@ -443,14 +539,78 @@ def _mma_geometry(m, kp, n, stage_cost, a_bytes, device_key,
     # rows: the smallest block that holds m, or 16/32-row blocks below it
     # (more blocks, each stage's MMAs and plane split shorter)
     block_ms = {_block_m_for(m)} | {b for b in (16, 32) if b < m}
-    bm, per, splits = _tile_split(m, kp, n, block_ms, stage_cost,
-                                  _ULPPACK_MMA_BLOCK_COST,
-                                  _ulppack_mma_split_cost,
-                                  ULPPACK_MMA_MAX_BLOCK_K, device_key)
-    stages, smem = int_matmul_smem_layout(bm, a_bytes, 2, w_tile=w_tile)
-    return dict(block_m=bm, block_n=INT_MATMUL_BN, step_k=INT_MATMUL_BK,
+    bm, per, _ = _tile_split(m, kp, n, block_ms, stage_cost,
+                             _ULPPACK_MMA_BLOCK_COST,
+                             _ulppack_mma_split_cost,
+                             ULPPACK_MMA_MAX_BLOCK_K, device_key)
+    return mma_geometry(kp, bm, per, a_bytes, w_tile)
+
+
+def mma_geometry(kp: int, block_m: int, per: int, a_bytes: int,
+                 w_tile: int | None = None) -> dict:
+    """The tensor-core K2's whole geometry at ``block_m`` rows a block and
+    ``per`` 64-lane stages a split: the ring and shared memory of
+    :func:`int_matmul_smem_layout` for a's staged bytes a lane
+    (``a_bytes``: 2 for lanes, 2 x the element size for float x) and W's
+    raw tile (``w_tile``), and K in ceil(steps / per) splits."""
+    stages, smem = int_matmul_smem_layout(block_m, a_bytes, 2, w_tile=w_tile)
+    steps = max(1, -(-kp // INT_MATMUL_BK))
+    return dict(block_m=block_m, block_n=INT_MATMUL_BN, step_k=INT_MATMUL_BK,
                 stages=stages, threads=INT_MATMUL_THREADS,
-                block_k=per * INT_MATMUL_BK, splits=splits, smem_bytes=smem)
+                block_k=per * INT_MATMUL_BK, splits=-(-steps // per),
+                smem_bytes=smem)
+
+
+def _adopt_mma(entry: dict, kp: int, a_bytes: int, w_tile) -> dict:
+    """The tensor-core K2's geometry from a tuned entry: block_m one of
+    ``INT_MATMUL_BLOCK_MS``, block_k whole 64-lane stages of at most
+    16384 lanes, splits = ceil(K steps / stages a split); the ring and
+    shared memory are derived, never read from the entry."""
+    bm, block_k = _int(entry, "block_m"), _int(entry, "block_k")
+    if bm not in INT_MATMUL_BLOCK_MS:
+        raise ValueError(f"block_m {bm} is not one of {INT_MATMUL_BLOCK_MS}")
+    if block_k < INT_MATMUL_BK or block_k % INT_MATMUL_BK \
+            or block_k > ULPPACK_MMA_MAX_BLOCK_K:
+        raise ValueError(f"block_k {block_k} is not whole 64-lane stages of "
+                         f"at most {ULPPACK_MMA_MAX_BLOCK_K} lanes")
+    geo = mma_geometry(kp, bm, block_k // INT_MATMUL_BK, a_bytes, w_tile)
+    if "splits" in entry and _int(entry, "splits") != geo["splits"]:
+        raise ValueError(f"splits {entry['splits']} != {geo['splits']} for "
+                         f"block_k {block_k} over Kp {kp}")
+    if geo["stages"] < 1 or geo["smem_bytes"] > INT_MATMUL_SMEM_MAX:
+        raise ValueError(f"block_m {bm} does not fit the shared memory")
+    return geo
+
+
+def packed_matmul_candidates(m: int, kp: int, n: int, spec: PackSpec, *,
+                             weight_store: str = "lanes", x_dtype=None,
+                             device="cpu") -> list[dict]:
+    """Every geometry the autotuner may try for K2 at [m, kp] x [kp, n]
+    in ``spec``, each one the launcher takes.  On the tensor cores
+    (``int16xP2s8``; the fused route's when ``x_dtype`` is given): block_m
+    over ``INT_MATMUL_BLOCK_MS`` up to the first that holds m x stages a
+    split giving 1 .. 256 splits in steps of about sqrt(2) (at most 16384
+    lanes a split).  The CUDA-core K2: its 4 / 8-row block x the same split
+    counts, up to Kp."""
+    spec.validate()
+    if not packed_matmul_on_tensor_cores(spec):
+        return [dict(t) for t in dict.fromkeys(
+            tuple(packed_matmul_core_geometry(m, kp, n, spec, device,
+                                              splits=s).items())
+            for s in _geometric_counts(max(1, min(kp, 4 * _sm_count(
+                _device_key(device))))))]
+    a_bytes = 2 * _x_bytes(x_dtype) if x_dtype is not None else 2
+    w_tile = _w_tile(spec, weight_store)
+    steps = max(1, -(-kp // INT_MATMUL_BK))
+    max_per = ULPPACK_MMA_MAX_BLOCK_K // INT_MATMUL_BK
+    pers = dict.fromkeys(min(max_per, -(-steps // s))
+                         for s in _geometric_counts(steps))
+    out = []
+    for bm in INT_MATMUL_BLOCK_MS:
+        out += [mma_geometry(kp, bm, per, a_bytes, w_tile) for per in pers]
+        if bm >= m:
+            break
+    return out
 
 
 #: The activation dtypes the fused quantize reads (QuantA, csrc/mma_s8.cuh).
@@ -459,8 +619,8 @@ QUANT_X_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 def plan_quantized_linear(m: int, k: int, n: int, spec: PackSpec,
                           x_dtype=torch.float32, *, weight_store: str,
-                          backend: str = "auto",
-                          device="cpu") -> KernelPlan:
+                          backend: str = "auto", device="cpu",
+                          use_tuning_cache: bool = True) -> KernelPlan:
     """Plan ``ops.quantized_linear`` over x [m, k] of ``x_dtype`` against
     weight lanes [ceil(k / n_pack), n] (``weight_store='lanes'``) or
     bit-dense words [ceil(k / per), n] ('dense'); ``weight_store`` is
@@ -476,15 +636,18 @@ def plan_quantized_linear(m: int, k: int, n: int, spec: PackSpec,
     wave model with the quantize's stage costs (splits of at most 16384
     lanes), ``k_full`` = k, ``x_bytes`` and the weight store.  Every other
     backend and layout: the packed matmul's plan (K1, K2 and the eager
-    epilogue run apart)."""
+    epilogue run apart).  ``use_tuning_cache`` consults the active tuning
+    cache as :func:`plan_packed_matmul` does, under
+    ``autotune.quantized_linear_key`` for the fused route."""
     backend = resolve_backend(backend, device)
     kp = -(-k // spec.n_pack)
     k_full = _check_store(weight_store, spec, k, kp)
     if backend == "cuda" and packed_matmul_on_tensor_cores(spec):
         return _plan_quantized_linear(m, k, n, spec, _x_bytes(x_dtype),
-                                      _device_key(device), weight_store)
+                                      _device_key(device), weight_store,
+                                      use_tuning_cache)
     return _plan_packed_matmul(m, kp, n, spec, backend, _device_key(device),
-                               weight_store, k_full)
+                               weight_store, k_full, use_tuning_cache)
 
 
 def _x_bytes(x_dtype) -> int:
@@ -496,16 +659,26 @@ def _x_bytes(x_dtype) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _plan_quantized_linear(m, k, n, spec, x_bytes, device_key,
-                           weight_store) -> KernelPlan:
+                           weight_store, use_tuning_cache=False
+                           ) -> KernelPlan:
     spec.validate()
-    _check_store(weight_store, spec, k, -(-k // spec.n_pack))
+    kp = -(-k // spec.n_pack)
+    _check_store(weight_store, spec, k, kp)
     if weight_store == "dense":
         _check_dense_mma(spec)
-    return KernelPlan(op="quantized_linear", backend="cuda", spec=spec,
+    w_tile = _w_tile(spec, weight_store)
+    plan = KernelPlan(op="quantized_linear", backend="cuda", spec=spec,
                       k_full=k, x_bytes=x_bytes, weight_store=weight_store,
-                      **_mma_geometry(m, -(-k // spec.n_pack), n,
-                                      _QUANT_MMA_STAGE_COST, 2 * x_bytes,
-                                      device_key, _w_tile(spec, weight_store)))
+                      **_mma_geometry(m, kp, n, _QUANT_MMA_STAGE_COST,
+                                      2 * x_bytes, device_key, w_tile))
+    if not use_tuning_cache:
+        return plan
+    from repro_torch.kernels import autotune
+    return _tuned_plan(
+        autotune.quantized_linear_key(m, k, n, spec, x_bytes,
+                                      backend="cuda",
+                                      weight_store=weight_store),
+        plan, lambda e: _adopt_mma(e, kp, 2 * x_bytes, w_tile))
 
 
 def plan_quantize_pack(m: int, k: int, spec: PackSpec, *,
@@ -669,7 +842,8 @@ def attention_smem_bytes(qrows: int, tile: int, hd: int, row_bytes: int,
 def plan_attention_decode(b: int, c: int, skv: int, h: int, kvh: int,
                           hd: int, kv_bits: int, *,
                           page_size: int | None = None, cache_dtype=None,
-                          backend: str = "auto", device="cpu") -> KernelPlan:
+                          backend: str = "auto", device="cpu",
+                          use_tuning_cache: bool = True) -> KernelPlan:
     """Plan the flash-decoding read (K3; K4 when ``page_size`` is set).
 
     ``skv`` is the logical view length (slot extent, or pages x page_size
@@ -689,28 +863,112 @@ def plan_attention_decode(b: int, c: int, skv: int, h: int, kvh: int,
     (at most 8: one thread-block cluster per (b, kv head, chunk)) grow
     until the blocks fill one wave of the card, each a whole number of
     tiles -- and of pages when paged, so K3 and K4 split the same rows
-    alike.  The launcher refuses a plan that disagrees with the kernel."""
+    alike.  The launcher refuses a plan that disagrees with the kernel.
+
+    With ``use_tuning_cache`` the active tuning cache's entry under
+    ``autotune.attention_decode_key`` -- the logical shape, without the
+    page size, so K3 and K4 adopt one entry and split the same rows alike
+    -- replaces tile_rows / split_rows / splits when the launcher takes
+    them (whole pages when paged)."""
     return _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
                                   cache_dtype,
                                   resolve_backend(backend, device),
-                                  _device_key(device))
+                                  _device_key(device), use_tuning_cache)
 
 
-@functools.lru_cache(maxsize=None)
-def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
-                           cache_dtype, backend, device_key) -> KernelPlan:
+def _attention_rows(c: int, h: int, kvh: int, hd: int) -> int:
+    """Query rows a block serves (every one of a kv head's G x C rows, up
+    to 64); refuses head layouts the kernel does not take."""
     if h % kvh:
         raise ValueError(f"num_heads {h} is not a multiple of kv heads {kvh}")
     if hd > 256:
         raise ValueError(f"head_dim {hd} > 256 is not supported by the "
                          f"attention kernel")
+    return max(1, min(c * (h // kvh), ATTN_MAX_QROWS))
+
+
+def _attention_tiles(qrows: int, hd: int) -> tuple:
+    """The staged tile rows each path takes: 32 / 64 / 128 on the warp
+    path (4, 8 or 16 rows a warp), 4 .. 128 on the tile path."""
+    return (128, 64, 32) if attention_warp_path(qrows, hd) \
+        else (128, 64, 32, 16, 8, 4)
+
+
+def attention_decode_geometry(b: int, c: int, skv: int, h: int, kvh: int,
+                              hd: int, kv_bits: int, *, tile_rows: int,
+                              split_rows: int, page_size: int | None = None,
+                              cache_dtype=None) -> dict:
+    """The kernel's geometry at ``tile_rows`` cache rows a staged tile and
+    ``split_rows`` logical rows a split: splits = ceil(rows / split_rows)
+    and the shared memory of that layout (paged: with the split's table
+    entries and cells).  Raises ValueError where the launcher would refuse
+    it: a tile its path does not take, splits past ``ATTN_MAX_SPLITS``, a
+    split that is not whole tiles (and whole pages when paged), or a block
+    past the shared memory."""
+    qrows = _attention_rows(c, h, kvh, hd)
+    if tile_rows not in _attention_tiles(qrows, hd):
+        raise ValueError(f"tile_rows {tile_rows} is not one of "
+                         f"{_attention_tiles(qrows, hd)} at {qrows} query "
+                         f"rows")
+    span = math.lcm(tile_rows, page_size or 1)
+    if split_rows < 1 or split_rows % span:
+        raise ValueError(f"split_rows {split_rows} is not whole tiles of "
+                         f"{tile_rows}" + (f" and pages of {page_size}"
+                                           if page_size else ""))
+    rows = max(1, skv)
+    splits = -(-rows // split_rows)
+    if splits > ATTN_MAX_SPLITS or (splits - 1) * split_rows >= rows:
+        raise ValueError(f"{split_rows} rows a split make {splits} splits "
+                         f"of {rows} rows (at most {ATTN_MAX_SPLITS}, none "
+                         f"empty)")
+    table_len = split_rows // page_size + split_rows if page_size else 0
+    smem = attention_smem_bytes(qrows, tile_rows, hd,
+                                attention_row_bytes(hd, kv_bits, cache_dtype),
+                                table_len, split_rows)
+    if smem > ATTN_SMEM_MAX:
+        raise ValueError(f"{smem} bytes of shared memory at tile {tile_rows}"
+                         f", {split_rows} rows a split")
+    return dict(block_m=qrows, splits=splits, split_rows=split_rows,
+                tile_rows=tile_rows, threads=ATTN_THREADS, smem_bytes=smem)
+
+
+def attention_decode_candidates(b: int, c: int, skv: int, h: int, kvh: int,
+                                hd: int, kv_bits: int, *,
+                                page_size: int | None = None,
+                                align: int | None = None,
+                                cache_dtype=None) -> list[dict]:
+    """Every geometry the autotuner may try for K3 (K4 with ``page_size``)
+    at this shape, each one its launcher takes: each tile its path takes x
+    1 .. ``ATTN_MAX_SPLITS`` splits of whole tiles and whole pages --
+    ``page_size`` rows, or for K3 ``align`` rows, the pages K4 will read
+    when it adopts K3's entry (K3's shared memory holds no table)."""
+    rows = max(1, skv)
+    out = {}
+    for tile in _attention_tiles(_attention_rows(c, h, kvh, hd), hd):
+        span = math.lcm(tile, page_size or align or 1)
+        for s in range(1, ATTN_MAX_SPLITS + 1):
+            split_rows = -(-(-(-rows // s)) // span) * span
+            try:
+                out.setdefault((tile, split_rows), attention_decode_geometry(
+                    b, c, skv, h, kvh, hd, kv_bits, tile_rows=tile,
+                    split_rows=split_rows, page_size=page_size,
+                    cache_dtype=cache_dtype))
+            except ValueError:
+                continue
+    return list(out.values())
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
+                           cache_dtype, backend, device_key,
+                           use_tuning_cache=False) -> KernelPlan:
+    qrows = _attention_rows(c, h, kvh, hd)
     if page_size:
         pages = max(1, min(512 // page_size, -(-skv // page_size)))
         block_k = pages * page_size
     else:
         block_k = min(512, max(1, skv))
     nq = c * (h // kvh)
-    qrows = max(1, min(nq, ATTN_MAX_QROWS))
     row_bytes = attention_row_bytes(hd, kv_bits, cache_dtype)
 
     def smem(tile, split_rows, table_len=0):
@@ -740,7 +998,7 @@ def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
     # double-buffered.
     warp = attention_warp_path(qrows, hd)
     target = ATTN_SMEM_MAX // (3 if warp else 2)
-    tiles = (128, 64, 32) if warp else (128, 64, 32, 16, 8, 4)
+    tiles = _attention_tiles(qrows, hd)
     soft = tiles if warp else tiles[:2]
     choice = None
     for tile in soft:
@@ -764,11 +1022,25 @@ def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
         raise ValueError(f"attention at hd {hd} with {qrows} query rows per "
                          f"block does not fit the kernel's shared memory "
                          f"({smem(tile, split_rows, table_len)} bytes)")
-    return KernelPlan(op="attention_decode", backend=backend,
+    plan = KernelPlan(op="attention_decode", backend=backend,
                       block_k=block_k, block_m=qrows, splits=splits,
                       split_rows=split_rows, tile_rows=tile,
                       threads=ATTN_THREADS,
                       smem_bytes=smem(tile, split_rows, table_len))
+    if not use_tuning_cache:
+        return plan
+    from repro_torch.kernels import autotune
+
+    def adopt(e):
+        geo = attention_decode_geometry(
+            b, c, skv, h, kvh, hd, kv_bits, tile_rows=_int(e, "tile_rows"),
+            split_rows=_int(e, "split_rows"), page_size=page_size,
+            cache_dtype=cache_dtype)
+        if "splits" in e and _int(e, "splits") != geo["splits"]:
+            raise ValueError(f"splits {e['splits']} != {geo['splits']}")
+        return geo
+    return _tuned_plan(autotune.attention_decode_key(
+        b, c, skv, h, kvh, hd, kv_bits, backend=backend), plan, adopt)
 
 
 def _conv_out(h: int, w: int, fh: int, fw: int, padding: str):
@@ -779,19 +1051,27 @@ def _conv_out(h: int, w: int, fh: int, fw: int, padding: str):
     raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
 
 
-def _conv_geometry(n, out_h, out_w, c, fh, fw, co, device_key) -> dict:
+#: Output channels a block of the CUDA-core conv tile.
+CONV_BLOCK_COS = (8, 16, 32)
+
+
+def _conv_geometry(n, out_h, out_w, c, fh, fw, co, device_key,
+                   bco=None) -> dict:
     """Launch geometry of the conv tile (csrc/conv2d_tile.cuh) on Hopper.
 
-    ``block_co`` output channels (8, 16 or 32) x ``block_h`` rows x 32
-    columns per block, ``block_h * GPR * block_co / CPT`` threads (at most
-    256); rows are halved until the grid covers the card twice over;
-    ``block_c`` channels are staged per pass, halved until the halo tile
-    and the weight block fit ~100 KB of shared memory (two blocks per
-    SM)."""
+    ``block_co`` output channels (8, 16 or 32: the smallest that holds Co,
+    or ``bco``) x ``block_h`` rows x 32 columns per block, ``block_h * GPR
+    * block_co / CPT`` threads (at most 256); rows are halved until the
+    grid covers the card twice over; ``block_c`` channels are staged per
+    pass, halved until the halo tile and the weight block fit ~100 KB of
+    shared memory (two blocks per SM)."""
     if fw > CONV_FW_MAX:
         raise ValueError(f"kernel width {fw} > {CONV_FW_MAX}: the conv "
                          f"tile's register window takes {CONV_FW_MAX} taps")
-    bco = 8 if co <= 8 else 16 if co <= 16 else 32
+    if bco is None:
+        bco = 8 if co <= 8 else 16 if co <= 16 else 32
+    elif bco not in CONV_BLOCK_COS:
+        raise ValueError(f"block_co {bco} is not one of {CONV_BLOCK_COS}")
     threads_per_row = CONV_GPR * (bco // CONV_CPT)
     bh = min(16, CONV_MAX_THREADS // threads_per_row)
 
@@ -854,7 +1134,7 @@ def conv_mma_smem_bytes(fh: int, fw: int, block_h: int, block_w: int,
 
 
 def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
-                       device_key) -> dict:
+                       device_key, tile=None) -> dict:
     """Launch geometry of the tensor-core K5 (csrc/ulppack_conv2d_mma.cu).
 
     Pixel tiles of 512 output pixels, 16 x 32 (32 x 16 on images at most
@@ -862,6 +1142,8 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
     channels that holds Co (64 beyond), halved while the resident weight
     block and the halo ring overflow the shared memory; one block an SM,
     persistent, each walking an equal share of the tiles in whole waves.
+    ``tile`` = (block_co, block_w) asks for that tile instead (the tuner's
+    candidates), refused where the launcher would refuse it.
     Refuses a conv whose s32 sums could leave the int32 range
     (fh * fw * 2 cp * max_w * max_a >= 2^31: PTX does not promise that the
     MMA wraps) or whose weight block does not fit at 8 channels."""
@@ -871,14 +1153,23 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
             f"a {fh}x{fw} conv over {2 * cp} channels of {spec} can sum to "
             f"{most}, past the int32 range of the tensor-core K5's sums")
     bc = conv_mma_block_c(cp)
-    bh, bw = _conv_mma_tile(out_w)
-    bco = next((b for b in CONV_MMA_BLOCK_COS if b >= co),
-               CONV_MMA_BLOCK_COS[-1])
+    if tile is not None:
+        bco, bw = tile
+        if bco not in CONV_MMA_BLOCK_COS or bw not in CONV_MMA_BLOCK_WS:
+            raise ValueError(f"tile (block_co {bco}, block_w {bw}) is not "
+                             f"one of {CONV_MMA_BLOCK_COS} x "
+                             f"{CONV_MMA_BLOCK_WS}")
+        bh = CONV_MMA_TILE_PIXELS // bw
+    else:
+        bh, bw = _conv_mma_tile(out_w)
+        bco = next((b for b in CONV_MMA_BLOCK_COS if b >= co),
+                   CONV_MMA_BLOCK_COS[-1])
 
     def smem(bco):
         return conv_mma_smem_bytes(fh, fw, bh, bw, bco, bc)
 
-    while bco > CONV_MMA_BLOCK_COS[0] and smem(bco) > CONV_MMA_SMEM_MAX:
+    while tile is None and bco > CONV_MMA_BLOCK_COS[0] \
+            and smem(bco) > CONV_MMA_SMEM_MAX:
         bco //= 2
     if smem(bco) > CONV_MMA_SMEM_MAX:
         raise ValueError(f"a {fh}x{fw} kernel over {bc} staged bytes does "
@@ -912,8 +1203,8 @@ def _conv_mma_blocks(n, out_h, out_w, co, bh, bw, bco, device_key) -> int:
 def plan_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
                        padding: str = "SAME", backend: str = "auto",
                        weight_store: str = "lanes",
-                       k_full: int | None = None, device="cpu"
-                       ) -> KernelPlan:
+                       k_full: int | None = None, device="cpu",
+                       use_tuning_cache: bool = True) -> KernelPlan:
     """Plan a packed conv2d x [N, H, W, Cp] * w [Fh, Fw, Cdim, Co] (K5).
 
     Records the layout, the weight store and ``k_full`` (Cin of a 'dense'
@@ -923,10 +1214,50 @@ def plan_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
     (:func:`packed_conv2d_on_tensor_cores`): ``int16xP2s8`` runs the
     implicit-GEMM conv on the int8 tensor cores with
     ``_conv_mma_geometry``; every other layout the CUDA-core tile with
-    :func:`packed_conv2d_core_geometry`."""
+    :func:`packed_conv2d_core_geometry`.  With ``use_tuning_cache`` the
+    active tuning cache's entry (``autotune.conv2d_key``) replaces the
+    tile -- block_co x block_w on the tensor cores, block_co on the CUDA
+    cores -- where the launcher takes it."""
     return _plan_packed_conv2d(tuple(x_shape), tuple(w_shape), spec, padding,
                                resolve_backend(backend, device), weight_store,
-                               k_full, _device_key(device))
+                               k_full, _device_key(device), use_tuning_cache)
+
+
+def packed_conv2d_candidates(x_shape: tuple, w_shape: tuple,
+                             spec: PackSpec, *, padding: str = "SAME",
+                             device="cpu") -> list[dict]:
+    """Every tile the autotuner may try for K5 at these packed shapes, each
+    one the launcher takes: on the tensor cores (``int16xP2s8``) block_co
+    over ``CONV_MMA_BLOCK_COS`` up to the first that holds Co x block_w
+    over ``CONV_MMA_BLOCK_WS`` (block_h = 512 / block_w); on the CUDA
+    cores block_co over ``CONV_BLOCK_COS`` up to the first that holds
+    Co."""
+    n, h, w, cp = x_shape
+    fh, fw, _, co = w_shape
+    out_h, out_w = _conv_out(h, w, fh, fw, padding)
+    dk = _device_key(device)
+    out = []
+    if packed_conv2d_on_tensor_cores(spec):
+        for bco in CONV_MMA_BLOCK_COS:
+            for bw in CONV_MMA_BLOCK_WS:
+                try:
+                    out.append(_conv_mma_geometry(n, out_h, out_w, cp, fh,
+                                                  fw, co, spec, dk,
+                                                  tile=(bco, bw)))
+                except ValueError:
+                    pass
+            if bco >= co:
+                break
+        return out
+    for bco in CONV_BLOCK_COS:
+        try:
+            out.append(_conv_geometry(n, out_h, out_w, cp, fh, fw, co, dk,
+                                      bco=bco))
+        except ValueError:
+            pass
+        if bco >= co:
+            break
+    return out
 
 
 def packed_conv2d_core_geometry(x_shape: tuple, w_shape: tuple, *,
@@ -944,7 +1275,8 @@ def packed_conv2d_core_geometry(x_shape: tuple, w_shape: tuple, *,
 
 @functools.lru_cache(maxsize=None)
 def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
-                        weight_store, k_full, device_key) -> KernelPlan:
+                        weight_store, k_full, device_key,
+                        use_tuning_cache=False) -> KernelPlan:
     spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
     if weight_store not in ("lanes", "dense"):
         raise ValueError(f"weight_store must be 'lanes' or 'dense', got "
@@ -954,14 +1286,30 @@ def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
     if weight_store == "dense" and k_full is None:
         k_full = cp * spec.n_pack
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
-    if packed_conv2d_on_tensor_cores(spec):
+    mma = packed_conv2d_on_tensor_cores(spec)
+    if mma:
         geometry = _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
                                       device_key)
     else:
         geometry = _conv_geometry(n, out_h, out_w, cp, fh, fw, co,
                                   device_key)
-    return KernelPlan(op="packed_conv2d", backend=backend, spec=spec,
+    plan = KernelPlan(op="packed_conv2d", backend=backend, spec=spec,
                       weight_store=weight_store, k_full=k_full, **geometry)
+    if not use_tuning_cache:
+        return plan
+    from repro_torch.kernels import autotune
+
+    def adopt(e):
+        if mma:
+            return _conv_mma_geometry(
+                n, out_h, out_w, cp, fh, fw, co, spec, device_key,
+                tile=(_int(e, "block_co"), _int(e, "block_w")))
+        return _conv_geometry(n, out_h, out_w, cp, fh, fw, co, device_key,
+                              bco=_int(e, "block_co"))
+    return _tuned_plan(autotune.conv2d_key(x_shape, w_shape, spec,
+                                           padding=padding, backend=backend,
+                                           weight_store=weight_store),
+                       plan, adopt)
 
 
 def int_conv_mma_smem_bytes(fh: int, fw: int, block_h: int, block_w: int,
@@ -1069,3 +1417,11 @@ def _plan_int_conv2d(x_shape, w_shape, padding, x_bytes, w_bytes, backend,
                                        device_key), route="cuda_cores")
     return KernelPlan(op="int_conv2d", backend=backend, x_bytes=x_bytes,
                       w_bytes=w_bytes, **geometry)
+
+
+def clear_plan_cache():
+    """Drop every memoized plan (a new tuning cache; tests)."""
+    for fn in (_plan_packed_matmul, _plan_quantized_linear,
+               _plan_quantize_pack, _plan_int_matmul, _plan_attention_decode,
+               _plan_packed_conv2d, _plan_int_conv2d):
+        fn.cache_clear()

@@ -34,6 +34,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core import packing
+from repro_torch.kernels import autotune
 from repro_torch.kernels import cache_write as cache_write_lib
 from repro_torch.kernels import ulppack_attention
 from repro_torch.models import common
@@ -329,6 +330,13 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
 
     train = quant_mode == "qat" or (torch.is_grad_enabled()
                                      and q.requires_grad)
+    if cache is None or cache_index is None:
+        # the q-chunk of chunked_attention: the tuned one for this
+        # signature, Q_CHUNK on a miss (the reference's
+        # _attention_epilogue does the same lookup)
+        chunk = autotune.attention_chunk_for(
+            b, sq, sq, cfg.num_heads, cfg.num_kv_heads, hd,
+            int(cfg.quant.kv_bits))
     if cache is not None and cache_index is None:
         # the fake-quant prefill: the window fills rows 0 .. sq-1 of a
         # fresh cache, and the query attends over the raw window
@@ -336,9 +344,11 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                                x.device)
         cache_write(cache, k.detach(), v.detach(), rows, cfg.quant.kv_bits,
                     backend=backend)
-        out = chunked_attention(q, k, v, _causal(positions, sq), positions)
+        out = chunked_attention(q, k, v, _causal(positions, sq), positions,
+                                chunk)
     elif cache is None and train:
-        out = chunked_attention(q, k, v, _causal(positions, sq), positions)
+        out = chunked_attention(q, k, v, _causal(positions, sq), positions,
+                                chunk)
     elif cache is None:
         full = torch.full((b,), sq, dtype=torch.int32, device=x.device)
         out = ulppack_attention.fused_decode_attention(

@@ -45,10 +45,6 @@ from repro_torch.kernels import ulppack_conv2d as _conv
 from repro_torch.kernels.ulppack_conv2d import same_pads
 from repro_torch.models import common
 
-_NO_AUTOTUNE = ("autotune=True: the port has no tuning cache yet "
-                "(ROADMAP.md Queue 1 item 12)")
-
-
 def conv_init(generator: torch.Generator, fh: int, fw: int, cin: int,
               cout: int, qcfg: QuantConfig, *, dtype=torch.float32,
               device="cpu"):
@@ -82,11 +78,27 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda"):
 
 def conv_layer_spec(x_shape, w_shape, qcfg: QuantConfig, *,
                     padding: str = "SAME", weight_store: str = "lanes",
-                    w_packed=None) -> PackSpec:
-    """The per-layer lane layout of a conv2d: the config's base spec (the
-    port has no layout tuning cache yet, so every layer uses it)."""
-    del x_shape, w_shape, padding, weight_store, w_packed
-    return PackSpec.from_config(qcfg)
+                    w_packed=None, backend: str = "auto",
+                    device="cpu") -> PackSpec:
+    """The per-layer chosen lane layout of a conv2d on ``device``.
+
+    ``x_shape`` / ``w_shape`` are the UNPACKED [N, H, W, Cin] / [Fh, Fw,
+    Cin, Co].  Resolves through the active tuning cache (``autotune.
+    conv2d_layout_for``) with the config's spec on a miss; a lanes leaf
+    (``w_packed``) whose dtype or channel count contradicts the resolved
+    layout (the cache changed after packing) keeps the config's spec."""
+    from repro_torch.kernels import autotune
+
+    base = PackSpec.from_config(qcfg)
+    spec = autotune.conv2d_layout_for(tuple(x_shape), tuple(w_shape), base,
+                                      padding=padding, backend=backend,
+                                      device=device,
+                                      weight_store=weight_store)
+    if weight_store == "lanes" and w_packed is not None and spec != base \
+            and (w_packed.dtype != spec.lane_dtype
+                 or w_packed.shape[2] != -(-w_shape[2] // spec.n_pack)):
+        return base
+    return spec
 
 
 def conv_prepare(p, qcfg: QuantConfig, *, weight_store: str = "lanes",
@@ -121,13 +133,33 @@ def prepare_packed_params(params, cfg, *, weight_store: str = "lanes",
                           autotune: bool = False):
     """Convert a float param tree for packed inference (weights packed
     once, on the device they live on); the float stem and head are kept.
-    ``x_shape`` and ``padding`` are accepted as in the reference but unused:
-    without a tuning cache every layer takes the config's spec."""
-    del x_shape, padding
-    if autotune:
-        raise NotImplementedError(_NO_AUTOTUNE)
-    layers = [conv_prepare(p, cfg.quant, weight_store=weight_store)
-              for p in params["layers"]]
+
+    With ``x_shape`` ([N, H, W, 3], the network's input) each layer packs
+    in its chosen lane layout (``conv_layer_spec``; SAME padding keeps H, W
+    through the stack); ``autotune=True`` first sweeps each layer's layout
+    family (``autotune.tune_conv2d_layout``) -- the layout is weighed
+    before the bytes are packed.  Without ``x_shape`` every layer takes
+    the config's spec (and ``autotune`` has no shape to sweep), as in the
+    reference."""
+    chans = cfg.cnn_channels
+    layers = []
+    for i, p in enumerate(params["layers"]):
+        spec = None
+        if x_shape is not None:
+            n, h, w, _ = x_shape
+            cin = chans[i - 1] if i > 0 else chans[0]
+            fh = fw = cfg.cnn_kernel
+            xs, ws = (n, h, w, cin), (fh, fw, cin, chans[i])
+            dev = p["kernel"].device
+            if autotune:
+                from repro_torch.kernels import autotune as autotune_lib
+                autotune_lib.tune_conv2d_layout(
+                    xs, ws, PackSpec.from_config(cfg.quant), padding=padding,
+                    weight_store=weight_store, device=dev)
+            spec = conv_layer_spec(xs, ws, cfg.quant, padding=padding,
+                                   weight_store=weight_store, device=dev)
+        layers.append(conv_prepare(p, cfg.quant, weight_store=weight_store,
+                                   spec=spec))
     return {"stem": params["stem"], "layers": layers,
             "head": params["head"]}
 
@@ -137,9 +169,12 @@ def layer_plans(params, cfg, x_shape, *, padding: str = "SAME",
     """Per-conv-layer KernelPlans for an input [N, H, W, 3] shape, on the
     device the layer's weights live on.  SAME padding keeps H, W constant
     through the stack, so the plans differ only in channel counts.  Each
-    plan records the layout, the weight store and ``k_full``."""
-    if autotune:
-        raise NotImplementedError(_NO_AUTOTUNE)
+    plan records the layout (``conv_layer_spec``, as pack time resolved
+    it), the weight store and ``k_full``.  ``autotune=True`` warm-tunes
+    each layer's signature missing from the active tuning cache
+    (``autotune.tune_packed_conv2d``) before planning, so the plans come
+    back ``source='tuned'``; the caller saves the cache
+    (``autotune.active_cache().save()``)."""
     n, h, w, _ = x_shape
     chans = cfg.cnn_channels
     plans = []
@@ -151,7 +186,8 @@ def layer_plans(params, cfg, x_shape, *, padding: str = "SAME",
             store, k_full = "lanes", None
             spec = conv_layer_spec((n, h, w, cin), (fh, fw, cin, cout),
                                    cfg.quant, padding=padding,
-                                   weight_store=store, w_packed=leaf)
+                                   weight_store=store, w_packed=leaf,
+                                   backend=backend, device=leaf.device)
             if leaf.dtype != spec.lane_dtype \
                     or cp != -(-cin // spec.n_pack):
                 raise ValueError(
@@ -164,7 +200,8 @@ def layer_plans(params, cfg, x_shape, *, padding: str = "SAME",
             store, k_full = "dense", cin
             spec = conv_layer_spec((n, h, w, cin), (fh, fw, cin, cout),
                                    cfg.quant, padding=padding,
-                                   weight_store=store)
+                                   weight_store=store, backend=backend,
+                                   device=leaf.device)
             cp = -(-cin // spec.n_pack)
             w_shape = tuple(leaf.shape)
         else:
@@ -173,9 +210,16 @@ def layer_plans(params, cfg, x_shape, *, padding: str = "SAME",
             store, k_full = "lanes", None
             spec = conv_layer_spec((n, h, w, cin), (fh, fw, cin, cout),
                                    cfg.quant, padding=padding,
-                                   weight_store=store)
+                                   weight_store=store, backend=backend,
+                                   device=leaf.device)
             cp = -(-cin // spec.n_pack)
             w_shape = (fh, fw, cp, cout)
+        if autotune:
+            from repro_torch.kernels import autotune as autotune_lib
+            autotune_lib.tune_packed_conv2d(
+                (n, h, w, cp), w_shape, spec, padding=padding,
+                weight_store=store, k_full=k_full, backend=backend,
+                device=leaf.device)
         plans.append(plan_lib.plan_packed_conv2d(
             (n, h, w, cp), w_shape, spec, padding=padding, backend=backend,
             weight_store=store, k_full=k_full, device=leaf.device))
@@ -210,8 +254,11 @@ def _packed_operands(p, x, qcfg: QuantConfig, padding: str, backend: str,
         spec = plan.spec             # the layout the stored bytes use
     else:
         leaf = p.get("w_words", p.get("w_packed", p.get("kernel")))
-        spec = conv_layer_spec(tuple(x.shape), tuple(leaf.shape), qcfg,
-                               padding=padding, weight_store=store)
+        fh, fw, _, co = (int(d) for d in leaf.shape)
+        spec = conv_layer_spec(
+            tuple(x.shape), (fh, fw, int(x.shape[-1]), co), qcfg,
+            padding=padding, weight_store=store,
+            w_packed=p.get("w_packed"), backend=backend, device=x.device)
     if prepared:
         w_scale, w_zp = p["w_scale"], p["w_zp"]
         wp = p["w_words"] if store == "dense" else p["w_packed"]

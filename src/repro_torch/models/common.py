@@ -71,11 +71,30 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
-def dense_layer_spec(k: int, n: int, qcfg: QuantConfig) -> PackSpec:
-    """The per-layer lane layout for a [k, n] Dense: the config's base spec
-    (the port has no layout tuning cache yet, so every layer uses it)."""
-    del k, n
-    return PackSpec.from_config(qcfg)
+def dense_layer_spec(k: int, n: int, qcfg: QuantConfig, *,
+                     weight_store: str = "lanes", w_packed=None,
+                     backend: str = "auto", device="cpu") -> PackSpec:
+    """The per-layer chosen lane layout for a [k, n] Dense on ``device``.
+
+    Resolves through the active tuning cache (``autotune.
+    matmul_layout_for``) with the config's base spec on a miss, so pack
+    time, plan time and dispatch time agree on one layout.  With the lanes
+    store the packed leaf (``w_packed``) is evidence of the layout its
+    bytes use: where the cache changed since packing and the chosen layout
+    no longer matches the leaf's dtype and rows, the config's spec stands
+    rather than misreading the bytes (bit-dense words are layout-agnostic
+    at rest, so the dense store needs no such guard)."""
+    from repro_torch.kernels import autotune
+
+    base = PackSpec.from_config(qcfg)
+    spec = autotune.matmul_layout_for(k, n, base, backend=backend,
+                                      device=device,
+                                      weight_store=weight_store)
+    if weight_store == "lanes" and w_packed is not None and spec != base \
+            and (w_packed.dtype != spec.lane_dtype
+                 or w_packed.shape[0] != -(-k // spec.n_pack)):
+        return base
+    return spec
 
 
 def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
@@ -85,7 +104,10 @@ def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
     if quant_mode == "packed" and ("w_packed" in p or "w_dense" in p):
         dense = "w_dense" in p
         w = p["w_dense"] if dense else p["w_packed"]
-        spec = dense_layer_spec(int(x.shape[-1]), int(w.shape[-1]), qcfg)
+        spec = dense_layer_spec(
+            int(x.shape[-1]), int(w.shape[-1]), qcfg,
+            weight_store="dense" if dense else "lanes",
+            w_packed=None if dense else w, backend=backend, device=x.device)
         return ops.quantized_linear(
             x, w, p["col_sums"], p["a_scale"], p["a_zp"],
             p["w_scale"], p["w_zp"], spec, bias=p.get("bias"),
@@ -122,8 +144,10 @@ def pack_dense_params(p, qcfg: QuantConfig, *, dense_store: bool = False,
     ``col_sums`` and the exact ``k_full`` come out in both cases."""
     kernel = p["kernel"].to(torch.float32)
     if spec is None:
-        spec = dense_layer_spec(int(kernel.shape[0]), int(kernel.shape[1]),
-                                qcfg)
+        spec = dense_layer_spec(
+            int(kernel.shape[0]), int(kernel.shape[1]), qcfg,
+            weight_store="dense" if dense_store else "lanes",
+            device=kernel.device)
     dev = kernel.device
     w_scale = p.get("w_step")
     if w_scale is None:

@@ -2,10 +2,11 @@
 
 The fields mirror the reference's: the paged cache (``paged``,
 ``page_size``, ``prefix_sharing``), the bit-dense weight store
-(``dense_store``) and speculative decoding (``speculative_k``,
-``draft_w_bits``, ``draft_kv_bits``) included.  The one switch the port
-does not serve yet, the autotuner, raises ``NotImplementedError`` at
-construction when turned on, naming its ROADMAP item.
+(``dense_store``), speculative decoding (``speculative_k``,
+``draft_w_bits``, ``draft_kv_bits``) and the autotuner's warm-tune pass
+(``autotune``, kernels/autotune.py) included.  ``EngineConfig.from_args``
+is the one way the serving CLI (launch/serve.py) builds its config, with
+the reference's budget rules.
 """
 
 from __future__ import annotations
@@ -54,6 +55,9 @@ class EngineConfig:
       share prompt-prefix pages through the radix index (copy-on-write).
     * ``dense_store`` -- keep the packed weights bit-dense (int32 words,
       w_bits a value) instead of as lanes; requires ``packed``.
+    * ``autotune`` -- warm-tune every serving signature the active tuning
+      cache lacks before the plans are built and the steps captured
+      (kernels/autotune.py); requires ``packed``.
     * ``speculative_k`` [tokens] -- > 0 turns every pure-decode pass into
       a speculative cycle: a copy of the model re-packed at
       ``draft_w_bits`` (weights and activations) drafts up to k tokens a
@@ -103,6 +107,10 @@ class EngineConfig:
             raise ValueError(
                 "dense_store selects the bit-dense packed weight layout; "
                 "it requires packed=True")
+        if self.autotune and not self.packed:
+            raise ValueError(
+                "autotune warm-tunes the packed kernel signatures; it "
+                "requires packed=True")
         if self.page_size < 1:
             raise ValueError(
                 f"page_size must be >= 1, got {self.page_size}")
@@ -119,10 +127,6 @@ class EngineConfig:
                 raise ValueError(
                     f"draft_kv_bits must be None (inherit target) or one "
                     f"of 0/16/8/4/2, got {self.draft_kv_bits}")
-        if self.autotune:
-            raise NotImplementedError(
-                "autotune=True is still to be ported (ROADMAP.md Queue 1 "
-                "item 12)")
 
     def slots_for(self, cache_bytes_per_slot: int) -> int:
         """Admitted batch slots: with no budget ``max_batch`` stands; with
@@ -154,3 +158,38 @@ class EngineConfig:
                 f"slot's pages ({pages_per_slot} pages x {page_bytes} bytes "
                 f"at max_len {self.max_len}, page_size {self.page_size})")
         return pages
+
+    @classmethod
+    def from_args(cls, args) -> "EngineConfig":
+        """Build from launch/serve.py's argparse namespace: the CLI derives
+        its engine side through this method alone, so the flags and the
+        programmatic construction cannot drift.  ``--hbm-cache-budget-mb``
+        0 or below means no budget; a positive budget that rounds to under
+        one byte is refused rather than read as unlimited."""
+        mb = getattr(args, "hbm_cache_budget_mb", None)
+        if mb is None or mb <= 0:
+            budget = None
+        else:
+            budget = int(mb * 2**20)
+            if budget < 1:
+                raise ValueError(
+                    f"--hbm-cache-budget-mb {mb} is positive but rounds to "
+                    f"under one byte; use 0 to disable the budget")
+        return cls(
+            max_batch=args.max_batch,
+            max_len=args.max_len,
+            packed=not args.no_packed,
+            dense_store=getattr(args, "dense_store", False),
+            prefill_chunk=args.prefill_chunk,
+            max_queue=args.max_queue or None,
+            sampling=SamplingParams(temperature=args.temperature,
+                                    top_k=args.top_k),
+            hbm_cache_budget=budget,
+            autotune=args.autotune,
+            paged=getattr(args, "paged_kv", False),
+            page_size=getattr(args, "page_size", 16),
+            prefix_sharing=not getattr(args, "no_prefix_sharing", False),
+            speculative_k=getattr(args, "speculative_k", 0),
+            draft_w_bits=getattr(args, "draft_w_bits", 2),
+            draft_kv_bits=(None if getattr(args, "draft_kv_bits", -1) < 0
+                           else args.draft_kv_bits))

@@ -205,10 +205,14 @@ class ServingEngine:
         # one execution plan per layer, fixed before serving, for both row
         # counts the steps use (decode batch, prefill batch x chunk); the
         # planners are memoized, so the steps' packed ops dispatch through
-        # these same objects (plan_report lists them)
+        # these same objects (plan_report lists them).  autotune=True
+        # warm-tunes the missing signatures first, so the graphs captured
+        # below, and the split-K workspace sized while they warm up, see
+        # the tuned geometry.
         self.plans = build_layer_plans(
             self.params, run_cfg, batch_rows=max_batch,
-            prefill_rows=max_batch * self.prefill_chunk, backend=backend)
+            prefill_rows=max_batch * self.prefill_chunk, backend=backend,
+            autotune=config.autotune)
         self._queue: deque[Request] = deque()
         if self.paged:
             self.caches = lm.init_caches(
@@ -694,7 +698,8 @@ class ServingEngine:
         return done
 
     def plan_report(self):
-        """Flat per-layer plan rows (path + KernelPlan.describe())."""
+        """Flat per-layer plan rows (path + KernelPlan.describe(), whose
+        ``source`` says 'heuristic' or 'tuned')."""
         return [{"layer": path, **plan.describe()}
                 for path, plan in sorted(self.plans.items())]
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.packing import PackSpec
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.models import common
 
@@ -40,21 +41,37 @@ def _walk(node, fn):
 
 
 def prepare_serving_params(params, cfg, *, dense_store: bool = False,
+                           autotune: bool = False, tune_rows: int = 8,
                            recalibrate: bool = False, device="cuda"):
     """Move ``params`` to ``device`` and pack every quantizable Dense leaf
-    (P1 lanes in the config's base layout, or bit-dense words with
-    ``dense_store=True``).  ``recalibrate=True`` drops each leaf's learned
-    ``w_step`` / ``a_step`` before packing, so the scales are derived anew
-    (absmax / the qmax default) for ``cfg.quant``'s bit widths: the
-    speculative draft's repack of the same checkpoint at a lower
-    precision.  Without quantization the tree is only moved."""
+    (P1 lanes in each layer's chosen layout -- ``common.dense_layer_spec``:
+    the active tuning cache's, else the config's base -- or bit-dense
+    words with ``dense_store=True``).
+
+    ``autotune=True`` sweeps the lane-layout family for each distinct (k,
+    n) before packing (``autotune.tune_matmul_layout`` at ``tune_rows``
+    rows): weights pack once, so the layout is weighed here, and
+    ``build_layer_plans`` and dispatch later resolve the same answer.
+    ``recalibrate=True`` drops each leaf's learned ``w_step`` / ``a_step``
+    before packing, so the scales are derived anew (absmax / the qmax
+    default) for ``cfg.quant``'s bit widths: the speculative draft's
+    repack of the same checkpoint at a lower precision.  Without
+    quantization the tree is only moved."""
     dev = plan_lib.resolve_device(device)
+    store = "dense" if dense_store else "lanes"
 
     def walk(node):
         if isinstance(node, torch.Tensor):
             return node.to(dev)
         node = _walk(node, walk)
         if cfg.quant.enabled and _is_packable(node):
+            if autotune:
+                from repro_torch.kernels import autotune as autotune_lib
+                k, n = node["kernel"].shape
+                autotune_lib.tune_matmul_layout(
+                    tune_rows, int(k), int(n), PackSpec.from_config(cfg.quant),
+                    x_dtype=common.dtype_of(cfg.compute_dtype),
+                    weight_store=store, device=dev)
             if recalibrate:
                 node = {k: v for k, v in node.items()
                         if k not in ("w_step", "a_step")}
@@ -67,11 +84,20 @@ def prepare_serving_params(params, cfg, *, dense_store: bool = False,
 
 def build_layer_plans(params, cfg, *, batch_rows: int = 1,
                       prefill_rows: int | None = None,
-                      backend: str = "auto"):
+                      backend: str = "auto", autotune: bool = False):
     """One KernelPlan per packed Dense leaf, keyed by its tree path, for
     the decode row count (and under ``...@prefill`` the chunked-prefill
-    one).  The planners are memoized, so the serving steps dispatch through
-    these same objects."""
+    one), in the leaf's chosen layout (``common.dense_layer_spec``; the
+    packed bytes must match it).  The planners are memoized, so the
+    serving steps dispatch through these same objects.
+
+    ``autotune=True`` is the warm-tune pass: each signature the steps will
+    dispatch and the active tuning cache lacks -- the serving call at the
+    decode rows and at the prefill rows, on the fused route or the packed
+    matmul's, lanes or dense (``autotune.tune_quantized_linear``) -- is
+    measured once before planning, so the plans come back
+    ``source='tuned'``; the caller saves the cache (``autotune.
+    active_cache().save()``)."""
     if not cfg.quant.enabled:
         return {}
     plans = {}
@@ -83,7 +109,11 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
             w = node["w_dense"] if dense else node["w_packed"]
             per = 32 // cfg.quant.w_bits if dense else cfg.quant.n_pack
             k = int(node.get("k_full", w.shape[0] * per))
-            spec = common.dense_layer_spec(k, int(w.shape[-1]), cfg.quant)
+            spec = common.dense_layer_spec(
+                k, int(w.shape[-1]), cfg.quant,
+                weight_store="dense" if dense else "lanes",
+                w_packed=None if dense else w, backend=backend,
+                device=w.device)
             if dense:
                 rows_w = plan_lib.dense_words(k, spec.w_bits)
                 if w.dtype != torch.int32 or w.shape[0] != rows_w:
@@ -99,6 +129,13 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
             for rows, key in ((batch_rows, path),
                               (prefill_rows, f"{path}@prefill")):
                 if rows and (key == path or rows != batch_rows):
+                    if autotune:
+                        from repro_torch.kernels import \
+                            autotune as autotune_lib
+                        autotune_lib.tune_quantized_linear(
+                            rows, k, int(w.shape[-1]), spec, x_dtype,
+                            weight_store="dense" if dense else "lanes",
+                            backend=backend, device=w.device)
                     plans[key] = plan_lib.plan_quantized_linear(
                         rows, k, int(w.shape[-1]), spec, x_dtype,
                         weight_store="dense" if dense else "lanes",

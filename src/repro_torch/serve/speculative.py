@@ -165,14 +165,16 @@ class DraftModel:
         # target numerically (acceptance 1).
         recalib = (self.cfg.quant.w_bits != cfg.quant.w_bits
                    or self.cfg.quant.a_bits != cfg.quant.a_bits)
+        # autotune: the draft's layouts are swept before its repack and
+        # its signatures warm-tuned before planning, as the reference's
         self.params = prepare_serving_params(
             raw_params, self.cfg, dense_store=econf.dense_store,
-            recalibrate=recalib, device=device) if self.packed \
-            else target_params
+            autotune=econf.autotune, recalibrate=recalib,
+            device=device) if self.packed else target_params
         self.plans = build_layer_plans(
             self.params, self.run_cfg, batch_rows=max_batch,
             prefill_rows=max_batch * econf.prefill_chunk,
-            backend=backend) if self.packed else {}
+            backend=backend, autotune=econf.autotune) if self.packed else {}
         self.paged = econf.paged
         kv_bits = self.cfg.quant.kv_bits
         self.pages_per_slot = None

@@ -30,6 +30,17 @@ B, S, H, KVH, HD = 3, 24, 4, 2, 16
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 def _cache(rng, kv_bits):
     """One stored cache, built by the reference writer, in both packages."""
     k = jnp.asarray(rng.standard_normal((B, S, KVH, HD)), jnp.float32)

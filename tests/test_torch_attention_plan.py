@@ -29,6 +29,17 @@ SHAPES = [(4, 1, 512, 32, 32, 64), (4, 16, 512, 32, 32, 64),
 KV_BITS = [0, 16, 8, 4, 2]
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 def _plan(shape, kv_bits, page_size=None):
     b, c, s, h, kvh, hd = shape
     return plan_lib.plan_attention_decode(b, c, s, h, kvh, hd, kv_bits,

@@ -30,6 +30,17 @@ from repro_torch.train import checkpoint as tckpt  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
+@pytest.fixture(autouse=True)
 def base_layouts():
     """The reference packs in the config's base layout (an empty tuning
     cache), the only layout the port serves."""

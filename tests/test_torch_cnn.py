@@ -37,6 +37,17 @@ CFGS = {
 
 
 @pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
+@pytest.fixture(autouse=True)
 def base_layouts():
     """Pin the reference's per-layer lane layout to the config's base spec
     (an empty tuning cache), the only layout the port uses."""
@@ -239,11 +250,20 @@ def test_forward_matches_reference(setup, mode, store):
 
 
 def test_unported_options_raise(setup):
+    """The autotune paths are ported: on the CPU the layout sweep and the
+    warm-tune run on the plain versions (the heuristic plan alone), and
+    the plans come back from the tuning cache.  Unknown modes raise."""
     jcfg, tcfg, jp, tp = setup
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cnn.prepare_packed_params(tp, tcfg, autotune=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cnn.layer_plans(tp, tcfg, (1, 8, 8, 3), autotune=True)
+    xs = (1, 8, 8, 3)
+    packed = cnn.prepare_packed_params(tp, tcfg, x_shape=xs, autotune=True)
+    plans = cnn.layer_plans(packed, tcfg, xs, autotune=True)
+    assert len(plans) == len(tcfg.cnn_channels)
+    assert {p.source for p in plans} == {"tuned"}
+    assert [p.spec for p in plans] == [
+        cnn.conv_layer_spec((1, 8, 8, c), (tcfg.cnn_kernel,) * 2 + (c, co),
+                            tcfg.quant)
+        for c, co in zip((tcfg.cnn_channels[0],) + tcfg.cnn_channels[:-1],
+                         tcfg.cnn_channels)]
     with pytest.raises(ValueError, match="quant_mode"):
         cnn.conv_apply(tp["layers"][0], torch.zeros(1, 8, 8, 8), tcfg.quant,
                        quant_mode="int8")

@@ -32,6 +32,17 @@ from repro_torch.kernels import ulppack_conv2d as tconv  # noqa: E402
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 def _specs():
     for w, a in ((1, 1), (2, 2), (3, 3)):
         yield from jpack.layout_family(w, a)

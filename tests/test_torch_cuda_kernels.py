@@ -21,6 +21,17 @@ from repro_torch.models import attention  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 @pytest.fixture
 def hopper():
     if not torch.cuda.is_available():

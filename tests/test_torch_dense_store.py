@@ -49,6 +49,17 @@ CSRC = Path(tplan.__file__).resolve().parent.parent / "csrc"
 BITS = ((1, 1), (2, 2), (3, 3), (4, 2))
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 def _spec(w, a):
     return PackSpec.from_config(TQ(w_bits=w, a_bits=a))
 

@@ -53,6 +53,17 @@ PAGED = (([0, 0, 0], [8, 3, 0]), ([8, 3, 0], [1, 8, 0]),
          ([NP * PS - 3, 11, 0], [6, 8, 0]))
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 def _cfgs(kv_bits):
     return (jconfigs.get_config("stablelm-1.6b", reduced=True).replace(
                 num_kv_heads=KVH, num_heads=H, quant=JQ(kv_bits=kv_bits)),

@@ -39,6 +39,17 @@ P = B * NP + 2                       # two pages no table points at
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 def _to_torch(arr):
     a = np.array(arr)
     if a.dtype.name == "bfloat16":

@@ -39,6 +39,17 @@ PAGED_KEYS = ("paged", "page_size", "page_bytes", "num_pages",
 
 
 @pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
+@pytest.fixture(autouse=True)
 def base_layouts():
     """Pin the reference's lane layouts to the config's base spec (an empty
     tuning cache), the only layout the port serves."""

@@ -44,6 +44,17 @@ MAIN_PATH = ((4, 2048, 2048), (4, 2048, 5632), (4, 5632, 2048),
              (64, 2048, 2048), (64, 2048, 5632), (64, 5632, 2048))
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 @pytest.fixture
 def base_layouts():
     """Pin the reference's per-layer layout to the base spec: an empty

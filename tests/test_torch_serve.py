@@ -37,6 +37,17 @@ MAX_LEN, CHUNK = 48, 8
 
 
 @pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
+@pytest.fixture(autouse=True)
 def base_layouts():
     """Pin the reference's per-layer lane layout to the config's base spec
     (an empty tuning cache), the only layout the port serves."""
@@ -293,8 +304,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
             tlm.init_caches(tcfg, 2, MAX_LEN, **paged)
         assert tlm.init_caches(tcfg, 2, MAX_LEN, device="cpu", **paged)[0][
             "attn"]["k"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tengine.EngineConfig(autotune=True)
+    with pytest.raises(ValueError, match="requires packed=True"):
+        tengine.EngineConfig(autotune=True, packed=False)
     with pytest.raises(NotImplementedError, match="item 13"):
         tengine.ServingEngine(tconfigs.get_config("mixtral-8x7b",
                                                   reduced=True), tp,

@@ -1,0 +1,144 @@
+"""The port's serving CLI (``repro_torch/launch/serve.py``) on the CPU: the
+parser has the reference's flags, groups, choices and defaults plus
+``--device``; ``EngineConfig.from_args`` gives the reference's fields on
+the same flag lists, budget edge cases included; ``main`` serves the
+reduced config, saves an ``--autotune`` cache where the environment
+says, and refuses what is not ported."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.launch import serve as jserve  # noqa: E402
+from repro.serve import config as jconfig  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.serve import config as tconfig  # noqa: E402
+
+torch.set_num_threads(2)
+
+CPU = ["--arch", "stablelm-1.6b", "--reduced", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty (tests save only under
+    tmp_path)."""
+    old = autotune.active_cache()
+    autotune.set_active_cache(autotune.TuningCache(device="cpu"))
+    yield
+    autotune.set_active_cache(old)
+
+
+def _actions(parser):
+    """{dest: (option strings, default, choices, type, required, group)}"""
+    out = {}
+    for group in parser._action_groups:
+        for a in group._group_actions:
+            if a.dest == "help":
+                continue
+            out[a.dest] = (tuple(a.option_strings), a.default,
+                           tuple(a.choices) if a.choices else None, a.type,
+                           a.required, group.title)
+    return out
+
+
+def test_parser_has_the_reference_flags_plus_device():
+    ref, port = _actions(jserve.build_parser()), \
+        _actions(tserve.build_parser())
+    assert set(port) == set(ref) | {"device"}
+    for dest, want in ref.items():
+        got = port[dest]
+        if dest == "arch":          # the ports' registries list the same
+            assert got[0] == want[0] and set(got[2]) == set(want[2])
+            continue
+        assert got == want, dest
+    assert port["device"][:3] == (("--device",), "cuda", ("cuda", "cpu"))
+
+
+FLAG_LISTS = [
+    [],
+    ["--max-batch", "3", "--max-len", "96", "--prefill-chunk", "8"],
+    ["--max-queue", "5", "--temperature", "0.7", "--top-k", "5"],
+    ["--hbm-cache-budget-mb", "0.5"],
+    ["--hbm-cache-budget-mb", "0"],
+    ["--hbm-cache-budget-mb", "-1"],
+    ["--hbm-cache-budget-mb", "1e-300"],          # rounds to 0 bytes
+    ["--paged-kv", "--page-size", "8", "--no-prefix-sharing"],
+    ["--speculative-k", "3", "--draft-w-bits", "1", "--draft-kv-bits", "4"],
+    ["--speculative-k", "2", "--draft-kv-bits", "-1"],
+    ["--autotune"],
+    ["--no-packed"],
+    ["--no-packed", "--autotune"],
+    ["--max-batch", "0"],
+]
+
+
+@pytest.mark.parametrize("flags", FLAG_LISTS,
+                         ids=[" ".join(f) or "defaults" for f in FLAG_LISTS])
+def test_from_args_matches_the_reference(flags):
+    argv = ["--arch", "stablelm-1.6b", *flags]
+    outcome = {}
+    for name, parser, cls in (
+            ("ref", jserve.build_parser(), jconfig.EngineConfig),
+            ("port", tserve.build_parser(), tconfig.EngineConfig)):
+        try:
+            outcome[name] = dataclasses.asdict(
+                cls.from_args(parser.parse_args(argv)))
+        except ValueError as e:
+            outcome[name] = ("ValueError", str(e))
+    assert outcome["port"] == outcome["ref"]
+
+
+def test_autotune_needs_packed_and_is_no_longer_refused():
+    assert tconfig.EngineConfig(autotune=True).autotune
+    with pytest.raises(ValueError, match="requires packed=True"):
+        tconfig.EngineConfig(autotune=True, packed=False)
+
+
+def test_main_serves_the_reduced_config_and_prints_the_summary(capsys):
+    rep = tserve.main([*CPU, "--requests", "3"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "3 requests, 24 generated tokens"
+    assert out[1].startswith("prefill ") and "decode" in out[1] \
+        and out[1].endswith("(--metrics for the full report)")
+    assert rep["generated_tokens"] == 24 and rep["capacity"]["slots"] == 2
+
+
+def test_autotune_saves_under_the_environments_path(tmp_path, monkeypatch,
+                                                    capsys):
+    path = tmp_path / "tuned.json"
+    monkeypatch.setenv(autotune.ENV_CACHE, str(path))
+    autotune.reset_active_cache()
+    rep = tserve.main([*CPU, "--requests", "2", "--autotune", "--metrics"])
+    out = capsys.readouterr().out
+    assert f"autotune cache saved to {path}" in out
+    assert path.exists() and rep["autotune"]["tuned"] > 0
+    assert {p["source"] for p in rep["plans"]} == {"tuned"}
+    # a later launch plans from the saved cache and tunes nothing
+    autotune.reset_active_cache()
+    again = tserve.main([*CPU, "--requests", "2", "--metrics"])
+    assert again["autotune"] == {"cache": str(path),
+                                 "entries": rep["autotune"]["entries"],
+                                 "tuned": 0}
+    assert {p["source"] for p in again["plans"]} == {"tuned"}
+
+
+@pytest.mark.parametrize("flag", ["--model-parallel", "--data-parallel"])
+def test_parallel_flags_above_one_raise(flag):
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tserve.main([*CPU, flag, "2"])
+
+
+def test_unsupported_arch_raises_through_check_supported():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tserve.main(["--arch", "mixtral-8x7b", "--reduced", "--device",
+                     "cpu"])
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserve.main(["--arch", "stablelm-1.6b", "--reduced"])

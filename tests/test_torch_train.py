@@ -44,6 +44,17 @@ torch.set_num_threads(2)
 KW = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10)
 
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 @pytest.fixture(scope="module")
 def ref():
     jax = pytest.importorskip("jax")

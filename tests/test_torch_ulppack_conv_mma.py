@@ -43,6 +43,17 @@ SPEC = PackSpec(2, 2)          # int16xP2s8, sparq-cnn's W2A2 layout
 # The route and the planner
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty: no cache file left by a tuning
+    run can change a plan or a packed layout here."""
+    from repro_torch.kernels import autotune as port_autotune
+    old = port_autotune.active_cache()
+    port_autotune.set_active_cache(port_autotune.TuningCache(device="cpu"))
+    yield
+    port_autotune.set_active_cache(old)
+
+
 @pytest.mark.parametrize("text,tensor_cores", [
     ("W2A2/int16xP2s8", True), ("W1A1/int16xP2s8", True),
     ("W3A3/int16xP2s8", True), ("W1A1/int8xP2s4", False),
