@@ -192,9 +192,36 @@ toolkit:
    decode's logit difference and the device ms of a decode pass and a
    64-row prefill chunk of each, alternated over 5 rounds.
 
+10. The legacy read and the sliding-window MoE decoder.  After the paged
+   phase, the ``legacy`` lines: the legacy read (``REPRO_FUSED_DECODE=0``:
+   the stored cache dequantized per q-chunk of ``chunked_attention``)
+   against K3 and K4 on one cache at stablelm's heads, kv 16 / 4 / 2
+   (``legacy read``: within ATTN_TOL with f32 queries, gated; ms of each
+   read at bf16 queries), then full-width stablelm engines with each read,
+   contiguous and paged (tokens gated under the ``spec`` lines' rule, the
+   logit difference, decode replay ms; no K3/K4 launch under the switch,
+   gated).  After the speculative phase, the ``moe serve`` lines:
+   mixtral-8x7b at full width (d_model 4096, 32 heads on 8 kv heads of
+   128, d_ff 14336, 8 experts top-2, vocab 32000, window 4096) cut to 4 of
+   its 32 layers, W2A2 int16xP2s8, seed-0 weights, ``EngineConfig(
+   max_batch=4, max_len=512)`` (chunk clamped to 1), kv 16 and 4, the
+   serve prompts with 16 new tokens each, graphed, against an engine on
+   ``backend='torch'`` (tokens equal, gated; every packed linear one fused
+   K2 launch, gated; no K3 launch, gated): decode ms wall and replayed,
+   idle share, the graph's device ms by kernel group and an eager pass's
+   by the port's ranges (fake quant, expert GEMMs, dispatch, combine,
+   legacy attention), peak memory, param bytes.  The ``moe ring`` line:
+   the same model at B1 and kv 4, the fake-quant prefill of a 4,160-token
+   prompt into the 4,096-slot ring (the roll), then 8 graphed decode steps
+   past the wrap against ``backend='torch'`` (greedy tokens equal, gated;
+   the logit difference).  The ``moe reduced`` line: reduced mixtral-8x22b
+   through the graphed engine and on ``'torch'``, tokens equal (gated).
+
 ``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
 tensor-core K2's split sweep (``k2_sweep``, its lanes and its fused
 route), the data the planner's split model was fitted to.
+``python3 chip_smoke.py --moe`` builds them and runs only the ``legacy``
+and ``moe`` lines of step 10.
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
@@ -3563,6 +3590,457 @@ def autotune_serve(torch, np, dev, cfg, tuned):
     return line
 
 
+# ---------------------------------------------------------------------------
+# Sliding-window MoE serving and the legacy read: the moe serve, moe ring,
+# moe reduced and legacy lines
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS, MOE_NEW = 4, 16
+MOE_RING_PROMPT, MOE_RING_STEPS = 4160, 8
+# profiler ranges of the port (core/quant.py, models/moe.py,
+# models/attention.py), read in an eager decode pass
+MOE_RANGES = ("fake_quant", "expert_gemm", "moe_dispatch", "moe_combine",
+              "legacy_attention")
+LEGACY_NEW = 8
+
+
+def moe_config(kv_bits, *, reduced=False, name="mixtral-8x7b"):
+    """mixtral at full width cut to MOE_LAYERS of its layers (the reduced
+    config as it is), W2A2 on the int16xP2s8 lanes, at ``kv_bits``."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(name, reduced=reduced)
+    if not reduced:
+        cfg = cfg.replace(num_layers=MOE_LAYERS)
+    return cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+
+
+def recorded_serve(np, eng, prompts, new):
+    """Serve ``prompts`` (``serve_requests``' schedule), keeping every
+    emitted logits row by (uid, token index) and every decode pass's live
+    rows' logits (copied out of the graph's static tensor)."""
+    rows, passes = {}, []
+    real_emit, real_decode = eng._emit_token, eng._decode
+
+    def emit(s, logits_row, *, decode_pass):
+        req = eng.slot_req[s]
+        rows[(req.uid, len(req.output))] = np.array(logits_row, np.float32)
+        return real_emit(s, logits_row, decode_pass=decode_pass)
+
+    def decode(params, caches, batch, index, valid, *a):
+        out = real_decode(params, caches, batch, index, valid, *a)
+        passes.append(out[0].float().cpu()[np.asarray(valid) > 0])
+        return out
+
+    eng._emit_token, eng._decode = emit, decode
+    try:
+        outs = [r.output for r in serve_requests(eng, prompts, new,
+                                                 paged=eng.paged)]
+    finally:
+        eng._emit_token, eng._decode = real_emit, real_decode
+    return outs, rows, passes
+
+
+def token_divergences(np, label, want, want_rows, got, got_rows, *,
+                      strict):
+    """Each request's first divergence from ``want`` with the ``want``
+    row's top-2 margin and the two rows' largest difference; raises on any
+    divergence when ``strict``, else (the ``spec`` lines' rule) unless the
+    margin is at most 2 x the difference."""
+    out = []
+    for uid, (w, g) in enumerate(zip(want, got)):
+        at = next((i for i in range(len(w)) if w[i] != g[i]), None)
+        if at is None:
+            continue
+        wr, gr = want_rows[(uid, at)], got_rows[(uid, at)]
+        top2 = np.sort(wr)[-2:]
+        margin, diff = float(top2[1] - top2[0]), float(np.abs(gr - wr).max())
+        out.append({"request": uid, "at": at, "top2_margin": margin,
+                    "row_diff": diff})
+        if strict or margin > 2 * diff:
+            raise AssertionError(f"{label}: request {uid} diverges at token "
+                                 f"{at} (top-2 margin {margin}, row "
+                                 f"difference {diff})")
+    return out
+
+
+def max_pass_diff(a, b):
+    """The largest logit difference over the decode passes both runs made
+    with the same tokens (every pass when their tokens are equal; else the
+    first pass)."""
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def eager_ranges(torch, np, cfg, params, caches, b, pos):
+    """One eager decode pass (``steps.make_decode_step``) at offsets
+    ``pos`` under torch.profiler: device ms of the kernels launched inside
+    each of the port's ranges (``MOE_RANGES``) and in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+
+    step = steps.make_decode_step(cfg)
+    tokens = {"tokens": np.zeros((b, 1), np.int32)}
+    step(params, caches, tokens, pos, np.ones(b, np.int32))   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, caches, tokens, pos, np.ones(b, np.int32))
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    cpu = [e for e in rows if e.device_type == torch.autograd.DeviceType.CPU]
+    kernels = [e for e in rows if e.device_type
+               == torch.autograd.DeviceType.CUDA and e.key not in MOE_RANGES]
+    out = {"eager_device_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3}
+    for name in MOE_RANGES:
+        out[f"{name}_range_ms"] = sum(e.device_time_total for e in cpu
+                                      if e.key == name) / 1e3
+    return out
+
+
+def moe_serve_phase(torch, np, dev, smi):
+    """The ``moe serve`` lines: mixtral-8x7b at full width cut to 4 of its
+    32 layers (seed-0 weights), W2A2 at kv 16 and kv 4,
+    ``EngineConfig(max_batch=4, max_len=512)`` (the prefill chunk clamped
+    to 1 by the ring), the serve phase's four prompts, MOE_NEW greedy
+    tokens each on the graphed engine, then on an engine with
+    ``backend='torch'``: tokens equal (gated), the largest logit
+    difference over every decode pass, every packed linear one fused K2
+    launch (``check_k2_path``).  Records decode ms a pass (wall, and the
+    graph's replay on the device), the idle share, the graph's device ms
+    by kernel group and an eager pass's ms by the port's ranges, peak
+    memory and param bytes.  Returns the fused K2 and cache-write
+    launches of the graphed runs."""
+    from repro_torch.kernels import cache_write, quant_pack, \
+        ulppack_attention, ulppack_matmul
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    base = moe_config(16)
+    t0 = time.perf_counter()
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts, _ = serve_prompts(np, base)
+    ecfg = EngineConfig(max_batch=4, max_len=512)
+    launches = {"quantized_linear_mma": 0, "cache_write": 0}
+    for kv_bits in (16, 4):
+        c = moe_config(kv_bits)
+        for mod in (quant_pack, ulppack_matmul, ulppack_attention,
+                    cache_write):
+            mod.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(c, params, config=ecfg, device=dev)
+        t0 = time.perf_counter()
+        outs, rows, passes = recorded_serve(np, eng, prompts, MOE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        k2 = check_k2_path(f"moe serve kv{kv_bits}")
+        if ulppack_attention.kernel_launches["attention_decode"]:
+            raise AssertionError("moe serve: a windowed read reached K3")
+        launches["quantized_linear_mma"] += k2
+        launches["cache_write"] += cache_write.kernel_launches["cache_write"]
+        m, cap = eng.metrics.report(), eng.capacity_report()
+        replay = statistics.median(replay_ms(torch, eng._decode)
+                                   for _ in range(5))
+        groups = profile_replay(torch, eng._decode)
+        ranges = eager_ranges(torch, np, c, eng.params, eng.caches,
+                              eng.max_batch, eng.slot_pos.copy())
+        line = {"card": smi, "kv_bits": kv_bits,
+                "layers": f"{MOE_LAYERS} of 32",
+                "prefill_chunk": eng.prefill_chunk,
+                "ring_slots": eng.caches[0]["attn"]["k"].shape[1],
+                "slots": eng.max_batch, "wall_s": wall,
+                "steps": m["steps"],
+                "decode_passes": eng.metrics.decode_passes,
+                "decode_step_ms_wall": m["decode_step_ms"],
+                "decode_replay_ms": replay,
+                "idle_share": 1 - replay / m["decode_step_ms"],
+                "decode_tok_s": m["decode_tok_s"],
+                "graph_device_ms_by_group": groups, **ranges,
+                "fused_k2_launches": k2,
+                "step_setup_s": cap["step_setup_s"],
+                "param_bytes": cap["param_bytes"],
+                "cache_bytes": cap["cache_bytes"],
+                "peak_memory_bytes": peak, "init_params_s": init_s}
+        del eng
+        torch.cuda.empty_cache()
+        ref = ServingEngine(c, params, config=ecfg, device=dev,
+                            backend="torch")
+        ref_outs, ref_rows, ref_passes = recorded_serve(np, ref, prompts,
+                                                        MOE_NEW)
+        del ref
+        torch.cuda.empty_cache()
+        token_divergences(np, f"moe serve kv{kv_bits}", ref_outs, ref_rows,
+                          outs, rows, strict=True)
+        line.update(tokens_equal=True, requests=len(outs),
+                    max_logit_diff_vs_torch=max_pass_diff(passes,
+                                                          ref_passes))
+        print("moe serve " + json.dumps(line))
+    print(smi)
+    return params, launches
+
+
+def moe_ring_phase(torch, np, dev, params, smi):
+    """The ``moe ring`` line: the moe serve config at B1 and kv 4: the
+    fake-quant prefill (``steps.make_prefill_step``) of a 4,160-token
+    prompt into a 4,096-slot ring (the last 4,096 tokens, token j at slot j
+    % 4096: the reference's roll), then MOE_RING_STEPS graphed decode steps
+    past the wrap and the same steps with ``backend='torch'`` on a copy of
+    the ring, each fed the kernel path's greedy token: every step's argmax
+    equal (gated) and finite, the largest logit difference, decode replay
+    ms.  Returns the fused K2 launches of the graphed steps."""
+    from repro_torch import tree
+    from repro_torch.kernels import ulppack_matmul
+    from repro_torch.launch import steps
+    from repro_torch.serve.prepare import prepare_serving_params
+
+    c = moe_config(4)
+    prompt = np.random.default_rng(SEED + 11).integers(
+        0, c.vocab_size, (1, MOE_RING_PROMPT)).astype(np.int32)
+    max_len = MOE_RING_PROMPT + MOE_RING_STEPS + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last, caches = steps.make_prefill_step(c, max_len)(params,
+                                                       {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    ring = caches[0]["attn"]["k"].shape[1]
+    plain_caches = tree.tree_map(lambda t: t.clone(), caches)
+    packed = prepare_serving_params(params, c, device=dev)
+    dec, _ = steps.graphed_serving_steps(c, packed, caches, batch=1,
+                                         prefill_chunk=1)
+    plain = steps.make_decode_step(c, backend="torch")
+    mma0 = ulppack_matmul.mma_launches["quant_affine"]
+    tok = last.float().argmax(dim=-1).cpu().numpy().astype(np.int32)
+    diffs, agree = [], []
+    one = np.ones(1, np.int32)
+    for i in range(MOE_RING_STEPS):
+        pos = np.full(1, MOE_RING_PROMPT + i, np.int32)
+        got = dec(packed, caches, {"tokens": tok[:, None]}, pos,
+                  one)[0].float().clone()
+        want = plain(packed, plain_caches, {"tokens": tok[:, None]}, pos,
+                     one)[0].float()
+        if not torch.isfinite(got).all():
+            raise AssertionError("moe ring: non-finite logits")
+        diffs.append(float((got - want).abs().max()))
+        agree.append(bool(torch.equal(got.argmax(-1), want.argmax(-1))))
+        tok = got.argmax(dim=-1).cpu().numpy().astype(np.int32)
+    if not all(agree):
+        raise AssertionError(f"moe ring: greedy tokens differ from the "
+                             f"'torch' backend's at steps {agree}")
+    line = {"card": smi, "kv_bits": 4, "batch": 1,
+            "layers": f"{MOE_LAYERS} of 32",
+            "prompt_tokens": MOE_RING_PROMPT, "ring_slots": ring,
+            "wrapped_by": MOE_RING_PROMPT - ring,
+            "decode_steps_past_wrap": MOE_RING_STEPS,
+            "prefill_s": prefill_s, "prefill_peak_memory_bytes": prefill_peak,
+            "greedy_agree_per_step": agree, "max_logit_diff": max(diffs),
+            "per_step_max_logit_diff": diffs,
+            "decode_replay_ms": replay_ms(torch, dec),
+            "capture_s": dec.capture_s}
+    print("moe ring " + json.dumps(line))
+    print(smi)
+    k2 = ulppack_matmul.mma_launches["quant_affine"] - mma0
+    del dec, caches, plain_caches, packed
+    torch.cuda.empty_cache()
+    return k2
+
+
+def moe_reduced_phase(torch, np, dev, smi):
+    """The ``moe reduced`` line: reduced mixtral-8x22b (2 layers, d 64, 4
+    experts, window 8) at kv 4 through the graphed engine on the card and
+    through one with ``backend='torch'``: the serve phase's prompts, past
+    the ring of 8 slots, 8 greedy tokens each, tokens equal (gated)."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    c = moe_config(4, reduced=True, name="mixtral-8x22b")
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    prompts, _ = serve_prompts(np, c)
+    ecfg = EngineConfig(max_batch=4, max_len=128)
+    runs, graphed = {}, {}
+    for be in ("auto", "torch"):
+        eng = ServingEngine(c, params, config=ecfg, device=dev, backend=be)
+        runs[be] = recorded_serve(np, eng, prompts, 8)
+        graphed[be] = eng._decode.graph is not None
+        del eng
+    if not graphed["auto"]:
+        raise AssertionError("moe reduced: the engine captured no graphs")
+    token_divergences(np, "moe reduced", runs["torch"][0], runs["torch"][1],
+                      runs["auto"][0], runs["auto"][1], strict=True)
+    line = {"card": smi, "config": c.name, "reduced": True, "kv_bits": 4,
+            "layers": c.num_layers, "d_model": c.d_model,
+            "experts": c.num_experts, "window": c.sliding_window,
+            "graphed": graphed, "tokens_equal": True,
+            "max_logit_diff_vs_torch": max_pass_diff(runs["auto"][2],
+                                                     runs["torch"][2])}
+    print("moe reduced " + json.dumps(line))
+    print(smi)
+
+
+def legacy_read_rows(torch, dev, smi):
+    """The legacy read against the fused kernels on one stored cache at
+    stablelm-1.6b's heads (B4 S512 H32 hd64 C1), kv 16 / 4 / 2, contiguous
+    (K3) and paged through a scrambled table (K4): within ATTN_TOL with f32
+    queries, where the two differ only in summation order (gated; with
+    bf16 queries the legacy read rounds the scaled queries and the
+    probabilities to bf16, as the reference's does), and the device ms of
+    each read at the path's bf16 queries."""
+    from repro_torch import configs
+    from repro_torch.kernels import ulppack_attention
+    from repro_torch.models import attention
+
+    cfg = configs.get_config("stablelm-1.6b")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b, s, ps = 4, 512, 16
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    vl = torch.tensor([17, 100, 300, 512], dtype=torch.int32, device=dev)
+    qpos = (vl - 1)[:, None]
+    out = []
+    for kv_bits in (16, 4, 2):
+        c = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+        k = torch.randn((b, s, kvh, hd), generator=gen, device=dev) * 2
+        v = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
+        cache = attention.init_kv_cache(c, b, s, device=dev)
+        _, _, dest, _ = attention.window(torch.zeros(b, dtype=torch.int32,
+                                                     device=dev), vl, None,
+                                         b, s, cache["k"].shape, dev)
+        attention.cache_write(cache, k.bfloat16(), v.bfloat16(), dest,
+                              kv_bits)
+        npg = s // ps
+        perm = torch.randperm(b * npg, generator=gen, device=dev)
+        bt = perm.reshape(b, npg).to(torch.int32)
+        pool = attention.init_paged_kv_cache(c, b * npg, ps, device=dev)
+        for name, t in cache.items():
+            pool[name][bt.reshape(-1).long()] = t.reshape(
+                b * npg, ps, *t.shape[2:])
+        kv_pos = attention.ring_positions_batch(vl - 1, s, 0)
+        for paged in (False, True):
+            st, tables = (pool, bt) if paged else (cache, None)
+            row = {"card": smi, "kv_bits": kv_bits, "paged": paged}
+            for qdt in (torch.float32, torch.bfloat16):
+                q = (torch.randn((b, 1, cfg.num_heads, hd), generator=gen,
+                                 device=dev) * 2).to(qdt)
+
+                def fused():
+                    return ulppack_attention.fused_decode_attention(
+                        q, st, vl, qpos, kv_bits=kv_bits, hd=hd,
+                        block_tables=tables)
+
+                def legacy():
+                    return attention.legacy_read(c, q, st, kv_pos, qpos, qdt,
+                                                 block_tables=tables)
+                f, lg = fused().float(), legacy().float()
+                diff = float((f - lg).abs().max())
+                if qdt == torch.float32:
+                    bound = ATTN_TOL * (1 + float(f.abs().max()))
+                    if diff > bound:
+                        raise AssertionError(
+                            f"legacy read kv{kv_bits} paged={paged}: "
+                            f"{diff} from the fused read, above {bound}")
+                    row["f32_max_abs_diff"] = diff
+                else:
+                    row["bf16_max_abs_diff"] = diff
+                    row["fused_ms"] = time_eager_ms(torch, fused)
+                    row["legacy_ms"] = time_eager_ms(torch, legacy)
+            out.append(row)
+    return out
+
+
+def legacy_phase(torch, np, dev, cfg, params, smi):
+    """The ``legacy`` lines: ``legacy_read_rows``, then full-width
+    stablelm-1.6b engines at kv 16 / 4 / 2, contiguous and paged (page
+    16), each built and run with the fused read and under
+    ``REPRO_FUSED_DECODE=0`` (the kill-switch is read when the steps are
+    captured): the serve phase's prompts, LEGACY_NEW greedy tokens each,
+    tokens equal to the fused engine's or a divergence inside the ``spec``
+    lines' margin rule (gated), the largest logit difference over the
+    decode passes, and the decode graph's replay ms for each read.  The
+    legacy engines launch no K3/K4 (gated).  Returns the K3 and K4
+    launches of the fused engines."""
+    from repro_torch.kernels import ulppack_attention
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    for row in legacy_read_rows(torch, dev, smi):
+        print("legacy read " + json.dumps(row))
+    prompts, _ = serve_prompts(np, cfg)
+    launches = {"attention_decode": 0, "attention_decode_paged": 0}
+    for kv_bits in (16, 4, 2):
+        c = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+        for paged in (False, True):
+            ecfg = EngineConfig(max_batch=4, max_len=512, prefill_chunk=16,
+                                **(dict(paged=True, page_size=16)
+                                   if paged else {}))
+            runs, ms = {}, {}
+            for read in ("fused", "legacy"):
+                before = dict(ulppack_attention.kernel_launches)
+                ctx = (ulppack_attention.disabled() if read == "legacy"
+                       else contextlib.nullcontext())
+                with ctx:
+                    eng = ServingEngine(c, params, config=ecfg, device=dev)
+                    runs[read] = recorded_serve(np, eng, prompts, LEGACY_NEW)
+                ms[read] = statistics.median(replay_ms(torch, eng._decode)
+                                             for _ in range(3))
+                del eng
+                n = {k: ulppack_attention.kernel_launches[k] - before[k]
+                     for k in launches}
+                if read == "legacy" and any(n.values()):
+                    raise AssertionError(f"legacy kv{kv_bits}: the kill-"
+                                         f"switch engine launched {n}")
+                if read == "fused":
+                    for k in launches:
+                        launches[k] += n[k]
+            torch.cuda.empty_cache()
+            div = token_divergences(
+                np, f"legacy kv{kv_bits} paged={paged}", runs["fused"][0],
+                runs["fused"][1], runs["legacy"][0], runs["legacy"][1],
+                strict=False)
+            same = runs["fused"][0] == runs["legacy"][0]
+            passes = (runs["fused"][2], runs["legacy"][2]) if same else (
+                runs["fused"][2][:1], runs["legacy"][2][:1])
+            line = {"card": smi, "kv_bits": kv_bits, "paged": paged,
+                    "tokens_equal": same, "divergences": div,
+                    "max_logit_diff" if same else
+                    "first_decode_max_logit_diff": max_pass_diff(*passes),
+                    "decode_replay_ms": ms}
+            print("legacy " + json.dumps(line))
+    print(smi)
+    return launches
+
+
+def moe_only(torch, np, smi):
+    """``--moe``: the legacy lines on seed-0 full-width stablelm-1.6b, then
+    the moe serve, moe ring and moe reduced lines."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config("stablelm-1.6b")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    print(f"legacy launches {legacy_phase(torch, np, dev, cfg, params, smi)}")
+    del params
+    torch.cuda.empty_cache()
+    moe_params, launches = moe_serve_phase(torch, np, dev, smi)
+    launches["quantized_linear_mma"] += moe_ring_phase(torch, np, dev,
+                                                       moe_params, smi)
+    del moe_params
+    torch.cuda.empty_cache()
+    moe_reduced_phase(torch, np, dev, smi)
+    print(f"moe launches {launches}")
+    print(smi)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3602,6 +4080,9 @@ def main() -> int:
     if "--k2-sweep" in sys.argv[1:]:
         k2_sweep(torch, torch.device("cuda"))
         print(smi)
+        return 0
+    if "--moe" in sys.argv[1:]:
+        moe_only(torch, np, smi)
         return 0
     for n, p in paths.items():
         log = (p.parent / f"{n}.log").read_text().splitlines()
@@ -3652,6 +4133,10 @@ def main() -> int:
     graphs_phase(torch, np, dev, lm_cfg, params)
     launches["attention_decode_paged"] = paged_phase(torch, np, dev, lm_cfg,
                                                      params)
+    # the legacy read against the fused one (the kill-switch), whose fused
+    # engines add to K3's and K4's launches
+    for k, n in legacy_phase(torch, np, dev, lm_cfg, params, smi).items():
+        launches[k] += n
     # the dense store's path: the dense line's engine (every packed linear
     # of its run one launch of the dense route); then speculative decoding
     launches["quantized_linear_mma_dense"] = dense_phase(torch, np, dev,
@@ -3659,6 +4144,20 @@ def main() -> int:
     spec_launches = spec_phase(torch, np, dev, lm_cfg, params)
     print(f"spec launches (the speculative engines' runs): {spec_launches}")
     del params
+    torch.cuda.empty_cache()
+
+    # the sliding-window MoE decoder: mixtral-8x7b at full width cut to 4
+    # layers, served graphed at kv 16 and 4, its ring past the wrap, and
+    # reduced mixtral-8x22b; their packed linears add to K2's launches and
+    # their ring writes to the window write's
+    moe_params, moe_launches = moe_serve_phase(torch, np, dev, smi)
+    moe_launches["quantized_linear_mma"] += moe_ring_phase(
+        torch, np, dev, moe_params, smi)
+    del moe_params
+    torch.cuda.empty_cache()
+    moe_reduced_phase(torch, np, dev, smi)
+    for k, n in moe_launches.items():
+        launches[k] += n
     torch.cuda.empty_cache()
     launches.update(linear_phase(torch, dev))
 

@@ -37,9 +37,17 @@ math of the reference's ``_attention_decode_xla``, :158-223, which gathers
 each group's pages through the table); ``kernel_launches`` /
 ``plain_calls`` count each kernel's launches and each plain version's
 calls, keyed by kernel name.
+
+``REPRO_FUSED_DECODE=0`` in the environment turns the fused read off
+(:func:`enabled`, :func:`disabled`): models/attention.py then takes the
+legacy whole-view read.  It is the reference's variable, so one setting
+flips both packages.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import torch
 
@@ -61,6 +69,32 @@ _launch: dict = {}
 def reset_counts():
     for k in NAMES:
         kernel_launches[k] = plain_calls[k] = 0
+
+
+#: Environment kill-switch: "0" disables the fused decode read everywhere
+#: (models/attention.py falls back to the legacy whole-view read).  Read
+#: when a step runs eagerly or is captured: a captured CUDA graph keeps
+#: the read it was captured with.
+ENV_FLAG = "REPRO_FUSED_DECODE"
+
+
+def enabled() -> bool:
+    return os.environ.get(ENV_FLAG, "1") != "0"
+
+
+@contextlib.contextmanager
+def disabled():
+    """Run with the fused decode read off (the legacy read's references
+    come from the same process)."""
+    old = os.environ.get(ENV_FLAG)
+    os.environ[ENV_FLAG] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(ENV_FLAG, None)
+        else:
+            os.environ[ENV_FLAG] = old
 
 
 # ---------------------------------------------------------------------------

@@ -183,13 +183,17 @@ def _inputs(batch, index, valid, block_tables, dev):
 
 def _forward(cfg, qmode, backend, params, caches, tokens, idx, vld, bt):
     """The body of both steps on device tensors: positions and destination
-    rows on the device, then the forward; returns logits [B, w, vocab]."""
+    rows (ring slots for a sliding-window config) on the device, then the
+    forward; returns logits [B, w, vocab].  Which cache read the forward
+    takes (``attention.use_fused_decode``, with the kill-switch) is fixed
+    when the body runs, so a captured graph keeps it."""
     b, w = tokens.shape
     pos = idx[:, None] + torch.arange(w, dtype=torch.int32,
                                       device=tokens.device)
     _, _, dest, _ = attention.window(idx, vld, bt, b, w,
                                      caches[0]["attn"]["k"].shape,
-                                     tokens.device)
+                                     tokens.device,
+                                     sliding_window=cfg.sliding_window)
     logits, _, _ = lm.forward(
         params, cfg, {"tokens": tokens, "positions": pos}, quant_mode=qmode,
         caches=caches, cache_index=idx, cache_valid=vld, dest=dest,

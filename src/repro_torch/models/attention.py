@@ -4,28 +4,40 @@
 Projections are quantizable Dense layers (the paper's technique applies to
 them).  The cache stores K/V at ``cfg.quant.kv_bits`` precision: bf16 (0 or
 16), int8 with per-(pos, kv-head) bf16 scales (8), or bit-dense int32 words
-along head_dim with the same scale planes (4 / 2).
+along head_dim with the same scale planes (4 / 2).  Sliding-window configs
+keep a ring of ``min(max_len, window)`` slots: position p lives at slot
+``p % size``.
 
 Writes happen in place: each layer's cache tensors are allocated once
 (:func:`init_kv_cache`, or :func:`init_paged_kv_cache` for a page pool read
 through block tables) and written through fixed-shape destination rows
 (:func:`cache_write`, the predicated row scatter of
 kernels/cache_write.py) -- the counterpart of the reference's donated
-cache buffers, and capturable in a CUDA graph.  Every serving read goes
-through the fused flash-decoding kernels (kernels/ulppack_attention.py: K3
-over a contiguous cache, K4 over a paged one), for decode steps,
-chunked-prefill windows and cache-free forwards alike.
+cache buffers, and capturable in a CUDA graph.
 
-Training forwards (``quant_mode='qat'``, or any forward autograd records)
-and the fake-quant prefill that fills a fresh cache without write offsets
-take :func:`chunked_attention` instead: the reference's q-chunked exact
-softmax in plain differentiable ops (f32 accumulation, per-chunk
-recomputation in the backward), since K3 has no gradient.
+Reads of a written cache take one of two paths, chosen as the reference's
+``_use_fused_decode`` chooses (:func:`use_fused_decode`):
+  * the fused flash-decoding kernels (kernels/ulppack_attention.py: K3
+    over a contiguous cache, K4 over a paged one) for a non-windowed cache
+    read with per-row offsets, or by a single lockstep token;
+  * the legacy read otherwise -- sliding-window rings, a scalar (lockstep)
+    offset with more than one token, or ``REPRO_FUSED_DECODE=0``: the
+    stored cache is dequantized (paged: gathered through the block table)
+    inside each q-chunk of :func:`chunked_attention`, under the ring-
+    position mask (:func:`ring_positions`, :func:`ring_positions_batch`).
+    The reference computes this path in XLA, without a Pallas kernel, so
+    plain PyTorch is its port.
 
-Ported here: the vector-indexed, non-windowed path, contiguous and paged.
-Sliding-window rings, cross-attention and M-RoPE wait for a later slice
-(ROADMAP.md Queue 1 item 13); the legacy gather read
-(``_paged_cache_read``, ``_cache_read``) waits for item 8c.
+Cache-free serving forwards go through K3 too, unless the config is
+windowed (K3 has no window) or the kill-switch is set.  Training forwards
+(``quant_mode='qat'``, or any forward autograd records) and the fake-quant
+prefill that fills a fresh cache take :func:`chunked_attention` over the
+raw K/V: the reference's q-chunked exact softmax in plain differentiable
+ops (f32 accumulation, per-chunk recomputation in the backward), since K3
+has no gradient.
+
+Cross-attention and M-RoPE wait for a later slice (ROADMAP.md Queue 1
+items 13e-13f).
 """
 
 from __future__ import annotations
@@ -44,8 +56,6 @@ from repro_torch.models.common import dense_apply, dense_init
 def check_supported(cfg):
     """Raise for attention flavours this slice does not serve."""
     missing = []
-    if cfg.sliding_window:
-        missing.append("sliding-window ring caches")
     if cfg.mrope:
         missing.append("M-RoPE")
     if cfg.is_encoder_decoder:
@@ -53,7 +63,15 @@ def check_supported(cfg):
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} are still to be ported "
-            f"(ROADMAP.md Queue 1 item 13)")
+            f"(ROADMAP.md Queue 1 items 13e-13f)")
+
+
+def cache_size(cfg, max_len: int) -> int:
+    """Slots a contiguous cache row holds: the ring's ``min(max_len,
+    window)`` for sliding-window configs, else ``max_len``."""
+    if cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
+    return max_len
 
 
 def attention_init(generator, cfg, *, dtype=torch.float32, device="cpu"):
@@ -96,14 +114,16 @@ def _cache_leaves(cfg, lead, dtype, device):
 
 
 def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
-    """Contiguous KV cache [batch, max_len, KVH, ...] for ``kv_bits``:
+    """Contiguous KV cache [batch, size, KVH, ...] for ``kv_bits``, ``size``
+    = :func:`cache_size` (the ring of a sliding-window config):
       0 / 16 -- ``dtype`` (bf16 in serving).
       8      -- int8 values + per-(pos, kv-head) bf16 absmax scales.
       4 / 2  -- int32 words (``packing.pack_words`` along head_dim,
                 ``32 // kv_bits`` values per word) + the same scales.
     """
     check_supported(cfg)
-    return _cache_leaves(cfg, (batch, max_len), dtype, device)
+    return _cache_leaves(cfg, (batch, cache_size(cfg, max_len)), dtype,
+                         device)
 
 
 def init_paged_kv_cache(cfg, num_pages, page_size, dtype=torch.bfloat16,
@@ -145,21 +165,57 @@ def kv_quantize(x: torch.Tensor, bits: int = 8):
 
 
 def ragged_dest_rows(cache_index: torch.Tensor, cache_valid: torch.Tensor,
-                     sq: int, size: int) -> torch.Tensor:
+                     sq: int, size: int, ring: bool = False) -> torch.Tensor:
     """[B * sq] int64 destination rows of a ragged window write into a
-    contiguous cache of ``size`` slots a row: token j of row b lands at flat
-    row ``b * size + cache_index[b] + j`` when ``j < cache_valid[b]`` and
-    the slot lies inside the cache; every other token gets -1 and is
-    dropped, as the reference's ``mode='drop'`` scatter drops it.  Fixed
-    shape, computed on the offsets' device (no host sync), so a CUDA graph
-    can capture it."""
+    contiguous cache of ``size`` slots a row: token j of row b is at
+    position ``p = cache_index[b] + j`` and lands at flat row ``b * size +
+    slot``, ``slot = p % size`` in a ring (``ring``), else ``p``, when ``j
+    < cache_valid[b]`` and the slot lies inside the cache; every other
+    token gets -1 and is dropped, as the reference's ``mode='drop'``
+    scatter drops it.  Fixed shape, computed on the offsets' device (no
+    host sync), so a CUDA graph can capture it."""
     dev = cache_index.device
     offs = torch.arange(sq, dtype=torch.int64, device=dev)
     wpos = cache_index[:, None].to(torch.int64) + offs[None, :]
-    keep = (offs[None, :] < cache_valid[:, None]) & (wpos < size) & (wpos >= 0)
+    slot = wpos % size if ring else wpos
+    keep = (offs[None, :] < cache_valid[:, None]) & (slot < size) \
+        & (wpos >= 0)
     rows = torch.arange(cache_index.shape[0], dtype=torch.int64,
-                        device=dev)[:, None] * size + wpos
+                        device=dev)[:, None] * size + slot
     return torch.where(keep, rows, -1).reshape(-1)
+
+
+def lockstep_dest_rows(cache_index: torch.Tensor, b: int, sq: int,
+                       size: int, ring: bool = False) -> torch.Tensor:
+    """[B * sq] int64 destination rows of a lockstep write (one scalar
+    offset for every row, every token written): where the reference's
+    ``_cache_write`` puts its ``dynamic_update_slice`` -- the window starts
+    at slot ``cache_index % size`` in a ring, else at ``cache_index``, and
+    a start that would overrun the cache is clamped to ``size - sq``, as
+    ``dynamic_update_slice`` clamps it."""
+    if sq > size:
+        raise ValueError(f"a lockstep window of {sq} tokens does not fit a "
+                         f"cache of {size} slots")
+    dev = cache_index.device
+    start = cache_index.to(torch.int64)
+    start = torch.clamp(start % size if ring else start, 0, size - sq)
+    offs = torch.arange(sq, dtype=torch.int64, device=dev)
+    rows = torch.arange(b, dtype=torch.int64, device=dev)[:, None] * size
+    return (rows + start + offs[None, :]).reshape(-1)
+
+
+def prefill_dest_rows(b: int, sq: int, size: int, ring: bool,
+                      device) -> torch.Tensor:
+    """[B * sq] int64 destination rows of the fresh-cache prefill (tokens
+    at positions 0 .. sq-1).  A ring keeps the last ``size`` tokens, token
+    j at slot ``j % size``: the reference's write of them at slot 0 rolled
+    by ``sq % size`` (its ``:479-486``) puts them there.  Otherwise the
+    window fills rows 0 .. sq-1 (tokens past the cache are dropped)."""
+    j = torch.arange(sq, dtype=torch.int64, device=device)
+    keep = j >= sq - size if ring else j < size
+    rows = torch.arange(b, dtype=torch.int64, device=device)[:, None] * size \
+        + (j % size)[None, :]
+    return torch.where(keep[None, :], rows, -1).reshape(-1)
 
 
 def paged_dest_rows(cache_index: torch.Tensor, cache_valid: torch.Tensor,
@@ -185,22 +241,35 @@ def paged_dest_rows(cache_index: torch.Tensor, cache_valid: torch.Tensor,
 
 
 def window(cache_index, cache_valid, block_tables, b: int, sq: int,
-           cache_shape, device):
-    """Per-row write offsets [B] int32, valid counts [B] int32, the
-    destination rows [B * sq] int64 of a [B, sq] window and the block
-    table (int32, or None for a contiguous cache), all on ``device``.  A
-    scalar ``cache_index`` is shared by every row; ``cache_valid=None``
-    means every token is valid.  ``cache_shape`` is a cache leaf's shape
-    ([B, S, ...], or [P, page_size, ...] with a block table)."""
+           cache_shape, device, *, sliding_window: int = 0):
+    """Write offsets, valid counts [B] int32, the destination rows [B * sq]
+    int64 of a [B, sq] window and the block table (int32, or None for a
+    contiguous cache), all on ``device``.  ``cache_valid=None`` means every
+    token is valid.  ``cache_shape`` is a cache leaf's shape ([B, S, ...],
+    or [P, page_size, ...] with a block table); ``sliding_window`` (the
+    config's) makes a contiguous cache a ring.
+
+    A [B] ``cache_index`` gives each row its own offset.  A scalar one is
+    the reference's lockstep path: it stays a 0-d tensor, every row writes
+    its whole window where the reference's ``dynamic_update_slice`` would
+    (:func:`lockstep_dest_rows`; ``cache_valid`` is ignored, as there), and
+    the valid counts are ``sq``."""
     idx = torch.as_tensor(cache_index, dtype=torch.int32, device=device)
     if idx.dim() == 0:
-        idx = idx.expand(b)
+        if block_tables is not None:
+            raise NotImplementedError(
+                "paged decode is vector-indexed (per-slot positions); pass "
+                "cache_index as a [B] array")
+        vlen = torch.full((b,), sq, dtype=torch.int32, device=device)
+        return idx, vlen, lockstep_dest_rows(idx, b, sq, cache_shape[1],
+                                             bool(sliding_window)), None
     vlen = (torch.full((b,), sq, dtype=torch.int32, device=device)
             if cache_valid is None
             else torch.as_tensor(cache_valid, dtype=torch.int32,
                                  device=device))
     if block_tables is None:
-        return idx, vlen, ragged_dest_rows(idx, vlen, sq, cache_shape[1]), None
+        return idx, vlen, ragged_dest_rows(idx, vlen, sq, cache_shape[1],
+                                           bool(sliding_window)), None
     bt = torch.as_tensor(block_tables, dtype=torch.int32, device=device)
     dest = paged_dest_rows(idx, vlen, bt, sq, cache_shape[1], cache_shape[0])
     return idx, vlen, dest, bt
@@ -229,32 +298,110 @@ def cache_write(cache, k, v, dest, kv_bits=0, *, backend="auto"):
     return cache
 
 
+def kv_dequantize(q, scale, dtype=torch.float32, bits: int = 8,
+                  hd: int | None = None):
+    """Stored lattice + per-row scales -> [..., hd] values in ``dtype``,
+    computed in ``dtype`` as the reference's ``_kv_dequantize`` does (the
+    lattice values are exact in bf16)."""
+    if bits == 8:
+        return q.to(dtype) * scale.to(dtype)[..., None]
+    zp = 1 << (bits - 1)
+    vals = packing.unpack_words(q, bits, hd, axis=-1)
+    return (vals.to(dtype) - zp) * scale.to(dtype)[..., None]
+
+
+def cache_read(cache, dtype, kv_bits: int = 0, hd: int | None = None):
+    """The whole contiguous cache as (k, v) [B, S, KVH, hd] in ``dtype``
+    (the reference's ``_cache_read``; float caches come back as stored)."""
+    if "k_scale" in cache:
+        return (kv_dequantize(cache["k"], cache["k_scale"], dtype, kv_bits,
+                              hd),
+                kv_dequantize(cache["v"], cache["v_scale"], dtype, kv_bits,
+                              hd))
+    return cache["k"], cache["v"]
+
+
+def paged_cache_read(cache, block_tables, dtype, kv_bits: int = 0,
+                     hd: int | None = None):
+    """Each row's pages gathered into the logical [B, NP * page_size, KVH,
+    hd] view and dequantized (the reference's ``_paged_cache_read``).  Table
+    entries are clipped to [0, P-1], as the reference's gather clips
+    them."""
+    bt = block_tables.to(torch.int64).clamp(0, cache["k"].shape[0] - 1)
+
+    def gather(buf):
+        g = buf[bt]                          # [B, NP, ps, KVH, ...]
+        return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+    if "k_scale" in cache:
+        return (kv_dequantize(gather(cache["k"]), gather(cache["k_scale"]),
+                              dtype, kv_bits, hd),
+                kv_dequantize(gather(cache["v"]), gather(cache["v_scale"]),
+                              dtype, kv_bits, hd))
+    return gather(cache["k"]), gather(cache["v"])
+
+
+def ring_positions(cache_index, size: int, window: int):
+    """[size] absolute position each slot holds (-1 = empty) after a
+    lockstep write at ``cache_index`` (0-d): the reference's
+    ``_ring_positions``, :func:`ring_positions_batch` of one row."""
+    return ring_positions_batch(cache_index.reshape(1), size, window)[0]
+
+
+def ring_positions_batch(last, size: int, window: int):
+    """[B, size] absolute position each slot of each row holds, given the
+    row's last written position ``last`` [B] (-1 = row empty): slots up to
+    it without a window, else the latest position p <= last with p % size
+    == slot (the reference's ``_ring_positions_batch``)."""
+    slots = torch.arange(size, dtype=torch.int64, device=last.device)[None]
+    last = last.to(torch.int64)[:, None]
+    if not window:
+        return torch.where(slots <= last, slots, -1)
+    pos = last - ((last % size - slots) % size)
+    return torch.where(pos >= 0, pos, -1)
+
+
+def use_fused_decode(window: int, cache_index, sq: int) -> bool:
+    """The reference's ``_use_fused_decode`` gate, read when the step runs
+    or is captured: the fused read serves a non-windowed self-attention
+    cache read with per-row offsets, or by one lockstep token, unless
+    ``REPRO_FUSED_DECODE=0``."""
+    if not ulppack_attention.enabled() or window:
+        return False
+    return cache_index.dim() > 0 or sq == 1
+
+
 NEG_INF = -1e30
 Q_CHUNK = 512     # the reference's q-chunk when its tuning cache misses
 
 
 def chunked_attention(q, k, v, mask_fn, q_positions, chunk: int = Q_CHUNK):
     """Exact softmax attention, q-chunked to bound the score buffer (the
-    reference's ``_chunked_attention`` over raw K/V).
+    reference's ``_chunked_attention``).
 
-    q: [B, Sq, H, hd]; k, v: [B, Sk, KVH, hd]; ``mask_fn(qpos [B, C])`` ->
-    [B, C, Sk] boolean validity.  The scores and the value product take
-    the operands in q's dtype (the reference's ``opd``) and accumulate in
-    f32: bf16 operands are widened first, which is exact.  Where ``Sq >
-    chunk`` each full chunk runs under ``torch.utils.checkpoint``, so the
-    backward recomputes its [C, Sk] scores instead of storing them.  The
-    forward runs in an ``attention`` profiler range.  Returns [B, Sq, H,
-    hd] in q's dtype."""
+    q: [B, Sq, H, hd]; k, v: [B, Sk, KVH, hd], or ``k`` a function
+    returning (k, v) and ``v`` None: it is called inside each chunk's body,
+    so a stored cache is expanded (gathered, unpacked, dequantized) per
+    chunk and never held whole at full precision across the call.
+    ``mask_fn(qpos [B, C])`` -> [B, C, Sk] boolean validity.  The scores
+    and the value product take the operands in q's dtype (the reference's
+    ``opd``) and accumulate in f32: bf16 operands are widened first, which
+    is exact.  Where ``Sq > chunk`` each full chunk runs under
+    ``torch.utils.checkpoint``, so the backward recomputes its [C, Sk]
+    scores instead of storing them.  The forward runs in an ``attention``
+    profiler range.  Returns [B, Sq, H, hd] in q's dtype."""
     b, sq, h, hd = q.shape
     scale = hd ** -0.5
     opd = q.dtype
-    kvh = k.shape[2]
-    groups = h // kvh
-    k32 = k.to(opd).to(torch.float32)
-    v32 = v.to(opd).to(torch.float32)
+    kv_fn = k if v is None else (lambda: (k, v))
 
     def one_chunk(qc, qpos):
         c = qc.shape[1]
+        kc, vc = kv_fn()
+        kvh = kc.shape[2]
+        groups = h // kvh
+        k32 = kc.to(opd).to(torch.float32)
+        v32 = vc.to(opd).to(torch.float32)
         qg = (qc.to(torch.float32) * scale).to(opd)
         qg = qg.reshape(b, c, kvh, groups, hd).to(torch.float32)
         scores = torch.einsum("bckgd,bskd->bckgs", qg, k32)
@@ -279,11 +426,53 @@ def chunked_attention(q, k, v, mask_fn, q_positions, chunk: int = Q_CHUNK):
         return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _causal(positions, sk):
-    """The training mask: key position <= query position."""
+def _causal(positions, sk, window: int = 0):
+    """The mask over a window's own keys: key position <= query position,
+    and within ``window`` positions of it when one is set."""
+    return _position_mask(positions[:, :sk], window)
+
+
+def _position_mask(kv_pos, window: int):
+    """The mask over keys at positions ``kv_pos`` ([Sk] shared, [B, Sk] per
+    row; -1 an empty slot): ``kp <= qpos & kp >= 0``, and ``qpos - kp <
+    window`` when a window is set."""
     def mask_fn(qpos):
-        return positions[:, None, :sk] <= qpos[:, :, None]
+        kp = kv_pos[:, None, :] if kv_pos.dim() == 2 \
+            else kv_pos[None, None, :]
+        m = (kp <= qpos[:, :, None]) & (kp >= 0)
+        if window:
+            m = m & ((qpos[:, :, None] - kp) < window)
+        return m
     return mask_fn
+
+
+def legacy_read(cfg, q, cache, kv_pos, positions, dtype, *,
+                block_tables=None):
+    """The legacy read of a written cache: the stored (paged: gathered)
+    cache dequantized per q-chunk into :func:`chunked_attention` under the
+    ring-position mask -- ``kp <= qpos & kp >= 0``, and ``qpos - kp <
+    window`` for a windowed contiguous cache.  ``dtype`` is the dequantized
+    K/V's (the projections')."""
+    b, sq, h, hd = q.shape
+    kv_bits = cfg.quant.kv_bits
+    if block_tables is None:
+        skv = cache["k"].shape[1]
+        window = cfg.sliding_window
+
+        def kv_fn():
+            return cache_read(cache, dtype, kv_bits, hd)
+    else:
+        skv = block_tables.shape[1] * cache["k"].shape[1]
+        window = 0
+
+        def kv_fn():
+            return paged_cache_read(cache, block_tables, dtype, kv_bits, hd)
+    chunk = autotune.attention_chunk_for(b, sq, skv, h, cfg.num_kv_heads, hd,
+                                         int(kv_bits))
+    with torch.profiler.record_function("legacy_attention"):
+        return chunked_attention(q, kv_fn, None,
+                                 _position_mask(kv_pos, window), positions,
+                                 chunk)
 
 
 def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
@@ -291,30 +480,36 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                     block_tables=None, backend="auto"):
     """Attention forward; returns (out, cache).
 
-      * cache=None: causal self-attention over the window's own K/V --
-        through K3 when serving, through :func:`chunked_attention` in a
-        training forward (``quant_mode='qat'``, or autograd recording).
-      * cache without cache_index: the prefill of a fresh contiguous
-        cache -- the window's K/V fill rows 0 .. s-1 (:func:`cache_write`)
-        and the query attends over the raw window
-        (:func:`chunked_attention`), as the reference's fake-quant prefill
-        step does.
-      * cache + cache_index ([B] per-row write offsets, or a scalar shared
-        by every row): the window's K/V is written into the cache in place
-        -- tokens past ``cache_valid[b]`` dropped -- and the query reads the
-        stored cache with ``valid_len = cache_index + cache_valid``.
-        ``dest`` may carry the window's precomputed destination rows; the
-        offsets, counts and table must then be device tensors
-        (:func:`window`).
+      * cache=None: causal (and windowed) self-attention over the window's
+        own K/V -- through K3 when serving a non-windowed config, through
+        :func:`chunked_attention` in a training forward (``quant_mode=
+        'qat'``, or autograd recording), for a windowed config or under
+        ``REPRO_FUSED_DECODE=0``.
+      * cache without cache_index: the prefill of a fresh cache -- the
+        window's K/V fill rows 0 .. s-1 (a ring keeps the last ``size``
+        tokens at slot ``pos % size``, :func:`prefill_dest_rows`) and the
+        query attends over the raw window (:func:`chunked_attention`), as
+        the reference's fake-quant prefill step does.
+      * cache + cache_index ([B] per-row write offsets, or a scalar: the
+        lockstep path, see :func:`window`): the window's K/V is written
+        into the cache in place -- tokens past ``cache_valid[b]`` dropped,
+        ring slots ``pos % size`` for a windowed config -- and the query
+        reads the stored cache, fused (``valid_len = cache_index +
+        cache_valid``) or legacy (:func:`legacy_read`), as
+        :func:`use_fused_decode` decides.  ``dest`` may carry the window's
+        precomputed destination rows; the offsets, counts and table must
+        then be device tensors (:func:`window`).
       * paged: ``block_tables`` [B, n_pages] int32 maps each row's logical
         page j to a physical page of a pool (:func:`init_paged_kv_cache`).
-        Writes land through the table (:func:`paged_dest_rows`) and the
+        Writes land through the table (:func:`paged_dest_rows`); the fused
         read walks the pool through the table (K4), so the gathered view
-        never materializes.
+        never materializes, and the legacy read gathers it per q-chunk.
+        Windowed configs are never paged.
     """
     check_supported(cfg)
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
+    win = cfg.sliding_window
     cd = common.dtype_of(cfg.compute_dtype)
     qm = dict(qcfg=cfg.quant, quant_mode=quant_mode, compute_dtype=cd,
               backend=backend)
@@ -338,17 +533,17 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
             b, sq, sq, cfg.num_heads, cfg.num_kv_heads, hd,
             int(cfg.quant.kv_bits))
     if cache is not None and cache_index is None:
-        # the fake-quant prefill: the window fills rows 0 .. sq-1 of a
-        # fresh cache, and the query attends over the raw window
-        _, _, rows, _ = window(0, None, None, b, sq, cache["k"].shape,
-                               x.device)
+        # the fake-quant prefill: the window fills a fresh cache, and the
+        # query attends over the raw window
+        rows = prefill_dest_rows(b, sq, cache["k"].shape[1], bool(win),
+                                 x.device)
         cache_write(cache, k.detach(), v.detach(), rows, cfg.quant.kv_bits,
                     backend=backend)
-        out = chunked_attention(q, k, v, _causal(positions, sq), positions,
-                                chunk)
-    elif cache is None and train:
-        out = chunked_attention(q, k, v, _causal(positions, sq), positions,
-                                chunk)
+        out = chunked_attention(q, k, v, _causal(positions, sq, win),
+                                positions, chunk)
+    elif cache is None and (train or win or not ulppack_attention.enabled()):
+        out = chunked_attention(q, k, v, _causal(positions, sq, win),
+                                positions, chunk)
     elif cache is None:
         full = torch.full((b,), sq, dtype=torch.int32, device=x.device)
         out = ulppack_attention.fused_decode_attention(
@@ -356,14 +551,37 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
             backend=backend)
     else:
         kv_bits = cfg.quant.kv_bits
+        if block_tables is not None and win:
+            raise NotImplementedError(
+                "paged KV cache + sliding-window ring do not compose; "
+                "serve sliding-window archs unpaged")
         if dest is None:
             cache_index, cache_valid, dest, block_tables = window(
                 cache_index, cache_valid, block_tables, b, sq,
-                cache["k"].shape, x.device)
+                cache["k"].shape, x.device, sliding_window=win)
+        if win and sq > 1 and cache_index.dim() > 0:
+            raise NotImplementedError(
+                "chunked ragged prefill over a sliding-window ring would "
+                "overwrite slots still visible to earlier queries of the "
+                "same window; feed ring-cache archs token-by-token "
+                "(ServingEngine clamps prefill_chunk to 1 for them)")
         cache_write(cache, k, v, dest, kv_bits, backend=backend)
-        valid_len = cache_index + cache_valid
-        out = ulppack_attention.fused_decode_attention(
-            q, cache, valid_len, positions, kv_bits=kv_bits, hd=hd,
-            block_tables=block_tables, backend=backend)
+        if use_fused_decode(win, cache_index, sq):
+            out = ulppack_attention.fused_decode_attention(
+                q, cache, cache_index + cache_valid, positions,
+                kv_bits=kv_bits, hd=hd, block_tables=block_tables,
+                backend=backend)
+        else:
+            if cache_index.dim() == 0:
+                kv_pos = ring_positions(cache_index, cache["k"].shape[1],
+                                        win)
+            else:
+                size = (cache["k"].shape[1] if block_tables is None
+                        else block_tables.shape[1] * cache["k"].shape[1])
+                kv_pos = ring_positions_batch(
+                    cache_index + cache_valid - 1, size,
+                    win if block_tables is None else 0)
+            out = legacy_read(cfg, q, cache, kv_pos, positions, k.dtype,
+                              block_tables=block_tables)
     out = dense_apply(p["o"], out.reshape(b, sq, cfg.num_heads * hd), **qm)
     return out, cache

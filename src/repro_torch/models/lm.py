@@ -1,11 +1,12 @@
-"""Decoder LM assembly for dense attention stacks (counterpart of
-``repro/models/lm.py``): block init/apply, parameter init, forward with the
-pad-vocab bias (optionally recomputing each block in the backward,
-``remat=True``), the training loss, contiguous or paged decode caches and
-their byte counts.
+"""Decoder LM assembly for attention stacks with dense or MoE FFNs
+(counterpart of ``repro/models/lm.py``): block init/apply, parameter init,
+forward with the pad-vocab bias and the summed MoE aux loss (optionally
+recomputing each block in the backward, ``remat=True``), the training
+loss, contiguous (ring, for sliding-window configs) or paged decode caches
+and their byte counts.
 
-Mamba / xLSTM / MoE blocks, encoders and modality frontends are still to
-be ported (ROADMAP.md Queue 1 item 13); configs that need them raise
+Mamba / xLSTM blocks, encoders and modality frontends are still to be
+ported (ROADMAP.md Queue 1 items 13c-13f); configs that need them raise
 ``NotImplementedError``.
 """
 
@@ -16,12 +17,13 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.kernels import plan as plan_lib
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, moe
 from repro_torch.models.common import dense_apply, dense_init
 
 
 def check_supported(cfg):
-    """Raise unless ``cfg`` is a decoder stack of dense attention blocks."""
+    """Raise unless ``cfg`` is a decoder stack of attention blocks (dense
+    or MoE FFNs, full or sliding-window attention)."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
     missing = []
     if cfg.family == "cnn":
@@ -29,14 +31,12 @@ def check_supported(cfg):
             f"{cfg.name}: the CNN path is ROADMAP.md Queue 1 item 9")
     if kinds != {"attn"}:
         missing.append(f"{sorted(kinds - {'attn'})} blocks")
-    if cfg.num_experts:
-        missing.append("MoE FFNs")
     if cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} are still to be ported "
-            f"(ROADMAP.md Queue 1 item 13)")
+            f"(ROADMAP.md Queue 1 items 13c-13f)")
     attention.check_supported(cfg)
 
 
@@ -45,20 +45,28 @@ def check_supported(cfg):
 # ---------------------------------------------------------------------------
 
 def block_init(generator, cfg, i, *, dtype=torch.float32, device="cpu"):
-    del i  # every supported block is an attention block
+    """An attention block with its FFN half: the MoE FFN on the layers
+    where ``cfg.layer_is_moe(i)``, else the dense MLP (when d_ff > 0)."""
     p = {"norm1": common.rmsnorm_init(cfg.d_model, dtype, device),
          "attn": attention.attention_init(generator, cfg, dtype=dtype,
                                           device=device)}
-    if cfg.d_ff:
+    if cfg.d_ff or cfg.layer_is_moe(i):
         p["norm2"] = common.rmsnorm_init(cfg.d_model, dtype, device)
-        p["mlp"] = mlp.mlp_init(generator, cfg, dtype=dtype, device=device)
+        if cfg.layer_is_moe(i):
+            p["moe"] = moe.moe_init(generator, cfg, dtype=dtype,
+                                    device=device)
+        else:
+            p["mlp"] = mlp.mlp_init(generator, cfg, dtype=dtype,
+                                    device=device)
     return p
 
 
 def block_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                 cache_index=None, cache_valid=None, dest=None,
                 block_tables=None, backend="auto"):
-    """One residual block.  Returns (x, cache)."""
+    """One residual block.  Returns (x, cache, aux loss); the MoE FFN
+    takes the einsum path, whose fixed shapes the CUDA graphs capture."""
+    aux = 0.0
     h = common.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     sub = cache.get("attn") if cache else None
     out, _ = attention.attention_apply(
@@ -66,11 +74,15 @@ def block_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
         cache=sub, cache_index=cache_index, cache_valid=cache_valid,
         dest=dest, block_tables=block_tables, backend=backend)
     x = x + out
-    if "mlp" in p:
+    if "moe" in p:
+        h = common.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        out, aux = moe.moe_apply(p["moe"], cfg, h, quant_mode=quant_mode)
+        x = x + out
+    elif "mlp" in p:
         h = common.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + mlp.mlp_apply(p["mlp"], cfg, h, quant_mode=quant_mode,
                               backend=backend)
-    return x, cache
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +114,8 @@ def init_params(cfg, generator: torch.Generator | None = None,
 def forward(params, cfg, batch, *, quant_mode="none", caches=None,
             cache_index=None, cache_valid=None, dest=None, block_tables=None,
             backend="auto", remat=False):
-    """Full forward.  Returns (logits, aux_loss, caches).
+    """Full forward.  Returns (logits, aux_loss, caches); the aux loss is
+    the sum of the MoE layers' (0.0 without any).
 
     ``remat=True`` runs each block under ``torch.utils.checkpoint``
     (non-reentrant), the counterpart of the reference's per-block
@@ -111,9 +124,10 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
     ``caches`` without ``cache_index`` is the prefill of fresh caches:
     every layer writes rows 0 .. S-1 and attends over the raw window.
 
-    ``cache_index`` [B] (or a scalar) gives per-slot cache write offsets;
-    ``cache_valid`` [B] the valid-prefix length of each row's window.  The
-    caches are updated in place.  ``dest`` may carry the window's
+    ``cache_index`` [B] gives per-slot cache write offsets, a scalar the
+    lockstep path (``attention.window``); ``cache_valid`` [B] the
+    valid-prefix length of each row's window.  The caches are updated in
+    place.  ``dest`` may carry the window's
     destination rows (``attention.window``, with device-side offsets,
     counts and table); otherwise they are computed once here.  With
     ``block_tables`` [B, n_pages] the caches are paged pools
@@ -132,21 +146,25 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
         # one set of destination rows per step, shared by every layer
         cache_index, cache_valid, dest, block_tables = attention.window(
             cache_index, cache_valid, block_tables, b, s,
-            caches[0]["attn"]["k"].shape, x.device)
+            caches[0]["attn"]["k"].shape, x.device,
+            sliding_window=cfg.sliding_window)
 
     def run_block(blk, x, cache):
-        return block_apply(
+        x, _, aux = block_apply(
             blk, cfg, x, positions=positions, quant_mode=quant_mode,
             cache=cache, cache_index=cache_index, cache_valid=cache_valid,
-            dest=dest, block_tables=block_tables, backend=backend)[0]
+            dest=dest, block_tables=block_tables, backend=backend)
+        return x, aux
 
+    aux_total = 0.0
     for li, blk in enumerate(params["layers"]):
         cache = caches[li] if caches is not None else None
         if remat:
-            x = torch_checkpoint.checkpoint(run_block, blk, x, cache,
-                                            use_reentrant=False)
+            x, aux = torch_checkpoint.checkpoint(run_block, blk, x, cache,
+                                                 use_reentrant=False)
         else:
-            x = run_block(blk, x, cache)
+            x, aux = run_block(blk, x, cache)
+        aux_total = aux_total + aux
 
     x = common.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -160,7 +178,7 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size
         logits = logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
-    return logits, 0.0, caches
+    return logits, aux_total, caches
 
 
 def init_caches(cfg, batch_size, max_len, dtype=torch.bfloat16, *,
@@ -193,9 +211,11 @@ def _row_bytes(cfg, dtype) -> int:
 
 
 def cache_bytes(cfg, batch_size, max_len, dtype=torch.bfloat16) -> int:
-    """Device bytes of an ``init_caches`` tree, without allocating it."""
+    """Device bytes of an ``init_caches`` tree, without allocating it (a
+    sliding-window config's rings hold ``min(max_len, window)`` rows)."""
     check_supported(cfg)
-    return cfg.num_layers * batch_size * max_len * _row_bytes(cfg, dtype)
+    return (cfg.num_layers * batch_size
+            * attention.cache_size(cfg, max_len) * _row_bytes(cfg, dtype))
 
 
 def cache_page_bytes(cfg, page_size, dtype=torch.bfloat16) -> int:

@@ -172,6 +172,7 @@ class ServingEngine:
         kv_bits = cfg.quant.kv_bits
         self.paged = config.paged
         self.page_size = config.page_size
+        # a slot's bytes: max_len rows, or a sliding-window config's ring
         self.cache_bytes_per_slot = cache_bytes_per_slot(cfg, config.max_len)
         self.hbm_cache_budget = config.hbm_cache_budget
         if self.paged:
@@ -195,6 +196,11 @@ class ServingEngine:
         self.max_batch = max_batch
         self.max_len = config.max_len
         self.prefill_chunk = config.prefill_chunk
+        if cfg.sliding_window:
+            # ring caches admit only token-by-token prefill: a wider window
+            # would overwrite ring slots still visible to earlier queries
+            # of the same window (attention refuses that case)
+            self.prefill_chunk = 1
         self.max_queue = config.max_queue
         self.sampling = config.sampling
         run_cfg = cfg if config.packed else cfg.replace(

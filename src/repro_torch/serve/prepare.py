@@ -5,9 +5,11 @@ Every quantizable 2-D Dense ({kernel, w_step, a_step}) becomes its packed
 integer form ({w_packed, col_sums, scales, zero-points, k_full}) through
 ``models.common.pack_dense_params``; with ``dense_store=True`` the weight
 is stored bit-dense instead (``w_dense``: int32 words, w_bits a value).
-Embeddings and the float LM head stay as they are.  ``build_layer_plans``
-fixes each packed layer's KernelPlan once, for the decode and the
-chunked-prefill row counts.
+Embeddings, the float LM head, the MoE router and the 3-D expert kernels
+(with their LSQ steps: the experts are fake-quantized on every forward,
+as in the reference) stay as they are; ``serving_param_bytes`` counts
+them.  ``build_layer_plans`` fixes each packed layer's KernelPlan once,
+for the decode and the chunked-prefill row counts.
 """
 
 from __future__ import annotations
@@ -154,7 +156,8 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
 
 def cache_bytes_per_slot(cfg, max_len: int) -> int:
     """Device bytes one batch slot's decode caches occupy at ``max_len``
-    (slots = budget // cache_bytes_per_slot)."""
+    (a sliding-window config's ring: ``min(max_len, window)`` rows; slots
+    = budget // cache_bytes_per_slot)."""
     from repro_torch.models import lm
     return lm.cache_bytes(cfg, 1, max_len)
 

@@ -262,6 +262,64 @@ def test_engine_graphed_tokens_equal_eager(hopper, paged):
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("kv_bits", [16, 4])
+def test_moe_ring_engine_graphed_tokens_equal_eager(hopper, kv_bits):
+    """Reduced mixtral-8x7b (MoE FFNs, a ring of 8 slots): the engine on
+    graphs -- the einsum MoE and the ring's legacy read captured -- and on
+    the op-by-op pair give the same greedy tokens, past the wrap; no read
+    reaches K3 (windowed caches take the legacy read)."""
+    cfg = configs.get_config("mixtral-8x7b", reduced=True)
+    cfg = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+    params = lm.init_params(cfg, torch.Generator(device=hopper).manual_seed(3),
+                            device=hopper)
+    ecfg = engine_lib.EngineConfig(max_batch=3, max_len=MAX_LEN)
+    outs = []
+    for graphed in (True, False):
+        ulppack_attention.reset_counts()
+        eng = engine_lib.ServingEngine(cfg, params, config=ecfg,
+                                       device=hopper)
+        assert eng.capacity_report()["step_graphs"]
+        assert eng.prefill_chunk == 1
+        if not graphed:
+            eng._decode = steps.make_decode_step(cfg)
+            eng._prefill = steps.make_prefill_chunk_step(cfg)
+        rng = np.random.default_rng(7)
+        reqs = [engine_lib.Request(i, rng.integers(0, 512, n).astype(
+            np.int32), max_new_tokens=6) for i, n in enumerate((5, 11, 17))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        outs.append([r.output for r in reqs])
+        assert not ulppack_attention.kernel_launches["attention_decode"]
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_legacy_read_graphs_equal_eager(hopper, paged):
+    """Under REPRO_FUSED_DECODE=0 the steps capture the legacy read: every
+    graphed step bit-equal to the op-by-op step, no K3/K4 launch."""
+    cfg = _cfg(4)
+    with ulppack_attention.disabled():
+        ulppack_attention.reset_counts()
+        params, eager_c, graph_c, (dec, pre) = _pair(cfg, hopper, paged)
+        eager = {"decode": steps.make_decode_step(cfg),
+                 "prefill": steps.make_prefill_chunk_step(cfg)}
+        graphed = {"decode": dec, "prefill": pre}
+        extra = ()
+        if paged:
+            bt = np.zeros((B, MAX_LEN // PS), np.int32)
+            bt[:2] = 1 + np.random.default_rng(1).permutation(
+                P - 1)[:2 * bt.shape[1]].reshape(2, -1)
+            extra = (bt,)
+        for kind, tok, idx, vld in _schedule(np.random.default_rng(5)):
+            args = ({"tokens": tok}, np.asarray(idx, np.int32),
+                    np.asarray(vld, np.int32), *extra)
+            want, _ = eager[kind](params, eager_c, *args)
+            got, _ = graphed[kind](params, graph_c, *args)
+            assert torch.equal(got, want), kind
+        assert not any(ulppack_attention.kernel_launches.values())
+
+
 def test_capture_failure_raises(hopper, monkeypatch):
     """A launcher that fails during capture makes building the pair raise;
     nothing falls back to the eager steps."""

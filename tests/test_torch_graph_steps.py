@@ -167,10 +167,14 @@ def test_paged_dest_rows_write_equals_nonzero_and_reference(kv_bits):
 
 
 def test_window_defaults_and_scalar_offset():
+    # a scalar offset is the lockstep path: it stays 0-d, and a window
+    # that overruns the cache starts at size - sq, where the reference's
+    # dynamic_update_slice clamps it
     idx, vlen, dest, bt = tattention.window(5, None, None, 2, 4, (2, 8),
                                             "cpu")
-    assert idx.tolist() == [5, 5] and vlen.tolist() == [4, 4] and bt is None
-    assert dest.tolist() == [5, 6, 7, -1, 13, 14, 15, -1]
+    assert idx.dim() == 0 and int(idx) == 5
+    assert vlen.tolist() == [4, 4] and bt is None
+    assert dest.tolist() == [4, 5, 6, 7, 12, 13, 14, 15]
     _, _, dest, bt = tattention.window(
         [0, 3], [2, 0], np.array([[4, 2], [0, 0]]), 2, 3, (6, 2), "cpu")
     assert bt.dtype == torch.int32

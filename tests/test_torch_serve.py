@@ -306,8 +306,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
             "attn"]["k"].device.type == "cpu"
     with pytest.raises(ValueError, match="requires packed=True"):
         tengine.EngineConfig(autotune=True, packed=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tengine.ServingEngine(tconfigs.get_config("mixtral-8x7b",
+    with pytest.raises(NotImplementedError, match="items 13c-13f"):
+        tengine.ServingEngine(tconfigs.get_config("jamba-1.5-large-398b",
                                                   reduced=True), tp,
                               device="cpu")
 

@@ -132,10 +132,25 @@ def test_parallel_flags_above_one_raise(flag):
         tserve.main([*CPU, flag, "2"])
 
 
+def test_main_serves_reduced_mixtral(capsys):
+    """The sliding-window MoE decoder from the CLI: ring caches of
+    min(max_len, window) rows, the prefill chunk clamped to 1, the experts
+    counted in the param bytes."""
+    rep = tserve.main(["--arch", "mixtral-8x7b", "--reduced", "--device",
+                       "cpu", "--requests", "2", "--max-new-tokens", "4",
+                       "--metrics"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "2 requests, 8 generated tokens"
+    cap = rep["capacity"]
+    assert cap["step_graphs"] is False and cap["paged"] is False
+    assert rep["generated_tokens"] == 8
+    assert {p["layer"].split("/")[1] for p in rep["plans"]} == {"attn"}
+
+
 def test_unsupported_arch_raises_through_check_supported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tserve.main(["--arch", "mixtral-8x7b", "--reduced", "--device",
-                     "cpu"])
+    with pytest.raises(NotImplementedError, match="items 13c-13f"):
+        tserve.main(["--arch", "jamba-1.5-large-398b", "--reduced",
+                     "--device", "cpu"])
 
 
 def test_default_device_is_the_card(monkeypatch):
