@@ -217,11 +217,36 @@ toolkit:
    the logit difference).  The ``moe reduced`` line: reduced mixtral-8x22b
    through the graphed engine and on ``'torch'``, tokens equal (gated).
 
+11. The recurrent families.  The ``recurrent k2`` lines: the serving
+   path's fused K2 (K1 folded in) at the packed-linear shapes of mamba
+   (in_proj 8192 -> 32768, out_proj 16384 -> 8192, x_proj 16384 -> 544),
+   the mLSTM (up 2048 -> 8192, q/k/v 4096 -> 4096, down 4096 -> 2048) and
+   the sLSTM FFN (2048 -> 5460, 2730 -> 2048), at 4 and 64 rows, bit-equal
+   to K1 + K2 and the plain version (gated) and timed.  The ``recurrent
+   serve`` lines: xlstm-1.3b at full width and depth (48 layers, 42 mLSTM
+   and 6 sLSTM, d_model 2048, 4 heads, vocab 50304) and
+   jamba-1.5-large-398b at full width (d_model 8192, d_inner 16384, 64
+   heads on 8 kv heads of 128, d_ff 24576, 16 experts top-2, vocab 65536)
+   cut to its first 5 of 72 layers at kv 4, W2A2 int16xP2s8, seed-0
+   weights, ``EngineConfig(max_batch=4, max_len=512, prefill_chunk=16)``,
+   the serve prompts and two more (six requests through four slots, so two
+   slots are reset and reused), 16 (xlstm) and 8 (jamba) new tokens each,
+   graphed, against an engine on ``backend='torch'``: tokens equal (gated),
+   every packed linear one fused K2 launch (gated), xlstm's logits equal
+   over every decode pass (gated), jamba's K3 launched on every pass
+   (gated); decode ms wall and replayed, idle share, the graph's device ms
+   by kernel group, an eager pass's by the port's ranges (fake quant, the
+   mamba scan, mLSTM, sLSTM, the MoE's), param bytes, cache bytes a slot,
+   the init's peak and the serving peak above the params.  The
+   ``recurrent reduced`` lines: reduced jamba contiguous and paged and
+   reduced xlstm, graphed against ``'torch'``, tokens equal (gated).
+
 ``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
 tensor-core K2's split sweep (``k2_sweep``, its lanes and its fused
 route), the data the planner's split model was fitted to.
 ``python3 chip_smoke.py --moe`` builds them and runs only the ``legacy``
-and ``moe`` lines of step 10.
+and ``moe`` lines of step 10, ``--recurrent`` only the lines of step 11
+(both flags together run both).
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
@@ -238,6 +263,7 @@ script exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -3637,7 +3663,11 @@ def recorded_serve(np, eng, prompts, new):
         outs = [r.output for r in serve_requests(eng, prompts, new,
                                                  paged=eng.paged)]
     finally:
-        eng._emit_token, eng._decode = real_emit, real_decode
+        # the class's method again: an instance attribute holding a bound
+        # method would keep the engine (params, graph pools) alive in a
+        # cycle past ``del``, until the garbage collector runs
+        del eng._emit_token
+        eng._decode = real_decode
     return outs, rows, passes
 
 
@@ -3671,10 +3701,10 @@ def max_pass_diff(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
-def eager_ranges(torch, np, cfg, params, caches, b, pos):
+def eager_ranges(torch, np, cfg, params, caches, b, pos, ranges=MOE_RANGES):
     """One eager decode pass (``steps.make_decode_step``) at offsets
     ``pos`` under torch.profiler: device ms of the kernels launched inside
-    each of the port's ranges (``MOE_RANGES``) and in all."""
+    each of the port's ``ranges`` and in all."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import steps
@@ -3690,10 +3720,10 @@ def eager_ranges(torch, np, cfg, params, caches, b, pos):
     rows = prof.key_averages()
     cpu = [e for e in rows if e.device_type == torch.autograd.DeviceType.CPU]
     kernels = [e for e in rows if e.device_type
-               == torch.autograd.DeviceType.CUDA and e.key not in MOE_RANGES]
+               == torch.autograd.DeviceType.CUDA and e.key not in ranges]
     out = {"eager_device_ms": sum(e.self_device_time_total
                                   for e in kernels) / 1e3}
-    for name in MOE_RANGES:
+    for name in ranges:
         out[f"{name}_range_ms"] = sum(e.device_time_total for e in cpu
                                       if e.key == name) / 1e3
     return out
@@ -4018,6 +4048,259 @@ def legacy_phase(torch, np, dev, cfg, params, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# recurrent lines: xlstm-1.3b and jamba-1.5-large-398b
+# ---------------------------------------------------------------------------
+
+XLSTM, JAMBA = "xlstm-1.3b", "jamba-1.5-large-398b"
+JAMBA_LAYERS = 5
+REC_NEW = {XLSTM: 16, JAMBA: 8}
+REC_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
+# profiler ranges of the port read in an eager decode pass (core/quant.py,
+# models/mamba.py, models/xlstm.py, models/moe.py)
+REC_RANGES = ("fake_quant", "mamba_scan", "mlstm", "slstm", "expert_gemm",
+              "moe_dispatch", "moe_combine")
+# the packed linears of the two families at full width, (k, n) by layer,
+# at the decode and the prefill-chunk rows of REC_ECFG
+REC_K2_SHAPES = (("mamba in_proj", 8192, 32768),
+                 ("mamba out_proj", 16384, 8192),
+                 ("mamba x_proj", 16384, 544), ("mlstm up", 2048, 8192),
+                 ("mlstm q/k/v", 4096, 4096), ("mlstm down", 4096, 2048),
+                 ("slstm ffn_up", 2048, 5460),
+                 ("slstm ffn_down", 2730, 2048))
+REC_K2_ROWS = (4, 64)
+
+
+def recurrent_config(name, *, reduced=False, kv_bits=None):
+    """xlstm-1.3b whole, or jamba-1.5-large-398b at full width cut to its
+    first JAMBA_LAYERS of 72 layers (mamba + MLP, mamba + MoE, mamba + MLP,
+    mamba + MoE, attention + MLP); the reduced configs as they are.  W2A2
+    on the int16xP2s8 lanes, at ``kv_bits`` when given."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(name, reduced=reduced)
+    if name == JAMBA and not reduced:
+        cfg = cfg.replace(num_layers=JAMBA_LAYERS)
+    if kv_bits is not None:
+        cfg = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+    return cfg
+
+
+def recurrent_prompts(np, cfg):
+    """The serve phase's four prompts, then two more (21 and 40 tokens)
+    that wait for a free slot: two slots are reused."""
+    plain, _ = serve_prompts(np, cfg)
+    rng = np.random.default_rng(SEED + 21)
+    return plain + [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                    for n in (21, 40)]
+
+
+def recurrent_k2_rows(torch, peaks, dev, gen):
+    """The serving path's call (``quantized_linear_mma``: one launch of
+    the tensor-core K2 with K1 folded in) at the recurrent families'
+    packed-linear shapes, at the decode and prefill-chunk rows: bit-equal
+    to the cast + K1 + K2 route and to the plain version, and timed
+    (``fused_quant_row``).  Prints a ``recurrent k2`` line a row."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+
+    sp = PackSpec.parse("W2A2/int16xP2s8")
+    rows = []
+    for layer, k, n in REC_K2_SHAPES:
+        qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                           device=dev, dtype=torch.int32)
+        w = packing.pack_weights(qw, sp)
+        ws = [w] + [w.clone() for _ in range(copies_for(w.numel() *
+                                                        sp.lane_bytes) - 1)]
+        for m in REC_K2_ROWS:
+            r = fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws,
+                                None)
+            r["layer"] = layer
+            print("recurrent k2 " + json.dumps(r))
+            rows.append(r)
+        del qw, w, ws
+    torch.cuda.empty_cache()
+    return rows
+
+
+def recurrent_serve_phase(torch, np, dev, smi, name):
+    """The ``recurrent serve`` line of ``name``: seed-0 weights at full
+    width (xlstm-1.3b whole; jamba-1.5-large-398b cut to JAMBA_LAYERS of
+    its 72 layers, at kv 4), ``EngineConfig(**REC_ECFG)``, the
+    ``recurrent_prompts`` (six requests through four slots),
+    ``REC_NEW[name]`` greedy tokens each on the graphed engine, then on an
+    engine with ``backend='torch'``: tokens equal (gated); every packed
+    linear one fused K2 launch (``check_k2_path``); xlstm's largest logit
+    difference over every decode pass 0.0 (gated: nothing on its path is
+    inexact between the two), jamba's reported, and K3 launched on every
+    pass of its one attention layer (gated).  Records decode ms a pass
+    (wall, and the graph's replay on the device -- replays advance the
+    recurrent states, after the run), the idle share, the graph's device
+    ms by kernel group, an eager pass's ms by the port's ranges, param
+    bytes, cache bytes a slot, the init's peak (above what the card held
+    before) and the serving peak above the params; fails if the phase
+    leaves more than 1 GiB allocated.  Returns the fused K2, K3 and
+    cache-write launches of the graphed run."""
+    from repro_torch.kernels import cache_write, quant_pack, \
+        ulppack_attention, ulppack_matmul
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    jamba = name == JAMBA
+    c = recurrent_config(name, kv_bits=4 if jamba else None)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    prompts = recurrent_prompts(np, c)
+    new = REC_NEW[name]
+    ecfg = EngineConfig(**REC_ECFG)
+    for mod in (quant_pack, ulppack_matmul, ulppack_attention, cache_write):
+        mod.reset_counts()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(c, params, config=ecfg, device=dev)
+    t0 = time.perf_counter()
+    outs, rows, passes = recorded_serve(np, eng, prompts, new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    k2 = check_k2_path(f"recurrent serve {name}")
+    k3 = ulppack_attention.kernel_launches["attention_decode"]
+    n_pass = eng._decode.replays + eng._prefill.replays
+    if eng._decode.graph is None:
+        raise AssertionError(f"recurrent serve {name}: no graphs captured")
+    if jamba and k3 < n_pass:
+        raise AssertionError(f"recurrent serve {name}: {k3} K3 launches "
+                             f"over {n_pass} passes")
+    if not jamba and (k3 or cache_write.kernel_launches["cache_write"]):
+        raise AssertionError(f"recurrent serve {name}: an attention-free "
+                             f"stack launched attention kernels")
+    launches = {"quantized_linear_mma": k2, "attention_decode": k3,
+                "cache_write": cache_write.kernel_launches["cache_write"]}
+    m, cap = eng.metrics.report(), eng.capacity_report()
+    reps, n = (3, 2) if jamba else (5, 8)
+    replay = statistics.median(replay_ms(torch, eng._decode, n)
+                               for _ in range(reps))
+    groups = profile_replay(torch, eng._decode)
+    ranges = eager_ranges(torch, np, c, eng.params, eng.caches,
+                          eng.max_batch, eng.slot_pos.copy(), REC_RANGES)
+    kinds = [c.layer_kind(i) for i in range(c.num_layers)]
+    line = {"card": smi, "config": name, "kv_bits": c.quant.kv_bits,
+            "layers": (f"{c.num_layers} of 72" if jamba
+                       else c.num_layers),
+            "kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "moe_layers": sum(c.layer_is_moe(i)
+                              for i in range(c.num_layers)),
+            "d_model": c.d_model, "slots": eng.max_batch,
+            "prefill_chunk": eng.prefill_chunk, "requests": len(outs),
+            "new_tokens": new, "wall_s": wall, "steps": m["steps"],
+            "decode_passes": eng.metrics.decode_passes,
+            "decode_step_ms_wall": m["decode_step_ms"],
+            "decode_replay_ms": replay,
+            "idle_share": 1 - replay / m["decode_step_ms"],
+            "decode_tok_s": m["decode_tok_s"],
+            "graph_device_ms_by_group": groups, **ranges,
+            "fused_k2_launches": k2, "k3_launches": k3,
+            "graph_passes": n_pass, "step_setup_s": cap["step_setup_s"],
+            "param_bytes": cap["param_bytes"],
+            "cache_bytes_per_slot": cap["cache_bytes_per_slot"],
+            "cache_bytes": cap["cache_bytes"],
+            "init_params_s": init_s, "held_before_bytes": held,
+            "init_peak_above_held_bytes": init_peak,
+            "peak_memory_above_params_bytes": peak}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = ServingEngine(c, params, config=ecfg, device=dev, backend="torch")
+    ref_outs, ref_rows, ref_passes = recorded_serve(np, ref, prompts, new)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    token_divergences(np, f"recurrent serve {name}", ref_outs, ref_rows,
+                      outs, rows, strict=True)
+    diff = max_pass_diff(passes, ref_passes)
+    if not jamba and diff != 0.0:
+        raise AssertionError(f"recurrent serve {name}: logits differ from "
+                             f"the 'torch' backend's by {diff}")
+    line.update(tokens_equal=True, max_logit_diff_vs_torch=diff)
+    print("recurrent serve " + json.dumps(line))
+    print(smi)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_allocated() > held + (1 << 30):
+        raise AssertionError(f"recurrent serve {name}: "
+                             f"{torch.cuda.memory_allocated() - held} bytes "
+                             f"still held after the phase")
+    return launches
+
+
+def recurrent_reduced_phase(torch, np, dev, smi):
+    """The ``recurrent reduced`` lines: reduced jamba (mamba + attention,
+    MoE) at kv 4 contiguous and paged, and reduced xlstm, each through the
+    graphed engine and one with ``backend='torch'``: the
+    ``recurrent_prompts`` through four slots, 8 greedy tokens each, tokens
+    equal (gated)."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    for name, kv, paged in ((JAMBA, 4, False), (JAMBA, 4, True),
+                            (XLSTM, None, False)):
+        c = recurrent_config(name, reduced=True, kv_bits=kv)
+        params = lm.init_params(c, torch.Generator(device=dev).manual_seed(
+            SEED), device=dev)
+        prompts = recurrent_prompts(np, c)
+        ecfg = EngineConfig(**REC_ECFG, paged=paged, page_size=16)
+        runs, graphed = {}, {}
+        for be in ("auto", "torch"):
+            eng = ServingEngine(c, params, config=ecfg, device=dev,
+                                backend=be)
+            runs[be] = recorded_serve(np, eng, prompts, 8)
+            graphed[be] = eng._decode.graph is not None
+            del eng
+        if not graphed["auto"]:
+            raise AssertionError(f"recurrent reduced {name}: the engine "
+                                 f"captured no graphs")
+        token_divergences(np, f"recurrent reduced {name}", runs["torch"][0],
+                          runs["torch"][1], runs["auto"][0],
+                          runs["auto"][1], strict=True)
+        line = {"card": smi, "config": name, "reduced": True,
+                "kv_bits": c.quant.kv_bits, "paged": paged,
+                "layers": c.num_layers, "d_model": c.d_model,
+                "graphed": graphed, "tokens_equal": True,
+                "max_logit_diff_vs_torch": max_pass_diff(runs["auto"][2],
+                                                         runs["torch"][2])}
+        print("recurrent reduced " + json.dumps(line))
+        del params
+        torch.cuda.empty_cache()
+    print(smi)
+
+
+def recurrent_phase(torch, np, dev, peaks, smi):
+    """The recurrent families: the ``recurrent k2`` rows, the ``recurrent
+    serve`` lines of xlstm-1.3b and jamba-1.5-large-398b, the ``recurrent
+    reduced`` lines.  Returns the serve lines' kernel launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    recurrent_k2_rows(torch, peaks, dev, gen)
+    launches = {"quantized_linear_mma": 0, "attention_decode": 0,
+                "cache_write": 0}
+    for name in (XLSTM, JAMBA):
+        for k, n in recurrent_serve_phase(torch, np, dev, smi,
+                                          name).items():
+            launches[k] += n
+    recurrent_reduced_phase(torch, np, dev, smi)
+    print(f"recurrent launches {launches}")
+    print(smi)
+    return launches
+
+
 def moe_only(torch, np, smi):
     """``--moe``: the legacy lines on seed-0 full-width stablelm-1.6b, then
     the moe serve, moe ring and moe reduced lines."""
@@ -4081,8 +4364,12 @@ def main() -> int:
         k2_sweep(torch, torch.device("cuda"))
         print(smi)
         return 0
-    if "--moe" in sys.argv[1:]:
+    only = [f for f in ("--moe", "--recurrent") if f in sys.argv[1:]]
+    if "--moe" in only:
         moe_only(torch, np, smi)
+    if "--recurrent" in only:
+        recurrent_phase(torch, np, torch.device("cuda"), peaks, smi)
+    if only:
         return 0
     for n, p in paths.items():
         log = (p.parent / f"{n}.log").read_text().splitlines()
@@ -4157,6 +4444,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_reduced_phase(torch, np, dev, smi)
     for k, n in moe_launches.items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+    # the recurrent families: the K2 rows at their shapes, xlstm-1.3b whole
+    # and jamba-1.5-large-398b cut to 5 layers served graphed, their
+    # reduced engines; their packed linears add to K2's launches, jamba's
+    # attention layer to K3's and the window write's
+    for k, n in recurrent_phase(torch, np, dev, peaks, smi).items():
         launches[k] += n
     torch.cuda.empty_cache()
     launches.update(linear_phase(torch, dev))

@@ -183,17 +183,18 @@ def _inputs(batch, index, valid, block_tables, dev):
 
 def _forward(cfg, qmode, backend, params, caches, tokens, idx, vld, bt):
     """The body of both steps on device tensors: positions and destination
-    rows (ring slots for a sliding-window config) on the device, then the
-    forward; returns logits [B, w, vocab].  Which cache read the forward
-    takes (``attention.use_fused_decode``, with the kill-switch) is fixed
-    when the body runs, so a captured graph keeps it."""
+    rows (ring slots for a sliding-window config; none for an
+    attention-free stack) on the device, then the forward; returns logits
+    [B, w, vocab].  Which cache read the forward takes
+    (``attention.use_fused_decode``, with the kill-switch) is fixed when
+    the body runs, so a captured graph keeps it."""
     b, w = tokens.shape
     pos = idx[:, None] + torch.arange(w, dtype=torch.int32,
                                       device=tokens.device)
-    _, _, dest, _ = attention.window(idx, vld, bt, b, w,
-                                     caches[0]["attn"]["k"].shape,
-                                     tokens.device,
-                                     sliding_window=cfg.sliding_window)
+    kv = lm.first_attn_cache(caches)
+    dest = None if kv is None else attention.window(
+        idx, vld, bt, b, w, kv["k"].shape, tokens.device,
+        sliding_window=cfg.sliding_window)[2]
     logits, _, _ = lm.forward(
         params, cfg, {"tokens": tokens, "positions": pos}, quant_mode=qmode,
         caches=caches, cache_index=idx, cache_valid=vld, dest=dest,
@@ -543,10 +544,10 @@ def graphed_serving_steps(cfg, params, caches, *, batch: int,
     ``block_table_width`` is given), with the eager steps' call signature.
 
     On a CUDA device with the kernels (backend 'auto' or 'cuda'), each body
-    is warmed up with every row dead -- no cache write, the attention
-    kernels return zeros -- so every lazy step (library builds, shared-
-    memory attributes, plans, the split-K workspace, which the pair owns)
-    happens outside capture; then both are captured as CUDA graphs, the
+    is warmed up with every row dead -- no cache write, no recurrent state
+    advanced, the attention kernels return zeros -- so every lazy step
+    (library builds, shared-memory attributes, plans, the split-K
+    workspace, which the pair owns) happens outside capture; then both are captured as CUDA graphs, the
     decode step first.  A failed capture raises.  On the CPU, or when the
     caller asked for the plain versions (backend 'torch', which holds
     host syncs), the same objects run their bodies eagerly."""

@@ -1,13 +1,14 @@
-"""Decoder LM assembly for attention stacks with dense or MoE FFNs
-(counterpart of ``repro/models/lm.py``): block init/apply, parameter init,
-forward with the pad-vocab bias and the summed MoE aux loss (optionally
+"""Decoder LM assembly (counterpart of ``repro/models/lm.py``): blocks of
+attention, mamba, mLSTM or sLSTM (attention and mamba blocks with a dense
+or MoE FFN half, xLSTM blocks single-residual), parameter init, forward
+with the pad-vocab bias and the summed MoE aux loss (optionally
 recomputing each block in the backward, ``remat=True``), the training
-loss, contiguous (ring, for sliding-window configs) or paged decode caches
-and their byte counts.
+loss, decode caches -- contiguous (ring, for sliding-window configs) or
+paged attention caches beside per-slot recurrent states -- and their byte
+counts.
 
-Mamba / xLSTM blocks, encoders and modality frontends are still to be
-ported (ROADMAP.md Queue 1 items 13c-13f); configs that need them raise
-``NotImplementedError``.
+Encoders and modality frontends are still to be ported (ROADMAP.md Queue
+1 items 13e-13f); configs that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,26 +18,21 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.kernels import plan as plan_lib
-from repro_torch.models import attention, common, mlp, moe
+from repro_torch.models import attention, common, mamba, mlp, moe, xlstm
 from repro_torch.models.common import dense_apply, dense_init
 
 
 def check_supported(cfg):
-    """Raise unless ``cfg`` is a decoder stack of attention blocks (dense
-    or MoE FFNs, full or sliding-window attention)."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    missing = []
+    """Raise unless ``cfg`` is a decoder stack of attention, mamba, mLSTM
+    and sLSTM blocks (dense or MoE FFNs, full or sliding-window
+    attention) without a modality frontend or an encoder."""
     if cfg.family == "cnn":
         raise NotImplementedError(
             f"{cfg.name}: the CNN path is ROADMAP.md Queue 1 item 9")
-    if kinds != {"attn"}:
-        missing.append(f"{sorted(kinds - {'attn'})} blocks")
     if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are still to be ported "
-            f"(ROADMAP.md Queue 1 items 13c-13f)")
+            f"{cfg.name}: the {cfg.frontend} frontend is still to be ported "
+            f"(ROADMAP.md Queue 1 items 13e-13f)")
     attention.check_supported(cfg)
 
 
@@ -44,13 +40,18 @@ def check_supported(cfg):
 # Block init / apply
 # ---------------------------------------------------------------------------
 
+_MIXERS = {"attn": attention.attention_init, "mamba": mamba.mamba_init,
+           "mlstm": xlstm.mlstm_init, "slstm": xlstm.slstm_init}
+
+
 def block_init(generator, cfg, i, *, dtype=torch.float32, device="cpu"):
-    """An attention block with its FFN half: the MoE FFN on the layers
-    where ``cfg.layer_is_moe(i)``, else the dense MLP (when d_ff > 0)."""
+    """Block ``i`` of kind ``cfg.layer_kind(i)``; attention and mamba
+    blocks get the FFN half: the MoE FFN on the layers where
+    ``cfg.layer_is_moe(i)``, else the dense MLP (when d_ff > 0)."""
+    kind = cfg.layer_kind(i)
     p = {"norm1": common.rmsnorm_init(cfg.d_model, dtype, device),
-         "attn": attention.attention_init(generator, cfg, dtype=dtype,
-                                          device=device)}
-    if cfg.d_ff or cfg.layer_is_moe(i):
+         kind: _MIXERS[kind](generator, cfg, dtype=dtype, device=device)}
+    if kind in ("attn", "mamba") and (cfg.d_ff or cfg.layer_is_moe(i)):
         p["norm2"] = common.rmsnorm_init(cfg.d_model, dtype, device)
         if cfg.layer_is_moe(i):
             p["moe"] = moe.moe_init(generator, cfg, dtype=dtype,
@@ -61,18 +62,33 @@ def block_init(generator, cfg, i, *, dtype=torch.float32, device="cpu"):
     return p
 
 
-def block_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
-                cache_index=None, cache_valid=None, dest=None,
-                block_tables=None, backend="auto"):
+_RECURRENT_APPLY = {"mamba": mamba.mamba_apply, "mlstm": xlstm.mlstm_apply,
+                    "slstm": xlstm.slstm_apply}
+
+
+def block_apply(p, cfg, x, *, kind="attn", positions, quant_mode="none",
+                cache=None, cache_index=None, cache_valid=None, dest=None,
+                block_tables=None, backend="auto", rec_valid=None):
     """One residual block.  Returns (x, cache, aux loss); the MoE FFN
-    takes the einsum path, whose fixed shapes the CUDA graphs capture."""
+    takes the einsum path, whose fixed shapes the CUDA graphs capture.
+
+    An attention block reads ``cache_index`` / ``cache_valid`` / ``dest``
+    as :func:`attention.window` gives them; a recurrent block takes the
+    caller's valid counts ``rec_valid`` (``cache_valid`` when None)."""
     aux = 0.0
     h = common.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    sub = cache.get("attn") if cache else None
-    out, _ = attention.attention_apply(
-        p["attn"], cfg, h, positions=positions, quant_mode=quant_mode,
-        cache=sub, cache_index=cache_index, cache_valid=cache_valid,
-        dest=dest, block_tables=block_tables, backend=backend)
+    sub = cache.get(kind) if cache else None
+    if kind == "attn":
+        out, _ = attention.attention_apply(
+            p["attn"], cfg, h, positions=positions, quant_mode=quant_mode,
+            cache=sub, cache_index=cache_index, cache_valid=cache_valid,
+            dest=dest, block_tables=block_tables, backend=backend)
+    else:
+        out, _ = _RECURRENT_APPLY[kind](
+            p[kind], cfg, h, quant_mode=quant_mode, cache=sub,
+            cache_index=cache_index,
+            cache_valid=cache_valid if rec_valid is None else rec_valid,
+            backend=backend)
     x = x + out
     if "moe" in p:
         h = common.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
@@ -122,14 +138,17 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
     ``jax.checkpoint``: the backward recomputes the block -- its
     fake-quant lattices included -- instead of storing its activations.
     ``caches`` without ``cache_index`` is the prefill of fresh caches:
-    every layer writes rows 0 .. S-1 and attends over the raw window.
+    every attention layer writes rows 0 .. S-1 and attends over the raw
+    window, every recurrent layer runs from its fresh state and stores
+    its final state.
 
     ``cache_index`` [B] gives per-slot cache write offsets, a scalar the
     lockstep path (``attention.window``); ``cache_valid`` [B] the
     valid-prefix length of each row's window.  The caches are updated in
-    place.  ``dest`` may carry the window's
+    place, the recurrent states too.  ``dest`` may carry the window's
     destination rows (``attention.window``, with device-side offsets,
-    counts and table); otherwise they are computed once here.  With
+    counts and table); otherwise they are computed once here from the
+    first attention layer's cache (none for an attention-free stack).  With
     ``block_tables`` [B, n_pages] the caches are paged pools
     (``init_caches(..., page_size=, num_pages=)``).
     """
@@ -142,28 +161,33 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None, :].expand(b, s)
-    if caches is not None and cache_index is not None and dest is None:
+    # the recurrent blocks take the caller's valid counts: attention's
+    # lockstep window (a scalar cache_index) sets its own to the window
+    rec_valid = cache_valid
+    kv = first_attn_cache(caches)
+    if kv is not None and cache_index is not None and dest is None:
         # one set of destination rows per step, shared by every layer
         cache_index, cache_valid, dest, block_tables = attention.window(
-            cache_index, cache_valid, block_tables, b, s,
-            caches[0]["attn"]["k"].shape, x.device,
-            sliding_window=cfg.sliding_window)
+            cache_index, cache_valid, block_tables, b, s, kv["k"].shape,
+            x.device, sliding_window=cfg.sliding_window)
 
-    def run_block(blk, x, cache):
+    def run_block(blk, x, cache, kind):
         x, _, aux = block_apply(
-            blk, cfg, x, positions=positions, quant_mode=quant_mode,
-            cache=cache, cache_index=cache_index, cache_valid=cache_valid,
-            dest=dest, block_tables=block_tables, backend=backend)
+            blk, cfg, x, kind=kind, positions=positions,
+            quant_mode=quant_mode, cache=cache, cache_index=cache_index,
+            cache_valid=cache_valid, dest=dest, block_tables=block_tables,
+            backend=backend, rec_valid=rec_valid)
         return x, aux
 
     aux_total = 0.0
     for li, blk in enumerate(params["layers"]):
         cache = caches[li] if caches is not None else None
+        kind = cfg.layer_kind(li)
         if remat:
             x, aux = torch_checkpoint.checkpoint(run_block, blk, x, cache,
-                                                 use_reentrant=False)
+                                                 kind, use_reentrant=False)
         else:
-            x, aux = run_block(blk, x, cache)
+            x, aux = run_block(blk, x, cache, kind)
         aux_total = aux_total + aux
 
     x = common.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
@@ -181,22 +205,45 @@ def forward(params, cfg, batch, *, quant_mode="none", caches=None,
     return logits, aux_total, caches
 
 
+def first_attn_cache(caches):
+    """The first attention layer's cache of a cache list (None without
+    caches or attention layers): its leaves' shapes fix every attention
+    layer's destination rows."""
+    return next((c["attn"] for c in caches or () if "attn" in c), None)
+
+
+def init_recurrent_cache(cfg, kind, batch, device="cpu"):
+    """A fresh f32 state of a ``kind`` block for ``batch`` slots (mLSTM's
+    and sLSTM's ``m`` start at -1e30)."""
+    init = {"mamba": mamba.init_mamba_cache, "mlstm": xlstm.init_mlstm_cache,
+            "slstm": xlstm.init_slstm_cache}[kind]
+    return init(cfg, batch, device=device)
+
+
 def init_caches(cfg, batch_size, max_len, dtype=torch.bfloat16, *,
                 page_size=None, num_pages=None, device="cuda"):
-    """Per-layer decode caches on ``device``: contiguous, sized for
-    ``max_len``, or with ``page_size`` / ``num_pages`` paged pools
-    ([num_pages, page_size, KVH, ...], one page-id space across layers)."""
+    """Per-layer decode caches on ``device``: attention layers contiguous,
+    sized for ``max_len``, or with ``page_size`` / ``num_pages`` paged
+    pools ([num_pages, page_size, KVH, ...], one page-id space across
+    layers); recurrent layers keep ``batch_size`` slot rows of their f32
+    state either way (never paged)."""
     check_supported(cfg)
     dev = plan_lib.resolve_device(device)
     if num_pages is not None and page_size is None:
         raise ValueError("num_pages requires page_size")
-    if num_pages is not None:
-        return [{"attn": attention.init_paged_kv_cache(cfg, num_pages,
-                                                       page_size, dtype, dev)}
-                for _ in range(cfg.num_layers)]
-    return [{"attn": attention.init_kv_cache(cfg, batch_size, max_len, dtype,
-                                             dev)}
-            for _ in range(cfg.num_layers)]
+    caches = []
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        if kind != "attn":
+            caches.append({kind: init_recurrent_cache(cfg, kind, batch_size,
+                                                      dev)})
+        elif num_pages is not None:
+            caches.append({"attn": attention.init_paged_kv_cache(
+                cfg, num_pages, page_size, dtype, dev)})
+        else:
+            caches.append({"attn": attention.init_kv_cache(
+                cfg, batch_size, max_len, dtype, dev)})
+    return caches
 
 
 def _row_bytes(cfg, dtype) -> int:
@@ -210,21 +257,39 @@ def _row_bytes(cfg, dtype) -> int:
     return 2 * kvh * hd * torch.empty((), dtype=dtype).element_size()
 
 
+def _state_bytes(cfg, kind) -> int:
+    """Bytes one slot's f32 recurrent state takes in a ``kind`` layer."""
+    d, nh = cfg.d_model, cfg.num_heads
+    if kind == "mamba":
+        di = cfg.ssm_expand * d
+        return 4 * di * (cfg.ssm_conv_width - 1 + cfg.ssm_state_dim)
+    if kind == "mlstm":
+        hd = int(cfg.mlstm_proj_factor * d) // nh
+        return 4 * nh * (hd * hd + hd + 1)
+    return 4 * 4 * d                                     # slstm: c, n, h, m
+
+
 def cache_bytes(cfg, batch_size, max_len, dtype=torch.bfloat16) -> int:
-    """Device bytes of an ``init_caches`` tree, without allocating it (a
-    sliding-window config's rings hold ``min(max_len, window)`` rows)."""
+    """Device bytes of an ``init_caches`` tree, without allocating it: the
+    attention layers' rows (a sliding-window config's rings hold
+    ``min(max_len, window)`` of them) and the recurrent layers' states."""
     check_supported(cfg)
-    return (cfg.num_layers * batch_size
-            * attention.cache_size(cfg, max_len) * _row_bytes(cfg, dtype))
+    rows = attention.cache_size(cfg, max_len) * _row_bytes(cfg, dtype)
+    return batch_size * sum(
+        rows if cfg.layer_kind(i) == "attn"
+        else _state_bytes(cfg, cfg.layer_kind(i))
+        for i in range(cfg.num_layers))
 
 
 def cache_page_bytes(cfg, page_size, dtype=torch.bfloat16) -> int:
     """Device bytes one pool page (``page_size`` token rows) occupies,
     summed over the attention layers, scale planes included: the paged
-    engine's capacity unit (budget // cache_page_bytes pages).  Computed
+    engine's capacity unit (budget // cache_page_bytes pages).  Recurrent
+    states are not paged, so an attention-free stack gives 0.  Computed
     from shapes, like :func:`cache_bytes`."""
     check_supported(cfg)
-    return cfg.num_layers * page_size * _row_bytes(cfg, dtype)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    return n_attn * page_size * _row_bytes(cfg, dtype)
 
 
 def loss_fn(logits, labels, aux=0.0, aux_weight=0.01):

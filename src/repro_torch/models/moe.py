@@ -12,7 +12,14 @@ Expert FFNs are SwiGLU.  As in the reference, the 3-D expert kernels stay
 float and are LSQ fake-quantized on every forward in both 'qat' and
 'packed' modes (the reference's ``_expert_kernel``: "packed expert einsums
 are future work"); their products are library GEMMs in the compute dtype,
-as the reference computes them in XLA without a Pallas kernel.
+as the reference computes them in XLA without a Pallas kernel.  Outside
+autograd both paths fake-quantize and multiply one expert at a time: the
+step is a scalar and the lattice elementwise, so every expert's values
+are bit-identical to the whole-tensor pass, and the f32 temporaries are
+one expert's instead of all of them (at jamba's width, 0.8 GB instead of
+12.9 GB).  Under autograd the whole tensor goes through one
+``lsq_fake_quant``, whose step gradient is scaled by the whole tensor's
+size.
 """
 
 from __future__ import annotations
@@ -33,9 +40,12 @@ def moe_init(generator, cfg, *, dtype=torch.float32, device="cpu"):
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
 
     def ek(din, dout, scale):
-        w = torch.randn((e, din, dout), generator=generator,
-                        dtype=torch.float32, device=device) * scale
-        return w.to(dtype)
+        # drawn one expert at a time, so the f32 draw is one expert's
+        w = torch.empty((e, din, dout), dtype=dtype, device=device)
+        for i in range(e):
+            w[i] = torch.randn((din, dout), generator=generator,
+                               dtype=torch.float32, device=device) * scale
+        return w
 
     p = {"router": common.dense_init(generator, d, e, dtype=torch.float32,
                                      device=device),
@@ -44,18 +54,25 @@ def moe_init(generator, cfg, *, dtype=torch.float32, device="cpu"):
          "down": {"kernel": ek(f, d, 1 / math.sqrt(f))}}
     if cfg.quant.enabled:
         for name in ("up", "gate", "down"):
-            p[name]["w_step"] = quant.init_step_from_data(
-                p[name]["kernel"].to(torch.float32), cfg.quant.w_bits, True)
+            # the step is linear in the mean of |w|, so the experts' steps
+            # average to the whole tensor's
+            w = p[name]["kernel"]
+            p[name]["w_step"] = torch.stack([
+                quant.init_step_from_data(w[i], cfg.quant.w_bits, True)
+                for i in range(e)]).mean()
             p[name]["a_step"] = torch.tensor(
                 1.0 / math.sqrt(cfg.quant.qmax_a), dtype=torch.float32,
                 device=device)
     return p
 
 
-def _expert_kernel(p, name, cfg, quant_mode):
-    """An expert kernel in the compute dtype, LSQ fake-quantized in f32
-    first in 'qat' and 'packed' modes."""
+def _expert_kernel(p, name, cfg, quant_mode, expert=None):
+    """The ``name`` kernel of every expert [E, d_in, d_out] (of one, [d_in,
+    d_out], given ``expert``) in the compute dtype, LSQ fake-quantized in
+    f32 first in 'qat' and 'packed' modes."""
     k = p[name]["kernel"]
+    if expert is not None:
+        k = k[expert]
     if quant_mode in ("qat", "packed") and cfg.quant.enabled \
             and "w_step" in p[name]:
         k = quant.lsq_fake_quant(k.to(torch.float32), p[name]["w_step"],
@@ -101,15 +118,29 @@ def router_probs(p, cfg, x):
     return top_p, top_i, aux
 
 
+def _whole(p) -> bool:
+    """Whether the experts' kernels go through the fake quant as whole
+    tensors: only where autograd records through them (LSQ's step
+    gradient is scaled by the tensor's size); otherwise one expert at a
+    time, with bit-identical values."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for name in ("up", "gate", "down")
+        for t in p[name].values())
+
+
 def _experts(p, cfg, x, quant_mode, mm):
-    """The SwiGLU experts over ``x`` with the product ``mm(lhs, kernel)``:
+    """The SwiGLU experts over ``x`` with the product ``mm(lhs, kernel)``,
+    where ``kernel(e)`` gives expert e's kernel ([E, ...] for None):
     activations fake-quantized before up / gate and before down."""
+    def kernel(name):
+        return lambda e=None: _expert_kernel(p, name, cfg, quant_mode, e)
+
     xin = _maybe_fq_act(x, p, "up", cfg, quant_mode)
-    up = mm(xin, _expert_kernel(p, "up", cfg, quant_mode))
-    gate = mm(xin, _expert_kernel(p, "gate", cfg, quant_mode))
+    up = mm(xin, kernel("up"))
+    gate = mm(xin, kernel("gate"))
     h = gate * mlp._sigmoid(gate) * up
     h = _maybe_fq_act(h, p, "down", cfg, quant_mode)
-    return mm(h, _expert_kernel(p, "down", cfg, quant_mode))
+    return mm(h, kernel("down"))
 
 
 def moe_apply_einsum(p, cfg, x, *, quant_mode="none"):
@@ -152,9 +183,19 @@ def moe_apply_einsum(p, cfg, x, *, quant_mode="none"):
         xg = xt.reshape(ng, g, d).to(cd)
         expert_in = torch.einsum("ngec,ngd->necd", dispatch, xg)
 
+    whole = _whole(p)
+
     def mm(lhs, kernel):                # [ng,E,cap,din] x [E,din,dout]
-        with torch.profiler.record_function("expert_gemm"):
-            return torch.einsum("necd,edf->necf", lhs, kernel)
+        if whole:
+            w = kernel()
+            with torch.profiler.record_function("expert_gemm"):
+                return torch.einsum("necd,edf->necf", lhs, w)
+        out = []
+        for i in range(e):
+            w = kernel(i)
+            with torch.profiler.record_function("expert_gemm"):
+                out.append(torch.matmul(lhs[:, i], w))
+        return torch.stack(out, dim=1)
 
     out = _experts(p, cfg, expert_in, quant_mode, mm)     # [ng,E,cap,d]
     with torch.profiler.record_function("moe_combine"):
@@ -180,11 +221,17 @@ def moe_apply_ragged(p, cfg, x, *, quant_mode="none"):
     sorted_x = xt[tok_of].to(cd)
     sizes = torch.bincount(flat_e, minlength=cfg.num_experts).tolist()
 
+    whole = _whole(p)
+
     def mm(lhs, kernel):                 # [t*k, din] x [E, din, dout]
         parts = torch.split(lhs, sizes)
-        with torch.profiler.record_function("expert_gemm"):
-            return torch.cat([torch.matmul(part, kernel[i])
-                              for i, part in enumerate(parts)])
+        ws = kernel() if whole else None
+        out = []
+        for i, part in enumerate(parts):
+            w = ws[i] if whole else kernel(i)
+            with torch.profiler.record_function("expert_gemm"):
+                out.append(torch.matmul(part, w))
+        return torch.cat(out)
 
     out = _experts(p, cfg, sorted_x, quant_mode, mm)      # [t*k, d]
     w = top_p.reshape(-1)[order][:, None].to(cd)

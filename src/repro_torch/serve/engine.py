@@ -181,6 +181,10 @@ class ServingEngine:
             # can write
             pages_lib.validate_page_size(self.page_size, kv_bits)
             self.page_bytes = cache_page_bytes(cfg, self.page_size)
+            if self.page_bytes == 0:
+                raise ValueError(
+                    "paged=True requires at least one attention layer "
+                    "(nothing pageable in an attention-free stack)")
             self.pages_per_slot = -(-config.max_len // self.page_size)
             self.num_pages = config.pages_for(self.page_bytes,
                                               self.pages_per_slot)
@@ -188,9 +192,11 @@ class ServingEngine:
             # full-extent) request would pin
             self.cache_bytes_per_slot = self.pages_per_slot * self.page_bytes
             max_batch = config.max_batch
-            # every supported stack is pure attention, so a shared prefix's
-            # pages reconstruct every layer's state exactly
-            self._share = config.prefix_sharing
+            # a shared prefix's pages reconstruct every layer's state only
+            # in a pure-attention stack: recurrent layers carry unpaged
+            # per-slot state, so their prompts are never skipped
+            self._share = config.prefix_sharing and all(
+                cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
         else:
             max_batch = config.slots_for(self.cache_bytes_per_slot)
         self.max_batch = max_batch
@@ -236,6 +242,12 @@ class ServingEngine:
             self.caches = lm.init_caches(cfg, max_batch, self.max_len,
                                          dtype=torch.bfloat16,
                                          device=self.device)
+        # batch-1 fresh states, one a recurrent kind: admission copies
+        # them into the slot's rows (mLSTM's and sLSTM's m start at -1e30)
+        kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+        self._fresh = {kind: lm.init_recurrent_cache(cfg, kind, 1,
+                                                     self.device)
+                       for kind in kinds - {"attn"}}
         # speculative decoding: the draft model (the same checkpoint
         # re-packed at draft_w_bits, its own caches and, paged, its own
         # pool); pure-decode passes become draft + verify cycles
@@ -316,6 +328,17 @@ class ServingEngine:
             req.submit_time = time.perf_counter()
         self._queue.append(req)
         return True
+
+    def _reset_slot(self, slot: int):
+        """Restore the slot's rows of every recurrent state to the fresh
+        values, in place (the steps' graphs hold the cache pointers).
+        Attention rows need no reset: validity is re-derived per call from
+        the slot offsets, so stale rows stay masked until overwritten."""
+        for layer in self.caches:
+            for kind, sub in layer.items():
+                if kind in self._fresh:
+                    for name, buf in sub.items():
+                        buf[slot:slot + 1].copy_(self._fresh[kind][name])
 
     # -- paged reservation / copy-on-write -----------------------------
 
@@ -421,8 +444,7 @@ class ServingEngine:
                         # starvation of large requests by small ones
                         break
                 self._queue.popleft()
-                # attention rows need no reset: validity is re-derived per
-                # call from the slot offsets, so stale rows stay masked
+                self._reset_slot(slot)
                 self.slot_req[slot] = req
                 self.slot_pos[slot] = n_shared
                 self.slot_fed[slot] = n_shared
@@ -764,7 +786,8 @@ class ServingEngine:
     def import_paged_state(self, caches, pool_meta: dict):
         """Adopt a drained engine's page pools and prefix index (the
         inverse of :meth:`export_paged_state`).  The geometry must match
-        this engine's; the pools are copied into this engine's own cache
+        this engine's; every cache leaf -- the pools and any recurrent
+        layer's per-slot states -- is copied into this engine's own
         tensors, which keep their addresses."""
         if not self.paged:
             raise ValueError("import_paged_state on an unpaged engine")
@@ -776,8 +799,9 @@ class ServingEngine:
                 f"rows, engine was built with {self.num_pages} x "
                 f"{self.page_size}")
         for mine, theirs in zip(self.caches, caches):
-            for name, buf in mine["attn"].items():
-                buf.copy_(torch.as_tensor(theirs["attn"][name]).to(buf))
+            for kind, sub in mine.items():
+                for name, buf in sub.items():
+                    buf.copy_(torch.as_tensor(theirs[kind][name]).to(buf))
         self.pool = pages_lib.PagePool.from_meta(pool_meta)
 
     def run_to_completion(self):

@@ -294,6 +294,43 @@ def test_moe_ring_engine_graphed_tokens_equal_eager(hopper, kv_bits):
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("arch,kv_bits,paged", [
+    ("jamba-1.5-large-398b", 16, False), ("jamba-1.5-large-398b", 4, True),
+    ("xlstm-1.3b", 0, False)])
+def test_recurrent_engine_graphed_tokens_equal_eager(hopper, arch, kv_bits,
+                                                     paged):
+    """Reduced jamba (mamba + attention, MoE) and xlstm (mLSTM, sLSTM):
+    five requests through two slots -- the recurrent states advanced in
+    place by every replay and reset at admission -- give the same greedy
+    tokens on graphs as on the op-by-op pair; the states stay at their
+    addresses."""
+    cfg = configs.get_config(arch, reduced=True)
+    cfg = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+    params = lm.init_params(cfg, torch.Generator(device=hopper).manual_seed(4),
+                            device=hopper)
+    ecfg = engine_lib.EngineConfig(max_batch=2, max_len=MAX_LEN,
+                                   prefill_chunk=4, paged=paged, page_size=8)
+    outs = []
+    for graphed in (True, False):
+        eng = engine_lib.ServingEngine(cfg, params, config=ecfg,
+                                       device=hopper)
+        assert eng.capacity_report()["step_graphs"]
+        ptrs = steps._ptrs(eng.caches)
+        if not graphed:
+            eng._decode = steps.make_decode_step(cfg)
+            eng._prefill = steps.make_prefill_chunk_step(cfg)
+        rng = np.random.default_rng(7)
+        reqs = [engine_lib.Request(i, rng.integers(0, 512, n).astype(
+            np.int32), max_new_tokens=5) for i, n in enumerate(
+                (3, 9, 5, 6, 2))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        assert steps._ptrs(eng.caches) == ptrs
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_legacy_read_graphs_equal_eager(hopper, paged):
     """Under REPRO_FUSED_DECODE=0 the steps capture the legacy read: every

@@ -177,3 +177,44 @@ def test_one_hot_drops_out_of_range():
     got = tmoe._one_hot(torch.tensor([[0, -1], [2, 3]]), 3, torch.float32)
     want = jax.nn.one_hot(jnp.asarray([[0, -1], [2, 3]]), 3)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quant_mode", ["none", "qat", "packed"])
+@pytest.mark.parametrize("name", ["up", "gate", "down"])
+def test_per_expert_fake_quant_is_bit_identical(dtype, quant_mode, name):
+    """Expert e's kernel fake-quantized alone equals row e of the
+    whole-tensor pass bit for bit (the step is a scalar, the lattice
+    elementwise)."""
+    jcfg, tcfg = _cfgs(dtype)
+    _, tp = _params(jcfg, 4)
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    whole = tmoe._expert_kernel(tp, name, tcfg, quant_mode)
+    for e in range(tcfg.num_experts):
+        one = tmoe._expert_kernel(tp, name, tcfg, quant_mode, e)
+        assert one.dtype == whole.dtype
+        assert torch.equal(one.view(bits), whole[e].view(bits))
+
+
+@pytest.mark.parametrize("path", ["einsum", "ragged"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_experts_one_at_a_time_outside_autograd(dtype, path):
+    """Under ``no_grad`` both paths take the experts one at a time; with
+    the kernels recording gradients, the whole tensor (LSQ's step
+    gradient is scaled by its size).  The outputs agree, and both match
+    the reference."""
+    jcfg, tcfg = _cfgs(dtype)
+    jp, tp = _params(jcfg, 5)
+    jx, tx = _x(5, (2, 12, jcfg.d_model), dtype)
+    with torch.no_grad():
+        assert not tmoe._whole(tp)
+        ty, _ = tmoe.moe_apply(tp, tcfg, tx, quant_mode="packed", path=path)
+    grad = {k: ({n: t.clone().requires_grad_(t.is_floating_point())
+                 for n, t in v.items()} if k in ("up", "gate", "down")
+                else v) for k, v in tp.items()}
+    assert tmoe._whole(grad)
+    gy, _ = tmoe.moe_apply(grad, tcfg, tx, quant_mode="packed", path=path)
+    _close(gy.detach(), ty.float().numpy(), dtype)
+    with jax.disable_jit():
+        jy, _ = jmoe.moe_apply(jp, jcfg, jx, quant_mode="packed", path=path)
+    _close(ty, jy, dtype)

@@ -306,8 +306,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
             "attn"]["k"].device.type == "cpu"
     with pytest.raises(ValueError, match="requires packed=True"):
         tengine.EngineConfig(autotune=True, packed=False)
-    with pytest.raises(NotImplementedError, match="items 13c-13f"):
-        tengine.ServingEngine(tconfigs.get_config("jamba-1.5-large-398b",
+    with pytest.raises(NotImplementedError, match="items 13e-13f"):
+        tengine.ServingEngine(tconfigs.get_config("qwen2-vl-2b",
                                                   reduced=True), tp,
                               device="cpu")
 

@@ -147,10 +147,24 @@ def test_main_serves_reduced_mixtral(capsys):
     assert {p["layer"].split("/")[1] for p in rep["plans"]} == {"attn"}
 
 
+def test_main_serves_reduced_xlstm(capsys):
+    """The attention-free recurrent stack from the CLI: per-slot mLSTM /
+    sLSTM states, plans for the packed projections alone."""
+    rep = tserve.main(["--arch", "xlstm-1.3b", "--reduced", "--device",
+                       "cpu", "--requests", "3", "--max-new-tokens", "3",
+                       "--metrics"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "3 requests, 9 generated tokens"
+    cap = rep["capacity"]
+    assert cap["paged"] is False and cap["step_graphs"] is False
+    assert {p["layer"].split("/")[1] for p in rep["plans"]} \
+        == {"mlstm", "slstm"}
+
+
 def test_unsupported_arch_raises_through_check_supported():
-    with pytest.raises(NotImplementedError, match="items 13c-13f"):
-        tserve.main(["--arch", "jamba-1.5-large-398b", "--reduced",
-                     "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="items 13e-13f"):
+        tserve.main(["--arch", "qwen2-vl-2b", "--reduced", "--device",
+                     "cpu"])
 
 
 def test_default_device_is_the_card(monkeypatch):
