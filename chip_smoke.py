@@ -3092,19 +3092,27 @@ def train_serve_phase(torch, np, dev, cfg, trained, smi):
 
 
 def check_served_on_kernels(eng, where) -> dict:
-    """Since the counts were reset, ``eng`` served through its CUDA graphs,
-    every packed linear one launch of the fused tensor-core K2
-    (``check_k2_path``) and every attention read one launch of K3, with
-    no plain call.  Returns the K2 and K3 launches."""
+    """Since the counts were reset, ``eng`` served through its CUDA graphs
+    on the kernels (``check_on_kernels``).  Returns the K2 and K3
+    launches."""
+    if eng._decode.graph is None:
+        raise AssertionError(f"{where}: the engine captured no graphs")
+    return check_on_kernels(where)
+
+
+def check_on_kernels(where) -> dict:
+    """Since the counts were reset, every packed linear was one launch of
+    the fused tensor-core K2 (``check_k2_path``) and every attention read
+    one launch of K3, with no plain call.  Returns the K2 and K3
+    launches."""
     from repro_torch.kernels import ulppack_attention as att
 
-    graphed = eng._decode.graph is not None
     k2 = check_k2_path(where)
     k3 = att.kernel_launches["attention_decode"]
     plain = att.plain_calls["attention_decode"]
-    if not graphed or not k3 or plain:
-        raise AssertionError(f"{where}: graphed {graphed}, {k3} K3 "
-                             f"launches, {plain} plain calls")
+    if not k3 or plain:
+        raise AssertionError(f"{where}: {k3} K3 launches, {plain} plain "
+                             f"calls")
     return {"quantized_linear_mma": k2, "attention_decode": k3}
 
 
@@ -4324,6 +4332,510 @@ def moe_only(torch, np, smi):
     print(smi)
 
 
+# ---------------------------------------------------------------------------
+# multimodal lines: qwen2-vl-2b and seamless-m4t-medium
+# ---------------------------------------------------------------------------
+
+VLM, ENCDEC = "qwen2-vl-2b", "seamless-m4t-medium"
+MM_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
+MM_NEW = 16
+# the vlm prefix line: an image of 1 x 16 x 16 (t, h, w) patches, 48 text
+# tokens after it, two rows
+VLM_GRID, VLM_TEXT, VLM_ROWS = (1, 16, 16), 48, 2
+# the encdec lines: four rows of 256 encoder embeddings, a 16-token prompt
+ENC_ROWS, ENC_LEN, ENC_PROMPT = 4, 256, 16
+# the packed linears of the two configs at full width, (k, n) by layer,
+# at the decode and the prefill-chunk rows of MM_ECFG
+MM_K2_SHAPES = ((VLM, "q/o", 1536, 1536), (VLM, "k/v", 1536, 256),
+                (VLM, "gate/up", 1536, 8960), (VLM, "down", 8960, 1536),
+                (ENCDEC, "q/k/v/o", 1024, 1024), (ENCDEC, "up", 1024, 4096),
+                (ENCDEC, "down", 4096, 1024))
+MM_K2_ROWS = (4, 64)
+
+
+def multimodal_config(name, *, kv_bits=None):
+    """qwen2-vl-2b or seamless-m4t-medium whole (W2A2 on the int16xP2s8
+    lanes), at ``kv_bits`` when given."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(name)
+    if kv_bits is not None:
+        cfg = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+    return cfg
+
+
+def multimodal_k2_rows(torch, peaks, dev, gen):
+    """``fused_quant_row`` at every packed-linear shape of the two configs
+    (``MM_K2_SHAPES``) at 4 and 64 rows: bit-equal to cast + K1 + K2 and
+    to the plain version, timed against its bytes bound.  Prints a
+    ``multimodal k2`` line a row."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+
+    sp = PackSpec.parse("W2A2/int16xP2s8")
+    rows = []
+    for cfg, layer, k, n in MM_K2_SHAPES:
+        qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                           device=dev, dtype=torch.int32)
+        w = packing.pack_weights(qw, sp)
+        ws = [w] + [w.clone() for _ in range(copies_for(w.numel() *
+                                                        sp.lane_bytes) - 1)]
+        for m in MM_K2_ROWS:
+            r = fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws,
+                                None)
+            r.update(config=cfg, layer=layer)
+            print("multimodal k2 " + json.dumps(r))
+            rows.append(r)
+        del qw, w, ws
+    torch.cuda.empty_cache()
+    return rows
+
+
+def noncausal_k3_rows(torch, peaks, dev, gen):
+    """K3 without a causal mask, as the encoder and the cross sublayers
+    read it: seamless's heads (H16 hd64), S 256 bf16 keys (kv 0), every
+    query at position 255 with ``valid_len`` 256, at C 1 (a decode step's
+    cross read) and C 256 (the encoder): within ATTN_TOL + one bf16 ulp of
+    the plain version, two launches bit-equal; timed beside the plain
+    version and SDPA without a mask."""
+    from repro_torch.kernels import ulppack_attention as ua
+
+    bsz, s, h, hd = ENC_ROWS, ENC_LEN, 16, 64
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for c in (1, ENC_LEN):
+        q = torch.randn((bsz, c, h, hd), generator=gen,
+                        device=dev).bfloat16()
+        kv = [{n: torch.randn((bsz, s, h, hd), generator=gen,
+                              device=dev).bfloat16() for n in ("k", "v")}]
+        kv += [{n: t.clone() for n, t in kv[0].items()}
+               for _ in range(copies_for(2 * bsz * s * h * hd * 2) - 1)]
+        vl = torch.full((bsz,), s, dtype=torch.int32, device=dev)
+        qpos = torch.full((bsz, c), s - 1, dtype=torch.int32, device=dev)
+        got = ua.attention_decode_cuda(q, kv[0], vl, qpos, kv_bits=0, hd=hd)
+        want = ua.attention_decode_torch(q, kv[0], vl, qpos, kv_bits=0,
+                                         hd=hd, block_k=512).float()
+        diff = (got.float() - want).abs()
+        if not (torch.isfinite(got).all() and (
+                diff <= ATTN_TOL + ATTN_BF16_RTOL * want.abs()).all()):
+            raise AssertionError(f"non-causal K3 C={c}: max abs err "
+                                 f"{float(diff.max())}")
+        if not torch.equal(got, ua.attention_decode_cuda(
+                q, kv[0], vl, qpos, kv_bits=0, hd=hd)):
+            raise AssertionError(f"non-causal K3 C={c}: two launches differ")
+        qs = q.transpose(1, 2).contiguous()
+        ks, vs = (kv[0][n].transpose(1, 2).contiguous() for n in ("k", "v"))
+        lib_err = float((sdpa(qs, ks, vs).transpose(1, 2).float()
+                         - want).abs().max())
+        nbytes = 2 * bsz * s * h * hd * 2 + 2 * q.numel() * 2
+        ops = 4 * bsz * c * h * hd * s
+        b, by = bound_ms(nbytes, ops, peaks["hbm"], peaks["bf16"])
+        r = {"name": "attention_decode", "mask": "none (all keys)",
+             "shape": f"B{bsz} S{s} H{h} hd{hd} C{c} kv0",
+             "max_abs_err": float(diff.max()),
+             "sdpa_max_abs_err_vs_plain": lib_err,
+             "ms": time_ms(torch, [lambda cc=cc: ua.attention_decode_cuda(
+                 q, cc, vl, qpos, kv_bits=0, hd=hd) for cc in kv]),
+             "plain_ms": time_ms(torch, [lambda: ua.attention_decode_torch(
+                 q, kv[0], vl, qpos, kv_bits=0, hd=hd, block_k=512)], 3),
+             "bound_ms": b, "bound_by": by,
+             "library_ms": time_ms(torch, [lambda: sdpa(qs, ks, vs)] * 10),
+             "library": "SDPA (no mask, same rows)"}
+        print("multimodal k3 " + json.dumps(r))
+        rows.append(r)
+        del kv
+    return rows
+
+
+def multimodal_k3_rows(torch, peaks, dev, gen):
+    """K3 (and K4 beside it) at qwen2-vl's heads (H12 KVH2 hd128: a GQA
+    group of 6, so every read takes the tile path) at C1 and C16, kv 4 and
+    16, SDPA beside it at kv 16 (``attention_case``); then the non-causal
+    rows.  Prints a ``multimodal k3`` line a row."""
+    rows = []
+    valid_len = torch.tensor([512, 300, 77, 0], dtype=torch.int32,
+                             device=dev)
+    for kv_bits in (16, 4):
+        for r in attention_case(torch, peaks, dev, gen, 4, 512, 12, 2, 128,
+                                kv_bits, valid_len):
+            print("multimodal k3 " + json.dumps(r))
+            rows.append(r)
+    return rows + noncausal_k3_rows(torch, peaks, dev, gen)
+
+
+def reset_kernel_counts():
+    from repro_torch.kernels import cache_write, quant_pack, \
+        ulppack_attention, ulppack_matmul
+
+    for mod in (quant_pack, ulppack_matmul, ulppack_attention, cache_write):
+        mod.reset_counts()
+
+
+def clone_caches(caches):
+    """A deep copy of a cache list (tensors cloned; a ``cross_kv`` pair
+    cloned, None kept)."""
+    def one(v):
+        if isinstance(v, dict):
+            return {k: one(t) for k, t in v.items()}
+        if isinstance(v, tuple):
+            return tuple(one(t) for t in v)
+        return None if v is None else v.clone()
+    return [one(c) for c in caches]
+
+
+def held_check(torch, held, where):
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_allocated() > held + (1 << 30):
+        raise AssertionError(f"{where}: {torch.cuda.memory_allocated() - held}"
+                             f" bytes still held after the phase")
+
+
+def mm_serve(torch, np, dev, smi, c, params, label, launches):
+    """One engine run of ``c`` (``MM_ECFG``, the four serve prompts,
+    MM_NEW greedy tokens each), graphed, then with ``backend='torch'``:
+    tokens equal (gated), every packed linear one fused K2 launch and
+    every attention read one K3 launch, no plain call
+    (``check_writes_on_kernel``).  Prints the ``label`` line: decode ms a
+    pass (wall, replay), the idle share, the graph's device ms by kernel
+    group, param and cache bytes, the serving peak above what the card
+    held before the engine.  Adds the run's launches to ``launches``."""
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    prompts, _ = serve_prompts(np, c)
+    ecfg = EngineConfig(**MM_ECFG)
+    reset_kernel_counts()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(c, params, config=ecfg, device=dev)
+    t0 = time.perf_counter()
+    outs, rows, passes = recorded_serve(np, eng, prompts, MM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    if eng._decode.graph is None:
+        raise AssertionError(f"{label}: the engine captured no graphs")
+    got = check_writes_on_kernel(label)
+    for k, n in got.items():
+        launches[k] += n
+    m, cap = eng.metrics.report(), eng.capacity_report()
+    replay = statistics.median(replay_ms(torch, eng._decode) for _ in
+                               range(5))
+    line = {"card": smi, "config": c.name, "kv_bits": c.quant.kv_bits,
+            "layers": c.num_layers, "d_model": c.d_model,
+            "slots": eng.max_batch, "prefill_chunk": eng.prefill_chunk,
+            "requests": len(outs), "new_tokens": MM_NEW, "wall_s": wall,
+            "decode_passes": eng.metrics.decode_passes,
+            "decode_step_ms_wall": m["decode_step_ms"],
+            "decode_replay_ms": replay,
+            "idle_share": 1 - replay / m["decode_step_ms"],
+            "decode_tok_s": m["decode_tok_s"],
+            "graph_device_ms_by_group": profile_replay(torch, eng._decode),
+            **{f"{k}_launches": n for k, n in got.items()},
+            "step_setup_s": cap["step_setup_s"],
+            "param_bytes": cap["param_bytes"],
+            "cache_bytes": cap["cache_bytes"],
+            "prefix_sharing": cap.get("prefix_sharing", False),
+            "peak_memory_above_held_bytes": peak}
+    if c.is_encoder_decoder and any(x["cross_kv"] is not None
+                                    for x in eng.caches):
+        raise AssertionError(f"{label}: the engine filled cross_kv")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = ServingEngine(c, params, config=ecfg, device=dev, backend="torch")
+    ref_outs, ref_rows, ref_passes = recorded_serve(np, ref, prompts, MM_NEW)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    token_divergences(np, label, ref_outs, ref_rows, outs, rows, strict=True)
+    line.update(tokens_equal=True,
+                max_logit_diff_vs_torch=max_pass_diff(passes, ref_passes))
+    print(label + " " + json.dumps(line))
+
+
+def greedy_decode(torch, np, step, params, caches, first, index0, n,
+                  extra):
+    """``n`` greedy tokens from the logits ``first`` [B, vocab] through
+    ``step`` (an op-by-op decode step) at offsets ``index0 + i``;
+    ``extra(i)`` adds to the i-th batch.  Returns the tokens [B, n] and
+    every step's logits (f32, on the host)."""
+    b = first.shape[0]
+    tok = torch.argmax(first, dim=-1)
+    toks, logits = [tok], []
+    for i in range(n - 1):
+        out, caches = step(params, caches, {"tokens": tok[:, None],
+                                            **extra(i)},
+                           np.full(b, index0 + i, np.int32),
+                           np.ones(b, np.int32))
+        logits.append(out.float().cpu())
+        tok = torch.argmax(out, dim=-1)
+        toks.append(tok)
+    return torch.stack(toks, dim=1).cpu(), logits
+
+
+def vlm_prefix_phase(torch, np, dev, smi, c, params, launches):
+    """The ``vlm prefix`` line, op by op: VLM_ROWS rows of a seeded image
+    (VLM_GRID patches of frontend_dim embeddings) then VLM_TEXT text
+    tokens, their (t, h, w) ids as qwen2-vl numbers them (the image at
+    (0, i, j), the text from max + 1 on); ``make_prefill_step`` (the
+    fake-quant forward over the prefix and the text), then MM_NEW greedy
+    tokens through the packed ``make_decode_step`` carrying their ids in
+    ``positions3``, on the kernels and with ``backend='torch'`` from the
+    same caches: tokens equal (gated), K2 and K3 launched with no plain
+    call."""
+    from repro_torch.launch import steps
+    from repro_torch.serve.prepare import prepare_serving_params
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    n_img = VLM_GRID[0] * VLM_GRID[1] * VLM_GRID[2]
+    t, h, w = torch.meshgrid(*(torch.arange(n, device=dev)
+                               for n in VLM_GRID), indexing="ij")
+    img = torch.stack([t.flatten(), h.flatten(), w.flatten()])
+    nxt = int(img.max()) + 1
+    txt = torch.arange(nxt, nxt + VLM_TEXT, device=dev).expand(3, VLM_TEXT)
+    ids = torch.cat([img, txt], dim=1).to(torch.int32)
+    batch = {"tokens": torch.randint(0, c.vocab_size, (VLM_ROWS, VLM_TEXT),
+                                     generator=gen, device=dev),
+             "embeds": torch.randn((VLM_ROWS, n_img, c.frontend_dim),
+                                   generator=gen, device=dev).bfloat16(),
+             "positions3": ids[:, None].expand(3, VLM_ROWS, -1).contiguous()}
+    rows0 = n_img + VLM_TEXT
+    t0 = time.perf_counter()
+    first, caches = steps.make_prefill_step(c, MM_ECFG["max_len"])(params,
+                                                                   batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    packed = prepare_serving_params(params, c, device=dev)
+    nxt_txt = nxt + VLM_TEXT
+
+    def extra(i):
+        return {"positions3": torch.full((3, VLM_ROWS, 1), nxt_txt + i,
+                                         dtype=torch.int32, device=dev)}
+
+    runs = {}
+    for be in ("auto", "torch"):
+        reset_kernel_counts()
+        step = steps.make_decode_step(c, backend=be)
+        runs[be] = greedy_decode(torch, np, step, packed,
+                                 clone_caches(caches),
+                                 first, rows0, MM_NEW, extra)
+        if be == "auto":
+            got = check_writes_on_kernel("vlm prefix")
+            for k, n in got.items():
+                launches[k] += n
+    if not torch.equal(runs["auto"][0], runs["torch"][0]):
+        raise AssertionError(f"vlm prefix: tokens differ from the 'torch' "
+                             f"backend's: {runs['auto'][0].tolist()} vs "
+                             f"{runs['torch'][0].tolist()}")
+    line = {"card": smi, "config": c.name, "rows": VLM_ROWS,
+            "image": {"grid_thw": VLM_GRID, "embeddings": n_img,
+                      "frontend_dim": c.frontend_dim},
+            "text_tokens": VLM_TEXT, "cache_rows_after_prefill": rows0,
+            "first_text_ids": nxt, "decode_ids_from": nxt_txt,
+            "new_tokens": MM_NEW, "prefill_s": prefill_s,
+            "tokens_equal": True, **got,
+            "max_logit_diff_vs_torch": max_pass_diff(runs["auto"][1],
+                                                     runs["torch"][1])}
+    print("vlm prefix " + json.dumps(line))
+    del packed, caches
+
+
+def check_writes_on_kernel(where) -> dict:
+    """``check_on_kernels``, and every window write since the counts were
+    reset one launch of the write kernel, with no plain call.  Returns
+    the K2, K3 and write launches."""
+    from repro_torch.kernels import cache_write
+
+    out = check_on_kernels(where)
+    n, plain = (cache_write.kernel_launches["cache_write"],
+                cache_write.plain_calls["cache_write"])
+    if not n or plain:
+        raise AssertionError(f"{where}: {n} window-write launches, {plain} "
+                             f"plain calls")
+    return dict(out, cache_write=n)
+
+
+def vlm_phase(torch, np, dev, smi):
+    """qwen2-vl-2b whole (28 layers, seed-0 weights): the ``vlm serve``
+    lines at kv 16 and kv 4 (text-only, every component of the M-RoPE
+    ids at the cache position, as the reference engine serves it), then
+    the ``vlm prefix`` line.  Returns the K2, K3 and cache-write
+    launches."""
+    from repro_torch.models import lm
+
+    launches = dict.fromkeys(("quantized_linear_mma", "attention_decode",
+                              "cache_write"), 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    c = multimodal_config(VLM)
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    for kv in (16, 4):
+        mm_serve(torch, np, dev, smi, multimodal_config(VLM, kv_bits=kv),
+                 params, "vlm serve", launches)
+    vlm_prefix_phase(torch, np, dev, smi, multimodal_config(VLM, kv_bits=4),
+                     params, launches)
+    del params
+    held_check(torch, held, "vlm")
+    print(smi)
+    return launches
+
+
+def encdec_phase(torch, np, dev, smi):
+    """The ``encdec`` lines, seamless-m4t-medium whole (12 encoder + 12
+    decoder layers, seed-0 weights, kv 4), ENC_ROWS rows of ENC_LEN seeded
+    encoder embeddings and an ENC_PROMPT-token prompt: (a) the packed
+    ``lm.encode`` (K2 over ENC_ROWS x ENC_LEN rows, K3 non-causal at C
+    ENC_LEN), timed; (b) the prompt and MM_NEW greedy tokens fed one token
+    a step through ``lm.forward`` with the lockstep index, the encoder
+    states given at step 0 (their cross K/V cached then, read through K3
+    after); (c) ``make_prefill_step`` with ``enc_embeds``, then MM_NEW
+    greedy tokens through the packed decode step over the cached cross
+    K/V; (d) the engine, decoder-only as the reference's (``mm_serve``).
+    (b) and (c) on the kernels and with ``backend='torch'``: tokens equal
+    (gated), K2 and K3 launched with no plain call.  Prints the encoder's
+    ms, a decode step's ms and its device ms in the ``cross_attention``
+    range.  Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.serve.prepare import prepare_serving_params
+
+    launches = dict.fromkeys(("quantized_linear_mma", "attention_decode",
+                              "cache_write"), 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    c = multimodal_config(ENCDEC, kv_bits=4)
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    enc = torch.randn((ENC_ROWS, ENC_LEN, c.frontend_dim), generator=gen,
+                      device=dev).bfloat16()
+    prompt = torch.randint(0, c.vocab_size, (ENC_ROWS, ENC_PROMPT),
+                           generator=gen, device=dev)
+    packed = prepare_serving_params(params, c, device=dev)
+    n_steps = ENC_PROMPT + MM_NEW
+    line = {"card": smi, "config": c.name, "kv_bits": c.quant.kv_bits,
+            "encoder_layers": c.encoder_layers, "layers": c.num_layers,
+            "d_model": c.d_model, "rows": ENC_ROWS, "enc_len": ENC_LEN,
+            "prompt": ENC_PROMPT, "new_tokens": MM_NEW}
+
+    def token_by_token(be):
+        enc_out = lm.encode(packed, c, enc, quant_mode="packed", backend=be)
+        caches = lm.init_caches(c, ENC_ROWS, n_steps, device=dev)
+        tok, toks, logits = prompt[:, :1], [], []
+        for t in range(n_steps):
+            out, _, caches = lm.forward(
+                packed, c, {"tokens": tok, "positions": torch.full(
+                    (ENC_ROWS, 1), t, dtype=torch.int32, device=dev)},
+                quant_mode="packed", caches=caches, cache_index=t,
+                enc_out=enc_out if t == 0 else None, backend=be)
+            nxt = torch.argmax(out[:, -1], dim=-1)[:, None]
+            if t >= ENC_PROMPT - 1:
+                toks.append(nxt)
+                logits.append(out[:, -1].float().cpu())
+            tok = prompt[:, t + 1:t + 2] if t + 1 < ENC_PROMPT else nxt
+        return torch.cat(toks[:MM_NEW], dim=1).cpu(), logits, enc_out, caches
+
+    # (a) + (b)
+    runs = {}
+    for be in ("auto", "torch"):
+        reset_kernel_counts()
+        runs[be] = token_by_token(be)
+        if be == "auto":
+            got = check_writes_on_kernel("encdec (b)")
+            for k, n in got.items():
+                launches[k] += n
+            line["b_launches"] = got
+            enc_out, caches = runs[be][2], runs[be][3]
+            line["encoder_ms"] = time_eager_ms(torch, lambda: lm.encode(
+                packed, c, enc, quant_mode="packed"), reps=5)
+            step_batch = {"tokens": prompt[:, :1], "positions": torch.full(
+                (ENC_ROWS, 1), n_steps - 1, dtype=torch.int32, device=dev)}
+
+            def one_step():
+                # a step at the last row again (it rewrites that row)
+                return lm.forward(packed, c, step_batch, quant_mode="packed",
+                                  caches=caches, cache_index=n_steps - 1)
+            line["decode_step_ms"] = time_eager_ms(torch, one_step, reps=10)
+            one_step()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                one_step()
+                lm.encode(packed, c, enc, quant_mode="packed")
+                torch.cuda.synchronize()
+            cpu = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU]
+            for name in ("cross_attention", "encoder"):
+                line[f"{name}_range_device_ms"] = sum(
+                    e.device_time_total for e in cpu if e.key == name) / 1e3
+            del enc_out, caches
+        runs[be] = runs[be][:2]
+    if not torch.equal(runs["auto"][0], runs["torch"][0]):
+        raise AssertionError(f"encdec (b): tokens differ from the 'torch' "
+                             f"backend's")
+    line["b_tokens_equal"] = True
+    line["b_max_logit_diff_vs_torch"] = max_pass_diff(runs["auto"][1],
+                                                      runs["torch"][1])
+    # (c)
+    t0 = time.perf_counter()
+    first, caches = steps.make_prefill_step(c, n_steps)(
+        params, {"tokens": prompt, "enc_embeds": enc})
+    torch.cuda.synchronize()
+    line["c_prefill_s"] = time.perf_counter() - t0
+    if any(x["cross_kv"] is None for x in caches):
+        raise AssertionError("encdec (c): the prefill stored no cross K/V")
+    runs = {}
+    for be in ("auto", "torch"):
+        reset_kernel_counts()
+        runs[be] = greedy_decode(torch, np,
+                                 steps.make_decode_step(c, backend=be),
+                                 packed, clone_caches(caches), first,
+                                 ENC_PROMPT, MM_NEW, lambda i: {})
+        if be == "auto":
+            got = check_writes_on_kernel("encdec (c)")
+            for k, n in got.items():
+                launches[k] += n
+            line["c_launches"] = got
+    if not torch.equal(runs["auto"][0], runs["torch"][0]):
+        raise AssertionError("encdec (c): tokens differ from the 'torch' "
+                             "backend's")
+    line["c_tokens_equal"] = True
+    line["c_max_logit_diff_vs_torch"] = max_pass_diff(runs["auto"][1],
+                                                      runs["torch"][1])
+    del caches, packed, runs
+    print("encdec " + json.dumps(line))
+    # (d)
+    mm_serve(torch, np, dev, smi, c, params, "encdec serve", launches)
+    del params, enc
+    held_check(torch, held, "encdec")
+    print(smi)
+    return launches
+
+
+def multimodal_phase(torch, np, dev, peaks, smi):
+    """M-RoPE, the vision prefix and the encoder-decoder stack: the
+    ``multimodal k2`` and ``multimodal k3`` rows, the ``vlm serve`` /
+    ``vlm prefix`` lines of qwen2-vl-2b and the ``encdec`` lines of
+    seamless-m4t-medium, both whole.  Returns their launches."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    multimodal_k2_rows(torch, peaks, dev, gen)
+    multimodal_k3_rows(torch, peaks, dev, gen)
+    launches = vlm_phase(torch, np, dev, smi)
+    for k, n in encdec_phase(torch, np, dev, smi).items():
+        launches[k] += n
+    print(f"multimodal launches {launches} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(smi)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4364,11 +4876,14 @@ def main() -> int:
         k2_sweep(torch, torch.device("cuda"))
         print(smi)
         return 0
-    only = [f for f in ("--moe", "--recurrent") if f in sys.argv[1:]]
+    only = [f for f in ("--moe", "--recurrent", "--multimodal")
+            if f in sys.argv[1:]]
     if "--moe" in only:
         moe_only(torch, np, smi)
     if "--recurrent" in only:
         recurrent_phase(torch, np, torch.device("cuda"), peaks, smi)
+    if "--multimodal" in only:
+        multimodal_phase(torch, np, torch.device("cuda"), peaks, smi)
     if only:
         return 0
     for n, p in paths.items():
@@ -4451,6 +4966,14 @@ def main() -> int:
     # reduced engines; their packed linears add to K2's launches, jamba's
     # attention layer to K3's and the window write's
     for k, n in recurrent_phase(torch, np, dev, peaks, smi).items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+    # qwen2-vl-2b and seamless-m4t-medium whole: the K2 rows at their
+    # shapes, K3 at a GQA group of 6 and without a causal mask, both
+    # served graphed, the image prefix and the encoder op by op; their
+    # packed linears add to K2's launches, their reads to K3's, their
+    # cache writes to the window write's
+    for k, n in multimodal_phase(torch, np, dev, peaks, smi).items():
         launches[k] += n
     torch.cuda.empty_cache()
     launches.update(linear_phase(torch, dev))

@@ -144,18 +144,22 @@ def make_train_state(params, adamw_cfg: adamw.AdamWConfig | None = None,
 def make_prefill_step(cfg, max_len: int):
     """``prefill_step(params, batch) -> (last logits [B, vocab], caches)``:
     fresh caches of ``max_len`` rows in the compute dtype on the params'
-    device, filled with the prompt's K/V (rows 0 .. S-1) by the fake-quant
-    forward ('qat' when the config quantizes), under no_grad."""
+    device, filled with the prompt's K/V (rows 0 .. S-1, an image prefix's
+    first) by the fake-quant forward ('qat' when the config quantizes),
+    under no_grad.  The whole batch goes through: ``tokens`` and, where
+    given, ``embeds``, ``positions``, ``positions3`` and ``enc_embeds``
+    (an encoder-decoder's caches then hold its cross K/V)."""
     qmode = quant_mode_for(cfg, "prefill")
 
     def prefill_step(params, batch):
         dev = params["embed"]["table"].device
-        tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.int64)
-        caches = lm.init_caches(cfg, tokens.shape[0], max_len,
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        batch["tokens"] = batch["tokens"].to(torch.int64)
+        caches = lm.init_caches(cfg, batch["tokens"].shape[0], max_len,
                                 dtype=common.dtype_of(cfg.compute_dtype),
                                 device=dev)
         with torch.no_grad():
-            logits, _, caches = lm.forward(params, cfg, {"tokens": tokens},
+            logits, _, caches = lm.forward(params, cfg, batch,
                                            quant_mode=qmode, caches=caches)
         return logits[:, -1], caches
 
@@ -181,24 +185,37 @@ def _inputs(batch, index, valid, block_tables, dev):
     return tokens, idx, vld, bt
 
 
-def _forward(cfg, qmode, backend, params, caches, tokens, idx, vld, bt):
+def _positions3(batch, dev):
+    """A batch's M-RoPE ids [3, B, w] as an int32 device tensor, or None."""
+    p3 = batch.get("positions3")
+    return None if p3 is None else torch.as_tensor(
+        p3, dtype=torch.int32).to(dev)
+
+
+def _forward(cfg, qmode, backend, params, caches, tokens, idx, vld, bt,
+             positions3=None):
     """The body of both steps on device tensors: positions and destination
     rows (ring slots for a sliding-window config; none for an
     attention-free stack) on the device, then the forward; returns logits
-    [B, w, vocab].  Which cache read the forward takes
+    [B, w, vocab].  An M-RoPE config without ``positions3`` gets every
+    component at the cache position (t = h = w), as the reference engine
+    feeds it.  Which cache read the forward takes
     (``attention.use_fused_decode``, with the kill-switch) is fixed when
     the body runs, so a captured graph keeps it."""
     b, w = tokens.shape
     pos = idx[:, None] + torch.arange(w, dtype=torch.int32,
                                       device=tokens.device)
+    batch = {"tokens": tokens, "positions": pos}
+    if cfg.mrope:
+        batch["positions3"] = (pos[None].expand(3, b, w) if positions3 is None
+                               else positions3)
     kv = lm.first_attn_cache(caches)
     dest = None if kv is None else attention.window(
         idx, vld, bt, b, w, kv["k"].shape, tokens.device,
         sliding_window=cfg.sliding_window)[2]
     logits, _, _ = lm.forward(
-        params, cfg, {"tokens": tokens, "positions": pos}, quant_mode=qmode,
-        caches=caches, cache_index=idx, cache_valid=vld, dest=dest,
-        block_tables=bt, backend=backend)
+        params, cfg, batch, quant_mode=qmode, caches=caches, cache_index=idx,
+        cache_valid=vld, dest=dest, block_tables=bt, backend=backend)
     return logits
 
 
@@ -235,14 +252,16 @@ def make_decode_step(cfg, *, backend: str = "auto"):
     ``index`` [B] (or a scalar) is each slot's position; ``valid`` [B] is 1
     for a live slot and 0 for a dead one (no cache write, output ignored);
     ``block_tables`` [B, pages_per_slot] int32 when the caches are paged
-    pools.  Returns (logits [B, vocab], caches)."""
+    pools; ``batch["positions3"]`` [3, B, 1], when given, an M-RoPE
+    config's ids.  Returns (logits [B, vocab], caches)."""
     qmode = quant_mode_for(cfg, "decode")
 
     def decode_step(params, caches, batch, index, valid=None,
                     block_tables=None):
         dev = params["embed"]["table"].device
         logits = _forward(cfg, qmode, backend, params, caches,
-                          *_inputs(batch, index, valid, block_tables, dev))
+                          *_inputs(batch, index, valid, block_tables, dev),
+                          _positions3(batch, dev))
         return logits[:, -1], caches
 
     return decode_step
@@ -254,16 +273,17 @@ def make_prefill_chunk_step(cfg, *, backend: str = "auto"):
 
     ``index`` [B] is each slot's write offset; ``valid`` [B] how many of
     the window's tokens are real (1 lets a decode-phase slot ride along
-    with its pending token, 0 = dead slot); ``block_tables`` as for the
-    decode step.  Returns (logits of each row's last valid token
-    [B, vocab], caches)."""
+    with its pending token, 0 = dead slot); ``block_tables`` and
+    ``positions3`` as for the decode step.  Returns (logits of each row's
+    last valid token [B, vocab], caches)."""
     qmode = quant_mode_for(cfg, "prefill_chunk")
 
     def prefill_chunk_step(params, caches, batch, index, valid,
                            block_tables=None):
         dev = params["embed"]["table"].device
         inputs = _inputs(batch, index, valid, block_tables, dev)
-        logits = _forward(cfg, qmode, backend, params, caches, *inputs)
+        logits = _forward(cfg, qmode, backend, params, caches, *inputs,
+                          _positions3(batch, dev))
         return _last_valid(logits, inputs[2]), caches
 
     return prefill_chunk_step

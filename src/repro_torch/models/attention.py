@@ -1,5 +1,6 @@
-"""Self-attention over a contiguous or paged, possibly sub-byte KV cache
-(counterpart of ``repro/models/attention.py``).
+"""Attention over a contiguous or paged, possibly sub-byte KV cache, with
+RoPE or M-RoPE, a non-causal mode and cross-attention (counterpart of
+``repro/models/attention.py``).
 
 Projections are quantizable Dense layers (the paper's technique applies to
 them).  The cache stores K/V at ``cfg.quant.kv_bits`` precision: bf16 (0 or
@@ -29,15 +30,20 @@ Reads of a written cache take one of two paths, chosen as the reference's
     plain PyTorch is its port.
 
 Cache-free serving forwards go through K3 too, unless the config is
-windowed (K3 has no window) or the kill-switch is set.  Training forwards
+windowed (K3 has no window) or the kill-switch is set: causal, or with
+every key admitted (the encoder's non-causal self-attention, and
+cross-attention over an encoder's K/V, :func:`precompute_cross_kv`) by
+giving every query the last key's position.  Training forwards
 (``quant_mode='qat'``, or any forward autograd records) and the fake-quant
 prefill that fills a fresh cache take :func:`chunked_attention` over the
 raw K/V: the reference's q-chunked exact softmax in plain differentiable
 ops (f32 accumulation, per-chunk recomputation in the backward), since K3
 has no gradient.
 
-Cross-attention and M-RoPE wait for a later slice (ROADMAP.md Queue 1
-items 13e-13f).
+Self-attention rotates q and k by RoPE at ``positions`` or, for an M-RoPE
+config given ``positions3`` [3, B, S] (t, h, w ids), by
+``common.apply_mrope``; ``positions`` stays what the mask, the cache rows
+and K3's query positions read.  Cross-attention rotates neither.
 """
 
 from __future__ import annotations
@@ -51,19 +57,6 @@ from repro_torch.kernels import cache_write as cache_write_lib
 from repro_torch.kernels import ulppack_attention
 from repro_torch.models import common
 from repro_torch.models.common import dense_apply, dense_init
-
-
-def check_supported(cfg):
-    """Raise for attention flavours this slice does not serve."""
-    missing = []
-    if cfg.mrope:
-        missing.append("M-RoPE")
-    if cfg.is_encoder_decoder:
-        missing.append("cross-attention (encoder-decoder)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are still to be ported "
-            f"(ROADMAP.md Queue 1 items 13e-13f)")
 
 
 def cache_size(cfg, max_len: int) -> int:
@@ -121,7 +114,6 @@ def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
       4 / 2  -- int32 words (``packing.pack_words`` along head_dim,
                 ``32 // kv_bits`` values per word) + the same scales.
     """
-    check_supported(cfg)
     return _cache_leaves(cfg, (batch, cache_size(cfg, max_len)), dtype,
                          device)
 
@@ -139,7 +131,6 @@ def init_paged_kv_cache(cfg, num_pages, page_size, dtype=torch.bfloat16,
         raise ValueError(
             "paged KV cache does not support sliding-window ring caches; "
             "serve sliding-window archs unpaged")
-    check_supported(cfg)
     return _cache_leaves(cfg, (num_pages, page_size), dtype, device)
 
 
@@ -432,6 +423,15 @@ def _causal(positions, sk, window: int = 0):
     return _position_mask(positions[:, :sk], window)
 
 
+def _all_keys(sk: int):
+    """The mask that admits every one of ``sk`` keys (the reference's
+    non-causal and cross-attention masks, without a window)."""
+    def mask_fn(qpos):
+        return torch.ones((qpos.shape[0], qpos.shape[1], sk),
+                          dtype=torch.bool, device=qpos.device)
+    return mask_fn
+
+
 def _position_mask(kv_pos, window: int):
     """The mask over keys at positions ``kv_pos`` ([Sk] shared, [B, Sk] per
     row; -1 an empty slot): ``kp <= qpos & kp >= 0``, and ``qpos - kp <
@@ -475,9 +475,43 @@ def legacy_read(cfg, q, cache, kv_pos, positions, dtype, *,
                                  chunk)
 
 
+def precompute_cross_kv(p, cfg, enc_out, *, quant_mode="none",
+                        backend="auto"):
+    """The encoder states' K and V [B, S_enc, KVH, hd] in the compute
+    dtype, projected once by a cross layer's (packed) k and v and reused by
+    every decoder call (the reference's ``precompute_cross_kv``)."""
+    b = enc_out.shape[0]
+    hd = cfg.resolved_head_dim
+    qm = dict(qcfg=cfg.quant, quant_mode=quant_mode,
+              compute_dtype=common.dtype_of(cfg.compute_dtype),
+              backend=backend)
+    k = dense_apply(p["k"], enc_out, **qm).reshape(b, -1, cfg.num_kv_heads,
+                                                   hd)
+    v = dense_apply(p["v"], enc_out, **qm).reshape(b, -1, cfg.num_kv_heads,
+                                                   hd)
+    return k, v
+
+
+def _read_all(q, k, v, positions, chunk, train, backend):
+    """Cache-free attention of q over every key of k / v: through K3 with
+    ``valid_len`` the key count and every query at the last key's
+    position, or in a training forward (or under the kill-switch) through
+    :func:`chunked_attention` under the all-true mask."""
+    b, sq, _, hd = q.shape
+    sk = k.shape[1]
+    if train or not ulppack_attention.enabled():
+        return chunked_attention(q, k, v, _all_keys(sk), positions, chunk)
+    return ulppack_attention.fused_decode_attention(
+        q, {"k": k, "v": v},
+        torch.full((b,), sk, dtype=torch.int32, device=q.device),
+        torch.full((b, sq), sk - 1, dtype=torch.int32, device=q.device),
+        kv_bits=0, hd=hd, backend=backend)
+
+
 def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                     cache_index=None, cache_valid=None, dest=None,
-                    block_tables=None, backend="auto"):
+                    block_tables=None, backend="auto", causal=True,
+                    positions3=None, cross_kv=None):
     """Attention forward; returns (out, cache).
 
       * cache=None: causal (and windowed) self-attention over the window's
@@ -505,8 +539,13 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
         read walks the pool through the table (K4), so the gathered view
         never materializes, and the legacy read gathers it per q-chunk.
         Windowed configs are never paged.
+      * ``causal=False`` (the encoder): cache-free self-attention in which
+        every query sees every key of the window (refused for a windowed
+        config, which no encoder has).
+      * ``cross_kv`` (k, v) [B, S_enc, KVH, hd] (:func:`precompute_cross_kv`):
+        cross-attention -- q is not rotated, every key is seen, no cache is
+        read or written.
     """
-    check_supported(cfg)
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
     win = cfg.sliding_window
@@ -514,17 +553,34 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
     qm = dict(qcfg=cfg.quant, quant_mode=quant_mode, compute_dtype=cd,
               backend=backend)
     q = dense_apply(p["q"], x, **qm).reshape(b, sq, cfg.num_heads, hd)
-    k = dense_apply(p["k"], x, **qm).reshape(b, sq, cfg.num_kv_heads, hd)
-    v = dense_apply(p["v"], x, **qm).reshape(b, sq, cfg.num_kv_heads, hd)
     positions = torch.as_tensor(positions, dtype=torch.int32,
                                 device=x.device)
     if positions.dim() == 1:
         positions = positions[None, :].expand(b, sq)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
-
     train = quant_mode == "qat" or (torch.is_grad_enabled()
                                      and q.requires_grad)
+    if cross_kv is not None:
+        k, v = cross_kv
+        chunk = autotune.attention_chunk_for(
+            b, sq, k.shape[1], cfg.num_heads, cfg.num_kv_heads, hd,
+            int(cfg.quant.kv_bits))
+        out = _read_all(q, k, v, positions, chunk, train, backend)
+        out = dense_apply(p["o"], out.reshape(b, sq, cfg.num_heads * hd),
+                          **qm)
+        return out, cache
+    k = dense_apply(p["k"], x, **qm).reshape(b, sq, cfg.num_kv_heads, hd)
+    v = dense_apply(p["v"], x, **qm).reshape(b, sq, cfg.num_kv_heads, hd)
+    if cfg.mrope and positions3 is not None:
+        positions3 = torch.as_tensor(positions3, dtype=torch.int32,
+                                     device=x.device)
+        q = common.apply_mrope(q, positions3, cfg.mrope_sections,
+                               cfg.rope_theta)
+        k = common.apply_mrope(k, positions3, cfg.mrope_sections,
+                               cfg.rope_theta)
+    else:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+
     if cache is None or cache_index is None:
         # the q-chunk of chunked_attention: the tuned one for this
         # signature, Q_CHUNK on a miss (the reference's
@@ -532,7 +588,13 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
         chunk = autotune.attention_chunk_for(
             b, sq, sq, cfg.num_heads, cfg.num_kv_heads, hd,
             int(cfg.quant.kv_bits))
-    if cache is not None and cache_index is None:
+    if cache is None and not causal:
+        if win:
+            raise NotImplementedError(
+                "a non-causal sliding-window forward: no config has a "
+                "windowed encoder")
+        out = _read_all(q, k, v, positions, chunk, train, backend)
+    elif cache is not None and cache_index is None:
         # the fake-quant prefill: the window fills a fresh cache, and the
         # query attends over the raw window
         rows = prefill_dest_rows(b, sq, cache["k"].shape[1], bool(win),

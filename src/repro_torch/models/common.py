@@ -1,5 +1,5 @@
 """Functional NN substrate: Dense (float / packed-integer), norms, embedding,
-RoPE (counterpart of ``repro/models/common.py``).
+RoPE and M-RoPE (counterpart of ``repro/models/common.py``).
 
 Parameters are plain nested dicts of tensors; every layer is an (init,
 apply) pair, with the reference package's layouts, so trees carry across
@@ -190,6 +190,21 @@ def rmsnorm_apply(p, x, eps=1e-5):
     return (y * p["scale"].to(torch.float32)).to(dt)
 
 
+def layernorm_init(d: int, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, eps=1e-5):
+    """LayerNorm in f32 (population variance), back in x's dtype."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
 def embedding_init(generator: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32, device="cpu"):
     table = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
@@ -209,7 +224,7 @@ def embedding_attend(p, x):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
@@ -224,11 +239,34 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
 
 def apply_rope(x, positions, theta=10000.0):
     """x: [B, S, H, hd]; positions: [B, S] int."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                   # [hd/2]
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # [hd/2]
     angles = positions[..., None].to(torch.float32) * freqs   # [B, S, hd/2]
+    return _rotate(x, angles)
+
+
+def _rotate(x, angles):
+    """x [B, S, H, hd] rotated by ``angles`` [B, S, hd/2] (f32)."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, sections, theta=10000.0):
+    """Multimodal RoPE (qwen2-vl): ``positions3`` [3, B, S] holds the (t,
+    h, w) ids; the hd/2 frequency channels are split between the three
+    components by ``sections``, each rotated as :func:`apply_rope` rotates.
+    With t = h = w the result equals :func:`apply_rope`'s bit for bit (the
+    same f32 products, cosines and sines)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # [hd/2]
+    # channel i takes its component's ids: fixed shapes, no host copy, so
+    # a CUDA graph can capture it
+    pos = torch.cat([positions3[c:c + 1].expand(n, *positions3.shape[1:])
+                     for c, n in enumerate(sections)])          # [hd/2, B, S]
+    angles = pos.permute(1, 2, 0).to(torch.float32) * freqs    # [B, S, hd/2]
+    return _rotate(x, angles)

@@ -193,10 +193,14 @@ class ServingEngine:
             self.cache_bytes_per_slot = self.pages_per_slot * self.page_bytes
             max_batch = config.max_batch
             # a shared prefix's pages reconstruct every layer's state only
-            # in a pure-attention stack: recurrent layers carry unpaged
-            # per-slot state, so their prompts are never skipped
-            self._share = config.prefix_sharing and all(
-                cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+            # in a pure-attention decoder stack: recurrent layers carry
+            # unpaged per-slot state, and cross-attention keys off the
+            # encoder's output, not the prompt, so their prompts are never
+            # skipped
+            self._share = (config.prefix_sharing
+                           and not cfg.is_encoder_decoder
+                           and all(cfg.layer_kind(i) == "attn"
+                                   for i in range(cfg.num_layers)))
         else:
             max_batch = config.slots_for(self.cache_bytes_per_slot)
         self.max_batch = max_batch
@@ -333,7 +337,10 @@ class ServingEngine:
         """Restore the slot's rows of every recurrent state to the fresh
         values, in place (the steps' graphs hold the cache pointers).
         Attention rows need no reset: validity is re-derived per call from
-        the slot offsets, so stale rows stay masked until overwritten."""
+        the slot offsets, so stale rows stay masked until overwritten.  An
+        encoder-decoder's ``cross_kv`` (None: the engine serves it
+        decoder-only, as the reference's does) is not a recurrent kind and
+        is left alone."""
         for layer in self.caches:
             for kind, sub in layer.items():
                 if kind in self._fresh:
@@ -800,6 +807,8 @@ class ServingEngine:
                 f"{self.page_size}")
         for mine, theirs in zip(self.caches, caches):
             for kind, sub in mine.items():
+                if sub is None:     # an encoder-decoder's unfilled cross_kv
+                    continue
                 for name, buf in sub.items():
                     buf.copy_(torch.as_tensor(theirs[kind][name]).to(buf))
         self.pool = pages_lib.PagePool.from_meta(pool_meta)

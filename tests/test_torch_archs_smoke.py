@@ -1,9 +1,11 @@
 """The port's counterpart of ``tests/test_archs_smoke.py``: every LM arch
-``repro_torch.models.lm.check_supported`` accepts, at reduced size and
-f32, from the reference's own init carried across the bridge -- the QAT
-forward's logits within 1e-4 of the reference's and its aux loss within
-1e-5 relative, then one backward whose loss and gradients are finite.
-The archs still refused are refused under ROADMAP Queue 1 items 13e-13f.
+``repro_torch.models.lm.check_supported`` accepts (all ten LM configs;
+the CNN runs through ``models/cnn.py``), at reduced size and f32, from the
+reference's own init carried across the bridge, with the batches of
+``tests/test_archs_smoke.py::make_batch`` (qwen2-vl's image prefix and
+(t, h, w) ids, seamless's encoder embeddings) -- the QAT forward's logits
+within 1e-4 of the reference's and its aux loss within 1e-5 relative,
+then one backward whose loss and gradients are finite.
 """
 
 import pytest
@@ -52,12 +54,35 @@ ARCHS = [n for n in tconfigs.ARCH_NAMES if _supported(n)]
 def test_supported_archs():
     assert set(ARCHS) == {"stablelm-1.6b", "qwen1.5-32b", "granite-3-8b",
                           "minicpm-2b", "mixtral-8x7b", "mixtral-8x22b",
-                          "jamba-1.5-large-398b", "xlstm-1.3b"}
-    refused = set(tconfigs.ARCH_NAMES) - set(ARCHS) - {"sparq-cnn"}
-    assert refused == {"qwen2-vl-2b", "seamless-m4t-medium"}
-    for name in refused:
-        with pytest.raises(NotImplementedError, match="items 13e-13f"):
-            tlm.check_supported(tconfigs.get_config(name, reduced=True))
+                          "jamba-1.5-large-398b", "xlstm-1.3b",
+                          "qwen2-vl-2b", "seamless-m4t-medium"}
+    assert set(tconfigs.ARCH_NAMES) == set(ARCHS)
+    with pytest.raises(NotImplementedError, match="CNN"):
+        tlm.check_supported(tconfigs.get_config("sparq-cnn", reduced=True))
+
+
+def make_batch(cfg, rng, b=2, s=16):
+    """``tests/test_archs_smoke.py::make_batch`` in numpy: tokens and
+    labels, a vision config's 4-token image prefix (``embeds``, positions
+    over the whole sequence, ``positions3`` with t = h = w, the prefix's
+    labels -1), an audio config's 8 encoder embeddings."""
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)}
+    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    if cfg.frontend == "vision":
+        si = 4
+        batch["embeds"] = rng.normal(size=(b, si, cfg.frontend_dim)).astype(
+            np.float32)
+        total = si + s
+        pos = np.broadcast_to(np.arange(total, dtype=np.int32)[None],
+                              (b, total)).copy()
+        batch["positions"] = pos
+        batch["positions3"] = np.broadcast_to(pos[None], (3, b, total)).copy()
+        labels = np.pad(labels, ((0, 0), (si, 0)), constant_values=-1)
+    if cfg.frontend == "audio":
+        batch["enc_embeds"] = rng.normal(size=(b, 8, cfg.frontend_dim)) \
+            .astype(np.float32)
+    return batch, labels
 
 
 def _setup(name, seed):
@@ -65,24 +90,23 @@ def _setup(name, seed):
     jcfg = jconfigs.get_config(name, reduced=True).replace(**kw)
     tcfg = tconfigs.get_config(name, reduced=True).replace(**kw)
     jp = jlm.init_params(jax.random.PRNGKey(seed), jcfg)
-    rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
-    labels = rng.integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
+    batch, labels = make_batch(jcfg, np.random.default_rng(seed))
     return jcfg, tcfg, jp, bridge.from_repro(jax.device_get(jp),
-                                             device="cpu"), tokens, labels
+                                             device="cpu"), batch, labels
 
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_forward_matches_reference(name):
-    jcfg, tcfg, jp, tp, tokens, labels = _setup(name, 0)
+    jcfg, tcfg, jp, tp, batch, labels = _setup(name, 0)
     with jax.disable_jit():
-        jl, jaux, _ = jlm.forward(jp, jcfg, {"tokens": jnp.asarray(tokens)},
+        jl, jaux, _ = jlm.forward(jp, jcfg, {k: jnp.asarray(v)
+                                            for k, v in batch.items()},
                                   quant_mode="qat")
     with torch.no_grad():
-        tl, taux, _ = tlm.forward(tp, tcfg,
-                                  {"tokens": torch.from_numpy(tokens)},
+        tl, taux, _ = tlm.forward(tp, tcfg, {k: torch.from_numpy(v)
+                                            for k, v in batch.items()},
                                   quant_mode="qat")
-    assert tuple(tl.shape) == (2, 16, tcfg.padded_vocab)
+    assert tuple(tl.shape) == (2, labels.shape[1], tcfg.padded_vocab)
     assert torch.isfinite(tl).all()
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                atol=1e-4)
@@ -94,12 +118,13 @@ def test_forward_matches_reference(name):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_one_grad_step_no_nans(name):
-    _, tcfg, _, tp, tokens, labels = _setup(name, 1)
+    _, tcfg, _, tp, batch, labels = _setup(name, 1)
     leaves = [p.requires_grad_(True) if p.is_floating_point() else p
               for p in tree.leaves(tp)]
     params = tree.unflatten(tp, leaves)
     logits, aux, _ = tlm.forward(params, tcfg,
-                                 {"tokens": torch.from_numpy(tokens)},
+                                 {k: torch.from_numpy(v)
+                                  for k, v in batch.items()},
                                  quant_mode="qat")
     loss, _ = tlm.loss_fn(logits, labels, aux)
     assert torch.isfinite(loss)

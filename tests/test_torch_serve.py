@@ -306,10 +306,14 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
             "attn"]["k"].device.type == "cpu"
     with pytest.raises(ValueError, match="requires packed=True"):
         tengine.EngineConfig(autotune=True, packed=False)
-    with pytest.raises(NotImplementedError, match="items 13e-13f"):
-        tengine.ServingEngine(tconfigs.get_config("qwen2-vl-2b",
-                                                  reduced=True), tp,
-                              device="cpu")
+    # the VLM builds an engine too, and defaults to the card likewise
+    vcfg = tconfigs.get_config("qwen2-vl-2b", reduced=True)
+    vp = tlm.init_params(vcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tengine.ServingEngine(vcfg, vp)
+    eng = tengine.ServingEngine(vcfg, vp, device="cpu", config=tengine.
+                                EngineConfig(max_batch=2, max_len=MAX_LEN))
+    assert eng.max_batch == 2 and "frontend_proj" in eng.params
 
 
 def _imports(path):

@@ -162,9 +162,27 @@ def test_main_serves_reduced_xlstm(capsys):
 
 
 def test_unsupported_arch_raises_through_check_supported():
-    with pytest.raises(NotImplementedError, match="items 13e-13f"):
-        tserve.main(["--arch", "qwen2-vl-2b", "--reduced", "--device",
-                     "cpu"])
+    """Every LM config serves; the CNN, which is no LM, is refused."""
+    with pytest.raises(NotImplementedError, match="CNN"):
+        tserve.main(["--arch", "sparq-cnn", "--reduced", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-medium"])
+def test_main_serves_reduced_vlm_and_encdec(arch, capsys):
+    """qwen2-vl text-only (t = h = w) and seamless decoder-only, as the
+    reference CLI serves them: plans for the packed leaves (seamless's
+    encoder and cross sublayers included), none for the float frontend
+    projection."""
+    rep = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--requests", "2", "--max-new-tokens", "3",
+                       "--metrics"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "2 requests, 6 generated tokens"
+    layers = {p["layer"].split("/")[0] for p in rep["plans"]}
+    assert not any("frontend_proj" in p["layer"] for p in rep["plans"])
+    if arch == "seamless-m4t-medium":
+        assert "encoder" in layers
+        assert any("/cross/" in p["layer"] for p in rep["plans"])
 
 
 def test_default_device_is_the_card(monkeypatch):
