@@ -241,12 +241,42 @@ toolkit:
    ``recurrent reduced`` lines: reduced jamba contiguous and paged and
    reduced xlstm, graphed against ``'torch'``, tokens equal (gated).
 
+12. The replica fleet and tensor-parallel serving (after the multimodal
+   lines).  ``fleet k2``: the fused K2 at stablelm's shapes split over two
+   shards (q/k/v/o 2048 -> 1024, gate/up 2048 -> 2816, down 5632 ->
+   1024) at 4 and 64 rows, bit-equal (gated) and timed.  ``fleet k3``:
+   K3 and K4 at one shard's heads (stablelm's H16 KVH16 hd64 at kv 4 and
+   2, qwen2-vl's H6 KVH1 hd128 at kv 4) within ATTN_TOL of their plain
+   versions, K4 bit-equal to K3, and the window write at both shards'
+   heads bit-equal to its plain twin (each gated), timed.  ``fleet
+   router``: full-width stablelm (kv 4, ``EngineConfig(max_batch=4,
+   max_len=512, prefill_chunk=16)``) behind ``Router(replicas=2)``, two
+   graphed engines, eight seeded requests (prompts 17-100 tokens, 16 new,
+   two sampled at a seeded temperature, two in one session): tokens equal
+   to one engine serving them (gated), placements, spillover, the summed
+   per-replica decode tok/s beside the wall-clock tok/s, each replica's
+   build and capture seconds and memory.  ``fleet paged``: a paged fleet
+   serves the shared-prefix prompt on replica 0, drains it to a scratch
+   checkpoint and restores it: its cached prefix pages survive, it
+   prefix-hits, its tokens equal a never-drained engine's and the drain
+   frees the replica's memory (each gated); bytes written, drain, save,
+   read and re-capture seconds.  ``fleet shard``: the engine with two
+   shards on the card (``ServingMesh([[cuda:0, cuda:0]])``) against one
+   shard, stablelm at kv 4, kv 2 and paged kv 4 and qwen2-vl-2b (one kv
+   head a shard) at kv 4: tokens and every decode pass's logits equal
+   (gated: the largest decode logit difference 0.0, since the split is
+   exact), each decode graph's K2 and read launches and device
+   ms, the shards' K2 shapes and kv heads, the param bytes a shard
+   against the one-shard total (gated: each shard its half of the split
+   leaves plus the whole ones).
+
 ``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
 tensor-core K2's split sweep (``k2_sweep``, its lanes and its fused
 route), the data the planner's split model was fitted to.
 ``python3 chip_smoke.py --moe`` builds them and runs only the ``legacy``
-and ``moe`` lines of step 10, ``--recurrent`` only the lines of step 11
-(both flags together run both).
+and ``moe`` lines of step 10, ``--recurrent`` only the lines of step 11,
+``--multimodal`` only the multimodal lines, ``--fleet`` only the lines
+of step 12 (flags together run each).
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
@@ -399,18 +429,19 @@ CACHE_WRITE_PAGED = (([0, 0, 5, 0], [16, 3, 1, 0]),
                      ([509, 19, 22, 0], [6, 16, 1, 0]))
 
 
-def cache_write_rows(torch, peaks, dev, gen):
+def cache_write_rows(torch, peaks, dev, gen, cfg=None, label="cache_write"):
     """The window write (csrc/cache_write.cu) bit-equal to its plain twin
     (``nonzero`` + ``index_put_``) at kv_bits 16/8/4/2, ragged and paged,
     over the cases above, page 0 and the unmapped pages left zero; then
     timed at the decode step's write (B 4, one token a row, kv_bits 4)
     beside the plain twin and ``index_put_`` on each leaf with the kept
-    rows precomputed."""
+    rows precomputed.  ``cfg`` gives the kv heads and head dim (full-width
+    stablelm-1.6b's by default)."""
     from repro_torch import configs
     from repro_torch.kernels import cache_write as cw
     from repro_torch.models import attention
 
-    cfg = configs.get_config("stablelm-1.6b")
+    cfg = cfg or configs.get_config("stablelm-1.6b")
     bsz, s, ps, width = 4, 512, 16, 16
     n_pages = s // ps
     num_pages = bsz * n_pages + 2
@@ -446,14 +477,14 @@ def cache_write_rows(torch, peaks, dev, gen):
                 if a.dtype == torch.bfloat16:
                     a, b = a.view(torch.int16), b.view(torch.int16)
                 if not torch.equal(a, b):
-                    raise AssertionError(f"cache_write kv{kv_bits} "
+                    raise AssertionError(f"{label} kv{kv_bits} "
                                          f"{'paged' if paged else 'ragged'} "
                                          f"{name}: not bit-equal")
             if paged and (got["k"][0].any() or got["k"][-2:].any()):
-                raise AssertionError(f"cache_write kv{kv_bits}: page 0 or "
+                raise AssertionError(f"{label} kv{kv_bits}: page 0 or "
                                      f"an unmapped page was written")
             checked.append(f"kv{kv_bits} {'paged' if paged else 'ragged'}")
-    print("cache_write bit-equal to its twin: " + ", ".join(checked))
+    print(f"{label} bit-equal to its twin: " + ", ".join(checked))
 
     # the decode step's write: four live rows, one token each, kv_bits 4
     c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
@@ -475,8 +506,8 @@ def cache_write_rows(torch, peaks, dev, gen):
                            else a, b.view(torch.int16)
                            if b.dtype == torch.bfloat16 else b)
                for (a, _), (b, _) in zip(leaves, twin)):
-        raise AssertionError("cache_write at the decode write: not "
-                             "bit-equal")
+        raise AssertionError(f"{label} at the decode write: not "
+                             f"bit-equal")
     keep = cw.kept(dest, leaves[0][0].shape[0]).nonzero(as_tuple=True)[0]
     rows_kept = dest[keep]
     kept_n = int(keep.numel())
@@ -4836,6 +4867,437 @@ def multimodal_phase(torch, np, dev, peaks, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The replica fleet and tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+FLEET_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
+FLEET_NEW = 16
+# stablelm's packed linears split over two shards, (k, n / 2) by layer, at
+# the decode and the prefill-chunk rows of FLEET_ECFG
+FLEET_K2_SHAPES = (("q/k/v/o", 2048, 1024), ("gate/up", 2048, 2816),
+                   ("down", 5632, 1024))
+FLEET_K2_ROWS = (4, 64)
+
+
+def fleet_requests(np, cfg):
+    """The fleet's eight seeded requests: prompts of 17-100 tokens, requests
+    2 and 5 sampled at a seeded temperature, 3 and 6 in one session."""
+    from repro_torch.serve.config import SamplingParams
+
+    rng = np.random.default_rng(SEED + 40)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(17, 101, 8)]
+    sampling = [None] * 8
+    sampling[2] = SamplingParams(temperature=0.8, top_k=40, seed=SEED + 2)
+    sampling[5] = SamplingParams(temperature=1.0, seed=SEED + 5)
+    sessions = [None] * 8
+    sessions[3] = sessions[6] = "session-a"
+    return prompts, sampling, sessions
+
+
+@contextlib.contextmanager
+def recorded_builds(torch, builds):
+    """Record each engine the Router builds inside the block: build
+    seconds (packing, plans, warm-up and capture), the bytes it left
+    allocated and its peak above what was allocated before it.  Patches
+    the class, never an instance (a bound method held by an instance
+    would keep its engine alive)."""
+    from repro_torch.serve import router as router_lib
+
+    real = router_lib.Router._engine
+
+    def build(self, group, params):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = real(self, group, params)
+        torch.cuda.synchronize()
+        builds.append({"build_s": time.perf_counter() - t0,
+                       "capture_s": eng.step_setup_s,
+                       "graphs": eng._decode.graph is not None,
+                       "added_bytes": torch.cuda.memory_allocated() - before,
+                       "peak_above_bytes":
+                           torch.cuda.max_memory_allocated() - before})
+        return eng
+
+    router_lib.Router._engine = build
+    try:
+        yield builds
+    finally:
+        router_lib.Router._engine = real
+
+
+def fleet_kernel_check(where, paged=False) -> dict:
+    """Since the counts were reset: every packed linear one fused K2
+    launch, every attention read one K3 launch (paged: K4), every window
+    write one launch of the write kernel, no plain call.  Returns the
+    launches by kernel."""
+    from repro_torch.kernels import cache_write, ulppack_attention as att
+
+    k2 = check_k2_path(where)
+    name = "attention_decode_paged" if paged else "attention_decode"
+    reads, plain = att.kernel_launches[name], sum(att.plain_calls.values())
+    writes = cache_write.kernel_launches["cache_write"]
+    if not reads or plain or not writes \
+            or cache_write.plain_calls["cache_write"]:
+        raise AssertionError(f"{where}: {reads} {name} launches, {writes} "
+                             f"window writes, plain calls {plain} / "
+                             f"{cache_write.plain_calls['cache_write']}")
+    return {"quantized_linear_mma": k2, name: reads, "cache_write": writes}
+
+
+def fleet_router_phase(torch, np, dev, smi, cfg, params, launches):
+    """(a) ``fleet router``: Router(replicas=2) over graphed engines serves
+    the eight requests; tokens gated equal to one engine serving them.
+    Prints placements, spillover, the summed per-replica decode tok/s
+    (the reference's fleet rule: on one card a model of two cards, not a
+    measurement) beside the wall-clock tok/s of the whole run, and each
+    replica's build, capture and memory."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
+    from repro_torch.serve.router import Router
+
+    prompts, sampling, sessions = fleet_requests(np, cfg)
+    ecfg = EngineConfig(**FLEET_ECFG)
+    eng = ServingEngine(cfg, params, config=ecfg, device=dev)
+    reqs = [Request(i, p, max_new_tokens=FLEET_NEW, sampling=sp)
+            for i, (p, sp) in enumerate(zip(prompts, sampling))]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    want, one = [r.output for r in reqs], eng.metrics.report()
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    builds = []
+    with recorded_builds(torch, builds):
+        router = Router(cfg, params, config=ecfg, replicas=2, device=dev)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    handles = [router.submit(p, sp, max_new_tokens=FLEET_NEW, session=s)
+               for p, sp, s in zip(prompts, sampling, sessions)]
+    placed = [h.replica for h in handles]
+    router.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, n in fleet_kernel_check("fleet router").items():
+        launches[k] += n
+    got = [h.output for h in handles]
+    if got != want or not all(b["graphs"] for b in builds):
+        raise AssertionError(f"fleet router: tokens equal {got == want}, "
+                             f"graphs {[b['graphs'] for b in builds]}")
+    fleet = router.metrics_report()["fleet"]
+    line = {"card": smi, "config": cfg.name, "kv_bits": cfg.quant.kv_bits,
+            "layers": cfg.num_layers, "replicas": 2,
+            "slots_per_replica": FLEET_ECFG["max_batch"],
+            "requests": len(handles), "new_tokens": FLEET_NEW,
+            "placements": placed, "sessions": fleet["sessions"],
+            "spilled": fleet["spilled"], "spill_peak": fleet["spill_peak"],
+            "tokens_equal_one_engine": True,
+            "decode_tok_s_summed": fleet["decode_tok_s"],
+            "wall_s": wall,
+            "wall_tok_s": fleet["generated_tokens"] / wall,
+            "ttft_s": fleet["ttft_s"], "tpot_s": fleet["tpot_s"],
+            "one_engine_decode_tok_s": one["decode_tok_s"],
+            "one_engine_wall_s": one_wall,
+            "one_engine_wall_tok_s": one["generated_tokens"] / one_wall,
+            "replica_builds": builds}
+    print("fleet router " + json.dumps(line))
+    del router, handles
+    held_check(torch, held, "fleet router")
+
+
+def fleet_paged_phase(torch, np, dev, smi, cfg, params, launches):
+    """(b) ``fleet paged``: a paged fleet of two replicas (kv 4) serves the
+    72-token shared-prefix prompt on replica 0 (a session), drains
+    replica 0 to a scratch checkpoint, restores it, then serves the four
+    shared-prefix prompts there again.  Gated: the prefix index's pages
+    survive, the restored replica prefix-hits, the tokens equal a
+    never-drained engine's, and the memory the drain frees brings the
+    card back within 1 GiB of what it held before replica 0 was built
+    (plus replica 1)."""
+    from repro_torch.serve import router as router_lib
+    from repro_torch.serve.engine import EngineConfig, Request, ServingEngine
+    from repro_torch.train import checkpoint
+
+    _, shared = serve_prompts(np, cfg)
+    ecfg = EngineConfig(**FLEET_ECFG, paged=True, page_size=16)
+    never = ServingEngine(cfg, params, config=ecfg, device=dev)
+    rounds = ([shared[0]], shared)
+    want = []
+    for prompts in rounds:
+        reqs = [Request(i, p, max_new_tokens=FLEET_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            never.submit(r)
+        never.run_to_completion()
+        want.append([r.output for r in reqs])
+    del never, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    builds, times = [], {}
+    ckpt = scratch_dir("fleet_ckpt")
+    real_save, real_restore = checkpoint.save, checkpoint.restore
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            times[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    try:
+        with recorded_builds(torch, builds):
+            router = router_lib.Router(cfg, params, config=ecfg, replicas=2,
+                                       device=dev, checkpoint_dir=ckpt)
+        reset_kernel_counts()
+        first = router.submit(rounds[0][0], max_new_tokens=FLEET_NEW,
+                              session="prefix")
+        router.run_to_completion()
+        for k, n in fleet_kernel_check("fleet paged", paged=True).items():
+            launches[k] += n
+        cached = router.engines[0].capacity_report()["cached_prefix_pages"]
+        checkpoint.save = timed("save_s", real_save)
+        checkpoint.restore = timed("restore_read_s", real_restore)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = router.drain(0)
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        after_drain = torch.cuda.memory_allocated()
+        written = dir_bytes(ckpt)
+        t0 = time.perf_counter()
+        with recorded_builds(torch, builds):
+            eng = router.restore(0)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        checkpoint.save, checkpoint.restore = real_save, real_restore
+    rep = eng.capacity_report()
+    reset_kernel_counts()
+    handles = [router.submit(p, max_new_tokens=FLEET_NEW, session="prefix")
+               for p in rounds[1]]
+    router.run_to_completion()
+    for k, n in fleet_kernel_check("fleet paged restored",
+                                   paged=True).items():
+        launches[k] += n
+    got = [[first.output], [h.output for h in handles]]
+    hits = eng.capacity_report()["prefix_hit_tokens"]
+    freed_to = after_drain - (held + builds[1]["added_bytes"])
+    line = {"card": smi, "config": cfg.name, "kv_bits": cfg.quant.kv_bits,
+            "replicas": 2, "page_size": 16,
+            "cached_prefix_pages_drained": cached,
+            "cached_prefix_pages_restored": rep["cached_prefix_pages"],
+            "prefix_hit_tokens_after_restore": hits,
+            "tokens_equal_never_drained": got == want,
+            "requeued": info["requeued"], "checkpoint_bytes": written,
+            "drain_s": drain_s, "save_s": times.get("save_s"),
+            "restore_s": restore_s,
+            "restore_read_s": times.get("restore_read_s"),
+            "recapture_s": eng.step_setup_s,
+            "replica_builds": builds,
+            "allocated_after_drain_above_held_and_replica_1": freed_to}
+    print("fleet paged " + json.dumps(line))
+    if got != want or cached == 0 or rep["cached_prefix_pages"] != cached \
+            or not hits or freed_to > (1 << 30):
+        raise AssertionError(f"fleet paged: {line}")
+    del router, eng, handles, first
+    shutil.rmtree(ckpt, ignore_errors=True)
+    held_check(torch, held, "fleet paged")
+
+
+def fleet_shard_phase(torch, np, dev, smi, cfg, params, label, launches, *,
+                      paged=False):
+    """(c) / (d) ``fleet shard``: the engine with two shards on one card
+    (``ServingMesh([[dev, dev]])``) against the one-shard engine on the
+    serve prompts (paged: the shared-prefix ones).  The split is exact, so
+    the tokens and every decode pass's logits are gated equal (the largest
+    logit difference 0.0); prints that difference, each decode graph's K2
+    and attention launches and device
+    ms (profiler), the shards' K2 shapes and kv heads, and the serving
+    param bytes a shard against the one-shard total."""
+    from repro_torch.kernels import ulppack_attention as att
+    from repro_torch.kernels import ulppack_matmul as mm
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.parallel import sharding
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    plain, shared = serve_prompts(np, cfg)
+    prompts = shared if paged else plain
+    ecfg = EngineConfig(**FLEET_ECFG, paged=paged, page_size=16)
+    read = "attention_decode_paged" if paged else "attention_decode"
+    held = torch.cuda.memory_allocated()
+
+    def run(mesh):
+        reset_kernel_counts()
+        eng = ServingEngine(cfg, params, config=ecfg, device=dev, mesh=mesh)
+        outs, rows, passes = recorded_serve(np, eng, prompts, FLEET_NEW)
+        got = fleet_kernel_check(label, paged)
+        per = eng._decode.launches
+        out = {"k2_launches_a_decode": per[(mm, "mma_launches")][
+                   "quant_affine"],
+               "attention_launches_a_decode": per[(att, "kernel_launches")][
+                   read],
+               "decode_graph": profile_replay(torch, eng._decode),
+               "param_bytes": eng.capacity_report()["param_bytes"]}
+        if mesh is not None:
+            plan = eng.capacity_report()["shard_plan"]
+            kv = next(c["attn"] for c in eng.caches if "attn" in c)
+            out.update(
+                shard_param_bytes=plan["param_bytes"],
+                graphs=eng._decode.graph is not None,
+                k2_shapes=sorted({tuple(leaf.parts[0].shape)
+                                  for leaf in packed_leaves(eng.params)
+                                  if isinstance(leaf, sharding.Sharded)}),
+                kv_heads_a_shard=[p.shape[2] for p in
+                                  sharding.parts(kv["k"])])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return outs, rows, passes, got, out
+
+    o1, r1, p1, _, one = run(None)
+    o2, r2, p2, got, two = run(ServingMesh([[dev, dev]]))
+    for k, n in got.items():
+        launches[k] += n
+    pb = two["shard_param_bytes"]
+    line = {"card": smi, "config": cfg.name, "kv_bits": cfg.quant.kv_bits,
+            "paged": paged, "layers": cfg.num_layers, "shards": 2,
+            "devices": [str(dev)] * 2, "tokens_equal": o1 == o2,
+            "max_decode_logit_diff": max_pass_diff(p1, p2),
+            "one_shard": one, "two_shards": two}
+    print(f"{label} " + json.dumps(line))
+    # the split is exact: every decode pass's logits bit-equal
+    token_divergences(np, label, o1, r1, o2, r2, strict=True)
+    if line["max_decode_logit_diff"] != 0.0:
+        raise AssertionError(f"{label}: decode logits differ by "
+                             f"{line['max_decode_logit_diff']}")
+    if not two["graphs"] or pb["whole"] + sum(pb["split"]) \
+            != one["param_bytes"] or len(set(pb["split"])) != 1:
+        raise AssertionError(f"{label}: graphs {two['graphs']}, shard "
+                             f"bytes {pb} against {one['param_bytes']}")
+    held_check(torch, held, label)
+
+
+def packed_leaves(tree):
+    """Every packed weight leaf (``w_packed`` / ``w_dense``) of a tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in ("w_packed", "w_dense"):
+                yield v
+            else:
+                yield from packed_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from packed_leaves(v)
+
+
+def fleet_k2_rows(torch, peaks, dev, gen):
+    """(e) ``fleet k2``: ``fused_quant_row`` at stablelm's shard shapes
+    (N / 2) at 4 and 64 rows, bit-equal to cast + K1 + K2 and to the plain
+    version, timed against its bound."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+
+    sp = PackSpec.parse("W2A2/int16xP2s8")
+    for layer, k, n in FLEET_K2_SHAPES:
+        qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                           device=dev, dtype=torch.int32)
+        w = packing.pack_weights(qw, sp)
+        ws = [w] + [w.clone() for _ in range(copies_for(w.numel() *
+                                                        sp.lane_bytes) - 1)]
+        for m in FLEET_K2_ROWS:
+            r = fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws,
+                                None)
+            r.update(config="stablelm-1.6b", layer=layer, shards=2)
+            print("fleet k2 " + json.dumps(r))
+        del qw, w, ws
+    torch.cuda.empty_cache()
+
+
+def fleet_k3_rows(torch, peaks, dev, gen):
+    """(e) ``fleet k3``: the reads and the window write at one shard's
+    heads.  K3 and K4 at stablelm's 16 of 32 heads (H16 KVH16 hd64) at kv 4
+    and 2 and at qwen2-vl's one kv head with its six query heads (H6 KVH1
+    hd128, a GQA group of 6) at kv 4, at C1 and C16: within ATTN_TOL of
+    their plain versions (plus one bf16 ulp for bf16 queries), K4
+    bit-equal to K3, two launches bit-equal (``attention_case``).  Then the
+    window write at both shards' heads, bit-equal to its plain twin at
+    kv 16/8/4/2, ragged and paged (``cache_write_rows``).  Prints a
+    ``fleet k3`` line a row."""
+    from repro_torch import configs
+
+    valid_len = torch.tensor([512, 300, 77, 0], dtype=torch.int32,
+                             device=dev)
+    for config, h, kvh, hd, bits in (("stablelm-1.6b", 16, 16, 64, (4, 2)),
+                                     (VLM, 6, 1, 128, (4,))):
+        for kv_bits in bits:
+            for r in attention_case(torch, peaks, dev, gen, 4, 512, h, kvh,
+                                    hd, kv_bits, valid_len):
+                r.update(config=config, shards=2)
+                print("fleet k3 " + json.dumps(r))
+        c = configs.get_config(config).replace(num_heads=h, num_kv_heads=kvh,
+                                               head_dim=hd)
+        for r in cache_write_rows(torch, peaks, dev, gen, c,
+                                  f"fleet cache_write {config}"):
+            r.update(config=config, shards=2)
+            print("fleet k3 " + json.dumps(r))
+    torch.cuda.empty_cache()
+
+
+def fleet_phase(torch, np, dev, peaks, smi):
+    """The replica fleet and tensor-parallel serving: (a) the Router over
+    two graphed stablelm replicas, (b) a paged fleet drained and restored,
+    (c) stablelm with two shards on the card at kv 4 and 2 and paged at
+    kv 4, (d) qwen2-vl-2b with two shards (one kv head a shard), (e) the
+    fused K2 at the shard shapes.  Returns the phase's launches."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(("quantized_linear_mma", "attention_decode",
+                              "attention_decode_paged", "cache_write"), 0)
+    fleet_k2_rows(torch, peaks, dev,
+                  torch.Generator(device=dev).manual_seed(SEED + 50))
+    fleet_k3_rows(torch, peaks, dev,
+                  torch.Generator(device=dev).manual_seed(SEED + 51))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    base = configs.get_config("stablelm-1.6b")
+    params = lm.init_params(base, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+
+    def at(kv_bits, c=base):
+        return c.replace(quant=c.quant.replace(kv_bits=kv_bits))
+
+    fleet_router_phase(torch, np, dev, smi, at(4), params, launches)
+    fleet_paged_phase(torch, np, dev, smi, at(4), params, launches)
+    for kv, paged in ((4, False), (2, False), (4, True)):
+        fleet_shard_phase(torch, np, dev, smi, at(kv), params, "fleet shard",
+                          launches, paged=paged)
+    del params
+    held_check(torch, held, "fleet stablelm")
+    vlm = multimodal_config(VLM, kv_bits=4)
+    params = lm.init_params(vlm, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    fleet_shard_phase(torch, np, dev, smi, vlm, params, "fleet shard",
+                      launches)
+    del params
+    held_check(torch, held, "fleet vlm")
+    print(f"fleet launches {launches} in {time.perf_counter() - t0:.1f} s")
+    print(smi)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4876,7 +5338,7 @@ def main() -> int:
         k2_sweep(torch, torch.device("cuda"))
         print(smi)
         return 0
-    only = [f for f in ("--moe", "--recurrent", "--multimodal")
+    only = [f for f in ("--moe", "--recurrent", "--multimodal", "--fleet")
             if f in sys.argv[1:]]
     if "--moe" in only:
         moe_only(torch, np, smi)
@@ -4884,6 +5346,8 @@ def main() -> int:
         recurrent_phase(torch, np, torch.device("cuda"), peaks, smi)
     if "--multimodal" in only:
         multimodal_phase(torch, np, torch.device("cuda"), peaks, smi)
+    if "--fleet" in only:
+        fleet_phase(torch, np, torch.device("cuda"), peaks, smi)
     if only:
         return 0
     for n, p in paths.items():
@@ -4974,6 +5438,14 @@ def main() -> int:
     # packed linears add to K2's launches, their reads to K3's, their
     # cache writes to the window write's
     for k, n in multimodal_phase(torch, np, dev, peaks, smi).items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+    # the replica fleet and tensor-parallel serving: the Router over two
+    # graphed stablelm replicas, a paged replica drained and restored,
+    # stablelm and qwen2-vl with two shards on the card; their packed
+    # linears add to K2's launches, their reads to K3's and K4's, their
+    # writes to the window write's
+    for k, n in fleet_phase(torch, np, dev, peaks, smi).items():
         launches[k] += n
     torch.cuda.empty_cache()
     launches.update(linear_phase(torch, dev))

@@ -23,9 +23,21 @@ The flags, their groups, choices and defaults are the reference's, plus
 ``EngineConfig.from_args`` call.  The parameters are random, drawn by
 ``lm.init_params`` from a ``torch.Generator`` seeded 0 on the device: the
 reference's JAX draws cannot be reproduced without JAX, so the two CLIs
-serve different weights.  Tensor-parallel (``--model-parallel``) and
-replica-fleet (``--data-parallel``) serving are still to be ported
-(ROADMAP.md Queue 1 item 14) and raise.
+serve different weights.
+
+``--model-parallel M`` serves one engine tensor-parallel over M devices
+(serve/shard.ShardPlan: packed weights split by columns, the KV cache by
+kv heads); ``--data-parallel N`` serves N replicas behind the
+serve/router.Router, each M-way tensor-parallel.  Both build their mesh
+with ``launch/mesh.make_serving_mesh`` over the host's distinct devices,
+clamping (with a warning) to what the host has, and the summary names the
+real shard and replica counts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
+        --max-batch 4 --max-len 512 --kv-bits 4 --model-parallel 2
+
+``main(argv, mesh=ServingMesh([[cuda:0, cuda:0]]))`` lists the devices
+explicitly instead, one repeated to place two shards on one card.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import autotune as autotune_lib
 from repro_torch.kernels import plan as plan_lib
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import lm
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.engine import Request, ServingEngine
@@ -125,24 +138,57 @@ def build_parser() -> argparse.ArgumentParser:
 
     par = ap.add_argument_group("parallelism")
     par.add_argument("--model-parallel", type=int, default=1,
-                     help="tensor-parallel shards per replica (still to "
-                          "be ported: above 1 raises)")
+                     help="tensor-parallel shards per replica: packed "
+                          "weights split by columns, the KV cache by kv "
+                          "heads (serve/shard.ShardPlan); clamps to the "
+                          "host's devices")
 
-    fleet = ap.add_argument_group("fleet", "replica fleet")
+    fleet = ap.add_argument_group(
+        "fleet", "replica fleet (serve/router.Router)")
     fleet.add_argument("--data-parallel", type=int, default=1,
-                       help="replica count behind one router (still to be "
-                            "ported: above 1 raises)")
+                       help="replica count: serve over a ('data'=N, "
+                            "'model'=M) mesh, one replica a data row, "
+                            "behind one load-balanced router (least-loaded "
+                            "placement, spillover, session affinity, "
+                            "drain/restore)")
     return ap
 
 
-def main(argv=None):
+def _fleet_main(args, cfg, params, econf: EngineConfig, mesh, dev):
+    """Serve the synthetic requests through a Router over ``mesh``'s rows,
+    alternating two sessions so that affinity shows in the report."""
+    from repro_torch.serve.router import Router
+
+    router = Router(cfg, params, config=econf, mesh=mesh, device=dev)
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        router.submit(
+            rng.integers(0, cfg.vocab_size, args.prompt_len).astype(
+                np.int32),
+            max_new_tokens=args.max_new_tokens, session=f"session-{i % 2}")
+    done = router.run_to_completion()
+    rep = router.metrics_report()
+    rep["capacity"] = router.capacity_report()
+    toks = sum(len(h.output) for h in done)
+    fleet = rep["fleet"]
+    print(f"{len(done)} requests, {toks} generated tokens across "
+          f"{fleet['attached']} replicas (mesh {mesh.shape})")
+    if args.metrics:
+        print(json.dumps(rep, indent=2))
+    else:
+        print(f"fleet prefill {fleet['prefill_tok_s']} tok/s, "
+              f"decode {fleet['decode_tok_s']} tok/s, "
+              f"ttft p95 {fleet['ttft_s']['p95']}s, "
+              f"spilled {fleet['spilled']} "
+              f"(--metrics for the full report)")
+    return rep
+
+
+def main(argv=None, *, mesh=None):
+    """Run the CLI on ``argv``.  ``mesh`` (a launch/mesh.ServingMesh)
+    replaces the one ``--model-parallel`` / ``--data-parallel`` build
+    from the host's devices."""
     args = build_parser().parse_args(argv)
-    for flag, n in (("--model-parallel", args.model_parallel),
-                    ("--data-parallel", args.data_parallel)):
-        if n > 1:
-            raise NotImplementedError(
-                f"{flag} {n}: multi-card serving is still to be ported "
-                f"(ROADMAP.md Queue 1 item 14)")
     cfg = configs.get_config(args.arch, reduced=args.reduced)
     lm.check_supported(cfg)
     if args.kv_bits >= 0:
@@ -150,10 +196,22 @@ def main(argv=None):
     dev = plan_lib.resolve_device(args.device)
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     econf = EngineConfig.from_args(args)
+    parallel = mesh is not None or args.model_parallel > 1 \
+        or args.data_parallel > 1
+    if mesh is None and parallel:
+        mesh = make_serving_mesh(model=args.model_parallel,
+                                 data=args.data_parallel, device=dev)
+    if args.data_parallel > 1 or (mesh is not None
+                                  and mesh.shape["data"] > 1):
+        rep = _fleet_main(args, cfg, params, econf, mesh, dev)
+        if args.autotune:
+            print(f"autotune cache saved to "
+                  f"{autotune_lib.active_cache().save()}")
+        return rep
 
     before = len(autotune_lib.active_cache().entries)
     t0 = time.perf_counter()
-    eng = ServingEngine(cfg, params, config=econf, device=dev)
+    eng = ServingEngine(cfg, params, config=econf, device=dev, mesh=mesh)
     init_s = time.perf_counter() - t0
     tuned = len(autotune_lib.active_cache().entries) - before
     if args.autotune:
@@ -170,7 +228,10 @@ def main(argv=None):
     rep = eng.metrics.report()
     rep["capacity"] = eng.capacity_report()
     toks = sum(len(r.output) for r in done)
-    print(f"{len(done)} requests, {toks} generated tokens")
+    # the shard count the engine really has: the mesh may have clamped
+    shards = eng.shard_plan.model_shards if eng.shard_plan else 1
+    print(f"{len(done)} requests, {toks} generated tokens"
+          + (f" (model-parallel x{shards})" if parallel else ""))
     if args.metrics:
         rep["plans"] = eng.plan_report()
         rep["engine_init_s"] = init_s

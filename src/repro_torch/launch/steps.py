@@ -36,6 +36,7 @@ from repro_torch.kernels import (cache_write, quant_pack, ulppack_attention,
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.models import attention, common, lm
 from repro_torch.optim import adamw, schedules
+from repro_torch.parallel import sharding
 
 
 def quant_mode_for(cfg, kind: str) -> str:
@@ -375,6 +376,8 @@ def _add_counts(delta: dict, sign: int = 1):
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
+    elif isinstance(tree, sharding.Sharded):
+        yield from tree.parts
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
@@ -558,7 +561,7 @@ def _graph(steps, backend):
 def graphed_serving_steps(cfg, params, caches, *, batch: int,
                           prefill_chunk: int,
                           block_table_width: int | None = None,
-                          backend: str = "auto"):
+                          backend: str = "auto", capture: bool = True):
     """``(decode_step, prefill_chunk_step)`` over static buffers for
     ``batch`` slots, bound to ``params`` and ``caches`` (paged pools when
     ``block_table_width`` is given), with the eager steps' call signature.
@@ -570,13 +573,16 @@ def graphed_serving_steps(cfg, params, caches, *, batch: int,
     workspace, which the pair owns) happens outside capture; then both are captured as CUDA graphs, the
     decode step first.  A failed capture raises.  On the CPU, or when the
     caller asked for the plain versions (backend 'torch', which holds
-    host syncs), the same objects run their bodies eagerly."""
+    host syncs), the same objects run their bodies eagerly; so they do
+    with ``capture=False`` (a tensor-parallel engine whose shards sit on
+    distinct cards: one graph does not span devices)."""
     kw = dict(batch=batch, block_table_width=block_table_width,
               backend=backend)
     dec = StaticStep(cfg, params, caches, kind="decode", width=1, **kw)
     pre = StaticStep(cfg, params, caches, kind="prefill_chunk",
                      width=prefill_chunk, **kw)
-    _graph((dec, pre), backend)
+    if capture:
+        _graph((dec, pre), backend)
     return dec, pre
 
 

@@ -57,6 +57,7 @@ from repro_torch.kernels import cache_write as cache_write_lib
 from repro_torch.kernels import ulppack_attention
 from repro_torch.models import common
 from repro_torch.models.common import dense_apply, dense_init
+from repro_torch.parallel import sharding
 
 
 def cache_size(cfg, max_len: int) -> int:
@@ -467,8 +468,8 @@ def legacy_read(cfg, q, cache, kv_pos, positions, dtype, *,
 
         def kv_fn():
             return paged_cache_read(cache, block_tables, dtype, kv_bits, hd)
-    chunk = autotune.attention_chunk_for(b, sq, skv, h, cfg.num_kv_heads, hd,
-                                         int(kv_bits))
+    chunk = autotune.attention_chunk_for(b, sq, skv, h, cache["k"].shape[2],
+                                         hd, int(kv_bits))
     with torch.profiler.record_function("legacy_attention"):
         return chunked_attention(q, kv_fn, None,
                                  _position_mask(kv_pos, window), positions,
@@ -597,6 +598,10 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
     elif cache is not None and cache_index is None:
         # the fake-quant prefill: the window fills a fresh cache, and the
         # query attends over the raw window
+        if sharding.num_shards(cache):
+            raise NotImplementedError(
+                "the fresh-cache prefill of a kv-head-split cache; serving "
+                "steps pass cache_index")
         rows = prefill_dest_rows(b, sq, cache["k"].shape[1], bool(win),
                                  x.device)
         cache_write(cache, k.detach(), v.detach(), rows, cfg.quant.kv_bits,
@@ -612,7 +617,6 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
             q, {"k": k, "v": v}, full, positions, kv_bits=0, hd=hd,
             backend=backend)
     else:
-        kv_bits = cfg.quant.kv_bits
         if block_tables is not None and win:
             raise NotImplementedError(
                 "paged KV cache + sliding-window ring do not compose; "
@@ -627,23 +631,53 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                 "overwrite slots still visible to earlier queries of the "
                 "same window; feed ring-cache archs token-by-token "
                 "(ServingEngine clamps prefill_chunk to 1 for them)")
-        cache_write(cache, k, v, dest, kv_bits, backend=backend)
-        if use_fused_decode(win, cache_index, sq):
-            out = ulppack_attention.fused_decode_attention(
-                q, cache, cache_index + cache_valid, positions,
-                kv_bits=kv_bits, hd=hd, block_tables=block_tables,
-                backend=backend)
+        window_args = (cache_index, cache_valid, dest, block_tables,
+                       positions)
+        n_shards = sharding.num_shards(cache)
+        if not n_shards:
+            out = _cached_attention(cfg, q, k, v, cache, *window_args,
+                                    backend)
         else:
-            if cache_index.dim() == 0:
-                kv_pos = ring_positions(cache_index, cache["k"].shape[1],
-                                        win)
-            else:
-                size = (cache["k"].shape[1] if block_tables is None
-                        else block_tables.shape[1] * cache["k"].shape[1])
-                kv_pos = ring_positions_batch(
-                    cache_index + cache_valid - 1, size,
-                    win if block_tables is None else 0)
-            out = legacy_read(cfg, q, cache, kv_pos, positions, k.dtype,
-                              block_tables=block_tables)
+            # the cache's kv heads split over the shards: each shard
+            # writes and reads its own KVH / tp kv heads for the H / tp
+            # query heads that use them; the head outputs join before o
+            hq, hkv = cfg.num_heads // n_shards, \
+                cfg.num_kv_heads // n_shards
+            outs = []
+            for i in range(n_shards):
+                dev = sharding.shard_device(cache, i)
+                heads = [t[:, :, i * n:(i + 1) * n].contiguous().to(dev)
+                         for t, n in ((q, hq), (k, hkv), (v, hkv))]
+                args = [None if t is None else t.to(dev)
+                        for t in window_args]
+                outs.append(_cached_attention(
+                    cfg, *heads, sharding.local(cache, i), *args,
+                    backend).to(x.device))
+            out = torch.cat(outs, dim=2)
     out = dense_apply(p["o"], out.reshape(b, sq, cfg.num_heads * hd), **qm)
     return out, cache
+
+
+def _cached_attention(cfg, q, k, v, cache, cache_index, cache_valid, dest,
+                      block_tables, positions, backend):
+    """The window's K/V written into ``cache`` in place through ``dest``,
+    then the query's read of the stored cache: fused (K3, K4 with a block
+    table) or the legacy read, as :func:`use_fused_decode` decides.
+    Returns [B, sq, H, hd]."""
+    win, hd, kv_bits = cfg.sliding_window, cfg.resolved_head_dim, \
+        cfg.quant.kv_bits
+    cache_write(cache, k, v, dest, kv_bits, backend=backend)
+    if use_fused_decode(win, cache_index, q.shape[1]):
+        return ulppack_attention.fused_decode_attention(
+            q, cache, cache_index + cache_valid, positions,
+            kv_bits=kv_bits, hd=hd, block_tables=block_tables,
+            backend=backend)
+    if cache_index.dim() == 0:
+        kv_pos = ring_positions(cache_index, cache["k"].shape[1], win)
+    else:
+        size = (cache["k"].shape[1] if block_tables is None
+                else block_tables.shape[1] * cache["k"].shape[1])
+        kv_pos = ring_positions_batch(cache_index + cache_valid - 1, size,
+                                      win if block_tables is None else 0)
+    return legacy_read(cfg, q, cache, kv_pos, positions, k.dtype,
+                       block_tables=block_tables)

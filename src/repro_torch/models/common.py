@@ -23,6 +23,7 @@ from repro_torch.core import quant
 from repro_torch.core.packing import PackSpec
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
+from repro_torch.parallel import sharding
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -100,14 +101,47 @@ def dense_layer_spec(k: int, n: int, qcfg: QuantConfig, *,
 def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
                 quant_mode: str = "none", compute_dtype=torch.bfloat16,
                 backend: str = "auto"):
-    """y = x @ kernel (+ bias), under the selected quantization mode."""
+    """y = x @ kernel (+ bias), under the selected quantization mode.
+
+    A column-split layer (serve/shard.ShardPlan: its weight, column sums
+    and bias ``Sharded`` along N) runs once per shard on that shard's
+    columns -- the packed path one K2 launch a shard, the packed layout
+    the one chosen for the whole [K, N] at packing -- and the outputs are
+    joined along N on ``x``'s device.  Each column's result is the
+    unsplit layer's."""
+    n_shards = sharding.num_shards(p)
+    if n_shards:
+        spec = None
+        if quant_mode == "packed" and ("w_packed" in p or "w_dense" in p):
+            dense = "w_dense" in p
+            w = p["w_dense"] if dense else p["w_packed"]
+            spec = dense_layer_spec(
+                int(x.shape[-1]), int(w.shape[-1]), qcfg,
+                weight_store="dense" if dense else "lanes",
+                w_packed=None if dense else sharding.parts(w)[0],
+                backend=backend, device=x.device)
+        outs = []
+        for i in range(n_shards):
+            xi = x.to(sharding.shard_device(p, i))
+            outs.append(_dense_local(sharding.local(p, i), xi, qcfg,
+                                     quant_mode, compute_dtype, backend,
+                                     spec).to(x.device))
+        return torch.cat(outs, dim=-1)
+    return _dense_local(p, x, qcfg, quant_mode, compute_dtype, backend)
+
+
+def _dense_local(p, x, qcfg, quant_mode, compute_dtype, backend, spec=None):
+    """:func:`dense_apply` of one device's whole leaves; ``spec`` fixes
+    the packed layout (by default the one for this [K, N])."""
     if quant_mode == "packed" and ("w_packed" in p or "w_dense" in p):
         dense = "w_dense" in p
         w = p["w_dense"] if dense else p["w_packed"]
-        spec = dense_layer_spec(
-            int(x.shape[-1]), int(w.shape[-1]), qcfg,
-            weight_store="dense" if dense else "lanes",
-            w_packed=None if dense else w, backend=backend, device=x.device)
+        if spec is None:
+            spec = dense_layer_spec(
+                int(x.shape[-1]), int(w.shape[-1]), qcfg,
+                weight_store="dense" if dense else "lanes",
+                w_packed=None if dense else w, backend=backend,
+                device=x.device)
         return ops.quantized_linear(
             x, w, p["col_sums"], p["a_scale"], p["a_zp"],
             p["w_scale"], p["w_zp"], spec, bias=p.get("bias"),

@@ -28,6 +28,14 @@ slot, one [B, k+1] verify window of the target scores them, and the
 rejection rule commits 1 .. k+1 tokens a slot (``_speculative_pass``).
 All five steps (target decode, prefill and verify; draft prefill and
 draft) are CUDA graphs on the card, sharing one split-K workspace.
+
+With ``mesh`` (a one-row launch/mesh.ServingMesh) the engine serves
+tensor-parallel: a serve/shard.ShardPlan splits the packed weights'
+columns and the caches' kv heads over the row's devices, each shard
+launching its own kernels at its own shapes; the token stream is the
+single-device engine's.  The accessors ``num_pending``, ``num_live``,
+``take_queued`` and ``take_finished`` are what serve/router.Router
+reads.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
+from repro_torch.parallel import sharding
 from repro_torch.serve import pages as pages_lib
 from repro_torch.serve import speculative as speculative_lib
 from repro_torch.serve.config import EngineConfig, SamplingParams
@@ -49,6 +58,7 @@ from repro_torch.serve.prepare import (build_layer_plans, cache_bytes_per_slot,
                                        cache_page_bytes,
                                        prepare_serving_params,
                                        serving_param_bytes)
+from repro_torch.serve.shard import ShardPlan
 
 __all__ = ["EngineConfig", "Metrics", "Request", "SamplingParams",
            "ServingEngine"]
@@ -150,14 +160,13 @@ class ServingEngine:
     ``params`` is a float parameter tree (reference layout, e.g. from
     ``lm.init_params`` or ``bridge.from_repro``); the engine packs it for
     ``device`` itself.  ``backend`` selects the kernels ('auto': the CUDA
-    kernels on the card, the plain versions on the CPU)."""
+    kernels on the card, the plain versions on the CPU).  ``mesh``, a
+    one-row ('data', 'model') serving mesh, makes the engine
+    tensor-parallel over the row's devices and takes the place of
+    ``device`` (the row's first device is home)."""
 
     def __init__(self, cfg, params, *, config: EngineConfig | None = None,
                  device="cuda", backend: str = "auto", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is still to be ported (ROADMAP.md Queue 1 "
-                "item 14)")
         config = config if config is not None else EngineConfig()
         if config.paged and cfg.sliding_window:
             raise ValueError(
@@ -166,6 +175,24 @@ class ServingEngine:
         if config.speculative_k:
             self._validate_speculative(cfg)
         lm.check_supported(cfg)
+        # tensor-parallel serving: with a one-row ('data', 'model') mesh a
+        # ShardPlan splits the packed weights' columns and the caches' kv
+        # heads over the row's devices (serve/shard.py); the engine runs on
+        # the row's first device, where every whole leaf lives.  A mesh of
+        # one shard is the single-device engine.
+        self.shard_plan = None
+        if mesh is not None:
+            if mesh.shape["data"] != 1:
+                raise ValueError(
+                    f"an engine serves one replica: its mesh has "
+                    f"{mesh.shape['data']} data rows (serve/router.Router "
+                    f"serves one engine a row)")
+            if config.speculative_k:
+                raise NotImplementedError(
+                    "speculative decoding under a serving mesh is still to "
+                    "be ported (ROADMAP.md Queue 1 item 14b)")
+            self.shard_plan = ShardPlan(mesh)
+            device = self.shard_plan.devices[0]
         self.device = plan_lib.resolve_device(device)
         self.config = config
         self.cfg = cfg
@@ -218,6 +245,8 @@ class ServingEngine:
         self.params = prepare_serving_params(
             params, run_cfg, dense_store=config.dense_store,
             device=self.device)
+        if self.shard_plan is not None:
+            self.params = self.shard_plan.place_params(self.params)
         # one execution plan per layer, fixed before serving, for both row
         # counts the steps use (decode batch, prefill batch x chunk); the
         # planners are memoized, so the steps' packed ops dispatch through
@@ -228,7 +257,7 @@ class ServingEngine:
         self.plans = build_layer_plans(
             self.params, run_cfg, batch_rows=max_batch,
             prefill_rows=max_batch * self.prefill_chunk, backend=backend,
-            autotune=config.autotune)
+            autotune=config.autotune, shard_plan=self.shard_plan)
         self._queue: deque[Request] = deque()
         if self.paged:
             self.caches = lm.init_caches(
@@ -246,6 +275,8 @@ class ServingEngine:
             self.caches = lm.init_caches(cfg, max_batch, self.max_len,
                                          dtype=torch.bfloat16,
                                          device=self.device)
+        if self.shard_plan is not None:
+            self.caches = self.shard_plan.place_caches(self.caches)
         # batch-1 fresh states, one a recurrent kind: admission copies
         # them into the slot's rows (mLSTM's and sLSTM's m start at -1e30)
         kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
@@ -269,10 +300,14 @@ class ServingEngine:
         t0 = time.perf_counter()
         bt_width = self.pages_per_slot if self.paged else None
         if self.spec is None:
+            # one CUDA graph cannot span cards: shards on distinct devices
+            # step eagerly (capacity_report's step_graphs says so)
             self._decode, self._prefill = steps_lib.graphed_serving_steps(
                 run_cfg, self.params, self.caches, batch=max_batch,
                 prefill_chunk=self.prefill_chunk,
-                block_table_width=bt_width, backend=backend)
+                block_table_width=bt_width, backend=backend,
+                capture=self.shard_plan is None
+                or len(set(self.shard_plan.devices)) == 1)
         else:
             st = steps_lib.graphed_speculative_steps(
                 run_cfg, self.params, self.caches, self.spec.run_cfg,
@@ -727,10 +762,27 @@ class ServingEngine:
     # Reporting / draining
     # ------------------------------------------------------------------
 
+    @property
+    def num_pending(self) -> int:
+        return len(self._queue)
+
+    @property
+    def num_live(self) -> int:
+        """Occupied batch slots (the Router's load term, with the queue)."""
+        return sum(r is not None for r in self.slot_req)
+
     def take_finished(self) -> list:
-        """Hand over every request retired since the last call."""
+        """Hand over every request retired since the last call (the Router
+        collects after each fleet tick)."""
         done, self._finished = self._finished, []
         return done
+
+    def take_queued(self) -> list:
+        """Hand over the admission queue without serving it: a draining
+        replica's waiting requests, which the Router re-places while this
+        engine's live slots retire."""
+        queued, self._queue = list(self._queue), deque()
+        return queued
 
     def plan_report(self):
         """Flat per-layer plan rows (path + KernelPlan.describe(), whose
@@ -775,6 +827,11 @@ class ServingEngine:
                 **self.pool.report())
         if self.spec is not None:
             rep["speculative"] = self.spec.describe()
+        if self.shard_plan is not None:
+            rep["shard_plan"] = {
+                **self.shard_plan.describe(),
+                "param_bytes": self.shard_plan.shard_param_bytes(
+                    self.params)}
         return rep
 
     # ------------------------------------------------------------------
@@ -785,17 +842,19 @@ class ServingEngine:
         """(caches, pool_meta): the device page pools (every layer's paged
         KV leaves -- the bytes behind the warm prefix cache) and the pool's
         JSON-able bookkeeping.  Drain retires live slots first, so what
-        survives is the prefix index and its pages."""
+        survives is the prefix index and its pages.  Kv-head-split leaves
+        come back whole."""
         if not self.paged:
             raise ValueError("export_paged_state on an unpaged engine")
-        return self.caches, self.pool.export_meta()
+        return sharding.whole_tree(self.caches), self.pool.export_meta()
 
     def import_paged_state(self, caches, pool_meta: dict):
         """Adopt a drained engine's page pools and prefix index (the
         inverse of :meth:`export_paged_state`).  The geometry must match
         this engine's; every cache leaf -- the pools and any recurrent
         layer's per-slot states -- is copied into this engine's own
-        tensors, which keep their addresses."""
+        tensors, which keep their addresses (each kv-head shard takes its
+        slice of a whole leaf)."""
         if not self.paged:
             raise ValueError("import_paged_state on an unpaged engine")
         if (pool_meta["num_pages"] != self.num_pages
@@ -810,7 +869,8 @@ class ServingEngine:
                 if sub is None:     # an encoder-decoder's unfilled cross_kv
                     continue
                 for name, buf in sub.items():
-                    buf.copy_(torch.as_tensor(theirs[kind][name]).to(buf))
+                    sharding.copy_into(buf,
+                                       torch.as_tensor(theirs[kind][name]))
         self.pool = pages_lib.PagePool.from_meta(pool_meta)
 
     def run_to_completion(self):

@@ -34,6 +34,8 @@ import itertools
 
 import numpy as np
 
+from repro_torch.parallel import sharding
+
 __all__ = ["PagePool", "copy_page", "page_granularity", "validate_page_size"]
 
 
@@ -75,8 +77,9 @@ def copy_page(caches, src: int, dst: int):
     for layer in caches:
         sub = layer.get("attn")
         if isinstance(sub, dict):
-            for buf in sub.values():
-                buf[dst].copy_(buf[src])
+            for leaf in sub.values():
+                for buf in sharding.parts(leaf):    # each kv-head shard's
+                    buf[dst].copy_(buf[src])
     return caches
 
 

@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.packing import PackSpec
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.models import common
+from repro_torch.parallel import sharding
 
 
 def _is_packable(node) -> bool:
@@ -86,7 +87,8 @@ def prepare_serving_params(params, cfg, *, dense_store: bool = False,
 
 def build_layer_plans(params, cfg, *, batch_rows: int = 1,
                       prefill_rows: int | None = None,
-                      backend: str = "auto", autotune: bool = False):
+                      backend: str = "auto", autotune: bool = False,
+                      shard_plan=None):
     """One KernelPlan per packed Dense leaf, keyed by its tree path, for
     the decode row count (and under ``...@prefill`` the chunked-prefill
     one), in the leaf's chosen layout (``common.dense_layer_spec``; the
@@ -99,7 +101,13 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
     matmul's, lanes or dense (``autotune.tune_quantized_linear``) -- is
     measured once before planning, so the plans come back
     ``source='tuned'``; the caller saves the cache (``autotune.
-    active_cache().save()``)."""
+    active_cache().save()``).
+
+    With a ``shard_plan`` (serve/shard.ShardPlan) each leaf is planned at
+    its per-shard width ``shard_plan.local_out(N)``: the plans, and their
+    tuning-cache keys, describe the ``[rows, Kp] x [Kp, N / tp]`` product
+    one shard launches (K is never split).  The layout stays the one the
+    whole [K, N] was packed in."""
     if not cfg.quant.enabled:
         return {}
     plans = {}
@@ -128,6 +136,9 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
                 raise ValueError(
                     f"{path}: packed bytes ({w.dtype}, kp={w.shape[0]}) do "
                     f"not match the lane layout {spec} for k={k}")
+            n = int(w.shape[-1])
+            if shard_plan is not None:
+                n = shard_plan.local_out(n)
             for rows, key in ((batch_rows, path),
                               (prefill_rows, f"{path}@prefill")):
                 if rows and (key == path or rows != batch_rows):
@@ -135,11 +146,11 @@ def build_layer_plans(params, cfg, *, batch_rows: int = 1,
                         from repro_torch.kernels import \
                             autotune as autotune_lib
                         autotune_lib.tune_quantized_linear(
-                            rows, k, int(w.shape[-1]), spec, x_dtype,
+                            rows, k, n, spec, x_dtype,
                             weight_store="dense" if dense else "lanes",
                             backend=backend, device=w.device)
                     plans[key] = plan_lib.plan_quantized_linear(
-                        rows, k, int(w.shape[-1]), spec, x_dtype,
+                        rows, k, n, spec, x_dtype,
                         weight_store="dense" if dense else "lanes",
                         backend=backend, device=w.device)
             return
@@ -171,9 +182,12 @@ def cache_page_bytes(cfg, page_size: int) -> int:
 
 
 def serving_param_bytes(params) -> int:
-    """Device bytes of a serving param tree."""
+    """Device bytes of a serving param tree (every shard's part of a split
+    leaf counted)."""
     if isinstance(params, torch.Tensor):
         return params.numel() * params.element_size()
+    if isinstance(params, sharding.Sharded):
+        return params.nbytes()
     if isinstance(params, dict):
         return sum(serving_param_bytes(v) for v in params.values())
     if isinstance(params, (list, tuple)):

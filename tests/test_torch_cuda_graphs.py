@@ -262,6 +262,60 @@ def test_engine_graphed_tokens_equal_eager(hopper, paged):
     assert outs[0] == outs[1]
 
 
+def _shard_tokens(cfg, params, dev, mesh=None, paged=False):
+    eng = engine_lib.ServingEngine(
+        cfg, params, device=dev, mesh=mesh, config=engine_lib.EngineConfig(
+            max_batch=3, max_len=48, prefill_chunk=8, paged=paged,
+            page_size=16))
+    rng = np.random.default_rng(7)
+    reqs = [engine_lib.Request(i, rng.integers(0, 512, n).astype(np.int32),
+                               max_new_tokens=6)
+            for i, n in enumerate((5, 11, 17))]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    return [r.output for r in reqs], eng
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_two_shards_on_one_card_graphed_tokens_equal(hopper, paged):
+    """Tensor-parallel serving with both shards on the card: the steps are
+    captured over each shard's own K2, K3 / K4 and window-write launches
+    (twice the one-shard engine's K2 and reads a pass), and the tokens are
+    the one-shard engine's."""
+    from repro_torch.launch.mesh import ServingMesh
+    cfg = _cfg(4)
+    params = lm.init_params(cfg, torch.Generator(device=hopper).manual_seed(2),
+                            device=hopper)
+    want, one = _shard_tokens(cfg, params, hopper, paged=paged)
+    got, two = _shard_tokens(cfg, params, hopper, paged=paged,
+                             mesh=ServingMesh([[hopper, hopper]]))
+    assert two.capacity_report()["step_graphs"]
+    assert got == want
+    read = "attention_decode_paged" if paged else "attention_decode"
+    for key, name in (((ulppack_matmul, "mma_launches"), "quant_affine"),
+                      ((ulppack_attention, "kernel_launches"), read)):
+        assert two._decode.launches[key][name] \
+            == 2 * one._decode.launches[key][name]
+
+
+def test_two_distinct_cards_step_eagerly(hopper):
+    """Shards on two cards: no graph spans devices, so the steps run
+    eagerly (``step_graphs`` false) and the tokens are the one-shard
+    engine's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.launch.mesh import ServingMesh
+    cfg = _cfg(4)
+    params = lm.init_params(cfg, torch.Generator(device=hopper).manual_seed(2),
+                            device=hopper)
+    want, _ = _shard_tokens(cfg, params, hopper)
+    got, two = _shard_tokens(cfg, params, hopper, mesh=ServingMesh(
+        [[torch.device("cuda", 0), torch.device("cuda", 1)]]))
+    assert not two.capacity_report()["step_graphs"]
+    assert got == want
+
+
 @pytest.mark.parametrize("kv_bits", [16, 4])
 def test_moe_ring_engine_graphed_tokens_equal_eager(hopper, kv_bits):
     """Reduced mixtral-8x7b (MoE FFNs, a ring of 8 slots): the engine on

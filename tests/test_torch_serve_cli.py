@@ -3,7 +3,7 @@ parser has the reference's flags, groups, choices and defaults plus
 ``--device``; ``EngineConfig.from_args`` gives the reference's fields on
 the same flag lists, budget edge cases included; ``main`` serves the
 reduced config, saves an ``--autotune`` cache where the environment
-says, and refuses what is not ported."""
+says, and serves tensor-parallel and through the replica Router."""
 
 import dataclasses
 
@@ -127,9 +127,43 @@ def test_autotune_saves_under_the_environments_path(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flag", ["--model-parallel", "--data-parallel"])
-def test_parallel_flags_above_one_raise(flag):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tserve.main([*CPU, flag, "2"])
+def test_parallel_flags_above_one_raise(flag, capsys):
+    """The parallel flags no longer raise: on the CPU (one device) the
+    serving mesh clamps to 1x1 with a warning, the CLI serves, and the
+    summary names the shard or replica count it really got."""
+    with pytest.warns(UserWarning, match="clamping to"):
+        rep = tserve.main([*CPU, "--requests", "3", flag, "2"])
+    out = capsys.readouterr().out.splitlines()
+    if flag == "--model-parallel":
+        assert out[0] == "3 requests, 24 generated tokens " \
+                         "(model-parallel x1)"
+        assert rep["capacity"]["shard_plan"]["model_shards"] == 1
+    else:
+        assert out[0] == "3 requests, 24 generated tokens across 1 " \
+                         "replicas (mesh {'data': 1, 'model': 1})"
+        assert rep["fleet"]["replicas"] == 1
+        assert rep["fleet"]["retired"] == 3
+
+
+def test_data_parallel_serves_through_the_router(capsys):
+    """``--data-parallel`` on an explicit (data=2, model=2) mesh of cpu
+    devices: two 2-way tensor-parallel replicas behind the Router, the
+    requests load-balanced over both, two sessions pinned."""
+    from repro_torch.launch.mesh import ServingMesh
+    rep = tserve.main([*CPU, "--requests", "4", "--data-parallel", "2",
+                       "--model-parallel", "2", "--metrics"],
+                      mesh=ServingMesh([["cpu", "cpu"], ["cpu", "cpu"]]))
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "4 requests, 32 generated tokens across 2 replicas " \
+                     "(mesh {'data': 2, 'model': 2})"
+    fleet = rep["fleet"]
+    assert fleet["replicas"] == fleet["attached"] == 2
+    assert fleet["retired"] == 4 and fleet["sessions"] == 2
+    assert all(r["retired"] == 2 for r in rep["replica_reports"])
+    cap = rep["capacity"]
+    assert cap["fleet_slots"] == 4
+    assert [c["shard_plan"]["model_shards"]
+            for c in cap["replica_capacity"]] == [2, 2]
 
 
 def test_main_serves_reduced_mixtral(capsys):
