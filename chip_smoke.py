@@ -843,7 +843,7 @@ K2_DENSE_CASES = tuple((*c, "W2A2/int16xP2s8") for c in K2_MMA_CASES) + (
     (4, 1024, 2048, "W1A1/int16xP2s8"),)
 
 
-def dense_rows(torch, peaks, dev, gen):
+def dense_rows(torch, peaks, dev, gen, cases=K2_DENSE_CASES):
     """K2 over the bit-dense weight store (``quantized_linear_mma_dense``,
     route ``fused-quant-dense``): the serving path's call,
     ``ops.quantized_linear`` on bf16 activations with bf16 out, over int32
@@ -863,7 +863,7 @@ def dense_rows(torch, peaks, dev, gen):
 
     bf16 = torch.bfloat16
     rows = []
-    for m, kp, n, text in K2_DENSE_CASES:
+    for m, kp, n, text in cases:
         sp = PackSpec.parse(text)
         k = 2 * kp
         qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
@@ -1033,7 +1033,7 @@ def check_attention(torch, name, got, want, qq, again):
 
 
 def attention_case(torch, peaks, dev, gen, bsz, s, h, kvh, hd, kv_bits,
-                   valid_len):
+                   valid_len, windows=(1, 16)):
     from repro_torch.kernels import plan as plan_lib
     from repro_torch.kernels import ulppack_attention as ua
     from repro_torch.models import attention
@@ -1067,7 +1067,7 @@ def attention_case(torch, peaks, dev, gen, bsz, s, h, kvh, hd, kv_bits,
                       for _ in range(copies_for(cache_bytes) - 1)]
     heads = f"H{h}" if kvh == h else f"H{h} KVH{kvh}"
     rows = []
-    for c in (1, 16):
+    for c in windows:
         q = torch.randn((bsz, c, h, hd), generator=gen,
                         device=dev).to(torch.bfloat16)
         qpos = (torch.clamp(valid_len, min=c)[:, None] - c
@@ -4929,23 +4929,34 @@ def recorded_builds(torch, builds):
         router_lib.Router._engine = real
 
 
-def fleet_kernel_check(where, paged=False) -> dict:
-    """Since the counts were reset: every packed linear one fused K2
-    launch, every attention read one K3 launch (paged: K4), every window
-    write one launch of the write kernel, no plain call.  Returns the
-    launches by kernel."""
-    from repro_torch.kernels import cache_write, ulppack_attention as att
+def fleet_kernel_check(where, paged=False, dense=False) -> dict:
+    """Since the counts were reset: every packed linear one fused launch
+    over lanes (``dense``: over the words), every read one K3 (paged: K4)
+    launch, every window write one launch of the write kernel, no K1
+    launch and no plain call.  Returns the launches by kernel."""
+    from repro_torch.kernels import cache_write, quant_pack
+    from repro_torch.kernels import ulppack_attention as att
+    from repro_torch.kernels import ulppack_matmul as mm
 
-    k2 = check_k2_path(where)
-    name = "attention_decode_paged" if paged else "attention_decode"
-    reads, plain = att.kernel_launches[name], sum(att.plain_calls.values())
+    fused, other = (mm.dense_mma_launches, mm.mma_launches) if dense \
+        else (mm.mma_launches, mm.dense_mma_launches)
+    read = "attention_decode_paged" if paged else "attention_decode"
+    plain = (mm.plain_calls["ulppack_matmul"] + quant_pack.plain_calls
+             + sum(att.plain_calls.values())
+             + cache_write.plain_calls["cache_write"])
+    reads = att.kernel_launches[read]
     writes = cache_write.kernel_launches["cache_write"]
-    if not reads or plain or not writes \
-            or cache_write.plain_calls["cache_write"]:
-        raise AssertionError(f"{where}: {reads} {name} launches, {writes} "
-                             f"window writes, plain calls {plain} / "
-                             f"{cache_write.plain_calls['cache_write']}")
-    return {"quantized_linear_mma": k2, name: reads, "cache_write": writes}
+    if not fused["quant_affine"] or any(other.values()) or fused["affine"] \
+            or fused["s32"] or plain or quant_pack.kernel_launches \
+            or mm.kernel_launches["ulppack_matmul"] or not reads \
+            or not writes:
+        raise AssertionError(f"{where}: K2 {dict(fused)} (other route "
+                             f"{dict(other)}), {reads} {read}, {writes} "
+                             f"writes, plain calls {plain}, K1 "
+                             f"{quant_pack.kernel_launches}")
+    return {"quantized_linear_mma_dense" if dense
+            else "quantized_linear_mma": fused["quant_affine"], read: reads,
+            "cache_write": writes}
 
 
 def fleet_router_phase(torch, np, dev, smi, cfg, params, launches):
@@ -5253,22 +5264,468 @@ def fleet_k3_rows(torch, peaks, dev, gen):
     torch.cuda.empty_cache()
 
 
+# (h) the shard shapes of the speculative and recurrent lines: the W1
+# dense draft's stablelm layers split two ways, (rows, Kp, N / 2, layout);
+# jamba's mamba and xlstm's packed linears split two ways, (k, n / 2)
+FLEET_K2_DENSE_CASES = tuple(
+    (m, kp, n, "W1A1/int16xP2s8") for kp, n in ((1024, 1024), (1024, 2816),
+                                                (2816, 1024))
+    for m in FLEET_K2_ROWS)
+FLEET_REC_K2_SHAPES = ((JAMBA, "mamba in_proj", 8192, 16384),
+                       (JAMBA, "mamba out_proj", 16384, 4096),
+                       (JAMBA, "mamba x_proj", 16384, 272),
+                       (XLSTM, "mlstm up", 2048, 4096),
+                       (XLSTM, "mlstm q/k/v", 4096, 2048),
+                       (XLSTM, "mlstm down", 4096, 1024),
+                       (XLSTM, "slstm ffn_up", 2048, 2730),
+                       (XLSTM, "slstm ffn_down", 2730, 1024))
+
+
+def fleet_shard_k2_rows(torch, peaks, dev, gen):
+    """(h) ``fleet k2`` rows at the speculative and recurrent lines' shard
+    shapes, at 4 and 64 rows: the W1 dense draft's stablelm layers
+    (``dense_rows``: bit-equal to the plain version and to the lanes
+    route) and the recurrent families' packed linears at N / 2
+    (``fused_quant_row``: bit-equal to cast + K1 + K2 and to the plain
+    version), each timed against its bound."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+
+    for r in dense_rows(torch, peaks, dev, gen, FLEET_K2_DENSE_CASES):
+        r.update(config="stablelm-1.6b", layer="W1 dense draft", shards=2)
+        print("fleet k2 " + json.dumps(r))
+    sp = PackSpec.parse("W2A2/int16xP2s8")
+    for config, layer, k, n in FLEET_REC_K2_SHAPES:
+        qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                           device=dev, dtype=torch.int32)
+        w = packing.pack_weights(qw, sp)
+        ws = [w] + [w.clone() for _ in range(copies_for(w.numel() *
+                                                        sp.lane_bytes) - 1)]
+        for m in FLEET_K2_ROWS:
+            r = fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws,
+                                None)
+            r.update(config=config, layer=layer, shards=2)
+            print("fleet k2 " + json.dumps(r))
+        del qw, w, ws
+    torch.cuda.empty_cache()
+
+
+def fleet_shard_k3_rows(torch, peaks, dev, gen):
+    """(h) ``fleet k3`` rows of the speculative and recurrent lines' reads
+    at one shard's heads: stablelm's verify window (C5 = k + 1, H16 KVH16
+    hd64, kv 4) and jamba's attention layer (H32 KVH4 hd128, a GQA group
+    of 8, kv 4, C1 and C16): K3 and K4 within ATTN_TOL of their plain
+    versions, K4 bit-equal to K3 (``attention_case``)."""
+    valid_len = torch.tensor([512, 300, 77, 0], dtype=torch.int32,
+                             device=dev)
+    for config, h, kvh, hd, windows in (
+            ("stablelm-1.6b", 16, 16, 64, (SPEC_K + 1,)),
+            (JAMBA, 32, 4, 128, (1, 16))):
+        for r in attention_case(torch, peaks, dev, gen, 4, 512, h, kvh, hd,
+                                4, valid_len, windows):
+            r.update(config=config, shards=2)
+            print("fleet k3 " + json.dumps(r))
+    torch.cuda.empty_cache()
+
+
+def fleet_spec_phase(torch, np, dev, smi, cfg, params, launches):
+    """(f) ``fleet spec``: the speculative engine (k = SPEC_K, kv 4,
+    ``FLEET_ECFG``) with two shards on the card (``ServingMesh([[dev,
+    dev]])``) against one shard, for each of ``SPEC_CASES`` (a W2 lanes
+    draft, a W1 draft over the dense store, paged with shared prefixes),
+    FLEET_NEW greedy tokens a request.  Gated: tokens equal, the
+    acceptance counts (drafted, accepted, cycles) equal, the logits of
+    every verify pass bit-equal (the column and kv-head splits are
+    exact), all five steps captured as graphs, every packed linear one
+    fused launch and every read and write on its kernel
+    (``fleet_kernel_check``).  Prints the draft and verify graphs' device
+    ms by kernel group (profiler) for two shards and one, K2 and read
+    launches a cycle, and the draft's param bytes by shard."""
+    from repro_torch.kernels import ulppack_attention as att
+    from repro_torch.kernels import ulppack_matmul as mm
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    plain_prompts, shared = serve_prompts(np, cfg)
+    held = torch.cuda.memory_allocated()
+    for name, extra, paged in SPEC_CASES:
+        dense = extra.get("dense_store", False)
+        ecfg = EngineConfig(**FLEET_ECFG, speculative_k=SPEC_K, **extra,
+                            **(dict(paged=True, page_size=16,
+                                    prefix_sharing=True) if paged else {}))
+        prompts = shared if paged else plain_prompts
+        read = "attention_decode_paged" if paged else "attention_decode"
+        k2key = (mm, "dense_mma_launches" if dense else "mma_launches")
+        label = f"fleet spec {name}"
+
+        def run(mesh):
+            reset_kernel_counts()
+            eng = ServingEngine(cfg, params, config=ecfg, device=dev,
+                                mesh=mesh)
+            st = {"decode": eng._decode, "prefill_chunk": eng._prefill,
+                  "verify": eng._verify,
+                  "draft_prefill": eng.spec.prefill_step,
+                  "draft": eng.spec.draft_step}
+            windows, verify = [], eng._verify
+
+            def spy(params_, caches, batch, index, valid, *bt):
+                out = verify(params_, caches, batch, index, valid, *bt)
+                lg = out[0].float().cpu()
+                windows.append([lg[s, :int(v)] for s, v in enumerate(valid)
+                                if v > 0])
+                return out
+
+            eng._verify = spy
+            try:
+                outs = [r.output for r in serve_requests(
+                    eng, prompts, FLEET_NEW, paged=paged)]
+            finally:
+                eng._verify = verify
+            got = fleet_kernel_check(label, paged, dense)
+            m = eng.metrics
+            cap = eng.capacity_report()
+            out = {"graphs": {k: v.graph is not None for k, v in st.items()},
+                   "acceptance": [m.drafted_tokens, m.accepted_tokens,
+                                  m.spec_cycles],
+                   "acceptance_rate": m.report()["acceptance_rate"],
+                   "k2_launches_a_cycle": sum(
+                       st[k].launches[k2key]["quant_affine"]
+                       for k in ("draft", "verify")),
+                   "read_launches_a_cycle": sum(
+                       st[k].launches[(att, "kernel_launches")][read]
+                       for k in ("draft", "verify")),
+                   "draft_profile": profile_replay(torch, st["draft"]),
+                   "verify_profile": profile_replay(torch, st["verify"]),
+                   "draft_param_bytes": cap["speculative"][
+                       "draft_param_bytes"],
+                   "draft_shard_param_bytes": cap["speculative"].get(
+                       "draft_shard_param_bytes")}
+            if mesh is not None:
+                kv = lm.first_attn_cache(eng.spec.caches)
+                out["draft_kv_heads_a_shard"] = [
+                    p.shape[2] for p in kv["k"].parts]
+            del eng, st
+            gc.collect()
+            torch.cuda.empty_cache()
+            return outs, windows, got, out
+
+        o1, w1, _, one = run(None)
+        o2, w2, got, two = run(ServingMesh([[dev, dev]]))
+        for k, n in got.items():
+            launches[k] += n
+        diff = max((float((a - b).abs().max()) for wa, wb in zip(w1, w2)
+                    for a, b in zip(wa, wb)), default=None)
+        same_windows = len(w1) == len(w2) and all(
+            len(wa) == len(wb) and all(a.shape == b.shape
+                                       for a, b in zip(wa, wb))
+            for wa, wb in zip(w1, w2))
+        line = {"card": smi, "case": name, "config": cfg.name, "k": SPEC_K,
+                "kv_bits": cfg.quant.kv_bits, "paged": paged,
+                "dense_store": dense, "draft_w_bits": extra["draft_w_bits"],
+                "shards": 2, "requests": len(prompts),
+                "new_tokens": FLEET_NEW, "tokens_equal": o1 == o2,
+                "acceptance_equal": one["acceptance"] == two["acceptance"],
+                "verify_passes": len(w2), "max_verify_logit_diff": diff,
+                "one_shard": one, "two_shards": two}
+        print("fleet spec " + json.dumps(line))
+        if o1 != o2 or one["acceptance"] != two["acceptance"] \
+                or not same_windows or diff != 0.0 \
+                or not all(two["graphs"].values()):
+            raise AssertionError(
+                f"{label}: tokens equal {o1 == o2}, acceptance "
+                f"{one['acceptance']} / {two['acceptance']}, verify windows "
+                f"alike {same_windows}, largest verify logit difference "
+                f"{diff}, graphs {two['graphs']}")
+        held_check(torch, held, label)
+
+
+REC_SHARD_RANGES = REC_RANGES + ("shard_join",)
+#: xlstm-1.3b on two shards against one (``fleet recurrent``): a token
+#: that differs must come with a logits row within REC_ROW_DIFF_MAX of one
+#: shard's, and every row a request emitted up to its first difference
+#: within REC_LOGIT_DIFF_MAX -- about twice the readings of the first H100
+#: run (0.0203 and 0.1406), the mLSTM's partial sums rounding the other
+#: way through bf16 activations and 2-bit lattices.
+REC_ROW_DIFF_MAX = 0.04
+REC_LOGIT_DIFF_MAX = 0.28
+
+
+def recurrent_states(eng):
+    """Every recurrent state of an engine, whole, on the host: {(layer,
+    kind, leaf): f32 tensor}."""
+    from repro_torch.parallel import sharding
+
+    return {(i, kind, n): sharding.whole(leaf).float().cpu()
+            for i, layer in enumerate(eng.caches)
+            for kind, sub in layer.items()
+            if kind in ("mamba", "mlstm", "slstm")
+            for n, leaf in sub.items()}
+
+
+def state_diffs(want, got) -> dict:
+    """By kind: the largest absolute difference of a state leaf and the
+    largest difference relative to its leaf's largest magnitude."""
+    out = {}
+    for key, w in want.items():
+        d = float((got[key] - w).abs().max())
+        rel = d / (float(w.abs().max()) or 1.0)
+        cur = out.setdefault(key[1], {"max_abs": 0.0, "max_rel": 0.0})
+        cur["max_abs"], cur["max_rel"] = max(cur["max_abs"], d), \
+            max(cur["max_rel"], rel)
+    return out
+
+
+def pre_divergence_diff(np, want, want_rows, got, got_rows) -> float:
+    """The largest logit difference over the rows every request emitted up
+    to and including its first differing token (every row when its tokens
+    are equal): the rows that both runs computed from the same tokens."""
+    out = 0.0
+    for uid, (w, g) in enumerate(zip(want, got)):
+        at = next((i for i in range(len(w)) if w[i] != g[i]), len(w) - 1)
+        out = max([out] + [float(np.abs(got_rows[(uid, t)]
+                                        - want_rows[(uid, t)]).max())
+                           for t in range(at + 1)])
+    return out
+
+
+def mamba_split_probe(torch, dev, c, p2) -> dict:
+    """Whether mamba's two contractions whose shapes follow the channel
+    count -- the depthwise conv's einsum and ``dt_proj``'s f32 product --
+    give the whole width's bits when run a shard at a time on the shards'
+    channels (two-shard params ``p2``, 4 rows, a window of 16): each
+    bit-equal or not, and the largest difference relative to the whole
+    width's largest magnitude."""
+    from repro_torch.models import common, mamba
+    from repro_torch.parallel import sharding
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    di = c.ssm_expand * c.d_model
+    n = len(sharding.parts(p2["dt_proj"]["kernel"]))
+    w = di // n
+    cd = common.dtype_of(c.compute_dtype)
+    xi = torch.randn((4, 16, di), generator=gen, device=dev)
+    hist = torch.randn((4, c.ssm_conv_width - 1, di), generator=gen,
+                       device=dev)
+    vlen = torch.full((4,), 16, dtype=torch.int64, device=dev)
+    dt_r = torch.randn((4, 16, c.dt_rank), generator=gen, device=dev)
+    whole_conv = mamba._conv(hist, xi, sharding.whole(p2["conv_w"]),
+                             sharding.whole(p2["conv_b"]), vlen)[0]
+    whole_dt = mamba._dt(sharding.whole_tree(p2["dt_proj"]), dt_r, cd)
+    conv = torch.cat([mamba._conv(
+        hist[..., i * w:(i + 1) * w], xi[..., i * w:(i + 1) * w],
+        sharding.channel_part(p2, "conv_w", i, n, dev),
+        sharding.channel_part(p2, "conv_b", i, n, dev), vlen)[0]
+        for i in range(n)], dim=-1)
+    dt = torch.cat([mamba._dt(sharding.local(p2["dt_proj"], i), dt_r, cd)
+                    for i in range(n)], dim=-1)
+    out = {}
+    for key, a, b in (("conv", whole_conv, conv), ("dt", whole_dt, dt)):
+        out[f"{key}_exact"] = torch.equal(a, b)
+        out[f"{key}_rel"] = float((a - b).abs().max()) / (
+            float(a.abs().max()) or 1.0)
+    return out
+
+
+def recurrent_block_check(torch, dev, c, eng, label) -> dict:
+    """One cached call of each recurrent block kind at full width on the
+    two-shard engine's params and its states after the run, 4 rows, a
+    window of 1 and of 16 tokens (the last row dead): the block over
+    channel-split states (``ShardPlan.place_caches``) against the same
+    block over whole states and whole params (``sharding.whole_tree``).
+    Gated: the output and the states within ``sharding.CHANNEL_SPLIT_RTOL``
+    of each tensor's largest magnitude (the xLSTM's partial sums; cuBLAS's
+    kernel for mamba's ``dt_proj`` at a shard's width).  Returns the
+    largest relative difference by kind and window, whether it was
+    bit-equal, and for mamba ``mamba_split_probe``'s reading."""
+    from repro_torch.models import mamba, xlstm
+    from repro_torch.parallel import sharding
+
+    apply = {"mamba": mamba.mamba_apply, "mlstm": xlstm.mlstm_apply,
+             "slstm": xlstm.slstm_apply}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    out = {}
+    for kind in sorted({c.layer_kind(i) for i in range(c.num_layers)}
+                       - {"attn"}):
+        i = next(j for j in range(c.num_layers) if c.layer_kind(j) == kind)
+        p2 = eng.params["layers"][i][kind]
+        p1 = sharding.whole_tree(p2)
+        for s in (1, 16):
+            x = torch.randn((4, s, c.d_model), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            whole = {n: sharding.whole(v).clone()
+                     for n, v in eng.caches[i][kind].items()}
+            split = eng.shard_plan.place_caches(
+                {kind: {n: v.clone() for n, v in whole.items()}})[kind]
+            kw = dict(quant_mode="packed",
+                      cache_index=torch.zeros(4, dtype=torch.int32,
+                                              device=dev),
+                      cache_valid=torch.tensor([s, s, 1, 0],
+                                               dtype=torch.int32,
+                                               device=dev))
+            with torch.no_grad():
+                want, _ = apply[kind](p1, c, x, cache=whole, **kw)
+                got, _ = apply[kind](p2, c, x, cache=split, **kw)
+            pairs = [(want, got)] + [(whole[n], sharding.whole(split[n]))
+                                     for n in whole]
+            rel = max(float((b.float() - a.float()).abs().max())
+                      / (float(a.float().abs().max()) or 1.0)
+                      for a, b in pairs)
+            out[f"{kind}_C{s}"] = rel
+            out[f"{kind}_C{s}_exact"] = all(torch.equal(a, b)
+                                            for a, b in pairs)
+            if rel > sharding.CHANNEL_SPLIT_RTOL:
+                raise AssertionError(f"{label}: the {kind} block over split "
+                                     f"states differs by {rel} (relative)")
+            del whole, split, want, got
+        if kind == "mamba":
+            out["mamba_probe"] = mamba_split_probe(torch, dev, c, p2)
+    return out
+
+
+def fleet_recurrent_phase(torch, np, dev, smi, name, launches):
+    """(g) ``fleet recurrent``: ``name`` at full width (xlstm-1.3b whole;
+    jamba-1.5-large-398b cut to its first JAMBA_LAYERS of 72 layers, kv
+    4), seed-0 weights, ``EngineConfig(**REC_ECFG)``, the
+    ``recurrent_prompts`` (six requests through four slots),
+    ``REC_NEW[name]`` greedy tokens each, served graphed by two shards on
+    the card and by one.  Gated: jamba's tokens equal to one shard's,
+    every decode pass's logits bit-equal and its mamba states after the
+    run within ``sharding.CHANNEL_SPLIT_RTOL`` of their largest magnitude;
+    xlstm's tokens equal, a differing token only with its top-2 margin at
+    most 2 x the row difference (ROADMAP Queue 3's rule) and that row
+    difference at most REC_ROW_DIFF_MAX, every row up to a request's
+    first difference within REC_LOGIT_DIFF_MAX (its states after the run
+    are printed, not held: past the first bf16 activation that rounds the
+    other way upstream of a 2-bit lattice they follow other tokens); each
+    block kind over split states within ``sharding.CHANNEL_SPLIT_RTOL`` of
+    one shard on the same inputs (``recurrent_block_check``, which also
+    probes mamba's conv and ``dt_proj`` a shard at a time); graphs
+    captured; every packed linear one fused launch (jamba's reads on K3,
+    its writes on the write kernel); a slot's split states half a shard.
+    Prints the largest logit differences and the states', the recurrent
+    bytes a slot by shard against one shard, and the device ms of an
+    eager decode pass by range (``mamba_scan``, ``mlstm``, ``slstm``,
+    ``shard_join``) and of the decode graph by kernel group, two shards
+    against one."""
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    jamba = name == JAMBA
+    c = recurrent_config(name, kv_bits=4)
+    label = f"fleet recurrent {name}"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    prompts = recurrent_prompts(np, c)
+    new = REC_NEW[name]
+    ecfg = EngineConfig(**REC_ECFG)
+
+    def run(mesh):
+        reset_kernel_counts()
+        eng = ServingEngine(c, params, config=ecfg, device=dev, mesh=mesh)
+        outs, rows, passes = recorded_serve(np, eng, prompts, new)
+        got = (fleet_kernel_check(label) if jamba else
+               {"quantized_linear_mma": check_k2_path(label)})
+        cap = eng.capacity_report()
+        out = {"graphs": eng._decode.graph is not None,
+               "states": recurrent_states(eng),
+               "cache_bytes_per_slot": cap["cache_bytes_per_slot"],
+               "param_bytes": cap["param_bytes"]}
+        if mesh is not None:
+            out["block"] = recurrent_block_check(torch, dev, c, eng, label)
+            out["recurrent_bytes_per_slot"] = cap["shard_plan"][
+                "recurrent_bytes_per_slot"]
+            out["shard_param_bytes"] = cap["shard_plan"]["param_bytes"]
+        out["decode_graph"] = profile_replay(torch, eng._decode)
+        out["eager_pass"] = eager_ranges(torch, np, c, eng.params,
+                                         eng.caches, eng.max_batch,
+                                         eng.slot_pos.copy(),
+                                         REC_SHARD_RANGES)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return outs, rows, passes, got, out
+
+    o1, r1, p1, _, one = run(None)
+    o2, r2, p2, got, two = run(ServingMesh([[dev, dev]]))
+    for k, n in got.items():
+        launches[k] += n
+    divergences = token_divergences(np, label, o1, r1, o2, r2,
+                                    strict=jamba)
+    states1, states2 = one.pop("states"), two.pop("states")
+    diffs = state_diffs(states1, states2)
+    rb = two["recurrent_bytes_per_slot"]
+    logit_diff = max_pass_diff(p1, p2)
+    pre_diff = pre_divergence_diff(np, o1, r1, o2, r2)
+    line = {"card": smi, "config": name, "kv_bits": c.quant.kv_bits,
+            "layers": f"{c.num_layers} of 72" if jamba else c.num_layers,
+            "shards": 2, "devices": [str(dev)] * 2,
+            "requests": len(prompts), "new_tokens": new,
+            "tokens_equal": o1 == o2, "divergences": divergences,
+            "max_decode_logit_diff": logit_diff,
+            "pre_divergence_logit_diff": pre_diff,
+            "state_diffs": diffs, "rtol": sharding.CHANNEL_SPLIT_RTOL,
+            "one_shard": one, "two_shards": two}
+    if not jamba:
+        line.update(row_diff_max=REC_ROW_DIFF_MAX,
+                    logit_diff_max=REC_LOGIT_DIFF_MAX)
+    print("fleet recurrent " + json.dumps(line))
+    del states1, states2
+    bad = []
+    if jamba:
+        if logit_diff != 0.0:
+            bad.append(f"decode logits differ by {logit_diff}")
+        if diffs["mamba"]["max_rel"] > sharding.CHANNEL_SPLIT_RTOL:
+            bad.append(f"mamba states differ by {diffs['mamba']} after "
+                       "the run")
+    else:
+        bad += [f"request {d['request']}'s row differs by {d['row_diff']}"
+                for d in divergences if d["row_diff"] > REC_ROW_DIFF_MAX]
+        if pre_diff > REC_LOGIT_DIFF_MAX:
+            bad.append(f"rows up to a first difference differ by "
+                       f"{pre_diff}")
+    if not (one["graphs"] and two["graphs"]):
+        bad.append("graphs")
+    if len(set(rb["split"])) != 1 or rb["one_shard"] != rb["whole"] \
+            + 2 * rb["split"][0] or not rb["split"][0]:
+        bad.append(f"recurrent bytes a slot {rb}")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    del params
+    gc.collect()
+    held_check(torch, held, label)
+
+
 def fleet_phase(torch, np, dev, peaks, smi):
     """The replica fleet and tensor-parallel serving: (a) the Router over
     two graphed stablelm replicas, (b) a paged fleet drained and restored,
     (c) stablelm with two shards on the card at kv 4 and 2 and paged at
     kv 4, (d) qwen2-vl-2b with two shards (one kv head a shard), (e) the
-    fused K2 at the shard shapes.  Returns the phase's launches."""
+    fused K2 at the shard shapes, (f) speculative stablelm with two
+    shards, (g) xlstm-1.3b and jamba (5 layers) with channel-split
+    states, (h) K2, K3 and K4 at the shapes of (f) and (g).  Returns the
+    phase's launches."""
     from repro_torch import configs
     from repro_torch.models import lm
 
     t0 = time.perf_counter()
-    launches = dict.fromkeys(("quantized_linear_mma", "attention_decode",
-                              "attention_decode_paged", "cache_write"), 0)
+    launches = dict.fromkeys(("quantized_linear_mma",
+                              "quantized_linear_mma_dense",
+                              "attention_decode", "attention_decode_paged",
+                              "cache_write"), 0)
     fleet_k2_rows(torch, peaks, dev,
                   torch.Generator(device=dev).manual_seed(SEED + 50))
     fleet_k3_rows(torch, peaks, dev,
                   torch.Generator(device=dev).manual_seed(SEED + 51))
+    fleet_shard_k2_rows(torch, peaks, dev,
+                        torch.Generator(device=dev).manual_seed(SEED + 52))
+    fleet_shard_k3_rows(torch, peaks, dev,
+                        torch.Generator(device=dev).manual_seed(SEED + 53))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -5284,6 +5741,7 @@ def fleet_phase(torch, np, dev, peaks, smi):
     for kv, paged in ((4, False), (2, False), (4, True)):
         fleet_shard_phase(torch, np, dev, smi, at(kv), params, "fleet shard",
                           launches, paged=paged)
+    fleet_spec_phase(torch, np, dev, smi, at(4), params, launches)
     del params
     held_check(torch, held, "fleet stablelm")
     vlm = multimodal_config(VLM, kv_bits=4)
@@ -5293,6 +5751,8 @@ def fleet_phase(torch, np, dev, peaks, smi):
                       launches)
     del params
     held_check(torch, held, "fleet vlm")
+    for name in (XLSTM, JAMBA):
+        fleet_recurrent_phase(torch, np, dev, smi, name, launches)
     print(f"fleet launches {launches} in {time.perf_counter() - t0:.1f} s")
     print(smi)
     return launches

@@ -378,6 +378,9 @@ def _leaves(tree):
         yield tree
     elif isinstance(tree, sharding.Sharded):
         yield from tree.parts
+    elif isinstance(tree, sharding.Mirrored):
+        yield tree.whole
+        yield from (p for p in tree.parts if p is not None)
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
@@ -591,7 +594,8 @@ def graphed_speculative_steps(cfg, params, caches, draft_cfg, draft_params,
                               prefill_chunk: int,
                               block_table_width: int | None = None,
                               draft_block_table_width: int | None = None,
-                              backend: str = "auto") -> dict:
+                              backend: str = "auto",
+                              capture: bool = True) -> dict:
     """Every step of a speculative engine over static buffers: the
     target's ``decode`` and ``prefill_chunk`` (as
     :func:`graphed_serving_steps`) and ``verify`` (a [batch, k + 1]
@@ -602,7 +606,10 @@ def graphed_speculative_steps(cfg, params, caches, draft_cfg, draft_params,
     ``jitted_speculative_steps`` plus its serving steps.  On the card all
     five bodies warm up with one split-K workspace, frozen before the
     first capture, and are captured as CUDA graphs; a failed capture
-    raises.  On the CPU, or on the 'torch' backend, they run eagerly."""
+    raises.  On the CPU, or on the 'torch' backend, they run eagerly; so
+    they do with ``capture=False`` (shards on distinct cards).  Sharded
+    params and caches (serve/shard.ShardPlan) are the target's and the
+    draft's alike."""
     kw = dict(batch=batch, backend=backend)
     tkw = dict(kw, block_table_width=block_table_width)
     dkw = dict(kw, block_table_width=draft_block_table_width)
@@ -619,5 +626,6 @@ def graphed_speculative_steps(cfg, params, caches, draft_cfg, draft_params,
                                     width=prefill_chunk, **dkw),
         "draft": StaticStep(draft_cfg, draft_params, draft_caches,
                             kind="draft", width=1, k=k, **dkw)}
-    _graph(tuple(steps.values()), backend)
+    if capture:
+        _graph(tuple(steps.values()), backend)
     return steps

@@ -19,6 +19,16 @@ tensors in place (``copy_``), so the serving steps' CUDA graphs advance
 it on every replay; tokens past a row's ``cache_valid`` count leave its
 state unchanged.  The recurrences run in ``mlstm`` / ``slstm`` profiler
 ranges.
+
+A cache whose states split their channels over tensor-parallel shards
+(serve/shard.ShardPlan: the mLSTM's ``C`` and ``n`` on their key axis,
+the sLSTM's four states on hd) runs each shard's part of the recurrence
+on its slice, a whole state as its one shard (:func:`_mlstm_chunk`,
+:func:`_slstm_scan`); the joins run in a ``shard_join`` range.  The
+mLSTM's contractions over the split axis become partial sums added on
+the home device in shard order, so its output is the one-shard output
+within f32 rounding, not bit for bit
+(``parallel.sharding.CHANNEL_SPLIT_RTOL``).
 """
 
 from __future__ import annotations
@@ -29,12 +39,21 @@ import torch
 
 from repro_torch.models import common
 from repro_torch.models.common import dense_apply, dense_init
-from repro_torch.models.mamba import silu, softplus
+from repro_torch.models.mamba import silu, softplus, valid_lengths
+from repro_torch.parallel import sharding
 
 
 def log_sigmoid(x):
     """``jax.nn.log_sigmoid``: -softplus(-x)."""
     return -softplus(-x)
+
+
+def _fresh(cache):
+    """Reset a cache's states, every part of a split one, to the fresh
+    state in place: the stabilizer ``m`` at -1e30, the rest 0."""
+    for name, leaf in cache.items():
+        for t in sharding.parts(leaf):
+            t.fill_(-1e30 if name == "m" else 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -76,13 +95,21 @@ def _mlstm_chunk(q, k, v, i_raw, g_log, state):
     """One chunk of the stabilized chunkwise mLSTM.
 
     q, k, v: [B, NH, L, hd] f32; i_raw, g_log: [B, NH, L]; state (C, n, m)
-    stored descaled by exp(m).  Returns (h [B, NH, L, hd], new state).
+    stored descaled by exp(m), ``C`` [B, NH, hd, hd] and ``n`` [B, NH, hd]
+    as lists of their key-axis (axis 2) parts, one a shard on its shard's
+    device (one part when whole), ``m`` [B, NH] whole.  What every key
+    slice shares (the gates' weights, the stabilizer) is computed once on
+    q's device; shard i updates its key slice of ``C`` and ``n`` and gives
+    its partial sums of the two contractions over the key axis, ``q . C``
+    and ``q . n``, which are added on q's device in shard order (one
+    shard's contraction when whole).  Returns (h [B, NH, L, hd], the new
+    state in the same form).
 
     The contractions are those of the reference's einsums; the
     three-operand one (``bhs,bhsd,bhse->bhde``) is taken as (w_kv * k)
     then the product with v, which may sum in another order than XLA's
     (a last-bit difference over a window of more than one token)."""
-    c_prev, n_prev, m_prev = state
+    c_parts, n_parts, m_prev = state
     hd = q.shape[-1]
     big = q.shape[2]
     gc = torch.cumsum(g_log, dim=-1)                     # G_t
@@ -99,28 +126,35 @@ def _mlstm_chunk(q, k, v, i_raw, g_log, state):
     qs = q * hd ** -0.5
     scores = torch.einsum("bhtd,bhsd->bhts", qs, k)
     h_num = torch.einsum("bhts,bhsd->bhtd", a * scores, v)
-    n_t = torch.einsum("bhts,bhsd->bhtd", a, k)
-
-    # the inter-chunk part, weight b_t = exp(m_prev - max(s_t, m_prev))
+    # the inter-chunk weight b_t = exp(m_prev - max(s_t, m_prev))
     bw = torch.exp(m_prev[..., None] - m_eff)            # [B, NH, L]
-    h_num = h_num + bw[..., None] * torch.einsum("bhtd,bhde->bhte", qs,
-                                                 c_prev)
-    n_t = n_t + bw[..., None] * n_prev[..., None, :]
-
-    qn = torch.einsum("bhtd,bhtd->bht", qs, n_t)
-    denom = torch.maximum(torch.abs(qn), torch.exp(-m_t))
-    h = h_num / denom[..., None]
 
     # the state at the chunk's end
     g_total = gc[..., -1]                                # G_L
     m_new = g_total + torch.maximum(s_run[..., -1], m_prev)
     decay = torch.exp(g_total + m_prev - m_new)          # <= 1
     w_kv = torch.exp((g_total[..., None] - gc) + i_raw - m_new[..., None])
-    c_new = (decay[..., None, None] * c_prev
-             + torch.einsum("bhsd,bhse->bhde", w_kv[..., None] * k, v))
-    n_new = decay[..., None] * n_prev + torch.einsum("bhs,bhsd->bhd", w_kv,
-                                                     k)
-    return h, (c_new, n_new, m_new)
+
+    w = hd // len(c_parts)
+    qc_parts, qn_parts, c_new, n_new = [], [], [], []
+    for i, (c_prev, n_prev) in enumerate(zip(c_parts, n_parts)):
+        dev = c_prev.device
+        sl = slice(i * w, (i + 1) * w)
+        qs_i, k_i = qs[..., sl].to(dev), k[..., sl].to(dev)
+        bw_i, w_i, dec = bw.to(dev), w_kv.to(dev), decay.to(dev)
+        qc_parts.append(torch.einsum("bhtd,bhde->bhte", qs_i, c_prev))
+        n_t = (torch.einsum("bhts,bhsd->bhtd", a.to(dev), k_i)
+               + bw_i[..., None] * n_prev[..., None, :])
+        qn_parts.append(torch.einsum("bhtd,bhtd->bht", qs_i, n_t))
+        c_new.append(dec[..., None, None] * c_prev
+                     + torch.einsum("bhsd,bhse->bhde", w_i[..., None] * k_i,
+                                    v.to(dev)))
+        n_new.append(dec[..., None] * n_prev
+                     + torch.einsum("bhs,bhsd->bhd", w_i, k_i))
+    h_num = h_num + bw[..., None] * sharding.add_up(qc_parts, q.device)
+    qn = sharding.add_up(qn_parts, q.device)
+    denom = torch.maximum(torch.abs(qn), torch.exp(-m_t))
+    return h_num / denom[..., None], (c_new, n_new, m_new)
 
 
 def mlstm_apply(p, cfg, x, *, quant_mode="none", cache=None,
@@ -133,9 +167,11 @@ def mlstm_apply(p, cfg, x, *, quant_mode="none", cache=None,
     become identity updates (input gate -1e30, forget gate 1, k and v
     zeroed -- the zeroing keeps C and n unchanged even in the all-dead
     fresh-state corner, where m = -1e30 makes w_kv = 1).  The uncached
-    path runs chunks of ``chunk`` tokens, the last padded the same way;
-    with ``cache`` (the prefill of a fresh cache) its final state is
-    written into the cache.  The cache's tensors are updated in place."""
+    path runs chunks of ``chunk`` tokens from the fresh state, the last
+    padded the same way; with ``cache`` (the prefill of a fresh cache) the
+    cache is reset to the fresh state first and the final state written
+    into it.  The cache's tensors are updated in place, a channel-split
+    ``C`` and ``n`` part by part (:func:`_mlstm_chunk`)."""
     b, s, d = x.shape
     cd = common.dtype_of(cfg.compute_dtype)
     qm = dict(qcfg=cfg.quant, quant_mode=quant_mode, compute_dtype=cd,
@@ -158,6 +194,15 @@ def mlstm_apply(p, cfg, x, *, quant_mode="none", cache=None,
         i_raw = gates[..., :nh].transpose(1, 2)          # [B, NH, S]
         g_log = log_sigmoid(gates[..., nh:]).transpose(1, 2)
 
+        if cache is None:
+            src = init_mlstm_cache(cfg, b, device=x.device)
+        else:
+            src = cache
+            if cache_index is None:
+                _fresh(cache)
+        state = ([t.to(torch.float32) for t in sharding.parts(src["C"])],
+                 [t.to(torch.float32) for t in sharding.parts(src["n"])],
+                 src["m"].to(torch.float32))
         if cache is not None and cache_index is not None:
             if cache_valid is not None:
                 vlen = torch.as_tensor(cache_valid, device=x.device)
@@ -167,7 +212,6 @@ def mlstm_apply(p, cfg, x, *, quant_mode="none", cache=None,
                 g_log = torch.where(inval, 0.0, g_log)
                 k = torch.where(inval[..., None], 0.0, k)
                 v = torch.where(inval[..., None], 0.0, v)
-            state = tuple(cache[n].to(torch.float32) for n in ("C", "n", "m"))
             h, state = _mlstm_chunk(q, k, v, i_raw, g_log, state)
         else:
             l_chunk = min(chunk, s)
@@ -178,12 +222,6 @@ def mlstm_apply(p, cfg, x, *, quant_mode="none", cache=None,
                 i_raw = torch.nn.functional.pad(i_raw, (0, pad),
                                                 value=-1e30)
                 g_log = torch.nn.functional.pad(g_log, (0, pad))
-            state = (torch.zeros((b, nh, hd, hd), dtype=torch.float32,
-                                 device=x.device),
-                     torch.zeros((b, nh, hd), dtype=torch.float32,
-                                 device=x.device),
-                     torch.full((b, nh), -1e30, dtype=torch.float32,
-                                device=x.device))
             hs = []
             for c0 in range(0, q.shape[2], l_chunk):
                 sl = slice(c0, c0 + l_chunk)
@@ -193,8 +231,12 @@ def mlstm_apply(p, cfg, x, *, quant_mode="none", cache=None,
                 hs.append(h_c)
             h = torch.cat(hs, dim=2)[:, :, :s]
         if cache is not None:
-            for name, val in zip(("C", "n", "m"), state):
-                cache[name].copy_(val)
+            c_new, n_new, m_new = state
+            for dst, val in zip(sharding.parts(cache["C"]), c_new):
+                dst.copy_(val)
+            for dst, val in zip(sharding.parts(cache["n"]), n_new):
+                dst.copy_(val)
+            cache["m"].copy_(m_new)
 
     h = h.transpose(1, 2).reshape(b, s, inner)
     h = common.rmsnorm_apply(p["norm"], h.to(cd), cfg.norm_eps)
@@ -241,13 +283,10 @@ def init_slstm_cache(cfg, batch, dtype=torch.float32, device="cpu"):
     return out
 
 
-def _slstm_step(r, state, wx, nh, hd):
-    """wx: [B, 4d] the step's input contribution; state (c, n, h, m) of
-    [B, NH, hd] f32."""
-    c, n, h, m = state
-    rx = torch.einsum("bhd,hde->bhe", h, r)              # [B, NH, 4hd]
-    gates = wx.reshape(wx.shape[0], nh, 4 * hd) + rx
-    z_in, i_raw, f_raw, o_raw = torch.chunk(gates, 4, dim=-1)
+def _slstm_update(state, z_in, i_raw, f_raw, o_raw):
+    """The elementwise sLSTM update of (c, n, h, m) from the four gate
+    pre-activations."""
+    c, n, _, m = state
     z_t = torch.tanh(z_in)
     o_t = torch.sigmoid(o_raw)
     f_log = log_sigmoid(f_raw)
@@ -263,15 +302,16 @@ def _slstm_step(r, state, wx, nh, hd):
 def slstm_apply(p, cfg, x, *, quant_mode="none", cache=None,
                 cache_index=None, cache_valid=None, chunk=256,
                 backend="auto"):
-    """x: [B, S, d] -> (y, cache), step by step.
+    """x: [B, S, d] -> (y, cache), step by step (:func:`_slstm_scan`).
 
     The cached path continues from the cached state; tokens past each
     row's ``cache_valid`` count leave that row's state unchanged.  The
     uncached path starts from the fresh state and, as the reference's
     chunked scan does, runs the window zero-padded to a multiple of
     ``min(chunk, S)`` (its final state includes those pad steps); with
-    ``cache`` that state is written into the cache.  The cache's tensors
-    are updated in place."""
+    ``cache`` (the prefill of a fresh cache) the cache is reset to the
+    fresh state first and that final state written into it.  The cache's
+    tensors are updated in place, part by part when they split."""
     b, s, d = x.shape
     cd = common.dtype_of(cfg.compute_dtype)
     qm = dict(qcfg=cfg.quant, quant_mode=quant_mode, compute_dtype=cd,
@@ -279,41 +319,74 @@ def slstm_apply(p, cfg, x, *, quant_mode="none", cache=None,
     nh = cfg.num_heads
     hd = d // nh
     wx = dense_apply(p["w_gates"], x, compute_dtype=torch.float32)
-    r = p["r_gates"].to(torch.float32)
+    decoding = cache is not None and cache_index is not None
+    if cache is None:
+        src = init_slstm_cache(cfg, b, device=x.device)
+    else:
+        src = cache
+        if not decoding:
+            _fresh(cache)
 
     with torch.profiler.record_function("slstm"):
-        decoding = cache is not None and cache_index is not None
-        if decoding:
-            state = tuple(cache[n].to(torch.float32) for n in _SLSTM_STATE)
-            vlen = (torch.full((b,), s, dtype=torch.int64, device=x.device)
-                    if cache_valid is None else
-                    torch.as_tensor(cache_valid, device=x.device)
-                    .to(torch.int64))
-            keep = torch.arange(s, device=x.device)[None, :] < vlen[:, None]
-            steps = s
-        else:
-            state = tuple(torch.zeros((b, nh, hd), dtype=torch.float32,
-                                      device=x.device) for _ in range(3)) \
-                + (torch.full((b, nh, hd), -1e30, dtype=torch.float32,
-                              device=x.device),)
+        states = [tuple(t.to(torch.float32) for t in shard) for shard in
+                  zip(*(sharding.parts(src[n]) for n in _SLSTM_STATE))]
+        keep = None
+        if not decoding:
             l_chunk = min(chunk, s)
-            steps = s + (-s) % l_chunk
-            wx = torch.nn.functional.pad(wx, (0, 0, 0, steps - s))
-        hs = []
-        for t in range(steps):
-            st2 = _slstm_step(r, state, wx[:, t], nh, hd)
-            if decoding:
-                st2 = tuple(torch.where(keep[:, t, None, None], a2, a1)
-                            for a1, a2 in zip(state, st2))
-            state = st2
-            hs.append(state[2])
-        h_seq = torch.stack(hs[:s], dim=1)               # [B, S, NH, hd]
+            wx = torch.nn.functional.pad(wx, (0, 0, 0, (-s) % l_chunk))
+        elif cache_valid is not None:
+            vlen = valid_lengths(cache_valid, b, s, x.device)
+            keep = torch.arange(s, device=x.device)[None, :] < vlen[:, None]
+        h_seq, states = _slstm_scan(p, wx, states, keep, nh, hd)
         if cache is not None:
-            for name, val in zip(_SLSTM_STATE, state):
-                cache[name].copy_(val)
+            for i, shard in enumerate(states):
+                for name, val in zip(_SLSTM_STATE, shard):
+                    sharding.parts(cache[name])[i].copy_(val)
 
-    h = h_seq.reshape(b, s, d).to(cd)
+    return _slstm_out(p, cfg, h_seq[:, :s], qm), cache
+
+
+def _slstm_scan(p, wx, states, keep, nh, hd):
+    """The sLSTM step by step over ``wx`` [B, T, 4d] (each step's input
+    contribution) from ``states``: (c, n, h, m) by shard, each [B, NH, hd
+    / n] f32 on its shard's device -- the states split on hd over n
+    shards, one when whole.  At each step ``h`` joins whole on the home
+    device (wx's); shard i computes the columns of ``h @ r_gates`` for its
+    channels of the four gate blocks (``sharding.channel_part``: a [NH,
+    hd, 4, hd / n] view) and the elementwise update of its slices.
+    ``keep`` [B, T] (None: every step) says which steps advance a row's
+    state.  Returns (the hidden states [B, T, NH, hd] on the home device,
+    the final states by shard)."""
+    b, steps = wx.shape[:2]
+    home = wx.device
+    n = len(states)
+    w = hd // n
+    devs = [shard[0].device for shard in states]
+    wx4 = wx.reshape(b, steps, nh, 4, hd)
+    wxs = [wx4[..., i * w:(i + 1) * w].to(dev) for i, dev in enumerate(devs)]
+    rs = [sharding.channel_part(p, "r_gates", i, n, dev).to(torch.float32)
+          for i, dev in enumerate(devs)]
+    keeps = [None if keep is None else keep.to(dev) for dev in devs]
+    h = sharding.join([shard[2] for shard in states], home)
+    hs = []
+    for t in range(steps):
+        for i, dev in enumerate(devs):
+            rx = torch.einsum("bhd,hdge->bhge", h.to(dev), rs[i])
+            gates = wxs[i][:, t] + rx                # [B, NH, 4, hd / n]
+            st2 = _slstm_update(states[i], *gates.unbind(dim=2))
+            states[i] = st2 if keeps[i] is None else tuple(
+                torch.where(keeps[i][:, t, None, None], a2, a1)
+                for a1, a2 in zip(states[i], st2))
+        h = sharding.join([shard[2] for shard in states], home)
+        hs.append(h)
+    return torch.stack(hs, dim=1), states
+
+
+def _slstm_out(p, cfg, h_seq, qm):
+    """The norm and the post-sLSTM gated FFN (proj factor 4/3) over the
+    hidden states [B, S, NH, hd]."""
+    b, s = h_seq.shape[:2]
+    h = h_seq.reshape(b, s, cfg.d_model).to(qm["compute_dtype"])
     h = common.rmsnorm_apply(p["norm"], h, cfg.norm_eps)
-    # the post-sLSTM gated FFN (proj factor 4/3)
     u, g = torch.chunk(dense_apply(p["ffn_up"], h, **qm), 2, dim=-1)
-    return dense_apply(p["ffn_down"], u * silu(g), **qm), cache
+    return dense_apply(p["ffn_down"], u * silu(g), **qm)

@@ -13,14 +13,16 @@ or a tensor that cannot split -- degrades to the single-device layout.
 A placed leaf whose spec names ``'model'`` is a :class:`Sharded`: one part
 per shard, each a contiguous tensor on its shard's device.  The model code
 computes on the parts shard by shard (``models/common.dense_apply``,
-``models/attention.attention_apply``) and joins the results on the home
-device (the mesh row's first); a leaf left whole lives once, on the home
-device, and is computed once.
+``models/attention.attention_apply``, ``models/mamba.mamba_apply``,
+``models/xlstm.mlstm_apply`` / ``slstm_apply``) and joins the results on
+the home device (the mesh row's first); a leaf left whole lives once, on
+the home device, and is computed once.  A whole per-channel param of a
+recurrent block (:data:`CHANNEL_LEAVES`) is a :class:`Mirrored`: the
+channel-split states' shards each read their slice of it.
 
 The training rules (``_RULES``, ``param_pspec``, the optimizer-state,
 batch and activation constraints) belong to the multi-GPU training slice
-(ROADMAP.md item 16).  Recurrent states stay whole here; the reference
-splits their channel dimensions (ROADMAP.md item 14b).
+(ROADMAP.md item 16).
 """
 
 from __future__ import annotations
@@ -76,6 +78,92 @@ class Sharded:
                 f"{self.axis}, {len(self.parts)} parts)")
 
 
+#: The tolerance a block over channel-split states is held to against one
+#: shard, relative to the largest magnitude of the compared tensor.  The
+#: mLSTM's ``q . C`` and ``q . n`` sum over the split key axis as per-shard
+#: partial sums, in another order than one shard's contraction, and the
+#: sLSTM's per-shard columns of ``h @ r_gates`` may be reduced in another
+#: blocking.  Mamba's per-channel work reduces only over unsplit axes and
+#: is bit-equal on the CPU; on the card cuBLAS picks the kernel of
+#: ``dt_proj``'s f32 product by shape, and at a shard's width it rounds
+#: the last bit differently from the whole width's (the conv's contraction
+#: stays bit-equal: ``chip_smoke.py``'s ``mamba_probe``).
+CHANNEL_SPLIT_RTOL = 1e-5
+
+#: The whole per-channel params of the recurrent blocks, by name: the axis
+#: of their channels (``r_gates`` [NH, hd, 4 hd]: axis 3 of its [NH, hd, 4,
+#: hd] view, each gate block's channels).  Their specs keep them whole, as
+#: the reference's do; a shard of a channel-split state reads its slice.
+CHANNEL_LEAVES = {"conv_w": 1, "conv_b": 0, "A_log": 0, "D": 0,
+                  "r_gates": 3}
+_CHANNEL_PATHS = re.compile(r"/(mamba/(conv_w|conv_b|A_log|D)|"
+                            r"slstm/r_gates)$")
+
+
+def channel_slice(name: str, leaf: torch.Tensor, i: int, n: int):
+    """Shard ``i`` of ``n``'s channels of the whole per-channel param
+    ``name`` (:data:`CHANNEL_LEAVES`), a view."""
+    if name == "r_gates":
+        nh, hd, _ = leaf.shape
+        leaf = leaf.view(nh, hd, 4, hd)
+    axis = CHANNEL_LEAVES[name]
+    w = leaf.shape[axis] // n
+    return leaf.narrow(axis, i * w, w)
+
+
+class Mirrored:
+    """A whole per-channel param (:data:`CHANNEL_LEAVES`) of a layer whose
+    states split by channel: ``whole`` lives on the home device, and
+    ``parts[i]`` is the copy of shard i's channel slice on shard i's
+    device, made once at placement -- None for a shard on the home
+    device, which reads a view of ``whole`` (:func:`channel_part`)."""
+
+    __slots__ = ("name", "whole", "parts")
+
+    def __init__(self, name: str, whole: torch.Tensor, devices):
+        self.name, self.whole = name, whole
+        n = len(devices)
+        self.parts = tuple(
+            None if d == whole.device else
+            channel_slice(name, whole, i, n).contiguous().to(d)
+            for i, d in enumerate(devices))
+
+    def nbytes(self) -> int:
+        """The whole leaf's bytes and its copies'."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.whole, *self.parts) if t is not None)
+
+    def __repr__(self):
+        return (f"Mirrored({self.name}, {tuple(self.whole.shape)}, "
+                f"{len(self.parts)} shards)")
+
+
+def mirror(path: str, leaf: torch.Tensor, devices):
+    """``leaf`` as a :class:`Mirrored` when ``path`` names a whole
+    per-channel param of a recurrent block and its channels divide over
+    the shards (as its block's states then do); else ``leaf``."""
+    m = _CHANNEL_PATHS.search(path)
+    n = len(devices)
+    if m is None or n == 1:
+        return leaf
+    name = m.group(2) or "r_gates"
+    axis = CHANNEL_LEAVES[name]
+    channels = leaf.shape[1] if name == "r_gates" else leaf.shape[axis]
+    return Mirrored(name, leaf, devices) if channels % n == 0 else leaf
+
+
+def channel_part(node: dict, name: str, i: int, n: int, device):
+    """Shard ``i`` of ``n``'s channel slice of the per-channel param
+    ``node[name]`` on ``device``: a :class:`Mirrored`'s copy, else a view
+    of the whole leaf (moved when it lies elsewhere)."""
+    leaf = node[name]
+    if isinstance(leaf, Mirrored):
+        if leaf.parts[i] is not None:
+            return leaf.parts[i]
+        leaf = leaf.whole
+    return channel_slice(name, leaf, i, n).to(device)
+
+
 def parts(leaf) -> tuple:
     """A leaf's per-shard tensors: a :class:`Sharded` leaf's parts, or the
     leaf itself as the one part."""
@@ -84,15 +172,19 @@ def parts(leaf) -> tuple:
 
 def whole(leaf, device=None):
     """The whole tensor of a leaf (a :class:`Sharded` joined on
-    ``device``; anything else as it is)."""
+    ``device``, a :class:`Mirrored`'s whole leaf; anything else as it
+    is)."""
+    if isinstance(leaf, Mirrored):
+        return leaf.whole
     return leaf.whole(device) if isinstance(leaf, Sharded) else leaf
 
 
 def whole_tree(tree, device=None):
-    """``tree`` with every :class:`Sharded` leaf joined (checkpoints and
-    exported states hold whole tensors)."""
-    if isinstance(tree, Sharded):
-        return tree.whole(device)
+    """``tree`` with every :class:`Sharded` leaf joined and every
+    :class:`Mirrored` its whole leaf (checkpoints and exported states hold
+    whole tensors)."""
+    if isinstance(tree, (Sharded, Mirrored)):
+        return whole(tree, device)
     if isinstance(tree, dict):
         return {k: whole_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -133,11 +225,35 @@ def shard_device(node: dict, i: int) -> torch.device:
 def local(node: dict, i: int) -> dict:
     """Shard ``i``'s view of a layer's dict: each :class:`Sharded` value
     its part ``i``, each whole tensor moved to that part's device (a no-op
-    when the shard sits on the home device), anything else as it is."""
+    when the shard sits on the home device), anything else as it is.  A
+    dict with no :class:`Sharded` value is its own one shard."""
+    if not num_shards(node):
+        return node
     dev = shard_device(node, i)
     return {k: v.parts[i] if isinstance(v, Sharded)
             else v.to(dev) if isinstance(v, torch.Tensor) else v
             for k, v in node.items()}
+
+
+def join(outs, device, dim: int = -1) -> torch.Tensor:
+    """The shards' results ``outs`` joined along ``dim`` on ``device`` (one
+    shard's result only moved), in a ``shard_join`` profiler range."""
+    if len(outs) == 1:
+        return outs[0].to(device)
+    with torch.profiler.record_function("shard_join"):
+        return torch.cat([t.to(device) for t in outs], dim=dim)
+
+
+def add_up(outs, device) -> torch.Tensor:
+    """The shards' partial sums ``outs`` added on ``device`` in shard order
+    (one shard's sum only moved), in a ``shard_join`` profiler range."""
+    if len(outs) == 1:
+        return outs[0].to(device)
+    with torch.profiler.record_function("shard_join"):
+        total = outs[0].to(device)
+        for t in outs[1:]:
+            total = total + t.to(device)
+        return total
 
 
 def split(leaf: torch.Tensor, spec, devices) -> torch.Tensor | Sharded:
@@ -187,6 +303,14 @@ def cache_pspec(path: str, leaf, mesh) -> tuple:
         return _guard(mesh, shape, (None, None, MODEL))
     if re.search(r"attn/(k|v)$", path):
         return _guard(mesh, shape, (None, None, MODEL, None))
+    if path.endswith("mamba/conv"):
+        return _guard(mesh, shape, (None, None, MODEL))
+    if path.endswith("mamba/ssm"):
+        return _guard(mesh, shape, (None, MODEL, None))
+    if path.endswith("mlstm/C"):
+        return _guard(mesh, shape, (None, None, MODEL, None))
+    if path.endswith("mlstm/n") or re.search(r"slstm/(c|n|h|m)$", path):
+        return _guard(mesh, shape, (None, None, MODEL))
     return (None,) * len(shape)
 
 
@@ -199,8 +323,12 @@ def cache_shardings(caches, mesh):
     head), so a head shard holds whole, locally decodable words.  The batch
     axis (a page pool's page axis, which any slot's block table may point
     into) stays whole, as it does on the reference's one-row ``data``
-    axis.  Recurrent states and an encoder-decoder's cross K/V stay
-    whole."""
+    axis.  Recurrent states split their channels, as the reference's
+    do: mamba's ``conv`` [B, cw-1, di] on axis 2 and ``ssm`` [B, di, ds]
+    on axis 1; the mLSTM's ``C`` [B, NH, hd, hd] and ``n`` [B, NH, hd] on
+    axis 2 (the key dimension of the matrix memory); the sLSTM's ``c``,
+    ``n``, ``h`` and ``m`` [B, NH, hd] on axis 2.  The mLSTM's ``m`` [B,
+    NH] and an encoder-decoder's cross K/V stay whole."""
     return map_with_path(lambda p, leaf: cache_pspec(p, leaf, mesh), caches)
 
 

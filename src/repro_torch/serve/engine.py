@@ -31,11 +31,12 @@ draft) are CUDA graphs on the card, sharing one split-K workspace.
 
 With ``mesh`` (a one-row launch/mesh.ServingMesh) the engine serves
 tensor-parallel: a serve/shard.ShardPlan splits the packed weights'
-columns and the caches' kv heads over the row's devices, each shard
-launching its own kernels at its own shapes; the token stream is the
-single-device engine's.  The accessors ``num_pending``, ``num_live``,
-``take_queued`` and ``take_finished`` are what serve/router.Router
-reads.
+columns, the caches' kv heads and the recurrent states' channels over
+the row's devices, each shard launching its own kernels at its own
+shapes (a speculative engine's draft is split the same way); the token
+stream is the single-device engine's.  The accessors ``num_pending``,
+``num_live``, ``take_queued`` and ``take_finished`` are what
+serve/router.Router reads.
 """
 
 from __future__ import annotations
@@ -176,10 +177,11 @@ class ServingEngine:
             self._validate_speculative(cfg)
         lm.check_supported(cfg)
         # tensor-parallel serving: with a one-row ('data', 'model') mesh a
-        # ShardPlan splits the packed weights' columns and the caches' kv
-        # heads over the row's devices (serve/shard.py); the engine runs on
-        # the row's first device, where every whole leaf lives.  A mesh of
-        # one shard is the single-device engine.
+        # ShardPlan splits the packed weights' columns, the caches' kv
+        # heads and the recurrent states' channels over the row's devices
+        # (serve/shard.py), the draft's too; the engine runs on the row's
+        # first device, where every whole leaf lives.  A mesh of one shard
+        # is the single-device engine.
         self.shard_plan = None
         if mesh is not None:
             if mesh.shape["data"] != 1:
@@ -187,10 +189,6 @@ class ServingEngine:
                     f"an engine serves one replica: its mesh has "
                     f"{mesh.shape['data']} data rows (serve/router.Router "
                     f"serves one engine a row)")
-            if config.speculative_k:
-                raise NotImplementedError(
-                    "speculative decoding under a serving mesh is still to "
-                    "be ported (ROADMAP.md Queue 1 item 14b)")
             self.shard_plan = ShardPlan(mesh)
             device = self.shard_plan.devices[0]
         self.device = plan_lib.resolve_device(device)
@@ -283,6 +281,9 @@ class ServingEngine:
         self._fresh = {kind: lm.init_recurrent_cache(cfg, kind, 1,
                                                      self.device)
                        for kind in kinds - {"attn"}}
+        if self.shard_plan is not None:
+            # split as the caches are: each shard resets its own channels
+            self._fresh = self.shard_plan.place_caches(self._fresh)
         # speculative decoding: the draft model (the same checkpoint
         # re-packed at draft_w_bits, its own caches and, paged, its own
         # pool); pure-decode passes become draft + verify cycles
@@ -292,22 +293,24 @@ class ServingEngine:
             self.spec = speculative_lib.DraftModel(
                 cfg, params, config, max_batch=max_batch,
                 max_len=self.max_len, device=self.device,
-                target_params=self.params, backend=backend)
+                target_params=self.params, backend=backend,
+                shard_plan=self.shard_plan)
         # the steps over static buffers, bound to these params and caches
         # (which stay at their addresses: copy-on-write, copy_page and
         # import_paged_state write into them in place); on the card they
         # are warmed up and captured as CUDA graphs here
         t0 = time.perf_counter()
         bt_width = self.pages_per_slot if self.paged else None
+        # one CUDA graph cannot span cards: shards on distinct devices step
+        # eagerly (capacity_report's step_graphs says so)
+        capture = self.shard_plan is None \
+            or len(set(self.shard_plan.devices)) == 1
         if self.spec is None:
-            # one CUDA graph cannot span cards: shards on distinct devices
-            # step eagerly (capacity_report's step_graphs says so)
             self._decode, self._prefill = steps_lib.graphed_serving_steps(
                 run_cfg, self.params, self.caches, batch=max_batch,
                 prefill_chunk=self.prefill_chunk,
                 block_table_width=bt_width, backend=backend,
-                capture=self.shard_plan is None
-                or len(set(self.shard_plan.devices)) == 1)
+                capture=capture)
         else:
             st = steps_lib.graphed_speculative_steps(
                 run_cfg, self.params, self.caches, self.spec.run_cfg,
@@ -315,7 +318,7 @@ class ServingEngine:
                 batch=max_batch, prefill_chunk=self.prefill_chunk,
                 block_table_width=bt_width,
                 draft_block_table_width=self.spec.pages_per_slot,
-                backend=backend)
+                backend=backend, capture=capture)
             self._decode, self._prefill = st["decode"], st["prefill_chunk"]
             self._verify = st["verify"]
             self.spec.prefill_step = st["draft_prefill"]
@@ -370,7 +373,8 @@ class ServingEngine:
 
     def _reset_slot(self, slot: int):
         """Restore the slot's rows of every recurrent state to the fresh
-        values, in place (the steps' graphs hold the cache pointers).
+        values, in place (the steps' graphs hold the cache pointers; a
+        channel-split state's shards each write their slice).
         Attention rows need no reset: validity is re-derived per call from
         the slot offsets, so stale rows stay masked until overwritten.  An
         encoder-decoder's ``cross_kv`` (None: the engine serves it
@@ -380,7 +384,11 @@ class ServingEngine:
             for kind, sub in layer.items():
                 if kind in self._fresh:
                     for name, buf in sub.items():
-                        buf[slot:slot + 1].copy_(self._fresh[kind][name])
+                        # a channel-split state: each shard its own slice
+                        for dst, src in zip(
+                                sharding.parts(buf),
+                                sharding.parts(self._fresh[kind][name])):
+                            dst[slot:slot + 1].copy_(src)
 
     # -- paged reservation / copy-on-write -----------------------------
 
@@ -797,7 +805,9 @@ class ServingEngine:
         physical-vs-logical page counters (free / live / shared pages,
         prefix-hit, COW and eviction counts); speculative engines a
         ``speculative`` section (the draft's precision, param bytes and
-        pool)."""
+        pool); tensor-parallel engines a ``shard_plan`` section (the param
+        bytes by shard and, with recurrent layers, a slot's state bytes by
+        shard beside the one-shard figure)."""
         rep = {
             "kv_bits": self.cfg.quant.kv_bits or 16,
             "cache_bytes_per_slot": self.cache_bytes_per_slot,
@@ -832,6 +842,10 @@ class ServingEngine:
                 **self.shard_plan.describe(),
                 "param_bytes": self.shard_plan.shard_param_bytes(
                     self.params)}
+            if self._fresh:
+                rep["shard_plan"]["recurrent_bytes_per_slot"] = \
+                    self.shard_plan.shard_state_bytes(self.caches,
+                                                      self.max_batch)
         return rep
 
     # ------------------------------------------------------------------
@@ -842,8 +856,8 @@ class ServingEngine:
         """(caches, pool_meta): the device page pools (every layer's paged
         KV leaves -- the bytes behind the warm prefix cache) and the pool's
         JSON-able bookkeeping.  Drain retires live slots first, so what
-        survives is the prefix index and its pages.  Kv-head-split leaves
-        come back whole."""
+        survives is the prefix index and its pages.  Kv-head- and
+        channel-split leaves come back whole."""
         if not self.paged:
             raise ValueError("export_paged_state on an unpaged engine")
         return sharding.whole_tree(self.caches), self.pool.export_meta()
@@ -853,8 +867,8 @@ class ServingEngine:
         inverse of :meth:`export_paged_state`).  The geometry must match
         this engine's; every cache leaf -- the pools and any recurrent
         layer's per-slot states -- is copied into this engine's own
-        tensors, which keep their addresses (each kv-head shard takes its
-        slice of a whole leaf)."""
+        tensors, which keep their addresses (each kv-head or channel shard
+        takes its slice of a whole leaf)."""
         if not self.paged:
             raise ValueError("import_paged_state on an unpaged engine")
         if (pool_meta["num_pages"] != self.num_pages

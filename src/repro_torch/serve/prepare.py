@@ -183,10 +183,10 @@ def cache_page_bytes(cfg, page_size: int) -> int:
 
 def serving_param_bytes(params) -> int:
     """Device bytes of a serving param tree (every shard's part of a split
-    leaf counted)."""
+    leaf counted, and a ``Mirrored`` leaf's copies)."""
     if isinstance(params, torch.Tensor):
         return params.numel() * params.element_size()
-    if isinstance(params, sharding.Sharded):
+    if isinstance(params, (sharding.Sharded, sharding.Mirrored)):
         return params.nbytes()
     if isinstance(params, dict):
         return sum(serving_param_bytes(v) for v in params.values())

@@ -23,6 +23,12 @@ The layout keeps sub-byte packing exact under sharding:
   quantization, word-packing, writes and fused reads are per (position,
   kv head), so each shard's window write and K3 / K4 read cover its own
   ``KVH / tp`` kv heads and the ``H / tp`` query heads that use them.
+* **Recurrent states split their channels** (mamba's ``di``, the mLSTM's
+  and the sLSTM's head dimension): each shard runs the per-channel work
+  of its slice in place, and a whole per-channel param (the conv, ``A_log``,
+  ``D``, the sLSTM's ``r_gates``) is a ``sharding.Mirrored`` whose slice
+  the shard reads -- a view on the home device, a copy made here on any
+  other.
 
 Every rule is divisibility-guarded: a dimension the shard count does not
 divide stays whole, and a one-shard mesh is the single-device layout.
@@ -99,22 +105,34 @@ class ShardPlan:
 
     def place_params(self, params):
         """``params`` with every split leaf a ``Sharded`` over the shards'
-        devices and every whole tensor on the home device."""
+        devices, every whole tensor on the home device, and each whole
+        per-channel param of a channel-split recurrent block a
+        ``Mirrored`` (its slices copied to the shards off the home
+        device)."""
         def one(path, leaf):
             if not isinstance(leaf, torch.Tensor):
                 return leaf
-            return sharding_lib.split(leaf, self.param_pspec(f"/{path}", leaf),
-                                      self.devices)
+            placed = sharding_lib.split(
+                leaf, self.param_pspec(f"/{path}", leaf), self.devices)
+            if isinstance(placed, torch.Tensor):
+                placed = sharding_lib.mirror(f"/{path}", placed,
+                                             self.devices)
+            return placed
         return sharding_lib.map_with_path(one, params)
 
     def shard_param_bytes(self, params) -> dict:
         """Serving-param bytes by shard: ``split`` -- each shard's slices of
-        the split leaves; ``whole`` -- the leaves left whole; ``per_shard``
-        -- what each shard would hold on a device of its own (its slices
-        plus the whole leaves)."""
+        the split leaves and its copies of ``Mirrored`` slices; ``whole``
+        -- the leaves left whole; ``per_shard`` -- what each shard would
+        hold on a device of its own (its slices plus the whole leaves)."""
         split, rest = [0] * self.model_shards, 0
         for leaf in tree_lib.leaves(params):
-            if isinstance(leaf, sharding_lib.Sharded):
+            if isinstance(leaf, sharding_lib.Mirrored):
+                rest += leaf.whole.numel() * leaf.whole.element_size()
+                for i, p in enumerate(leaf.parts):
+                    if p is not None:
+                        split[i] += p.numel() * p.element_size()
+            elif isinstance(leaf, sharding_lib.Sharded):
                 for i, p in enumerate(leaf.parts):
                     split[i] += p.numel() * p.element_size()
             elif isinstance(leaf, torch.Tensor):
@@ -127,11 +145,33 @@ class ShardPlan:
     # ------------------------------------------------------------------
 
     def place_caches(self, caches):
-        """``caches`` with the kv-head-split leaves ``Sharded`` (a page
-        pool's too: its page axis stays whole)."""
+        """``caches`` with the kv-head-split and channel-split leaves
+        ``Sharded`` (a page pool's too: its page axis stays whole)."""
         return sharding_lib.place(
             caches, sharding_lib.cache_shardings(caches, self.mesh),
             self.devices)
+
+    def shard_state_bytes(self, caches, batch: int) -> dict:
+        """A slot's recurrent-state bytes (``caches`` holds ``batch`` slot
+        rows) by shard: ``split`` -- each shard's channel slices;
+        ``whole`` -- the states left whole (the mLSTM's ``m``, and any
+        whose channels do not divide), on the home device; ``per_shard``
+        -- its slices plus the whole states; ``one_shard`` -- the
+        unsplit total."""
+        split, rest = [0] * self.model_shards, 0
+        for layer in caches:
+            for kind, sub in layer.items():
+                if kind in ("attn", "cross_kv") or sub is None:
+                    continue
+                for leaf in sub.values():
+                    if isinstance(leaf, sharding_lib.Sharded):
+                        for i, p in enumerate(leaf.parts):
+                            split[i] += p.numel() * p.element_size() // batch
+                    else:
+                        rest += leaf.numel() * leaf.element_size() // batch
+        return {"split": split, "whole": rest,
+                "per_shard": [s + rest for s in split],
+                "one_shard": sum(split) + rest}
 
     # ------------------------------------------------------------------
 

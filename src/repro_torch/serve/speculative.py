@@ -140,7 +140,13 @@ class DraftModel:
 
     The pool holds ``max_batch x pages_per_slot`` pages (every slot's
     worst case, no sharing), so a draft reservation cannot fail once the
-    target's has succeeded.  Per slot: ``fed`` (prompt tokens the draft
+    target's has succeeded.  With a ``shard_plan`` (serve/shard.ShardPlan,
+    the target's) the draft is laid out as the target is: its packed
+    leaves split their columns (the dense store's words pack along K, as
+    lanes do, so no column straddles a shard), its plans are the
+    per-shard products, and its caches -- contiguous, or the pool with its
+    page axis whole -- split their kv heads; an unpacked draft shares the
+    target's placed params.  Per slot: ``fed`` (prompt tokens the draft
     has consumed: it replays the FULL prompt even when the target
     prefix-skips) and the stashed first-token logits of a slot whose
     target finished its prompt before the draft did.  The engine binds the
@@ -148,7 +154,7 @@ class DraftModel:
 
     def __init__(self, cfg, raw_params, econf: EngineConfig, *,
                  max_batch: int, max_len: int, device, target_params,
-                 backend: str = "auto"):
+                 backend: str = "auto", shard_plan=None):
         self.k = econf.speculative_k
         self.cfg = draft_model_config(cfg, econf)
         self.max_batch = max_batch
@@ -171,10 +177,14 @@ class DraftModel:
             raw_params, self.cfg, dense_store=econf.dense_store,
             autotune=econf.autotune, recalibrate=recalib,
             device=device) if self.packed else target_params
+        self.shard_plan = shard_plan
         self.plans = build_layer_plans(
             self.params, self.run_cfg, batch_rows=max_batch,
             prefill_rows=max_batch * econf.prefill_chunk,
-            backend=backend, autotune=econf.autotune) if self.packed else {}
+            backend=backend, autotune=econf.autotune,
+            shard_plan=shard_plan) if self.packed else {}
+        if shard_plan is not None and self.packed:
+            self.params = shard_plan.place_params(self.params)
         self.paged = econf.paged
         kv_bits = self.cfg.quant.kv_bits
         self.pages_per_slot = None
@@ -196,6 +206,8 @@ class DraftModel:
         else:
             self.caches = lm.init_caches(self.cfg, max_batch, max_len,
                                          dtype=torch.bfloat16, device=device)
+        if shard_plan is not None:
+            self.caches = shard_plan.place_caches(self.caches)
         self.fed = np.zeros(max_batch, np.int32)
         self._stash: dict[int, np.ndarray] = {}
         self.draft_step = self.prefill_step = None    # bound by the engine
@@ -246,7 +258,8 @@ class DraftModel:
 
     def describe(self) -> dict:
         """The ``speculative`` section of ``capacity_report``: the draft's
-        precision, its param bytes on the device and, paged, its pool."""
+        precision, its param bytes on the device, by shard under a
+        ShardPlan, and, paged, its pool."""
         rep = {
             "speculative_k": self.k,
             "draft_w_bits": self.cfg.quant.w_bits if self.packed else 0,
@@ -257,6 +270,10 @@ class DraftModel:
             "draft_param_bytes": serving_param_bytes(self.params)
             if self.packed else 0,
         }
+        if self.shard_plan is not None:
+            rep["draft_shard_param_bytes"] = \
+                self.shard_plan.shard_param_bytes(self.params) \
+                if self.packed else None
         if self.paged:
             rep.update(draft_num_pages=self.num_pages,
                        draft_page_bytes=self.page_bytes,

@@ -316,6 +316,67 @@ def test_two_distinct_cards_step_eagerly(hopper):
     assert got == want
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_two_shards_on_one_card_speculative_graphed(hopper, paged):
+    """A speculative engine (k = 2, a W2 draft) with both shards on the
+    card: all five steps captured, the draft's K2 launches twice the
+    one-shard draft's, and the tokens and acceptance counts the one-shard
+    speculative engine's."""
+    from repro_torch.launch.mesh import ServingMesh
+    cfg = _cfg(4)
+    params = lm.init_params(cfg, torch.Generator(device=hopper).manual_seed(2),
+                            device=hopper)
+    runs = {}
+    for n, mesh in ((1, None), (2, ServingMesh([[hopper, hopper]]))):
+        eng = engine_lib.ServingEngine(
+            cfg, params, device=hopper, mesh=mesh,
+            config=engine_lib.EngineConfig(
+                max_batch=3, max_len=48, prefill_chunk=8, paged=paged,
+                page_size=16, speculative_k=2, draft_w_bits=2))
+        rng = np.random.default_rng(7)
+        reqs = [engine_lib.Request(i, rng.integers(0, 512, m).astype(
+            np.int32), max_new_tokens=6) for i, m in enumerate((5, 11, 17))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        steps_ = (eng._decode, eng._prefill, eng._verify,
+                  eng.spec.prefill_step, eng.spec.draft_step)
+        assert all(st.graph is not None for st in steps_)
+        m = eng.metrics
+        runs[n] = ([r.output for r in reqs],
+                   (m.drafted_tokens, m.accepted_tokens, m.spec_cycles),
+                   eng.spec.draft_step.launches[
+                       (ulppack_matmul, "mma_launches")]["quant_affine"])
+    assert runs[2][:2] == runs[1][:2]
+    assert runs[2][2] == 2 * runs[1][2]
+
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+def test_two_shards_on_one_card_recurrent_graphed(hopper, name):
+    """Reduced xlstm and jamba with channel-split states, both shards on
+    the card, graphed: the tokens are the one-shard engine's and every
+    state after the run is within ``CHANNEL_SPLIT_RTOL`` of one shard's."""
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.parallel import sharding
+    cfg = configs.get_config(name, reduced=True).replace(quant=QuantConfig(
+        enabled=True, w_bits=2, a_bits=2, kv_bits=4))
+    params = lm.init_params(cfg, torch.Generator(device=hopper).manual_seed(2),
+                            device=hopper)
+    runs = {}
+    for n, mesh in ((1, None), (2, ServingMesh([[hopper, hopper]]))):
+        toks, eng = _shard_tokens(cfg, params, hopper, mesh=mesh)
+        assert eng.capacity_report()["step_graphs"]
+        runs[n] = toks, {(i, k, leaf): sharding.whole(t).float()
+                         for i, layer in enumerate(eng.caches)
+                         for k, sub in layer.items() if k != "attn"
+                         for leaf, t in sub.items()}
+    assert runs[2][0] == runs[1][0]
+    for key, want in runs[1][1].items():
+        scale = float(want.abs().max()) or 1.0
+        assert float((runs[2][1][key] - want).abs().max()) \
+            <= sharding.CHANNEL_SPLIT_RTOL * scale, key
+
+
 @pytest.mark.parametrize("kv_bits", [16, 4])
 def test_moe_ring_engine_graphed_tokens_equal_eager(hopper, kv_bits):
     """Reduced mixtral-8x7b (MoE FFNs, a ring of 8 slots): the engine on

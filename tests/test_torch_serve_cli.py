@@ -3,7 +3,8 @@ parser has the reference's flags, groups, choices and defaults plus
 ``--device``; ``EngineConfig.from_args`` gives the reference's fields on
 the same flag lists, budget edge cases included; ``main`` serves the
 reduced config, saves an ``--autotune`` cache where the environment
-says, and serves tensor-parallel and through the replica Router."""
+says, and serves tensor-parallel (speculative too) and through the
+replica Router."""
 
 import dataclasses
 
@@ -164,6 +165,24 @@ def test_data_parallel_serves_through_the_router(capsys):
     assert cap["fleet_slots"] == 4
     assert [c["shard_plan"]["model_shards"]
             for c in cap["replica_capacity"]] == [2, 2]
+
+
+def test_speculative_k_with_model_parallel(capsys):
+    """``--speculative-k 2 --model-parallel 2`` on an explicit two-device
+    cpu mesh: one speculative engine, tensor-parallel two ways, its draft
+    split as its target is."""
+    from repro_torch.launch.mesh import ServingMesh
+    rep = tserve.main([*CPU, "--requests", "3", "--speculative-k", "2",
+                       "--model-parallel", "2", "--metrics"],
+                      mesh=ServingMesh([["cpu", "cpu"]]))
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "3 requests, 24 generated tokens (model-parallel x2)"
+    cap = rep["capacity"]
+    assert cap["shard_plan"]["model_shards"] == 2
+    assert cap["speculative"]["speculative_k"] == 2
+    split = cap["speculative"]["draft_shard_param_bytes"]["split"]
+    assert len(split) == 2 and split[0] == split[1] > 0
+    assert rep["spec_cycles"] > 0
 
 
 def test_main_serves_reduced_mixtral(capsys):

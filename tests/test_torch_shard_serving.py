@@ -9,16 +9,21 @@ kv-head-split cache one window write and one K3 / K4 read a shard.  The
 sharded engine's tokens equal the one-shard engine's and the reference's
 single-device engine's (its steps op by op, on the same weights bridged)
 at W2/W4 x kv 16/4/2, paged, with kv heads the shards do not divide, and
-for reduced jamba (MoE, mamba and attention in one stack); each shard
+for reduced jamba (MoE, mamba and attention in one stack); a speculative
+engine under a mesh (lanes and dense drafts, paged and not) gives the
+one-shard speculative engine's tokens and acceptance counts, and the
+reference's speculative engine's (op by op); each shard
 holds only its columns and kv heads; the specs agree leaf by leaf with
 the reference's ``ShardPlan`` on a 4-wide ``model`` axis (a
 ``jax.sharding.AbstractMesh`` on one host device), the MoE router's
-kernel apart.  The card's cases (two shards on one card graphed,
-two distinct cards eager) are in ``tests/test_torch_cuda_graphs.py``,
-which imports no JAX."""
+kernel apart, and the cache specs on every leaf, recurrent states
+included.  The channel-split recurrent states are in
+``tests/test_torch_shard_recurrent.py``.  The card's cases (two shards
+on one card graphed, speculative and recurrent too; two distinct cards
+eager) are in ``tests/test_torch_cuda_graphs.py``, which imports no
+JAX."""
 
 import functools
-import re
 
 import pytest
 
@@ -172,8 +177,9 @@ def test_gqa_kv_heads_that_do_not_divide_stay_whole():
 
 def test_reduced_jamba_two_shards():
     """MoE, mamba and attention layers in one stack: the packed
-    projections split; the MoE router's kernel, the 3-D experts and the
-    recurrent states stay whole."""
+    projections split; the MoE router's kernel and the 3-D experts stay
+    whole; the mamba states split their channels (``conv`` on axis 2,
+    ``ssm`` on axis 1)."""
     name = "jamba-1.5-large-398b"
     cfg, params = model(name, 2, 4)
     got, eng = serve(cfg, params, cpu_mesh(2))
@@ -186,8 +192,9 @@ def test_reduced_jamba_two_shards():
             assert isinstance(layer["moe"]["router"]["kernel"], torch.Tensor)
             assert isinstance(layer["moe"]["up"]["kernel"], torch.Tensor)
         if "mamba" in cache:
-            assert all(isinstance(t, torch.Tensor)
-                       for t in cache["mamba"].values())
+            conv, ssm = cache["mamba"]["conv"], cache["mamba"]["ssm"]
+            assert isinstance(conv, sharding.Sharded) and conv.axis == 2
+            assert isinstance(ssm, sharding.Sharded) and ssm.axis == 1
 
 
 def test_mesh_of_one_is_the_single_device_engine():
@@ -203,10 +210,130 @@ def test_mesh_of_one_is_the_single_device_engine():
 
 
 def test_speculative_under_a_mesh_raises():
-    cfg, params = model()
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    """Speculation under a mesh is refused where it is refused without
+    one: on a stack with recurrent layers (the verify window's rollback
+    does not hold for their states)."""
+    cfg, params = model("jamba-1.5-large-398b")
+    with pytest.raises(ValueError, match="recurrent"):
         ServingEngine(cfg, params, device="cpu", mesh=cpu_mesh(2),
                       config=EngineConfig(speculative_k=2, max_len=48))
+
+
+#: The speculative engines' draft settings: 'lanes' a W2 draft, 'dense' a
+#: W1 draft over the dense store (the target's words dense too).
+DRAFTS = {"lanes": dict(draft_w_bits=2),
+          "dense": dict(draft_w_bits=1, dense_store=True)}
+
+
+def spec_counts(eng):
+    m = eng.metrics
+    return m.drafted_tokens, m.accepted_tokens, m.spec_cycles
+
+
+def spec_serve(draft, paged, mesh=None):
+    """Tokens, acceptance counts and engine of a speculative engine (k =
+    2, :data:`DRAFTS`) on :func:`drive`'s requests."""
+    cfg, params = model()
+    eng = ServingEngine(cfg, params, device="cpu", mesh=mesh,
+                        config=EngineConfig(**ECFG, paged=paged,
+                                            speculative_k=2,
+                                            **DRAFTS[draft]))
+    got = drive(engine_lib, eng, cfg.vocab_size)
+    return got, spec_counts(eng), eng
+
+
+@functools.lru_cache(maxsize=None)
+def spec_one_shard(draft, paged):
+    return spec_serve(draft, paged)[:2]
+
+
+def reference_engine(ecfg):
+    """The reference's single-device engine on :func:`model`'s weights
+    bridged, with ``ecfg``'s settings; call it under
+    ``jax.disable_jit()`` (its steps op by op)."""
+    jcfg = jconfigs.get_config("stablelm-1.6b", reduced=True).replace(
+        quant=quant(2, 4, JQ))
+    jp = jax.tree.map(jnp.asarray, bridge.to_repro(model()[1]))
+    return jengine.ServingEngine(jcfg, jp, config=jengine.EngineConfig(
+        **ecfg))
+
+
+@functools.lru_cache(maxsize=None)
+def spec_reference(draft, paged):
+    """The reference's speculative engine's tokens and acceptance counts
+    on :func:`spec_serve`'s weights, settings and requests, its steps op
+    by op."""
+    with jax.disable_jit():
+        eng = reference_engine(dict(ECFG, paged=paged, speculative_k=2,
+                                    **DRAFTS[draft]))
+        return drive(jengine, eng, model()[0].vocab_size), spec_counts(eng)
+
+
+@pytest.mark.parametrize("draft,paged,shards", [
+    ("lanes", False, 2), ("lanes", True, 2), ("dense", False, 2),
+    ("dense", True, 2), ("lanes", False, 4)])
+def test_speculative_under_a_mesh_equals_one_shard(draft, paged, shards):
+    """A speculative engine over a mesh: the draft's packed leaves split
+    their columns and its caches their kv heads (a pool's page axis
+    whole), as the target's do; the tokens and the acceptance counts are
+    the one-shard speculative engine's and the reference's speculative
+    engine's."""
+    got, counts, eng = spec_serve(draft, paged, cpu_mesh(shards))
+    want, want_counts = spec_one_shard(draft, paged)
+    assert got == want and counts == want_counts
+    assert (got, counts) == spec_reference(draft, paged)
+    assert counts[2] > 0
+    spec = eng.spec
+    kv = lm.first_attn_cache(spec.caches)
+    assert isinstance(kv["k"], sharding.Sharded)
+    assert [p.shape[2] for p in kv["k"].parts] == \
+        [spec.cfg.num_kv_heads // shards] * shards
+    if paged:
+        assert all(p.shape[0] == spec.num_pages for p in kv["k"].parts)
+    word = "w_dense" if draft == "dense" else "w_packed"
+    leaf = spec.params["layers"][0]["attn"]["q"][word]
+    assert isinstance(leaf, sharding.Sharded)
+    assert len(leaf.parts) == shards
+    rep = eng.capacity_report()["speculative"]["draft_shard_param_bytes"]
+    assert len(set(rep["split"])) == 1 and rep["split"][0] > 0
+    assert not eng.capacity_report()["step_graphs"]   # the CPU: eager
+
+
+def test_router_of_speculative_sharded_replicas():
+    """A Router over a (data=2, model=2) mesh of cpu devices with
+    ``speculative_k=2``: each row one speculative replica split two ways;
+    the fleet's tokens are one unsharded speculative engine's and the
+    reference's speculative engine's."""
+    from repro_torch.serve.router import Router
+    cfg, params = model()
+    spec = dict(ECFG, speculative_k=2, **DRAFTS["lanes"])
+    ecfg = EngineConfig(**spec)
+    one = ServingEngine(cfg, params, device="cpu", config=ecfg)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (7, 3, 11, 5)]
+    reqs = [Request(i, p, max_new_tokens=5) for i, p in enumerate(prompts)]
+    for r in reqs:
+        one.submit(r)
+    one.run_to_completion()
+    with jax.disable_jit():
+        ref = reference_engine(spec)
+        jreqs = [jengine.Request(i, p, max_new_tokens=5)
+                 for i, p in enumerate(prompts)]
+        for r in jreqs:
+            ref.submit(r)
+        ref.run_to_completion()
+    assert [list(r.output) for r in reqs] == \
+        [list(r.output) for r in jreqs]
+    router = Router(cfg, params, config=ecfg,
+                    mesh=ServingMesh([["cpu", "cpu"], ["cpu", "cpu"]]))
+    handles = [router.submit(p, max_new_tokens=5) for p in prompts]
+    router.run_to_completion()
+    assert [h.output for h in handles] == [r.output for r in reqs]
+    assert sorted({h.replica for h in handles}) == [0, 1]
+    for eng in router.engines:
+        assert eng.spec is not None and eng.metrics.spec_cycles > 0
+        assert eng.shard_plan.model_shards == 2
 
 
 def test_engine_refuses_a_mesh_of_several_rows():
@@ -390,15 +517,19 @@ def test_param_pspec_agrees_with_the_reference(name, w_bits):
         assert isinstance(leaf, sharding.Sharded) == (sharding.MODEL in spec)
 
 
-@pytest.mark.parametrize("kv_bits,paged", [(16, False), (8, False),
-                                           (4, True), (2, False)])
-def test_cache_shardings_agree_with_the_reference(kv_bits, paged):
-    """Attention K/V and scale planes split axis 2 (the kv heads) exactly
-    where the reference's do -- the page axis of a pool stays whole.  The
-    recurrent states stay whole in the port (the reference splits their
-    channels: ROADMAP item 14b)."""
+@pytest.mark.parametrize("name,kv_bits,paged", [
+    pytest.param("jamba-1.5-large-398b", 16, False, id="16-False"),
+    pytest.param("jamba-1.5-large-398b", 8, False, id="8-False"),
+    pytest.param("stablelm-1.6b", 4, True, id="4-True"),
+    pytest.param("jamba-1.5-large-398b", 2, False, id="2-False"),
+    pytest.param("xlstm-1.3b", 16, False, id="xlstm")])
+def test_cache_shardings_agree_with_the_reference(name, kv_bits, paged):
+    """Every cache leaf splits over 'model' on the reference's axis: the
+    attention K/V and scale planes on axis 2 (the kv heads) -- the page
+    axis of a pool stays whole --, mamba's conv on 2 and ssm on 1, the
+    mLSTM's C and n and the sLSTM's states on 2; the mLSTM's m stays
+    whole."""
     from repro.parallel import sharding as jsharding
-    name = "jamba-1.5-large-398b" if not paged else "stablelm-1.6b"
     jcfg = jconfigs.get_config(name, reduced=True).replace(
         quant=quant(2, kv_bits, JQ))
     cfg = configs.get_config(name, reduced=True).replace(
@@ -414,13 +545,21 @@ def test_cache_shardings_agree_with_the_reference(kv_bits, paged):
     got = sharding.cache_shardings(tc, cpu_mesh(tp))
     got_flat = dict(_flat(got, spec_leaves=True))
     assert len(got_flat) == len(list(_flat(want)))
+    axes = {}
     for path, sh in _flat(want):
         ref_axis = _model_axis(sh.spec)
-        port = got_flat[path]
-        if re.search(r"attn/(k|v|k_scale|v_scale)$", path):
-            assert _model_axis(port) == ref_axis == 2, path
-        else:
-            assert _model_axis(port) is None, path
+        assert _model_axis(got_flat[path]) == ref_axis, path
+        axes[path.rsplit("/", 1)[-1] if "attn" in path
+             else "/".join(path.split("/")[-2:])] = ref_axis
+    want_axes = {"attn": {"k": 2, "v": 2},
+                 "mamba": {"mamba/conv": 2, "mamba/ssm": 1},
+                 "xlstm": {"mlstm/C": 2, "mlstm/n": 2, "mlstm/m": None,
+                           "slstm/c": 2, "slstm/h": 2}}
+    kinds = ["xlstm"] if name == "xlstm-1.3b" else \
+        ["attn", "mamba"] if name.startswith("jamba") else ["attn"]
+    for kind in kinds:
+        for leaf, axis in want_axes[kind].items():
+            assert axes[leaf] == axis, leaf
 
 
 # ---------------------------------------------------------------------------
