@@ -268,7 +268,33 @@ toolkit:
    exact), each decode graph's K2 and read launches and device
    ms, the shards' K2 shapes and kv heads, the param bytes a shard
    against the one-shard total (gated: each shard its half of the split
-   leaves plus the whole ones).
+   leaves plus the whole ones), and for stablelm unpaged the bytes the
+   shard joins of one eager decode pass move
+   (``roofline/analysis.join_bytes``).  The ``fig4`` line also carries
+   the reference's instruction model (``core/vmacsr.py``): native
+   ULPPACK's, ``vmacsr``'s and the int16 baseline's instruction counts
+   over K = Fh * Fw * Cin and the speedups they model.
+
+13. The last modules (after the ``cnn-qat`` line).  ``roofline``: the
+   constants ``roofline/hw.py`` picks for the card's name, and the dry
+   run (``launch/dryrun.py``: shape-only arguments placed by the training
+   rules of ``parallel/sharding.py``, not lowered) of stablelm-1.6b x
+   train_4k and x decode_32k on the 16x16 production mesh.  ``collective
+   matmul``: ``parallel/collectives.all_gather_matmul`` on a two-shard
+   ``model`` row of the card at stablelm's down projection (x [512, 5632]
+   bf16 split on K, w [5632, 2048]) against one ``torch.matmul`` (gated
+   within AGM_ULP an element), ms of each.  ``pipeline``: full-width
+   stablelm's 24 packed serving blocks as 2 stages of 12 over a mesh
+   listing the card twice on ``pod``, 4 microbatches of 128 positions
+   through ``parallel/pipeline.gpipe`` (gated: bit-equal to the blocks in
+   sequence, 4 x 24 x 7 K2 launches, no plain call; they add to K2's
+   launches), ``bubble_fraction`` and the ms of both passes.  ``train
+   compress``: the ``train`` cell with int8-compressed gradients and
+   error feedback (gated: every loss finite, step 1's decompressed
+   gradients and residuals of the embedding, one attention q and one MLP
+   down bit-equal to the CPU's), per step loss and grad norm beside the
+   ``train`` line's, the median step, the residual bytes, peak memory,
+   the ``grad_compress`` range's device and host ms.
 
 ``python3 chip_smoke.py --k2-sweep`` builds the kernels and runs only the
 tensor-core K2's split sweep (``k2_sweep``, its lanes and its fused
@@ -276,7 +302,8 @@ route), the data the planner's split model was fitted to.
 ``python3 chip_smoke.py --moe`` builds them and runs only the ``legacy``
 and ``moe`` lines of step 10, ``--recurrent`` only the lines of step 11,
 ``--multimodal`` only the multimodal lines, ``--fleet`` only the lines
-of step 12 (flags together run each).
+of step 12, ``--parallel`` only those of step 13 (with the ``train`` line
+first; flags together run each).
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
@@ -313,28 +340,19 @@ ATTN_TOL = 1e-4
 ATTN_BF16_RTOL = 2.0 ** -7
 
 
-def card_peaks(name: str) -> dict:
-    """Peak rates of the card, dense, from NVIDIA's data sheets: HBM bytes/s,
-    f32 op/s on the CUDA cores, bf16 and int8 op/s on the tensor cores.
-    H100 SXM: 3.35 TB/s, 67 T, 989 T, 1,979 T; the PCIe part: 2.0 TB/s,
-    51 T, 756 T, 1,513 T.  ``int32`` is the CUDA cores' 32-bit integer
-    multiply-add rate (two operations each), from the Hopper white paper's
-    64 INT32 units per SM at the boost clock: 132 SMs x 64 x 2 x 1.98 GHz
-    = 33.5 T op/s (SXM), 114 x 64 x 2 x 1.755 GHz = 25.6 T (PCIe)."""
-    if "PCIe" in name:
-        return {"hbm": 2.0e12, "f32": 51e12, "bf16": 756e12,
-                "int8": 1513e12, "int32": 25.6e12}
-    return {"hbm": 3.35e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12,
-            "int32": 33.5e12}
+# The card's peak rates and a kernel's bound: ``roofline/hw.card_peaks``
+# and ``roofline/analysis.bound_ms`` of the package, bound here by
+# :func:`use_package` (the phases call them by these names).
+card_peaks = bound_ms = None
 
 
-def bound_ms(nbytes: float, ops: float, hbm: float, rate: float
-             ) -> tuple[float, str]:
-    """The larger of ``nbytes`` over the HBM rate and ``ops`` over ``rate``
-    (the card's fastest unit for that work)."""
-    t_bytes = nbytes / hbm * 1e3
-    t_ops = ops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def use_package(src: Path) -> None:
+    """Put the checkout's ``src`` on the path and bind the package's
+    roofline helpers to :data:`card_peaks` and :data:`bound_ms`."""
+    global card_peaks, bound_ms
+    sys.path.insert(0, str(src))
+    from repro_torch.roofline.analysis import bound_ms
+    from repro_torch.roofline.hw import card_peaks
 
 
 def time_ms(torch, calls, reps=5) -> float:
@@ -1554,6 +1572,30 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
     return rows, fig4
 
 
+def fig4_instruction_model(text: str) -> dict:
+    """The reference's Fig. 4 instruction model (``core/vmacsr.py``) for
+    one packed case over its K = Fh * Fw * Cin loop: native ULPPACK's,
+    ``vmacsr``'s and the int16 baseline's vector instructions an output
+    element, and the speedups over int16 those counts model (doubled on
+    int8 lanes, which hold twice the elements a vector register)."""
+    from repro_torch.core import vmacsr
+    from repro_torch.core.packing import PackSpec
+
+    spec = PackSpec.parse(text)
+    k = FIG4["k"] * FIG4["k"] * FIG4["c"]
+    native = vmacsr.native_ulppack_instruction_count(k, spec.k_tile,
+                                                     spec.n_pack).total
+    fused = vmacsr.vmacsr_instruction_count(k, spec.k_tile,
+                                            spec.n_pack).total
+    base = vmacsr.int16_instruction_count(k).total
+    gain = 2 if spec.lane_name == "int8" else 1
+    return {"instructions": {"k": k, "k_tile": spec.k_tile,
+                             "native_ulppack": native, "vmacsr": fused,
+                             "int16": base},
+            "modeled_speedup_native": base / native * gain,
+            "modeled_speedup_vmacsr": base / fused * gain}
+
+
 def fig4_phase(torch, fig4, rows):
     """The Fig. 4 comparison through the entry points: the int16 conv (K6
     on the tensor cores), the int16 conv at 64 channels (K6 on the CUDA
@@ -1608,6 +1650,7 @@ def fig4_phase(torch, fig4, rows):
         if "cores_ms" in r:
             case["cores_ms"] = r["cores_ms"]
             case["cores_speedup_vs_int16"] = t16_cores / r["cores_ms"]
+        case.update(fig4_instruction_model(text))
         rep["packed"][text] = case
     print("fig4 " + json.dumps(rep))
     return launches
@@ -2896,6 +2939,9 @@ TRAIN_RANGES = {"fake_quant": ("fake_quant",),
                               "SoftmaxBackward0"),
                 "optimizer": ("optimizer",)}
 CKPT_LAYERS, CKPT_STEPS = 2, 4
+#: The last ``train`` line's report (``train compress`` prints its steps
+#: beside its own).
+TRAIN_LINE: dict = {}
 CNN_QAT_STEPS, CNN_QAT_TEST = 300, 64
 
 
@@ -2989,6 +3035,7 @@ def train_phase(torch, dev, cfg, peaks, smi):
                              f"TFLOP/s (data sheet)",
            "finite": True}
     print("train " + json.dumps(rep))
+    TRAIN_LINE.update(rep)
     return state, step_fn, data
 
 
@@ -3342,6 +3389,305 @@ def cnn_qat_phase(torch, dev, cfg, smi):
 #: (query rows, kv_bits), K4 reading each at the paged phase's 16-row
 #: pages; the layout sweep at stablelm's three W2A2 (k, n) at 8 rows
 #: (``prepare_serving_params``' tune_rows).
+# ---------------------------------------------------------------------------
+# The last modules: the train compress, pipeline, collective matmul and
+# roofline lines
+# ---------------------------------------------------------------------------
+
+#: The leaves whose compression on the card is held bit-equal to the CPU's.
+COMPRESS_LEAVES = ("embed/table", "layers/0/attn/q/kernel",
+                   "layers/0/mlp/down/kernel")
+PIPE_MICRO, PIPE_STAGES, PIPE_SEQ = 4, 2, 128
+#: all_gather_matmul at stablelm's down projection: x [512, 5632] split on
+#: K over two shards, w [5632, 2048].
+AGM_SHAPE = (512, 5632, 2048)
+# The ring and one torch.matmul agree within a bf16 bound an element: each
+# rounding to bf16 moves a value by at most half a unit in its last place,
+# 2^-8 of it.  The ring rounds its two partial products p0 and p1 and their
+# sum; torch.matmul rounds its one product y (and may reduce split-K
+# partials in bf16, which PyTorch allows).  A whole unit, 2^-7, is allowed
+# for each: |ring - matmul| <= 2^-7 (|p0| + |p1| + 2 |y|), with p0, p1 and
+# y taken in f32 from the same bf16 operands.
+AGM_ULP = 2.0 ** -7
+
+
+def train_compress_phase(torch, dev, cfg, peaks, smi):
+    """``train compress``: the ``train`` cell with ``compress_grads=True``
+    and error feedback (``parallel/collectives.py``): TRAIN_STEPS steps,
+    per step loss, grad_norm and ms beside the uncompressed ``train``
+    line's (run first when this script runs only these lines), the median
+    step, the residuals' bytes, peak memory, and one more step profiled:
+    the device and host ms in the ``grad_compress`` range.  Gated: every
+    loss finite; step 1's decompressed gradients and residuals of
+    :data:`COMPRESS_LEAVES` bit-equal to the same function run on the CPU
+    over the same gradients and residuals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.parallel import collectives
+
+    if not TRAIN_LINE:
+        state, _, _ = train_phase(torch, dev, cfg, peaks, smi)
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    state = steps.make_train_state(params, cfg=cfg, error_feedback=True)
+    del params
+    resid = tree_lib.leaves(state["error_feedback"])
+    resid_bytes = sum(e.numel() * e.element_size() for e in resid)
+    n_leaves = len(resid)
+    del resid
+    step_fn = steps.make_train_step(cfg, compress_grads=True, **TRAIN_KW)
+    data = train_stream(cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    real = collectives.compress_grads_with_feedback
+    seen = {}
+
+    def spy(grads, st):
+        out = real(grads, st)
+        if not seen:
+            trees = (grads, st["error_feedback"], out[0],
+                     out[1]["error_feedback"])
+            flat = [dict(tree_lib.flatten_with_path(t)) for t in trees]
+            for name in COMPRESS_LEAVES:
+                seen[name] = [f[name].cpu() for f in flat]
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    rows, ms = [], []
+    collectives.compress_grads_with_feedback = spy
+    try:
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, data.batch_at(i))
+            rows.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        collectives.compress_grads_with_feedback = real
+    peak = torch.cuda.max_memory_allocated()
+    bad = [i for i, r in enumerate(rows)
+           if not (math.isfinite(r["loss"]) and math.isfinite(r["ce"])
+                   and math.isfinite(r["grad_norm"]))]
+    if bad:
+        raise AssertionError(f"train compress: non-finite loss or grad_norm "
+                             f"at steps {bad}: {rows}")
+    # step 1's compression on the CPU, leaf by leaf, over the same inputs
+    cpu_equal = {}
+    for name, (g, e, deq, res) in seen.items():
+        d, st = real({"x": g}, {"error_feedback": {"x": e}})
+        cpu_equal[name] = same_bits(torch, d["x"], deq) and same_bits(
+            torch, st["error_feedback"]["x"], res)
+    del seen
+    # one more step profiled: the compression's range
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step_fn(state, data.batch_at(TRAIN_STEPS))
+        float(m["loss"])
+        torch.cuda.synchronize()
+    ranges = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CPU
+              and e.key in ("grad_compress", "optimizer")]
+    prof_ms = {f"{e.key}_device_ms": e.device_time_total / 1e3
+               for e in ranges}
+    prof_ms.update({f"{e.key}_host_ms": e.cpu_time_total / 1e3
+                    for e in ranges})
+    base = TRAIN_LINE.get("per_step", [])
+    rep = {"card": smi, "model": cfg.name, "layers": cfg.num_layers,
+           "remat": cfg.parallel.remat,
+           "microbatches": cfg.parallel.microbatches, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "setup_s": setup_s,
+           "per_step": [{"step": i, "loss": r["loss"],
+                         "grad_norm": r["grad_norm"], "ms": t,
+                         "uncompressed_loss": base[i]["loss"]
+                         if i < len(base) else None,
+                         "uncompressed_grad_norm": base[i]["grad_norm"]
+                         if i < len(base) else None}
+                        for i, (r, t) in enumerate(zip(rows, ms))],
+           "median_step_ms": statistics.median(ms),
+           "uncompressed_median_step_ms": TRAIN_LINE.get("median_step_ms"),
+           "grad_leaves": n_leaves, "residual_bytes": resid_bytes,
+           "max_memory_allocated": peak,
+           "uncompressed_max_memory_allocated":
+               TRAIN_LINE.get("max_memory_allocated"),
+           **prof_ms, "step1_cpu_bit_equal": cpu_equal, "finite": True}
+    print("train compress " + json.dumps(rep))
+    if not all(cpu_equal.values()) or len(cpu_equal) != len(
+            COMPRESS_LEAVES):
+        raise AssertionError(f"train compress: step 1's compression on the "
+                             f"card differs from the CPU's: {cpu_equal}")
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pipeline_phase(torch, dev, cfg, smi):
+    """``pipeline``: full-width ``cfg``'s packed serving blocks as
+    PIPE_STAGES stages (``parallel/pipeline.stack_stages``) over a mesh
+    listing ``dev`` once a stage on ``pod``, PIPE_MICRO microbatches of
+    PIPE_SEQ positions through ``gpipe``.  Gated: the output bit-equal to
+    the blocks applied in sequence on the same device, and every packed
+    linear one K2 launch, no plain call (PIPE_MICRO x layers x 7 launches
+    in the pipelined pass).  Reports ``bubble_fraction`` and the ms of the
+    pipelined and the sequential pass (host clock, alternated, median of
+    5).  Returns the pipelined pass's launches by kernel."""
+    from repro_torch.kernels import quant_pack, ulppack_matmul as mm
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import common, lm
+    from repro_torch.parallel import pipeline
+    from repro_torch.serve import prepare
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = lm.init_params(cfg, gen, device=dev)
+    blocks = prepare.prepare_serving_params(params, cfg,
+                                            device=dev)["layers"]
+    del params
+    torch.cuda.empty_cache()
+    stages = pipeline.stack_stages(blocks, PIPE_STAGES)
+    per = cfg.num_layers // PIPE_STAGES
+    mesh = Mesh([dev] * PIPE_STAGES, ("pod",))
+    xs = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), device=dev,
+                     generator=gen).to(common.dtype_of(cfg.compute_dtype))
+    pos = torch.arange(PIPE_SEQ, dtype=torch.int32, device=dev)[None]
+
+    def run(blk, x):
+        return lm.block_apply(blk, cfg, x, positions=pos,
+                              quant_mode="packed")[0]
+
+    def stage_fn(p, x):
+        for j in range(per):
+            x = run(pipeline.layer(p, j), x)
+        return x
+
+    def piped():
+        return pipeline.gpipe(stage_fn, stages, xs, mesh=mesh, axis="pod")
+
+    def sequential():
+        outs = []
+        for m in range(PIPE_MICRO):
+            x = xs[m]
+            for blk in blocks:
+                x = run(blk, x)
+            outs.append(x)
+        return torch.stack(outs)
+
+    with torch.no_grad():
+        sequential()                      # warm: plans, kernels loaded
+        reset_kernel_counts()
+        got = piped()
+        torch.cuda.synchronize()
+        launches = {"quantized_linear_mma": mm.mma_launches["quant_affine"],
+                    "ulppack_matmul_mma": mm.mma_launches["affine"]
+                    + mm.mma_launches["s32"],
+                    "quantize_pack": quant_pack.kernel_launches}
+        plain = mm.plain_calls["ulppack_matmul"] + quant_pack.plain_calls
+        want = sequential()
+        equal = same_bits(torch, got, want)
+        t_pipe, t_seq = [], []
+        for _ in range(5):
+            for fn, out in ((piped, t_pipe), (sequential, t_seq)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+    k2 = launches["quantized_linear_mma"] + launches["ulppack_matmul_mma"]
+    rep = {"card": smi, "model": cfg.name, "layers": cfg.num_layers,
+           "stages": PIPE_STAGES, "layers_a_stage": per,
+           "devices": [str(d) for d in [dev] * PIPE_STAGES],
+           "microbatches": PIPE_MICRO, "positions": PIPE_SEQ,
+           "bubble_fraction": pipeline.bubble_fraction(PIPE_MICRO,
+                                                       PIPE_STAGES),
+           "bit_equal_to_sequential": equal, "k2_launches": launches,
+           "plain_calls": plain, "gpipe_ms": statistics.median(t_pipe),
+           "sequential_ms": statistics.median(t_seq),
+           "gpipe_ms_all": t_pipe, "sequential_ms_all": t_seq}
+    print("pipeline " + json.dumps(rep))
+    if not equal or k2 != PIPE_MICRO * cfg.num_layers * 7 or plain:
+        raise AssertionError(f"pipeline: bit-equal {equal}, K2 launches "
+                             f"{launches}, plain calls {plain}")
+    del stages, blocks, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def collective_matmul_phase(torch, dev, smi):
+    """``collective matmul``: ``parallel/collectives.all_gather_matmul`` on
+    a two-shard ``model`` row of ``dev`` at AGM_SHAPE in bf16 against one
+    ``torch.matmul`` of the whole, gated within the AGM_ULP bound an
+    element; the ms of each (CUDA-graph replay)."""
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.parallel import collectives, sharding
+
+    m, k, n = AGM_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn((k, n), device=dev, generator=gen)
+         / math.sqrt(k)).to(torch.bfloat16)
+    mesh = ServingMesh([[dev, dev]])
+    row = mesh.devices[0]
+    xs = sharding.split(x, (None, sharding.MODEL), row)
+    ws = sharding.split(w, (sharding.MODEL, None), row)
+    got = collectives.all_gather_matmul(xs, ws, mesh)
+    want = torch.matmul(x, w)
+    h = k // 2
+    p0 = x[:, :h].float() @ w[:h].float()
+    p1 = x[:, h:].float() @ w[h:].float()
+    tol = AGM_ULP * (p0.abs() + p1.abs() + 2 * (p0 + p1).abs())
+    err = (got.float() - want.float()).abs()
+    within = bool((err <= tol).all())
+    rep = {"card": smi, "shape": {"m": m, "k": k, "n": n}, "shards": 2,
+           "devices": [str(d) for d in row], "dtype": "bfloat16",
+           "max_abs_err": float(err.max()),
+           "max_err_over_bound": float((err / tol.clamp_min(1e-30)).max()),
+           "within_bound": within,
+           "ms": time_ms(torch, [lambda: collectives.all_gather_matmul(
+               xs, ws, mesh)]),
+           "matmul_ms": time_ms(torch, [lambda: torch.matmul(x, w)])}
+    print("collective matmul " + json.dumps(rep))
+    if not within or got.shape != (m, n) or got.device != x.device:
+        raise AssertionError(f"collective matmul: {rep}")
+
+
+def roofline_phase(name, smi):
+    """``roofline``: the constants ``roofline/hw.py`` picks for the card's
+    name, and the dry run (``launch/dryrun.lower_cell``) of stablelm-1.6b
+    x train_4k and x decode_32k on the 16x16 production mesh over them."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import hw
+
+    cells = [dryrun.lower_cell("stablelm-1.6b", s, False, card=name)
+             for s in ("train_4k", "decode_32k")]
+    print("roofline " + json.dumps({"card": smi, "device": name,
+                                    "constants": hw.card_constants(name),
+                                    "dry_run": cells}))
+    if any(c["status"] != "PLACED" for c in cells):
+        raise AssertionError(f"roofline: {cells}")
+
+
+def parallel_phase(torch, dev, peaks, smi, name):
+    """The lines of the last modules: ``roofline``, ``collective matmul``,
+    ``pipeline`` and ``train compress``.  Returns the pipeline's K2
+    launches."""
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config("stablelm-1.6b")
+    roofline_phase(name, smi)
+    collective_matmul_phase(torch, dev, smi)
+    launches = pipeline_phase(torch, dev, cfg, smi)
+    train_compress_phase(torch, dev, cfg, peaks, smi)
+    print(f"parallel lines in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 AUTOTUNE_ATTN = ((1, 16), (1, 4), (1, 2), (16, 4))
 AUTOTUNE_SKV = 512
 AUTOTUNE_LAYOUTS = ((2048, 2048), (2048, 5632), (5632, 2048))
@@ -5125,6 +5471,22 @@ def fleet_paged_phase(torch, np, dev, smi, cfg, params, launches):
     held_check(torch, held, "fleet paged")
 
 
+def join_bytes_a_decode(np, cfg, eng, b) -> dict:
+    """The shard joins of one eager decode pass of a sharded engine
+    (``roofline/analysis.join_bytes``: ``sharding.join`` an all-gather,
+    ``add_up`` an all-reduce, per-device operand bytes), at position 0 of
+    every slot after the engine has served: the graphs replay no Python,
+    so the pass runs op by op."""
+    from repro_torch.launch import steps
+    from repro_torch.roofline import analysis
+
+    with analysis.join_bytes() as got:
+        steps.make_decode_step(cfg)(
+            eng.params, eng.caches, {"tokens": np.zeros((b, 1), np.int32)},
+            np.zeros(b, np.int32), np.ones(b, np.int32))
+    return got
+
+
 def fleet_shard_phase(torch, np, dev, smi, cfg, params, label, launches, *,
                       paged=False):
     """(c) / (d) ``fleet shard``: the engine with two shards on one card
@@ -5133,8 +5495,9 @@ def fleet_shard_phase(torch, np, dev, smi, cfg, params, label, launches, *,
     the tokens and every decode pass's logits are gated equal (the largest
     logit difference 0.0); prints that difference, each decode graph's K2
     and attention launches and device
-    ms (profiler), the shards' K2 shapes and kv heads, and the serving
-    param bytes a shard against the one-shard total."""
+    ms (profiler), the shards' K2 shapes and kv heads, the serving
+    param bytes a shard against the one-shard total, and (stablelm
+    unpaged) the bytes the shard joins of one decode pass move."""
     from repro_torch.kernels import ulppack_attention as att
     from repro_torch.kernels import ulppack_matmul as mm
     from repro_torch.launch.mesh import ServingMesh
@@ -5170,6 +5533,9 @@ def fleet_shard_phase(torch, np, dev, smi, cfg, params, label, launches, *,
                                   if isinstance(leaf, sharding.Sharded)}),
                 kv_heads_a_shard=[p.shape[2] for p in
                                   sharding.parts(kv["k"])])
+            if not (paged or cfg.mrope):
+                out["join_bytes_a_decode"] = join_bytes_a_decode(
+                    np, cfg, eng, ecfg.max_batch)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -5768,7 +6134,7 @@ def main() -> int:
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(src))
+    use_package(src)
     import numpy as np
 
     # every phase before the autotune phase plans from an empty tuning
@@ -5798,8 +6164,8 @@ def main() -> int:
         k2_sweep(torch, torch.device("cuda"))
         print(smi)
         return 0
-    only = [f for f in ("--moe", "--recurrent", "--multimodal", "--fleet")
-            if f in sys.argv[1:]]
+    only = [f for f in ("--moe", "--recurrent", "--multimodal", "--fleet",
+                        "--parallel") if f in sys.argv[1:]]
     if "--moe" in only:
         moe_only(torch, np, smi)
     if "--recurrent" in only:
@@ -5808,6 +6174,9 @@ def main() -> int:
         multimodal_phase(torch, np, torch.device("cuda"), peaks, smi)
     if "--fleet" in only:
         fleet_phase(torch, np, torch.device("cuda"), peaks, smi)
+    if "--parallel" in only:
+        parallel_phase(torch, torch.device("cuda"), peaks, smi, name)
+        print(smi)
     if only:
         return 0
     for n, p in paths.items():
@@ -5937,6 +6306,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_ckpt_phase(torch, dev, lm_cfg, smi)
     launches["ulppack_conv2d_mma"] += cnn_qat_phase(torch, dev, cnn_cfg, smi)
+    torch.cuda.empty_cache()
+    # the last modules: the dry run's roofline, the collective matmul, the
+    # pipelined blocks (their packed linears add to K2's launches) and the
+    # train step with compressed gradients
+    for k, n in parallel_phase(torch, dev, peaks, smi, name).items():
+        launches[k] = launches.get(k, 0) + n
     torch.cuda.empty_cache()
 
     # the autotuner, after every other phase so that none of their plans

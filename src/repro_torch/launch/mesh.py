@@ -1,4 +1,4 @@
-"""Serving meshes (counterpart of ``repro/launch/mesh.py``'s serving half).
+"""Meshes (counterpart of ``repro/launch/mesh.py``).
 
 A :class:`ServingMesh` is a 2-D grid of ``torch.device`` with the axes
 ``('data', 'model')``: each row is one replica's tensor-parallel group
@@ -10,19 +10,72 @@ own shapes, and a mesh of ``cpu`` devices runs every sharded path on the
 CPU.  :func:`make_host_mesh` and :func:`make_serving_mesh` build one from
 the devices the host has, clamping a request it cannot meet, loudly.
 
-The production TPU mesh of the reference belongs to the dry run
-(ROADMAP.md item 16).
+A :class:`Mesh` is a grid of devices with any axis names: the pipeline
+(``parallel/pipeline.gpipe``) runs over one axis of it, and
+:func:`make_production_mesh` gives the reference's production meshes
+without devices, for the dry run (``launch/dryrun.py``) to plan on.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import plan as plan_lib
 
 AXES = ("data", "model")
+
+
+class Mesh:
+    """A grid of ``torch.device`` with named axes, like a JAX mesh:
+    ``devices`` a nested list (or object array) whose nesting follows
+    ``axis_names``, entries free to repeat (``Mesh([cuda:0, cuda:0],
+    ("pod",))`` runs two pipeline stages on one card); or ``devices=None``
+    with a ``shape`` tuple for a device-free mesh that rules and plans read
+    only the ``shape`` dict of."""
+
+    def __init__(self, devices, axis_names, shape=None):
+        self.axis_names = tuple(axis_names)
+        self.devices = None if devices is None else np.vectorize(
+            torch.device, otypes=[object])(np.array(devices, dtype=object))
+        dims = tuple(shape) if devices is None else self.devices.shape
+        if len(dims) != len(self.axis_names):
+            raise ValueError(f"mesh of shape {dims} for axes "
+                             f"{self.axis_names}")
+        self._dims = dims
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self._dims))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self._dims)
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+
+def axis_devices(mesh, axis: str) -> list:
+    """The devices along ``axis`` of a mesh (:class:`Mesh` or
+    :class:`ServingMesh`), at index 0 of every other axis."""
+    if mesh.devices is None:
+        raise ValueError(f"{mesh!r} has no devices to run on")
+    arr = np.array(mesh.devices, dtype=object)
+    arr = np.moveaxis(arr, list(mesh.axis_names).index(axis), 0)
+    return list(arr.reshape(arr.shape[0], -1)[:, 0])
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, device-free: 16x16 = 256 chips a
+    pod over ``('data', 'model')``; multi-pod adds a leading 2-pod axis
+    (512 chips, ``('pod', 'data', 'model')``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(None, axes, shape=shape)
 
 
 class ServingMesh:

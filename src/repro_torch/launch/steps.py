@@ -36,7 +36,7 @@ from repro_torch.kernels import (cache_write, quant_pack, ulppack_attention,
 from repro_torch.kernels import plan as plan_lib
 from repro_torch.models import attention, common, lm
 from repro_torch.optim import adamw, schedules
-from repro_torch.parallel import sharding
+from repro_torch.parallel import collectives, sharding
 
 
 def quant_mode_for(cfg, kind: str) -> str:
@@ -61,19 +61,23 @@ def _split_micro(batch: dict, n: int) -> list:
 def make_train_step(cfg, *, adamw_cfg: adamw.AdamWConfig | None = None,
                     schedule: str = "cosine", peak_lr: float = 3e-4,
                     warmup_steps: int = 100, total_steps: int = 10_000,
-                    clip_norm: float = 1.0):
+                    clip_norm: float = 1.0, compress_grads: bool = False):
     """``train_step(state, batch) -> (state, metrics)``, run eagerly.
 
     The forward is ``lm.forward`` in the train quant mode ('qat' when the
     config quantizes), each block recomputed in the backward unless
     ``cfg.parallel.remat == 'none'``; the loss ``lm.loss_fn``.  With
     ``cfg.parallel.microbatches`` n > 1 the batch is split in n, the
-    gradients summed in f32 and divided by n, as are loss and ce.  Then
-    the global-norm clip, the AdamW update at the schedule's lr for
-    ``state['step']``, and ``apply_updates`` (each param back to its
-    dtype), in an ``optimizer`` profiler range.  The state is not
-    modified; a new one is returned.  Metrics: ``loss``, ``ce``,
-    ``grad_norm``, ``lr``, 0-d f32 tensors."""
+    gradients summed in f32 and divided by n, as are loss and ce.  With
+    ``compress_grads`` the gradients then go through the int8 round trip
+    of ``parallel/collectives.compress_grads_with_feedback`` (the residual
+    carried in ``state['error_feedback']`` when the state has one:
+    :func:`make_train_state`'s ``error_feedback``), in a ``grad_compress``
+    profiler range.  Then the global-norm clip, the AdamW update at the
+    schedule's lr for ``state['step']``, and ``apply_updates`` (each
+    param back to its dtype), in an ``optimizer`` profiler range.  The
+    state is not modified; a new one is returned.  Metrics: ``loss``,
+    ``ce``, ``grad_norm``, ``lr``, 0-d f32 tensors."""
     adamw_cfg = adamw_cfg or adamw.AdamWConfig(
         eightbit_moments=cfg.parallel.eightbit_moments)
     sched = schedules.get_schedule(schedule)
@@ -109,13 +113,19 @@ def make_train_step(cfg, *, adamw_cfg: adamw.AdamWConfig | None = None,
                 for acc, g in zip(grads, gs):
                     acc.add_(g)
                 del gs
+                grads = sharding.constrain_like_params(grads, cfg)
                 loss, ce = loss + lossi, ce + cei
             grads = [g / n_micro for g in grads]
             loss, ce = loss / n_micro, ce / n_micro
+        grads = tree_lib.unflatten(params, grads)
+        if compress_grads:
+            with torch.no_grad(), \
+                    torch.profiler.record_function("grad_compress"):
+                grads, state = collectives.compress_grads_with_feedback(
+                    grads, state)
         with torch.no_grad(), \
                 torch.profiler.record_function("optimizer"):
-            grads, gnorm = adamw.clip_by_global_norm(
-                tree_lib.unflatten(params, grads), clip_norm)
+            grads, gnorm = adamw.clip_by_global_norm(grads, clip_norm)
             updates, opt_state = adamw.update(
                 grads, state["opt_state"], params, lr, adamw_cfg)
             del grads
@@ -129,17 +139,23 @@ def make_train_step(cfg, *, adamw_cfg: adamw.AdamWConfig | None = None,
 
 
 def make_train_state(params, adamw_cfg: adamw.AdamWConfig | None = None,
-                     cfg=None) -> dict:
+                     error_feedback: bool = False, cfg=None) -> dict:
     """``{"params", "opt_state", "step"}`` (step an int32 0-d tensor on the
     params' device); 8-bit moments when ``adamw_cfg`` -- or, without one,
-    ``cfg.parallel`` -- asks for them."""
+    ``cfg.parallel`` -- asks for them.  ``error_feedback`` adds f32 zero
+    residuals of the params' shapes, for compressed gradients."""
     if adamw_cfg is None:
         adamw_cfg = adamw.AdamWConfig(
             eightbit_moments=cfg.parallel.eightbit_moments if cfg is not None
             else False)
     dev = tree_lib.leaves(params)[0].device
-    return {"params": params, "opt_state": adamw.init(params, adamw_cfg),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    state = {"params": params, "opt_state": adamw.init(params, adamw_cfg),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if error_feedback:
+        state["error_feedback"] = tree_lib.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+    return state
 
 
 def make_prefill_step(cfg, max_len: int):

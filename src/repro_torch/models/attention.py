@@ -652,8 +652,8 @@ def attention_apply(p, cfg, x, *, positions, quant_mode="none", cache=None,
                         for t in window_args]
                 outs.append(_cached_attention(
                     cfg, *heads, sharding.local(cache, i), *args,
-                    backend).to(x.device))
-            out = torch.cat(outs, dim=2)
+                    backend))
+            out = sharding.join(outs, x.device, dim=2)
     out = dense_apply(p["o"], out.reshape(b, sq, cfg.num_heads * hd), **qm)
     return out, cache
 

@@ -125,8 +125,8 @@ def dense_apply(p, x, *, qcfg: QuantConfig | None = None,
             xi = x.to(sharding.shard_device(p, i))
             outs.append(_dense_local(sharding.local(p, i), xi, qcfg,
                                      quant_mode, compute_dtype, backend,
-                                     spec).to(x.device))
-        return torch.cat(outs, dim=-1)
+                                     spec))
+        return sharding.join(outs, x.device)
     return _dense_local(p, x, qcfg, quant_mode, compute_dtype, backend)
 
 

@@ -128,10 +128,14 @@ def init_params(cfg, generator: torch.Generator | None = None,
                 device="cuda"):
     """Random float parameters (reference layout) drawn from ``generator``
     on ``device``; their values do not equal the reference's JAX draws.
-    With no generator a fresh one seeded 0 on ``device`` is used."""
+    With no generator a fresh one seeded 0 on ``device`` is used.  On the
+    ``meta`` device no value is drawn (no generator is used): the tree's
+    shapes and dtypes alone, for planning without allocating."""
     check_supported(cfg)
     dev = plan_lib.resolve_device(device)
-    if generator is None:
+    if dev.type == "meta":
+        generator = None
+    elif generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = common.dtype_of(cfg.param_dtype)
     p = {"embed": common.embedding_init(generator, cfg.padded_vocab,

@@ -41,7 +41,11 @@ def _qm(x: torch.Tensor, block: int):
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     xb = flat.reshape(-1, block)
-    scale = torch.clamp(xb.abs().amax(dim=1, keepdim=True) / 127.0,
+    # divided by a device tensor: PyTorch's CUDA division by a host scalar
+    # multiplies by its rounded reciprocal, which can move the last bit of
+    # the reference's (and the CPU's) true quotient
+    scale = torch.clamp(xb.abs().amax(dim=1, keepdim=True)
+                        / torch.full((), 127.0, device=xb.device),
                         min=1e-12)
     q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
     return q, scale

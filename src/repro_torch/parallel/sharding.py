@@ -20,18 +20,44 @@ the home device, and is computed once.  A whole per-channel param of a
 recurrent block (:data:`CHANNEL_LEAVES`) is a :class:`Mirrored`: the
 channel-split states' shards each read their slice of it.
 
-The training rules (``_RULES``, ``param_pspec``, the optimizer-state,
-batch and activation constraints) belong to the multi-GPU training slice
-(ROADMAP.md item 16).
+The training rules (the reference's ``_RULES``: FSDP over ``('data',)``
+or ``('pod', 'data')``, Megatron column / row pairs over ``'model'``,
+expert parallelism where the experts divide the axis) give every leaf of a
+parameter, optimizer-state or batch tree its spec (:func:`param_pspec`,
+:func:`param_shardings`, :func:`opt_state_shardings`,
+:func:`batch_shardings`, :func:`cache_shardings`'s training branches); a
+mesh there is anything with a ``.shape`` dict of axis sizes, such as
+``launch/mesh.make_production_mesh``'s.  A spec entry naming several axes
+is a tuple of them, and a tuple of one axis is that axis, as a
+``PartitionSpec`` holds it.  The dry run (``launch/dryrun.py``) places by
+these specs and :func:`shard_shape` gives a leaf's shape on one device.
+:func:`constrain` and :func:`constrain_like_params` are hints to a
+partitioner the port does not have: they return their input.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import re
 
+import numpy as np
 import torch
 
 MODEL = "model"
+
+#: Open :func:`roofline.analysis.join_bytes` counters: every join of more
+#: than one shard adds its per-device operand bytes to each.
+JOIN_COUNTERS: list = []
+
+
+def _count_join(kind: str, outs) -> None:
+    if not JOIN_COUNTERS:
+        return
+    n = sum(t.numel() * t.element_size() for t in outs) // len(outs)
+    for c in JOIN_COUNTERS:
+        c[kind] += n
+        c["counts"][kind] += 1
 
 
 class Sharded:
@@ -240,6 +266,7 @@ def join(outs, device, dim: int = -1) -> torch.Tensor:
     shard's result only moved), in a ``shard_join`` profiler range."""
     if len(outs) == 1:
         return outs[0].to(device)
+    _count_join("all-gather", outs)
     with torch.profiler.record_function("shard_join"):
         return torch.cat([t.to(device) for t in outs], dim=dim)
 
@@ -249,6 +276,7 @@ def add_up(outs, device) -> torch.Tensor:
     (one shard's sum only moved), in a ``shard_join`` profiler range."""
     if len(outs) == 1:
         return outs[0].to(device)
+    _count_join("all-reduce", outs)
     with torch.profiler.record_function("shard_join"):
         total = outs[0].to(device)
         for t in outs[1:]:
@@ -286,50 +314,279 @@ def map_with_path(fn, tree, path=()):
     return None if tree is None else fn(path_str(path), tree)
 
 
+def _shape(leaf) -> tuple:
+    """A leaf's shape: a tensor's (a :class:`Sharded`'s global one), or
+    numpy's for anything else (a Python scalar is 0-d)."""
+    shape = getattr(leaf, "shape", None)
+    return tuple(np.shape(leaf) if shape is None else shape)
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        n = 1
+        for a in axis:
+            n *= mesh.shape[a]
+        return n
+    return mesh.shape[axis]
+
+
+def _entry(axis):
+    """A spec entry as a ``PartitionSpec`` holds it: a tuple of one axis
+    is that axis, an empty one None."""
+    if isinstance(axis, (tuple, list)):
+        axis = tuple(axis)
+        return None if not axis else axis[0] if len(axis) == 1 else axis
+    return axis
+
+
 def _guard(mesh, shape, spec) -> tuple:
-    """Drop the axes that do not divide their dimension: the spec padded
-    to the leaf's rank with None."""
+    """Drop the axes that do not divide their dimension (of a compound
+    entry, keep its first axis that divides alone): the spec padded to the
+    leaf's rank with None."""
+    out = []
+    for dim, axis in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                         - len(spec))):
+        if axis is None:
+            out.append(None)
+        elif dim % _axis_size(mesh, axis) == 0:
+            out.append(_entry(axis))
+        elif isinstance(axis, (tuple, list)):
+            kept = [a for a in axis if dim % mesh.shape[a] == 0]
+            out.append(kept[0] if kept else None)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    """The shape of one device's shard of a leaf of ``shape`` placed by the
+    (guarded) ``spec`` over ``mesh``."""
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
-    return tuple(None if axis is None or dim % mesh.shape[axis] else axis
-                 for dim, axis in zip(shape, spec))
+    return tuple(d // _axis_size(mesh, a) for d, a in zip(shape, spec))
 
 
-def cache_pspec(path: str, leaf, mesh) -> tuple:
-    """One cache leaf's serving-TP spec (:func:`cache_shardings`)."""
-    if not isinstance(leaf, (torch.Tensor, Sharded)) or not leaf.dim():
+# ---------------------------------------------------------------------------
+# Activation hints.  The reference calls constrain() where SPMD propagation
+# needs help, inside an activation_mesh; the port has no partitioner, so
+# the context announces nothing and both hints return their input.
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def activation_mesh(mesh):
+    """The reference's context announcing the mesh to ``constrain``."""
+    yield mesh
+
+
+def constrain(x, *axes):
+    """The reference's sharding constraint on an activation; a hint the
+    port has no partitioner for, so ``x`` itself."""
+    return x
+
+
+def constrain_like_params(tree, cfg):
+    """The reference's constraint of a param-shaped tree (gradients,
+    accumulators) to the param rules; ``tree`` itself."""
+    return tree
+
+
+# (regex, spec factory(fsdp, tp, ep)) — first match wins.
+_RULES = [
+    # packed serving weights (same layout roles as their kernels)
+    (r"(o|down|out_proj|ffn_down)/col_sums$", lambda f, t, e: (None,)),
+    (r"col_sums$",               lambda f, t, e: (t,)),
+    (r"(w_scale|a_scale|w_zp|a_zp)$", lambda f, t, e: ()),
+    (r"lm_head/kernel$",         lambda f, t, e: (f, t)),
+    (r"frontend_proj/kernel$",   lambda f, t, e: (None, f)),
+    # MoE experts [E, din, dout]
+    (r"moe/(up|gate)/kernel$",
+     lambda f, t, e: (t, f, None) if e else (None, f, t)),
+    (r"moe/down/kernel$",
+     lambda f, t, e: (t, None, f) if e else (None, t, f)),
+    (r"moe/(up|gate|down)/(w_step|a_step)$", lambda f, t, e: ()),
+    (r"moe/router/kernel$",      lambda f, t, e: (None, None)),
+    # column-parallel projections [din, dout]
+    (r"(attn|cross)/(q|k|v)/kernel$", lambda f, t, e: (f, t)),
+    (r"(attn|cross)/(q|k|v)/bias$",   lambda f, t, e: (t,)),
+    (r"(mlp|moe)?/?(up|gate)/kernel$", lambda f, t, e: (f, t)),
+    (r"(in_proj|w_gates|ffn_up|up|gate|q|k|v)/kernel$",
+     lambda f, t, e: (f, t)),
+    (r"(in_proj|w_gates|ffn_up|up|gate)/bias$", lambda f, t, e: (t,)),
+    # row-parallel projections [dout_tp, d]
+    (r"(o|down|out_proj|ffn_down)/kernel$", lambda f, t, e: (t, f)),
+    (r"(o|down|out_proj|ffn_down)/bias$",   lambda f, t, e: (None,)),
+    # mamba internals
+    (r"conv_w$",                 lambda f, t, e: (None, t)),
+    (r"(conv_b|D)$",             lambda f, t, e: (t,)),
+    (r"A_log$",                  lambda f, t, e: (t, None)),
+    (r"x_proj/kernel$",          lambda f, t, e: (t, None)),
+    (r"dt_proj/kernel$",         lambda f, t, e: (None, t)),
+    (r"dt_proj/bias$",           lambda f, t, e: (t,)),
+    # xLSTM gates
+    (r"if_gate/kernel$",         lambda f, t, e: (t, None)),
+    (r"if_gate/bias$",           lambda f, t, e: (None,)),
+    (r"r_gates$",                lambda f, t, e: (None,)),
+    # norms / steps / scalars / cnn
+    (r"(norm\w*|final_norm)/(scale|bias)$", lambda f, t, e: (None,)),
+    (r"(w_step|a_step|alpha)$",  lambda f, t, e: ()),
+    (r"(stem|layers/\d+)/kernel$", lambda f, t, e: (None,)),
+    (r"head/kernel$",            lambda f, t, e: (None, None)),
+]
+
+
+def _fsdp(cfg, mesh) -> tuple:
+    return (("pod", "data") if (cfg.parallel.fsdp_over_pod
+                                and "pod" in mesh.shape) else ("data",))
+
+
+def param_pspec(path: str, leaf, cfg, mesh) -> tuple:
+    """A training (or packed serving) param's spec by the reference's
+    rules: the embedding by ``tie_embeddings``, then the first matching
+    rule of :data:`_RULES`, else the largest dim over the FSDP axes; every
+    entry divisibility-guarded."""
+    fsdp = _fsdp(cfg, mesh)
+    tp = MODEL
+    ep = cfg.parallel.expert_parallel and \
+        cfg.num_experts > 0 and cfg.num_experts % mesh.shape[tp] == 0
+    shape = _shape(leaf)
+    # packed weights take their kernel's rule
+    path = re.sub(r"/w_packed$", "/kernel", path)
+    # embedding: tied tables shard vocab over TP (logits matmul wants it);
+    # untied tables shard d_model (gather-friendly, head handles logits)
+    if re.search(r"embed/table$", path):
+        spec = (tp, None) if cfg.tie_embeddings else (tp, fsdp)
+        return _guard(mesh, shape, spec)
+    for pat, fac in _RULES:
+        if re.search(pat, path):
+            return _guard(mesh, shape, fac(fsdp, tp, ep))
+    # default: shard the largest dim over FSDP if divisible
+    if not shape:
         return ()
-    shape = tuple(leaf.shape)
+    spec = [None] * len(shape)
+    spec[int(np.argmax(shape))] = fsdp
+    return _guard(mesh, shape, spec)
+
+
+def param_shardings(params, cfg, mesh):
+    """The specs of a param tree (real, ``meta`` or packed leaves), a tree
+    of its structure."""
+    return map_with_path(lambda p, leaf: param_pspec(p, leaf, cfg, mesh),
+                         params)
+
+
+def opt_state_shardings(opt_state, param_shardings_tree, cfg, mesh):
+    """Optimizer moments take the parameter's spec; 8-bit moment blocks
+    ([nblocks, block]) take FSDP on dim 0; the counter and scalars are
+    whole."""
+    fsdp = _fsdp(cfg, mesh)
+
+    def one(ps, leaf):
+        shape = _shape(leaf)
+        if ps.endswith("count") or not shape:
+            return ()
+        if ps.endswith("/q") or ps.endswith("/scale"):
+            return _guard(mesh, shape, (fsdp,) + (None,) * (len(shape) - 1))
+        # fp32 moments: mirror the param rule by stripping the m/v prefix
+        return param_pspec(re.sub(r"^(m|v)/", "", ps), leaf, cfg, mesh)
+
+    return map_with_path(one, opt_state)
+
+
+def batch_pspec(cfg, mesh, global_batch: int) -> tuple:
+    """Leading batch-dim spec for inputs: ('pod', 'data') as far as they
+    divide the batch.  An axis of size 1 splits nothing and is left out
+    (the reference keeps it; both mean whole)."""
+    keep, size = [], 1
+    for a in ("pod", "data"):
+        n = mesh.shape.get(a, 1)
+        if n > 1 and global_batch % (size * n) == 0:
+            keep.append(a)
+            size *= n
+    return (_entry(keep),)
+
+
+def batch_shardings(batch, cfg, mesh, global_batch: int):
+    """The specs of a batch dict: its leading (batch) dim by
+    :func:`batch_pspec`; ``positions3`` [3, B, S] on its second."""
+    bp = batch_pspec(cfg, mesh, global_batch)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        if not shape:
+            return ()
+        if path.endswith("positions3"):
+            return _guard(mesh, shape, (None, *bp))
+        return _guard(mesh, shape, bp)
+
+    return map_with_path(one, batch)
+
+
+def cache_pspec(path: str, leaf, mesh, bp0=None, *,
+                sequence_parallel: bool = False, kv_head_shard: bool = True,
+                seq_shard: bool = False) -> tuple:
+    """One cache leaf's spec (:func:`cache_shardings`); ``bp0`` is the
+    batch axis's entry."""
+    shape = _shape(leaf)
+    if leaf is None or not shape:
+        return ()
     if re.search(r"attn/(k_scale|v_scale)$", path):
-        return _guard(mesh, shape, (None, None, MODEL))
-    if re.search(r"attn/(k|v)$", path):
-        return _guard(mesh, shape, (None, None, MODEL, None))
+        if kv_head_shard:
+            return _guard(mesh, shape, (bp0, None, MODEL))
+        return _guard(mesh, shape, (bp0, MODEL if seq_shard else None, None))
+    if kv_head_shard and re.search(r"attn/(k|v)$", path):
+        return _guard(mesh, shape, (bp0, None, MODEL, None))
+    if re.search(r"attn/(k|v)$", path) or re.search(r"cross_kv", path):
+        if seq_shard:
+            seq_axes = ("data", MODEL) if sequence_parallel else MODEL
+            return _guard(mesh, shape, (bp0, seq_axes, None, None))
+        if sequence_parallel:
+            return _guard(mesh, shape, (bp0, "data", None, MODEL))
+        return _guard(mesh, shape, (bp0, None, None, MODEL))
     if path.endswith("mamba/conv"):
-        return _guard(mesh, shape, (None, None, MODEL))
+        return _guard(mesh, shape, (bp0, None, MODEL))
     if path.endswith("mamba/ssm"):
-        return _guard(mesh, shape, (None, MODEL, None))
+        return _guard(mesh, shape, (bp0, MODEL, None))
     if path.endswith("mlstm/C"):
-        return _guard(mesh, shape, (None, None, MODEL, None))
+        return _guard(mesh, shape, (bp0, None, MODEL, None))
     if path.endswith("mlstm/n") or re.search(r"slstm/(c|n|h|m)$", path):
-        return _guard(mesh, shape, (None, None, MODEL))
-    return (None,) * len(shape)
+        return _guard(mesh, shape, (bp0, None, MODEL))
+    if path.endswith("mlstm/m"):
+        return _guard(mesh, shape, (bp0, None))
+    return _guard(mesh, shape, (bp0,))
 
 
-def cache_shardings(caches, mesh):
-    """The serving-TP specs of a cache list (``lm.init_caches``), a tree of
-    the caches' structure: attention K/V split the kv-head axis (axis 2 of
-    ``[B|P, S|page, KVH, hd|words]``) and the ``[B|P, S|page, KVH]`` scale
-    planes follow it -- exact at every ``kv_bits``, since quantization,
-    word-packing, ring writes and the fused reads are per (position, kv
-    head), so a head shard holds whole, locally decodable words.  The batch
-    axis (a page pool's page axis, which any slot's block table may point
-    into) stays whole, as it does on the reference's one-row ``data``
-    axis.  Recurrent states split their channels, as the reference's
-    do: mamba's ``conv`` [B, cw-1, di] on axis 2 and ``ssm`` [B, di, ds]
-    on axis 1; the mLSTM's ``C`` [B, NH, hd, hd] and ``n`` [B, NH, hd] on
-    axis 2 (the key dimension of the matrix memory); the sLSTM's ``c``,
-    ``n``, ``h`` and ``m`` [B, NH, hd] on axis 2.  The mLSTM's ``m`` [B,
-    NH] and an encoder-decoder's cross K/V stay whole."""
-    return map_with_path(lambda p, leaf: cache_pspec(p, leaf, mesh), caches)
+def cache_shardings(caches, cfg, mesh, global_batch: int,
+                    sequence_parallel: bool = False,
+                    kv_head_shard: bool = False, paged: bool = False):
+    """The specs of a cache list (``lm.init_caches``), a tree of the
+    caches' structure, by the reference's rules.  The batch axis takes
+    :func:`batch_pspec` (a page pool's page axis, which any slot's block
+    table may point into, stays whole).
+
+    ``kv_head_shard=True`` is the serving layout (serve/shard.ShardPlan):
+    attention K/V split the kv-head axis (axis 2 of ``[B|P, S|page, KVH,
+    hd|words]``) and the ``[B|P, S|page, KVH]`` scale planes follow it --
+    exact at every ``kv_bits``, since quantization, word-packing, ring
+    writes and the fused reads are per (position, kv head), so a head
+    shard holds whole, locally decodable words.  Without it (the training
+    layout of the dry run) K/V split head_dim over ``'model'``; with
+    ``sequence_parallel`` (long_500k, batch 1) the sequence also splits
+    over ``'data'``; ``REPRO_KV_SEQ_SHARD=1`` splits the sequence over
+    ``'model'`` instead.  Recurrent states split their channels: mamba's
+    ``conv`` [B, cw-1, di] on axis 2 and ``ssm`` [B, di, ds] on axis 1;
+    the mLSTM's ``C`` [B, NH, hd, hd] and ``n`` [B, NH, hd] on axis 2 (the
+    key dimension of the matrix memory); the sLSTM's ``c``, ``n``, ``h``
+    and ``m`` [B, NH, hd] on axis 2.  The mLSTM's ``m`` [B, NH] stays
+    whole, and an encoder-decoder's cross K/V follow the training K/V
+    rule."""
+    bp0 = None if paged else batch_pspec(cfg, mesh, global_batch)[0]
+    seq_shard = os.environ.get("REPRO_KV_SEQ_SHARD", "0") == "1"
+    return map_with_path(
+        lambda p, leaf: cache_pspec(p, leaf, mesh, bp0,
+                                    sequence_parallel=sequence_parallel,
+                                    kv_head_shard=kv_head_shard,
+                                    seq_shard=seq_shard), caches)
 
 
 def place(tree, specs, devices):

@@ -148,7 +148,8 @@ class ShardPlan:
         """``caches`` with the kv-head-split and channel-split leaves
         ``Sharded`` (a page pool's too: its page axis stays whole)."""
         return sharding_lib.place(
-            caches, sharding_lib.cache_shardings(caches, self.mesh),
+            caches, sharding_lib.cache_shardings(
+                caches, None, self.mesh, 1, kv_head_shard=True),
             self.devices)
 
     def shard_state_bytes(self, caches, batch: int) -> dict:

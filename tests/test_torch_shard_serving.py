@@ -542,7 +542,8 @@ def test_cache_shardings_agree_with_the_reference(name, kv_bits, paged):
     amesh = AbstractMesh((1, tp), ("data", "model"))
     want = jsharding.cache_shardings(jc, jcfg, amesh, 3,
                                      kv_head_shard=True, paged=paged)
-    got = sharding.cache_shardings(tc, cpu_mesh(tp))
+    got = sharding.cache_shardings(tc, cfg, cpu_mesh(tp), 3,
+                                   kv_head_shard=True, paged=paged)
     got_flat = dict(_flat(got, spec_leaves=True))
     assert len(got_flat) == len(list(_flat(want)))
     axes = {}
