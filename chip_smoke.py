@@ -22,8 +22,15 @@ toolkit:
    (``quantized_linear_mma_dense``, route ``fused-quant-dense``: the
    words expanded in the tensor-core K2's staging) at the six K2 shapes
    at W2A2 and at (4, 1024, 2048) W1A1, bit-equal to its plain version
-   and to the lanes route and timed beside it; the CUDA-core K2 at its
-   earlier rows;
+   and to the lanes route and timed beside it; the CUDA-core K2 (on no
+   route) at its earlier int16xP2s8 rows; K2 at every other layout
+   (``int8xP2s4``, ``int16xP4s4``, ``int32xP2s8``, ``int32xP4s8``,
+   ``int32xP2s16`` at W2A2 and W4A4) on the tensor cores at (4, 1024,
+   2048) and (64, 1024, 5632) in lattice K 2048: lanes in, bit-equal to
+   the plain version and to the CUDA-core K2, whose time ``core_ms`` the
+   row carries, and the fused call on bf16 x over lanes and the dense
+   store, bit-equal to the plain version and to the route it replaced
+   (K1, the CUDA-core K2 and the eager epilogue: ``old_route_ms``);
    attention within
    1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
    bf16 queries, with a dead row exactly zero and a second launch
@@ -44,8 +51,10 @@ toolkit:
    tensor-core K6 does not hold) and at the full-width
    ``sparq-cnn`` layers (K5 at int16xP2s8 on the tensor cores, a second
    launch bit-equal, its fused epilogue bit-equal to ``cnn.conv_epilogue``
-   and timed, the CUDA-core tile timed on the same operands; the
-   int8xP2s4 case on the CUDA-core tile).  It times the kernel, the plain
+   and timed, the CUDA-core tile timed on the same operands; every Fig. 4
+   case, int8xP2s4 included, and the widest layer at W4A4 int32xP2s16 on
+   the tensor cores too; the CUDA-core tile at the Fig. 4 conv at 128
+   channels, its route past the tensor cores' shared memory).  It times the kernel, the plain
    version and one PyTorch call that computes the same function where
    there is one (K5: ``F.conv2d`` on the f32 lattices with TF32 off, and
    with TF32 allowed where that is exact; K6: ``F.conv2d`` in f64, also
@@ -79,7 +88,7 @@ toolkit:
    difference.  Then the ``graphs`` lines: graphed against eager engines
    at kv_bits 16, 4, 2 and paged at 4 with prefix sharing (tokens equal,
    the first decode's logit difference, pointers fixed, capture time,
-   peak memory, 5 rounds of 8 decode passes of each in turn: wall ms a
+   peak memory, 3 rounds of 8 decode passes of each in turn: wall ms a
    step, device ms, idle share).
 4. Paged serve phase: the same model and weights through
    ``ServingEngine(EngineConfig(paged=True, page_size=16))``.  Identity at
@@ -116,18 +125,20 @@ toolkit:
 5. Linear phase: ``benchmarks/serve_microbench.run_linear`` on the card at
    m = 8, k = n = 4096: bf16 ``torch.matmul``, int8 through
    ``ops.int_matmul`` (K7 launched, no plain call), packed W1A1 / W2A2 /
-   W3A3 on ``int16xP2s8`` through ``ops.quantized_linear`` (one launch of
-   the tensor-core K2 with K1 folded in), W2A2 on ``int32xP2s16`` (K1, the
-   CUDA-core K2 and the eager epilogue: that kernel's path) and the W2A2
-   lattice dot on ``int16xP2s8`` (K1 and the tensor-core K2's lanes route:
-   their path); a ``linear`` line with each time and the weight bytes.
-6. Fig. 4 phase: the int16 conv, the int16 conv at 64 channels and each
-   packed case once through ``ops.int_conv2d`` / ``ops.packed_conv2d``
-   (the tensor-core K6, the CUDA-core K6, the tensor-core K5 at
-   int16xP2s8 and the CUDA-core K5 at int8xP2s4 launched, no plain call),
-   and a ``fig4`` line with each packed time, the int16 time and their
-   ratio on the same unit beside the paper's, and at int16xP2s8 the
-   CUDA-core K5's ratio over the CUDA-core K6.
+   W3A3 on ``int16xP2s8`` and W2A2 / W4A4 on ``int32xP2s16`` through
+   ``ops.quantized_linear`` (one launch of the tensor-core K2 with K1
+   folded in), the W2A2 lattice dot on ``int16xP2s8`` and the W4A4 one on
+   ``int32xP2s16``, lanes and dense (K1 and the tensor-core K2's lanes-in
+   routes: their path); a ``linear`` line with each time and the weight
+   bytes.
+6. Fig. 4 phase: the int16 conv, the int16 conv at 64 channels, each
+   packed case and the W2A2 case at 128 channels once through
+   ``ops.int_conv2d`` / ``ops.packed_conv2d`` (the tensor-core K6, the
+   CUDA-core K6, the tensor-core K5 at every case and the CUDA-core K5 at
+   128 channels launched, no plain call), and a ``fig4`` line with each
+   packed time, the int16 time and their ratio on the tensor cores beside
+   the paper's, and as a second column the CUDA-core K5's ratio over the
+   CUDA-core K6.
 7. CNN phase: full-width ``sparq-cnn`` W2A2 (random weights from a seed),
    weights prepared and plans built once, classifying 4 batches of 8
    random 256x256x3 images through ``cnn.forward(quant_mode="packed")``
@@ -143,7 +154,7 @@ toolkit:
 8. Training phase: full-width ``stablelm-1.6b`` W2A2 with its config's
    remat='block' and two microbatches, batch 4 x 128 from
    ``SyntheticLMStream(seed=0)``, a cosine schedule with a 2-step warm-up,
-   8 eager train steps from seed-0 params (``launch/steps.
+   4 eager train steps from seed-0 params (``launch/steps.
    make_train_step``: fake-quant forward and backward, AdamW with f32
    moments): a ``train`` line (per step loss, ce, grad_norm, lr, ms; the
    median step, tokens/s, peak memory, the model-FLOP share 6 x params x
@@ -205,7 +216,8 @@ toolkit:
    128, d_ff 14336, 8 experts top-2, vocab 32000, window 4096) cut to 4 of
    its 32 layers, W2A2 int16xP2s8, seed-0 weights, ``EngineConfig(
    max_batch=4, max_len=512)`` (chunk clamped to 1), kv 16 and 4, the
-   serve prompts with 16 new tokens each, graphed, against an engine on
+   serve prompts cut to 32 tokens with 8 new tokens each, graphed,
+   against an engine on
    ``backend='torch'`` (tokens equal, gated; every packed linear one fused
    K2 launch, gated; no K3 launch, gated): decode ms wall and replayed,
    idle share, the graph's device ms by kernel group and an eager pass's
@@ -230,7 +242,7 @@ toolkit:
    cut to its first 5 of 72 layers at kv 4, W2A2 int16xP2s8, seed-0
    weights, ``EngineConfig(max_batch=4, max_len=512, prefill_chunk=16)``,
    the serve prompts and two more (six requests through four slots, so two
-   slots are reset and reused), 16 (xlstm) and 8 (jamba) new tokens each,
+   slots are reset and reused), 8 (xlstm) and 4 (jamba) new tokens each,
    graphed, against an engine on ``backend='torch'``: tokens equal (gated),
    every packed linear one fused K2 launch (gated), xlstm's logits equal
    over every decode pass (gated), jamba's K3 launched on every pass
@@ -251,7 +263,7 @@ toolkit:
    heads bit-equal to its plain twin (each gated), timed.  ``fleet
    router``: full-width stablelm (kv 4, ``EngineConfig(max_batch=4,
    max_len=512, prefill_chunk=16)``) behind ``Router(replicas=2)``, two
-   graphed engines, eight seeded requests (prompts 17-100 tokens, 16 new,
+   graphed engines, eight seeded requests (prompts 17-100 tokens, 8 new,
    two sampled at a seeded temperature, two in one session): tokens equal
    to one engine serving them (gated), placements, spillover, the summed
    per-replica decode tok/s beside the wall-clock tok/s, each replica's
@@ -303,15 +315,38 @@ route), the data the planner's split model was fitted to.
 and ``moe`` lines of step 10, ``--recurrent`` only the lines of step 11,
 ``--multimodal`` only the multimodal lines, ``--fleet`` only the lines
 of step 12, ``--parallel`` only those of step 13 (with the ``train`` line
-first; flags together run each).
+first), ``--w4a4`` only the every-layout K2 rows, the conv rows with the
+``fig4`` line, the ``linear`` line and the ``serve w4a4`` lines (flags
+together run each).  ``python3 chip_smoke.py --w4a4-pass SRC`` runs only
+the graphed W4A4 decode pass of the package under ``SRC`` (``w4a4 pass``
+line), so that two trees -- this one and another unpacked beside it --
+are compared in one call.
+
+14. The ``serve w4a4`` lines (after the ``spec`` lines): first
+   ``kernel-vs-plain w4a4`` (as the serve phase's, on W4A4 params) and
+   ``kernel-vs-plain w4a4 plain-k3`` (the same with K3 on its plain
+   version: every logit equal to 'torch''s, gated); then stablelm-1.6b
+   whole at W4A4 int32 (``int32xP2s16``, W4A4's only layout), kv 4, the
+   serve cell's ``EngineConfig``, seed-0 weights, the serve prompts with
+   16 new tokens each on graphed engines over the lanes store and over the
+   dense store, each against an engine on ``backend='torch'``: tokens
+   gated under the ``spec`` lines' rule (each parting listed with its
+   margin), every packed linear one fused launch of the layout's library
+   (lanes) or the w_bits-4 dense library, no CUDA-core K2, no standalone
+   K1, no plain call (gated); decode ms wall and replayed, the graph's
+   device ms by kernel group, K2 launches by route and by library.
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
-kernel (K1-K7, K2, K5 and K6 each as its tensor-core and its CUDA-core
-kernel, K1 folded into the tensor-core K2 as ``quantized_linear_mma``, and
-the window write ``cache_write``, which has no TPU kernel of its own) with
-the launches of its path (the dense route's: the ``dense`` line's
-engine).
+kernel of a path (K1-K7; K2 on the tensor cores as its int16xP2s8 lanes
+route ``ulppack_matmul_mma``, K1 folded in as ``quantized_linear_mma``,
+over the dense store as ``quantized_linear_mma_dense``, and at every other
+layout as ``ulppack_matmul_mma_lanes`` / ``quantized_linear_mma_lanes``;
+K5 and K6 each as its tensor-core and its CUDA-core kernel; the window
+write ``cache_write``, which has no TPU kernel of its own) with the
+launches of its path.  The CUDA-core K2 is on no path: the K2 rows
+time it (``core_ms``).  ``phase`` lines give the seconds since the start
+after each phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -344,6 +379,15 @@ ATTN_BF16_RTOL = 2.0 ** -7
 # and ``roofline/analysis.bound_ms`` of the package, bound here by
 # :func:`use_package` (the phases call them by these names).
 card_peaks = bound_ms = None
+
+
+START = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """A ``phase`` line: seconds since the script started, after ``what``
+    (the whole run's time by phase, against its limit)."""
+    print(f"phase {what}: {time.perf_counter() - START:.1f} s", flush=True)
 
 
 def use_package(src: Path) -> None:
@@ -412,8 +456,12 @@ def kernel_phase(torch, peaks, dev):
             "bound_ms": b, "bound_by": by, "library_ms": None})
 
     rows += packed_matmul_rows(torch, peaks, dev, gen)
+    mark("kernel k2")
+    rows += layout_k2_rows(torch, peaks, dev, gen)
+    mark("kernel k2 layouts")
     rows += dense_rows(torch, peaks, dev, gen)
     rows += attention_rows(torch, peaks, dev, gen)
+    mark("kernel k2 dense, k3")
     rows += cache_write_rows(torch, peaks, dev, gen)
     return rows
 
@@ -549,14 +597,14 @@ def cache_write_rows(torch, peaks, dev, gen, cfg=None, label="cache_write"):
 # K2's shapes: full-width stablelm-1.6b's (Kp, N) pairs at the decode rows
 # (max_batch 4) and the chunked-prefill rows (4 x prefill_chunk 16), W2A2.
 # The tensor-core kernel (int16xP2s8) takes all six; the CUDA-core kernel
-# keeps its earlier rows, int32xP2s16 among them (its layout).
+# (on no route) keeps its earlier int16xP2s8 rows as comparison rows; the
+# other layouts' are LAYOUT_K2_CASES.
 K2_MMA_CASES = ((4, 1024, 2048), (4, 1024, 5632), (4, 2816, 2048),
                 (64, 1024, 5632), (64, 1024, 2048), (64, 2816, 2048))
 K2_CORE_CASES = (("W2A2/int16xP2s8", 4, 1024, 2048),
                  ("W2A2/int16xP2s8", 4, 1024, 5632),
                  ("W2A2/int16xP2s8", 4, 2816, 2048),
-                 ("W2A2/int16xP2s8", 64, 1024, 5632),
-                 ("W2A2/int32xP2s16", 4, 1024, 2048))
+                 ("W2A2/int16xP2s8", 64, 1024, 5632))
 
 
 def packed_matmul_rows(torch, peaks, dev, gen):
@@ -733,6 +781,170 @@ def fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws, design):
             "kernels_us": device_kernel_us(torch, lambda: fused(ws[0]),
                                            warm=lambda: fused(ws[-1])),
             "geometry": plan.describe()}
+
+
+# K2 at every other layout: one case each at the widest bits it serves in
+# the shipped configs' place (W1A1 on the nibble layouts, W2A2 on the int32
+# ones) and W4A4 on int32xP2s16, its only layout; at stablelm's decode and
+# prefill rows of K 2048 (lattice values): (rows, K, N).
+LAYOUT_K2_SPECS = ("W1A1/int8xP2s4", "W1A1/int16xP4s4", "W2A2/int32xP2s8",
+                   "W2A2/int32xP4s8", "W2A2/int32xP2s16", "W4A4/int32xP2s16")
+LAYOUT_K2_CASES = ((4, 2048, 2048), (64, 2048, 5632))
+
+
+def layout_k2_rows(torch, peaks, dev, gen, specs=LAYOUT_K2_SPECS,
+                   cases=LAYOUT_K2_CASES):
+    """K2 on the tensor cores at every layout but int16xP2s8 (one library
+    each of ``csrc/ulppack_matmul_mma_lanes.cu``), against the CUDA-core K2
+    (``csrc/ulppack_matmul.cu``, on no route) on the same operands in
+    the same call.  Per (layout, shape): lanes in (``ulppack_matmul_mma_
+    lanes``, route ``lanes-in``: four calls bit-equal to the plain version
+    and to the CUDA-core K2, whose time is ``core_ms``; one PyTorch call on
+    the lattices as in ``packed_matmul_rows``), then the serving path's
+    call on bf16 activations, one fused launch (``quantized_linear_mma_
+    lanes``, route ``fused-quant``), bit-equal to the plain version and to
+    the route it replaces -- K1, the CUDA-core K2 and the eager epilogue,
+    timed as ``old_route_ms`` -- and, where the layout holds the w_bits,
+    over the dense store (``dense_ms``, bit-equal).  Each row's bounds as
+    in ``packed_matmul_rows`` and ``fused_quant_row``."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import ops, quant_pack, ulppack_matmul as mm
+    from repro_torch.kernels import plan as plan_lib
+
+    bf16 = torch.bfloat16
+    rows = []
+    for text in specs:
+        sp = PackSpec.parse(text)
+        for m, k, n in cases:
+            kp = -(-k // sp.n_pack)
+            qa = torch.randint(0, sp.max_a + 1, (m, k), generator=gen,
+                               device=dev, dtype=torch.int32)
+            qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                               device=dev, dtype=torch.int32)
+            a = packing.pack_activations(qa, sp)
+            w = packing.pack_weights(qw, sp)
+            want = mm.ulppack_matmul_torch(a, w, sp)
+            ws = [w] + [w.clone() for _ in range(copies_for(
+                w.numel() * sp.lane_bytes) - 1)]
+            if m > 16:
+                lib_fn, lt = torch._int_mm, torch.int8
+            else:
+                lib_fn, lt = torch.matmul, torch.float32
+            al = qa.to(lt)
+            wls = [qw.to(lt) for _ in range(copies_for(
+                qw.numel() * al.element_size()))]
+            if not torch.equal(lib_fn(al, wls[0]).to(torch.int32), want):
+                raise AssertionError(f"{lib_fn.__name__} on the lattices "
+                                     f"disagrees with the packed matmul")
+            lib = time_ms(torch, [lambda wl=wl: lib_fn(al, wl) for wl in wls])
+            del wls
+            plan = plan_lib.plan_packed_matmul(m, kp, n, sp,
+                                               weight_store="lanes",
+                                               device=dev)
+            geo = plan_lib.packed_matmul_core_geometry(m, kp, n, sp, dev)
+
+            def call(wi, plan=plan):
+                return mm.ulppack_matmul_mma_cuda(a, wi, sp, plan=plan)
+
+            def core(wi, geo=geo):
+                return mm.ulppack_matmul_cuda(a, wi, sp, **geo)
+
+            runs = [call(w) for _ in range(4)] + [core(w)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(r, want) for r in runs):
+                raise AssertionError(f"ulppack_matmul_mma_lanes {sp} "
+                                     f"{(m, kp, n)}: not bit-equal to the "
+                                     f"plain version and the CUDA-core K2")
+            nbytes = (m * kp + kp * n) * sp.lane_bytes + m * n * 4
+            b, by = bound_ms(nbytes, 2 * m * k * n, peaks["hbm"],
+                             peaks["int8"])
+            rows.append({
+                "name": "ulppack_matmul_mma_lanes", "route": "lanes-in",
+                "shape": f"({m},{kp},{n}) {sp}", "max_abs_err": 0,
+                "ms": time_ms(torch, [lambda wi=wi: call(wi) for wi in ws]),
+                "core_ms": time_ms(torch, [lambda wi=wi: core(wi)
+                                           for wi in ws]),
+                "plain_ms": time_ms(torch, [lambda: mm.ulppack_matmul_torch(
+                    a, w, sp)], 3),
+                "bound_ms": b, "bound_by": by, "library_ms": lib,
+                "library": f"torch.{lib_fn.__name__} ({lt})",
+                "geometry": plan.describe(), "core_geometry": geo})
+
+            # the serving path's call, bf16 x, bf16 out
+            x = (torch.randn((m, k), generator=gen, device=dev)
+                 * 1.5).to(bf16)
+            cs = qw.sum(dim=0, dtype=torch.int32)
+            a_scale = torch.tensor(3 ** -0.5, device=dev)
+            zp = torch.tensor((sp.max_a + 1) // 2, dtype=torch.int32,
+                              device=dev)
+            w_scale = torch.tensor(0.02, device=dev)
+            w_zp = torch.tensor((sp.max_w + 1) // 2, dtype=torch.int32,
+                                device=dev)
+            args = (cs, a_scale, zp, w_scale, w_zp, sp)
+            qplan = plan_lib.plan_quantized_linear(m, k, n, sp, bf16,
+                                                   weight_store="lanes",
+                                                   device=dev)
+
+            def fused(wi, qplan=qplan, args=args, x=x):
+                return mm.quantized_linear_mma_cuda(x, wi, *args, plan=qplan,
+                                                    out_dtype=bf16)
+
+            def old_route(wi, geo=geo, args=args, x=x):
+                # the route the fused call replaced: K1, the CUDA-core K2 and
+                # ops.quantized_linear's eager epilogue
+                cs, a_scale, zp, w_scale, w_zp, _ = args
+                ap, rs = quant_pack.quantize_pack_cuda(x.float(), a_scale,
+                                                       zp, sp)
+                acc = mm.ulppack_matmul_cuda(ap, wi, sp, **geo)
+                f32 = torch.float32
+                corr = (acc.to(f32) - w_zp.to(f32) * rs.to(f32)
+                        - zp.to(f32) * cs.to(f32)
+                        + k * zp.to(f32) * w_zp.to(f32))
+                return (a_scale * w_scale * corr).to(bf16)
+
+            fwant = ops.quantized_linear(x, w, *args, backend="torch",
+                                         out_dtype=bf16)
+            runs = [fused(w), fused(w), old_route(w)]
+            extra = {}
+            if sp.w_bits in plan_lib.DENSE_MMA_W_BITS:
+                words = ops.dense_store_weights(qw, sp.w_bits)
+                dplan = plan_lib.plan_quantized_linear(
+                    m, k, n, sp, bf16, weight_store="dense", device=dev)
+                wds = [words] + [words.clone() for _ in range(copies_for(
+                    4 * words.numel()) - 1)]
+
+                def dfused(wi, dplan=dplan, args=args, x=x):
+                    return mm.quantized_linear_mma_cuda(
+                        x, wi, *args, plan=dplan, out_dtype=bf16)
+
+                runs.append(dfused(words))
+            torch.cuda.synchronize()
+            if not all(torch.equal(r, fwant) for r in runs):
+                raise AssertionError(f"quantized_linear_mma_lanes {sp} "
+                                     f"{(m, k, n)}: not bit-equal to the "
+                                     f"plain version and the route it "
+                                     f"replaces")
+            if sp.w_bits in plan_lib.DENSE_MMA_W_BITS:
+                extra = {"dense_ms": time_ms(torch, [
+                    lambda wi=wi: dfused(wi) for wi in wds]),
+                    "dense_geometry": dplan.describe()}
+                del wds
+            fbytes = w.numel() * sp.lane_bytes + m * k * 2 + m * n * 2 + n * 4
+            fb, fby = bound_ms(fbytes, 2 * m * k * n, peaks["hbm"],
+                               peaks["int8"])
+            rows.append({
+                "name": "quantized_linear_mma_lanes", "route": "fused-quant",
+                "shape": f"({m},{kp},{n}) {sp} bf16 x", "max_abs_err": 0,
+                "ms": time_ms(torch, [lambda wi=wi: fused(wi) for wi in ws]),
+                "old_route_ms": time_ms(torch, [lambda wi=wi: old_route(wi)
+                                                for wi in ws]),
+                "plain_ms": time_ms(torch, [lambda: ops.quantized_linear(
+                    x, w, *args, backend="torch", out_dtype=bf16)], 3),
+                "bound_ms": fb, "bound_by": fby, "library_ms": None,
+                "geometry": qplan.describe(), **extra})
+            del ws
+    return rows
 
 
 def _mma_operands(torch, dev, gen, m, kp, n):
@@ -1446,7 +1658,7 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         plan = plan_lib.plan_packed_conv2d(
             tuple(xp.shape), tuple(wp.shape), sp, padding=padding,
             weight_store=store, k_full=k_full, device=dev)
-        mma = plan_lib.packed_conv2d_on_tensor_cores(sp)
+        mma = plan.route == "tensor_cores"
         got = ops.packed_conv2d(xp, wp, sp, padding=padding, plan=plan)
         again = ops.packed_conv2d(xp, wp, sp, padding=padding, plan=plan)
         want = conv.ulppack_conv2d_torch(xp, wp, sp, **kw)
@@ -1557,10 +1769,23 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         qw = torch.randint(0, sp.max_w + 1, (k, k, c, co), generator=gen,
                            device=dev, dtype=torch.int32)
         packed_row(sp, qx, qw, "VALID", "lanes", fig4_label, key=text)
+    # the CUDA-core K5's path: the Fig. 4 conv at 128 channels, whose halo
+    # ring and weight block do not fit the tensor cores' shared memory
+    # (route 'cuda_cores')
+    sp = PackSpec.parse(FIG4_SPECS[1])
+    c4 = 4 * c
+    qx = torch.randint(0, sp.max_a + 1, (n, hw, hw, c4), generator=gen,
+                       device=dev, dtype=torch.int32)
+    qw = torch.randint(0, sp.max_w + 1, (k, k, c4, co), generator=gen,
+                       device=dev, dtype=torch.int32)
+    packed_row(sp, qx, qw, "VALID", "lanes",
+               f"fig4-c{c4} x[{n},{hw},{hw},{c4}] w[{k},{k},{c4},{co}] VALID",
+               key=f"{FIG4_SPECS[1]}-c{c4}")
     sp = PackSpec.from_config(cnn_cfg.quant)
     hw, k = cnn_cfg.cnn_input_hw, cnn_cfg.cnn_kernel
     chans = cnn_cfg.cnn_channels
-    for cin, cout in sorted(set(zip((chans[0],) + chans[:-1], chans))):
+    layers = sorted(set(zip((chans[0],) + chans[:-1], chans)))
+    for cin, cout in layers:
         qx = torch.randint(0, sp.max_a + 1, (CNN_BATCH, hw, hw, cin),
                            generator=gen, device=dev, dtype=torch.int32)
         qw = torch.randint(0, sp.max_w + 1, (k, k, cin, cout),
@@ -1569,6 +1794,18 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
             packed_row(sp, qx, qw, "SAME", store,
                        f"layer {cin}->{cout} x[{CNN_BATCH},{hw},{hw},{cin}] "
                        f"w[{k},{k},{cin},{cout}] SAME")
+    # the widest layer at W4A4 (int32xP2s16, a raw slot rewritten into the
+    # halo), both stores
+    sp = PackSpec.parse("W4A4/int32xP2s16")
+    cin, cout = layers[-1]
+    qx = torch.randint(0, sp.max_a + 1, (CNN_BATCH, hw, hw, cin),
+                       generator=gen, device=dev, dtype=torch.int32)
+    qw = torch.randint(0, sp.max_w + 1, (k, k, cin, cout), generator=gen,
+                       device=dev, dtype=torch.int32)
+    for store in ("lanes", "dense"):
+        packed_row(sp, qx, qw, "SAME", store,
+                   f"layer {cin}->{cout} x[{CNN_BATCH},{hw},{hw},{cin}] "
+                   f"w[{k},{k},{cin},{cout}] SAME")
     return rows, fig4
 
 
@@ -1599,14 +1836,15 @@ def fig4_instruction_model(text: str) -> dict:
 def fig4_phase(torch, fig4, rows):
     """The Fig. 4 comparison through the entry points: the int16 conv (K6
     on the tensor cores), the int16 conv at 64 channels (K6 on the CUDA
-    cores: the tensor-core K6's shared memory does not hold it) and each
-    packed case (K5: the tensor-core kernel at int16xP2s8, the CUDA-core
-    tile at int8xP2s4) at the paper's shape, once each; returns the
-    launches.  Prints the kernel phase's times side by side: each packed
-    case's speedup over the int16 conv on the same unit (tensor cores
-    against tensor cores, CUDA cores against CUDA cores) beside the
-    paper's, and at int16xP2s8 also the CUDA-core K5's over the CUDA-core
-    K6 on the same operands."""
+    cores: the tensor-core K6's shared memory does not hold it), each
+    packed case (K5 on the tensor cores, int8xP2s4 included) at the
+    paper's shape and the W2A2 case at 128 channels (K5 on the CUDA-core
+    tile: its route past the tensor cores' shared memory), once each;
+    returns the launches.  Prints the kernel phase's times side by side:
+    each packed case's speedup over the int16 conv on the same unit
+    (tensor cores against tensor cores) beside the paper's, and as a
+    second column the CUDA-core K5's over the CUDA-core K6 on the same
+    operands."""
     from repro_torch.core.packing import PackSpec
     from repro_torch.kernels import ops, plan as plan_lib
     from repro_torch.kernels import ulppack_conv2d as conv
@@ -1617,12 +1855,15 @@ def fig4_phase(torch, fig4, rows):
     for text in FIG4_SPECS:
         out.append(ops.packed_conv2d(*fig4[text], PackSpec.parse(text),
                                      padding="VALID"))
+    wide = next(key for key in fig4 if key.startswith(f"{FIG4_SPECS[1]}-c"))
+    out.append(ops.packed_conv2d(*fig4[wide], PackSpec.parse(FIG4_SPECS[1]),
+                                 padding="VALID"))
     torch.cuda.synchronize()
     launches, plain = dict(conv.kernel_launches), dict(conv.plain_calls)
     mma = sum(plan_lib.packed_conv2d_on_tensor_cores(PackSpec.parse(t))
               for t in FIG4_SPECS)
     if launches != {"int_conv2d": 1, "int_conv2d_mma": 1,
-                    "ulppack_conv2d": len(FIG4_SPECS) - mma,
+                    "ulppack_conv2d": len(FIG4_SPECS) - mma + 1,
                     "ulppack_conv2d_mma": mma} or any(plain.values()):
         raise AssertionError(f"fig4 path: launches {launches}, plain {plain}")
     ho = FIG4["hw"] - FIG4["k"] + 1
@@ -1640,7 +1881,7 @@ def fig4_phase(torch, fig4, rows):
            "packed": {}}
     for text in FIG4_SPECS:
         r = next(r for r in rows if r["name"].startswith("ulppack_conv2d")
-                 and r["shape"].startswith("fig4") and text in r["shape"])
+                 and r["shape"].startswith("fig4 x") and text in r["shape"])
         bits = text.split("/")[0]
         on_mma = r["name"] == "ulppack_conv2d_mma"
         case = {"route": r["name"], "ms": r["ms"],
@@ -2152,15 +2393,17 @@ def linear_phase(torch, dev):
     """``benchmarks/serve_microbench.run_linear`` on the card at m = 8,
     k = n = 4096 (its weights and scales): bf16 ``torch.matmul``, int8
     through ``ops.int_matmul`` (K7), packed W1A1 / W2A2 / W3A3 on
-    ``int16xP2s8`` through ``ops.quantized_linear`` (one launch of the
-    tensor-core K2 with K1 folded in and the affine epilogue fused), W2A2
-    on ``int32xP2s16`` (K1, the CUDA-core K2 and the eager epilogue: that
-    kernel's path) and the exact W2A2 lattice dot on ``int16xP2s8``
+    ``int16xP2s8`` and W2A2 / W4A4 on ``int32xP2s16`` through
+    ``ops.quantized_linear`` (one launch of the tensor-core K2 with K1
+    folded in and the affine epilogue fused), and the exact lattice dot
     through ``ops.quantize_pack`` + ``ops.packed_matmul`` (K1 and the
-    lanes route of the tensor-core K2: their path).  Each row is driven
-    once with the counts at zero (the expected launches, no plain call),
-    then timed by CUDA-graph replay.  Returns the launches of K7, the
-    CUDA-core K2, K1 and the lanes route of the tensor-core K2."""
+    lanes route of the tensor-core K2: their path) at W2A2 on
+    ``int16xP2s8`` and at W4A4 on ``int32xP2s16``, lanes and the dense
+    store (the layout library's lanes-in routes: their path).  Each row is
+    driven once with the counts at zero (the expected launches, no plain
+    call), then timed by CUDA-graph replay.  Returns the launches of K7,
+    K1, the lanes route of the tensor-core K2 and the layout libraries'
+    lanes-in routes."""
     from repro_torch.core.packing import PackSpec
     from repro_torch.kernels import ops, quant_pack, ulppack_matmul
 
@@ -2182,42 +2425,64 @@ def linear_phase(torch, dev):
     a_scale = torch.tensor(0.07, dtype=f32, device=dev)
     w_scale = torch.tensor(0.02, dtype=f32, device=dev)
     for text in ("W1A1/int16xP2s8", "W2A2/int16xP2s8", "W3A3/int16xP2s8",
-                 "W2A2/int32xP2s16"):
+                 "W2A2/int32xP2s16", "W4A4/int32xP2s16"):
         spec = PackSpec.parse(text)
         wb = spec.w_bits
         zp = torch.tensor(1 << (wb - 1), dtype=i32, device=dev)
         wp, cs = ops.prepare_weights(w, w_scale, zp, spec)
-        fused = spec.lane_dtype == torch.int16
-        paths.append((f"packed-W{wb}A{wb}" + (
-                          "" if fused else f"-{spec.lane_name}xP"
-                                           f"{spec.n_pack}s{spec.shift}"),
-                      lambda wp=wp, cs=cs, zp=zp, spec=spec:
+        p2s8 = spec.lane_dtype == torch.int16
+        tag = f"packed-W{wb}A{spec.a_bits}" + (
+            "" if p2s8 else f"-{spec.lane_name}xP{spec.n_pack}s{spec.shift}")
+        paths.append((tag, lambda wp=wp, cs=cs, zp=zp, spec=spec:
                       ops.quantized_linear(x, wp, cs, a_scale, zp, w_scale,
                                            zp, spec),
                       wp.numel() * wp.element_size(),
-                      {"quantized_linear_mma": 1} if fused else
-                      {"quantize_pack": 1, "ulppack_matmul": 1}))
-        if text == "W2A2/int16xP2s8":
-            paths.append(("packed-W2A2-lattice-dot",
+                      {"quantized_linear_mma": 1}))
+        if text in ("W2A2/int16xP2s8", "W4A4/int32xP2s16"):
+            paths.append((f"{tag}-lattice-dot",
                           lambda wp=wp, zp=zp, spec=spec: ops.packed_matmul(
                               ops.quantize_pack(x, a_scale, zp, spec)[0], wp,
                               spec),
                           wp.numel() * wp.element_size(),
-                          {"quantize_pack": 1, "ulppack_matmul_mma": 1}))
+                          {"quantize_pack": 1, "ulppack_matmul_mma": 1}
+                          if p2s8 else
+                          {"quantize_pack": 1,
+                           "ulppack_matmul_mma_lanes": 1}))
+        if text == "W4A4/int32xP2s16":
+            words, _ = ops.prepare_weights(w, w_scale, zp, spec,
+                                           weight_store="dense")
+            paths.append((f"{tag}-lattice-dot-dense",
+                          lambda words=words, zp=zp, spec=spec:
+                          ops.packed_matmul(
+                              ops.quantize_pack(x, a_scale, zp, spec)[0],
+                              words, spec, weight_store="dense", k_full=k),
+                          words.numel() * 4,
+                          {"quantize_pack": 1,
+                           "ulppack_matmul_mma_lanes": 1}))
     mods = (ulppack_matmul, quant_pack)
     rows = []
-    launches = dict.fromkeys(("int_matmul", "ulppack_matmul", "quantize_pack",
-                              "ulppack_matmul_mma"), 0)
+    launches = dict.fromkeys(("int_matmul", "quantize_pack",
+                              "ulppack_matmul_mma",
+                              "ulppack_matmul_mma_lanes"), 0)
+    from repro_torch.kernels import build
     for name, fn, wbytes, expect in paths:
         for mod in mods:
             mod.reset_counts()
         out = fn()
         torch.cuda.synchronize()
         mma = ulppack_matmul.mma_launches
+        dmma = ulppack_matmul.dense_mma_launches
+        lanes_in = sum(v for (lib, route), v in
+                       ulppack_matmul.library_launches.items()
+                       if lib in build.LAYOUT_VARIANTS
+                       and route != "quant_affine")
+        routed = mma["s32"] + mma["affine"] + dmma["s32"] + dmma["affine"]
         got = {"ulppack_matmul": ulppack_matmul.kernel_launches[
                    "ulppack_matmul"],
-               "ulppack_matmul_mma": mma["s32"] + mma["affine"],
-               "quantized_linear_mma": mma["quant_affine"],
+               "ulppack_matmul_mma": routed - lanes_in,
+               "ulppack_matmul_mma_lanes": lanes_in,
+               "quantized_linear_mma": mma["quant_affine"]
+               + dmma["quant_affine"],
                "int_matmul": ulppack_matmul.kernel_launches["int_matmul"],
                "quantize_pack": quant_pack.kernel_launches}
         plain = sum(ulppack_matmul.plain_calls.values()) \
@@ -2233,6 +2498,11 @@ def linear_phase(torch, dev):
                      "weight_bytes": wbytes, "launches": expect})
     print("linear " + json.dumps({"m": m, "k": k, "n": n, "rows": rows}))
     return launches
+
+
+#: Alternated rounds of 8 decode passes of each engine in the ``graphs``
+#: lines (a depth cut that keeps the whole script inside its time limit).
+GRAPH_ROUNDS = 3
 
 
 def step_ptrs(steps, pair, caches):
@@ -2254,7 +2524,8 @@ def graphs_phase(torch, np, dev, cfg, params):
     each engine's peak memory above what was allocated before it was built
     (the eager engine's measured after its graphs were dropped).  Then
     four long requests on each, and 8 decode passes of each engine in
-    turn, 5 rounds: median wall ms a step (host clock, synchronised), then
+    turn, GRAPH_ROUNDS rounds: median wall ms a step (host clock,
+    synchronised), then
     4 passes of each under torch.profiler (device kernel ms a step, idle
     share = 1 - device / wall), and the decode graph's replay timed alone
     between CUDA events.  Returns the lines."""
@@ -2359,7 +2630,7 @@ def graphs_phase(torch, np, dev, cfg, params):
                       if eng.slot_req[s] is not None):
                 eng.step()
         walls = {m: [] for m in engines}
-        for r in range(5):
+        for r in range(GRAPH_ROUNDS):
             order = list(engines) if r % 2 == 0 else list(engines)[::-1]
             for mode in order:
                 eng = engines[mode]
@@ -2373,7 +2644,7 @@ def graphs_phase(torch, np, dev, cfg, params):
                 if eng.metrics.decode_passes != passes + 8:
                     raise AssertionError("graphs: a timed step was not a "
                                          "decode pass")
-        alt = {"rounds": 5, "passes_per_round": 8}
+        alt = {"rounds": GRAPH_ROUNDS, "passes_per_round": 8}
         for mode, eng in engines.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2594,6 +2865,230 @@ def dense_phase(torch, np, dev, cfg, params):
     del engines, eng
     torch.cuda.empty_cache()
     return launches
+
+
+# W4A4, the paper's 4-bit point: int32xP2s16 is its only layout
+# (``packing.layout_family(4, 4)``).
+W4A4_QUANT = dict(w_bits=4, a_bits=4, lane_dtype="int32", kv_bits=4)
+W4A4_NEW = 16
+W4A4_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
+
+
+def w4a4_config(cfg):
+    return cfg.replace(quant=cfg.quant.replace(**W4A4_QUANT))
+
+
+def w4a4_phase(torch, np, dev, cfg):
+    """The ``serve w4a4`` lines: ``cfg`` (stablelm-1.6b, whole) at W4A4
+    int32 (int32xP2s16 lanes), kv 4, seed-0 weights, the serve cell's
+    ``EngineConfig``, the serve prompts with W4A4_NEW greedy tokens each on
+    a graphed engine, with the lanes store and then the dense store, each
+    against an engine on ``backend='torch'`` over the same store: tokens
+    (gated, see below), the largest decode logit difference; every
+    packed linear one fused launch of the tensor-core K2 -- the
+    int32xP2s16 library over lanes, the w_bits-4 dense library over words
+    -- with no CUDA-core K2, no standalone K1 and no plain call (gated).
+    Records decode ms a pass (wall, and the graph's replay on the device),
+    the graph's device ms by kernel group, K2 launches by route and by
+    library, param bytes.  The tokens are gated under the ``spec``
+    lines' rule: a request may part from ``'torch'`` only where the
+    plain row's top-2 margin is at most 2 x the rows' difference (the
+    line lists each parting and the first decode pass's logit
+    difference).  Returns the fused launches of each store's graphed
+    run."""
+    from repro_torch.kernels import cache_write, quant_pack, \
+        ulppack_attention, ulppack_matmul as mm
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    c = w4a4_config(cfg)
+    t0 = time.perf_counter()
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts, _ = serve_prompts(np, c)
+    w4a4_attribution(torch, np, dev, c, params, prompts)
+    launches = {}
+    for store in ("lanes", "dense"):
+        ecfg = EngineConfig(**W4A4_ECFG, dense_store=store == "dense")
+        for mod in (quant_pack, mm, ulppack_attention, cache_write):
+            mod.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        eng = ServingEngine(c, params, config=ecfg, device=dev)
+        t0 = time.perf_counter()
+        outs, rows, passes = recorded_serve(np, eng, prompts, W4A4_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        routes = dict(mm.dense_mma_launches if store == "dense"
+                      else mm.mma_launches)
+        others = dict(mm.mma_launches if store == "dense"
+                      else mm.dense_mma_launches)
+        libs = {}
+        for (name, _), v in mm.library_launches.items():
+            if v:
+                libs[name] = libs.get(name, 0) + v
+        lib = ("ulppack_matmul_mma_w4" if store == "dense"
+               else "ulppack_matmul_mma_int32xP2s16")
+        core, k1 = mm.kernel_launches["ulppack_matmul"], \
+            quant_pack.kernel_launches
+        plain = mm.plain_calls["ulppack_matmul"] + quant_pack.plain_calls
+        if not routes["quant_affine"] or routes["s32"] or routes["affine"] \
+                or any(others.values()) or core or k1 or plain \
+                or libs != {lib: routes["quant_affine"]} \
+                or not ulppack_attention.kernel_launches["attention_decode"]:
+            raise AssertionError(
+                f"serve w4a4 {store}: K2 {routes} (other store {others}), by "
+                f"library {libs}, CUDA-core K2 {core}, K1 {k1}, plain "
+                f"{plain}: every packed linear must be one fused launch of "
+                f"{lib}")
+        launches[store] = routes["quant_affine"]
+        m, cap = eng.metrics.report(), eng.capacity_report()
+        replay = statistics.median(replay_ms(torch, eng._decode)
+                                   for _ in range(5))
+        groups = profile_replay(torch, eng._decode)
+        line = {"card": torch.cuda.get_device_name(0), "store": store,
+                "spec": "W4A4/int32xP2s16", "kv_bits": 4,
+                "layers": c.num_layers, "d_model": c.d_model,
+                "wall_s": wall, "steps": m["steps"],
+                "decode_passes": eng.metrics.decode_passes,
+                "decode_step_ms_wall": m["decode_step_ms"],
+                "decode_replay_ms": replay,
+                "idle_share": 1 - replay / m["decode_step_ms"],
+                "decode_tok_s": m["decode_tok_s"],
+                "graph_device_ms_by_group": groups,
+                "k2_launches_by_route": routes,
+                "k2_launches_by_library": libs,
+                "cuda_core_k2_launches": core, "standalone_k1_launches": k1,
+                "step_setup_s": cap["step_setup_s"],
+                "param_bytes": cap["param_bytes"],
+                "cache_bytes": cap["cache_bytes"], "init_params_s": init_s}
+        del eng
+        torch.cuda.empty_cache()
+        ref = ServingEngine(c, params, config=ecfg, device=dev,
+                            backend="torch")
+        ref_outs, ref_rows, ref_passes = recorded_serve(np, ref, prompts,
+                                                        W4A4_NEW)
+        del ref
+        torch.cuda.empty_cache()
+        # the margin rule: K3 is within ATTN_TOL of its plain version, not
+        # bit-equal, and a 4-bit activation lattice turns one bf16 ulp of
+        # an attention output into a lattice step more often than a 2-bit
+        # one; an exact tie in the reference's row then parts the tokens
+        parted = token_divergences(np, f"serve w4a4 {store}", ref_outs,
+                                   ref_rows, outs, rows, strict=False)
+        line.update(tokens_equal=outs == ref_outs, requests=len(outs),
+                    divergences=parted,
+                    first_decode_max_logit_diff=float(
+                        (passes[0] - ref_passes[0]).abs().max()),
+                    max_logit_diff_vs_torch=max_pass_diff(passes,
+                                                          ref_passes))
+        print("serve w4a4 " + json.dumps(line))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def w4a4_only(torch, np, peaks, smi):
+    """``python3 chip_smoke.py --w4a4``: the every-layout lines alone -- the K2
+    rows at every other layout, the Fig. 4 and CNN conv rows with the
+    ``fig4`` line, the ``linear`` line and the ``serve w4a4`` lines."""
+    from repro_torch import configs
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = layout_k2_rows(torch, peaks, dev, gen)
+    conv_rows, fig4 = conv_kernel_phase(torch, peaks, dev,
+                                        configs.get_config("sparq-cnn"))
+    rows += conv_rows
+    for r in rows:
+        print("kernel " + json.dumps(r))
+    fig4_phase(torch, fig4, rows)
+    del fig4
+    linear_phase(torch, dev)
+    w4a4_phase(torch, np, dev, configs.get_config("stablelm-1.6b"))
+    print(smi)
+
+
+def w4a4_attribution(torch, np, dev, c, params, prompts):
+    """Where the W4A4 kernel path's logits part from 'torch': the
+    ``kernel-vs-plain w4a4`` line (``compare_backends`` on the W4A4 lanes
+    params), then ``kernel-vs-plain w4a4 plain-k3`` -- the same with K3 /
+    K4's 'cuda' registration pointed at their plain version, so that only
+    the tensor-core K2 (bit-equal to its plain version) and the window
+    write (byte-equal) stay on the kernel path: its every logit must
+    equal 'torch''s (gated).  K3 is within ATTN_TOL of its plain version,
+    not bit-equal; the first line shows what that does to W4A4 logits."""
+    from repro_torch.kernels import plan as plan_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.serve.prepare import prepare_serving_params
+
+    packed = prepare_serving_params(params, c, device=dev)
+    compare_backends(torch, np, dev, c, packed, prompts, steps, lm,
+                     label="kernel-vs-plain w4a4", decode=2)
+    key = ("attention_decode", "cuda")
+    k3 = plan_lib._BACKENDS[key]
+    plan_lib._BACKENDS[key] = plan_lib._BACKENDS[("attention_decode",
+                                                  "torch")]
+    try:
+        rep = compare_backends(torch, np, dev, c, packed, prompts, steps, lm,
+                               label="kernel-vs-plain w4a4 plain-k3",
+                               decode=2)
+    finally:
+        plan_lib._BACKENDS[key] = k3
+    if rep["max_logit_diff"] != 0.0:
+        raise AssertionError(f"kernel-vs-plain w4a4 plain-k3: the W4A4 K2 "
+                             f"path parts from 'torch' by "
+                             f"{rep['max_logit_diff']} with K3 on its plain "
+                             f"version")
+    del packed
+    torch.cuda.empty_cache()
+
+
+def w4a4_pass(torch, np, src):
+    """``python3 chip_smoke.py --w4a4-pass SRC``: the graphed W4A4 decode
+    pass of the package under ``SRC`` (this checkout's ``src``, or another
+    tree's, unpacked beside it: the comparison of two trees in one call).
+    stablelm-1.6b whole at W4A4 int32, kv 4, lanes, the serve cell's
+    ``EngineConfig``, seed-0 weights: the serve prompts admitted and
+    prefilled, then 5 rounds of the decode graph's replay (device ms a
+    pass between CUDA events) and one profiled pair of replays (device ms
+    and launches by kernel group).  Prints a ``w4a4 pass`` line."""
+    from repro_torch import configs
+    from repro_torch.kernels import quant_pack, ulppack_matmul as mm
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, Request, \
+        ServingEngine
+
+    dev = torch.device("cuda")
+    c = w4a4_config(configs.get_config("stablelm-1.6b"))
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    eng = ServingEngine(c, params, config=EngineConfig(**W4A4_ECFG),
+                        device=dev)
+    prompts, _ = serve_prompts(np, c)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_new_tokens=64))
+    while any(eng.slot_req[s] is not None
+              and eng.slot_fed[s] < len(eng.slot_req[s].prompt)
+              for s in range(eng.max_batch)) or not all(
+            eng.slot_req[s] is not None for s in range(eng.max_batch)):
+        eng.step()
+    for _ in range(2):
+        eng.step()
+    mm.reset_counts()
+    quant_pack.reset_counts()
+    replays = [replay_ms(torch, eng._decode) for _ in range(5)]
+    groups = profile_replay(torch, eng._decode)
+    print("w4a4 pass " + json.dumps({
+        "src": str(src), "card": torch.cuda.get_device_name(0),
+        "decode_replay_ms": replays,
+        "decode_replay_ms_median": statistics.median(replays),
+        "graph_device_ms_by_group": groups}))
+    return 0
 
 
 def packed_nodes(tree):
@@ -2887,7 +3382,12 @@ def spec_capture_failure(torch, dev):
     torch.cuda.synchronize()
 
 
-def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
+def compare_backends(torch, np, dev, c, packed, prompts, steps, lm,
+                     label="kernel-vs-plain", decode=8):
+    """One 16-token prefill chunk of the prompts and ``decode`` greedy
+    decode steps on the eager steps, the kernels' backend ('auto') beside
+    'torch' on the same weights: each step's largest logit difference and
+    whether the greedy tokens agree (a ``label`` line)."""
     width = 16
     tokens = np.stack([p[:width] for p in prompts])
     b = tokens.shape[0]
@@ -2901,23 +3401,24 @@ def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
     out = {be: pre[be](packed, caches[be], {"tokens": tokens}, index,
                        valid)[0].float() for be in caches}
     diffs, agree = [], []
-    for i in range(9):
+    for i in range(decode + 1):
         diffs.append(float((out["auto"] - out["torch"]).abs().max()))
         nxt = out["auto"].argmax(dim=-1)
         agree.append(bool(torch.equal(nxt, out["torch"].argmax(dim=-1))))
         if not torch.isfinite(out["auto"]).all():
             raise AssertionError("non-finite logits on the kernel path")
-        if i == 8:
+        if i == decode:
             break
         tok = nxt.cpu().numpy().astype(np.int32)[:, None]
         ix = np.full(b, width + i, np.int32)
         one = np.ones(b, np.int32)
         out = {be: dec[be](packed, caches[be], {"tokens": tok}, ix,
                            one)[0].float() for be in caches}
-    rep = {"kv_bits": 4, "steps": "1 prefill chunk + 8 decode",
+    rep = {"kv_bits": c.quant.kv_bits,
+           "steps": f"1 prefill chunk + {decode} decode",
            "max_logit_diff": max(diffs), "per_step_max_logit_diff": diffs,
            "greedy_agree_per_step": agree}
-    print("kernel-vs-plain " + json.dumps(rep))
+    print(f"{label} " + json.dumps(rep))
     return rep
 
 
@@ -2926,7 +3427,7 @@ def compare_backends(torch, np, dev, c, packed, prompts, steps, lm):
 # lines
 # ---------------------------------------------------------------------------
 
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 4
 TRAIN_KW = dict(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
 TRAIN_GROUPS = {"gemm": ("nvjet", "gemm", "Gemm"),
                 "elementwise": ("elementwise",),
@@ -3683,6 +4184,7 @@ def parallel_phase(torch, dev, peaks, smi, name):
     roofline_phase(name, smi)
     collective_matmul_phase(torch, dev, smi)
     launches = pipeline_phase(torch, dev, cfg, smi)
+    mark("pipeline")
     train_compress_phase(torch, dev, cfg, peaks, smi)
     print(f"parallel lines in {time.perf_counter() - t0:.1f} s")
     return launches
@@ -4006,7 +4508,11 @@ def autotune_serve(torch, np, dev, cfg, tuned):
 # moe reduced and legacy lines
 # ---------------------------------------------------------------------------
 
-MOE_LAYERS, MOE_NEW = 4, 16
+MOE_LAYERS, MOE_NEW = 4, 8
+#: Prompt tokens a ``moe serve`` request: the serve prompts (17-100
+#: tokens) cut, a depth cut that keeps the whole script inside its time
+#: limit.
+MOE_PROMPT = 32
 MOE_RING_PROMPT, MOE_RING_STEPS = 4160, 8
 # profiler ranges of the port (core/quant.py, models/moe.py,
 # models/attention.py), read in an eager decode pass
@@ -4118,8 +4624,9 @@ def moe_serve_phase(torch, np, dev, smi):
     """The ``moe serve`` lines: mixtral-8x7b at full width cut to 4 of its
     32 layers (seed-0 weights), W2A2 at kv 16 and kv 4,
     ``EngineConfig(max_batch=4, max_len=512)`` (the prefill chunk clamped
-    to 1 by the ring), the serve phase's four prompts, MOE_NEW greedy
-    tokens each on the graphed engine, then on an engine with
+    to 1 by the ring), the serve phase's four prompts cut to MOE_PROMPT
+    tokens, MOE_NEW greedy tokens each on the graphed engine, then on an
+    engine with
     ``backend='torch'``: tokens equal (gated), the largest logit
     difference over every decode pass, every packed linear one fused K2
     launch (``check_k2_path``).  Records decode ms a pass (wall, and the
@@ -4138,7 +4645,9 @@ def moe_serve_phase(torch, np, dev, smi):
         SEED), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts, _ = serve_prompts(np, base)
+    # the ring clamps the prefill chunk to 1, so every prompt token is a
+    # pass: the serve prompts cut to MOE_PROMPT tokens
+    prompts = [p[:MOE_PROMPT] for p in serve_prompts(np, base)[0]]
     ecfg = EngineConfig(max_batch=4, max_len=512)
     launches = {"quantized_linear_mma": 0, "cache_write": 0}
     for kv_bits in (16, 4):
@@ -4439,7 +4948,7 @@ def legacy_phase(torch, np, dev, cfg, params, smi):
 
 XLSTM, JAMBA = "xlstm-1.3b", "jamba-1.5-large-398b"
 JAMBA_LAYERS = 5
-REC_NEW = {XLSTM: 16, JAMBA: 8}
+REC_NEW = {XLSTM: 8, JAMBA: 4}
 REC_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
 # profiler ranges of the port read in an eager decode pass (core/quant.py,
 # models/mamba.py, models/xlstm.py, models/moe.py)
@@ -4674,12 +5183,14 @@ def recurrent_phase(torch, np, dev, peaks, smi):
     reduced`` lines.  Returns the serve lines' kernel launches."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 27)
     recurrent_k2_rows(torch, peaks, dev, gen)
+    mark("recurrent k2")
     launches = {"quantized_linear_mma": 0, "attention_decode": 0,
                 "cache_write": 0}
     for name in (XLSTM, JAMBA):
         for k, n in recurrent_serve_phase(torch, np, dev, smi,
                                           name).items():
             launches[k] += n
+        mark(f"recurrent serve {name}")
     recurrent_reduced_phase(torch, np, dev, smi)
     print(f"recurrent launches {launches}")
     print(smi)
@@ -4715,7 +5226,7 @@ def moe_only(torch, np, smi):
 
 VLM, ENCDEC = "qwen2-vl-2b", "seamless-m4t-medium"
 MM_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
-MM_NEW = 16
+MM_NEW = 8
 # the vlm prefix line: an image of 1 x 16 x 16 (t, h, w) patches, 48 text
 # tokens after it, two rows
 VLM_GRID, VLM_TEXT, VLM_ROWS = (1, 16, 16), 48, 2
@@ -5204,7 +5715,9 @@ def multimodal_phase(torch, np, dev, peaks, smi):
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
     multimodal_k2_rows(torch, peaks, dev, gen)
     multimodal_k3_rows(torch, peaks, dev, gen)
+    mark("multimodal rows")
     launches = vlm_phase(torch, np, dev, smi)
+    mark("vlm")
     for k, n in encdec_phase(torch, np, dev, smi).items():
         launches[k] += n
     print(f"multimodal launches {launches} in "
@@ -5218,7 +5731,7 @@ def multimodal_phase(torch, np, dev, peaks, smi):
 # ---------------------------------------------------------------------------
 
 FLEET_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
-FLEET_NEW = 16
+FLEET_NEW = 8
 # stablelm's packed linears split over two shards, (k, n / 2) by layer, at
 # the decode and the prefill-chunk rows of FLEET_ECFG
 FLEET_K2_SHAPES = (("q/k/v/o", 2048, 1024), ("gate/up", 2048, 2816),
@@ -6092,6 +6605,7 @@ def fleet_phase(torch, np, dev, peaks, smi):
                         torch.Generator(device=dev).manual_seed(SEED + 52))
     fleet_shard_k3_rows(torch, peaks, dev,
                         torch.Generator(device=dev).manual_seed(SEED + 53))
+    mark("fleet rows")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -6103,11 +6617,15 @@ def fleet_phase(torch, np, dev, peaks, smi):
         return c.replace(quant=c.quant.replace(kv_bits=kv_bits))
 
     fleet_router_phase(torch, np, dev, smi, at(4), params, launches)
+    mark("fleet router")
     fleet_paged_phase(torch, np, dev, smi, at(4), params, launches)
+    mark("fleet paged")
     for kv, paged in ((4, False), (2, False), (4, True)):
         fleet_shard_phase(torch, np, dev, smi, at(kv), params, "fleet shard",
                           launches, paged=paged)
+    mark("fleet shard")
     fleet_spec_phase(torch, np, dev, smi, at(4), params, launches)
+    mark("fleet spec")
     del params
     held_check(torch, held, "fleet stablelm")
     vlm = multimodal_config(VLM, kv_bits=4)
@@ -6117,8 +6635,10 @@ def fleet_phase(torch, np, dev, peaks, smi):
                       launches)
     del params
     held_check(torch, held, "fleet vlm")
+    mark("fleet vlm")
     for name in (XLSTM, JAMBA):
         fleet_recurrent_phase(torch, np, dev, smi, name, launches)
+        mark(f"fleet recurrent {name}")
     print(f"fleet launches {launches} in {time.perf_counter() - t0:.1f} s")
     print(smi)
     return launches
@@ -6130,6 +6650,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     src = Path(__file__).resolve().parent / "src"
+    if "--w4a4-pass" in sys.argv[1:]:
+        src = Path(sys.argv[sys.argv.index("--w4a4-pass") + 1]).resolve()
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
@@ -6158,14 +6680,21 @@ def main() -> int:
           f"{torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
     paths = build.build()
+    mark("build")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({len(paths)} libraries, nvcc in parallel)")
     if "--k2-sweep" in sys.argv[1:]:
         k2_sweep(torch, torch.device("cuda"))
         print(smi)
         return 0
+    if "--w4a4-pass" in sys.argv[1:]:
+        w4a4_pass(torch, np, src)
+        print(smi)
+        return 0
     only = [f for f in ("--moe", "--recurrent", "--multimodal", "--fleet",
-                        "--parallel") if f in sys.argv[1:]]
+                        "--parallel", "--w4a4") if f in sys.argv[1:]]
+    if "--w4a4" in only:
+        w4a4_only(torch, np, peaks, smi)
     if "--moe" in only:
         moe_only(torch, np, smi)
     if "--recurrent" in only:
@@ -6190,12 +6719,15 @@ def main() -> int:
     cnn_cfg = configs.get_config("sparq-cnn")
     rows = kernel_phase(torch, peaks, dev) + int_matmul_rows(torch, peaks,
                                                               dev)
+    mark("kernel write, k7")
     conv_rows, fig4 = conv_kernel_phase(torch, peaks, dev, cnn_cfg)
     rows += conv_rows
     for r in rows:
         print("kernel " + json.dumps(r))
 
+    mark("kernels")
     mods = (quant_pack, ulppack_matmul, ulppack_attention, cache_write)
+
     for mod in mods:
         mod.reset_counts()
     lm_cfg = configs.get_config("stablelm-1.6b")
@@ -6223,36 +6755,51 @@ def main() -> int:
                                  f"{plain[k]} plain calls on the serve path")
     check_k2_path("serve path")
     compare_backends(torch, np, dev, *ctx)
+    mark("serve")
     del ctx
     torch.cuda.empty_cache()
     graphs_phase(torch, np, dev, lm_cfg, params)
+    mark("graphs")
     launches["attention_decode_paged"] = paged_phase(torch, np, dev, lm_cfg,
                                                      params)
+    mark("paged")
     # the legacy read against the fused one (the kill-switch), whose fused
     # engines add to K3's and K4's launches
     for k, n in legacy_phase(torch, np, dev, lm_cfg, params, smi).items():
         launches[k] += n
+    mark("paged, legacy")
     # the dense store's path: the dense line's engine (every packed linear
     # of its run one launch of the dense route); then speculative decoding
     launches["quantized_linear_mma_dense"] = dense_phase(torch, np, dev,
                                                          lm_cfg, params)
+    mark("dense")
     spec_launches = spec_phase(torch, np, dev, lm_cfg, params)
     print(f"spec launches (the speculative engines' runs): {spec_launches}")
+    mark("dense, spec")
     del params
     torch.cuda.empty_cache()
+    # W4A4 int32xP2s16 served whole, lanes and dense: the fused tensor-core
+    # K2 of the int32xP2s16 library and of the w_bits-4 dense library
+    w4 = w4a4_phase(torch, np, dev, lm_cfg)
+    launches["quantized_linear_mma_lanes"] = w4["lanes"]
+    launches["quantized_linear_mma_dense"] += w4["dense"]
+    mark("serve w4a4")
 
     # the sliding-window MoE decoder: mixtral-8x7b at full width cut to 4
     # layers, served graphed at kv 16 and 4, its ring past the wrap, and
     # reduced mixtral-8x22b; their packed linears add to K2's launches and
     # their ring writes to the window write's
     moe_params, moe_launches = moe_serve_phase(torch, np, dev, smi)
+    mark("moe serve")
     moe_launches["quantized_linear_mma"] += moe_ring_phase(
         torch, np, dev, moe_params, smi)
+    mark("moe ring")
     del moe_params
     torch.cuda.empty_cache()
     moe_reduced_phase(torch, np, dev, smi)
     for k, n in moe_launches.items():
         launches[k] += n
+    mark("moe")
     torch.cuda.empty_cache()
     # the recurrent families: the K2 rows at their shapes, xlstm-1.3b whole
     # and jamba-1.5-large-398b cut to 5 layers served graphed, their
@@ -6260,6 +6807,7 @@ def main() -> int:
     # attention layer to K3's and the window write's
     for k, n in recurrent_phase(torch, np, dev, peaks, smi).items():
         launches[k] += n
+    mark("recurrent")
     torch.cuda.empty_cache()
     # qwen2-vl-2b and seamless-m4t-medium whole: the K2 rows at their
     # shapes, K3 at a GQA group of 6 and without a causal mask, both
@@ -6268,6 +6816,7 @@ def main() -> int:
     # cache writes to the window write's
     for k, n in multimodal_phase(torch, np, dev, peaks, smi).items():
         launches[k] += n
+    mark("multimodal")
     torch.cuda.empty_cache()
     # the replica fleet and tensor-parallel serving: the Router over two
     # graphed stablelm replicas, a paged replica drained and restored,
@@ -6276,6 +6825,7 @@ def main() -> int:
     # writes to the window write's
     for k, n in fleet_phase(torch, np, dev, peaks, smi).items():
         launches[k] += n
+    mark("fleet")
     torch.cuda.empty_cache()
     launches.update(linear_phase(torch, dev))
 
@@ -6286,6 +6836,7 @@ def main() -> int:
     (packed, plans), x, launches["ulppack_conv2d_mma"] = cnn_phase(
         torch, dev, cnn_cfg)
     cnn_compare(torch, cnn_cfg, packed, plans, x)
+    mark("linear, fig4, cnn")
     del packed, plans, x
     torch.cuda.empty_cache()
 
@@ -6296,6 +6847,7 @@ def main() -> int:
     # to K2's, K3's and K5's launches.
     state, step_fn, data = train_phase(torch, dev, lm_cfg, peaks, smi)
     state = train_profile(torch, state, step_fn, data)
+    mark("train")
     trained = state["params"]
     del state, step_fn
     torch.cuda.empty_cache()
@@ -6304,14 +6856,18 @@ def main() -> int:
         launches[k] += n
     del trained
     torch.cuda.empty_cache()
+    mark("train-serve")
     train_ckpt_phase(torch, dev, lm_cfg, smi)
+    mark("train, train-serve, train-ckpt")
     launches["ulppack_conv2d_mma"] += cnn_qat_phase(torch, dev, cnn_cfg, smi)
+    mark("cnn-qat")
     torch.cuda.empty_cache()
     # the last modules: the dry run's roofline, the collective matmul, the
     # pipelined blocks (their packed linears add to K2's launches) and the
     # train step with compressed gradients
     for k, n in parallel_phase(torch, dev, peaks, smi, name).items():
         launches[k] = launches.get(k, 0) + n
+    mark("parallel")
     torch.cuda.empty_cache()
 
     # the autotuner, after every other phase so that none of their plans
@@ -6319,9 +6875,12 @@ def main() -> int:
     # from the saved cache, and engines on the tuned and the empty cache
     from repro_torch.kernels import autotune
     tuned = autotune_phase(torch, dev, lm_cfg, cnn_cfg)
+    mark("autotune tuners")
     autotune.reset_active_cache()
     autotune_cli(torch)
+    mark("autotune cli")
     autotune_serve(torch, np, dev, lm_cfg, tuned)
+    mark("autotune")
     autotune.reset_active_cache()
     shutil.rmtree(tune_dir, ignore_errors=True)
 
@@ -6329,7 +6888,7 @@ def main() -> int:
         # K1 on the serving path is folded into the tensor-core K2
         # (quantized_linear_mma, the serve phase); the standalone K1's
         # path, like the lanes route's of the tensor-core K2, is the
-        # linear phase (its int32xP2s16 and lattice-dot rows)
+        # linear phase (its lattice-dot rows)
         "quantize_pack": ("src/repro_torch/csrc/quant_pack.cu",
                           "src/repro/kernels/quant_pack.py:86",
                           "x[4,2048]"),
@@ -6346,10 +6905,19 @@ def main() -> int:
             "src/repro_torch/csrc/ulppack_matmul_mma_dense.cu",
             "src/repro/kernels/ulppack_matmul.py:99",
             "(4,1024,2048) W2A2/int16xP2s8 bf16 x dense"),
-        # the CUDA-core K2's path is the linear phase's int32xP2s16 row
-        "ulppack_matmul": ("src/repro_torch/csrc/ulppack_matmul.cu",
-                           "src/repro/kernels/ulppack_matmul.py:99",
-                           "(4,1024,2048) W2A2/int32xP2s16"),
+        # K2 on the tensor cores for every other layout (one library per
+        # layout): the fused route's path is the serve w4a4 line's lanes
+        # engine, the lanes-in routes' the linear phase's W4A4 lattice-dot
+        # rows.  The CUDA-core K2 (csrc/ulppack_matmul.cu) is on no
+        # path: its time is each layout row's core_ms.
+        "quantized_linear_mma_lanes": (
+            "src/repro_torch/csrc/ulppack_matmul_mma_lanes.cu",
+            "src/repro/kernels/ulppack_matmul.py:99",
+            "(4,1024,2048) W4A4/int32xP2s16 bf16 x"),
+        "ulppack_matmul_mma_lanes": (
+            "src/repro_torch/csrc/ulppack_matmul_mma_lanes.cu",
+            "src/repro/kernels/ulppack_matmul.py:99",
+            "(4,1024,2048) W4A4/int32xP2s16"),
         "attention_decode": ("src/repro_torch/csrc/attention_decode.cu",
                              "src/repro/kernels/ulppack_attention.py:395",
                              "B4 S512 H32 hd64 C1 kv4"),
@@ -6359,16 +6927,17 @@ def main() -> int:
             "src/repro/kernels/ulppack_attention.py:367",
             "B4 32x16 pages H32 hd64 C1 kv4"),
         # K5's main path is the CNN phase (both stores), on the tensor
-        # cores; its row is the largest packed layer there.  The CUDA-core
-        # K5's path is the Fig. 4 phase's int8xP2s4 case; K6's the Fig. 4
-        # phase: the tensor-core K6 at the Fig. 4 shape, the CUDA-core K6
-        # at 64 channels.
+        # cores for every layout; its row is the largest packed layer
+        # there.  The CUDA-core K5's path is the Fig. 4 phase's W2A2 case
+        # at 128 channels (past the tensor cores' shared memory); K6's the
+        # Fig. 4 phase: the tensor-core K6 at the Fig. 4 shape, the
+        # CUDA-core K6 at 64 channels.
         "ulppack_conv2d_mma": ("src/repro_torch/csrc/ulppack_conv2d_mma.cu",
                                "src/repro/kernels/ulppack_conv2d.py:148",
                                "layer 32->64"),
         "ulppack_conv2d": ("src/repro_torch/csrc/ulppack_conv2d.cu",
                            "src/repro/kernels/ulppack_conv2d.py:148",
-                           "fig4"),
+                           "fig4-c128"),
         "int_conv2d_mma": ("src/repro_torch/csrc/int_conv2d_mma.cu",
                            "src/repro/kernels/ulppack_conv2d.py:148",
                            "fig4 x"),

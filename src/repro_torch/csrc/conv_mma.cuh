@@ -13,8 +13,9 @@
 //
 // The helpers read these fields of the kernel's argument struct P: x (the
 // image bytes), H, W, xrow, FH, FW, pad_top, pad_left, cpad, th / tw (a
-// tile's output rows x columns), tiles_h, tiles_w, and cb (copy bytes: 16,
-// 8 or 4 by cp.async; 0: 2-byte loads; 1: byte loads).
+// tile's output rows x columns), tiles_h, tiles_w, cb (copy bytes: 16,
+// 8 or 4 by cp.async; 0: 2-byte loads; 1: byte loads) and, for a raw slot
+// (K5's lanes that are not lattice bytes), craw.
 #pragma once
 
 #include "mma_s8.cuh"
@@ -56,14 +57,17 @@ __device__ __forceinline__ void tile_origin(const P& p, int tile, int& n,
 // block takes items e, e + kConvThreads, ...; an item is UPI consecutive
 // 16-byte units of one pixel (UPI divides cpad / 16), so the thread that
 // waits for an item's copies may rework its bytes before the next
-// barrier.
-template <int UPI, class P>
+// barrier.  RAW stages into a raw slot instead: pixels of p.craw bytes,
+// units in order (no swizzle), for a pass that rewrites them elsewhere.
+template <int UPI, bool RAW = false, class P>
 __device__ void stage_halo(const P& p, unsigned char* buf, int tile) {
   int n, oh0, ow0;
   tile_origin(p, tile, n, oh0, ow0);
   const int gh0 = oh0 - p.pad_top, gw0 = ow0 - p.pad_left;
   const int hw = p.tw + p.FW - 1;
-  const int nu = p.cpad >> 4;
+  int stride = p.cpad;
+  if constexpr (RAW) stride = p.craw;
+  const int nu = stride >> 4;
   const int units = (p.th + p.FH - 1) * hw * nu;
   const unsigned char* img =
       p.x + static_cast<size_t>(n) * p.H * p.W * p.xrow;
@@ -74,7 +78,8 @@ __device__ void stage_halo(const P& p, unsigned char* buf, int tile) {
       const int pix = e / nu, u = e - pix * nu;
       const int r = pix / hw, c = pix - r * hw;
       const int gh = gh0 + r, gw = gw0 + c;
-      unsigned char* d = buf + pix * p.cpad + ((u ^ swizzle(pix, nu)) << 4);
+      unsigned char* d =
+          buf + pix * stride + ((RAW ? u : u ^ swizzle(pix, nu)) << 4);
       const int lim = p.xrow - 16 * u;  // bytes of this unit held in x
       const bool in = gh >= 0 && gh < p.H && gw >= 0 && gw < p.W && lim > 0;
       const unsigned char* s =

@@ -34,9 +34,11 @@
 // block stages of W and how it turns a stage into planes is the W side's
 // (RawW: W's own int8 / int16 rows, transposed as above; DenseW: K2's
 // bit-dense store, int32 words of w_bits-wide lattice values expanded into
-// the hi / lo planes an int16xP2s8 lane would have split into).  Which
-// planes multiply, with which signedness, into which accumulator is the
-// caller's (an MMA functor); W is never transposed in device memory.
+// the hi / lo planes an int16xP2s8 lane would have split into; LanesW /
+// LanesA: K2's lanes of every other layout, whose fields are written to
+// those same plane bytes).  Which planes multiply, with which signedness,
+// into which accumulator is the caller's (an MMA functor); W is never
+// transposed in device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -159,16 +161,20 @@ __device__ __forceinline__ void mma_m16n8k32(int32_t (&d)[4],
 constexpr int kBN = 128;          // output columns per block (8 warps x 16)
 constexpr int kBK = 64;           // K per stage
 constexpr int kMaxStages = 8;     // cp.async ring depth at most
+constexpr int kMinStages = 3;     // ... and at least (mainloop_w)
 constexpr int kSmemMax = 232448;  // shared memory a block may use
 constexpr int kThreads = 256;
 constexpr int kPlaneRow = kBK + 16;  // bytes of a K-major plane row
 
 // Shared memory: `stages` ring slots of [raw W tile | raw a rows], then
-// two plane buffers of [W planes | a planes (unless a is int8)].  `ab` is
-// the bytes of a staged per K step: 1 or 2 for int8 / int16 a, 2 x the
-// element size for float activations (two lattice values a lane).  The raw
-// W tile is `wt` bytes (kBK x kBN x WB for W's own rows, fewer for the
-// dense store's words) and W has `wp` planes.  The ring is as deep as the
+// two plane buffers of [W planes | a planes (unless the MMAs read a's ring
+// rows)].  `ab` is the bytes of a staged per K step: 1 or 2 for int8 /
+// int16 a, 2 x the element size for float activations (two lattice values
+// a lane), 2 LB / NP for lanes of NP fields in LB bytes.  `ap` is the
+// planes the MMAs read of a: 1 (int8 a, read from the ring) or 2 (split
+// into the plane buffers).  The raw W tile is `wt` bytes (kBK x kBN x WB
+// for W's own rows, fewer for the dense store's words or narrow lanes, more
+// for int32 lanes) and W has `wp` planes.  The ring is as deep as the
 // shared memory allows, up to kMaxStages: stages - 2 of them are in flight
 // while a block transposes one and multiplies another.
 __host__ __device__ constexpr int ring_a_row(int ab) {
@@ -177,29 +183,30 @@ __host__ __device__ constexpr int ring_a_row(int ab) {
 __host__ __device__ constexpr int stage_bytes_w(int bm, int ab, int wt) {
   return wt + bm * ring_a_row(ab);
 }
-__host__ __device__ constexpr int plane_bytes(int bm, int ab, int wp) {
-  return wp * kBN * kPlaneRow + (ab >= 2 ? 2 * bm * kPlaneRow : 0);
+__host__ __device__ constexpr int plane_bytes(int bm, int ap, int wp) {
+  return wp * kBN * kPlaneRow + (ap >= 2 ? 2 * bm * kPlaneRow : 0);
 }
 __host__ __device__ constexpr int stages_for_w(int bm, int ab, int wt,
-                                               int wp) {
+                                               int wp, int ap) {
   const int fit =
-      (kSmemMax - 2 * plane_bytes(bm, ab, wp)) / stage_bytes_w(bm, ab, wt);
+      (kSmemMax - 2 * plane_bytes(bm, ap, wp)) / stage_bytes_w(bm, ab, wt);
   return fit < kMaxStages ? fit : kMaxStages;
 }
 __host__ __device__ constexpr int smem_bytes_w(int bm, int ab, int wt,
-                                               int wp) {
-  return stages_for_w(bm, ab, wt, wp) * stage_bytes_w(bm, ab, wt) +
-         2 * plane_bytes(bm, ab, wp);
+                                               int wp, int ap) {
+  return stages_for_w(bm, ab, wt, wp, ap) * stage_bytes_w(bm, ab, wt) +
+         2 * plane_bytes(bm, ap, wp);
 }
-// W's own rows of WB bytes: a kBK x kBN tile, WB planes.
+// W's own rows of WB bytes: a kBK x kBN tile, WB planes; a's AB-byte rows,
+// AB planes (K7).
 __host__ __device__ constexpr int stage_bytes(int bm, int ab, int wb) {
   return stage_bytes_w(bm, ab, kBK * kBN * wb);
 }
 __host__ __device__ constexpr int stages_for(int bm, int ab, int wb) {
-  return stages_for_w(bm, ab, kBK * kBN * wb, wb);
+  return stages_for_w(bm, ab, kBK * kBN * wb, wb, ab);
 }
 __host__ __device__ constexpr int smem_bytes(int bm, int ab, int wb) {
-  return smem_bytes_w(bm, ab, kBK * kBN * wb, wb);
+  return smem_bytes_w(bm, ab, kBK * kBN * wb, wb, ab);
 }
 
 // The 16-byte chunk position of chunk c of a staged row r.  Raw W rows
@@ -208,11 +215,14 @@ __host__ __device__ constexpr int smem_bytes(int bm, int ab, int wb) {
 // banks; a rows (SW = 0) are padded instead.
 // Rows of dense words (SW = 16 + RW, rows of 32 chunks) are swizzled by
 // row within groups of RW rows, so that a warp reading RW rows x 32 / RW
-// consecutive words hits 32 banks (DenseW below).
+// consecutive words hits 32 banks (DenseW below).  Rows of int16 lanes of
+// four fields (SW = 3; LanesW<2, 4, 4>) are read in pairs of rows: the
+// swizzle flips with the pair, as SW = 2's with a group of four.
 template <int SW>
 __device__ __forceinline__ int chunk_pos(int r, int c) {
   if constexpr (SW == 1) return c ^ (((r >> 2) & 3) << 1);
   if constexpr (SW == 2) return c ^ (((r >> 2) & 1) << 2);
+  if constexpr (SW == 3) return c ^ (((r >> 1) & 1) << 2);
   if constexpr (SW > 16) return c ^ ((r % (SW - 16)) * (8 / (SW - 16)));
   return c;
 }
@@ -275,6 +285,11 @@ struct RawA {
   static constexpr int kBytes = AB;   // staged bytes a K step
   static constexpr int kPlanes = AB;  // planes the MMAs read
   static constexpr bool kQuant = false;
+
+  // bytes of one of a's rows over K steps
+  static __host__ __device__ constexpr long long row_bytes(int K) {
+    return static_cast<long long>(K) * AB;
+  }
 
   RawA() = default;
   template <class P>
@@ -537,6 +552,7 @@ template <int WB>
 struct RawW {
   static constexpr int kTile = kBK * kBN * WB;  // raw bytes in a ring slot
   static constexpr int kPlanes = WB;            // planes the MMAs read
+  static constexpr int kElem = WB;              // bytes of a W element
   static constexpr bool kDense = false;
 
   template <class P>
@@ -621,6 +637,7 @@ struct DenseW {
   static constexpr int kRows = kBK / kL;        // word rows a stage
   static constexpr int kTile = kRows * kBN * 4;
   static constexpr int kPlanes = 2;
+  static constexpr int kElem = 4;               // bytes of a word
   static constexpr bool kDense = true;
   static constexpr int RW = 16 / kL;            // word rows a warp
   static constexpr int CW = 32 / RW;            // columns a warp
@@ -689,6 +706,209 @@ struct DenseW {
   }
 };
 
+// Lanes of the other layouts of the family: LB bytes (int8, int16 or
+// int32) holding NP lattice values SH bits apart (int8xP2s4, int16xP4s4,
+// int32xP2s8, int32xP4s8, int32xP2s16).  Lattice value v of a row or
+// column lies in lane v / NP, field f = v % NP: at bit SH * (NP - 1 - f)
+// of a field-reversed weight lane, at bit SH * f of an ascending
+// activation lane.  In the overflow-free region no value reaches 2^4 (w,
+// a <= 4 bits), so a field's low byte (SH >= 8) or its nibble (SH = 4) is
+// the value.  K stays the tile's: a K step is two lattice values, as an
+// int16xP2s8 lane, so a stage's kBK steps are kLanes = 2 kBK / NP lanes and
+// a split of whole stages starts on a whole lane.  Each side writes value
+// v to the plane byte the int16xP2s8 route puts it in after its hi / lo
+// split -- W: value 2k to plane 0 (hi), 2k + 1 to plane 1 (lo), at byte k
+// of the stage; a: 2k + 1 to plane 0 (hi), 2k to plane 1 (lo) -- so every
+// W side pairs with every a side, and the MMAs, the fix-up and the
+// epilogue are the int16xP2s8 route's.  Byte fields are taken by byte
+// moves, nibbles by a shift and a mask; nvcc folds the constant shifts.
+template <int LB, int NP, int SH>
+struct LaneFields {
+  static_assert((LB == 1 || LB == 2 || LB == 4) && (NP == 2 || NP == 4) &&
+                    NP * SH <= 8 * LB && (SH == 4 || SH % 8 == 0),
+                "a layout of the family");
+  static constexpr int kLanes = 2 * kBK / NP;  // lanes a stage
+  static constexpr int kRun = 8 / NP;          // lanes of 8 values
+  static constexpr uint32_t kMask = SH >= 8 ? 0xFFu : (1u << SH) - 1u;
+
+  // The lanes holding K steps [0, K): ceil(2 K / NP).
+  static __host__ __device__ constexpr int lanes(int K) {
+    return (2 * K + NP - 1) / NP;
+  }
+
+  // Field f of the lane at byte `off` of little-endian words w, the lane
+  // field-reversed (REV) or ascending.  Callers unroll their loops, so
+  // every index and shift is a constant and w stays in registers.
+  template <bool REV>
+  static __device__ __forceinline__ uint32_t field(const uint32_t* w, int off,
+                                                   int f) {
+    const int bit = 8 * off + SH * (REV ? NP - 1 - f : f);
+    return (w[bit >> 5] >> (bit & 31)) & kMask;
+  }
+};
+
+// The W side of the other layouts: field-reversed lanes [Kp, N] of LB
+// bytes (P carries w, N and cb_w).  A stage is kLanes rows of the block's
+// kBN columns as they are; its expand pass takes RawW's thread items
+// (columns [4 nb, 4 nb + 4) x plane bytes [4 kb, 4 kb + 4), i.e. values
+// [8 kb, 8 kb + 8): rows [kRun kb, kRun kb + kRun)) and writes each
+// column's four even values to plane 0 and four odd ones to plane 1 at
+// RawW's addresses, so the plane stores are as free of conflicts as
+// there.  The reads of a warp (8 column blocks x 4 row groups) hit 32
+// banks: 16-byte reads of int32 lanes by a quarter-warp's 8 column blocks
+// of one row; int16 lanes (4 fields, row pairs) through chunk_pos<3>, int8
+// lanes (2 fields, rows by four) through RawW<1>'s chunk_pos<1>.
+template <int LB, int NP, int SH>
+struct LanesW {
+  using L = LaneFields<LB, NP, SH>;
+  static constexpr int kTile = L::kLanes * kBN * LB;  // raw bytes a slot
+  static constexpr int kPlanes = 2;
+  static constexpr int kElem = LB;
+  static constexpr bool kDense = false;
+  static constexpr int kSW = LB == 4 ? 0 : LB == 2 ? 3 : 1;
+  static_assert(LB != 1 || L::kRun == 4, "int8 lanes hold two fields");
+  static_assert(LB != 2 || L::kRun == 2, "int16 lanes here hold four");
+
+  template <class P>
+  __device__ explicit LanesW(const P&) {}
+
+  template <bool V16, class P>
+  __device__ __forceinline__ void stage(const P& p, unsigned char* dst,
+                                        int k0, int k_hi, int n0) const {
+    const size_t w_ld = static_cast<size_t>(p.N) * LB;
+    const int r0 = 2 * k0 / NP;
+    stage_rows<V16, L::kLanes, kBN * LB, kSW>(
+        dst, kBN * LB, p.w + r0 * w_ld + static_cast<size_t>(n0) * LB, w_ld,
+        L::lanes(k_hi) - r0, static_cast<long long>(p.N - n0) * LB, p.cb_w);
+  }
+
+  // Column c's plane words of one item: even values to hi, odd to lo.
+  template <int C>
+  static __device__ __forceinline__ void column(
+      const uint32_t (&r)[L::kRun][LB], uint32_t& hi, uint32_t& lo) {
+    hi = lo = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // lane i / NP of the run, field i % NP, column C's LB bytes
+      const uint32_t v = L::template field<true>(r[i / NP], C * LB, i % NP);
+      if (i & 1)
+        lo |= v << (8 * (i >> 1));
+      else
+        hi |= v << (8 * (i >> 1));
+    }
+  }
+
+  __device__ __forceinline__ void expand(const unsigned char* slot,
+                                         unsigned char* wp, int) const {
+    constexpr int WROW = kBN * LB;
+#pragma unroll
+    for (int item = 0; item < (kBN / 4) * (kBK / 4) / kThreads; ++item) {
+      const int e = threadIdx.x + item * kThreads;
+      const int lane = e & 31, wi = e >> 5;
+      const int nb = ((wi & 3) << 3) | (lane & 7);
+      const int kb = ((wi >> 2) << 2) | (lane >> 3);
+      uint32_t r[L::kRun][LB];  // the item's rows: 4 columns of LB bytes
+#pragma unroll
+      for (int i = 0; i < L::kRun; ++i) {
+        const int row = L::kRun * kb + i;
+        const int x = 4 * LB * nb;
+        const unsigned char* src =
+            slot + row * WROW + (chunk_pos<kSW>(row, x >> 4) << 4) + (x & 15);
+        if constexpr (LB == 4) {
+          const uint4 v = *reinterpret_cast<const uint4*>(src);
+          r[i][0] = v.x; r[i][1] = v.y; r[i][2] = v.z; r[i][3] = v.w;
+        } else if constexpr (LB == 2) {
+          const uint2 v = *reinterpret_cast<const uint2*>(src);
+          r[i][0] = v.x; r[i][1] = v.y;
+        } else {
+          r[i][0] = *reinterpret_cast<const uint32_t*>(src);
+        }
+      }
+      uint32_t hi[4], lo[4];
+      column<0>(r, hi[0], lo[0]);
+      column<1>(r, hi[1], lo[1]);
+      column<2>(r, hi[2], lo[2]);
+      column<3>(r, hi[3], lo[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned char* d = wp + plane_off(4 * nb + j, 4 * kb);
+        *reinterpret_cast<uint32_t*>(d) = hi[j];
+        *reinterpret_cast<uint32_t*>(d + kBN * kPlaneRow) = lo[j];
+      }
+    }
+  }
+};
+
+// The a side of the other layouts: ascending activation lanes [M, Kp] of
+// LB bytes (P carries a, M, K and cb_a), staged 2 kBK / NP lanes a row a
+// stage and split as RawA<2>'s items (row m, plane bytes [4 g4, 4 g4 + 4):
+// values [8 g4, 8 g4 + 8), 8 LB / NP staged bytes): odd values to plane 0
+// (hi), even ones to plane 1 (lo).
+template <int LB, int NP, int SH>
+struct LanesA {
+  using L = LaneFields<LB, NP, SH>;
+  static constexpr int kBytes = 2 * LB / NP;  // staged bytes a K step
+  static constexpr int kPlanes = 2;
+  static constexpr bool kQuant = false;
+  static constexpr int kItem = 8 * LB / NP;   // staged bytes of 8 values
+
+  // bytes of one of a's rows: the lanes holding K steps
+  static __host__ __device__ constexpr long long row_bytes(int K) {
+    return static_cast<long long>(L::lanes(K)) * LB;
+  }
+
+  LanesA() = default;
+  template <class P>
+  __device__ LanesA(const P&, int) {}
+
+  template <bool V16, int BM, class P>
+  __device__ __forceinline__ void stage(const P& p, unsigned char* dst,
+                                        int k0, int k_hi, int m0) const {
+    const size_t a_ld = static_cast<size_t>(row_bytes(p.K));
+    const int l0 = 2 * k0 / NP;
+    stage_rows<V16, BM, kBK * kBytes, 0>(
+        dst, ring_a_row(kBytes),
+        p.a + m0 * a_ld + static_cast<size_t>(l0) * LB, a_ld, p.M - m0,
+        static_cast<long long>(L::lanes(k_hi) - l0) * LB, p.cb_a);
+  }
+
+  template <int BM>
+  __device__ __forceinline__ void split(const unsigned char* as,
+                                        unsigned char* ap, int) const {
+    constexpr int ITEMS = BM * (kBK / 4);
+#pragma unroll
+    for (int item = 0; item < (ITEMS + kThreads - 1) / kThreads; ++item) {
+      const int e = threadIdx.x + item * kThreads;
+      if (ITEMS % kThreads != 0 && e >= ITEMS) break;
+      const int m = e >> 4, g4 = e & 15;
+      const unsigned char* src = as + m * ring_a_row(kBytes) + kItem * g4;
+      uint32_t w[kItem / 4];
+      if constexpr (kItem == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(src);
+        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+      } else if constexpr (kItem == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(src);
+        w[0] = v.x; w[1] = v.y;
+      } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(src);
+      }
+      uint32_t hi = 0u, lo = 0u;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        // lane i / NP of the item at byte (i / NP) LB, field i % NP
+        const uint32_t v = L::template field<false>(w, (i / NP) * LB, i % NP);
+        if (i & 1)
+          hi |= v << (8 * (i >> 1));
+        else
+          lo |= v << (8 * (i >> 1));
+      }
+      *reinterpret_cast<uint32_t*>(ap + m * kPlaneRow + 4 * g4) = hi;
+      *reinterpret_cast<uint32_t*>(ap + BM * kPlaneRow + m * kPlaneRow +
+                                   4 * g4) = lo;
+    }
+  }
+};
+
 // Issue the copies of stage k0 (W's stage k0 of the block's columns, as
 // the W side stages it; a's rows at the same k, as the a side stages them)
 // into ring slot `slot`.
@@ -716,7 +936,8 @@ __device__ __forceinline__ void prepare(const unsigned char* slot,
 // The K loop of one block: W's K range [k_lo, k_hi) of columns [n0, n0 +
 // kBN), as the W side `ws` stages it, and a's rows [m0, m0 + BM), as the a
 // side `as` stages them, stream through the ring (dynamic shared memory
-// `smem` of smem_bytes_w(BM, AS::kBytes, WS::kTile, WS::kPlanes)), and for
+// `smem` of smem_bytes_w(BM, AS::kBytes, WS::kTile, WS::kPlanes,
+// AS::kPlanes)), and for
 // every k32 step,
 // 8-row group j of m, W plane pw and a plane pa the block calls
 //   mma(j, pw, pa, A fragment of W plane pw, b0, b1)
@@ -738,9 +959,10 @@ __device__ __forceinline__ void mainloop_w(const P& p, unsigned char* smem,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nsteps = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
   constexpr int SB = stage_bytes_w(BM, AB, WT);
-  constexpr int PB = plane_bytes(BM, AB, WB);
+  constexpr int PB = plane_bytes(BM, AP, WB);
   constexpr int MG = BM / 8;  // 8-row groups of m
-  constexpr int kStages = stages_for_w(BM, AB, WT, WB);
+  constexpr int kStages = stages_for_w(BM, AB, WT, WB, AP);
+  static_assert(kStages >= kMinStages, "the ring needs three slots");
   unsigned char* planes = smem + kStages * SB;
 
 #pragma unroll 1

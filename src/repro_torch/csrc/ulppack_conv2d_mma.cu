@@ -1,18 +1,27 @@
-// K5 on Hopper's int8 tensor cores: the packed conv2d of the int16xP2s8
-// layout as an implicit GEMM, with the affine dequant of the CNN's packed
-// layer fused into its epilogue.
+// K5 on Hopper's int8 tensor cores: the packed conv2d of every layout of
+// the family as an implicit GEMM, with the affine dequant of the CNN's
+// packed layer fused into its epilogue.
 //
 // Replaces repro/kernels/ulppack_conv2d.py:ulppack_conv2d (Pallas `_kernel`
-// via `_tiled_conv_call`, pallas_call at :148) for int16 lanes of two 8-bit
-// fields, the layout of sparq-cnn and of three of the four Fig. 4 rows;
-// every other layout keeps the CUDA-core tile (ulppack_conv2d.cu over
-// conv2d_tile.cuh).  Each byte of such a lane is one lattice value:
-// activations are packed ascending (channel 2k in the low byte, 2k + 1 in
-// the high byte), so an activation pixel read as bytes IS its u8 lattice in
-// channel order; weights are field-reversed (byte 0 holds channel 2k + 1,
-// byte 1 channel 2k) and have their byte pairs swapped back while they are
-// staged.  The exact lattice conv that K5 returns is then an ordinary
-// u8 x u8 -> s32 conv with no packed-space product and no extraction.
+// :65-97 via `_tiled_conv_call`, pallas_call at :148).  In the
+// overflow-free region its result is the plain integer conv of the
+// lattices (ref.conv2d_i32_ref), so the kernel undoes the layout while it
+// stages the operands and never multiplies in packed space.  Activations
+// are packed ascending: an int16xP2s8 or int32xP4s8 pixel read as bytes
+// IS its u8 lattice in channel order (channel NP k + f in byte f of lane
+// k), and is staged straight into the halo.  Every other layout (int8xP2s4
+// and int16xP4s4's nibbles, int32xP2s8 / int32xP2s16's two fields in four
+// bytes) is staged raw into one more slot, and each thread rewrites the
+// 16-byte units it staged as lattice bytes into the halo slot of the tile
+// after its own cp.async wait and before the tile's barrier (prmt byte
+// moves; a shift and a mask for nibbles), so the halo the MMAs read is
+// lattice bytes for every layout.  Weights are field-reversed (field f of
+// lane k, channel NP k + f, at bit SH (NP - 1 - f)) and are written in
+// channel order while they are staged.  The exact lattice conv that K5
+// returns is then an ordinary u8 x u8 -> s32 conv with no packed-space
+// product and no extraction.  Shapes whose halo ring and weight block do
+// not fit the shared memory take the CUDA-core tile
+// (ulppack_conv2d.cu) through the plan's route.
 //
 // Bound on Hopper: operations.  At sparq-cnn's 32->64 layer (x [8, 256,
 // 256, 32], 7x7, SAME) the conv is 52.6 G lattice MACs, 0.053 ms at the
@@ -25,8 +34,8 @@
 //   tap's channel bytes are zero-padded to `cpad` (32, 64, or a multiple
 //   of 128) in shared memory, so at Cin = 32 a tap is exactly one step.
 // - The weight block stays in shared memory: staged once per block as u8
-//   rows of K = taps * cpad bytes per output channel (K-major, byte pairs
-//   swapped into channel order; the 'dense' store's words are expanded to
+//   rows of K = taps * cpad bytes per output channel (K-major, fields
+//   written in channel order; the 'dense' store's words are expanded to
 //   bytes in the same pass), each row padded by 16 bytes to an odd number
 //   of 16-byte units so that ldmatrix reads of 8 channel rows are free of
 //   bank conflicts.  49 x 32 x 64 = 100 KB at 32->64.
@@ -44,9 +53,9 @@
 // - Each warp computes 4 fragments x all block_co channels a step (4 A and
 //   block_co / 16 B ldmatrix.x4 feed 4 * block_co / 8 MMAs).
 // - Sums stay in range: no s32 sum may leave the int32 range (PTX does not
-//   promise that the MMA wraps), so the planner refuses a conv whose
-//   FH * FW * 2 Cp * max_w * max_a reaches 2^31, and so does this
-//   launcher.
+//   promise that the MMA wraps), so the planner sends a conv whose
+//   FH * FW * NP Cp * max_w * max_a reaches 2^31 to the CUDA-core tile,
+//   and this launcher refuses it.
 // - The fused epilogue (sparq-cnn's packed layer, models/cnn.py
 //   conv_apply): psum, the patch sums of the activation lattice, comes
 //   from one more MMA per fragment and step against a B of ones (exact),
@@ -82,31 +91,45 @@ using mma_s8::mma_m16n8k32;
 using mma_s8::smem_addr;
 using mma_s8::zero_smem;
 
+// How a staged raw unit of 16 activation bytes becomes lattice bytes.
+enum Xform {
+  kDirect = 0,   // the bytes are the lattice (int16xP2s8, int32xP4s8)
+  kNibbles = 1,  // 4-bit fields in byte order: 32 values (int8xP2s4,
+                 // int16xP4s4)
+  kP2s8 = 2,     // bytes 0, 1 of each int32 lane: 8 values (int32xP2s8)
+  kP2s16 = 3,    // bytes 0, 2 of each int32 lane: 8 values (int32xP2s16)
+};
+
 struct Args {
-  const unsigned char* x;   // [N, H, W, xrow] lattice bytes (int16 lanes)
-  const void* w;            // lanes [FH, FW, Cp, CO] int16, or bit-dense
-                            // words [FH, FW, WC, CO] int32
+  const unsigned char* x;   // [N, H, W, xrow] lanes (ascending fields)
+  const void* w;            // lanes [FH, FW, Cp, CO] (field-reversed), or
+                            // bit-dense words [FH, FW, WC, CO] int32
   void* out;                // [N, HO, WO, CO] int32, or f32 when fused
   const float* a_scale;     // 0-dim scalars of the fused epilogue
   const float* w_scale;
   const int32_t* w_zp;
-  int N, H, W, xrow;        // xrow = 2 Cp bytes a pixel
+  int N, H, W, xrow;        // xrow = Cp lane_bytes bytes a pixel
   int FH, FW, WC, CO, HO, WO, pad_top, pad_left;
   int dense, w_bits, cin;   // 'dense': w_bits-wide fields, cin channels
+  int lane_bytes, n_pack, shift;  // the layout
+  int xform;                // Xform of the activations
+  int craw;                 // bytes a pixel of the raw slot (xform != 0)
   int cpad;                 // staged bytes a pixel and a tap of W
   int th, tw;               // output rows x columns of a pixel tile
   int tiles_h, tiles_w, tiles;
   int krow;                 // bytes of a staged W row (one out channel)
-  int halo_bytes;           // bytes of one ring slot
-  int cb;                   // x copy bytes (16, 8, 4; 0: 2-byte loads)
+  int halo_bytes;           // bytes of one ring slot (lattice bytes)
+  int cb;                   // x copy bytes (16, 8, 4; 0: 2-byte loads;
+                            // 1: byte loads)
   int wvec;                 // weights read 16 bytes at a time
 };
 
 // Stage the block's weights [BN][krow] as u8 lattice values: row co holds
 // channel c of tap t at byte t * cpad + c.  Channels past cin, taps' pad
-// bytes and channels past CO are zero.  Each item reads 16 bytes (8 lanes
-// or 4 words of neighbouring output channels) where the layout allows;
-// items are loaded in batches of kBatch so that loads overlap.
+// bytes and channels past CO are zero.  int16xP2s8 lanes and the dense
+// store's words are read 16 bytes an item (8 lanes or 4 words of
+// neighbouring output channels) where the layout allows, in batches of
+// kBatch so that loads overlap; the other layouts' lanes one lane an item.
 template <int BN>
 __device__ void stage_weights(const Args& p, unsigned char* ws, int co0) {
   const int total = BN * p.krow / 16;
@@ -115,9 +138,33 @@ __device__ void stage_weights(const Args& p, unsigned char* ws, int co0) {
   __syncthreads();
   const int taps = p.FH * p.FW;
   constexpr int kBatch = 4;
-  if (!p.dense) {
-    // item (tap, lane, group of 8 channels); field-reversed lane: channel
-    // 2 lane is its high byte, 2 lane + 1 its low byte
+  if (!p.dense && !(p.lane_bytes == 2 && p.n_pack == 2)) {
+    // any other layout: item (tap, lane, channel co), consecutive threads
+    // on consecutive co; field f of lane k is channel n_pack k + f
+    const unsigned char* w = static_cast<const unsigned char*>(p.w);
+    const int lb = p.lane_bytes, np = p.n_pack, sh = p.shift;
+    const uint32_t mask = sh >= 8 ? 0xFFu : (1u << sh) - 1u;
+    const int items = taps * p.WC * BN;
+    for (int e = threadIdx.x; e < items; e += kConvThreads) {
+      const int j = e % BN, rest = e / BN;
+      const int co = co0 + j;
+      if (co >= p.CO) continue;
+      const unsigned char* src =
+          w + (static_cast<size_t>(rest) * p.CO + co) * lb;
+      const uint32_t lv =
+          lb == 4 ? __ldg(reinterpret_cast<const uint32_t*>(src))
+          : lb == 2
+              ? static_cast<uint32_t>(
+                    __ldg(reinterpret_cast<const unsigned short*>(src)))
+              : static_cast<uint32_t>(__ldg(src));
+      const int lane = rest % p.WC, tap = rest / p.WC;
+      unsigned char* d = ws + j * p.krow + tap * p.cpad + np * lane;
+      for (int f = 0; f < np; ++f)
+        d[f] = static_cast<unsigned char>((lv >> (sh * (np - 1 - f))) & mask);
+    }
+  } else if (!p.dense) {
+    // int16xP2s8: item (tap, lane, group of 8 channels); field-reversed
+    // lane: channel 2 lane is its high byte, 2 lane + 1 its low byte
     const int16_t* w = static_cast<const int16_t*>(p.w);
     constexpr int G = BN / 8;
     const int items = taps * p.WC * G;
@@ -208,6 +255,48 @@ __device__ void stage_weights(const Args& p, unsigned char* ws, int co0) {
   }
 }
 
+// Rewrite the raw units this thread staged (stage_halo<1, true>'s items:
+// unit e of the raw slot, pixel e / (craw / 16)) as lattice bytes into the
+// halo slot `lat`, at the swizzled units K5's ldmatrix reads.  A raw unit
+// of 16 bytes becomes 32 lattice bytes (nibbles: units 2u, 2u + 1) or 8
+// (int32 lanes of two fields: half u & 1 of unit u / 2).  Lattice bytes no
+// raw unit reaches are never written: the kernel zeroes both halo slots
+// once, before its first barrier.
+__device__ void convert_halo(const Args& p, const unsigned char* raw,
+                             unsigned char* lat) {
+  const int hw = p.tw + p.FW - 1;
+  const int nur = p.craw >> 4, nu = p.cpad >> 4;
+  const int units = (p.th + p.FH - 1) * hw * nur;
+  for (int e = threadIdx.x; e < units; e += kConvThreads) {
+    const int pix = e / nur, u = e - pix * nur;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + pix * p.craw +
+                                                    16 * u);
+    unsigned char* px = lat + pix * p.cpad;
+    const int sw = swizzle(pix, nu);
+    if (p.xform == kNibbles) {
+      // byte b of the unit holds values 2b (low nibble) and 2b + 1 (high)
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      uint32_t o[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t lo = w[i] & 0x0F0F0F0Fu, hi = (w[i] >> 4) & 0x0F0F0F0Fu;
+        o[2 * i] = __byte_perm(lo, hi, 0x5140);
+        o[2 * i + 1] = __byte_perm(lo, hi, 0x7362);
+      }
+      *reinterpret_cast<uint4*>(px + (((2 * u) ^ sw) << 4)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<uint4*>(px + (((2 * u + 1) ^ sw) << 4)) =
+          make_uint4(o[4], o[5], o[6], o[7]);
+    } else {
+      // four int32 lanes, values 2k and 2k + 1 in bytes 0 and 1 (s8) or 0
+      // and 2 (s16)
+      const uint32_t sel = p.xform == kP2s8 ? 0x5410u : 0x6420u;
+      *reinterpret_cast<uint2*>(px + (((u >> 1) ^ sw) << 4) + 8 * (u & 1)) =
+          make_uint2(__byte_perm(v.x, v.y, sel), __byte_perm(v.z, v.w, sel));
+    }
+  }
+}
+
 template <int BN, bool FUSED>
 __global__ void __launch_bounds__(kConvThreads, 1)
 ulppack_conv2d_mma_kernel(Args p) {
@@ -223,10 +312,24 @@ ulppack_conv2d_mma_kernel(Args p) {
   const int ksteps = p.cpad >> 5;  // k32 steps a tap
   const int frow = p.tw >> 4;      // fragments a tile row
 
+  // the raw slot after the ring (layouts whose lanes are not lattice
+  // bytes); its tiles are rewritten into the ring's slots
+  unsigned char* raw = halo + kStages * p.halo_bytes;
+  const bool conv = p.xform != kDirect;
+
   int tile = blockIdx.x;
-  if (tile < p.tiles) stage_halo<1>(p, halo, tile);
+  if (tile < p.tiles) {
+    if (conv)
+      stage_halo<1, true>(p, raw, tile);
+    else
+      stage_halo<1>(p, halo, tile);
+  }
   mma_s8::cp_async_commit();
-  stage_weights<BN>(p, ws, co0);
+  if (conv)  // lattice bytes no raw unit reaches stay 0 in every tile
+    for (int i = threadIdx.x; i < kStages * p.halo_bytes / 16;
+         i += kConvThreads)
+      zero_smem(halo + 16 * i, 16);
+  stage_weights<BN>(p, ws, co0);  // its first barrier orders the zeroing
 
   // this lane's ldmatrix rows: A pixel aj of a fragment at 16-byte chunk
   // achunk of the step; B channel row bco of a 16-channel pair at k half
@@ -245,13 +348,21 @@ ulppack_conv2d_mma_kernel(Args p) {
   }
 
   for (int it = 0; tile < p.tiles; ++it, tile += gridDim.x) {
-    // this tile's halo (and, the first time, the weights) has landed; the
-    // barrier also ends every warp's reads of the slot refilled next
+    // this tile's halo (and, the first time, the weights) has landed: this
+    // thread's raw units are rewritten into slot it & 1 (its last readers,
+    // tile it - 2's MMAs, ended at the last barrier); the barrier publishes
+    // the slot and ends every warp's reads of the slot (or of the raw
+    // slot) refilled next
     mma_s8::cp_async_wait<0>();
+    if (conv) convert_halo(p, raw, halo + (it & 1) * p.halo_bytes);
     __syncthreads();
     const int next = tile + gridDim.x;
-    if (next < p.tiles)
-      stage_halo<1>(p, halo + ((it + 1) & 1) * p.halo_bytes, next);
+    if (next < p.tiles) {
+      if (conv)
+        stage_halo<1, true>(p, raw, next);
+      else
+        stage_halo<1>(p, halo + ((it + 1) & 1) * p.halo_bytes, next);
+    }
     mma_s8::cp_async_commit();
 
     const uint32_t hs = smem_addr(halo + (it & 1) * p.halo_bytes);
@@ -401,9 +512,20 @@ cudaError_t launch_bn(const Args& p, int block_co, int blocks, int smem,
   }
 }
 
+// The raw-unit rewrite of a layout of lane_bytes bytes and n_pack fields
+// `shift` bits apart, or -1 for a layout outside the family.
+int xform_of(int lane_bytes, int n_pack, int shift) {
+  if (shift == 8 && n_pack == lane_bytes) return kDirect;  // 2x8, 4x8
+  if (shift == 4 && n_pack * 4 == 8 * lane_bytes) return kNibbles;  // 2x4, 4x4
+  if (lane_bytes == 4 && n_pack == 2 && shift == 8) return kP2s8;
+  if (lane_bytes == 4 && n_pack == 2 && shift == 16) return kP2s16;
+  return -1;
+}
+
 }  // namespace
 
-// x [N, H, W, Cp] int16 lanes (int16xP2s8, ascending fields); w the
+// x [N, H, W, Cp] lanes of lane_bytes bytes holding n_pack lattice values
+// `shift` bits apart (ascending fields; a layout of the family); w the
 // field-reversed lanes [FH, FW, Cp, CO] (dense 0) or bit-dense int32 words
 // [FH, FW, WC, CO] of w_bits-wide fields holding k_full channels (dense 1);
 // out [N, HO, WO, CO]: the exact s32 conv (fused 0) or the f32 affine
@@ -412,27 +534,31 @@ cudaError_t launch_bn(const Args& p, int block_co, int blocks, int smem,
 // precede the image.  max_prod = max_w * max_a of the layout bounds the
 // s32 sums.  The plan (block_h x block_w = 512 output pixels a tile,
 // block_w 16 or 32; block_co 8/16/32/64 output channels a block;
-// block_c = cpad_for(2 Cp) staged bytes a pixel; stages = 2; threads =
-// 256; `blocks` persistent blocks along the pixel tiles, at most one per
-// tile; smem_bytes = block_co * (FH FW block_c + 16) + 2 * halo slot) must
-// match this kernel's layout, or the launch is refused with
-// cudaErrorInvalidValue.
+// block_c = cpad_for(n_pack Cp) staged lattice bytes a pixel; stages = 2;
+// threads = 256; `blocks` persistent blocks along the pixel tiles, at most
+// one per tile; smem_bytes = block_co * (FH FW block_c + 16) + 2 * halo
+// slot + the raw slot, halo pixels of craw = Cp lane_bytes rounded up to 16
+// bytes, for layouts whose lanes are not lattice bytes) must match this
+// kernel's layout, or the launch is refused with cudaErrorInvalidValue.
 REPRO_EXPORT int ulppack_conv2d_mma_launch(
     const void* x, const void* w, void* out, const void* a_scale,
     const void* w_scale, const void* w_zp, int N, int H, int W, int Cp,
     int FH, int FW, int WC, int CO, int HO, int WO, int pad_top,
     int pad_left, int dense, int w_bits, int k_full, int max_prod,
-    int fused, int block_h, int block_w, int block_co, int block_c,
-    int stages, int threads, int blocks, int smem, int device,
-    void* stream) {
+    int lane_bytes, int n_pack, int shift, int fused, int block_h,
+    int block_w, int block_co, int block_c, int stages, int threads,
+    int blocks, int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int xrow = 2 * Cp;
+  const int xform = xform_of(lane_bytes, n_pack, shift);
+  if (xform < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long xlat = static_cast<long long>(n_pack) * Cp;  // channels
+  const int xrow = lane_bytes * Cp;  // bytes of a pixel in x
   const bool shape_ok =
       N >= 0 && H >= 0 && W >= 0 && Cp >= 1 && FH >= 1 && FW >= 1 &&
       CO >= 0 && HO >= 0 && WO >= 0 && pad_top >= 0 && pad_left >= 0 &&
       (dense ? (w_bits >= 1 && w_bits <= 8 && k_full >= 1 &&
-                k_full <= xrow &&
+                k_full <= xlat &&
                 WC == (k_full + 32 / w_bits - 1) / (32 / w_bits))
              : WC == Cp);
   const bool tile_ok =
@@ -441,16 +567,18 @@ REPRO_EXPORT int ulppack_conv2d_mma_launch(
       (block_co == 8 || block_co == 16 || block_co == 32 ||
        block_co == 64) &&
       stages == kStages && threads == kConvThreads &&
-      block_c == cpad_for(xrow);
+      xlat <= (1 << 30) && block_c == cpad_for(static_cast<int>(xlat));
   if (!shape_ok || !tile_ok || max_prod < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   // the s32 sums stay in range
-  if (static_cast<long long>(FH) * FW * xrow * max_prod >= (1LL << 31))
+  if (static_cast<long long>(FH) * FW * xlat * max_prod >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long krow = static_cast<long long>(FH) * FW * block_c + 16;
-  const long long halo =
-      static_cast<long long>(block_h + FH - 1) * (block_w + FW - 1) * block_c;
-  const long long need = block_co * krow + kStages * halo;
+  const long long pixels =
+      static_cast<long long>(block_h + FH - 1) * (block_w + FW - 1);
+  const long long halo = pixels * block_c;
+  const int craw = xform == kDirect ? 0 : (xrow + 15) / 16 * 16;
+  const long long need = block_co * krow + kStages * halo + pixels * craw;
   if (need > kConvSmemMax || smem != need)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_h = (HO + block_h - 1) / block_h;
@@ -484,7 +612,12 @@ REPRO_EXPORT int ulppack_conv2d_mma_launch(
   p.pad_left = pad_left;
   p.dense = dense;
   p.w_bits = w_bits;
-  p.cin = dense ? k_full : xrow;
+  p.cin = dense ? k_full : static_cast<int>(xlat);
+  p.lane_bytes = lane_bytes;
+  p.n_pack = n_pack;
+  p.shift = shift;
+  p.xform = xform;
+  p.craw = craw;
   p.cpad = block_c;
   p.th = block_h;
   p.tw = block_w;
@@ -494,6 +627,8 @@ REPRO_EXPORT int ulppack_conv2d_mma_launch(
   p.krow = static_cast<int>(krow);
   p.halo_bytes = static_cast<int>(halo);
   p.cb = mma_s8::copy_bytes(x, xrow);
+  if (p.cb == 0 && (xrow % 2 != 0 || reinterpret_cast<uintptr_t>(x) % 2 != 0))
+    p.cb = 1;  // odd rows of int8 lanes: byte loads
   p.wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
            CO % (dense ? 4 : 8) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

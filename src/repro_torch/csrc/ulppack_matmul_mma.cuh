@@ -1,7 +1,8 @@
 // The tensor-core K2's kernel and launcher, shared by ulppack_matmul_mma.cu
-// (int16xP2s8 weight lanes) and ulppack_matmul_mma_dense.cu (the bit-dense
-// weight store, one library per w_bits): see ulppack_matmul_mma.cu for the
-// design and the arguments.
+// (int16xP2s8 weight lanes), ulppack_matmul_mma_dense.cu (the bit-dense
+// weight store, one library per w_bits) and ulppack_matmul_mma_lanes.cu
+// (every other layout, one library per layout): see ulppack_matmul_mma.cu
+// for the design and the arguments.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,7 +15,9 @@ namespace {
 
 using namespace mma_s8;
 
-constexpr int kMaxBlockK = 16384;  // lanes per split at most (int32 sums)
+// K steps a split at most: 32768 lattice values, so no s32 sum leaves the
+// int32 range (255^2 * 32768 < 2^31) whatever the layout
+constexpr int kMaxBlockK = 16384;
 
 // What the epilogue stores.
 enum OutKind { kS32 = 0, kF32 = 1, kBF16 = 2, kF16 = 3 };
@@ -24,9 +27,10 @@ enum BiasKind { kNoBias = 0, kBiasF32 = 1, kBiasBF16 = 2 };
 // What a holds: int16 lanes, or float activations for the fused quantize.
 enum AKind { kLanes = 0, kXF32 = 1, kXBF16 = 2, kXF16 = 3 };
 
+// K counts the tile's K steps of two lattice values (an int16xP2s8 lane).
 struct Args {
-  const unsigned char* a;    // [M, K] int16 lanes, or x [M, k_full]
-  const unsigned char* w;    // [K, N] int16 lanes, field-reversed
+  const unsigned char* a;    // lanes [M, lanes(K)], or x [M, k_full]
+  const unsigned char* w;    // lanes [lanes(K), N], field-reversed, or words
   void* out;                 // [M, N] of out_kind
   int32_t* work;             // [splits, M, N] partial dots (splits > 1),
                              // then [splits, N tiles, M] row sums (x)
@@ -71,8 +75,9 @@ struct Affine {
   }
 };
 
-// WS: RawW<2> (int16 lanes) or DenseW<BITS> (bit-dense words); AS: RawA<2>
-// (int16 lanes) or QuantA<T> (float activations, K1 fused).
+// WS: RawW<2> (int16xP2s8 lanes), LanesW<LB, NP, SH> (another layout's
+// lanes) or DenseW<BITS> (bit-dense words); AS: RawA<2> or LanesA<LB, NP,
+// SH> (activation lanes) or QuantA<T> (float activations, K1 fused).
 template <class WS, class AS, int BM, bool V16>
 __global__ void __launch_bounds__(kThreads)
 ulppack_matmul_mma_kernel(Args p) {
@@ -224,18 +229,27 @@ ulppack_matmul_mma_kernel(Args p) {
 
 template <class WS, class AS, int BM, bool V16>
 cudaError_t launch_variant(const Args& p, int device, cudaStream_t s) {
-  void (*kern)(Args) = ulppack_matmul_mma_kernel<WS, AS, BM, V16>;
-  constexpr int smem = smem_bytes_w(BM, AS::kBytes, WS::kTile, WS::kPlanes);
-  static bool raised[8] = {false};  // per device, this instantiation
-  if (smem > 48 * 1024 && !raised[device & 7]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    raised[device & 7] = true;
+  // the ring keeps one stage landing, one being expanded and one in flight
+  // at least: a layout whose stages do not fit three times (int32 lanes
+  // of two fields beside 64 rows of f32 x) is not built
+  if constexpr (stages_for_w(BM, AS::kBytes, WS::kTile, WS::kPlanes,
+                             AS::kPlanes) < kMinStages) {
+    return cudaErrorInvalidValue;
+  } else {
+    void (*kern)(Args) = ulppack_matmul_mma_kernel<WS, AS, BM, V16>;
+    constexpr int smem =
+        smem_bytes_w(BM, AS::kBytes, WS::kTile, WS::kPlanes, AS::kPlanes);
+    static bool raised[8] = {false};  // per device, this instantiation
+    if (smem > 48 * 1024 && !raised[device & 7]) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      raised[device & 7] = true;
+    }
+    const dim3 grid((p.N + kBN - 1) / kBN, (p.M + BM - 1) / BM, p.splits);
+    kern<<<grid, kThreads, smem, s>>>(p);
+    return cudaGetLastError();
   }
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + BM - 1) / BM, p.splits);
-  kern<<<grid, kThreads, smem, s>>>(p);
-  return cudaGetLastError();
 }
 
 template <class WS, class AS, bool V16>
@@ -250,17 +264,24 @@ cudaError_t launch_bm(const Args& p, int block_m, int device,
   }
 }
 
-template <class WS, bool V16>
+// LA: the a side for lanes (a_kind 0); with QUANT the library also holds
+// the fused quantize's a sides (a_kind 1-3).
+template <class WS, class LA, bool QUANT, bool V16>
 cudaError_t launch_a(const Args& p, int a_kind, int block_m, int device,
                      cudaStream_t s) {
-  switch (a_kind) {
-    case kXF32: return launch_bm<WS, QuantA<float>, V16>(p, block_m, device, s);
-    case kXBF16:
-      return launch_bm<WS, QuantA<__nv_bfloat16>, V16>(p, block_m, device, s);
-    case kXF16:
-      return launch_bm<WS, QuantA<__half>, V16>(p, block_m, device, s);
-    default: return launch_bm<WS, RawA<2>, V16>(p, block_m, device, s);
+  if constexpr (QUANT) {
+    switch (a_kind) {
+      case kXF32:
+        return launch_bm<WS, QuantA<float>, V16>(p, block_m, device, s);
+      case kXBF16:
+        return launch_bm<WS, QuantA<__nv_bfloat16>, V16>(p, block_m, device,
+                                                         s);
+      case kXF16:
+        return launch_bm<WS, QuantA<__half>, V16>(p, block_m, device, s);
+      default: break;
+    }
   }
+  return launch_bm<WS, LA, V16>(p, block_m, device, s);
 }
 
 // Bytes of x's elements by a_kind (0: lanes).
@@ -269,11 +290,13 @@ int x_bytes(int a_kind) {
 }
 
 
-// The launcher of both libraries with W side WS (RawW<2>: int16 lanes,
-// [K, N]; DenseW<BITS>: bit-dense words [ceil(k_full / (32 / BITS)), N]):
-// checks the plan against this layout and launches; see the exported
-// functions for the arguments.
-template <class WS>
+// The launcher of every K2 library with W side WS (RawW<2>: int16 lanes
+// [K, N]; LanesW: another layout's lanes [lanes(K), N]; DenseW<BITS>:
+// bit-dense words [ceil(k_full / (32 / BITS)), N]) and a side LA for
+// lanes (RawA<2> or LanesA, [M, lanes(K)]), with the fused quantize's a
+// sides unless QUANT is false: checks the plan against this layout and
+// launches; see the exported functions for the arguments.
+template <class WS, class LA = RawA<2>, bool QUANT = true>
 int launch_mma(const void* a, const void* w, void* out, void* work,
                void* tickets, const void* a_sums, const void* col_sums,
                const void* a_scale, const void* a_zp, const void* w_scale,
@@ -284,20 +307,20 @@ int launch_mma(const void* a, const void* w, void* out, void* work,
                int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int xb = x_bytes(a_kind);
-  const int ab = xb ? 2 * xb : 2;  // a's staged bytes a lane
+  const int xb = QUANT ? x_bytes(a_kind) : 0;
+  const int ab = xb ? 2 * xb : LA::kBytes;  // a's staged bytes a K step
   const bool bm_ok = block_m == 8 || block_m == 16 || block_m == 32 ||
                      block_m == 64;
   if (M < 1 || N < 1 || K < 0 || !bm_ok || block_n != kBN ||
       step_k != kBK ||
-      stages != stages_for_w(block_m, ab, WS::kTile, WS::kPlanes) ||
+      stages != stages_for_w(block_m, ab, WS::kTile, WS::kPlanes, 2) ||
       threads != kThreads ||
       block_k < kBK || block_k > kMaxBlockK || block_k % kBK != 0 ||
       splits != (K > 0 ? (K + block_k - 1) / block_k : 1) ||
       splits > 65535 || (M + block_m - 1) / block_m > 65535 ||
-      smem != smem_bytes_w(block_m, ab, WS::kTile, WS::kPlanes))
+      smem != smem_bytes_w(block_m, ab, WS::kTile, WS::kPlanes, 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a_kind < kLanes || a_kind > kXF16 ||
+  if (a_kind < kLanes || a_kind > (QUANT ? kXF16 : kLanes) ||
       (a_kind != kLanes &&
        (out_kind == kS32 || k_full < 1 || K != (k_full + 1) / 2 ||
         qmax < 1 || qmax > 255)))
@@ -343,15 +366,15 @@ int launch_mma(const void* a, const void* w, void* out, void* work,
   p.out_kind = out_kind;
   p.bias_kind = out_kind == kS32 ? kNoBias : bias_kind;
   p.cb_a = xb ? copy_bytes(a, static_cast<long long>(k_full) * xb)
-              : copy_bytes(a, static_cast<long long>(K) * 2);
-  p.cb_w = copy_bytes(w, static_cast<long long>(N) * (WS::kDense ? 4 : 2));
+              : copy_bytes(a, LA::row_bytes(K));
+  p.cb_w = copy_bytes(w, static_cast<long long>(N) * WS::kElem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies of both operands in a fixed count per thread, or the
   // ladder of copy sizes (as K7)
   if (p.cb_a == 16 && p.cb_w == 16)
-    err = launch_a<WS, true>(p, a_kind, block_m, device, s);
+    err = launch_a<WS, LA, QUANT, true>(p, a_kind, block_m, device, s);
   else
-    err = launch_a<WS, false>(p, a_kind, block_m, device, s);
+    err = launch_a<WS, LA, QUANT, false>(p, a_kind, block_m, device, s);
   return static_cast<int>(err);
 }
 

@@ -8,12 +8,14 @@ owner), and keeps a candidate only when its first call gives the plain
 version's result (bit-equal on the integer routes):
 
   * ``tune_quantized_linear`` -- the serving path's call: on the card the
-    fused route (K1 folded into the tensor-core K2), block_m x stages a
-    split; every other route delegates to ``tune_packed_matmul``
+    fused route (K1 folded into the tensor-core K2) for every layout,
+    block_m x stages a split; the 'torch' backend delegates to
+    ``tune_packed_matmul``
   * ``tune_packed_matmul``    -- K2's lattice dot, lanes or the dense store:
-    block_m x stages a split on the tensor cores, splits on the CUDA cores
+    block_m x stages a split on the tensor cores
   * ``tune_packed_conv2d``    -- K5: block_co x block_w on the tensor cores,
-    block_co on the CUDA cores
+    block_co on the CUDA-core tile (shapes past the tensor cores' shared
+    memory)
   * ``tune_attention_decode`` -- K3 / K4: splits x tile_rows
   * ``tune_attention_chunk``  -- the q-chunk of ``chunked_attention``
   * ``tune_matmul_layout`` / ``tune_conv2d_layout`` -- the lane layout
@@ -468,12 +470,6 @@ def _copies(t: torch.Tensor) -> list:
 # ---------------------------------------------------------------------------
 
 _MMA_FIELDS = ("block_m", "block_k", "splits", "stages")
-_CORE_MATMUL_FIELDS = ("block_m", "block_k", "splits")
-
-
-def _matmul_fields(spec: PackSpec) -> tuple:
-    return _MMA_FIELDS if plan_lib.packed_matmul_on_tensor_cores(spec) \
-        else _CORE_MATMUL_FIELDS
 
 
 def tune_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
@@ -508,8 +504,9 @@ def tune_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
                              weight_store=weight_store, k_full=k_full)
     entry = _sweep(
         heur, plan_lib.packed_matmul_candidates(
-            m, kp, n, spec, weight_store=weight_store, device=dev),
-        _matmul_fields(spec),
+            m, kp, n, spec, weight_store=weight_store, k_full=k_full,
+            device=dev),
+        _MMA_FIELDS,
         lambda p, i: ops.packed_matmul(a, ws[i], spec, plan=p), len(ws),
         _exact(want), device=dev, repeats=repeats,
         max_candidates=max_candidates)
@@ -526,16 +523,15 @@ def tune_quantized_linear(m: int, k: int, n: int, spec: PackSpec,
                           repeats: int = 5, force: bool = False,
                           seed: int = 0) -> dict:
     """Tune the serving path's call, ``ops.quantized_linear`` on x [m, k]
-    of ``x_dtype``.  On the card at ``int16xP2s8`` that is the fused route
+    of ``x_dtype``.  On the card that is the fused route for every layout
     (K1 folded into the tensor-core K2): block_m x stages a split, each
     candidate's first call bit-equal to the plain route's output, stored
-    under ``quantized_linear_key``.  Every other backend and layout runs
-    the packed matmul's plan, so this is :func:`tune_packed_matmul` at
-    ``kp = ceil(k / n_pack)``."""
+    under ``quantized_linear_key``.  The 'torch' backend runs the packed
+    matmul's plan, so there this is :func:`tune_packed_matmul` at ``kp =
+    ceil(k / n_pack)``."""
     backend, dev = _resolve(backend, device)
     kp = -(-k // spec.n_pack)
-    if not (backend == "cuda" and plan_lib.packed_matmul_on_tensor_cores(
-            spec)):
+    if backend != "cuda":
         return tune_packed_matmul(
             m, kp, n, spec, weight_store=weight_store,
             k_full=k if weight_store == "dense" else None, backend=backend,
@@ -574,7 +570,7 @@ def tune_quantized_linear(m: int, k: int, n: int, spec: PackSpec,
     entry = _sweep(
         heur, plan_lib.packed_matmul_candidates(
             m, kp, n, spec, weight_store=weight_store, x_dtype=x_dtype,
-            device=dev),
+            k_full=k, device=dev),
         _MMA_FIELDS, run, len(ws), _exact(want), device=dev,
         repeats=repeats, max_candidates=max_candidates)
     _store(cache, key, entry)
@@ -623,7 +619,7 @@ def tune_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
                              backend="torch", weight_store=weight_store,
                              k_full=k_full)
     fields = ("block_co", "block_w", "block_h") \
-        if plan_lib.packed_conv2d_on_tensor_cores(spec) else ("block_co",)
+        if heur.route == "tensor_cores" else ("block_co",)
     entry = _sweep(
         heur, plan_lib.packed_conv2d_candidates(x_shape, w_shape, spec,
                                                 padding=padding, device=dev),

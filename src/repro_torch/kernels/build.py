@@ -32,10 +32,19 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 VARIANTS = {f"ulppack_matmul_mma_w{b}": ("ulppack_matmul_mma_dense",
                                          (f"-DDENSE_W_BITS={b}",))
             for b in (1, 2, 4)}
+#: ... and the tensor-core K2 of every layout but int16xP2s8, one library
+#: per layout (lane bytes, fields, shift): ``layout_library(spec)``.
+LAYOUT_VARIANTS = {
+    f"ulppack_matmul_mma_{lane}xP{n}s{s}": (
+        "ulppack_matmul_mma_lanes",
+        (f"-DLANE_BYTES={lb}", f"-DN_PACK={n}", f"-DSHIFT={s}"))
+    for lane, lb, n, s in (("int8", 1, 2, 4), ("int16", 2, 4, 4),
+                           ("int32", 4, 2, 8), ("int32", 4, 4, 8),
+                           ("int32", 4, 2, 16))}
 SOURCES = ("quant_pack", "ulppack_matmul", "attention_decode",
            "ulppack_conv2d", "int_conv2d", "int_matmul",
            "ulppack_matmul_mma", "ulppack_conv2d_mma", "int_conv2d_mma",
-           "cache_write", *VARIANTS)
+           "cache_write", *VARIANTS, *LAYOUT_VARIANTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,7 +97,7 @@ def build(names=SOURCES) -> dict[str, Path]:
     procs = {}
     for n in todo:
         tmp = out_dir / f"lib{n}.{os.getpid()}.tmp.so"
-        src, defines = VARIANTS.get(n, (n, ()))
+        src, defines = {**VARIANTS, **LAYOUT_VARIANTS}.get(n, (n, ()))
         cmd = [exe, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{src}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -107,6 +116,18 @@ def build(names=SOURCES) -> dict[str, Path]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def layout_library(spec) -> str:
+    """The tensor-core K2 library of ``spec``'s lane layout:
+    ``ulppack_matmul_mma`` for int16xP2s8, a ``LAYOUT_VARIANTS`` library
+    for every other layout of the family."""
+    if (spec.lane_name, spec.n_pack, spec.shift) == ("int16", 2, 8):
+        return "ulppack_matmul_mma"
+    name = f"ulppack_matmul_mma_{spec.lane_name}xP{spec.n_pack}s{spec.shift}"
+    if name not in LAYOUT_VARIANTS:
+        raise ValueError(f"no tensor-core K2 library for {spec}")
+    return name
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -130,14 +130,15 @@ def quantized_linear(x, w_packed, w_col_sums, a_scale, a_zp, w_scale, w_zp,
     Returns float [..., N]; equals ``ref.quantized_linear_ref`` to float
     tolerance and its integer core exactly.
 
-    On the 'cuda' backend with an ``int16xP2s8`` layout the plan is the
-    fused route's: one launch of the tensor-core K2, which reads x in its
+    On the 'cuda' backend the plan is the fused route's, for every
+    feasible layout: one launch of the tensor-core K2, which reads x in its
     own dtype, quantizes it as it stages it (K1 folded in) and applies the
     affine correction in its epilogue (``ulppack_matmul.Affine``),
-    returning ``out_dtype`` bit-equal to the plain version below; over the
-    dense store it expands the words in its staging.  Every other backend
-    and layout runs K1, the packed matmul (dense words expanded to lanes,
-    as the reference's ``_dense_to_lanes``) and the eager correction.
+    returning ``out_dtype`` bit-equal to the plain version below; it
+    writes the layout's weight fields, or the dense store's words, into
+    its byte planes as it stages them.  The 'torch' backend runs K1, the
+    packed matmul (dense words expanded to lanes, as the reference's
+    ``_dense_to_lanes``) and the eager correction.
     """
     k = x.shape[-1]
     lead = x.shape[:-1]

@@ -49,7 +49,7 @@ _WAVES = 2
 #: csrc/ulppack_matmul.cu).
 MATMUL_THREADS = 128
 
-#: The int8 tensor-core tile of K7 and of K2's int16xP2s8 route (kBN,
+#: The int8 tensor-core tile of K7 and of K2 (kBN,
 #: kBK, kMaxStages, kSmemMax, kThreads and kPlaneRow in csrc/mma_s8.cuh,
 #: kMaxBlockK in csrc/int_matmul.cu; a CPU test holds them equal, and the C
 #: launchers refuse a plan that disagrees): output columns per block, K per
@@ -60,6 +60,7 @@ MATMUL_THREADS = 128
 INT_MATMUL_BN = 128
 INT_MATMUL_BK = 64
 INT_MATMUL_MAX_STAGES = 8
+INT_MATMUL_MIN_STAGES = 3
 INT_MATMUL_SMEM_MAX = 232448
 INT_MATMUL_THREADS = 256
 INT_MATMUL_MAX_BLOCK_K = 32768
@@ -68,15 +69,19 @@ INT_MATMUL_BLOCK_MS = (8, 16, 32, 64)
 #: The fixed cost of a K7 block (its prologue and epilogue), in stages, for
 #: the planner's choice of the K split.
 _INT_MATMUL_BLOCK_COST = 3
-#: K2 on the tile (csrc/ulppack_matmul_mma.cu): int16 lanes per split at
-#: most (kMaxBlockK there: each lane adds two u8 x u8 products to one s32
-#: sum, 255^2 * 2 * 16384 < 2^31).  Its split model, in units of one
+#: K2 on the tile (csrc/ulppack_matmul_mma.cu and, for every other layout,
+#: csrc/ulppack_matmul_mma_lanes.cu): K steps per split at most (kMaxBlockK
+#: there; a K step is two lattice values, an int16xP2s8 lane, whatever the
+#: layout: each adds two u8 x u8 products to one s32 sum, so a split holds
+#: at most ``ULPPACK_MMA_MAX_VALUES`` values, 255^2 * 32768 < 2^31).  Its
+#: split model, in units of one
 #: 8-row block's stage (~0.7 us alone on an H100): a stage's cost by
 #: block_m, a block's fixed cost (its first copies' latency, epilogue),
 #: and the split-K fix-up's -- 2 plus, per split, the block_m x 128
 #: partials that the last block reads back (bm / 32) -- fitted to the
 #: split sweep of ``chip_smoke.py --k2-sweep`` (PERF.md).
 ULPPACK_MMA_MAX_BLOCK_K = 16384
+ULPPACK_MMA_MAX_VALUES = 2 * ULPPACK_MMA_MAX_BLOCK_K
 _ULPPACK_MMA_STAGE_COST = {8: 1.0, 16: 1.2, 32: 1.4, 64: 1.8}
 _ULPPACK_MMA_BLOCK_COST = 3
 #: The fused quantize's stage costs (K1 folded into the tile): a stage also
@@ -152,15 +157,15 @@ class KernelPlan:
 
     Geometry fields are populated per op (``None`` where not applicable):
       packed_matmul    : block_m (rows per block), splits / block_k (K
-                         split count and lanes per split), weight_store
-                         ('lanes' or 'dense') and k_full (the dense
-                         store's lattice K); on the tensor cores
-                         (int16xP2s8) also int_matmul's block_n, step_k,
+                         split count and K steps of two lattice values per
+                         split), weight_store ('lanes' or 'dense') and
+                         k_full (the dense store's lattice K); the tensor
+                         cores' tile: int_matmul's block_n, step_k,
                          stages, threads and smem_bytes
-      quantized_linear : the tensor-core K2 with K1 folded in (int16xP2s8
-                         on the card): packed_matmul's tensor-core fields
-                         for float activation rows, k_full (the lattice
-                         K), x_bytes (the activations' element size) and
+      quantized_linear : the tensor-core K2 with K1 folded in (every
+                         layout on the card): packed_matmul's fields for
+                         float activation rows, k_full (the lattice K),
+                         x_bytes (the activations' element size) and
                          weight_store
       int_matmul       : block_m / block_n (output rows / columns per
                          block), step_k (K per stage), stages, threads,
@@ -176,16 +181,15 @@ class KernelPlan:
                          smem_bytes (per block)
       packed_conv2d /  : block_h (output rows per block), block_co (output
       int_conv2d         channels per block), block_c (channels or lanes
-                         staged per pass), threads, smem_bytes (per block);
-                         packed_conv2d also weight_store and k_full (Cin
-                         of a 'dense' store); on the tensor cores
-                         (int16xP2s8) block_h x block_w output pixels a
+                         staged per pass), threads, smem_bytes (per block),
+                         route ('tensor_cores' or 'cuda_cores'); on the
+                         tensor cores block_h x block_w output pixels a
                          tile, block_c staged bytes a pixel, stages (halo
                          ring slots) and blocks (persistent blocks along
-                         the pixel tiles); int_conv2d also x_bytes /
-                         w_bytes (the operands' element sizes), route
-                         ('tensor_cores' or 'cuda_cores') and, on the
-                         tensor cores, the same tile fields
+                         the pixel tiles); packed_conv2d also weight_store
+                         and k_full (Cin of a 'dense' store); int_conv2d
+                         also x_bytes / w_bytes (the operands' element
+                         sizes)
     """
 
     op: str
@@ -368,13 +372,48 @@ def _geometric_counts(top: int) -> list[int]:
     return out + [top]
 
 def packed_matmul_on_tensor_cores(spec: PackSpec) -> bool:
-    """Whether K2 runs on the int8 tensor cores for this layout: int16
-    lanes of two 8-bit fields (``int16xP2s8``), where each byte of a lane
-    is one lattice value.  Every other layout (``int16xP4s4``,
-    ``int8xP2s4``, the int32 lanes) takes the CUDA-core kernel, the
-    faithful ``vmacsr``."""
-    return (spec.lane_dtype == torch.int16 and spec.n_pack == 2
-            and spec.shift == 8)
+    """Whether K2 runs on the int8 tensor cores for this layout: every
+    feasible layout of the family.  ``int16xP2s8`` lanes split into byte
+    planes as they are; every other layout's fields are written to the same
+    plane bytes while they are staged (``LanesW`` / ``LanesA`` in
+    csrc/mma_s8.cuh), so the tile multiplies lattice values and never
+    lanes.  The CUDA-core kernel (csrc/ulppack_matmul.cu) is on no route."""
+    return spec.feasible
+
+
+def mma_k(kp: int, spec: PackSpec, k_full: int | None = None) -> int:
+    """The tensor-core K2's K: K steps of two lattice values (an
+    int16xP2s8 lane) -- ceil(k_full / 2) where the lattice K is known (x
+    in, or the dense store), else the ``kp`` lanes' kp * n_pack / 2."""
+    if k_full is not None:
+        return -(-k_full // 2)
+    return kp * spec.n_pack // 2
+
+
+def mma_stage_lanes(spec: PackSpec) -> int:
+    """Lanes of ``spec`` in one 64-step stage of the tile (128 lattice
+    values): 64 for two fields a lane, 32 for four."""
+    return 2 * INT_MATMUL_BK // spec.n_pack
+
+
+def mma_split_starts(plan: "KernelPlan") -> list[int]:
+    """The first lane of each K split of a tensor-core K2 plan, in the
+    plan's layout: whole stages, so whole lanes (``block_k`` steps of two
+    values a split)."""
+    return [z * plan.block_k * 2 // plan.spec.n_pack
+            for z in range(plan.splits)]
+
+
+def mma_a_bytes(spec: PackSpec) -> int:
+    """a's staged bytes a K step on the tile for activation lanes of
+    ``spec``: two values' share of a lane, 2 x lane bytes / n_pack."""
+    return 2 * spec.lane_bytes // spec.n_pack
+
+
+def lanes_w_tile_bytes(spec: PackSpec) -> int:
+    """Bytes of one raw W tile of weight lanes in the tensor-core K2's
+    ring: a stage's lanes (:func:`mma_stage_lanes`) x 128 columns."""
+    return mma_stage_lanes(spec) * INT_MATMUL_BN * spec.lane_bytes
 
 
 WEIGHT_STORES = ("lanes", "dense")
@@ -429,16 +468,15 @@ def plan_packed_matmul(m: int, kp: int, n: int, spec: PackSpec, *,
     ``weight_store`` (required: it decides the W staging) is 'lanes' (W is
     [kp, n] lanes) or 'dense' (W is [ceil(k_full / per), n] bit-dense
     int32 words, per = 32 // w_bits, ``k_full`` the lattice K, default kp
-    x n_pack); the plan records both.  The layout picks the kernel
-    (:func:`packed_matmul_on_tensor_cores`): ``int16xP2s8`` runs on the
+    x n_pack); the plan records both.  Every feasible layout runs on the
     int8 tensor cores over K7's tile, and the plan carries that tile's
-    whole geometry (block_m of 8/16/32/64 rows, 128 columns, 64 lanes a
-    stage, the ring, 256 threads, the shared memory -- whose ring slots
-    hold the dense store's words in place of lanes; K in splits of at
-    most 16384 lanes, whole words; rows and splits from a wave cost model
-    fitted on an H100, ``_tile_split``); every other layout takes the
-    CUDA-core kernel with :func:`packed_matmul_core_geometry` (the dense
-    words expanded to lanes ahead of it).
+    whole geometry: block_m of 8/16/32/64 rows, 128 columns, a ring of
+    64-step stages (a K step is two lattice values: ``mma_stage_lanes``
+    lanes of the layout a stage) whose slots hold the layout's raw lanes
+    or the dense store's words, 256 threads, the shared memory; K
+    (:func:`mma_k`) in splits of at most 16384 steps (32768 values, the s32
+    range), whole stages; rows and splits from a wave cost model fitted on
+    an H100, ``_tile_split``.  ``block_k`` and ``step_k`` count K steps.
 
     With ``use_tuning_cache`` the active tuning cache's entry for this
     signature (``autotune.matmul_key``) is adopted first, when its
@@ -454,11 +492,13 @@ def packed_matmul_core_geometry(m: int, kp: int, n: int, spec: PackSpec,
                                 device="cpu", splits: int | None = None
                                 ) -> dict:
     """block_m, block_k and splits of the CUDA-core K2 kernel
-    (csrc/ulppack_matmul.cu), which takes any feasible layout: 4 or 8 rows
-    a block, 8 bytes of lanes a thread, and K split until the grid covers
-    the card twice (or into ``splits`` runs, as the tuner asks).  Any split
-    is exact (each extracted run holds at most k_tile lanes); splits longer
-    than k_tile are whole runs, so no split adds an extraction."""
+    (csrc/ulppack_matmul.cu), which takes any feasible layout but is on no
+    route: it stays built as the comparison row ``chip_smoke.py`` times
+    beside the tensor-core K2.  4 or 8 rows a block, 8 bytes of lanes a
+    thread, and K split until the grid covers the card twice (or into
+    ``splits`` runs).  Any split is exact (each extracted run holds at most
+    k_tile lanes); splits longer than k_tile are whole runs, so no split
+    adds an extraction."""
     spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
     bm = 4 if m <= 4 else 8
     if splits is None:
@@ -473,141 +513,132 @@ def packed_matmul_core_geometry(m: int, kp: int, n: int, spec: PackSpec,
     return dict(block_m=bm, block_k=block_k, splits=-(-kp // block_k))
 
 
-def _adopt_core_matmul(entry: dict, m: int, kp: int, spec: PackSpec
-                       ) -> dict:
-    """The CUDA-core K2's geometry from a tuned entry: 4 or 8 rows a block
-    (the kernel's two variants) and K in ``splits`` runs of ``block_k``
-    lanes, whole k_tile runs when longer than one."""
-    bm, block_k, splits = (_int(entry, f) for f in
-                           ("block_m", "block_k", "splits"))
-    if bm not in (4, 8):
-        raise ValueError(f"block_m {bm} is not one of the kernel's 4 / 8")
-    if not 1 <= block_k <= max(1, kp) or splits != -(-kp // block_k):
-        raise ValueError(f"{splits} splits of {block_k} lanes do not cover "
-                         f"Kp {kp}")
-    if block_k > spec.k_tile and block_k % spec.k_tile:
-        raise ValueError(f"block_k {block_k} is not whole runs of "
-                         f"{spec.k_tile} lanes")
-    return dict(block_m=bm, block_k=block_k, splits=splits)
-
-
 @functools.lru_cache(maxsize=None)
 def _plan_packed_matmul(m, kp, n, spec, backend, device_key, weight_store,
                         k_full, use_tuning_cache=False) -> KernelPlan:
     spec.validate()   # beyond-bound layouts are rejected here, not in-kernel
-    store = dict(weight_store=weight_store, k_full=k_full)
-    if not packed_matmul_on_tensor_cores(spec):
-        plan = KernelPlan(op="packed_matmul", backend=backend, spec=spec,
-                          **store,
-                          **packed_matmul_core_geometry(m, kp, n, spec,
-                                                        device_key))
-
-        def adopt(e):
-            return _adopt_core_matmul(e, m, kp, spec)
-    else:
-        if weight_store == "dense" and backend == "cuda":
-            _check_dense_mma(spec)
-        w_tile = _w_tile(spec, weight_store)
-        plan = KernelPlan(op="packed_matmul", backend=backend, spec=spec,
-                          **store,
-                          **_mma_geometry(m, kp, n, _ULPPACK_MMA_STAGE_COST,
-                                          2, device_key, w_tile))
-
-        def adopt(e):
-            return _adopt_mma(e, kp, 2, w_tile)
+    if weight_store == "dense" and backend == "cuda":
+        _check_dense_mma(spec)
+    w_tile = _w_tile(spec, weight_store)
+    k = mma_k(kp, spec, k_full)
+    a_bytes = mma_a_bytes(spec)
+    plan = KernelPlan(op="packed_matmul", backend=backend, spec=spec,
+                      weight_store=weight_store, k_full=k_full,
+                      **_mma_geometry(m, k, n, _ULPPACK_MMA_STAGE_COST,
+                                      a_bytes, device_key, w_tile))
     if not use_tuning_cache:
         return plan
     from repro_torch.kernels import autotune
     return _tuned_plan(autotune.matmul_key(m, kp, n, spec, backend=backend,
                                            weight_store=weight_store),
-                       plan, adopt)
+                       plan, lambda e: _adopt_mma(e, k, a_bytes, w_tile))
 
 
-def _w_tile(spec: PackSpec, weight_store: str) -> int | None:
-    """The raw W tile bytes of a ring slot for the dense store (None:
-    int16 lanes, kBK x kBN x 2)."""
+def _w_tile(spec: PackSpec, weight_store: str) -> int:
+    """The raw W tile bytes of a ring slot: the dense store's words or the
+    layout's lanes."""
     return dense_w_tile_bytes(spec.w_bits) if weight_store == "dense" \
-        else None
+        else lanes_w_tile_bytes(spec)
 
 
-def _mma_geometry(m, kp, n, stage_cost, a_bytes, device_key,
+def _mma_geometry(m, k, n, stage_cost, a_bytes, device_key,
                   w_tile=None) -> dict:
-    """The tensor-core K2's geometry: rows, the K split by the wave model
-    with ``stage_cost``, and the ring and shared memory for a's staged
-    bytes a lane (2 for lanes, 2 x the element size for float x) and W's
-    raw tile (``w_tile`` bytes of dense words, or int16 lanes)."""
+    """The tensor-core K2's geometry over K = ``k`` steps: rows, the K
+    split by the wave model with ``stage_cost``, and the ring and shared
+    memory for a's staged bytes a step (:func:`mma_a_bytes` for lanes, 2 x
+    the element size for float x) and W's raw tile (``w_tile`` bytes of
+    dense words or lanes)."""
     # rows: the smallest block that holds m, or 16/32-row blocks below it
-    # (more blocks, each stage's MMAs and plane split shorter)
-    block_ms = {_block_m_for(m)} | {b for b in (16, 32) if b < m}
-    bm, per, _ = _tile_split(m, kp, n, block_ms, stage_cost,
+    # (more blocks, each stage's MMAs and plane split shorter), of those
+    # whose ring holds three stages
+    block_ms = {b for b in {_block_m_for(m)} | {b for b in (16, 32) if b < m}
+                if _ring_fits(b, a_bytes, w_tile)}
+    bm, per, _ = _tile_split(m, k, n, block_ms, stage_cost,
                              _ULPPACK_MMA_BLOCK_COST,
                              _ulppack_mma_split_cost,
                              ULPPACK_MMA_MAX_BLOCK_K, device_key)
-    return mma_geometry(kp, bm, per, a_bytes, w_tile)
+    return mma_geometry(k, bm, per, a_bytes, w_tile)
 
 
-def mma_geometry(kp: int, block_m: int, per: int, a_bytes: int,
+def _ring_fits(block_m: int, a_bytes: int, w_tile) -> bool:
+    """Whether the tile's ring holds ``INT_MATMUL_MIN_STAGES`` stages at
+    ``block_m`` rows (kMinStages in csrc/mma_s8.cuh; the K2 libraries
+    build no variant below it): all but 64 rows of f32 x against int32
+    lanes of two fields."""
+    stages, _ = int_matmul_smem_layout(block_m, a_bytes, 2, w_tile=w_tile,
+                                       a_planes=2)
+    return stages >= INT_MATMUL_MIN_STAGES
+
+
+def mma_geometry(k: int, block_m: int, per: int, a_bytes: int,
                  w_tile: int | None = None) -> dict:
-    """The tensor-core K2's whole geometry at ``block_m`` rows a block and
-    ``per`` 64-lane stages a split: the ring and shared memory of
-    :func:`int_matmul_smem_layout` for a's staged bytes a lane
-    (``a_bytes``: 2 for lanes, 2 x the element size for float x) and W's
-    raw tile (``w_tile``), and K in ceil(steps / per) splits."""
-    stages, smem = int_matmul_smem_layout(block_m, a_bytes, 2, w_tile=w_tile)
-    steps = max(1, -(-kp // INT_MATMUL_BK))
+    """The tensor-core K2's whole geometry over K = ``k`` steps at
+    ``block_m`` rows a block and ``per`` 64-step stages a split: the ring
+    and shared memory of :func:`int_matmul_smem_layout` for a's staged
+    bytes a step (``a_bytes``), always split into two planes, and W's raw
+    tile (``w_tile``; int16xP2s8 lanes when None), and K in ceil(steps /
+    per) splits."""
+    stages, smem = int_matmul_smem_layout(block_m, a_bytes, 2, w_tile=w_tile,
+                                          a_planes=2)
+    steps = max(1, -(-k // INT_MATMUL_BK))
     return dict(block_m=block_m, block_n=INT_MATMUL_BN, step_k=INT_MATMUL_BK,
                 stages=stages, threads=INT_MATMUL_THREADS,
                 block_k=per * INT_MATMUL_BK, splits=-(-steps // per),
                 smem_bytes=smem)
 
 
-def _adopt_mma(entry: dict, kp: int, a_bytes: int, w_tile) -> dict:
+def _adopt_mma(entry: dict, k: int, a_bytes: int, w_tile) -> dict:
     """The tensor-core K2's geometry from a tuned entry: block_m one of
-    ``INT_MATMUL_BLOCK_MS``, block_k whole 64-lane stages of at most
-    16384 lanes, splits = ceil(K steps / stages a split); the ring and
-    shared memory are derived, never read from the entry."""
+    ``INT_MATMUL_BLOCK_MS``, block_k whole 64-step stages of at most
+    16384 steps (``ULPPACK_MMA_MAX_VALUES`` lattice values), splits =
+    ceil(K steps / stages a split); the ring and shared memory are
+    derived, never read from the entry."""
     bm, block_k = _int(entry, "block_m"), _int(entry, "block_k")
     if bm not in INT_MATMUL_BLOCK_MS:
         raise ValueError(f"block_m {bm} is not one of {INT_MATMUL_BLOCK_MS}")
     if block_k < INT_MATMUL_BK or block_k % INT_MATMUL_BK \
             or block_k > ULPPACK_MMA_MAX_BLOCK_K:
-        raise ValueError(f"block_k {block_k} is not whole 64-lane stages of "
-                         f"at most {ULPPACK_MMA_MAX_BLOCK_K} lanes")
-    geo = mma_geometry(kp, bm, block_k // INT_MATMUL_BK, a_bytes, w_tile)
+        raise ValueError(
+            f"block_k {block_k} is not whole 64-lane stages (K steps of "
+            f"two values, an int16xP2s8 lane) of at most "
+            f"{ULPPACK_MMA_MAX_BLOCK_K}: {2 * block_k} lattice values a "
+            f"split against {ULPPACK_MMA_MAX_VALUES} (the s32 range)")
+    geo = mma_geometry(k, bm, block_k // INT_MATMUL_BK, a_bytes, w_tile)
     if "splits" in entry and _int(entry, "splits") != geo["splits"]:
         raise ValueError(f"splits {entry['splits']} != {geo['splits']} for "
-                         f"block_k {block_k} over Kp {kp}")
-    if geo["stages"] < 1 or geo["smem_bytes"] > INT_MATMUL_SMEM_MAX:
+                         f"block_k {block_k} over K {k}")
+    if geo["stages"] < INT_MATMUL_MIN_STAGES \
+            or geo["smem_bytes"] > INT_MATMUL_SMEM_MAX:
         raise ValueError(f"block_m {bm} does not fit the shared memory")
     return geo
 
 
 def packed_matmul_candidates(m: int, kp: int, n: int, spec: PackSpec, *,
                              weight_store: str = "lanes", x_dtype=None,
+                             k_full: int | None = None,
                              device="cpu") -> list[dict]:
-    """Every geometry the autotuner may try for K2 at [m, kp] x [kp, n]
-    in ``spec``, each one the launcher takes.  On the tensor cores
-    (``int16xP2s8``; the fused route's when ``x_dtype`` is given): block_m
-    over ``INT_MATMUL_BLOCK_MS`` up to the first that holds m x stages a
-    split giving 1 .. 256 splits in steps of about sqrt(2) (at most 16384
-    lanes a split).  The CUDA-core K2: its 4 / 8-row block x the same split
-    counts, up to Kp."""
+    """Every geometry the autotuner may try for K2 at [m, kp] x W in
+    ``spec`` (the fused route's when ``x_dtype`` is given; ``k_full`` the
+    lattice K of x or of a dense store, else kp x n_pack), each one the
+    launcher takes: block_m over
+    ``INT_MATMUL_BLOCK_MS`` up to the first that holds m x stages a split
+    giving 1 .. 256 splits in steps of about sqrt(2) (at most 16384 K
+    steps a split)."""
     spec.validate()
-    if not packed_matmul_on_tensor_cores(spec):
-        return [dict(t) for t in dict.fromkeys(
-            tuple(packed_matmul_core_geometry(m, kp, n, spec, device,
-                                              splits=s).items())
-            for s in _geometric_counts(max(1, min(kp, 4 * _sm_count(
-                _device_key(device))))))]
-    a_bytes = 2 * _x_bytes(x_dtype) if x_dtype is not None else 2
+    if x_dtype is not None:
+        a_bytes, k = 2 * _x_bytes(x_dtype), mma_k(kp, spec, k_full)
+    else:
+        a_bytes = mma_a_bytes(spec)
+        k = mma_k(kp, spec, k_full if weight_store == "dense" else None)
     w_tile = _w_tile(spec, weight_store)
-    steps = max(1, -(-kp // INT_MATMUL_BK))
+    steps = max(1, -(-k // INT_MATMUL_BK))
     max_per = ULPPACK_MMA_MAX_BLOCK_K // INT_MATMUL_BK
     pers = dict.fromkeys(min(max_per, -(-steps // s))
                          for s in _geometric_counts(steps))
     out = []
     for bm in INT_MATMUL_BLOCK_MS:
-        out += [mma_geometry(kp, bm, per, a_bytes, w_tile) for per in pers]
+        if _ring_fits(bm, a_bytes, w_tile):
+            out += [mma_geometry(k, bm, per, a_bytes, w_tile) for per in pers]
         if bm >= m:
             break
     return out
@@ -626,23 +657,24 @@ def plan_quantized_linear(m: int, k: int, n: int, spec: PackSpec,
     bit-dense words [ceil(k / per), n] ('dense'); ``weight_store`` is
     required: it decides the W staging.
 
-    On the 'cuda' backend with an ``int16xP2s8`` layout: the fused route,
-    op 'quantized_linear' -- one launch of the tensor-core K2 that stages
-    x and quantizes it into its byte planes (K1 folded in), and stages W
-    as lanes or as words that it expands into the same planes -- with the
-    tile's geometry for float rows of ``x_dtype`` (a stage holds 128
-    values a row, so the ring is shallower than for lanes: bf16 at 64 rows
-    fits 5 stages, f32 3), rows and splits by :func:`plan_packed_matmul`'s
-    wave model with the quantize's stage costs (splits of at most 16384
-    lanes), ``k_full`` = k, ``x_bytes`` and the weight store.  Every other
-    backend and layout: the packed matmul's plan (K1, K2 and the eager
-    epilogue run apart).  ``use_tuning_cache`` consults the active tuning
-    cache as :func:`plan_packed_matmul` does, under
-    ``autotune.quantized_linear_key`` for the fused route."""
+    On the 'cuda' backend, for every feasible layout: the fused route, op
+    'quantized_linear' -- one launch of the tensor-core K2 that stages x
+    and quantizes it into its byte planes (K1 folded in), and stages W as
+    the layout's lanes or as words that it expands into the same planes --
+    with the tile's geometry for float rows of ``x_dtype`` over K =
+    ceil(k / 2) steps (a stage holds 128 values a row, so the ring is
+    shallower than for lanes: bf16 at 64 rows fits 5 stages, f32 3), rows
+    and splits by :func:`plan_packed_matmul`'s wave model with the
+    quantize's stage costs (splits of at most 16384 steps), ``k_full`` =
+    k, ``x_bytes`` and the weight store.  The 'torch' backend: the packed
+    matmul's plan (K1, K2 and the eager epilogue run apart).
+    ``use_tuning_cache`` consults the active tuning cache as
+    :func:`plan_packed_matmul` does, under ``autotune.quantized_linear_key``
+    for the fused route."""
     backend = resolve_backend(backend, device)
     kp = -(-k // spec.n_pack)
     k_full = _check_store(weight_store, spec, k, kp)
-    if backend == "cuda" and packed_matmul_on_tensor_cores(spec):
+    if backend == "cuda":
         return _plan_quantized_linear(m, k, n, spec, _x_bytes(x_dtype),
                                       _device_key(device), weight_store,
                                       use_tuning_cache)
@@ -667,9 +699,10 @@ def _plan_quantized_linear(m, k, n, spec, x_bytes, device_key,
     if weight_store == "dense":
         _check_dense_mma(spec)
     w_tile = _w_tile(spec, weight_store)
+    steps = mma_k(kp, spec, k)
     plan = KernelPlan(op="quantized_linear", backend="cuda", spec=spec,
                       k_full=k, x_bytes=x_bytes, weight_store=weight_store,
-                      **_mma_geometry(m, kp, n, _QUANT_MMA_STAGE_COST,
+                      **_mma_geometry(m, steps, n, _QUANT_MMA_STAGE_COST,
                                       2 * x_bytes, device_key, w_tile))
     if not use_tuning_cache:
         return plan
@@ -678,7 +711,7 @@ def _plan_quantized_linear(m, k, n, spec, x_bytes, device_key,
         autotune.quantized_linear_key(m, k, n, spec, x_bytes,
                                       backend="cuda",
                                       weight_store=weight_store),
-        plan, lambda e: _adopt_mma(e, kp, 2 * x_bytes, w_tile))
+        plan, lambda e: _adopt_mma(e, steps, 2 * x_bytes, w_tile))
 
 
 def plan_quantize_pack(m: int, k: int, spec: PackSpec, *,
@@ -716,24 +749,28 @@ def plan_int_matmul(m: int, k: int, n: int, *, a_bytes: int = 1,
 
 
 def int_matmul_smem_layout(block_m: int, a_bytes: int, w_bytes: int, *,
-                           w_tile: int | None = None) -> tuple[int, int]:
+                           w_tile: int | None = None,
+                           a_planes: int | None = None) -> tuple[int, int]:
     """(ring depth, shared memory) of one block of the int8 tile (K7, and
-    the tensor-core K2 with 2-byte operands): the layout of ``stages_for``
-    and ``smem_bytes`` in csrc/mma_s8.cuh.  Ring slots, each a raw W tile
+    the tensor-core K2): the layout of ``stages_for_w`` and
+    ``smem_bytes_w`` in csrc/mma_s8.cuh.  Ring slots, each a raw W tile
     ([64, 128] of ``w_bytes``, or ``w_tile`` bytes of the dense store's
-    words, :func:`dense_w_tile_bytes`) and block_m raw a rows of 64 K
-    steps of ``a_bytes`` (+16 bytes of padding), as many as fit beside two
-    buffers of K-major byte planes (one per byte of W -- two for the dense
-    store's hi and lo values --; a's two unless a is int8, whose rows the
-    MMAs read from the ring), up to ``INT_MATMUL_MAX_STAGES``.  The fused
-    quantize stages two float values a lane: ``a_bytes`` = 2 x their
-    element size."""
+    words, :func:`dense_w_tile_bytes`, or of a layout's lanes,
+    :func:`lanes_w_tile_bytes`) and block_m raw a rows of 64 K steps of
+    ``a_bytes`` (+16 bytes of padding), as many as fit beside two buffers
+    of K-major byte planes (``w_bytes`` of W -- two for the dense store's
+    and the lanes' hi and lo values --; a's two where ``a_planes`` is 2,
+    none where the MMAs read a's int8 rows from the ring; by default a's
+    bytes), up to ``INT_MATMUL_MAX_STAGES``.  The fused quantize stages
+    two float values a K step: ``a_bytes`` = 2 x their element size."""
     bk, row = INT_MATMUL_BK, INT_MATMUL_PLANE_ROW
     if w_tile is None:
         w_tile = bk * INT_MATMUL_BN * w_bytes
+    if a_planes is None:
+        a_planes = a_bytes
     stage = w_tile + block_m * (bk * a_bytes + 16)
     planes = w_bytes * INT_MATMUL_BN * row + (
-        2 * block_m * row if a_bytes >= 2 else 0)
+        2 * block_m * row if a_planes >= 2 else 0)
     stages = min(INT_MATMUL_MAX_STAGES,
                  (INT_MATMUL_SMEM_MAX - 2 * planes) // stage)
     return stages, stages * stage + 2 * planes
@@ -1100,10 +1137,13 @@ def _conv_geometry(n, out_h, out_w, c, fh, fw, co, device_key,
 
 def packed_conv2d_on_tensor_cores(spec: PackSpec) -> bool:
     """Whether K5 runs on the int8 tensor cores for this layout: K2's
-    predicate (:func:`packed_matmul_on_tensor_cores`), int16 lanes of two
-    byte fields, where the activation lanes read as bytes are the u8
-    lattice in channel order.  ``int8xP2s4``, ``int16xP4s4`` and the int32
-    lanes keep the CUDA-core tile."""
+    predicate (:func:`packed_matmul_on_tensor_cores`), every feasible
+    layout.  ``int16xP2s8`` and ``int32xP4s8`` activation lanes read as
+    bytes are the u8 lattice in channel order and are staged as they are;
+    every other layout's lanes are staged raw and rewritten as lattice
+    bytes (:func:`conv_mma_raw_c`).  A shape that does not fit the tensor
+    cores' shared memory or s32 range takes the CUDA-core tile through its
+    plan's ``route``."""
     return packed_matmul_on_tensor_cores(spec)
 
 
@@ -1115,22 +1155,35 @@ def _cpad_for(nbytes: int) -> int:
         else -(-nbytes // 128) * 128
 
 
-def conv_mma_block_c(cp: int) -> int:
-    """Staged bytes a pixel of the tensor-core K5 for ``cp`` int16 lanes
-    (2 cp lattice bytes)."""
-    return _cpad_for(2 * cp)
+def conv_mma_block_c(cp: int, n_pack: int = 2) -> int:
+    """Staged lattice bytes a pixel of the tensor-core K5 for ``cp`` lanes
+    of ``n_pack`` fields (n_pack cp lattice bytes)."""
+    return _cpad_for(n_pack * cp)
+
+
+def conv_mma_raw_c(cp: int, spec: PackSpec) -> int:
+    """Bytes a pixel of the tensor-core K5's raw slot: 0 where the
+    activation lanes read as bytes are the lattice (byte fields, as many
+    as the lane has bytes: ``int16xP2s8``, ``int32xP4s8``), else the
+    pixel's ``cp`` lanes rounded up to 16 bytes (``craw`` in
+    csrc/ulppack_conv2d_mma.cu)."""
+    if spec.shift == 8 and spec.n_pack == spec.lane_bytes:
+        return 0
+    return -(-cp * spec.lane_bytes // 16) * 16
 
 
 def conv_mma_smem_bytes(fh: int, fw: int, block_h: int, block_w: int,
-                        block_co: int, block_c: int) -> int:
+                        block_co: int, block_c: int, raw_c: int = 0) -> int:
     """Shared memory of one tensor-core K5 block: the weight block,
     ``block_co`` rows of fh * fw * block_c bytes + 16 (an odd number of
     16-byte units, for conflict-free ldmatrix), then the halo ring,
     ``CONV_MMA_STAGES`` slots of (block_h + fh - 1) x (block_w + fw - 1)
-    pixels of ``block_c`` bytes."""
+    pixels of ``block_c`` bytes, then a raw slot of as many pixels of
+    ``raw_c`` bytes (:func:`conv_mma_raw_c`)."""
     krow = fh * fw * block_c + 16
-    halo = (block_h + fh - 1) * (block_w + fw - 1) * block_c
-    return block_co * krow + CONV_MMA_STAGES * halo
+    pixels = (block_h + fh - 1) * (block_w + fw - 1)
+    return block_co * krow + CONV_MMA_STAGES * pixels * block_c \
+        + pixels * raw_c
 
 
 def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
@@ -1143,16 +1196,20 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
     block and the halo ring overflow the shared memory; one block an SM,
     persistent, each walking an equal share of the tiles in whole waves.
     ``tile`` = (block_co, block_w) asks for that tile instead (the tuner's
-    candidates), refused where the launcher would refuse it.
-    Refuses a conv whose s32 sums could leave the int32 range
-    (fh * fw * 2 cp * max_w * max_a >= 2^31: PTX does not promise that the
-    MMA wraps) or whose weight block does not fit at 8 channels."""
-    most = fh * fw * 2 * cp * spec.max_w * spec.max_a
+    candidates), refused where the launcher would refuse it.  Layouts
+    whose lanes are not lattice bytes add a raw slot
+    (:func:`conv_mma_raw_c`).  Refuses a conv whose s32 sums could leave
+    the int32 range (fh * fw * n_pack cp * max_w * max_a >= 2^31: PTX does
+    not promise that the MMA wraps) or whose weight block does not fit at
+    8 channels."""
+    chans = spec.n_pack * cp
+    most = fh * fw * chans * spec.max_w * spec.max_a
     if most >= 2**31:
         raise ValueError(
-            f"a {fh}x{fw} conv over {2 * cp} channels of {spec} can sum to "
+            f"a {fh}x{fw} conv over {chans} channels of {spec} can sum to "
             f"{most}, past the int32 range of the tensor-core K5's sums")
-    bc = conv_mma_block_c(cp)
+    bc = conv_mma_block_c(cp, spec.n_pack)
+    raw = conv_mma_raw_c(cp, spec)
     if tile is not None:
         bco, bw = tile
         if bco not in CONV_MMA_BLOCK_COS or bw not in CONV_MMA_BLOCK_WS:
@@ -1166,7 +1223,7 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
                    CONV_MMA_BLOCK_COS[-1])
 
     def smem(bco):
-        return conv_mma_smem_bytes(fh, fw, bh, bw, bco, bc)
+        return conv_mma_smem_bytes(fh, fw, bh, bw, bco, bc, raw)
 
     while tile is None and bco > CONV_MMA_BLOCK_COS[0] \
             and smem(bco) > CONV_MMA_SMEM_MAX:
@@ -1175,11 +1232,22 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
         raise ValueError(f"a {fh}x{fw} kernel over {bc} staged bytes does "
                          f"not fit the tensor-core K5's shared memory "
                          f"({smem(bco)} bytes)")
-    return dict(block_h=bh, block_w=bw, block_co=bco, block_c=bc,
+    return dict(route="tensor_cores", block_h=bh, block_w=bw, block_co=bco,
+                block_c=bc,
                 stages=CONV_MMA_STAGES, threads=CONV_MMA_THREADS,
                 blocks=_conv_mma_blocks(n, out_h, out_w, co, bh, bw, bco,
                                         device_key),
                 smem_bytes=smem(bco))
+
+
+def _conv_route(n, out_h, out_w, cp, fh, fw, co, spec, device_key) -> str:
+    """K5's route for a shape: 'tensor_cores' where ``_conv_mma_geometry``
+    takes it, else 'cuda_cores'."""
+    try:
+        _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec, device_key)
+    except ValueError:
+        return "cuda_cores"
+    return "tensor_cores"
 
 
 def _conv_mma_tile(out_w: int) -> tuple[int, int]:
@@ -1210,10 +1278,11 @@ def plan_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
     Records the layout, the weight store and ``k_full`` (Cin of a 'dense'
     store, defaulting to ``cp * n_pack`` as in the reference) beside the
     Hopper launch geometry; the TPU's VMEM budget and ``block_h``
-    candidates have no counterpart here.  The layout picks the kernel
-    (:func:`packed_conv2d_on_tensor_cores`): ``int16xP2s8`` runs the
-    implicit-GEMM conv on the int8 tensor cores with
-    ``_conv_mma_geometry``; every other layout the CUDA-core tile with
+    candidates have no counterpart here.  The shape picks the kernel,
+    recorded as ``route``: 'tensor_cores', the implicit-GEMM conv on the
+    int8 tensor cores with ``_conv_mma_geometry`` (every layout), wherever
+    its weight block and halo ring fit one block's shared memory and its
+    s32 sums stay in range; else 'cuda_cores', the CUDA-core tile with
     :func:`packed_conv2d_core_geometry`.  With ``use_tuning_cache`` the
     active tuning cache's entry (``autotune.conv2d_key``) replaces the
     tile -- block_co x block_w on the tensor cores, block_co on the CUDA
@@ -1227,17 +1296,18 @@ def packed_conv2d_candidates(x_shape: tuple, w_shape: tuple,
                              spec: PackSpec, *, padding: str = "SAME",
                              device="cpu") -> list[dict]:
     """Every tile the autotuner may try for K5 at these packed shapes, each
-    one the launcher takes: on the tensor cores (``int16xP2s8``) block_co
-    over ``CONV_MMA_BLOCK_COS`` up to the first that holds Co x block_w
-    over ``CONV_MMA_BLOCK_WS`` (block_h = 512 / block_w); on the CUDA
-    cores block_co over ``CONV_BLOCK_COS`` up to the first that holds
-    Co."""
+    one the launcher takes: on the tensor cores block_co over
+    ``CONV_MMA_BLOCK_COS`` up to the first that holds Co x block_w over
+    ``CONV_MMA_BLOCK_WS`` (block_h = 512 / block_w); on the CUDA cores
+    (the shapes whose route is 'cuda_cores') block_co over
+    ``CONV_BLOCK_COS`` up to the first that holds Co."""
     n, h, w, cp = x_shape
     fh, fw, _, co = w_shape
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
     dk = _device_key(device)
     out = []
-    if packed_conv2d_on_tensor_cores(spec):
+    if _conv_route(n, out_h, out_w, cp, fh, fw, co, spec, dk) \
+            == "tensor_cores":
         for bco in CONV_MMA_BLOCK_COS:
             for bw in CONV_MMA_BLOCK_WS:
                 try:
@@ -1264,8 +1334,8 @@ def packed_conv2d_core_geometry(x_shape: tuple, w_shape: tuple, *,
                                 padding: str = "SAME", device="cpu") -> dict:
     """block_h, block_co, block_c, threads and smem_bytes of the CUDA-core
     conv tile (csrc/conv2d_tile.cuh) for these shapes, which takes any
-    feasible layout (int16xP2s8 too, though the planner sends that layout
-    to the tensor cores)."""
+    feasible layout (the planner sends it the shapes the tensor cores'
+    shared memory or s32 range cannot take)."""
     n, h, w, cp = x_shape
     fh, fw, _, co = w_shape
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
@@ -1286,13 +1356,14 @@ def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
     if weight_store == "dense" and k_full is None:
         k_full = cp * spec.n_pack
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
-    mma = packed_conv2d_on_tensor_cores(spec)
+    mma = _conv_route(n, out_h, out_w, cp, fh, fw, co, spec,
+                      device_key) == "tensor_cores"
     if mma:
         geometry = _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
                                       device_key)
     else:
-        geometry = _conv_geometry(n, out_h, out_w, cp, fh, fw, co,
-                                  device_key)
+        geometry = dict(_conv_geometry(n, out_h, out_w, cp, fh, fw, co,
+                                       device_key), route="cuda_cores")
     plan = KernelPlan(op="packed_conv2d", backend=backend, spec=spec,
                       weight_store=weight_store, k_full=k_full, **geometry)
     if not use_tuning_cache:
@@ -1304,8 +1375,9 @@ def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
             return _conv_mma_geometry(
                 n, out_h, out_w, cp, fh, fw, co, spec, device_key,
                 tile=(_int(e, "block_co"), _int(e, "block_w")))
-        return _conv_geometry(n, out_h, out_w, cp, fh, fw, co, device_key,
-                              bco=_int(e, "block_co"))
+        return dict(_conv_geometry(n, out_h, out_w, cp, fh, fw, co,
+                                   device_key, bco=_int(e, "block_co")),
+                    route="cuda_cores")
     return _tuned_plan(autotune.conv2d_key(x_shape, w_shape, spec,
                                            padding=padding, backend=backend,
                                            weight_store=weight_store),

@@ -3,19 +3,21 @@
 
 Replaces ``repro/kernels/ulppack_conv2d.py``: ``ulppack_conv2d`` (Pallas
 ``_kernel``) and ``int_conv2d`` (``_int_kernel``), both launched by
-``_tiled_conv_call`` (pallas_call at :148).  The layout picks K5's kernel
-(``plan.packed_conv2d_on_tensor_cores``):
+``_tiled_conv_call`` (pallas_call at :148).  The plan picks K5's kernel
+(``plan.route``, ``plan.packed_conv2d_on_tensor_cores``):
 
-- ``int16xP2s8``, the layout of sparq-cnn and of three Fig. 4 rows:
-  ``csrc/ulppack_conv2d_mma.cu`` on the int8 tensor cores.  Each byte of a
-  lane is one lattice value, so the conv is an implicit GEMM of u8 x u8
-  ``mma.sync`` products with the weight block resident in shared memory;
-  one launch a call, with the CNN's affine dequant fused in on request
-  (:class:`ConvAffine`).
-- every other layout: ``csrc/ulppack_conv2d.cu`` over the CUDA-core tile of
+- wherever the weight block and the halo ring fit one block's shared
+  memory and the s32 sums stay in range (sparq-cnn's layers and the Fig.
+  4 shape among them), for every layout: ``csrc/ulppack_conv2d_mma.cu`` on
+  the int8 tensor cores, an implicit GEMM of u8 x u8 ``mma.sync``
+  products over lattice bytes with the weight block resident in shared
+  memory.  ``int16xP2s8`` and ``int32xP4s8`` pixels read as bytes are the
+  lattice; every other layout's are staged raw and rewritten as lattice
+  bytes in shared memory.  One launch a call, with the CNN's affine
+  dequant fused in on request (:class:`ConvAffine`).
+- the rest: ``csrc/ulppack_conv2d.cu`` over the CUDA-core tile of
   ``csrc/conv2d_tile.cuh`` (32-bit integer registers, the faithful
-  ``vmacsr``).  Their fields are not whole bytes, so their lanes have no
-  int8 tensor-core reading.
+  ``vmacsr``).
 
 The plan picks K6's kernel (``plan.int_conv2d_on_tensor_cores``, recorded
 as ``plan.route``):
@@ -288,14 +290,16 @@ def ulppack_conv2d_mma_cuda(x_packed: torch.Tensor, w: torch.Tensor,
                             k_full: int | None = None,
                             epilogue: ConvAffine | None = None
                             ) -> torch.Tensor:
-    """Launch the tensor-core K5 (CUDA tensors, ``int16xP2s8`` lanes) with
-    the geometry of ``plan`` (``plan_packed_conv2d`` for these shapes): the
-    exact int32 conv [N, Ho, Wo, Co], or with ``epilogue`` the f32 affine
-    dequant of ``cnn.conv_epilogue``.  One launch; no fall-back."""
+    """Launch the tensor-core K5 (CUDA tensors, lanes of any feasible
+    layout) with the geometry of ``plan`` (a 'tensor_cores'
+    ``plan_packed_conv2d`` for these shapes and layout): the exact int32
+    conv [N, Ho, Wo, Co], or with ``epilogue`` the f32 affine dequant of
+    ``cnn.conv_epilogue``.  One launch; no fall-back."""
     k_full = _check_packed(x_packed, w, spec, weight_store, k_full)
-    if not plan_lib.packed_conv2d_on_tensor_cores(spec):
-        raise ValueError(f"{spec}: the tensor-core K5 takes int16xP2s8 "
-                         f"lanes only")
+    if plan.route != "tensor_cores" or plan.spec != spec:
+        raise ValueError(f"ulppack_conv2d_mma_cuda needs a 'tensor_cores' "
+                         f"plan for {spec}, got route {plan.route!r} for "
+                         f"{plan.spec}")
     x, w = _cuda_operands(x_packed, w, "ulppack_conv2d_mma_cuda")
     n, h, wd, cp = x.shape
     fh, fw, wc, co = w.shape
@@ -311,11 +315,12 @@ def ulppack_conv2d_mma_cuda(x_packed: torch.Tensor, w: torch.Tensor,
         out_dtype = torch.float32
     out = torch.empty((n, out_h, out_w, co), dtype=out_dtype, device=dev)
     ptrs = [t.data_ptr() for t in scalars] or [0, 0, 0]
-    _bound("ulppack_conv2d_mma", 6, 25)(
+    _bound("ulppack_conv2d_mma", 6, 28)(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), *ptrs, n, h, wd, cp, fh,
         fw, wc, co, out_h, out_w, top, left, int(weight_store == "dense"),
-        spec.w_bits, k_full or 0, spec.max_w * spec.max_a,
-        int(epilogue is not None), plan.block_h, plan.block_w,
+        spec.w_bits, k_full or 0, spec.max_w * spec.max_a, spec.lane_bytes,
+        spec.n_pack, spec.shift, int(epilogue is not None), plan.block_h,
+        plan.block_w,
         plan.block_co, plan.block_c, plan.stages, plan.threads, plan.blocks,
         plan.smem_bytes, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -396,7 +401,7 @@ def _packed_conv2d_torch(plan, x_packed, w, padding):
 
 @plan_lib.register_backend("packed_conv2d", "cuda")
 def _packed_conv2d_cuda(plan, x_packed, w, padding):
-    if plan_lib.packed_conv2d_on_tensor_cores(plan.spec):
+    if plan.route == "tensor_cores":
         return ulppack_conv2d_mma_cuda(x_packed, w, plan.spec, plan=plan,
                                        padding=padding,
                                        weight_store=plan.weight_store,

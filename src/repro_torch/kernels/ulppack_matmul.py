@@ -4,29 +4,32 @@ unpacked integer matmul.
 K2 replaces ``repro/kernels/ulppack_matmul.py:ulppack_matmul`` (Pallas
 kernel ``_kernel``, pallas_call at :99): the exact int32 dot of the
 lattices behind packed activation lanes a [M, Kp] and field-reversed
-weight lanes w [Kp, N].  The layout picks one of two hand-written kernels
-(``plan.packed_matmul_on_tensor_cores``):
+weight lanes w [Kp, N].  Every feasible layout runs on the int8 tensor
+cores, over K7's tile (``plan.packed_matmul_on_tensor_cores``):
 
 - ``int16xP2s8``, the layout of every shipped W2A2 config:
-  ``csrc/ulppack_matmul_mma.cu`` on the int8 tensor cores, over K7's tile.
-  Each byte of a lane is one lattice value, so the dot is two u8 x u8
-  byte-plane products per lane; one launch a call (a split-K fix-up in
-  place of a zero fill and atomics), with the affine epilogue of
-  ``ops.quantized_linear`` fused in on request (:class:`Affine`).  The
-  same kernel also takes the float activations themselves and quantizes
-  them as it stages them (K1 folded in, :func:`quantized_linear_mma_cuda`):
-  ``ops.quantized_linear`` on the card is then one launch.  With the
-  bit-dense weight store (``weight_store='dense'`` plans: int32 words of
-  w_bits 1, 2 or 4) it stages the words and expands them into the same
-  byte planes (``csrc/ulppack_matmul_mma_dense.cu``, one library per
-  w_bits).
-- every other layout: ``csrc/ulppack_matmul.cu`` (CUDA cores, 32-bit
-  integer registers), the faithful kernel: runs of at most ``k_tile``
-  lanes contracted in packed space, then ``(t >> shift*(n_pack-1)) &
-  field_mask`` taken and summed wide.  A dense store is expanded to lanes
-  ahead of it by :func:`dense_to_lanes` (on the card, in PyTorch), as the
-  reference expands it ahead of its Pallas kernel; no shipped config or
-  draft uses these layouts.
+  ``csrc/ulppack_matmul_mma.cu``.  Each byte of a lane is one lattice
+  value, so the dot is two u8 x u8 byte-plane products per lane.
+- every other layout (``int8xP2s4``, ``int16xP4s4``, ``int32xP2s8``,
+  ``int32xP4s8``, ``int32xP2s16`` -- W4A4's only one):
+  ``csrc/ulppack_matmul_mma_lanes.cu``, one library per layout, whose
+  staging writes each field of a lane to the plane byte an int16xP2s8
+  lane would have put it in, so the MMAs never multiply lanes.
+
+One launch a call (a split-K fix-up in place of a zero fill and atomics),
+with the affine epilogue of ``ops.quantized_linear`` fused in on request
+(:class:`Affine`).  The same kernel also takes the float activations
+themselves and quantizes them as it stages them (K1 folded in,
+:func:`quantized_linear_mma_cuda`): ``ops.quantized_linear`` on the card
+is then one launch for every layout.  With the bit-dense weight store
+(``weight_store='dense'`` plans: int32 words of w_bits 1, 2 or 4) it
+stages the words and expands them into the same byte planes
+(``csrc/ulppack_matmul_mma_dense.cu``, one library per w_bits, for float
+x and int16xP2s8 lanes; the layout's library for its other lanes), so no
+store is expanded to lanes on the card.  The CUDA-core kernel
+(``csrc/ulppack_matmul.cu``, :func:`ulppack_matmul_cuda`: runs of k_tile
+lanes in packed space, then shift-mask extraction) is on no route; it
+stays built as a comparison row.
 
 K7 replaces ``repro/kernels/ulppack_matmul.py:int_matmul`` (Pallas kernel
 ``_int_kernel``, pallas_call at :145): s8/s16 x s8/s16 -> s32, wrapped mod
@@ -37,13 +40,14 @@ shared memory, int16 operands as two byte planes, edge tiles masked).
 
 :func:`ulppack_matmul_torch` and :func:`int_matmul_torch` are the plain
 PyTorch versions (the CPU path and the on-card comparison);
-``kernel_launches`` / ``plain_calls`` count the CUDA-core K2's and K7's
-launches and each plain version's calls, keyed by kernel name, and
-``mma_launches`` the tensor-core K2's over weight lanes, keyed by route:
+``kernel_launches`` / ``plain_calls`` count the CUDA-core K2's (the
+comparison row) and K7's launches and each plain version's calls, keyed
+by kernel name, and ``mma_launches`` the tensor-core K2's over weight
+lanes, keyed by route:
 lanes in with the s32 dot or the affine epilogue out, or activations in
-with the quantize and the affine epilogue fused ("quant_affine"), and
+with the quantize and the affine epilogue fused ("quant_affine"),
 ``dense_mma_launches`` its launches over the dense store, by the same
-routes.
+routes, and ``library_launches`` all of them by library.
 """
 
 from __future__ import annotations
@@ -69,6 +73,13 @@ plain_calls = dict.fromkeys(NAMES, 0)
 mma_launches = {"s32": 0, "affine": 0, "quant_affine": 0}
 #: ... and over the bit-dense weight store, by the same routes.
 dense_mma_launches = dict(mma_launches)
+#: ... and by (library, route): ``ulppack_matmul_mma`` (int16xP2s8
+#: lanes), the dense store's one per w_bits (x, or int16xP2s8 lanes, in),
+#: and one per other layout (its lanes, x or lanes in, and its activation
+#: lanes over the dense store).
+library_launches = {(lib, route): 0 for lib in (
+    "ulppack_matmul_mma", *build.VARIANTS, *build.LAYOUT_VARIANTS)
+    for route in mma_launches}
 
 #: int64 bytes one chunk of the plain int_matmul may hold on the card.
 _PLAIN_BUDGET = 1 << 28
@@ -81,6 +92,8 @@ def reset_counts():
         kernel_launches[k] = plain_calls[k] = 0
     for k in mma_launches:
         mma_launches[k] = dense_mma_launches[k] = 0
+    for k in library_launches:
+        library_launches[k] = 0
 
 
 def _check(a_packed, w_packed, spec: PackSpec):
@@ -126,7 +139,9 @@ def ulppack_matmul_torch(a_packed: torch.Tensor, w_packed: torch.Tensor,
 def ulppack_matmul_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
                         spec: PackSpec, *, block_m: int, block_k: int,
                         splits: int) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors, one lane dtype)."""
+    """Launch the CUDA-core K2 (CUDA tensors, one lane dtype; geometry
+    from ``plan.packed_matmul_core_geometry``): on no route, the comparison
+    row beside the tensor-core K2."""
     _check(a_packed, w_packed, spec)
     if not (a_packed.is_cuda and w_packed.device == a_packed.device):
         raise ValueError("ulppack_matmul_cuda needs both operands on one "
@@ -288,14 +303,34 @@ def _affine_operands(ep: Affine, m: int, n: int, dev: torch.device):
     return _OUT_KINDS[ep.out_dtype], bias_kind, tensors
 
 
-def _launch_mma(a, w, m, kp, n, plan, dev, *, a_kind=0, k_full=0, qmax=0,
+def _library(spec: PackSpec, dense: bool, x_in: bool):
+    """(library, entry point, its extra int arguments) of the tensor-core
+    K2 for ``spec``'s lanes or the dense store, lanes or x in: the dense
+    libraries (one per w_bits) take x and int16xP2s8 lanes, the layout's
+    own library its other lanes."""
+    p2s8 = (spec.lane_name, spec.n_pack, spec.shift) == ("int16", 2, 8)
+    if p2s8 or (dense and x_in):
+        if dense:
+            return (f"ulppack_matmul_mma_w{spec.w_bits}",
+                    "ulppack_matmul_mma_dense_launch", (spec.w_bits,))
+        return "ulppack_matmul_mma", "ulppack_matmul_mma_launch", ()
+    layout = (spec.lane_bytes, spec.n_pack, spec.shift)
+    if dense:
+        return (build.layout_library(spec),
+                "ulppack_matmul_mma_lanes_dense_launch",
+                (spec.w_bits, *layout))
+    return (build.layout_library(spec), "ulppack_matmul_mma_lanes_launch",
+            layout)
+
+
+def _launch_mma(a, w, m, k, n, plan, dev, *, a_kind=0, k_full=0, qmax=0,
                 out_dtype=torch.int32, out_kind=0, bias_kind=0, tensors=()):
-    """One launch of csrc/ulppack_matmul_mma.cu on contiguous operands: a
-    (lanes, or x with ``a_kind`` 1-3), w [kp, n] lanes -- or, with a
-    'dense' plan, the words of csrc/ulppack_matmul_mma_dense.cu's library
-    for the plan's w_bits --, the epilogue's ``tensors`` (see
-    :func:`_affine_operands`), the split-K workspace and tickets of this
-    device and stream."""
+    """One launch of the tensor-core K2 (:func:`_library` for the plan's
+    layout and weight store) on contiguous operands: a (lanes, or x with
+    ``a_kind`` 1-3), w (lanes, or the words of a 'dense' plan) over K =
+    ``k`` steps of two lattice values (``plan_lib.mma_k``), the epilogue's
+    ``tensors`` (see :func:`_affine_operands`), the split-K workspace and
+    tickets of this device and stream."""
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
@@ -308,18 +343,19 @@ def _launch_mma(a, w, m, kp, n, plan, dev, *, a_kind=0, k_full=0, qmax=0,
     work, tickets = _workspace(dev, stream, work_len, tiles)
     ptrs = [0 if t is None else t.data_ptr() for t in tensors]
     ptrs += [0] * (7 - len(ptrs))
-    dense = () if plan.weight_store != "dense" else (plan.spec.w_bits,)
-    lib = f"ulppack_matmul_mma_w{dense[0]}" if dense else "ulppack_matmul_mma"
-    fn = _launch.get(lib)
+    lib, entry, extra = _library(plan.spec, plan.weight_store == "dense",
+                                 a_kind != 0)
+    fn = _launch.get((lib, entry))
     if fn is None:
-        fn = _launch[lib] = build.bind(
-            lib, "ulppack_matmul_mma_dense_launch" if dense
-            else "ulppack_matmul_mma_launch", 12, 18 + len(dense))
+        fn = _launch[(lib, entry)] = build.bind(lib, entry, 12,
+                                                18 + len(extra))
     fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(),
-       tickets.data_ptr(), *ptrs, m, kp, n, k_full, a_kind, qmax, out_kind,
+       tickets.data_ptr(), *ptrs, m, k, n, k_full, a_kind, qmax, out_kind,
        bias_kind, work.numel(), tickets.numel(), plan.block_m, plan.block_n,
        plan.step_k, plan.block_k, plan.splits, plan.stages, plan.threads,
-       plan.smem_bytes, *dense, dev.index or 0, stream)
+       plan.smem_bytes, *extra, dev.index or 0, stream)
+    library_launches[lib, "quant_affine" if a_kind else
+                     "affine" if out_kind else "s32"] += 1
     return out
 
 
@@ -333,13 +369,13 @@ def _count(plan, route: str):
 def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
                             spec: PackSpec, *, plan,
                             epilogue: Affine | None = None) -> torch.Tensor:
-    """Launch the tensor-core K2 (CUDA tensors, ``int16xP2s8`` lanes) with
-    the geometry of ``plan`` (``plan_packed_matmul`` for these shapes and
-    weight store): the exact int32 dot [M, N], or with ``epilogue`` the
-    affine map of ``ops.quantized_linear`` as ``epilogue.out_dtype`` (f32,
-    bf16 or f16).  With a 'dense' plan ``w_packed`` is the bit-dense words
-    [ceil(plan.k_full / per), N], expanded in the kernel's staging.  One
-    launch; no fall-back."""
+    """Launch the tensor-core K2 (CUDA tensors, lanes of any feasible
+    layout) with the geometry of ``plan`` (``plan_packed_matmul`` for
+    these shapes and weight store): the exact int32 dot [M, N], or with
+    ``epilogue`` the affine map of ``ops.quantized_linear`` as
+    ``epilogue.out_dtype`` (f32, bf16 or f16).  With a 'dense' plan
+    ``w_packed`` is the bit-dense words [ceil(plan.k_full / per), N],
+    expanded in the kernel's staging.  One launch; no fall-back."""
     dense = plan.weight_store == "dense"
     if dense:
         _check_words(w_packed, spec, plan.k_full)
@@ -354,9 +390,6 @@ def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
     if plan.op != "packed_matmul" or plan.spec != spec:
         raise ValueError(f"plan {plan.describe()} is not a packed matmul's "
                          f"for {spec}")
-    if not plan_lib.packed_matmul_on_tensor_cores(spec):
-        raise ValueError(f"{spec}: the tensor-core K2 takes int16xP2s8 "
-                         f"lanes only")
     if epilogue is not None and epilogue.a_sums is None:
         raise ValueError("the lanes route needs the activations' row sums")
     if not (a_packed.is_cuda and w_packed.device == a_packed.device):
@@ -367,15 +400,16 @@ def ulppack_matmul_mma_cuda(a_packed: torch.Tensor, w_packed: torch.Tensor,
     m, kp = a.shape
     n = w.shape[1]
     k_full = plan.k_full if dense else 0
+    k = plan_lib.mma_k(kp, spec, plan.k_full if dense else None)
     if epilogue is None:
-        out = _launch_mma(a, w, m, kp, n, plan, a.device, k_full=k_full)
+        out = _launch_mma(a, w, m, k, n, plan, a.device, k_full=k_full)
     else:
         if dense and epilogue.k != k_full:
             raise ValueError(f"the epilogue's K {epilogue.k} is not the "
                              f"plan's {k_full}")
         out_kind, bias_kind, tensors = _affine_operands(epilogue, m, n,
                                                         a.device)
-        out = _launch_mma(a, w, m, kp, n, plan, a.device, k_full=epilogue.k,
+        out = _launch_mma(a, w, m, k, n, plan, a.device, k_full=epilogue.k,
                           out_dtype=epilogue.out_dtype, out_kind=out_kind,
                           bias_kind=bias_kind, tensors=tensors)
     _count(plan, "s32" if epilogue is None else "affine")
@@ -390,19 +424,15 @@ def quantized_linear_mma_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     folded into its staging: x [M, K] f32, bf16 or f16 on the card, read
     in its own dtype and quantized per stage into the byte planes the MMAs
     read, its lattice row sums added up on the way, then the affine
-    epilogue (:class:`Affine`).  ``w_packed`` [ceil(K / 2), N]
-    ``int16xP2s8`` lanes, or with a 'dense' plan the bit-dense words
+    epilogue (:class:`Affine`).  ``w_packed`` [ceil(K / n_pack), N] lanes
+    of any feasible layout, or with a 'dense' plan the bit-dense words
     [ceil(K / per), N]; ``plan`` from ``plan_quantized_linear`` for these
     shapes, x's dtype and the weight store.  Bit-equal to K1 on
     ``x.float()`` followed by :func:`ulppack_matmul_mma_cuda` with the
-    epilogue, and to the plain
-    version (``ops.quantized_linear`` on the 'torch' backend).  One launch;
-    no fall-back."""
+    epilogue, and to the plain version (``ops.quantized_linear`` on the
+    'torch' backend).  One launch; no fall-back."""
     if not spec.feasible:
         raise ValueError(f"{spec} outside the overflow-free region")
-    if not plan_lib.packed_matmul_on_tensor_cores(spec):
-        raise ValueError(f"{spec}: the fused quantize takes int16xP2s8 "
-                         f"lanes only")
     if x.dtype not in _X_KINDS or x.dim() != 2:
         raise TypeError(f"x must be float32, bfloat16 or float16 [M, K], got "
                         f"{x.dtype} {tuple(x.shape)}")
@@ -414,23 +444,24 @@ def quantized_linear_mma_cuda(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"w_packed must be {spec.lane_name} lanes "
                          f"[{-(-k // spec.n_pack)}, N], got {w_packed.dtype} "
                          f"{tuple(w_packed.shape)}")
-    if not (x.is_cuda and w_packed.device == x.device):
-        raise ValueError("quantized_linear_mma_cuda needs x and w_packed on "
-                         "one CUDA device")
     if plan.op != "quantized_linear" or plan.k_full != k \
             or plan.x_bytes != x.element_size() or plan.spec != spec:
         raise ValueError(f"plan {plan.describe()} is not the fused route's "
-                         f"for K = {k} and {x.dtype}")
+                         f"for K = {k}, {x.dtype} and {spec}")
+    if not (x.is_cuda and w_packed.device == x.device):
+        raise ValueError("quantized_linear_mma_cuda needs x and w_packed on "
+                         "one CUDA device")
     x = x.contiguous()
     w = w_packed.contiguous()
     m, n = x.shape[0], w.shape[1]
     out_kind, bias_kind, tensors = _affine_operands(
         Affine(None, col_sums, a_scale, a_zp, w_scale, w_zp, k, bias,
                out_dtype), m, n, x.device)
-    out = _launch_mma(x, w, m, -(-k // spec.n_pack), n, plan, x.device,
-                      a_kind=_X_KINDS[x.dtype], k_full=k, qmax=spec.max_a,
-                      out_dtype=out_dtype, out_kind=out_kind,
-                      bias_kind=bias_kind, tensors=tensors)
+    out = _launch_mma(x, w, m, plan_lib.mma_k(0, spec, k), n, plan,
+                      x.device, a_kind=_X_KINDS[x.dtype], k_full=k,
+                      qmax=spec.max_a, out_dtype=out_dtype,
+                      out_kind=out_kind, bias_kind=bias_kind,
+                      tensors=tensors)
     _count(plan, "quant_affine")
     return out
 
@@ -504,14 +535,7 @@ def _packed_matmul_torch(plan, a2, w):
 
 @plan_lib.register_backend("packed_matmul", "cuda")
 def _packed_matmul_cuda(plan, a2, w):
-    if plan_lib.packed_matmul_on_tensor_cores(plan.spec):
-        return ulppack_matmul_mma_cuda(a2, w, plan.spec, plan=plan)
-    if plan.weight_store == "dense":
-        # the CUDA-core kernel reads lanes: the words are expanded ahead of
-        # it, as the reference expands them ahead of its Pallas kernel
-        w = dense_to_lanes(w, plan.spec, plan.k_full)
-    return ulppack_matmul_cuda(a2, w, plan.spec, block_m=plan.block_m,
-                               block_k=plan.block_k, splits=plan.splits)
+    return ulppack_matmul_mma_cuda(a2, w, plan.spec, plan=plan)
 
 
 @plan_lib.register_backend("quantized_linear", "cuda")

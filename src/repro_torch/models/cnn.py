@@ -11,8 +11,9 @@ HWIO.  Conv layers run in one of three modes:
               PACT lattice, P1-pack them over channels, the packed conv
               kernel (K5, kernels/ulppack_conv2d.py) and the affine dequant
               ``a_scale * w_scale * (acc - w_zp * psum)``.  On a 'cuda'
-              plan for ``int16xP2s8`` the dequant, with its patch sums, is
-              fused into the tensor-core K5 (one launch a layer).
+              plan on the tensor cores (every layout; ``plan.route``) the
+              dequant, with its patch sums, is fused into the tensor-core
+              K5 (one launch a layer).
 
 Deployment is two-phase, as in the reference: ``prepare_packed_params``
 quantizes and packs each conv layer's weights once (P1 lanes or bit-dense
@@ -330,15 +331,14 @@ def _conv_f32(x, w, padding):
 
 def conv_apply(p, x, qcfg: QuantConfig, *, quant_mode: str = "none",
                padding: str = "SAME", backend: str = "auto", plan=None):
-    """One conv layer on float NHWC x.  'packed' on a 'cuda' plan for a
-    layout on the tensor cores is one K5 launch with the affine dequant
+    """One conv layer on float NHWC x.  'packed' on a 'cuda' plan whose
+    route is the tensor cores is one K5 launch with the affine dequant
     fused in (bit-equal to ``conv_epilogue(conv_integer_core(...))``, the
-    route of every other backend and layout)."""
+    route of every other backend and shape)."""
     if quant_mode == "packed" and qcfg.enabled:
         o = _packed_operands(p, x, qcfg, padding, backend, plan)
         plan = o["plan"]
-        if plan.backend == "cuda" \
-                and plan_lib.packed_conv2d_on_tensor_cores(plan.spec):
+        if plan.backend == "cuda" and plan.route == "tensor_cores":
             return _conv.ulppack_conv2d_mma_cuda(
                 o["xp"], o["wp"], plan.spec, plan=plan, padding=padding,
                 weight_store=o["store"], k_full=o["k_full"],

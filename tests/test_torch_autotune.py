@@ -155,14 +155,21 @@ class TestPlannerConsultation:
         assert p == _mm(use_tuning_cache=False)
 
     def test_core_matmul_entries(self):
+        """int32xP2s16 plans the tensor cores' tile too: its entries are
+        the tile's (K in steps of two values: 100 lanes are 100 steps, two
+        stages), and the CUDA-core K2's geometry (4-row blocks, splits of
+        any lane count) is refused."""
         kw = dict(weight_store="lanes")
         key = autotune.matmul_key(4, 100, 130, S32, backend="torch")
-        _install({key: {"block_m": 4, "block_k": 50, "splits": 2}})
+        _install({key: {"block_m": 8, "block_k": 64, "splits": 2}})
         p = plan_lib.plan_packed_matmul(4, 100, 130, S32, **kw)
-        assert p.source == "tuned" and (p.block_k, p.splits) == (50, 2)
-        for bad in ({"block_m": 16, "block_k": 50, "splits": 2},
-                    {"block_m": 4, "block_k": 50, "splits": 3},
-                    {"block_m": 4, "block_k": 0, "splits": 2}):
+        assert p.source == "tuned" and (p.block_k, p.splits) == (64, 2)
+        assert p.stages == plan_lib.mma_geometry(
+            100, 8, 1, 4, plan_lib.lanes_w_tile_bytes(S32))["stages"]
+        for bad in ({"block_m": 4, "block_k": 50, "splits": 2},
+                    {"block_m": 8, "block_k": 50, "splits": 2},
+                    {"block_m": 8, "block_k": 64, "splits": 3},
+                    {"block_m": 8, "block_k": 0, "splits": 2}):
             _install({key: bad})
             with pytest.warns(UserWarning, match="ignoring autotune entry"):
                 assert plan_lib.plan_packed_matmul(
@@ -203,12 +210,23 @@ class TestPlannerConsultation:
             _install({key: bad})
             with pytest.warns(UserWarning, match="ignoring autotune entry"):
                 assert plan_lib.plan_packed_conv2d(xs, ws, SP) == heur
+        # int8xP2s4 tunes the tensor-core tile too (its raw slot counted);
+        # a shape past the tensor cores' shared memory the CUDA-core tile
         s4 = PackSpec.parse("W1A1/int8xP2s4")
         key = autotune.conv2d_key(xs, ws, s4, padding="SAME",
                                   backend="torch")
-        _install({key: {"block_co": 8}})
+        _install({key: {"block_co": 8, "block_w": 16}})
         p = plan_lib.plan_packed_conv2d(xs, ws, s4)
-        assert p.source == "tuned" and p.block_co == 8
+        assert (p.source, p.route, p.block_co, p.block_w) == (
+            "tuned", "tensor_cores", 8, 16)
+        assert p.smem_bytes == plan_lib.conv_mma_smem_bytes(
+            7, 7, 32, 16, 8, 32, plan_lib.conv_mma_raw_c(16, s4))
+        xb, wb = (1, 8, 8, 512), (7, 7, 512, 8)
+        key = autotune.conv2d_key(xb, wb, SP, padding="SAME",
+                                  backend="torch")
+        _install({key: {"block_co": 8}})
+        p = plan_lib.plan_packed_conv2d(xb, wb, SP)
+        assert (p.source, p.route, p.block_co) == ("tuned", "cuda_cores", 8)
         assert p.threads == p.block_h * 4 * 2
 
     def test_plan_selection_deterministic_given_fixed_cache(self):
@@ -367,16 +385,19 @@ class TestTuners:
                                               device="cpu") is e
 
     def test_core_route_splits(self, cuda_standin):
-        cands = plan_lib.packed_matmul_candidates(8, 96, 40, S32)
+        """int32xP2s16 tunes on the tensor cores' grid, as int16xP2s8."""
+        cands = plan_lib.packed_matmul_candidates(8, 1024, 40, S32)
         assert {c["splits"] for c in cands} >= {1, 2, 3, 4}
+        assert all(c["block_k"] % 64 == 0 for c in cands)
         cuda_standin.update(splits=2)
         with pytest.warns(UserWarning, match="disagrees"):
-            e = autotune.tune_packed_matmul(8, 96, 40, S32, device="cpu",
+            e = autotune.tune_packed_matmul(8, 1024, 40, S32, device="cpu",
                                             repeats=1)
         assert e["splits"] != 2 and not e["bit_equal"]
-        assert set(e) >= {"block_m", "block_k", "splits", "wall_us",
-                          "heuristic_us", "candidates"}
-        p = plan_lib.plan_packed_matmul(8, 96, 40, S32, weight_store="lanes")
+        assert set(e) >= {"block_m", "block_k", "splits", "stages",
+                          "wall_us", "heuristic_us", "candidates"}
+        p = plan_lib.plan_packed_matmul(8, 1024, 40, S32,
+                                        weight_store="lanes")
         assert p.source == "tuned" and p.splits == e["splits"]
 
     def test_store_into_active_cache_invalidates_memoized_plans(

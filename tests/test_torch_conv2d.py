@@ -221,8 +221,8 @@ def test_conv_plan_records_store_and_fits_hopper(x_shape, w_shape, padding,
     """The plan records the store and k_full; int16xP2s8 plans the
     tensor-core K5 (tests/test_torch_ulppack_conv_mma.py checks its
     geometry), and the CUDA-core tile's geometry for the same shapes still
-    fits Hopper; the tile refuses kernels wider than its register
-    window."""
+    fits Hopper; the tile, which takes the shapes past the tensor cores'
+    shared memory, refuses kernels wider than its register window."""
     ts = tpack.PackSpec(2, 2)
     plan = plan_lib.plan_packed_conv2d(x_shape, w_shape, ts, padding=padding,
                                        weight_store=store, k_full=k_full)
@@ -245,8 +245,9 @@ def test_conv_plan_records_store_and_fits_hopper(x_shape, w_shape, padding,
     iplan = plan_lib.plan_int_conv2d(x_shape, w_shape, x_bytes=2, w_bytes=2,
                                      padding=padding)
     assert iplan.op == "int_conv2d" and iplan.threads <= 256
+    assert plan.route == "tensor_cores"
     with pytest.raises(ValueError, match="register window"):
-        plan_lib.plan_packed_conv2d((1, 9, 9, 4), (9, 9, 4, 8),
+        plan_lib.plan_packed_conv2d((1, 9, 9, 256), (9, 9, 256, 8),
                                     tpack.PackSpec(2, 2, "int32", 2, 16))
     with pytest.raises(ValueError, match="register window"):
         plan_lib.packed_conv2d_core_geometry((1, 9, 9, 4), (9, 9, 4, 8))

@@ -358,8 +358,9 @@ def test_dense_refusals(monkeypatch):
 def test_dense_routes_on_cuda_plans(monkeypatch):
     """On 'cuda' plans ops.quantized_linear hands the words and the dense
     plan to the fused tensor-core wrapper, and ops.packed_matmul on an
-    int32-lane layout expands them ahead of the CUDA-core kernel (both
-    wrappers stood in by the plain versions)."""
+    int32-lane layout hands the words themselves to the tensor-core K2
+    (no expansion to lanes, no CUDA-core kernel; the wrappers stood in by
+    the plain versions)."""
     seen = []
 
     def fused(x2, w, cs, a_scale, a_zp, w_scale, w_zp, spec, *, plan, bias,
@@ -372,11 +373,17 @@ def test_dense_routes_on_cuda_plans(monkeypatch):
         return acc.float()
 
     def core(a, w, spec, **geometry):
-        seen.append(("core", w.dtype))
-        return tmm.ulppack_matmul_torch(a, w, spec)
+        raise AssertionError("the CUDA-core K2 ran")
+
+    def lanes_mma(a, w, spec, *, plan, epilogue=None):
+        seen.append(("mma", plan.weight_store, w.dtype))
+        assert plan.spec == spec and epilogue is None
+        return tmm.ulppack_matmul_torch(
+            a, tmm.dense_to_lanes(w, spec, plan.k_full), spec)
 
     monkeypatch.setattr(tmm, "quantized_linear_mma_cuda", fused)
     monkeypatch.setattr(tmm, "ulppack_matmul_cuda", core)
+    monkeypatch.setattr(tmm, "ulppack_matmul_mma_cuda", lanes_mma)
     monkeypatch.setattr(tplan, "resolve_backend",
                         lambda backend="auto", device="cpu":
                         "torch" if backend == "torch" else "cuda")
@@ -400,7 +407,7 @@ def test_dense_routes_on_cuda_plans(monkeypatch):
                           generator=torch.Generator().manual_seed(2)), s32)
         got = ops.packed_matmul(a, ops.dense_store_weights(q, 2), s32,
                                 weight_store="dense", k_full=70)
-        assert seen[-1] == ("core", s32.lane_dtype)
+        assert seen[-1] == ("mma", "dense", torch.int32)
         assert torch.equal(got, tmm.ulppack_matmul_torch(
             a, tpack.pack_weights(q, s32, axis=0), s32))
     finally:

@@ -152,7 +152,7 @@ def test_fused_constants_match_the_kernel_source():
     assert ("static constexpr int kBytes = 2 * static_cast<int>(sizeof(T));"
             in tile)
     assert "return kBK * ab + 16;" in tile
-    assert "(ab >= 2 ? 2 * bm * kPlaneRow : 0)" in tile
+    assert "(ap >= 2 ? 2 * bm * kPlaneRow : 0)" in tile
     kinds = {k: int(v) for k, v in re.findall(r"(kX\w+) = (\d)", src)}
     assert kinds == {"kXF32": tmm._X_KINDS[torch.float32],
                      "kXBF16": tmm._X_KINDS[torch.bfloat16],
@@ -424,11 +424,10 @@ def test_plain_route_matches_repro_on_each_dtype(base_layouts, x_dtype,
 @pytest.mark.parametrize("text", ["W2A2/int16xP2s8", "W2A2/int32xP2s16",
                                   "W1A1/int16xP4s4", "W1A1/int8xP2s4"])
 def test_routing_by_layout_on_cuda_plans(monkeypatch, text):
-    """On a 'cuda' plan, int16xP2s8 takes the fused route: one call of
-    the fused kernel with x in its own dtype (bf16, no cast) and no K1 call;
-    every other layout keeps K1 (handed x in its own dtype too) and the
-    CUDA-core K2 with the eager epilogue.  The CUDA wrappers are stood in
-    by their plain versions; the output equals the plain route's."""
+    """On a 'cuda' plan every layout takes the fused route: one call of
+    the fused kernel with x in its own dtype (bf16, no cast), no K1 call,
+    no CUDA-core K2 and no lanes route.  The CUDA wrappers are stood in by
+    their plain versions; the output equals the plain route's."""
     sp = PackSpec.parse(text)
     m, k, n = 3, 40, 24
     x = activations(m, k, torch.bfloat16, 9, 0.25)
@@ -465,17 +464,11 @@ def test_routing_by_layout_on_cuda_plans(monkeypatch, text):
     monkeypatch.setattr(ops, "quantize_pack", k1)
     monkeypatch.setattr(tmm, "ulppack_matmul_cuda", core)
     monkeypatch.setattr(tmm, "ulppack_matmul_mma_cuda", lanes_mma)
-    if tplan.packed_matmul_on_tensor_cores(sp):
-        plan = fused_plan(m, k, n, torch.bfloat16)
-    else:
-        plan = dataclasses.replace(tplan.plan_packed_matmul(
-            m, -(-k // sp.n_pack), n, sp,
-                weight_store="lanes"), backend="cuda")
+    assert tplan.packed_matmul_on_tensor_cores(sp)
+    plan = tplan._plan_quantized_linear(m, k, n, sp, 2, "cpu", "lanes")
+    assert plan.op == "quantized_linear" and plan.backend == "cuda"
     got = ops.quantized_linear(*args, plan=plan, out_dtype=torch.bfloat16)
-    if tplan.packed_matmul_on_tensor_cores(sp):
-        assert calls == [("fused", torch.bfloat16)]
-    else:
-        assert calls == [("k1", torch.bfloat16), ("k2", sp.lane_dtype)]
+    assert calls == [("fused", torch.bfloat16)]
     assert torch.equal(got, want)
 
 
@@ -503,18 +496,19 @@ def test_dense_apply_hands_the_activations_on_uncast(monkeypatch):
 
 
 def test_fused_wrapper_refuses_what_it_does_not_take():
-    """CPU tensors, a layout off the tensor cores, an x dtype the kernel
-    does not read, weight lanes of another K, and the lanes route asked
-    for without row sums all raise before any launch."""
+    """CPU tensors, a plan of another layout, an x dtype the kernel does
+    not read, weight lanes of another K, and the lanes route asked for
+    without row sums all raise before any launch."""
     x = torch.zeros((4, 16))
     wp, cs, w_scale, w_zp = weights(16, 8, SPEC, 1)
     plan = fused_plan(4, 16, 8, torch.float32)
     args = (cs, 0.25, 2, w_scale, w_zp)
     with pytest.raises(ValueError, match="CUDA device"):
         tmm.quantized_linear_mma_cuda(x, wp, *args, SPEC, plan=plan)
-    with pytest.raises(ValueError, match="int16xP2s8"):
-        tmm.quantized_linear_mma_cuda(x, wp, *args, PackSpec(
-            2, 2, "int32", 2, 16), plan=plan)
+    s32 = PackSpec(2, 2, "int32", 2, 16)
+    wp32, _, _, _ = weights(16, 8, s32, 1)
+    with pytest.raises(ValueError, match="not the fused route's"):
+        tmm.quantized_linear_mma_cuda(x, wp32, *args, s32, plan=plan)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         tmm.quantized_linear_mma_cuda(x.double(), wp, *args, SPEC, plan=plan)
     with pytest.raises(ValueError, match="lanes"):

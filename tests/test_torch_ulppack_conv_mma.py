@@ -54,27 +54,33 @@ def empty_port_cache():
     port_autotune.set_active_cache(old)
 
 
-@pytest.mark.parametrize("text,tensor_cores", [
+@pytest.mark.parametrize("text,p2s8", [
     ("W2A2/int16xP2s8", True), ("W1A1/int16xP2s8", True),
     ("W3A3/int16xP2s8", True), ("W1A1/int8xP2s4", False),
     ("W1A1/int16xP4s4", False), ("W2A2/int32xP2s16", False),
     ("W2A2/int32xP4s8", False), ("W2A2/int32xP2s8", False)])
-def test_route_by_layout(text, tensor_cores):
-    """Only int16 lanes of two byte fields go to the tensor cores, as for
-    K2; every other layout keeps the CUDA-core tile and its geometry."""
+def test_route_by_layout(text, p2s8):
+    """Every feasible layout goes to the tensor cores, as for K2.  The halo
+    holds the lattice bytes of 32 channels for every layout; int16xP2s8
+    (``p2s8``) and int32xP4s8 pixels read as bytes are that
+    lattice and are staged as they are, every other layout's pixels are
+    staged raw into one more slot, which the shared memory counts."""
     sp = PackSpec.parse(text)
-    assert tplan.packed_conv2d_on_tensor_cores(sp) is tensor_cores
-    assert tplan.packed_matmul_on_tensor_cores(sp) is tensor_cores
+    assert tplan.packed_conv2d_on_tensor_cores(sp)
+    assert tplan.packed_matmul_on_tensor_cores(sp)
     cp = -(-32 // sp.n_pack)
     x_shape, w_shape = (1, 64, 64, cp), (7, 7, cp, 32)
     p = tplan.plan_packed_conv2d(x_shape, w_shape, sp)
-    if tensor_cores:
-        assert p.block_w is not None and p.blocks is not None
-        assert p.stages == tplan.CONV_MMA_STAGES
-    else:
-        assert p.block_w is None and p.blocks is None and p.stages is None
-        assert dataclasses.asdict(p) == dataclasses.asdict(dataclasses.replace(
-            p, **tplan.packed_conv2d_core_geometry(x_shape, w_shape)))
+    assert p.route == "tensor_cores"
+    assert p.block_w is not None and p.blocks is not None
+    assert p.stages == tplan.CONV_MMA_STAGES
+    assert p.block_c == tplan.conv_mma_block_c(cp, sp.n_pack) == 32
+    raw = tplan.conv_mma_raw_c(cp, sp)
+    assert (raw == 0) is (p2s8 or text.endswith("int32xP4s8"))
+    assert raw in (0, 16, 32, 64)
+    assert p.smem_bytes == tplan.conv_mma_smem_bytes(
+        7, 7, p.block_h, p.block_w, p.block_co, p.block_c, raw)
+    assert (sp.lane_dtype == torch.int16 and sp.n_pack == 2) is p2s8
 
 
 def _cnn_layer_shapes(cfg, batch):
@@ -142,22 +148,37 @@ def test_tensor_core_geometry(x_shape, w_shape, store, k_full, padding):
     assert row["block_w"] == p.block_w and row["blocks"] == p.blocks
 
 
+def _mma_geo(x_shape, w_shape, sp, padding="SAME"):
+    n, h, w, cp = x_shape
+    fh, fw, _, co = w_shape
+    oh, ow = tplan._conv_out(h, w, fh, fw, padding)
+    return tplan._conv_mma_geometry(n, oh, ow, cp, fh, fw, co, sp, "cpu")
+
+
 def test_sum_range_and_shared_memory_refusals():
-    """A conv whose s32 sums could reach 2^31 is refused (PTX does not
-    promise that the MMA wraps), and so is one whose weight block does not
-    fit the shared memory even at 8 output channels."""
+    """The tensor-core K5 refuses a conv whose s32 sums could reach 2^31
+    (PTX does not promise that the MMA wraps) and one whose weight block
+    does not fit the shared memory even at 8 output channels; the planner
+    then records the CUDA-core tile's route (its extraction is exact at
+    any K), as K6's does."""
     sp = PackSpec.parse("W3A3/int16xP2s8")
     cp = -(-(2**31) // (2 * 49))               # 2 cp * 49 >= 2^31
     with pytest.raises(ValueError, match="int32 range"):
-        tplan.plan_packed_conv2d((1, 1, 1, cp), (1, 1, cp, 8), sp,
+        _mma_geo((1, 1, 1, cp), (1, 1, cp, 8), sp, "VALID")
+    p = tplan.plan_packed_conv2d((1, 1, 1, cp), (1, 1, cp, 8), sp,
                                  padding="VALID")
+    assert p.route == "cuda_cores" and p.block_w is None
     ok = (2**31 - 1) // (2 * 49)               # just inside the range
     assert 2 * ok * 49 < 2**31
     with pytest.raises(ValueError, match="shared memory"):
-        tplan.plan_packed_conv2d((1, 1, 1, ok), (1, 1, ok, 8), sp,
-                                 padding="VALID")
+        _mma_geo((1, 1, 1, ok), (1, 1, ok, 8), sp, "VALID")
     with pytest.raises(ValueError, match="shared memory"):
-        tplan.plan_packed_conv2d((1, 8, 8, 512), (7, 7, 512, 8), SPEC)
+        _mma_geo((1, 8, 8, 512), (7, 7, 512, 8), SPEC)
+    p = tplan.plan_packed_conv2d((1, 8, 8, 512), (7, 7, 512, 8), SPEC)
+    assert p.route == "cuda_cores"
+    assert dataclasses.asdict(p) == dataclasses.asdict(dataclasses.replace(
+        p, **tplan.packed_conv2d_core_geometry((1, 8, 8, 512),
+                                               (7, 7, 512, 8))))
     p = tplan.plan_packed_conv2d((1, 8, 8, 32), (7, 7, 32, 128), SPEC)
     assert p.block_c == 64 and p.block_co == 32         # halved to fit
     assert p.smem_bytes <= tplan.CONV_MMA_SMEM_MAX
@@ -193,7 +214,11 @@ def test_constants_match_the_kernel_source():
     assert ("return xrow <= 32 ? 32 : xrow <= 64 ? 64 : "
             "(xrow + 127) / 128 * 128;") in src
     assert "static_cast<long long>(FH) * FW * block_c + 16" in src
-    assert "const long long need = block_co * krow + kStages * halo;" in src
+    assert ("const long long need = block_co * krow + kStages * halo + "
+            "pixels * craw;") in src
+    assert "const int craw = xform == kDirect ? 0 : (xrow + 15) / 16 * 16;" \
+        in src
+    assert "block_c == cpad_for(static_cast<int>(xlat))" in src
 
 
 # ---------------------------------------------------------------------------
@@ -459,7 +484,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         tconv.ulppack_conv2d_mma_cuda(x, w, SPEC, plan=plan,
                                       epilogue=tconv.ConvAffine(1.0, 1.0, 2))
     sp32 = PackSpec(2, 2, "int32", 2, 16)
-    with pytest.raises(ValueError, match="int16xP2s8"):
+    with pytest.raises(ValueError, match="int16xP2s8"):  # another layout's
         tconv.ulppack_conv2d_mma_cuda(x.int(), w.int(), sp32, plan=plan)
     with pytest.raises(TypeError, match="packed to int16"):
         tconv.ulppack_conv2d_mma_cuda(x.int(), w, SPEC, plan=plan)

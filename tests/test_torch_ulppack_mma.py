@@ -26,7 +26,7 @@ from repro.kernels import ulppack_matmul as jmm  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import packing as tpack  # noqa: E402
 from repro_torch.core.packing import PackSpec  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.kernels import quant_pack as tqp  # noqa: E402
 from repro_torch.kernels import ulppack_matmul as tmm  # noqa: E402
@@ -109,23 +109,30 @@ def test_tensor_core_geometry_on_the_main_path(m, kp, n):
     assert blocks <= 132
 
 
-@pytest.mark.parametrize("text,tensor_cores", [
+@pytest.mark.parametrize("text,raw_lanes", [
     ("W2A2/int16xP2s8", True), ("W1A1/int16xP2s8", True),
     ("W3A3/int16xP2s8", True), ("W1A1/int16xP4s4", False),
     ("W1A1/int8xP2s4", False), ("W2A2/int32xP2s16", False),
     ("W2A2/int32xP4s8", False), ("W2A2/int32xP2s8", False)])
-def test_route_by_layout(text, tensor_cores):
-    """Only int16 lanes of two byte fields go to the tensor cores; every
-    other layout keeps the CUDA-core kernel and its geometry."""
+def test_route_by_layout(text, raw_lanes):
+    """Every feasible layout goes to the tensor cores.  int16 lanes of two
+    byte fields split into planes as they are (``raw_lanes``: RawW<2>,
+    csrc/ulppack_matmul_mma.cu); every other layout's fields are written
+    to the same plane bytes as they are staged (LanesW / LanesA, its own
+    library of csrc/ulppack_matmul_mma_lanes.cu).  The plan is the tile's
+    over K = Kp n_pack / 2 steps of two values, with the layout's raw
+    lane tile in the ring."""
     sp = PackSpec.parse(text)
-    assert tplan.packed_matmul_on_tensor_cores(sp) is tensor_cores
+    assert tplan.packed_matmul_on_tensor_cores(sp)
     p = tplan.plan_packed_matmul(4, 1024, 2048, sp, weight_store="lanes")
-    if tensor_cores:
-        assert p.block_n == 128 and p.stages is not None
-    else:
-        assert p.block_n is None and p.stages is None
-        assert dataclasses.asdict(p) == dataclasses.asdict(dataclasses.replace(
-            p, **tplan.packed_matmul_core_geometry(4, 1024, 2048, sp)))
+    assert p.block_n == 128 and p.step_k == 64 and p.stages is not None
+    k = tplan.mma_k(1024, sp)
+    assert k == 1024 * sp.n_pack // 2
+    assert (p.stages, p.smem_bytes) == tplan.int_matmul_smem_layout(
+        p.block_m, tplan.mma_a_bytes(sp), 2,
+        w_tile=tplan.lanes_w_tile_bytes(sp), a_planes=2)
+    assert (p.splits - 1) * p.block_k < k <= p.splits * p.block_k
+    assert (build.layout_library(sp) == "ulppack_matmul_mma") is raw_lanes
 
 
 @pytest.mark.parametrize("m,kp,n", [(1, 40000, 70), (4, 100000, 128),
@@ -163,8 +170,9 @@ def test_constants_match_the_kernel_source():
     # lanes are staged at 2 bytes a lane (x at 2 x its element size), and
     # W's lanes are 2-byte (the W side RawW<2>: a [64, 128] int16 tile, two
     # planes); the ring and shared memory follow the W side's tile
-    assert "const int ab = xb ? 2 * xb : 2;" in src
-    assert "smem_bytes_w(block_m, ab, WS::kTile, WS::kPlanes)" in src
+    assert "const int ab = xb ? 2 * xb : LA::kBytes;" in src
+    assert "static constexpr int kBytes = AB;" in tile
+    assert "smem_bytes_w(block_m, ab, WS::kTile, WS::kPlanes, 2)" in src
     assert "mainloop_w<WS, BM, V16>" in src
     assert "launch_mma<RawW<2>>" in src
     assert "static constexpr int kTile = kBK * kBN * WB;" in tile
