@@ -373,6 +373,10 @@ SEED = 0
 # (2^-7 of the value).
 ATTN_TOL = 1e-4
 ATTN_BF16_RTOL = 2.0 ** -7
+# K3's tile-path launches on the serve phase and K4's on the paged phase
+# (``ulppack_attention.tile_launches``: blocks of more than 4 query rows,
+# the prefill chunks there); the summary line carries them
+TILE_LAUNCHES = {"attention_decode": 0, "attention_decode_paged": 0}
 
 
 # The card's peak rates and a kernel's bound: ``roofline/hw.card_peaks``
@@ -1223,24 +1227,55 @@ def fused_epilogue_check(torch, dev, gen, ops, mm):
 
 
 # K3/K4's shapes: stablelm-1.6b's heads (32 of 64, one kv head each) at
-# every kv_bits, and granite-3-8b's grouping (32 query heads on 8 kv heads
-# of 128) at kv_bits 16 and 4; batch 4, a 512-row cache, C 1 and 16.
+# every kv_bits, C 1 and 16 (and the verify window's C 5 at kv 16/4/2),
+# and granite-3-8b's grouping (32 query heads on 8 kv heads of 128) at
+# kv_bits 16 and 4, C 1 and 16; batch 4, a 512-row cache.  C 1 takes the
+# kernel's warp path, C 5 and 16 its tile path (bf16 tensor cores).
 ATTN_CASES = ((32, 32, 64, (16, 8, 4, 2)), (32, 8, 128, (16, 4)))
+ATTN_C5_BITS = (16, 4, 2)
+
+
+def attention_path(plan) -> str:
+    """'warp' or 'tile': the path of K3/K4 a plan's rows take (up to 4 query
+    rows a block: the warp path)."""
+    return "warp" if plan.block_m <= 4 else "tile"
+
+
+def attention_design_ops(torch, q, h, hd, seen, f32_cache, path) -> float:
+    """The operations K3/K4's own design issues for QK and PV over the rows
+    each query row sees (``seen`` summed over rows and positions): on the
+    warp path the useful 4 h hd a row, in f32 on the CUDA cores; on the
+    tile path each product in bf16 terms on the tensor cores -- q in the
+    terms that hold it (bf16 one, f16 two, f32 three) and p x sv in
+    three, each against the one exact bf16 term of K or V, or the f32
+    cache's three (the term pairs a + b <= 2: 3, 5 or 6 of them).
+    Padding (m16 rows, k16 keys) is not counted."""
+    useful = 2 * h * hd * seen
+    if path == "warp":
+        return 2 * useful
+    tq = {torch.bfloat16: 1, torch.float16: 2}.get(q.dtype, 3)
+
+    def pairs(t):
+        return {1: 3, 2: 5, 3: 6}[t] if f32_cache else t
+    return useful * (pairs(tq) + pairs(3))
 
 
 def attention_rows(torch, peaks, dev, gen):
     """K3 and K4 against their plain versions (f32 and bf16 queries), K4
     bit-equal to K3 through a scrambled block table, the dead row zero, a
     second launch bit-equal to the first; timed beside the plain version
-    and, at kv_bits 16, SDPA on the same rows."""
+    and, at kv_bits 16, SDPA on the same rows.  Each row names the path
+    its plan takes (``attention_path``)."""
     rows = []
     bsz, s = 4, 512
     valid_len = torch.tensor([512, 300, 77, 0], dtype=torch.int32,
                              device=dev)
     for h, kvh, hd, bits_list in ATTN_CASES:
         for kv_bits in bits_list:
+            windows = (1, 5, 16) if kvh == h and kv_bits in ATTN_C5_BITS \
+                else (1, 16)
             rows += attention_case(torch, peaks, dev, gen, bsz, s, h, kvh,
-                                   hd, kv_bits, valid_len)
+                                   hd, kv_bits, valid_len, windows)
     return rows
 
 
@@ -1353,12 +1388,18 @@ def attention_case(torch, peaks, dev, gen, bsz, s, h, kvh, hd, kv_bits,
         nbytes = 2 * live * kvh * row_bytes + 2 * q.numel() * 2
         # the card's floor: QK and PV on the bf16 tensor cores (the
         # lattices, and q pre-scaled by hd^-0.5, are exact in bf16 at
-        # hd 64); the design bound: this kernel's CUDA-core f32 MACs
+        # hd 64); the design bound: the products this kernel's path issues,
+        # at its unit's peak (warp path: f32 CUDA cores; tile path: the
+        # bf16 term products on the tensor cores)
         ops = 4 * h * hd * seen
         b, by = bound_ms(nbytes, ops, peaks["hbm"], peaks["bf16"])
-        design = bound_ms(nbytes, ops, peaks["hbm"], peaks["f32"])
+        path = attention_path(plan)
+        unit = peaks["f32" if path == "warp" else "bf16"]
+        dops = attention_design_ops(torch, q, h, hd, seen,
+                                    cache["k"].dtype == torch.float32, path)
+        design = bound_ms(nbytes, dops, peaks["hbm"], unit)
         rows.append({
-            "name": "attention_decode",
+            "name": "attention_decode", "path": path,
             "shape": f"B{bsz} S{s} {heads} hd{hd} C{c} kv{kv_bits}",
             "max_abs_err": err[torch.bfloat16],
             "max_abs_err_f32_q": err[torch.float32],
@@ -1375,10 +1416,9 @@ def attention_case(torch, peaks, dev, gen, bsz, s, h, kvh, hd, kv_bits,
         live_pages = int((-(-live_rows // ps)).sum())
         b4, by4 = bound_ms(nbytes + 4 * live_pages, ops, peaks["hbm"],
                            peaks["bf16"])
-        design4 = bound_ms(nbytes + 4 * live_pages, ops, peaks["hbm"],
-                           peaks["f32"])
+        design4 = bound_ms(nbytes + 4 * live_pages, dops, peaks["hbm"], unit)
         rows.append({
-            "name": "attention_decode_paged",
+            "name": "attention_decode_paged", "path": path,
             "shape": f"B{bsz} {n_pages}x{ps} pages {heads} hd{hd} C{c} "
                      f"kv{kv_bits}",
             "max_abs_err": err4[torch.bfloat16],
@@ -2133,7 +2173,8 @@ def profile_decode(torch, cfg, params, ecfg, prompts, dev, label="profile"):
            "kernel_launches_per_step": sum(e.count for e in kernels) / n,
            "attention_kernel_share": sum(
                e.self_device_time_total for e in kernels
-               if "attention_decode_kernel" in e.key) / max(1, busy_us),
+               if "attention_decode_kernel" in e.key
+               or "attention_tile_kernel" in e.key) / max(1, busy_us),
            **kernel_groups(kernels, n, "_per_step"),
            "top_kernels_ms_per_step": [
                [e.key[:60], e.self_device_time_total / 1e3 / n, e.count // n]
@@ -2305,6 +2346,8 @@ def paged_phase(torch, np, dev, cfg, params):
         out = run(c, ecfg, prompts, news, first)
         torch.cuda.synchronize()
         k4 = att.kernel_launches["attention_decode_paged"]
+        TILE_LAUNCHES["attention_decode_paged"] += att.tile_launches[
+            "attention_decode_paged"]
         if not k4 or any(att.plain_calls.values()) \
                 or att.kernel_launches["attention_decode"]:
             raise AssertionError(
@@ -2723,7 +2766,8 @@ def serve_requests(eng, prompts, new, *, paged, uid0=0):
     return reqs
 
 
-SPEC_GROUPS = {"k2": ("ulppack_matmul",), "attention": ("attention_decode",),
+SPEC_GROUPS = {"k2": ("ulppack_matmul",),
+               "attention": ("attention_decode", "attention_tile"),
                "cache_write": ("cache_write",),
                "elementwise": ("elementwise",), "reduce": ("reduce_kernel",),
                "gemm": ("nvjet", "gemm", "Gemm"), "fill": ("fill", "Fill")}
@@ -5286,12 +5330,16 @@ def noncausal_k3_rows(torch, peaks, dev, gen):
     cross read) and C 256 (the encoder): within ATTN_TOL + one bf16 ulp of
     the plain version, two launches bit-equal; timed beside the plain
     version and SDPA without a mask."""
+    from repro_torch.kernels import plan as plan_lib
     from repro_torch.kernels import ulppack_attention as ua
 
     bsz, s, h, hd = ENC_ROWS, ENC_LEN, 16, 64
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for c in (1, ENC_LEN):
+        path = attention_path(plan_lib.plan_attention_decode(
+            bsz, c, s, h, h, hd, 0, cache_dtype=torch.bfloat16,
+            device=dev))
         q = torch.randn((bsz, c, h, hd), generator=gen,
                         device=dev).bfloat16()
         kv = [{n: torch.randn((bsz, s, h, hd), generator=gen,
@@ -5318,7 +5366,11 @@ def noncausal_k3_rows(torch, peaks, dev, gen):
         nbytes = 2 * bsz * s * h * hd * 2 + 2 * q.numel() * 2
         ops = 4 * bsz * c * h * hd * s
         b, by = bound_ms(nbytes, ops, peaks["hbm"], peaks["bf16"])
+        design = bound_ms(nbytes, attention_design_ops(
+            torch, q, h, hd, bsz * c * s, False, path), peaks["hbm"],
+            peaks["f32" if path == "warp" else "bf16"])
         r = {"name": "attention_decode", "mask": "none (all keys)",
+             "path": path, "design_bound_ms": design[0],
              "shape": f"B{bsz} S{s} H{h} hd{hd} C{c} kv0",
              "max_abs_err": float(diff.max()),
              "sdpa_max_abs_err_vs_plain": lib_err,
@@ -6644,14 +6696,206 @@ def fleet_phase(torch, np, dev, peaks, smi):
     return launches
 
 
+# ``--attn-tile SRC``'s cases: K3's tile path at the served shapes --
+# stablelm's verify window (C 5 = k + 1) and prefill chunk (C 16) at kv
+# 16/4/2, granite's GQA-4 chunk, qwen2-vl's GQA-6 and jamba's GQA-8 reads
+# at C1 and C16 -- with the warp path's decode rows beside them (C1 at G
+# <= 4): (config, H, KVH, hd, kv_bits, windows), batch 4 over a 512-row
+# cache (``attention_case``); then seamless's encoder read
+# (``noncausal_k3_rows``: C 256, every key admitted).
+ATTN_TILE_CASES = (("stablelm-1.6b", 32, 32, 64, 16, (1, 5, 16)),
+                   ("stablelm-1.6b", 32, 32, 64, 4, (1, 5, 16)),
+                   ("stablelm-1.6b", 32, 32, 64, 2, (5, 16)),
+                   ("granite-3-8b", 32, 8, 128, 16, (1, 16)),
+                   ("granite-3-8b", 32, 8, 128, 4, (16,)),
+                   (VLM, 12, 2, 128, 16, (1, 16)),
+                   (VLM, 12, 2, 128, 4, (1, 16)),
+                   (JAMBA, 32, 4, 128, 4, (1, 16)))
+
+
+def attn_tile_pass(torch, np, dev):
+    """The served passes the tile path sits on: stablelm-1.6b whole, W2A2
+    lanes, kv 4, the serve cell's ``EngineConfig`` with speculative
+    decoding (k = 4, a W2 draft), the serve prompts.  The first prefill
+    chunk (4 x 16 rows, every slot mid-prompt) and a verify window's
+    graph (4 x 5 rows), each replayed 5 rounds (device ms a replay between
+    CUDA events) and once under the profiler (device ms and launches by
+    kernel group).  Returns the ``attn-tile pass`` line."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import EngineConfig, Request, \
+        ServingEngine
+
+    cfg = configs.get_config("stablelm-1.6b")
+    c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    eng = ServingEngine(c, params, config=EngineConfig(
+        max_batch=4, max_len=512, prefill_chunk=16, speculative_k=SPEC_K,
+        draft_w_bits=2), device=dev)
+    for i, p in enumerate(serve_prompts(np, cfg)[0]):
+        eng.submit(Request(i, p, max_new_tokens=24))
+    eng.step()                          # the first chunk: 64 live rows
+    out = {"card": torch.cuda.get_device_name(0)}
+    out["prefill_chunk_replay_ms"] = [replay_ms(torch, eng._prefill)
+                                      for _ in range(5)]
+    out["prefill_chunk_profile"] = profile_replay(torch, eng._prefill)
+    while eng.metrics.spec_cycles < 2:
+        if not eng.step():
+            raise AssertionError("attn-tile pass: no verify window ran")
+    out["verify_replay_ms"] = [replay_ms(torch, eng._verify)
+                               for _ in range(5)]
+    out["verify_profile"] = profile_replay(torch, eng._verify)
+    for k in ("prefill_chunk", "verify"):
+        out[f"{k}_replay_ms_median"] = statistics.median(
+            out[f"{k}_replay_ms"])
+    del eng, params
+    torch.cuda.empty_cache()
+    out["encoder"] = attn_tile_encoder(torch, dev)
+    return out
+
+
+def attn_tile_encoder(torch, dev):
+    """seamless-m4t-medium's packed encoder (12 layers, every key admitted
+    at C ENC_LEN over ENC_ROWS rows: K3's tile path once a layer), as the
+    ``encdec`` line runs it: one warm call, then one under the profiler --
+    device ms by kernel group (``SPEC_GROUPS``) and launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    from repro_torch.serve.prepare import prepare_serving_params
+
+    c = multimodal_config(ENCDEC, kv_bits=4)
+    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    packed = prepare_serving_params(params, c, device=dev)
+    enc = torch.randn((ENC_ROWS, ENC_LEN, c.frontend_dim),
+                      generator=torch.Generator(device=dev).manual_seed(
+                          SEED + 29), device=dev).bfloat16()
+    lm.encode(packed, c, enc, quant_mode="packed")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm.encode(packed, c, enc, quant_mode="packed")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+           "launches": sum(e.count for e in kernels),
+           **kernel_groups(kernels, 1, "", SPEC_GROUPS)}
+    del params, packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def attn_tile(torch, np, src):
+    """``python3 chip_smoke.py --attn-tile SRC``: K3 and K4 at
+    ``ATTN_TILE_CASES`` and the encoder's read (their errors against the
+    plain version, device ms, SDPA's beside the kv16 rows), then the
+    served prefill-chunk, verify and encoder passes (``attn_tile_pass``),
+    with the package under ``SRC`` -- this checkout's ``src``, or another
+    tree's unpacked beside it (``git archive`` into ``build/parent``): run
+    both in one call, parent / this / this / parent, to compare the two
+    trees' kernels on one card.  Prints an ``attn-tile row`` line a row and
+    an ``attn-tile pass`` line."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    valid_len = torch.tensor([512, 300, 77, 0], dtype=torch.int32,
+                             device=dev)
+    rows = []
+    for config, h, kvh, hd, kv_bits, windows in ATTN_TILE_CASES:
+        for r in attention_case(torch, peaks, dev, gen, 4, 512, h, kvh, hd,
+                                kv_bits, valid_len, windows):
+            rows.append({"config": config, **r})
+        torch.cuda.empty_cache()
+    rows += [{"config": ENCDEC, **r}
+             for r in noncausal_k3_rows(torch, peaks, dev, gen)]
+    for r in rows:
+        print("attn-tile row " + json.dumps({"src": str(src), **r}),
+              flush=True)
+    print("attn-tile pass " + json.dumps(
+        {"src": str(src), **attn_tile_pass(torch, np, dev)}), flush=True)
+
+
+def attn_tile_sweep(torch, dev):
+    """``--attn-tile SRC --sweep``: K3's device ms at every geometry
+    ``plan.attention_decode_candidates`` gives (tile x splits, whole
+    16-row pages) for each tile-path row of ``ATTN_TILE_CASES`` (bf16 q,
+    the kernel phase's live lengths), each checked within ATTN_TOL + one
+    bf16 ulp of the plain version first; prints an ``attn-tile sweep``
+    line a row, the heuristic's geometry beside the times."""
+    import dataclasses
+
+    from repro_torch.kernels import plan as plan_lib
+    from repro_torch.kernels import ulppack_attention as ua
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bsz, s = 4, 512
+    valid = torch.tensor([512, 300, 77, 0], dtype=torch.int32, device=dev)
+    for config, h, kvh, hd, kv_bits, windows in ATTN_TILE_CASES:
+        kv = [torch.randn((bsz, s, kvh, hd), generator=gen,
+                          device=dev).bfloat16() for _ in range(2)]
+        if kv_bits != 16:
+            (qk, sk), (qv, sv) = (attention.kv_quantize(t, kv_bits)
+                                  for t in kv)
+            cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+        else:
+            cache = {"k": kv[0], "v": kv[1]}
+        nbytes = sum(t.numel() * t.element_size() for t in cache.values())
+        caches = [cache] + [{k: t.clone() for k, t in cache.items()}
+                            for _ in range(copies_for(nbytes) - 1)]
+        for c in windows:
+            heur = plan_lib.plan_attention_decode(
+                bsz, c, s, h, kvh, hd, kv_bits,
+                cache_dtype=cache["k"].dtype, device=dev)
+            if attention_path(heur) != "tile":
+                continue
+            q = torch.randn((bsz, c, h, hd), generator=gen,
+                            device=dev).bfloat16()
+            qpos = (torch.clamp(valid, min=c)[:, None] - c
+                    + torch.arange(c, device=dev)[None, :]).to(torch.int32)
+            want = ua.attention_decode_torch(q, cache, valid, qpos,
+                                             kv_bits=kv_bits, hd=hd,
+                                             block_k=512).float()
+            times = []
+            for geo in plan_lib.attention_decode_candidates(
+                    bsz, c, s, h, kvh, hd, kv_bits, align=16,
+                    cache_dtype=cache["k"].dtype):
+                p = dataclasses.replace(heur, **geo)
+                got = ua.attention_decode_cuda(q, cache, valid, qpos,
+                                               kv_bits=kv_bits, hd=hd,
+                                               plan=p)
+                if not ((got.float() - want).abs()
+                        <= ATTN_TOL + ATTN_BF16_RTOL * want.abs()).all():
+                    raise AssertionError(f"attn-tile sweep {config} C{c}: "
+                                         f"{geo} beyond tolerance")
+                times.append([geo["tile_rows"], geo["splits"],
+                              geo["split_rows"], time_ms(torch, [
+                                  lambda cc=cc, p=p: ua.attention_decode_cuda(
+                                      q, cc, valid, qpos, kv_bits=kv_bits,
+                                      hd=hd, plan=p) for cc in caches])])
+            print("attn-tile sweep " + json.dumps({
+                "config": config,
+                "shape": f"B{bsz} S{s} H{h} KVH{kvh} hd{hd} C{c} "
+                         f"kv{kv_bits}",
+                "heuristic": [heur.tile_rows, heur.splits, heur.split_rows],
+                "tile_splits_rows_ms": sorted(times, key=lambda r: r[3])}),
+                flush=True)
+        del caches
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     src = Path(__file__).resolve().parent / "src"
-    if "--w4a4-pass" in sys.argv[1:]:
-        src = Path(sys.argv[sys.argv.index("--w4a4-pass") + 1]).resolve()
+    for flag in ("--w4a4-pass", "--attn-tile"):
+        if flag in sys.argv[1:]:
+            src = Path(sys.argv[sys.argv.index(flag) + 1]).resolve()
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
@@ -6689,6 +6933,13 @@ def main() -> int:
         return 0
     if "--w4a4-pass" in sys.argv[1:]:
         w4a4_pass(torch, np, src)
+        print(smi)
+        return 0
+    if "--attn-tile" in sys.argv[1:]:
+        if "--sweep" in sys.argv[1:]:
+            attn_tile_sweep(torch, torch.device("cuda"))
+        else:
+            attn_tile(torch, np, src)
         print(smi)
         return 0
     only = [f for f in ("--moe", "--recurrent", "--multimodal", "--fleet",
@@ -6744,8 +6995,11 @@ def main() -> int:
              "attention_decode":
                  ulppack_attention.plain_calls["attention_decode"],
              "cache_write": cache_write.plain_calls["cache_write"]}
+    TILE_LAUNCHES["attention_decode"] = ulppack_attention.tile_launches[
+        "attention_decode"]
     print(f"serve launches (kv_bits 16, 4, 2 runs and the profiled kv_bits 4 "
-          f"passes): kernels {launches}, plain {plain}, K2 by route "
+          f"passes): kernels {launches}, plain {plain}, K3 on its tile path "
+          f"{TILE_LAUNCHES['attention_decode']}, K2 by route "
           f"{ulppack_matmul.mma_launches}, standalone K1 "
           f"{quant_pack.kernel_launches}, CUDA-core K2 "
           f"{ulppack_matmul.kernel_launches['ulppack_matmul']}")
@@ -6753,6 +7007,13 @@ def main() -> int:
         if launches[k] == 0 or plain[k] != 0:
             raise AssertionError(f"{k}: {launches[k]} kernel launches, "
                                  f"{plain[k]} plain calls on the serve path")
+    # the prefill chunks (16 rows a sequence) take K3's tile path, the
+    # decode passes its warp path: both ran
+    if not 0 < TILE_LAUNCHES["attention_decode"] < launches[
+            "attention_decode"]:
+        raise AssertionError(f"serve path: K3's tile path launched "
+                             f"{TILE_LAUNCHES['attention_decode']} of "
+                             f"{launches['attention_decode']} times")
     check_k2_path("serve path")
     compare_backends(torch, np, dev, *ctx)
     mark("serve")
@@ -6762,6 +7023,11 @@ def main() -> int:
     mark("graphs")
     launches["attention_decode_paged"] = paged_phase(torch, np, dev, lm_cfg,
                                                      params)
+    if not 0 < TILE_LAUNCHES["attention_decode_paged"] < launches[
+            "attention_decode_paged"]:
+        raise AssertionError(f"paged path: K4's tile path launched "
+                             f"{TILE_LAUNCHES['attention_decode_paged']} of "
+                             f"{launches['attention_decode_paged']} times")
     mark("paged")
     # the legacy read against the fused one (the kill-switch), whose fused
     # engines add to K3's and K4's launches
@@ -6958,8 +7224,12 @@ def main() -> int:
     for k, (source, replaces, shape) in meta.items():
         r = next(r for r in rows if r["name"] == k and
                  r["shape"].startswith(shape))
+        extra = ({"tile_launches": TILE_LAUNCHES[k],
+                  "tile_launches_of": "serve phase" if k == "attention_decode"
+                  else "paged phase"} if k in TILE_LAUNCHES else {})
         summary.append({"name": k, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[k],
+                        **extra,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -40,16 +40,34 @@
 //     with the copies and consumed a tile later.  Paged (K4), the block
 //     reads its split's block-table entries once, clamped to [0, P-1], and
 //     works out each row's cell before its first copy.
-//   * every staged row is unpacked once in the block, and the products run
-//     on the CUDA cores in f32 from shared memory, on one of two paths:
-//     - warp path, up to 4 query rows (decode, small GQA groups): each warp
-//       owns a slice of the tile's rows and keeps its own online-softmax
-//       carry for every query row in registers, so a tile costs one block
-//       barrier; the lanes unpack K and V values as they read them.
-//     - tile path, wider windows: the tile is unpacked into f32 rows that
-//       every query row shares, then block-wide phases -- scores (4 query
-//       rows x 2 cache rows a thread), one online-softmax update per tile
-//       and query row, values (4 query rows x 4 dims a thread).
+//   * two paths, by the query rows a block serves:
+//     - warp path, up to 4 query rows (decode, small GQA groups), on the
+//       CUDA cores in f32: each warp owns a slice of the tile's rows and
+//       keeps its own online-softmax carry for every query row in
+//       registers, so a tile costs one block barrier; the lanes unpack K
+//       and V values as they read them from the staged rows.
+//     - tile path, more than 4 (prefill chunks, verify windows, GQA
+//       groups past 4, the encoder), on the bf16 tensor cores
+//       (mma.sync m16n8k16, f32 accumulate): the rows are padded to m16
+//       blocks, and the 8 warps split as (m-block x a slice of the tile's
+//       key rows x a slice of the dims).  Each warp keeps its rows' m, l
+//       and accumulator in the MMA's registers; scores, mask, softmax
+//       update and P.V run there, 16 keys a step, with no block barrier:
+//       a tile costs one (the buffer swap).  The B fragments come
+//       straight from the staged raw rows (ldmatrix, .trans for bf16 V;
+//       sub-byte fields, int8 and bf16 values are exact in bf16), and the
+//       scores' P fragments are the P.V's A fragments.  Precision is the
+//       f32 path's: q goes in as the bf16 terms that hold it exactly (one
+//       for bf16 q, two for f16, three for f32: hi + mid + lo, each the
+//       rounding of what the terms before it leave) and hd^-0.5 scales the
+//       f32 dot; p x sv (f32) goes in as three terms.  So every product is
+//       exact and the sums are f32; an f32 cache splits K and V the same
+//       way (six of the nine term products: the three dropped sit below an
+//       f32 ulp).  The affine parts stay in f32: sk * (hd^-0.5 dot - zp *
+//       sum(q hd^-0.5)) and (p * sv) . u - zp * sum(p * sv).  At the
+//       split's end the warps of one m-block merge their carries in
+//       key-slice order in shared memory (the staging buffers, no longer
+//       needed).
 //   * the splits of one (b, kv head, chunk) form a thread-block cluster and
 //     merge in split order through distributed shared memory: on the warp
 //     path every split writes its carry into rank 0's shared memory, which
@@ -79,14 +97,18 @@ namespace cg = cooperative_groups;
 namespace {
 
 // The kernel's constraints; kernels/plan.py keeps the same numbers
-// (ATTN_*) and the same shared-memory layout (attention_smem_bytes).
+// (ATTN_*) and the same shared-memory layouts (attention_smem_bytes).
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplits = 8;   // the portable cluster size
 constexpr int kMaxQRows = 64;
 constexpr int kMaxTile = 128;
 constexpr int kSmemMax = 232448;
-constexpr int kMinBlocks = 3;   // blocks per SM the registers must allow
+constexpr int kMinBlocks = 3;   // warp-path blocks per SM the registers allow
+constexpr int kTileMinBlocks = 2;  // tile-path blocks per SM
+constexpr int kMmaM = 16;       // tile path: query rows an MMA block
+constexpr int kQTerms = 3;      // tile path: bf16 terms of q
+constexpr int kQGroups = 2;     // tile path: q's 8-dim groups staged at once
 constexpr float kNegInf = -1e30f;
 
 // Cache kinds of the interface (kWords: int32 words of `bits`-wide fields);
@@ -115,6 +137,7 @@ struct Args {
   int C, H, KVH, G, S, NP, page_size, P;
   int hd, row_bytes, rstride, bits, qtype, copy_bytes;
   int qrows, split_rows, splits, tile_rows, table_len;
+  int qvec;  // tile path: q rows load 8 elements (16 or 32 bytes) at once
   float qscale;
 };
 
@@ -147,12 +170,11 @@ __host__ __device__ inline int warp_variant(int qrows, int hd) {
   return hdp <= 64 ? 2 : hdp <= 128 ? 4 : 8;
 }
 
-// Byte offsets of the block's shared-memory regions; query rows are
-// padded to a multiple of 4.  The tile path stages unpacked f32 K and V
-// tiles and the scores; the warp path keeps those in registers and needs
-// each warp's carry, and every split's at rank 0.
+// Byte offsets of a warp-path block's shared-memory regions; query rows
+// are padded to a multiple of 4.  The products run from registers; the
+// block needs each warp's carry, and every split's at rank 0.
 struct Smem {
-  size_t q, acc, kf, vf, p, raw, sk, sv, row, f, tbl, wml, wacc, pm, total;
+  size_t q, acc, raw, row, f, tbl, wml, wacc, pm, total;
 };
 
 __host__ __device__ inline Smem smem_layout(int qrows, int tile, int hd,
@@ -160,27 +182,86 @@ __host__ __device__ inline Smem smem_layout(int qrows, int tile, int hd,
                                             int split_rows) {
   const size_t ld = row_stride(hd), hdp = padded_dims(hd);
   const size_t q4 = (qrows + 3) & ~3;
-  const bool warp = warp_variant(qrows, hd) != 0;
-  const size_t tl = warp ? 0 : tile;  // f32 tile rows
-  const size_t wq = warp ? q4 : 0;    // rows of the warps' carries
   const size_t nbuf = split_rows > tile ? 2 : 1;  // one tile: no 2nd buffer
   Smem s;
   size_t o = 0;
   s.q = o;    o += align16(4 * q4 * ld);         // q * hd^-0.5
   s.acc = o;  o += align16(4 * q4 * hdp);        // the block's carry: acc
-  s.kf = o;   o += align16(4 * tl * ld);         // unpacked K tile
-  s.vf = o;   o += align16(4 * tl * ld);         // unpacked V tile
-  s.p = o;    o += align16(4 * q4 * tl);         // scores, probabilities
   s.raw = o;  o += align16(2 * nbuf * tile * rstride);  // buffers x (K, V)
-  s.sk = o;   o += align16(4 * tl);
-  s.sv = o;   o += align16(4 * tl);
   s.row = o;  o += align16(4 * 7 * q4);  // m, l, corr, zsum, qsum, qpos, q0
   s.f = o;    o += align16(4 * (kMaxSplits + 1) * q4);  // merge weights, l
   s.tbl = o;  o += align16(4 * static_cast<size_t>(table_len));
-  s.wml = o;  o += align16(4 * 2 * kWarps * wq);        // warps' m, l
-  s.wacc = o; o += align16(4 * kWarps * wq * hdp);      // warps' acc
-  s.pm = o;   o += align16(4 * kMaxSplits * wq * (hdp + 2));  // splits'
+  s.wml = o;  o += align16(4 * 2 * kWarps * q4);        // warps' m, l
+  s.wacc = o; o += align16(4 * kWarps * q4 * hdp);      // warps' acc
+  s.pm = o;   o += align16(4 * kMaxSplits * q4 * (hdp + 2));  // splits'
   s.total = o;                                   // carries, at rank 0
+  return s;
+}
+
+// The tile path: tiles of 16 .. 128 rows (whole k16 steps of P.V, a power
+// of two of them), and its 8 warps as wm m-block groups (one m16 block of
+// query rows each; three blocks take four groups) x wk slices of a tile's
+// key rows (16 at least) x wd slices of the dims, with ntw n8 dim tiles a
+// warp's accumulator: at most 8 (32 registers a lane), or 16 where hd is
+// past 128 and each of the 8 warps serves its own m-block and key slice.
+__host__ __device__ inline bool tile_tile_ok(int tile) {
+  return tile == 16 || tile == 32 || tile == 64 || tile == 128;
+}
+
+struct TileWarps {
+  int wm, wk, wd, ntw;
+};
+
+__host__ __device__ inline TileWarps tile_warps(int qrows, int tile,
+                                                int hd) {
+  const int mb = (qrows + kMmaM - 1) / kMmaM;
+  const int nt = 2 * ((hd + 15) / 16);  // n8 tiles of the padded dims
+  TileWarps w;
+  w.wm = mb == 3 ? 4 : mb;
+  int wd_min = 1;
+  while (wd_min * 8 < nt && wd_min * w.wm < kWarps) wd_min *= 2;
+  const int wk_max = kWarps / w.wm / wd_min;
+  w.wk = wk_max < tile / 16 ? wk_max : tile / 16;
+  w.wd = kWarps / (w.wm * w.wk);
+  w.ntw = (nt + w.wd - 1) / w.wd;
+  return w;
+}
+
+// A tile-path staged row's stride: an odd multiple of 16 bytes, so the 8
+// rows of an ldmatrix (or a fragment's 8 rows of 32-bit loads) hit 32
+// distinct banks.
+__host__ __device__ inline int tile_rstride(int row_bytes) {
+  return static_cast<int>(align16(row_bytes) | 16);
+}
+
+// Byte offsets of a tile-path block's shared-memory regions; query rows
+// padded to m16 blocks (q16), dims to 16 (hdp).  One region holds the
+// staging buffers during the loop and the warps' accumulators after it
+// (the first of them the block's carry, which the cluster merge reads).
+struct TileSmem {
+  size_t q, qp, u, scl, row, f, wml, tbl, total;
+};
+
+__host__ __device__ inline TileSmem tile_layout(int qrows, int tile, int hd,
+                                                int rstride, int table_len,
+                                                int split_rows) {
+  const size_t q16 = (qrows + kMmaM - 1) / kMmaM * kMmaM;
+  const size_t hdp = (hd + 15) & ~15;
+  const size_t wk = tile_warps(qrows, tile, hd).wk;
+  const size_t nbuf = split_rows > tile ? 2 : 1;  // one tile: no 2nd buffer
+  const size_t staging = nbuf * 2 * tile * rstride;  // buffers x (K, V)
+  const size_t carries = 4 * wk * q16 * hdp;         // [wk][q16][hdp] f32
+  TileSmem s;
+  size_t o = 0;
+  s.q = o;   o += align16(2 * kQTerms * q16 * (hdp + 8));  // bf16 planes
+  s.qp = o;  o += align16(4 * q16 * (hdp / 8));  // sums of 8 dims of q
+  s.u = o;   o += align16(staging > carries ? staging : carries);
+  s.scl = o; o += align16(4 * 2 * 2 * tile);  // buffers x (k, v) scales
+  s.row = o; o += align16(4 * 4 * q16);       // m, l, qpos, q0
+  s.f = o;   o += align16(4 * (kMaxSplits + 1) * q16);  // merge weights, l
+  s.wml = o; o += align16(4 * 2 * wk * q16);  // the warps' m, l
+  s.tbl = o; o += align16(4 * static_cast<size_t>(table_len));
+  s.total = o;
   return s;
 }
 
@@ -541,7 +622,7 @@ __device__ __forceinline__ void warp_tiles(
   }
 }
 
-// DPL: the warp path's dims a lane, or 0 for the tile path.
+// The warp path (up to kWarpQ query rows a block); DPL: dims a lane.
 template <int KIND, bool PAGED, int DPL>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 attention_decode_kernel(const Args a) {
@@ -550,38 +631,24 @@ attention_decode_kernel(const Args a) {
   const int hdp = padded_dims(hd), ld = row_stride(hd), Q4 = (Q + 3) & ~3;
   const Smem L = smem_layout(Q, T, hd, a.rstride, a.table_len, a.split_rows);
   float* q_s = reinterpret_cast<float*>(smem + L.q);
-  float* acc_s = reinterpret_cast<float*>(smem + L.acc);
-  float* kf = reinterpret_cast<float*>(smem + L.kf);
-  float* vf = reinterpret_cast<float*>(smem + L.vf);
-  float* p_s = reinterpret_cast<float*>(smem + L.p);
   unsigned char* raw = smem + L.raw;
-  float* sk_s = reinterpret_cast<float*>(smem + L.sk);
-  float* sv_s = reinterpret_cast<float*>(smem + L.sv);
   float* m_s = reinterpret_cast<float*>(smem + L.row);
   float* l_s = m_s + Q4;
-  float* corr_s = m_s + 2 * Q4;
-  float* zs_s = m_s + 3 * Q4;
   float* qsum_s = m_s + 4 * Q4;
   int* qp_s = reinterpret_cast<int*>(m_s + 5 * Q4);
   int* qb_s = qp_s + Q4;  // where query row i starts in q and out
-  float* f_s = reinterpret_cast<float*>(smem + L.f);  // [splits][Q4], then l
-  float* lt_s = f_s + kMaxSplits * Q4;
   int* tbl = reinterpret_cast<int*>(smem + L.tbl);
 
   cg::cluster_group cluster = cg::this_cluster();
-  // warp path: announce that this block runs, so that other blocks may
-  // write into its shared memory once they have waited for the cluster
-  if constexpr (DPL != 0)
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // announce that this block runs, so that other blocks may write into
+  // its shared memory once they have waited for the cluster
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int sp = blockIdx.x;  // the split, and the block's cluster rank
   const int kvh = blockIdx.y % a.KVH;
   const int r0 = (blockIdx.y / a.KVH) * Q;  // first query row of the chunk
   const int b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nq = min(Q, a.C * a.G - r0);
-  const int nq4 = (nq + 3) >> 2;
-  const float zp =
-      KIND >= kW4 ? static_cast<float>(1 << (Fields<KIND>::bits - 1)) : 0.f;
 
   // the live end: valid_len and the query positions, loaded together.
   // Query row i of the chunk is row r0 + i of the kv head: position
@@ -650,8 +717,8 @@ attention_decode_kernel(const Args a) {
     }
     const int ntiles = (s1 - s0 + T - 1) / T;
     // the tile row whose scales this thread loads
-    const int wr = T / kWarps;  // rows a warp (warp path)
-    const int srow = DPL ? (lane < wr ? warp * wr + lane : -1) : tid;
+    const int wr = T / kWarps;  // rows a warp
+    const int srow = lane < wr ? warp * wr + lane : -1;
     Scales sc_next = stage<KIND, PAGED>(a, raw, 0, b, kvh, s0,
                                         min(T, s1 - s0), s0, cells, srow);
     cp_async_commit();
@@ -682,248 +749,7 @@ attention_decode_kernel(const Args a) {
         qsum_s[i] = part;
       }
     }
-    if constexpr (DPL == 0) {
-    for (int e = tid; e < Q4 * hdp; e += kThreads) acc_s[e] = 0.f;
-
-    // work split of the two products: `ds` threads share an item (4 query
-    // rows x two cache rows for the scores, 4 query rows x 4 dims for the
-    // values), each taking every ds-th chunk; their sums meet by shuffles
-    const int c4 = hdp / 4;
-    const int s_items = nq4 * ((T + 1) >> 1);  // bound: n <= T rows
-    int s_ds = 1;
-    while (s_ds < 8 && s_items * s_ds * 2 <= kThreads) s_ds *= 2;
-    const int v_items = nq4 * c4;
-    int v_ds = 1;
-    while (v_ds < 16 && v_ds * 4 < T && v_items * v_ds * 2 <= kThreads)
-      v_ds *= 2;
-    const float inv_c4 = 1.f / c4;
-
-    // the unpack's items (row, group of 8 dims), walked without divisions
-    const int g8 = hdp / 8;
-    const int u_t = tid / g8, u_g = tid - u_t * g8;
-    const int u_st = kThreads / g8, u_sg = kThreads - u_st * g8;
-
-    for (int ti = 0; ti < ntiles; ++ti) {
-      const int t0 = s0 + ti * T;
-      const int n = min(T, s1 - t0);
-      const Scales sc = sc_next;
-      if (ti + 1 < ntiles) {
-        sc_next = stage<KIND, PAGED>(a, raw, (ti + 1) & 1, b, kvh, t0 + T,
-                                     min(T, s1 - t0 - T), s0, cells, srow);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-
-      // unpack the tile once, 8 dims at a time: f32 rows shared by every
-      // query row; rows past the tile's end and dims past hd are zero
-      {
-        const unsigned char* rk =
-            raw + static_cast<size_t>((ti & 1) * 2) * T * a.rstride;
-        int g = u_g, tt = u_t;  // K rows, then V rows
-        for (; tt < 2 * T;) {
-          const int kv = tt >= T, t = tt - kv * T;
-          float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-          if (t < n)
-            unpack8<KIND>(rk + (static_cast<size_t>(kv) * T + t) * a.rstride,
-                          g, hd, lo, hi);
-          float4* dst =
-              reinterpret_cast<float4*>((kv ? vf : kf) + t * ld + 8 * g);
-          dst[0] = lo;
-          dst[1] = hi;
-          g += u_sg;
-          tt += u_st;
-          if (g >= g8) {
-            g -= g8;
-            ++tt;
-          }
-        }
-      }
-      if (tid < T) {
-        sk_s[tid] = KIND >= kInt8 && tid < n ? __bfloat162float(sc.k) : 1.f;
-        sv_s[tid] = KIND >= kInt8 ? (tid < n ? __bfloat162float(sc.v) : 0.f)
-                                  : 1.f;
-      }
-      __syncthreads();
-
-      // scores: a thread takes 4 query rows x 2 cache rows (t, t + nh)
-      {
-        const int nh = (n + 1) >> 1;
-        const float inv_nh = 1.f / nh;
-        const int items = nq4 * nh;
-        const int pw = 32 / s_ds, part = lane / pw, il = lane - part * pw;
-        auto score = [&](float dot, int i, int t) {
-          if (KIND >= kW4) return sk_s[t] * (dot - zp * qsum_s[i]);
-          if (KIND == kInt8) return sk_s[t] * dot;
-          return dot;
-        };
-        for (int base = warp * pw; base < items; base += kWarps * pw) {
-          const int it = base + il;
-          const bool ok = it < items;
-          int t = 0;
-          const int i4 = ok ? div_small(it, nh, inv_nh, t) : 0;
-          const int t2 = t + nh;
-          const bool two = t2 < n;
-          float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-          if (ok) {
-            const float4* kr = reinterpret_cast<const float4*>(kf + t * ld);
-            const float4* kr2 =
-                reinterpret_cast<const float4*>(kf + (two ? t2 : t) * ld);
-            const float4* qr =
-                reinterpret_cast<const float4*>(q_s + 4 * i4 * ld);
-            for (int c = part; c < c4; c += s_ds) {
-              const float4 k4 = kr[c], k4b = kr2[c];
-#pragma unroll
-              for (int r = 0; r < 4; ++r) {
-                const float4 q4 = qr[r * (ld / 4) + c];
-                acc[r] = dot4(q4, k4, acc[r]);
-                acc[4 + r] = dot4(q4, k4b, acc[4 + r]);
-              }
-            }
-          }
-#pragma unroll
-          for (int off = pw; off < 32; off <<= 1)
-#pragma unroll
-            for (int r = 0; r < 8; ++r)
-              acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-          if (ok && part == 0) {
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int i = 4 * i4 + r;
-              if (i >= nq) break;
-              p_s[i * T + t] = score(acc[r], i, t);
-              if (two) p_s[i * T + t2] = score(acc[4 + r], i, t2);
-            }
-          }
-        }
-      }
-      __syncthreads();
-
-      // one online-softmax update per query row (a warp per row); the
-      // probabilities times the value scales replace the scores, zero past
-      // the tile's rows and where masked (two rows at once, i0 and
-      // i1 = i0 + kWarps, for two chains in flight; a lone last row takes
-      // i1 = i0 and writes once)
-      for (int i0 = warp; i0 < nq; i0 += 2 * kWarps) {
-        const bool two = i0 + kWarps < nq;
-        const int i1 = two ? i0 + kWarps : i0;
-        const int qp0 = qp_s[i0], qp1 = qp_s[i1];
-        float mx0 = kNegInf, mx1 = kNegInf;
-        for (int t = lane; t < n; t += 32) {
-          if (t0 + t <= qp0) mx0 = fmaxf(mx0, p_s[i0 * T + t]);
-          if (t0 + t <= qp1) mx1 = fmaxf(mx1, p_s[i1 * T + t]);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-        }
-        const float mo0 = m_s[i0], mo1 = m_s[i1];
-        const float mn0 = fmaxf(mo0, mx0), mn1 = fmaxf(mo1, mx1);
-        float ls0 = 0.f, zs0 = 0.f, ls1 = 0.f, zs1 = 0.f;
-        for (int t = lane; t < T; t += 32) {
-          const float sv = sv_s[t];
-          const float pe0 =
-              t < n && t0 + t <= qp0 ? expf(p_s[i0 * T + t] - mn0) : 0.f;
-          const float pe1 =
-              t < n && t0 + t <= qp1 ? expf(p_s[i1 * T + t] - mn1) : 0.f;
-          ls0 += pe0;
-          zs0 += pe0 * sv;
-          ls1 += pe1;
-          zs1 += pe1 * sv;
-          p_s[i0 * T + t] = pe0 * sv;
-          if (two) p_s[i1 * T + t] = pe1 * sv;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          ls0 += __shfl_xor_sync(0xffffffffu, ls0, off);
-          zs0 += __shfl_xor_sync(0xffffffffu, zs0, off);
-          ls1 += __shfl_xor_sync(0xffffffffu, ls1, off);
-          zs1 += __shfl_xor_sync(0xffffffffu, zs1, off);
-        }
-        __syncwarp();
-        if (lane == 0) {
-          const float c0 = expf(mo0 - mn0), c1 = expf(mo1 - mn1);
-          m_s[i0] = mn0;
-          l_s[i0] = l_s[i0] * c0 + ls0;
-          corr_s[i0] = c0;
-          zs_s[i0] = zs0;
-          if (two) {
-            m_s[i1] = mn1;
-            l_s[i1] = l_s[i1] * c1 + ls1;
-            corr_s[i1] = c1;
-            zs_s[i1] = zs1;
-          }
-        }
-      }
-      __syncthreads();
-
-      // acc = acc * corr + (p * sv) . u - zp * sum(p * sv): a thread takes
-      // 4 query rows x 4 dims over every v_ds-th group of 4 cache rows
-      {
-        const int pw = 32 / v_ds, part = lane / pw, il = lane - part * pw;
-        const int t4 = (n + 3) >> 2;
-        for (int base = warp * pw; base < v_items; base += kWarps * pw) {
-          const int it = base + il;
-          const bool ok = it < v_items;
-          int dc = 0;
-          const int i4 = ok ? div_small(it, c4, inv_c4, dc) : 0;
-          float4 acc[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (ok) {
-            for (int tb = part; tb < t4; tb += v_ds) {
-              float4 p4[4];
-#pragma unroll
-              for (int r = 0; r < 4; ++r)
-                p4[r] = reinterpret_cast<const float4*>(
-                    p_s + (4 * i4 + r) * T)[tb];
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                const float4 v4 = reinterpret_cast<const float4*>(
-                    vf + (4 * tb + u) * ld)[dc];
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                  const float pr = u == 0 ? p4[r].x : u == 1 ? p4[r].y
-                                 : u == 2 ? p4[r].z : p4[r].w;
-                  acc[r].x = fmaf(pr, v4.x, acc[r].x);
-                  acc[r].y = fmaf(pr, v4.y, acc[r].y);
-                  acc[r].z = fmaf(pr, v4.z, acc[r].z);
-                  acc[r].w = fmaf(pr, v4.w, acc[r].w);
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int off = pw; off < 32; off <<= 1)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              acc[r].x += __shfl_xor_sync(0xffffffffu, acc[r].x, off);
-              acc[r].y += __shfl_xor_sync(0xffffffffu, acc[r].y, off);
-              acc[r].z += __shfl_xor_sync(0xffffffffu, acc[r].z, off);
-              acc[r].w += __shfl_xor_sync(0xffffffffu, acc[r].w, off);
-            }
-          if (ok && part == 0) {
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int i = 4 * i4 + r;
-              if (i >= nq) break;
-              const float c = corr_s[i];
-              const float z = KIND >= kW4 ? zp * zs_s[i] : 0.f;
-              float4* A = reinterpret_cast<float4*>(acc_s + i * hdp) + dc;
-              const float4 o = *A;
-              *A = make_float4(o.x * c + acc[r].x - z, o.y * c + acc[r].y - z,
-                               o.z * c + acc[r].z - z,
-                               o.w * c + acc[r].w - z);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-    } else {
+    {
       float* pm = reinterpret_cast<float*>(smem + L.pm);
       asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
       float* pacc = cluster.map_shared_rank(pm, 0) + sp * Q4 * hdp;
@@ -952,6 +778,647 @@ attention_decode_kernel(const Args a) {
       return;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tile path: bf16 tensor-core fragments (mma.sync m16n8k16, f32
+// accumulate).  g = lane / 4 and t = lane % 4 name a lane's place in a
+// fragment: A (16 x 16, rows x k) a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
+// a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..); B (16 x 8, k x n) b0 = (2t..
+// 2t+1, g), b1 = (2t + 8.., g); C (16 x 8) c0, c1 = (g, 2t..2t+1), c2, c3 =
+// (g + 8, 2t..).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x = h + m + l exactly: each term the bf16 rounding of what the terms
+// before it leave (an f32's 24 bits take three).
+__device__ __forceinline__ void split3(float x, float& h, float& m,
+                                       float& l) {
+  h = __bfloat162float(__float2bfloat16_rn(x));
+  const float r = x - h;
+  m = __bfloat162float(__float2bfloat16_rn(r));
+  l = r - m;
+}
+
+// The three terms of (lo, hi) as bf16x2 words, largest first.
+__device__ __forceinline__ void split3x2(float lo, float hi,
+                                         uint32_t (&w)[kQTerms]) {
+  float h0, m0, l0, h1, m1, l1;
+  split3(lo, h0, m0, l0);
+  split3(hi, h1, m1, l1);
+  w[0] = bf16x2(h0, h1);
+  w[1] = bf16x2(m0, m1);
+  w[2] = bf16x2(l0, l1);
+}
+
+// Two small integers (0 .. 127) as bf16x2, exactly: 0x4300 | v is the bf16
+// 128 + v, less 128.
+__device__ __forceinline__ uint32_t small2(uint32_t lo, uint32_t hi) {
+  const uint32_t w = lo | (hi << 16) | 0x43004300u;
+  const __nv_bfloat162 v = __hsub2(
+      *reinterpret_cast<const __nv_bfloat162*>(&w),
+      __float2bfloat162_rn(128.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t s8x2(uint32_t lo, uint32_t hi) {
+  return bf16x2(static_cast<float>(static_cast<int8_t>(lo)),
+                static_cast<float>(static_cast<int8_t>(hi)));
+}
+
+// Keep the low / high bf16 of w where lo / hi hold, else +0.
+__device__ __forceinline__ uint32_t keep2(uint32_t w, bool lo, bool hi) {
+  return w & ((lo ? 0x0000ffffu : 0u) | (hi ? 0xffff0000u : 0u));
+}
+
+// The cache's terms in bf16: three for the f32 cache, else one (exact).
+template <int KIND>
+struct KTerms {
+  static constexpr int n = KIND == kF32 ? 3 : 1;
+};
+
+// B fragments of the scores (K as k16 x n8 "col") from the staged K row
+// `kr` (key g of the n8 tile) over dims d0 .. d0 + 15: b[term][0] = dims
+// d0 + 2t, +1, b[term][1] = dims d0 + 8 + 2t, +1; float dims past hd read
+// as 0 (the row's padding is never written).  bf16 rows go by ldmatrix.
+template <int KIND>
+__device__ __forceinline__ void k_frag(const unsigned char* kr, int d0,
+                                       int t, int hd,
+                                       uint32_t (&b)[KTerms<KIND>::n][2]) {
+  if constexpr (KIND == kF32) {
+    float2 x[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = d0 + 8 * h + 2 * t;
+      x[h] = *reinterpret_cast<const float2*>(kr + 4 * d);
+      if (d0 + 16 > hd) {
+        x[h].x = d < hd ? x[h].x : 0.f;
+        x[h].y = d + 1 < hd ? x[h].y : 0.f;
+      }
+      uint32_t w[kQTerms];
+      split3x2(x[h].x, x[h].y, w);
+#pragma unroll
+      for (int k = 0; k < kQTerms; ++k) b[k][h] = w[k];
+    }
+  } else if constexpr (KIND == kInt8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t x =
+          *reinterpret_cast<const uint16_t*>(kr + d0 + 8 * h + 2 * t);
+      b[0][h] = s8x2(x, x >> 8);
+    }
+  } else if constexpr (KIND == kW4) {
+    // fields d0 + 2t, +1: byte t of word d0 / 8; 8 dims on: the next word
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t x = kr[4 * (d0 / 8 + h) + t];
+      b[0][h] = small2(x & 15u, x >> 4);
+    }
+  } else if constexpr (KIND == kW2) {
+    // fields 2t, 2t + 1 and 2t + 8, 2t + 9 of word d0 / 16
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(kr + d0 / 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t x = w >> (16 * h + 4 * t);
+      b[0][h] = small2(x & 3u, (x >> 2) & 3u);
+    }
+  }
+}
+
+// B fragments of P.V (V as k16 x n8 "col") at dim n (the lane's g of the
+// n8 tile) over keys k0 .. k0 + 15 of the staged V tile `rv`: b[term][0] =
+// keys k0 + 2t, +1, b[term][1] = keys k0 + 8 + 2t, +1; f32 keys at or past
+// n_rows read as 0 (their bytes are stale or never written).  bf16 tiles
+// go by ldmatrix.trans.
+template <int KIND>
+__device__ __forceinline__ void v_frag(const unsigned char* rv, int rstride,
+                                       int k0, int n, int t, int n_rows,
+                                       uint32_t (&b)[KTerms<KIND>::n][2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + 8 * h + 2 * t;
+    const unsigned char* r0 = rv + static_cast<size_t>(key) * rstride;
+    const unsigned char* r1 = r0 + rstride;
+    if constexpr (KIND == kF32) {
+      float x0 = reinterpret_cast<const float*>(r0)[n];
+      float x1 = reinterpret_cast<const float*>(r1)[n];
+      if (k0 + 16 > n_rows) {
+        x0 = key < n_rows ? x0 : 0.f;
+        x1 = key + 1 < n_rows ? x1 : 0.f;
+      }
+      uint32_t w[kQTerms];
+      split3x2(x0, x1, w);
+#pragma unroll
+      for (int k = 0; k < kQTerms; ++k) b[k][h] = w[k];
+    } else if constexpr (KIND == kInt8) {
+      b[0][h] = s8x2(r0[n], r1[n]);
+    } else if constexpr (KIND == kW4) {
+      const int o = 4 * (n / 8), sh = 4 * (n % 8);
+      b[0][h] = small2((*reinterpret_cast<const uint32_t*>(r0 + o) >> sh) &
+                           15u,
+                       (*reinterpret_cast<const uint32_t*>(r1 + o) >> sh) &
+                           15u);
+    } else if constexpr (KIND == kW2) {
+      const int o = 4 * (n / 16), sh = 2 * (n % 16);
+      b[0][h] = small2((*reinterpret_cast<const uint32_t*>(r0 + o) >> sh) &
+                           3u,
+                       (*reinterpret_cast<const uint32_t*>(r1 + o) >> sh) &
+                           3u);
+    }
+  }
+}
+
+// kQGroups groups of 8 dims of the chunk's q rows -- groups e0, e0 +
+// kThreads, ... of the [rows][hdp / 8] grid -- into x, in f32; zero past
+// the chunk's rows, hd or the grid.  Rows of hd a multiple of 8 on a
+// 16-byte base load 16 or 32 bytes at once.
+__device__ __forceinline__ void load_q_groups(const Args& a, int b, int kvh,
+                                              int r0, int nq, int g8,
+                                              int ngroups, int e0,
+                                              float (&x)[kQGroups][8]) {
+#pragma unroll
+  for (int u = 0; u < kQGroups; ++u) {
+    const int e = e0 + u * kThreads;
+    const int i = e / g8, d0 = 8 * (e - i * g8);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[u][j] = 0.f;
+    if (e >= ngroups || i >= nq || d0 >= a.hd) continue;
+    const size_t at = out_index(a, b, kvh, r0, i, d0);
+    if (a.qvec && a.qtype == kQF32) {
+      const float4* p =
+          reinterpret_cast<const float4*>(static_cast<const float*>(a.q) + at);
+      const float4 lo = p[0], hi = p[1];
+      x[u][0] = lo.x; x[u][1] = lo.y; x[u][2] = lo.z; x[u][3] = lo.w;
+      x[u][4] = hi.x; x[u][5] = hi.y; x[u][6] = hi.z; x[u][7] = hi.w;
+    } else if (a.qvec) {
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          static_cast<const uint16_t*>(a.q) + at);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint16_t h = static_cast<uint16_t>(ws[j / 2] >> (16 * (j & 1)));
+        x[u][j] = a.qtype == kQBF16 ? __uint_as_float(uint32_t(h) << 16)
+                                    : __half2float(__ushort_as_half(h));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (d0 + j < a.hd) x[u][j] = load_q(a.q, a.qtype, at + j);
+    }
+  }
+}
+
+// Their bf16 terms into the first `nterms` planes of q_s ([term][rows][qld])
+// and the f32 sum of q x hd^-0.5 over each group into qpart (Σq, in a
+// fixed order, for the sub-byte zero point).
+__device__ __forceinline__ void store_q_groups(const Args& a,
+                                               __nv_bfloat16* q_s,
+                                               float* qpart, int qld,
+                                               size_t plane, int nterms,
+                                               int g8, int ngroups, int e0,
+                                               const float (&x)[kQGroups][8]) {
+#pragma unroll
+  for (int u = 0; u < kQGroups; ++u) {
+    const int e = e0 + u * kThreads;
+    if (e >= ngroups) break;
+    const int i = e / g8, d0 = 8 * (e - i * g8);
+    uint32_t w[kQTerms][4];
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t t3[kQTerms];
+      split3x2(x[u][j], x[u][j + 1], t3);
+#pragma unroll
+      for (int k = 0; k < kQTerms; ++k) w[k][j / 2] = t3[k];
+      part += x[u][j] * a.qscale;
+      part += x[u][j + 1] * a.qscale;
+    }
+    __nv_bfloat16* dst = q_s + static_cast<size_t>(i) * qld + d0;
+#pragma unroll
+    for (int k = 0; k < kQTerms; ++k)
+      if (k < nterms)
+        *reinterpret_cast<uint4*>(dst + k * plane) =
+            make_uint4(w[k][0], w[k][1], w[k][2], w[k][3]);
+    qpart[e] = part;
+  }
+}
+
+// The tile path (more than kWarpQ query rows a block); NTW: the n8 dim
+// tiles a warp's accumulator holds (tile_warps).
+template <int KIND, bool PAGED, int NTW>
+__global__ void __launch_bounds__(kThreads, kTileMinBlocks)
+attention_tile_kernel(const Args a) {
+  constexpr int KT = KTerms<KIND>::n;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = a.hd, T = a.tile_rows, Q = a.qrows, rs = a.rstride;
+  const int Q16 = (Q + kMmaM - 1) / kMmaM * kMmaM;
+  const int hdp = (hd + 15) & ~15, qld = hdp + 8;
+  const TileWarps W = tile_warps(Q, T, hd);
+  const TileSmem L =
+      tile_layout(Q, T, hd, rs, a.table_len, a.split_rows);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L.q);
+  float* qpart = reinterpret_cast<float*>(smem + L.qp);  // [Q16][hdp / 8]
+  unsigned char* raw = smem + L.u;
+  float* wacc = reinterpret_cast<float*>(smem + L.u);  // after the tiles
+  float* scl = reinterpret_cast<float*>(smem + L.scl);  // [buf][k | v][T]
+  float* m_s = reinterpret_cast<float*>(smem + L.row);
+  float* l_s = m_s + Q16;
+  int* qp_s = reinterpret_cast<int*>(m_s + 2 * Q16);
+  int* qb_s = qp_s + Q16;  // where query row i starts in q and out
+  float* f_s = reinterpret_cast<float*>(smem + L.f);  // [splits][Q16], l
+  float* lt_s = f_s + kMaxSplits * Q16;
+  float* wml = reinterpret_cast<float*>(smem + L.wml);  // [wk][m | l][Q16]
+  int* tbl = reinterpret_cast<int*>(smem + L.tbl);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int sp = blockIdx.x;  // the split, and the block's cluster rank
+  const int kvh = blockIdx.y % a.KVH;
+  const int r0 = (blockIdx.y / a.KVH) * Q;  // first query row of the chunk
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = min(Q, a.C * a.G - r0);
+  const float zp =
+      KIND >= kW4 ? static_cast<float>(1 << (Fields<KIND>::bits - 1)) : 0.f;
+
+  // q as bf16 terms: one for bf16 q, two for f16 (11 bits), three for
+  // f32, so the products are exact; hd^-0.5 scales the f32 dot
+  const int nterms = a.qtype == kQBF16 ? 1 : a.qtype == kQF16 ? 2 : 3;
+  const size_t plane = static_cast<size_t>(Q16) * qld;
+  const int g8 = hdp / 8, ngroups = Q16 * g8;
+
+  // the live end, as the warp path (rows past the chunk see nothing),
+  // loaded with the split's block-table entries (paged: its rows' cells
+  // follow).  Split 0 is live whenever any row sees a key, so its first
+  // tile is staged before the live end is known: its rows are in bounds
+  // whatever the end, and those past it are masked.
+  const int vlen = a.valid_len[b];
+  const int s0 = sp * a.split_rows;
+  int* cells = tbl + a.split_rows / a.page_size;
+  if (PAGED) {
+    for (int j = tid; j < a.split_rows / a.page_size; j += kThreads) {
+      const int pi = s0 / a.page_size + j;
+      const int pg =
+          pi < a.NP ? a.bt[static_cast<size_t>(b) * a.NP + pi] : 0;
+      tbl[j] = min(max(pg, 0), a.P - 1);
+    }
+  }
+  if (tid < Q16) {
+    qp_s[tid] = tid < nq ? a.qpos[b * a.C + (r0 + tid) / a.G] : -1;
+    qb_s[tid] =
+        tid < nq ? static_cast<int>(out_index(a, b, kvh, r0, tid, 0)) : 0;
+  }
+  Scales sc = {__float2bfloat16(0.f), __float2bfloat16(0.f)};
+  if (!PAGED && sp == 0) {
+    sc = stage<KIND, PAGED>(a, raw, 0, b, kvh, 0, min(T, a.S), 0, cells, tid);
+    cp_async_commit();
+  }
+  __syncthreads();
+  if (PAGED) {
+    for (int j = tid; j < a.split_rows; j += kThreads) {
+      const int pj = j / a.page_size;
+      cells[j] = static_cast<int>(
+          (static_cast<unsigned>(tbl[pj]) * a.page_size + j -
+           pj * a.page_size) * a.KVH + kvh);
+    }
+    __syncthreads();  // the cells before the first copy
+    if (sp == 0) {
+      sc = stage<KIND, PAGED>(a, raw, 0, b, kvh, 0, min(T, a.S), 0, cells,
+                              tid);
+      cp_async_commit();
+    }
+  }
+  int qmax = -1;
+  for (int i = 0; i < nq; ++i) qmax = max(qmax, qp_s[i]);
+  const int end = max(0, min(min(vlen, a.S), qmax + 1));
+  const int n_live = (end + a.split_rows - 1) / a.split_rows;
+  if (n_live == 0) {  // nothing visible to any row: exact zeros
+    cp_async_wait<0>();
+    for (int o = sp * kThreads + tid; o < nq * hd; o += a.splits * kThreads)
+      store_out(a.out, a.qtype, qb_s[o / hd] + o % hd, 0.f);
+    return;
+  }
+  // a split past the live end leaves at once (as the warp path)
+  if (sp >= n_live) return;
+
+  const int s1 = min(s0 + a.split_rows, end);
+  const int ntiles = (s1 - s0 + T - 1) / T;
+  if (sp != 0) {
+    sc = stage<KIND, PAGED>(a, raw, 0, b, kvh, s0, min(T, s1 - s0), s0,
+                            cells, tid);
+    cp_async_commit();
+  }
+  // q's groups of 8 dims, kQGroups a thread at a time, while tile 0's
+  // copies are in flight
+  for (int e0 = tid; e0 < ngroups; e0 += kQGroups * kThreads) {
+    float xq[kQGroups][8];
+    load_q_groups(a, b, kvh, r0, nq, g8, ngroups, e0, xq);
+    store_q_groups(a, q_s, qpart, qld, plane, nterms, g8, ngroups, e0, xq);
+  }
+  if (KIND >= kInt8 && tid < T) {  // tile 0's scales
+    scl[tid] = __bfloat162float(sc.k);
+    scl[T + tid] = __bfloat162float(sc.v);
+  }
+  __syncthreads();  // q's terms and partial sums
+
+  // this warp: m-block mb, key slice ks (KS rows of each tile), dim slice
+  // ds (n8 tiles j0 .. j0 + nj - 1)
+  const int per_mb = W.wk * W.wd;
+  const int mb = warp / per_mb, ks = warp % per_mb / W.wd,
+            ds = warp % W.wd;
+  const int row0 = mb * kMmaM;
+  const bool active = row0 < nq;  // rows of its own to serve
+  const int KS = T / W.wk;
+  const int j0 = ds * W.ntw;
+  const int nj = max(0, min(W.ntw, hdp / 8 - j0));
+  float acc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // rows g and g + 8 of the m-block: m, and this lane's shares of l and
+  // of z = sum(p * sv) (summed over the quad at the end)
+  float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f},
+        zrow[2] = {0.f, 0.f}, qsr[2] = {0.f, 0.f};
+  int qpr[2] = {-1, -1};
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      qpr[r] = qp_s[row0 + g + 8 * r];
+      if (KIND >= kW4) {  // Σq: the quad's lanes take every 4th group
+        const float* pr = qpart + (row0 + g + 8 * r) * g8;
+        for (int gi = t; gi < g8; gi += 4) qsr[r] += pr[gi];
+        qsr[r] += __shfl_xor_sync(0xffffffffu, qsr[r], 1);
+        qsr[r] += __shfl_xor_sync(0xffffffffu, qsr[r], 2);
+      }
+    }
+  }
+  // this lane's ldmatrix rows: q (A: rows by lane % 16, dims + 8 for lanes
+  // 16..31), bf16 K (keys + 8 for lanes 16..31, dims + 8 for lanes 8..15,
+  // 24..31), bf16 V (keys + 8 for lanes 8..15)
+  const __nv_bfloat16* qa =
+      q_s + static_cast<size_t>(row0 + (lane & 15)) * qld + 8 * (lane >> 4);
+  const int k_row = (lane & 7) + 8 * (lane >> 4), k_col = 8 * ((lane >> 3) & 1);
+  const int v_row = lane & 15;
+
+  for (int ti = 0; ti < ntiles; ++ti) {
+    const int t0 = s0 + ti * T;
+    const int n = min(T, s1 - t0);
+    if (ti > 0 && KIND >= kInt8 && tid < T) {  // this tile's scales
+      scl[(ti & 1) * 2 * T + tid] = __bfloat162float(sc.k);
+      scl[(ti & 1) * 2 * T + T + tid] = __bfloat162float(sc.v);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // tile ti landed; every warp is done with tile ti - 1
+    if (ti + 1 < ntiles) {
+      sc = stage<KIND, PAGED>(a, raw, (ti + 1) & 1, b, kvh, t0 + T,
+                              min(T, s1 - t0 - T), s0, cells, tid);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const unsigned char* rk =
+        raw + static_cast<size_t>((ti & 1) * 2) * T * rs;
+    const unsigned char* rv = rk + static_cast<size_t>(T) * rs;
+    const float* skt = scl + (ti & 1) * 2 * T;
+    const float* svt = skt + T;
+    for (int k0 = ks * KS; k0 < ks * KS + KS && k0 < n; k0 += 16) {
+      // scores of keys k0 .. k0 + 15 (two n8 tiles)
+      float s[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      for (int d0 = 0; d0 < hdp; d0 += 16) {
+        uint32_t bk[2][KT][2];
+        if constexpr (KIND == kBF16) {
+          uint32_t r[4];
+          ldsm_x4(r, rk + static_cast<size_t>(k0 + k_row) * rs +
+                         2 * (d0 + k_col));
+          if (d0 + 16 > hd) {
+            const int d = d0 + 2 * t;
+            r[0] = keep2(r[0], d < hd, d + 1 < hd);
+            r[1] = keep2(r[1], d + 8 < hd, d + 9 < hd);
+            r[2] = keep2(r[2], d < hd, d + 1 < hd);
+            r[3] = keep2(r[3], d + 8 < hd, d + 9 < hd);
+          }
+          bk[0][0][0] = r[0];
+          bk[0][0][1] = r[1];
+          bk[1][0][0] = r[2];
+          bk[1][0][1] = r[3];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            k_frag<KIND>(rk + static_cast<size_t>(k0 + 8 * j + g) * rs, d0,
+                         t, hd, bk[j]);
+        }
+        // the smaller terms first; term products below an f32 ulp skipped
+        for (int qt = nterms - 1; qt >= 0; --qt) {
+          uint32_t qf[4];
+          ldsm_x4(qf, qa + qt * plane + d0);
+#pragma unroll
+          for (int kt = KT - 1; kt >= 0; --kt) {
+            if (qt + kt >= kQTerms) continue;
+            mma_bf16(s[0], qf, bk[0][kt][0], bk[0][kt][1]);
+            mma_bf16(s[1], qf, bk[1][kt][0], bk[1][kt][1]);
+          }
+        }
+      }
+      // affine parts, mask, the online-softmax update
+      bool vis[2][4];
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
+          float x = s[j][e] * a.qscale;
+          if (KIND >= kW4) x = skt[key] * (x - zp * qsr[r]);
+          else if (KIND == kInt8) x = skt[key] * x;
+          vis[j][e] = key < n && t0 + key <= qpr[r];
+          s[j][e] = x;
+          if (vis[j][e]) mx[r] = fmaxf(mx[r], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float mn = fmaxf(mrow[r], mx[r]);
+        corr[r] = expf(mrow[r] - mn);
+        mrow[r] = mn;
+        lrow[r] *= corr[r];
+        zrow[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
+          const float pe = vis[j][e] ? expf(s[j][e] - mrow[r]) : 0.f;
+          const float pv = KIND >= kInt8 ? pe * svt[key] : pe;
+          lrow[r] += pe;
+          zrow[r] += pv;
+          s[j][e] = pv;
+        }
+      // acc * corr, skipped where no row's max moved (corr is then 1.0:
+      // the same bits)
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+      }
+      // P.V: the scores' C fragments are the A fragments of p * sv, as
+      // three bf16 terms
+      uint32_t pa[kQTerms][4];
+      {
+        uint32_t w[kQTerms];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split3x2(s[i >> 1][2 * (i & 1)], s[i >> 1][2 * (i & 1) + 1], w);
+#pragma unroll
+          for (int k = 0; k < kQTerms; ++k) pa[k][i] = w[k];
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < NTW; ++jj) {
+        if (jj >= nj) break;
+        const int n0 = 8 * (j0 + jj);
+        uint32_t bv[KT][2];
+        if constexpr (KIND == kBF16) {
+          uint32_t r[2];
+          ldsm_x2_trans(r, rv + static_cast<size_t>(k0 + v_row) * rs +
+                               2 * n0);
+          if (k0 + 16 > n) {
+            const int key = k0 + 2 * t;
+            r[0] = keep2(r[0], key < n, key + 1 < n);
+            r[1] = keep2(r[1], key + 8 < n, key + 9 < n);
+          }
+          bv[0][0] = r[0];
+          bv[0][1] = r[1];
+        } else {
+          v_frag<KIND>(rv, rs, k0, n0 + g, t, n, bv);
+        }
+#pragma unroll
+        for (int pt = kQTerms - 1; pt >= 0; --pt)
+#pragma unroll
+          for (int vt = KT - 1; vt >= 0; --vt) {
+            if (pt + vt >= kQTerms) continue;
+            mma_bf16(acc[jj], pa[pt], bv[vt][0], bv[vt][1]);
+          }
+      }
+    }
+  }
+
+  // the quad's shares of l and z; acc = (p * sv) . u - zp * sum(p * sv)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+    zrow[r] += __shfl_xor_sync(0xffffffffu, zrow[r], 1);
+    zrow[r] += __shfl_xor_sync(0xffffffffu, zrow[r], 2);
+  }
+  if (KIND >= kW4) {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] -= zp * zrow[e >> 1];
+  }
+  __syncthreads();  // every warp is done with the staging buffers
+  if (active) {  // the warp's carry into slot ks: [wk][Q16][hdp]
+    if (ds == 0 && t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        wml[2 * ks * Q16 + row0 + g + 8 * r] = mrow[r];
+        wml[(2 * ks + 1) * Q16 + row0 + g + 8 * r] = lrow[r];
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < NTW; ++jj) {
+      if (jj >= nj) break;
+      float* dst = wacc + (static_cast<size_t>(ks) * Q16 + row0 + g) * hdp +
+                   8 * (j0 + jj) + 2 * t;
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[jj][0], acc[jj][1]);
+      *reinterpret_cast<float2*>(dst + 8 * hdp) =
+          make_float2(acc[jj][2], acc[jj][3]);
+    }
+  }
+  __syncthreads();
+  // one live split: the key slices merged in order give the rows (the
+  // cluster merge of one split would scale them by exp(0) = 1: the same
+  // bits), and no other block waits
+  if (n_live == 1) {
+    for (int o = tid; o < nq * hd; o += kThreads) {
+      const int i = o / hd, d = o - i * hd;
+      float mx = kNegInf;
+      for (int k = 0; k < W.wk; ++k) mx = fmaxf(mx, wml[2 * k * Q16 + i]);
+      float x = 0.f, l = 0.f;
+      for (int k = 0; k < W.wk; ++k) {
+        const float f = expf(wml[2 * k * Q16 + i] - mx);
+        x += wacc[(static_cast<size_t>(k) * Q16 + i) * hdp + d] * f;
+        l += wml[(2 * k + 1) * Q16 + i] * f;
+      }
+      store_out(a.out, a.qtype, qb_s[i] + d, l == 0.f ? 0.f : x / l);
+    }
+    return;
+  }
+  // else the block's carry: the key slices merged in order, in place into
+  // slot 0 (one slice: slot 0 is the carry)
+  if (W.wk > 1) {
+    for (int o = tid; o < nq * hdp; o += kThreads) {
+      const int i = o / hdp, d = o - i * hdp;
+      float mx = kNegInf;
+      for (int k = 0; k < W.wk; ++k) mx = fmaxf(mx, wml[2 * k * Q16 + i]);
+      float x = 0.f, l = 0.f;
+      for (int k = 0; k < W.wk; ++k) {
+        const float f = expf(wml[2 * k * Q16 + i] - mx);
+        x += wacc[(static_cast<size_t>(k) * Q16 + i) * hdp + d] * f;
+        l += wml[(2 * k + 1) * Q16 + i] * f;
+      }
+      wacc[static_cast<size_t>(i) * hdp + d] = x;
+      if (d == 0) {
+        m_s[i] = mx;
+        l_s[i] = l;
+      }
+    }
+  } else if (tid < nq) {
+    m_s[tid] = wml[tid];
+    l_s[tid] = wml[Q16 + tid];
+  }
+  const float* acc_s = wacc;
 
   // merge the live splits' carries, in split order, through distributed
   // shared memory; every block of the cluster writes a share of the rows
@@ -971,7 +1438,7 @@ attention_decode_kernel(const Args a) {
     for (int j = 0; j < kMaxSplits; ++j) {
       if (j >= n_live) break;
       const float f = expf(mj[j] - mx);
-      f_s[j * Q4 + tid] = f;
+      f_s[j * Q16 + tid] = f;
       lt += lj[j] * f;
     }
     lt_s[tid] = lt;
@@ -982,23 +1449,25 @@ attention_decode_kernel(const Args a) {
     float aj[kMaxSplits];
 #pragma unroll
     for (int j = 0; j < kMaxSplits; ++j)
-      aj[j] = j < n_live ? *cluster.map_shared_rank(acc_s + i * hdp + d, j)
+      aj[j] = j < n_live ? *cluster.map_shared_rank(
+                               acc_s + static_cast<size_t>(i) * hdp + d, j)
                          : 0.f;
-    float acc = 0.f;
+    float acc_o = 0.f;
 #pragma unroll
     for (int j = 0; j < kMaxSplits; ++j)
-      if (j < n_live) acc += aj[j] * f_s[j * Q4 + i];
+      if (j < n_live) acc_o += aj[j] * f_s[j * Q16 + i];
     const float lt = lt_s[i];
-    store_out(a.out, a.qtype, qb_s[i] + d, lt == 0.f ? 0.f : acc / lt);
+    store_out(a.out, a.qtype, qb_s[i] + d, lt == 0.f ? 0.f : acc_o / lt);
   }
   cluster.sync();  // no block leaves while another reads its carries
 }
 
-template <int KIND, bool PAGED, int DPL>
-cudaError_t launch_variant(const Args& a, int B, int qchunks, size_t smem,
-                           int device, cudaStream_t s) {
-  void (*kern)(Args) = attention_decode_kernel<KIND, PAGED, DPL>;
-  static size_t raised[8] = {0};  // per device, this instantiation
+// Launches one instantiation on a cluster of `splits` blocks along x,
+// raising its dynamic shared-memory limit first where needed (`raised`:
+// the limit set so far on each device, for this instantiation).
+cudaError_t launch_kern(void (*kern)(Args), size_t* raised, const Args& a,
+                        int B, int qchunks, size_t smem, int device,
+                        cudaStream_t s) {
   if (smem > 48 * 1024 && smem > raised[device & 7]) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1023,6 +1492,22 @@ cudaError_t launch_variant(const Args& a, int B, int qchunks, size_t smem,
   return cudaGetLastError();
 }
 
+template <int KIND, bool PAGED, int DPL>
+cudaError_t launch_variant(const Args& a, int B, int qchunks, size_t smem,
+                           int device, cudaStream_t s) {
+  static size_t raised[8] = {0};  // per device, this instantiation
+  return launch_kern(attention_decode_kernel<KIND, PAGED, DPL>, raised, a, B,
+                     qchunks, smem, device, s);
+}
+
+template <int KIND, bool PAGED, int NTW>
+cudaError_t launch_tile(const Args& a, int B, int qchunks, size_t smem,
+                        int device, cudaStream_t s) {
+  static size_t raised[8] = {0};
+  return launch_kern(attention_tile_kernel<KIND, PAGED, NTW>, raised, a, B,
+                     qchunks, smem, device, s);
+}
+
 template <int KIND, bool PAGED>
 cudaError_t launch_kind(const Args& a, int B, int qchunks, size_t smem,
                         int device, cudaStream_t s) {
@@ -1034,7 +1519,10 @@ cudaError_t launch_kind(const Args& a, int B, int qchunks, size_t smem,
     case 8:
       return launch_variant<KIND, PAGED, 8>(a, B, qchunks, smem, device, s);
     default:
-      return launch_variant<KIND, PAGED, 0>(a, B, qchunks, smem, device, s);
+      return tile_warps(a.qrows, a.tile_rows, a.hd).ntw <= 8
+                 ? launch_tile<KIND, PAGED, 8>(a, B, qchunks, smem, device, s)
+                 : launch_tile<KIND, PAGED, 16>(a, B, qchunks, smem, device,
+                                                s);
   }
 }
 
@@ -1053,8 +1541,8 @@ int launch_layout(Args a, int B, int row_elems, int kind, int threads,
       a.hd > 256 || row_elems * per < a.hd || a.qtype < kQF32 ||
       a.qtype > kQF16 || threads != kThreads || a.qrows < 1 ||
       a.qrows > kMaxQRows || a.tile_rows < 4 || a.tile_rows > kMaxTile ||
-      a.tile_rows % 4 != 0 ||
-      (warp_variant(a.qrows, a.hd) && !warp_tile_ok(a.tile_rows)) ||
+      !(warp_variant(a.qrows, a.hd) ? warp_tile_ok(a.tile_rows)
+                                     : tile_tile_ok(a.tile_rows)) ||
       a.splits < 1 || a.splits > kMaxSplits || a.split_rows < 1 ||
       a.split_rows % a.tile_rows != 0 ||
       (PAGED && a.split_rows % a.page_size != 0) || cover < a.S ||
@@ -1062,12 +1550,16 @@ int launch_layout(Args a, int B, int row_elems, int kind, int threads,
     return static_cast<int>(cudaErrorInvalidValue);
   a.G = a.H / a.KVH;
   a.row_bytes = row_elems * elem;
-  a.rstride = static_cast<int>(align16(a.row_bytes));
+  const bool warp = warp_variant(a.qrows, a.hd) != 0;
+  a.rstride = warp ? static_cast<int>(align16(a.row_bytes))
+                   : tile_rstride(a.row_bytes);
   // paged: the split's table entries, then one cell per row
   a.table_len = PAGED ? a.split_rows / a.page_size + a.split_rows : 0;
   const size_t need =
-      smem_layout(a.qrows, a.tile_rows, a.hd, a.rstride, a.table_len,
-                  a.split_rows).total;
+      warp ? smem_layout(a.qrows, a.tile_rows, a.hd, a.rstride, a.table_len,
+                         a.split_rows).total
+           : tile_layout(a.qrows, a.tile_rows, a.hd, a.rstride, a.table_len,
+                         a.split_rows).total;
   if (static_cast<size_t>(smem) != need || need > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nq = a.C * a.G;
@@ -1085,6 +1577,7 @@ int launch_layout(Args a, int B, int row_elems, int kind, int threads,
                 reinterpret_cast<uintptr_t>(a.v) % cb))
     cb = cb == 4 ? 0 : cb / 2;
   a.copy_bytes = cb;
+  a.qvec = a.hd % 8 == 0 && reinterpret_cast<uintptr_t>(a.q) % 16 == 0;
   a.qscale = static_cast<float>(std::pow(static_cast<double>(a.hd), -0.5));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {

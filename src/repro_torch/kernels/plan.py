@@ -144,11 +144,21 @@ ATTN_MAX_SPLITS = 8
 ATTN_MAX_QROWS = 64
 ATTN_MAX_TILE = 128
 ATTN_SMEM_MAX = 232448
+#: Its tile path (more than 4 query rows a block; kMmaM, kQTerms,
+#: kTileMinBlocks and tile_tile_ok there): query rows padded to blocks of
+#: the MMA's m16, q held as up to three bf16 terms (planes in shared
+#: memory), and the staged tile rows it takes (whole k16 steps of P.V, a
+#: power of two of them per warp).
+ATTN_MMA_M = 16
+ATTN_Q_TERMS = 3
+ATTN_TILE_TILES = (128, 64, 32, 16)
 #: The shared memory of a Hopper SM and the attention blocks an SM holds
-#: at most (the kernel's registers allow three).  The planner splits the
-#: cache until every (b, kv head) pair's splits fill one wave of blocks.
+#: at most (the warp path's registers allow three, the tile path's two).
+#: The planner splits the cache until every (b, kv head) pair's splits
+#: fill one wave of blocks.
 _SM_SMEM = 233472
 _ATTN_BLOCKS_PER_SM = 3
+_ATTN_TILE_BLOCKS_PER_SM = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -845,34 +855,67 @@ def attention_warp_path(qrows: int, hd: int) -> bool:
     return qrows <= 4
 
 
+def attention_tile_warps(qrows: int, tile: int, hd: int) -> tuple:
+    """The tile path's eight warps (``tile_warps`` in
+    csrc/attention_decode.cu) as ``(wm, wk, wd, ntw)``: ``wm`` groups of
+    one m16 block of query rows (1, 2 or 4; three blocks take four
+    groups), each cut into ``wk`` slices of the staged tile's rows (16
+    rows at least, the k16 of P.V) and ``wd`` slices of the dims (the
+    warps of one key slice compute its scores alike and split the values'
+    dims), and ``ntw`` n8 dim tiles a warp's accumulator holds (at most 8,
+    or 16 where hd > 128 leaves no warps to split the dims further)."""
+    mb = -(-qrows // ATTN_MMA_M)
+    wm = 4 if mb == 3 else mb
+    nt = 2 * -(-hd // 16)
+    wd_min = min(1 << (-(-nt // 8) - 1).bit_length(), ATTN_WARPS // wm)
+    wk = min(ATTN_WARPS // wm // wd_min, tile // 16)
+    wd = ATTN_WARPS // (wm * wk)
+    return wm, wk, wd, -(-nt // wd)
+
+
 def attention_smem_bytes(qrows: int, tile: int, hd: int, row_bytes: int,
                          table_len: int, split_rows: int) -> int:
-    """Shared memory of one attention block: the layout of ``smem_layout``
-    in csrc/attention_decode.cu, region by region, each rounded up to 16
-    bytes.  Query rows are padded to a multiple of 4 and dims to a
-    multiple of 8, and f32 rows of q, K and V are strided by the padded
-    dims + 4: scaled q and the block's carry, the unpacked K and V tiles
-    and the scores [rows, tile] (tile path), the staging buffers of K and
-    V rows (one when a split is one tile, else two), the per-row scales
-    (tile path), seven per-query-row words, the merge weights
-    [ATTN_MAX_SPLITS + 1, rows], ``table_len`` words (paged: the split's
-    block-table entries and its rows' cells), and each warp's carry and,
-    at cluster rank 0, every split's carry (warp path)."""
+    """Shared memory of one attention block, region by region, each rounded
+    up to 16 bytes; the staging buffers of K and V rows are one when a
+    split is one tile, else two, and ``table_len`` words hold (paged) the
+    split's block-table entries and its rows' cells.
+
+    Warp path (``smem_layout`` in csrc/attention_decode.cu): query rows
+    padded to a multiple of 4 and dims to 8, f32 rows of q strided by the
+    padded dims + 4: scaled q and the block's carry, the staging buffers
+    (rows of ``row_bytes`` rounded up to 16), seven per-query-row words,
+    the merge weights [ATTN_MAX_SPLITS + 1, rows], the table, each warp's
+    carry and, at cluster rank 0, every split's carry.
+
+    Tile path (``tile_layout`` there): query rows padded to m16 blocks and
+    dims to 16: q as three bf16 planes (rows strided by the dims + 8), the
+    f32 sums of q x hd^-0.5 over each 8 dims, one region that holds the
+    staging buffers (rows strided by ``row_bytes`` rounded up to an odd
+    multiple of 16) and, after the last tile, the warps' accumulators
+    [wk, rows, dims] in f32 (the first of them the block's carry), the k
+    and v scales of both buffers, four per-query-row words, the merge
+    weights, the warps' m and l, and the table."""
     def a16(n):
         return -(-n // 16) * 16
+    nbuf = 2 if split_rows > tile else 1
+    if not attention_warp_path(qrows, hd):
+        q16 = -(-qrows // ATTN_MMA_M) * ATTN_MMA_M
+        hdp = -(-hd // 16) * 16
+        wk = attention_tile_warps(qrows, tile, hd)[1]
+        parts = (2 * ATTN_Q_TERMS * q16 * (hdp + 8), 4 * q16 * (hdp // 8),
+                 max(nbuf * 2 * tile * (a16(row_bytes) | 16),
+                     4 * wk * q16 * hdp),
+                 4 * 2 * 2 * tile, 4 * 4 * q16,
+                 4 * (ATTN_MAX_SPLITS + 1) * q16, 4 * 2 * wk * q16,
+                 4 * table_len)
+        return sum(a16(n) for n in parts)
     q4 = -(-qrows // 4) * 4
     hdp = -(-hd // 8) * 8
     ld = hdp + 4
-    warp = attention_warp_path(qrows, hd)
-    tl = 0 if warp else tile
-    wq = q4 if warp else 0
-    parts = (4 * q4 * ld, 4 * q4 * hdp, 4 * tl * ld, 4 * tl * ld,
-             4 * q4 * tl,
-             2 * (2 if split_rows > tile else 1) * tile * a16(row_bytes),
-             4 * tl, 4 * tl,
+    parts = (4 * q4 * ld, 4 * q4 * hdp, 2 * nbuf * tile * a16(row_bytes),
              28 * q4, 4 * (ATTN_MAX_SPLITS + 1) * q4, 4 * table_len,
-             4 * 2 * ATTN_WARPS * wq, 4 * ATTN_WARPS * wq * hdp,
-             4 * ATTN_MAX_SPLITS * wq * (hdp + 2))
+             4 * 2 * ATTN_WARPS * q4, 4 * ATTN_WARPS * q4 * hdp,
+             4 * ATTN_MAX_SPLITS * q4 * (hdp + 2))
     return sum(a16(n) for n in parts)
 
 
@@ -894,13 +937,15 @@ def plan_attention_decode(b: int, c: int, skv: int, h: int, kvh: int,
     one of a kv head's G x C rows, up to 64) over one split of
     ``split_rows`` positions, staged ``tile_rows`` at a time: 32 to 128
     rows so that three blocks fit an SM (warp path, up to 4 query rows;
-    32 where none does), or 64 to 128 for two (tile path; the largest
-    that fits where none does); a split that is one tile is staged in a
-    single buffer.  Splits
+    32 where none does), or 16 to 128 for two (tile path, on the bf16
+    tensor cores; the largest that fits where none does); a split that is
+    one tile is staged in a single buffer.  Splits
     (at most 8: one thread-block cluster per (b, kv head, chunk)) grow
-    until the blocks fill one wave of the card, each a whole number of
-    tiles -- and of pages when paged, so K3 and K4 split the same rows
-    alike.  The launcher refuses a plan that disagrees with the kernel.
+    until the blocks fill one wave of the card (the tile path: no more
+    than one wave, in the largest tile that allows that many), each a
+    whole number of tiles -- and of pages when paged, so K3 and K4 split
+    the same rows alike.  The launcher refuses a plan that disagrees with
+    the kernel.
 
     With ``use_tuning_cache`` the active tuning cache's entry under
     ``autotune.attention_decode_key`` -- the logical shape, without the
@@ -926,9 +971,10 @@ def _attention_rows(c: int, h: int, kvh: int, hd: int) -> int:
 
 def _attention_tiles(qrows: int, hd: int) -> tuple:
     """The staged tile rows each path takes: 32 / 64 / 128 on the warp
-    path (4, 8 or 16 rows a warp), 4 .. 128 on the tile path."""
+    path (4, 8 or 16 rows a warp), 16 .. 128 on the tile path (whole k16
+    steps of its P.V, a power of two of them)."""
     return (128, 64, 32) if attention_warp_path(qrows, hd) \
-        else (128, 64, 32, 16, 8, 4)
+        else ATTN_TILE_TILES
 
 
 def attention_decode_geometry(b: int, c: int, skv: int, h: int, kvh: int,
@@ -1027,31 +1073,48 @@ def _plan_attention_decode(b, c, skv, h, kvh, hd, kv_bits, page_size,
         split_rows = -(-(-(-rows // splits)) // span) * span
         return -(-rows // split_rows), split_rows
 
-    # the warp path takes 32-, 64- or 128-row tiles (4, 8 or 16 rows a
-    # warp) and aims for three blocks a SM; the tile path takes 64 rows at
-    # least where it can, aiming for two, and a smaller tile only where
-    # nothing larger fits at all.  First choice: the largest tile that is
-    # a whole split on its own, staged once; else the largest that fits,
-    # double-buffered.
-    warp = attention_warp_path(qrows, hd)
-    target = ATTN_SMEM_MAX // (3 if warp else 2)
     tiles = _attention_tiles(qrows, hd)
-    soft = tiles if warp else tiles[:2]
-    choice = None
-    for tile in soft:
-        if smem(tile, tile) <= target:
-            splits, split_rows = geometry(tile, tile)
-            if split_rows == tile:
-                choice = tile, splits, split_rows
-                break
-    if choice is None:
-        # past the target: the warp path takes its smallest tile, the tile
-        # path the largest that fits
-        tile = next((t for t in soft if smem(t, 2 * t) <= target),
-                    tiles[-1] if warp else
-                    next((t for t in tiles
-                          if smem(t, 2 * t) <= ATTN_SMEM_MAX), tiles[-1]))
-        choice = tile, *geometry(tile, 2 * tile)
+    if attention_warp_path(qrows, hd):
+        # 32-, 64- or 128-row tiles (4, 8 or 16 rows a warp), aiming for
+        # three blocks a SM.  First choice: the largest tile that is a
+        # whole split on its own, staged once; else the largest that fits
+        # double-buffered, or the smallest.
+        target = ATTN_SMEM_MAX // 3
+        choice = None
+        for tile in tiles:
+            if smem(tile, tile) <= target:
+                splits, split_rows = geometry(tile, tile)
+                if split_rows == tile:
+                    choice = tile, splits, split_rows
+                    break
+        if choice is None:
+            tile = next((t for t in tiles if smem(t, 2 * t) <= target),
+                        tiles[-1])
+            choice = tile, *geometry(tile, 2 * tile)
+    else:
+        # as many splits as one wave of two blocks a SM holds, at most
+        # ATTN_MAX_SPLITS and never past it (the wave's count rounded
+        # down: a second, part-filled wave costs more than longer splits),
+        # in the largest tile that still allows them among those whose
+        # block fits two a SM (else those that fit at all; else the
+        # smallest, with the most splits).  Decode-like blocks (GQA-6/8
+        # at C1, few (b, kv head) pairs) get 8 splits of one 64-row tile;
+        # stablelm's chunks 2 splits of two 128-row tiles; the encoder's
+        # 256 pairs one split.
+        rows = max(1, skv)
+        pairs = b * kvh * -(-nq // qrows)
+        want = max(1, min(ATTN_MAX_SPLITS, _ATTN_TILE_BLOCKS_PER_SM
+                          * _sm_count(device_key) // max(1, pairs)))
+
+        def pick(t):
+            span = math.lcm(t, page_size or 1)
+            per = -(-(-(-rows // min(want, -(-rows // span)))) // span) * span
+            return t, -(-rows // per), per
+        opts = [pick(t) for t in tiles]
+        fit = ([o for o in opts if smem(o[0], o[2]) <= ATTN_SMEM_MAX // 2]
+               or [o for o in opts if smem(o[0], o[2]) <= ATTN_SMEM_MAX]
+               or opts[-1:])
+        choice = next((o for o in fit if o[1] >= want), fit[-1])
     tile, splits, split_rows = choice
     # paged: the split's table entries and one cell per row
     table_len = split_rows // page_size + split_rows if page_size else 0

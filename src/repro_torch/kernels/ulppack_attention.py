@@ -36,7 +36,10 @@ position p of row b lives at physical page ``bt[b, p // page_size]``
 math of the reference's ``_attention_decode_xla``, :158-223, which gathers
 each group's pages through the table); ``kernel_launches`` /
 ``plain_calls`` count each kernel's launches and each plain version's
-calls, keyed by kernel name.
+calls, keyed by kernel name, and ``tile_launches`` the launches that took
+the kernel's tile path (more than 4 query rows a block, on the bf16
+tensor cores: prefill chunks, verify windows, GQA groups past 4, the
+encoder); the rest took its warp path.
 
 ``REPRO_FUSED_DECODE=0`` in the environment turns the fused read off
 (:func:`enabled`, :func:`disabled`): models/attention.py then takes the
@@ -59,16 +62,19 @@ NEG_INF = -1e30
 NAMES = ("attention_decode", "attention_decode_paged")
 
 #: Launches of each CUDA kernel / calls of each plain version in this
-#: process, keyed by kernel name (K3 contiguous, K4 paged).
+#: process, keyed by kernel name (K3 contiguous, K4 paged), and the
+#: launches of each kernel that took its tile path
+#: (``plan.attention_warp_path`` false); the others took the warp path.
 kernel_launches = dict.fromkeys(NAMES, 0)
 plain_calls = dict.fromkeys(NAMES, 0)
+tile_launches = dict.fromkeys(NAMES, 0)
 
 _launch: dict = {}
 
 
 def reset_counts():
     for k in NAMES:
-        kernel_launches[k] = plain_calls[k] = 0
+        kernel_launches[k] = plain_calls[k] = tile_launches[k] = 0
 
 
 #: Environment kill-switch: "0" disables the fused decode read everywhere
@@ -278,6 +284,14 @@ def _geometry(plan):
             plan.threads, plan.smem_bytes)
 
 
+def _count(name, plan, hd):
+    """One launch of ``name``, and of its tile path where the plan's rows
+    take it."""
+    kernel_launches[name] += 1
+    if not plan_lib.attention_warp_path(plan.block_m, hd):
+        tile_launches[name] += 1
+
+
 def attention_decode_cuda(q, cache, valid_len, qpos, *, kv_bits: int,
                           hd: int, plan=None):
     """Launch K3 over a contiguous cache [B, S, KVH, ...] on the card, with
@@ -306,7 +320,7 @@ def attention_decode_cuda(q, cache, valid_len, qpos, *, kv_bits: int,
            out.data_ptr(), b, c, h, kvh, skv, hd, k.shape[-1], kind,
            kv_bits, qtype, *_geometry(plan), q.device.index or 0,
            torch.cuda.current_stream(q.device).cuda_stream)
-        kernel_launches["attention_decode"] += 1
+        _count("attention_decode", plan, hd)
     return out
 
 
@@ -342,7 +356,7 @@ def attention_decode_paged_cuda(q, cache, valid_len, qpos, block_tables, *,
            num_pages, hd, k.shape[-1], kind, kv_bits, qtype,
            *_geometry(plan), q.device.index or 0,
            torch.cuda.current_stream(q.device).cuda_stream)
-        kernel_launches["attention_decode_paged"] += 1
+        _count("attention_decode_paged", plan, hd)
     return out
 
 

@@ -355,7 +355,7 @@ def make_draft_step(cfg, k: int, *, backend: str = "auto"):
 #: The launch and call counters of the kernel wrappers a step can reach.
 _COUNTED = (quant_pack, ulppack_matmul, ulppack_attention, cache_write)
 _COUNTERS = ("kernel_launches", "plain_calls", "mma_launches",
-             "dense_mma_launches", "library_launches")
+             "dense_mma_launches", "library_launches", "tile_launches")
 
 
 def _counts() -> dict:

@@ -5,10 +5,15 @@ The plan gives the kernel's geometry -- query rows per block, splits of
 whole tiles (and whole pages when paged) that cover the logical length,
 rows per staged tile and shared memory per block -- beside the plain
 version's group ``block_k``; csrc/attention_decode.cu refuses a plan that
-breaks these rules, which the card tests check.
+breaks these rules, which the card tests check.  Blocks of more than 4
+query rows take the kernel's tile path (bf16 tensor cores): its warp
+layout, its tiles and its shared memory are pinned here against the
+source.
 """
 
 import math
+import re
+from pathlib import Path
 
 import pytest
 
@@ -59,6 +64,9 @@ def test_splits_cover_the_cache(shape, kv_bits):
     assert p.tile_rows % 4 == 0
     if plan_lib.attention_warp_path(p.block_m, shape[5]):
         assert p.tile_rows in (32, 64, 128)
+    else:   # whole k16 steps of the tensor cores' P.V
+        assert p.tile_rows in plan_lib.ATTN_TILE_TILES
+        assert p.tile_rows % 16 == 0
     assert 1 <= p.splits <= plan_lib.ATTN_MAX_SPLITS
     assert 1 <= p.tile_rows <= plan_lib.ATTN_MAX_TILE
     assert p.threads == plan_lib.ATTN_THREADS
@@ -105,7 +113,7 @@ def test_smem_is_the_kernel_layout(shape, kv_bits):
     """smem_bytes is the kernel's layout at the plan's geometry, with the
     split's table entries when paged (a split of one tile has one staging
     buffer); up to 4 query rows a block fit three blocks an SM (or take
-    the smallest tile), wider blocks two where a 64-row tile allows it."""
+    the smallest tile), wider blocks two."""
     b, c, s, h, kvh, hd = shape
     rb = plan_lib.attention_row_bytes(hd, kv_bits)
     for ps in (None, 16):
@@ -117,10 +125,8 @@ def test_smem_is_the_kernel_layout(shape, kv_bits):
                                             0, p.split_rows)
         if plan_lib.attention_warp_path(p.block_m, hd):
             assert one <= plan_lib.ATTN_SMEM_MAX // 3 or p.tile_rows == 32
-        elif p.tile_rows >= 64:
-            half = plan_lib.ATTN_SMEM_MAX // 2
-            assert one <= half or plan_lib.attention_smem_bytes(
-                p.block_m, 64, hd, rb, 0, 128) > half
+        else:
+            assert one <= plan_lib.ATTN_SMEM_MAX // 2
 
 
 def test_one_tile_splits_are_staged_once():
@@ -225,3 +231,160 @@ def test_split_rows_rounding_uses_the_page_tile_lcm():
     both."""
     p = _plan((1, 1, 960, 4, 4, 64), 4, 48)
     assert p.split_rows % math.lcm(p.tile_rows, 48) == 0
+
+
+# -- the tile path: warp layout, shared memory, constants -------------------
+
+def _a16(n):
+    return -(-n // 16) * 16
+
+
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+@pytest.mark.parametrize("qrows", [5, 6, 8, 16, 17, 32, 33, 48, 49, 64])
+def test_tile_warps_cover_the_block(qrows, tile, hd):
+    """The 8 warps split as m-block groups x key slices x dim slices: the
+    groups cover the m16 blocks of the rows (three take four), every key
+    slice is whole k16 steps of the tile, the dim slices cover the n8
+    tiles of the dims padded to 16, and a warp's accumulator holds at most
+    8 n8 tiles (16 only past hd 128 with four groups)."""
+    wm, wk, wd, ntw = plan_lib.attention_tile_warps(qrows, tile, hd)
+    mb = -(-qrows // plan_lib.ATTN_MMA_M)
+    assert wm * wk * wd == plan_lib.ATTN_WARPS
+    assert wm == (4 if mb == 3 else mb) and wm * 16 >= qrows
+    assert tile % wk == 0 and (tile // wk) % 16 == 0
+    nt = 2 * -(-hd // 16)
+    assert ntw * wd >= nt and (ntw - 1) * wd < nt
+    assert ntw <= 8 or (hd > 128 and wm == 4 and ntw == 16)
+    # as many key slices as the tile and the dims' split allow
+    assert wk == min(tile // 16, plan_lib.ATTN_WARPS // wm // max(
+        1, min(1 << (-(-nt // 8) - 1).bit_length(),
+               plan_lib.ATTN_WARPS // wm)))
+
+
+# (qrows, tile, hd, row_bytes, table_len, split_rows) -> bytes by region:
+# q planes (3 x q16 x (hdp + 8) bf16), sums of 8 dims of q (q16 x hdp / 8
+# f32), staging | carries (max of nbuf x (K, V) x tile x stride and wk x
+# q16 x hdp f32), scales (2 x 2 x tile f32), four row words, merge weights
+# (9 x q16), the warps' m and l, table
+TILE_LAYOUTS = [
+    # stablelm C16 kv16: q16 16, hdp 64, stride 144, wk 8, two buffers
+    ((16, 128, 64, 128, 0, 256),
+     (6912, 512, 73728, 2048, 256, 576, 1024, 0)),
+    # stablelm C5 kv4 (a verify window): rows padded to 16, stride 48
+    ((5, 128, 64, 32, 0, 256),
+     (6912, 512, 32768, 2048, 256, 576, 1024, 0)),
+    # granite C16 kv16 (G 4 x 16 = 64 rows): wk 1, one buffer, the carry
+    ((64, 32, 128, 256, 0, 32),
+     (52224, 4096, 32768, 512, 1024, 2304, 512, 0)),
+    # 33 rows: three m16 blocks (q16 48), dims 80 (stride 176), a split of
+    # one tile (one buffer), paged: 16-row pages (4 entries + 64 cells)
+    ((33, 64, 80, 160, 68, 64),
+     (25344, 1920, 22528, 1024, 768, 1728, 384, 272)),
+    # hd 256 x 64 rows, f32 rows (stride 1040): wk 1, two dim slices
+    ((64, 16, 256, 1024, 0, 512),
+     (101376, 8192, 66560, 256, 1024, 2304, 512, 0)),
+]
+
+
+@pytest.mark.parametrize("args,parts", TILE_LAYOUTS, ids=str)
+def test_tile_smem_region_by_region(args, parts):
+    """The tile path's shared memory is ``tile_layout``'s regions, each
+    rounded up to 16 bytes: query rows padded to m16 blocks, dims to 16,
+    staged rows strided by an odd multiple of 16 bytes."""
+    qrows, tile, hd, rb, table, split = args
+    assert not plan_lib.attention_warp_path(qrows, hd)
+    assert [_a16(x) for x in parts] == list(parts)
+    assert plan_lib.attention_smem_bytes(*args) == sum(parts)
+    q16 = -(-qrows // 16) * 16
+    hdp = -(-hd // 16) * 16
+    assert parts[0] == 2 * 3 * q16 * (hdp + 8)
+    assert parts[1] == 4 * q16 * hdp // 8
+    stride = _a16(rb) | 16
+    assert (stride // 16) % 2 == 1
+    wk = plan_lib.attention_tile_warps(qrows, tile, hd)[1]
+    nbuf = 2 if split > tile else 1
+    assert parts[2] == max(nbuf * 2 * tile * stride, 4 * wk * q16 * hdp)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4, 2])     # the served caches
+@pytest.mark.parametrize("shape", [(4, 5, 512, 32, 32, 64),
+                                   (4, 16, 512, 32, 32, 64),
+                                   (4, 1, 512, 12, 2, 128),
+                                   (4, 16, 512, 12, 2, 128)], ids=str)
+def test_tile_is_the_same_for_a_shard_of_the_kv_heads(shape, kv_bits):
+    """The served two-shard reads (stablelm's verify windows and chunks,
+    qwen2-vl's decode and chunks, half the kv heads a shard) take the
+    whole read's tile and so its key slices: a read with one live split
+    (the serve prompts' lengths) gives the whole read's bits, and
+    qwen2-vl's splits match too."""
+    b, c, s, h, kvh, hd = shape
+    whole = _plan(shape, kv_bits)
+    assert not plan_lib.attention_warp_path(whole.block_m, hd)
+    p = _plan((b, c, s, h // 2, kvh // 2, hd), kv_bits)
+    assert (p.block_m, p.tile_rows) == (whole.block_m, whole.tile_rows)
+    if kvh == 2:
+        assert (p.splits, p.split_rows) == (whole.splits, whole.split_rows)
+
+
+def test_constants_match_the_kernel_source():
+    """The planner's copy of K3/K4's constraints is the one in
+    csrc/attention_decode.cu: threads, the cluster's splits, rows a block
+    and a tile, the shared-memory cap, blocks an SM on each path, the
+    tile path's m16 rows, q terms and tiles, and the warp path's 4 rows."""
+    src = (Path(plan_lib.__file__).parent.parent / "csrc"
+           / "attention_decode.cu").read_text()
+    c = {k: int(v) for k, v in
+         re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (c["kThreads"], c["kMaxSplits"], c["kMaxQRows"], c["kMaxTile"],
+            c["kSmemMax"], c["kMinBlocks"], c["kTileMinBlocks"],
+            c["kMmaM"], c["kQTerms"], c["kWarpQ"]) == (
+        plan_lib.ATTN_THREADS, plan_lib.ATTN_MAX_SPLITS,
+        plan_lib.ATTN_MAX_QROWS, plan_lib.ATTN_MAX_TILE,
+        plan_lib.ATTN_SMEM_MAX, plan_lib._ATTN_BLOCKS_PER_SM,
+        plan_lib._ATTN_TILE_BLOCKS_PER_SM, plan_lib.ATTN_MMA_M,
+        plan_lib.ATTN_Q_TERMS, 4)
+    ok = re.search(r"inline bool tile_tile_ok\(int tile\) \{\s*return "
+                   r"([^;]*);", src).group(1)
+    assert sorted(int(v) for v in re.findall(r"tile == (\d+)", ok)) == \
+        sorted(plan_lib.ATTN_TILE_TILES)
+    assert "__launch_bounds__(kThreads, kTileMinBlocks)" in src
+    assert "static_cast<int>(align16(row_bytes) | 16)" in src
+    assert "while (wd_min * 8 < nt && wd_min * w.wm < kWarps)" in src
+
+
+@pytest.mark.parametrize("kv_bits", KV_BITS)
+@pytest.mark.parametrize("page_size", [None, 8, 16])
+@pytest.mark.parametrize("shape", [(4, 5, 512, 32, 32, 64),
+                                   (4, 16, 512, 32, 8, 128),
+                                   (4, 16, 512, 12, 2, 128),
+                                   (2, 256, 256, 16, 16, 64)], ids=str)
+def test_tile_path_plans_fit_two_blocks(shape, kv_bits, page_size):
+    """Verify windows, GQA-4/6 prefill chunks and the encoder's read plan
+    a block that fits two an SM, with as many splits as one wave of such
+    blocks holds (at most 8, and as many as the rows allow), in the
+    largest tile that allows them; the plan's shared memory is the tile
+    layout at its geometry."""
+    b, c, s, h, kvh, hd = shape
+    if page_size and s % page_size:
+        pytest.skip("pages do not cover the cache")
+    p = _plan(shape, kv_bits, page_size)
+    assert not plan_lib.attention_warp_path(p.block_m, hd)
+    rb = plan_lib.attention_row_bytes(hd, kv_bits)
+    table = p.split_rows // page_size + p.split_rows if page_size else 0
+    assert p.smem_bytes == plan_lib.attention_smem_bytes(
+        p.block_m, p.tile_rows, hd, rb, table, p.split_rows)
+    assert plan_lib.attention_smem_bytes(
+        p.block_m, p.tile_rows, hd, rb, 0, p.split_rows) \
+        <= plan_lib.ATTN_SMEM_MAX // 2
+    pairs = b * kvh * -(-c * (h // kvh) // p.block_m)
+    want = max(1, min(8, 2 * 132 // pairs))
+    span = math.lcm(p.tile_rows, page_size or 1)
+    assert p.splits == min(want, -(-s // span))
+    for t in plan_lib.ATTN_TILE_TILES:       # no larger tile that fits
+        if t > p.tile_rows:                  # two an SM allows them
+            sp = math.lcm(t, page_size or 1)
+            n = min(want, -(-s // sp))
+            per = -(-(-(-s // n)) // sp) * sp
+            assert n < want or plan_lib.attention_smem_bytes(
+                p.block_m, t, hd, rb, 0, per) > plan_lib.ATTN_SMEM_MAX // 2

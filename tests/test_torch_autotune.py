@@ -10,9 +10,11 @@ and equal engine tokens."""
 
 import dataclasses
 import json
+import math
 import warnings
 
 import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -308,6 +310,52 @@ class TestAttentionDecodeEntry:
                 *self.SHAPE, tile_rows=g["tile_rows"],
                 split_rows=g["split_rows"],
                 page_size=16 if paged else None)
+
+
+class TestAttentionTileEntry:
+    """The tile path (a 16-row prefill chunk of stablelm's heads): its
+    candidates and tuned entries are tiles of 16 .. 128 rows."""
+
+    SHAPE = (4, 16, 512, 32, 32, 64, 4)
+
+    @pytest.mark.parametrize("paged", [False, True])
+    def test_candidates_are_tile_path_tiles(self, paged):
+        kw = dict(page_size=16) if paged else dict(align=16)
+        cands = plan_lib.attention_decode_candidates(*self.SHAPE, **kw)
+        heur = plan_lib.plan_attention_decode(
+            *self.SHAPE, page_size=16 if paged else None)
+        assert not plan_lib.attention_warp_path(heur.block_m, 64)
+        assert any(g == {f: getattr(heur, f) for f in g} for g in cands)
+        assert {g["tile_rows"] for g in cands} == set(
+            plan_lib.ATTN_TILE_TILES)
+        for g in cands:
+            assert g["block_m"] == 16
+            assert g["split_rows"] % math.lcm(g["tile_rows"], 16) == 0
+            assert g["smem_bytes"] <= plan_lib.ATTN_SMEM_MAX
+            assert g == plan_lib.attention_decode_geometry(
+                *self.SHAPE, tile_rows=g["tile_rows"],
+                split_rows=g["split_rows"],
+                page_size=16 if paged else None)
+
+    def test_tuned_tile_adopted_by_k3_and_k4(self):
+        key = autotune.attention_decode_key(*self.SHAPE, backend="torch")
+        _install({key: {"tile_rows": 32, "split_rows": 128, "splits": 4}})
+        for ps in (None, 16):
+            p = plan_lib.plan_attention_decode(*self.SHAPE, page_size=ps)
+            assert (p.source, p.tile_rows, p.split_rows, p.splits) == (
+                "tuned", 32, 128, 4)
+
+    @pytest.mark.parametrize("entry", [
+        {"tile_rows": 8, "split_rows": 128},     # the old f32 tile path's
+        {"tile_rows": 4, "split_rows": 64},      # tiles: no k16 step
+        {"tile_rows": 48, "split_rows": 96}])    # not a power-of-two tile
+    def test_stale_tiles_fall_back(self, entry):
+        key = autotune.attention_decode_key(*self.SHAPE, backend="torch")
+        _install({key: entry})
+        with pytest.warns(UserWarning, match="ignoring autotune entry"):
+            p = plan_lib.plan_attention_decode(*self.SHAPE)
+        assert p == plan_lib.plan_attention_decode(*self.SHAPE,
+                                                   use_tuning_cache=False)
 
 
 # ---------------------------------------------------------------------------

@@ -237,22 +237,27 @@ def test_ulppack_matmul_mma_launcher_refuses_a_plan_that_disagrees(hopper,
 
 
 # (B, pages of 16 rows, H, KVH, hd, valid_len): the small case, granite-3-8b's
-# grouping (32 query heads on 8 kv heads of 128), and a long cache (several
+# grouping (32 query heads on 8 kv heads of 128), a long cache (several
 # splits) whose live lengths are multiples neither of the plan's rows per
-# split nor of a page.  Row 2 is dead.  The contiguous test cuts the small
-# cache to S = 200 rows, no whole number of tiles.
+# split nor of a page, and qwen2-vl's and jamba's groups of 6 and 8 at hd
+# 128 (their decode takes the tile path).  Row 2 is dead.  The contiguous
+# test cuts the small cache to S = 200 rows, no whole number of tiles.
+# C 1 takes the kernel's warp path where G <= 4, C 5 and 16 its tile path.
 ATTN_SHAPES = {"small": (3, 13, 8, 4, 64, (200, 37, 0)),
                "gqa": (3, 32, 32, 8, 128, (512, 301, 0)),
-               "long": (3, 256, 8, 4, 64, (4001, 1234, 0))}
+               "long": (3, 256, 8, 4, 64, (4001, 1234, 0)),
+               "g6": (3, 32, 12, 2, 128, (512, 301, 0)),
+               "g8": (3, 32, 32, 4, 128, (512, 301, 0))}
 PAGE = 16
 
 
 def _attn_case(dev, kv_bits, c, shape, seed):
-    """A contiguous cache [B, S, KVH, ...], the same logical rows laid out
+    """A contiguous cache [B, S, KVH, ...] (``shape``: a key of
+    ATTN_SHAPES or such a tuple), the same logical rows laid out
     in a pool through a scrambled block table (a random permutation of the
     physical pages; entries past a row's live pages point anywhere), q, the
     live lengths and the query positions."""
-    b, n_pages, h, kvh, hd, vl = ATTN_SHAPES[shape]
+    b, n_pages, h, kvh, hd, vl = ATTN_SHAPES.get(shape, shape)
     s = n_pages * PAGE
     g = _gen(dev, seed)
     k = torch.randn((b, s, kvh, hd), generator=g, device=dev)
@@ -284,7 +289,7 @@ def _attn_case(dev, kv_bits, c, shape, seed):
 
 @pytest.mark.parametrize("shape", list(ATTN_SHAPES))
 @pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
-@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("c", [1, 5, 16])
 def test_attention_decode_matches_plain(hopper, kv_bits, c, shape):
     """f32 queries: kernel and plain version differ only in summation
     order, so they agree to 1e-4; the dead row is exactly zero."""
@@ -330,6 +335,89 @@ def test_attention_launcher_refuses_a_plan_that_disagrees(hopper, paged,
     plan = plan_lib.plan_attention_decode(
         b, c, bt.shape[1] * PAGE, h, kvh, hd, 4,
         page_size=PAGE if paged else None, device=hopper)
+    bad = dataclasses.replace(plan, **{field: getattr(plan, field) + delta})
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if paged:
+            ulppack_attention.attention_decode_paged_cuda(
+                q, pool, vl, qpos, bt, kv_bits=4, hd=hd, plan=bad)
+        else:
+            ulppack_attention.attention_decode_cuda(
+                q, cache, vl, qpos, kv_bits=4, hd=hd, plan=bad)
+
+
+@pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
+@pytest.mark.parametrize("h,kvh,c", [(4, 4, 5), (12, 2, 1), (4, 4, 17),
+                                     (12, 2, 8)])
+def test_attention_tile_rows_not_a_multiple_of_16(hopper, h, kvh, c,
+                                                  kv_bits):
+    """Blocks of 5, 6 and 17 query rows (m16 blocks partly padded) and of
+    48 (three m16 blocks: a fourth group of warps idle): within 1e-4 of
+    the plain version, K4 through the scrambled table bit-equal to K3, the
+    dead row zero."""
+    b, n_pages, hd = 3, 24, 64 if h == kvh else 128
+    q, cache, pool, bt, vl, qpos, hd = _attn_case(
+        hopper, kv_bits, c, (b, n_pages, h, kvh, hd, (384, 301, 0)), 11 + c)
+    plan = plan_lib.plan_attention_decode(b, c, n_pages * PAGE, h, kvh, hd,
+                                          kv_bits, device=hopper)
+    assert plan.block_m == c * h // kvh
+    assert not plan_lib.attention_warp_path(plan.block_m, hd)
+    got = ulppack_attention.attention_decode_cuda(q, cache, vl, qpos,
+                                                  kv_bits=kv_bits, hd=hd)
+    want = ulppack_attention.attention_decode_torch(
+        q, cache, vl, qpos, kv_bits=kv_bits, hd=hd, block_k=64)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, ulppack_attention.attention_decode_paged_cuda(
+        q, pool, vl, qpos, bt, kv_bits=kv_bits, hd=hd))
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_attention_every_key_admitted_in_four_chunks(hopper, qdtype):
+    """The encoder's read: C 256 over 256 bf16 keys with every key
+    admitted (valid_len 256, every query at 255), H16 hd64 -- four chunks
+    of 64 query rows a kv head: within 1e-4 of the plain version (f32 q;
+    plus one bf16 ulp with bf16 q), two launches bit-equal."""
+    b, s, h, hd = 2, 256, 16, 64
+    g = _gen(hopper, 5)
+    q = torch.randn((b, s, h, hd), generator=g, device=hopper).to(qdtype)
+    cache = {n: torch.randn((b, s, h, hd), generator=g,
+                            device=hopper).bfloat16() for n in ("k", "v")}
+    vl = torch.full((b,), s, dtype=torch.int32, device=hopper)
+    qpos = torch.full((b, s), s - 1, dtype=torch.int32, device=hopper)
+    plan = plan_lib.plan_attention_decode(b, s, s, h, h, hd, 0,
+                                          cache_dtype=torch.bfloat16,
+                                          device=hopper)
+    assert plan.block_m == 64
+    got = ulppack_attention.attention_decode_cuda(q, cache, vl, qpos,
+                                                  kv_bits=0, hd=hd)
+    want = ulppack_attention.attention_decode_torch(
+        q, cache, vl, qpos, kv_bits=0, hd=hd, block_k=512).float()
+    rtol = 1e-4 if qdtype == torch.float32 else 2.0 ** -7
+    assert ((got.float() - want).abs() <= 1e-4 + rtol * want.abs()).all()
+    assert torch.equal(got, ulppack_attention.attention_decode_cuda(
+        q, cache, vl, qpos, kv_bits=0, hd=hd))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("field,delta", [("splits", 1), ("split_rows", 16),
+                                         ("tile_rows", 8), ("tile_rows", 48),
+                                         ("smem_bytes", 16),
+                                         ("block_m", 16)])
+def test_attention_tile_launcher_refuses_a_plan_that_disagrees(
+        hopper, paged, field, delta):
+    """On the tile path (C16 over granite's grouping: 64 rows a block) the
+    launcher refuses a tile that is not 16, 32, 64 or 128 rows, a split
+    count or split that does not cover the cache, and shared memory or
+    rows that are not its layout's."""
+    import dataclasses
+
+    q, cache, pool, bt, vl, qpos, hd = _attn_case(hopper, 4, 16, "gqa", 3)
+    b, c, h, _ = q.shape
+    kvh = cache["k"].shape[2]
+    plan = plan_lib.plan_attention_decode(
+        b, c, bt.shape[1] * PAGE, h, kvh, hd, 4,
+        page_size=PAGE if paged else None, device=hopper)
+    assert not plan_lib.attention_warp_path(plan.block_m, hd)
     bad = dataclasses.replace(plan, **{field: getattr(plan, field) + delta})
     with pytest.raises(RuntimeError, match="CUDA error"):
         if paged:
@@ -715,7 +803,7 @@ def test_conv_launcher_refuses_a_plan_that_disagrees_with_the_tile(hopper,
 
 @pytest.mark.parametrize("shape", list(ATTN_SHAPES))
 @pytest.mark.parametrize("kv_bits", [0, 16, 8, 4, 2])
-@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("c", [1, 5, 16])
 def test_paged_attention_matches_plain_and_contiguous(hopper, kv_bits, c,
                                                       shape):
     """K4 against the paged plain version (1e-4, as K3) and against K3 on
