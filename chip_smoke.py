@@ -44,21 +44,21 @@ toolkit:
    the end and dead slots' all-zero block tables, page 0 left untouched,
    timed at the decode step's write beside ``index_put_`` on each leaf);
    then the packed conv (K5) and the int16 conv
-   (K6), bit-equal, at the paper's Fig. 4 shape (K6 on the tensor cores at
-   int16 values in [-256, 256) and at the full int16 range, where the sums
-   wrap, a second launch bit-equal, the CUDA-core K6 bit-equal and timed
-   on the same operands; the CUDA-core K6 at 64 channels, which the
-   tensor-core K6 does not hold) and at the full-width
-   ``sparq-cnn`` layers (K5 at int16xP2s8 on the tensor cores, a second
-   launch bit-equal, its fused epilogue bit-equal to ``cnn.conv_epilogue``
-   and timed, the CUDA-core tile timed on the same operands; every Fig. 4
-   case, int8xP2s4 included, and the widest layer at W4A4 int32xP2s16 on
-   the tensor cores too; the CUDA-core tile at the Fig. 4 conv at 128
-   channels, its route past the tensor cores' shared memory).  It times the kernel, the plain
+   (K6), bit-equal, every row on the tensor cores with a second launch
+   bit-equal and the CUDA-core tile (on no route) bit-equal and timed on
+   the same operands (``cores_ms``): the paper's Fig. 4 shape (K6 at int16
+   values in [-256, 256) and at the full int16 range, where the sums wrap;
+   K5 at every case, int8xP2s4 included), the Fig. 4 conv at 64 (K6) and
+   128 (K5 W2A2) channels and ResNet-18's conv4_x shape (3x3 256 -> 256 at
+   batch 64 on 14 x 14: K6 int16, K5 W2A2 and W4A4 int32xP2s16), whose K
+   the kernels take in channel chunks, and the full-width ``sparq-cnn``
+   layers (K5 at int16xP2s8, lanes and dense, and the widest layer at W4A4
+   int32xP2s16); K5's fused epilogue bit-equal to ``cnn.conv_epilogue``
+   and timed.  It times the kernel, the plain
    version and one PyTorch call that computes the same function where
-   there is one (K5: ``F.conv2d`` on the f32 lattices with TF32 off, and
-   with TF32 allowed where that is exact; K6: ``F.conv2d`` in f64, also
-   held equal once rounded and wrapped)
+   there is one (K5: ``F.conv2d`` on the f32 lattices with TF32 off, held
+   equal once rounded, and with TF32 allowed where that is exact; K6:
+   ``F.conv2d`` in f64, also held equal once rounded and wrapped)
    (CUDA-graph replay between CUDA events, median of repeats, inputs
    rotated over copies larger than the 50 MB L2 where the path reads them
    cold).
@@ -132,13 +132,12 @@ toolkit:
    routes: their path); a ``linear`` line with each time and the weight
    bytes.
 6. Fig. 4 phase: the int16 conv, the int16 conv at 64 channels, each
-   packed case and the W2A2 case at 128 channels once through
-   ``ops.int_conv2d`` / ``ops.packed_conv2d`` (the tensor-core K6, the
-   CUDA-core K6, the tensor-core K5 at every case and the CUDA-core K5 at
-   128 channels launched, no plain call), and a ``fig4`` line with each
-   packed time, the int16 time and their ratio on the tensor cores beside
-   the paper's, and as a second column the CUDA-core K5's ratio over the
-   CUDA-core K6.
+   packed case, the W2A2 case at 128 channels and the conv4_x rows once
+   through ``ops.int_conv2d`` / ``ops.packed_conv2d`` (only the
+   tensor-core K5 and K6 launched, no CUDA-core launch, no plain call),
+   and a ``fig4`` line with each packed time, the int16 time and their
+   ratio on the tensor cores beside the paper's, as a second column the
+   CUDA-core K5's ratio over the CUDA-core K6, and the chunked rows.
 7. CNN phase: full-width ``sparq-cnn`` W2A2 (random weights from a seed),
    weights prepared and plans built once, classifying 4 batches of 8
    random 256x256x3 images through ``cnn.forward(quant_mode="packed")``
@@ -320,7 +319,9 @@ first), ``--w4a4`` only the every-layout K2 rows, the conv rows with the
 together run each).  ``python3 chip_smoke.py --w4a4-pass SRC`` runs only
 the graphed W4A4 decode pass of the package under ``SRC`` (``w4a4 pass``
 line), so that two trees -- this one and another unpacked beside it --
-are compared in one call.
+are compared in one call; ``--conv SRC`` likewise runs only K5 and K6 at
+``CONV_COMPARE_CASES`` through that tree's planner (``conv-compare row``
+lines) and its CNN phase.
 
 14. The ``serve w4a4`` lines (after the ``spec`` lines): first
    ``kernel-vs-plain w4a4`` (as the serve phase's, on W4A4 params) and
@@ -342,10 +343,11 @@ kernel of a path (K1-K7; K2 on the tensor cores as its int16xP2s8 lanes
 route ``ulppack_matmul_mma``, K1 folded in as ``quantized_linear_mma``,
 over the dense store as ``quantized_linear_mma_dense``, and at every other
 layout as ``ulppack_matmul_mma_lanes`` / ``quantized_linear_mma_lanes``;
-K5 and K6 each as its tensor-core and its CUDA-core kernel; the window
-write ``cache_write``, which has no TPU kernel of its own) with the
-launches of its path.  The CUDA-core K2 is on no path: the K2 rows
-time it (``core_ms``).  ``phase`` lines give the seconds since the start
+K5 and K6 on the tensor cores, each with its CUDA-core tile as a
+``comparison`` entry (on no path, 0 launches, timed at the shape it took
+before the chunked K loop); the window write ``cache_write``, which has no
+TPU kernel of its own) with the launches of its path.  The CUDA-core K2 is
+on no path: the K2 rows time it (``core_ms``).  ``phase`` lines give the seconds since the start
 after each phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
@@ -359,6 +361,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1540,6 +1543,11 @@ FIG4 = dict(n=1, hw=256, c=32, k=7, co=32)
 FIG4_SPECS = ("W3A3/int16xP2s8", "W2A2/int16xP2s8", "W1A1/int16xP2s8",
               "W1A1/int8xP2s4")
 FIG4_PAPER = {"W2A2": 3.2, "W3A3": 1.7}
+#: ResNet-18's conv4_x shape at batch 64 (3x3, 256 -> 256 on 14 x 14,
+#: SAME): rows of K5 (W2A2 int16xP2s8, W4A4 int32xP2s16) and K6 (int16)
+#: whose K the tensor cores take in channel chunks.
+R18 = dict(n=64, hw=14, c=256, k=3, co=256)
+R18_SPECS = ("W2A2/int16xP2s8", "W4A4/int32xP2s16")
 CNN_BATCH, CNN_BATCHES = 8, 4
 
 
@@ -1559,14 +1567,17 @@ def tf32():
 def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
     """K5 and K6 against their plain versions (bit-equal) and timed: the
     Fig. 4 shape (K6 on int16 values in [-256, 256), K5 on each packed
-    case), and ``cnn_cfg``'s packed layers at the CNN phase's batch (SAME,
-    its layout, lanes and dense).  ``int16xP2s8`` rows run the tensor-core
-    K5 (``ulppack_conv2d_mma``: a second launch bit-equal, its fused
-    epilogue bit-equal to ``cnn.conv_epilogue`` and timed, the CUDA-core
-    tile's time on the same operands beside it); the other layouts the
-    CUDA-core K5.  Library yardsticks: ``F.conv2d`` on the f32 lattices
-    with TF32 off, and with TF32 allowed where that is exact.  Returns
-    (rows, the Fig. 4 operands by case)."""
+    case), the Fig. 4 conv at 64 (K6) and 128 (K5) channels and ResNet-18's
+    conv4_x shape (``R18``: K6 int16, K5 W2A2 and W4A4), whose K the tensor
+    cores take in channel chunks, and ``cnn_cfg``'s packed layers at the
+    CNN phase's batch (SAME, its layout, lanes and dense).  Every row runs
+    the tensor-core kernel through the planner's route: a second launch
+    bit-equal, K5's fused epilogue bit-equal to ``cnn.conv_epilogue`` and
+    timed, and the CUDA-core tile (on no route; kept as the comparison)
+    bit-equal and timed on the same operands as ``cores_ms``.  Library
+    yardsticks: ``F.conv2d`` on the f32 lattices with TF32 off, and with
+    TF32 allowed where that is exact (K5); in float64 (K6).  Returns (rows,
+    the Fig. 4 and R18 operands by case)."""
     import torch.nn.functional as F
 
     from repro_torch.core import packing
@@ -1583,32 +1594,31 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
     n, hw, c, k, co = (FIG4[f] for f in ("n", "hw", "c", "k", "co"))
     fig4_label = f"fig4 x[{n},{hw},{hw},{c}] w[{k},{k},{c},{co}] VALID"
 
-    def int_row(label, lo, hi, c, route, key=None):
-        """K6 on int16 values in [lo, hi) at the Fig. 4 shape with ``c``
-        channels, through the planner's route: bit-equal to the plain
-        version and, rounded (and wrapped mod 2^32), to F.conv2d in
-        float64; on the tensor cores also a second launch bit-equal and
-        the CUDA-core K6 bit-equal and timed on the same operands."""
+    def int_row(label, lo, hi, shape, padding="VALID", key=None):
+        """K6 on int16 values in [lo, hi) at ``shape`` = (n, hw, c, k, co),
+        through the planner's route (the tensor cores): bit-equal to the
+        plain version, a second launch and the CUDA-core K6 (timed on the
+        same operands), and, rounded (and wrapped mod 2^32), to F.conv2d
+        in float64."""
+        n, hw, c, k, co = shape
         qx = torch.randint(lo, hi, (n, hw, hw, c), generator=gen, device=dev,
                            dtype=torch.int16)
         qw = torch.randint(lo, hi, (k, k, c, co), generator=gen, device=dev,
                            dtype=torch.int16)
         if key is not None:
-            fig4[key] = (qx, qw)
+            fig4[key] = (qx, qw, padding)
         plan = plan_lib.plan_int_conv2d(tuple(qx.shape), tuple(qw.shape),
                                         x_bytes=2, w_bytes=2,
-                                        padding="VALID", device=dev)
-        if plan.route != route:
-            raise AssertionError(f"int_conv2d {label}: route {plan.route}, "
-                                 f"expected {route}")
-        mma = route == "tensor_cores"
-        got = ops.int_conv2d(qx, qw, padding="VALID", plan=plan)
-        again = ops.int_conv2d(qx, qw, padding="VALID", plan=plan)
-        want = conv.int_conv2d_torch(qx, qw, padding="VALID")
+                                        padding=padding, device=dev)
+        if plan.route != "tensor_cores":
+            raise AssertionError(f"int_conv2d {label}: route {plan.route}")
+        got = ops.int_conv2d(qx, qw, padding=padding, plan=plan)
+        again = ops.int_conv2d(qx, qw, padding=padding, plan=plan)
+        want = conv.int_conv2d_torch(qx, qw, padding=padding)
         torch.cuda.synchronize()
         if not (torch.equal(got, want) and torch.equal(again, want)):
             raise AssertionError(f"int_conv2d {label} not bit-equal")
-        ho = hw - k + 1
+        ho = got.shape[1]
         macs = n * ho * ho * k * k * c * co
         nbytes = 2 * (qx.numel() + qw.numel()) + 4 * got.numel()
         xs = [qx] + [qx.clone() for _ in range(copies_for(2 * qx.numel())
@@ -1623,9 +1633,10 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         # wrapped mod 2^32) it must equal K6, and `library_exact` records
         # whether cuDNN's algorithm gave the integers without that
         # rounding.
+        pad = (k - 1) // 2 if padding == "SAME" else 0
         x64 = qx.permute(0, 3, 1, 2).to(torch.float64).contiguous()
         w64 = qw.permute(3, 2, 0, 1).to(torch.float64).contiguous()
-        lib_out = F.conv2d(x64, w64).permute(0, 2, 3, 1)
+        lib_out = F.conv2d(x64, w64, padding=pad).permute(0, 2, 3, 1)
         wrapped = packing.wrap_i32(lib_out.round().to(torch.int64))
         torch.cuda.synchronize()
         if not torch.equal(wrapped, got):
@@ -1635,56 +1646,56 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         del lib_out, wrapped
         x64s = [x64] + [x64.clone() for _ in range(
             copies_for(8 * x64.numel()) - 1)]
-        lib = time_ms(torch, [lambda xi=xi: F.conv2d(xi, w64) for xi in x64s])
+        lib = time_ms(torch, [lambda xi=xi: F.conv2d(xi, w64, padding=pad)
+                              for xi in x64s])
         del x64s, x64
         ms = time_ms(torch, [lambda xi=xi: ops.int_conv2d(
-            xi, qw, padding="VALID", plan=plan) for xi in xs])
-        row = {"name": "int_conv2d_mma" if mma else "int_conv2d",
+            xi, qw, padding=padding, plan=plan) for xi in xs])
+        row = {"name": "int_conv2d_mma",
                "shape": f"{label} int16 [{lo},{hi})", "max_abs_err": 0,
                "ms": ms,
                "plain_ms": time_ms(torch, [lambda: conv.int_conv2d_torch(
-                   qx, qw, padding="VALID")], 3),
+                   qx, qw, padding=padding)], 3),
                "bound_ms": b, "bound_by": by, "share_of_bound": b / ms,
                "library_ms": lib,
                "library": "F.conv2d f64 on the int16 values",
                "library_exact": lib_exact, "geometry": plan.describe()}
-        # the design bound: one IMAD per MAC on the CUDA cores, or the MMAs
-        # the tensor-core K6 issues (four a step, 16 x 8 x 32 each) at the
-        # int8 rate
-        cores_design = bound_ms(nbytes, 2 * macs, peaks["hbm"],
-                                peaks["int32"])[0]
-        if not mma:
-            row["design_bound_ms"] = cores_design
-            rows.append(row)
-            return
+        # the design bounds: the MMAs the tensor-core K6 issues (four a
+        # step, 16 x 8 x 32 each, over every chunk) at the int8 rate, and
+        # one IMAD per MAC on the CUDA cores
         tiles = n * -(-ho // plan.block_h) * -(-ho // plan.block_w)
-        steps = tiles * 32 * k * k * (plan.block_c // 2) // 32
+        steps = tiles * 32 * k * k * (plan.chunks * plan.chunk_c // 2) // 32
         groups = -(-co // plan.block_co) * plan.block_co // 8
         row["design_bound_ms"] = bound_ms(
             nbytes, 2 * 4096 * 4 * steps * groups, peaks["hbm"],
             peaks["int8"])[0]
         core = plan_lib.int_conv2d_core_geometry(
-            tuple(qx.shape), tuple(qw.shape), padding="VALID", device=dev)
-        cores = conv.int_conv2d_cuda(qx, qw, **core, padding="VALID")
+            tuple(qx.shape), tuple(qw.shape), padding=padding, device=dev)
+        cores = conv.int_conv2d_cuda(qx, qw, **core, padding=padding)
         torch.cuda.synchronize()
         if not torch.equal(cores, want):
             raise AssertionError(f"CUDA-core K6 {label} not bit-equal")
         del cores
         row["cores_ms"] = time_ms(torch, [
             lambda xi=xi: conv.int_conv2d_cuda(xi, qw, **core,
-                                               padding="VALID")
+                                               padding=padding)
             for xi in xs])
-        row["cores_design_bound_ms"] = cores_design
+        row["cores_design_bound_ms"] = bound_ms(
+            nbytes, 2 * macs, peaks["hbm"], peaks["int32"])[0]
         row["cores_geometry"] = core
         rows.append(row)
 
-    # the Fig. 4 int16 conv on the tensor cores, the same at the full int16
-    # range (the sums wrap), and at 64 channels, past the tensor-core K6's
-    # shared memory, on the CUDA-core tile
-    int_row(fig4_label, -256, 256, c, "tensor_cores", key="int16")
-    int_row(fig4_label, -32768, 32768, c, "tensor_cores")
+    # the Fig. 4 int16 conv, the same at the full int16 range (the sums
+    # wrap), at 64 channels (two channel chunks) and at ResNet-18's conv4_x
+    # shape (four chunks of 64 channels)
+    int_row(fig4_label, -256, 256, (n, hw, c, k, co), key="int16")
+    int_row(fig4_label, -32768, 32768, (n, hw, c, k, co))
     int_row(f"fig4-c64 x[{n},{hw},{hw},{2 * c}] w[{k},{k},{2 * c},{co}] "
-            f"VALID", -256, 256, 2 * c, "cuda_cores", key="int16-c64")
+            f"VALID", -256, 256, (n, hw, 2 * c, k, co), key="int16-c64")
+    r18 = tuple(R18[f] for f in ("n", "hw", "c", "k", "co"))
+    r18_label = (f"r18 x[{r18[0]},{r18[1]},{r18[1]},{r18[2]}] "
+                 f"w[{r18[3]},{r18[3]},{r18[2]},{r18[4]}] SAME")
+    int_row(r18_label, -256, 256, r18, "SAME", key="int16-r18")
 
     # ---- K5 ulppack_conv2d ------------------------------------------------
     def packed_row(sp, qx, qw, padding, store, label, key=None):
@@ -1694,18 +1705,22 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         k_full = qx.shape[-1] if store == "dense" else None
         kw = dict(padding=padding, weight_store=store, k_full=k_full)
         if key is not None:
-            fig4[key] = (xp, wp)
+            fig4[key] = (xp, wp, padding)
         plan = plan_lib.plan_packed_conv2d(
             tuple(xp.shape), tuple(wp.shape), sp, padding=padding,
             weight_store=store, k_full=k_full, device=dev)
-        mma = plan.route == "tensor_cores"
+        if plan.route != "tensor_cores":
+            raise AssertionError(f"ulppack_conv2d {label} {sp}: route "
+                                 f"{plan.route}")
         got = ops.packed_conv2d(xp, wp, sp, padding=padding, plan=plan)
         again = ops.packed_conv2d(xp, wp, sp, padding=padding, plan=plan)
         want = conv.ulppack_conv2d_torch(xp, wp, sp, **kw)
         # library yardsticks: cuDNN's f32 conv on the unpacked lattices, TF32
-        # off -- exact (values < 2^bits, sums < 2^24); checked equal first --
-        # and, recorded only where it is exact, with TF32 allowed (lattice
-        # values <= 7 and their products fit TF32's 11-bit significand)
+        # off -- integers below 2^24, so rounded it must equal K5 (cuDNN's
+        # Winograd kernels for 3x3 round inside; `library_exact` records
+        # whether the integers came without that rounding) -- and, recorded
+        # only where it is exact, with TF32 allowed (lattice values <= 7 and
+        # their products fit TF32's 11-bit significand)
         fh, fw = qw.shape[:2]
         pads = conv.same_pads(fh, fw, padding)
         xl = F.pad(qx.permute(0, 3, 1, 2).float(),
@@ -1717,9 +1732,11 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         if not (torch.equal(got, want) and torch.equal(again, want)):
             raise AssertionError(f"ulppack_conv2d {label} {sp} {store} not "
                                  f"bit-equal")
-        if not torch.equal(lib_out.permute(0, 2, 3, 1).to(torch.int32), got):
+        lib_out = lib_out.permute(0, 2, 3, 1)
+        if not torch.equal(lib_out.round().to(torch.int32), got):
             raise AssertionError(f"f32 conv on the lattices disagrees with "
                                  f"ulppack_conv2d {label}")
+        lib_exact = torch.equal(lib_out, got.float())
         del lib_out
         with tf32():
             tf32_exact = torch.equal(
@@ -1749,25 +1766,19 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
             xi, wp, sp, padding=padding, plan=plan) for xi in xps])
         plain = time_ms(torch, [lambda: conv.ulppack_conv2d_torch(
             xp, wp, sp, **kw)], 3)
-        row = {"name": "ulppack_conv2d_mma" if mma else "ulppack_conv2d",
+        row = {"name": "ulppack_conv2d_mma",
                "shape": f"{label} {sp} {store}", "max_abs_err": 0, "ms": ms,
                "plain_ms": plain, "bound_ms": b, "bound_by": by,
                "library_ms": lib, "library": "F.conv2d f32 lattices, TF32 off",
+               "library_exact": lib_exact,
                "library_tf32_ms": lib_tf32, "library_tf32_exact": tf32_exact,
                "geometry": plan.describe()}
-        if not mma:
-            # the design bound: one IMAD per packed product on the CUDA cores
-            pmacs = nb * ho * wo * fh * fw * xp.shape[-1] * co
-            row["design_bound_ms"] = bound_ms(nbytes, 2 * pmacs, peaks["hbm"],
-                                              peaks["int32"])[0]
-            rows.append(row)
-            return
-        # the tensor-core kernel: the MMAs it issues at the int8 rate (with
-        # the fused epilogue's ones column), the fused epilogue bit-equal to
-        # cnn.conv_epilogue on the plain accumulator and patch sums, and the
-        # CUDA-core tile's time on the same operands
+        # the MMAs the kernel issues at the int8 rate (over every chunk),
+        # the fused epilogue bit-equal to cnn.conv_epilogue on the plain
+        # accumulator and patch sums, and the CUDA-core tile's time on the
+        # same operands
         tiles = nb * -(-ho // plan.block_h) * -(-wo // plan.block_w)
-        steps = tiles * 32 * fh * fw * plan.block_c // 32
+        steps = tiles * 32 * fh * fw * plan.chunks * plan.chunk_c // 32
         groups = -(-co // plan.block_co) * plan.block_co // 8
         row["design_bound_ms"] = bound_ms(
             nbytes, 2 * 4096 * steps * groups, peaks["hbm"],
@@ -1797,6 +1808,10 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         row["cores_ms"] = time_ms(torch, [
             lambda xi=xi: conv.ulppack_conv2d_cuda(xi, wp, sp, **core, **kw)
             for xi in xps])
+        # the CUDA-core tile's design bound: one IMAD per packed product
+        pmacs = nb * ho * wo * fh * fw * xp.shape[-1] * co
+        row["cores_design_bound_ms"] = bound_ms(
+            nbytes, 2 * pmacs, peaks["hbm"], peaks["int32"])[0]
         row["cores_geometry"] = core
         row["share_of_bound"] = b / ms
         row["vs_library"] = ms / min(t for t in (lib, lib_tf32) if t)
@@ -1809,9 +1824,9 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
         qw = torch.randint(0, sp.max_w + 1, (k, k, c, co), generator=gen,
                            device=dev, dtype=torch.int32)
         packed_row(sp, qx, qw, "VALID", "lanes", fig4_label, key=text)
-    # the CUDA-core K5's path: the Fig. 4 conv at 128 channels, whose halo
-    # ring and weight block do not fit the tensor cores' shared memory
-    # (route 'cuda_cores')
+    # the Fig. 4 conv at 128 channels (four channel chunks) and ResNet-18's
+    # conv4_x shape at W2A2 and W4A4 (a raw slot), past the resident weight
+    # block
     sp = PackSpec.parse(FIG4_SPECS[1])
     c4 = 4 * c
     qx = torch.randint(0, sp.max_a + 1, (n, hw, hw, c4), generator=gen,
@@ -1821,6 +1836,15 @@ def conv_kernel_phase(torch, peaks, dev, cnn_cfg):
     packed_row(sp, qx, qw, "VALID", "lanes",
                f"fig4-c{c4} x[{n},{hw},{hw},{c4}] w[{k},{k},{c4},{co}] VALID",
                key=f"{FIG4_SPECS[1]}-c{c4}")
+    for text in R18_SPECS:
+        sp = PackSpec.parse(text)
+        rn, rhw, rc, rk, rco = r18
+        qx = torch.randint(0, sp.max_a + 1, (rn, rhw, rhw, rc),
+                           generator=gen, device=dev, dtype=torch.int32)
+        qw = torch.randint(0, sp.max_w + 1, (rk, rk, rc, rco),
+                           generator=gen, device=dev, dtype=torch.int32)
+        packed_row(sp, qx, qw, "SAME", "lanes", r18_label,
+                   key=f"{text}-r18")
     sp = PackSpec.from_config(cnn_cfg.quant)
     hw, k = cnn_cfg.cnn_input_hw, cnn_cfg.cnn_kernel
     chans = cnn_cfg.cnn_channels
@@ -1874,41 +1898,43 @@ def fig4_instruction_model(text: str) -> dict:
 
 
 def fig4_phase(torch, fig4, rows):
-    """The Fig. 4 comparison through the entry points: the int16 conv (K6
-    on the tensor cores), the int16 conv at 64 channels (K6 on the CUDA
-    cores: the tensor-core K6's shared memory does not hold it), each
-    packed case (K5 on the tensor cores, int8xP2s4 included) at the
-    paper's shape and the W2A2 case at 128 channels (K5 on the CUDA-core
-    tile: its route past the tensor cores' shared memory), once each;
-    returns the launches.  Prints the kernel phase's times side by side:
-    each packed case's speedup over the int16 conv on the same unit
-    (tensor cores against tensor cores) beside the paper's, and as a
-    second column the CUDA-core K5's over the CUDA-core K6 on the same
-    operands."""
+    """The Fig. 4 comparison through the entry points: the int16 conv (K6),
+    each packed case (K5, int8xP2s4 included) at the paper's shape, the
+    int16 conv at 64 channels and the W2A2 case at 128 (K6 and K5 in
+    channel chunks), and ResNet-18's conv4_x shape (K6 int16, K5 W2A2 and
+    W4A4, in chunks), once each, every one on the tensor cores; returns
+    the launches.  Prints the kernel phase's times side by side: each
+    packed case's speedup over the int16 conv on the same unit (tensor
+    cores against tensor cores) beside the paper's, and as a second column
+    the CUDA-core K5's over the CUDA-core K6 on the same operands."""
     from repro_torch.core.packing import PackSpec
-    from repro_torch.kernels import ops, plan as plan_lib
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ulppack_conv2d as conv
 
     conv.reset_counts()
-    out = [ops.int_conv2d(*fig4["int16"], padding="VALID"),
-           ops.int_conv2d(*fig4["int16-c64"], padding="VALID")]
-    for text in FIG4_SPECS:
-        out.append(ops.packed_conv2d(*fig4[text], PackSpec.parse(text),
-                                     padding="VALID"))
-    wide = next(key for key in fig4 if key.startswith(f"{FIG4_SPECS[1]}-c"))
-    out.append(ops.packed_conv2d(*fig4[wide], PackSpec.parse(FIG4_SPECS[1]),
-                                 padding="VALID"))
+    ints = [key for key in fig4 if key.startswith("int16")]
+    packed = [key for key in fig4 if not key.startswith("int16")]
+    out = {}
+    for key in ints:
+        qx, qw, padding = fig4[key]
+        out[key] = ops.int_conv2d(qx, qw, padding=padding)
+    for key in packed:
+        xp, wp, padding = fig4[key]
+        out[key] = ops.packed_conv2d(xp, wp, PackSpec.parse(key.split("-")[0]),
+                                     padding=padding)
     torch.cuda.synchronize()
     launches, plain = dict(conv.kernel_launches), dict(conv.plain_calls)
-    mma = sum(plan_lib.packed_conv2d_on_tensor_cores(PackSpec.parse(t))
-              for t in FIG4_SPECS)
-    if launches != {"int_conv2d": 1, "int_conv2d_mma": 1,
-                    "ulppack_conv2d": len(FIG4_SPECS) - mma + 1,
-                    "ulppack_conv2d_mma": mma} or any(plain.values()):
+    if launches != {"int_conv2d": 0, "int_conv2d_mma": len(ints),
+                    "ulppack_conv2d": 0,
+                    "ulppack_conv2d_mma": len(packed)} or any(plain.values()):
         raise AssertionError(f"fig4 path: launches {launches}, plain {plain}")
     ho = FIG4["hw"] - FIG4["k"] + 1
-    if not all(o.shape == (FIG4["n"], ho, ho, FIG4["co"]) for o in out):
-        raise AssertionError("fig4 path: wrong output shape")
+    for key, o in out.items():
+        r18 = key.endswith("-r18")
+        want = ((R18["n"], R18["hw"], R18["hw"], R18["co"]) if r18
+                else (FIG4["n"], ho, ho, FIG4["co"]))
+        if o.shape != want:
+            raise AssertionError(f"fig4 path {key}: shape {o.shape}")
     k6 = next(r for r in rows if r["name"] == "int_conv2d_mma"
               and r["shape"].startswith("fig4 x"))
     t16, t16_cores = k6["ms"], k6["cores_ms"]
@@ -1920,19 +1946,25 @@ def fig4_phase(torch, fig4, rows):
            "int16_cores_route": "K6 on the CUDA cores (csrc/int_conv2d.cu)",
            "packed": {}}
     for text in FIG4_SPECS:
-        r = next(r for r in rows if r["name"].startswith("ulppack_conv2d")
+        r = next(r for r in rows if r["name"] == "ulppack_conv2d_mma"
                  and r["shape"].startswith("fig4 x") and text in r["shape"])
         bits = text.split("/")[0]
-        on_mma = r["name"] == "ulppack_conv2d_mma"
         case = {"route": r["name"], "ms": r["ms"],
-                "speedup_vs_int16": (t16 if on_mma else t16_cores) / r["ms"],
-                "vs": "int_conv2d_mma" if on_mma else "int_conv2d",
-                "paper_speedup": FIG4_PAPER.get(bits)}
-        if "cores_ms" in r:
-            case["cores_ms"] = r["cores_ms"]
-            case["cores_speedup_vs_int16"] = t16_cores / r["cores_ms"]
+                "speedup_vs_int16": t16 / r["ms"], "vs": "int_conv2d_mma",
+                "paper_speedup": FIG4_PAPER.get(bits),
+                "cores_ms": r["cores_ms"],
+                "cores_speedup_vs_int16": t16_cores / r["cores_ms"]}
         case.update(fig4_instruction_model(text))
         rep["packed"][text] = case
+    rep["chunked"] = {
+        r["shape"]: {"name": r["name"], "ms": r["ms"],
+                     "cores_ms": r["cores_ms"],
+                     "library_ms": r["library_ms"],
+                     "bound_ms": r["bound_ms"],
+                     "chunks": r["geometry"]["chunks"],
+                     "chunk_c": r["geometry"]["chunk_c"]}
+        for r in rows if r["name"] in ("int_conv2d_mma", "ulppack_conv2d_mma")
+        and r["geometry"].get("chunks", 1) > 1}
     print("fig4 " + json.dumps(rep))
     return launches
 
@@ -6818,6 +6850,97 @@ def attn_tile(torch, np, src):
         {"src": str(src), **attn_tile_pass(torch, np, dev)}), flush=True)
 
 
+#: ``--conv`` rows: (kernel, layout (K5) or None (K6, int16 in [-256,
+#: 256)), (n, hw, c, k, co), padding, weight store): Fig. 4 and
+#: sparq-cnn's layers (the weights resident), then the shapes the chunked K
+#: loop took over from the CUDA-core tiles -- Fig. 4 at 64 / 128 channels
+#: and ResNet-18's conv4_x shape.
+CONV_COMPARE_CASES = (
+    [("K6", None, (1, 256, 32, 7, 32), "VALID", None)]
+    + [("K5", t, (1, 256, 32, 7, 32), "VALID", "lanes") for t in FIG4_SPECS]
+    + [("K5", "W2A2/int16xP2s8", (8, 256, 32, 7, 32), "SAME", "lanes"),
+       ("K5", "W2A2/int16xP2s8", (8, 256, 32, 7, 64), "SAME", "lanes"),
+       ("K5", "W2A2/int16xP2s8", (8, 256, 32, 7, 64), "SAME", "dense"),
+       ("K5", "W4A4/int32xP2s16", (8, 256, 32, 7, 64), "SAME", "lanes"),
+       ("K6", None, (1, 256, 64, 7, 32), "VALID", None),
+       ("K5", "W2A2/int16xP2s8", (1, 256, 128, 7, 32), "VALID", "lanes"),
+       ("K6", None, (64, 14, 256, 3, 256), "SAME", None),
+       ("K5", "W2A2/int16xP2s8", (64, 14, 256, 3, 256), "SAME", "lanes"),
+       ("K5", "W4A4/int32xP2s16", (64, 14, 256, 3, 256), "SAME", "lanes")])
+
+
+def conv_compare(torch, src):
+    """``python3 chip_smoke.py --conv SRC``: K5 and K6 at
+    ``CONV_COMPARE_CASES`` through the planner's route (whichever kernel
+    it picks in that tree), each bit-equal to the plain version and timed
+    (device ms by graph replay over rotated copies), then the CNN phase
+    (ms a batch, both stores), with the package under ``SRC`` -- this
+    checkout's ``src``, or another tree's unpacked beside it (``git
+    archive`` into ``build/parent``): run both in one call, parent / this
+    / this / parent, to compare the two trees' convs on one card.  Prints
+    a ``conv-compare row`` line a row, then the ``cnn`` lines."""
+    from repro_torch import configs
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+    from repro_torch.kernels import ops, plan as plan_lib
+    from repro_torch.kernels import ulppack_conv2d as conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for kern, text, (n, hw, c, k, co), padding, store in CONV_COMPARE_CASES:
+        if kern == "K6":
+            x = torch.randint(-256, 256, (n, hw, hw, c), generator=gen,
+                              device=dev, dtype=torch.int16)
+            w = torch.randint(-256, 256, (k, k, c, co), generator=gen,
+                              device=dev, dtype=torch.int16)
+            plan = plan_lib.plan_int_conv2d(
+                tuple(x.shape), tuple(w.shape), x_bytes=2, w_bytes=2,
+                padding=padding, device=dev)
+
+            def run(xi, w=w, plan=plan, padding=padding):
+                return ops.int_conv2d(xi, w, padding=padding, plan=plan)
+            want = conv.int_conv2d_torch(x, w, padding=padding)
+            nbytes = 2 * x.numel()
+        else:
+            sp = PackSpec.parse(text)
+            qx = torch.randint(0, sp.max_a + 1, (n, hw, hw, c),
+                               generator=gen, device=dev, dtype=torch.int32)
+            qw = torch.randint(0, sp.max_w + 1, (k, k, c, co),
+                               generator=gen, device=dev, dtype=torch.int32)
+            x = packing.pack_activations(qx, sp)
+            w = (ops.dense_store_conv_weights(qw, sp.w_bits)
+                 if store == "dense" else packing.pack_weights(qw, sp, axis=2))
+            k_full = c if store == "dense" else None
+            plan = plan_lib.plan_packed_conv2d(
+                tuple(x.shape), tuple(w.shape), sp, padding=padding,
+                weight_store=store, k_full=k_full, device=dev)
+
+            def run(xi, w=w, sp=sp, plan=plan, padding=padding):
+                return ops.packed_conv2d(xi, w, sp, padding=padding,
+                                         plan=plan)
+            want = conv.ulppack_conv2d_torch(x, w, sp, padding=padding,
+                                             weight_store=store,
+                                             k_full=k_full)
+            nbytes = x.numel() * sp.lane_bytes
+        conv.reset_counts()
+        got = run(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"conv-compare {kern} {text} not bit-equal")
+        launched = [name for name, v in conv.kernel_launches.items() if v]
+        del got, want
+        xs = [x] + [x.clone() for _ in range(copies_for(nbytes) - 1)]
+        ms = time_ms(torch, [lambda xi=xi, run=run: run(xi) for xi in xs], 9)
+        del xs
+        print("conv-compare row " + json.dumps(
+            {"src": str(src), "kernel": kern, "layout": text, "store": store,
+             "shape": [n, hw, hw, c, k, co, padding], "route": plan.route,
+             "launched": launched, "block_co": plan.block_co,
+             "chunks": getattr(plan, "chunks", None), "ms": ms}), flush=True)
+        torch.cuda.empty_cache()
+    cnn_phase(torch, dev, configs.get_config("sparq-cnn"))
+
+
 def attn_tile_sweep(torch, dev):
     """``--attn-tile SRC --sweep``: K3's device ms at every geometry
     ``plan.attention_decode_candidates`` gives (tile x splits, whole
@@ -6893,7 +7016,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     src = Path(__file__).resolve().parent / "src"
-    for flag in ("--w4a4-pass", "--attn-tile"):
+    for flag in ("--w4a4-pass", "--attn-tile", "--conv"):
         if flag in sys.argv[1:]:
             src = Path(sys.argv[sys.argv.index(flag) + 1]).resolve()
     if not (src / "repro_torch" / "csrc").is_dir():
@@ -6935,6 +7058,10 @@ def main() -> int:
         w4a4_pass(torch, np, src)
         print(smi)
         return 0
+    if "--conv" in sys.argv[1:]:
+        conv_compare(torch, src)
+        print(smi)
+        return 0
     if "--attn-tile" in sys.argv[1:]:
         if "--sweep" in sys.argv[1:]:
             attn_tile_sweep(torch, torch.device("cuda"))
@@ -6960,10 +7087,12 @@ def main() -> int:
     if only:
         return 0
     for n, p in paths.items():
-        log = (p.parent / f"{n}.log").read_text().splitlines()
-        usage = [ln.strip() for ln in log if "registers" in ln
-                 or "spill" in ln]
-        print(f"ptxas {n}: " + " | ".join(usage[:6]))
+        log = (p.parent / f"{n}.log").read_text()
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
+                                                log))
+        print(f"ptxas {n}: {len(regs)} kernels, registers {regs}, "
+              f"{spills} bytes of spill stores")
 
     from repro_torch import configs
     dev = torch.device("cuda")
@@ -7101,6 +7230,7 @@ def main() -> int:
     del fig4
     (packed, plans), x, launches["ulppack_conv2d_mma"] = cnn_phase(
         torch, dev, cnn_cfg)
+    launches["ulppack_conv2d_mma"] += fig4_launches["ulppack_conv2d_mma"]
     cnn_compare(torch, cnn_cfg, packed, plans, x)
     mark("linear, fig4, cnn")
     del packed, plans, x
@@ -7192,24 +7322,15 @@ def main() -> int:
             "src/repro_torch/csrc/attention_decode.cu",
             "src/repro/kernels/ulppack_attention.py:367",
             "B4 32x16 pages H32 hd64 C1 kv4"),
-        # K5's main path is the CNN phase (both stores), on the tensor
-        # cores for every layout; its row is the largest packed layer
-        # there.  The CUDA-core K5's path is the Fig. 4 phase's W2A2 case
-        # at 128 channels (past the tensor cores' shared memory); K6's the
-        # Fig. 4 phase: the tensor-core K6 at the Fig. 4 shape, the
-        # CUDA-core K6 at 64 channels.
+        # K5's main path is the CNN phase (both stores) and the Fig. 4
+        # phase, on the tensor cores for every layout and shape; its row is
+        # the largest packed layer.  K6's path is the Fig. 4 phase.
         "ulppack_conv2d_mma": ("src/repro_torch/csrc/ulppack_conv2d_mma.cu",
                                "src/repro/kernels/ulppack_conv2d.py:148",
                                "layer 32->64"),
-        "ulppack_conv2d": ("src/repro_torch/csrc/ulppack_conv2d.cu",
-                           "src/repro/kernels/ulppack_conv2d.py:148",
-                           "fig4-c128"),
         "int_conv2d_mma": ("src/repro_torch/csrc/int_conv2d_mma.cu",
                            "src/repro/kernels/ulppack_conv2d.py:148",
                            "fig4 x"),
-        "int_conv2d": ("src/repro_torch/csrc/int_conv2d.cu",
-                       "src/repro/kernels/ulppack_conv2d.py:148",
-                       "fig4-c64"),
         "int_matmul": ("src/repro_torch/csrc/int_matmul.cu",
                        "src/repro/kernels/ulppack_matmul.py:145",
                        "(8,4096,4096) int8"),
@@ -7220,6 +7341,15 @@ def main() -> int:
                         "src/repro/models/attention.py:533 (XLA scatter, "
                         "no pallas_call)", "B4 C1"),
     }
+    # The CUDA-core K5 and K6 are on no path since the chunked K loop: each
+    # is a comparison entry of its tensor-core kernel, timed on the
+    # operands of the shape it took before (Fig. 4 at 128 / 64 channels)
+    comparison = {
+        "ulppack_conv2d_mma": ("ulppack_conv2d",
+                               "src/repro_torch/csrc/ulppack_conv2d.cu",
+                               "fig4-c128"),
+        "int_conv2d_mma": ("int_conv2d", "src/repro_torch/csrc/int_conv2d.cu",
+                           "fig4-c64")}
     summary = []
     for k, (source, replaces, shape) in meta.items():
         r = next(r for r in rows if r["name"] == k and
@@ -7227,6 +7357,20 @@ def main() -> int:
         extra = ({"tile_launches": TILE_LAUNCHES[k],
                   "tile_launches_of": "serve phase" if k == "attention_decode"
                   else "paged phase"} if k in TILE_LAUNCHES else {})
+        if k in comparison:
+            cname, csource, cshape = comparison[k]
+            c = next(r for r in rows if r["name"] == k and
+                     r["shape"].startswith(cshape))
+            if launches.get(cname):
+                raise AssertionError(f"{cname}: {launches[cname]} launches "
+                                     f"on the main path")
+            extra["comparison"] = {
+                "name": cname, "route": "cuda", "source": csource,
+                "on_path": False, "launches": 0, "max_abs_err": 0,
+                "ms": c["cores_ms"], "tensor_core_ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                "shape": c["shape"]}
         summary.append({"name": k, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[k],
                         **extra,

@@ -4,6 +4,14 @@
 // block_h x block_w = 512 output pixels of one image, each tile's halo
 // staged through a two-slot cp.async ring.
 //
+// K runs over (tap, channel).  A conv whose weights and halo fit one block
+// whole stages each tile's halo once, every channel of a pixel in one
+// slot, beside a weight block that stays resident.  A wider conv splits
+// the channels into chunks of `cpad` staged bytes a pixel: the ring then
+// runs over (tile, chunk) pairs, each slot holding one chunk's halo slice
+// and the weight block's slice for that chunk, so the next pair's copies
+// are in flight while the current one is multiplied.
+//
 // A halo slot holds [block_h + FH - 1][block_w + FW - 1] pixels of `cpad`
 // staged bytes each (32, 64, or a multiple of 128); the 16-byte units of a
 // pixel are XOR-swizzled by its index so that ldmatrix reads of 8
@@ -34,6 +42,20 @@ __host__ __device__ constexpr int cpad_for(int xrow) {
   return xrow <= 32 ? 32 : xrow <= 64 ? 64 : (xrow + 127) / 128 * 128;
 }
 
+// Chunks one run of s32 sums spans before the kernel folds them into
+// uint32 totals (PTX does not promise that the MMA's s32 sums wrap, so
+// none may reach 2^31): every chunk where taps * C * max_prod stays below
+// 2^31 (no fold), else the most chunks of chunk_ch channels whose products
+// do; 0 where one chunk's could reach it (the launcher refuses the plan).
+__host__ __device__ constexpr long long fold_run(long long taps, long long c,
+                                                 long long chunk_ch,
+                                                 long long max_prod,
+                                                 long long chunks) {
+  return taps * c * max_prod < (1LL << 31)
+             ? chunks
+             : ((1LL << 31) - 1) / (taps * chunk_ch * max_prod);
+}
+
 // The 16-byte unit of pixel `pix` that holds logical unit u is
 // u ^ swizzle(pix, nu) (nu = cpad / 16 units a pixel): the units of 8
 // consecutive pixels then fall on distinct 16-byte bank groups.
@@ -52,15 +74,18 @@ __device__ __forceinline__ void tile_origin(const P& p, int tile, int& n,
   ow0 = (r % p.tiles_w) * p.tw;
 }
 
-// Issue the copies of tile `tile`'s halo into ring slot `buf`; pixels
-// outside the image and bytes past xrow are zeroed.  Thread e of the
-// block takes items e, e + kConvThreads, ...; an item is UPI consecutive
-// 16-byte units of one pixel (UPI divides cpad / 16), so the thread that
-// waits for an item's copies may rework its bytes before the next
-// barrier.  RAW stages into a raw slot instead: pixels of p.craw bytes,
-// units in order (no swizzle), for a pass that rewrites them elsewhere.
+// Issue the copies of tile `tile`'s halo into ring slot `buf`: cpad bytes
+// a pixel (craw for a raw slot) from byte x0 of each image pixel (x0: a
+// chunk's first byte, a multiple of 16); pixels outside the image and
+// bytes past xrow are zeroed.  Thread e of the block takes items e, e +
+// kConvThreads, ...; an item is UPI consecutive 16-byte units of one pixel
+// (UPI divides cpad / 16), so the thread that waits for an item's copies
+// may rework its bytes before the next barrier.  RAW stages into a raw
+// slot instead: pixels of p.craw bytes, units in order (no swizzle), for a
+// pass that rewrites them elsewhere.
 template <int UPI, bool RAW = false, class P>
-__device__ void stage_halo(const P& p, unsigned char* buf, int tile) {
+__device__ void stage_halo(const P& p, unsigned char* buf, int tile,
+                           int x0) {
   int n, oh0, ow0;
   tile_origin(p, tile, n, oh0, ow0);
   const int gh0 = oh0 - p.pad_top, gw0 = ow0 - p.pad_left;
@@ -80,10 +105,11 @@ __device__ void stage_halo(const P& p, unsigned char* buf, int tile) {
       const int gh = gh0 + r, gw = gw0 + c;
       unsigned char* d =
           buf + pix * stride + ((RAW ? u : u ^ swizzle(pix, nu)) << 4);
-      const int lim = p.xrow - 16 * u;  // bytes of this unit held in x
+      const int lim = p.xrow - x0 - 16 * u;  // bytes of this unit in x
       const bool in = gh >= 0 && gh < p.H && gw >= 0 && gw < p.W && lim > 0;
       const unsigned char* s =
-          in ? img + (static_cast<size_t>(gh) * p.W + gw) * p.xrow + 16 * u
+          in ? img + (static_cast<size_t>(gh) * p.W + gw) * p.xrow + x0 +
+                   16 * u
              : nullptr;
       if (p.cb == 16) {
         if (in)

@@ -13,9 +13,8 @@ version's result (bit-equal on the integer routes):
     ``tune_packed_matmul``
   * ``tune_packed_matmul``    -- K2's lattice dot, lanes or the dense store:
     block_m x stages a split on the tensor cores
-  * ``tune_packed_conv2d``    -- K5: block_co x block_w on the tensor cores,
-    block_co on the CUDA-core tile (shapes past the tensor cores' shared
-    memory)
+  * ``tune_packed_conv2d``    -- K5: block_co x block_w on the tensor cores
+    (each with the channel chunks the planner gives it)
   * ``tune_attention_decode`` -- K3 / K4: splits x tile_rows
   * ``tune_attention_chunk``  -- the q-chunk of ``chunked_attention``
   * ``tune_matmul_layout`` / ``tune_conv2d_layout`` -- the lane layout
@@ -586,7 +585,7 @@ def tune_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
                        seed: int = 0) -> dict:
     """Measure K5 over packed x [N, H, W, Cp] and w [Fh, Fw, Cdim, Co] on
     ``plan.packed_conv2d_candidates`` (block_co x block_w on the tensor
-    cores, block_co on the CUDA cores) and store the winner under
+    cores) and store the winner under
     ``conv2d_key``; each candidate's first call bit-equal to the plain
     version."""
     backend, dev = _resolve(backend, device)
@@ -618,12 +617,10 @@ def tune_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
     want = ops.packed_conv2d(xp, wp, spec, padding=padding,
                              backend="torch", weight_store=weight_store,
                              k_full=k_full)
-    fields = ("block_co", "block_w", "block_h") \
-        if heur.route == "tensor_cores" else ("block_co",)
     entry = _sweep(
         heur, plan_lib.packed_conv2d_candidates(x_shape, w_shape, spec,
                                                 padding=padding, device=dev),
-        fields,
+        ("block_co", "block_w", "block_h"),
         lambda p, i: ops.packed_conv2d(xs[i], ws[i], spec, padding=padding,
                                        plan=p), n_copies,
         _exact(want), device=dev, repeats=repeats,

@@ -93,9 +93,11 @@ _QUANT_MMA_STAGE_COST = {**_ULPPACK_MMA_STAGE_COST, 64: 2.6}
 def _ulppack_mma_split_cost(splits: int, bm: int) -> float:
     return 2 + splits * bm / 32 if splits > 1 else 0
 
-#: The conv tile of csrc/conv2d_tile.cuh (PPT, GPR, CPT, FW_MAX and
-#: kMaxThreads there; a CPU test holds the two equal, and the C launcher
-#: refuses a plan whose threads or shared memory differ from its own):
+#: The CUDA-core conv tile of csrc/conv2d_tile.cuh, on no route (the
+#: comparison the tensor-core K5 / K6 are timed against; PPT, GPR, CPT,
+#: FW_MAX and kMaxThreads there; a CPU test holds the two equal, and the C
+#: launcher refuses a plan whose threads or shared memory differ from its
+#: own):
 #: output pixels per thread, pixel groups per tile row, output columns per
 #: block, output channels per thread, the widest kernel its register window
 #: takes, threads per block at most, and the shared memory a block may use.
@@ -112,9 +114,9 @@ _CONV_SMEM_TARGET = 100 * 1024
 #: kTilePixels, kStages and kConvSmemMax there, and the block_co / block_w
 #: cases of its launcher; a CPU test holds them equal, and the launcher
 #: refuses a plan that disagrees): threads per block, output pixels per
-#: pixel tile (8 warps x 4 row fragments of 16), the halo ring's slots, the
+#: pixel tile (8 warps x 4 row fragments of 16), the ring's slots, the
 #: shared memory a block may use, output channels per block, and output
-#: columns per tile.
+#: columns per tile.  K6 shares the tile.
 CONV_MMA_THREADS = 256
 CONV_MMA_TILE_PIXELS = 512
 CONV_MMA_STAGES = 2
@@ -192,14 +194,17 @@ class KernelPlan:
       packed_conv2d /  : block_h (output rows per block), block_co (output
       int_conv2d         channels per block), block_c (channels or lanes
                          staged per pass), threads, smem_bytes (per block),
-                         route ('tensor_cores' or 'cuda_cores'); on the
+                         route ('tensor_cores'; 'cuda_cores' only in a
+                         plan built by hand for the comparison tile); on the
                          tensor cores block_h x block_w output pixels a
                          tile, block_c staged bytes a pixel, stages (halo
                          ring slots) and blocks (persistent blocks along
-                         the pixel tiles); packed_conv2d also weight_store
-                         and k_full (Cin of a 'dense' store); int_conv2d
-                         also x_bytes / w_bytes (the operands' element
-                         sizes)
+                         the pixel tiles), chunk_c / chunks (staged bytes
+                         a pixel of one channel chunk of K and the chunks
+                         a tile: block_c and 1 where the weights stay
+                         resident); packed_conv2d also weight_store and
+                         k_full (Cin of a 'dense' store); int_conv2d also
+                         x_bytes / w_bytes (the operands' element sizes)
     """
 
     op: str
@@ -225,6 +230,8 @@ class KernelPlan:
     x_bytes: int | None = None
     w_bytes: int | None = None
     route: str | None = None
+    chunk_c: int | None = None
+    chunks: int | None = None
     source: str = "heuristic"         # 'heuristic' | 'tuned'
 
     def __post_init__(self):
@@ -243,7 +250,7 @@ class KernelPlan:
                   "k_full", "block_h", "block_co", "block_c", "smem_bytes",
                   "split_rows", "tile_rows", "block_n", "step_k",
                   "stages", "block_w", "blocks", "x_bytes", "w_bytes",
-                  "route"):
+                  "route", "chunk_c", "chunks"):
             if getattr(self, f) is not None:
                 row[f] = getattr(self, f)
         return row
@@ -1201,12 +1208,10 @@ def _conv_geometry(n, out_h, out_w, c, fh, fw, co, device_key,
 def packed_conv2d_on_tensor_cores(spec: PackSpec) -> bool:
     """Whether K5 runs on the int8 tensor cores for this layout: K2's
     predicate (:func:`packed_matmul_on_tensor_cores`), every feasible
-    layout.  ``int16xP2s8`` and ``int32xP4s8`` activation lanes read as
-    bytes are the u8 lattice in channel order and are staged as they are;
-    every other layout's lanes are staged raw and rewritten as lattice
-    bytes (:func:`conv_mma_raw_c`).  A shape that does not fit the tensor
-    cores' shared memory or s32 range takes the CUDA-core tile through its
-    plan's ``route``."""
+    layout, at every conv shape.  ``int16xP2s8`` and ``int32xP4s8``
+    activation lanes read as bytes are the u8 lattice in channel order and
+    are staged as they are; every other layout's lanes are staged raw and
+    rewritten as lattice bytes (:func:`conv_mma_raw_c`)."""
     return packed_matmul_on_tensor_cores(spec)
 
 
@@ -1218,34 +1223,66 @@ def _cpad_for(nbytes: int) -> int:
         else -(-nbytes // 128) * 128
 
 
+def _chunk_sizes(block_c: int) -> list[int]:
+    """The staged sizes below ``block_c`` a channel chunk may take, largest
+    first: 32, 64 and the multiples of 128 (``cpad_for``'s values)."""
+    return sorted((c for c in range(32, block_c)
+                   if c in (32, 64) or c % 128 == 0), reverse=True)
+
+
+def conv_mma_fold_run(taps: int, c: int, chunk_ch: int, max_prod: int,
+                      chunks: int) -> int:
+    """``fold_run`` in csrc/conv_mma.cuh: the chunks one run of the
+    tensor-core convs' s32 sums spans before they are folded into uint32
+    totals -- every chunk where taps * c * max_prod < 2^31 (no fold), else
+    the most chunks of ``chunk_ch`` channels whose products stay below
+    2^31 (0: one chunk's could reach it).  PTX does not promise that the
+    MMA's s32 sums wrap."""
+    if taps * c * max_prod < 2**31:
+        return chunks
+    return (2**31 - 1) // (taps * chunk_ch * max_prod)
+
+
 def conv_mma_block_c(cp: int, n_pack: int = 2) -> int:
     """Staged lattice bytes a pixel of the tensor-core K5 for ``cp`` lanes
     of ``n_pack`` fields (n_pack cp lattice bytes)."""
     return _cpad_for(n_pack * cp)
 
 
-def conv_mma_raw_c(cp: int, spec: PackSpec) -> int:
+def conv_mma_raw_c(cp: int, spec: PackSpec, chunk_c: int | None = None
+                   ) -> int:
     """Bytes a pixel of the tensor-core K5's raw slot: 0 where the
     activation lanes read as bytes are the lattice (byte fields, as many
     as the lane has bytes: ``int16xP2s8``, ``int32xP4s8``), else the
-    pixel's ``cp`` lanes rounded up to 16 bytes (``craw`` in
+    pixel's ``cp`` lanes rounded up to 16 bytes, or with ``chunk_c`` (a
+    chunk of several) the lanes of one chunk (``craw`` in
     csrc/ulppack_conv2d_mma.cu)."""
     if spec.shift == 8 and spec.n_pack == spec.lane_bytes:
         return 0
+    if chunk_c is not None:
+        return chunk_c * spec.lane_bytes // spec.n_pack
     return -(-cp * spec.lane_bytes // 16) * 16
 
 
 def conv_mma_smem_bytes(fh: int, fw: int, block_h: int, block_w: int,
-                        block_co: int, block_c: int, raw_c: int = 0) -> int:
-    """Shared memory of one tensor-core K5 block: the weight block,
-    ``block_co`` rows of fh * fw * block_c bytes + 16 (an odd number of
-    16-byte units, for conflict-free ldmatrix), then the halo ring,
-    ``CONV_MMA_STAGES`` slots of (block_h + fh - 1) x (block_w + fw - 1)
-    pixels of ``block_c`` bytes, then a raw slot of as many pixels of
-    ``raw_c`` bytes (:func:`conv_mma_raw_c`)."""
-    krow = fh * fw * block_c + 16
+                        block_co: int, block_c: int, raw_c: int = 0,
+                        chunk_c: int | None = None) -> int:
+    """Shared memory of one tensor-core K5 block.  One chunk (``chunk_c``
+    None or ``block_c``): the resident weight block, ``block_co`` rows of fh
+    * fw * block_c bytes + 16 (an odd number of 16-byte units, for
+    conflict-free ldmatrix), then ``CONV_MMA_STAGES`` halo slots of (block_h
+    + fh - 1) x (block_w + fw - 1) pixels of ``block_c`` bytes.  Several:
+    ``CONV_MMA_STAGES`` slots, each one chunk's weight rows (fh * fw *
+    chunk_c + 16 bytes) and halo slice (``chunk_c`` bytes a pixel).  Then a
+    raw slot of as many pixels of ``raw_c`` bytes (:func:`conv_mma_raw_c`).
+    """
     pixels = (block_h + fh - 1) * (block_w + fw - 1)
-    return block_co * krow + CONV_MMA_STAGES * pixels * block_c \
+    if chunk_c is None or chunk_c == block_c:
+        krow = fh * fw * block_c + 16
+        return block_co * krow + CONV_MMA_STAGES * pixels * block_c \
+            + pixels * raw_c
+    krow = fh * fw * chunk_c + 16
+    return CONV_MMA_STAGES * (block_co * krow + pixels * chunk_c) \
         + pixels * raw_c
 
 
@@ -1255,24 +1292,23 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
 
     Pixel tiles of 512 output pixels, 16 x 32 (32 x 16 on images at most
     16 columns wide); ``block_co`` the smallest of 8/16/32/64 output
-    channels that holds Co (64 beyond), halved while the resident weight
-    block and the halo ring overflow the shared memory; one block an SM,
-    persistent, each walking an equal share of the tiles in whole waves.
-    ``tile`` = (block_co, block_w) asks for that tile instead (the tuner's
-    candidates), refused where the launcher would refuse it.  Layouts
-    whose lanes are not lattice bytes add a raw slot
-    (:func:`conv_mma_raw_c`).  Refuses a conv whose s32 sums could leave
-    the int32 range (fh * fw * n_pack cp * max_w * max_a >= 2^31: PTX does
-    not promise that the MMA wraps) or whose weight block does not fit at
-    8 channels."""
+    channels that holds Co (64 beyond); one block an SM, persistent, each
+    walking an equal share of the tiles in whole waves.  Where the resident
+    weight block and the halo ring fit the shared memory at some block_co
+    (halved from that one) and no sum over all of K can reach 2^31, one
+    chunk: chunk_c = block_c.  Else K is split into channel chunks: at the
+    largest block_co (halved as needed) the largest ``chunk_c`` (32, 64 or
+    a multiple of 128) whose two ring slots of weight rows and halo slice
+    fit and whose one-chunk sums stay in range (longer K folds every
+    :func:`conv_mma_fold_run` chunks).  ``tile`` = (block_co, block_w)
+    asks for that tile instead (the tuner's candidates), refused where the
+    launcher would refuse it.  Layouts whose lanes are not lattice bytes
+    add a raw slot (:func:`conv_mma_raw_c`).  Raises where no chunk fits
+    at 8 channels (kernels of about 20 x 20 and more)."""
     chans = spec.n_pack * cp
-    most = fh * fw * chans * spec.max_w * spec.max_a
-    if most >= 2**31:
-        raise ValueError(
-            f"a {fh}x{fw} conv over {chans} channels of {spec} can sum to "
-            f"{most}, past the int32 range of the tensor-core K5's sums")
+    taps = fh * fw
+    prod = spec.max_w * spec.max_a
     bc = conv_mma_block_c(cp, spec.n_pack)
-    raw = conv_mma_raw_c(cp, spec)
     if tile is not None:
         bco, bw = tile
         if bco not in CONV_MMA_BLOCK_COS or bw not in CONV_MMA_BLOCK_WS:
@@ -1280,37 +1316,39 @@ def _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
                              f"one of {CONV_MMA_BLOCK_COS} x "
                              f"{CONV_MMA_BLOCK_WS}")
         bh = CONV_MMA_TILE_PIXELS // bw
+        cos = [bco]
     else:
         bh, bw = _conv_mma_tile(out_w)
         bco = next((b for b in CONV_MMA_BLOCK_COS if b >= co),
                    CONV_MMA_BLOCK_COS[-1])
+        cos = [b for b in CONV_MMA_BLOCK_COS if b <= bco][::-1]
 
-    def smem(bco):
-        return conv_mma_smem_bytes(fh, fw, bh, bw, bco, bc, raw)
+    def smem(bco, chunk):
+        raw = conv_mma_raw_c(cp, spec, None if chunk == bc else chunk)
+        return conv_mma_smem_bytes(fh, fw, bh, bw, bco, bc, raw, chunk)
 
-    while tile is None and bco > CONV_MMA_BLOCK_COS[0] \
-            and smem(bco) > CONV_MMA_SMEM_MAX:
-        bco //= 2
-    if smem(bco) > CONV_MMA_SMEM_MAX:
-        raise ValueError(f"a {fh}x{fw} kernel over {bc} staged bytes does "
-                         f"not fit the tensor-core K5's shared memory "
-                         f"({smem(bco)} bytes)")
-    return dict(route="tensor_cores", block_h=bh, block_w=bw, block_co=bco,
-                block_c=bc,
-                stages=CONV_MMA_STAGES, threads=CONV_MMA_THREADS,
-                blocks=_conv_mma_blocks(n, out_h, out_w, co, bh, bw, bco,
-                                        device_key),
-                smem_bytes=smem(bco))
+    def plan(bco, chunk):
+        return dict(route="tensor_cores", block_h=bh, block_w=bw,
+                    block_co=bco, block_c=bc, chunk_c=chunk,
+                    chunks=-(-chans // chunk),
+                    stages=CONV_MMA_STAGES, threads=CONV_MMA_THREADS,
+                    blocks=_conv_mma_blocks(n, out_h, out_w, co, bh, bw,
+                                            bco, device_key),
+                    smem_bytes=smem(bco, chunk))
 
-
-def _conv_route(n, out_h, out_w, cp, fh, fw, co, spec, device_key) -> str:
-    """K5's route for a shape: 'tensor_cores' where ``_conv_mma_geometry``
-    takes it, else 'cuda_cores'."""
-    try:
-        _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec, device_key)
-    except ValueError:
-        return "cuda_cores"
-    return "tensor_cores"
+    if taps * chans * prod < 2**31:
+        for b in cos:
+            if smem(b, bc) <= CONV_MMA_SMEM_MAX:
+                return plan(b, bc)
+    for b in cos:
+        for chunk in _chunk_sizes(bc):
+            if conv_mma_fold_run(taps, chans, chunk, prod,
+                                 -(-chans // chunk)) >= 1 \
+                    and smem(b, chunk) <= CONV_MMA_SMEM_MAX:
+                return plan(b, chunk)
+    raise ValueError(f"a {fh}x{fw} kernel does not fit the tensor-core "
+                     f"K5's shared memory at {cos[-1]} output channels and "
+                     f"32 staged bytes a chunk ({smem(cos[-1], 32)} bytes)")
 
 
 def _conv_mma_tile(out_w: int) -> tuple[int, int]:
@@ -1341,15 +1379,14 @@ def plan_packed_conv2d(x_shape: tuple, w_shape: tuple, spec: PackSpec, *,
     Records the layout, the weight store and ``k_full`` (Cin of a 'dense'
     store, defaulting to ``cp * n_pack`` as in the reference) beside the
     Hopper launch geometry; the TPU's VMEM budget and ``block_h``
-    candidates have no counterpart here.  The shape picks the kernel,
-    recorded as ``route``: 'tensor_cores', the implicit-GEMM conv on the
-    int8 tensor cores with ``_conv_mma_geometry`` (every layout), wherever
-    its weight block and halo ring fit one block's shared memory and its
-    s32 sums stay in range; else 'cuda_cores', the CUDA-core tile with
-    :func:`packed_conv2d_core_geometry`.  With ``use_tuning_cache`` the
-    active tuning cache's entry (``autotune.conv2d_key``) replaces the
-    tile -- block_co x block_w on the tensor cores, block_co on the CUDA
-    cores -- where the launcher takes it."""
+    candidates have no counterpart here.  Every shape takes the
+    implicit-GEMM conv on the int8 tensor cores (``route`` 'tensor_cores')
+    with ``_conv_mma_geometry``: the weights resident where they fit, else
+    channel chunks streamed through the ring.  With ``use_tuning_cache``
+    the active tuning cache's entry (``autotune.conv2d_key``) replaces the
+    tile, block_co x block_w, where the launcher takes it; an entry
+    without that tile (one tuned for the CUDA-core tile) is ignored with a
+    warning."""
     return _plan_packed_conv2d(tuple(x_shape), tuple(w_shape), spec, padding,
                                resolve_backend(backend, device), weight_store,
                                k_full, _device_key(device), use_tuning_cache)
@@ -1359,35 +1396,21 @@ def packed_conv2d_candidates(x_shape: tuple, w_shape: tuple,
                              spec: PackSpec, *, padding: str = "SAME",
                              device="cpu") -> list[dict]:
     """Every tile the autotuner may try for K5 at these packed shapes, each
-    one the launcher takes: on the tensor cores block_co over
-    ``CONV_MMA_BLOCK_COS`` up to the first that holds Co x block_w over
-    ``CONV_MMA_BLOCK_WS`` (block_h = 512 / block_w); on the CUDA cores
-    (the shapes whose route is 'cuda_cores') block_co over
-    ``CONV_BLOCK_COS`` up to the first that holds Co."""
+    one the launcher takes: block_co over ``CONV_MMA_BLOCK_COS`` up to the
+    first that holds Co x block_w over ``CONV_MMA_BLOCK_WS`` (block_h =
+    512 / block_w), each with the chunks ``_conv_mma_geometry`` gives it."""
     n, h, w, cp = x_shape
     fh, fw, _, co = w_shape
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
     dk = _device_key(device)
     out = []
-    if _conv_route(n, out_h, out_w, cp, fh, fw, co, spec, dk) \
-            == "tensor_cores":
-        for bco in CONV_MMA_BLOCK_COS:
-            for bw in CONV_MMA_BLOCK_WS:
-                try:
-                    out.append(_conv_mma_geometry(n, out_h, out_w, cp, fh,
-                                                  fw, co, spec, dk,
-                                                  tile=(bco, bw)))
-                except ValueError:
-                    pass
-            if bco >= co:
-                break
-        return out
-    for bco in CONV_BLOCK_COS:
-        try:
-            out.append(_conv_geometry(n, out_h, out_w, cp, fh, fw, co, dk,
-                                      bco=bco))
-        except ValueError:
-            pass
+    for bco in CONV_MMA_BLOCK_COS:
+        for bw in CONV_MMA_BLOCK_WS:
+            try:
+                out.append(_conv_mma_geometry(n, out_h, out_w, cp, fh, fw,
+                                              co, spec, dk, tile=(bco, bw)))
+            except ValueError:
+                pass
         if bco >= co:
             break
     return out
@@ -1397,8 +1420,8 @@ def packed_conv2d_core_geometry(x_shape: tuple, w_shape: tuple, *,
                                 padding: str = "SAME", device="cpu") -> dict:
     """block_h, block_co, block_c, threads and smem_bytes of the CUDA-core
     conv tile (csrc/conv2d_tile.cuh) for these shapes, which takes any
-    feasible layout (the planner sends it the shapes the tensor cores'
-    shared memory or s32 range cannot take)."""
+    feasible layout.  No plan routes there: the tile is kept as the
+    comparison the tensor-core K5's rows are timed against."""
     n, h, w, cp = x_shape
     fh, fw, _, co = w_shape
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
@@ -1419,14 +1442,8 @@ def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
     if weight_store == "dense" and k_full is None:
         k_full = cp * spec.n_pack
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
-    mma = _conv_route(n, out_h, out_w, cp, fh, fw, co, spec,
-                      device_key) == "tensor_cores"
-    if mma:
-        geometry = _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
-                                      device_key)
-    else:
-        geometry = dict(_conv_geometry(n, out_h, out_w, cp, fh, fw, co,
-                                       device_key), route="cuda_cores")
+    geometry = _conv_mma_geometry(n, out_h, out_w, cp, fh, fw, co, spec,
+                                  device_key)
     plan = KernelPlan(op="packed_conv2d", backend=backend, spec=spec,
                       weight_store=weight_store, k_full=k_full, **geometry)
     if not use_tuning_cache:
@@ -1434,13 +1451,9 @@ def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
     from repro_torch.kernels import autotune
 
     def adopt(e):
-        if mma:
-            return _conv_mma_geometry(
-                n, out_h, out_w, cp, fh, fw, co, spec, device_key,
-                tile=(_int(e, "block_co"), _int(e, "block_w")))
-        return dict(_conv_geometry(n, out_h, out_w, cp, fh, fw, co,
-                                   device_key, bco=_int(e, "block_co")),
-                    route="cuda_cores")
+        return _conv_mma_geometry(
+            n, out_h, out_w, cp, fh, fw, co, spec, device_key,
+            tile=(_int(e, "block_co"), _int(e, "block_w")))
     return _tuned_plan(autotune.conv2d_key(x_shape, w_shape, spec,
                                            padding=padding, backend=backend,
                                            weight_store=weight_store),
@@ -1449,59 +1462,77 @@ def _plan_packed_conv2d(x_shape, w_shape, spec, padding, backend,
 
 def int_conv_mma_smem_bytes(fh: int, fw: int, block_h: int, block_w: int,
                             block_co: int, c: int, x_bytes: int,
-                            w_bytes: int) -> int:
-    """Shared memory of one tensor-core K6 block: the weight block,
-    ``block_co`` rows of fh * fw taps of ``w_bytes`` planes of cpc =
-    ``_cpad_for(c)`` bytes + 16, then ``CONV_MMA_STAGES`` halo slots of
-    (block_h + fh - 1) x (block_w + fw - 1) pixels of ``x_bytes`` planes of
-    cpc bytes."""
+                            w_bytes: int, chunk_c: int | None = None) -> int:
+    """Shared memory of one tensor-core K6 block.  One chunk (``chunk_c``
+    None or x_bytes * cpc): the resident weight block, ``block_co`` rows of
+    fh * fw taps of ``w_bytes`` planes of cpc = ``_cpad_for(c)`` bytes +
+    16, then ``CONV_MMA_STAGES`` halo slots of (block_h + fh - 1) x
+    (block_w + fw - 1) pixels of ``x_bytes`` planes of cpc bytes.
+    Several: ``CONV_MMA_STAGES`` slots, each one chunk's weight rows (planes
+    of chunk_c / x_bytes bytes a tap) and halo slice (``chunk_c`` bytes a
+    pixel)."""
     cpc = _cpad_for(c)
-    krow = fh * fw * w_bytes * cpc + 16
-    halo = (block_h + fh - 1) * (block_w + fw - 1) * x_bytes * cpc
-    return block_co * krow + CONV_MMA_STAGES * halo
+    pixels = (block_h + fh - 1) * (block_w + fw - 1)
+    if chunk_c is None or chunk_c == x_bytes * cpc:
+        krow = fh * fw * w_bytes * cpc + 16
+        return block_co * krow + CONV_MMA_STAGES * pixels * x_bytes * cpc
+    krow = fh * fw * w_bytes * (chunk_c // x_bytes) + 16
+    return CONV_MMA_STAGES * (block_co * krow + pixels * chunk_c)
 
 
 def _int_conv_mma_geometry(n, out_h, out_w, c, fh, fw, co, x_bytes,
                            w_bytes, device_key) -> dict | None:
     """Launch geometry of the tensor-core K6 (csrc/int_conv2d_mma.cu), or
-    None where it does not fit.  K5's 512-pixel tiles and persistent
-    blocks; ``block_co`` 16 (8 for Co <= 8), halved while the resident
-    weight block and the halo ring overflow the shared memory; block_c =
-    x_bytes * cpc staged bytes a halo pixel.  One run holds every tap, so
-    its s32 sums must stay in range: fh * fw * c * ``INT_CONV_MMA_MAX_PROD``
-    < 2^31 (PTX does not promise that the MMA wraps), which every shape
-    whose weight block fits the shared memory meets."""
-    if fh * fw * c * INT_CONV_MMA_MAX_PROD[(x_bytes, w_bytes)] >= 2**31:
-        return None
+    None where no chunk fits (kernels of about 20 x 20 and more).  K5's
+    512-pixel tiles and persistent blocks; ``block_co`` 16 (8 for Co <= 8);
+    block_c = x_bytes * cpc staged bytes a halo pixel.  Where the resident
+    weight block and the halo ring fit (block_co halved as needed) and no
+    sum over all of K can reach 2^31 (fh * fw * c *
+    ``INT_CONV_MMA_MAX_PROD`` < 2^31), one chunk (chunk_c = block_c), as
+    :func:`_conv_mma_geometry`; else channel chunks of 32, 64 or a multiple
+    of 128 channels (chunk_c = x_bytes * those), the largest whose ring
+    fits and whose one-chunk sums stay in range, folded every
+    :func:`conv_mma_fold_run` chunks."""
+    prod = INT_CONV_MMA_MAX_PROD[(x_bytes, w_bytes)]
+    taps = fh * fw
     bh, bw = _conv_mma_tile(out_w)
-    bco = INT_CONV_MMA_BLOCK_COS[0] if co <= INT_CONV_MMA_BLOCK_COS[0] \
+    top = INT_CONV_MMA_BLOCK_COS[0] if co <= INT_CONV_MMA_BLOCK_COS[0] \
         else INT_CONV_MMA_BLOCK_COS[-1]
+    cos = [b for b in INT_CONV_MMA_BLOCK_COS if b <= top][::-1]
+    cpc = _cpad_for(c)
 
-    def smem(bco):
+    def smem(bco, chunk_ch):
         return int_conv_mma_smem_bytes(fh, fw, bh, bw, bco, c, x_bytes,
-                                       w_bytes)
+                                       w_bytes, x_bytes * chunk_ch)
 
-    while bco > INT_CONV_MMA_BLOCK_COS[0] and smem(bco) > CONV_MMA_SMEM_MAX:
-        bco //= 2
-    if smem(bco) > CONV_MMA_SMEM_MAX:
-        return None
-    return dict(route="tensor_cores", block_h=bh, block_w=bw, block_co=bco,
-                block_c=x_bytes * _cpad_for(c), stages=CONV_MMA_STAGES,
-                threads=CONV_MMA_THREADS,
-                blocks=_conv_mma_blocks(n, out_h, out_w, co, bh, bw, bco,
-                                        device_key),
-                smem_bytes=smem(bco))
+    def plan(bco, chunk_ch):
+        return dict(route="tensor_cores", block_h=bh, block_w=bw,
+                    block_co=bco, block_c=x_bytes * cpc,
+                    chunk_c=x_bytes * chunk_ch, chunks=-(-c // chunk_ch),
+                    stages=CONV_MMA_STAGES, threads=CONV_MMA_THREADS,
+                    blocks=_conv_mma_blocks(n, out_h, out_w, co, bh, bw,
+                                            bco, device_key),
+                    smem_bytes=smem(bco, chunk_ch))
+
+    if taps * c * prod < 2**31:
+        for b in cos:
+            if smem(b, cpc) <= CONV_MMA_SMEM_MAX:
+                return plan(b, cpc)
+    for b in cos:
+        for chunk in _chunk_sizes(cpc):
+            if conv_mma_fold_run(taps, c, chunk, prod, -(-c // chunk)) >= 1 \
+                    and smem(b, chunk) <= CONV_MMA_SMEM_MAX:
+                return plan(b, chunk)
+    return None
 
 
 def int_conv2d_on_tensor_cores(x_shape: tuple, w_shape: tuple, *,
                                x_bytes: int, w_bytes: int,
                                padding: str = "VALID") -> bool:
     """Whether K6 runs on the int8 tensor cores for these shapes and
-    operand widths: wherever one block holds the resident weight block (at
-    8 output channels) beside the two-slot halo ring -- at 7x7 every C up
-    to 32 with int16 activations, up to 64 with int8 ones -- and the s32
-    sums over all taps stay in range.  The rest keeps the CUDA-core tile
-    (:func:`int_conv2d_core_geometry`)."""
+    operand widths: every shape whose ring of one 32-channel chunk fits the
+    shared memory at 8 output channels (kernels up to about 19 x 19), at
+    any C.  Wider kernels have no route (``plan_int_conv2d`` raises)."""
     n, h, w, c = x_shape
     fh, fw, _, co = w_shape
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
@@ -1513,8 +1544,9 @@ def int_conv2d_core_geometry(x_shape: tuple, w_shape: tuple, *,
                              padding: str = "VALID", device="cpu") -> dict:
     """block_h, block_co, block_c, threads and smem_bytes of the CUDA-core
     conv tile (csrc/conv2d_tile.cuh) for K6 at these shapes, which takes
-    any shape whose kernel fits its register window (those the planner
-    sends to the tensor cores too)."""
+    any shape whose kernel fits its register window.  No plan routes
+    there: the tile is kept as the comparison the tensor-core K6's rows
+    are timed against."""
     n, h, w, c = x_shape
     fh, fw, _, co = w_shape
     out_h, out_w = _conv_out(h, w, fh, fw, padding)
@@ -1527,10 +1559,11 @@ def plan_int_conv2d(x_shape: tuple, w_shape: tuple, *, x_bytes: int,
                     backend: str = "auto", device="cpu") -> KernelPlan:
     """Plan an unpacked integer conv2d x [N, H, W, C] * w [Fh, Fw, C, Co]
     of ``x_bytes`` / ``w_bytes`` operands (1: int8, 2: int16) (K6, the
-    paper's int16 baseline).  The plan records its route
-    (:func:`int_conv2d_on_tensor_cores`): 'tensor_cores', the byte-plane
-    implicit GEMM with ``_int_conv_mma_geometry``, or 'cuda_cores', the
-    conv tile K5's other layouts use."""
+    paper's int16 baseline): the byte-plane implicit GEMM on the int8
+    tensor cores (``route`` 'tensor_cores') with
+    ``_int_conv_mma_geometry``, the weights resident where they fit, else
+    channel chunks streamed through the ring.  Raises where no chunk fits
+    the shared memory."""
     return _plan_int_conv2d(tuple(x_shape), tuple(w_shape), padding, x_bytes,
                             w_bytes, resolve_backend(backend, device),
                             _device_key(device))
@@ -1548,8 +1581,9 @@ def _plan_int_conv2d(x_shape, w_shape, padding, x_bytes, w_bytes, backend,
     geometry = _int_conv_mma_geometry(n, out_h, out_w, c, fh, fw, co,
                                       x_bytes, w_bytes, device_key)
     if geometry is None:
-        geometry = dict(_conv_geometry(n, out_h, out_w, c, fh, fw, co,
-                                       device_key), route="cuda_cores")
+        raise ValueError(f"a {fh}x{fw} kernel does not fit the tensor-core "
+                         f"K6's shared memory at 8 output channels and 32 "
+                         f"channels a chunk")
     return KernelPlan(op="int_conv2d", backend=backend, x_bytes=x_bytes,
                       w_bytes=w_bytes, **geometry)
 

@@ -4,30 +4,26 @@
 Replaces ``repro/kernels/ulppack_conv2d.py``: ``ulppack_conv2d`` (Pallas
 ``_kernel``) and ``int_conv2d`` (``_int_kernel``), both launched by
 ``_tiled_conv_call`` (pallas_call at :148).  The plan picks K5's kernel
-(``plan.route``, ``plan.packed_conv2d_on_tensor_cores``):
+(``plan.route``, ``plan.packed_conv2d_on_tensor_cores``): every shape of
+every feasible layout takes ``csrc/ulppack_conv2d_mma.cu`` on the int8
+tensor cores, an implicit GEMM of u8 x u8 ``mma.sync`` products over
+lattice bytes -- the weight block resident in shared memory where it fits
+beside the halo ring, else channel chunks of K streamed through the ring
+with the halo.  ``int16xP2s8`` and ``int32xP4s8`` pixels read as bytes are
+the lattice; every other layout's are staged raw and rewritten as lattice
+bytes in shared memory.  One launch a call, with the CNN's affine dequant
+fused in on request (:class:`ConvAffine`).
 
-- wherever the weight block and the halo ring fit one block's shared
-  memory and the s32 sums stay in range (sparq-cnn's layers and the Fig.
-  4 shape among them), for every layout: ``csrc/ulppack_conv2d_mma.cu`` on
-  the int8 tensor cores, an implicit GEMM of u8 x u8 ``mma.sync``
-  products over lattice bytes with the weight block resident in shared
-  memory.  ``int16xP2s8`` and ``int32xP4s8`` pixels read as bytes are the
-  lattice; every other layout's are staged raw and rewritten as lattice
-  bytes in shared memory.  One launch a call, with the CNN's affine
-  dequant fused in on request (:class:`ConvAffine`).
-- the rest: ``csrc/ulppack_conv2d.cu`` over the CUDA-core tile of
-  ``csrc/conv2d_tile.cuh`` (32-bit integer registers, the faithful
-  ``vmacsr``).
+K6 takes ``csrc/int_conv2d_mma.cu`` on the int8 tensor cores at every
+shape, K5's pixel tile (``csrc/conv_mma.cuh``) with each int16 operand
+split into a signed high and an unsigned low byte plane, four MMAs a step
+at int16 x int16.
 
-The plan picks K6's kernel (``plan.int_conv2d_on_tensor_cores``, recorded
-as ``plan.route``):
-
-- wherever the weight block and the halo ring fit one block's shared
-  memory (the Fig. 4 shape and sparq-cnn's widths among them):
-  ``csrc/int_conv2d_mma.cu`` on the int8 tensor cores, K5's pixel tile
-  (``csrc/conv_mma.cuh``) with each int16 operand split into a signed high
-  and an unsigned low byte plane, four MMAs a step at int16 x int16;
-- the rest: ``csrc/int_conv2d.cu`` over the CUDA-core tile.
+The CUDA-core tiles (``csrc/ulppack_conv2d.cu``, ``csrc/int_conv2d.cu``
+over ``csrc/conv2d_tile.cuh``: 32-bit integer registers, the faithful
+``vmacsr``) stay callable through :func:`ulppack_conv2d_cuda` and
+:func:`int_conv2d_cuda` as the comparison the tensor-core rows are timed
+against; no plan routes there.
 
 Layouts are the reference's: input NHWC (K5: channels packed into Cp
 lanes), weights HWIO (K5: field-reversed lanes [Fh, Fw, Cp, Co], or with
@@ -248,7 +244,8 @@ def ulppack_conv2d_cuda(x_packed: torch.Tensor, w: torch.Tensor,
                         padding: str = "VALID",
                         weight_store: str = "lanes",
                         k_full: int | None = None) -> torch.Tensor:
-    """Launch K5 (CUDA tensors); geometry from ``plan_packed_conv2d``."""
+    """Launch the CUDA-core K5 (CUDA tensors); geometry from
+    ``packed_conv2d_core_geometry``."""
     k_full = _check_packed(x_packed, w, spec, weight_store, k_full)
     x, w = _cuda_operands(x_packed, w, "ulppack_conv2d_cuda")
     n, h, wd, cp = x.shape
@@ -315,14 +312,14 @@ def ulppack_conv2d_mma_cuda(x_packed: torch.Tensor, w: torch.Tensor,
         out_dtype = torch.float32
     out = torch.empty((n, out_h, out_w, co), dtype=out_dtype, device=dev)
     ptrs = [t.data_ptr() for t in scalars] or [0, 0, 0]
-    _bound("ulppack_conv2d_mma", 6, 28)(
+    _bound("ulppack_conv2d_mma", 6, 30)(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), *ptrs, n, h, wd, cp, fh,
         fw, wc, co, out_h, out_w, top, left, int(weight_store == "dense"),
         spec.w_bits, k_full or 0, spec.max_w * spec.max_a, spec.lane_bytes,
         spec.n_pack, spec.shift, int(epilogue is not None), plan.block_h,
-        plan.block_w,
-        plan.block_co, plan.block_c, plan.stages, plan.threads, plan.blocks,
-        plan.smem_bytes, dev.index or 0,
+        plan.block_w, plan.block_co, plan.block_c, plan.chunk_c, plan.chunks,
+        plan.stages, plan.threads, plan.blocks, plan.smem_bytes,
+        dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     kernel_launches["ulppack_conv2d_mma"] += 1
     mma_launches["s32" if epilogue is None else "affine"] += 1
@@ -333,8 +330,8 @@ def int_conv2d_cuda(q_x: torch.Tensor, q_w: torch.Tensor, *, block_h: int,
                     block_co: int, block_c: int, threads: int,
                     smem_bytes: int, padding: str = "VALID"
                     ) -> torch.Tensor:
-    """Launch the CUDA-core K6 (CUDA tensors); geometry from a
-    'cuda_cores' ``plan_int_conv2d`` or ``int_conv2d_core_geometry``."""
+    """Launch the CUDA-core K6 (CUDA tensors); geometry from
+    ``int_conv2d_core_geometry``."""
     _check_int(q_x, q_w)
     x, w = _cuda_operands(q_x, q_w, "int_conv2d_cuda")
     n, h, wd, c = x.shape
@@ -373,11 +370,12 @@ def int_conv2d_mma_cuda(q_x: torch.Tensor, q_w: torch.Tensor, *, plan,
     out_h, out_w = h + top + bottom - fh + 1, wd + left + right - fw + 1
     out = torch.empty((n, out_h, out_w, co), dtype=torch.int32,
                       device=x.device)
-    _bound("int_conv2d_mma", 3, 21)(
+    _bound("int_conv2d_mma", 3, 23)(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c,
         x.element_size(), fh, fw, co, w.element_size(), out_h, out_w, top,
         left, plan.block_h, plan.block_w, plan.block_co, plan.block_c,
-        plan.stages, plan.threads, plan.blocks, plan.smem_bytes,
+        plan.chunk_c, plan.chunks, plan.stages, plan.threads, plan.blocks,
+        plan.smem_bytes,
         x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernel_launches["int_conv2d_mma"] += 1

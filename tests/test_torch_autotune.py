@@ -213,7 +213,9 @@ class TestPlannerConsultation:
             with pytest.warns(UserWarning, match="ignoring autotune entry"):
                 assert plan_lib.plan_packed_conv2d(xs, ws, SP) == heur
         # int8xP2s4 tunes the tensor-core tile too (its raw slot counted);
-        # a shape past the tensor cores' shared memory the CUDA-core tile
+        # a shape past the resident weight block tunes it in channel
+        # chunks, and an entry tuned for the CUDA-core tile (no block_w)
+        # is stale: ignored with a warning
         s4 = PackSpec.parse("W1A1/int8xP2s4")
         key = autotune.conv2d_key(xs, ws, s4, padding="SAME",
                                   backend="torch")
@@ -227,9 +229,15 @@ class TestPlannerConsultation:
         key = autotune.conv2d_key(xb, wb, SP, padding="SAME",
                                   backend="torch")
         _install({key: {"block_co": 8}})
+        with pytest.warns(UserWarning, match="ignoring autotune entry"):
+            p = plan_lib.plan_packed_conv2d(xb, wb, SP)
+        assert (p.source, p.route) == ("heuristic", "tensor_cores")
+        assert p.chunks > 1 and p.threads == plan_lib.CONV_MMA_THREADS
+        _install({key: {"block_co": 8, "block_w": 16}})
         p = plan_lib.plan_packed_conv2d(xb, wb, SP)
-        assert (p.source, p.route, p.block_co) == ("tuned", "cuda_cores", 8)
-        assert p.threads == p.block_h * 4 * 2
+        assert (p.source, p.route, p.block_co, p.block_w) == (
+            "tuned", "tensor_cores", 8, 16)
+        assert p.chunks > 1
 
     def test_plan_selection_deterministic_given_fixed_cache(self):
         entries = {_mm_key(): {"block_m": 32, "block_k": 512, "splits": 2}}

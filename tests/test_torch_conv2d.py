@@ -221,8 +221,10 @@ def test_conv_plan_records_store_and_fits_hopper(x_shape, w_shape, padding,
     """The plan records the store and k_full; int16xP2s8 plans the
     tensor-core K5 (tests/test_torch_ulppack_conv_mma.py checks its
     geometry), and the CUDA-core tile's geometry for the same shapes still
-    fits Hopper; the tile, which takes the shapes past the tensor cores'
-    shared memory, refuses kernels wider than its register window."""
+    fits Hopper.  A 9x9 kernel over 512 lattice channels plans the tensor
+    cores in channel chunks, a 25x25 one fits no chunk and is refused; the
+    CUDA-core tile (on no route) refuses kernels wider than its register
+    window."""
     ts = tpack.PackSpec(2, 2)
     plan = plan_lib.plan_packed_conv2d(x_shape, w_shape, ts, padding=padding,
                                        weight_store=store, k_full=k_full)
@@ -246,8 +248,11 @@ def test_conv_plan_records_store_and_fits_hopper(x_shape, w_shape, padding,
                                      padding=padding)
     assert iplan.op == "int_conv2d" and iplan.threads <= 256
     assert plan.route == "tensor_cores"
-    with pytest.raises(ValueError, match="register window"):
-        plan_lib.plan_packed_conv2d((1, 9, 9, 256), (9, 9, 256, 8),
+    wide = plan_lib.plan_packed_conv2d((1, 9, 9, 256), (9, 9, 256, 8),
+                                       tpack.PackSpec(2, 2, "int32", 2, 16))
+    assert wide.route == "tensor_cores" and wide.chunks > 1
+    with pytest.raises(ValueError, match="shared memory"):
+        plan_lib.plan_packed_conv2d((1, 9, 9, 256), (25, 25, 256, 8),
                                     tpack.PackSpec(2, 2, "int32", 2, 16))
     with pytest.raises(ValueError, match="register window"):
         plan_lib.packed_conv2d_core_geometry((1, 9, 9, 4), (9, 9, 4, 8))

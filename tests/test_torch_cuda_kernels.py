@@ -578,7 +578,8 @@ def test_ulppack_conv2d_mma_fused_epilogue_bit_equal(hopper, store, shape):
 @pytest.mark.parametrize("change", [
     dict(block_w=64), dict(block_h=8), dict(block_co=24), dict(block_c=64),
     dict(stages=3), dict(threads=128), dict(blocks=0), dict(blocks=1000),
-    dict(smem_bytes=16)])
+    dict(smem_bytes=16), dict(chunk_c=64), dict(chunks=2),
+    dict(chunk_c=16, chunks=2)])
 def test_ulppack_conv2d_mma_launcher_refuses_a_plan_that_disagrees(hopper,
                                                                    change):
     """A plan whose tile, channel block, staged bytes, ring, threads, block
@@ -611,6 +612,76 @@ def test_ulppack_conv2d_core_tile_at_int16xP2s8(hopper, geom):
     got = ulppack_conv2d.ulppack_conv2d_cuda(xp, wp, sp, **core, **kw)
     assert torch.equal(got, ulppack_conv2d.ulppack_conv2d_torch(xp, wp, sp,
                                                                 **kw))
+
+
+#: (N, H, W, Cin, Fh, Fw, Co, padding): shapes past the tensor-core K5's
+#: resident weight block, which it takes in channel chunks -- Fig. 4 at
+#: 128 channels (one tile row), 3x3 over 256 channels at several images,
+#: Cin 65 and 97 (a mostly padded last chunk), a 1x1 conv over 2,048
+#: channels, a 9x9 kernel.
+K5_WIDE = [(1, 30, 70, 128, 7, 7, 32, "VALID"),
+           (5, 14, 14, 256, 3, 3, 40, "SAME"),
+           (1, 21, 19, 65, 7, 7, 9, "VALID"),
+           (1, 20, 23, 97, 7, 7, 8, "SAME"),
+           (2, 16, 40, 2048, 1, 1, 24, "SAME"),
+           (1, 19, 23, 128, 9, 9, 17, "SAME")]
+K5_WIDE_LAYOUTS = [("W1A1/int16xP2s8", "lanes"), ("W2A2/int16xP2s8", "lanes"),
+                   ("W2A2/int16xP2s8", "dense"), ("W3A3/int16xP2s8", "dense"),
+                   ("W1A1/int8xP2s4", "lanes"), ("W1A1/int16xP4s4", "dense"),
+                   ("W2A2/int32xP2s8", "lanes"), ("W2A2/int32xP4s8", "dense"),
+                   ("W4A4/int32xP2s16", "lanes"),
+                   ("W4A4/int32xP2s16", "dense")]
+
+
+@pytest.mark.parametrize("geom", K5_WIDE, ids=lambda g: "x".join(
+    map(str, g)))
+@pytest.mark.parametrize("spec,store", K5_WIDE_LAYOUTS)
+def test_ulppack_conv2d_mma_chunked_bit_equal(hopper, spec, store, geom):
+    """The tensor-core K5 over channel chunks (the planner's route, one
+    launch, no CUDA-core launch) at every layout and both stores, the dense
+    store at W3 included: bit-equal to the plain K5 and, where its register
+    window takes the kernel, to the CUDA-core tile; the fused epilogue
+    bit-equal to cnn.conv_epilogue."""
+    from repro_torch.models import cnn
+
+    n, h, w, cin, fh, fw, co, padding = geom
+    sp = PackSpec.parse(spec)
+    g = _gen(hopper, cin + co + fh)
+    qx = torch.randint(0, sp.max_a + 1, (n, h, w, cin), generator=g,
+                       device=hopper)
+    qw = torch.randint(0, sp.max_w + 1, (fh, fw, cin, co), generator=g,
+                       device=hopper)
+    xp = packing.pack_activations(qx, sp)
+    wp = (ops.dense_store_conv_weights(qw, sp.w_bits) if store == "dense"
+          else packing.pack_weights(qw, sp, axis=2))
+    k_full = cin if store == "dense" else None
+    kw = dict(padding=padding, weight_store=store, k_full=k_full)
+    plan = plan_lib.plan_packed_conv2d(tuple(xp.shape), tuple(wp.shape), sp,
+                                       padding=padding, weight_store=store,
+                                       k_full=k_full, device=hopper)
+    assert (plan.backend, plan.route) == ("cuda", "tensor_cores")
+    assert plan.chunks > 1
+    want = ulppack_conv2d.ulppack_conv2d_torch(xp, wp, sp, **kw)
+    ulppack_conv2d.reset_counts()
+    got = ops.packed_conv2d(xp, wp, sp, plan=plan, padding=padding)
+    assert ulppack_conv2d.kernel_launches["ulppack_conv2d_mma"] == 1
+    assert ulppack_conv2d.kernel_launches["ulppack_conv2d"] == 0
+    assert torch.equal(got, want)
+    if fw <= plan_lib.CONV_FW_MAX:
+        core = plan_lib.packed_conv2d_core_geometry(
+            tuple(xp.shape), tuple(wp.shape), padding=padding, device=hopper)
+        assert torch.equal(
+            ulppack_conv2d.ulppack_conv2d_cuda(xp, wp, sp, **core, **kw), want)
+    ep = ulppack_conv2d.ConvAffine(
+        torch.tensor(4 / 3, device=hopper), torch.tensor(0.0213,
+                                                         device=hopper),
+        torch.tensor(2, dtype=torch.int32, device=hopper))
+    fused = ulppack_conv2d.ulppack_conv2d_mma_cuda(xp, wp, sp, plan=plan,
+                                                   epilogue=ep, **kw)
+    eager = cnn.conv_epilogue({
+        "acc": want, "psum": cnn.patch_sums(qx, fh, fw, padding),
+        "a_scale": ep.a_scale, "w_scale": ep.w_scale, "w_zp": ep.w_zp})
+    assert torch.equal(fused, eager)
 
 
 #: The value ranges of the integer conv: Fig. 4's [-256, 256) (within the
@@ -678,16 +749,17 @@ def test_int_conv2d_core_tile_bit_equal(hopper, xdtype, wdtype, geom):
         qx, qw, padding=geom[-1]))
 
 
-#: (geometry, x dtype, w dtype, route): C 32 at 7x7 fits the tensor cores
-#: at every type; C 64 only with int8 activations; a 9x9 kernel (past the
-#: CUDA-core tile's register window) on the tensor cores.
+#: (geometry, x dtype, w dtype, route): every shape on the tensor cores --
+#: C 32 at 7x7 with the weights resident at every type, C 64 resident only
+#: with int8 activations and in channel chunks with int16 ones, a 9x9
+#: kernel (past the CUDA-core tile's register window).
 INT_ROUTES = [
     ((1, 30, 40, 32, 7, 7, 64, "SAME"), torch.int16, torch.int16,
      "tensor_cores"),
     ((1, 30, 40, 64, 7, 7, 24, "SAME"), torch.int16, torch.int16,
-     "cuda_cores"),
+     "tensor_cores"),
     ((1, 30, 40, 64, 7, 7, 24, "SAME"), torch.int16, torch.int8,
-     "cuda_cores"),
+     "tensor_cores"),
     ((1, 30, 40, 64, 7, 7, 24, "VALID"), torch.int8, torch.int16,
      "tensor_cores"),
     ((1, 12, 21, 100, 3, 3, 8, "SAME"), torch.int8, torch.int8,
@@ -716,6 +788,50 @@ def test_int_conv2d_route_per_shape(hopper, geom, xdtype, wdtype, route):
     assert sum(ulppack_conv2d.plain_calls.values()) == 0
     assert torch.equal(got, ulppack_conv2d.int_conv2d_torch(
         qx, qw, padding=geom[-1]))
+
+
+#: (N, H, W, C, Fh, Fw, Co, padding): shapes the tensor-core K6 takes in
+#: channel chunks with int16 activations -- Fig. 4 at 64 channels (one tile
+#: row), 3x3 over 256 channels at several images, C 65 and 33, a 1x1 conv
+#: over 2,048 channels, a 9x9 kernel -- and one tap of 32,897 channels,
+#: whose sums fold into the uint32 total once.
+K6_WIDE = [(1, 30, 70, 64, 7, 7, 32, "VALID"),
+           (5, 14, 14, 256, 3, 3, 40, "SAME"),
+           (1, 21, 19, 65, 7, 7, 9, "VALID"),
+           (1, 20, 23, 33, 7, 7, 8, "SAME"),
+           (2, 16, 40, 2048, 1, 1, 24, "SAME"),
+           (1, 19, 23, 128, 9, 9, 17, "SAME"),
+           (1, 3, 5, 32897, 1, 1, 8, "VALID")]
+
+
+@pytest.mark.parametrize("geom", K6_WIDE, ids=lambda g: "x".join(
+    map(str, g)))
+@pytest.mark.parametrize("rng", INT_RANGES)
+@pytest.mark.parametrize("xdtype,wdtype", INT_DTYPES,
+                         ids=lambda d: str(d).split(".")[-1])
+def test_int_conv2d_mma_chunked_bit_equal(hopper, xdtype, wdtype, rng,
+                                          geom):
+    """The tensor-core K6 at the wide shapes (channel chunks at int16
+    activations; at int8 ones some stay resident), the four operand types
+    and three value ranges, the full int16 range included: bit-equal to the
+    plain K6 and, where its register window takes the kernel, to the
+    CUDA-core tile; one launch."""
+    qx, qw, plan = _int_conv_case(hopper, geom, xdtype, wdtype, rng,
+                                  geom[3] + geom[6])
+    assert plan.route == "tensor_cores"
+    assert plan.chunks > 1 or xdtype == torch.int8
+    want = ulppack_conv2d.int_conv2d_torch(qx, qw, padding=geom[-1])
+    ulppack_conv2d.reset_counts()
+    got = ops.int_conv2d(qx, qw, padding=geom[-1], plan=plan)
+    assert ulppack_conv2d.kernel_launches["int_conv2d_mma"] == 1
+    assert sum(ulppack_conv2d.kernel_launches.values()) == 1
+    assert torch.equal(got, want)
+    if geom[5] <= plan_lib.CONV_FW_MAX:
+        core = plan_lib.int_conv2d_core_geometry(
+            tuple(qx.shape), tuple(qw.shape), padding=geom[-1],
+            device=hopper)
+        assert torch.equal(ulppack_conv2d.int_conv2d_cuda(
+            qx, qw, **core, padding=geom[-1]), want)
 
 
 @pytest.mark.parametrize("xdtype,wdtype", INT_DTYPES,
@@ -750,7 +866,8 @@ def test_int_conv2d_mma_repeats(hopper, xdtype, wdtype):
 @pytest.mark.parametrize("change", [
     dict(block_w=64), dict(block_h=8), dict(block_co=32), dict(block_c=32),
     dict(stages=3), dict(threads=128), dict(blocks=0), dict(blocks=1000),
-    dict(smem_bytes=16)])
+    dict(smem_bytes=16), dict(chunk_c=32), dict(chunks=2),
+    dict(chunk_c=32, chunks=2)])
 def test_int_conv2d_mma_launcher_refuses_a_plan_that_disagrees(hopper,
                                                                change):
     """A plan whose tile, channel block, staged bytes, ring, threads, block

@@ -322,16 +322,23 @@ def test_k5_w4a4_cnn_layer_fused_epilogue(hopper, store):
 
 def test_k5_past_the_shared_memory_takes_the_cuda_cores(hopper):
     """A conv whose weight block does not fit the tensor cores' shared
-    memory plans route 'cuda_cores' and runs the CUDA-core tile, for an
-    int16xP2s8 and an int32xP2s16 layout."""
+    memory whole plans the tensor cores in channel chunks (route
+    'tensor_cores', one launch of the tensor-core K5), for an int16xP2s8
+    and an int32xP2s16 layout: bit-equal to the plain K5 and to the
+    CUDA-core tile, which is on no route."""
     for text in ("W2A2/int16xP2s8", "W2A2/int32xP2s16"):
         sp = PackSpec.parse(text)
         cin = 1024
         geom = (1, 8, 8, cin, 7, 7, 8, "SAME", "lanes")
         sp, xp, wp, plan, kw = _conv_case(hopper, text, geom, 2)
-        assert plan.route == "cuda_cores"
+        assert plan.route == "tensor_cores" and plan.chunks > 1
         ulppack_conv2d.reset_counts()
         got = ops.packed_conv2d(xp, wp, sp, plan=plan, padding="SAME")
-        assert ulppack_conv2d.kernel_launches["ulppack_conv2d"] == 1
-        assert torch.equal(got, ulppack_conv2d.ulppack_conv2d_torch(
-            xp, wp, sp, **kw))
+        assert ulppack_conv2d.kernel_launches["ulppack_conv2d_mma"] == 1
+        assert ulppack_conv2d.kernel_launches["ulppack_conv2d"] == 0
+        want = ulppack_conv2d.ulppack_conv2d_torch(xp, wp, sp, **kw)
+        assert torch.equal(got, want)
+        core = plan_lib.packed_conv2d_core_geometry(
+            tuple(xp.shape), tuple(wp.shape), padding="SAME", device=hopper)
+        assert torch.equal(
+            ulppack_conv2d.ulppack_conv2d_cuda(xp, wp, sp, **core, **kw), want)

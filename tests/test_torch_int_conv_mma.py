@@ -1,9 +1,10 @@
 """K6 on the int8 tensor cores (``csrc/int_conv2d_mma.cu``) from the CPU: the
 planner's route by shape and operand width and its geometry (the Fig. 4
-shape, sparq-cnn's widths, the shapes left to the CUDA-core tile), the
-planner's constants against the kernel's source, a plain emulation of the
-kernel's byte-plane arithmetic -- signed high and unsigned low planes,
-three s32 sums held to the int32 range, the uint32 combine -- against
+shape, sparq-cnn's widths with the weights resident, the wider shapes in
+channel chunks), the planner's constants against the kernel's source, a
+plain emulation of the kernel's byte-plane arithmetic -- signed high and
+unsigned low planes, chunk by chunk, three s32 sums held to the int32
+range, the uint32 combine and the folds into uint32 totals -- against
 ``repro``'s ``ref.conv2d_i32_ref`` (run through JAX) and the port's plain
 K6, the dispatch by route with CPU stand-ins, and the CUDA wrapper's
 refusals.  The kernel itself runs only on the card
@@ -44,34 +45,49 @@ def _plan(x_shape, w_shape, xb, wb, padding="VALID"):
 # The route and the planner
 # ---------------------------------------------------------------------------
 
-#: (x_shape, w_shape, x_bytes, w_bytes, padding, route): the Fig. 4 shape
-#: and sparq-cnn's widths (C 32, 7x7, Co 32 / 64) fit the tensor cores at
-#: every width; C 64 at 7x7 fits with int8 activations only (int16 ones
-#: take two 107 KB halo slots); C past 64 at 7x7 and a 1x1 conv over 2,048
-#: int16 channels do not; a 9x9 kernel (past the CUDA-core tile's register
-#: window) fits.
+#: (x_shape, w_shape, x_bytes, w_bytes, padding, route, (chunk_c, chunks)):
+#: the Fig. 4 shape and sparq-cnn's widths (C 32, 7x7, Co 32 / 64) keep the
+#: weights resident at every width, as C 64 at 7x7 does with int8
+#: activations; int16 ones at C 64 or 33, C 65 and a 1x1 conv over 2,048
+#: int16 channels split K into chunks of 32, 64 or 128 channels; a 9x9
+#: kernel (past the CUDA-core tile's register window) stays resident.
 ROUTES = [
-    ((1, 256, 256, 32), (7, 7, 32, 32), 2, 2, "VALID", "tensor_cores"),
-    ((1, 256, 256, 32), (7, 7, 32, 32), 1, 1, "VALID", "tensor_cores"),
-    ((8, 256, 256, 32), (7, 7, 32, 64), 2, 2, "SAME", "tensor_cores"),
-    ((8, 256, 256, 32), (7, 7, 32, 32), 2, 1, "SAME", "tensor_cores"),
-    ((1, 256, 256, 64), (7, 7, 64, 32), 1, 2, "VALID", "tensor_cores"),
-    ((1, 256, 256, 64), (7, 7, 64, 32), 1, 1, "VALID", "tensor_cores"),
-    ((1, 256, 256, 64), (7, 7, 64, 32), 2, 2, "VALID", "cuda_cores"),
-    ((1, 256, 256, 64), (7, 7, 64, 32), 2, 1, "VALID", "cuda_cores"),
-    ((1, 256, 256, 33), (7, 7, 33, 32), 2, 2, "VALID", "cuda_cores"),
-    ((1, 64, 64, 65), (7, 7, 65, 32), 1, 1, "SAME", "cuda_cores"),
-    ((1, 64, 64, 2048), (1, 1, 2048, 16), 2, 2, "SAME", "cuda_cores"),
-    ((1, 64, 64, 128), (3, 3, 128, 16), 1, 1, "SAME", "tensor_cores"),
-    ((2, 19, 23, 5), (9, 9, 5, 17), 2, 2, "SAME", "tensor_cores"),
+    ((1, 256, 256, 32), (7, 7, 32, 32), 2, 2, "VALID", "tensor_cores",
+     (64, 1)),
+    ((1, 256, 256, 32), (7, 7, 32, 32), 1, 1, "VALID", "tensor_cores",
+     (32, 1)),
+    ((8, 256, 256, 32), (7, 7, 32, 64), 2, 2, "SAME", "tensor_cores",
+     (64, 1)),
+    ((8, 256, 256, 32), (7, 7, 32, 32), 2, 1, "SAME", "tensor_cores",
+     (64, 1)),
+    ((1, 256, 256, 64), (7, 7, 64, 32), 1, 2, "VALID", "tensor_cores",
+     (64, 1)),
+    ((1, 256, 256, 64), (7, 7, 64, 32), 1, 1, "VALID", "tensor_cores",
+     (64, 1)),
+    ((1, 256, 256, 64), (7, 7, 64, 32), 2, 2, "VALID", "tensor_cores",
+     (64, 2)),
+    ((1, 256, 256, 64), (7, 7, 64, 32), 2, 1, "VALID", "tensor_cores",
+     (64, 2)),
+    ((1, 256, 256, 33), (7, 7, 33, 32), 2, 2, "VALID", "tensor_cores",
+     (64, 2)),
+    ((1, 64, 64, 65), (7, 7, 65, 32), 1, 1, "SAME", "tensor_cores",
+     (64, 2)),
+    ((1, 64, 64, 2048), (1, 1, 2048, 16), 2, 2, "SAME", "tensor_cores",
+     (128, 32)),
+    ((1, 64, 64, 128), (3, 3, 128, 16), 1, 1, "SAME", "tensor_cores",
+     (128, 1)),
+    ((2, 19, 23, 5), (9, 9, 5, 17), 2, 2, "SAME", "tensor_cores", (64, 1)),
 ]
 
 
-@pytest.mark.parametrize("x_shape,w_shape,xb,wb,padding,route", ROUTES,
-                         ids=lambda v: str(v))
-def test_route_by_shape_and_width(x_shape, w_shape, xb, wb, padding, route):
-    """The plan records the route the predicate picks; a tensor-core plan
-    fits the shared memory, a CUDA-core plan is the tile's own geometry."""
+@pytest.mark.parametrize("x_shape,w_shape,xb,wb,padding,route,chunking",
+                         ROUTES, ids=lambda v: str(v))
+def test_route_by_shape_and_width(x_shape, w_shape, xb, wb, padding, route,
+                                  chunking):
+    """Every shape plans the tensor-core K6: the weights resident (one
+    chunk of block_c bytes) where they fit beside the halo ring, else the
+    largest channel chunk whose two ring slots fit; the shared memory the
+    launcher computes, within the 232,448 bytes a block may use."""
     assert tplan.int_conv2d_on_tensor_cores(
         x_shape, w_shape, x_bytes=xb, w_bytes=wb, padding=padding) is (
             route == "tensor_cores")
@@ -80,14 +96,18 @@ def test_route_by_shape_and_width(x_shape, w_shape, xb, wb, padding, route):
     assert (p.x_bytes, p.w_bytes) == (xb, wb)
     row = p.describe()
     assert row["route"] == route and row["x_bytes"] == xb
-    if route == "tensor_cores":
-        assert p.smem_bytes <= tplan.CONV_MMA_SMEM_MAX == 232448
-        return
-    assert p.block_w is None
-    core = tplan.int_conv2d_core_geometry(x_shape, w_shape, padding=padding)
-    assert dataclasses.asdict(p) == dataclasses.asdict(
-        dataclasses.replace(p, **core))
-    assert core["smem_bytes"] <= tplan.CONV_SMEM_MAX
+    assert (p.chunk_c, p.chunks) == chunking == (row["chunk_c"],
+                                                 row["chunks"])
+    assert p.block_c == xb * tplan._cpad_for(x_shape[-1])
+    assert (p.chunks == 1) is (p.chunk_c == p.block_c)
+    assert p.chunks == -(-x_shape[-1] * xb // p.chunk_c)
+    assert p.smem_bytes <= tplan.CONV_MMA_SMEM_MAX == 232448
+    assert p.smem_bytes == tplan.int_conv_mma_smem_bytes(
+        *w_shape[:2], p.block_h, p.block_w, p.block_co, x_shape[-1], xb, wb,
+        p.chunk_c)
+    core = tplan.int_conv2d_core_geometry(x_shape, w_shape, padding=padding) \
+        if w_shape[1] <= tplan.CONV_FW_MAX else None
+    assert core is None or core["smem_bytes"] <= tplan.CONV_SMEM_MAX
 
 
 #: (block_h, block_w, block_co, block_c, blocks, smem_bytes) per (x_shape,
@@ -121,6 +141,7 @@ def test_tensor_core_geometry(key):
     got = (p.block_h, p.block_w, p.block_co, p.block_c, p.blocks,
            p.smem_bytes)
     assert got == GEOMETRY[key]
+    assert (p.route, p.chunk_c, p.chunks) == ("tensor_cores", p.block_c, 1)
     assert p.block_h * p.block_w == tplan.CONV_MMA_TILE_PIXELS
     assert (p.threads, p.stages) == (tplan.CONV_MMA_THREADS,
                                      tplan.CONV_MMA_STAGES)
@@ -137,56 +158,71 @@ def test_tensor_core_geometry(key):
 
 def test_block_co_halves_to_fit():
     """Where 16 output channels' weights do not fit beside the halo ring,
-    the planner takes 8; where 8 do not either, the CUDA-core tile, which
-    refuses a kernel wider than its register window."""
+    the planner takes 8; where 8 do not either, channel chunks; a kernel
+    whose ring of 32-channel chunks does not fit at 8 channels has no
+    route."""
     p = _plan((1, 64, 64, 64), (7, 7, 64, 32), 1, 2)
     assert p.route == "tensor_cores" and p.block_co == 16
     p = _plan((1, 64, 64, 32), (11, 11, 32, 32), 2, 2)
-    assert p.route == "tensor_cores" and p.block_co == 8
+    assert p.route == "tensor_cores" and p.block_co == 8 and p.chunks == 1
     assert tplan.int_conv_mma_smem_bytes(11, 11, 16, 32, 16, 32, 2, 2) \
         > tplan.CONV_MMA_SMEM_MAX >= p.smem_bytes
     assert tplan.int_conv_mma_smem_bytes(15, 15, 16, 32, 8, 32, 2, 2) \
         > tplan.CONV_MMA_SMEM_MAX
-    with pytest.raises(ValueError, match="register window"):
-        _plan((1, 64, 64, 32), (15, 15, 32, 32), 2, 2)
+    p = _plan((1, 64, 64, 64), (9, 9, 64, 32), 2, 2)
+    assert (p.block_co, p.chunk_c, p.chunks) == (8, 64, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan((1, 64, 64, 64), (11, 11, 64, 32), 2, 2)
 
 
 def _widest_c(k, xb, wb, hw=4):
-    """The largest C the planner sends to the tensor cores for a k x k
+    """The largest C whose weights the planner keeps resident for a k x k
     kernel over an hw x hw image (SAME), scanning C from 1: past it every C
-    takes the CUDA-core tile."""
-    def fits(c):
-        return tplan.int_conv2d_on_tensor_cores(
-            (1, hw, hw, c), (k, k, c, 8), x_bytes=xb, w_bytes=wb,
-            padding="SAME")
+    takes channel chunks."""
+    def resident(c):
+        return _plan((1, hw, hw, c), (k, k, c, 8), xb, wb,
+                     "SAME").chunks == 1
     c = 1
-    while fits(c + 1):
+    while resident(c + 1):
         c += 1
-    assert fits(c) and not any(fits(d) for d in range(c + 1, c + 257))
+    assert resident(c) and not any(resident(d) for d in range(c + 1, c + 257))
     return c
 
 
 @pytest.mark.parametrize("k", [1, 3, 7])
 @pytest.mark.parametrize("xb,wb", [(1, 1), (1, 2), (2, 1), (2, 2)])
 def test_every_fitting_shape_keeps_the_s32_sums_in_range(xb, wb, k):
-    """One run holds every tap: the shared memory caps taps * C of any
-    shape the planner sends to the tensor cores far below the bound
-    taps * C * max_prod < 2^31 the launcher checks, so K never needs
-    folding there; a longer K takes the CUDA-core tile."""
+    """A resident plan holds every tap in one run: the shared memory caps
+    taps * C of those shapes far below the bound taps * C * max_prod <
+    2^31, so they never fold; a longer K takes channel chunks, each of
+    whose sums stays in range, and folds where the whole K could reach
+    2^31."""
     c = _widest_c(k, xb, wb)
-    most = k * k * c * tplan.INT_CONV_MMA_MAX_PROD[(xb, wb)]
-    assert most < I32 // 8
+    prod = tplan.INT_CONV_MMA_MAX_PROD[(xb, wb)]
+    assert k * k * c * prod < I32 // 8
     p = _plan((1, 4, 4, c), (k, k, c, 8), xb, wb, "SAME")
     assert p.route == "tensor_cores" and p.smem_bytes <= tplan.CONV_MMA_SMEM_MAX
-    assert _plan((1, 4, 4, c + 32), (k, k, c + 32, 8), xb, wb,
-                 "SAME").route == "cuda_cores"
+    q = _plan((1, 4, 4, c + 32), (k, k, c + 32, 8), xb, wb, "SAME")
+    assert q.route == "tensor_cores" and q.chunks > 1
+    ch = q.chunk_c // xb
+    assert k * k * ch * prod < I32
+    assert tplan.conv_mma_fold_run(k * k, c + 32, ch, prod, q.chunks) \
+        == q.chunks
 
 
 def test_a_tap_past_the_int32_range_takes_the_cuda_cores():
     """One tap of 32,897 int16 x int16 channels could reach 2^31 in the
-    cross sum: the tensor-core K6 cannot take it in one run."""
-    assert not tplan.int_conv2d_on_tensor_cores(
+    cross sum: the tensor-core K6 takes it in chunks of 64 channels and
+    folds its sums into uint32 totals before they can (after 514 chunks of
+    the 515)."""
+    assert tplan.int_conv2d_on_tensor_cores(
         (1, 1, 1, 32897), (1, 1, 32897, 8), x_bytes=2, w_bytes=2)
+    p = _plan((1, 1, 1, 32897), (1, 1, 32897, 8), 2, 2)
+    assert (p.route, p.chunk_c, p.chunks) == ("tensor_cores", 128, 515)
+    prod = tplan.INT_CONV_MMA_MAX_PROD[(2, 2)]
+    assert 32897 * prod >= I32
+    run = tplan.conv_mma_fold_run(1, 32897, 64, prod, p.chunks)
+    assert run == 514 and run * 64 * prod < I32 <= (run + 1) * 64 * prod
 
 
 def test_constants_match_the_kernel_source():
@@ -217,10 +253,19 @@ def test_constants_match_the_kernel_source():
         (2, 2): 2 * 128 * 255, (1, 2): 255 * 128, (2, 1): 255 * 128,
         (1, 1): 128 * 128}
     assert "const long long krow = taps * w_bytes * cpc + 16;" in src
-    assert "(block_w + FW - 1) * block_c;" in src
-    assert "block_c == x_bytes * cpc" in src
-    assert "const long long need = block_co * krow + kStages * halo;" in src
-    assert "taps * C * max_prod(x_bytes, w_bytes) < (1LL << 31);" in src
+    assert "(block_w + FW - 1) * chunk_c;" in src
+    assert "block_c == x_bytes * cpad_for(C)" in src
+    assert "chunks == (C + cpc - 1) / cpc;" in src
+    assert ("const long long slot = chunks == 1 ? halo : block_co * krow + "
+            "halo;") in src
+    assert ("const long long need = (chunks == 1 ? block_co * krow : 0) + "
+            "kStages * slot;") in src
+    assert ("conv_mma::fold_run(taps, C, cpc, max_prod(x_bytes, w_bytes), "
+            "chunks);") in src
+    assert ("  return taps * c * max_prod < (1LL << 31)\n"
+            "             ? chunks\n"
+            "             : ((1LL << 31) - 1) / (taps * chunk_ch * max_prod);"
+            ) in tile
 
 
 # ---------------------------------------------------------------------------
@@ -242,41 +287,49 @@ def planes(v: torch.Tensor, nbytes: int):
     return [hi, lo]
 
 
-def int_conv_mma_emulation(q_x, q_w, *, block_c, padding="VALID"):
+def int_conv_mma_emulation(q_x, q_w, *, plan, padding="VALID", run=None):
     """The tensor-core K6 in plain torch: both operands split into byte
-    planes, channels zero-padded to cpc = block_c / x_bytes, the image to
-    its padding; for each tap and each 32-channel k step, every (x plane,
-    w plane) product added to accumulator px + pw (the two int16 cross
-    terms share one), every running sum held to the int32 range the MMA
-    accumulator has; after the last tap the accumulators combined with 2^8
-    weights, high first, in uint32 (mod 2^32).  Returns int32 [N, Ho, Wo,
-    Co]."""
+    planes, channels zero-padded to ``chunks`` chunks of cpc = chunk_c /
+    x_bytes, the image to its padding; chunk by chunk, for each tap and
+    each 32-channel k step, every (x plane, w plane) product added to
+    accumulator px + pw (the two int16 cross terms share one), every
+    running sum held to the int32 range the MMA accumulator has.  After the
+    tile's last chunk, and after every ``run`` chunks before it
+    (``conv_mma_fold_run``, the launcher's), the accumulators are combined
+    with 2^8 weights, high first, in uint32 (mod 2^32), added into the
+    uint32 total and restarted.  Returns int32 [N, Ho, Wo, Co]."""
     xb, wb = q_x.element_size(), q_w.element_size()
     n, h, wd, c = q_x.shape
     fh, fw, _, co = q_w.shape
-    cpc = block_c // xb
+    cpc, chunks = plan.chunk_c // xb, plan.chunks
     top, bottom, left, right = tconv.same_pads(fh, fw, padding)
     ho, wo = h + top + bottom - fh + 1, wd + left + right - fw + 1
-    xs = [F.pad(p, (0, cpc - c, left, right, top, bottom))
+    xs = [F.pad(p, (0, chunks * cpc - c, left, right, top, bottom))
           for p in planes(q_x, xb)]
-    ws = [F.pad(p, (0, 0, 0, cpc - c)) for p in planes(q_w, wb)]
+    ws = [F.pad(p, (0, 0, 0, chunks * cpc - c)) for p in planes(q_w, wb)]
     nacc = xb + wb - 1
     taps = fh * fw
-    acc = [torch.zeros((n * ho * wo, co), dtype=torch.int64)
-           for _ in range(nacc)]
-    for tap in range(taps):
-        i, j = divmod(tap, fw)
-        for k0 in range(0, cpc, 32):
-            for px, xp in enumerate(xs):
-                rows = xp[:, i:i + ho, j:j + wo, k0:k0 + 32].reshape(-1, 32)
-                for pw, wp in enumerate(ws):
-                    acc[px + pw] += rows @ wp[i, j, k0:k0 + 32]
-            for a in acc:
-                assert int(a.abs().max()) < I32
+    if run is None:
+        run = tplan.conv_mma_fold_run(
+            taps, c, cpc, tplan.INT_CONV_MMA_MAX_PROD[(xb, wb)], chunks)
+    mask = 2**32 - 1
     total = torch.zeros((n * ho * wo, co), dtype=torch.int64)
-    for k, a in enumerate(acc):
-        total = (total + ((a & 0xFFFFFFFF) << (8 * (nacc - 1 - k)))) \
-            & 0xFFFFFFFF
+    acc = [torch.zeros_like(total) for _ in range(nacc)]
+    for k in range(chunks):
+        for tap in range(taps):
+            i, j = divmod(tap, fw)
+            for k0 in range(k * cpc, (k + 1) * cpc, 32):
+                for px, xp in enumerate(xs):
+                    rows = xp[:, i:i + ho, j:j + wo, k0:k0 + 32].reshape(-1,
+                                                                         32)
+                    for pw, wp in enumerate(ws):
+                        acc[px + pw] += rows @ wp[i, j, k0:k0 + 32]
+                for a in acc:
+                    assert int(a.abs().max()) < I32
+        if k == chunks - 1 or (k + 1) % run == 0:
+            for m, a in enumerate(acc):
+                total = (total + ((a & mask) << (8 * (nacc - 1 - m)))) & mask
+            acc = [torch.zeros_like(total) for _ in range(nacc)]
     total = torch.where(total >= I32, total - 2**32, total)
     return total.to(torch.int32).reshape(n, ho, wo, co)
 
@@ -296,8 +349,7 @@ def _check(q_x, q_w, padding, plan):
     want = np.asarray(jref.conv2d_i32_ref(jnp.asarray(q_x), jnp.asarray(q_w),
                                           padding=padding))
     tx, tw = torch.from_numpy(q_x), torch.from_numpy(q_w)
-    got = int_conv_mma_emulation(tx, tw, block_c=plan.block_c,
-                                 padding=padding)
+    got = int_conv_mma_emulation(tx, tw, plan=plan, padding=padding)
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, tconv.int_conv2d_torch(tx, tw, padding=padding))
 
@@ -344,6 +396,58 @@ def test_widest_fitting_k_at_the_extremes(xb, wb):
     _check(q_x, q_w, "SAME", plan)
 
 
+# (N, H, W, C, Fh, Fw, Co, padding): the chunked K loop -- 3x3 over 256
+# channels, 1x1 over 2,048, C 65 and 33 (a last chunk of one or two
+# channels), a 9x9 kernel over 128 channels.
+WIDE = [
+    (1, 5, 6, 256, 3, 3, 8, "SAME"),
+    (1, 3, 4, 2048, 1, 1, 9, "SAME"),
+    (1, 9, 10, 65, 7, 7, 5, "VALID"),
+    (1, 8, 9, 33, 7, 7, 16, "SAME"),
+    (1, 9, 11, 128, 9, 9, 17, "SAME"),
+]
+
+
+@pytest.mark.parametrize("geom", WIDE, ids=lambda g: "-".join(map(str, g)))
+@pytest.mark.parametrize("xb,wb", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_chunked_emulation_equals_reference(xb, wb, geom):
+    """Every operand width pair over its full range (int16 sums wrap), at
+    the shapes whose K the planner splits into chunks (with int8
+    activations some of them stay resident): the emulation of the plan is
+    exact."""
+    n, h, w, c, fh, fw, co, padding = geom
+    rng = np.random.default_rng(xb * 100 + wb * 10 + c + fh)
+    q_x = _values(rng, (n, h, w, c), TYPES[xb], "full")
+    q_w = _values(rng, (fh, fw, c, co), TYPES[wb], "full")
+    plan = _plan(q_x.shape, q_w.shape, xb, wb, padding)
+    assert plan.route == "tensor_cores"
+    assert plan.chunks > 1 or xb == 1
+    _check(q_x, q_w, padding, plan)
+
+
+@pytest.mark.parametrize("kind", ["full", "extreme"])
+def test_folded_sums_are_exact(kind):
+    """32,897 int16 x int16 channels in one tap (the cross sum could pass
+    2^31 in one run): 515 chunks folded into the uint32 total after the
+    514th, exact against repro's conv at the full range and with every
+    value at the extreme that drives each accumulator hardest; the same
+    with a fold after every chunk."""
+    c = 32897
+    rng = np.random.default_rng(c)
+    if kind == "full":
+        q_x = _values(rng, (1, 1, 2, c), np.int16, "full")
+        q_w = _values(rng, (1, 1, c, 8), np.int16, "full")
+    else:
+        q_x = np.full((1, 1, 2, c), -32513, dtype=np.int16)
+        q_w = np.full((1, 1, c, 8), -32513, dtype=np.int16)
+    plan = _plan(q_x.shape, q_w.shape, 2, 2)
+    assert (plan.chunks, plan.chunk_c) == (515, 128)
+    _check(q_x, q_w, "VALID", plan)
+    tx, tw = torch.from_numpy(q_x), torch.from_numpy(q_w)
+    assert torch.equal(int_conv_mma_emulation(tx, tw, plan=plan, run=1),
+                       tconv.int_conv2d_torch(tx, tw))
+
+
 # ---------------------------------------------------------------------------
 # Dispatch, refusals and counts
 # ---------------------------------------------------------------------------
@@ -360,8 +464,7 @@ def test_dispatch_follows_the_route(monkeypatch):
 
     def mma(x, w, *, plan, padding="VALID"):
         calls.append(("mma", plan))
-        return int_conv_mma_emulation(x, w, block_c=plan.block_c,
-                                      padding=padding)
+        return int_conv_mma_emulation(x, w, plan=plan, padding=padding)
 
     def cores(x, w, *, padding="VALID", **geometry):
         calls.append(("cores", geometry))

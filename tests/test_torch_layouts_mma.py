@@ -11,7 +11,8 @@
     ``ref.matmul_i32_ref``;
 (b) the planner: every feasible layout plans the tensor-core route, its
     stage lanes, split starts and the s32 range refusal in lattice
-    values; an oversized conv records ``route='cuda_cores'``;
+    values; a conv past the resident weight block plans the tensor cores
+    in channel chunks, each chunk's raw slot a slice of whole lanes;
 (c) reduced stablelm at W4A4 int32, lanes and dense: greedy tokens of
     the port's engine (``backend='torch'``, CPU) against ``repro``'s
     engine run op by op, under the top-2 margin rule;
@@ -403,18 +404,57 @@ def test_rings_hold_three_stages():
 
 def test_oversized_conv_takes_the_cuda_cores():
     """A conv whose weight block and halo do not fit the tensor cores'
-    shared memory records ``route='cuda_cores'`` and the CUDA-core tile's
-    geometry, for every layout."""
+    shared memory whole plans the tensor cores in channel chunks (route
+    'tensor_cores'), for every layout: the raw slot of a layout whose
+    lanes are not lattice bytes holds one chunk's lanes, and the CUDA-core
+    tile's geometry is on no plan."""
     for sp in {str(s): s for s in ALL_LAYOUTS}.values():
         cp = -(-2048 // sp.n_pack)
         x_shape, w_shape = (1, 8, 8, cp), (7, 7, cp, 8)
         p = tplan.plan_packed_conv2d(x_shape, w_shape, sp)
-        assert p.route == "cuda_cores" and p.block_w is None
-        core = tplan.packed_conv2d_core_geometry(x_shape, w_shape)
-        assert (p.block_h, p.block_co, p.block_c, p.threads,
-                p.smem_bytes) == (core["block_h"], core["block_co"],
-                                  core["block_c"], core["threads"],
-                                  core["smem_bytes"])
+        assert p.route == "tensor_cores" and p.block_w is not None
+        assert p.chunks == -(-2048 // p.chunk_c) > 1
+        raw = tplan.conv_mma_raw_c(cp, sp, p.chunk_c)
+        assert raw == (0 if xform_of(sp) == 0 else
+                       p.chunk_c * sp.lane_bytes // sp.n_pack)
+        assert raw % 16 == 0 and raw * sp.n_pack % sp.lane_bytes == 0
+        assert p.smem_bytes == tplan.conv_mma_smem_bytes(
+            7, 7, p.block_h, p.block_w, p.block_co, p.block_c, raw,
+            p.chunk_c) <= tplan.CONV_MMA_SMEM_MAX
+
+
+@pytest.mark.parametrize("sp", ALL_LAYOUTS, ids=str)
+@pytest.mark.parametrize("chunk_c", [32, 64])
+def test_chunked_halo_rewrite_is_the_lattice(sp, chunk_c):
+    """A chunked plan's halo slice k: pixels of int16xP2s8 / int32xP4s8
+    lanes read as bytes from byte k * chunk_c, every other layout's raw
+    slice of ``conv_mma_raw_c(.., chunk_c)`` bytes from byte k * that
+    (whole lanes) rewritten unit by unit, is lattice channels k * chunk_c
+    .. (k + 1) * chunk_c - 1 of the pixel, zero past its channels."""
+    cin = 101
+    rng = np.random.default_rng(sp.w_bits + 4 * sp.a_bits + chunk_c)
+    qx = rng.integers(0, sp.max_a + 1, (3, cin)).astype(np.int32)
+    js = _jspec(sp)
+    xl = np.asarray(jpack.pack_activations(jnp.asarray(qx), js, axis=-1))
+    lat = np.asarray(jpack.unpack(jnp.asarray(xl), js, axis=-1))
+    cp = xl.shape[1]
+    raw_c = tplan.conv_mma_raw_c(cp, sp, chunk_c)
+    xb = _lane_bytes(xl, sp.lane_bytes)
+    chunks = -(-sp.n_pack * cp // chunk_c)
+    for pix in range(xl.shape[0]):
+        row = np.zeros(chunks * max(raw_c, chunk_c), np.uint8)
+        row[:xb.shape[1]] = xb[pix]
+        want = np.zeros(chunks * chunk_c, np.int64)
+        want[:lat.shape[1]] = lat[pix]
+        for k in range(chunks):
+            if raw_c == 0:
+                got = row[k * chunk_c:(k + 1) * chunk_c]
+            else:
+                raw = row[k * raw_c:(k + 1) * raw_c]
+                got = np.concatenate([convert_unit(raw[16 * u:16 * u + 16],
+                                                   xform_of(sp))
+                                      for u in range(raw_c // 16)])
+            assert np.array_equal(got, want[k * chunk_c:(k + 1) * chunk_c])
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """K5 on the int8 tensor cores (``csrc/ulppack_conv2d_mma.cu``) from the CPU:
 the planner's route by layout and its geometry at every packed layer of
-full-width ``sparq-cnn``, the paper's Fig. 4 shape and the reduced config,
-its refusals, the planner's constants against the kernel's source, a plain
-emulation of the kernel's implicit GEMM over lattice bytes against
-``repro``'s ``ref.conv2d_i32_ref`` (run through JAX) and the port's plain
-K5, an emulation of the fused epilogue (patch sums from a column of ones)
+full-width ``sparq-cnn``, the paper's Fig. 4 shape and the reduced config
+(the weights resident, plans pinned field for field), the channel chunks
+of wider convs and their fold points, the planner's constants against the
+kernel's source, a plain emulation of the kernel's implicit GEMM over
+lattice bytes -- chunk by chunk, s32 sums folded into uint32 totals --
+against ``repro``'s ``ref.conv2d_i32_ref`` (run through JAX) and the
+port's plain K5, an emulation of the fused epilogue (patch sums from a
+column of ones)
 against ``cnn.conv_epilogue``, the fused route's plumbing in
 ``cnn.conv_apply`` with a CPU stand-in, and the CUDA wrapper's refusals.
 The kernel itself runs only on the card
@@ -29,6 +32,7 @@ from repro.core import packing as jpack  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import packing as tpack  # noqa: E402
 from repro_torch.core.packing import PackSpec  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.kernels import ulppack_conv2d as tconv  # noqa: E402
@@ -134,6 +138,7 @@ def test_tensor_core_geometry(x_shape, w_shape, store, k_full, padding):
     got = (p.block_h, p.block_w, p.block_co, p.block_c, p.blocks,
            p.smem_bytes)
     assert got == GEOMETRY[(x_shape, w_shape[-1])]
+    assert (p.route, p.chunk_c, p.chunks) == ("tensor_cores", p.block_c, 1)
     assert p.block_h * p.block_w == tplan.CONV_MMA_TILE_PIXELS
     assert (p.threads, p.stages) == (tplan.CONV_MMA_THREADS,
                                      tplan.CONV_MMA_STAGES)
@@ -156,32 +161,90 @@ def _mma_geo(x_shape, w_shape, sp, padding="SAME"):
 
 
 def test_sum_range_and_shared_memory_refusals():
-    """The tensor-core K5 refuses a conv whose s32 sums could reach 2^31
-    (PTX does not promise that the MMA wraps) and one whose weight block
-    does not fit the shared memory even at 8 output channels; the planner
-    then records the CUDA-core tile's route (its extraction is exact at
-    any K), as K6's does."""
+    """A conv whose s32 sums over all of K could reach 2^31, and one whose
+    weight block does not fit the shared memory even at 8 output channels,
+    both take the tensor-core K5 in channel chunks: the first folds its
+    sums into uint32 totals every ``conv_mma_fold_run`` chunks (PTX does
+    not promise that the MMA wraps), the second streams each chunk's
+    weights through the ring.  No plan records the CUDA-core tile."""
     sp = PackSpec.parse("W3A3/int16xP2s8")
     cp = -(-(2**31) // (2 * 49))               # 2 cp * 49 >= 2^31
-    with pytest.raises(ValueError, match="int32 range"):
-        _mma_geo((1, 1, 1, cp), (1, 1, cp, 8), sp, "VALID")
+    geo = _mma_geo((1, 1, 1, cp), (1, 1, cp, 8), sp, "VALID")
     p = tplan.plan_packed_conv2d((1, 1, 1, cp), (1, 1, cp, 8), sp,
                                  padding="VALID")
-    assert p.route == "cuda_cores" and p.block_w is None
+    assert p.route == "tensor_cores" and p.chunk_c == geo["chunk_c"]
+    assert p.chunks == -(-2 * cp // p.chunk_c) > 1
+    run = tplan.conv_mma_fold_run(1, 2 * cp, p.chunk_c, 49, p.chunks)
+    assert 1 <= run < p.chunks and run * p.chunk_c * 49 < 2**31 \
+        <= (run + 1) * p.chunk_c * 49
     ok = (2**31 - 1) // (2 * 49)               # just inside the range
     assert 2 * ok * 49 < 2**31
-    with pytest.raises(ValueError, match="shared memory"):
-        _mma_geo((1, 1, 1, ok), (1, 1, ok, 8), sp, "VALID")
-    with pytest.raises(ValueError, match="shared memory"):
-        _mma_geo((1, 8, 8, 512), (7, 7, 512, 8), SPEC)
+    assert tplan.conv_mma_fold_run(1, 2 * ok, 128, 49, 7) == 7   # no fold
+    geo = _mma_geo((1, 8, 8, 512), (7, 7, 512, 8), SPEC)
+    assert (geo["block_c"], geo["chunks"]) == (1024, 1024 // geo["chunk_c"])
+    assert geo["chunk_c"] < geo["block_c"]
+    assert tplan.conv_mma_smem_bytes(7, 7, geo["block_h"], geo["block_w"],
+                                     8, 1024) > tplan.CONV_MMA_SMEM_MAX
     p = tplan.plan_packed_conv2d((1, 8, 8, 512), (7, 7, 512, 8), SPEC)
-    assert p.route == "cuda_cores"
-    assert dataclasses.asdict(p) == dataclasses.asdict(dataclasses.replace(
-        p, **tplan.packed_conv2d_core_geometry((1, 8, 8, 512),
-                                               (7, 7, 512, 8))))
+    assert p.route == "tensor_cores" and p.smem_bytes == geo["smem_bytes"]
+    assert p.smem_bytes <= tplan.CONV_MMA_SMEM_MAX
+    assert p.smem_bytes == tplan.conv_mma_smem_bytes(
+        7, 7, p.block_h, p.block_w, p.block_co, p.block_c, 0, p.chunk_c)
     p = tplan.plan_packed_conv2d((1, 8, 8, 32), (7, 7, 32, 128), SPEC)
     assert p.block_c == 64 and p.block_co == 32         # halved to fit
+    assert p.smem_bytes <= tplan.CONV_MMA_SMEM_MAX and p.chunks == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        _mma_geo((1, 8, 8, 16), (25, 25, 16, 8), SPEC)
+
+
+#: (x_shape, w_shape, spec, padding) -> (block_co, block_c, chunk_c,
+#: chunks, smem_bytes): the wide convs that the CUDA-core tile took before
+#: the chunked K loop -- Fig. 4 at 128 channels, a ResNet-18 conv4_x layer
+#: (3x3 256 -> 256 at batch 64 on 14 x 14, W2A2 and W4A4's raw slot), 3x3
+#: 512 -> 512, a 1x1 conv over 2,048 channels.
+CHUNKED = {
+    ((1, 256, 256, 64), (7, 7, 64, 32), "W2A2/int16xP2s8", "VALID"):
+        (32, 128, 32, 4, 2 * (32 * (49 * 32 + 16) + 22 * 38 * 32)),
+    ((64, 14, 14, 128), (3, 3, 128, 256), "W2A2/int16xP2s8", "SAME"):
+        (64, 256, 64, 4, 2 * (64 * (9 * 64 + 16) + 34 * 18 * 64)),
+    ((64, 14, 14, 128), (3, 3, 128, 256), "W4A4/int32xP2s16", "SAME"):
+        (64, 256, 64, 4, 2 * (64 * (9 * 64 + 16) + 34 * 18 * 64)
+         + 34 * 18 * 128),
+    ((8, 7, 7, 256), (3, 3, 256, 512), "W2A2/int16xP2s8", "SAME"):
+        (64, 512, 64, 8, 2 * (64 * (9 * 64 + 16) + 34 * 18 * 64)),
+    ((1, 64, 64, 1024), (1, 1, 1024, 16), "W2A2/int16xP2s8", "SAME"):
+        (16, 2048, 128, 16, 2 * (16 * (128 + 16) + 16 * 32 * 128)),
+}
+
+
+@pytest.mark.parametrize("key", list(CHUNKED), ids=lambda v: str(v))
+def test_wide_convs_take_the_tensor_cores_in_chunks(key):
+    """Shapes past the resident weight block plan the tensor-core K5 with
+    the largest channel chunk whose two ring slots -- the chunk's weight
+    rows and halo slice each -- fit beside the raw slot at the largest
+    block_co, and the shared memory the launcher computes."""
+    x_shape, w_shape, text, padding = key
+    sp = PackSpec.parse(text)
+    p = tplan.plan_packed_conv2d(x_shape, w_shape, sp, padding=padding)
+    assert p.route == "tensor_cores"
+    got = (p.block_co, p.block_c, p.chunk_c, p.chunks, p.smem_bytes)
+    assert got == CHUNKED[key]
     assert p.smem_bytes <= tplan.CONV_MMA_SMEM_MAX
+    fh, fw = w_shape[:2]
+    raw = tplan.conv_mma_raw_c(x_shape[-1], sp, p.chunk_c)
+    assert p.smem_bytes == tplan.conv_mma_smem_bytes(
+        fh, fw, p.block_h, p.block_w, p.block_co, p.block_c, raw, p.chunk_c)
+    bigger = [c for c in tplan._chunk_sizes(p.block_c) if c > p.chunk_c]
+    assert all(tplan.conv_mma_smem_bytes(
+        fh, fw, p.block_h, p.block_w, p.block_co, p.block_c,
+        tplan.conv_mma_raw_c(x_shape[-1], sp, c), c)
+        > tplan.CONV_MMA_SMEM_MAX for c in bigger)
+    cands = tplan.packed_conv2d_candidates(x_shape, w_shape, sp,
+                                           padding=padding)
+    assert cands and all(c["route"] == "tensor_cores" for c in cands)
+    assert {(c["block_co"], c["block_w"]) for c in cands} == {
+        (b, w) for b in tplan.CONV_MMA_BLOCK_COS
+        if b <= max(8, min(64, w_shape[-1])) for w in tplan.CONV_MMA_BLOCK_WS}
 
 
 @pytest.mark.parametrize("cp,block_c", [(1, 32), (4, 32), (16, 32),
@@ -213,12 +276,29 @@ def test_constants_match_the_kernel_source():
     assert ws == tplan.CONV_MMA_BLOCK_WS
     assert ("return xrow <= 32 ? 32 : xrow <= 64 ? 64 : "
             "(xrow + 127) / 128 * 128;") in src
-    assert "static_cast<long long>(FH) * FW * block_c + 16" in src
-    assert ("const long long need = block_co * krow + kStages * halo + "
-            "pixels * craw;") in src
-    assert "const int craw = xform == kDirect ? 0 : (xrow + 15) / 16 * 16;" \
-        in src
+    assert "const long long krow = taps * chunk_c + 16;" in src
+    assert ("const long long slot = chunks == 1 ? halo : block_co * krow + "
+            "halo;") in src
+    assert ("const long long need = (chunks == 1 ? block_co * krow : 0) +\n"
+            "                         kStages * slot + pixels * craw;") in src
+    assert ("const int craw = xform == kDirect ? 0\n"
+            "                   : chunks == 1    ? (xrow + 15) / 16 * 16\n"
+            "                                    : chunk_c * lane_bytes / "
+            "n_pack;") in src
     assert "block_c == cpad_for(static_cast<int>(xlat))" in src
+    assert "chunks == (xlat + chunk_c - 1) / chunk_c;" in src
+    assert ("  return taps * c * max_prod < (1LL << 31)\n"
+            "             ? chunks\n"
+            "             : ((1LL << 31) - 1) / (taps * chunk_ch * max_prod);"
+            ) in src
+    for taps, c, ch, prod, n in [(49, 64, 32, 49, 2), (1, 2**26, 128, 49,
+                                                       2**19),
+                                 (9, 4096, 64, 65025, 64)]:
+        want = n if taps * c * prod < 2**31 else \
+            (2**31 - 1) // (taps * ch * prod)
+        assert tplan.conv_mma_fold_run(taps, c, ch, prod, n) == want
+    assert tplan._chunk_sizes(512) == [384, 256, 128, 64, 32]
+    assert all(tplan._cpad_for(c) == c for c in tplan._chunk_sizes(4096))
 
 
 # ---------------------------------------------------------------------------
@@ -227,14 +307,18 @@ def test_constants_match_the_kernel_source():
 
 def weight_bytes(w, spec, store, k_full):
     """The weight block as the kernel stages it, [Fh, Fw, channels, Co] of
-    u8 lattice values in channel order: a lane's byte pair swapped back
-    (byte 1 holds channel 2k, byte 0 channel 2k + 1), or the 'dense' words'
-    fields expanded (field f of word k is channel k * per + f)."""
+    u8 lattice values in channel order: an int16xP2s8 lane's byte pair
+    swapped back (byte 1 holds channel 2k, byte 0 channel 2k + 1), another
+    layout's field-reversed lanes unpacked, or the 'dense' words' fields
+    expanded (field f of word k is channel k * per + f)."""
     fh, fw, wc, co = w.shape
-    if store == "lanes":
+    if store == "lanes" and (spec.lane_bytes, spec.n_pack) == (2, 2):
         b = w.contiguous().view(torch.uint8).reshape(fh, fw, wc, co, 2)
         return torch.stack((b[..., 1], b[..., 0]), dim=3).reshape(
             fh, fw, 2 * wc, co).to(torch.int64)
+    if store == "lanes":
+        return tpack.unpack(w, spec, axis=2, reversed_fields=True).to(
+            torch.int64)
     per = 32 // spec.w_bits
     ch = torch.arange(k_full)
     fields = w[:, :, ch // per, :].to(torch.int64)
@@ -242,48 +326,76 @@ def weight_bytes(w, spec, store, k_full):
         & spec.max_w
 
 
-def conv_mma_emulation(xp, w, spec, plan, padding, store, k_full=None):
-    """The tensor-core K5 in plain torch: the int16 activation lanes read
-    as bytes and zero-padded to ``block_c`` a pixel, the weight block as
+def lattice_bytes(xp, spec):
+    """The halo's lattice bytes of each pixel, [N, H, W, n_pack Cp]: lanes
+    of int16xP2s8 / int32xP4s8 read as bytes (the kernel stages them as
+    they are), every other layout's unpacked (the raw slot's rewrite,
+    ``tests/test_torch_layouts_mma.py``)."""
+    n, h, wd, cp = xp.shape
+    if spec.shift == 8 and spec.n_pack == spec.lane_bytes:
+        return xp.contiguous().view(torch.uint8).reshape(
+            n, h, wd, spec.n_pack * cp).to(torch.int64)
+    return tpack.unpack(xp, spec, axis=-1).to(torch.int64)
+
+
+def conv_mma_emulation(xp, w, spec, plan, padding, store, k_full=None,
+                       run=None):
+    """The tensor-core K5 in plain torch: the activation lanes as lattice
+    bytes zero-padded to ``chunks * chunk_c`` a pixel, the weight block as
     staged, and per pixel tile of the plan (block_h x block_w outputs of
-    one image, tiles in the kernel's order) the implicit GEMM over taps
-    and 32-byte k steps against the tile's zero-padded halo, with the
-    patch sums as one more product against ones; every running sum held
-    to the int32 range the MMA accumulator has.  Returns (acc, psum) as
-    int32 [N, Ho, Wo, Co] and [N, Ho, Wo, 1]."""
+    one image, tiles in the kernel's order) the implicit GEMM chunk by
+    chunk, over taps and 32-byte k steps against the tile's zero-padded
+    halo slice, with the patch sums as one more product against ones;
+    every running sum held to the int32 range the MMA accumulator has.
+    After the tile's last chunk, and after every ``run`` chunks before it
+    (``conv_mma_fold_run``, the launcher's), the sums are added into
+    uint32 totals (mod 2^32) and restarted.  Returns (acc, psum) as int32
+    [N, Ho, Wo, Co] and [N, Ho, Wo, 1]."""
     n, h, wd, cp = xp.shape
     fh, fw, _, co = w.shape
     top, bottom, left, right = tconv.same_pads(fh, fw, padding)
     ho, wo = h + top + bottom - fh + 1, wd + left + right - fw + 1
-    bh, bw, bc = plan.block_h, plan.block_w, plan.block_c
-    xb = xp.contiguous().view(torch.uint8).reshape(n, h, wd, 2 * cp)
+    bh, bw = plan.block_h, plan.block_w
+    chunk, chunks = plan.chunk_c, plan.chunks
+    bc = chunk * chunks
+    xb = lattice_bytes(xp, spec)
     wb = weight_bytes(w, spec, store, k_full)
     wb = F.pad(wb, (0, 0, 0, bc - wb.shape[2]))
+    if run is None:
+        run = tplan.conv_mma_fold_run(fh * fw, spec.n_pack * cp, chunk,
+                                      spec.max_w * spec.max_a, chunks)
     tiles_h, tiles_w = -(-ho // bh), -(-wo // bw)
     ext = torch.zeros((n, tiles_h * bh + fh - 1, tiles_w * bw + fw - 1, bc),
                       dtype=torch.int64)
-    ext[:, top:top + h, left:left + wd, :2 * cp] = xb.to(torch.int64)
+    ext[:, top:top + h, left:left + wd, :xb.shape[-1]] = xb
     acc = torch.zeros((n, tiles_h * bh, tiles_w * bw, co), dtype=torch.int64)
     psum = torch.zeros((n, tiles_h * bh, tiles_w * bw, 1), dtype=torch.int64)
     ones = torch.ones((32, 1), dtype=torch.int64)
+    mask = 2**32 - 1
     for tile in range(n * tiles_h * tiles_w):
         b, r = divmod(tile, tiles_h * tiles_w)
         oh0, ow0 = (r // tiles_w) * bh, (r % tiles_w) * bw
         halo = ext[b, oh0:oh0 + bh + fh - 1, ow0:ow0 + bw + fw - 1]
+        tot = torch.zeros((bh * bw, co), dtype=torch.int64)
+        stot = torch.zeros((bh * bw, 1), dtype=torch.int64)
         d = torch.zeros((bh * bw, co), dtype=torch.int64)
         s = torch.zeros((bh * bw, 1), dtype=torch.int64)
-        for i in range(fh):
-            for j in range(fw):
-                rows = halo[i:i + bh, j:j + bw].reshape(bh * bw, bc)
-                for k0 in range(0, bc, 32):
-                    a = rows[:, k0:k0 + 32]
-                    d += a @ wb[i, j, k0:k0 + 32]
-                    s += a @ ones
-                    assert int(d.max()) < 2**31 and int(s.max()) < 2**31
-        acc[b, oh0:oh0 + bh, ow0:ow0 + bw] = d.reshape(bh, bw, co)
-        psum[b, oh0:oh0 + bh, ow0:ow0 + bw] = s.reshape(bh, bw, 1)
-    return (acc[:, :ho, :wo].to(torch.int32),
-            psum[:, :ho, :wo].to(torch.int32))
+        for k in range(chunks):
+            for i in range(fh):
+                for j in range(fw):
+                    rows = halo[i:i + bh, j:j + bw].reshape(bh * bw, bc)
+                    for k0 in range(k * chunk, (k + 1) * chunk, 32):
+                        a = rows[:, k0:k0 + 32]
+                        d += a @ wb[i, j, k0:k0 + 32]
+                        s += a @ ones
+                        assert int(d.max()) < 2**31 and int(s.max()) < 2**31
+            if k == chunks - 1 or (k + 1) % run == 0:
+                tot, stot = (tot + d) & mask, (stot + s) & mask
+                d, s = torch.zeros_like(d), torch.zeros_like(s)
+        acc[b, oh0:oh0 + bh, ow0:ow0 + bw] = tot.reshape(bh, bw, co)
+        psum[b, oh0:oh0 + bh, ow0:ow0 + bw] = stot.reshape(bh, bw, 1)
+    return (tpack.wrap_i32(acc[:, :ho, :wo]).to(torch.int32),
+            tpack.wrap_i32(psum[:, :ho, :wo]).to(torch.int32))
 
 
 # (N, H, W, Cin, Fh, Fw, Co, padding, store): odd Cin (3, 17), Cin 8 (the
@@ -344,8 +456,6 @@ def test_implicit_gemm_at_the_lattice_extremes():
     """Every lattice value at its maximum (W3A3: 7 x 7) over a 7x7 kernel
     and 64 channels (two k steps a tap), the most the tensor-core K5's
     shared memory takes at 7x7: the sums stay exact."""
-    from repro_torch.core import packing as tpack
-
     sp = PackSpec.parse("W3A3/int16xP2s8")
     q_x = torch.full((1, 9, 40, 64), 7, dtype=torch.int32)
     q_w = torch.full((7, 7, 64, 16), 7, dtype=torch.int32)
@@ -357,6 +467,91 @@ def test_implicit_gemm_at_the_lattice_extremes():
     assert int(acc.max()) == 49 * 64 * 49 and int(psum.max()) == 49 * 64 * 7
     assert torch.equal(acc, tconv.ulppack_conv2d_torch(xp, wp, sp,
                                                        padding="SAME"))
+
+
+#: Layouts of the chunked rows: every lane layout of the family at the
+#: lowest bits it packs (W2A2 where the tile is raw int32 lanes), and
+#: int16xP2s8 at W1-W3.
+WIDE_LAYOUTS = ["W1A1/int16xP2s8", "W2A2/int16xP2s8", "W3A3/int16xP2s8",
+                "W1A1/int8xP2s4", "W1A1/int16xP4s4", "W2A2/int32xP2s8",
+                "W2A2/int32xP4s8", "W2A2/int32xP2s16"]
+
+
+def _wide_case(text, geom, seed):
+    """(plan, oracle, emulation, plain) at a shape the chunked K loop
+    takes."""
+    n, h, w, cin, fh, fw, co, padding, store = geom
+    js = jpack.PackSpec.parse(text)
+    ts = PackSpec.parse(text)
+    q_x, q_w, xp, wp = _operands(js, geom, seed)
+    k_full = cin if store == "dense" else None
+    plan = tplan.plan_packed_conv2d(tuple(xp.shape), tuple(wp.shape), ts,
+                                    padding=padding, weight_store=store,
+                                    k_full=k_full)
+    assert plan.route == "tensor_cores" and plan.chunks > 1
+    want = np.asarray(jref.conv2d_i32_ref(jnp.asarray(q_x), jnp.asarray(q_w),
+                                          padding=padding))
+    acc, psum = conv_mma_emulation(xp, wp, ts, plan, padding, store, k_full)
+    plain = tconv.ulppack_conv2d_torch(xp, wp, ts, padding=padding,
+                                       weight_store=store, k_full=k_full)
+    return plan, want, (acc, psum), plain, q_x
+
+
+@pytest.mark.parametrize("store", ["lanes", "dense"])
+@pytest.mark.parametrize("text", WIDE_LAYOUTS)
+def test_chunked_7x7_c128_every_layout(text, store):
+    """7x7 over 128 channels (past the resident weight block at every
+    block_co), every layout and both stores -- the dense store at W3,
+    whose 10-field words straddle the 32-channel chunk edges, included:
+    the emulation chunk by chunk equals repro's conv2d_i32_ref and the
+    plain K5, its patch sums cnn.patch_sums."""
+    geom = (1, 6, 9, 128, 7, 7, 24, "SAME", store)
+    plan, want, (acc, psum), plain, q_x = _wide_case(text, geom, 128)
+    assert plan.chunk_c == 32 and plan.chunks == 4
+    np.testing.assert_array_equal(acc.numpy(), want)
+    assert torch.equal(acc, plain)
+    assert torch.equal(psum, cnn.patch_sums(torch.from_numpy(q_x), 7, 7,
+                                            "SAME"))
+
+
+#: (N, H, W, Cin, Fh, Fw, Co, padding, store) -> (chunk_c, chunks): 3x3
+#: over 256 channels; 1x1 over 2,048; Cin 65 and 33, whose last chunk is
+#: mostly zero padding (33 at 13x13, where 64 staged bytes no longer stay
+#: resident); a 9x9 kernel, past the CUDA-core tile's register window.
+WIDE = {
+    (1, 5, 6, 256, 3, 3, 16, "SAME", "lanes"): (128, 2),
+    (1, 4, 5, 2048, 1, 1, 8, "SAME", "dense"): (128, 16),
+    (1, 9, 10, 65, 7, 7, 9, "VALID", "lanes"): (64, 2),
+    (1, 6, 7, 33, 13, 13, 8, "SAME", "dense"): (32, 2),
+    (1, 9, 11, 128, 9, 9, 17, "SAME", "lanes"): (32, 4),
+}
+
+
+@pytest.mark.parametrize("geom", list(WIDE), ids=lambda g: "-".join(
+    map(str, g)))
+@pytest.mark.parametrize("bits", [2, 3])
+def test_chunked_shapes_equal_reference(bits, geom):
+    """The chunked K loop at W2A2 and W3A3 int16xP2s8: the planner's
+    chunks, and the emulation equal to repro's conv2d_i32_ref and the plain
+    K5."""
+    plan, want, (acc, _), plain, _ = _wide_case(
+        f"W{bits}A{bits}/int16xP2s8", geom, bits * 7 + geom[3])
+    assert (plan.chunk_c, plan.chunks) == WIDE[geom]
+    np.testing.assert_array_equal(acc.numpy(), want)
+    assert torch.equal(acc, plain)
+
+
+def test_folds_at_every_chunk_are_exact():
+    """The fold arithmetic is exact at any run length: folding the s32
+    sums into the uint32 totals after every chunk (the shortest run a plan
+    can have) gives the same conv and patch sums as one run."""
+    sp = PackSpec.parse("W3A3/int16xP2s8")
+    geom = (1, 9, 10, 65, 7, 7, 9, "VALID", "lanes")
+    plan, want, (acc, psum), _, _ = _wide_case(str(sp), geom, 5)
+    q_x, q_w, xp, wp = _operands(jpack.PackSpec.parse(str(sp)), geom, 5)
+    every = conv_mma_emulation(xp, wp, sp, plan, "VALID", "lanes", run=1)
+    assert torch.equal(every[0], acc) and torch.equal(every[1], psum)
+    np.testing.assert_array_equal(every[0].numpy(), want)
 
 
 # ---------------------------------------------------------------------------
