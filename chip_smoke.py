@@ -7,70 +7,67 @@ toolkit:
     python3 chip_smoke.py
 
 1. Builds every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel) and prints the build time.
-2. Kernel phase: at the full-width shapes of W2A2 ``stablelm-1.6b``
-   serving, holds each LM kernel against its plain PyTorch version on the
-   card (quantize-pack bit-equal on f32, bf16 and f16 activations, and the
-   packed matmul bit-equal -- K2 on the tensor cores at the decode and
-   prefill rows, a second launch and three calls in a row bit-equal; the
-   serving path's call, K1 folded into the tensor-core K2 on bf16
-   activations (``quantized_linear_mma``, route ``fused-quant``), bit-equal
-   to the cast + K1 + K2-affine route it replaced and to the plain version
-   and timed beside that route; ``ops.quantized_linear`` one fused launch,
-   bit-equal to the eager epilogue and to K1 + K2 (``fused-epilogue``
+   library, all started together) and prints the build time: the serve
+   path's libraries (FIRST_LIBRARIES) are waited for, the others compile
+   at a lower CPU priority behind the serve, graphs, paged and legacy
+   lines (3, 4 and 10 below) and are waited for after them.
+2. Kernel phase (after the legacy lines): at the full-width shapes of W2A2
+   ``stablelm-1.6b`` serving, holds each LM kernel against its plain PyTorch
+   version on the card (quantize-pack bit-equal on f32, bf16 and f16
+   activations, and the packed matmul bit-equal -- K2 on the tensor cores at
+   the decode and prefill rows, a second launch and three calls in a row
+   bit-equal; the serving path's call, K1 folded into the tensor-core K2 on
+   bf16 activations (``quantized_linear_mma``, route ``fused-quant``),
+   bit-equal to the cast + K1 + K2-affine route it replaced and to the plain
+   version and timed beside that route; ``ops.quantized_linear`` one fused
+   launch, bit-equal to the eager epilogue and to K1 + K2 (``fused-epilogue``
    line); the same call over the bit-dense weight store
-   (``quantized_linear_mma_dense``, route ``fused-quant-dense``: the
-   words expanded in the tensor-core K2's staging) at the six K2 shapes
-   at W2A2 and at (4, 1024, 2048) W1A1, bit-equal to its plain version
-   and to the lanes route and timed beside it; the CUDA-core K2 (on no
-   route) at its earlier int16xP2s8 rows; K2 at every other layout
-   (``int8xP2s4``, ``int16xP4s4``, ``int32xP2s8``, ``int32xP4s8``,
-   ``int32xP2s16`` at W2A2 and W4A4) on the tensor cores at (4, 1024,
-   2048) and (64, 1024, 5632) in lattice K 2048: lanes in, bit-equal to
-   the plain version and to the CUDA-core K2, whose time ``core_ms`` the
-   row carries, and the fused call on bf16 x over lanes and the dense
-   store, bit-equal to the plain version and to the route it replaced
-   (K1, the CUDA-core K2 and the eager epilogue: ``old_route_ms``);
-   attention within
-   1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
-   bf16 queries, with a dead row exactly zero and a second launch
-   bit-equal to the first, at stablelm-1.6b's heads and at granite-3-8b's
-   grouping (32 query heads on 8 kv heads of 128); the paged attention
-   (K4) through a scrambled block table, also bit-equal to the contiguous
-   kernel (K3) on the same logical rows; the unpacked integer matmul (K7)
-   bit-equal at s8 and s16; the KV-cache window write
-   (``csrc/cache_write.cu``) bit-equal to its plain twin at kv_bits
-   16/8/4/2, ragged and paged, with dead rows, decode riders, windows past
-   the end and dead slots' all-zero block tables, page 0 left untouched,
-   timed at the decode step's write beside ``index_put_`` on each leaf);
-   then the packed conv (K5) and the int16 conv
-   (K6), bit-equal, every row on the tensor cores with a second launch
-   bit-equal and the CUDA-core tile (on no route) bit-equal and timed on
-   the same operands (``cores_ms``): the paper's Fig. 4 shape (K6 at int16
-   values in [-256, 256) and at the full int16 range, where the sums wrap;
-   K5 at every case, int8xP2s4 included), the Fig. 4 conv at 64 (K6) and
-   128 (K5 W2A2) channels and ResNet-18's conv4_x shape (3x3 256 -> 256 at
-   batch 64 on 14 x 14: K6 int16, K5 W2A2 and W4A4 int32xP2s16), whose K
-   the kernels take in channel chunks, and the full-width ``sparq-cnn``
-   layers (K5 at int16xP2s8, lanes and dense, and the widest layer at W4A4
-   int32xP2s16); K5's fused epilogue bit-equal to ``cnn.conv_epilogue``
-   and timed.  It times the kernel, the plain
-   version and one PyTorch call that computes the same function where
-   there is one (K5: ``F.conv2d`` on the f32 lattices with TF32 off, held
-   equal once rounded, and with TF32 allowed where that is exact; K6:
-   ``F.conv2d`` in f64, also held equal once rounded and wrapped)
-   (CUDA-graph replay between CUDA events, median of repeats, inputs
-   rotated over copies larger than the 50 MB L2 where the path reads them
-   cold).
-   ``bound_ms`` is the least time the card could take: the larger of the
-   bytes moved over HBM bandwidth and the operations over the peak rate of
-   the card's fastest unit for them (int8 tensor cores for the lattice
-   dots and K7's s8 products -- s16 as four int8 products per MAC -- and
-   bf16 tensor cores for attention's products).
-   ``design_bound_ms`` takes the rate of the unit each kernel runs on: the
-   int8 tensor cores for K7 and the tensor-core K2, K5 and K6 (the MMAs
-   they issue), f32 CUDA cores for the CUDA-core K2 and K3/K4, the 32-bit
-   integer multiply-add rate for the CUDA-core K5 and K6.
+   (``quantized_linear_mma_dense``, route ``fused-quant-dense``: the words
+   expanded in the tensor-core K2's staging) at the six K2 shapes at W2A2 and
+   at (4, 1024, 2048) W1A1, bit-equal to its plain version and to the lanes
+   route and timed beside it; the CUDA-core K2 (on no route) at its earlier
+   int16xP2s8 rows; K2 at every other layout (``int8xP2s4``, ``int16xP4s4``,
+   ``int32xP2s8``, ``int32xP4s8``, ``int32xP2s16`` at W2A2 and W4A4) on the
+   tensor cores at (4, 1024, 2048) and (64, 1024, 5632) in lattice K 2048:
+   lanes in, bit-equal to the plain version and to the CUDA-core K2, whose time
+   ``core_ms`` the row carries, and the fused call on bf16 x over lanes and the
+   dense store, bit-equal to the plain version and to the route it replaced
+   (K1, the CUDA-core K2 and the eager epilogue: ``old_route_ms``); attention
+   within 1e-4 with f32 queries and within 1e-4 + one bf16 ulp with the path's
+   bf16 queries, with a dead row exactly zero and a second launch bit-equal to
+   the first, at stablelm-1.6b's heads and at granite-3-8b's grouping (32 query
+   heads on 8 kv heads of 128); the paged attention (K4) through a scrambled
+   block table, also bit-equal to the contiguous kernel (K3) on the same
+   logical rows; the unpacked integer matmul (K7) bit-equal at s8 and s16; the
+   KV-cache window write (``csrc/cache_write.cu``) bit-equal to its plain twin
+   at kv_bits 16/8/4/2, ragged and paged, with dead rows, decode riders,
+   windows past the end and dead slots' all-zero block tables, page 0 left
+   untouched, timed at the decode step's write beside ``index_put_`` on each
+   leaf); then the packed conv (K5) and the int16 conv (K6), bit-equal, every
+   row on the tensor cores with a second launch bit-equal and the CUDA-core
+   tile (on no route) bit-equal and timed on the same operands (``cores_ms``):
+   the paper's Fig. 4 shape (K6 at int16 values in [-256, 256) and at the full
+   int16 range, where the sums wrap; K5 at every case, int8xP2s4 included), the
+   Fig. 4 conv at 64 (K6) and 128 (K5 W2A2) channels and ResNet-18's conv4_x
+   shape (3x3 256 -> 256 at batch 64 on 14 x 14: K6 int16, K5 W2A2 and W4A4
+   int32xP2s16), whose K the kernels take in channel chunks, and the full-width
+   ``sparq-cnn`` layers (K5 at int16xP2s8, lanes and dense, and the widest
+   layer at W4A4 int32xP2s16); K5's fused epilogue bit-equal to
+   ``cnn.conv_epilogue`` and timed.  It times the kernel, the plain version and
+   one PyTorch call that computes the same function where there is one (K5:
+   ``F.conv2d`` on the f32 lattices with TF32 off, held equal once rounded, and
+   with TF32 allowed where that is exact; K6: ``F.conv2d`` in f64, also held
+   equal once rounded and wrapped) (CUDA-graph replay between CUDA events,
+   median of repeats, inputs rotated over copies larger than the 50 MB L2 where
+   the path reads them cold). ``bound_ms`` is the least time the card could
+   take: the larger of the bytes moved over HBM bandwidth and the operations
+   over the peak rate of the card's fastest unit for them (int8 tensor cores
+   for the lattice dots and K7's s8 products -- s16 as four int8 products per
+   MAC -- and bf16 tensor cores for attention's products). ``design_bound_ms``
+   takes the rate of the unit each kernel runs on: the int8 tensor cores for K7
+   and the tensor-core K2, K5 and K6 (the MMAs they issue), f32 CUDA cores for
+   the CUDA-core K2 and K3/K4, the 32-bit integer multiply-add rate for the
+   CUDA-core K5 and K6.
 3. Serve phase: full-width ``stablelm-1.6b`` W2A2 with random weights from a
    seed, through ``ServingEngine`` at kv_bits 16, 4 and 2, four greedy
    requests with staggered admission; each engine replays the decode and
@@ -88,7 +85,7 @@ toolkit:
    difference.  Then the ``graphs`` lines: graphed against eager engines
    at kv_bits 16, 4, 2 and paged at 4 with prefix sharing (tokens equal,
    the first decode's logit difference, pointers fixed, capture time,
-   peak memory, 3 rounds of 8 decode passes of each in turn: wall ms a
+   peak memory, 2 rounds of 8 decode passes of each in turn: wall ms a
    step, device ms, idle share).
 4. Paged serve phase: the same model and weights through
    ``ServingEngine(EngineConfig(paged=True, page_size=16))``.  Identity at
@@ -167,7 +164,7 @@ toolkit:
    the in-memory params, every packed linear one fused K2 launch and every
    read K3: gated), the packed first-decode logits against the QAT
    forward's (reported).  Two ``train-ckpt`` lines: the ``Trainer`` at
-   full width cut to 2 layers (depth only: the full state is ~26 GB on
+   full width cut to 1 layer (depth only: the full state is ~26 GB on
    disk), f32 and 8-bit moments: a checkpoint written, a crash and a
    resume against a straight run under ``torch.use_deterministic_
    algorithms(True)`` (the restored state byte-equal to the saved one and
@@ -215,7 +212,7 @@ toolkit:
    128, d_ff 14336, 8 experts top-2, vocab 32000, window 4096) cut to 4 of
    its 32 layers, W2A2 int16xP2s8, seed-0 weights, ``EngineConfig(
    max_batch=4, max_len=512)`` (chunk clamped to 1), kv 16 and 4, the
-   serve prompts cut to 32 tokens with 8 new tokens each, graphed,
+   serve prompts cut to 16 tokens with 8 new tokens each, graphed,
    against an engine on
    ``backend='torch'`` (tokens equal, gated; every packed linear one fused
    K2 launch, gated; no K3 launch, gated): decode ms wall and replayed,
@@ -241,7 +238,7 @@ toolkit:
    cut to its first 5 of 72 layers at kv 4, W2A2 int16xP2s8, seed-0
    weights, ``EngineConfig(max_batch=4, max_len=512, prefill_chunk=16)``,
    the serve prompts and two more (six requests through four slots, so two
-   slots are reset and reused), 8 (xlstm) and 4 (jamba) new tokens each,
+   slots are reset and reused), 4 new tokens each,
    graphed, against an engine on ``backend='torch'``: tokens equal (gated),
    every packed linear one fused K2 launch (gated), xlstm's logits equal
    over every decode pass (gated), jamba's K3 launched on every pass
@@ -329,13 +326,45 @@ lines) and its CNN phase.
    version: every logit equal to 'torch''s, gated); then stablelm-1.6b
    whole at W4A4 int32 (``int32xP2s16``, W4A4's only layout), kv 4, the
    serve cell's ``EngineConfig``, seed-0 weights, the serve prompts with
-   16 new tokens each on graphed engines over the lanes store and over the
+   8 new tokens each on graphed engines over the lanes store and over the
    dense store, each against an engine on ``backend='torch'``: tokens
    gated under the ``spec`` lines' rule (each parting listed with its
    margin), every packed linear one fused launch of the layout's library
    (lanes) or the w_bits-4 dense library, no CUDA-core K2, no standalone
    K1, no plain call (gated); decode ms wall and replayed, the graph's
    device ms by kernel group, K2 launches by route and by library.
+
+15. The dense LM configs never served before (after the ``moe`` lines),
+   whole: ``archs k2`` -- the serving path's fused K2 (K1 folded in) at
+   every packed-linear shape of granite-3-8b (4096 -> 4096 / 1024 /
+   12800, 12800 -> 4096), minicpm-2b (2304 -> 2304 / 5760, 5760 -> 2304)
+   and qwen1.5-32b (5120 -> 5120, its q/k/v with a bf16 bias in the
+   epilogue, 5120 -> 27392, 27392 -> 5120) at 4 and 64 rows, bit-equal
+   to K1 + K2-affine and to the plain version (gated), timed against its
+   bound; ``archs k3`` -- K3 and K4 at minicpm's H36 hd64 and qwen1.5's
+   H40 hd128 (granite's GQA-4 hd128 is the kernel phase's), C1 and C16,
+   kv 16 and 4, within ATTN_TOL of the plain version, K4 bit-equal to K3
+   (gated), SDPA beside it at kv 16.  An ``archs serve`` line per config
+   and kv setting: granite-3-8b (40 layers) and minicpm-2b (40) at kv 16
+   and 4, qwen1.5-32b (64 layers, QKV bias drawn nonzero) at kv 4, full
+   width and whole depth, seed-0 W2A2 weights packed once (qwen1.5 a
+   layer at a time: ``build_packed_params``, since its float tree and
+   its lanes do not fit the card together), ``EngineConfig(max_batch=4,
+   max_len=512, prefill_chunk=16)``, the serve prompts, 4 greedy tokens
+   each on a graphed engine, then on one with ``backend='torch'`` over
+   the same packed tree: tokens under the ``spec`` lines' margin rule
+   (each parting listed), every packed linear one fused K2 launch, K3 on
+   its warp and its tile path, every write one launch, no plain call,
+   every token in the vocabulary and the padded columns at -1e30 in the
+   decode graph (each gated); init / pack / capture s, decode ms wall
+   and replayed, idle share, device ms by kernel group, launches a
+   decode pass and a prefill chunk, param bytes (lanes and the rest),
+   cache and peak bytes.  The ``examples`` line:
+   ``repro_torch.examples.quickstart`` and ``serve_quantized`` (one
+   shard, and two shards on the card) as their own processes (gated:
+   exit 0, the quickstart's lattice dot exact on the launched
+   tensor-core K2, two shards' tokens equal to one's).
+   ``python3 chip_smoke.py --archs`` runs only these lines.
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
@@ -347,8 +376,9 @@ K5 and K6 on the tensor cores, each with its CUDA-core tile as a
 ``comparison`` entry (on no path, 0 launches, timed at the shape it took
 before the chunked K loop); the window write ``cache_write``, which has no
 TPU kernel of its own) with the launches of its path.  The CUDA-core K2 is
-on no path: the K2 rows time it (``core_ms``).  ``phase`` lines give the seconds since the start
-after each phase.
+on no path: the K2 rows time it (``core_ms``).  ``phase`` lines give
+the seconds since the start after each phase, with the depth cut that
+keeps the whole run inside its time limit where a phase has one (CUTS).
 The last line is ``{"ok": true, "device": {...}}``; any failure raises.
 Without CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script exits nonzero and prints no result.
@@ -391,10 +421,51 @@ card_peaks = bound_ms = None
 START = time.perf_counter()
 
 
+#: The command-line modes that run some lines alone, not the whole run:
+#: those that run a group of the whole run's lines (any of them
+#: together), and the others.
+ONLY_FLAGS = ("--moe", "--recurrent", "--multimodal", "--fleet",
+              "--parallel", "--w4a4", "--archs")
+MODE_FLAGS = ("--k2-sweep", "--w4a4-pass", "--conv", "--attn-tile",
+              *ONLY_FLAGS)
+#: The libraries the whole run's first lines launch (the serve, graphs,
+#: paged and legacy lines: the fused K2 on int16xP2s8 lanes, K3, K4, the
+#: window write), built before them; the others compile behind those
+#: lines at CPU priority BUILD_NICE (on the cores the lines leave idle)
+#: and are waited for before the kernel phase.
+FIRST_LIBRARIES = ("ulppack_matmul_mma", "attention_decode",
+                   "attention_decode_paged", "cache_write")
+BUILD_NICE = 10
+#: The depth cuts that keep the whole script inside its time limit, by
+#: the phase line they end (a line whose name starts with the key):
+#: old -> new.  Widths, layers and gates are not cut.
+CUTS = {
+    "graphs": "greedy tokens a request 32 -> 16 (GRAPH_NEW), alternated "
+              "rounds 3 -> 2 (GRAPH_ROUNDS)",
+    "serve w4a4": "greedy tokens a request 16 -> 8 (W4A4_NEW)",
+    "moe serve": "prompt tokens 32 -> 16 (MOE_PROMPT), the decode replay "
+                 "timing 5 x 8 -> 3 x 2 replays (MOE_REPLAYS)",
+    "archs serve": "greedy tokens a request 8 -> 4 (ARCHS_NEW)",
+    "dense, spec": "greedy tokens a request 32 -> 16 (SPEC_NEW)",
+    "recurrent serve xlstm-1.3b": "greedy tokens a request 8 -> 4 "
+                                  "(REC_NEW)",
+    "fleet recurrent xlstm-1.3b": "greedy tokens a request 8 -> 4 "
+                                  "(REC_NEW)",
+    "vlm": "greedy tokens 8 -> 4 (MM_NEW)",
+    "multimodal": "the encdec lines' greedy tokens 8 -> 4 (MM_NEW)",
+    "train, train-serve, train-ckpt": "the Trainer's depth 2 -> 1 of 24 "
+                                      "layers (CKPT_LAYERS)",
+}
+
+
 def mark(what: str) -> None:
     """A ``phase`` line: seconds since the script started, after ``what``
-    (the whole run's time by phase, against its limit)."""
-    print(f"phase {what}: {time.perf_counter() - START:.1f} s", flush=True)
+    (the whole run's time by phase, against its limit), with the phase's
+    depth cut (CUTS) when it has one."""
+    cut = next((c for k, c in CUTS.items()
+                if what == k or what.startswith(k + " ")), None)
+    print(f"phase {what}: {time.perf_counter() - START:.1f} s"
+          + (f" (cut: {cut})" if cut else ""), flush=True)
 
 
 def use_package(src: Path) -> None:
@@ -723,7 +794,8 @@ def packed_matmul_rows(torch, peaks, dev, gen):
     return rows
 
 
-def fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws, design):
+def fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws, design, *,
+                    bias=None):
     """The serving path's call at one K2 shape: ``ops.quantized_linear``
     on bf16 activations with bf16 out, one launch of the tensor-core K2
     with K1 folded in (``quantized_linear_mma``), checked bit-equal to the
@@ -736,7 +808,8 @@ def fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws, design):
     2.5, 7.5, ...) that the kernel's filter leaves to its exact redo.
     ``bound_ms``: W's lanes, x and the output over HBM, or the lattice
     MACs at the int8 tensor-core rate; no single PyTorch call quantizes
-    and multiplies."""
+    and multiplies.  ``bias`` ([n], as a layer's) goes into every route's
+    epilogue."""
     from repro_torch.kernels import ops, quant_pack, ulppack_matmul as mm
     from repro_torch.kernels import plan as plan_lib
 
@@ -753,36 +826,41 @@ def fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws, design):
 
     def fused(wi, a_scale=a_scale):
         return mm.quantized_linear_mma_cuda(x, wi, cs, a_scale, zp, w_scale,
-                                            zp, sp, plan=plan, out_dtype=bf16)
+                                            zp, sp, plan=plan, bias=bias,
+                                            out_dtype=bf16)
 
     def two_launch(wi):
         a, rs = quant_pack.quantize_pack_cuda(x.float(), a_scale, zp, sp)
         return mm.ulppack_matmul_mma_cuda(a, wi, sp, plan=lanes, epilogue=(
-            mm.Affine(rs, cs, a_scale, zp, w_scale, zp, k, None, bf16)))
+            mm.Affine(rs, cs, a_scale, zp, w_scale, zp, k, bias, bf16)))
 
-    want = ops.quantized_linear(x, ws[0], cs, a_scale, zp, w_scale, zp, sp,
-                                backend="torch", out_dtype=bf16)
+    def plain(a_scale=a_scale):
+        return ops.quantized_linear(x, ws[0], cs, a_scale, zp, w_scale, zp,
+                                    sp, bias=bias, backend="torch",
+                                    out_dtype=bf16)
+
+    want = plain()
     runs = [fused(ws[0]) for _ in range(2)] + [two_launch(ws[0])]
     s04 = torch.tensor(0.4, device=dev)
-    want04 = ops.quantized_linear(x, ws[0], cs, s04, zp, w_scale, zp, sp,
-                                  backend="torch", out_dtype=bf16)
+    want04 = plain(s04)
     torch.cuda.synchronize()
     if not all(torch.equal(r, want) for r in runs) \
             or not torch.equal(fused(ws[0], s04), want04):
         raise AssertionError(f"quantized_linear_mma {(m, k, n)}: not "
                              f"bit-equal to K1 + K2 and the plain version")
     nbytes = ws[0].numel() * 2 + m * k * 2 + m * n * 2 + n * 4
+    if bias is not None:
+        nbytes += bias.numel() * bias.element_size()
     b, by = bound_ms(nbytes, 2 * m * k * n, peaks["hbm"], peaks["int8"])
     return {"name": "quantized_linear_mma", "route": "fused-quant",
-            "shape": f"({m},{k // 2},{n}) {sp} bf16 x", "max_abs_err": 0,
+            "shape": f"({m},{k // 2},{n}) {sp} bf16 x"
+                     + ("" if bias is None else " bias"), "max_abs_err": 0,
             "ms": time_ms(torch, [lambda wi=wi: fused(wi) for wi in ws]),
             "two_launch_ms": time_ms(torch, [lambda wi=wi: two_launch(wi)
                                              for wi in ws]),
             "ms_scale_0_4": time_ms(torch, [lambda wi=wi: fused(wi, s04)
                                             for wi in ws]),
-            "plain_ms": time_ms(torch, [lambda: ops.quantized_linear(
-                x, ws[0], cs, a_scale, zp, w_scale, zp, sp, backend="torch",
-                out_dtype=bf16)], 3),
+            "plain_ms": time_ms(torch, [plain], 3),
             "bound_ms": b, "bound_by": by, "library_ms": None,
             "design_bound_ms": design,
             "kernels_us": device_kernel_us(torch, lambda: fused(ws[0]),
@@ -1532,8 +1610,158 @@ def device_kernel_us(torch, fn, warm=None) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {e.key: e.self_device_time_total for e in device_rows(torch, prof)}
+
+
+class DeviceRow:
+    """A device row of a profile, as ``key_averages()`` gives it: the
+    name, the summed device µs of its events and their count."""
+    __slots__ = ("key", "self_device_time_total", "count")
+
+    def __init__(self, key):
+        self.key, self.self_device_time_total, self.count = key, 0.0, 0
+
+
+#: How many more of :func:`device_rows`' calls of 1,000 to 5,000 launches
+#: are held against ``key_averages()``, and whether all agreed so far
+#: (else it takes key_averages).
+ROWS_CHECK = {"left": 2, "fast": True}
+
+
+def device_rows(torch, prof) -> list:
+    """The device rows (kernels, copies, memsets, the ranges' device
+    spans) of a finished ``torch.profiler`` profile by name, the rows of
+    ``prof.key_averages()`` whose device type is CUDA, summed straight from
+    the profiler's events.  ``key_averages()`` first builds an event
+    object for every host op and runtime call: seconds for an eager pass,
+    tens of seconds for a train step, and the largest host cost of this
+    script's profiled lines.  The first two calls of 1,000 to 5,000
+    launches also run ``key_averages()`` and compare every row's count and
+    time; if any differs, they say so and every later call takes
+    ``key_averages()``."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    cuda = torch.autograd.DeviceType.CUDA
+    if not ROWS_CHECK["fast"]:
+        return [e for e in prof.key_averages() if e.device_type == cuda]
+    rows = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != cuda or _filter_name(ev.name()) \
+                or getattr(ev, "is_hidden_event", lambda: False)():
+            continue
+        key = _rewrite_name(name=ev.name(), with_wildcard=True)
+        row = rows.get(key)
+        if row is None:
+            row = rows[key] = DeviceRow(key)
+        row.count += 1
+        if not (ev.is_async() or ev.start_thread_id() != ev.end_thread_id()):
+            row.self_device_time_total += (ev.end_ns() - ev.start_ns()) / 1e3
+    rows = list(rows.values())
+    if ROWS_CHECK["left"] and 1000 <= sum(r.count for r in rows) <= 5000:
+        ROWS_CHECK["left"] -= 1
+        want = {e.key: (e.count, e.self_device_time_total)
+                for e in prof.key_averages() if e.device_type == cuda}
+        got = {r.key: (r.count, r.self_device_time_total) for r in rows}
+        agree = want.keys() == got.keys() and all(
+            want[k][0] == got[k][0]
+            and abs(want[k][1] - got[k][1]) <= 1e-6 * max(1.0, want[k][1])
+            for k in want)
+        print("profiler rows " + json.dumps({
+            "rows": len(want), "launches": sum(c for c, _ in want.values()),
+            "device_us": sum(t for _, t in want.values()),
+            "events_read_directly_equal_key_averages": agree}))
+        if not agree:
+            ROWS_CHECK["fast"] = False
+            return [e for e in prof.key_averages() if e.device_type == cuda]
+    return rows
+
+
+#: :func:`range_rows`' counterpart of ROWS_CHECK.
+RANGES_CHECK = {"checked": False, "fast": True}
+
+
+def _range_rows_slow(torch, prof, names) -> dict:
+    out = {n: {"count": 0, "cpu_time_total": 0.0, "device_time_total": 0.0}
+           for n in names}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.key in out:
+            out[e.key] = {"count": e.count,
+                          "cpu_time_total": e.cpu_time_total,
+                          "device_time_total": e.device_time_total}
+    return out
+
+
+def range_rows(torch, prof, names) -> dict:
+    """{name: count, host µs (``cpu_time_total``) and device µs
+    (``device_time_total``: the kernels launched inside)} of the host
+    ranges and ops called ``names`` in a finished profile, as
+    ``prof.key_averages()``'s CPU rows give them, from the profiler's
+    events: a kernel belongs to the host op that launched it (the kernel
+    event's linked correlation id), and a range's device time is that of
+    every op of its thread that starts inside it.  The first call also
+    runs ``key_averages()`` and compares; if they differ, it says so and
+    every later call takes ``key_averages()``."""
+    import bisect
+
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    if not RANGES_CHECK["fast"]:
+        return _range_rows_slow(torch, prof, names)
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    kernel_us = {}
+    ops = {}                       # thread -> [(start ns, correlation id)]
+    wanted = []
+    for ev in prof.profiler.kineto_results.events():
+        if _filter_name(ev.name()) or getattr(ev, "is_hidden_event",
+                                              lambda: False)():
+            continue
+        link = ev.linked_correlation_id()
+        if ev.device_type() == cuda:
+            if link > 0:
+                kernel_us[link] = kernel_us.get(link, 0.0) + (
+                    ev.end_ns() - ev.start_ns()) / 1e3
+            continue
+        if ev.device_type() != cpu or link != 0 or ev.is_async() \
+                or ev.start_thread_id() != ev.end_thread_id():
+            continue
+        tid = ev.start_thread_id()
+        ops.setdefault(tid, []).append((ev.start_ns(), ev.correlation_id()))
+        name = _rewrite_name(name=ev.name(), with_wildcard=True)
+        if name in names:
+            wanted.append((name, tid, ev.start_ns(), ev.end_ns()))
+    index = {}
+    for tid, lst in ops.items():
+        lst.sort()
+        acc, sums = 0.0, [0.0]
+        for _, cid in lst:
+            acc += kernel_us.get(cid, 0.0)
+            sums.append(acc)
+        index[tid] = ([s for s, _ in lst], sums)
+    out = {n: {"count": 0, "cpu_time_total": 0.0, "device_time_total": 0.0}
+           for n in names}
+    for name, tid, start, end in wanted:
+        starts, sums = index[tid]
+        lo = bisect.bisect_left(starts, start)
+        hi = bisect.bisect_left(starts, end)
+        row = out[name]
+        row["count"] += 1
+        row["cpu_time_total"] += (end - start) / 1e3
+        row["device_time_total"] += sums[hi] - sums[lo]
+    if not RANGES_CHECK["checked"]:
+        RANGES_CHECK["checked"] = True
+        want = _range_rows_slow(torch, prof, names)
+        agree = all(
+            want[n]["count"] == out[n]["count"] and all(
+                abs(want[n][k] - out[n][k]) <= 1e-6 * max(1.0, want[n][k])
+                for k in ("cpu_time_total", "device_time_total"))
+            for n in names)
+        print("profiler ranges " + json.dumps({
+            "key_averages": want, "events_read_directly": out,
+            "equal": agree}))
+        if not agree:
+            RANGES_CHECK["fast"] = False
+            return want
+    return out
 
 
 # The paper's Fig. 4 shape (benchmarks/fig4_conv2d.py): x [1, 256, 256, 32]
@@ -2040,8 +2268,7 @@ def cnn_phase(torch, dev, cfg):
             cnn.forward(packed, cfg, images[0], quant_mode="packed",
                         plans=plans)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_rows(torch, prof)
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         rep["device_ms_per_batch"] = busy_ms
@@ -2192,8 +2419,7 @@ def profile_decode(torch, cfg, params, ecfg, prompts, dev, label="profile"):
             eng.step()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_rows(torch, prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     rep = {"kv_bits": cfg.quant.kv_bits, "decode_passes": n,
@@ -2281,8 +2507,7 @@ def profile_prefill(torch, cfg, params, ecfg, prompts, dev):
             eng.step()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_rows(torch, prof)
         busy_us = sum(e.self_device_time_total for e in kernels)
         if mode == "eager":
             rep["eager"] = {"wall_ms": wall * 1e3,
@@ -2577,7 +2802,7 @@ def linear_phase(torch, dev):
 
 #: Alternated rounds of 8 decode passes of each engine in the ``graphs``
 #: lines (a depth cut that keeps the whole script inside its time limit).
-GRAPH_ROUNDS = 3
+GRAPH_ROUNDS, GRAPH_NEW = 2, 16
 
 
 def step_ptrs(steps, pair, caches):
@@ -2593,8 +2818,9 @@ def graphs_phase(torch, np, dev, cfg, params):
     paged at kv_bits 4 with prefix sharing (the paged phase's shared-prefix
     requests).  Two engines a case, one replaying the CUDA graphs it
     captured, one with the eager pair set on it (``make_decode_step`` /
-    ``make_prefill_chunk_step``): greedy tokens equal (gated), the first
-    decode step's max logit difference, the static buffers', outputs' and
+    ``make_prefill_chunk_step``): GRAPH_NEW greedy tokens a request, equal
+    (gated), the first decode step's max logit difference, the static
+    buffers', outputs' and
     caches' ``data_ptr()``s the same after the run, the capture times, and
     each engine's peak memory above what was allocated before it was built
     (the eager engine's measured after its graphs were dropped).  Then
@@ -2647,7 +2873,7 @@ def graphs_phase(torch, np, dev, cfg, params):
                 return out
 
             eng._decode = spy
-            reqs = [Request(i, p, max_new_tokens=32)
+            reqs = [Request(i, p, max_new_tokens=GRAPH_NEW)
                     for i, p in enumerate(shared if paged else plain_prompts)]
             if paged:                 # the 72-token prompt registers first
                 eng.submit(reqs[0])
@@ -2678,7 +2904,7 @@ def graphs_phase(torch, np, dev, cfg, params):
         diff = (first["graphed"] - first["eager"]).abs()
         line = {"kv_bits": kv_bits, "paged": paged,
                 "prefix_sharing": paged, "tokens_equal": True,
-                "requests": len(outs["graphed"]),
+                "requests": len(outs["graphed"]), "new_tokens": GRAPH_NEW,
                 "first_decode_max_logit_diff": float(diff.max()),
                 "data_ptrs_fixed": True,
                 "decode_replays": dec.replays,
@@ -2729,8 +2955,7 @@ def graphs_phase(torch, np, dev, cfg, params):
                     eng.step()
                 torch.cuda.synchronize()
             pwall = (time.perf_counter() - t0) * 1e3 / 4
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels = device_rows(torch, prof)
             dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 4
             wall = statistics.median(walls[mode])
             alt[mode] = {
@@ -2817,8 +3042,7 @@ def profile_replay(torch, step, n=2):
         for _ in range(n):
             step.graph.replay()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_rows(torch, prof)
     out = {"device_ms": sum(e.self_device_time_total for e in kernels)
            / 1e3 / n,
            "launches": sum(e.count for e in kernels) / n,
@@ -2923,8 +3147,7 @@ def dense_phase(torch, np, dev, cfg, params):
                 for _ in range(4):
                     engines[store].step()
                 torch.cuda.synchronize()
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels = device_rows(torch, prof)
             dev_ms[store].append(sum(e.self_device_time_total
                                      for e in kernels) / 1e3 / 4)
             k2_ms[store].append(kernel_groups(kernels, 4, "")["k2_ms"])
@@ -2946,7 +3169,7 @@ def dense_phase(torch, np, dev, cfg, params):
 # W4A4, the paper's 4-bit point: int32xP2s16 is its only layout
 # (``packing.layout_family(4, 4)``).
 W4A4_QUANT = dict(w_bits=4, a_bits=4, lane_dtype="int32", kv_bits=4)
-W4A4_NEW = 16
+W4A4_NEW = 8
 W4A4_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
 
 
@@ -3055,7 +3278,7 @@ def w4a4_phase(torch, np, dev, cfg):
         parted = token_divergences(np, f"serve w4a4 {store}", ref_outs,
                                    ref_rows, outs, rows, strict=False)
         line.update(tokens_equal=outs == ref_outs, requests=len(outs),
-                    divergences=parted,
+                    new_tokens=W4A4_NEW, divergences=parted,
                     first_decode_max_logit_diff=float(
                         (passes[0] - ref_passes[0]).abs().max()),
                     max_logit_diff_vs_torch=max_pass_diff(passes,
@@ -3185,6 +3408,8 @@ def packed_nodes(tree):
 #: kept), a W1 draft over the dense store (target dense too), and paged
 #: with a shared prefix and a W2 draft (the first-token stash path).
 SPEC_K = 4
+#: Greedy tokens a request on the spec lines' engines
+SPEC_NEW = 16
 SPEC_CASES = (("w2-lanes", dict(draft_w_bits=2), False),
               ("w1-dense", dict(draft_w_bits=1, dense_store=True), False),
               ("w2-paged-shared", dict(draft_w_bits=2), True))
@@ -3194,7 +3419,7 @@ def spec_phase(torch, np, dev, cfg, params):
     """Speculative decoding at full width (``spec`` lines): stablelm-1.6b
     W2A2, kv 4, k = 4, each of ``SPEC_CASES`` against the plain graphed
     engine of the same config on the same requests (the serve phase's, or
-    paged the shared-prefix ones), 32 tokens each.
+    paged the shared-prefix ones), SPEC_NEW tokens each.
 
     The token gate: the plain engine records the logits row behind every
     token it emits; the speculative engine records the verify window's
@@ -3224,7 +3449,7 @@ def spec_phase(torch, np, dev, cfg, params):
 
     c = cfg.replace(quant=cfg.quant.replace(kv_bits=4))
     plain_prompts, shared = serve_prompts(np, cfg)
-    new = 32
+    new = SPEC_NEW
     totals = {"quantized_linear_mma": 0, "quantized_linear_mma_dense": 0,
               "attention_decode": 0, "attention_decode_paged": 0}
     for name, extra, paged in SPEC_CASES:
@@ -3515,7 +3740,7 @@ TRAIN_RANGES = {"fake_quant": ("fake_quant",),
                 "attention": ("attention", "BmmBackward0",
                               "SoftmaxBackward0"),
                 "optimizer": ("optimizer",)}
-CKPT_LAYERS, CKPT_STEPS = 2, 4
+CKPT_LAYERS, CKPT_STEPS = 1, 4
 #: The last ``train`` line's report (``train compress`` prints its steps
 #: beside its own).
 TRAIN_LINE: dict = {}
@@ -3636,26 +3861,24 @@ def train_profile(torch, state, step_fn, data):
         float(m["loss"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
+    rows = device_rows(torch, prof)
     # the ranges also come back as device rows spanning their kernels
     spans = {e.key: e.self_device_time_total / 1e3 for e in rows
-             if e.device_type == cuda and e.key in TRAIN_RANGES}
-    kernels = [e for e in rows
-               if e.device_type == cuda and e.key not in TRAIN_RANGES]
+             if e.key in TRAIN_RANGES}
+    kernels = [e for e in rows if e.key not in TRAIN_RANGES]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     rep = {"device_ms": busy, "wall_ms_profiled": wall * 1e3,
            "idle_share_profiled": 1 - busy / (wall * 1e3),
            "launches": sum(e.count for e in kernels),
            **kernel_groups(kernels, 1, "", TRAIN_GROUPS)}
     rep["other_ms"] = busy - sum(rep[f"{g}_ms"] for g in TRAIN_GROUPS)
-    cpu = [e for e in rows
-           if e.device_type == torch.autograd.DeviceType.CPU]
+    cpu = range_rows(torch, prof, {k for keys in TRAIN_RANGES.values()
+                                   for k in keys})
     for name, keys in TRAIN_RANGES.items():
-        sel = [e for e in cpu if e.key in keys]
-        rep[f"{name}_range_ms"] = sum(e.device_time_total
+        sel = [cpu[k] for k in keys]
+        rep[f"{name}_range_ms"] = sum(e["device_time_total"]
                                       for e in sel) / 1e3
-        rep[f"{name}_range_calls"] = sum(e.count for e in sel)
+        rep[f"{name}_range_calls"] = sum(e["count"] for e in sel)
         rep[f"{name}_gpu_span_ms"] = spans.get(name)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     rep["top_kernels_ms"] = [[e.key[:60], e.self_device_time_total / 1e3,
@@ -4069,13 +4292,11 @@ def train_compress_phase(torch, dev, cfg, peaks, smi):
         state, m = step_fn(state, data.batch_at(TRAIN_STEPS))
         float(m["loss"])
         torch.cuda.synchronize()
-    ranges = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CPU
-              and e.key in ("grad_compress", "optimizer")]
-    prof_ms = {f"{e.key}_device_ms": e.device_time_total / 1e3
-               for e in ranges}
-    prof_ms.update({f"{e.key}_host_ms": e.cpu_time_total / 1e3
-                    for e in ranges})
+    ranges = range_rows(torch, prof, ("grad_compress", "optimizer"))
+    prof_ms = {f"{k}_device_ms": e["device_time_total"] / 1e3
+               for k, e in ranges.items() if e["count"]}
+    prof_ms.update({f"{k}_host_ms": e["cpu_time_total"] / 1e3
+                    for k, e in ranges.items() if e["count"]})
     base = TRAIN_LINE.get("per_step", [])
     rep = {"card": smi, "model": cfg.name, "layers": cfg.num_layers,
            "remat": cfg.parallel.remat,
@@ -4588,7 +4809,11 @@ MOE_LAYERS, MOE_NEW = 4, 8
 #: Prompt tokens a ``moe serve`` request: the serve prompts (17-100
 #: tokens) cut, a depth cut that keeps the whole script inside its time
 #: limit.
-MOE_PROMPT = 32
+MOE_PROMPT = 16
+#: The moe serve lines' decode replay time: the median of MOE_REPLAYS[0]
+#: timings of MOE_REPLAYS[1] replays each (a pass is ~130 ms of the
+#: experts' fake quant, so fewer replays than ``replay_ms``' 8)
+MOE_REPLAYS = (3, 2)
 MOE_RING_PROMPT, MOE_RING_STEPS = 4160, 8
 # profiler ranges of the port (core/quant.py, models/moe.py,
 # models/attention.py), read in an eager decode pass
@@ -4684,15 +4909,12 @@ def eager_ranges(torch, np, cfg, params, caches, b, pos, ranges=MOE_RANGES):
                              ProfilerActivity.CUDA]) as prof:
         step(params, caches, tokens, pos, np.ones(b, np.int32))
         torch.cuda.synchronize()
-    rows = prof.key_averages()
-    cpu = [e for e in rows if e.device_type == torch.autograd.DeviceType.CPU]
-    kernels = [e for e in rows if e.device_type
-               == torch.autograd.DeviceType.CUDA and e.key not in ranges]
+    cpu = range_rows(torch, prof, ranges)
+    kernels = [e for e in device_rows(torch, prof) if e.key not in ranges]
     out = {"eager_device_ms": sum(e.self_device_time_total
                                   for e in kernels) / 1e3}
     for name in ranges:
-        out[f"{name}_range_ms"] = sum(e.device_time_total for e in cpu
-                                      if e.key == name) / 1e3
+        out[f"{name}_range_ms"] = cpu[name]["device_time_total"] / 1e3
     return out
 
 
@@ -4747,8 +4969,9 @@ def moe_serve_phase(torch, np, dev, smi):
         launches["quantized_linear_mma"] += k2
         launches["cache_write"] += cache_write.kernel_launches["cache_write"]
         m, cap = eng.metrics.report(), eng.capacity_report()
-        replay = statistics.median(replay_ms(torch, eng._decode)
-                                   for _ in range(5))
+        replay = statistics.median(replay_ms(torch, eng._decode,
+                                             n=MOE_REPLAYS[1])
+                                   for _ in range(MOE_REPLAYS[0]))
         groups = profile_replay(torch, eng._decode)
         ranges = eager_ranges(torch, np, c, eng.params, eng.caches,
                               eng.max_batch, eng.slot_pos.copy())
@@ -4780,6 +5003,8 @@ def moe_serve_phase(torch, np, dev, smi):
         token_divergences(np, f"moe serve kv{kv_bits}", ref_outs, ref_rows,
                           outs, rows, strict=True)
         line.update(tokens_equal=True, requests=len(outs),
+                    prompt_tokens=MOE_PROMPT, new_tokens=MOE_NEW,
+                    replay_timings=list(MOE_REPLAYS),
                     max_logit_diff_vs_torch=max_pass_diff(passes,
                                                           ref_passes))
         print("moe serve " + json.dumps(line))
@@ -5024,7 +5249,7 @@ def legacy_phase(torch, np, dev, cfg, params, smi):
 
 XLSTM, JAMBA = "xlstm-1.3b", "jamba-1.5-large-398b"
 JAMBA_LAYERS = 5
-REC_NEW = {XLSTM: 8, JAMBA: 4}
+REC_NEW = {XLSTM: 4, JAMBA: 4}
 REC_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
 # profiler ranges of the port read in an eager decode pass (core/quant.py,
 # models/mamba.py, models/xlstm.py, models/moe.py)
@@ -5297,12 +5522,418 @@ def moe_only(torch, np, smi):
 
 
 # ---------------------------------------------------------------------------
+# The dense LM configs served whole for the first time: granite-3-8b,
+# minicpm-2b and qwen1.5-32b (the archs lines), and the two examples
+# ---------------------------------------------------------------------------
+
+GRANITE, MINICPM, QWEN = "granite-3-8b", "minicpm-2b", "qwen1.5-32b"
+#: (config, kv settings) of the ``archs serve`` lines
+ARCHS = ((GRANITE, (16, 4)), (MINICPM, (16, 4)), (QWEN, (4,)))
+ARCHS_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
+ARCHS_NEW = 4
+#: qwen1.5-32b's QKV biases are zero at init; the served tree gets them
+#: drawn from N(0, ARCHS_BIAS_STD^2) (seed SEED + 35), so that the fused
+#: epilogue adds a bias that moves the outputs
+ARCHS_BIAS_STD = 0.1
+# the packed linears of the three configs at full width: (config, layer,
+# k, n, bias) at the decode and the prefill-chunk rows of ARCHS_ECFG
+ARCHS_K2_SHAPES = ((GRANITE, "q/o", 4096, 4096, False),
+                   (GRANITE, "k/v", 4096, 1024, False),
+                   (GRANITE, "gate/up", 4096, 12800, False),
+                   (GRANITE, "down", 12800, 4096, False),
+                   (MINICPM, "q/k/v/o", 2304, 2304, False),
+                   (MINICPM, "gate/up", 2304, 5760, False),
+                   (MINICPM, "down", 5760, 2304, False),
+                   (QWEN, "q/k/v (bias)", 5120, 5120, True),
+                   (QWEN, "o", 5120, 5120, False),
+                   (QWEN, "gate/up", 5120, 27392, False),
+                   (QWEN, "down", 27392, 5120, False))
+ARCHS_K2_ROWS = (4, 64)
+# K3 / K4 at the two head layouts no earlier line read: minicpm's H36 hd64
+# and qwen1.5's H40 hd128 (granite's GQA-4 hd128 is ATTN_CASES' second)
+ARCHS_K3_HEADS = ((MINICPM, 36, 36, 64), (QWEN, 40, 40, 128))
+
+
+def archs_config(name, *, kv_bits=None):
+    """``name`` whole (W2A2 on the int16xP2s8 lanes), at ``kv_bits`` when
+    given."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(name)
+    if kv_bits is not None:
+        cfg = cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
+    return cfg
+
+
+def build_packed_params(cfg, generator, device):
+    """The serving params of ``lm.init_params(cfg, generator, device)``
+    built a layer at a time: each part drawn in ``init_params``' generator
+    order -- the embedding, every block (``lm.block_init``), the final
+    norm, an untied head -- and each block packed
+    (``prepare_serving_params``) before the next is drawn, its floats
+    dropped.  The peak is the packed tree plus one float block, so a
+    config whose float tree and packed lanes do not fit the card together
+    (qwen1.5-32b: 70.4 + 33.6 GB) is built whole.  Equal leaf for leaf to
+    ``prepare_serving_params(lm.init_params(cfg, generator, device), cfg,
+    device=device)``; a decoder-only text LM only."""
+    import torch
+
+    from repro_torch.models import common, lm
+    from repro_torch.serve.prepare import prepare_serving_params
+
+    if cfg.is_encoder_decoder or cfg.frontend != "none":
+        raise ValueError(f"{cfg.name}: the layer-at-a-time build covers a "
+                         f"decoder-only text LM")
+    lm.check_supported(cfg)
+    dev = torch.device(device)
+    dtype = common.dtype_of(cfg.param_dtype)
+    params = {"embed": common.embedding_init(generator, cfg.padded_vocab,
+                                             cfg.d_model, dtype, dev),
+              "layers": []}
+    for i in range(cfg.num_layers):
+        block = lm.block_init(generator, cfg, i, dtype=dtype, device=dev)
+        params["layers"].append(prepare_serving_params(block, cfg,
+                                                       device=dev))
+        del block
+    params["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = common.dense_init(
+            generator, cfg.d_model, cfg.padded_vocab, dtype=dtype,
+            quantized=cfg.quant.quantize_lm_head, qcfg=cfg.quant,
+            device=dev)
+    return prepare_serving_params(params, cfg, device=dev)
+
+
+def archs_k2_rows(torch, peaks, dev, gen):
+    """``fused_quant_row`` at every packed-linear shape of the three
+    configs (``ARCHS_K2_SHAPES``) at 4 and 64 rows, qwen1.5's q/k/v with
+    a bf16 bias in the fused epilogue: bit-equal to cast + K1 + K2-affine
+    and to the plain version (gated), timed against its bound.  Prints an
+    ``archs k2`` line a row."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+
+    sp = PackSpec.parse("W2A2/int16xP2s8")
+    rows = []
+    for cfg, layer, k, n, with_bias in ARCHS_K2_SHAPES:
+        qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                           device=dev, dtype=torch.int32)
+        w = packing.pack_weights(qw, sp)
+        ws = [w] + [w.clone() for _ in range(copies_for(w.numel() *
+                                                        sp.lane_bytes) - 1)]
+        bias = (torch.randn(n, generator=gen, device=dev) * ARCHS_BIAS_STD
+                ).bfloat16() if with_bias else None
+        for m in ARCHS_K2_ROWS:
+            r = fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws,
+                                None, bias=bias)
+            r.update(config=cfg, layer=layer)
+            print("archs k2 " + json.dumps(r))
+            rows.append(r)
+        del qw, w, ws
+    torch.cuda.empty_cache()
+    return rows
+
+
+def archs_k3_rows(torch, peaks, dev, gen):
+    """K3 and K4 (``attention_case``) at ``ARCHS_K3_HEADS``, C1 and C16,
+    kv 16 and 4, B4 S512: K3 within ATTN_TOL (+ one bf16 ulp at bf16
+    queries) of its plain version, K4 bit-equal to K3 through a scrambled
+    block table, SDPA timed beside it at kv 16 (gated in
+    ``attention_case``).  Prints an ``archs k3`` line a row."""
+    rows = []
+    valid_len = torch.tensor([512, 300, 77, 0], dtype=torch.int32,
+                             device=dev)
+    for cfg, h, kvh, hd in ARCHS_K3_HEADS:
+        for kv_bits in (16, 4):
+            for r in attention_case(torch, peaks, dev, gen, 4, 512, h, kvh,
+                                    hd, kv_bits, valid_len):
+                r["config"] = cfg
+                print("archs k3 " + json.dumps(r))
+                rows.append(r)
+    return rows
+
+
+def archs_params(torch, dev, cfg):
+    """Seed-0 packed serving params of ``cfg`` on the card and how they
+    were made: granite and minicpm through ``lm.init_params`` and
+    ``prepare_serving_params`` (the float tree dropped after packing),
+    qwen1.5-32b a layer at a time (``build_packed_params``) with its QKV
+    biases then drawn (``ARCHS_BIAS_STD``)."""
+    from repro_torch.models import lm
+    from repro_torch.serve.prepare import prepare_serving_params
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if cfg.name == QWEN:
+        packed = build_packed_params(cfg, gen, dev)
+        torch.cuda.synchronize()
+        info = {"build": "a layer at a time",
+                "init_and_pack_s": time.perf_counter() - t0}
+        bgen = torch.Generator(device=dev).manual_seed(SEED + 35)
+        for layer in packed["layers"]:
+            for name in ("q", "k", "v"):
+                b = layer["attn"][name]["bias"]
+                b.copy_(torch.randn(b.shape, generator=bgen, device=dev)
+                        * ARCHS_BIAS_STD)
+    else:
+        params = lm.init_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        packed = prepare_serving_params(params, cfg, device=dev)
+        torch.cuda.synchronize()
+        info = {"build": "lm.init_params, then prepare_serving_params",
+                "init_params_s": init_s,
+                "pack_s": time.perf_counter() - t0}
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    info["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return packed, info
+
+
+def packed_bytes_split(packed) -> dict:
+    """Bytes of the packed linears' lanes (``w_packed``) and of the rest
+    of a serving tree (embedding, norms, a float head, scales, sums)."""
+    from repro_torch.serve.prepare import serving_param_bytes
+
+    lanes = sum(w.numel() * w.element_size() for w in packed_leaves(packed))
+    return {"w_packed_bytes": lanes,
+            "other_param_bytes": serving_param_bytes(packed) - lanes}
+
+
+def decode_graph_launches(step) -> dict:
+    """The hand kernels' launches a replay of ``step``'s graph holds: the
+    fused K2, K3 (and of them the tile path's) and the window write."""
+    from repro_torch.kernels import cache_write, ulppack_attention as att, \
+        ulppack_matmul as mm
+
+    got = step.launches
+    return {"k2": got[(mm, "mma_launches")]["quant_affine"],
+            "k3": got[(att, "kernel_launches")]["attention_decode"],
+            "k3_tile": got[(att, "tile_launches")]["attention_decode"],
+            "cache_write": got[(cache_write, "kernel_launches")][
+                "cache_write"]}
+
+
+def archs_serve_phase(torch, np, dev, smi, name, kv_list):
+    """The ``archs serve`` lines of ``name``: full width, whole depth,
+    W2A2 seed-0 weights packed once (``archs_params``), then at each kv
+    setting ``EngineConfig(**ARCHS_ECFG)`` over that packed tree, graphed,
+    the serve phase's four prompts (17-100 tokens), ARCHS_NEW greedy
+    tokens each, then an engine with ``backend='torch'`` over the same
+    tree.  Gated: every packed linear one fused K2 launch with no
+    standalone K1 (``check_k2_path``); every read one K3 launch, on both
+    its paths (the prefill chunks' tile path and the decode passes' warp
+    path, or the tile path alone where a kv head's rows exceed 4), and
+    every window write one launch, with no plain call; every token in
+    the vocabulary and the decode graph's pad columns at -1e30; tokens
+    equal to the ``'torch'`` engine's under the margin rule (each parting
+    listed with its margin: K3 is within ATTN_TOL of its plain version,
+    not bit-equal).  Records init and pack s, capture s, decode ms a pass
+    wall and replayed, the idle share, the graph's device ms by kernel
+    group, launches a decode pass, param (lanes and the rest), cache and
+    peak bytes.  Returns the graphed runs' K2, K3 and write launches."""
+    from repro_torch.kernels import ulppack_attention as att
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    base = archs_config(name)
+    packed, info = archs_params(torch, dev, base)
+    mark(f"archs params {name}")
+    prompts, _ = serve_prompts(np, base)
+    ecfg = EngineConfig(**ARCHS_ECFG)
+    launches = {"quantized_linear_mma": 0, "attention_decode": 0,
+                "cache_write": 0}
+    for kv_bits in kv_list:
+        c = archs_config(name, kv_bits=kv_bits)
+        label = f"archs serve {name} kv{kv_bits}"
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServingEngine(c, packed, config=ecfg, device=dev)
+        build_s = time.perf_counter() - t0
+        if eng.params["layers"][0]["attn"]["q"]["w_packed"] is not \
+                packed["layers"][0]["attn"]["q"]["w_packed"]:
+            raise AssertionError(f"{label}: the engine copied the tree")
+        t0 = time.perf_counter()
+        outs, rows, passes = recorded_serve(np, eng, prompts, ARCHS_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if eng._decode.graph is None or eng._prefill.graph is None:
+            raise AssertionError(f"{label}: the engine captured no graphs")
+        got = check_writes_on_kernel(label)
+        tile = att.tile_launches["attention_decode"]
+        per_pass = decode_graph_launches(eng._decode)
+        if not 0 < tile < got["attention_decode"]:
+            raise AssertionError(f"{label}: K3's tile path launched {tile} "
+                                 f"of {got['attention_decode']} times")
+        if any(t < 0 or t >= c.vocab_size for o in outs for t in o):
+            raise AssertionError(f"{label}: a token outside the vocabulary")
+        pad = eng._decode.logits[..., c.vocab_size:]
+        if pad.numel() and float(pad.float().max()) > -1e29:
+            raise AssertionError(f"{label}: the pad columns' mask did not "
+                                 f"hold in the decode graph")
+        for k, n in got.items():
+            launches[k] += n
+        m, cap = eng.metrics.report(), eng.capacity_report()
+        replay = statistics.median(replay_ms(torch, eng._decode)
+                                   for _ in range(5))
+        line = {"card": smi, "config": name, "kv_bits": kv_bits,
+                "layers": f"{c.num_layers} of {c.num_layers}",
+                "d_model": c.d_model,
+                "heads": f"{c.num_heads} / {c.num_kv_heads} x "
+                         f"{c.resolved_head_dim}",
+                "d_ff": c.d_ff, "vocab": c.vocab_size,
+                "padded_vocab": c.padded_vocab,
+                "head": "tied" if c.tie_embeddings else "untied bf16",
+                "qkv_bias": c.qkv_bias, **info,
+                "slots": eng.max_batch, "prefill_chunk": eng.prefill_chunk,
+                "requests": len(outs), "new_tokens": ARCHS_NEW,
+                "engine_build_s": build_s,
+                "capture_s": {"decode": eng._decode.capture_s,
+                              "prefill": eng._prefill.capture_s},
+                "step_setup_s": cap["step_setup_s"], "wall_s": wall,
+                "steps": m["steps"],
+                "decode_passes": eng.metrics.decode_passes,
+                "decode_step_ms_wall": m["decode_step_ms"],
+                "decode_replay_ms": replay,
+                "idle_share": 1 - replay / m["decode_step_ms"],
+                "decode_tok_s": m["decode_tok_s"],
+                "prefill_tok_s": m["prefill_tok_s"],
+                "graph_device_ms_by_group": profile_replay(torch,
+                                                           eng._decode),
+                "launches_a_decode_pass": per_pass,
+                "launches_a_prefill_chunk": decode_graph_launches(
+                    eng._prefill),
+                **{f"{k}_launches": n for k, n in got.items()},
+                "k3_tile_launches": tile,
+                "param_bytes": cap["param_bytes"],
+                **packed_bytes_split(packed),
+                "cache_bytes": cap["cache_bytes"],
+                "cache_bytes_per_slot": cap["cache_bytes_per_slot"],
+                "held_before_engine_bytes": before,
+                "peak_memory_bytes": peak}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref = ServingEngine(c, packed, config=ecfg, device=dev,
+                            backend="torch")
+        ref_outs, ref_rows, ref_passes = recorded_serve(np, ref, prompts,
+                                                        ARCHS_NEW)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the margin rule (serve w4a4's): K3 is within ATTN_TOL of its
+        # plain version, not bit-equal, so a token may part from 'torch''s
+        # only where the plain row's top-2 margin is at most 2 x the rows'
+        # difference; every parting is listed
+        parted = token_divergences(np, label, ref_outs, ref_rows, outs,
+                                   rows, strict=False)
+        line.update(tokens_equal=outs == ref_outs, divergences=parted,
+                    torch_backend_s=time.perf_counter() - t0,
+                    first_decode_max_logit_diff=float(
+                        (passes[0] - ref_passes[0]).abs().max()),
+                    max_logit_diff_vs_torch=max_pass_diff(passes,
+                                                          ref_passes))
+        print("archs serve " + json.dumps(line))
+        mark(label)
+    print(smi)
+    del packed
+    held_check(torch, held, f"archs serve {name}")
+    return launches
+
+
+EXAMPLES = (("quickstart", ()), ("serve_quantized", ()),
+            ("serve_quantized", ("--model-parallel", "2")))
+
+
+def examples_phase(torch):
+    """The ``examples`` line: ``repro_torch.examples.quickstart`` and
+    ``serve_quantized`` (one shard, and two shards on this card) run as
+    their own processes on the card, side by side.  Gated: each exits 0;
+    the quickstart's packed lattice dot is the hand-written tensor-core
+    K2, launched, and exact; the two-shard run's tokens equal the one
+    shard's."""
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in EXAMPLES]
+    outs = []
+    for (name, args), proc in zip(EXAMPLES, procs):
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"example {name} {args}: exit "
+                                 f"{proc.returncode}\n{(out + err)[-2000:]}")
+        outs.append(out)
+    wall = time.perf_counter() - t0
+    quick = re.search(r"ulppack_matmul \(tensor-core K2 on cuda(?::\d+)?, "
+                      r"(\d+) launch\): EXACT match", outs[0])
+    err = re.search(r"float-oracle max err: (\S+)", outs[0])
+    if quick is None or int(quick.group(1)) < 1 or err is None:
+        raise AssertionError(f"example quickstart: no exact line from the "
+                             f"hand-written K2\n{outs[0][-2000:]}")
+    tokens = [re.findall(r"^  req \d+: .* -> (\[.*\])$", o, re.M)
+              for o in outs[1:]]
+    if len(tokens[0]) != 4 or tokens[0] != tokens[1]:
+        raise AssertionError(f"example serve_quantized: two shards' tokens "
+                             f"{tokens[1]} differ from one's {tokens[0]}")
+    line = {"quickstart_k2_launches": int(quick.group(1)),
+            "quickstart_max_err": float(err.group(1)),
+            "serve_quantized_lines": [
+                next(ln for ln in outs[1].splitlines() if ln.startswith(p))
+                for p in ("serving params:", "kv cache:", "served ")],
+            "two_shards_tokens_equal": True, "wall_s": wall}
+    print("examples " + json.dumps(line))
+    return line
+
+
+def archs_phase(torch, np, dev, peaks, smi):
+    """The three dense configs never served before: the ``archs k2`` and
+    ``archs k3`` rows, an ``archs serve`` line per config and kv setting,
+    then the ``examples`` line.  Returns the serve lines' launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    archs_k2_rows(torch, peaks, dev, gen)
+    mark("archs k2")
+    archs_k3_rows(torch, peaks, dev, gen)
+    mark("archs k3")
+    launches = {"quantized_linear_mma": 0, "attention_decode": 0,
+                "cache_write": 0}
+    for name, kv_list in ARCHS:
+        for k, n in archs_serve_phase(torch, np, dev, smi, name,
+                                      kv_list).items():
+            launches[k] += n
+    examples_phase(torch)
+    mark("examples")
+    print(f"archs launches {launches}")
+    print(smi)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # multimodal lines: qwen2-vl-2b and seamless-m4t-medium
 # ---------------------------------------------------------------------------
 
 VLM, ENCDEC = "qwen2-vl-2b", "seamless-m4t-medium"
 MM_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
-MM_NEW = 8
+MM_NEW = 4
 # the vlm prefix line: an image of 1 x 16 x 16 (t, h, w) patches, 48 text
 # tokens after it, two rows
 VLM_GRID, VLM_TEXT, VLM_ROWS = (1, 16, 16), 48, 2
@@ -5741,11 +6372,10 @@ def encdec_phase(torch, np, dev, smi):
                 one_step()
                 lm.encode(packed, c, enc, quant_mode="packed")
                 torch.cuda.synchronize()
-            cpu = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CPU]
+            cpu = range_rows(torch, prof, ("cross_attention", "encoder"))
             for name in ("cross_attention", "encoder"):
-                line[f"{name}_range_device_ms"] = sum(
-                    e.device_time_total for e in cpu if e.key == name) / 1e3
+                line[f"{name}_range_device_ms"] = cpu[name][
+                    "device_time_total"] / 1e3
             del enc_out, caches
         runs[be] = runs[be][:2]
     if not torch.equal(runs["auto"][0], runs["torch"][0]):
@@ -6415,11 +7045,11 @@ REC_LOGIT_DIFF_MAX = 0.28
 
 
 def recurrent_states(eng):
-    """Every recurrent state of an engine, whole, on the host: {(layer,
-    kind, leaf): f32 tensor}."""
+    """Every recurrent state of an engine, whole, copied on its device:
+    {(layer, kind, leaf): f32 tensor}."""
     from repro_torch.parallel import sharding
 
-    return {(i, kind, n): sharding.whole(leaf).float().cpu()
+    return {(i, kind, n): sharding.whole(leaf).float().clone()
             for i, layer in enumerate(eng.caches)
             for kind, sub in layer.items()
             if kind in ("mamba", "mlstm", "slstm")
@@ -6810,8 +7440,7 @@ def attn_tile_encoder(torch, dev):
                              ProfilerActivity.CUDA]) as prof:
         lm.encode(packed, c, enc, quant_mode="packed")
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_rows(torch, prof)
     out = {"device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
            "launches": sum(e.count for e in kernels),
            **kernel_groups(kernels, 1, "", SPEC_GROUPS)}
@@ -7046,10 +7675,20 @@ def main() -> int:
           f"{sys.version.split()[0]} device {name} capability "
           f"{torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
-    paths = build.build()
+    whole = not any(f in sys.argv[1:] for f in MODE_FLAGS)
+    if whole:
+        # the serve path's libraries first; the others compile behind the
+        # serve, graphs, paged and legacy lines
+        build.start(FIRST_LIBRARIES)
+        build.start(nice=BUILD_NICE)
+        paths = build.build(FIRST_LIBRARIES)
+    else:
+        paths = build.build()
     mark("build")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"({len(paths)} libraries, nvcc in parallel)")
+          f"({len(paths)} libraries, nvcc in parallel"
+          + (f"; the other {len(build.building())} compiling at nice "
+             f"{BUILD_NICE} behind the serve lines)" if whole else ")"))
     if "--k2-sweep" in sys.argv[1:]:
         k2_sweep(torch, torch.device("cuda"))
         print(smi)
@@ -7069,8 +7708,7 @@ def main() -> int:
             attn_tile(torch, np, src)
         print(smi)
         return 0
-    only = [f for f in ("--moe", "--recurrent", "--multimodal", "--fleet",
-                        "--parallel", "--w4a4") if f in sys.argv[1:]]
+    only = [f for f in ONLY_FLAGS if f in sys.argv[1:]]
     if "--w4a4" in only:
         w4a4_only(torch, np, peaks, smi)
     if "--moe" in only:
@@ -7084,28 +7722,14 @@ def main() -> int:
     if "--parallel" in only:
         parallel_phase(torch, torch.device("cuda"), peaks, smi, name)
         print(smi)
+    if "--archs" in only:
+        archs_phase(torch, np, torch.device("cuda"), peaks, smi)
     if only:
         return 0
-    for n, p in paths.items():
-        log = (p.parent / f"{n}.log").read_text()
-        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
-        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
-                                                log))
-        print(f"ptxas {n}: {len(regs)} kernels, registers {regs}, "
-              f"{spills} bytes of spill stores")
 
     from repro_torch import configs
     dev = torch.device("cuda")
     cnn_cfg = configs.get_config("sparq-cnn")
-    rows = kernel_phase(torch, peaks, dev) + int_matmul_rows(torch, peaks,
-                                                              dev)
-    mark("kernel write, k7")
-    conv_rows, fig4 = conv_kernel_phase(torch, peaks, dev, cnn_cfg)
-    rows += conv_rows
-    for r in rows:
-        print("kernel " + json.dumps(r))
-
-    mark("kernels")
     mods = (quant_pack, ulppack_matmul, ulppack_attention, cache_write)
 
     for mod in mods:
@@ -7163,6 +7787,30 @@ def main() -> int:
     for k, n in legacy_phase(torch, np, dev, lm_cfg, params, smi).items():
         launches[k] += n
     mark("paged, legacy")
+    # every other library, then the kernels against their plain versions
+    running = build.building()
+    t0 = time.perf_counter()
+    paths = build.build()
+    mark("build, the rest")
+    print(f"kernel build: {len(running)} of {len(paths)} libraries still "
+          f"compiling after the legacy lines, done "
+          f"{time.perf_counter() - t0:.1f} s later")
+    for n, p in paths.items():
+        log = (p.parent / f"{n}.log").read_text()
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
+                                                log))
+        print(f"ptxas {n}: {len(regs)} kernels, registers {regs}, "
+              f"{spills} bytes of spill stores, compiled in "
+              f"{build.seconds.get(n, float('nan')):.1f} s")
+    rows = kernel_phase(torch, peaks, dev) + int_matmul_rows(torch, peaks,
+                                                              dev)
+    mark("kernel write, k7")
+    conv_rows, fig4 = conv_kernel_phase(torch, peaks, dev, cnn_cfg)
+    rows += conv_rows
+    for r in rows:
+        print("kernel " + json.dumps(r))
+    mark("kernels")
     # the dense store's path: the dense line's engine (every packed linear
     # of its run one launch of the dense route); then speculative decoding
     launches["quantized_linear_mma_dense"] = dense_phase(torch, np, dev,
@@ -7195,6 +7843,14 @@ def main() -> int:
     for k, n in moe_launches.items():
         launches[k] += n
     mark("moe")
+    torch.cuda.empty_cache()
+    # the dense configs never served before, whole: granite-3-8b and
+    # minicpm-2b at kv 16 and 4, qwen1.5-32b at kv 4, their K2 and K3
+    # rows, then both examples; their packed linears add to K2's
+    # launches, their reads to K3's, their writes to the window write's
+    for k, n in archs_phase(torch, np, dev, peaks, smi).items():
+        launches[k] += n
+    mark("archs")
     torch.cuda.empty_cache()
     # the recurrent families: the K2 rows at their shapes, xlstm-1.3b whole
     # and jamba-1.5-large-398b cut to 5 layers served graphed, their
@@ -7238,7 +7894,7 @@ def main() -> int:
 
     # training: full-width LM train steps and their profile; the trained
     # params saved, read back, packed and served; the Trainer's
-    # checkpoint / resume at 2 layers; the CNN QAT-trained and deployed.
+    # checkpoint / resume at 1 layer; the CNN QAT-trained and deployed.
     # The trained LM's engine and the trained CNN's packed evaluation add
     # to K2's, K3's and K5's launches.
     state, step_fn, data = train_phase(torch, dev, lm_cfg, peaks, smi)
@@ -7386,4 +8042,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        # a phase that failed while libraries were still compiling leaves
+        # no nvcc running
+        if "repro_torch.kernels.build" in sys.modules:
+            sys.modules["repro_torch.kernels.build"].cancel()
+    sys.exit(code)

@@ -226,6 +226,18 @@ def layout_family(w_bits: int, a_bits: int,
     return tuple(out)
 
 
+def overflow_free_region(lane_dtype=torch.int16, n_pack: int = 2,
+                         max_bits: int = 8) -> dict:
+    """(w_bits, a_bits) -> k_tile table (0 where the layout cannot hold
+    the pair); reproduces the paper's Fig. 5 region shape."""
+    table = {}
+    for w in range(1, max_bits + 1):
+        for a in range(1, max_bits + 1):
+            spec = PackSpec(w, a, lane_dtype, n_pack)
+            table[(w, a)] = spec.k_tile if spec.packed_value_fits else 0
+    return table
+
+
 def pad_to_multiple(x: torch.Tensor, axis: int, multiple: int
                     ) -> torch.Tensor:
     """Zero-pad ``axis`` up to a multiple of ``multiple``."""
@@ -327,11 +339,16 @@ def tile_dots(a3: torch.Tensor, w3: torch.Tensor,
     [t, M, N], wrapping mod 2^32 like XLA's s32 dot.
 
     On the CPU this is an int32 ``bmm`` (which wraps).  CUDA PyTorch has no
-    integer matmul, so there the lanes are widened to int64, multiplied and
-    summed by broadcasting (chunked over tiles to bound memory), and the
-    low 32 bits kept -- int64 wrap preserves the sum mod 2^32."""
+    integer matmul: there int8 / int16 operands take a float64 ``bmm``
+    (:func:`tile_dots_f64`, exact), and wider ones are widened to int64,
+    multiplied and summed by broadcasting (chunked over tiles to bound
+    memory), the low 32 bits kept -- int64 wrap preserves the sum mod
+    2^32."""
     if not a3.is_cuda:
         return torch.bmm(a3.to(torch.int32), w3.to(torch.int32))
+    if a3.element_size() <= 2 and w3.element_size() <= 2 \
+            and a3.shape[-1] < F64_EXACT_TERMS:
+        return tile_dots_f64(a3, w3, budget_bytes)
     t, m, kt = a3.shape
     n = w3.shape[-1]
     out = torch.empty((t, m, n), dtype=torch.int32, device=a3.device)
@@ -341,6 +358,35 @@ def tile_dots(a3: torch.Tensor, w3: torch.Tensor,
         prod = (a3[t0:t1, :, :, None].to(torch.int64)
                 * w3[t0:t1, None, :, :].to(torch.int64)).sum(dim=2)
         out[t0:t1] = wrap_i32(prod)
+    return out
+
+
+#: Terms of a float64 dot of 16-bit integers that stay exact: each product
+#: is at most 2^30 in magnitude, so fewer than 2^23 of them sum below 2^53.
+F64_EXACT_TERMS = 1 << 23
+
+
+def tile_dots_f64(a3: torch.Tensor, w3: torch.Tensor,
+                  budget_bytes: int = 1 << 28) -> torch.Tensor:
+    """:func:`tile_dots` of int8 / int16 operands as a float64 ``bmm``
+    (chunked over tiles so one chunk's products take at most
+    ``budget_bytes``): every product and partial sum is an integer below
+    2^53, so the float sum is the exact integer sum in any order; its low
+    32 bits are kept.  The same result as the int64 broadcast, with kt
+    times fewer bytes moved."""
+    if a3.element_size() > 2 or w3.element_size() > 2 \
+            or a3.shape[-1] >= F64_EXACT_TERMS:
+        raise ValueError("tile_dots_f64 is exact for int8 / int16 operands "
+                         "over fewer than 2^23 terms")
+    t, m, _ = a3.shape
+    n = w3.shape[-1]
+    out = torch.empty((t, m, n), dtype=torch.int32, device=a3.device)
+    step = max(1, budget_bytes // max(1, m * n * 8))
+    for t0 in range(0, t, step):
+        t1 = min(t, t0 + step)
+        prod = torch.bmm(a3[t0:t1].to(torch.float64),
+                         w3[t0:t1].to(torch.float64))
+        out[t0:t1] = wrap_i32(prod.to(torch.int64))
     return out
 
 

@@ -1631,6 +1631,13 @@ Args make_args(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
+// This file is built twice (kernels/build.py, ATTENTION_VARIANTS): with
+// ATTN_PAGED=0 it holds K3's entry point and its 25 kernels, with
+// ATTN_PAGED=1 K4's, so that the two halves compile in parallel.
+#ifndef ATTN_PAGED
+#error "build with -DATTN_PAGED=0 (K3) or -DATTN_PAGED=1 (K4)"
+#endif
+#if ATTN_PAGED == 0
 // kind: 0 f32 cache, 1 bf16 cache, 2 int8 + bf16 scales, 3 int32 words of
 // `bits`-wide fields + bf16 scales.  row_elems is the cache's last dim (hd,
 // or hd words).  ks / vs may be null for kinds 0 and 1.  qtype: 0 f32,
@@ -1650,6 +1657,9 @@ REPRO_EXPORT int attention_decode_launch(
   return launch_layout<false>(a, B, row_elems, kind, threads, smem, device,
                               stream);
 }
+#endif
+
+#if ATTN_PAGED == 1
 
 // K4: as attention_decode_launch, over a pool [P, page_size, KVH, ...] read
 // through the block table bt [B, NP] int32 (logical length NP * page_size).
@@ -1671,3 +1681,4 @@ REPRO_EXPORT int attention_decode_paged_launch(
   return launch_layout<true>(a, B, row_elems, kind, threads, smem, device,
                              stream);
 }
+#endif

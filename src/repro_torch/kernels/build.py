@@ -5,9 +5,12 @@ shared library (``VARIANTS`` compile one source more than once, with
 defines) with a plain C interface, loaded with ``ctypes``.  Builds
 happen on first use (never at import: the CPU-only test hosts have no
 ``nvcc``), go to ``build/repro_torch/<hash>/`` at the repository root --
-keyed by a hash of the sources and flags -- and all missing libraries are
-compiled in parallel, one ``nvcc`` per source.  A missing ``nvcc`` or a
-failed compile raises; there is no fallback.
+keyed by a hash of the sources and flags -- one ``nvcc`` process per
+library, all started together.  :func:`start` starts them without waiting
+(a caller can build the libraries it needs first and let the others
+compile behind its work); :func:`build` waits for them; a library's first
+use builds and loads that library alone.  A missing ``nvcc`` or a failed
+compile raises; there is no fallback.
 
 Kernel wrappers bind their entry points with :func:`bind`, which sets
 ``argtypes`` (``c_void_p`` for pointers and the stream, ``c_int`` for ints:
@@ -21,8 +24,10 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -41,7 +46,16 @@ LAYOUT_VARIANTS = {
     for lane, lb, n, s in (("int8", 1, 2, 4), ("int16", 2, 4, 4),
                            ("int32", 4, 2, 8), ("int32", 4, 4, 8),
                            ("int32", 4, 2, 16))}
-SOURCES = ("quant_pack", "ulppack_matmul", "attention_decode",
+#: ... and K3 and K4 (``csrc/attention_decode.cu``), one library per entry
+#: point, so that the two halves of its 50 kernels compile in parallel.
+ATTENTION_VARIANTS = {"attention_decode": ("attention_decode",
+                                           ("-DATTN_PAGED=0",)),
+                      "attention_decode_paged": ("attention_decode",
+                                                 ("-DATTN_PAGED=1",))}
+#: library -> (source, defines) of every library not built from its own
+#: source alone
+DEFINES = {**VARIANTS, **LAYOUT_VARIANTS, **ATTENTION_VARIANTS}
+SOURCES = ("quant_pack", "ulppack_matmul", *ATTENTION_VARIANTS,
            "ulppack_conv2d", "int_conv2d", "int_matmul",
            "ulppack_matmul_mma", "ulppack_conv2d_mma", "int_conv2d_mma",
            "cache_write", *VARIANTS, *LAYOUT_VARIANTS)
@@ -50,6 +64,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: nvcc processes started and not yet waited for: name -> (the .so they
+#: write, the process)
+_running: dict[str, tuple[Path, subprocess.Popen]] = {}
+_running_lock = threading.RLock()
+_started: dict[str, float] = {}
+#: Seconds from each library's nvcc start to its output's last write, for
+#: the libraries this process built.
+seconds: dict[str, float] = {}
 
 
 def build_root() -> Path:
@@ -71,6 +93,7 @@ def nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(DEFINES.items())).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -81,41 +104,85 @@ def lib_dir() -> Path:
     return build_root() / _source_hash()
 
 
+def start(names=SOURCES, *, nice: int = 0) -> list[str]:
+    """Start one ``nvcc`` for every library of ``names`` neither built nor
+    being built, without waiting; ``nice`` lowers their CPU priority (so
+    that they compile on the cores the caller's own work leaves idle).
+    Returns the names started.  :func:`build` waits for them."""
+    out_dir = lib_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    started = []
+    with _running_lock:
+        for n in names:
+            if n in _running or (out_dir / f"lib{n}.so").exists():
+                continue
+            tmp = out_dir / f"lib{n}.{os.getpid()}.tmp.so"
+            src, defines = DEFINES.get(n, (n, ()))
+            cmd = [nvcc(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o",
+                   str(tmp), str(CSRC / f"{src}.cu")]
+            with open(out_dir / f"{n}.log", "w") as log:
+                proc = subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT,
+                    start_new_session=True,    # cancel() stops the group
+                    preexec_fn=(lambda: os.nice(nice)) if nice else None)
+            _running[n] = (tmp, proc)
+            _started[n] = time.time()
+            started.append(n)
+    return started
+
+
 def build(names=SOURCES) -> dict[str, Path]:
-    """Compile every library of ``names`` not yet built, all in parallel.
+    """Compile every library of ``names`` not yet built -- those not yet
+    started all in parallel -- and wait for them.
 
     Returns {name: path of the .so}.  ``nvcc``'s ``-Xptxas -v`` report
     (registers, shared memory, spills per kernel) is kept beside each
     library as ``<name>.log``."""
     out_dir = lib_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
     paths = {n: out_dir / f"lib{n}.so" for n in names}
-    todo = [n for n in names if not paths[n].exists()]
-    if not todo:
-        return paths
-    exe = nvcc()
-    procs = {}
-    for n in todo:
-        tmp = out_dir / f"lib{n}.{os.getpid()}.tmp.so"
-        src, defines = {**VARIANTS, **LAYOUT_VARIANTS}.get(n, (n, ()))
-        cmd = [exe, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{src}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
+    start(names)
     failed = []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        (out_dir / f"{n}.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n"
-                          f"{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, paths[n])   # atomic: concurrent builds agree
+    with _running_lock:
+        for n in names:
+            if n not in _running:
+                continue
+            tmp, proc = _running.pop(n)
+            proc.wait()
+            if proc.returncode != 0:
+                log = (out_dir / f"{n}.log").read_text()
+                failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) "
+                              f"---\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                seconds[n] = tmp.stat().st_mtime - _started[n]
+                os.replace(tmp, paths[n])   # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def building() -> list[str]:
+    """The libraries whose ``nvcc`` is still running."""
+    with _running_lock:
+        return [n for n, (_, proc) in _running.items()
+                if proc.poll() is None]
+
+
+def cancel() -> list[str]:
+    """Stop every ``nvcc`` started and not waited for (with the compiler
+    processes it started), writing no library; returns their names."""
+    with _running_lock:
+        names = list(_running)
+        for n in names:
+            tmp, proc = _running.pop(n)
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            proc.wait()
+            tmp.unlink(missing_ok=True)
+    return names
 
 
 def layout_library(spec) -> str:
@@ -131,16 +198,12 @@ def layout_library(spec) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (building all missing
-    libraries on first use)."""
+    """The loaded library ``name`` (built on first use, or waited for
+    when it is being built)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            paths = build()
-            for n, p in paths.items():
-                if n not in _libs:
-                    _libs[n] = ctypes.CDLL(str(p))
-            lib = _libs[name]
+            lib = _libs[name] = ctypes.CDLL(str(build((name,))[name]))
     return lib
 
 

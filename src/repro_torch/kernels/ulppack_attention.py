@@ -349,7 +349,8 @@ def attention_decode_paged_cuda(q, cache, valid_len, qpos, block_tables, *,
         fn = _launch.get("attention_decode_paged")
         if fn is None:
             fn = _launch["attention_decode_paged"] = build.bind(
-                "attention_decode", "attention_decode_paged_launch", 9, 18)
+                "attention_decode_paged", "attention_decode_paged_launch",
+                9, 18)
         fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
            valid_len.contiguous().data_ptr(), qpos.contiguous().data_ptr(),
            bt.data_ptr(), out.data_ptr(), b, c, h, kvh, n_pages, ps,

@@ -36,7 +36,8 @@ bit-equal (a zero lane contributes zero).
 :func:`ulppack_conv2d_torch` and :func:`int_conv2d_torch` are the plain
 PyTorch versions (the CPU path and the on-card comparison).  CUDA PyTorch
 has no integer matmul or conv, so they contract shifted windows with
-``packing.tile_dots`` (int64 products on CUDA, low 32 bits kept), a
+``packing.tile_dots`` (on CUDA exact float64 or int64 products, low 32
+bits kept), a
 chunk of output rows at a time.  ``kernel_launches`` counts each CUDA
 kernel's launches (the tensor-core K5 / K6 as ``ulppack_conv2d_mma`` /
 ``int_conv2d_mma``, the CUDA-core ones as ``ulppack_conv2d`` /

@@ -124,3 +124,49 @@ def test_quantize_affine_bit_equal_with_ties():
     got = tquant.quantize_affine(torch.tensor([0.5, 1.5, 2.5]),
                                  torch.tensor(1.0), 0, 4)
     assert got.tolist() == [0, 2, 2]
+
+
+def test_overflow_free_region_matches_reference():
+    """The k_tile table of every lane dtype and field count equals the
+    reference's (paper Fig. 5's region)."""
+    for lane in ("int8", "int16", "int32"):
+        for n_pack in (2, 4):
+            want = jpack.overflow_free_region(jnp.dtype(lane), n_pack, 8)
+            got = tpack.overflow_free_region(tpack.lane_dtype_of(lane),
+                                             n_pack, 8)
+            assert got == want, (lane, n_pack)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+@pytest.mark.parametrize("fill", ["random", "min", "max", "mixed"])
+def test_tile_dots_f64_exact(dtype, fill):
+    """The card's contraction of 8- and 16-bit lanes (a float64 bmm) is the
+    int32 bmm's wrapped result bit for bit, at random lanes and at the
+    lane extremes where the sums pass 2^31, in small chunks of tiles."""
+    info = torch.iinfo(dtype)
+    g = torch.Generator().manual_seed(3)
+    t, m, kt, n = 5, 3, 127, 7
+    a = torch.randint(info.min, info.max + 1, (t, m, kt), generator=g,
+                      dtype=torch.int64).to(dtype)
+    w = torch.randint(info.min, info.max + 1, (t, kt, n), generator=g,
+                      dtype=torch.int64).to(dtype)
+    if fill == "min":
+        a.fill_(info.min), w.fill_(info.min)
+    elif fill == "max":
+        a.fill_(info.max), w.fill_(info.max)
+    elif fill == "mixed":
+        a.fill_(info.min), w.fill_(info.max)
+    want = torch.bmm(a.to(torch.int32), w.to(torch.int32))
+    for budget in (1 << 28, m * n * 8):
+        got = tpack.tile_dots_f64(a, w, budget)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    # the wide route (int64 products), run here on the CPU, agrees
+    wide = tpack.wrap_i32((a.to(torch.int64)[..., None]
+                           * w.to(torch.int64)[:, None]).sum(dim=2))
+    assert torch.equal(wide, want)
+
+
+def test_tile_dots_f64_refuses_what_it_cannot_hold():
+    a = torch.zeros((1, 2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int8 / int16"):
+        tpack.tile_dots_f64(a, torch.zeros((1, 3, 2), dtype=torch.int32))
