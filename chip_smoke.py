@@ -214,8 +214,10 @@ toolkit:
    max_batch=4, max_len=512)`` (chunk clamped to 1), kv 16 and 4, the
    serve prompts cut to 16 tokens with 8 new tokens each, graphed,
    against an engine on
-   ``backend='torch'`` (tokens equal, gated; every packed linear one fused
-   K2 launch, gated; no K3 launch, gated): decode ms wall and replayed,
+   ``backend='torch'``, every engine over one tree prepared once, where
+   the experts' LSQ lattices are derived (tokens equal, gated; every
+   packed linear one fused K2 launch, gated; no K3 launch, gated): decode
+   ms wall and replayed,
    idle share, the graph's device ms by kernel group and an eager pass's
    by the port's ranges (fake quant, expert GEMMs, dispatch, combine,
    legacy attention), peak memory, param bytes.  The ``moe ring`` line:
@@ -224,6 +226,15 @@ toolkit:
    past the wrap against ``backend='torch'`` (greedy tokens equal, gated;
    the logit difference).  The ``moe reduced`` line: reduced mixtral-8x22b
    through the graphed engine and on ``'torch'``, tokens equal (gated).
+   The ``moe 8x22b`` lines: the fused K2 at mixtral-8x22b's linears
+   (6144 -> 6144 and 6144 -> 1024 at 4 and 64 rows, bit-equal, gated, and
+   timed), then mixtral-8x22b at full width (d_model 6144, 48 heads on 8
+   kv heads of 128, d_ff 16384, 8 experts top-2, vocab 32768, window 4096)
+   cut to 14 of its 56 layers (memory: 69.7 GB), built a layer at a time,
+   kv 4, as the moe serve lines serve (tokens equal to ``'torch'``, gated;
+   4 fused K2 launches a layer a pass and no K3, gated; both graphs,
+   gated): device ms by kernel group and range, wall and replay ms, idle
+   share, the build's peak and seconds, param and expert bytes.
 
 11. The recurrent families.  The ``recurrent k2`` lines: the serving
    path's fused K2 (K1 folded in) at the packed-linear shapes of mamba
@@ -236,7 +247,9 @@ toolkit:
    jamba-1.5-large-398b at full width (d_model 8192, d_inner 16384, 64
    heads on 8 kv heads of 128, d_ff 24576, 16 experts top-2, vocab 65536)
    cut to its first 5 of 72 layers at kv 4, W2A2 int16xP2s8, seed-0
-   weights, ``EngineConfig(max_batch=4, max_len=512, prefill_chunk=16)``,
+   weights built a layer at a time (``build_packed_params``: jamba's float
+   tree and its experts' lattices do not fit the card together),
+   ``EngineConfig(max_batch=4, max_len=512, prefill_chunk=16)``,
    the serve prompts and two more (six requests through four slots, so two
    slots are reset and reused), 4 new tokens each,
    graphed, against an engine on ``backend='torch'``: tokens equal (gated),
@@ -245,7 +258,7 @@ toolkit:
    (gated); decode ms wall and replayed, idle share, the graph's device ms
    by kernel group, an eager pass's by the port's ranges (fake quant, the
    mamba scan, mLSTM, sLSTM, the MoE's), param bytes, cache bytes a slot,
-   the init's peak and the serving peak above the params.  The
+   the build's peak and the serving peak above the params.  The
    ``recurrent reduced`` lines: reduced jamba contiguous and paged and
    reduced xlstm, graphed against ``'torch'``, tokens equal (gated).
 
@@ -318,7 +331,9 @@ the graphed W4A4 decode pass of the package under ``SRC`` (``w4a4 pass``
 line), so that two trees -- this one and another unpacked beside it --
 are compared in one call; ``--conv SRC`` likewise runs only K5 and K6 at
 ``CONV_COMPARE_CASES`` through that tree's planner (``conv-compare row``
-lines) and its CNN phase.
+lines) and its CNN phase, and ``--moe-pass SRC`` only the graphed
+decode passes of mixtral-8x7b (4 of 32 layers) and jamba (5 of 72), kv
+4, with that tree's serving prep (``moe pass`` lines).
 
 14. The ``serve w4a4`` lines (after the ``spec`` lines): first
    ``kernel-vs-plain w4a4`` (as the serve phase's, on W4A4 params) and
@@ -427,7 +442,7 @@ START = time.perf_counter()
 ONLY_FLAGS = ("--moe", "--recurrent", "--multimodal", "--fleet",
               "--parallel", "--w4a4", "--archs")
 MODE_FLAGS = ("--k2-sweep", "--w4a4-pass", "--conv", "--attn-tile",
-              *ONLY_FLAGS)
+              "--moe-pass", *ONLY_FLAGS)
 #: The libraries the whole run's first lines launch (the serve, graphs,
 #: paged and legacy lines: the fused K2 on int16xP2s8 lanes, K3, K4, the
 #: window write), built before them; the others compile behind those
@@ -443,8 +458,7 @@ CUTS = {
     "graphs": "greedy tokens a request 32 -> 16 (GRAPH_NEW), alternated "
               "rounds 3 -> 2 (GRAPH_ROUNDS)",
     "serve w4a4": "greedy tokens a request 16 -> 8 (W4A4_NEW)",
-    "moe serve": "prompt tokens 32 -> 16 (MOE_PROMPT), the decode replay "
-                 "timing 5 x 8 -> 3 x 2 replays (MOE_REPLAYS)",
+    "moe serve": "prompt tokens 32 -> 16 (MOE_PROMPT)",
     "archs serve": "greedy tokens a request 8 -> 4 (ARCHS_NEW)",
     "dense, spec": "greedy tokens a request 32 -> 16 (SPEC_NEW)",
     "recurrent serve xlstm-1.3b": "greedy tokens a request 8 -> 4 "
@@ -4811,9 +4825,8 @@ MOE_LAYERS, MOE_NEW = 4, 8
 #: limit.
 MOE_PROMPT = 16
 #: The moe serve lines' decode replay time: the median of MOE_REPLAYS[0]
-#: timings of MOE_REPLAYS[1] replays each (a pass is ~130 ms of the
-#: experts' fake quant, so fewer replays than ``replay_ms``' 8)
-MOE_REPLAYS = (3, 2)
+#: timings of MOE_REPLAYS[1] replays each
+MOE_REPLAYS = (5, 8)
 MOE_RING_PROMPT, MOE_RING_STEPS = 4160, 8
 # profiler ranges of the port (core/quant.py, models/moe.py,
 # models/attention.py), read in an eager decode pass
@@ -4822,14 +4835,15 @@ MOE_RANGES = ("fake_quant", "expert_gemm", "moe_dispatch", "moe_combine",
 LEGACY_NEW = 8
 
 
-def moe_config(kv_bits, *, reduced=False, name="mixtral-8x7b"):
-    """mixtral at full width cut to MOE_LAYERS of its layers (the reduced
+def moe_config(kv_bits, *, reduced=False, name="mixtral-8x7b",
+               layers=MOE_LAYERS):
+    """mixtral at full width cut to ``layers`` of its layers (the reduced
     config as it is), W2A2 on the int16xP2s8 lanes, at ``kv_bits``."""
     from repro_torch import configs
 
     cfg = configs.get_config(name, reduced=reduced)
     if not reduced:
-        cfg = cfg.replace(num_layers=MOE_LAYERS)
+        cfg = cfg.replace(num_layers=layers)
     return cfg.replace(quant=cfg.quant.replace(kv_bits=kv_bits))
 
 
@@ -4927,15 +4941,19 @@ def moe_serve_phase(torch, np, dev, smi):
     engine with
     ``backend='torch'``: tokens equal (gated), the largest logit
     difference over every decode pass, every packed linear one fused K2
-    launch (``check_k2_path``).  Records decode ms a pass (wall, and the
-    graph's replay on the device), the idle share, the graph's device ms
-    by kernel group and an eager pass's ms by the port's ranges, peak
-    memory and param bytes.  Returns the fused K2 and cache-write
-    launches of the graphed runs."""
+    launch (``check_k2_path``).  Every engine serves one tree prepared
+    once (``prepare_serving_params``: the experts' lattices derived
+    there).  Records decode ms a pass (wall, and the graph's replay on the
+    device), the idle share, the graph's device ms by kernel group and an
+    eager pass's ms by the port's ranges, peak memory and param bytes.
+    Returns the float params (the ring's fake-quant prefill reads them),
+    the prepared tree and the fused K2 and cache-write launches of the
+    graphed runs."""
     from repro_torch.kernels import cache_write, quant_pack, \
         ulppack_attention, ulppack_matmul
     from repro_torch.models import lm
     from repro_torch.serve.engine import EngineConfig, ServingEngine
+    from repro_torch.serve.prepare import prepare_serving_params
 
     base = moe_config(16)
     t0 = time.perf_counter()
@@ -4943,6 +4961,10 @@ def moe_serve_phase(torch, np, dev, smi):
         SEED), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = prepare_serving_params(params, base, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
     # the ring clamps the prefill chunk to 1, so every prompt token is a
     # pass: the serve prompts cut to MOE_PROMPT tokens
     prompts = [p[:MOE_PROMPT] for p in serve_prompts(np, base)[0]]
@@ -4957,7 +4979,8 @@ def moe_serve_phase(torch, np, dev, smi):
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        eng = ServingEngine(c, params, config=ecfg, device=dev)
+        eng = ServingEngine(c, packed, config=ecfg, device=dev)
+        check_prepared_experts(eng, packed, f"moe serve kv{kv_bits}")
         t0 = time.perf_counter()
         outs, rows, passes = recorded_serve(np, eng, prompts, MOE_NEW)
         torch.cuda.synchronize()
@@ -4991,10 +5014,11 @@ def moe_serve_phase(torch, np, dev, smi):
                 "step_setup_s": cap["step_setup_s"],
                 "param_bytes": cap["param_bytes"],
                 "cache_bytes": cap["cache_bytes"],
-                "peak_memory_bytes": peak, "init_params_s": init_s}
+                "peak_memory_bytes": peak, "init_params_s": init_s,
+                "prepare_s": prep_s}
         del eng
         torch.cuda.empty_cache()
-        ref = ServingEngine(c, params, config=ecfg, device=dev,
+        ref = ServingEngine(c, packed, config=ecfg, device=dev,
                             backend="torch")
         ref_outs, ref_rows, ref_passes = recorded_serve(np, ref, prompts,
                                                         MOE_NEW)
@@ -5009,10 +5033,25 @@ def moe_serve_phase(torch, np, dev, smi):
                                                           ref_passes))
         print("moe serve " + json.dumps(line))
     print(smi)
-    return params, launches
+    return params, packed, launches
 
 
-def moe_ring_phase(torch, np, dev, params, smi):
+def check_prepared_experts(eng, packed, where):
+    """The engine serves ``packed`` as it is: its experts are the tree's
+    lattices (no ``w_step``, so no forward fake-quantizes them) and no
+    leaf was copied."""
+    for mine, theirs in zip(eng.params["layers"], packed["layers"]):
+        if "moe" not in mine:
+            continue
+        for name in ("up", "gate", "down"):
+            node = mine["moe"][name]
+            if "w_step" in node or node["kernel"] is not \
+                    theirs["moe"][name]["kernel"]:
+                raise AssertionError(f"{where}: the engine's {name} experts "
+                                     f"are not the prepared lattices")
+
+
+def moe_ring_phase(torch, np, dev, params, packed, smi):
     """The ``moe ring`` line: the moe serve config at B1 and kv 4: the
     fake-quant prefill (``steps.make_prefill_step``) of a 4,160-token
     prompt into a 4,096-slot ring (the last 4,096 tokens, token j at slot j
@@ -5020,11 +5059,12 @@ def moe_ring_phase(torch, np, dev, params, smi):
     past the wrap and the same steps with ``backend='torch'`` on a copy of
     the ring, each fed the kernel path's greedy token: every step's argmax
     equal (gated) and finite, the largest logit difference, decode replay
-    ms.  Returns the fused K2 launches of the graphed steps."""
+    ms.  The prefill reads the float ``params``, the decode steps the
+    prepared tree ``packed``.  Returns the fused K2 launches of the
+    graphed steps."""
     from repro_torch import tree
     from repro_torch.kernels import ulppack_matmul
     from repro_torch.launch import steps
-    from repro_torch.serve.prepare import prepare_serving_params
 
     c = moe_config(4)
     prompt = np.random.default_rng(SEED + 11).integers(
@@ -5040,7 +5080,6 @@ def moe_ring_phase(torch, np, dev, params, smi):
     prefill_peak = torch.cuda.max_memory_allocated()
     ring = caches[0]["attn"]["k"].shape[1]
     plain_caches = tree.tree_map(lambda t: t.clone(), caches)
-    packed = prepare_serving_params(params, c, device=dev)
     dec, _ = steps.graphed_serving_steps(c, packed, caches, batch=1,
                                          prefill_chunk=1)
     plain = steps.make_decode_step(c, backend="torch")
@@ -5075,7 +5114,7 @@ def moe_ring_phase(torch, np, dev, params, smi):
     print("moe ring " + json.dumps(line))
     print(smi)
     k2 = ulppack_matmul.mma_launches["quant_affine"] - mma0
-    del dec, caches, plain_caches, packed
+    del dec, caches, plain_caches
     torch.cuda.empty_cache()
     return k2
 
@@ -5244,6 +5283,248 @@ def legacy_phase(torch, np, dev, cfg, params, smi):
 
 
 # ---------------------------------------------------------------------------
+# mixtral-8x22b at full width: the moe 8x22b lines
+# ---------------------------------------------------------------------------
+
+MOE_WIDE = "mixtral-8x22b"
+#: mixtral-8x22b's depth on the card, a cut of memory alone: a layer holds
+#: 4.83 GB of bf16 expert lattices and 0.088 GB of lanes, the embedding and
+#: the untied head 0.81 GB, so 14 of its 56 layers are 69.7 GB.  The
+#: layer-at-a-time build peaks ~6.2 GB above the finished tree (the last
+#: block's float experts beside their lattices): 75.9 GB at 14 layers on
+#: an H100 80GB HBM3, so ~80.8 at 15, within ~4 GB of what the card holds
+#: (``card_memory_bytes`` on the line) before the memory the whole run
+#: holds ahead of these lines
+MOE_WIDE_LAYERS = 14
+MOE_WIDE_CUT = (f"{MOE_WIDE_LAYERS} of 56 layers (memory): 4.92 GB a "
+                f"layer; the build peaks ~6.2 GB above the tree, 75.9 GB "
+                f"at 14 layers, ~80.8 at 15")
+#: its packed linears (the attention projections; the experts are library
+#: GEMMs over bf16 lattices), at the decode rows and a 64-row chunk's:
+#: (layer, k, n)
+MOE_WIDE_K2_SHAPES = (("q/o", 6144, 6144), ("k/v", 6144, 1024))
+MOE_WIDE_K2_ROWS = (4, 64)
+
+
+def moe_wide_k2_rows(torch, peaks, dev, gen):
+    """``fused_quant_row`` at mixtral-8x22b's packed-linear shapes
+    (``MOE_WIDE_K2_SHAPES``) at 4 and 64 rows: bit-equal to cast + K1 +
+    K2-affine and to the plain version (gated), timed against its bound.
+    Prints a ``moe 8x22b k2`` line a row."""
+    from repro_torch.core import packing
+    from repro_torch.core.packing import PackSpec
+
+    sp = PackSpec.parse("W2A2/int16xP2s8")
+    rows = []
+    for layer, k, n in MOE_WIDE_K2_SHAPES:
+        qw = torch.randint(0, sp.max_w + 1, (k, n), generator=gen,
+                           device=dev, dtype=torch.int32)
+        w = packing.pack_weights(qw, sp)
+        ws = [w] + [w.clone() for _ in range(copies_for(w.numel() *
+                                                        sp.lane_bytes) - 1)]
+        for m in MOE_WIDE_K2_ROWS:
+            r = fused_quant_row(torch, peaks, dev, gen, sp, m, k, n, qw, ws,
+                                None)
+            r.update(config=MOE_WIDE, layer=layer)
+            print("moe 8x22b k2 " + json.dumps(r))
+            rows.append(r)
+        del qw, w, ws
+    torch.cuda.empty_cache()
+    return rows
+
+
+def expert_bytes(packed) -> int:
+    """Bytes of a serving tree's 3-D expert kernels."""
+    return sum(layer["moe"][n]["kernel"].numel()
+               * layer["moe"][n]["kernel"].element_size()
+               for layer in packed["layers"] if "moe" in layer
+               for n in ("up", "gate", "down"))
+
+
+def moe_wide_phase(torch, np, dev, peaks, smi):
+    """The ``moe 8x22b`` lines: the K2 rows at its shapes, then
+    mixtral-8x22b at full width (d_model 6,144, 48 heads on 8 kv heads of
+    128, d_ff 16,384, 8 experts top-2, window 4,096, vocab 32,768) cut to
+    MOE_WIDE_LAYERS of its 56 layers, W2A2 on the int16xP2s8 lanes, kv 4,
+    seed-0 weights built a layer at a time (``build_packed_params``: the
+    experts' lattices derived there), one tree for both engines.
+    ``EngineConfig(max_batch=4, max_len=512)`` (the ring clamps the
+    prefill chunk to 1), the serve prompts cut to MOE_PROMPT tokens,
+    MOE_NEW greedy tokens each on the graphed engine, then on one with
+    ``backend='torch'``.  Gated: tokens equal (strict); every packed
+    linear one fused K2 launch (``check_k2_path``), 4 a layer a decode
+    pass; no K3 launch (a windowed read is the legacy read); every window
+    write one launch of the write kernel; both graphs captured; the
+    engine serving the tree's lattices.  Records the graph's device ms by
+    kernel group, an eager pass's by range, wall and replay ms, the idle
+    share, param, expert and lane bytes, the build's peak and seconds,
+    the serving peak, the largest logit difference from ``'torch'``.
+    Returns the graphed run's K2 and window-write launches."""
+    from repro_torch.kernels import cache_write, ulppack_attention as att
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    moe_wide_k2_rows(torch, peaks, dev, torch.Generator(
+        device=dev).manual_seed(SEED + 36))
+    mark("moe 8x22b k2")
+    label = "moe 8x22b"
+    c = moe_config(4, name=MOE_WIDE, layers=MOE_WIDE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed = build_packed_params(c, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_peak = torch.cuda.max_memory_allocated() - held
+    mark("moe 8x22b build")
+    prompts = [p[:MOE_PROMPT] for p in serve_prompts(np, c)[0]]
+    ecfg = EngineConfig(max_batch=4, max_len=512)
+    reset_kernel_counts()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(c, packed, config=ecfg, device=dev)
+    engine_s = time.perf_counter() - t0
+    check_prepared_experts(eng, packed, label)
+    t0 = time.perf_counter()
+    outs, rows, passes = recorded_serve(np, eng, prompts, MOE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    if eng._decode.graph is None or eng._prefill.graph is None:
+        raise AssertionError(f"{label}: the engine captured no graphs")
+    k2 = check_k2_path(label)
+    per_pass = decode_graph_launches(eng._decode)
+    writes = (cache_write.kernel_launches["cache_write"],
+              cache_write.plain_calls["cache_write"])
+    if att.kernel_launches["attention_decode"] or per_pass["k3"]:
+        raise AssertionError(f"{label}: a windowed read reached K3")
+    if per_pass["k2"] != 4 * c.num_layers or not writes[0] or writes[1]:
+        raise AssertionError(f"{label}: {per_pass} launches a decode pass, "
+                             f"window writes (launches, plain) {writes}")
+    m, cap = eng.metrics.report(), eng.capacity_report()
+    replay = statistics.median(replay_ms(torch, eng._decode, MOE_REPLAYS[1])
+                               for _ in range(MOE_REPLAYS[0]))
+    groups = profile_replay(torch, eng._decode)
+    ranges = eager_ranges(torch, np, c, eng.params, eng.caches,
+                          eng.max_batch, eng.slot_pos.copy())
+    line = {"card": smi, "config": MOE_WIDE, "kv_bits": 4,
+            "layers": f"{c.num_layers} of 56", "cut": MOE_WIDE_CUT,
+            "d_model": c.d_model,
+            "heads": f"{c.num_heads} / {c.num_kv_heads} x "
+                     f"{c.resolved_head_dim}",
+            "d_ff": c.d_ff, "experts": f"{c.num_experts} top-"
+                                       f"{c.num_experts_per_tok}",
+            "window": c.sliding_window, "vocab": c.vocab_size,
+            "ring_slots": eng.caches[0]["attn"]["k"].shape[1],
+            "slots": eng.max_batch, "prefill_chunk": eng.prefill_chunk,
+            "requests": len(outs), "prompt_tokens": MOE_PROMPT,
+            "new_tokens": MOE_NEW, "build": "a layer at a time",
+            "build_s": build_s, "build_peak_above_held_bytes": build_peak,
+            "held_before_build_bytes": held,
+            "card_memory_bytes": torch.cuda.get_device_properties(
+                dev).total_memory,
+            "engine_build_s": engine_s,
+            "capture_s": {"decode": eng._decode.capture_s,
+                          "prefill": eng._prefill.capture_s},
+            "wall_s": wall, "steps": m["steps"],
+            "decode_passes": eng.metrics.decode_passes,
+            "decode_step_ms_wall": m["decode_step_ms"],
+            "decode_replay_ms": replay,
+            "idle_share": 1 - replay / m["decode_step_ms"],
+            "decode_tok_s": m["decode_tok_s"],
+            "graph_device_ms_by_group": groups, **ranges,
+            "launches_a_decode_pass": per_pass, "fused_k2_launches": k2,
+            "cache_write_launches": writes[0],
+            "replay_timings": list(MOE_REPLAYS),
+            "param_bytes": cap["param_bytes"],
+            "expert_bytes": expert_bytes(packed), **packed_bytes_split(packed),
+            "cache_bytes": cap["cache_bytes"],
+            "held_before_engine_bytes": before,
+            "serving_peak_above_params_bytes": peak}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = ServingEngine(c, packed, config=ecfg, device=dev, backend="torch")
+    ref_outs, ref_rows, ref_passes = recorded_serve(np, ref, prompts,
+                                                    MOE_NEW)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    token_divergences(np, label, ref_outs, ref_rows, outs, rows, strict=True)
+    line.update(tokens_equal=True, torch_backend_s=time.perf_counter() - t0,
+                max_logit_diff_vs_torch=max_pass_diff(passes, ref_passes))
+    print("moe 8x22b " + json.dumps(line))
+    print(smi)
+    del packed
+    held_check(torch, held, label)
+    return {"quantized_linear_mma": k2, "cache_write": writes[0]}
+
+
+def moe_pass(torch, np, src):
+    """``python3 chip_smoke.py --moe-pass SRC``: the graphed decode pass
+    of mixtral-8x7b (MOE_LAYERS of 32 layers) and of jamba-1.5-large-398b
+    (JAMBA_LAYERS of 72), kv 4, seed-0 weights built a layer at a time
+    (``build_packed_params``: the tree the package's serving prep makes),
+    with the package under ``SRC`` -- this checkout's ``src``, or another
+    tree's unpacked beside it (``git archive`` into ``build/parent``): run
+    both in one call, parent / this / this / parent, to compare the two
+    trees' MoE passes on one card.  The serve prompts (mixtral's cut to
+    MOE_PROMPT tokens) admitted and prefilled, two decode steps, then
+    MOE_REPLAYS[0] timings of MOE_REPLAYS[1] replays of the decode graph
+    and one profiled pair (device ms by kernel group).  Prints a ``moe
+    pass`` line a config."""
+    from repro_torch.serve.engine import EngineConfig, Request, \
+        ServingEngine
+
+    dev = torch.device("cuda")
+    for c, ecfg, cut in ((moe_config(4), dict(max_batch=4, max_len=512),
+                          MOE_PROMPT),
+                         (recurrent_config(JAMBA, kv_bits=4), REC_ECFG,
+                          None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = build_packed_params(c, torch.Generator(
+            device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        eng = ServingEngine(c, packed, config=EngineConfig(**ecfg),
+                            device=dev)
+        for i, p in enumerate(serve_prompts(np, c)[0]):
+            eng.submit(Request(i, p[:cut], max_new_tokens=16))
+        while any(eng.slot_req[s] is not None
+                  and eng.slot_fed[s] < len(eng.slot_req[s].prompt)
+                  for s in range(eng.max_batch)):
+            eng.step()
+        for _ in range(2):
+            eng.step()
+        replays = [replay_ms(torch, eng._decode, MOE_REPLAYS[1])
+                   for _ in range(MOE_REPLAYS[0])]
+        moe = next(layer["moe"] for layer in eng.params["layers"]
+                   if "moe" in layer)
+        print("moe pass " + json.dumps({
+            "src": str(src), "config": c.name, "layers": c.num_layers,
+            "card": torch.cuda.get_device_name(0),
+            "experts": "float, fake-quantized every pass"
+                       if "w_step" in moe["up"] else "prepared lattices",
+            "build_s": build_s,
+            "param_bytes": eng.capacity_report()["param_bytes"],
+            "decode_replay_ms": replays,
+            "decode_replay_ms_median": statistics.median(replays),
+            "graph_device_ms_by_group": profile_replay(torch, eng._decode)}),
+            flush=True)
+        del eng, packed, moe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # recurrent lines: xlstm-1.3b and jamba-1.5-large-398b
 # ---------------------------------------------------------------------------
 
@@ -5321,7 +5602,10 @@ def recurrent_k2_rows(torch, peaks, dev, gen):
 def recurrent_serve_phase(torch, np, dev, smi, name):
     """The ``recurrent serve`` line of ``name``: seed-0 weights at full
     width (xlstm-1.3b whole; jamba-1.5-large-398b cut to JAMBA_LAYERS of
-    its 72 layers, at kv 4), ``EngineConfig(**REC_ECFG)``, the
+    its 72 layers, at kv 4), built a layer at a time into one prepared
+    tree for both engines (``build_packed_params``: jamba's float tree and
+    its experts' lattices do not fit the card together),
+    ``EngineConfig(**REC_ECFG)``, the
     ``recurrent_prompts`` (six requests through four slots),
     ``REC_NEW[name]`` greedy tokens each on the graphed engine, then on an
     engine with ``backend='torch'``: tokens equal (gated); every packed
@@ -5332,13 +5616,12 @@ def recurrent_serve_phase(torch, np, dev, smi, name):
     (wall, and the graph's replay on the device -- replays advance the
     recurrent states, after the run), the idle share, the graph's device
     ms by kernel group, an eager pass's ms by the port's ranges, param
-    bytes, cache bytes a slot, the init's peak (above what the card held
+    bytes, cache bytes a slot, the build's peak (above what the card held
     before) and the serving peak above the params; fails if the phase
     leaves more than 1 GiB allocated.  Returns the fused K2, K3 and
     cache-write launches of the graphed run."""
     from repro_torch.kernels import cache_write, quant_pack, \
         ulppack_attention, ulppack_matmul
-    from repro_torch.models import lm
     from repro_torch.serve.engine import EngineConfig, ServingEngine
 
     jamba = name == JAMBA
@@ -5348,11 +5631,13 @@ def recurrent_serve_phase(torch, np, dev, smi, name):
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
-                            device=dev)
+    params = build_packed_params(c, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated() - held
+    build_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_peak = torch.cuda.max_memory_allocated() - held
     prompts = recurrent_prompts(np, c)
     new = REC_NEW[name]
     ecfg = EngineConfig(**REC_ECFG)
@@ -5361,6 +5646,7 @@ def recurrent_serve_phase(torch, np, dev, smi, name):
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(c, params, config=ecfg, device=dev)
+    check_prepared_experts(eng, params, f"recurrent serve {name}")
     t0 = time.perf_counter()
     outs, rows, passes = recorded_serve(np, eng, prompts, new)
     torch.cuda.synchronize()
@@ -5380,9 +5666,8 @@ def recurrent_serve_phase(torch, np, dev, smi, name):
     launches = {"quantized_linear_mma": k2, "attention_decode": k3,
                 "cache_write": cache_write.kernel_launches["cache_write"]}
     m, cap = eng.metrics.report(), eng.capacity_report()
-    reps, n = (3, 2) if jamba else (5, 8)
-    replay = statistics.median(replay_ms(torch, eng._decode, n)
-                               for _ in range(reps))
+    replay = statistics.median(replay_ms(torch, eng._decode)
+                               for _ in range(5))
     groups = profile_replay(torch, eng._decode)
     ranges = eager_ranges(torch, np, c, eng.params, eng.caches,
                           eng.max_batch, eng.slot_pos.copy(), REC_RANGES)
@@ -5407,8 +5692,9 @@ def recurrent_serve_phase(torch, np, dev, smi, name):
             "param_bytes": cap["param_bytes"],
             "cache_bytes_per_slot": cap["cache_bytes_per_slot"],
             "cache_bytes": cap["cache_bytes"],
-            "init_params_s": init_s, "held_before_bytes": held,
-            "init_peak_above_held_bytes": init_peak,
+            "build": "a layer at a time", "build_s": build_s,
+            "held_before_bytes": held,
+            "build_peak_above_held_bytes": build_peak,
             "peak_memory_above_params_bytes": peak}
     del eng
     gc.collect()
@@ -5498,9 +5784,9 @@ def recurrent_phase(torch, np, dev, peaks, smi):
     return launches
 
 
-def moe_only(torch, np, smi):
+def moe_only(torch, np, peaks, smi):
     """``--moe``: the legacy lines on seed-0 full-width stablelm-1.6b, then
-    the moe serve, moe ring and moe reduced lines."""
+    the moe serve, moe ring, moe reduced and moe 8x22b lines."""
     from repro_torch import configs
     from repro_torch.models import lm
 
@@ -5511,12 +5797,15 @@ def moe_only(torch, np, smi):
     print(f"legacy launches {legacy_phase(torch, np, dev, cfg, params, smi)}")
     del params
     torch.cuda.empty_cache()
-    moe_params, launches = moe_serve_phase(torch, np, dev, smi)
-    launches["quantized_linear_mma"] += moe_ring_phase(torch, np, dev,
-                                                       moe_params, smi)
-    del moe_params
+    moe_params, moe_packed, launches = moe_serve_phase(torch, np, dev, smi)
+    launches["quantized_linear_mma"] += moe_ring_phase(
+        torch, np, dev, moe_params, moe_packed, smi)
+    del moe_params, moe_packed
+    gc.collect()
     torch.cuda.empty_cache()
     moe_reduced_phase(torch, np, dev, smi)
+    for k, n in moe_wide_phase(torch, np, dev, peaks, smi).items():
+        launches[k] += n
     print(f"moe launches {launches}")
     print(smi)
 
@@ -7179,7 +7468,9 @@ def recurrent_block_check(torch, dev, c, eng, label) -> dict:
 def fleet_recurrent_phase(torch, np, dev, smi, name, launches):
     """(g) ``fleet recurrent``: ``name`` at full width (xlstm-1.3b whole;
     jamba-1.5-large-398b cut to its first JAMBA_LAYERS of 72 layers, kv
-    4), seed-0 weights, ``EngineConfig(**REC_ECFG)``, the
+    4), seed-0 weights built a layer at a time into one prepared tree
+    (``build_packed_params``) for both engines, ``EngineConfig(**REC_ECFG)``,
+    the
     ``recurrent_prompts`` (six requests through four slots),
     ``REC_NEW[name]`` greedy tokens each, served graphed by two shards on
     the card and by one.  Gated: jamba's tokens equal to one shard's,
@@ -7202,7 +7493,6 @@ def fleet_recurrent_phase(torch, np, dev, smi, name, launches):
     ``shard_join``) and of the decode graph by kernel group, two shards
     against one."""
     from repro_torch.launch.mesh import ServingMesh
-    from repro_torch.models import lm
     from repro_torch.parallel import sharding
     from repro_torch.serve.engine import EngineConfig, ServingEngine
 
@@ -7212,8 +7502,8 @@ def fleet_recurrent_phase(torch, np, dev, smi, name, launches):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    params = lm.init_params(c, torch.Generator(device=dev).manual_seed(SEED),
-                            device=dev)
+    params = build_packed_params(c, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
     prompts = recurrent_prompts(np, c)
     new = REC_NEW[name]
     ecfg = EngineConfig(**REC_ECFG)
@@ -7221,6 +7511,7 @@ def fleet_recurrent_phase(torch, np, dev, smi, name, launches):
     def run(mesh):
         reset_kernel_counts()
         eng = ServingEngine(c, params, config=ecfg, device=dev, mesh=mesh)
+        check_prepared_experts(eng, params, label)
         outs, rows, passes = recorded_serve(np, eng, prompts, new)
         got = (fleet_kernel_check(label) if jamba else
                {"quantized_linear_mma": check_k2_path(label)})
@@ -7645,7 +7936,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     src = Path(__file__).resolve().parent / "src"
-    for flag in ("--w4a4-pass", "--attn-tile", "--conv"):
+    for flag in ("--w4a4-pass", "--attn-tile", "--conv", "--moe-pass"):
         if flag in sys.argv[1:]:
             src = Path(sys.argv[sys.argv.index(flag) + 1]).resolve()
     if not (src / "repro_torch" / "csrc").is_dir():
@@ -7682,6 +7973,8 @@ def main() -> int:
         build.start(FIRST_LIBRARIES)
         build.start(nice=BUILD_NICE)
         paths = build.build(FIRST_LIBRARIES)
+    elif "--moe-pass" in sys.argv[1:]:
+        paths = build.build(FIRST_LIBRARIES)
     else:
         paths = build.build()
     mark("build")
@@ -7701,6 +7994,10 @@ def main() -> int:
         conv_compare(torch, src)
         print(smi)
         return 0
+    if "--moe-pass" in sys.argv[1:]:
+        moe_pass(torch, np, src)
+        print(smi)
+        return 0
     if "--attn-tile" in sys.argv[1:]:
         if "--sweep" in sys.argv[1:]:
             attn_tile_sweep(torch, torch.device("cuda"))
@@ -7712,7 +8009,7 @@ def main() -> int:
     if "--w4a4" in only:
         w4a4_only(torch, np, peaks, smi)
     if "--moe" in only:
-        moe_only(torch, np, smi)
+        moe_only(torch, np, peaks, smi)
     if "--recurrent" in only:
         recurrent_phase(torch, np, torch.device("cuda"), peaks, smi)
     if "--multimodal" in only:
@@ -7829,17 +8126,23 @@ def main() -> int:
     mark("serve w4a4")
 
     # the sliding-window MoE decoder: mixtral-8x7b at full width cut to 4
-    # layers, served graphed at kv 16 and 4, its ring past the wrap, and
-    # reduced mixtral-8x22b; their packed linears add to K2's launches and
-    # their ring writes to the window write's
-    moe_params, moe_launches = moe_serve_phase(torch, np, dev, smi)
+    # layers, served graphed at kv 16 and 4, its ring past the wrap,
+    # reduced mixtral-8x22b, then mixtral-8x22b at full width cut to 14
+    # layers; their packed linears add to K2's launches and their ring
+    # writes to the window write's
+    moe_params, moe_packed, moe_launches = moe_serve_phase(torch, np, dev,
+                                                           smi)
     mark("moe serve")
     moe_launches["quantized_linear_mma"] += moe_ring_phase(
-        torch, np, dev, moe_params, smi)
+        torch, np, dev, moe_params, moe_packed, smi)
     mark("moe ring")
-    del moe_params
+    del moe_params, moe_packed
+    gc.collect()
     torch.cuda.empty_cache()
     moe_reduced_phase(torch, np, dev, smi)
+    mark("moe reduced")
+    for k, n in moe_wide_phase(torch, np, dev, peaks, smi).items():
+        moe_launches[k] += n
     for k, n in moe_launches.items():
         launches[k] += n
     mark("moe")

@@ -8,15 +8,18 @@
   sizes depend on the data (a host sync), so it stays off the graphed
   path.
 
-Expert FFNs are SwiGLU.  As in the reference, the 3-D expert kernels stay
-float and are LSQ fake-quantized on every forward in both 'qat' and
-'packed' modes (the reference's ``_expert_kernel``: "packed expert einsums
-are future work"); their products are library GEMMs in the compute dtype,
-as the reference computes them in XLA without a Pallas kernel.  Outside
-autograd both paths fake-quantize and multiply one expert at a time: the
-step is a scalar and the lattice elementwise, so every expert's values
-are bit-identical to the whole-tensor pass, and the f32 temporaries are
-one expert's instead of all of them (at jamba's width, 0.8 GB instead of
+Expert FFNs are SwiGLU.  As in the reference, the 3-D expert kernels are
+not packed: their products are library GEMMs over LSQ lattices in the
+compute dtype, as the reference computes them in XLA without a Pallas
+kernel (its ``_expert_kernel``: "packed expert einsums are future work").
+A float tree's experts are fake-quantized on every forward in 'qat' and
+'packed' modes; the serving prep (``serve/prepare.py``) derives the same
+lattices once and drops ``w_step``, so a prepared tree's 'packed'
+forward multiplies them as they are, bit-equal.  Outside autograd both
+paths fake-quantize and multiply one expert at a time: the step is a
+scalar and the lattice elementwise, so every expert's values are
+bit-identical to the whole-tensor pass, and the f32 temporaries are one
+expert's instead of all of them (at jamba's width, 0.8 GB instead of
 12.9 GB).  Under autograd the whole tensor goes through one
 ``lsq_fake_quant``, whose step gradient is scaled by the whole tensor's
 size.
@@ -66,17 +69,27 @@ def moe_init(generator, cfg, *, dtype=torch.float32, device="cpu"):
     return p
 
 
+def expert_lattice(kernel, step, cfg):
+    """``kernel``'s LSQ lattice at ``step`` (fake-quantized in f32) in the
+    compute dtype: the experts' weights in 'qat' and 'packed' modes, and
+    what the serving prep stores in their place."""
+    return quant.lsq_fake_quant(kernel.to(torch.float32), step,
+                                cfg.quant.w_bits, True).to(
+        common.dtype_of(cfg.compute_dtype))
+
+
 def _expert_kernel(p, name, cfg, quant_mode, expert=None):
     """The ``name`` kernel of every expert [E, d_in, d_out] (of one, [d_in,
-    d_out], given ``expert``) in the compute dtype, LSQ fake-quantized in
-    f32 first in 'qat' and 'packed' modes."""
+    d_out], given ``expert``) in the compute dtype, its lattice
+    (``expert_lattice``) in 'qat' and 'packed' modes unless the node
+    carries no ``w_step`` (a prepared tree's kernel is the lattice
+    already)."""
     k = p[name]["kernel"]
     if expert is not None:
         k = k[expert]
     if quant_mode in ("qat", "packed") and cfg.quant.enabled \
             and "w_step" in p[name]:
-        k = quant.lsq_fake_quant(k.to(torch.float32), p[name]["w_step"],
-                                 cfg.quant.w_bits, True)
+        return expert_lattice(k, p[name]["w_step"], cfg)
     return k.to(common.dtype_of(cfg.compute_dtype))
 
 

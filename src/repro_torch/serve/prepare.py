@@ -5,11 +5,16 @@ Every quantizable 2-D Dense ({kernel, w_step, a_step}) becomes its packed
 integer form ({w_packed, col_sums, scales, zero-points, k_full}) through
 ``models.common.pack_dense_params``; with ``dense_store=True`` the weight
 is stored bit-dense instead (``w_dense``: int32 words, w_bits a value).
-Embeddings, the float LM head, the MoE router and the 3-D expert kernels
-(with their LSQ steps: the experts are fake-quantized on every forward,
-as in the reference) stay as they are; ``serving_param_bytes`` counts
-them.  ``build_layer_plans`` fixes each packed layer's KernelPlan once,
-for the decode and the chunked-prefill row counts.
+Each 3-D MoE expert node ({kernel [E, d_in, d_out], w_step, a_step})
+becomes {kernel: its LSQ lattice in the compute dtype, a_step}: the
+values ``models.moe._expert_kernel`` would derive on every 'packed'
+forward (the reference derives them there, ``repro/models/moe.py``),
+derived once here, one expert at a time, and ``w_step`` dropped, so the
+forward skips the weights' fake quant; the activations' (``a_step``)
+stays on every forward.  Embeddings, the float LM head and the MoE
+router stay as they are; ``serving_param_bytes`` counts them.
+``build_layer_plans`` fixes each packed layer's KernelPlan once, for the
+decode and the chunked-prefill row counts.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 
 from repro_torch.core.packing import PackSpec
 from repro_torch.kernels import plan as plan_lib
-from repro_torch.models import common
+from repro_torch.models import common, moe
 from repro_torch.parallel import sharding
 
 
@@ -31,6 +36,27 @@ def _is_packable(node) -> bool:
 def _is_packed(node) -> bool:
     return isinstance(node, dict) and ("w_packed" in node
                                        or "w_dense" in node)
+
+
+def _is_expert(node) -> bool:
+    return (isinstance(node, dict) and "kernel" in node and "w_step" in node
+            and isinstance(node["kernel"], torch.Tensor)
+            and node["kernel"].dim() == 3)
+
+
+def _prepare_experts(node, cfg) -> dict:
+    """A 3-D expert node in its serving form: the kernel's lattice
+    (``moe.expert_lattice``) derived one expert at a time (the f32
+    temporaries are one expert's; the lattice is elementwise at a scalar
+    step, so the values equal the whole tensor's), without ``w_step``."""
+    kernel, step = node["kernel"], node["w_step"]
+    out = torch.empty(kernel.shape, dtype=common.dtype_of(cfg.compute_dtype),
+                      device=kernel.device)
+    with torch.no_grad():
+        for e in range(kernel.shape[0]):
+            out[e] = moe.expert_lattice(kernel[e], step, cfg)
+    return {**{k: v for k, v in node.items() if k != "w_step"},
+            "kernel": out}
 
 
 def _walk(node, fn):
@@ -58,8 +84,11 @@ def prepare_serving_params(params, cfg, *, dense_store: bool = False,
     ``recalibrate=True`` drops each leaf's learned ``w_step`` / ``a_step``
     before packing, so the scales are derived anew (absmax / the qmax
     default) for ``cfg.quant``'s bit widths: the speculative draft's
-    repack of the same checkpoint at a lower precision.  Without
-    quantization the tree is only moved."""
+    repack of the same checkpoint at a lower precision; the experts keep
+    the step they carry.  With quantization each MoE expert node's
+    kernel becomes its lattice (``moe.expert_lattice``); a tree already
+    prepared passes through unchanged.  Without quantization the tree is
+    only moved."""
     dev = plan_lib.resolve_device(device)
     store = "dense" if dense_store else "lanes"
 
@@ -80,6 +109,8 @@ def prepare_serving_params(params, cfg, *, dense_store: bool = False,
                         if k not in ("w_step", "a_step")}
             return common.pack_dense_params(node, cfg.quant,
                                             dense_store=dense_store)
+        if cfg.quant.enabled and _is_expert(node):
+            return _prepare_experts(node, cfg)
         return node
 
     return walk(params)

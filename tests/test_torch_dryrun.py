@@ -11,6 +11,7 @@ packed for decode plus caches plus batch); the report's keys, SKIP
 cells and the CLI."""
 
 import json
+import re
 
 import pytest
 
@@ -69,16 +70,19 @@ def test_input_specs_and_live_cells_equal(arch):
     assert shp.LONG_CONTEXT_ARCHS == jshapes.LONG_CONTEXT_ARCHS
 
 
-def _ref_bytes(tree, shardings):
+def _ref_bytes(tree, shardings, served=False):
     """One device's bytes of the reference's arguments, but its packed
     layers' ``k_full`` (an int32 0-d array a packed Dense there, a Python
-    int in the port, on no device)."""
+    int in the port, on no device) and, in a ``served`` tree, the MoE
+    experts' ``w_step`` (the port's prep derives the experts' lattices
+    and drops the step)."""
     total = 0
     sh = dict(_flat_ref(jax.tree.map(
         lambda s: s, shardings, is_leaf=lambda x: isinstance(x,
                                                              NamedSharding))))
     for path, leaf in _flat_ref(tree):
-        if path.endswith("/k_full"):
+        if path.endswith("/k_full") or (served and re.search(
+                r"/moe/(up|gate|down)/w_step$", path)):
             continue
         n = 1
         for d in sh[path].shard_shape(tuple(leaf.shape)):
@@ -137,7 +141,9 @@ def test_lower_cell_bytes_equal_reference_shardings(arch, shape_name,
     dims, axes = ((2, 16, 16), ("pod", "data", "model")) if multi_pod \
         else ((16, 16), ("data", "model"))
     jmesh = AbstractMesh(dims, axes)
-    want = {part: _ref_bytes(tree, sh) for part, (tree, sh) in
+    served = jshapes.SHAPES[shape_name].kind not in ("train", "prefill")
+    want = {part: _ref_bytes(tree, sh, served and part == "params")
+            for part, (tree, sh) in
             _ref_arguments(arch, shape_name, jmesh).items()}
     rep = dryrun.lower_cell(arch, shape_name, multi_pod)
     mem = rep["memory_analysis"]

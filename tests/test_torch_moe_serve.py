@@ -1,10 +1,13 @@
-"""Serving a sliding-window MoE decoder (reduced ``mixtral-8x7b``, W2A2)
-through the port's engine against the reference engine run op by op:
-greedy tokens equal at kv 16 and 4 with the engine's static steps and
-with the op-by-op steps, the serving prep (3-D experts and the router kept
-float, plans only for the packed 2-D leaves, their bytes counted), the
-ring's slot bytes, the prefill chunk clamped to 1, and the bridge carrying
-the expert leaves.  The card's counterpart (graphed engine = eager) is in
+"""Serving a sliding-window MoE decoder (reduced ``mixtral-8x7b`` and
+``mixtral-8x22b``, W2A2) through the port's engine against the reference
+engine run op by op: greedy tokens equal at kv 16 and 4 with the engine's
+static steps and with the op-by-op steps, the serving prep (3-D experts
+kept float as their LSQ lattices, bit-equal to the reference's
+per-forward ``_expert_kernel``, without ``w_step``; the router f32; plans
+only for the packed 2-D leaves; their bytes counted), a 'packed' forward
+over the prepared experts bit-equal to one over the float experts
+(mixtral and jamba), the ring's slot bytes, the prefill chunk clamped to
+1, and the bridge carrying the expert leaves.  The card's counterpart (graphed engine = eager) is in
 ``tests/test_torch_cuda_graphs.py``, which does not import JAX.
 """
 
@@ -48,11 +51,11 @@ def empty_caches():
     jautotune.set_active_cache(old_j)
 
 
-def _cfgs(kv_bits, dtype):
+def _cfgs(kv_bits, dtype, name="mixtral-8x7b"):
     kw = dict(param_dtype=dtype, compute_dtype=dtype)
     q = dict(enabled=True, w_bits=2, a_bits=2, kv_bits=kv_bits)
-    jc = jconfigs.get_config("mixtral-8x7b", reduced=True)
-    tc = tconfigs.get_config("mixtral-8x7b", reduced=True)
+    jc = jconfigs.get_config(name, reduced=True)
+    tc = tconfigs.get_config(name, reduced=True)
     return jc.replace(quant=JQ(**q), **kw), tc.replace(quant=TQ(**q), **kw)
 
 
@@ -83,10 +86,10 @@ def _serve(module, cfg, params, ecfg, eager_steps=False, **kw):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(kv_bits, dtype, compiled=False):
+def _reference(kv_bits, dtype, compiled=False, name="mixtral-8x7b"):
     """The reference engine's greedy tokens, op by op (or, ``compiled``,
     with its jitted steps)."""
-    jcfg, _ = _cfgs(kv_bits, dtype)
+    jcfg, _ = _cfgs(kv_bits, dtype, name)
     jp, _ = _params(jcfg)
     ecfg = jengine.EngineConfig(max_batch=3, max_len=MAX_LEN,
                                 prefill_chunk=CHUNK)
@@ -96,21 +99,31 @@ def _reference(kv_bits, dtype, compiled=False):
         return _serve(jengine, jcfg, jp, ecfg)
 
 
-@pytest.mark.parametrize("kv_bits,dtype", [(16, "float32"),
-                                           (4, "bfloat16")])
-@pytest.mark.parametrize("eager_steps", [False, True])
-def test_engine_greedy_tokens_equal_reference(kv_bits, dtype, eager_steps):
+#: (config, kv_bits, dtype, eager_steps) of the engine-token cases; the
+#: mixtral-8x7b cases keep their ids, mixtral-8x22b's are prefixed
+ENGINE_CASES = [
+    pytest.param(name, kv_bits, dtype, eager,
+                 id=f"{prefix}{eager}-{kv_bits}-{dtype}")
+    for name, prefix in (("mixtral-8x7b", ""), ("mixtral-8x22b", "8x22b-"))
+    for eager in (False, True)
+    for kv_bits, dtype in ((16, "float32"), (4, "bfloat16"))]
+
+
+@pytest.mark.parametrize("name,kv_bits,dtype,eager_steps", ENGINE_CASES)
+def test_engine_greedy_tokens_equal_reference(name, kv_bits, dtype,
+                                              eager_steps):
     """Staggered admissions over 3 slots, prompts past the ring of 8
     slots, token-by-token prefill with decode riders, ragged decode with
     capacity drops: the port's greedy tokens (its static steps, or the
-    op-by-op steps) equal the reference engine's run op by op."""
-    _, tcfg = _cfgs(kv_bits, dtype)
-    _, tp = _params(_cfgs(kv_bits, dtype)[0])
+    op-by-op steps) over its prepared experts equal the reference engine's
+    run op by op, which fake-quantizes them on every forward."""
+    jcfg, tcfg = _cfgs(kv_bits, dtype, name)
+    _, tp = _params(jcfg)
     got = _serve(tengine, tcfg, tp, tengine.EngineConfig(
         max_batch=3, max_len=MAX_LEN, prefill_chunk=CHUNK),
         eager_steps=eager_steps, device="cpu")
     assert all(len(o) == NEW for o in got)
-    assert got == _reference(kv_bits, dtype)
+    assert got == _reference(kv_bits, dtype, name=name)
 
 
 def _first_divergence(a, b):
@@ -150,28 +163,89 @@ def test_engine_vs_compiled_reference():
 
 
 def test_serving_prep_keeps_experts_float():
-    jcfg, tcfg = _cfgs(4, "bfloat16")
-    jp, tp = _params(jcfg)
-    jpk = jprepare.prepare_serving_params(jp, jcfg)
-    tpk = tprepare.prepare_serving_params(tp, tcfg, device="cpu")
-    moe = tpk["layers"][0]["moe"]
-    for name in ("up", "gate", "down"):
-        assert set(moe[name]) == {"kernel", "w_step", "a_step"}
-        assert moe[name]["kernel"] is tp["layers"][0]["moe"][name]["kernel"]
-    assert set(moe["router"]) == {"kernel"}
-    assert "w_packed" in tpk["layers"][0]["attn"]["q"]
-    want = sum(np.asarray(x).nbytes for x in jax.tree.leaves(
-        jax.device_get(jpk)) if hasattr(x, "nbytes"))
-    assert tprepare.serving_param_bytes(tpk) == want
-    expert_bytes = sum(moe[n]["kernel"].numel() * 2
-                       for n in ("up", "gate", "down"))
-    assert tprepare.serving_param_bytes(tpk) > expert_bytes * tcfg.num_layers
-    jplans = jprepare.build_layer_plans(jpk, jcfg, batch_rows=3,
-                                        prefill_rows=3)
-    tplans = tprepare.build_layer_plans(tpk, tcfg, batch_rows=3,
-                                        prefill_rows=3)
-    assert sorted(tplans) == sorted(jplans)
-    assert all("/attn/" in k for k in tplans) and len(tplans) == 8
+    """The prep keeps the 3-D experts float, not packed: each kernel
+    becomes its LSQ lattice in the compute dtype, bit-equal to the
+    reference's per-forward ``_expert_kernel(..., 'packed')`` on the same
+    weights (f32 and bf16 compute), ``w_step`` dropped and ``a_step``
+    kept; the router stays f32; the plans are the reference's; the bytes
+    are the reference's prepared tree's but the dropped 4-byte steps."""
+    from repro.models import moe as jmoe
+    for kv_bits, dtype in ((16, "float32"), (4, "bfloat16")):
+        jcfg, tcfg = _cfgs(kv_bits, dtype)
+        jp, tp = _params(jcfg)
+        jpk = jprepare.prepare_serving_params(jp, jcfg)
+        tpk = tprepare.prepare_serving_params(tp, tcfg, device="cpu")
+        for i in range(tcfg.num_layers):
+            moe = tpk["layers"][i]["moe"]
+            for name in ("up", "gate", "down"):
+                assert set(moe[name]) == {"kernel", "a_step"}
+                got = moe[name]["kernel"]
+                want = np.asarray(jmoe._expert_kernel(
+                    jp["layers"][i]["moe"], name, jcfg, "packed"))
+                assert got.dtype == getattr(torch, dtype)
+                assert got.shape == want.shape
+                assert got.view(torch.uint8 if dtype == "bfloat16"
+                                else torch.int32).numpy().tobytes() \
+                    == want.tobytes(), (i, name, dtype)
+                assert moe[name]["a_step"] is \
+                    tp["layers"][i]["moe"][name]["a_step"]
+            assert set(moe["router"]) == {"kernel"}
+            assert moe["router"]["kernel"].dtype == torch.float32
+        assert "w_packed" in tpk["layers"][0]["attn"]["q"]
+        want = sum(np.asarray(x).nbytes for x in jax.tree.leaves(
+            jax.device_get(jpk)) if hasattr(x, "nbytes"))
+        steps = 3 * 4 * tcfg.num_layers          # every layer is MoE
+        assert tprepare.serving_param_bytes(tpk) == want - steps
+        jplans = jprepare.build_layer_plans(jpk, jcfg, batch_rows=3,
+                                            prefill_rows=3)
+        tplans = tprepare.build_layer_plans(tpk, tcfg, batch_rows=3,
+                                            prefill_rows=3)
+        assert sorted(tplans) == sorted(jplans)
+        assert all("/attn/" in k for k in tplans) and len(tplans) == 8
+        # a prepared tree passes through the prep again unchanged
+        again = tprepare.prepare_serving_params(tpk, tcfg, device="cpu")
+        assert again["layers"][1]["moe"]["down"]["kernel"] is \
+            tpk["layers"][1]["moe"]["down"]["kernel"]
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_forward_over_prepared_experts_equals_float_experts(arch,
+                                                                   dtype):
+    """A 'packed' forward over the prepared tree (the lattices derived
+    once) gives logits bit-equal to the same forward over that tree with
+    its float experts and steps put back (fake-quantized on every
+    forward): prefill, then a cached decode step."""
+    from repro_torch.models import lm as tlm
+
+    _, cfg = _cfgs(4, dtype, arch)
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(3),
+                             device="cpu")
+    prepared = tprepare.prepare_serving_params(params, cfg, device="cpu")
+    floats = [dict(layer, moe=params["layers"][i]["moe"])
+              if "moe" in layer else layer
+              for i, layer in enumerate(prepared["layers"])]
+    floats = dict(prepared, layers=floats)
+    n_moe = sum("moe" in layer for layer in prepared["layers"])
+    assert n_moe and all("w_step" in layer["moe"]["up"]
+                         for layer in floats["layers"] if "moe" in layer)
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 7)).astype(np.int32)
+    out = {}
+    for label, tree_ in (("prepared", prepared), ("float", floats)):
+        caches = tlm.init_caches(cfg, 2, 16, dtype=torch.bfloat16,
+                                 device="cpu")
+        first, _, caches = tlm.forward(tree_, cfg, {"tokens": tokens},
+                                       quant_mode="packed", caches=caches)
+        nxt = first[:, -1].float().argmax(-1).numpy().astype(np.int32)
+        second, _, _ = tlm.forward(
+            tree_, cfg, {"tokens": nxt[:, None]}, quant_mode="packed",
+            caches=caches, cache_index=np.full(2, 7, np.int32),
+            cache_valid=np.ones(2, np.int32))
+        out[label] = (first, second)
+    for a, b in zip(out["prepared"], out["float"]):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
 
 
 def test_bridge_carries_expert_leaves():

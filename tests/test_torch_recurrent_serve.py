@@ -283,7 +283,11 @@ def test_serving_prep_packs_only_the_quantized_2d_leaves(arch):
                     else {"mlstm", "slstm"})
     want = sum(np.asarray(x).nbytes for x in jax.tree.leaves(
         jax.device_get(jpk)) if hasattr(x, "nbytes"))
-    assert tprepare.serving_param_bytes(tpk) == want
+    # the prep derives each MoE layer's expert lattices and drops their
+    # three 4-byte w_steps (the reference keeps them)
+    n_moe = sum(tcfg.layer_is_moe(i) for i in range(tcfg.num_layers))
+    assert (n_moe > 0) == (arch == JAMBA)
+    assert tprepare.serving_param_bytes(tpk) == want - 12 * n_moe
     jplans = jprepare.build_layer_plans(jpk, jcfg, batch_rows=2,
                                         prefill_rows=8)
     tplans = tprepare.build_layer_plans(tpk, tcfg, batch_rows=2,
