@@ -340,9 +340,10 @@ decode passes of mixtral-8x7b (4 of 32 layers) and jamba (5 of 72), kv
    ``kernel-vs-plain w4a4 plain-k3`` (the same with K3 on its plain
    version: every logit equal to 'torch''s, gated); then stablelm-1.6b
    whole at W4A4 int32 (``int32xP2s16``, W4A4's only layout), kv 4, the
-   serve cell's ``EngineConfig``, seed-0 weights, the serve prompts with
-   8 new tokens each on graphed engines over the lanes store and over the
-   dense store, each against an engine on ``backend='torch'``: tokens
+   serve cell's ``EngineConfig``, seed-0 weights, the serve prompts cut
+   to 24 tokens with 8 new tokens each on graphed engines over the lanes
+   store and over the dense store, each against an engine on
+   ``backend='torch'``: tokens
    gated under the ``spec`` lines' rule (each parting listed with its
    margin), every packed linear one fused launch of the layout's library
    (lanes) or the w_bits-4 dense library, no CUDA-core K2, no standalone
@@ -365,8 +366,9 @@ decode passes of mixtral-8x7b (4 of 32 layers) and jamba (5 of 72), kv
    width and whole depth, seed-0 W2A2 weights packed once (qwen1.5 a
    layer at a time: ``build_packed_params``, since its float tree and
    its lanes do not fit the card together), ``EngineConfig(max_batch=4,
-   max_len=512, prefill_chunk=16)``, the serve prompts, 4 greedy tokens
-   each on a graphed engine, then on one with ``backend='torch'`` over
+   max_len=512, prefill_chunk=16)``, the serve prompts cut to 24 tokens,
+   4 greedy tokens each on a graphed engine, then on one with
+   ``backend='torch'`` over
    the same packed tree: tokens under the ``spec`` lines' margin rule
    (each parting listed), every packed linear one fused K2 launch, K3 on
    its warp and its tile path, every write one launch, no plain call,
@@ -380,6 +382,38 @@ decode passes of mixtral-8x7b (4 of 32 layers) and jamba (5 of 72), kv
    exit 0, the quickstart's lattice dot exact on the launched
    tensor-core K2, two shards' tokens equal to one's).
    ``python3 chip_smoke.py --archs`` runs only these lines.
+
+16. The ``train archs`` lines (after the ``train-ckpt`` lines): the train
+   step of every LM family beyond the dense one.  A ``train archs
+   reduced`` line per case of ``tests/torch_train_cases.py`` (the nine LM
+   archs beyond stablelm-1.6b, reduced, f32, remat 'block', two
+   microbatches, batch 4; 8-bit moments for qwen1.5-32b, mixtral-8x22b
+   and jamba, and those three with f32 moments too): 3 steps (2 with
+   8-bit moments) from one state on the CPU and on the card, metrics
+   within 1e-4 relative and params within 1e-4 as the CPU tests hold
+   them (gated).  A ``train archs`` line per arch of TRAIN_WIDE at full
+   width, each config's own
+   remat, microbatches and moments, seed-0 params, a batch its
+   microbatches divide (4, jamba's 16) of 128-token rows (qwen2-vl's
+   with a 4-token image prefix of 1,280 features, seamless's with 8
+   encoder embeddings), cut in depth only where the train state does not
+   fit (mixtral-8x7b to 1 of 32 layers, jamba to its first, xlstm-1.3b
+   to 24 of 48; each cut on its line): 2 steps, per step loss, ce,
+   grad_norm, lr and ms, median step ms, tokens/s, peak and build-peak
+   memory, and under ``--train-archs`` one more step under the profiler
+   by range (the whole run leaves it out: 31 s of host time on an H100
+   machine for xlstm's alone) (gated: every
+   metric finite, step 0's loss equal to the no-grad QAT forward's over
+   the same microbatches within 1e-4, the params moved by step 1, a
+   gradient reached the embedding and a frontend's projection; the
+   kernels no gradient reached are listed).  The ``train archs serve``
+   line: the trained mixtral-8x7b through ``prepare_serving_params``,
+   served graphed at kv 4 against ``backend='torch'`` over the same
+   prepared tree (gated: tokens and every decode logit equal, every
+   packed linear one fused K2 launch, no read on K3: the windowed cache
+   takes the legacy read).
+   ``python3 chip_smoke.py --train-archs`` runs only these lines (and
+   builds only the fused K2's and the window write's libraries).
 
 Each phase's kernels are counted from zero just before the phase drives
 its path and read just after; the ``{"kernels": [...]}`` line lists every
@@ -440,7 +474,7 @@ START = time.perf_counter()
 #: those that run a group of the whole run's lines (any of them
 #: together), and the others.
 ONLY_FLAGS = ("--moe", "--recurrent", "--multimodal", "--fleet",
-              "--parallel", "--w4a4", "--archs")
+              "--parallel", "--w4a4", "--archs", "--train-archs")
 MODE_FLAGS = ("--k2-sweep", "--w4a4-pass", "--conv", "--attn-tile",
               "--moe-pass", *ONLY_FLAGS)
 #: The libraries the whole run's first lines launch (the serve, graphs,
@@ -455,11 +489,13 @@ BUILD_NICE = 10
 #: the phase line they end (a line whose name starts with the key):
 #: old -> new.  Widths, layers and gates are not cut.
 CUTS = {
-    "graphs": "greedy tokens a request 32 -> 16 (GRAPH_NEW), alternated "
+    "graphs": "greedy tokens a request 32 -> 8 (GRAPH_NEW), alternated "
               "rounds 3 -> 2 (GRAPH_ROUNDS)",
-    "serve w4a4": "greedy tokens a request 16 -> 8 (W4A4_NEW)",
+    "serve w4a4": "greedy tokens a request 16 -> 8 (W4A4_NEW), prompt "
+                  "tokens 100 -> 24 (W4A4_PROMPT)",
     "moe serve": "prompt tokens 32 -> 16 (MOE_PROMPT)",
-    "archs serve": "greedy tokens a request 8 -> 4 (ARCHS_NEW)",
+    "archs serve": "greedy tokens a request 8 -> 4 (ARCHS_NEW), prompt "
+                   "tokens 100 -> 24 (ARCHS_PROMPT)",
     "dense, spec": "greedy tokens a request 32 -> 16 (SPEC_NEW)",
     "recurrent serve xlstm-1.3b": "greedy tokens a request 8 -> 4 "
                                   "(REC_NEW)",
@@ -2816,7 +2852,7 @@ def linear_phase(torch, dev):
 
 #: Alternated rounds of 8 decode passes of each engine in the ``graphs``
 #: lines (a depth cut that keeps the whole script inside its time limit).
-GRAPH_ROUNDS, GRAPH_NEW = 2, 16
+GRAPH_ROUNDS, GRAPH_NEW = 2, 8
 
 
 def step_ptrs(steps, pair, caches):
@@ -3184,6 +3220,8 @@ def dense_phase(torch, np, dev, cfg, params):
 # (``packing.layout_family(4, 4)``).
 W4A4_QUANT = dict(w_bits=4, a_bits=4, lane_dtype="int32", kv_bits=4)
 W4A4_NEW = 8
+#: the serve prompts cut to their first W4A4_PROMPT tokens (17, 24, 24, 24)
+W4A4_PROMPT = 24
 W4A4_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
 
 
@@ -3194,7 +3232,8 @@ def w4a4_config(cfg):
 def w4a4_phase(torch, np, dev, cfg):
     """The ``serve w4a4`` lines: ``cfg`` (stablelm-1.6b, whole) at W4A4
     int32 (int32xP2s16 lanes), kv 4, seed-0 weights, the serve cell's
-    ``EngineConfig``, the serve prompts with W4A4_NEW greedy tokens each on
+    ``EngineConfig``, the serve prompts cut to W4A4_PROMPT tokens with
+    W4A4_NEW greedy tokens each on
     a graphed engine, with the lanes store and then the dense store, each
     against an engine on ``backend='torch'`` over the same store: tokens
     (gated, see below), the largest decode logit difference; every
@@ -3220,7 +3259,7 @@ def w4a4_phase(torch, np, dev, cfg):
                             device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts, _ = serve_prompts(np, c)
+    prompts = [p[:W4A4_PROMPT] for p in serve_prompts(np, c)[0]]
     w4a4_attribution(torch, np, dev, c, params, prompts)
     launches = {}
     for store in ("lanes", "dense"):
@@ -3856,17 +3895,27 @@ def train_phase(torch, dev, cfg, peaks, smi):
 
 
 def train_profile(torch, state, step_fn, data):
-    """One more train step under torch.profiler: device ms and launches of
-    the step's kernels, by kernel name (GEMMs, elementwise, reductions,
+    """One more train step under torch.profiler (``profile_train_step``),
+    printed as the ``train profile`` line.  Returns the state."""
+    state, rep = profile_train_step(torch, state, step_fn,
+                                    data.batch_at(TRAIN_STEPS))
+    print("train profile " + json.dumps(rep))
+    return state
+
+
+def profile_train_step(torch, state, step_fn, batch, ranges=TRAIN_RANGES):
+    """One train step under torch.profiler: device ms and launches of the
+    step's kernels, by kernel name (GEMMs, elementwise, reductions,
     softmax, fills) and by the port's profiler ranges (``_range_ms``: the
-    kernels launched inside the fake quant's forward and backward, the
-    attention's forward plus its products' backward nodes, the optimizer;
-    ranges overlap the name groups; ``_gpu_span_ms``: the device time
-    each range spans, gaps included).  The profiler slows the host, so
-    its idle share is an upper bound.  Returns the state."""
+    kernels launched inside each of ``ranges`` -- by default the fake
+    quant's forward and backward, the attention's forward plus its
+    products' backward nodes, the optimizer; ranges overlap the name
+    groups; ``_gpu_span_ms``: the device time each range spans, gaps
+    included), from the profiler's events (``device_rows``,
+    ``range_rows``).  The profiler slows the host, so its idle share is
+    an upper bound.  Returns (the state, the report)."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = data.batch_at(TRAIN_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3878,17 +3927,17 @@ def train_profile(torch, state, step_fn, data):
     rows = device_rows(torch, prof)
     # the ranges also come back as device rows spanning their kernels
     spans = {e.key: e.self_device_time_total / 1e3 for e in rows
-             if e.key in TRAIN_RANGES}
-    kernels = [e for e in rows if e.key not in TRAIN_RANGES]
+             if e.key in ranges}
+    kernels = [e for e in rows if e.key not in ranges]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     rep = {"device_ms": busy, "wall_ms_profiled": wall * 1e3,
            "idle_share_profiled": 1 - busy / (wall * 1e3),
            "launches": sum(e.count for e in kernels),
            **kernel_groups(kernels, 1, "", TRAIN_GROUPS)}
     rep["other_ms"] = busy - sum(rep[f"{g}_ms"] for g in TRAIN_GROUPS)
-    cpu = range_rows(torch, prof, {k for keys in TRAIN_RANGES.values()
+    cpu = range_rows(torch, prof, {k for keys in ranges.values()
                                    for k in keys})
-    for name, keys in TRAIN_RANGES.items():
+    for name, keys in ranges.items():
         sel = [cpu[k] for k in keys]
         rep[f"{name}_range_ms"] = sum(e["device_time_total"]
                                       for e in sel) / 1e3
@@ -3897,8 +3946,7 @@ def train_profile(torch, state, step_fn, data):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     rep["top_kernels_ms"] = [[e.key[:60], e.self_device_time_total / 1e3,
                               e.count] for e in top]
-    print("train profile " + json.dumps(rep))
-    return state
+    return state, rep
 
 
 def train_serve_phase(torch, np, dev, cfg, trained, smi):
@@ -4143,6 +4191,342 @@ def train_ckpt_phase(torch, dev, cfg, smi):
     finally:
         checkpoint.save, checkpoint.restore = orig_save, orig_restore
     return reps
+
+
+# ---------------------------------------------------------------------------
+# Training of the other LM families: the train archs lines
+# ---------------------------------------------------------------------------
+
+#: The full-width train lines, one arch a family: (name, layers kept or
+#: None for all of them, the cut).  A train step holds ~30 bytes a param
+#: at its peak with f32 moments (the stablelm train line's 48.6 GB over
+#: 1.64 B params: the bf16 params and their update, the f32 microbatch
+#: sum, its mean and the clipped gradients, the old and the new m and v),
+#: ~20 with 8-bit ones, plus a leaf's f32 temporaries in the optimizer.
+TRAIN_WIDE = (
+    ("mixtral-8x7b", 1, "1 of 32 layers (memory): 1.71 B params, ~51 GB "
+                        "of train state at ~30 bytes a param; 2 layers "
+                        "are 3.17 B, ~95 GB"),
+    ("jamba-1.5-large-398b", 1,
+     "its first layer of 72 (memory): mamba with a dense MLP, 2.10 B "
+     "params with the embedding and head, ~44 GB at 8-bit moments; a MoE "
+     "layer holds 16 x 3 x 8,192 x 24,576 = 9.66 B params, >= 97 GB of "
+     "train state"),
+    ("xlstm-1.3b", 24, "24 of 48 layers (memory): the config's 48 layers "
+                       "hold 3.61 B params, ~108 GB of train state; 24 "
+                       "hold 1.90 B, ~57 GB"),
+    ("qwen2-vl-2b", None, None),
+    ("seamless-m4t-medium", None, None))
+TRAIN_WIDE_STEPS = 2
+#: the profiled step's ranges: TRAIN_RANGES and the families' own
+TRAIN_WIDE_RANGES = {**TRAIN_RANGES, "expert_gemm": ("expert_gemm",),
+                     "moe_dispatch": ("moe_dispatch",),
+                     "moe_combine": ("moe_combine",),
+                     "mamba_scan": ("mamba_scan",), "mlstm": ("mlstm",),
+                     "slstm": ("slstm",), "encoder": ("encoder",),
+                     "cross_attention": ("cross_attention",)}
+#: The trained mixtral-8x7b served at kv 4 (the moe serve lines' prompts
+#: and new tokens).
+TRAIN_SERVE_KV = 4
+
+
+def train_cases():
+    """``tests/torch_train_cases.py`` of the checkout: the reduced cases'
+    settings, batches and checks, shared with the CPU tests."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_train_cases.py"
+    spec = importlib.util.spec_from_file_location("torch_train_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_archs_reduced(torch, dev, smi):
+    """The ``train archs reduced`` lines: each of the nine LM archs beyond
+    stablelm at the CPU tests' settings (``tests/torch_train_cases.py``:
+    reduced, f32, remat 'block', two microbatches, batch 4; 8-bit moments
+    where the full config keeps them, and those three with f32 moments
+    too), 3 steps (2 with 8-bit moments: ``card_steps``) from one seed-3
+    state on the CPU and on the card.  Fails unless every step's lr is
+    equal and loss, ce and grad_norm agree within 1e-4 relative, and the
+    params within 1e-4 as ``param_check`` holds them (8-bit: codes at
+    most one apart)."""
+    from repro_torch import bridge
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cases = train_cases()
+    for name, eightbit in cases.cases(cases.ARCHS):
+        t0 = time.perf_counter()
+        cfg = cases.port_config(name, eightbit)
+        cpu = steps.make_train_state(lm.init_params(
+            cfg, torch.Generator().manual_seed(3), device="cpu"), cfg=cfg)
+        card = bridge.from_repro(bridge.to_numpy(cpu), device=dev)
+        step = steps.make_train_step(cfg, **cases.KW)
+        flips = {} if eightbit else None
+        worst = {k: 0.0 for k in ("loss", "ce", "grad_norm")}
+        data = cases.batches(cfg, steps=cases.card_steps(eightbit))
+        for i, batch in enumerate(data):
+            cpu, mc = step(cpu, batch)
+            card, mg = step(card, batch)
+            cases.metrics_check(mg, mc, 1e-4, f"train archs reduced {name} "
+                                              f"step {i}")
+            for k in worst:
+                worst[k] = max(worst[k], abs(float(mg[k]) - float(mc[k]))
+                               / abs(float(mc[k])))
+            back = cases.to_cpu(card)
+            if eightbit:
+                now = cases.code_flips(back, cpu)
+                if i < len(data) - 1:
+                    flips = cases.merge_flips(flips, now)
+        rep = cases.param_check(back, cpu, 1e-4, flips)
+        print("train archs reduced " + json.dumps({
+            "card": smi, "model": name, "eightbit_moments": eightbit,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "steps": len(data), "batch": cases.BATCH,
+            "seq": cases.SEQ.get(name, 16), "remat": cfg.parallel.remat,
+            "microbatches": cfg.parallel.microbatches,
+            "metric_rel_diff_max": worst, **rep,
+            "wall_s": time.perf_counter() - t0}))
+        del cpu, card, back
+    torch.cuda.empty_cache()
+
+
+def moment_absmax(torch, m):
+    """The largest |value| of an AdamW moment leaf (8-bit: its codes times
+    their blocks' scales)."""
+    if isinstance(m, dict):
+        m = m["q"].to(torch.float32) * m["scale"]
+    return m.abs().max()
+
+
+def leaf_sums(torch, params) -> list:
+    """Each param leaf's sum in f64 (one host copy)."""
+    from repro_torch import tree as tree_lib
+
+    return torch.stack([torch.sum(p, dtype=torch.float64)
+                        for p in tree_lib.leaves(params)]).tolist()
+
+
+def train_wide_line(torch, np, dev, peaks, smi, name, layers, cut,
+                    profile=True):
+    """A ``train archs`` line: ``name`` at full width, cut to ``layers``
+    where its train state does not fit (``cut`` says why), with its
+    config's remat, microbatches and moments, seed-0 params, a batch of
+    max(TRAIN_BATCH, microbatches) rows of TRAIN_SEQ tokens
+    (``data/pipeline.family_batch``: the VLM's 4-token image prefix of
+    frontend_dim features, the encoder-decoder's 8 encoder embeddings),
+    TRAIN_WIDE_STEPS steps at TRAIN_KW, then with ``profile`` one more
+    under the profiler (``profile_train_step`` at TRAIN_WIDE_RANGES: 31 s
+    of host time on an H100 machine for xlstm's 251,834 launches).  Fails unless every
+    metric is finite, step 0's loss equals the mean over the same
+    microbatches of ``lm.loss_fn`` on the QAT forward under no_grad
+    within 1e-4 relative, the params have moved after step 1 and a
+    gradient has reached the network's inputs: the embedding table and a
+    frontend's projection (their first moments are nonzero).  Reports
+    the kernels no gradient reached (at mixtral-8x7b's width the experts'
+    up and gate: their SwiGLU output saturates the down input's LSQ range
+    at init, as in the reference) and those whose bf16 values all round
+    back after one update at lr 1.5e-4.  Returns the state."""
+    from repro_torch import configs, tree as tree_lib
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_config(name)
+    n_layers = cfg.num_layers
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    micro = max(1, cfg.parallel.microbatches)
+    b = max(TRAIN_BATCH, micro)
+    rng = np.random.default_rng(SEED)
+    data = []
+    for _ in range(TRAIN_WIDE_STEPS + 1):
+        batch, labels = pipeline.family_batch(cfg, rng, b=b, s=TRAIN_SEQ)
+        data.append(dict(batch, labels=labels))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    paths = [p for p, _ in tree_lib.flatten_with_path(params)]
+    n_params = sum(p.numel() for p in tree_lib.leaves(params))
+    before = leaf_sums(torch, params)
+    # step 0's loss, recomputed: the QAT forward over the same
+    # microbatches under no_grad, averaged
+    first = {k: torch.as_tensor(v).to(dev) for k, v in data[0].items()}
+    qmode, losses = steps.quant_mode_for(cfg, "train"), []
+    with torch.no_grad():
+        for mb in steps._split_micro(first, micro):
+            logits, aux, _ = lm.forward(params, cfg, mb, quant_mode=qmode)
+            losses.append(float(lm.loss_fn(logits, mb["labels"], aux)[0]))
+            del logits
+    want = sum(losses) / micro
+    del first
+    forward_s = time.perf_counter() - t0
+    state = steps.make_train_state(params, cfg=cfg)
+    del params
+    step_fn = steps.make_train_step(cfg, **TRAIN_KW)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows, ms = [], []
+    for i in range(TRAIN_WIDE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, data[i])
+        rows.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    after = leaf_sums(torch, state["params"])
+    # the largest |m| of each leaf after step 1: nonzero where a gradient
+    # reached it
+    m_max = dict(zip(paths, torch.stack([
+        moment_absmax(torch, m) for m in tree_lib.leaves(
+            state["opt_state"]["m"], is_leaf=adamw.is_moment)]).tolist()))
+    prof = None
+    if profile:
+        t0 = time.perf_counter()
+        state, prof = profile_train_step(torch, state, step_fn,
+                                         data[TRAIN_WIDE_STEPS],
+                                         TRAIN_WIDE_RANGES)
+        prof["profile_s"] = time.perf_counter() - t0
+    bad = [i for i, r in enumerate(rows)
+           if not all(math.isfinite(v) for v in r.values())]
+    loss_rel = abs(rows[0]["loss"] - want) / abs(want)
+    kernels = [p for p in paths if p.endswith("kernel")]
+    still = [p for p, x, y in zip(paths, before, after)
+             if p.endswith("kernel") and x == y]
+    no_grad = [p for p in kernels if m_max[p] == 0.0]
+    # the backward reached the network's inputs: the embedding table (and
+    # a frontend's projection)
+    ends = [p for p in paths if p in ("embed/table", "frontend_proj/kernel")]
+    cut_off = [p for p in ends if m_max[p] == 0.0]
+    moved = sum(x != y for x, y in zip(before, after))
+    tokens = b * data[0]["labels"].shape[1]
+    med = statistics.median(ms)
+    rep = {"card": smi, "model": name, "layers": cfg.num_layers,
+           "of_layers": n_layers, "cut": cut or "none",
+           "d_model": cfg.d_model, "params": n_params,
+           "w_bits": cfg.quant.w_bits, "a_bits": cfg.quant.a_bits,
+           "param_dtype": cfg.param_dtype, "remat": cfg.parallel.remat,
+           "microbatches": micro,
+           "eightbit_moments": cfg.parallel.eightbit_moments,
+           "batch": b, "seq": TRAIN_SEQ,
+           "positions_a_row": data[0]["labels"].shape[1],
+           "steps": TRAIN_WIDE_STEPS, **TRAIN_KW, "setup_s": setup_s,
+           "init_and_forward_s": forward_s,
+           "per_step": [dict(r, step=i, ms=t)
+                        for i, (r, t) in enumerate(zip(rows, ms))],
+           "median_step_ms": med, "tokens_per_s": tokens * 1e3 / med,
+           "step0_loss_no_grad_forward": want, "step0_loss_rel_diff": loss_rel,
+           "leaves_moved": moved, "leaves": len(paths),
+           "kernels_moved": len(kernels) - len(still),
+           "kernels": len(kernels), "kernels_no_gradient": no_grad,
+           "inputs_gradient_m_absmax": {p: m_max[p] for p in ends},
+           "max_memory_allocated": peak, "build_peak_bytes": build_peak,
+           "model_flop_share": 6 * n_params * tokens / (med / 1e3)
+           / peaks["bf16"],
+           "profiled_step": prof}
+    print("train archs " + json.dumps(rep))
+    if bad or loss_rel > 1e-4 or not moved or cut_off or not ends:
+        raise AssertionError(f"train archs {name}: non-finite metrics at "
+                             f"steps {bad}, step 0's loss {rows[0]['loss']} "
+                             f"against the forward's {want}, {moved} leaves "
+                             f"moved, inputs no gradient reached {cut_off}")
+    return state
+
+
+def train_archs_serve(torch, np, dev, smi, trained, steps_taken):
+    """The ``train archs serve`` line: the mixtral-8x7b params trained
+    ``steps_taken`` steps by its ``train archs`` line (1 of 32 layers)
+    through ``prepare_serving_params`` (the experts' lattices derived from
+    the trained ``w_step``), served graphed at kv TRAIN_SERVE_KV on the moe
+    serve lines' prompts and new tokens, then with ``backend='torch'``
+    over the same prepared tree.  Fails unless the tokens and every
+    decode pass's logits are equal, every packed linear ran the fused
+    tensor-core K2 (``check_k2_path``) and no read reached K3 (the
+    windowed cache takes the legacy read).  Returns the fused K2 and
+    window-write launches."""
+    from repro_torch.kernels import cache_write, quant_pack, \
+        ulppack_attention, ulppack_matmul
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+    from repro_torch.serve.prepare import prepare_serving_params
+
+    c = moe_config(TRAIN_SERVE_KV, layers=1)
+    t0 = time.perf_counter()
+    packed = prepare_serving_params(trained, c, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    prompts = [p[:MOE_PROMPT] for p in serve_prompts(np, c)[0]]
+    ecfg = EngineConfig(max_batch=4, max_len=512)
+    for mod in (quant_pack, ulppack_matmul, ulppack_attention, cache_write):
+        mod.reset_counts()
+    eng = ServingEngine(c, packed, config=ecfg, device=dev)
+    check_prepared_experts(eng, packed, "train archs serve")
+    t0 = time.perf_counter()
+    outs, rows, passes = recorded_serve(np, eng, prompts, MOE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = check_k2_path("train archs serve")
+    if ulppack_attention.kernel_launches["attention_decode"]:
+        raise AssertionError("train archs serve: a windowed read reached K3")
+    launches = {"quantized_linear_mma": k2,
+                "cache_write": cache_write.kernel_launches["cache_write"]}
+    graphed = eng._decode.graph is not None
+    del eng
+    torch.cuda.empty_cache()
+    ref = ServingEngine(c, packed, config=ecfg, device=dev, backend="torch")
+    ref_outs, ref_rows, ref_passes = recorded_serve(np, ref, prompts,
+                                                    MOE_NEW)
+    del ref
+    token_divergences(np, "train archs serve", ref_outs, ref_rows, outs,
+                      rows, strict=True)
+    diff = max_pass_diff(passes, ref_passes)
+    print("train archs serve " + json.dumps({
+        "card": smi, "model": c.name,
+        "layers": f"1 of 32, trained {steps_taken} steps",
+        "kv_bits": TRAIN_SERVE_KV, "graphed": graphed,
+        "requests": len(prompts), "prompt_tokens": MOE_PROMPT,
+        "new_tokens": MOE_NEW, "prepare_s": prep_s, "wall_s": wall,
+        "tokens_equal": True, "decode_passes": len(passes),
+        "max_logit_diff_vs_torch": diff, "fused_k2_launches": k2,
+        "cache_write_launches": launches["cache_write"]}))
+    if not graphed or diff != 0.0:
+        raise AssertionError(f"train archs serve: graphed {graphed}, decode "
+                             f"logits differ from backend='torch' by {diff}")
+    return launches
+
+
+def train_archs_phase(torch, np, dev, peaks, smi, profile=True):
+    """The train archs lines: the reduced card-against-CPU steps of the
+    nine other LM archs, the full-width steps of one arch a family
+    (TRAIN_WIDE; with ``profile`` a profiled step each), the trained
+    mixtral-8x7b served.  Returns the served run's kernel launches."""
+    train_archs_reduced(torch, dev, smi)
+    mark("train archs reduced")
+    launches = {}
+    for name, layers, cut in TRAIN_WIDE:
+        state = train_wide_line(torch, np, dev, peaks, smi, name, layers,
+                                cut, profile)
+        trained, taken = state["params"], int(state["step"])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(f"train archs {name}")
+        if name == "mixtral-8x7b":
+            launches = train_archs_serve(torch, np, dev, smi, trained,
+                                         taken)
+            mark("train archs serve")
+        del trained
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(smi)
+    return launches
 
 
 def cnn_qat_phase(torch, dev, cfg, smi):
@@ -5820,6 +6204,8 @@ GRANITE, MINICPM, QWEN = "granite-3-8b", "minicpm-2b", "qwen1.5-32b"
 ARCHS = ((GRANITE, (16, 4)), (MINICPM, (16, 4)), (QWEN, (4,)))
 ARCHS_ECFG = dict(max_batch=4, max_len=512, prefill_chunk=16)
 ARCHS_NEW = 4
+#: the serve prompts cut to their first ARCHS_PROMPT tokens (17, 24, 24, 24)
+ARCHS_PROMPT = 24
 #: qwen1.5-32b's QKV biases are zero at init; the served tree gets them
 #: drawn from N(0, ARCHS_BIAS_STD^2) (seed SEED + 35), so that the fused
 #: epilogue adds a bias that moves the outputs
@@ -6011,8 +6397,8 @@ def archs_serve_phase(torch, np, dev, smi, name, kv_list):
     """The ``archs serve`` lines of ``name``: full width, whole depth,
     W2A2 seed-0 weights packed once (``archs_params``), then at each kv
     setting ``EngineConfig(**ARCHS_ECFG)`` over that packed tree, graphed,
-    the serve phase's four prompts (17-100 tokens), ARCHS_NEW greedy
-    tokens each, then an engine with ``backend='torch'`` over the same
+    the serve phase's four prompts cut to ARCHS_PROMPT tokens, ARCHS_NEW
+    greedy tokens each, then an engine with ``backend='torch'`` over the same
     tree.  Gated: every packed linear one fused K2 launch with no
     standalone K1 (``check_k2_path``); every read one K3 launch, on both
     its paths (the prefill chunks' tile path and the decode passes' warp
@@ -6034,7 +6420,7 @@ def archs_serve_phase(torch, np, dev, smi, name, kv_list):
     base = archs_config(name)
     packed, info = archs_params(torch, dev, base)
     mark(f"archs params {name}")
-    prompts, _ = serve_prompts(np, base)
+    prompts = [p[:ARCHS_PROMPT] for p in serve_prompts(np, base)[0]]
     ecfg = EngineConfig(**ARCHS_ECFG)
     launches = {"quantized_linear_mma": 0, "attention_decode": 0,
                 "cache_write": 0}
@@ -7975,6 +8361,9 @@ def main() -> int:
         paths = build.build(FIRST_LIBRARIES)
     elif "--moe-pass" in sys.argv[1:]:
         paths = build.build(FIRST_LIBRARIES)
+    elif sys.argv[1:] == ["--train-archs"]:
+        # the fused K2 and the window write are all these lines launch
+        paths = build.build(("ulppack_matmul_mma", "cache_write"))
     else:
         paths = build.build()
     mark("build")
@@ -8021,6 +8410,8 @@ def main() -> int:
         print(smi)
     if "--archs" in only:
         archs_phase(torch, np, torch.device("cuda"), peaks, smi)
+    if "--train-archs" in only:
+        train_archs_phase(torch, np, torch.device("cuda"), peaks, smi)
     if only:
         return 0
 
@@ -8214,6 +8605,14 @@ def main() -> int:
     mark("train-serve")
     train_ckpt_phase(torch, dev, lm_cfg, smi)
     mark("train, train-serve, train-ckpt")
+    # the other LM families' train steps: the reduced ones against the
+    # CPU, one arch a family at full width, the trained mixtral-8x7b
+    # served; its packed linears add to K2's launches, its ring writes to
+    # the window write's
+    for k, n in train_archs_phase(torch, np, dev, peaks, smi,
+                                  profile=False).items():
+        launches[k] += n
+    mark("train archs")
     launches["ulppack_conv2d_mma"] += cnn_qat_phase(torch, dev, cnn_cfg, smi)
     mark("cnn-qat")
     torch.cuda.empty_cache()

@@ -67,3 +67,30 @@ class SyntheticLMStream:
     def from_state(cls, cfg: DataConfig, state: dict) -> "SyntheticLMStream":
         assert state["seed"] == cfg.seed, "data seed mismatch on restore"
         return cls(cfg)
+
+
+def family_batch(cfg, rng, b=2, s=16):
+    """A random batch with the inputs ``cfg``'s family takes (the
+    counterpart of ``tests/test_archs_smoke.py::make_batch``, in numpy):
+    ``tokens`` [b, s] and the labels; a vision config adds a 4-token image
+    prefix (``embeds`` [b, 4, frontend_dim], ``positions`` over the whole
+    sequence and ``positions3`` [3, b, 4 + s] with t = h = w, the prefix's
+    labels -1), an audio config 8 encoder embeddings (``enc_embeds``).
+    Returns ``(batch, labels)``; ``rng`` is a numpy Generator."""
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)}
+    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    if cfg.frontend == "vision":
+        si = 4
+        batch["embeds"] = rng.normal(size=(b, si, cfg.frontend_dim)).astype(
+            np.float32)
+        total = si + s
+        pos = np.broadcast_to(np.arange(total, dtype=np.int32)[None],
+                              (b, total)).copy()
+        batch["positions"] = pos
+        batch["positions3"] = np.broadcast_to(pos[None], (3, b, total)).copy()
+        labels = np.pad(labels, ((0, 0), (si, 0)), constant_values=-1)
+    if cfg.frontend == "audio":
+        batch["enc_embeds"] = rng.normal(size=(b, 8, cfg.frontend_dim)) \
+            .astype(np.float32)
+    return batch, labels

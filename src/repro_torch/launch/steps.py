@@ -51,10 +51,16 @@ def quant_mode_for(cfg, kind: str) -> str:
 # ---------------------------------------------------------------------------
 
 def _split_micro(batch: dict, n: int) -> list:
-    """``n`` microbatches along the batch axis (axis 1 of ``positions3``
-    [3, B, S], axis 0 of everything else)."""
-    parts = {k: torch.chunk(v, n, dim=1 if k == "positions3" else 0)
-             for k, v in batch.items()}
+    """``n`` equal microbatches along the batch axis (axis 1 of
+    ``positions3`` [3, B, S], axis 0 of everything else); a batch that
+    ``n`` does not divide raises, as the reference's reshape does."""
+    parts = {}
+    for k, v in batch.items():
+        dim = 1 if k == "positions3" else 0
+        if v.shape[dim] % n:
+            raise ValueError(f"{k}: a batch of {v.shape[dim]} does not "
+                             f"split into {n} microbatches")
+        parts[k] = torch.split(v, v.shape[dim] // n, dim=dim)
     return [{k: parts[k][i] for k in batch} for i in range(n)]
 
 

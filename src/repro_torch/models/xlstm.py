@@ -121,7 +121,11 @@ def _mlstm_chunk(q, k, v, i_raw, g_log, state):
     log_a = (i_raw - gc)[..., None, :] - m_eff[..., :, None]
     mask = torch.tril(torch.ones((big, big), dtype=torch.bool,
                                  device=q.device))
-    a = torch.where(mask, torch.exp(log_a), 0.0)         # [B, NH, L, L]
+    # the exponent is masked, not its exp: above the diagonal log_a can
+    # overflow exp, and where's zero gradient times an infinite exp
+    # would be NaN (the reference's where(mask, exp(log_a), 0) gives
+    # NaN gradients from xlstm-1.3b's fourth layer down at 128 tokens)
+    a = torch.exp(torch.where(mask, log_a, -torch.inf))  # [B, NH, L, L]
 
     qs = q * hd ** -0.5
     scores = torch.einsum("bhtd,bhsd->bhts", qs, k)

@@ -2,8 +2,9 @@
 ``repro_torch.models.lm.check_supported`` accepts (all ten LM configs;
 the CNN runs through ``models/cnn.py``), at reduced size and f32, from the
 reference's own init carried across the bridge, with the batches of
-``tests/test_archs_smoke.py::make_batch`` (qwen2-vl's image prefix and
-(t, h, w) ids, seamless's encoder embeddings) -- the QAT forward's logits
+``data/pipeline.family_batch`` (``tests/test_archs_smoke.py::make_batch``
+in numpy: qwen2-vl's image prefix and (t, h, w) ids, seamless's encoder
+embeddings) -- the QAT forward's logits
 within 1e-4 of the reference's and its aux loss within 1e-5 relative,
 then one backward whose loss and gradients are finite.
 """
@@ -20,6 +21,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.kernels import autotune as jautotune  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import bridge, configs as tconfigs, tree  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import autotune as tautotune  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 
@@ -61,36 +63,13 @@ def test_supported_archs():
         tlm.check_supported(tconfigs.get_config("sparq-cnn", reduced=True))
 
 
-def make_batch(cfg, rng, b=2, s=16):
-    """``tests/test_archs_smoke.py::make_batch`` in numpy: tokens and
-    labels, a vision config's 4-token image prefix (``embeds``, positions
-    over the whole sequence, ``positions3`` with t = h = w, the prefix's
-    labels -1), an audio config's 8 encoder embeddings."""
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
-        np.int32)}
-    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
-    if cfg.frontend == "vision":
-        si = 4
-        batch["embeds"] = rng.normal(size=(b, si, cfg.frontend_dim)).astype(
-            np.float32)
-        total = si + s
-        pos = np.broadcast_to(np.arange(total, dtype=np.int32)[None],
-                              (b, total)).copy()
-        batch["positions"] = pos
-        batch["positions3"] = np.broadcast_to(pos[None], (3, b, total)).copy()
-        labels = np.pad(labels, ((0, 0), (si, 0)), constant_values=-1)
-    if cfg.frontend == "audio":
-        batch["enc_embeds"] = rng.normal(size=(b, 8, cfg.frontend_dim)) \
-            .astype(np.float32)
-    return batch, labels
-
-
 def _setup(name, seed):
     kw = dict(param_dtype="float32", compute_dtype="float32")
     jcfg = jconfigs.get_config(name, reduced=True).replace(**kw)
     tcfg = tconfigs.get_config(name, reduced=True).replace(**kw)
     jp = jlm.init_params(jax.random.PRNGKey(seed), jcfg)
-    batch, labels = make_batch(jcfg, np.random.default_rng(seed))
+    batch, labels = pipeline.family_batch(jcfg,
+                                          np.random.default_rng(seed))
     return jcfg, tcfg, jp, bridge.from_repro(jax.device_get(jp),
                                              device="cpu"), batch, labels
 

@@ -28,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_train_cases as train_cases  # noqa: E402
 from repro_torch import bridge, configs as tconfigs  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.configs.base import ParallelConfig as TP  # noqa: E402
@@ -344,26 +345,80 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         tckpt.restore("unused")
 
 
+def test_split_micro_refuses_a_batch_it_does_not_divide():
+    """A batch of 10 in 4 microbatches (``torch.chunk`` made 3, 3, 3 and 1
+    rows and the step still divided by 4) and a batch of 2 in 4 (an
+    IndexError before) are refused, as the reference's reshape refuses
+    them; the train step refuses such a batch before any forward."""
+    batch = {"tokens": torch.zeros(10, 8, dtype=torch.int32),
+             "labels": torch.zeros(10, 8, dtype=torch.int32)}
+    with pytest.raises(ValueError, match="10 does not split into 4"):
+        tsteps._split_micro(batch, 4)
+    with pytest.raises(ValueError, match="2 does not split into 4"):
+        tsteps._split_micro({k: v[:2] for k, v in batch.items()}, 4)
+    cfg = _tcfg(microbatches=4)
+    with pytest.raises(ValueError, match="does not split into 4"):
+        tsteps.make_train_step(cfg, **KW)(
+            _port_state(cfg), _stream(cfg, batch=10).batch_at(0))
+
+
+def test_split_micro_splits_positions3_on_its_batch_axis():
+    """``positions3`` [3, B, S] splits on axis 1, everything else on axis
+    0, into equal parts in order."""
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, 9, (4, 6), generator=g),
+             "embeds": torch.randn(4, 2, 5, generator=g),
+             "positions3": torch.randint(0, 9, (3, 4, 8), generator=g)}
+    parts = tsteps._split_micro(batch, 2)
+    assert len(parts) == 2
+    for i, part in enumerate(parts):
+        rows = slice(2 * i, 2 * i + 2)
+        assert torch.equal(part["tokens"], batch["tokens"][rows])
+        assert torch.equal(part["embeds"], batch["embeds"][rows])
+        assert torch.equal(part["positions3"], batch["positions3"][:, rows])
+
+
 @pytest.mark.cuda
-def test_train_step_on_the_card_matches_the_cpu():
-    """The reduced W2A2 train step (remat, two microbatches, f32) on the
-    card against the port's CPU run from the same state: metrics within
-    1e-4 relative and params within 1e-4 after three steps (cuBLAS sums in
-    another order than the CPU's BLAS)."""
+@pytest.mark.parametrize("case", [("stablelm-1.6b", False)]
+                         + train_cases.cases(train_cases.ARCHS),
+                         ids=train_cases.case_id)
+def test_train_step_on_the_card_matches_the_cpu(case):
+    """Train steps on the card against the port's CPU run from the same
+    state: metrics within 1e-4 relative and params within 1e-4 (cuBLAS
+    sums in another order than the CPU's BLAS).  stablelm: three steps
+    of the reduced W2A2 step (remat, two microbatches, f32), every param;
+    the nine other LM archs at ``torch_train_cases``' settings (reduced,
+    f32, remat 'block', two microbatches, 8-bit moments where the config
+    keeps them), three steps with f32 moments and two with 8-bit ones
+    (``card_steps``: a third step reads params an 8-bit update moved by
+    m̂ / eps, which differ by up to 0.02 between the devices), params as
+    ``torch_train_cases.param_check`` holds them (the elements at f32's
+    noise floor within 1e-3; with 8-bit moments, codes at most one
+    apart, the elements at a flipped code or a zero v code counted, not
+    held)."""
     if not torch.cuda.is_available() \
             or torch.cuda.get_device_capability() < (9, 0):
         pytest.skip("needs a Hopper card")
-    cfg = _tcfg()
+    name, eightbit = case
+    stablelm = name == "stablelm-1.6b"
+    cfg = _tcfg() if stablelm else train_cases.port_config(name, eightbit)
     cpu = _port_state(cfg, seed=3)
     card = bridge.from_repro(bridge.to_numpy(cpu), device="cuda")
     step = tsteps.make_train_step(cfg, **KW)
-    data = _stream(cfg)
-    for i in range(3):
-        batch = data.batch_at(i)
+    data = ([_stream(cfg).batch_at(i) for i in range(3)] if stablelm
+            else train_cases.batches(cfg,
+                                     steps=train_cases.card_steps(eightbit)))
+    flips = {} if eightbit else None
+    for i, batch in enumerate(data):
         cpu, mc = step(cpu, batch)
         card, mg = step(card, batch)
-        for k in ("loss", "ce", "grad_norm", "lr"):
-            np.testing.assert_allclose(float(mg[k]), float(mc[k]),
-                                       rtol=1e-4, err_msg=f"step {i} {k}")
-    back = bridge.from_repro(bridge.to_numpy(card["params"]), "cpu")
-    assert _param_diff(back, cpu["params"]) < 1e-4
+        train_cases.metrics_check(mg, mc, 1e-4, f"step {i}")
+        back = train_cases.to_cpu(card)
+        if eightbit:
+            now = train_cases.code_flips(back, cpu)
+            if i < len(data) - 1:
+                flips = train_cases.merge_flips(flips, now)
+    if stablelm:
+        assert _param_diff(back["params"], cpu["params"]) < 1e-4
+    else:
+        train_cases.param_check(back, cpu, 1e-4, flips)

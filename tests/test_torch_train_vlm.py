@@ -1,0 +1,34 @@
+"""The VLM's train step against the reference's
+(``torch_train_reference.check_train_step``): qwen2-vl-2b reduced (a
+4-token image prefix through ``frontend_proj``, labels -1 on it,
+``positions3`` split on its axis 1 into the microbatches, M-RoPE), remat
+'block', two microbatches; and the CLI trainer."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch_train_cases as cases  # noqa: E402
+import torch_train_reference as reference  # noqa: E402
+
+ARCHS = ("qwen2-vl-2b",)
+
+
+@pytest.fixture(autouse=True)
+def empty_port_cache():
+    """Pin the port's tuning cache empty."""
+    from repro_torch.kernels import autotune
+    old = autotune.active_cache()
+    autotune.set_active_cache(autotune.TuningCache(device="cpu"))
+    yield
+    autotune.set_active_cache(old)
+
+
+@pytest.mark.parametrize("case", cases.cases(ARCHS), ids=cases.case_id)
+def test_train_step_matches_reference(case):
+    reference.check_train_step(*case)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_cli_trains_and_checkpoints(tmp_path, name):
+    cases.cli_trains(tmp_path, name)
